@@ -1,0 +1,200 @@
+"""KernelNN ("neuralop") — the reference's default surrogate model.
+
+Parity target: reference models/model.py:543-562 (KernelNN) built on
+NNConv_old (model.py:451-540) with a shared DenseNet edge kernel
+[ker_in, ker_width, ker_width, width**2] + ReLU (model.py:550) and
+aggr='mean' (model.py:551).  Forward: fc1 -> depth x relu(conv) -> fc2
+(model.py:555-562), the conv weights shared across depth (model.py:558-559).
+
+``apply`` is the plain whole-graph form; ``apply_fused`` runs each layer
+through the fused edge-conv layer (ops/fused_conv.py), a hand-written CUDA
+kernel on the GPU.  Weights move in and out in three layouts: the
+reference's ``.pth`` state dict (``import_pth``/``export_pth``) and the JAX
+package's parameter tree (``from_jax_params``/``to_jax_params``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.message_passing import (apply_edge_mlp_hidden,
+                                   edge_conditioned_conv,
+                                   precompute_edge_kernel)
+from ..ops.segment import segment_degree
+from .common import (from_jax_linear, from_torch_linear, linear_init,
+                     pyg_uniform_init, to_jax_linear, to_torch_linear)
+
+
+class KernelNN(nn.Module):
+    """Mirrors KernelNN.__init__ (model.py:544-553)."""
+
+    def __init__(self, width: int, ker_width: int, depth: int,
+                 ker_in: int = 1, in_width: int = 3, out_width: int = 3,
+                 kernel_rank: int | None = None, seed: int = 0):
+        super().__init__()
+        if kernel_rank is not None:
+            raise NotImplementedError(
+                "KernelNN kernel_rank (low-rank edge kernels) is not ported "
+                "yet (ROADMAP.md queue A item 12)")
+        self.width, self.ker_width, self.depth = width, ker_width, depth
+        self.ker_in, self.in_width, self.out_width = ker_in, in_width, out_width
+        self.kernel_rank = kernel_rank
+        skip = nn.utils.skip_init
+        self.fc1 = skip(nn.Linear, in_width, width)
+        self.edge_mlp = nn.ModuleList([
+            skip(nn.Linear, ker_in, ker_width),
+            skip(nn.Linear, ker_width, ker_width),
+            skip(nn.Linear, ker_width, width * width)])
+        self.root = nn.Parameter(torch.empty(width, width))
+        self.bias = nn.Parameter(torch.empty(width))
+        self.fc2 = skip(nn.Linear, width, out_width)
+        self.init_params(torch.Generator().manual_seed(seed))
+
+    def init_params(self, generator: torch.Generator) -> None:
+        """The JAX package's init distributions (KernelNN.init), drawn from
+        ``generator`` (the draws themselves differ from jax.random's)."""
+        linear_init(self.fc1, generator)
+        for layer in self.edge_mlp:
+            linear_init(layer, generator)
+        pyg_uniform_init(self.root, self.width, generator)
+        pyg_uniform_init(self.bias, self.width, generator)
+        linear_init(self.fc2, generator)
+
+    def apply(self, x: torch.Tensor, senders: torch.Tensor,
+              receivers: torch.Tensor, edge_attr: torch.Tensor,
+              edge_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """Forward pass for one (padded) graph. x: [N, C_in] -> [N, C_out].
+
+        The per-edge kernel matrices are loop-invariant (shared weights), so
+        they are computed once, not depth times."""
+        h = self.fc1(x)
+        pre = precompute_edge_kernel(self.edge_mlp, edge_attr, torch.relu)
+        deg = segment_degree(receivers, x.shape[0], edge_mask)
+        for _ in range(self.depth):
+            h = torch.relu(edge_conditioned_conv(
+                h, senders, receivers, edge_attr, self.edge_mlp, self.root,
+                self.bias, edge_mask=edge_mask, precomputed=pre, degree=deg))
+        return self.fc2(h)
+
+    def apply_fused(self, x: torch.Tensor, edge_attr_blocked: torch.Tensor,
+                    senders_perm: torch.Tensor, s_matrix, *, rows_blk: int,
+                    blk: int, gemm_dtype: str = "bfloat16") -> torch.Tensor:
+        """Forward via the fused conv layer (ops/fused_conv.py).
+
+        The edge MLP's hidden layer runs once (layer-invariant), then depth x
+        fused conv, then ``agg[:n] + h @ root + bias`` and ReLU.  bf16 GEMM
+        inputs by default, as in the JAX package; 'float32' for
+        full-precision parity.  ``s_matrix`` is dense S or a ``CompactS``.
+        """
+        from ..ops.fused_conv import _gemm_dtype, fused_edge_conv
+
+        dt = _gemm_dtype(gemm_dtype)
+        n = x.shape[0]
+        h = self.fc1(x)
+        h_e = apply_edge_mlp_hidden(self.edge_mlp, edge_attr_blocked,
+                                    torch.relu)
+        last = self.edge_mlp[-1]
+        # cast once: the layer's operands are depth-invariant
+        h_e = h_e.to(dt).contiguous()
+        w3 = last.weight.t().to(dt).contiguous()
+        b3 = last.bias.float().contiguous()
+        for _ in range(self.depth):
+            agg = fused_edge_conv(h_e, h, senders_perm, w3, b3, s_matrix,
+                                  c_in=self.width, c_out=self.width,
+                                  rows_blk=rows_blk, blk=blk,
+                                  gemm_dtype=gemm_dtype)
+            h = torch.relu(agg[:n] + h @ self.root + self.bias)
+        return self.fc2(h)
+
+    @staticmethod
+    def prepare_fused(senders, receivers, edge_attr, n_nodes,
+                      edge_mask=None, rows_blk: int = 64,
+                      quantum: int = 256, compact: bool = False):
+        """Host-side (numpy) fused-path operands for a static graph.
+
+        Returns (edge_attr_blocked, senders_perm, s_matrix, rows_blk, blk).
+        """
+        from ..ops.fused_conv import prepare_fused
+
+        return prepare_fused(senders, receivers, edge_attr, n_nodes,
+                             edge_mask, rows_blk, quantum, compact=compact)
+
+    # -- weight layouts ----------------------------------------------------
+    def _check_shapes(self, root_width: int, fc1_shape, head: int) -> None:
+        if root_width != self.width:
+            raise ValueError(
+                f"checkpoint width {root_width} does not match model config "
+                f"width {self.width}")
+        if tuple(fc1_shape) != (self.width, self.in_width):
+            raise ValueError(
+                f"checkpoint fc1 {tuple(fc1_shape)} does not match "
+                f"(width={self.width}, in_width={self.in_width})")
+        # the edge-MLP head width encodes the kernel factorization: full rank
+        # = width*width.  A low-rank checkpoint loading into this full-rank
+        # model would slice the flat head with the wrong column meaning.
+        if head != self.width * self.width:
+            raise ValueError(
+                f"checkpoint edge-MLP head width {head} does not match "
+                f"kernel_rank=None (expected {self.width * self.width}; "
+                "low-rank checkpoints cannot load into full-rank configs)")
+
+    def import_pth(self, state_dict) -> "KernelNN":
+        """Loads a reference checkpoint (torch state_dict / numpy dict).
+
+        Key layout per logs/models/collection_duct_neuralop/partition_0.pth:
+        fc1.*, conv1.root, conv1.bias, conv1.nn.layers.{0,2,4}.*, fc2.*.
+        """
+        sd = {k: v.detach().cpu().numpy() if hasattr(v, "detach") else v
+              for k, v in state_dict.items()}
+        self._check_shapes(sd["conv1.root"].shape[0], sd["fc1.weight"].shape,
+                           sd["conv1.nn.layers.4.weight"].shape[0])
+        from_torch_linear(self.fc1, sd, "fc1")
+        for i, layer in zip((0, 2, 4), self.edge_mlp):
+            from_torch_linear(layer, sd, f"conv1.nn.layers.{i}")
+        with torch.no_grad():
+            self.root.copy_(torch.tensor(np.asarray(sd["conv1.root"], np.float32)))
+            self.bias.copy_(torch.tensor(np.asarray(sd["conv1.bias"], np.float32)))
+        from_torch_linear(self.fc2, sd, "fc2")
+        return self
+
+    def export_pth(self) -> dict:
+        """Inverse of import_pth — numpy state_dict in the reference's layout."""
+        out: dict = {}
+        to_torch_linear(self.fc1, "fc1", out)
+        for i, layer in zip((0, 2, 4), self.edge_mlp):
+            to_torch_linear(layer, f"conv1.nn.layers.{i}", out)
+        out["conv1.root"] = self.root.detach().cpu().numpy().copy()
+        out["conv1.bias"] = self.bias.detach().cpu().numpy().copy()
+        to_torch_linear(self.fc2, "fc2", out)
+        return out
+
+    def from_jax_params(self, params: dict) -> "KernelNN":
+        """Loads the JAX package's KernelNN parameter tree (numpy leaves:
+        fc1/{w,b}, conv/edge_mlp/[3]/{w,b}, conv/root, conv/bias, fc2)."""
+        conv = params["conv"]
+        self._check_shapes(np.shape(conv["root"])[0],
+                           np.shape(params["fc1"]["w"])[::-1],
+                           np.shape(conv["edge_mlp"][-1]["w"])[1])
+        from_jax_linear(self.fc1, params["fc1"])
+        for layer, p in zip(self.edge_mlp, conv["edge_mlp"]):
+            from_jax_linear(layer, p)
+        with torch.no_grad():
+            self.root.copy_(torch.tensor(np.asarray(conv["root"], np.float32)))
+            self.bias.copy_(torch.tensor(np.asarray(conv["bias"], np.float32)))
+        from_jax_linear(self.fc2, params["fc2"])
+        return self
+
+    def to_jax_params(self) -> dict:
+        """The JAX package's parameter tree, numpy leaves (``from_jax_params``
+        inverse; ``core.checkpoint.save_params`` writes it)."""
+        return {
+            "fc1": to_jax_linear(self.fc1),
+            "conv": {
+                "edge_mlp": [to_jax_linear(layer) for layer in self.edge_mlp],
+                "root": self.root.detach().cpu().numpy().copy(),
+                "bias": self.bias.detach().cpu().numpy().copy(),
+            },
+            "fc2": to_jax_linear(self.fc2),
+        }

@@ -1,0 +1,393 @@
+"""Fused edge-conditioned conv layer: message + scatter-mean in one kernel.
+
+The hot op (reference NNConv_old message+aggregate, models/model.py:521-536)
+is, per edge e with scalar attr a_e:
+
+    W_e  = EdgeMLP(a_e).reshape(c_in, c_out)      # [E, w^2] matrices
+    m_e  = x[sender(e)] @ W_e                     # per-edge bmm
+    out_i = mean_{e: recv(e)=i} m_e               # scatter-mean
+
+``fused_edge_conv`` computes one layer of it without ever storing W_e.  Its
+operands come from a host-side (numpy) grouping of the receiver-sorted edges
+into row blocks (``build_scatter_blocks``, identical to the JAX package's):
+``rows_blk`` = 64 consecutive receiver nodes per block, each block padded to
+a fixed ``blk`` slots, and the scatter-mean given as S (dense
+[num_blocks*rows_blk, blk], or its ``CompactS`` generators).
+
+On a CUDA tensor the layer launches the hand-written kernel in
+``csrc/fused_edge_conv.cu`` (built with nvcc at first use, loaded with
+ctypes); on a CPU tensor it runs the plain PyTorch version below, which is
+the same function and the reference the kernel is checked against.  Nothing
+falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import numpy as np
+import torch
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactS:
+    """Generator data for the dense S scatter blocks — 1/64th their bytes.
+
+    S[b, r, c] = (slot_rows[b*blk+c] == r) * row_weight[b*rows_blk+r]; padding
+    slots carry -1 and never match.  The CUDA kernel reads these generators
+    directly and never builds S; ``expand_s`` gives the dense form.  Fields
+    are numpy on the host and torch tensors after ``to``."""
+
+    slot_rows: np.ndarray       # [num_blocks*blk] int32 row-in-block, -1 pad
+    row_weight: np.ndarray      # [num_blocks*rows_blk] f32, 1/deg or 1
+
+    def to(self, device) -> "CompactS":
+        """The generators as torch tensors on ``device``."""
+        return CompactS(torch.as_tensor(np.asarray(self.slot_rows), device=device),
+                        torch.as_tensor(np.asarray(self.row_weight), device=device))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterBlocks:
+    """Host-precomputed, graph-static block structure (hashable aux: shapes
+    only; arrays are numpy and passed as jit operands)."""
+
+    edge_perm: np.ndarray       # [num_blocks*blk] int32 into original edges
+    s_matrix: np.ndarray | None  # [num_blocks*rows_blk, blk] f32 (dense=True)
+    senders_perm: np.ndarray    # [num_blocks*blk] int32 into nodes
+    slot_mask: np.ndarray       # [num_blocks*blk] bool, False on padding
+    compact_s: CompactS         # always built (tiny)
+    rows_blk: int
+    blk: int
+    num_blocks: int
+    n_nodes: int                # real node count (<= num_blocks*rows_blk)
+
+    @property
+    def n_pad(self) -> int:
+        return self.num_blocks * self.rows_blk
+
+    def train_aux(self) -> dict:
+        """int32 operand dict for the differentiable fused layer (training).
+
+        ``senders_dump``: sender id per slot, with padding slots redirected
+        to a dump row at index n_nodes — the dx scatter-add runs as ONE
+        unsorted segment sum over n_nodes+1 segments and the dump row is
+        sliced off, so padding slots (senders_perm 0) cannot corrupt node
+        0's gradient."""
+        dump = np.where(self.slot_mask, self.senders_perm,
+                        np.int32(self.n_nodes)).astype(np.int32)
+        return {"senders_perm": self.senders_perm,
+                "senders_dump": dump}
+
+
+def build_scatter_blocks(receivers: np.ndarray, senders: np.ndarray,
+                         n_nodes: int, edge_mask: np.ndarray | None = None,
+                         rows_blk: int = 64, quantum: int = 256,
+                         aggr: str = "mean",
+                         max_s_bytes: int = 2 << 30,
+                         dense: bool = True) -> ScatterBlocks:
+    """Groups receiver-sorted edges into fixed-size row-block buckets.
+
+    receivers MUST be ascending over real edges (pad_graph emits them so;
+    asserted).  Padded/masked edges may appear anywhere — they are dropped
+    here and re-padded per block with S-column zeros.
+    """
+    receivers = np.asarray(receivers, np.int64)
+    senders = np.asarray(senders, np.int64)
+    if edge_mask is not None:
+        keep = np.asarray(edge_mask, bool)
+        receivers, senders = receivers[keep], senders[keep]
+        real_idx = np.flatnonzero(keep)
+    else:
+        real_idx = np.arange(receivers.shape[0])
+    order = None
+    if receivers.size and np.any(np.diff(receivers) < 0):
+        order = np.argsort(receivers, kind="stable")
+        receivers, senders, real_idx = (receivers[order], senders[order],
+                                        real_idx[order])
+
+    num_blocks = max(1, _round_up(n_nodes, rows_blk) // rows_blk)
+    # edges per row-block via boundary search on the sorted receivers
+    bounds = np.searchsorted(receivers,
+                             np.arange(num_blocks + 1) * rows_blk)
+    counts = np.diff(bounds)
+    blk = int(_round_up(max(int(counts.max() if counts.size else 0), 1),
+                        quantum))
+    s_bytes = num_blocks * rows_blk * blk * 4
+    if s_bytes > max_s_bytes:
+        raise ValueError(
+            f"scatter blocks would need {s_bytes/1e9:.1f} GB (N={n_nodes}, "
+            f"blk={blk}); chunk the graph (FESR_PREDICT_EDGE_BUDGET) or use "
+            "an XLA conv mode")
+
+    deg = np.bincount(receivers, minlength=n_nodes).astype(np.float32)
+    weight = (1.0 / np.maximum(deg, 1.0)) if aggr == "mean" else \
+        np.ones_like(deg)
+
+    # vectorized block fill: edge j (global sorted order) lands in block
+    # b(j) = receivers[j] // rows_blk at column j - bounds[b(j)]
+    e_real = receivers.shape[0]
+    edge_perm = np.zeros(num_blocks * blk, np.int32)
+    senders_perm = np.zeros(num_blocks * blk, np.int32)
+    slot_mask = np.zeros(num_blocks * blk, bool)
+    slot_rows = np.full(num_blocks * blk, -1, np.int32)
+    row_weight = np.zeros(num_blocks * rows_blk, np.float32)
+    row_weight[:n_nodes] = weight[:n_nodes]
+    s = np.zeros((num_blocks * rows_blk, blk), np.float32) if dense else None
+    if e_real:
+        block_of = (receivers // rows_blk).astype(np.int64)
+        col = np.arange(e_real) - bounds[block_of]
+        slot = block_of * blk + col
+        edge_perm[slot] = real_idx
+        senders_perm[slot] = senders
+        slot_mask[slot] = True
+        slot_rows[slot] = receivers % rows_blk
+        if dense:
+            s[receivers, col] = weight[receivers]
+    return ScatterBlocks(edge_perm=edge_perm, s_matrix=s,
+                         senders_perm=senders_perm, slot_mask=slot_mask,
+                         compact_s=CompactS(slot_rows, row_weight),
+                         rows_blk=rows_blk, blk=blk, num_blocks=num_blocks,
+                         n_nodes=int(n_nodes))
+
+
+def expand_s(slot_rows: torch.Tensor, row_weight: torch.Tensor, *,
+             rows_blk: int, blk: int) -> torch.Tensor:
+    """Dense S [nb*rows_blk, blk] from its generators — one blockwise
+    compare-multiply (parity with the dense host S is exact)."""
+    nb = slot_rows.shape[0] // blk
+    rib = slot_rows.reshape(nb, 1, blk)
+    rows = torch.arange(rows_blk, dtype=slot_rows.dtype,
+                        device=slot_rows.device).reshape(1, rows_blk, 1)
+    w = row_weight.reshape(nb, rows_blk, 1)
+    return torch.where(rib == rows, w, torch.zeros_like(w)).reshape(
+        nb * rows_blk, blk)
+
+
+def prepare_fused(senders, receivers, edge_attr, n_nodes, edge_mask=None,
+                  rows_blk: int = 64, quantum: int = 256,
+                  compact: bool = False):
+    """Host-side (numpy) fused-path operands for a static graph.
+
+    Returns (edge_attr_blocked, senders_perm, s, rows_blk, blk) where s is
+    the dense host S matrix, or (compact=True) a ``CompactS``.
+    """
+    blocks = build_scatter_blocks(receivers, senders, n_nodes, edge_mask,
+                                  rows_blk=rows_blk, quantum=quantum,
+                                  dense=not compact)
+    ea = np.asarray(edge_attr)[blocks.edge_perm]
+    s = blocks.compact_s if compact else blocks.s_matrix
+    return (ea, blocks.senders_perm, s, blocks.rows_blk, blocks.blk)
+
+
+def prepare_fused_train(senders, receivers, edge_attr, n_nodes,
+                        edge_mask=None, rows_blk: int = 64,
+                        quantum: int = 256, compact: bool = False):
+    """Host-side operands for the differentiable fused path:
+    (edge_attr_blocked, fused_aux, s, rows_blk, blk); s as in
+    ``prepare_fused``."""
+    blocks = build_scatter_blocks(receivers, senders, n_nodes, edge_mask,
+                                  rows_blk=rows_blk, quantum=quantum,
+                                  dense=not compact)
+    ea = np.asarray(edge_attr)[blocks.edge_perm]
+    s = blocks.compact_s if compact else blocks.s_matrix
+    return (ea, blocks.train_aux(), s, blocks.rows_blk, blocks.blk)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel: build at first use, bind with ctypes
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG_DIR, "csrc", "fused_edge_conv.cu")
+_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libfused_edge_conv.so")
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    """nvcc from CUDA_HOME, else from PATH, else the toolkit's default
+    install location."""
+    if os.environ.get("CUDA_HOME"):
+        return os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def build_kernel(force: bool = False) -> str:
+    """Compiles ``csrc/fused_edge_conv.cu`` into ``_build/`` when the library
+    is missing or older than its source; returns the library path.  The
+    compile goes to a temporary file renamed into place, so concurrent
+    builds never load a half-written library.  Raises on a failed build."""
+    if (not force and os.path.exists(_LIB_PATH)
+            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC)):
+        return _LIB_PATH
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so")
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {_SRC}:\n{proc.stderr}")
+        os.replace(tmp, _LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return _LIB_PATH
+
+
+def _load_kernel():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build_kernel())
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.fused_edge_conv_forward.argtypes = [p] * 9 + [i] * 7 + [p]
+            lib.fused_edge_conv_forward.restype = i
+            lib.fused_edge_conv_smem_bytes.argtypes = [i, i, i]
+            lib.fused_edge_conv_smem_bytes.restype = ctypes.c_long
+            _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# the layer
+
+
+def _gemm_dtype(gemm_dtype: str) -> torch.dtype:
+    if gemm_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"gemm_dtype {gemm_dtype!r} (expected float32 | bfloat16)")
+    return torch.float32 if gemm_dtype == "float32" else torch.bfloat16
+
+
+def fused_edge_conv_plain(h_blocked, x, senders_perm, w3, b3, s, *,
+                          c_in: int, c_out: int, rows_blk: int, blk: int,
+                          gemm_dtype: str = "float32") -> torch.Tensor:
+    """Plain PyTorch version of ``fused_edge_conv`` (same operands, same
+    result): h, x and w3 are rounded to ``gemm_dtype``, everything after in
+    float32.  Materializes the per-slot [slots, c_in*c_out] matrices."""
+    dt = _gemm_dtype(gemm_dtype)
+    x_src = x[senders_perm.long()].to(dt).float()
+    w = h_blocked.to(dt).float() @ w3.to(dt).float() + b3.float()
+    msg = torch.einsum("ei,eio->eo", x_src, w.reshape(-1, c_in, c_out))
+    nb = msg.shape[0] // blk
+    if isinstance(s, CompactS):
+        s = expand_s(s.slot_rows, s.row_weight, rows_blk=rows_blk, blk=blk)
+    out = torch.bmm(s.reshape(nb, rows_blk, blk).float(),
+                    msg.reshape(nb, blk, c_out))
+    return out.reshape(nb * rows_blk, c_out)
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}; the kernel needs CUDA tensors")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
+                         c_in: int, c_out: int, rows_blk: int,
+                         blk: int) -> torch.Tensor:
+    """Launches the CUDA kernel on the current stream.  h_blocked, x and w3
+    share one dtype (float32 or bfloat16, the GEMM input type); b3 and S are
+    float32, index arrays int32.  Checks every operand and raises on what the
+    kernel does not take; raises if the launch fails."""
+    dt = h_blocked.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"h_blocked dtype {dt} (expected float32 | bfloat16)")
+    if rows_blk != 64:
+        raise ValueError(f"rows_blk={rows_blk}: the kernel takes 64-row blocks")
+    if blk % 64 or blk <= 0:
+        raise ValueError(f"blk={blk} must be a positive multiple of 64")
+    if not 1 <= c_out <= 64:
+        raise ValueError(f"c_out={c_out} outside the kernel's 1..64")
+    slots, k = h_blocked.shape
+    if slots % blk:
+        raise ValueError(f"{slots} slots is not a multiple of blk={blk}")
+    nb = slots // blk
+    n = x.shape[0]
+    _check("h_blocked", h_blocked, dt, (slots, k))
+    _check("x", x, dt, (n, c_in))
+    _check("senders_perm", senders_perm, torch.int32, (slots,))
+    _check("w3", w3, dt, (k, c_in * c_out))
+    _check("b3", b3, torch.float32, (c_in * c_out,))
+    if isinstance(s, CompactS):
+        _check("slot_rows", s.slot_rows, torch.int32, (slots,))
+        _check("row_weight", s.row_weight, torch.float32, (nb * rows_blk,))
+        ptrs = (s.slot_rows.data_ptr(), s.row_weight.data_ptr(), None)
+    else:
+        _check("s", s, torch.float32, (nb * rows_blk, blk))
+        ptrs = (None, None, s.data_ptr())
+    dev = h_blocked.device
+    for name, t in (("x", x), ("senders_perm", senders_perm), ("w3", w3),
+                    ("b3", b3)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
+    lib = _load_kernel()
+    out = torch.empty((nb * rows_blk, c_out), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_edge_conv_forward(
+            h_blocked.data_ptr(), x.data_ptr(), senders_perm.data_ptr(),
+            w3.data_ptr(), b3.data_ptr(), *ptrs, out.data_ptr(), nb, blk, k,
+            c_in, c_out, n, int(dt == torch.bfloat16), stream)
+    if err != 0:
+        smem = lib.fused_edge_conv_smem_bytes(k, c_in, c_out)
+        raise RuntimeError(
+            f"fused_edge_conv kernel launch failed: cudaError {err} "
+            f"(K={k}, c_in={c_in}, c_out={c_out}: {smem} B of shared memory "
+            "per block)")
+    fused_edge_conv.launches += 1
+    return out
+
+
+def fused_edge_conv(h_blocked, x, senders_perm, w3, b3, s, *,
+                    c_in: int, c_out: int, rows_blk: int, blk: int,
+                    gemm_dtype: str = "float32") -> torch.Tensor:
+    """One conv layer's message+aggregate: returns [num_blocks*rows_blk, c_out]
+    float32.
+
+    Args:
+      h_blocked: [num_blocks*blk, K] edge-MLP hidden feats in block order.
+      x: [N, c_in] node features entering this layer.
+      senders_perm: [num_blocks*blk] int32 sender ids in block order.
+      w3/b3: final edge-MLP layer ([K, c_in*c_out], [c_in*c_out]).
+      s: dense [num_blocks*rows_blk, blk] scatter weights, or ``CompactS``.
+      gemm_dtype: 'float32' or 'bfloat16' — the type h, x and w3 are rounded
+        to; accumulation is float32 either way.
+
+    CUDA operands launch the kernel (``fused_edge_conv.launches`` counts the
+    launches); CPU operands run ``fused_edge_conv_plain``.
+    """
+    if h_blocked.device.type == "cpu":
+        return fused_edge_conv_plain(h_blocked, x, senders_perm, w3, b3, s,
+                                     c_in=c_in, c_out=c_out,
+                                     rows_blk=rows_blk, blk=blk,
+                                     gemm_dtype=gemm_dtype)
+    dt = _gemm_dtype(gemm_dtype)
+    return fused_edge_conv_cuda(h_blocked.to(dt).contiguous(),
+                                x.to(dt).contiguous(), senders_perm,
+                                w3.to(dt).contiguous(), b3.float().contiguous(),
+                                s, c_in=c_in, c_out=c_out, rows_blk=rows_blk,
+                                blk=blk)
+
+
+fused_edge_conv.launches = 0
