@@ -1,24 +1,43 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Phases, each printing its own line; any failure raises and the script exits
+Phases, each printing its own lines; any failure raises and the script exits
 non-zero without the final result line:
 
 1. device  — needs CUDA; prints the card's name and power limit.
-2. build   — compiles the fused edge-conv kernel (csrc/fused_edge_conv.cu)
-             from the checkout with nvcc.
-3. kernel  — the kernel against its plain PyTorch version on the card, at the
+2. build   — compiles both kernels (csrc/fused_edge_conv.cu, the forward B1,
+             and csrc/fused_edge_conv_bwd.cu, the backward B2) from the
+             checkout, one nvcc each, started together.
+3. kernel  — B1 against its plain PyTorch version on the card, at the
              full-size serving chunk shape, on operands from the real dataset
              chunk: float32 (TF32 off) and bfloat16, compact and dense S.
-4. serve   — the port's ``pred_graph_ALDD`` on the synthetic duct at the full
+4. bwd     — B2 against its plain version at the same shape and operands with
+             a seeded output gradient, both types and both S forms; then the
+             differentiable layer's gradients on the card against the CPU's
+             plain ones on the small mesh's graph.
+   train batch — both kernels again at the shapes training gives them: the
+             first layer's operands of the 12-subdomain train batch and the
+             4-subdomain val batch, built as the scheduler builds them (one
+             common blk); B1 on both, B2 on the train batch with a seeded
+             output gradient, both types and both S forms.
+5. serve   — the port's ``pred_graph_ALDD`` on the synthetic duct at the full
              width of configs/exp_config/neuralop_synthetic_full.yaml (width
              48, depth 4) with a seeded checkpoint: two full-size meshes
              (general lane, 2 chunks x 4 layers = 8 launches each) and one
              small mesh (fast lane, 4 launches); every .vtu finite; the card's
              prediction against the port's float32 plain prediction on the CPU.
-5. times   — CUDA-event medians of the kernel and its plain version, and the
-             warm wall time of one full-size request.
+6. train   — ``train_graph_ALDD`` on the full-size meshes (16 subdomains,
+             12 train / 4 val) with configs/train_config/synthetic_full.yaml
+             cut to 10 epochs: finite losses that fall, B2 launched depth x
+             steps times and B1 depth x (steps + validations), a checkpoint
+             written, then served to a finite .vtu.
+7. parity  — three float32 fused train steps on the small mesh on the card
+             (kernels) and on the CPU (plain versions), same weights: the
+             losses agree.
+8. times   — CUDA-event medians of both kernels and their plain versions, the
+             warm wall time of one full-size request and of one fused train
+             step, and profiles of both.
 
-The second-to-last line is a JSON object with the kernel's numbers, the last
+The second-to-last line is a JSON object with the kernels' numbers, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -44,7 +63,9 @@ from fast_eng_super_resolution_tpu_torch.data.vtu import read_vtu  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.models.registry import init_model  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.ops import fused_conv  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.ops.message_passing import apply_edge_mlp_hidden  # noqa: E402
-from fast_eng_super_resolution_tpu_torch.runner import pred_graph_ALDD  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.parallel.train import (  # noqa: E402
+    Trainer, make_fused_batch, make_fused_batches, train_val_split)
+from fast_eng_super_resolution_tpu_torch.runner import pred_graph_ALDD, train_graph_ALDD  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.sched.scheduler import PartitionScheduler  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.sched.serving import _as_raw_graph, edge_budget  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.utils.config import load_yaml  # noqa: E402
@@ -52,6 +73,9 @@ from fast_eng_super_resolution_tpu_torch.utils.config import load_yaml  # noqa: 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BASE_CONFIG = os.path.join(REPO, "configs", "exp_config",
                            "neuralop_synthetic_full.yaml")
+TRAIN_CONFIG = os.path.join(REPO, "configs", "train_config",
+                            "synthetic_full.yaml")
+TRAIN_EPOCHS = 10  # the one cut of synthetic_full.yaml (300 epochs)
 FULL = dict(n_high=(48, 24, 24), n_low=(20, 10, 10), sub_size=8, num_cases=2)
 SMALL = dict(n_high=(16, 8, 8), n_low=(8, 4, 4), sub_size=4, num_cases=1)
 SEED = 0
@@ -61,6 +85,15 @@ LAUNCHES = {"full": 8, "small": 4}  # per request: chunks x depth
 # round h, x and w3 to the GEMM type identically and then work in float32,
 # summing ~2.4k products per slot in different orders: ~1e-6 expected.
 KERNEL_TOL = {"float32": 5e-5, "bfloat16": 1e-4}
+# B2 vs its plain version, each output relative to its own max: both round h,
+# x_src, w3 and dmsg (one exact product per slot) identically, then sum
+# float32 products in different orders (dw3: over ~250k slots).
+# The differentiable layer on the card vs the CPU's plain versions (float32,
+# index_add_ atomics on the card) and the fused train losses card vs CPU
+# (float32, 3 steps of Adam): 1e-4.
+BWD_TOL = {"float32": 5e-5, "bfloat16": 1e-4}
+GRAD_TOL = 1e-4
+PARITY_TOL = 1e-4
 # Served bf16 prediction vs the CPU float32 plain prediction: bf16 rounding of
 # the GEMM inputs (2^-8 relative) through 4 layers -> 3e-2 of the max.
 SERVE_TOL = 3e-2
@@ -161,15 +194,17 @@ def layer(op, gemm_dtype, plain=False, dense=False):
               gemm_dtype=gemm_dtype)
 
 
-def phase_kernel(op) -> dict:
+def phase_kernel(op, at: str = "chunk", errs: dict | None = None) -> dict:
+    """B1 against its plain version on ``op`` (the operands at shape
+    ``at``); returns ``errs`` with each type's largest absolute error."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     slots, k = op["h"].shape
-    log("kernel", n=op["n"], subdomains=op["b"], num_blocks=slots // op["blk"],
-        blk=op["blk"], slots=slots,
+    log("kernel", at=at, n=op["n"], subdomains=op["b"],
+        num_blocks=slots // op["blk"], blk=op["blk"], slots=slots,
         real_slots=int((op["s"].slot_rows >= 0).sum()), k=k,
         c=op["x"].shape[1])
-    errs = {}
+    errs = {} if errs is None else errs
     with torch.no_grad():
         for dt in ("float32", "bfloat16"):
             ref = layer(op, dt, plain=True)
@@ -178,14 +213,15 @@ def phase_kernel(op) -> dict:
                 torch.cuda.synchronize()
                 abs_err = (got - ref).abs().max().item()
                 rel = abs_err / ref.abs().max().item()
-                log("kernel", dtype=dt, s="dense" if dense else "compact",
+                log("kernel", at=at, dtype=dt, s="dense" if dense else "compact",
                     max_abs_err=f"{abs_err:.3e}", rel_to_max=f"{rel:.3e}",
                     tol=KERNEL_TOL[dt])
                 if not (rel <= KERNEL_TOL[dt]):
-                    raise AssertionError(f"kernel {dt} dense={dense}: "
+                    raise AssertionError(f"kernel at {at} {dt} dense={dense}: "
                                          f"{rel:.3e} > {KERNEL_TOL[dt]}")
-                errs.setdefault(dt, 0.0)
-                errs[dt] = max(errs[dt], abs_err)
+                errs[dt] = max(errs.get(dt, 0.0), abs_err)
+            del ref, got
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -296,45 +332,359 @@ def phase_times(op, datasets, models, root, smi) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     t["request_ms"] = statistics.median(walls) * 1e3
-    t.update(profile_request(request))
+    t.update(profile_call(request, "request"))
     for key, v in t.items():
-        log("times", **{key: v if isinstance(v, (int, str)) else f"{v:.4f}"},
+        log("times", kernel="fwd",
+            **{key: v if isinstance(v, (int, str)) else f"{v:.4f}"},
             card=repr(smi))
     return t
 
 
-def profile_request(request) -> dict:
-    """Where one warm request's time goes: torch.profiler's device time by
-    kernel, and the device's busy share of the request's wall time."""
+def profile_call(fn, label: str) -> dict:
+    """Where one warm call's time goes: torch.profiler's device time by
+    kernel, and the device's busy share of the call's wall time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        request()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # self time: a kernel's own device time, not again under the op that
-    # launched it
+    # device-side rows only (kernels, copies): an operator's row repeats the
+    # device time of the kernels it launched, and an autograd Function's
+    # backward (FusedEdgeConvBackward) reports its ctypes-launched kernels
+    # as its own self time
     rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     for key, us, count in rows[:8]:
-        log("profile", kernel=repr(key[:60]), device_ms=f"{us / 1e3:.3f}",
-            calls=count)
+        log("profile", call=label, kernel=repr(key[:60]),
+            device_ms=f"{us / 1e3:.3f}", calls=count)
     busy = sum(us for _, us, _ in rows)
     if not rows:  # the profiler saw no device activity: no share to report
-        log("profile", device_time="not measured")
+        log("profile", call=label, device_time="not measured")
         return {}
     return {"profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / wall_us}
 
 
+BWD_NAMES = ("dh", "dx_src", "dw3", "db3")
+
+
+def bwd_operands(op) -> dict:
+    """B2's operands at the chunk shape: B1's, the gathered x_src, and a
+    seeded gradient of the layer's output."""
+    nb = op["h"].shape[0] // op["blk"]
+    g = torch.randn(nb * op["rows_blk"], op["x"].shape[1],
+                    generator=torch.Generator().manual_seed(SEED))
+    return dict(op, g=g.to(op["x"].device),
+                x_src=op["x"][op["sp"].long()].contiguous())
+
+
+def bwd(bop, gemm_dtype, plain=False, dense=False):
+    fn = (fused_conv.fused_edge_conv_bwd_plain if plain
+          else fused_conv.fused_edge_conv_bwd)
+    s = bop["s"]
+    if dense:
+        s = fused_conv.expand_s(s.slot_rows, s.row_weight,
+                                rows_blk=bop["rows_blk"], blk=bop["blk"])
+    c = bop["x"].shape[1]
+    return fn(bop["g"], bop["h"], bop["x_src"], bop["w3"], bop["b3"], s,
+              c_in=c, c_out=c, rows_blk=bop["rows_blk"], blk=bop["blk"],
+              gemm_dtype=gemm_dtype)
+
+
+def merged_subdomains(ds, idxs=None):
+    """One merged host graph of the dataset's subdomains ``idxs`` (all by
+    default), padded as the scheduler pads a batch."""
+    idxs = range(len(ds)) if idxs is None else idxs
+    raw = [_as_raw_graph(ds.get(int(i))) for i in idxs]
+    (_, _, batch), = pad_and_bucket(raw, uniform=True)
+    return merge_batch(batch)[0]
+
+
+def layer_grads(merged, model, device) -> list:
+    """The differentiable fused layer's gradients (h, x, w3, b3) for the
+    graph ``merged`` at the model's width, float32, on ``device``, from the
+    model's first-layer operands and a seeded output gradient."""
+    ea, aux, s, rows_blk, blk = model.prepare_fused_train(
+        merged.senders, merged.receivers, merged.edge_attr,
+        merged.x.shape[0], merged.edge_mask, compact=True)
+    with torch.no_grad():
+        h = apply_edge_mlp_hidden(model.edge_mlp, torch.as_tensor(ea),
+                                  torch.relu)
+        x = model.fc1(torch.as_tensor(merged.x))
+        w3 = model.edge_mlp[-1].weight.t().contiguous()
+        b3 = model.edge_mlp[-1].bias.detach().clone()
+    c = x.shape[1]
+    g = torch.randn(len(s.row_weight), c,
+                    generator=torch.Generator().manual_seed(SEED + 1))
+    leaves = [t.to(device).requires_grad_() for t in (h, x, w3, b3)]
+    out = fused_conv.fused_edge_conv_ad(
+        *leaves, s.to(device),
+        {k: torch.as_tensor(v, device=device) for k, v in aux.items()},
+        c_in=c, c_out=c, rows_blk=rows_blk, blk=blk, gemm_dtype="float32")
+    (out * g.to(device)).sum().backward()
+    return [t.grad.cpu() for t in leaves]
+
+
+def check_bwd(bop, at: str = "chunk", errs: dict | None = None) -> dict:
+    """B2 against its plain version on ``bop`` (the operands at shape
+    ``at``), each output relative to its own max; returns ``errs`` with
+    each type's largest absolute error."""
+    slots, k = bop["h"].shape
+    log("bwd", at=at, n=bop["n"], subdomains=bop["b"],
+        num_blocks=slots // bop["blk"], blk=bop["blk"], slots=slots,
+        real_slots=int((bop["s"].slot_rows >= 0).sum()))
+    errs = {} if errs is None else errs
+    with torch.no_grad():
+        for dt in ("float32", "bfloat16"):
+            ref = bwd(bop, dt, plain=True)
+            for dense in (False, True):
+                got = bwd(bop, dt, dense=dense)
+                torch.cuda.synchronize()
+                for name, a, b in zip(BWD_NAMES, got, ref):
+                    abs_err = (a - b).abs().max().item()
+                    rel = abs_err / b.abs().max().item()
+                    log("bwd", at=at, dtype=dt,
+                        s="dense" if dense else "compact", out=name,
+                        max_abs_err=f"{abs_err:.3e}",
+                        rel_to_max=f"{rel:.3e}", tol=BWD_TOL[dt])
+                    if not rel <= BWD_TOL[dt]:
+                        raise AssertionError(
+                            f"bwd kernel at {at} {dt} dense={dense} {name}: "
+                            f"{rel:.3e} > {BWD_TOL[dt]}")
+                    errs[dt] = max(errs.get(dt, 0.0), abs_err)
+            del ref, got
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_bwd(bop, small_merged, small_model) -> dict:
+    """B2 against its plain version at the chunk shape, then the
+    differentiable layer on the card against the CPU."""
+    errs = check_bwd(bop)
+    model = small_model.cpu()
+    card = layer_grads(small_merged, model, "cuda")
+    torch.cuda.synchronize()
+    for name, a, b in zip(("h", "x", "w3", "b3"), card,
+                          layer_grads(small_merged, model, "cpu")):
+        rel = (a - b).abs().max().item() / b.abs().max().item()
+        log("bwd", layer="FusedEdgeConv", grad=name, card_vs_cpu=f"{rel:.3e}",
+            tol=GRAD_TOL)
+        if not rel <= GRAD_TOL:
+            raise AssertionError(f"FusedEdgeConv grad {name}: {rel:.3e}")
+    return errs
+
+
+def train_batches(ds, cfg: dict):
+    """(model, [train batch, val batch], rows_blk, blk): the fused batches
+    ``PartitionScheduler.train`` builds for ``ds`` with seed 0 and a batch
+    size of at least 12 — the train and val subdomains each merged into one
+    graph, both blocked with one common blk — on the card, with a seeded
+    full-width model."""
+    tr_idx, va_idx = train_val_split(len(ds), 0.2, 0)
+    model = init_model("neuralop", cfg["in_channels"], cfg["out_channels"],
+                       seed=SEED, **{k: cfg[k] for k in ("width", "num_layers")})
+    model = model.cuda()
+    fbs, rows_blk, blk = make_fused_batches(
+        [merged_subdomains(ds, ix) for ix in (tr_idx, va_idx)], model)
+    for fb, ix in zip(fbs, (tr_idx, va_idx)):
+        fb["subdomains"] = len(ix)
+    return model, fbs, rows_blk, blk
+
+
+def batch_operands(fb, model, rows_blk: int, blk: int) -> dict:
+    """The first conv layer's operands of a fused training batch, as
+    ``apply_fused_ad`` hands them to the layer."""
+    g, fused = fb["graph"], fb["fused"]
+    with torch.no_grad():
+        h_e = apply_edge_mlp_hidden(model.edge_mlp, fused["edge_attr"],
+                                    torch.relu).contiguous()
+        x = model.fc1(g.x).contiguous()
+        w3 = model.edge_mlp[-1].weight.t().contiguous()
+        b3 = model.edge_mlp[-1].bias.detach().contiguous()
+    return dict(h=h_e, x=x, sp=fused["aux"]["senders_perm"], w3=w3, b3=b3,
+                s=fused["s"], rows_blk=rows_blk, blk=blk, n=g.x.shape[0],
+                b=fb["subdomains"])
+
+
+def phase_train_kernels(batches, errs: dict, errs_bwd: dict) -> None:
+    """Both kernels against their plain versions at the shapes training
+    gives them: B1 on the train and val batches, B2 on the train batch."""
+    model, fbs, rows_blk, blk = batches
+    for at, fb in zip(("train_batch", "val_batch"), fbs):
+        op = batch_operands(fb, model, rows_blk, blk)
+        phase_kernel(op, at, errs)
+        if at == "train_batch":
+            check_bwd(bwd_operands(op), at, errs_bwd)
+        del op
+        torch.cuda.empty_cache()
+
+
+def phase_train(root: str, datasets: dict, cfgs: dict) -> dict:
+    """The training slice end to end: train_graph_ALDD on the full-size
+    meshes, launch counts, then the trained checkpoint served."""
+    log_dir = os.path.join(root, "logs")
+    train_cfg = load_yaml(TRAIN_CONFIG)
+    log("train", config=os.path.relpath(TRAIN_CONFIG, REPO),
+        cut=f"epochs {train_cfg['epochs']} -> {TRAIN_EPOCHS}",
+        val_interval=f"{train_cfg['val_interval']} -> 1")
+    train_cfg.update(epochs=TRAIN_EPOCHS, val_interval=1)
+    cfg, ds = cfgs["full"], datasets["full"]
+    depth = cfg["num_layers"]
+    tr_idx, va_idx = train_val_split(len(ds), 0.2, 0)
+    n_batches = [-(-len(ix) // min(train_cfg["batch_size"], len(tr_idx)))
+                 for ix in (tr_idx, va_idx)]
+    model = init_model("neuralop", cfg["in_channels"], cfg["out_channels"],
+                       seed=SEED, **{k: cfg[k] for k in ("width", "num_layers")})
+    fused_conv.fused_edge_conv.launches = 0
+    fused_conv.fused_edge_conv_bwd.launches = 0
+    t0 = time.time()
+    train_graph_ALDD("train_full", model, ds, 1, train_cfg, log_dir=log_dir)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    b1 = fused_conv.fused_edge_conv.launches
+    b2 = fused_conv.fused_edge_conv_bwd.launches
+    with open(os.path.join(log_dir, "metrics",
+                           "train_full_partition_0.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    vals = [r["val_loss"] for r in records if "val_loss" in r]
+    steps = TRAIN_EPOCHS * n_batches[0]
+    evals = len(vals) * n_batches[1]
+    log("train", subdomains=len(ds), train=len(tr_idx), val=len(va_idx),
+        epochs=len(losses), steps=steps, val_evals=evals,
+        first_loss=f"{losses[0]:.5g}", last_loss=f"{losses[-1]:.5g}",
+        best_val=f"{min(vals):.5g}", b1_launches=b1, b2_launches=b2,
+        wall_s=f"{wall:.1f}")
+    if len(losses) != TRAIN_EPOCHS or not np.all(np.isfinite(losses + vals)):
+        raise AssertionError(f"train losses {losses}, val {vals}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    if b2 != depth * steps or b1 != depth * (steps + evals):
+        raise AssertionError(f"launches B1 {b1} (want {depth * (steps + evals)}),"
+                             f" B2 {b2} (want {depth * steps})")
+    ckpt_path = os.path.join(log_dir, "models", "collection_train_full",
+                             "partition_0.npz")
+    if not os.path.exists(ckpt_path):
+        raise AssertionError(f"{ckpt_path} was not written")
+    fused_conv.fused_edge_conv.launches = 0
+    lanes, fields = serve(ds, model, cfg, [0], log_dir, "train_full", None)
+    torch.cuda.synchronize()
+    served = fused_conv.fused_edge_conv.launches
+    log("train", served_from=os.path.relpath(ckpt_path, root),
+        lane=lanes[0][1], launches=served,
+        nodes=len(fields[0]["pressure"]), finite=True)
+    if served != LAUNCHES["full"]:
+        raise AssertionError(f"trained checkpoint's request launched B1 "
+                             f"{served} times, expected {LAUNCHES['full']}")
+    return dict(b1=b1, b2=b2, served=served, steps=steps, evals=evals,
+                losses=losses)
+
+
+def phase_parity(small_merged, cfg: dict) -> None:
+    """Three float32 fused train steps on the card (kernels) and on the CPU
+    (plain versions), from the same seeded weights."""
+    lr = load_yaml(TRAIN_CONFIG)["lr"]
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        model = init_model("neuralop", cfg["in_channels"], cfg["out_channels"],
+                           seed=SEED, **{k: cfg[k] for k in ("width", "num_layers")})
+        fb, rows_blk, blk = make_fused_batch(small_merged, model, device=dev)
+        trainer = Trainer(model.to(dev), lr=lr, layout="fused",
+                          fused_rows_blk=rows_blk, fused_blk=blk,
+                          fused_dtype="float32")
+        opt = trainer.init()
+        losses[dev] = [float(trainer.step(opt, fb)) for _ in range(3)]
+    for step, (a, b) in enumerate(zip(losses["cuda"], losses["cpu"])):
+        rel = abs(a - b) / abs(b)
+        log("parity", step=step, card=f"{a:.8g}", cpu=f"{b:.8g}",
+            rel=f"{rel:.3e}", tol=PARITY_TOL)
+        if not rel <= PARITY_TOL:
+            raise AssertionError(f"train step {step}: card {a} vs cpu {b}")
+
+
+def phase_bwd_times(bop, smi) -> dict:
+    """B2's and its plain version's CUDA-event medians at the chunk shape,
+    and its bound."""
+    t = {}
+    c = bop["x"].shape[1]
+    kw = dict(c_in=c, c_out=c, rows_blk=bop["rows_blk"], blk=bop["blk"])
+    with torch.no_grad():
+        for dt in ("bfloat16", "float32"):
+            tdt = getattr(torch, dt)
+            h, xs, w3 = (bop[key].to(tdt).contiguous()
+                         for key in ("h", "x_src", "w3"))
+            t[f"ms_{dt}"] = cuda_ms(lambda: fused_conv.fused_edge_conv_bwd_cuda(
+                bop["g"], h, xs, w3, bop["b3"], bop["s"], **kw))
+            t[f"plain_ms_{dt}"] = cuda_ms(
+                lambda: fused_conv.fused_edge_conv_bwd_plain(
+                    bop["g"], h, xs, w3, bop["b3"], bop["s"], gemm_dtype=dt,
+                    **kw), reps=5)
+    # bound: the real slots' operations (dmsg, the two outer products and
+    # the three GEMMs: dh, dx_src, dw3 with db3) at the input type's peak
+    # vs every input byte read once and every output written once
+    slots, k = bop["h"].shape
+    c2 = c * c
+    real = int((bop["s"].slot_rows >= 0).sum())
+    flops = real * (c + c2 + (k + 1) * c
+                    + 2 * k * c2 + 2 * (k + 1) * c2 + 2 * (k + 1) * c2)
+    rows = len(bop["s"].row_weight)
+    for dt, size in (("bfloat16", 2), ("float32", 4)):
+        nbytes = (size * (slots * k + slots * c + k * c2)
+                  + 4 * (rows * c + c2 + slots + rows)      # g, b3, S
+                  + 4 * (slots * k + slots * c + k * c2 + c2))  # outputs
+        t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
+        t[f"bound_ms_{dt}"] = max(t_ops, t_bytes) * 1e3
+        t[f"bound_by_{dt}"] = "operations" if t_ops >= t_bytes else "bytes"
+        t[f"flops_{dt}"], t[f"bytes_{dt}"] = flops, nbytes
+    for key, v in t.items():
+        log("times", kernel="bwd",
+            **{key: v if isinstance(v, (int, str)) else f"{v:.4f}"},
+            card=repr(smi))
+    return t
+
+
+def phase_train_times(batches, smi) -> dict:
+    """Warm wall time of one fused bf16 train step on the training batch
+    (the 12 train subdomains merged), and one profiled step."""
+    model, (fb, _), rows_blk, blk = batches
+    s = fb["fused"]["s"]
+    log("times", train_batch=fb["subdomains"], nodes=fb["graph"].x.shape[0],
+        edges=int(fb["graph"].edge_mask.sum()), blk=blk,
+        slots=len(s.slot_rows), real_slots=int((s.slot_rows >= 0).sum()))
+    trainer = Trainer(model, lr=load_yaml(TRAIN_CONFIG)["lr"], layout="fused",
+                      fused_rows_blk=rows_blk, fused_blk=blk)
+    opt = trainer.init(SEED)
+
+    def step():
+        return trainer.step(opt, fb)
+
+    step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    t = {"train_step_ms": statistics.median(walls) * 1e3}
+    t.update({f"train_{k}": v for k, v in profile_call(step, "train_step").items()})
+    for key, v in t.items():
+        log("times", **{key: f"{v:.4f}"}, card=repr(smi))
+    return t
+
+
 def main() -> int:
     name, smi = phase_device()
     t0 = time.time()
-    lib = fused_conv.build_kernel(force=True)
-    log("build", seconds=f"{time.time() - t0:.1f}", lib=os.path.relpath(lib, REPO))
+    libs = fused_conv.build_kernel(force=True)
+    log("build", seconds=f"{time.time() - t0:.1f}",
+        libs=",".join(os.path.relpath(lib, REPO) for lib in libs))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         cfgs = {"full": make_config(os.path.join(root, "full"), FULL),
@@ -351,15 +701,26 @@ def main() -> int:
 
         op = chunk_operands(datasets["full"], models["full"], "cuda")
         errs = phase_kernel(op)
+        bop = bwd_operands(op)
+        small_merged = merged_subdomains(datasets["small"])
+        errs_bwd = phase_bwd(bop, small_merged, models["small"])
+        batches = train_batches(datasets["full"], cfgs["full"])
+        phase_train_kernels(batches, errs, errs_bwd)
         launches = phase_serve(root, datasets, models, cfgs)
+        train = phase_train(root, datasets, cfgs)
+        phase_parity(small_merged, cfgs["small"])
         t = phase_times(op, datasets, models, root, smi)
+        tb = phase_bwd_times(bop, smi)
+        t.update(phase_train_times(batches, smi))
 
     kernels = [{
         "name": "fused_edge_conv",
         "route": "cuda",
         "source": "fast_eng_super_resolution_tpu_torch/csrc/fused_edge_conv.cu",
         "replaces": "fast_eng_super_resolution_tpu/ops/fused_conv.py:322",
-        "launches": launches,
+        "launches": launches + train["b1"] + train["served"],
+        "launches_by_path": {"serve": launches, "train": train["b1"],
+                             "serve_trained": train["served"]},
         "max_abs_err": errs["bfloat16"],
         "ms": t["ms_bfloat16"],
         "plain_ms": t["plain_ms_bfloat16"],
@@ -371,6 +732,25 @@ def main() -> int:
                     "bound_ms": t["bound_ms_float32"],
                     "bound_by": t["bound_by_float32"]},
         "request_ms": t["request_ms"],
+        "card": smi,
+    }, {
+        "name": "fused_edge_conv_bwd",
+        "route": "cuda",
+        "source": "fast_eng_super_resolution_tpu_torch/csrc/fused_edge_conv_bwd.cu",
+        "replaces": "fast_eng_super_resolution_tpu/ops/fused_conv.py:442",
+        "launches": train["b2"],
+        "launches_by_path": {"train": train["b2"]},
+        "max_abs_err": errs_bwd["bfloat16"],
+        "ms": tb["ms_bfloat16"],
+        "plain_ms": tb["plain_ms_bfloat16"],
+        "bound_ms": tb["bound_ms_bfloat16"],
+        "bound_by": tb["bound_by_bfloat16"],
+        "library_ms": None,
+        "float32": {"max_abs_err": errs_bwd["float32"], "ms": tb["ms_float32"],
+                    "plain_ms": tb["plain_ms_float32"],
+                    "bound_ms": tb["bound_ms_float32"],
+                    "bound_by": tb["bound_by_float32"]},
+        "train_step_ms": t["train_step_ms"],
         "card": smi,
     }]
     print(json.dumps({"kernels": kernels}))

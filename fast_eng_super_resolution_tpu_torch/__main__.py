@@ -1,4 +1,4 @@
-"""``python -m fast_eng_super_resolution_tpu_torch --mode=pred ...`` — the
+"""``python -m fast_eng_super_resolution_tpu_torch --mode=train|pred ...`` — the
 same flags as run_ALDS_3D.py (utils/config.parse_args)."""
 
 from .runner import main

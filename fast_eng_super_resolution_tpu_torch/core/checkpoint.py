@@ -89,16 +89,7 @@ def save_params(path: str, params: Any, meta: dict | None = None) -> None:
     flat = flatten_params(params)
     for k, v in (meta or {}).items():
         flat[_META_PREFIX + k] = np.array(str(v))
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".", suffix=".tmp")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            np.savez(f, **flat)
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
+    _save_npz(path, flat)
 
 
 def load_params(path: str) -> Any:
@@ -120,6 +111,43 @@ def load_meta(path: str) -> dict[str, str]:
     with np.load(path) as z:
         return {k[len(_META_PREFIX):]: str(z[k]) for k in z.files
                 if k.startswith(_META_PREFIX)}
+
+
+def _save_npz(path: str, payload: dict) -> None:
+    """Writes ``payload`` as .npz through a temporary file renamed into
+    place, so a crash never leaves a half-written file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".", suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **payload)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def save_tree(path: str, tree: Any, extra: dict | None = None) -> None:
+    """Saves a tree of arrays (the trainer's optimizer state) flat-keyed like
+    ``save_params``, plus ``extra`` scalars (epoch, best_loss) under
+    ``extra_`` keys, atomically.  The reference has no optimizer-state
+    checkpointing or step-resume; this plus ``load_tree_like`` provides it.
+    The file is the port's own: the JAX package stores optax's state."""
+    payload = flatten_params(tree)
+    for k, v in (extra or {}).items():
+        payload[f"extra_{k}"] = np.asarray(v)
+    _save_npz(path, payload)
+
+
+def load_tree_like(path: str, template: Any) -> tuple[Any, dict]:
+    """Restores a tree saved by ``save_tree`` with ``template``'s keys;
+    returns (tree, extra)."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in flatten_params(template)}
+        extra = {k[len("extra_"):]: z[k] for k in z.files
+                 if k.startswith("extra_")}
+    return unflatten_params(flat), extra
 
 
 def load_pth_state_dict(path: str) -> dict[str, np.ndarray]:

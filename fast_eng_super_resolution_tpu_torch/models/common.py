@@ -1,5 +1,6 @@
-"""Shared building blocks for the models: init helpers and the conversion between a torch ``nn.Linear`` and the JAX package's
-``{'w': [in, out], 'b': [out]}`` layout."""
+"""Shared building blocks for the models: init helpers and the conversion
+between a torch ``nn.Linear`` and the reference's ``.pth`` state-dict keys.
+(The JAX package's parameter-tree layout is ``KernelNN.jax_key``.)"""
 
 from __future__ import annotations
 
@@ -39,15 +40,3 @@ def from_torch_linear(layer: nn.Linear, state_dict, prefix: str) -> None:
 def to_torch_linear(layer: nn.Linear, prefix: str, out: dict) -> None:
     out[f"{prefix}.weight"] = layer.weight.detach().cpu().numpy().copy()
     out[f"{prefix}.bias"] = layer.bias.detach().cpu().numpy().copy()
-
-
-def from_jax_linear(layer: nn.Linear, params: dict) -> None:
-    """Loads the JAX package's {'w': [in, out], 'b': [out]} into ``layer``."""
-    with torch.no_grad():
-        layer.weight.copy_(torch.tensor(np.asarray(params["w"], np.float32).T))
-        layer.bias.copy_(torch.tensor(np.asarray(params["b"], np.float32)))
-
-
-def to_jax_linear(layer: nn.Linear) -> dict:
-    return {"w": layer.weight.detach().cpu().numpy().T.copy(),
-            "b": layer.bias.detach().cpu().numpy().copy()}

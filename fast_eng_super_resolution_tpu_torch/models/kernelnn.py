@@ -8,9 +8,11 @@ aggr='mean' (model.py:551).  Forward: fc1 -> depth x relu(conv) -> fc2
 
 ``apply`` is the plain whole-graph form; ``apply_fused`` runs each layer
 through the fused edge-conv layer (ops/fused_conv.py), a hand-written CUDA
-kernel on the GPU.  Weights move in and out in three layouts: the
-reference's ``.pth`` state dict (``import_pth``/``export_pth``) and the JAX
-package's parameter tree (``from_jax_params``/``to_jax_params``).
+kernel on the GPU, and ``apply_fused_ad`` is its differentiable form for
+training (the backward a second hand-written kernel).  Weights move in and
+out in two layouts besides the module's own: the reference's ``.pth`` state
+dict (``import_pth``/``export_pth``) and the JAX package's parameter tree
+(``from_jax_params``/``to_jax_params``, one key per parameter: ``jax_key``).
 """
 
 from __future__ import annotations
@@ -19,12 +21,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.checkpoint import flatten_params, unflatten_params
 from ..ops.message_passing import (apply_edge_mlp_hidden,
                                    edge_conditioned_conv,
                                    precompute_edge_kernel)
 from ..ops.segment import segment_degree
-from .common import (from_jax_linear, from_torch_linear, linear_init,
-                     pyg_uniform_init, to_jax_linear, to_torch_linear)
+from .common import (from_torch_linear, linear_init, pyg_uniform_init,
+                     to_torch_linear)
 
 
 class KernelNN(nn.Module):
@@ -108,6 +111,46 @@ class KernelNN(nn.Module):
             h = torch.relu(agg[:n] + h @ self.root + self.bias)
         return self.fc2(h)
 
+    def apply_fused_ad(self, x: torch.Tensor, edge_attr_blocked: torch.Tensor,
+                       fused_aux: dict, s_matrix, *, rows_blk: int, blk: int,
+                       gemm_dtype: str = "bfloat16") -> torch.Tensor:
+        """Differentiable fused forward (training path).
+
+        Same math as ``apply_fused``, each layer through
+        ``ops.fused_conv.fused_edge_conv_ad`` (forward B1, backward B2): no
+        per-slot [slots, w^2] matrices are kept for the backward.  The
+        float32 tensors autograd tracks go into the layer, which rounds them
+        to ``gemm_dtype`` inside, so every gradient arrives in float32.
+        ``fused_aux`` and ``s_matrix`` come from ``prepare_fused_train``.
+        """
+        from ..ops.fused_conv import fused_edge_conv_ad
+
+        n = x.shape[0]
+        h = self.fc1(x)
+        h_e = apply_edge_mlp_hidden(self.edge_mlp, edge_attr_blocked,
+                                    torch.relu)
+        last = self.edge_mlp[-1]
+        w3 = last.weight.t()
+        for _ in range(self.depth):
+            agg = fused_edge_conv_ad(h_e, h, w3, last.bias, s_matrix,
+                                     fused_aux, c_in=self.width,
+                                     c_out=self.width, rows_blk=rows_blk,
+                                     blk=blk, gemm_dtype=gemm_dtype)
+            h = torch.relu(agg[:n] + h @ self.root + self.bias)
+        return self.fc2(h)
+
+    @staticmethod
+    def prepare_fused_train(senders, receivers, edge_attr, n_nodes,
+                            edge_mask=None, rows_blk: int = 64,
+                            quantum: int = 256, compact: bool = False):
+        """Host-side operands for ``apply_fused_ad``:
+        (edge_attr_blocked, fused_aux, s_matrix, rows_blk, blk)."""
+        from ..ops.fused_conv import prepare_fused_train
+
+        return prepare_fused_train(senders, receivers, edge_attr, n_nodes,
+                                   edge_mask, rows_blk, quantum,
+                                   compact=compact)
+
     @staticmethod
     def prepare_fused(senders, receivers, edge_attr, n_nodes,
                       edge_mask=None, rows_blk: int = 64,
@@ -177,24 +220,35 @@ class KernelNN(nn.Module):
         self._check_shapes(np.shape(conv["root"])[0],
                            np.shape(params["fc1"]["w"])[::-1],
                            np.shape(conv["edge_mlp"][-1]["w"])[1])
-        from_jax_linear(self.fc1, params["fc1"])
-        for layer, p in zip(self.edge_mlp, conv["edge_mlp"]):
-            from_jax_linear(layer, p)
+        flat = flatten_params(params)
         with torch.no_grad():
-            self.root.copy_(torch.tensor(np.asarray(conv["root"], np.float32)))
-            self.bias.copy_(torch.tensor(np.asarray(conv["bias"], np.float32)))
-        from_jax_linear(self.fc2, params["fc2"])
+            for name, p in self.named_parameters():
+                key, transposed = self.jax_key(name)
+                a = np.asarray(flat[key], np.float32)
+                p.copy_(torch.as_tensor(np.ascontiguousarray(
+                    a.T if transposed else a)))
         return self
+
+    @staticmethod
+    def jax_key(name: str) -> tuple[str, bool]:
+        """(flat key in the JAX package's parameter tree, transposed?) of the
+        parameter ``name``: the tree stores a linear layer's weight as
+        w [in, out], the transpose of ``nn.Linear.weight``."""
+        parts = name.split(".")
+        leaf = {"weight": "w", "bias": "b"}
+        if parts[0] in ("fc1", "fc2"):
+            return f"{parts[0]}/{leaf[parts[1]]}", parts[1] == "weight"
+        if parts[0] == "edge_mlp":
+            return (f"conv/edge_mlp/{parts[1]}/{leaf[parts[2]]}",
+                    parts[2] == "weight")
+        return f"conv/{name}", False
 
     def to_jax_params(self) -> dict:
         """The JAX package's parameter tree, numpy leaves (``from_jax_params``
         inverse; ``core.checkpoint.save_params`` writes it)."""
-        return {
-            "fc1": to_jax_linear(self.fc1),
-            "conv": {
-                "edge_mlp": [to_jax_linear(layer) for layer in self.edge_mlp],
-                "root": self.root.detach().cpu().numpy().copy(),
-                "bias": self.bias.detach().cpu().numpy().copy(),
-            },
-            "fc2": to_jax_linear(self.fc2),
-        }
+        flat = {}
+        for name, p in self.named_parameters():
+            key, transposed = self.jax_key(name)
+            a = p.detach().cpu().numpy()
+            flat[key] = (a.T if transposed else a).copy()
+        return unflatten_params(flat)

@@ -18,7 +18,9 @@ On a CUDA tensor the layer launches the hand-written kernel in
 ``csrc/fused_edge_conv.cu`` (built with nvcc at first use, loaded with
 ctypes); on a CPU tensor it runs the plain PyTorch version below, which is
 the same function and the reference the kernel is checked against.  Nothing
-falls back from one to the other.
+falls back from one to the other.  Training goes through ``FusedEdgeConv``,
+whose backward is the kernel in ``csrc/fused_edge_conv_bwd.cu`` (or its plain
+version, ``fused_edge_conv_bwd_plain``, on the CPU).
 """
 
 from __future__ import annotations
@@ -205,15 +207,17 @@ def prepare_fused_train(senders, receivers, edge_attr, n_nodes,
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel: build at first use, bind with ctypes
+# the CUDA kernels: build at first use, bind with ctypes
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "fused_edge_conv.cu")
+_SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_LIB_PATH = os.path.join(_BUILD_DIR, "libfused_edge_conv.so")
+# library -> its source: B1 (forward) and B2 (backward)
+_SOURCES = {"fused_edge_conv": "fused_edge_conv.cu",
+            "fused_edge_conv_bwd": "fused_edge_conv_bwd.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
-_lib = None
+_libs: dict = {}
 _lib_lock = threading.Lock()
 
 
@@ -225,41 +229,72 @@ def _nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def build_kernel(force: bool = False) -> str:
-    """Compiles ``csrc/fused_edge_conv.cu`` into ``_build/`` when the library
-    is missing or older than its source; returns the library path.  The
-    compile goes to a temporary file renamed into place, so concurrent
-    builds never load a half-written library.  Raises on a failed build."""
-    if (not force and os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC)):
-        return _LIB_PATH
+def _lib_path(name: str) -> str:
+    return os.path.join(_BUILD_DIR, f"lib{name}.so")
+
+
+def build_kernel(force: bool = False) -> list[str]:
+    """Compiles each ``csrc/*.cu`` source into its own library under
+    ``_build/``, one nvcc per source, all started together; returns the
+    library paths.  A library is rebuilt when it is missing or older than
+    any file under ``csrc/``.  Each compile goes to a temporary file renamed
+    into place, so concurrent builds never load a half-written library.
+    Raises on a failed build."""
+    newest = max(os.path.getmtime(os.path.join(_SRC_DIR, f))
+                 for f in os.listdir(_SRC_DIR))
+    stale = [name for name in _SOURCES
+             if force or not os.path.exists(_lib_path(name))
+             or os.path.getmtime(_lib_path(name)) < newest]
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so")
-    os.close(fd)
+    jobs, temps = [], []
     try:
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {_SRC}:\n{proc.stderr}")
-        os.replace(tmp, _LIB_PATH)
+        for name in stale:
+            fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so")
+            os.close(fd)
+            temps.append(tmp)
+            src = os.path.join(_SRC_DIR, _SOURCES[name])
+            jobs.append((name, src, tmp, subprocess.Popen(
+                [_nvcc(), *_NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for name, src, tmp, proc in jobs:
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed building {src}:\n{err}")
+            else:
+                os.replace(tmp, _lib_path(name))
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return _LIB_PATH
+        for *_, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for tmp in temps:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return [_lib_path(name) for name in _SOURCES]
 
 
-def _load_kernel():
-    global _lib
+def _load_kernel(name: str = "fused_edge_conv"):
+    """The library ``name`` (``fused_edge_conv`` or ``fused_edge_conv_bwd``),
+    building every library first if one is stale."""
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_kernel())
+        if not _libs:
+            build_kernel()
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.fused_edge_conv_forward.argtypes = [p] * 9 + [i] * 7 + [p]
-            lib.fused_edge_conv_forward.restype = i
-            lib.fused_edge_conv_smem_bytes.argtypes = [i, i, i]
-            lib.fused_edge_conv_smem_bytes.restype = ctypes.c_long
-            _lib = lib
-    return _lib
+            fwd = ctypes.CDLL(_lib_path("fused_edge_conv"))
+            fwd.fused_edge_conv_forward.argtypes = [p] * 9 + [i] * 7 + [p]
+            fwd.fused_edge_conv_forward.restype = i
+            fwd.fused_edge_conv_smem_bytes.argtypes = [i, i, i]
+            fwd.fused_edge_conv_smem_bytes.restype = ctypes.c_long
+            bwd = ctypes.CDLL(_lib_path("fused_edge_conv_bwd"))
+            bwd.fused_edge_conv_backward.argtypes = [p] * 12 + [i] * 7 + [p]
+            bwd.fused_edge_conv_backward.restype = i
+            bwd.fused_edge_conv_bwd_smem_bytes.argtypes = [i, i, i]
+            bwd.fused_edge_conv_bwd_smem_bytes.restype = ctypes.c_long
+            _libs.update(fused_edge_conv=fwd, fused_edge_conv_bwd=bwd)
+    return _libs[name]
 
 
 # ---------------------------------------------------------------------------
@@ -391,3 +426,187 @@ def fused_edge_conv(h_blocked, x, senders_perm, w3, b3, s, *,
 
 
 fused_edge_conv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the layer's backward (B2) and the differentiable layer
+
+
+def fused_edge_conv_bwd_plain(g, h_blocked, x_src, w3, b3, s, *,
+                              c_in: int, c_out: int, rows_blk: int, blk: int,
+                              gemm_dtype: str = "float32"):
+    """Plain PyTorch version of ``fused_edge_conv_bwd``: the gradients of
+    ``fused_edge_conv`` with respect to (h_blocked, x_src, w3, b3), written
+    out.  dmsg = S^T g per block is rounded to ``gemm_dtype`` like h, x_src
+    and w3; everything after is float32.  Materializes the per-slot
+    [slots, c_in*c_out] outer products and matrices."""
+    dt = _gemm_dtype(gemm_dtype)
+    slots = h_blocked.shape[0]
+    nb = slots // blk
+    if isinstance(s, CompactS):
+        s = expand_s(s.slot_rows, s.row_weight, rows_blk=rows_blk, blk=blk)
+    dmsg = torch.bmm(s.reshape(nb, rows_blk, blk).float().transpose(1, 2),
+                     g.float().reshape(nb, rows_blk, c_out))
+    dmsg = dmsg.reshape(slots, c_out).to(dt).float()
+    h = h_blocked.to(dt).float()
+    xs = x_src.to(dt).float()
+    w3f = w3.to(dt).float()
+    # z[e, i*c_out + o] = x_src[e, i] dmsg[e, o]: left operand of dh and dw3
+    z = (xs[:, :, None] * dmsg[:, None, :]).reshape(slots, c_in * c_out)
+    dh = z @ w3f.t()
+    dw3 = h.t() @ z
+    db3 = z.sum(0)
+    w = (h @ w3f + b3.float()).reshape(slots, c_in, c_out)
+    dx_src = torch.einsum("eio,eo->ei", w, dmsg)
+    return dh, dx_src, dw3, db3
+
+
+def _weight_splits(slots: int, c_in: int, device) -> int:
+    """Slot splits of the backward's weights kernel: about six thread blocks
+    per SM over its 4-input-channel output tiles, at least one 64-slot chunk
+    per split."""
+    tiles = -(-c_in // 4)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(slots // 64, -(-6 * sms // tiles)))
+
+
+def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
+                             c_out: int, rows_blk: int, blk: int):
+    """Launches the backward kernel (csrc/fused_edge_conv_bwd.cu) on the
+    current stream.  h_blocked, x_src and w3 share one dtype (float32 or
+    bfloat16, the GEMM input type); g, b3 and S are float32, slot_rows
+    int32.  Checks every operand and raises on what the kernel does not
+    take; raises if the launch fails.  Returns (dh, dx_src, dw3, db3),
+    float32; dw3/db3 are the kernel's per-split partials summed in a fixed
+    order."""
+    dt = h_blocked.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"h_blocked dtype {dt} (expected float32 | bfloat16)")
+    if rows_blk != 64:
+        raise ValueError(f"rows_blk={rows_blk}: the kernel takes 64-row blocks")
+    if blk % 64 or blk <= 0:
+        raise ValueError(f"blk={blk} must be a positive multiple of 64")
+    slots, k = h_blocked.shape
+    for name, v in (("K", k), ("c_in", c_in), ("c_out", c_out)):
+        if not 1 <= v <= 64:
+            raise ValueError(f"{name}={v} outside the kernel's 1..64")
+    if slots % blk:
+        raise ValueError(f"{slots} slots is not a multiple of blk={blk}")
+    nb, c2 = slots // blk, c_in * c_out
+    _check("g", g, torch.float32, (nb * rows_blk, c_out))
+    _check("h_blocked", h_blocked, dt, (slots, k))
+    _check("x_src", x_src, dt, (slots, c_in))
+    _check("w3", w3, dt, (k, c2))
+    _check("b3", b3, torch.float32, (c2,))
+    if isinstance(s, CompactS):
+        _check("slot_rows", s.slot_rows, torch.int32, (slots,))
+        _check("row_weight", s.row_weight, torch.float32, (nb * rows_blk,))
+        ptrs = (s.slot_rows.data_ptr(), s.row_weight.data_ptr(), None)
+    else:
+        _check("s", s, torch.float32, (nb * rows_blk, blk))
+        ptrs = (None, None, s.data_ptr())
+    dev = h_blocked.device
+    for name, t in (("g", g), ("x_src", x_src), ("w3", w3), ("b3", b3)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
+    lib = _load_kernel("fused_edge_conv_bwd")
+    f32 = dict(dtype=torch.float32, device=dev)
+    dh = torch.empty((slots, k), **f32)
+    dx_src = torch.empty((slots, c_in), **f32)
+    dmsg = torch.empty((slots, c_out), **f32)  # scratch between the launches
+    splits = _weight_splits(slots, c_in, dev)
+    partial = torch.empty((splits, k + 1, c2), **f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_edge_conv_backward(
+            g.data_ptr(), h_blocked.data_ptr(), x_src.data_ptr(),
+            w3.data_ptr(), b3.data_ptr(), *ptrs, dh.data_ptr(),
+            dx_src.data_ptr(), dmsg.data_ptr(), partial.data_ptr(), nb, blk,
+            k, c_in, c_out, splits, int(dt == torch.bfloat16), stream)
+    if err != 0:
+        smem = lib.fused_edge_conv_bwd_smem_bytes(k, c_in, c_out)
+        raise RuntimeError(
+            f"fused_edge_conv_bwd kernel launch failed: cudaError {err} "
+            f"(K={k}, c_in={c_in}, c_out={c_out}: {smem} B of shared memory "
+            "per block)")
+    fused_edge_conv_bwd.launches += 1
+    total = partial.sum(0)
+    return dh, dx_src, total[:k], total[k]
+
+
+def fused_edge_conv_bwd(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
+                        c_out: int, rows_blk: int, blk: int,
+                        gemm_dtype: str = "float32"):
+    """Backward of ``fused_edge_conv`` with respect to (h_blocked, x_src, w3,
+    b3), given g [num_blocks*rows_blk, c_out], the gradient of its output,
+    and x_src = x[senders_perm].  Returns (dh [slots, K], dx_src
+    [slots, c_in], dw3 [K, c_in*c_out], db3 [c_in*c_out]), all float32.
+
+    CUDA operands launch the kernel (``fused_edge_conv_bwd.launches`` counts
+    the launches); CPU operands run ``fused_edge_conv_bwd_plain``.
+    """
+    if h_blocked.device.type == "cpu":
+        return fused_edge_conv_bwd_plain(g, h_blocked, x_src, w3, b3, s,
+                                         c_in=c_in, c_out=c_out,
+                                         rows_blk=rows_blk, blk=blk,
+                                         gemm_dtype=gemm_dtype)
+    dt = _gemm_dtype(gemm_dtype)
+    return fused_edge_conv_bwd_cuda(
+        g.float().contiguous(), h_blocked.to(dt).contiguous(),
+        x_src.to(dt).contiguous(), w3.to(dt).contiguous(),
+        b3.float().contiguous(), s, c_in=c_in, c_out=c_out,
+        rows_blk=rows_blk, blk=blk)
+
+
+fused_edge_conv_bwd.launches = 0
+
+
+def scatter_dx(dx_src: torch.Tensor, senders_dump: torch.Tensor,
+               n_nodes: int) -> torch.Tensor:
+    """dx [n_nodes, c_in] from per-slot dx_src: one ``index_add_`` over
+    n_nodes+1 rows, the last of which (the dump row, where ``train_aux``
+    points padding slots) is dropped, so padding never reaches node 0."""
+    out = dx_src.new_zeros((n_nodes + 1, dx_src.shape[1]))
+    return out.index_add_(0, senders_dump.long(), dx_src)[:n_nodes]
+
+
+class FusedEdgeConv(torch.autograd.Function):
+    """The differentiable fused layer: forward through ``fused_edge_conv``
+    (B1), backward through ``fused_edge_conv_bwd`` (B2).  It saves only its
+    inputs, never the per-slot [slots, c_in*c_out] matrices: the backward
+    recomputes them tile by tile.  Gradients flow to h_blocked, x, w3 and
+    b3, in their own dtypes; S and the aux get none."""
+
+    @staticmethod
+    def forward(ctx, h_blocked, x, w3, b3, s, fused_aux, c_in, c_out,
+                rows_blk, blk, gemm_dtype):
+        ctx.save_for_backward(h_blocked, x, w3, b3)
+        ctx.s, ctx.aux = s, fused_aux
+        ctx.kw = dict(c_in=c_in, c_out=c_out, rows_blk=rows_blk, blk=blk,
+                      gemm_dtype=gemm_dtype)
+        return fused_edge_conv(h_blocked, x, fused_aux["senders_perm"], w3,
+                               b3, s, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        h_blocked, x, w3, b3 = ctx.saved_tensors
+        x_src = x[ctx.aux["senders_perm"].long()]
+        dh, dx_src, dw3, db3 = fused_edge_conv_bwd(g, h_blocked, x_src, w3,
+                                                   b3, ctx.s, **ctx.kw)
+        dx = scatter_dx(dx_src, ctx.aux["senders_dump"], x.shape[0])
+        return (dh.to(h_blocked.dtype), dx.to(x.dtype), dw3.to(w3.dtype),
+                db3.to(b3.dtype)) + (None,) * 7
+
+
+def fused_edge_conv_ad(h_blocked, x, w3, b3, s, fused_aux, *, c_in: int,
+                       c_out: int, rows_blk: int, blk: int,
+                       gemm_dtype: str = "float32") -> torch.Tensor:
+    """Differentiable fused conv layer (training path), the counterpart of
+    the JAX package's custom-VJP ``fused_edge_conv_ad``.
+
+    ``fused_aux``: {'senders_perm', 'senders_dump'} int32 tensors from
+    ``prepare_fused_train``; ``s`` dense S or ``CompactS``.  Returns
+    [num_blocks*rows_blk, c_out] float32.
+    """
+    return FusedEdgeConv.apply(h_blocked, x, w3, b3, s, fused_aux, c_in,
+                               c_out, rows_blk, blk, gemm_dtype)

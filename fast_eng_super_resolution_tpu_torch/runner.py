@@ -1,10 +1,9 @@
-"""Prediction entry point behind ``python -m fast_eng_super_resolution_tpu_torch``.
+"""Train and predict entry points behind ``python -m fast_eng_super_resolution_tpu_torch``.
 
 Mirrors the entry scripts' flow (reference run_ALDS_3D.py:10-41): build the
-scheduler, predict per sample index, reconstruct with overlap averaging,
-write ``logs/vtk/{exp}/pred_{idx}.vtu``, print the two timing spans the
-reference prints (:19-29).  Serving only: ``--mode=train`` is ROADMAP.md
-queue A item 7.
+scheduler, then train, or predict per sample index, reconstruct with overlap
+averaging, write ``logs/vtk/{exp}/pred_{idx}.vtu`` and print the two timing
+spans the reference prints (:19-29).
 """
 
 from __future__ import annotations
@@ -18,6 +17,22 @@ from .data.tensorize import infer_cell_types
 from .data.vtu import write_vtu
 from .sched.scheduler import PartitionScheduler
 from .utils.logging import span
+
+
+def train_graph_ALDD(exp_name: str, model, dataset, num_partitions: int,
+                     train_config: dict, start_from_pretrained: bool = False,
+                     log_dir: str = "logs", device=None, **kwargs):
+    """Trains the partition experts on ``dataset`` and writes their
+    checkpoints under ``log_dir``; returns the scheduler.  Runs on ``cuda``
+    unless ``device="cpu"``, in the device's default training layout;
+    ``FESR_FUSED_TRAIN=0`` selects the plain 'merged' layout."""
+    scheduler = PartitionScheduler(exp_name, num_partitions, dataset, model,
+                                   train=True, log_dir=log_dir,
+                                   device=device, **kwargs)
+    layout = "merged" if os.environ.get("FESR_FUSED_TRAIN", "1") == "0" else None
+    scheduler.train(train_config, start_from_pretrained=start_from_pretrained,
+                    layout=layout)
+    return scheduler
 
 
 def pred_graph_ALDD(idxs, exp_name: str, model, dataset, num_partitions: int,
@@ -99,9 +114,10 @@ def pred_graph_ALDD(idxs, exp_name: str, model, dataset, num_partitions: int,
 
 
 def main(args):
-    """``__main__`` body (reference run_ALDS_3D.py:44-73), serving only.
+    """``__main__`` body (reference run_ALDS_3D.py:44-73).
 
-    Serves on the exp config's ``device`` key (``cpu``), else on ``cuda``."""
+    Trains or serves on the exp config's ``device`` key (``cpu``), else on
+    ``cuda``."""
     from .data.dataset import init_dataset
     from .models.registry import init_model
     from .utils.config import load_yaml
@@ -112,10 +128,7 @@ def main(args):
             "item 16)")
     exp_config = load_yaml(args.exp_config)
     n_clusters = exp_config["n_clusters"]
-    if args.mode == "train":
-        raise NotImplementedError(
-            "--mode=train is not ported yet (ROADMAP.md queue A item 7)")
-    if args.mode not in ("pred", "predict"):  # README says 'predict', code 'pred'
+    if args.mode not in ("train", "pred", "predict"):  # README: 'predict'
         raise ValueError(f"Unknown mode: {args.mode}")
     if n_clusters != 1:
         raise NotImplementedError(
@@ -124,7 +137,24 @@ def main(args):
     model = init_model(args.model, **exp_config)
     dataset = init_dataset(args.dataset, **exp_config)
     print("Dataset loaded!")
+    device = exp_config.get("device")
+    if args.mode == "train":
+        train_config = load_yaml(args.train_config)
+        train_dataset = dataset
+        train_meshes = exp_config.get("train_meshes")
+        if train_meshes is not None:
+            # mesh-level held-out split: training sees only these meshes;
+            # pred mode still reaches all meshes via ``idxs``
+            from .data.subsets import SubGraphDataset
+
+            flat = np.concatenate([dataset.mesh_subdomain_indices(m)
+                                   for m in train_meshes])
+            train_dataset = SubGraphDataset(dataset, flat)
+            print(f"Training restricted to meshes {list(train_meshes)} "
+                  f"({len(flat)} subdomains)")
+        return train_graph_ALDD(args.exp_name, model, train_dataset,
+                                n_clusters, train_config, device=device)
     return pred_graph_ALDD(exp_config["idxs"], args.exp_name, model, dataset,
                            n_clusters, exp_config.get("save_mode", "save_png"),
                            smooth=exp_config.get("smooth", False),
-                           device=exp_config.get("device"))
+                           device=device)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels (B1 forward, B2 backward) against their plain
+PyTorch versions, on the card.
 
 Every test here is marked ``gpu`` and skips on a machine without CUDA.  The
 file imports neither jax nor the test conftest's JAX setup, so it runs where
@@ -86,3 +87,95 @@ def test_wrapper_checks_operands(cuda):
         tfc.fused_edge_conv_cuda(*args, **{**kw, "rows_blk": 16})
     with pytest.raises(ValueError):  # a CPU operand among CUDA ones
         tfc.fused_edge_conv_cuda(*args[:4], args[4].cpu(), args[5], **kw)
+
+
+def _bwd(blocks, g, h, x_src, w3, b3, c, gemm_dtype, compact, device):
+    s = (blocks.compact_s.to(device) if compact
+         else torch.as_tensor(blocks.s_matrix, device=device))
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return tfc.fused_edge_conv_bwd(t(g), t(h), t(x_src), t(w3), t(b3), s,
+                                   c_in=c, c_out=c, rows_blk=blocks.rows_blk,
+                                   blk=blocks.blk, gemm_dtype=gemm_dtype)
+
+
+def _g(blocks, c, seed):
+    return np.random.default_rng(seed).normal(
+        size=(blocks.n_pad, c)).astype(np.float32)
+
+
+# B2 against its plain version: both round h, x_src, w3 and dmsg = S^T g
+# (a single product per slot, exact on both sides) to the GEMM type and then
+# sum float32 products in different orders (TF32 off): 1e-5 of each output's
+# max.
+BWD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("c", [48, 64, 5])
+def test_bwd_kernel_matches_plain(cuda, c, compact, gemm_dtype):
+    blocks, h, x, w3, b3 = _operands(c, k=c, seed=c)
+    args = (blocks, _g(blocks, c, c + 1), h, x[blocks.senders_perm], w3, b3,
+            c, gemm_dtype, compact)
+    before = tfc.fused_edge_conv_bwd.launches
+    got = _bwd(*args, "cuda")
+    torch.cuda.synchronize()
+    assert tfc.fused_edge_conv_bwd.launches == before + 1
+    ref = _bwd(*args, "cpu")
+    for name, a, b in zip(("dh", "dx_src", "dw3", "db3"), got, ref):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        err = (a.cpu() - b).abs().max().item() / b.abs().max().item()
+        assert err < BWD_TOL, (name, err)
+
+
+def test_bwd_wrapper_checks_operands(cuda):
+    blocks, h, x, w3, b3 = _operands(8, k=6, seed=8)
+    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    args = (t(_g(blocks, 8, 9)), t(h), t(x[blocks.senders_perm]), t(w3),
+            t(b3), blocks.compact_s.to("cuda"))
+    kw = dict(c_in=8, c_out=8, rows_blk=64, blk=blocks.blk)
+    with pytest.raises(TypeError):  # mixed GEMM dtypes
+        tfc.fused_edge_conv_bwd_cuda(args[0], args[1].bfloat16(), *args[2:],
+                                     **kw)
+    with pytest.raises(TypeError):  # g not float32
+        tfc.fused_edge_conv_bwd_cuda(args[0].double(), *args[1:], **kw)
+    with pytest.raises(ValueError):  # not contiguous
+        tfc.fused_edge_conv_bwd_cuda(*args[:2], args[2].t().contiguous().t(),
+                                     *args[3:], **kw)
+    with pytest.raises(ValueError):  # 16-row blocks
+        tfc.fused_edge_conv_bwd_cuda(*args, **{**kw, "rows_blk": 16})
+    with pytest.raises(ValueError):  # wider than the kernel's 64
+        tfc.fused_edge_conv_bwd_cuda(*args, **{**kw, "c_out": 65})
+    with pytest.raises(ValueError):  # a CPU operand among CUDA ones
+        tfc.fused_edge_conv_bwd_cuda(*args[:4], args[4].cpu(), args[5], **kw)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_fused_edge_conv_grads_on_card_match_cpu(cuda, compact):
+    """FusedEdgeConv (B1 forward, B2 backward, index_add_ of dx over the
+    dump row) on the card against the same layer's plain versions on the
+    CPU, float32: 1e-5 of each gradient's max."""
+    c = 16
+    blocks, h, x, w3, b3 = _operands(c, k=c, seed=10)
+    g = _g(blocks, c, 11)
+
+    def grads(device):
+        aux = {k: torch.as_tensor(v, device=device)
+               for k, v in blocks.train_aux().items()}
+        s = (blocks.compact_s.to(device) if compact
+             else torch.as_tensor(blocks.s_matrix, device=device))
+        ts = [torch.tensor(a, device=device, requires_grad=True)
+              for a in (h, x, w3, b3)]
+        out = tfc.fused_edge_conv_ad(*ts, s, aux, c_in=c, c_out=c,
+                                     rows_blk=blocks.rows_blk, blk=blocks.blk)
+        (out * torch.as_tensor(g, device=device)).sum().backward()
+        return [t.grad.cpu() for t in ts]
+
+    fwd, bwd = tfc.fused_edge_conv.launches, tfc.fused_edge_conv_bwd.launches
+    got = grads("cuda")
+    torch.cuda.synchronize()
+    assert tfc.fused_edge_conv.launches == fwd + 1
+    assert tfc.fused_edge_conv_bwd.launches == bwd + 1
+    for name, a, b in zip(("h", "x", "w3", "b3"), got, grads("cpu")):
+        err = (a - b).abs().max().item() / b.abs().max().item()
+        assert err < BWD_TOL, (name, err)
