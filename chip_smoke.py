@@ -4,9 +4,11 @@ Phases, each printing its own lines; any failure raises and the script exits
 non-zero without the final result line:
 
 1. device  — needs CUDA; prints the card's name and power limit.
-2. build   — compiles both kernels (csrc/fused_edge_conv.cu, the forward B1,
-             and csrc/fused_edge_conv_bwd.cu, the backward B2) from the
-             checkout, one nvcc each, started together.
+2. build   — compiles the four kernels (csrc/fused_edge_conv.cu, the forward
+             B1, csrc/fused_edge_conv_bwd.cu, the backward B2, and their
+             rank-r counterparts csrc/fused_edge_conv_lowrank.cu, B3, and
+             csrc/fused_edge_conv_lowrank_bwd.cu, B4) from the checkout, one
+             nvcc each, started together.
 3. kernel  — B1 against its plain PyTorch version on the card, at the
              full-size serving chunk shape, on operands from the real dataset
              chunk: float32 (TF32 off) and bfloat16, compact and dense S.
@@ -36,6 +38,14 @@ non-zero without the final result line:
 8. times   — CUDA-event medians of both kernels and their plain versions, the
              warm wall time of one full-size request and of one fused train
              step, and profiles of both.
+
+Phases 3-8 then run again for the rank-16 path, the same config with
+``kernel_rank: 16`` (edge-MLP head 2 x 16 x 48 = 1536 columns, factorized
+edge kernels): B3 and B4 against their plain versions at the same shapes
+(``[lowrank_kernel]``, ``[lowrank_bwd]``), serving with 8 B3 launches per
+full-size request and none of B1, training with B4 launched depth x steps
+times and neither B1 nor B2, card-vs-CPU parity, and their times
+(``[lowrank_*]`` lines).
 
 The second-to-last line is a JSON object with the kernels' numbers, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -80,14 +90,31 @@ FULL = dict(n_high=(48, 24, 24), n_low=(20, 10, 10), sub_size=8, num_cases=2)
 SMALL = dict(n_high=(16, 8, 8), n_low=(8, 4, 4), sub_size=4, num_cases=1)
 SEED = 0
 LAUNCHES = {"full": 8, "small": 4}  # per request: chunks x depth
+RANK = 16  # the rank-r path's kernel_rank (the JAX package's lowrank16 rows)
+KERNELS = (fused_conv.fused_edge_conv, fused_conv.fused_edge_conv_bwd,
+           fused_conv.fused_edge_conv_lowrank,
+           fused_conv.fused_edge_conv_lowrank_bwd)
+# rank-r? -> (wrapper, plain version, CUDA launcher), forward and backward
+FWD = {False: (fused_conv.fused_edge_conv, fused_conv.fused_edge_conv_plain,
+               fused_conv.fused_edge_conv_cuda),
+       True: (fused_conv.fused_edge_conv_lowrank,
+              fused_conv.fused_edge_conv_lowrank_plain,
+              fused_conv.fused_edge_conv_lowrank_cuda)}
+BWD = {False: (fused_conv.fused_edge_conv_bwd,
+               fused_conv.fused_edge_conv_bwd_plain,
+               fused_conv.fused_edge_conv_bwd_cuda),
+       True: (fused_conv.fused_edge_conv_lowrank_bwd,
+              fused_conv.fused_edge_conv_lowrank_bwd_plain,
+              fused_conv.fused_edge_conv_lowrank_bwd_cuda)}
 
 # Kernel vs plain version on the card, relative to the output's max.  Both
 # round h, x and w3 to the GEMM type identically and then work in float32,
-# summing ~2.4k products per slot in different orders: ~1e-6 expected.
+# summing ~2.4k products per slot in different orders: ~1e-6 expected (B3
+# too: its uv, t and msg stay float32 on both sides).
 KERNEL_TOL = {"float32": 5e-5, "bfloat16": 1e-4}
-# B2 vs its plain version, each output relative to its own max: both round h,
-# x_src, w3 and dmsg (one exact product per slot) identically, then sum
-# float32 products in different orders (dw3: over ~250k slots).
+# B2 (and B4) vs its plain version, each output relative to its own max: both
+# round h, x_src, w3 and dmsg (one exact product per slot) identically, then
+# sum float32 products in different orders (dw3: over ~250k slots).
 # The differentiable layer on the card vs the CPU's plain versions (float32,
 # index_add_ atomics on the card) and the fused train losses card vs CPU
 # (float32, 3 steps of Adam): 1e-4.
@@ -125,6 +152,36 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launches_of(*kernels) -> dict:
+    return {k.__name__: k.launches for k in kernels}
+
+
+def check_only(label: str, want: dict) -> None:
+    """Raises unless each kernel of ``want`` launched as often as it says and
+    every other kernel not at all since ``reset_launches``."""
+    got = launches_of(*KERNELS)
+    want = {k.__name__: want.get(k, 0) for k in KERNELS}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def tagged(phase: str, rank) -> str:
+    """The log label of ``phase`` on the rank-r path."""
+    return phase if rank is None else f"lowrank_{phase}"
+
+
+def make_model(cfg: dict):
+    """The seeded model of ``cfg`` (full rank, or rank ``kernel_rank``)."""
+    return init_model("neuralop", cfg["in_channels"], cfg["out_channels"],
+                      seed=SEED, kernel_rank=cfg.get("kernel_rank"),
+                      **{k: cfg[k] for k in ("width", "num_layers")})
+
+
 def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -150,8 +207,7 @@ def make_config(root: str, sizes: dict) -> dict:
 
 
 def write_checkpoint(log_dir: str, exp: str, cfg: dict):
-    model = init_model("neuralop", cfg["in_channels"], cfg["out_channels"],
-                       seed=SEED, **{k: cfg[k] for k in ("width", "num_layers")})
+    model = make_model(cfg)
     ckpt.save_params(os.path.join(log_dir, "models", f"collection_{exp}",
                                   "partition_0.npz"),
                      model.to_jax_params(), meta={"model": "KernelNN"})
@@ -179,31 +235,43 @@ def chunk_operands(dataset, model, device):
         b3 = m.edge_mlp[-1].bias.detach().contiguous()
     return dict(h=h_e, x=x, sp=torch.as_tensor(sp, device=device),
                 w3=w3, b3=b3, s=sm.to(device), rows_blk=rows_blk, blk=blk,
-                n=merged.x.shape[0], b=chunk.x.shape[0])
+                n=merged.x.shape[0], b=chunk.x.shape[0],
+                rank=model.kernel_rank)
+
+
+def layer_kw(op) -> dict:
+    """The layer's keyword arguments for the operands ``op``."""
+    c = op["x"].shape[1]
+    kw = dict(c_in=c, c_out=c, rows_blk=op["rows_blk"], blk=op["blk"])
+    if op["rank"] is not None:
+        kw["rank"] = op["rank"]
+    return kw
 
 
 def layer(op, gemm_dtype, plain=False, dense=False):
-    fn = fused_conv.fused_edge_conv_plain if plain else fused_conv.fused_edge_conv
+    """B1 (B3 for a rank-r model's operands) or its plain version."""
+    wrapper, plain_fn, _ = FWD[op["rank"] is not None]
     s = op["s"]
     if dense:
         s = fused_conv.expand_s(s.slot_rows, s.row_weight,
                                 rows_blk=op["rows_blk"], blk=op["blk"])
-    c = op["x"].shape[1]
-    return fn(op["h"], op["x"], op["sp"], op["w3"], op["b3"], s, c_in=c,
-              c_out=c, rows_blk=op["rows_blk"], blk=op["blk"],
-              gemm_dtype=gemm_dtype)
+    return (plain_fn if plain else wrapper)(
+        op["h"], op["x"], op["sp"], op["w3"], op["b3"], s,
+        gemm_dtype=gemm_dtype, **layer_kw(op))
 
 
 def phase_kernel(op, at: str = "chunk", errs: dict | None = None) -> dict:
-    """B1 against its plain version on ``op`` (the operands at shape
-    ``at``); returns ``errs`` with each type's largest absolute error."""
+    """B1 (B3 on the rank-r path) against its plain version on ``op`` (the
+    operands at shape ``at``); returns ``errs`` with each type's largest
+    absolute error."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     slots, k = op["h"].shape
-    log("kernel", at=at, n=op["n"], subdomains=op["b"],
+    label = tagged("kernel", op["rank"])
+    log(label, at=at, n=op["n"], subdomains=op["b"],
         num_blocks=slots // op["blk"], blk=op["blk"], slots=slots,
         real_slots=int((op["s"].slot_rows >= 0).sum()), k=k,
-        c=op["x"].shape[1])
+        c=op["x"].shape[1], rank=op["rank"])
     errs = {} if errs is None else errs
     with torch.no_grad():
         for dt in ("float32", "bfloat16"):
@@ -213,11 +281,11 @@ def phase_kernel(op, at: str = "chunk", errs: dict | None = None) -> dict:
                 torch.cuda.synchronize()
                 abs_err = (got - ref).abs().max().item()
                 rel = abs_err / ref.abs().max().item()
-                log("kernel", at=at, dtype=dt, s="dense" if dense else "compact",
+                log(label, at=at, dtype=dt, s="dense" if dense else "compact",
                     max_abs_err=f"{abs_err:.3e}", rel_to_max=f"{rel:.3e}",
                     tol=KERNEL_TOL[dt])
                 if not (rel <= KERNEL_TOL[dt]):
-                    raise AssertionError(f"kernel at {at} {dt} dense={dense}: "
+                    raise AssertionError(f"{label} at {at} {dt} dense={dense}: "
                                          f"{rel:.3e} > {KERNEL_TOL[dt]}")
                 errs[dt] = max(errs.get(dt, 0.0), abs_err)
             del ref, got
@@ -225,7 +293,7 @@ def phase_kernel(op, at: str = "chunk", errs: dict | None = None) -> dict:
     return errs
 
 
-def serve(ds, model, cfg, idxs, log_dir, exp, device, **kw):
+def serve(ds, model, idxs, log_dir, exp, device, **kw):
     lanes = []
     paths = pred_graph_ALDD(idxs, exp, model, ds, 1, log_dir=log_dir,
                             device=device, lanes=lanes, **kw)
@@ -239,68 +307,81 @@ def serve(ds, model, cfg, idxs, log_dir, exp, device, **kw):
     return lanes, fields
 
 
-def phase_serve(root: str, datasets: dict, models: dict, cfgs: dict) -> int:
+def phase_serve(root: str, datasets: dict, models: dict, cfgs: dict,
+                tag: str = "") -> int:
+    """Serves both full-size meshes and the small one from the checkpoints
+    of exps ``full{tag}`` and ``small{tag}``: lanes, launches (B1, or B3
+    for a rank-r model, and no other kernel), finite fields, and the card's
+    bf16 prediction against the port's float32 plain one on the CPU."""
     log_dir = os.path.join(root, "logs")
+    rank = models["full"].kernel_rank
+    label = tagged("serve", rank)
+    kernel = FWD[rank is not None][0]
     launches = 0
     card = {}
     for name, idxs in (("full", cfgs["full"]["idxs"]), ("small", [0])):
         for idx in idxs:
-            fused_conv.fused_edge_conv.launches = 0
+            reset_launches()
             t0 = time.time()
-            lanes, fields = serve(datasets[name], models[name], cfgs[name],
-                                  [idx], log_dir, name, None)
+            lanes, fields = serve(datasets[name], models[name], [idx],
+                                  log_dir, name + tag, None)
             torch.cuda.synchronize()
-            got = fused_conv.fused_edge_conv.launches
+            got = kernel.launches
             launches += got
             want_lane = "general" if name == "full" else "fast"
-            log("serve", mesh=name, idx=idx, lane=lanes[0][1],
+            log(label, mesh=name, idx=idx, lane=lanes[0][1],
                 reason=repr(lanes[0][2]), launches=got,
                 nodes=len(fields[0]["pressure"]),
                 cold_s=f"{time.time() - t0:.3f}")
             if lanes[0][1] != want_lane:
                 raise AssertionError(f"{name} mesh took lane {lanes[0][1]}")
-            if got != LAUNCHES[name]:
-                raise AssertionError(f"{name} request launched the kernel "
-                                     f"{got} times, expected {LAUNCHES[name]}")
+            check_only(f"{label} {name} request", {kernel: LAUNCHES[name]})
             card[(name, idx)] = fields[0]
     # the card's bf16 serving against the port's float32 plain version on the
     # CPU, same checkpoint and mesh
     for name in ("full", "small"):
         t0 = time.time()
-        _, (ref,) = serve(datasets[name], models[name], cfgs[name], [0],
-                          log_dir, name + "_cpu", "cpu", gemm_dtype="float32")
+        _, (ref,) = serve(datasets[name], models[name], [0], log_dir,
+                          name + tag + "_cpu", "cpu", gemm_dtype="float32")
         for key in ("velocity", "pressure"):
             r, g = ref[key], card[(name, 0)][key]
             rel = np.abs(g - r).max() / np.abs(r).max()
-            log("serve", mesh=name, field=key, vs_cpu_f32=f"{rel:.3e}",
+            log(label, mesh=name, field=key, vs_cpu_f32=f"{rel:.3e}",
                 tol=SERVE_TOL, cpu_s=f"{time.time() - t0:.1f}")
             if not rel <= SERVE_TOL:
                 raise AssertionError(f"{name} {key}: {rel:.3e} > {SERVE_TOL}")
     return launches
 
 
-def phase_times(op, datasets, models, root, smi) -> dict:
+def fwd_times(op, smi) -> dict:
+    """B1's (B3's on the rank-r path) and its plain version's CUDA-event
+    medians at the operands ``op``, and its bound."""
     t = {}
-    c = op["x"].shape[1]
+    rank = op["rank"]
+    _, plain, launcher = FWD[rank is not None]
+    kw = layer_kw(op)
     with torch.no_grad():
         for dt in ("bfloat16", "float32"):
             # operands already in the GEMM type, as apply_fused hands them
             # over (it casts h and w3 once per forward, x once per layer)
             tdt = getattr(torch, dt)
             h, x, w3 = (op[key].to(tdt).contiguous() for key in ("h", "x", "w3"))
-            t[f"ms_{dt}"] = cuda_ms(lambda: fused_conv.fused_edge_conv_cuda(
-                h, x, op["sp"], w3, op["b3"], op["s"], c_in=c, c_out=c,
-                rows_blk=op["rows_blk"], blk=op["blk"]))
+            t[f"ms_{dt}"] = cuda_ms(lambda: launcher(
+                h, x, op["sp"], w3, op["b3"], op["s"], **kw))
             t[f"plain_ms_{dt}"] = cuda_ms(
-                lambda: fused_conv.fused_edge_conv_plain(
-                    h, x, op["sp"], w3, op["b3"], op["s"], c_in=c, c_out=c,
-                    rows_blk=op["rows_blk"], blk=op["blk"], gemm_dtype=dt),
-                reps=5)
+                lambda: plain(h, x, op["sp"], w3, op["b3"], op["s"],
+                              gemm_dtype=dt, **kw), reps=5)
     # bound: real slots' operations at the input type's peak vs every input
-    # byte read once and the output written once
+    # byte read once and the output written once.  Per slot: the kernel GEMM
+    # over K+1 rows (b3 the last) -- [h (x) x, x] W~ at full rank, uv = h~ W~
+    # at rank r, then t = U^T x and msg = V t -- and the S weight
     slots, k = op["h"].shape
+    c = op["x"].shape[1]
     real = int((op["s"].slot_rows >= 0).sum())
-    flops = real * (2 * (k + 1) * c * c + 2 * c)
+    if rank is None:
+        flops = real * (2 * (k + 1) * c * c + 2 * c)
+    else:
+        flops = real * (2 * (k + 1) * op["w3"].shape[1] + 4 * rank * c + 2 * c)
     for dt, size in (("bfloat16", 2), ("float32", 4)):
         nbytes = (size * (op["h"].numel() + op["x"].numel() + op["w3"].numel())
                   + 4 * (op["b3"].numel() + op["sp"].numel()
@@ -310,12 +391,26 @@ def phase_times(op, datasets, models, root, smi) -> dict:
         t[f"bound_ms_{dt}"] = max(t_ops, t_bytes) * 1e3
         t[f"bound_by_{dt}"] = "operations" if t_ops >= t_bytes else "bytes"
         t[f"flops_{dt}"], t[f"bytes_{dt}"] = flops, nbytes
-    # one warm full-size request: predict (2 chunks) + node weights + host
-    # overlap average, on a scheduler whose operand cache is warm
+    log_times(tagged("times", rank), "fwd", t, smi)
+    return t
+
+
+def log_times(label: str, kernel: str, t: dict, smi) -> None:
+    for key, v in t.items():
+        log(label, kernel=kernel,
+            **{key: v if isinstance(v, (int, str)) else f"{v:.4f}"},
+            card=repr(smi))
+
+
+def request_times(datasets, models, root, smi, tag: str = "") -> dict:
+    """One warm full-size request (exp ``full{tag}``): predict (2 chunks) +
+    node weights + host overlap average, on a scheduler whose operand cache
+    is warm; median of 5 and one profile."""
     from fast_eng_super_resolution_tpu_torch.data.reconstruct import overlap_average
 
-    sched = PartitionScheduler("full", 1, datasets["full"], models["full"],
-                               train=False, log_dir=os.path.join(root, "logs"))
+    sched = PartitionScheduler("full" + tag, 1, datasets["full"],
+                               models["full"], train=False,
+                               log_dir=os.path.join(root, "logs"))
     x = datasets["full"].get_one_full_sample(0)
     num_nodes = len(datasets["full"].full_mesh(0)["points"])
     gids = [d["global_node_ids"] for d in x]
@@ -331,12 +426,10 @@ def phase_times(op, datasets, models, root, smi) -> dict:
         request()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    t["request_ms"] = statistics.median(walls) * 1e3
-    t.update(profile_call(request, "request"))
-    for key, v in t.items():
-        log("times", kernel="fwd",
-            **{key: v if isinstance(v, (int, str)) else f"{v:.4f}"},
-            card=repr(smi))
+    label = tagged("times", models["full"].kernel_rank)
+    t = {"request_ms": statistics.median(walls) * 1e3}
+    t.update(profile_call(request, label + "_request"))
+    log_times(label, "request", t, smi)
     return t
 
 
@@ -385,16 +478,15 @@ def bwd_operands(op) -> dict:
 
 
 def bwd(bop, gemm_dtype, plain=False, dense=False):
-    fn = (fused_conv.fused_edge_conv_bwd_plain if plain
-          else fused_conv.fused_edge_conv_bwd)
+    """B2 (B4 for a rank-r model's operands) or its plain version."""
+    wrapper, plain_fn, _ = BWD[bop["rank"] is not None]
     s = bop["s"]
     if dense:
         s = fused_conv.expand_s(s.slot_rows, s.row_weight,
                                 rows_blk=bop["rows_blk"], blk=bop["blk"])
-    c = bop["x"].shape[1]
-    return fn(bop["g"], bop["h"], bop["x_src"], bop["w3"], bop["b3"], s,
-              c_in=c, c_out=c, rows_blk=bop["rows_blk"], blk=bop["blk"],
-              gemm_dtype=gemm_dtype)
+    return (plain_fn if plain else wrapper)(
+        bop["g"], bop["h"], bop["x_src"], bop["w3"], bop["b3"], s,
+        gemm_dtype=gemm_dtype, **layer_kw(bop))
 
 
 def merged_subdomains(ds, idxs=None):
@@ -408,8 +500,9 @@ def merged_subdomains(ds, idxs=None):
 
 def layer_grads(merged, model, device) -> list:
     """The differentiable fused layer's gradients (h, x, w3, b3) for the
-    graph ``merged`` at the model's width, float32, on ``device``, from the
-    model's first-layer operands and a seeded output gradient."""
+    graph ``merged`` at the model's width (and rank), float32, on
+    ``device``, from the model's first-layer operands and a seeded output
+    gradient."""
     ea, aux, s, rows_blk, blk = model.prepare_fused_train(
         merged.senders, merged.receivers, merged.edge_attr,
         merged.x.shape[0], merged.edge_mask, compact=True)
@@ -423,20 +516,25 @@ def layer_grads(merged, model, device) -> list:
     g = torch.randn(len(s.row_weight), c,
                     generator=torch.Generator().manual_seed(SEED + 1))
     leaves = [t.to(device).requires_grad_() for t in (h, x, w3, b3)]
-    out = fused_conv.fused_edge_conv_ad(
-        *leaves, s.to(device),
-        {k: torch.as_tensor(v, device=device) for k, v in aux.items()},
-        c_in=c, c_out=c, rows_blk=rows_blk, blk=blk, gemm_dtype="float32")
+    aux = {k: torch.as_tensor(v, device=device) for k, v in aux.items()}
+    kw = dict(c_in=c, c_out=c, rows_blk=rows_blk, blk=blk,
+              gemm_dtype="float32")
+    if model.kernel_rank is None:
+        out = fused_conv.fused_edge_conv_ad(*leaves, s.to(device), aux, **kw)
+    else:
+        out = fused_conv.fused_edge_conv_lowrank_ad(
+            *leaves, s.to(device), aux, rank=model.kernel_rank, **kw)
     (out * g.to(device)).sum().backward()
     return [t.grad.cpu() for t in leaves]
 
 
 def check_bwd(bop, at: str = "chunk", errs: dict | None = None) -> dict:
-    """B2 against its plain version on ``bop`` (the operands at shape
-    ``at``), each output relative to its own max; returns ``errs`` with
-    each type's largest absolute error."""
+    """B2 (B4 on the rank-r path) against its plain version on ``bop`` (the
+    operands at shape ``at``), each output relative to its own max; returns
+    ``errs`` with each type's largest absolute error."""
     slots, k = bop["h"].shape
-    log("bwd", at=at, n=bop["n"], subdomains=bop["b"],
+    label = tagged("bwd", bop["rank"])
+    log(label, at=at, n=bop["n"], subdomains=bop["b"],
         num_blocks=slots // bop["blk"], blk=bop["blk"], slots=slots,
         real_slots=int((bop["s"].slot_rows >= 0).sum()))
     errs = {} if errs is None else errs
@@ -449,13 +547,13 @@ def check_bwd(bop, at: str = "chunk", errs: dict | None = None) -> dict:
                 for name, a, b in zip(BWD_NAMES, got, ref):
                     abs_err = (a - b).abs().max().item()
                     rel = abs_err / b.abs().max().item()
-                    log("bwd", at=at, dtype=dt,
+                    log(label, at=at, dtype=dt,
                         s="dense" if dense else "compact", out=name,
                         max_abs_err=f"{abs_err:.3e}",
                         rel_to_max=f"{rel:.3e}", tol=BWD_TOL[dt])
                     if not rel <= BWD_TOL[dt]:
                         raise AssertionError(
-                            f"bwd kernel at {at} {dt} dense={dense} {name}: "
+                            f"{label} kernel at {at} {dt} dense={dense} {name}: "
                             f"{rel:.3e} > {BWD_TOL[dt]}")
                     errs[dt] = max(errs.get(dt, 0.0), abs_err)
             del ref, got
@@ -464,19 +562,21 @@ def check_bwd(bop, at: str = "chunk", errs: dict | None = None) -> dict:
 
 
 def phase_bwd(bop, small_merged, small_model) -> dict:
-    """B2 against its plain version at the chunk shape, then the
+    """B2 (B4) against its plain version at the chunk shape, then the
     differentiable layer on the card against the CPU."""
     errs = check_bwd(bop)
     model = small_model.cpu()
+    rank = model.kernel_rank
+    fn = "FusedEdgeConv" if rank is None else "FusedEdgeConvLowrank"
     card = layer_grads(small_merged, model, "cuda")
     torch.cuda.synchronize()
     for name, a, b in zip(("h", "x", "w3", "b3"), card,
                           layer_grads(small_merged, model, "cpu")):
         rel = (a - b).abs().max().item() / b.abs().max().item()
-        log("bwd", layer="FusedEdgeConv", grad=name, card_vs_cpu=f"{rel:.3e}",
-            tol=GRAD_TOL)
+        log(tagged("bwd", rank), layer=fn, grad=name,
+            card_vs_cpu=f"{rel:.3e}", tol=GRAD_TOL)
         if not rel <= GRAD_TOL:
-            raise AssertionError(f"FusedEdgeConv grad {name}: {rel:.3e}")
+            raise AssertionError(f"{fn} grad {name}: {rel:.3e}")
     return errs
 
 
@@ -487,9 +587,7 @@ def train_batches(ds, cfg: dict):
     graph, both blocked with one common blk — on the card, with a seeded
     full-width model."""
     tr_idx, va_idx = train_val_split(len(ds), 0.2, 0)
-    model = init_model("neuralop", cfg["in_channels"], cfg["out_channels"],
-                       seed=SEED, **{k: cfg[k] for k in ("width", "num_layers")})
-    model = model.cuda()
+    model = make_model(cfg).cuda()
     fbs, rows_blk, blk = make_fused_batches(
         [merged_subdomains(ds, ix) for ix in (tr_idx, va_idx)], model)
     for fb, ix in zip(fbs, (tr_idx, va_idx)):
@@ -509,12 +607,13 @@ def batch_operands(fb, model, rows_blk: int, blk: int) -> dict:
         b3 = model.edge_mlp[-1].bias.detach().contiguous()
     return dict(h=h_e, x=x, sp=fused["aux"]["senders_perm"], w3=w3, b3=b3,
                 s=fused["s"], rows_blk=rows_blk, blk=blk, n=g.x.shape[0],
-                b=fb["subdomains"])
+                b=fb["subdomains"], rank=model.kernel_rank)
 
 
 def phase_train_kernels(batches, errs: dict, errs_bwd: dict) -> None:
     """Both kernels against their plain versions at the shapes training
-    gives them: B1 on the train and val batches, B2 on the train batch."""
+    gives them: B1 (B3) on the train and val batches, B2 (B4) on the train
+    batch."""
     model, fbs, rows_blk, blk = batches
     for at, fb in zip(("train_batch", "val_batch"), fbs):
         op = batch_operands(fb, model, rows_blk, blk)
@@ -525,65 +624,67 @@ def phase_train_kernels(batches, errs: dict, errs_bwd: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_train(root: str, datasets: dict, cfgs: dict) -> dict:
+def phase_train(root: str, datasets: dict, cfgs: dict, tag: str = "") -> dict:
     """The training slice end to end: train_graph_ALDD on the full-size
-    meshes, launch counts, then the trained checkpoint served."""
+    meshes (exp ``train_full{tag}``), launch counts (B1 and B2, or B3 and
+    B4 for a rank-r config, and no other kernel), then the trained
+    checkpoint served."""
     log_dir = os.path.join(root, "logs")
+    cfg, ds = cfgs["full"], datasets["full"]
+    rank = cfg.get("kernel_rank")
+    label = tagged("train", rank)
+    fwd, bwd_k = FWD[rank is not None][0], BWD[rank is not None][0]
+    exp = "train_full" + tag
     train_cfg = load_yaml(TRAIN_CONFIG)
-    log("train", config=os.path.relpath(TRAIN_CONFIG, REPO),
+    log(label, config=os.path.relpath(TRAIN_CONFIG, REPO),
         cut=f"epochs {train_cfg['epochs']} -> {TRAIN_EPOCHS}",
         val_interval=f"{train_cfg['val_interval']} -> 1")
     train_cfg.update(epochs=TRAIN_EPOCHS, val_interval=1)
-    cfg, ds = cfgs["full"], datasets["full"]
     depth = cfg["num_layers"]
     tr_idx, va_idx = train_val_split(len(ds), 0.2, 0)
     n_batches = [-(-len(ix) // min(train_cfg["batch_size"], len(tr_idx)))
                  for ix in (tr_idx, va_idx)]
-    model = init_model("neuralop", cfg["in_channels"], cfg["out_channels"],
-                       seed=SEED, **{k: cfg[k] for k in ("width", "num_layers")})
-    fused_conv.fused_edge_conv.launches = 0
-    fused_conv.fused_edge_conv_bwd.launches = 0
+    model = make_model(cfg)
+    reset_launches()
     t0 = time.time()
-    train_graph_ALDD("train_full", model, ds, 1, train_cfg, log_dir=log_dir)
+    train_graph_ALDD(exp, model, ds, 1, train_cfg, log_dir=log_dir)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    b1 = fused_conv.fused_edge_conv.launches
-    b2 = fused_conv.fused_edge_conv_bwd.launches
+    n_fwd, n_bwd = fwd.launches, bwd_k.launches
     with open(os.path.join(log_dir, "metrics",
-                           "train_full_partition_0.jsonl")) as f:
+                           f"{exp}_partition_0.jsonl")) as f:
         records = [json.loads(line) for line in f]
     losses = [r["train_loss"] for r in records if "train_loss" in r]
     vals = [r["val_loss"] for r in records if "val_loss" in r]
     steps = TRAIN_EPOCHS * n_batches[0]
     evals = len(vals) * n_batches[1]
-    log("train", subdomains=len(ds), train=len(tr_idx), val=len(va_idx),
+    log(label, subdomains=len(ds), train=len(tr_idx), val=len(va_idx),
         epochs=len(losses), steps=steps, val_evals=evals,
         first_loss=f"{losses[0]:.5g}", last_loss=f"{losses[-1]:.5g}",
-        best_val=f"{min(vals):.5g}", b1_launches=b1, b2_launches=b2,
-        wall_s=f"{wall:.1f}")
+        best_val=f"{min(vals):.5g}", rank=rank, fwd_launches=n_fwd,
+        bwd_launches=n_bwd, wall_s=f"{wall:.1f}",
+        losses=",".join(f"{v:.5g}" for v in losses),
+        val_losses=",".join(f"{v:.5g}" for v in vals))
     if len(losses) != TRAIN_EPOCHS or not np.all(np.isfinite(losses + vals)):
         raise AssertionError(f"train losses {losses}, val {vals}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train loss did not fall: {losses}")
-    if b2 != depth * steps or b1 != depth * (steps + evals):
-        raise AssertionError(f"launches B1 {b1} (want {depth * (steps + evals)}),"
-                             f" B2 {b2} (want {depth * steps})")
-    ckpt_path = os.path.join(log_dir, "models", "collection_train_full",
+    check_only(label, {fwd: depth * (steps + evals), bwd_k: depth * steps})
+    ckpt_path = os.path.join(log_dir, "models", f"collection_{exp}",
                              "partition_0.npz")
     if not os.path.exists(ckpt_path):
         raise AssertionError(f"{ckpt_path} was not written")
-    fused_conv.fused_edge_conv.launches = 0
-    lanes, fields = serve(ds, model, cfg, [0], log_dir, "train_full", None)
+    reset_launches()
+    lanes, fields = serve(ds, model, [0], log_dir, exp, None)
     torch.cuda.synchronize()
-    served = fused_conv.fused_edge_conv.launches
-    log("train", served_from=os.path.relpath(ckpt_path, root),
+    served = fwd.launches
+    log(label, served_from=os.path.relpath(ckpt_path, root),
         lane=lanes[0][1], launches=served,
         nodes=len(fields[0]["pressure"]), finite=True)
-    if served != LAUNCHES["full"]:
-        raise AssertionError(f"trained checkpoint's request launched B1 "
-                             f"{served} times, expected {LAUNCHES['full']}")
-    return dict(b1=b1, b2=b2, served=served, steps=steps, evals=evals,
-                losses=losses)
+    check_only(f"{label}: the trained checkpoint's request",
+               {fwd: LAUNCHES["full"]})
+    return dict(fwd=n_fwd, bwd=n_bwd, served=served, steps=steps,
+                evals=evals, losses=losses)
 
 
 def phase_parity(small_merged, cfg: dict) -> None:
@@ -592,8 +693,7 @@ def phase_parity(small_merged, cfg: dict) -> None:
     lr = load_yaml(TRAIN_CONFIG)["lr"]
     losses = {}
     for dev in ("cuda", "cpu"):
-        model = init_model("neuralop", cfg["in_channels"], cfg["out_channels"],
-                           seed=SEED, **{k: cfg[k] for k in ("width", "num_layers")})
+        model = make_model(cfg)
         fb, rows_blk, blk = make_fused_batch(small_merged, model, device=dev)
         trainer = Trainer(model.to(dev), lr=lr, layout="fused",
                           fused_rows_blk=rows_blk, fused_blk=blk,
@@ -602,50 +702,53 @@ def phase_parity(small_merged, cfg: dict) -> None:
         losses[dev] = [float(trainer.step(opt, fb)) for _ in range(3)]
     for step, (a, b) in enumerate(zip(losses["cuda"], losses["cpu"])):
         rel = abs(a - b) / abs(b)
-        log("parity", step=step, card=f"{a:.8g}", cpu=f"{b:.8g}",
-            rel=f"{rel:.3e}", tol=PARITY_TOL)
+        log(tagged("parity", cfg.get("kernel_rank")), step=step,
+            card=f"{a:.8g}", cpu=f"{b:.8g}", rel=f"{rel:.3e}", tol=PARITY_TOL)
         if not rel <= PARITY_TOL:
             raise AssertionError(f"train step {step}: card {a} vs cpu {b}")
 
 
 def phase_bwd_times(bop, smi) -> dict:
-    """B2's and its plain version's CUDA-event medians at the chunk shape,
-    and its bound."""
+    """B2's (B4's) and its plain version's CUDA-event medians at the chunk
+    shape, and its bound."""
     t = {}
-    c = bop["x"].shape[1]
-    kw = dict(c_in=c, c_out=c, rows_blk=bop["rows_blk"], blk=bop["blk"])
+    rank = bop["rank"]
+    _, plain, launcher = BWD[rank is not None]
+    kw = layer_kw(bop)
     with torch.no_grad():
         for dt in ("bfloat16", "float32"):
             tdt = getattr(torch, dt)
             h, xs, w3 = (bop[key].to(tdt).contiguous()
                          for key in ("h", "x_src", "w3"))
-            t[f"ms_{dt}"] = cuda_ms(lambda: fused_conv.fused_edge_conv_bwd_cuda(
+            t[f"ms_{dt}"] = cuda_ms(lambda: launcher(
                 bop["g"], h, xs, w3, bop["b3"], bop["s"], **kw))
             t[f"plain_ms_{dt}"] = cuda_ms(
-                lambda: fused_conv.fused_edge_conv_bwd_plain(
-                    bop["g"], h, xs, w3, bop["b3"], bop["s"], gemm_dtype=dt,
-                    **kw), reps=5)
-    # bound: the real slots' operations (dmsg, the two outer products and
-    # the three GEMMs: dh, dx_src, dw3 with db3) at the input type's peak
-    # vs every input byte read once and every output written once
+                lambda: plain(bop["g"], h, xs, w3, bop["b3"], bop["s"],
+                              gemm_dtype=dt, **kw), reps=5)
+    # bound: the real slots' operations at the input type's peak vs every
+    # input byte read once and every output written once.  Full rank: dmsg,
+    # the two outer products and the three GEMMs (dh, dx_src, dw3 with db3).
+    # Rank r: dmsg, the uv recompute, t, dt, dx_src, duv, dh, dw3 with db3
     slots, k = bop["h"].shape
-    c2 = c * c
+    c = bop["x"].shape[1]
+    ncol = bop["w3"].shape[1]
     real = int((bop["s"].slot_rows >= 0).sum())
-    flops = real * (c + c2 + (k + 1) * c
-                    + 2 * k * c2 + 2 * (k + 1) * c2 + 2 * (k + 1) * c2)
+    if rank is None:
+        flops = real * (c + ncol + (k + 1) * c
+                        + 2 * k * ncol + 2 * (k + 1) * ncol + 2 * (k + 1) * ncol)
+    else:
+        flops = real * (c + 2 * (k + 1) * ncol + 6 * rank * c + ncol
+                        + 2 * k * ncol + 2 * (k + 1) * ncol)
     rows = len(bop["s"].row_weight)
     for dt, size in (("bfloat16", 2), ("float32", 4)):
-        nbytes = (size * (slots * k + slots * c + k * c2)
-                  + 4 * (rows * c + c2 + slots + rows)      # g, b3, S
-                  + 4 * (slots * k + slots * c + k * c2 + c2))  # outputs
+        nbytes = (size * (slots * k + slots * c + k * ncol)
+                  + 4 * (rows * c + ncol + slots + rows)      # g, b3, S
+                  + 4 * (slots * k + slots * c + k * ncol + ncol))  # outputs
         t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
         t[f"bound_ms_{dt}"] = max(t_ops, t_bytes) * 1e3
         t[f"bound_by_{dt}"] = "operations" if t_ops >= t_bytes else "bytes"
         t[f"flops_{dt}"], t[f"bytes_{dt}"] = flops, nbytes
-    for key, v in t.items():
-        log("times", kernel="bwd",
-            **{key: v if isinstance(v, (int, str)) else f"{v:.4f}"},
-            card=repr(smi))
+    log_times(tagged("times", rank), "bwd", t, smi)
     return t
 
 
@@ -654,7 +757,8 @@ def phase_train_times(batches, smi) -> dict:
     (the 12 train subdomains merged), and one profiled step."""
     model, (fb, _), rows_blk, blk = batches
     s = fb["fused"]["s"]
-    log("times", train_batch=fb["subdomains"], nodes=fb["graph"].x.shape[0],
+    label = tagged("times", model.kernel_rank)
+    log(label, train_batch=fb["subdomains"], nodes=fb["graph"].x.shape[0],
         edges=int(fb["graph"].edge_mask.sum()), blk=blk,
         slots=len(s.slot_rows), real_slots=int((s.slot_rows >= 0).sum()))
     trainer = Trainer(model, lr=load_yaml(TRAIN_CONFIG)["lr"], layout="fused",
@@ -673,10 +777,77 @@ def phase_train_times(batches, smi) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     t = {"train_step_ms": statistics.median(walls) * 1e3}
-    t.update({f"train_{k}": v for k, v in profile_call(step, "train_step").items()})
-    for key, v in t.items():
-        log("times", **{key: f"{v:.4f}"}, card=repr(smi))
+    t.update({f"train_{k}": v for k, v in
+              profile_call(step, label + "_train_step").items()})
+    log_times(label, "train_step", t, smi)
     return t
+
+
+def run_path(root, name, smi, datasets, models, cfgs, tag: str = "") -> dict:
+    """Phases 3-8 for one model configuration (full rank, or rank r with
+    ``tag``): kernels against their plain versions at the chunk and the
+    training batches, serving, training, parity, times.  Returns what the
+    kernels' JSON entries need."""
+    op = chunk_operands(datasets["full"], models["full"], "cuda")
+    errs = phase_kernel(op)
+    bop = bwd_operands(op)
+    small_merged = merged_subdomains(datasets["small"])
+    errs_bwd = phase_bwd(bop, small_merged, models["small"])
+    batches = train_batches(datasets["full"], cfgs["full"])
+    phase_train_kernels(batches, errs, errs_bwd)
+    launches = phase_serve(root, datasets, models, cfgs, tag)
+    train = phase_train(root, datasets, cfgs, tag)
+    phase_parity(small_merged, cfgs["small"])
+    t = fwd_times(op, smi)
+    t.update(request_times(datasets, models, root, smi, tag))
+    tb = phase_bwd_times(bop, smi)
+    t.update(phase_train_times(batches, smi))
+    del op, bop, batches
+    torch.cuda.empty_cache()
+    return dict(errs=errs, errs_bwd=errs_bwd, launches=launches, train=train,
+                t=t, tb=tb)
+
+
+def kernel_entries(r: dict, smi: str, rank) -> list:
+    """The forward's and the backward's entries of the kernels JSON line."""
+    pkg = "fast_eng_super_resolution_tpu_torch/csrc/"
+    if rank is None:
+        names, lines = ("fused_edge_conv", "fused_edge_conv_bwd"), (322, 442)
+    else:
+        names = ("fused_edge_conv_lowrank", "fused_edge_conv_lowrank_bwd")
+        lines = (637, 717)
+    train, t, tb = r["train"], r["t"], r["tb"]
+    entries = []
+    for name, line, errs, times, launches, by_path, extra in (
+            (names[0], lines[0], r["errs"], t,
+             r["launches"] + train["fwd"] + train["served"],
+             {"serve": r["launches"], "train": train["fwd"],
+              "serve_trained": train["served"]},
+             {"request_ms": t["request_ms"]}),
+            (names[1], lines[1], r["errs_bwd"], tb, train["bwd"],
+             {"train": train["bwd"]}, {"train_step_ms": t["train_step_ms"]})):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": pkg + name + ".cu",
+            "replaces": f"fast_eng_super_resolution_tpu/ops/fused_conv.py:{line}",
+            "launches": launches,
+            "launches_by_path": by_path,
+            "max_abs_err": errs["bfloat16"],
+            "ms": times["ms_bfloat16"],
+            "plain_ms": times["plain_ms_bfloat16"],
+            "bound_ms": times["bound_ms_bfloat16"],
+            "bound_by": times["bound_by_bfloat16"],
+            "library_ms": None,
+            "float32": {"max_abs_err": errs["float32"],
+                        "ms": times["ms_float32"],
+                        "plain_ms": times["plain_ms_float32"],
+                        "bound_ms": times["bound_ms_float32"],
+                        "bound_by": times["bound_by_float32"]},
+            **extra,
+            "card": smi,
+        })
+    return entries
 
 
 def main() -> int:
@@ -689,70 +860,27 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         cfgs = {"full": make_config(os.path.join(root, "full"), FULL),
                 "small": make_config(os.path.join(root, "small"), SMALL)}
-        datasets, models = {}, {}
+        # the rank-16 path: the same config with kernel_rank added
+        cfgs_lr = {k: dict(v, kernel_rank=RANK) for k, v in cfgs.items()}
+        datasets, models, models_lr = {}, {}, {}
         for key, cfg in cfgs.items():
             t1 = time.time()
             datasets[key] = init_dataset("synthetic", **cfg)
             # the same seeded weights for the card's and the CPU's run
-            models[key] = write_checkpoint(os.path.join(root, "logs"), key, cfg)
-            write_checkpoint(os.path.join(root, "logs"), key + "_cpu", cfg)
+            logs = os.path.join(root, "logs")
+            models[key] = write_checkpoint(logs, key, cfg)
+            write_checkpoint(logs, key + "_cpu", cfg)
+            models_lr[key] = write_checkpoint(logs, key + "_r16", cfgs_lr[key])
+            write_checkpoint(logs, key + "_r16_cpu", cfgs_lr[key])
             log("data", mesh=key, subdomains=len(datasets[key]),
                 etl_s=f"{time.time() - t1:.1f}")
 
-        op = chunk_operands(datasets["full"], models["full"], "cuda")
-        errs = phase_kernel(op)
-        bop = bwd_operands(op)
-        small_merged = merged_subdomains(datasets["small"])
-        errs_bwd = phase_bwd(bop, small_merged, models["small"])
-        batches = train_batches(datasets["full"], cfgs["full"])
-        phase_train_kernels(batches, errs, errs_bwd)
-        launches = phase_serve(root, datasets, models, cfgs)
-        train = phase_train(root, datasets, cfgs)
-        phase_parity(small_merged, cfgs["small"])
-        t = phase_times(op, datasets, models, root, smi)
-        tb = phase_bwd_times(bop, smi)
-        t.update(phase_train_times(batches, smi))
+        full = run_path(root, name, smi, datasets, models, cfgs)
+        lowrank = run_path(root, name, smi, datasets, models_lr, cfgs_lr,
+                           "_r16")
 
-    kernels = [{
-        "name": "fused_edge_conv",
-        "route": "cuda",
-        "source": "fast_eng_super_resolution_tpu_torch/csrc/fused_edge_conv.cu",
-        "replaces": "fast_eng_super_resolution_tpu/ops/fused_conv.py:322",
-        "launches": launches + train["b1"] + train["served"],
-        "launches_by_path": {"serve": launches, "train": train["b1"],
-                             "serve_trained": train["served"]},
-        "max_abs_err": errs["bfloat16"],
-        "ms": t["ms_bfloat16"],
-        "plain_ms": t["plain_ms_bfloat16"],
-        "bound_ms": t["bound_ms_bfloat16"],
-        "bound_by": t["bound_by_bfloat16"],
-        "library_ms": None,
-        "float32": {"max_abs_err": errs["float32"], "ms": t["ms_float32"],
-                    "plain_ms": t["plain_ms_float32"],
-                    "bound_ms": t["bound_ms_float32"],
-                    "bound_by": t["bound_by_float32"]},
-        "request_ms": t["request_ms"],
-        "card": smi,
-    }, {
-        "name": "fused_edge_conv_bwd",
-        "route": "cuda",
-        "source": "fast_eng_super_resolution_tpu_torch/csrc/fused_edge_conv_bwd.cu",
-        "replaces": "fast_eng_super_resolution_tpu/ops/fused_conv.py:442",
-        "launches": train["b2"],
-        "launches_by_path": {"train": train["b2"]},
-        "max_abs_err": errs_bwd["bfloat16"],
-        "ms": tb["ms_bfloat16"],
-        "plain_ms": tb["plain_ms_bfloat16"],
-        "bound_ms": tb["bound_ms_bfloat16"],
-        "bound_by": tb["bound_by_bfloat16"],
-        "library_ms": None,
-        "float32": {"max_abs_err": errs_bwd["float32"], "ms": tb["ms_float32"],
-                    "plain_ms": tb["plain_ms_float32"],
-                    "bound_ms": tb["bound_ms_float32"],
-                    "bound_by": tb["bound_by_float32"]},
-        "train_step_ms": t["train_step_ms"],
-        "card": smi,
-    }]
+    kernels = (kernel_entries(full, smi, None)
+               + kernel_entries(lowrank, smi, RANK))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

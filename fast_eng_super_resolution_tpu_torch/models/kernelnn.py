@@ -9,7 +9,11 @@ aggr='mean' (model.py:551).  Forward: fc1 -> depth x relu(conv) -> fc2
 ``apply`` is the plain whole-graph form; ``apply_fused`` runs each layer
 through the fused edge-conv layer (ops/fused_conv.py), a hand-written CUDA
 kernel on the GPU, and ``apply_fused_ad`` is its differentiable form for
-training (the backward a second hand-written kernel).  Weights move in and
+training (the backward a second hand-written kernel).  With ``kernel_rank``
+= r the edge MLP's head gives each edge a factorized kernel W_e = U_e V_e^T
+(U_e, V_e [width, r], head width 2 r width) and every form runs the rank-r
+layer instead (the JAX package's ``_apply_lowrank`` and the rank-r fused
+kernels).  Weights move in and
 out in two layouts besides the module's own: the reference's ``.pth`` state
 dict (``import_pth``/``export_pth``) and the JAX package's parameter tree
 (``from_jax_params``/``to_jax_params``, one key per parameter: ``jax_key``).
@@ -25,7 +29,7 @@ from ..core.checkpoint import flatten_params, unflatten_params
 from ..ops.message_passing import (apply_edge_mlp_hidden,
                                    edge_conditioned_conv,
                                    precompute_edge_kernel)
-from ..ops.segment import segment_degree
+from ..ops.segment import masked_segment_mean, segment_degree
 from .common import (from_torch_linear, linear_init, pyg_uniform_init,
                      to_torch_linear)
 
@@ -37,10 +41,6 @@ class KernelNN(nn.Module):
                  ker_in: int = 1, in_width: int = 3, out_width: int = 3,
                  kernel_rank: int | None = None, seed: int = 0):
         super().__init__()
-        if kernel_rank is not None:
-            raise NotImplementedError(
-                "KernelNN kernel_rank (low-rank edge kernels) is not ported "
-                "yet (ROADMAP.md queue A item 12)")
         self.width, self.ker_width, self.depth = width, ker_width, depth
         self.ker_in, self.in_width, self.out_width = ker_in, in_width, out_width
         self.kernel_rank = kernel_rank
@@ -49,11 +49,18 @@ class KernelNN(nn.Module):
         self.edge_mlp = nn.ModuleList([
             skip(nn.Linear, ker_in, ker_width),
             skip(nn.Linear, ker_width, ker_width),
-            skip(nn.Linear, ker_width, width * width)])
+            skip(nn.Linear, ker_width, self.head_width)])
         self.root = nn.Parameter(torch.empty(width, width))
         self.bias = nn.Parameter(torch.empty(width))
         self.fc2 = skip(nn.Linear, width, out_width)
         self.init_params(torch.Generator().manual_seed(seed))
+
+    @property
+    def head_width(self) -> int:
+        """The edge MLP's output width: width^2 at full rank, 2 r width
+        (U_e then V_e) at rank r."""
+        w, r = self.width, self.kernel_rank
+        return w * w if r is None else 2 * r * w
 
     def init_params(self, generator: torch.Generator) -> None:
         """The JAX package's init distributions (KernelNN.init), drawn from
@@ -73,6 +80,9 @@ class KernelNN(nn.Module):
         The per-edge kernel matrices are loop-invariant (shared weights), so
         they are computed once, not depth times."""
         h = self.fc1(x)
+        if self.kernel_rank is not None:
+            return self._apply_lowrank(h, senders, receivers, edge_attr,
+                                       edge_mask)
         pre = precompute_edge_kernel(self.edge_mlp, edge_attr, torch.relu)
         deg = segment_degree(receivers, x.shape[0], edge_mask)
         for _ in range(self.depth):
@@ -80,6 +90,32 @@ class KernelNN(nn.Module):
                 h, senders, receivers, edge_attr, self.edge_mlp, self.root,
                 self.bias, edge_mask=edge_mask, precomputed=pre, degree=deg))
         return self.fc2(h)
+
+    def _apply_lowrank(self, h: torch.Tensor, senders: torch.Tensor,
+                       receivers: torch.Tensor, edge_attr: torch.Tensor,
+                       edge_mask: torch.Tensor | None) -> torch.Tensor:
+        """Rank-r conv: msg_e = (h[s_e] @ U_e) @ V_e^T, scatter-mean; U/V
+        from one loop-invariant edge-MLP pass [E, 2 r w]."""
+        w, r = self.width, self.kernel_rank
+        hid = apply_edge_mlp_hidden(self.edge_mlp, edge_attr, torch.relu)
+        uv = self.edge_mlp[-1](hid)
+        u = uv[:, :w * r].reshape(-1, w, r)
+        v = uv[:, w * r:].reshape(-1, w, r)
+        deg = segment_degree(receivers, h.shape[0], edge_mask)
+        for _ in range(self.depth):
+            t = torch.einsum("ei,eir->er", h[senders.long()], u)
+            msg = torch.einsum("er,eor->eo", t, v)
+            agg = masked_segment_mean(msg, receivers, h.shape[0], edge_mask,
+                                      count=deg)
+            h = torch.relu(agg + h @ self.root + self.bias)
+        return self.fc2(h)
+
+    def _fused_layer_kw(self, rows_blk: int, blk: int, gemm_dtype: str) -> dict:
+        kw = dict(c_in=self.width, c_out=self.width, rows_blk=rows_blk,
+                  blk=blk, gemm_dtype=gemm_dtype)
+        if self.kernel_rank is not None:
+            kw["rank"] = self.kernel_rank
+        return kw
 
     def apply_fused(self, x: torch.Tensor, edge_attr_blocked: torch.Tensor,
                     senders_perm: torch.Tensor, s_matrix, *, rows_blk: int,
@@ -90,9 +126,14 @@ class KernelNN(nn.Module):
         fused conv, then ``agg[:n] + h @ root + bias`` and ReLU.  bf16 GEMM
         inputs by default, as in the JAX package; 'float32' for
         full-precision parity.  ``s_matrix`` is dense S or a ``CompactS``.
+        A rank-r model runs the rank-r layer (B3 on the GPU).
         """
-        from ..ops.fused_conv import _gemm_dtype, fused_edge_conv
+        from ..ops.fused_conv import (_gemm_dtype, fused_edge_conv,
+                                      fused_edge_conv_lowrank)
 
+        layer = (fused_edge_conv if self.kernel_rank is None
+                 else fused_edge_conv_lowrank)
+        kw = self._fused_layer_kw(rows_blk, blk, gemm_dtype)
         dt = _gemm_dtype(gemm_dtype)
         n = x.shape[0]
         h = self.fc1(x)
@@ -104,10 +145,7 @@ class KernelNN(nn.Module):
         w3 = last.weight.t().to(dt).contiguous()
         b3 = last.bias.float().contiguous()
         for _ in range(self.depth):
-            agg = fused_edge_conv(h_e, h, senders_perm, w3, b3, s_matrix,
-                                  c_in=self.width, c_out=self.width,
-                                  rows_blk=rows_blk, blk=blk,
-                                  gemm_dtype=gemm_dtype)
+            agg = layer(h_e, h, senders_perm, w3, b3, s_matrix, **kw)
             h = torch.relu(agg[:n] + h @ self.root + self.bias)
         return self.fc2(h)
 
@@ -122,9 +160,14 @@ class KernelNN(nn.Module):
         float32 tensors autograd tracks go into the layer, which rounds them
         to ``gemm_dtype`` inside, so every gradient arrives in float32.
         ``fused_aux`` and ``s_matrix`` come from ``prepare_fused_train``.
+        A rank-r model runs ``fused_edge_conv_lowrank_ad`` (B3, B4).
         """
-        from ..ops.fused_conv import fused_edge_conv_ad
+        from ..ops.fused_conv import (fused_edge_conv_ad,
+                                      fused_edge_conv_lowrank_ad)
 
+        layer = (fused_edge_conv_ad if self.kernel_rank is None
+                 else fused_edge_conv_lowrank_ad)
+        kw = self._fused_layer_kw(rows_blk, blk, gemm_dtype)
         n = x.shape[0]
         h = self.fc1(x)
         h_e = apply_edge_mlp_hidden(self.edge_mlp, edge_attr_blocked,
@@ -132,10 +175,7 @@ class KernelNN(nn.Module):
         last = self.edge_mlp[-1]
         w3 = last.weight.t()
         for _ in range(self.depth):
-            agg = fused_edge_conv_ad(h_e, h, w3, last.bias, s_matrix,
-                                     fused_aux, c_in=self.width,
-                                     c_out=self.width, rows_blk=rows_blk,
-                                     blk=blk, gemm_dtype=gemm_dtype)
+            agg = layer(h_e, h, w3, last.bias, s_matrix, fused_aux, **kw)
             h = torch.relu(agg[:n] + h @ self.root + self.bias)
         return self.fc2(h)
 
@@ -175,13 +215,14 @@ class KernelNN(nn.Module):
                 f"checkpoint fc1 {tuple(fc1_shape)} does not match "
                 f"(width={self.width}, in_width={self.in_width})")
         # the edge-MLP head width encodes the kernel factorization: full rank
-        # = width*width.  A low-rank checkpoint loading into this full-rank
-        # model would slice the flat head with the wrong column meaning.
-        if head != self.width * self.width:
+        # = width*width, rank r = 2*r*width.  A checkpoint of the other kind
+        # would slice the flat head with the wrong column meaning.
+        if head != self.head_width:
             raise ValueError(
                 f"checkpoint edge-MLP head width {head} does not match "
-                f"kernel_rank=None (expected {self.width * self.width}; "
-                "low-rank checkpoints cannot load into full-rank configs)")
+                f"kernel_rank={self.kernel_rank} (expected {self.head_width}; "
+                "full-rank checkpoints cannot load into low-rank configs or "
+                "vice versa)")
 
     def import_pth(self, state_dict) -> "KernelNN":
         """Loads a reference checkpoint (torch state_dict / numpy dict).

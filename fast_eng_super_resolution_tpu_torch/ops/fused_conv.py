@@ -20,7 +20,11 @@ ctypes); on a CPU tensor it runs the plain PyTorch version below, which is
 the same function and the reference the kernel is checked against.  Nothing
 falls back from one to the other.  Training goes through ``FusedEdgeConv``,
 whose backward is the kernel in ``csrc/fused_edge_conv_bwd.cu`` (or its plain
-version, ``fused_edge_conv_bwd_plain``, on the CPU).
+version, ``fused_edge_conv_bwd_plain``, on the CPU).  Models with rank-r
+factorized edge kernels (``kernel_rank``) run ``fused_edge_conv_lowrank``
+(``csrc/fused_edge_conv_lowrank.cu``) and train through
+``FusedEdgeConvLowrank``, whose backward is
+``csrc/fused_edge_conv_lowrank_bwd.cu``.
 """
 
 from __future__ import annotations
@@ -212,9 +216,12 @@ def prepare_fused_train(senders, receivers, edge_attr, n_nodes,
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-# library -> its source: B1 (forward) and B2 (backward)
+# library -> its source: B1 (forward), B2 (backward), and their rank-r
+# counterparts B3 and B4
 _SOURCES = {"fused_edge_conv": "fused_edge_conv.cu",
-            "fused_edge_conv_bwd": "fused_edge_conv_bwd.cu"}
+            "fused_edge_conv_bwd": "fused_edge_conv_bwd.cu",
+            "fused_edge_conv_lowrank": "fused_edge_conv_lowrank.cu",
+            "fused_edge_conv_lowrank_bwd": "fused_edge_conv_lowrank_bwd.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _libs: dict = {}
@@ -276,24 +283,34 @@ def build_kernel(force: bool = False) -> list[str]:
     return [_lib_path(name) for name in _SOURCES]
 
 
+# library -> (function, number of pointer arguments, number of int
+# arguments), then the size query's int arguments; every launcher takes the
+# stream as its last argument and returns the cudaError_t
+_BINDINGS = {
+    "fused_edge_conv": (("fused_edge_conv_forward", 9, 7), 3),
+    "fused_edge_conv_bwd": (("fused_edge_conv_backward", 12, 7), 3),
+    "fused_edge_conv_lowrank": (("fused_edge_conv_lowrank_forward", 9, 8), 4),
+    "fused_edge_conv_lowrank_bwd": (("fused_edge_conv_lowrank_backward", 14, 8),
+                                    4),
+}
+
+
 def _load_kernel(name: str = "fused_edge_conv"):
-    """The library ``name`` (``fused_edge_conv`` or ``fused_edge_conv_bwd``),
-    building every library first if one is stale."""
+    """The library ``name`` (a key of ``_SOURCES``), building every library
+    first if one is stale."""
     with _lib_lock:
         if not _libs:
             build_kernel()
             p, i = ctypes.c_void_p, ctypes.c_int
-            fwd = ctypes.CDLL(_lib_path("fused_edge_conv"))
-            fwd.fused_edge_conv_forward.argtypes = [p] * 9 + [i] * 7 + [p]
-            fwd.fused_edge_conv_forward.restype = i
-            fwd.fused_edge_conv_smem_bytes.argtypes = [i, i, i]
-            fwd.fused_edge_conv_smem_bytes.restype = ctypes.c_long
-            bwd = ctypes.CDLL(_lib_path("fused_edge_conv_bwd"))
-            bwd.fused_edge_conv_backward.argtypes = [p] * 12 + [i] * 7 + [p]
-            bwd.fused_edge_conv_backward.restype = i
-            bwd.fused_edge_conv_bwd_smem_bytes.argtypes = [i, i, i]
-            bwd.fused_edge_conv_bwd_smem_bytes.restype = ctypes.c_long
-            _libs.update(fused_edge_conv=fwd, fused_edge_conv_bwd=bwd)
+            for lib_name, ((fn, n_ptr, n_int), n_size) in _BINDINGS.items():
+                lib = ctypes.CDLL(_lib_path(lib_name))
+                launch = getattr(lib, fn)
+                launch.argtypes = [p] * n_ptr + [i] * n_int + [p]
+                launch.restype = i
+                size = getattr(lib, f"{lib_name}_smem_bytes")
+                size.argtypes = [i] * n_size
+                size.restype = ctypes.c_long
+                _libs[lib_name] = lib
     return _libs[name]
 
 
@@ -317,12 +334,29 @@ def fused_edge_conv_plain(h_blocked, x, senders_perm, w3, b3, s, *,
     x_src = x[senders_perm.long()].to(dt).float()
     w = h_blocked.to(dt).float() @ w3.to(dt).float() + b3.float()
     msg = torch.einsum("ei,eio->eo", x_src, w.reshape(-1, c_in, c_out))
-    nb = msg.shape[0] // blk
+    return _scatter_mean_plain(msg, s, rows_blk=rows_blk, blk=blk)
+
+
+def _scatter_mean_plain(msg, s, *, rows_blk: int, blk: int) -> torch.Tensor:
+    """out [nb*rows_blk, c_out] = S msg, block by block (dense S, or expanded
+    from its generators)."""
+    nb, c_out = msg.shape[0] // blk, msg.shape[1]
     if isinstance(s, CompactS):
         s = expand_s(s.slot_rows, s.row_weight, rows_blk=rows_blk, blk=blk)
     out = torch.bmm(s.reshape(nb, rows_blk, blk).float(),
                     msg.reshape(nb, blk, c_out))
     return out.reshape(nb * rows_blk, c_out)
+
+
+def _dmsg_plain(g, s, dt, *, rows_blk: int, blk: int) -> torch.Tensor:
+    """dmsg [slots, c_out] = S^T g block by block, rounded to ``dt``: the
+    gradient of ``_scatter_mean_plain`` with respect to msg."""
+    nb = g.shape[0] // rows_blk
+    if isinstance(s, CompactS):
+        s = expand_s(s.slot_rows, s.row_weight, rows_blk=rows_blk, blk=blk)
+    dmsg = torch.bmm(s.reshape(nb, rows_blk, blk).float().transpose(1, 2),
+                     g.float().reshape(nb, rows_blk, -1))
+    return dmsg.reshape(nb * blk, -1).to(dt).float()
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
@@ -338,6 +372,37 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_geometry(dt, slots: int, rows_blk: int, blk: int, **dims) -> None:
+    """Raises on what the kernels do not take: a GEMM type other than
+    float32 or bfloat16, blocks of other than 64 rows, a blk that is not a
+    positive multiple of 64 dividing the slots, or a width ``dims`` (name=
+    value) outside 1..64 (``rank``: 1..32)."""
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"h_blocked dtype {dt} (expected float32 | bfloat16)")
+    if rows_blk != 64:
+        raise ValueError(f"rows_blk={rows_blk}: the kernel takes 64-row blocks")
+    if blk % 64 or blk <= 0:
+        raise ValueError(f"blk={blk} must be a positive multiple of 64")
+    for name, v in dims.items():
+        top = 32 if name == "rank" else 64
+        if not 1 <= v <= top:
+            raise ValueError(f"{name}={v} outside the kernel's 1..{top}")
+    if slots % blk:
+        raise ValueError(f"{slots} slots is not a multiple of blk={blk}")
+
+
+def _s_pointers(s, slots: int, nb: int, rows_blk: int, blk: int) -> tuple:
+    """(slot_rows, row_weight, dense S) pointers for a launch: S checked as
+    ``CompactS`` generators or as the dense matrix, the other pointers
+    null."""
+    if isinstance(s, CompactS):
+        _check("slot_rows", s.slot_rows, torch.int32, (slots,))
+        _check("row_weight", s.row_weight, torch.float32, (nb * rows_blk,))
+        return s.slot_rows.data_ptr(), s.row_weight.data_ptr(), None
+    _check("s", s, torch.float32, (nb * rows_blk, blk))
+    return None, None, s.data_ptr()
+
+
 def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
                          c_in: int, c_out: int, rows_blk: int,
                          blk: int) -> torch.Tensor:
@@ -346,17 +411,8 @@ def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
     float32, index arrays int32.  Checks every operand and raises on what the
     kernel does not take; raises if the launch fails."""
     dt = h_blocked.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"h_blocked dtype {dt} (expected float32 | bfloat16)")
-    if rows_blk != 64:
-        raise ValueError(f"rows_blk={rows_blk}: the kernel takes 64-row blocks")
-    if blk % 64 or blk <= 0:
-        raise ValueError(f"blk={blk} must be a positive multiple of 64")
-    if not 1 <= c_out <= 64:
-        raise ValueError(f"c_out={c_out} outside the kernel's 1..64")
     slots, k = h_blocked.shape
-    if slots % blk:
-        raise ValueError(f"{slots} slots is not a multiple of blk={blk}")
+    _check_geometry(dt, slots, rows_blk, blk, c_out=c_out)
     nb = slots // blk
     n = x.shape[0]
     _check("h_blocked", h_blocked, dt, (slots, k))
@@ -364,13 +420,7 @@ def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
     _check("senders_perm", senders_perm, torch.int32, (slots,))
     _check("w3", w3, dt, (k, c_in * c_out))
     _check("b3", b3, torch.float32, (c_in * c_out,))
-    if isinstance(s, CompactS):
-        _check("slot_rows", s.slot_rows, torch.int32, (slots,))
-        _check("row_weight", s.row_weight, torch.float32, (nb * rows_blk,))
-        ptrs = (s.slot_rows.data_ptr(), s.row_weight.data_ptr(), None)
-    else:
-        _check("s", s, torch.float32, (nb * rows_blk, blk))
-        ptrs = (None, None, s.data_ptr())
+    ptrs = _s_pointers(s, slots, nb, rows_blk, blk)
     dev = h_blocked.device
     for name, t in (("x", x), ("senders_perm", senders_perm), ("w3", w3),
                     ("b3", b3)):
@@ -442,12 +492,7 @@ def fused_edge_conv_bwd_plain(g, h_blocked, x_src, w3, b3, s, *,
     [slots, c_in*c_out] outer products and matrices."""
     dt = _gemm_dtype(gemm_dtype)
     slots = h_blocked.shape[0]
-    nb = slots // blk
-    if isinstance(s, CompactS):
-        s = expand_s(s.slot_rows, s.row_weight, rows_blk=rows_blk, blk=blk)
-    dmsg = torch.bmm(s.reshape(nb, rows_blk, blk).float().transpose(1, 2),
-                     g.float().reshape(nb, rows_blk, c_out))
-    dmsg = dmsg.reshape(slots, c_out).to(dt).float()
+    dmsg = _dmsg_plain(g, s, dt, rows_blk=rows_blk, blk=blk)
     h = h_blocked.to(dt).float()
     xs = x_src.to(dt).float()
     w3f = w3.to(dt).float()
@@ -461,11 +506,10 @@ def fused_edge_conv_bwd_plain(g, h_blocked, x_src, w3, b3, s, *,
     return dh, dx_src, dw3, db3
 
 
-def _weight_splits(slots: int, c_in: int, device) -> int:
-    """Slot splits of the backward's weights kernel: about six thread blocks
-    per SM over its 4-input-channel output tiles, at least one 64-slot chunk
-    per split."""
-    tiles = -(-c_in // 4)
+def _weight_splits(slots: int, tiles: int, device) -> int:
+    """Slot splits of a backward's weights kernel: about six thread blocks
+    per SM over its ``tiles`` output tiles, at least one 64-slot chunk per
+    split."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(slots // 64, -(-6 * sms // tiles)))
 
@@ -480,31 +524,15 @@ def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
     float32; dw3/db3 are the kernel's per-split partials summed in a fixed
     order."""
     dt = h_blocked.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"h_blocked dtype {dt} (expected float32 | bfloat16)")
-    if rows_blk != 64:
-        raise ValueError(f"rows_blk={rows_blk}: the kernel takes 64-row blocks")
-    if blk % 64 or blk <= 0:
-        raise ValueError(f"blk={blk} must be a positive multiple of 64")
     slots, k = h_blocked.shape
-    for name, v in (("K", k), ("c_in", c_in), ("c_out", c_out)):
-        if not 1 <= v <= 64:
-            raise ValueError(f"{name}={v} outside the kernel's 1..64")
-    if slots % blk:
-        raise ValueError(f"{slots} slots is not a multiple of blk={blk}")
+    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out)
     nb, c2 = slots // blk, c_in * c_out
     _check("g", g, torch.float32, (nb * rows_blk, c_out))
     _check("h_blocked", h_blocked, dt, (slots, k))
     _check("x_src", x_src, dt, (slots, c_in))
     _check("w3", w3, dt, (k, c2))
     _check("b3", b3, torch.float32, (c2,))
-    if isinstance(s, CompactS):
-        _check("slot_rows", s.slot_rows, torch.int32, (slots,))
-        _check("row_weight", s.row_weight, torch.float32, (nb * rows_blk,))
-        ptrs = (s.slot_rows.data_ptr(), s.row_weight.data_ptr(), None)
-    else:
-        _check("s", s, torch.float32, (nb * rows_blk, blk))
-        ptrs = (None, None, s.data_ptr())
+    ptrs = _s_pointers(s, slots, nb, rows_blk, blk)
     dev = h_blocked.device
     for name, t in (("g", g), ("x_src", x_src), ("w3", w3), ("b3", b3)):
         if t.device != dev:
@@ -514,7 +542,7 @@ def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
     dh = torch.empty((slots, k), **f32)
     dx_src = torch.empty((slots, c_in), **f32)
     dmsg = torch.empty((slots, c_out), **f32)  # scratch between the launches
-    splits = _weight_splits(slots, c_in, dev)
+    splits = _weight_splits(slots, -(-c_in // 4), dev)  # 4-channel tiles
     partial = torch.empty((splits, k + 1, c2), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -610,3 +638,253 @@ def fused_edge_conv_ad(h_blocked, x, w3, b3, s, fused_aux, *, c_in: int,
     """
     return FusedEdgeConv.apply(h_blocked, x, w3, b3, s, fused_aux, c_in,
                                c_out, rows_blk, blk, gemm_dtype)
+
+
+# ---------------------------------------------------------------------------
+# the rank-r layer (B3), its backward (B4) and the differentiable rank-r layer
+#
+# Per slot the edge MLP's head gives uv [r*(c_in+c_out)] in the model's column
+# layout: U[i, q] = uv[i*r + q], V[o, q] = uv[r*c_in + o*r + q].  The rounding
+# points, the same in the kernels and their plain versions: h, x (x_src), w3
+# and (backward) dmsg to the GEMM type; uv, t, msg and every gradient stay
+# float32.
+
+
+def _lowrank_parts(uv, c_in: int, c_out: int, rank: int):
+    """(U [slots, c_in, r], V [slots, c_out, r]) views of uv."""
+    ru = c_in * rank
+    return (uv[:, :ru].reshape(-1, c_in, rank),
+            uv[:, ru:].reshape(-1, c_out, rank))
+
+
+def fused_edge_conv_lowrank_plain(h_blocked, x, senders_perm, w3, b3, s, *,
+                                  c_in: int, c_out: int, rank: int,
+                                  rows_blk: int, blk: int,
+                                  gemm_dtype: str = "float32") -> torch.Tensor:
+    """Plain PyTorch version of ``fused_edge_conv_lowrank`` (same operands,
+    same result).  Materializes the per-slot [slots, r*(c_in+c_out)] uv."""
+    dt = _gemm_dtype(gemm_dtype)
+    x_src = x[senders_perm.long()].to(dt).float()
+    uv = h_blocked.to(dt).float() @ w3.to(dt).float() + b3.float()
+    u, v = _lowrank_parts(uv, c_in, c_out, rank)
+    t = torch.einsum("ei,eiq->eq", x_src, u)
+    msg = torch.einsum("eq,eoq->eo", t, v)
+    return _scatter_mean_plain(msg, s, rows_blk=rows_blk, blk=blk)
+
+
+def fused_edge_conv_lowrank_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
+                                 c_in: int, c_out: int, rank: int,
+                                 rows_blk: int, blk: int) -> torch.Tensor:
+    """Launches the rank-r forward kernel (csrc/fused_edge_conv_lowrank.cu)
+    on the current stream.  h_blocked, x and w3 share one dtype (float32 or
+    bfloat16, the GEMM input type); b3 and S are float32, index arrays
+    int32.  Checks every operand and raises on what the kernel does not
+    take; raises if the launch fails."""
+    dt = h_blocked.dtype
+    slots, k = h_blocked.shape
+    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out,
+                    rank=rank)
+    nb, ncol = slots // blk, rank * (c_in + c_out)
+    n = x.shape[0]
+    _check("h_blocked", h_blocked, dt, (slots, k))
+    _check("x", x, dt, (n, c_in))
+    _check("senders_perm", senders_perm, torch.int32, (slots,))
+    _check("w3", w3, dt, (k, ncol))
+    _check("b3", b3, torch.float32, (ncol,))
+    ptrs = _s_pointers(s, slots, nb, rows_blk, blk)
+    dev = h_blocked.device
+    for name, t in (("x", x), ("senders_perm", senders_perm), ("w3", w3),
+                    ("b3", b3)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
+    lib = _load_kernel("fused_edge_conv_lowrank")
+    out = torch.empty((nb * rows_blk, c_out), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_edge_conv_lowrank_forward(
+            h_blocked.data_ptr(), x.data_ptr(), senders_perm.data_ptr(),
+            w3.data_ptr(), b3.data_ptr(), *ptrs, out.data_ptr(), nb, blk, k,
+            c_in, c_out, rank, n, int(dt == torch.bfloat16), stream)
+    if err != 0:
+        smem = lib.fused_edge_conv_lowrank_smem_bytes(k, c_in, c_out, rank)
+        raise RuntimeError(
+            f"fused_edge_conv_lowrank kernel launch failed: cudaError {err} "
+            f"(K={k}, c_in={c_in}, c_out={c_out}, rank={rank}: {smem} B of "
+            "shared memory per block)")
+    fused_edge_conv_lowrank.launches += 1
+    return out
+
+
+def fused_edge_conv_lowrank(h_blocked, x, senders_perm, w3, b3, s, *,
+                            c_in: int, c_out: int, rank: int, rows_blk: int,
+                            blk: int,
+                            gemm_dtype: str = "float32") -> torch.Tensor:
+    """One rank-r conv layer's message+aggregate, the counterpart of the JAX
+    package's ``fused_edge_conv_lowrank``: returns [num_blocks*rows_blk,
+    c_out] float32.  Operands as ``fused_edge_conv``'s, with w3 [K,
+    r*(c_in+c_out)] and b3 [r*(c_in+c_out)] the edge MLP's head in the
+    model's column layout.
+
+    CUDA operands launch the kernel (``fused_edge_conv_lowrank.launches``
+    counts the launches); CPU operands run ``fused_edge_conv_lowrank_plain``.
+    """
+    kw = dict(c_in=c_in, c_out=c_out, rank=rank, rows_blk=rows_blk, blk=blk)
+    if h_blocked.device.type == "cpu":
+        return fused_edge_conv_lowrank_plain(h_blocked, x, senders_perm, w3,
+                                             b3, s, gemm_dtype=gemm_dtype,
+                                             **kw)
+    dt = _gemm_dtype(gemm_dtype)
+    return fused_edge_conv_lowrank_cuda(
+        h_blocked.to(dt).contiguous(), x.to(dt).contiguous(), senders_perm,
+        w3.to(dt).contiguous(), b3.float().contiguous(), s, **kw)
+
+
+fused_edge_conv_lowrank.launches = 0
+
+
+def fused_edge_conv_lowrank_bwd_plain(g, h_blocked, x_src, w3, b3, s, *,
+                                      c_in: int, c_out: int, rank: int,
+                                      rows_blk: int, blk: int,
+                                      gemm_dtype: str = "float32"):
+    """Plain PyTorch version of ``fused_edge_conv_lowrank_bwd``: the
+    gradients of ``fused_edge_conv_lowrank`` with respect to (h_blocked,
+    x_src, w3, b3), written out, w3's and b3's in the model's column layout.
+    Materializes the per-slot uv and duv [slots, r*(c_in+c_out)]."""
+    dt = _gemm_dtype(gemm_dtype)
+    slots = h_blocked.shape[0]
+    dmsg = _dmsg_plain(g, s, dt, rows_blk=rows_blk, blk=blk)
+    h = h_blocked.to(dt).float()
+    xs = x_src.to(dt).float()
+    w3f = w3.to(dt).float()
+    u, v = _lowrank_parts(h @ w3f + b3.float(), c_in, c_out, rank)
+    t = torch.einsum("ei,eiq->eq", xs, u)
+    d_t = torch.einsum("eo,eoq->eq", dmsg, v)
+    dx_src = torch.einsum("eiq,eq->ei", u, d_t)
+    duv = torch.cat([(xs[:, :, None] * d_t[:, None, :]).reshape(slots, -1),
+                     (dmsg[:, :, None] * t[:, None, :]).reshape(slots, -1)],
+                    dim=1)
+    return duv @ w3f.t(), dx_src, h.t() @ duv, duv.sum(0)
+
+
+def fused_edge_conv_lowrank_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *,
+                                     c_in: int, c_out: int, rank: int,
+                                     rows_blk: int, blk: int):
+    """Launches the rank-r backward kernel
+    (csrc/fused_edge_conv_lowrank_bwd.cu) on the current stream.  h_blocked,
+    x_src and w3 share one dtype (float32 or bfloat16, the GEMM input type);
+    g, b3 and S are float32, slot_rows int32.  Checks every operand and
+    raises on what the kernel does not take; raises if the launch fails.
+    Returns (dh, dx_src, dw3, db3), float32; dw3/db3 are the kernel's
+    per-split partials summed in a fixed order."""
+    dt = h_blocked.dtype
+    slots, k = h_blocked.shape
+    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out,
+                    rank=rank)
+    nb, ncol = slots // blk, rank * (c_in + c_out)
+    _check("g", g, torch.float32, (nb * rows_blk, c_out))
+    _check("h_blocked", h_blocked, dt, (slots, k))
+    _check("x_src", x_src, dt, (slots, c_in))
+    _check("w3", w3, dt, (k, ncol))
+    _check("b3", b3, torch.float32, (ncol,))
+    ptrs = _s_pointers(s, slots, nb, rows_blk, blk)
+    dev = h_blocked.device
+    for name, t in (("g", g), ("x_src", x_src), ("w3", w3), ("b3", b3)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
+    lib = _load_kernel("fused_edge_conv_lowrank_bwd")
+    f32 = dict(dtype=torch.float32, device=dev)
+    dh = torch.empty((slots, k), **f32)
+    dx_src = torch.empty((slots, c_in), **f32)
+    # scratch between the launches: per-slot dmsg, t and dt
+    dmsg = torch.empty((slots, c_out), **f32)
+    t_vec = torch.empty((slots, rank), **f32)
+    dt_vec = torch.empty((slots, rank), **f32)
+    # 8-channel column tiles of the U and the V half
+    splits = _weight_splits(slots, -(-c_in // 8) + -(-c_out // 8), dev)
+    partial = torch.empty((splits, k + 1, ncol), **f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_edge_conv_lowrank_backward(
+            g.data_ptr(), h_blocked.data_ptr(), x_src.data_ptr(),
+            w3.data_ptr(), b3.data_ptr(), *ptrs, dh.data_ptr(),
+            dx_src.data_ptr(), dmsg.data_ptr(), t_vec.data_ptr(),
+            dt_vec.data_ptr(), partial.data_ptr(), nb, blk, k, c_in, c_out,
+            rank, splits, int(dt == torch.bfloat16), stream)
+    if err != 0:
+        smem = lib.fused_edge_conv_lowrank_bwd_smem_bytes(k, c_in, c_out, rank)
+        raise RuntimeError(
+            f"fused_edge_conv_lowrank_bwd kernel launch failed: cudaError "
+            f"{err} (K={k}, c_in={c_in}, c_out={c_out}, rank={rank}: {smem} B "
+            "of shared memory per block)")
+    fused_edge_conv_lowrank_bwd.launches += 1
+    total = partial.sum(0)
+    return dh, dx_src, total[:k], total[k]
+
+
+def fused_edge_conv_lowrank_bwd(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
+                                c_out: int, rank: int, rows_blk: int, blk: int,
+                                gemm_dtype: str = "float32"):
+    """Backward of ``fused_edge_conv_lowrank`` with respect to (h_blocked,
+    x_src, w3, b3), given g [num_blocks*rows_blk, c_out] and x_src =
+    x[senders_perm]: what the JAX package's ``_fused_lowrank_bwd_jit``
+    returns after its unpermute.  Returns (dh [slots, K], dx_src
+    [slots, c_in], dw3 [K, r*(c_in+c_out)], db3 [r*(c_in+c_out)]), float32.
+
+    CUDA operands launch the kernel (``fused_edge_conv_lowrank_bwd.launches``
+    counts the launches); CPU operands run
+    ``fused_edge_conv_lowrank_bwd_plain``.
+    """
+    kw = dict(c_in=c_in, c_out=c_out, rank=rank, rows_blk=rows_blk, blk=blk)
+    if h_blocked.device.type == "cpu":
+        return fused_edge_conv_lowrank_bwd_plain(g, h_blocked, x_src, w3, b3,
+                                                 s, gemm_dtype=gemm_dtype,
+                                                 **kw)
+    dt = _gemm_dtype(gemm_dtype)
+    return fused_edge_conv_lowrank_bwd_cuda(
+        g.float().contiguous(), h_blocked.to(dt).contiguous(),
+        x_src.to(dt).contiguous(), w3.to(dt).contiguous(),
+        b3.float().contiguous(), s, **kw)
+
+
+fused_edge_conv_lowrank_bwd.launches = 0
+
+
+class FusedEdgeConvLowrank(torch.autograd.Function):
+    """The differentiable rank-r fused layer: forward through
+    ``fused_edge_conv_lowrank`` (B3), backward through
+    ``fused_edge_conv_lowrank_bwd`` (B4) and ``scatter_dx`` over the dump
+    row.  It saves only its inputs, never the per-slot uv: the backward
+    recomputes it tile by tile.  Gradients flow to h_blocked, x, w3 and b3,
+    in their own dtypes; S and the aux get none."""
+
+    @staticmethod
+    def forward(ctx, h_blocked, x, w3, b3, s, fused_aux, c_in, c_out, rank,
+                rows_blk, blk, gemm_dtype):
+        ctx.save_for_backward(h_blocked, x, w3, b3)
+        ctx.s, ctx.aux = s, fused_aux
+        ctx.kw = dict(c_in=c_in, c_out=c_out, rank=rank, rows_blk=rows_blk,
+                      blk=blk, gemm_dtype=gemm_dtype)
+        return fused_edge_conv_lowrank(h_blocked, x, fused_aux["senders_perm"],
+                                       w3, b3, s, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        h_blocked, x, w3, b3 = ctx.saved_tensors
+        x_src = x[ctx.aux["senders_perm"].long()]
+        dh, dx_src, dw3, db3 = fused_edge_conv_lowrank_bwd(
+            g, h_blocked, x_src, w3, b3, ctx.s, **ctx.kw)
+        dx = scatter_dx(dx_src, ctx.aux["senders_dump"], x.shape[0])
+        return (dh.to(h_blocked.dtype), dx.to(x.dtype), dw3.to(w3.dtype),
+                db3.to(b3.dtype)) + (None,) * 8
+
+
+def fused_edge_conv_lowrank_ad(h_blocked, x, w3, b3, s, fused_aux, *,
+                               c_in: int, c_out: int, rank: int,
+                               rows_blk: int, blk: int,
+                               gemm_dtype: str = "float32") -> torch.Tensor:
+    """Differentiable rank-r fused conv layer (training path), the
+    counterpart of the JAX package's custom-VJP
+    ``fused_edge_conv_lowrank_ad``; operands as ``fused_edge_conv_ad``'s."""
+    return FusedEdgeConvLowrank.apply(h_blocked, x, w3, b3, s, fused_aux,
+                                      c_in, c_out, rank, rows_blk, blk,
+                                      gemm_dtype)

@@ -1,6 +1,7 @@
 """The port's serving slice end to end on the CPU against the JAX package:
-synthetic duct -> RCB subdomains -> KernelNN through the fused layer ->
-overlap-average reconstruction -> ``.vtu``, on both serving lanes.
+synthetic duct -> RCB subdomains -> KernelNN (full rank, and with rank-3
+factorized edge kernels) through the fused layer -> overlap-average
+reconstruction -> ``.vtu``, on both serving lanes.
 
 The JAX side reaches its fused lanes on the CPU with
 ``FESR_FUSED_PREDICT=force`` (Pallas in interpret mode) and one device
@@ -34,6 +35,8 @@ from fast_eng_super_resolution_tpu_torch.sched.scheduler import PartitionSchedul
 
 DS_KW = dict(sub_size=4, n_high=(16, 8, 8), n_low=(8, 4, 4), num_cases=2)
 MODEL_KW = dict(width=8, num_layers=2)
+# the rank-r model served from a checkpoint of its own (exp names "*_r3")
+LOWRANK_KW = dict(width=12, num_layers=2, kernel_rank=3)
 # float32 on both sides, sums in different orders, through depth 2 and an
 # overlap average: differences at the 1e-6 level -> 1e-4 of the max
 TOL = 1e-4
@@ -46,29 +49,33 @@ def jax_dataset(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def log_dir(tmp_path_factory):
-    """A checkpoint written by the JAX package's own ``save_params``."""
+    """Checkpoints written by the JAX package's own ``save_params``: a
+    full-rank model (exps "fast", "general") and a rank-3 one ("*_r3")."""
     d = str(tmp_path_factory.mktemp("logs"))
-    model = jinit("neuralop", 4, 4, **MODEL_KW)
-    params = jax.tree_util.tree_map(np.asarray,
-                                    model.init(jax.random.PRNGKey(3)))
-    for exp in ("fast", "general"):
-        jckpt.save_params(os.path.join(d, "models", f"collection_{exp}",
-                                       "partition_0.npz"),
-                          params, meta={"model": "KernelNN"})
+    for kw, suffix in ((MODEL_KW, ""), (LOWRANK_KW, "_r3")):
+        model = jinit("neuralop", 4, 4, **kw)
+        params = jax.tree_util.tree_map(np.asarray,
+                                        model.init(jax.random.PRNGKey(3)))
+        for exp in ("fast", "general"):
+            jckpt.save_params(os.path.join(d, "models",
+                                           f"collection_{exp}{suffix}",
+                                           "partition_0.npz"),
+                              params, meta={"model": "KernelNN"})
     return d
 
 
 @pytest.fixture
 def jax_fused_f32(monkeypatch):
-    """Runs the JAX fused layer with float32 GEMM inputs (its serving lanes
+    """Runs the JAX fused layers with float32 GEMM inputs (its serving lanes
     pass no gemm_dtype, so the default bf16 is swapped here)."""
-    orig = jfc.fused_edge_conv
+    for name in ("fused_edge_conv", "fused_edge_conv_lowrank"):
+        orig = getattr(jfc, name)
 
-    def f32(*args, **kwargs):
-        kwargs["gemm_dtype"] = "float32"
-        return orig(*args, **kwargs)
+        def f32(*args, _orig=orig, **kwargs):
+            kwargs["gemm_dtype"] = "float32"
+            return _orig(*args, **kwargs)
 
-    monkeypatch.setattr(jfc, "fused_edge_conv", f32)
+        monkeypatch.setattr(jfc, name, f32)
     monkeypatch.setenv("FESR_FUSED_PREDICT", "force")
 
 
@@ -76,18 +83,20 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)
 
 
+@pytest.mark.parametrize("kernel_rank", [None, 3])
 @pytest.mark.parametrize("lane,budget", [("fast", None), ("general", "5000")])
-def test_pred_graph_matches_jax(lane, budget, jax_dataset, log_dir,
-                                jax_fused_f32, monkeypatch):
+def test_pred_graph_matches_jax(lane, budget, kernel_rank, jax_dataset,
+                                log_dir, jax_fused_f32, monkeypatch):
     if budget is not None:
         monkeypatch.setenv("FESR_PREDICT_EDGE_BUDGET", budget)
+    kw, exp = ((MODEL_KW, lane) if kernel_rank is None
+               else (LOWRANK_KW, lane + "_r3"))
     idxs = [0, 1]
-    ref_paths = jpred(idxs, lane, jinit("neuralop", 4, 4, **MODEL_KW),
+    ref_paths = jpred(idxs, exp, jinit("neuralop", 4, 4, **kw),
                       jax_dataset, 1, log_dir=log_dir, use_mesh=False)
     ref = [read_vtu(p)["point_data"] for p in ref_paths]
     lanes = []
-    got_paths = pred_graph_ALDD(idxs, lane, init_model("neuralop", 4, 4,
-                                                       **MODEL_KW),
+    got_paths = pred_graph_ALDD(idxs, exp, init_model("neuralop", 4, 4, **kw),
                                 jax_dataset, 1, log_dir=log_dir, device="cpu",
                                 gemm_dtype="float32", lanes=lanes)
     assert [lane_ for _, lane_, _ in lanes] == [lane] * len(idxs)

@@ -23,6 +23,7 @@ from fast_eng_super_resolution_tpu.data.partition import extract_subdomains
 from fast_eng_super_resolution_tpu.data.synthetic import make_sample_pair
 from fast_eng_super_resolution_tpu.models.kernelnn import KernelNN as JKernelNN
 from fast_eng_super_resolution_tpu.parallel import train as jtrain
+from fast_eng_super_resolution_tpu.sched.scheduler import PartitionScheduler as JSched
 from fast_eng_super_resolution_tpu_torch.core import checkpoint as tckpt
 from fast_eng_super_resolution_tpu_torch.core.graph import Graph
 from fast_eng_super_resolution_tpu_torch.data.dataset import SyntheticDataset
@@ -50,10 +51,10 @@ def graph():
     return merged
 
 
-def _both(merged, seed=0):
+def _both(merged, seed=0, kernel_rank=None):
     """The JAX model, its params and fused batch, and the port's model
     (same params) and fused batch on the CPU."""
-    jmodel = JKernelNN(mode="edge3d", **CFG)
+    jmodel = JKernelNN(mode="edge3d", kernel_rank=kernel_rank, **CFG)
     params = jax.tree_util.tree_map(np.asarray,
                                     jmodel.init(jax.random.PRNGKey(seed)))
     jbatch, rows_blk, blk = jtrain.make_fused_batch(merged, jmodel,
@@ -61,7 +62,7 @@ def _both(merged, seed=0):
                                                     quantum=64)
     host = Graph(**{f.name: np.asarray(getattr(merged, f.name))
                     for f in dataclasses.fields(Graph)})
-    model = KernelNN(**CFG).from_jax_params(params)
+    model = KernelNN(kernel_rank=kernel_rank, **CFG).from_jax_params(params)
     tbatch, rb2, blk2 = ttrain.make_fused_batch(host, model, rows_blk=ROWS_BLK,
                                                 quantum=64, device="cpu")
     assert (rb2, blk2) == (rows_blk, blk)
@@ -78,8 +79,10 @@ def _flat_grads(model):
     return out
 
 
-def test_merged_fused_loss_and_grads_match_jax(graph):
-    jmodel, params, jbatch, model, tbatch, blk = _both(graph)
+@pytest.mark.parametrize("kernel_rank", [None, 3])
+def test_merged_fused_loss_and_grads_match_jax(graph, kernel_rank):
+    jmodel, params, jbatch, model, tbatch, blk = _both(graph,
+                                                       kernel_rank=kernel_rank)
     ref, ref_grads = jax.value_and_grad(
         lambda p: jtrain.merged_fused_loss(jmodel, p, jbatch, ROWS_BLK, blk,
                                            gemm_dtype="float32",
@@ -98,11 +101,13 @@ def test_merged_fused_loss_and_grads_match_jax(graph):
                                    err_msg=key)
 
 
-def test_fused_trainer_steps_match_jax(graph):
+@pytest.mark.parametrize("kernel_rank", [None, 3])
+def test_fused_trainer_steps_match_jax(graph, kernel_rank):
     """Five Adam steps of the port's fused Trainer against the JAX
     package's, from the same params: per-step losses within 1e-4
     relative (Adam with optax's defaults on both sides)."""
-    jmodel, params, jbatch, model, tbatch, blk = _both(graph, seed=1)
+    jmodel, params, jbatch, model, tbatch, blk = _both(graph, seed=1,
+                                                       kernel_rank=kernel_rank)
     jt = jtrain.Trainer(jmodel, lr=2e-3, layout="fused", donate=False,
                         fused_rows_blk=ROWS_BLK, fused_blk=blk,
                         fused_dtype="float32", fused_interpret=True)
@@ -182,12 +187,16 @@ TRAIN_CFG = dict(epochs=3, batch_size=8, lr=2e-3, step_size=30, gamma=0.1,
                  log_interval=1, val_interval=1)
 
 
+@pytest.mark.parametrize("kernel_rank", [None, 3])
 @pytest.mark.parametrize("layout", ["fused", "merged"])
-def test_scheduler_train_writes_checkpoint_jax_serves(synth, tmp_path, layout):
+def test_scheduler_train_writes_checkpoint_jax_serves(synth, tmp_path, layout,
+                                                      kernel_rank):
     """train -> partition_0.npz that the JAX package loads and serves equal
-    to the port's ``apply``; resume=True restores epoch and best_loss."""
+    to the port's ``apply`` (and, through its scheduler, to the port's
+    ``predict``); resume=True restores epoch and best_loss."""
     log_dir = str(tmp_path)
-    model = init_model("neuralop", 4, 4, width=8, num_layers=2)
+    model = init_model("neuralop", 4, 4, width=8, num_layers=2,
+                       kernel_rank=kernel_rank)
     sched = PartitionScheduler("tr", 1, synth, model, train=True,
                                log_dir=log_dir, device="cpu",
                                gemm_dtype="float32")
@@ -200,7 +209,7 @@ def test_scheduler_train_writes_checkpoint_jax_serves(synth, tmp_path, layout):
     assert jckpt.load_meta(npz)["model"] == "KernelNN"
     params = jckpt.load_params(npz)
     jmodel = JKernelNN(width=8, ker_width=8, depth=2, in_width=4,
-                       out_width=4, mode="edge3d")
+                       out_width=4, mode="edge3d", kernel_rank=kernel_rank)
     g = synth.get(0)
     ref = np.asarray(jmodel.apply(params, jnp.asarray(g["x"]),
                                   jnp.asarray(g["senders"]),
@@ -211,6 +220,17 @@ def test_scheduler_train_writes_checkpoint_jax_serves(synth, tmp_path, layout):
                                  ("x", "senders", "receivers", "edge_attr")))
     assert np.isfinite(ref).all()
     assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    # the JAX scheduler serves the port's checkpoint (its non-fused lane on
+    # the CPU) as the port's scheduler does, float32 on both sides
+    x = synth.get_one_full_sample(0)
+    jpreds = JSched("tr", 1, synth, jmodel, train=False, log_dir=log_dir,
+                    use_mesh=False).predict(x)[0]
+    tpreds = PartitionScheduler("tr", 1, synth, model, train=False,
+                                log_dir=log_dir, device="cpu",
+                                gemm_dtype="float32").predict(x)[0]
+    for a, b in zip(tpreds, jpreds):
+        b = np.asarray(b)
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
 
     _, extra = tckpt.load_tree_like(os.path.join(coll, "partition_0_state.npz"),
                                     {"step": 0})
@@ -308,10 +328,12 @@ def test_optimizer_state_round_trips(tmp_path):
             torch.testing.assert_close(opt2.state[p][slot], opt.state[p][slot])
 
 
-def test_cli_train_on_cpu(tmp_path, monkeypatch):
+@pytest.mark.parametrize("kernel_rank", [None, 3])
+def test_cli_train_on_cpu(tmp_path, monkeypatch, kernel_rank):
     """``python -m fast_eng_super_resolution_tpu_torch --mode=train`` flow
     (runner.main) with ``device: cpu`` in the exp config, restricted to
-    ``train_meshes``; the trained checkpoint then serves with --mode=pred."""
+    ``train_meshes``; the trained checkpoint then serves with --mode=pred.
+    ``kernel_rank`` in the exp config reaches the model."""
     import yaml
 
     from fast_eng_super_resolution_tpu_torch.data.vtu import read_vtu
@@ -323,12 +345,15 @@ def test_cli_train_on_cpu(tmp_path, monkeypatch):
                num_layers=2, root=str(tmp_path / "data"), idxs=[1],
                device="cpu", sub_size=4, n_high=[10, 5, 5], n_low=[6, 3, 3],
                num_cases=2, train_meshes=[0])
+    if kernel_rank is not None:
+        cfg["kernel_rank"] = kernel_rank
     (tmp_path / "exp.yaml").write_text(yaml.safe_dump(cfg))
     (tmp_path / "train.yaml").write_text(yaml.safe_dump(
         {**TRAIN_CFG, "epochs": 2}))
     argv = ["--model=neuralop", "--dataset=synthetic", "--exp_name=cli",
             "--exp_config=exp.yaml", "--train_config=train.yaml"]
     sched = main(parse_args(argv + ["--mode=train"]))
+    assert sched.model.kernel_rank == kernel_rank
     assert len(sched.dataset) == len(sched.dataset.dataset.mesh_subdomain_indices(0))
     assert os.path.exists(os.path.join("logs", "models", "collection_cli",
                                        "partition_0.npz"))
