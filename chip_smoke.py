@@ -4,11 +4,13 @@ Phases, each printing its own lines; any failure raises and the script exits
 non-zero without the final result line:
 
 1. device  — needs CUDA; prints the card's name and power limit.
-2. build   — compiles the four kernels (csrc/fused_edge_conv.cu, the forward
-             B1, csrc/fused_edge_conv_bwd.cu, the backward B2, and their
-             rank-r counterparts csrc/fused_edge_conv_lowrank.cu, B3, and
-             csrc/fused_edge_conv_lowrank_bwd.cu, B4) from the checkout, one
-             nvcc each, started together.
+2. build   — compiles the five kernels (csrc/fused_edge_conv.cu, the forward
+             B1, csrc/fused_edge_conv_bwd.cu, the backward B2, their rank-r
+             counterparts csrc/fused_edge_conv_lowrank.cu, B3, and
+             csrc/fused_edge_conv_lowrank_bwd.cu, B4, and
+             csrc/fused_edge_messages.cu, B5, the per-edge messages of conv
+             mode 'pallas') from the checkout, one nvcc each, started
+             together.
 3. kernel  — B1 against its plain PyTorch version on the card, at the
              full-size serving chunk shape, on operands from the real dataset
              chunk: float32 (TF32 off) and bfloat16, compact and dense S.
@@ -41,11 +43,23 @@ non-zero without the final result line:
 
 Phases 3-8 then run again for the rank-16 path, the same config with
 ``kernel_rank: 16`` (edge-MLP head 2 x 16 x 48 = 1536 columns, factorized
-edge kernels): B3 and B4 against their plain versions at the same shapes
-(``[lowrank_kernel]``, ``[lowrank_bwd]``), serving with 8 B3 launches per
-full-size request and none of B1, training with B4 launched depth x steps
+edge kernels) and its depth cut to 2 to keep the run short: B3 and B4
+against their plain versions at the same shapes (``[lowrank_kernel]``,
+``[lowrank_bwd]``), serving with 4 B3 launches per full-size request and
+none of B1, training with B4 launched depth x steps
 times and neither B1 nor B2, card-vs-CPU parity, and their times
-(``[lowrank_*]`` lines).
+(``[lowrank_*]`` lines).  They run a third time for TEECNet at the full
+width of configs/exp_config/teecnet_ansys.yaml (width 48, 5 layers, edge MLP
+K = 128) on the same meshes (``[teecnet_*]`` lines): B1 and B2 at K = 128,
+10 B1 launches per full-size request, configs/train_config/teecnet.yaml cut
+to 3 epochs (its loss is recorded, not held to fall).
+
+9. pallas  — KernelNN and TEECNet built with ``mode='pallas'`` serve one
+             full-size mesh each with FESR_FUSED_PREDICT=0 (the general lane's
+             ``apply``): B5 launched depth x chunks times (8, 10), no other
+             kernel; the prediction against the same checkpoint's 'edge3d'
+             prediction on the card.  B5 against its plain version at both
+             chunk shapes (K 48, K 128), and their times.
 
 The second-to-last line is a JSON object with the kernels' numbers, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -70,8 +84,10 @@ from fast_eng_super_resolution_tpu_torch.core import checkpoint as ckpt  # noqa:
 from fast_eng_super_resolution_tpu_torch.core.graph import merge_batch, pad_and_bucket  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.data.dataset import init_dataset  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.data.vtu import read_vtu  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.models.kernelnn import KernelNN  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.models.registry import init_model  # noqa: E402
-from fast_eng_super_resolution_tpu_torch.ops import fused_conv  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.models.teecnet import TEECNet, _leaky_relu  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.ops import fused_conv, pallas_mp  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.ops.message_passing import apply_edge_mlp_hidden  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.parallel.train import (  # noqa: E402
     Trainer, make_fused_batch, make_fused_batches, train_val_split)
@@ -86,14 +102,20 @@ BASE_CONFIG = os.path.join(REPO, "configs", "exp_config",
 TRAIN_CONFIG = os.path.join(REPO, "configs", "train_config",
                             "synthetic_full.yaml")
 TRAIN_EPOCHS = 10  # the one cut of synthetic_full.yaml (300 epochs)
+TEECNET_CONFIG = os.path.join(REPO, "configs", "exp_config",
+                              "teecnet_ansys.yaml")
+TEECNET_TRAIN = os.path.join(REPO, "configs", "train_config", "teecnet.yaml")
+TEECNET_EPOCHS = 3  # the one cut of teecnet.yaml (151 epochs)
 FULL = dict(n_high=(48, 24, 24), n_low=(20, 10, 10), sub_size=8, num_cases=2)
 SMALL = dict(n_high=(16, 8, 8), n_low=(8, 4, 4), sub_size=4, num_cases=1)
 SEED = 0
-LAUNCHES = {"full": 8, "small": 4}  # per request: chunks x depth
+CHUNKS = {"full": 2, "small": 1}  # per request; launches = chunks x depth
 RANK = 16  # the rank-r path's kernel_rank (the JAX package's lowrank16 rows)
+RANK_DEPTH = 2  # its depth, cut from the config's 4 to keep the run short
 KERNELS = (fused_conv.fused_edge_conv, fused_conv.fused_edge_conv_bwd,
            fused_conv.fused_edge_conv_lowrank,
-           fused_conv.fused_edge_conv_lowrank_bwd)
+           fused_conv.fused_edge_conv_lowrank_bwd,
+           pallas_mp.fused_edge_messages)
 # rank-r? -> (wrapper, plain version, CUDA launcher), forward and backward
 FWD = {False: (fused_conv.fused_edge_conv, fused_conv.fused_edge_conv_plain,
                fused_conv.fused_edge_conv_cuda),
@@ -122,8 +144,14 @@ BWD_TOL = {"float32": 5e-5, "bfloat16": 1e-4}
 GRAD_TOL = 1e-4
 PARITY_TOL = 1e-4
 # Served bf16 prediction vs the CPU float32 plain prediction: bf16 rounding of
-# the GEMM inputs (2^-8 relative) through 4 layers -> 3e-2 of the max.
+# the GEMM inputs (2^-8 relative) through 4-5 layers -> 3e-2 of the max.
 SERVE_TOL = 3e-2
+# B5 vs its plain version (both float32, TF32 off, sums of (K+1) c_in
+# products in other orders), and the 'pallas' prediction vs the 'edge3d' one
+# (float32 end to end, through 4-5 layers and the overlap average), each
+# relative to the max.
+MSG_TOL = 5e-5
+PALLAS_TOL = 1e-4
 
 # H100 SXM data sheet: HBM rate and dense peaks per input type
 HBM_BYTES_PER_S = 3.35e12
@@ -170,16 +198,55 @@ def check_only(label: str, want: dict) -> None:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
 
 
-def tagged(phase: str, rank) -> str:
-    """The log label of ``phase`` on the rank-r path."""
-    return phase if rank is None else f"lowrank_{phase}"
+def prefix(model) -> str:
+    """The log prefix of the path ``model`` runs: '' (KernelNN at full
+    rank), 'lowrank_' (KernelNN at rank r) or 'teecnet_'."""
+    if isinstance(model, TEECNet):
+        return "teecnet_"
+    return "" if model.kernel_rank is None else "lowrank_"
+
+
+def rank_of(model):
+    return getattr(model, "kernel_rank", None)
 
 
 def make_model(cfg: dict):
-    """The seeded model of ``cfg`` (full rank, or rank ``kernel_rank``)."""
-    return init_model("neuralop", cfg["in_channels"], cfg["out_channels"],
+    """The seeded model of ``cfg``: KernelNN (full rank, or rank
+    ``kernel_rank``) or TEECNet, as ``cfg['model']`` names it."""
+    return init_model(cfg["model"], cfg["in_channels"], cfg["out_channels"],
                       seed=SEED, kernel_rank=cfg.get("kernel_rank"),
                       **{k: cfg[k] for k in ("width", "num_layers")})
+
+
+def make_pallas_model(cfg: dict):
+    """The model of ``cfg`` in conv mode 'pallas': the mode is a constructor
+    argument (never read from a config), so the model is built directly."""
+    if cfg["model"] == "teecnet":
+        return TEECNet(cfg["in_channels"], cfg["width"], cfg["out_channels"],
+                       cfg["num_layers"], mode="pallas", seed=SEED)
+    w = cfg["width"]
+    return KernelNN(w, w, cfg["num_layers"], in_width=cfg["in_channels"],
+                    out_width=cfg["out_channels"], mode="pallas", seed=SEED)
+
+
+def conv_parts(model):
+    """(edge MLP, its activation, the map from fc1's output to the conv
+    layer's node features) of ``model``'s shared conv."""
+    if isinstance(model, TEECNet):
+        return model.kernel.edge_mlp, _leaky_relu, model.kernel.linear
+    return model.edge_mlp, torch.relu, lambda h: h
+
+
+def layer_operands(model, ea, x) -> tuple:
+    """(h_e, x, w3, b3) the model's first conv layer takes for blocked (or
+    per-edge) edge attributes ``ea`` and node inputs ``x``."""
+    edge_mlp, act, node_map = conv_parts(model)
+    with torch.no_grad():
+        h_e = apply_edge_mlp_hidden(edge_mlp, ea, act).contiguous()
+        xl = node_map(model.fc1(x)).contiguous()
+        w3 = edge_mlp[-1].weight.t().contiguous()
+        b3 = edge_mlp[-1].bias.detach().contiguous()
+    return h_e, xl, w3, b3
 
 
 def phase_device() -> tuple[str, str]:
@@ -198,11 +265,16 @@ def phase_device() -> tuple[str, str]:
     return name, smi
 
 
-def make_config(root: str, sizes: dict) -> dict:
-    """The shipped full-width config with this run's mesh sizes and root."""
-    cfg = load_yaml(BASE_CONFIG)
+def make_config(root: str, sizes: dict, base: str = BASE_CONFIG,
+                model: str = "neuralop", train: str = TRAIN_CONFIG,
+                epochs: int = TRAIN_EPOCHS) -> dict:
+    """The shipped full-width config ``base`` with this run's mesh sizes and
+    root, and (in memory only) the model type, train config and epoch cut of
+    the path it drives."""
+    cfg = load_yaml(base)
     cfg.update(sizes, root=os.path.join(root, "data"),
-               idxs=list(range(sizes["num_cases"])))
+               idxs=list(range(sizes["num_cases"])), model=model,
+               train_config=train, train_epochs=epochs)
     return cfg
 
 
@@ -210,7 +282,8 @@ def write_checkpoint(log_dir: str, exp: str, cfg: dict):
     model = make_model(cfg)
     ckpt.save_params(os.path.join(log_dir, "models", f"collection_{exp}",
                                   "partition_0.npz"),
-                     model.to_jax_params(), meta={"model": "KernelNN"})
+                     model.to_jax_params(),
+                     meta={"model": type(model).__name__})
     return model
 
 
@@ -226,17 +299,22 @@ def chunk_operands(dataset, model, device):
         merged.senders, merged.receivers, merged.edge_attr,
         merged.x.shape[0], merged.edge_mask, compact=True)
     m = model.to(device)
-    with torch.no_grad():
-        h_e = apply_edge_mlp_hidden(m.edge_mlp,
-                                    torch.as_tensor(ea_b, device=device),
-                                    torch.relu).contiguous()
-        x = m.fc1(torch.as_tensor(merged.x, device=device)).contiguous()
-        w3 = m.edge_mlp[-1].weight.t().contiguous()
-        b3 = m.edge_mlp[-1].bias.detach().contiguous()
+    h_e, x, w3, b3 = layer_operands(
+        m, torch.as_tensor(ea_b, device=device),
+        torch.as_tensor(merged.x, device=device))
+    msg = None
+    if rank_of(model) is None:
+        # B5's operands at full rank: every edge of the merged chunk,
+        # padding included, as the general lane's 'pallas' apply hands them
+        hid, xl, _, _ = layer_operands(
+            m, torch.as_tensor(merged.edge_attr, device=device),
+            torch.as_tensor(merged.x, device=device))
+        src = torch.as_tensor(merged.senders, device=device).long()
+        msg = (hid, xl[src].contiguous(), w3, b3)
     return dict(h=h_e, x=x, sp=torch.as_tensor(sp, device=device),
                 w3=w3, b3=b3, s=sm.to(device), rows_blk=rows_blk, blk=blk,
-                n=merged.x.shape[0], b=chunk.x.shape[0],
-                rank=model.kernel_rank)
+                n=merged.x.shape[0], b=chunk.x.shape[0], rank=rank_of(model),
+                tag=prefix(model), msg=msg)
 
 
 def layer_kw(op) -> dict:
@@ -267,7 +345,7 @@ def phase_kernel(op, at: str = "chunk", errs: dict | None = None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     slots, k = op["h"].shape
-    label = tagged("kernel", op["rank"])
+    label = op["tag"] + "kernel"
     log(label, at=at, n=op["n"], subdomains=op["b"],
         num_blocks=slots // op["blk"], blk=op["blk"], slots=slots,
         real_slots=int((op["s"].slot_rows >= 0).sum()), k=k,
@@ -314,8 +392,8 @@ def phase_serve(root: str, datasets: dict, models: dict, cfgs: dict,
     for a rank-r model, and no other kernel), finite fields, and the card's
     bf16 prediction against the port's float32 plain one on the CPU."""
     log_dir = os.path.join(root, "logs")
-    rank = models["full"].kernel_rank
-    label = tagged("serve", rank)
+    rank = rank_of(models["full"])
+    label = prefix(models["full"]) + "serve"
     kernel = FWD[rank is not None][0]
     launches = 0
     card = {}
@@ -335,7 +413,8 @@ def phase_serve(root: str, datasets: dict, models: dict, cfgs: dict,
                 cold_s=f"{time.time() - t0:.3f}")
             if lanes[0][1] != want_lane:
                 raise AssertionError(f"{name} mesh took lane {lanes[0][1]}")
-            check_only(f"{label} {name} request", {kernel: LAUNCHES[name]})
+            check_only(f"{label} {name} request",
+                       {kernel: CHUNKS[name] * cfgs[name]["num_layers"]})
             card[(name, idx)] = fields[0]
     # the card's bf16 serving against the port's float32 plain version on the
     # CPU, same checkpoint and mesh
@@ -360,6 +439,8 @@ def fwd_times(op, smi) -> dict:
     rank = op["rank"]
     _, plain, launcher = FWD[rank is not None]
     kw = layer_kw(op)
+    log(op["tag"] + "times", kernel="fwd", k=op["h"].shape[1],
+        c=op["x"].shape[1])
     with torch.no_grad():
         for dt in ("bfloat16", "float32"):
             # operands already in the GEMM type, as apply_fused hands them
@@ -391,7 +472,7 @@ def fwd_times(op, smi) -> dict:
         t[f"bound_ms_{dt}"] = max(t_ops, t_bytes) * 1e3
         t[f"bound_by_{dt}"] = "operations" if t_ops >= t_bytes else "bytes"
         t[f"flops_{dt}"], t[f"bytes_{dt}"] = flops, nbytes
-    log_times(tagged("times", rank), "fwd", t, smi)
+    log_times(op["tag"] + "times", "fwd", t, smi)
     return t
 
 
@@ -426,7 +507,7 @@ def request_times(datasets, models, root, smi, tag: str = "") -> dict:
         request()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    label = tagged("times", models["full"].kernel_rank)
+    label = prefix(models["full"]) + "times"
     t = {"request_ms": statistics.median(walls) * 1e3}
     t.update(profile_call(request, label + "_request"))
     log_times(label, "request", t, smi)
@@ -506,12 +587,8 @@ def layer_grads(merged, model, device) -> list:
     ea, aux, s, rows_blk, blk = model.prepare_fused_train(
         merged.senders, merged.receivers, merged.edge_attr,
         merged.x.shape[0], merged.edge_mask, compact=True)
-    with torch.no_grad():
-        h = apply_edge_mlp_hidden(model.edge_mlp, torch.as_tensor(ea),
-                                  torch.relu)
-        x = model.fc1(torch.as_tensor(merged.x))
-        w3 = model.edge_mlp[-1].weight.t().contiguous()
-        b3 = model.edge_mlp[-1].bias.detach().clone()
+    h, x, w3, b3 = layer_operands(model, torch.as_tensor(ea),
+                                  torch.as_tensor(merged.x))
     c = x.shape[1]
     g = torch.randn(len(s.row_weight), c,
                     generator=torch.Generator().manual_seed(SEED + 1))
@@ -519,7 +596,7 @@ def layer_grads(merged, model, device) -> list:
     aux = {k: torch.as_tensor(v, device=device) for k, v in aux.items()}
     kw = dict(c_in=c, c_out=c, rows_blk=rows_blk, blk=blk,
               gemm_dtype="float32")
-    if model.kernel_rank is None:
+    if rank_of(model) is None:
         out = fused_conv.fused_edge_conv_ad(*leaves, s.to(device), aux, **kw)
     else:
         out = fused_conv.fused_edge_conv_lowrank_ad(
@@ -533,7 +610,7 @@ def check_bwd(bop, at: str = "chunk", errs: dict | None = None) -> dict:
     operands at shape ``at``), each output relative to its own max; returns
     ``errs`` with each type's largest absolute error."""
     slots, k = bop["h"].shape
-    label = tagged("bwd", bop["rank"])
+    label = bop["tag"] + "bwd"
     log(label, at=at, n=bop["n"], subdomains=bop["b"],
         num_blocks=slots // bop["blk"], blk=bop["blk"], slots=slots,
         real_slots=int((bop["s"].slot_rows >= 0).sum()))
@@ -566,14 +643,14 @@ def phase_bwd(bop, small_merged, small_model) -> dict:
     differentiable layer on the card against the CPU."""
     errs = check_bwd(bop)
     model = small_model.cpu()
-    rank = model.kernel_rank
+    rank = rank_of(model)
     fn = "FusedEdgeConv" if rank is None else "FusedEdgeConvLowrank"
     card = layer_grads(small_merged, model, "cuda")
     torch.cuda.synchronize()
     for name, a, b in zip(("h", "x", "w3", "b3"), card,
                           layer_grads(small_merged, model, "cpu")):
         rel = (a - b).abs().max().item() / b.abs().max().item()
-        log(tagged("bwd", rank), layer=fn, grad=name,
+        log(prefix(model) + "bwd", layer=fn, grad=name,
             card_vs_cpu=f"{rel:.3e}", tol=GRAD_TOL)
         if not rel <= GRAD_TOL:
             raise AssertionError(f"{fn} grad {name}: {rel:.3e}")
@@ -581,12 +658,15 @@ def phase_bwd(bop, small_merged, small_model) -> dict:
 
 
 def train_batches(ds, cfg: dict):
-    """(model, [train batch, val batch], rows_blk, blk): the fused batches
-    ``PartitionScheduler.train`` builds for ``ds`` with seed 0 and a batch
-    size of at least 12 — the train and val subdomains each merged into one
+    """(model, [train batch, val batch], rows_blk, blk): the first train and
+    the first val batch ``PartitionScheduler.train`` builds for ``ds`` with
+    seed 0 and the path's train config's batch size (the 12 train and the 4
+    val subdomains whole at a batch size of 16) — each merged into one
     graph, both blocked with one common blk — on the card, with a seeded
     full-width model."""
     tr_idx, va_idx = train_val_split(len(ds), 0.2, 0)
+    bs = min(load_yaml(cfg["train_config"])["batch_size"], len(tr_idx))
+    tr_idx, va_idx = tr_idx[:bs], va_idx[:bs]
     model = make_model(cfg).cuda()
     fbs, rows_blk, blk = make_fused_batches(
         [merged_subdomains(ds, ix) for ix in (tr_idx, va_idx)], model)
@@ -599,15 +679,10 @@ def batch_operands(fb, model, rows_blk: int, blk: int) -> dict:
     """The first conv layer's operands of a fused training batch, as
     ``apply_fused_ad`` hands them to the layer."""
     g, fused = fb["graph"], fb["fused"]
-    with torch.no_grad():
-        h_e = apply_edge_mlp_hidden(model.edge_mlp, fused["edge_attr"],
-                                    torch.relu).contiguous()
-        x = model.fc1(g.x).contiguous()
-        w3 = model.edge_mlp[-1].weight.t().contiguous()
-        b3 = model.edge_mlp[-1].bias.detach().contiguous()
+    h_e, x, w3, b3 = layer_operands(model, fused["edge_attr"], g.x)
     return dict(h=h_e, x=x, sp=fused["aux"]["senders_perm"], w3=w3, b3=b3,
                 s=fused["s"], rows_blk=rows_blk, blk=blk, n=g.x.shape[0],
-                b=fb["subdomains"], rank=model.kernel_rank)
+                b=fb["subdomains"], rank=rank_of(model), tag=prefix(model))
 
 
 def phase_train_kernels(batches, errs: dict, errs_bwd: dict) -> None:
@@ -628,23 +703,24 @@ def phase_train(root: str, datasets: dict, cfgs: dict, tag: str = "") -> dict:
     """The training slice end to end: train_graph_ALDD on the full-size
     meshes (exp ``train_full{tag}``), launch counts (B1 and B2, or B3 and
     B4 for a rank-r config, and no other kernel), then the trained
-    checkpoint served."""
+    checkpoint served.  KernelNN's loss must fall; TEECNet's is recorded."""
     log_dir = os.path.join(root, "logs")
     cfg, ds = cfgs["full"], datasets["full"]
     rank = cfg.get("kernel_rank")
-    label = tagged("train", rank)
+    model = make_model(cfg)
+    label = prefix(model) + "train"
     fwd, bwd_k = FWD[rank is not None][0], BWD[rank is not None][0]
     exp = "train_full" + tag
-    train_cfg = load_yaml(TRAIN_CONFIG)
-    log(label, config=os.path.relpath(TRAIN_CONFIG, REPO),
-        cut=f"epochs {train_cfg['epochs']} -> {TRAIN_EPOCHS}",
+    epochs = cfg["train_epochs"]
+    train_cfg = load_yaml(cfg["train_config"])
+    log(label, config=os.path.relpath(cfg["train_config"], REPO),
+        cut=f"epochs {train_cfg['epochs']} -> {epochs}",
         val_interval=f"{train_cfg['val_interval']} -> 1")
-    train_cfg.update(epochs=TRAIN_EPOCHS, val_interval=1)
+    train_cfg.update(epochs=epochs, val_interval=1)
     depth = cfg["num_layers"]
     tr_idx, va_idx = train_val_split(len(ds), 0.2, 0)
     n_batches = [-(-len(ix) // min(train_cfg["batch_size"], len(tr_idx)))
                  for ix in (tr_idx, va_idx)]
-    model = make_model(cfg)
     reset_launches()
     t0 = time.time()
     train_graph_ALDD(exp, model, ds, 1, train_cfg, log_dir=log_dir)
@@ -656,19 +732,21 @@ def phase_train(root: str, datasets: dict, cfgs: dict, tag: str = "") -> dict:
         records = [json.loads(line) for line in f]
     losses = [r["train_loss"] for r in records if "train_loss" in r]
     vals = [r["val_loss"] for r in records if "val_loss" in r]
-    steps = TRAIN_EPOCHS * n_batches[0]
+    steps = epochs * n_batches[0]
     evals = len(vals) * n_batches[1]
     log(label, subdomains=len(ds), train=len(tr_idx), val=len(va_idx),
-        epochs=len(losses), steps=steps, val_evals=evals,
-        first_loss=f"{losses[0]:.5g}", last_loss=f"{losses[-1]:.5g}",
-        best_val=f"{min(vals):.5g}", rank=rank, fwd_launches=n_fwd,
+        batch_size=train_cfg["batch_size"], epochs=len(losses), steps=steps,
+        val_evals=evals, rank=rank, fwd_launches=n_fwd,
         bwd_launches=n_bwd, wall_s=f"{wall:.1f}",
         losses=",".join(f"{v:.5g}" for v in losses),
         val_losses=",".join(f"{v:.5g}" for v in vals))
-    if len(losses) != TRAIN_EPOCHS or not np.all(np.isfinite(losses + vals)):
-        raise AssertionError(f"train losses {losses}, val {vals}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"train loss did not fall: {losses}")
+    if cfg["model"] == "neuralop":
+        # TEECNet's loss is recorded as it comes: no nonlinearity between
+        # layers, and its lr and init are the reference's, not tuned here
+        if len(losses) != epochs or not np.all(np.isfinite(losses + vals)):
+            raise AssertionError(f"train losses {losses}, val {vals}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train loss did not fall: {losses}")
     check_only(label, {fwd: depth * (steps + evals), bwd_k: depth * steps})
     ckpt_path = os.path.join(log_dir, "models", f"collection_{exp}",
                              "partition_0.npz")
@@ -682,7 +760,7 @@ def phase_train(root: str, datasets: dict, cfgs: dict, tag: str = "") -> dict:
         lane=lanes[0][1], launches=served,
         nodes=len(fields[0]["pressure"]), finite=True)
     check_only(f"{label}: the trained checkpoint's request",
-               {fwd: LAUNCHES["full"]})
+               {fwd: CHUNKS["full"] * depth})
     return dict(fwd=n_fwd, bwd=n_bwd, served=served, steps=steps,
                 evals=evals, losses=losses)
 
@@ -690,7 +768,7 @@ def phase_train(root: str, datasets: dict, cfgs: dict, tag: str = "") -> dict:
 def phase_parity(small_merged, cfg: dict) -> None:
     """Three float32 fused train steps on the card (kernels) and on the CPU
     (plain versions), from the same seeded weights."""
-    lr = load_yaml(TRAIN_CONFIG)["lr"]
+    lr = load_yaml(cfg["train_config"])["lr"]
     losses = {}
     for dev in ("cuda", "cpu"):
         model = make_model(cfg)
@@ -702,7 +780,7 @@ def phase_parity(small_merged, cfg: dict) -> None:
         losses[dev] = [float(trainer.step(opt, fb)) for _ in range(3)]
     for step, (a, b) in enumerate(zip(losses["cuda"], losses["cpu"])):
         rel = abs(a - b) / abs(b)
-        log(tagged("parity", cfg.get("kernel_rank")), step=step,
+        log(prefix(model) + "parity", step=step,
             card=f"{a:.8g}", cpu=f"{b:.8g}", rel=f"{rel:.3e}", tol=PARITY_TOL)
         if not rel <= PARITY_TOL:
             raise AssertionError(f"train step {step}: card {a} vs cpu {b}")
@@ -748,21 +826,22 @@ def phase_bwd_times(bop, smi) -> dict:
         t[f"bound_ms_{dt}"] = max(t_ops, t_bytes) * 1e3
         t[f"bound_by_{dt}"] = "operations" if t_ops >= t_bytes else "bytes"
         t[f"flops_{dt}"], t[f"bytes_{dt}"] = flops, nbytes
-    log_times(tagged("times", rank), "bwd", t, smi)
+    log_times(bop["tag"] + "times", "bwd", t, smi)
     return t
 
 
-def phase_train_times(batches, smi) -> dict:
+def phase_train_times(batches, cfg: dict, smi) -> dict:
     """Warm wall time of one fused bf16 train step on the training batch
-    (the 12 train subdomains merged), and one profiled step."""
+    (the 12 train subdomains merged at batch size 16), and one profiled
+    step."""
     model, (fb, _), rows_blk, blk = batches
     s = fb["fused"]["s"]
-    label = tagged("times", model.kernel_rank)
+    label = prefix(model) + "times"
     log(label, train_batch=fb["subdomains"], nodes=fb["graph"].x.shape[0],
         edges=int(fb["graph"].edge_mask.sum()), blk=blk,
         slots=len(s.slot_rows), real_slots=int((s.slot_rows >= 0).sum()))
-    trainer = Trainer(model, lr=load_yaml(TRAIN_CONFIG)["lr"], layout="fused",
-                      fused_rows_blk=rows_blk, fused_blk=blk)
+    trainer = Trainer(model, lr=load_yaml(cfg["train_config"])["lr"],
+                      layout="fused", fused_rows_blk=rows_blk, fused_blk=blk)
     opt = trainer.init(SEED)
 
     def step():
@@ -788,6 +867,7 @@ def run_path(root, name, smi, datasets, models, cfgs, tag: str = "") -> dict:
     ``tag``): kernels against their plain versions at the chunk and the
     training batches, serving, training, parity, times.  Returns what the
     kernels' JSON entries need."""
+    t0 = time.time()
     op = chunk_operands(datasets["full"], models["full"], "cuda")
     errs = phase_kernel(op)
     bop = bwd_operands(op)
@@ -801,15 +881,109 @@ def run_path(root, name, smi, datasets, models, cfgs, tag: str = "") -> dict:
     t = fwd_times(op, smi)
     t.update(request_times(datasets, models, root, smi, tag))
     tb = phase_bwd_times(bop, smi)
-    t.update(phase_train_times(batches, smi))
+    t.update(phase_train_times(batches, cfgs["full"], smi))
+    msg = op["msg"]
     del op, bop, batches
     torch.cuda.empty_cache()
+    log(prefix(models["full"]) + "path", depth=cfgs["full"]["num_layers"],
+        wall_s=f"{time.time() - t0:.1f}")
     return dict(errs=errs, errs_bwd=errs_bwd, launches=launches, train=train,
-                t=t, tb=tb)
+                t=t, tb=tb, msg=msg)
 
 
-def kernel_entries(r: dict, smi: str, rank) -> list:
-    """The forward's and the backward's entries of the kernels JSON line."""
+def phase_pallas(root: str, datasets: dict, paths: dict) -> dict:
+    """Conv mode 'pallas' end to end: for each (label -> (cfg, exp tag)) of
+    ``paths``, the model built with ``mode='pallas'`` serves full-size mesh 0
+    from the checkpoint of exp ``full{tag}`` with FESR_FUSED_PREDICT=0 (the
+    general lane's ``apply`` per chunk): B5 launched chunks x depth times
+    and no other kernel.  The same checkpoint served by the model in its
+    default mode ('edge3d' on the card, no kernel) is the reference.
+    Returns B5's launches per path."""
+    log_dir = os.path.join(root, "logs")
+    launches = {}
+    saved = os.environ.get("FESR_FUSED_PREDICT")
+    os.environ["FESR_FUSED_PREDICT"] = "0"
+    try:
+        for label, (cfg, tag) in paths.items():
+            want = CHUNKS["full"] * cfg["num_layers"]
+            fields = {}
+            for mode, model in (("pallas", make_pallas_model(cfg)),
+                                ("edge3d", make_model(cfg))):
+                reset_launches()
+                t0 = time.time()
+                lanes, (f,) = serve(datasets["full"], model, [0], log_dir,
+                                    "full" + tag, None)
+                torch.cuda.synchronize()
+                got = pallas_mp.fused_edge_messages.launches
+                log("pallas", model=label, mode=mode, lane=lanes[0][1],
+                    reason=repr(lanes[0][2]), b5_launches=got,
+                    nodes=len(f["pressure"]), cold_s=f"{time.time() - t0:.3f}")
+                if lanes[0][1] != "general":
+                    raise AssertionError(f"{label} {mode} took lane {lanes[0][1]}")
+                check_only(f"pallas {label} {mode} request",
+                           {pallas_mp.fused_edge_messages: want}
+                           if mode == "pallas" else {})
+                fields[mode] = f
+            launches[label] = want
+            for key in ("velocity", "pressure"):
+                r, g = fields["edge3d"][key], fields["pallas"][key]
+                rel = np.abs(g - r).max() / np.abs(r).max()
+                log("pallas", model=label, field=key,
+                    vs_edge3d=f"{rel:.3e}", tol=PALLAS_TOL)
+                if not rel <= PALLAS_TOL:
+                    raise AssertionError(f"pallas {label} {key}: {rel:.3e}")
+    finally:
+        if saved is None:
+            os.environ.pop("FESR_FUSED_PREDICT")
+        else:
+            os.environ["FESR_FUSED_PREDICT"] = saved
+    return launches
+
+
+def phase_messages(ops: dict, smi) -> dict:
+    """B5 against its plain version on the card at each chunk shape of
+    ``ops`` (label -> (h, x_src, w3, b3): every edge of the full-size
+    chunk, padding included), then both one's CUDA-event medians and B5's
+    bound."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for label, (h, x_src, w3, b3) in ops.items():
+        e, k = h.shape
+        c_in = x_src.shape[1]
+        c_out = w3.shape[1] // c_in
+        with torch.no_grad():
+            ref = pallas_mp.fused_edge_messages_plain(h, x_src, w3, b3)
+            got = pallas_mp.fused_edge_messages_cuda(h, x_src, w3, b3)
+            torch.cuda.synchronize()
+            abs_err = (got - ref).abs().max().item()
+            rel = abs_err / ref.abs().max().item()
+            del ref, got
+            log("messages", model=label, edges=e, k=k, c_in=c_in,
+                c_out=c_out, max_abs_err=f"{abs_err:.3e}",
+                rel_to_max=f"{rel:.3e}", tol=MSG_TOL)
+            if not rel <= MSG_TOL:
+                raise AssertionError(f"B5 at {label}: {rel:.3e} > {MSG_TOL}")
+            t = {"ms": cuda_ms(lambda: pallas_mp.fused_edge_messages_cuda(
+                     h, x_src, w3, b3)),
+                 "plain_ms": cuda_ms(lambda: pallas_mp.fused_edge_messages_plain(
+                     h, x_src, w3, b3), reps=5)}
+        torch.cuda.empty_cache()
+        # bound: every edge's (K+1) c_in c_out FMAs at the float32 peak vs
+        # h, x_src, w3, b3 read once and the messages written once
+        flops = 2 * e * (k + 1) * c_in * c_out
+        nbytes = 4 * (e * k + e * c_in + w3.numel() + b3.numel() + e * c_out)
+        t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES_PER_S
+        t.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 flops=flops, bytes=nbytes, max_abs_err=abs_err, k=k)
+        log_times("messages", f"b5_k{k}", t, smi)
+        out[label] = t
+    return out
+
+
+def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
+    """The forward's and the backward's entries of the kernels JSON line,
+    tagged with the ``path`` that ran them."""
     pkg = "fast_eng_super_resolution_tpu_torch/csrc/"
     if rank is None:
         names, lines = ("fused_edge_conv", "fused_edge_conv_bwd"), (322, 442)
@@ -828,6 +1002,7 @@ def kernel_entries(r: dict, smi: str, rank) -> list:
              {"train": train["bwd"]}, {"train_step_ms": t["train_step_ms"]})):
         entries.append({
             "name": name,
+            "path": path,
             "route": "cuda",
             "source": pkg + name + ".cu",
             "replaces": f"fast_eng_super_resolution_tpu/ops/fused_conv.py:{line}",
@@ -850,8 +1025,29 @@ def kernel_entries(r: dict, smi: str, rank) -> list:
     return entries
 
 
+def messages_entry(t: dict, launches: dict, smi: str) -> dict:
+    """B5's entry: the numbers at KernelNN's chunk (K 48) at the top, those
+    at TEECNet's (K 128) under ``teecnet_k128``."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "k")
+    return {
+        "name": "fused_edge_messages",
+        "path": "kernelnn_pallas",
+        "route": "cuda",
+        "source": "fast_eng_super_resolution_tpu_torch/csrc/fused_edge_messages.cu",
+        "replaces": "fast_eng_super_resolution_tpu/ops/pallas_mp.py:41",
+        "launches": sum(launches.values()),
+        "launches_by_path": {f"{k}_pallas": v for k, v in launches.items()},
+        **{key: t["kernelnn"][key] for key in keys},
+        "library_ms": None,
+        "teecnet_k128": {key: t["teecnet"][key] for key in keys},
+        "card": smi,
+    }
+
+
 def main() -> int:
     name, smi = phase_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
     libs = fused_conv.build_kernel(force=True)
     log("build", seconds=f"{time.time() - t0:.1f}",
@@ -860,27 +1056,52 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         cfgs = {"full": make_config(os.path.join(root, "full"), FULL),
                 "small": make_config(os.path.join(root, "small"), SMALL)}
-        # the rank-16 path: the same config with kernel_rank added
-        cfgs_lr = {k: dict(v, kernel_rank=RANK) for k, v in cfgs.items()}
-        datasets, models, models_lr = {}, {}, {}
+        # the rank-16 path: the same config with kernel_rank added, at a
+        # smaller depth
+        cfgs_lr = {k: dict(v, kernel_rank=RANK, num_layers=RANK_DEPTH)
+                   for k, v in cfgs.items()}
+        # TEECNet: teecnet_ansys.yaml with the same synthetic meshes, hence
+        # the same datasets
+        cfgs_tc = {k: make_config(os.path.join(root, k), sizes,
+                                  TEECNET_CONFIG, "teecnet", TEECNET_TRAIN,
+                                  TEECNET_EPOCHS)
+                   for k, sizes in (("full", FULL), ("small", SMALL))}
+        datasets, models, models_lr, models_tc = {}, {}, {}, {}
         for key, cfg in cfgs.items():
             t1 = time.time()
             datasets[key] = init_dataset("synthetic", **cfg)
             # the same seeded weights for the card's and the CPU's run
             logs = os.path.join(root, "logs")
-            models[key] = write_checkpoint(logs, key, cfg)
-            write_checkpoint(logs, key + "_cpu", cfg)
-            models_lr[key] = write_checkpoint(logs, key + "_r16", cfgs_lr[key])
-            write_checkpoint(logs, key + "_r16_cpu", cfgs_lr[key])
+            for exp, c, into in ((key, cfg, models),
+                                 (key + "_r16", cfgs_lr[key], models_lr),
+                                 (key + "_teecnet", cfgs_tc[key], models_tc)):
+                into[key] = write_checkpoint(logs, exp, c)
+                write_checkpoint(logs, exp + "_cpu", c)
+            for k in ("root", "partition", "sub_size", "n_high", "n_low",
+                      "num_cases"):
+                if cfgs_tc[key].get(k) != cfg.get(k):
+                    raise AssertionError(f"teecnet config {k} differs")
             log("data", mesh=key, subdomains=len(datasets[key]),
                 etl_s=f"{time.time() - t1:.1f}")
 
         full = run_path(root, name, smi, datasets, models, cfgs)
         lowrank = run_path(root, name, smi, datasets, models_lr, cfgs_lr,
                            "_r16")
+        teecnet = run_path(root, name, smi, datasets, models_tc, cfgs_tc,
+                           "_teecnet")
+        t1 = time.time()
+        pallas_launches = phase_pallas(
+            root, datasets, {"kernelnn": (cfgs["full"], ""),
+                             "teecnet": (cfgs_tc["full"], "_teecnet")})
+        msg_t = phase_messages({"kernelnn": full["msg"],
+                                "teecnet": teecnet["msg"]}, smi)
+        log("pallas", wall_s=f"{time.time() - t1:.1f}")
 
-    kernels = (kernel_entries(full, smi, None)
-               + kernel_entries(lowrank, smi, RANK))
+    kernels = (kernel_entries(full, smi, None, "kernelnn")
+               + kernel_entries(lowrank, smi, RANK, "kernelnn_rank16")
+               + kernel_entries(teecnet, smi, None, "teecnet")
+               + [messages_entry(msg_t, pallas_launches, smi)])
+    log("done", seconds=f"{time.time() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

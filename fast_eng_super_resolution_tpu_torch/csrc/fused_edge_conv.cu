@@ -23,7 +23,8 @@
 // One thread block owns one 64-row receiver block and walks its slots in
 // tiles of 64: it gathers x[senders_perm] and h into shared memory, streams
 // w3 row by row (double-buffered) through shared memory, forms the 64-slot
-// message tile in registers, and folds it into a per-thread [64, c_out]
+// message tile in registers (message_tile.cuh, shared with
+// fused_edge_messages.cu), and folds it into a per-thread [64, c_out]
 // accumulator through the S tile — fixed summation order, no atomics, and
 // each output row is written once (blocks partition the rows).  In CompactS
 // mode a tile made only of padding slots is skipped.
@@ -41,20 +42,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "message_tile.cuh"
+
 namespace {
 
-constexpr int kRows = 64;               // receiver rows per block (rows_blk)
-constexpr int kTile = 64;               // slots per tile
-constexpr int kTx = 16;                 // threads along c_out
-constexpr int kTy = 16;                 // threads along slots / rows
-constexpr int kThreads = kTx * kTy;
-constexpr int kSlotsPerThread = kTile / kTy;  // 4 (one float4)
-constexpr int kRowsPerThread = kRows / kTy;   // 4
+using namespace message_tile;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kRows = 64;               // receiver rows per block (rows_blk)
+constexpr int kRowsPerThread = kRows / kTy;   // 4
 
 // OB = ceil(c_out / 16) output columns per thread (c_out <= 64).
 template <typename T, int OB>
@@ -120,42 +115,9 @@ fused_edge_conv_kernel(const T* __restrict__ h, const T* __restrict__ x,
     __syncthreads();
 
     // ---- message tile: m[s, o] = sum_{k<=K, i} hT[k, s] xT[i, s] W[k, i, o]
+    // (columns o >= c_out read the S tile after wbuf and are never stored)
     float m[kSlotsPerThread][OB];
-#pragma unroll
-    for (int a = 0; a < kSlotsPerThread; ++a)
-#pragma unroll
-      for (int ob = 0; ob < OB; ++ob) m[a][ob] = 0.f;
-
-    for (int k = 0; k <= K; ++k) {
-      const float* wcur = wbuf + (k & 1) * c2;
-      if (k < K) {  // prefetch row k+1 (b3 after the last w3 row)
-        float* wnext = wbuf + ((k + 1) & 1) * c2;
-        if (k + 1 < K) {
-          const T* src = w3 + static_cast<long>(k + 1) * c2;
-          for (int j = tid; j < c2; j += kThreads) wnext[j] = to_f32(src[j]);
-        } else {
-          for (int j = tid; j < c2; j += kThreads) wnext[j] = b3[j];
-        }
-      }
-      const float4 hv =
-          *reinterpret_cast<const float4*>(&hT[k * kTile + ty * kSlotsPerThread]);
-      for (int i = 0; i < c_in; ++i) {
-        const float4 xv = *reinterpret_cast<const float4*>(
-            &xT[i * kTile + ty * kSlotsPerThread]);
-        const float z[kSlotsPerThread] = {hv.x * xv.x, hv.y * xv.y,
-                                          hv.z * xv.z, hv.w * xv.w};
-        // columns o >= c_out read neighbouring shared memory and are
-        // never stored
-        const float* wrow = wcur + i * c_out + tx;
-#pragma unroll
-        for (int ob = 0; ob < OB; ++ob) {
-          const float w = wrow[ob * kTx];
-#pragma unroll
-          for (int a = 0; a < kSlotsPerThread; ++a) m[a][ob] += z[a] * w;
-        }
-      }
-      __syncthreads();
-    }
+    messages<T, OB>(hT, xT, wbuf, w3, b3, K, c_in, c_out, m);
 
     // ---- scatter-mean: acc[r, o] += sum_s S[r, s] m[s, o] ----
 #pragma unroll

@@ -29,17 +29,21 @@
 //  (a) rows kernel: one thread block per 64-row receiver block, walking its
 //      slots in tiles of 64.  Per tile it forms dmsg (from the block's g rows
 //      and the S tile or generators), writes it to a scratch buffer, then
-//      computes dh (streaming w3 in [K, c_out] column chunks, one per input
-//      channel) and dx_src (streaming W~ row by row), both double-buffered
-//      through shared memory.  Nothing is carried across blocks; tiles of
-//      padding only are skipped in CompactS mode (their gradients are 0).
+//      computes dh (streaming w3 in [64, c_out] column chunks, one per input
+//      channel and part of at most 64 rows of K, so that a thread holds at
+//      most 4 columns of dh at any K up to 128) and dx_src (streaming W~ row
+//      by row), both double-buffered through shared memory.  Nothing is
+//      carried across blocks; tiles of padding only are skipped in CompactS
+//      mode (their gradients are 0).
 //  (b) weights kernel: dw3 and db3 together as one [(K+1), c2] split-K GEMM
-//      h~^T (x_src (x) dmsg) over the slots, on a grid of 4-input-channel
-//      output tiles [(K+1), 4, c_out] x slot splits.  Each split writes its
-//      own partial; the wrapper sums the partials in a fixed order (no
-//      atomics: the result is the same on every run).  One tile's
-//      accumulator lives in registers; the whole [(K+1), c2] accumulator
-//      (451 KB at width 48) would not fit one SM.
+//      h~^T (x_src (x) dmsg) over the slots, on a grid of output tiles
+//      [rows of one K part, 4 input channels, c_out] x slot splits, the K
+//      parts holding at most 64 rows of w3 each (the last one also the b3
+//      row), so that a tile's register accumulator stays the same size up to
+//      K = 128.  Each split writes its own partial; the wrapper sums the
+//      partials in a fixed order (no atomics: the result is the same on
+//      every run).  The whole [(K+1), c2] accumulator (451 KB at width 48)
+//      would not fit one SM.
 //
 // Bound.  Per real slot the backward needs about 3 x 2 (K+1) c_in c_out
 // operations (three GEMMs of the forward's size) and moves (K + c_in) sizeof(T)
@@ -62,7 +66,8 @@ constexpr int kTx = 16;                 // threads along the output columns
 constexpr int kTy = 16;                 // threads along slots
 constexpr int kThreads = kTx * kTy;
 constexpr int kSlotsPerThread = kTile / kTy;  // 4 (one float4)
-constexpr int kMaxDim = 4 * kTx;        // K, c_in, c_out <= 64
+constexpr int kMaxDim = 4 * kTx;        // c_in, c_out <= 64; K parts of <= 64
+constexpr int kMaxK = 2 * kMaxDim;      // K <= 128
 constexpr int kPad = kMaxDim;           // shared-memory slack after the w buffers
 constexpr int kIn = 4;                  // weights kernel: input channels per block
 
@@ -84,13 +89,20 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// Rows of K in one part: K split into ceil(K / 64) parts of equal size.
+__host__ __device__ inline int k_part(int K) {
+  const int parts = (K + kMaxDim - 1) / kMaxDim;
+  return (K + parts - 1) / parts;
+}
+
 __host__ __device__ inline int w_len(int K, int c_in, int c_out) {
-  return (K > c_in ? K : c_in) * c_out;
+  const int kp = k_part(K);
+  return (kp > c_in ? kp : c_in) * c_out;
 }
 
 // ---------------------------------------------------------------------------
 // (a) dmsg, dh and dx_src, one thread block per 64-row receiver block.
-// CB = ceil(max(K, c_in) / 16) output columns per thread.
+// CB = ceil(max(k_part(K), c_in) / 16) output columns per thread.
 template <typename T, int CB>
 __global__ void __launch_bounds__(kThreads)
 bwd_rows_kernel(const float* __restrict__ g, const T* __restrict__ h,
@@ -104,6 +116,7 @@ bwd_rows_kernel(const float* __restrict__ g, const T* __restrict__ h,
   extern __shared__ __align__(16) float smem[];
   const int c2 = c_in * c_out;
   const int wlen = w_len(K, c_in, c_out);
+  const int kp = k_part(K);
   float* g_sm = smem;                      // [kRows][c_out]
   float* s_sm = g_sm + kRows * c_out;      // [kRows][kTile] dense S tile
   float* dT = s_sm + kRows * kTile;        // [c_out][kTile] dmsg
@@ -175,65 +188,71 @@ bwd_rows_kernel(const float* __restrict__ g, const T* __restrict__ h,
       dT[o * kTile + s] = v;
       dmsg_out[(tile + s) * c_out + o] = v;
     }
-    // first w3 column chunk for dh: wbuf[o*K + k] = w3[k, o] (input channel 0)
-    for (int j = tid; j < K * c_out; j += kThreads) {
-      const int k = j / c_out, o = j - k * c_out;
-      wbuf[o * K + k] = to_f32(w3[static_cast<long>(k) * c2 + o]);
-    }
-    __syncthreads();
 
     float acc[kSlotsPerThread][CB];
 
-    // ---- dh[s, k] = sum_{i, o} x[s, i] dmsg[s, o] w3[k, i*c_out + o] ----
-#pragma unroll
-    for (int a = 0; a < kSlotsPerThread; ++a)
-#pragma unroll
-      for (int cb = 0; cb < CB; ++cb) acc[a][cb] = 0.f;
-    for (int i = 0; i < c_in; ++i) {
-      const float* wcur = wbuf + (i & 1) * wlen;
-      if (i + 1 < c_in) {  // prefetch input channel i+1's [K, c_out] chunk
-        float* wnext = wbuf + ((i + 1) & 1) * wlen;
-        for (int j = tid; j < K * c_out; j += kThreads) {
-          const int k = j / c_out, o = j - k * c_out;
-          wnext[o * K + k] =
-              to_f32(w3[static_cast<long>(k) * c2 + (i + 1) * c_out + o]);
-        }
+    // ---- dh[s, k] = sum_{i, o} x[s, i] dmsg[s, o] w3[k, i*c_out + o],
+    //      for the rows k0 <= k < k0 + kn of one part of K at a time ----
+    for (int k0 = 0; k0 < K; k0 += kp) {
+      const int kn = K - k0 < kp ? K - k0 : kp;
+      // the part's first w3 column chunk: wbuf[o*kn + k] = w3[k0 + k, o]
+      // (input channel 0); the previous part's last reads ended at a barrier
+      for (int j = tid; j < kn * c_out; j += kThreads) {
+        const int k = j / c_out, o = j - k * c_out;
+        wbuf[o * kn + k] = to_f32(w3[static_cast<long>(k0 + k) * c2 + o]);
       }
-      // t[s, k] = sum_o dmsg[s, o] w3[k, i*c_out + o]; dh += x[s, i] t
-      float t[kSlotsPerThread][CB];
+      __syncthreads();
 #pragma unroll
       for (int a = 0; a < kSlotsPerThread; ++a)
 #pragma unroll
-        for (int cb = 0; cb < CB; ++cb) t[a][cb] = 0.f;
-      for (int o = 0; o < c_out; ++o) {
-        const float4 dv = *reinterpret_cast<const float4*>(
-            &dT[o * kTile + ty * kSlotsPerThread]);
-        const float d[kSlotsPerThread] = {dv.x, dv.y, dv.z, dv.w};
-        // columns k >= K read neighbouring shared memory and are never stored
-        const float* wrow = wcur + o * K + tx;
+        for (int cb = 0; cb < CB; ++cb) acc[a][cb] = 0.f;
+      for (int i = 0; i < c_in; ++i) {
+        const float* wcur = wbuf + (i & 1) * wlen;
+        if (i + 1 < c_in) {  // prefetch input channel i+1's [kn, c_out] chunk
+          float* wnext = wbuf + ((i + 1) & 1) * wlen;
+          for (int j = tid; j < kn * c_out; j += kThreads) {
+            const int k = j / c_out, o = j - k * c_out;
+            wnext[o * kn + k] = to_f32(
+                w3[static_cast<long>(k0 + k) * c2 + (i + 1) * c_out + o]);
+          }
+        }
+        // t[s, k] = sum_o dmsg[s, o] w3[k0 + k, i*c_out + o]; dh += x[s, i] t
+        float t[kSlotsPerThread][CB];
+#pragma unroll
+        for (int a = 0; a < kSlotsPerThread; ++a)
+#pragma unroll
+          for (int cb = 0; cb < CB; ++cb) t[a][cb] = 0.f;
+        for (int o = 0; o < c_out; ++o) {
+          const float4 dv = *reinterpret_cast<const float4*>(
+              &dT[o * kTile + ty * kSlotsPerThread]);
+          const float d[kSlotsPerThread] = {dv.x, dv.y, dv.z, dv.w};
+          // columns k >= kn read neighbouring shared memory, never stored
+          const float* wrow = wcur + o * kn + tx;
+#pragma unroll
+          for (int cb = 0; cb < CB; ++cb) {
+            const float w = wrow[cb * kTx];
+#pragma unroll
+            for (int a = 0; a < kSlotsPerThread; ++a) t[a][cb] += d[a] * w;
+          }
+        }
+        const float4 xv = *reinterpret_cast<const float4*>(
+            &xT[i * kTile + ty * kSlotsPerThread]);
+        const float xr[kSlotsPerThread] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int a = 0; a < kSlotsPerThread; ++a)
+#pragma unroll
+          for (int cb = 0; cb < CB; ++cb) acc[a][cb] += xr[a] * t[a][cb];
+        __syncthreads();
+      }
+#pragma unroll
+      for (int a = 0; a < kSlotsPerThread; ++a)
 #pragma unroll
         for (int cb = 0; cb < CB; ++cb) {
-          const float w = wrow[cb * kTx];
-#pragma unroll
-          for (int a = 0; a < kSlotsPerThread; ++a) t[a][cb] += d[a] * w;
+          const int k = tx + cb * kTx;
+          if (k < kn)
+            dh[(tile + ty * kSlotsPerThread + a) * K + k0 + k] = acc[a][cb];
         }
-      }
-      const float4 xv =
-          *reinterpret_cast<const float4*>(&xT[i * kTile + ty * kSlotsPerThread]);
-      const float xr[kSlotsPerThread] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-      for (int a = 0; a < kSlotsPerThread; ++a)
-#pragma unroll
-        for (int cb = 0; cb < CB; ++cb) acc[a][cb] += xr[a] * t[a][cb];
-      __syncthreads();
     }
-#pragma unroll
-    for (int a = 0; a < kSlotsPerThread; ++a)
-#pragma unroll
-      for (int cb = 0; cb < CB; ++cb) {
-        const int k = tx + cb * kTx;
-        if (k < K) dh[(tile + ty * kSlotsPerThread + a) * K + k] = acc[a][cb];
-      }
 
     // ---- dx[s, i] = sum_{k <= K, o} h~[s, k] dmsg[s, o] W~[k, i, o] ----
     // wbuf[o*c_in + i] = W~[k, i, o]: row k of w3 (b3 for k == K), transposed
@@ -298,12 +317,14 @@ bwd_rows_kernel(const float* __restrict__ g, const T* __restrict__ h,
 // ---------------------------------------------------------------------------
 // (b) partial[split, k, i*c_out + o] = sum over the split's slots e of
 //     h~[e, k] x_src[e, i] dmsg[e, o],  k <= K (k == K: db3).
-// Grid: (ceil(c_in / kIn), num_splits).  A block owns every k and o for kIn
-// input channels: per 64-slot chunk it copies h, x_src's kIn columns and
-// dmsg into shared memory (contiguous rows, no index arithmetic), and each
-// thread accumulates KB rows k = ty + 16 a  x  kIn channels  x  OB columns
-// o = tx + 16 b, forming x * dmsg once per (i, o) and reusing it for its KB
-// rows: KB*kIn*OB FMAs per KB + 1 + OB shared-memory loads per slot.
+// Grid: (ceil(c_in / kIn), num_splits, parts of K).  A block owns the rows
+// of h~ in one part of K (the last part also k == K, the b3 row) and every
+// o for kIn input channels: per 64-slot chunk it copies the part's columns
+// of h~, x_src's kIn columns and dmsg into shared memory (contiguous rows),
+// and each thread accumulates KB of the part's rows ty + 16 a  x  kIn channels
+// x  OB columns o = tx + 16 b, forming x * dmsg once per (i, o) and reusing
+// it for its KB rows: KB*kIn*OB FMAs per KB + 1 + OB shared-memory loads
+// per slot.
 template <typename T, int KB, int OB>
 __global__ void __launch_bounds__(kThreads)
 bwd_weights_kernel(const T* __restrict__ h, const T* __restrict__ x_src,
@@ -311,13 +332,20 @@ bwd_weights_kernel(const T* __restrict__ h, const T* __restrict__ x_src,
                    const int* __restrict__ slot_rows,
                    float* __restrict__ partial, long num_chunks,
                    long chunks_per_split, int K, int c_in, int c_out) {
-  constexpr int kRowsK = KB * kTy;         // k rows held, >= K + 1
-  __shared__ __align__(16) float a_sm[kTile][kRowsK];      // h~, 0 past K
+  constexpr int kRowsK = KB * kTy;         // k rows held: the part's, then 0
+  __shared__ __align__(16) float a_sm[kTile][kRowsK];      // h~
   __shared__ __align__(16) float x_sm[kTile][kIn];         // x_src[:, i0:]
   __shared__ __align__(16) float d_sm[kTile * kMaxDim + kPad];  // dmsg
   const int c2 = c_in * c_out;
   const int i0 = blockIdx.x * kIn;
   const long split = blockIdx.y;
+  // the part's nh columns of h from column k0 on; the last part also holds
+  // the b3 row (k == K) at a_sm column nh, the others no bias column (-1)
+  const int kp = k_part(K);
+  const int k0 = static_cast<int>(blockIdx.z) * kp;
+  const T* hp = h + k0;
+  const int nh = K - k0 < kp ? K - k0 : kp;
+  const int bias_col = k0 + kp >= K ? nh : -1;
   const long c_lo = split * chunks_per_split;
   const long c_hi = c_lo + chunks_per_split < num_chunks
                         ? c_lo + chunks_per_split
@@ -343,7 +371,8 @@ bwd_weights_kernel(const T* __restrict__ h, const T* __restrict__ x_src,
     }
     for (int e = tid; e < kTile * kRowsK; e += kThreads) {
       const int s = e / kRowsK, k = e - s * kRowsK;
-      a_sm[s][k] = k < K ? to_f32(h[(s0 + s) * K + k]) : (k == K ? 1.f : 0.f);
+      a_sm[s][k] = k < nh ? to_f32(hp[(s0 + s) * K + k])
+                          : (k == bias_col ? 1.f : 0.f);
     }
     for (int e = tid; e < kTile * kIn; e += kThreads) {
       const int s = e / kIn, ii = e - s * kIn;
@@ -376,10 +405,12 @@ bwd_weights_kernel(const T* __restrict__ h, const T* __restrict__ x_src,
     __syncthreads();
   }
 
+  const int kn = bias_col >= 0 ? nh + 1 : nh;
 #pragma unroll
   for (int a = 0; a < KB; ++a) {
-    const int k = ty + a * kTy;
-    if (k > K) continue;
+    const int kk = ty + a * kTy;
+    if (kk >= kn) continue;
+    const int k = k0 + kk;
 #pragma unroll
     for (int ii = 0; ii < kIn; ++ii) {
       if (i0 + ii >= c_in) continue;
@@ -400,7 +431,8 @@ cudaError_t launch_weights(const void* h, const void* x_src, const void* dmsg,
                            long num_chunks, int num_splits, int K, int c_in,
                            int c_out, cudaStream_t stream) {
   const long per_split = (num_chunks + num_splits - 1) / num_splits;
-  const dim3 grid((c_in + kIn - 1) / kIn, num_splits);
+  const dim3 grid((c_in + kIn - 1) / kIn, num_splits,
+                  (K + kMaxDim - 1) / kMaxDim);
   bwd_weights_kernel<T, KB, OB><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(x_src),
       static_cast<const float*>(dmsg), static_cast<const int*>(slot_rows),
@@ -408,7 +440,7 @@ cudaError_t launch_weights(const void* h, const void* x_src, const void* dmsg,
   return cudaGetLastError();
 }
 
-// KB = ceil((K+1) / 16) in 1..5, OB = ceil(c_out / 16) in 1..4.
+// KB = ceil((k_part(K)+1) / 16) in 1..5, OB = ceil(c_out / 16) in 1..4.
 template <typename T, int KB>
 cudaError_t weights_ob(int ob, const void* h, const void* x_src,
                        const void* dmsg, const void* slot_rows, void* partial,
@@ -521,7 +553,7 @@ cudaError_t launch_all(int cb, const void* g, const void* h,
   }
   if (err != cudaSuccess) return err;
   const long num_chunks = static_cast<long>(num_blocks) * blk / kTile;
-  return launch_weights_any<T>((K + 1 + kTy - 1) / kTy,
+  return launch_weights_any<T>((k_part(K) + 1 + kTy - 1) / kTy,
                                (c_out + kTx - 1) / kTx, h, x_src, dmsg,
                                slot_rows, partial, num_chunks, num_splits, K,
                                c_in, c_out, stream);
@@ -552,11 +584,11 @@ int fused_edge_conv_backward(const void* g, const void* h, const void* x_src,
                              void* dmsg, void* partial, int num_blocks,
                              int blk, int K, int c_in, int c_out,
                              int num_splits, int is_bf16, void* stream) {
-  if (K < 1 || K > kMaxDim || c_in < 1 || c_in > kMaxDim || c_out < 1 ||
+  if (K < 1 || K > kMaxK || c_in < 1 || c_in > kMaxDim || c_out < 1 ||
       c_out > kMaxDim || blk % kTile != 0 || blk < kTile || num_blocks < 1 ||
       num_splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int widest = K > c_in ? K : c_in;
+  const int widest = k_part(K) > c_in ? k_part(K) : c_in;
   const int cb = (widest + kTx - 1) / kTx;
   const size_t smem =
       static_cast<size_t>(fused_edge_conv_bwd_smem_bytes(K, c_in, c_out));

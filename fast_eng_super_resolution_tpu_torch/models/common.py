@@ -1,6 +1,7 @@
-"""Shared building blocks for the models: init helpers and the conversion
-between a torch ``nn.Linear`` and the reference's ``.pth`` state-dict keys.
-(The JAX package's parameter-tree layout is ``KernelNN.jax_key``.)"""
+"""Shared building blocks for the models: init helpers, the conversion
+between a torch ``nn.Linear`` and the reference's ``.pth`` state-dict keys,
+and the move of a model's parameters to and from the JAX package's
+parameter tree (each model names a parameter's key there: ``jax_key``)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import math
 import numpy as np
 import torch
 from torch import nn
+
+from ..core.checkpoint import flatten_params, unflatten_params
 
 
 def linear_init(layer: nn.Linear, generator: torch.Generator,
@@ -40,3 +43,26 @@ def from_torch_linear(layer: nn.Linear, state_dict, prefix: str) -> None:
 def to_torch_linear(layer: nn.Linear, prefix: str, out: dict) -> None:
     out[f"{prefix}.weight"] = layer.weight.detach().cpu().numpy().copy()
     out[f"{prefix}.bias"] = layer.bias.detach().cpu().numpy().copy()
+
+
+def load_jax_tree(model: nn.Module, params: dict) -> None:
+    """Copies the JAX package's parameter tree (numpy leaves) into
+    ``model``, each parameter from its ``model.jax_key``."""
+    flat = flatten_params(params)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            key, transposed = model.jax_key(name)
+            a = np.asarray(flat[key], np.float32)
+            p.copy_(torch.as_tensor(np.ascontiguousarray(
+                a.T if transposed else a)))
+
+
+def jax_tree(model: nn.Module) -> dict:
+    """``model``'s parameters as the JAX package's tree of numpy arrays
+    (``load_jax_tree``'s inverse)."""
+    flat = {}
+    for name, p in model.named_parameters():
+        key, transposed = model.jax_key(name)
+        a = p.detach().cpu().numpy()
+        flat[key] = (a.T if transposed else a).copy()
+    return unflatten_params(flat)

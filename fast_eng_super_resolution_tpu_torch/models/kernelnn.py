@@ -6,7 +6,10 @@ NNConv_old (model.py:451-540) with a shared DenseNet edge kernel
 aggr='mean' (model.py:551).  Forward: fc1 -> depth x relu(conv) -> fc2
 (model.py:555-562), the conv weights shared across depth (model.py:558-559).
 
-``apply`` is the plain whole-graph form; ``apply_fused`` runs each layer
+``apply`` is the plain whole-graph form in the conv formulation ``mode``
+(ops/message_passing.py: 'auto', 'edge3d', 'factored', 'pallas'); the
+JAX package's scheduling knobs (``remat``, ``edges_sorted``) change no
+result and are left out.  ``apply_fused`` runs each layer
 through the fused edge-conv layer (ops/fused_conv.py), a hand-written CUDA
 kernel on the GPU, and ``apply_fused_ad`` is its differentiable form for
 training (the backward a second hand-written kernel).  With ``kernel_rank``
@@ -25,13 +28,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.checkpoint import flatten_params, unflatten_params
-from ..ops.message_passing import (apply_edge_mlp_hidden,
+from ..ops.message_passing import (apply_edge_mlp_hidden, check_mode,
                                    edge_conditioned_conv,
-                                   precompute_edge_kernel)
+                                   precompute_edge_kernel, resolve_mode)
 from ..ops.segment import masked_segment_mean, segment_degree
-from .common import (from_torch_linear, linear_init, pyg_uniform_init,
-                     to_torch_linear)
+from .common import (from_torch_linear, jax_tree, linear_init, load_jax_tree,
+                     pyg_uniform_init, to_torch_linear)
 
 
 class KernelNN(nn.Module):
@@ -39,10 +41,13 @@ class KernelNN(nn.Module):
 
     def __init__(self, width: int, ker_width: int, depth: int,
                  ker_in: int = 1, in_width: int = 3, out_width: int = 3,
-                 kernel_rank: int | None = None, seed: int = 0):
+                 mode: str = "auto", kernel_rank: int | None = None,
+                 seed: int = 0):
         super().__init__()
+        check_mode(mode)
         self.width, self.ker_width, self.depth = width, ker_width, depth
         self.ker_in, self.in_width, self.out_width = ker_in, in_width, out_width
+        self.mode = mode
         self.kernel_rank = kernel_rank
         skip = nn.utils.skip_init
         self.fc1 = skip(nn.Linear, in_width, width)
@@ -77,18 +82,22 @@ class KernelNN(nn.Module):
               edge_mask: torch.Tensor | None = None) -> torch.Tensor:
         """Forward pass for one (padded) graph. x: [N, C_in] -> [N, C_out].
 
-        The per-edge kernel matrices are loop-invariant (shared weights), so
-        they are computed once, not depth times."""
+        The per-edge kernel is loop-invariant (shared weights), so it is
+        computed once, not depth times.  The rank-r branch ignores ``mode``,
+        as in the JAX package."""
         h = self.fc1(x)
         if self.kernel_rank is not None:
             return self._apply_lowrank(h, senders, receivers, edge_attr,
                                        edge_mask)
-        pre = precompute_edge_kernel(self.edge_mlp, edge_attr, torch.relu)
+        mode = resolve_mode(self.mode, x.device)
+        pre = precompute_edge_kernel(self.edge_mlp, edge_attr, torch.relu,
+                                     mode, edge_mask=edge_mask)
         deg = segment_degree(receivers, x.shape[0], edge_mask)
         for _ in range(self.depth):
             h = torch.relu(edge_conditioned_conv(
                 h, senders, receivers, edge_attr, self.edge_mlp, self.root,
-                self.bias, edge_mask=edge_mask, precomputed=pre, degree=deg))
+                self.bias, edge_mask=edge_mask, mode=mode, precomputed=pre,
+                degree=deg))
         return self.fc2(h)
 
     def _apply_lowrank(self, h: torch.Tensor, senders: torch.Tensor,
@@ -261,13 +270,7 @@ class KernelNN(nn.Module):
         self._check_shapes(np.shape(conv["root"])[0],
                            np.shape(params["fc1"]["w"])[::-1],
                            np.shape(conv["edge_mlp"][-1]["w"])[1])
-        flat = flatten_params(params)
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                key, transposed = self.jax_key(name)
-                a = np.asarray(flat[key], np.float32)
-                p.copy_(torch.as_tensor(np.ascontiguousarray(
-                    a.T if transposed else a)))
+        load_jax_tree(self, params)
         return self
 
     @staticmethod
@@ -287,9 +290,4 @@ class KernelNN(nn.Module):
     def to_jax_params(self) -> dict:
         """The JAX package's parameter tree, numpy leaves (``from_jax_params``
         inverse; ``core.checkpoint.save_params`` writes it)."""
-        flat = {}
-        for name, p in self.named_parameters():
-            key, transposed = self.jax_key(name)
-            a = p.detach().cpu().numpy()
-            flat[key] = (a.T if transposed else a).copy()
-        return unflatten_params(flat)
+        return jax_tree(self)

@@ -1,16 +1,18 @@
 """Model factory — mirrors the reference's ``init_model`` surface
 (reference utils.py:29-43).  ``'neuralop'`` maps width->width,
-ker_width=width, depth=num_layers (utils.py:41).  The other model names of
-the JAX package are not ported yet and raise."""
+ker_width=width, depth=num_layers (utils.py:41); ``'teecnet'`` takes
+num_layers (default 4).  As in the JAX package, the conv ``mode`` is not read
+from the config: it is a model constructor argument.  The other model names
+of the JAX package are not ported yet and raise."""
 
 from __future__ import annotations
 
 from .kernelnn import KernelNN
+from .teecnet import TEECNet
 
 GRID_MODELS = ("fno", "fno1d", "fno3d", "deeponet")
 
 _NOT_PORTED = {
-    "teecnet": "ROADMAP.md queue A item 11",
     "graphsage": "ROADMAP.md queue A item 14",
     **{name: "ROADMAP.md queue A item 14" for name in GRID_MODELS},
 }
@@ -30,6 +32,10 @@ def init_model(type: str, in_channels: int, out_channels: int,
             kernel_rank=kwargs.get("kernel_rank"),
             seed=seed,
         )
+    if type == "teecnet":
+        return TEECNet(in_channels=in_channels, width=kwargs["width"],
+                       out_channels=out_channels,
+                       num_layers=kwargs.get("num_layers", 4), seed=seed)
     if type in _NOT_PORTED:
         raise NotImplementedError(
             f"model {type!r} is not ported yet ({_NOT_PORTED[type]})")

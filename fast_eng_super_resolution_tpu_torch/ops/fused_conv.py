@@ -216,12 +216,13 @@ def prepare_fused_train(senders, receivers, edge_attr, n_nodes,
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-# library -> its source: B1 (forward), B2 (backward), and their rank-r
-# counterparts B3 and B4
+# library -> its source: B1 (forward), B2 (backward), their rank-r
+# counterparts B3 and B4, and B5, the per-edge messages of ops/pallas_mp.py
 _SOURCES = {"fused_edge_conv": "fused_edge_conv.cu",
             "fused_edge_conv_bwd": "fused_edge_conv_bwd.cu",
             "fused_edge_conv_lowrank": "fused_edge_conv_lowrank.cu",
-            "fused_edge_conv_lowrank_bwd": "fused_edge_conv_lowrank_bwd.cu"}
+            "fused_edge_conv_lowrank_bwd": "fused_edge_conv_lowrank_bwd.cu",
+            "fused_edge_messages": "fused_edge_messages.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _libs: dict = {}
@@ -292,6 +293,7 @@ _BINDINGS = {
     "fused_edge_conv_lowrank": (("fused_edge_conv_lowrank_forward", 9, 8), 4),
     "fused_edge_conv_lowrank_bwd": (("fused_edge_conv_lowrank_backward", 14, 8),
                                     4),
+    "fused_edge_messages": (("fused_edge_messages_forward", 5, 4), 3),
 }
 
 
@@ -372,11 +374,12 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_geometry(dt, slots: int, rows_blk: int, blk: int, **dims) -> None:
+def _check_geometry(dt, slots: int, rows_blk: int, blk: int, *,
+                    k_max: int = 64, **dims) -> None:
     """Raises on what the kernels do not take: a GEMM type other than
     float32 or bfloat16, blocks of other than 64 rows, a blk that is not a
     positive multiple of 64 dividing the slots, or a width ``dims`` (name=
-    value) outside 1..64 (``rank``: 1..32)."""
+    value) outside 1..64 (``K``: 1..k_max; ``rank``: 1..32)."""
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"h_blocked dtype {dt} (expected float32 | bfloat16)")
     if rows_blk != 64:
@@ -384,7 +387,7 @@ def _check_geometry(dt, slots: int, rows_blk: int, blk: int, **dims) -> None:
     if blk % 64 or blk <= 0:
         raise ValueError(f"blk={blk} must be a positive multiple of 64")
     for name, v in dims.items():
-        top = 32 if name == "rank" else 64
+        top = {"rank": 32, "K": k_max}.get(name, 64)
         if not 1 <= v <= top:
             raise ValueError(f"{name}={v} outside the kernel's 1..{top}")
     if slots % blk:
@@ -412,7 +415,8 @@ def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
     kernel does not take; raises if the launch fails."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, c_out=c_out)
+    _check_geometry(dt, slots, rows_blk, blk, k_max=128, K=k, c_in=c_in,
+                    c_out=c_out)
     nb = slots // blk
     n = x.shape[0]
     _check("h_blocked", h_blocked, dt, (slots, k))
@@ -525,7 +529,8 @@ def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
     order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out)
+    _check_geometry(dt, slots, rows_blk, blk, k_max=128, K=k, c_in=c_in,
+                    c_out=c_out)
     nb, c2 = slots // blk, c_in * c_out
     _check("g", g, torch.float32, (nb * rows_blk, c_out))
     _check("h_blocked", h_blocked, dt, (slots, k))
@@ -542,7 +547,8 @@ def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
     dh = torch.empty((slots, k), **f32)
     dx_src = torch.empty((slots, c_in), **f32)
     dmsg = torch.empty((slots, c_out), **f32)  # scratch between the launches
-    splits = _weight_splits(slots, -(-c_in // 4), dev)  # 4-channel tiles
+    # 4-channel tiles, times the K parts of at most 64 rows
+    splits = _weight_splits(slots, -(-c_in // 4) * -(-k // 64), dev)
     partial = torch.empty((splits, k + 1, c2), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

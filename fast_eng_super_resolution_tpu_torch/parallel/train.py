@@ -7,10 +7,13 @@ one merged (block-diagonal) graph, and the loss is the MSE over its real
 nodes times the summed clamped gradient weight (scheduler_gnn.py:481-501)
 plus ``0.1 * max |err|`` (:151-154); see ops/loss.py.
 
-Two layouts: ``'merged'`` runs the plain whole-graph ``KernelNN.apply``;
-``'fused'`` runs ``KernelNN.apply_fused_ad``, whose layers are the
-hand-written forward (B1) and backward (B2) kernels on the GPU and their
-plain versions on the CPU.
+The model is a KernelNN or a TEECNet.  Two layouts: ``'merged'`` runs the
+plain whole-graph ``model.apply``; ``'fused'`` runs ``model.apply_fused_ad``,
+whose layers are the hand-written forward (B1) and backward (B2) kernels on
+the GPU (B3/B4 at rank r) and their plain versions on the CPU.  A model in
+conv mode 'pallas' does not train in the merged layout: its first step
+raises, as the per-edge message kernel has no backward (in the JAX package
+neither); the fused layout ignores the mode.
 
 Optimizer: Adam with optax's defaults (betas 0.9/0.999, eps 1e-8 added after
 the square root, no weight decay), the learning rate set from the host every
@@ -212,7 +215,7 @@ class Trainer:
     def state_tree(self, opt: torch.optim.Optimizer) -> dict:
         """Adam's state as a tree of numpy arrays: ``step``,
         ``learning_rate`` and the two moments ``exp_avg``/``exp_avg_sq`` in
-        the JAX package's parameter-tree layout (``KernelNN.jax_key``)."""
+        the JAX package's parameter-tree layout (``model.jax_key``)."""
         flat = {}
         step = 0
         for name, p in self.model.named_parameters():

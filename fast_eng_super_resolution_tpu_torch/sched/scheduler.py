@@ -21,6 +21,7 @@ their ROADMAP.md item.
 from __future__ import annotations
 
 import copy
+import inspect
 import os
 
 import numpy as np
@@ -95,13 +96,16 @@ class PartitionScheduler(ServingLanes):
         return experts
 
     def _model_spec(self) -> dict:
-        """Model identity stamped into checkpoints: the class and its scalar
-        config, as the JAX package stamps its model's fields."""
+        """Model identity stamped into checkpoints: the class and every
+        scalar config field (the constructor's arguments but the seed), as
+        the JAX package stamps every scalar field of its model's dataclass."""
         spec = {"model": type(self.model).__name__}
-        for f in ("width", "ker_width", "depth", "ker_in", "in_width",
-                  "out_width", "kernel_rank"):
-            if hasattr(self.model, f):
-                spec[f"cfg_{f}"] = str(getattr(self.model, f))
+        for f in inspect.signature(type(self.model).__init__).parameters:
+            if f in ("self", "seed") or not hasattr(self.model, f):
+                continue
+            v = getattr(self.model, f)
+            if isinstance(v, (int, float, str, bool, type(None))):
+                spec[f"cfg_{f}"] = str(v)
         return spec
 
     def _save_model(self, i: int, model, export_pth: bool = True) -> None:

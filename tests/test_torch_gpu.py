@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (B1 forward, B2 backward, and their rank-r
-counterparts B3 and B4) against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (B1 forward, B2 backward, their rank-r
+counterparts B3 and B4, and B5, the per-edge messages) against their plain
+PyTorch versions, on the card.
 
 Every test here is marked ``gpu`` and skips on a machine without CUDA.  The
 file imports neither jax nor the test conftest's JAX setup, so it runs where
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from fast_eng_super_resolution_tpu_torch.ops import fused_conv as tfc
+from fast_eng_super_resolution_tpu_torch.ops import pallas_mp
 
 pytestmark = pytest.mark.gpu
 
@@ -179,6 +181,91 @@ def test_fused_edge_conv_grads_on_card_match_cpu(cuda, compact):
     for name, a, b in zip(("h", "x", "w3", "b3"), got, grads("cpu")):
         err = (a - b).abs().max().item() / b.abs().max().item()
         assert err < BWD_TOL, (name, err)
+
+
+@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("c,k", [(48, 128), (5, 100), (64, 65)])
+def test_kernels_past_k64_match_plain(cuda, c, k, compact, gemm_dtype):
+    """B1 and B2 at an edge MLP wider than the width (TEECNet's K = 128 at
+    width 48; K not a multiple of 64, split unevenly), against their plain
+    versions: the limits above."""
+    blocks, h, x, w3, b3 = _operands(c, k=k, seed=c + k)
+    fwd, bwd = tfc.fused_edge_conv.launches, tfc.fused_edge_conv_bwd.launches
+    got = _layer(blocks, h, x, w3, b3, c, gemm_dtype, compact, "cuda")
+    args = (blocks, _g(blocks, c, k), h, x[blocks.senders_perm], w3, b3, c,
+            gemm_dtype, compact)
+    got_bwd = _bwd(*args, "cuda")
+    torch.cuda.synchronize()
+    assert tfc.fused_edge_conv.launches == fwd + 1
+    assert tfc.fused_edge_conv_bwd.launches == bwd + 1
+    ref = _layer(blocks, h, x, w3, b3, c, gemm_dtype, compact, "cpu")
+    err = (got.cpu() - ref).abs().max().item() / ref.abs().max().item()
+    assert err < TOL, err
+    for name, a, b in zip(("dh", "dx_src", "dw3", "db3"), got_bwd,
+                          _bwd(*args, "cpu")):
+        assert a.shape == b.shape, name
+        err = (a.cpu() - b).abs().max().item() / b.abs().max().item()
+        assert err < BWD_TOL, (name, err)
+
+
+def test_k_limits_of_b1_and_b2(cuda):
+    blocks, h, x, w3, b3 = _operands(8, k=129, seed=16)
+    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    kw = dict(c_in=8, c_out=8, rows_blk=64, blk=blocks.blk)
+    with pytest.raises(ValueError, match="K=129"):
+        tfc.fused_edge_conv_cuda(t(h), t(x), t(blocks.senders_perm), t(w3),
+                                 t(b3), blocks.compact_s.to("cuda"), **kw)
+    with pytest.raises(ValueError, match="K=129"):
+        tfc.fused_edge_conv_bwd_cuda(
+            t(_g(blocks, 8, 17)), t(h), t(x[blocks.senders_perm]), t(w3),
+            t(b3), blocks.compact_s.to("cuda"), **kw)
+
+
+def _messages_operands(e, k, c, seed):
+    rng = np.random.default_rng(seed)
+    return (np.maximum(rng.normal(size=(e, k)), 0).astype(np.float32),
+            rng.normal(size=(e, c)).astype(np.float32),
+            (rng.normal(size=(k, c * c)) * 0.2).astype(np.float32),
+            (rng.normal(size=(c * c,)) * 0.1).astype(np.float32))
+
+
+# B5 against its plain version: both float32 (TF32 off), sums of ~(K+1) c
+# products in different orders: 1e-5 of the max.
+@pytest.mark.parametrize("k", [128, 48, 1])
+@pytest.mark.parametrize("c", [48, 64, 5])
+def test_messages_kernel_matches_plain(cuda, c, k):
+    """E = 2500: the last 64-edge tile is partly masked."""
+    ops = [torch.as_tensor(a) for a in _messages_operands(2500, k, c, c + k)]
+    before = pallas_mp.fused_edge_messages.launches
+    with torch.no_grad():
+        got = pallas_mp.fused_edge_messages(*(a.cuda() for a in ops))
+    torch.cuda.synchronize()
+    assert pallas_mp.fused_edge_messages.launches == before + 1
+    ref = pallas_mp.fused_edge_messages_plain(*ops)
+    assert got.shape == ref.shape == (2500, c)
+    err = (got.cpu() - ref).abs().max().item() / ref.abs().max().item()
+    assert err < TOL, err
+
+
+def test_messages_wrapper_checks_operands(cuda):
+    h, x, w3, b3 = (torch.as_tensor(a, device="cuda")
+                    for a in _messages_operands(100, 6, 8, 18))
+    fn = pallas_mp.fused_edge_messages_cuda
+    with pytest.raises(TypeError):  # float64
+        fn(h.double(), x, w3, b3)
+    with pytest.raises(ValueError):  # not contiguous
+        fn(h, x.t().contiguous().t(), w3, b3)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fn(h, x, w3, b3.cpu())
+    with pytest.raises(ValueError, match="K=129"):
+        fn(torch.zeros(100, 129, device="cuda"), x,
+           torch.zeros(129, 64, device="cuda"), b3)
+    with pytest.raises(ValueError, match="c_out"):
+        fn(h, x[:, :1].contiguous(), torch.zeros(6, 65, device="cuda"),
+           torch.zeros(65, device="cuda"))
+    with pytest.raises(RuntimeError, match="no backward"):
+        pallas_mp.fused_edge_messages(h, x, w3.requires_grad_(), b3)
 
 
 def _lowrank_operands(c, rank, seed, k=None):

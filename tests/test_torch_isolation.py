@@ -25,16 +25,26 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke                    # the card's smoke script, not run
 from fast_eng_super_resolution_tpu_torch.models.registry import init_model
-m = init_model("neuralop", 4, 4, width=8, num_layers=2)
+from fast_eng_super_resolution_tpu_torch.models.kernelnn import KernelNN
 rng = np.random.default_rng(0)
 n, e = 70, 400
 recv = np.sort(rng.integers(0, n, e)).astype(np.int32)
 send = rng.integers(0, n, e).astype(np.int32)
 ea = rng.random((e, 1)).astype(np.float32)
-ea_b, sp, s, rb, bk = m.prepare_fused(send, recv, ea, n, compact=True)
-with torch.no_grad():
-    out = m.apply_fused(torch.randn(n, 4), torch.as_tensor(ea_b),
-                        torch.as_tensor(sp), s.to("cpu"), rows_blk=rb, blk=bk)
+x = torch.randn(n, 4)
+graph = [torch.as_tensor(a) for a in (send, recv, ea)]
+for name in ("neuralop", "teecnet"):
+    m = init_model(name, 4, 4, width=8, num_layers=2)
+    ea_b, sp, s, rb, bk = m.prepare_fused(send, recv, ea, n, compact=True)
+    with torch.no_grad():
+        out = m.apply_fused(x, torch.as_tensor(ea_b), torch.as_tensor(sp),
+                            s.to("cpu"), rows_blk=rb, blk=bk)
+        plain = m.apply(x, *graph)
+    assert out.shape == (n, 4) and torch.isfinite(out).all()
+    assert torch.isfinite(plain).all()
+with torch.no_grad():  # conv mode 'pallas': the per-edge message kernel
+    out = KernelNN(8, 8, 2, in_width=4, out_width=4, mode="pallas").apply(
+        x, *graph)
 assert out.shape == (n, 4) and torch.isfinite(out).all()
 print("imported", len(names), "modules")
 """

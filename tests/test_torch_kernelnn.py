@@ -17,6 +17,7 @@ from fast_eng_super_resolution_tpu.models.kernelnn import KernelNN as JKernelNN
 from fast_eng_super_resolution_tpu_torch.core.checkpoint import flatten_params
 from fast_eng_super_resolution_tpu_torch.models.kernelnn import KernelNN
 from fast_eng_super_resolution_tpu_torch.models.registry import init_model
+from fast_eng_super_resolution_tpu_torch.models.teecnet import TEECNet
 from fast_eng_super_resolution_tpu_torch.ops.fused_conv import CompactS
 
 W, DEPTH = 8, 2
@@ -190,8 +191,15 @@ def test_apply_fused_ad_grads_match_jax(rank):
 
 
 def test_unported_options_raise():
-    for name in ("teecnet", "fno", "deeponet", "graphsage"):
+    for name in ("fno", "deeponet", "graphsage"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             init_model(name, 4, 4, width=W, num_layers=2)
     with pytest.raises(ValueError):
         init_model("nope", 4, 4, width=W, num_layers=2)
+    for mode in ("edge", "lut"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            KernelNN(**_cfg(None), mode=mode)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            TEECNet(4, W, 4, mode=mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TEECNet(4, W, 4, kernel_type="powerseries")

@@ -1,0 +1,168 @@
+"""Port of ops/pallas_mp.py (the per-edge message kernel B5) and of the conv
+modes of ops/message_passing.py: the plain version against the JAX Pallas
+kernel in interpret mode, the wrapper on the CPU, its refusal under
+autograd, and each mode of ``edge_conditioned_conv`` and ``KernelNN`` against
+the JAX package's same mode.  The kernel itself is checked against its plain
+version on the card in tests/test_torch_gpu.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+import jax
+from jax.experimental.pallas import tpu as pltpu
+
+from conftest import make_random_graph
+from fast_eng_super_resolution_tpu.core.graph import pad_graph
+from fast_eng_super_resolution_tpu.models.kernelnn import KernelNN as JKernelNN
+from fast_eng_super_resolution_tpu.ops import message_passing as jmp
+from fast_eng_super_resolution_tpu.ops.pallas_mp import fused_edge_messages as jfem
+from fast_eng_super_resolution_tpu_torch.models.kernelnn import KernelNN
+from fast_eng_super_resolution_tpu_torch.ops import message_passing as tmp
+from fast_eng_super_resolution_tpu_torch.ops.pallas_mp import (
+    fused_edge_messages, fused_edge_messages_plain)
+from fast_eng_super_resolution_tpu_torch.parallel.train import Trainer
+from fast_eng_super_resolution_tpu_torch.core.graph import Graph
+
+PORTED = ("edge3d", "factored", "pallas")
+
+
+def _operands(e, k, w, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(e, k)).astype(np.float32),
+            rng.normal(size=(e, w)).astype(np.float32),
+            (rng.normal(size=(k, w * w)) * 0.1).astype(np.float32),
+            (rng.normal(size=(w * w,)) * 0.1).astype(np.float32))
+
+
+@pytest.mark.parametrize("k", [24, 128])
+def test_plain_matches_jax_kernel(k):
+    """E = 700 is not a multiple of the JAX kernel's block; float32 on both
+    sides, sums in other orders: rtol/atol 1e-4 (tests/test_pallas.py's)."""
+    ops = _operands(700, k, 16, seed=k)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jfem(*(jnp.asarray(a) for a in ops)))
+    got = fused_edge_messages_plain(*(torch.as_tensor(a) for a in ops))
+    assert got.shape == (700, 16) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
+    wrapped = fused_edge_messages(*(torch.as_tensor(a) for a in ops),
+                                  block_e=128)
+    torch.testing.assert_close(wrapped, got, rtol=0, atol=0)
+
+
+def test_wrapper_refuses_autograd_and_bad_block():
+    h, x, w3, b3 = (torch.as_tensor(a) for a in _operands(50, 8, 4))
+    w3.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_edge_messages(h, x, w3, b3)
+    with torch.no_grad():  # the same call serves without a gradient
+        out = fused_edge_messages(h, x, w3, b3)
+    assert out.shape == (50, 4)
+    for bad in (0, -256, 2.5, True):
+        with pytest.raises(ValueError, match="block_e"):
+            fused_edge_messages(h, x, w3.detach(), b3, block_e=bad)
+
+
+def test_resolve_mode():
+    assert tmp.resolve_mode("auto", "cpu") == "factored"
+    assert tmp.resolve_mode("auto", torch.device("cuda")) == "edge3d"
+    for mode in PORTED:
+        assert tmp.resolve_mode(mode, "cpu") == mode
+    for mode in ("edge", "lut"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tmp.resolve_mode(mode, "cpu")
+    with pytest.raises(ValueError, match="unknown conv mode"):
+        tmp.resolve_mode("dense", "cpu")
+
+
+def _mlp(rng, sizes):
+    """The same edge MLP as JAX {'w', 'b'} dicts and torch nn.Linear."""
+    jlayers, tlayers = [], []
+    for a, b in zip(sizes[:-1], sizes[1:]):
+        w = (rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)
+        bias = (rng.normal(size=(b,)) * 0.1).astype(np.float32)
+        jlayers.append({"w": jnp.asarray(w), "b": jnp.asarray(bias)})
+        lin = torch.nn.Linear(a, b)
+        with torch.no_grad():
+            lin.weight.copy_(torch.as_tensor(w.T))
+            lin.bias.copy_(torch.as_tensor(bias))
+        tlayers.append(lin)
+    return jlayers, torch.nn.ModuleList(tlayers)
+
+
+@pytest.mark.parametrize("root_input", [False, True])
+@pytest.mark.parametrize("aggr", ["mean", "sum"])
+@pytest.mark.parametrize("mode", PORTED)
+def test_edge_conditioned_conv_matches_jax_mode(mode, aggr, root_input):
+    """One layer with an edge mask, in each ported mode, against the JAX
+    package's same mode (its Pallas kernel in interpret mode): float32, sums
+    in other orders, 1e-5 of the max."""
+    rng = np.random.default_rng(1)
+    n, e, c, k = 60, 300, 6, 10
+    g = make_random_graph(rng, n=n, e=e, c_in=c)
+    mask = rng.random(e) > 0.2
+    jlayers, tlayers = _mlp(rng, [1, k, c * c])
+    root = (rng.normal(size=(c, c)) * 0.3).astype(np.float32)
+    bias = rng.normal(size=(c,)).astype(np.float32)
+    xr = rng.normal(size=(n, c)).astype(np.float32) if root_input else None
+    args = (g["x"], g["senders"], g["receivers"], g["edge_attr"])
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jmp.edge_conditioned_conv(
+            *(jnp.asarray(a) for a in args), jlayers, jnp.asarray(root),
+            jnp.asarray(bias), edge_mask=jnp.asarray(mask), aggr=aggr,
+            mode=mode, root_input=None if xr is None else jnp.asarray(xr)))
+    t = torch.as_tensor
+    with torch.no_grad():
+        got = tmp.edge_conditioned_conv(
+            *(t(a) for a in args), tlayers, t(root), t(bias),
+            edge_mask=t(mask), aggr=aggr, mode=mode,
+            root_input=None if xr is None else t(xr))
+    assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def _padded_graph(seed):
+    g = make_random_graph(np.random.default_rng(seed), n=60, e=256)
+    return pad_graph(g["x"], g["y"], g["pos"], g["senders"], g["receivers"],
+                     g["edge_attr"], 64, 512)
+
+
+@pytest.mark.parametrize("mode", PORTED)
+def test_kernelnn_mode_matches_jax(mode):
+    """The counterpart of tests/test_pallas.py's KernelNN(mode='pallas')
+    check: the port's KernelNN in each mode against the JAX KernelNN in the
+    same mode, same weights, 1e-5 of the max (depth 2, float32)."""
+    cfg = dict(width=16, ker_width=8, depth=2, in_width=4, out_width=4)
+    jmodel = JKernelNN(mode=mode, **cfg)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jmodel.init(jax.random.PRNGKey(0)))
+    g = _padded_graph(2)
+    args = (g.x, g.senders, g.receivers, g.edge_attr)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jmodel.apply(params, *(jnp.asarray(a) for a in args),
+                                      edge_mask=jnp.asarray(g.edge_mask)))
+    port = KernelNN(mode=mode, **cfg).from_jax_params(params)
+    with torch.no_grad():
+        got = port.apply(*(torch.as_tensor(a) for a in args),
+                         edge_mask=torch.as_tensor(g.edge_mask))
+    assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_pallas_mode_merged_training_raises():
+    """A 'pallas' model's merged-layout step raises the wrapper's error
+    (the JAX package's jax.grad fails inside pallas_call); evaluating it
+    without a gradient works and equals the 'edge3d' model's loss."""
+    g = _padded_graph(3)
+    graph = Graph(**{f: torch.as_tensor(np.asarray(getattr(g, f)))
+                     for f in Graph.__dataclass_fields__})
+    losses = {}
+    for mode in ("pallas", "edge3d"):
+        trainer = Trainer(KernelNN(8, 8, 2, in_width=4, out_width=4,
+                                   mode=mode, seed=1), lr=1e-3)
+        opt = trainer.init()
+        losses[mode] = trainer.evaluate(graph)
+        if mode == "pallas":
+            with pytest.raises(RuntimeError, match="no backward"):
+                trainer.step(opt, graph)
+    assert np.isfinite(losses["pallas"])
+    assert abs(losses["pallas"] - losses["edge3d"]) <= 1e-5 * abs(losses["edge3d"])
