@@ -4,25 +4,32 @@ Phases, each printing its own lines; any failure raises and the script exits
 non-zero without the final result line:
 
 1. device  — needs CUDA; prints the card's name and power limit.
-2. build   — compiles the five kernels (csrc/fused_edge_conv.cu, the forward
-             B1, csrc/fused_edge_conv_bwd.cu, the backward B2, their rank-r
-             counterparts csrc/fused_edge_conv_lowrank.cu, B3, and
+2. build   — compiles the five kernels' seven libraries (the forward B1 as
+             csrc/fused_edge_conv.cu, float32 FMAs, and
+             csrc/fused_edge_conv_wgmma.cu, bfloat16 on the tensor cores; the
+             backward B2 as csrc/fused_edge_conv_bwd.cu and
+             csrc/fused_edge_conv_bwd_wgmma.cu; their rank-r counterparts
+             csrc/fused_edge_conv_lowrank.cu, B3, and
              csrc/fused_edge_conv_lowrank_bwd.cu, B4, and
              csrc/fused_edge_messages.cu, B5, the per-edge messages of conv
              mode 'pallas') from the checkout, one nvcc each, started
-             together.
+             together; prints ptxas's registers and spills of the
+             tensor-core kernels (``[ptxas]``).
 3. kernel  — B1 against its plain PyTorch version on the card, at the
              full-size serving chunk shape, on operands from the real dataset
-             chunk: float32 (TF32 off) and bfloat16, compact and dense S.
+             chunk: float32 (TF32 off) and bfloat16, compact and dense S,
+             each line naming the design that ran (``design=wgmma`` for
+             bfloat16 B1/B2, ``fma`` otherwise); a tensor-core launch is
+             repeated and must give the same bits.
 4. bwd     — B2 against its plain version at the same shape and operands with
-             a seeded output gradient, both types and both S forms; then the
-             differentiable layer's gradients on the card against the CPU's
-             plain ones on the small mesh's graph.
+             a seeded output gradient, both types and both S forms (repeated
+             as B1); then the differentiable layer's gradients on the card
+             against the CPU's plain ones on the small mesh's graph.
    train batch — both kernels again at the shapes training gives them: the
              first layer's operands of the 12-subdomain train batch and the
              4-subdomain val batch, built as the scheduler builds them (one
-             common blk); B1 on both, B2 on the train batch with a seeded
-             output gradient, both types and both S forms.
+             common blk); B1 and B2 (with a seeded output gradient) on both,
+             both types and both S forms.
 5. serve   — the port's ``pred_graph_ALDD`` on the synthetic duct at the full
              width of configs/exp_config/neuralop_synthetic_full.yaml (width
              48, depth 4) with a seeded checkpoint: two full-size meshes
@@ -338,6 +345,55 @@ def layer(op, gemm_dtype, plain=False, dense=False):
         gemm_dtype=gemm_dtype, **layer_kw(op))
 
 
+def design_of(op, gemm_dtype: str) -> str:
+    """The design the kernel of ``op`` runs in ``gemm_dtype``: B1/B2 in
+    bfloat16 on the tensor cores ('wgmma'), everything else ('fma') as
+    float32 FMAs on the CUDA cores."""
+    if op["rank"] is not None:
+        return "fma"
+    return fused_conv.design(getattr(torch, gemm_dtype))
+
+
+def check_repeat(label: str, at: str, dt: str, dense: bool, first,
+                 second) -> None:
+    """Raises unless a second launch on the same inputs gave the same bits
+    (the tensor-core kernels sum in a fixed order, with no atomics)."""
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(label, at=at, dtype=dt, s="dense" if dense else "compact",
+        second_launch_bit_identical=same)
+    if not same:
+        raise AssertionError(f"{label} at {at} {dt}: two launches differ")
+
+
+def log_ptxas() -> None:
+    """Registers and spills of the tensor-core kernels, as ptxas reported
+    them when the libraries were built, and their blocks per SM at width 48
+    and K 48 and 128."""
+    import re
+    for lib in ("fused_edge_conv_wgmma", "fused_edge_conv_bwd_wgmma"):
+        name, spills = None, ("?", "?")
+        for line in fused_conv.ptxas_report(lib).splitlines():
+            m = re.search(r"Function properties for \S*?"
+                          r"(conv_fwd_wgmma|bwd_rows_wgmma|bwd_weights_wgmma)"
+                          r"(?:ILi(\d+)E)?", line)
+            if m:
+                name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if name and m:
+                spills = m.groups()
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if name and m:
+                log("ptxas", lib=lib, kernel=name, registers=m.group(1),
+                    spill_stores=spills[0], spill_loads=spills[1])
+                name = None
+    for k in (48, 128):
+        log("ptxas", k=k, c=48, blocks_per_sm=fused_conv.occupancy(k, 48, 48))
+
+
 def phase_kernel(op, at: str = "chunk", errs: dict | None = None) -> dict:
     """B1 (B3 on the rank-r path) against its plain version on ``op`` (the
     operands at shape ``at``); returns ``errs`` with each type's largest
@@ -360,12 +416,15 @@ def phase_kernel(op, at: str = "chunk", errs: dict | None = None) -> dict:
                 abs_err = (got - ref).abs().max().item()
                 rel = abs_err / ref.abs().max().item()
                 log(label, at=at, dtype=dt, s="dense" if dense else "compact",
-                    max_abs_err=f"{abs_err:.3e}", rel_to_max=f"{rel:.3e}",
-                    tol=KERNEL_TOL[dt])
+                    design=design_of(op, dt), max_abs_err=f"{abs_err:.3e}",
+                    rel_to_max=f"{rel:.3e}", tol=KERNEL_TOL[dt])
                 if not (rel <= KERNEL_TOL[dt]):
                     raise AssertionError(f"{label} at {at} {dt} dense={dense}: "
                                          f"{rel:.3e} > {KERNEL_TOL[dt]}")
                 errs[dt] = max(errs.get(dt, 0.0), abs_err)
+                if design_of(op, dt) == "wgmma":
+                    check_repeat(label, at, dt, dense, (got,),
+                                 (layer(op, dt, dense=dense),))
             del ref, got
     torch.cuda.empty_cache()
     return errs
@@ -626,6 +685,7 @@ def check_bwd(bop, at: str = "chunk", errs: dict | None = None) -> dict:
                     rel = abs_err / b.abs().max().item()
                     log(label, at=at, dtype=dt,
                         s="dense" if dense else "compact", out=name,
+                        design=design_of(bop, dt),
                         max_abs_err=f"{abs_err:.3e}",
                         rel_to_max=f"{rel:.3e}", tol=BWD_TOL[dt])
                     if not rel <= BWD_TOL[dt]:
@@ -633,6 +693,9 @@ def check_bwd(bop, at: str = "chunk", errs: dict | None = None) -> dict:
                             f"{label} kernel at {at} {dt} dense={dense} {name}: "
                             f"{rel:.3e} > {BWD_TOL[dt]}")
                     errs[dt] = max(errs.get(dt, 0.0), abs_err)
+                if design_of(bop, dt) == "wgmma":
+                    check_repeat(label, at, dt, dense, got,
+                                 bwd(bop, dt, dense=dense))
             del ref, got
     torch.cuda.empty_cache()
     return errs
@@ -687,14 +750,12 @@ def batch_operands(fb, model, rows_blk: int, blk: int) -> dict:
 
 def phase_train_kernels(batches, errs: dict, errs_bwd: dict) -> None:
     """Both kernels against their plain versions at the shapes training
-    gives them: B1 (B3) on the train and val batches, B2 (B4) on the train
-    batch."""
+    gives them: B1 and B2 (B3 and B4) on the train and the val batch."""
     model, fbs, rows_blk, blk = batches
     for at, fb in zip(("train_batch", "val_batch"), fbs):
         op = batch_operands(fb, model, rows_blk, blk)
         phase_kernel(op, at, errs)
-        if at == "train_batch":
-            check_bwd(bwd_operands(op), at, errs_bwd)
+        check_bwd(bwd_operands(op), at, errs_bwd)
         del op
         torch.cuda.empty_cache()
 
@@ -985,8 +1046,12 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
     """The forward's and the backward's entries of the kernels JSON line,
     tagged with the ``path`` that ran them."""
     pkg = "fast_eng_super_resolution_tpu_torch/csrc/"
+    # full rank: the bfloat16 numbers are the tensor-core design's, in its
+    # own source; the float32 ones the FMA design's
+    suffix = {"bfloat16": "", "float32": ""}
     if rank is None:
         names, lines = ("fused_edge_conv", "fused_edge_conv_bwd"), (322, 442)
+        suffix["bfloat16"] = "_wgmma"
     else:
         names = ("fused_edge_conv_lowrank", "fused_edge_conv_lowrank_bwd")
         lines = (637, 717)
@@ -1004,7 +1069,8 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
             "name": name,
             "path": path,
             "route": "cuda",
-            "source": pkg + name + ".cu",
+            "source": pkg + name + suffix["bfloat16"] + ".cu",
+            "design": "wgmma" if suffix["bfloat16"] else "fma",
             "replaces": f"fast_eng_super_resolution_tpu/ops/fused_conv.py:{line}",
             "launches": launches,
             "launches_by_path": by_path,
@@ -1014,7 +1080,8 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
             "bound_ms": times["bound_ms_bfloat16"],
             "bound_by": times["bound_by_bfloat16"],
             "library_ms": None,
-            "float32": {"max_abs_err": errs["float32"],
+            "float32": {"source": pkg + name + ".cu", "design": "fma",
+                        "max_abs_err": errs["float32"],
                         "ms": times["ms_float32"],
                         "plain_ms": times["plain_ms_float32"],
                         "bound_ms": times["bound_ms_float32"],
@@ -1052,6 +1119,7 @@ def main() -> int:
     libs = fused_conv.build_kernel(force=True)
     log("build", seconds=f"{time.time() - t0:.1f}",
         libs=",".join(os.path.relpath(lib, REPO) for lib in libs))
+    log_ptxas()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         cfgs = {"full": make_config(os.path.join(root, "full"), FULL),

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_edge_conv_jit
-// and computes the same function.  Slots are the receiver-sorted edges,
+// for float32 operands and computes the same function (bfloat16 operands
+// run fused_edge_conv_wgmma.cu, on the tensor cores).  Slots are the receiver-sorted edges,
 // grouped host-side into num_blocks blocks of `blk` slots, block b holding
 // the edges whose receivers lie in rows [64 b, 64 b + 64):
 //
@@ -32,9 +33,9 @@
 // Bound.  Per real slot the layer needs 2*(K+1)*c_in*c_out operations and
 // moves (K + c_in)*sizeof(T) + 8 bytes; at width 48 that is ~225 kFLOP
 // against ~200 B, far above the H100's ~295 FLOP/B ridge in bf16, so the
-// kernel is bounded by operations.  This version runs them as float32 FMAs
-// on the CUDA cores (bf16 inputs are widened on load): it is a correct first
-// kernel, not a tensor-core one (wgmma, TMA, persistent blocks come later).
+// kernel is bounded by operations.  This float32 instance runs them as FMAs
+// on the CUDA cores: a TF32 product would not meet the float32 parity
+// checks.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_edge_conv.so fused_edge_conv.cu
@@ -216,9 +217,8 @@ long fused_edge_conv_smem_bytes(int K, int c_in, int c_out) {
                kRows * kTile + kTile * c_out);
 }
 
-// Launches the forward on `stream`.  Pointers are device pointers; h, x, w3
-// share one type (is_bf16 ? bfloat16 : float32); b3, row_weight, s_dense and
-// out are float32; senders_perm and slot_rows int32.  Exactly one of
+// Launches the float32 forward on `stream`.  Pointers are device pointers to
+// float32 data, senders_perm and slot_rows int32.  Exactly one of
 // s_dense and (slot_rows, row_weight) is non-null.  blk must be a multiple
 // of 64.  Returns the cudaError_t of the launch (0 on success).
 int fused_edge_conv_forward(const void* h, const void* x,
@@ -226,23 +226,17 @@ int fused_edge_conv_forward(const void* h, const void* x,
                             const void* b3, const void* slot_rows,
                             const void* row_weight, const void* s_dense,
                             void* out, int num_blocks, int blk, int K,
-                            int c_in, int c_out, int n_nodes, int is_bf16,
-                            void* stream) {
+                            int c_in, int c_out, int n_nodes, void* stream) {
   if (c_out < 1 || c_out > 4 * kTx || blk % kTile != 0 || num_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int ob = (c_out + kTx - 1) / kTx;
   const size_t smem =
       static_cast<size_t>(fused_edge_conv_smem_bytes(K, c_in, c_out));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(ob, h, x, senders_perm, w3, b3,
-                                        slot_rows, row_weight, s_dense, out,
-                                        num_blocks, blk, K, c_in, c_out,
-                                        n_nodes, smem, s)
-              : dispatch<float>(ob, h, x, senders_perm, w3, b3, slot_rows,
-                                row_weight, s_dense, out, num_blocks, blk, K,
-                                c_in, c_out, n_nodes, smem, s);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch<float>(ob, h, x, senders_perm, w3, b3,
+                                          slot_rows, row_weight, s_dense, out,
+                                          num_blocks, blk, K, c_in, c_out,
+                                          n_nodes, smem, s));
 }
 
 }  // extern "C"

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_edge_conv_bwd_jit
-// and computes the same function.  With the forward's notation (slots in
+// for float32 operands and computes the same function (bfloat16 operands
+// run fused_edge_conv_bwd_wgmma.cu, on the tensor cores).  With the forward's notation (slots in
 // blocks of `blk`, block b feeding receiver rows [64 b, 64 b + 64)), g the
 // gradient of the forward's output, h~ = [h, 1] and W~ = [[w3], [b3]] seen as
 // [K+1, c_in, c_out]:
@@ -49,8 +50,8 @@
 // operations (three GEMMs of the forward's size) and moves (K + c_in) sizeof(T)
 // + c_out 4 + (K + c_in) 4 bytes; at width 48 that is ~680 kFLOP against
 // ~600 B, far above the card's ridge, so it is bounded by operations.  This
-// version runs them as float32 FMAs on the CUDA cores (bf16 inputs are
-// widened on load): a correct first kernel, not a tensor-core one.
+// float32 instance runs them as FMAs on the CUDA cores: a TF32 product would
+// not meet the float32 parity checks.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_edge_conv_bwd.so fused_edge_conv_bwd.cu
@@ -72,21 +73,14 @@ constexpr int kPad = kMaxDim;           // shared-memory slack after the w buffe
 constexpr int kIn = 4;                  // weights kernel: input channels per block
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
-// A float32 rounded to T and widened back (round to nearest even, as
-// torch's .to(torch.bfloat16)).
+// A float32 rounded to T and widened back (T is float32 only here: the
+// bfloat16 instance is fused_edge_conv_bwd_wgmma.cu).
 template <typename T>
 __device__ __forceinline__ float round_to(float v);
 template <>
 __device__ __forceinline__ float round_to<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
 }
 
 // Rows of K in one part: K split into ceil(K / 64) parts of equal size.
@@ -569,10 +563,9 @@ long fused_edge_conv_bwd_smem_bytes(int K, int c_in, int c_out) {
                (K + 1) * kTile + 2L * w_len(K, c_in, c_out) + kPad);
 }
 
-// Launches the backward on `stream`: the rows kernel, then the weights
-// kernel.  Pointers are device pointers; h, x_src and w3 share one type
-// (is_bf16 ? bfloat16 : float32); g, b3, row_weight, s_dense and every
-// output are float32; slot_rows int32.  Exactly one of s_dense and
+// Launches the float32 backward on `stream`: the rows kernel, then the
+// weights kernel.  Pointers are device pointers to float32 data, slot_rows
+// int32.  Exactly one of s_dense and
 // (slot_rows, row_weight) is non-null.  Outputs: dh [slots, K], dx_src
 // [slots, c_in], dmsg [slots, c_out] (scratch), partial [num_splits, K+1,
 // c_in*c_out] (dw3 rows then the db3 row, summed over splits by the
@@ -583,7 +576,7 @@ int fused_edge_conv_backward(const void* g, const void* h, const void* x_src,
                              const void* s_dense, void* dh, void* dx_src,
                              void* dmsg, void* partial, int num_blocks,
                              int blk, int K, int c_in, int c_out,
-                             int num_splits, int is_bf16, void* stream) {
+                             int num_splits, void* stream) {
   if (K < 1 || K > kMaxK || c_in < 1 || c_in > kMaxDim || c_out < 1 ||
       c_out > kMaxDim || blk % kTile != 0 || blk < kTile || num_blocks < 1 ||
       num_splits < 1)
@@ -593,16 +586,9 @@ int fused_edge_conv_backward(const void* g, const void* h, const void* x_src,
   const size_t smem =
       static_cast<size_t>(fused_edge_conv_bwd_smem_bytes(K, c_in, c_out));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? launch_all<__nv_bfloat16>(cb, g, h, x_src, w3, b3, slot_rows,
-                                          row_weight, s_dense, dh, dx_src,
-                                          dmsg, partial, num_blocks, blk, K,
-                                          c_in, c_out, num_splits, smem, s)
-              : launch_all<float>(cb, g, h, x_src, w3, b3, slot_rows,
-                                  row_weight, s_dense, dh, dx_src, dmsg,
-                                  partial, num_blocks, blk, K, c_in, c_out,
-                                  num_splits, smem, s);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_all<float>(
+      cb, g, h, x_src, w3, b3, slot_rows, row_weight, s_dense, dh, dx_src,
+      dmsg, partial, num_blocks, blk, K, c_in, c_out, num_splits, smem, s));
 }
 
 }  // extern "C"

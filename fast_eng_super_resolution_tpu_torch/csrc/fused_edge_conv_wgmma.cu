@@ -1,0 +1,292 @@
+// Fused edge-conditioned conv layer, forward, in bfloat16 on Hopper's tensor
+// cores (wgmma, sm_90a).
+//
+// Replaces the TPU Pallas kernel
+//   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_edge_conv_jit
+// for bfloat16 operands (fused_edge_conv.cu keeps the float32 instance) and
+// computes the same function.  Slots are the receiver-sorted edges, grouped
+// host-side into num_blocks blocks of `blk` slots, block b holding the edges
+// whose receivers lie in rows [64 b, 64 b + 64):
+//
+//   W_e[i, o]  = sum_k h[e, k] w3[k, i*c_out + o] + b3[i*c_out + o]
+//   msg_e[o]   = sum_i x[senders_perm[e], i] W_e[i, o]
+//   out[r, o]  = sum_{e in block(r)} S[r, e] msg_e[o]
+//
+// with S dense ([num_blocks*64, blk] f32) or given by its CompactS generators
+// (S[64 b + r, e] = (slot_rows[e] == r) row_weight[64 b + r], padding -1).
+//
+// Numbers.  h, x and w3 arrive as bfloat16 (the plain version,
+// ops/fused_conv.py:fused_edge_conv_plain, rounds the same three); b3, S and
+// every sum are float32.  The design keeps that contract by factoring:
+//
+//   msg_e = sum_k h[e, k] P_k[e] + x_src[e] @ B3,   P_k = X @ W3_k,
+//
+// X the tile's [64, c_in] gathered x rows and W3_k = w3[k] as [c_in, c_out].
+// The tensor cores see only X and W3_k, values the plain version rounds
+// too, and accumulate in float32; h[e, k] P_k and the b3 term (1/(K+1) of
+// the work, b3 never rounded) run on the CUDA cores in float32.
+//
+// Design.  A block is one warpgroup and owns one part of one receiver
+// block's slot walk (grid (num_blocks, parts); the wrapper's planner,
+// ops/fused_conv.py:conv_parts, picks the parts from the SM count).  Per
+// 64-slot tile it gathers X into shared memory in wgmma's K-major layout
+// (wgmma_tile.cuh), stages h, and walks k: W3_k is the product's MN-major B
+// operand, so w3's rows copy in 16-byte pieces; it is double-buffered, and
+// the next row's loads overlap the running product (across the part's tiles:
+// the last k of a tile stages the next tile's first row).  The scatter is a segmented sum in
+// CompactS form: each slot feeds one row, so a thread owning an output
+// column adds the tile's 64 messages into its rows in slot order (64 c_out
+// adds per tile); the dense form keeps the 64 x 64 S product.  Tiles of
+// padding only are skipped in CompactS form.  Each part writes its own
+// [64, c_out] partial (straight into the output when there is one part);
+// the wrapper sums the partials in a fixed order.  No atomics: two launches
+// on the same inputs give the same bits.
+//
+// Bound.  Per real slot the layer needs 2 (K+1) c_in c_out operations and
+// moves (K + c_in) 2 + 8 bytes: at width 48 about 225 kFLOP against 200 B,
+// far above the card's ridge of about 295 FLOP/B in bf16, so it is bounded
+// by operations on the tensor cores (989 TFLOP/s dense bf16).  What stands in
+// the way here: w3 is read from L2 once per tile (c_in c_out 2 bytes per k),
+// and the h-weighted sum and the scatter run on the CUDA cores.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -o libfused_edge_conv_wgmma.so fused_edge_conv_wgmma.cu
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "wgmma_tile.cuh"
+
+namespace {
+
+using namespace wgmma_tile;
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 64;   // receiver rows per block (rows_blk)
+constexpr int kTile = 64;   // slots per tile
+constexpr int kMaxDim = 64;
+constexpr int kMaxK = 128;
+
+// Row stride of the staged h tile in bf16 elements: at least K and 2 mod 4,
+// so that the 8 rows a warp reads at one k fall in 8 different banks.
+__host__ __device__ inline int h_stride(int K) { return K + (6 - K % 4) % 4; }
+
+// Byte offsets of the shared-memory regions, np = c_out padded to 8.
+struct Layout {
+  int dp, hs;
+  long b, h, b3, m, acc, srow, total;
+  __host__ __device__ Layout(int K, int c_in, int c_out, int np) {
+    dp = round_up(c_in, 16);
+    hs = h_stride(K);
+    b = 2L * kTile * dp;                     // a: X [64][dp]
+    h = b + 2L * 2 * np * dp;                // b: W3_k^T [2][np][dp]
+    b3 = h + 2L * kTile * hs;                // h [64][hs]
+    m = b3 + 4L * c_in * np;                 // b3 [c_in][np] f32
+    acc = m + 4L * kTile * (np + 1);         // messages [64][np+1] f32
+    srow = acc + 4L * kRows * c_out;         // part sums [64][c_out] f32
+    total = srow + 4L * kTile;               // slot_rows of the tile
+  }
+};
+
+template <int NP>
+__global__ void __launch_bounds__(kWarpgroup)
+conv_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
+               const int* __restrict__ senders_perm,
+               const bf16* __restrict__ w3, const float* __restrict__ b3,
+               const int* __restrict__ slot_rows,
+               const float* __restrict__ row_weight,
+               const float* __restrict__ s_dense, float* __restrict__ out,
+               int blk, int K, int c_in, int c_out, int n_nodes) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L(K, c_in, c_out, NP);
+  const int dp = L.dp, hs = L.hs;
+  bf16* a_sm = reinterpret_cast<bf16*>(smem);
+  bf16* b_sm = reinterpret_cast<bf16*>(smem + L.b);
+  bf16* h_sm = reinterpret_cast<bf16*>(smem + L.h);
+  float* b3_sm = reinterpret_cast<float*>(smem + L.b3);
+  float* m_sm = reinterpret_cast<float*>(smem + L.m);
+  float* acc_sm = reinterpret_cast<float*>(smem + L.acc);
+  int* srow = reinterpret_cast<int*>(smem + L.srow);
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x, part = blockIdx.y, parts = gridDim.y;
+  const int tiles = blk / kTile;
+  const int t_lo = part * tiles / parts, t_hi = (part + 1) * tiles / parts;
+  const long row_base = static_cast<long>(b) * kRows;
+  const bool compact = s_dense == nullptr;
+  const bf16 zero = __float2bfloat16(0.f);
+
+  // padding of both W3 buffers stays zero: staging writes real entries only
+  for (int e = tid; e < 2 * NP * dp; e += kWarpgroup) b_sm[e] = zero;
+  for (int e = tid; e < c_in * NP; e += kWarpgroup) {
+    const int i = e / NP, o = e - i * NP;
+    b3_sm[e] = o < c_out ? b3[i * c_out + o] : 0.f;
+  }
+  for (int e = tid; e < kRows * c_out; e += kWarpgroup) acc_sm[e] = 0.f;
+  __syncthreads();  // the zeros land before the first row
+
+  // W3_k^T ([c_out, c_in], MN-major: w3's rows copy in 16-byte pieces)
+  // streams through the two buffers in one sequence of steps over the
+  // part's tiles, k = 0 .. K-1 per tile: step n reads buffer n % 2 while
+  // buffer (n + 1) % 2 takes the next step's row and the registers load the
+  // one after.
+  const int bsize = NP * dp;
+  W3Row<true> wr(w3, c_in, c_out, dp);
+  wr.load(0);
+  wr.store(b_sm, 0);
+  wr.load(1 % K);
+  int step = 0;
+
+  const int r0 = acc_row(0);
+  for (int t = t_lo; t < t_hi; ++t) {
+    const long tile = static_cast<long>(b) * blk + static_cast<long>(t) * kTile;
+    if (compact) {
+      int real = 0;
+      if (tid < kTile) {
+        srow[tid] = slot_rows[tile + tid];
+        real = srow[tid] >= 0;
+      }
+      if (!__syncthreads_or(real)) continue;  // padding only
+    }
+
+    // ---- stage X (gathered, channel i = tid % 64 of slots tid / 64 + 2 m)
+    // and h; W3_0 is in buffer step % 2 already ----
+#pragma unroll 4
+    for (int s = tid >> 6, i = tid & 63; s < kTile && i < dp; s += 2) {
+      bf16 v = zero;
+      if (i < c_in) {
+        const int src = senders_perm[tile + s];
+        if (src >= 0 && src < n_nodes) v = x[static_cast<long>(src) * c_in + i];
+      }
+      a_sm[kmajor(s, i, dp)] = v;
+    }
+#pragma unroll 4
+    for (int s = tid >> 6; s < kTile; s += 2)
+      for (int k = tid & 63; k < K; k += 64)
+        h_sm[s * hs + k] = h[(tile + s) * K + k];
+    fence_async_smem();
+    __syncthreads();
+
+    // ---- msg = X @ B3 (CUDA cores), then += h[:, k] P_k over k ----
+    float msg[NP / 2];
+#pragma unroll
+    for (int j = 0; j < NP / 2; ++j) msg[j] = 0.f;
+    for (int i = 0; i < c_in; ++i) {
+      const float xa = __bfloat162float(a_sm[kmajor(r0, i, dp)]);
+      const float xb = __bfloat162float(a_sm[kmajor(r0 + 8, i, dp)]);
+#pragma unroll
+      for (int j = 0; j < NP / 2; ++j)
+        msg[j] += ((j >> 1) & 1 ? xb : xa) * b3_sm[i * NP + acc_col(j)];
+    }
+    for (int k = 0; k < K; ++k, ++step) {
+      float p[NP / 2];
+      product<NP, 1>(p, a_sm, b_sm + (step & 1) * bsize, dp);
+      // the next step's row (k + 1, or the next tile's 0), then the one after
+      wr.store(b_sm + ((step + 1) & 1) * bsize, (k + 1) % K);
+      wr.load((k + 2) % K);
+      wait_all();
+      fence_operand(p);
+      const float ha = __bfloat162float(h_sm[r0 * hs + k]);
+      const float hb = __bfloat162float(h_sm[(r0 + 8) * hs + k]);
+#pragma unroll
+      for (int j = 0; j < NP / 2; ++j) msg[j] += ((j >> 1) & 1 ? hb : ha) * p[j];
+      fence_async_smem();
+      __syncthreads();
+    }
+
+    // ---- scatter the tile's messages into the part's row sums ----
+#pragma unroll
+    for (int j = 0; j < NP / 2; ++j)
+      m_sm[acc_row(j) * (NP + 1) + acc_col(j)] = msg[j];
+    __syncthreads();
+    if (compact) {
+      for (int o = tid; o < c_out; o += kWarpgroup)
+        for (int s = 0; s < kTile; ++s) {
+          const int r = srow[s];
+          if (r >= 0) acc_sm[r * c_out + o] += m_sm[s * (NP + 1) + o];
+        }
+    } else {
+      const float* s_tile = s_dense + row_base * blk + static_cast<long>(t) * kTile;
+      for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
+        const int r = e / c_out, o = e - r * c_out;
+        float v = 0.f;
+        for (int s = 0; s < kTile; ++s)
+          v += s_tile[static_cast<long>(r) * blk + s] * m_sm[s * (NP + 1) + o];
+        acc_sm[e] += v;
+      }
+    }
+    __syncthreads();  // the next tile overwrites srow and the operands
+  }
+
+  // ---- the part's partial (the output itself when parts == 1) ----
+  float* dst = out + (static_cast<long>(part) * gridDim.x * kRows + row_base) * c_out;
+  for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
+    const float v = acc_sm[e];
+    dst[e] = compact ? row_weight[row_base + e / c_out] * v : v;
+  }
+}
+
+template <int NP>
+cudaError_t launch(const void* h, const void* x, const void* senders_perm,
+                   const void* w3, const void* b3, const void* slot_rows,
+                   const void* row_weight, const void* s_dense, void* out,
+                   int num_blocks, int blk, int K, int c_in, int c_out,
+                   int n_nodes, int parts, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(Layout(K, c_in, c_out, NP).total);
+  auto kernel = conv_fwd_wgmma<NP>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(num_blocks, parts), kWarpgroup, smem, stream>>>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(x),
+      static_cast<const int*>(senders_perm), static_cast<const bf16*>(w3),
+      static_cast<const float*>(b3), static_cast<const int*>(slot_rows),
+      static_cast<const float*>(row_weight),
+      static_cast<const float*>(s_dense), static_cast<float*>(out), blk, K,
+      c_in, c_out, n_nodes);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of dynamic shared memory one block needs.
+long fused_edge_conv_wgmma_smem_bytes(int K, int c_in, int c_out) {
+  return Layout(K, c_in, c_out, round_up(c_out, 8)).total;
+}
+
+// Blocks one SM holds at once at these widths (-1 if they are not taken).
+int fused_edge_conv_wgmma_blocks_per_sm(int K, int c_in, int c_out) {
+  const int np = round_up(c_out, 8);
+  return with_width(np, [&](auto n) {
+    return blocks_per_sm(conv_fwd_wgmma<decltype(n)::value>,
+                         static_cast<size_t>(Layout(K, c_in, c_out, np).total));
+  }, -1);
+}
+
+// Launches the bfloat16 forward on `stream`.  Pointers are device pointers;
+// h, x and w3 bfloat16; b3, row_weight, s_dense and out float32;
+// senders_perm and slot_rows int32.  Exactly one of s_dense and (slot_rows,
+// row_weight) is non-null.  out is [num_blocks*64, c_out] when parts == 1,
+// else the partials [parts, num_blocks*64, c_out].  Returns the cudaError_t
+// of the launch (0 on success).
+int fused_edge_conv_wgmma_forward(const void* h, const void* x,
+                                  const void* senders_perm, const void* w3,
+                                  const void* b3, const void* slot_rows,
+                                  const void* row_weight, const void* s_dense,
+                                  void* out, int num_blocks, int blk, int K,
+                                  int c_in, int c_out, int n_nodes, int parts,
+                                  void* stream) {
+  if (K < 1 || K > kMaxK || c_in < 1 || c_in > kMaxDim || c_out < 1 ||
+      c_out > kMaxDim || blk % kTile != 0 || blk < kTile || num_blocks < 1 ||
+      parts < 1 || parts > blk / kTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_width(round_up(c_out, 8), [&](auto n) {
+    return launch<decltype(n)::value>(h, x, senders_perm, w3, b3, slot_rows,
+                                      row_weight, s_dense, out, num_blocks, blk,
+                                      K, c_in, c_out, n_nodes, parts, s);
+  }, cudaErrorInvalidValue));
+}
+
+}  // extern "C"

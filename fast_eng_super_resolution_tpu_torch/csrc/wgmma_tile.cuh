@@ -1,0 +1,425 @@
+// Hopper tensor-core (wgmma) building blocks shared by the bfloat16
+// instances of B1 (fused_edge_conv_wgmma.cu) and B2
+// (fused_edge_conv_bwd_wgmma.cu).
+//
+// Operand layout.  Both operands of every product sit in shared memory,
+// unswizzled.  An operand of R rows (M or N) and depth D (the contraction
+// index, a multiple of 16) bf16 values is a grid of 8 x 8 core matrices of
+// 128 contiguous bytes; K-major (depth contiguous), element (r, d) is at
+//
+//   kmajor(r, d, D) = (r / 8) * 8 D + (d / 8) * 64 + (r % 8) * 8 + d % 8
+//
+// elements, MN-major (r contiguous; the wgmma's transpose flag) at
+// mnmajor(r, d, D), the same with r % 8 and d % 8 swapped.  Either way core
+// matrices adjacent in depth are 128 B apart (the descriptor's leading byte
+// offset) and groups of 8 rows 16 D bytes apart (its stride byte offset),
+// and a k16 step advances the start address by 256 B.  The kernels write
+// these layouts with plain stores, so they fence the generic proxy against
+// the async one (fence_async_smem) before the barrier that precedes the
+// wgmma.
+//
+// Accumulator.  An m64nNk16 product leaves N/2 float32 values in each of the
+// warpgroup's 128 threads; value j of thread t holds row acc_row(j) and
+// column acc_col(j) of the 64 x N tile: warp w = t / 32 owns rows
+// 16 w .. 16 w + 15, lane l rows l / 4 and l / 4 + 8, columns
+// 8 (j / 4) + 2 (l % 4) + j % 2.
+//
+// Sequence: fence() before the first wgmma of a group (the accumulators were
+// last written by ordinary instructions), the products, commit(), wait_all(),
+// then fence_operand() on the accumulators before reading them.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+namespace wgmma_tile {
+
+constexpr int kWarpgroup = 128;
+
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// Offset in elements of (r, d) in a K-major unswizzled operand of depth
+// `depth` (a multiple of 16).
+__device__ __forceinline__ int kmajor(int r, int d, int depth) {
+  return (r >> 3) * (depth << 3) + (d >> 3) * 64 + (r & 7) * 8 + (d & 7);
+}
+// The same for an MN-major operand: its core matrices hold 8 depth rows of
+// 8 contiguous M or N values, so 8 consecutive r of one d are 16 contiguous
+// bytes (a row of the source matrix copies in 16-byte pieces).
+__device__ __forceinline__ int mnmajor(int r, int d, int depth) {
+  return (r >> 3) * (depth << 3) + (d >> 3) * 64 + (d & 7) * 8 + (r & 7);
+}
+
+// The shared-memory matrix descriptor of a K-major unswizzled operand of
+// depth `depth` starting at `smem` (16-byte aligned): address >> 4 in bits
+// 0-13, leading byte offset 128 B in bits 16-29, stride byte offset 16 depth
+// bytes in bits 32-45, base offset 0, layout type 0 (no swizzle).  Add 16 per
+// k16 step.
+__device__ __forceinline__ uint64_t desc(const void* smem, int depth) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>((16 * depth) >> 4) << 32);
+}
+// An MN-major operand's descriptor (mnmajor): unswizzled, the leading byte
+// offset is again the stride between core matrices along the depth and the
+// stride byte offset the one between groups of 8 M or N, so the fields are
+// the same.
+__device__ __forceinline__ uint64_t desc_mn(const void* smem, int depth) {
+  return desc(smem, depth);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits for every committed group of this warpgroup.
+__device__ __forceinline__ void wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Makes this thread's ordinary shared-memory stores visible to wgmma.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous product.
+template <int R>
+__device__ __forceinline__ void fence_operand(float (&d)[R]) {
+#pragma unroll
+  for (int j = 0; j < R; ++j) asm volatile("" : "+f"(d[j])::"memory");
+}
+
+__device__ __forceinline__ int acc_row(int j) {
+  const int t = threadIdx.x % kWarpgroup;
+  return 16 * (t / 32) + (t % 32) / 4 + 8 * ((j >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int j) {
+  return 8 * (j >> 2) + 2 * (threadIdx.x % 4) + (j & 1);
+}
+
+// D[64, N] (+)= A[64, 16] B[16, N] for one k16 step, A and B given by their
+// descriptors; scale_d = 0 overwrites D.  N = 8 .. 64 in steps of 8, and 128.
+// TA / TB = 1: A / B is MN-major (M or N contiguous, mnmajor) instead of
+// K-major (kmajor).
+template <int N, int TA = 0, int TB = 0>
+struct Mma;
+
+template <int TA, int TB>
+struct Mma<8, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[4], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<16, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<24, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[12], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11"
+        "}, %12, %13, p, 1, 1, %15, %16;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<32, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<40, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[20], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19"
+        "}, %20, %21, p, 1, 1, %23, %24;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<48, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[24], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<56, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[28], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27"
+        "}, %28, %29, p, 1, 1, %31, %32;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<64, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<128, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+
+// Zeros the accumulators and issues D = A B over the depth of the operands
+// at a (K-major) and b (K-major, or MN-major if TB) as one committed group;
+// the caller may work on, then wait_all() and fence_operand(d).
+template <int N, int TB = 0>
+__device__ __forceinline__ void product(float (&d)[N / 2], const void* a,
+                                        const void* b, int depth) {
+  const uint64_t da = desc(a, depth);
+  const uint64_t db = TB ? desc_mn(b, depth) : desc(b, depth);
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) d[j] = 0.f;
+  fence_operand(d);
+  fence();
+  for (int s = 0; s < depth / 16; ++s)
+    Mma<N, 0, TB>::run(d, da + 16 * s, db + 16 * s, 1);
+  commit();
+}
+
+// One row k of w3, a [c_in, c_out] matrix in the model's layout (c_in,
+// c_out <= 64), on its way into an operand of depth `depth` in shared
+// memory: MN-major as [c_out rows, c_in deep] (kMn, B1's W3_k^T) or K-major
+// as [c_in rows, c_out deep] (B2's W3_k).  Either way a piece of 8
+// consecutive o of one i is 16 contiguous bytes at both ends.  When c_out
+// is a multiple of 8 and w3 16-byte aligned, thread t owns the pieces
+// t + 128 m (at most 4) and carries them in registers from load(k) to
+// store(k), so that their loads overlap a running product.  Otherwise
+// store(k) copies the row element by element and load does nothing.
+// Padding is left as it is (zero).
+template <bool kMn>
+struct W3Row {
+  const __nv_bfloat16* w3;
+  int c_in, c_out, depth;
+  bool vec;
+  int at[4];  // element offset of each owned piece, -1 for none
+  uint4 v[4];
+
+  __device__ __forceinline__ W3Row(const __nv_bfloat16* w3_, int c_in_,
+                                   int c_out_, int depth_)
+      : w3(w3_), c_in(c_in_), c_out(c_out_), depth(depth_) {
+    vec = c_out % 8 == 0 && reinterpret_cast<uintptr_t>(w3) % 16 == 0;
+    const int per = c_out / 8;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int q = threadIdx.x + kWarpgroup * m;
+      at[m] = -1;
+      if (vec && q < c_in * per) {
+        const int i = q / per, o = 8 * (q - i * per);
+        at[m] = kMn ? mnmajor(o, i, depth) : kmajor(i, o, depth);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void load(int k) {
+    if (!vec) return;
+    const uint4* src = reinterpret_cast<const uint4*>(
+        w3 + static_cast<long>(k) * c_in * c_out);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (at[m] >= 0) v[m] = src[threadIdx.x + kWarpgroup * m];
+  }
+
+  // Row k into `buf`; on the vector path the registers hold row k (load(k)
+  // came last).
+  __device__ __forceinline__ void store(__nv_bfloat16* buf, int k) const {
+    if (vec) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (at[m] >= 0) *reinterpret_cast<uint4*>(buf + at[m]) = v[m];
+      return;
+    }
+    const __nv_bfloat16* src = w3 + static_cast<long>(k) * c_in * c_out;
+    for (int j = threadIdx.x; j < c_in * c_out; j += kWarpgroup) {
+      const int i = j / c_out, o = j - i * c_out;
+      buf[kMn ? mnmajor(o, i, depth) : kmajor(i, o, depth)] = src[j];
+    }
+  }
+};
+
+// f(std::integral_constant<int, n>()) for a width n of 8, 16, .., 64 (a
+// kernel's N as a template argument); `otherwise` for any other n.
+template <typename F, typename R>
+R with_width(int n, F&& f, R otherwise) {
+  switch (n) {
+    case 8: return f(std::integral_constant<int, 8>());
+    case 16: return f(std::integral_constant<int, 16>());
+    case 24: return f(std::integral_constant<int, 24>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 40: return f(std::integral_constant<int, 40>());
+    case 48: return f(std::integral_constant<int, 48>());
+    case 56: return f(std::integral_constant<int, 56>());
+    case 64: return f(std::integral_constant<int, 64>());
+    default: return otherwise;
+  }
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory and asks for the
+// largest shared-memory carveout, so that as many blocks share an SM as its
+// shared memory allows.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// Blocks of one warpgroup and `smem` bytes of dynamic shared memory that
+// one SM holds at once (-1 if the runtime refuses the query).
+template <typename Kernel>
+int blocks_per_sm(Kernel* kernel, size_t smem) {
+  int n = -1;
+  if (allow_smem(kernel, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kWarpgroup,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+}  // namespace wgmma_tile

@@ -216,15 +216,18 @@ def prepare_fused_train(senders, receivers, edge_attr, n_nodes,
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-# library -> its source: B1 (forward), B2 (backward), their rank-r
+# library -> its source: B1 (forward) and B2 (backward), each as a float32
+# FMA instance and a bfloat16 tensor-core (wgmma) instance, their rank-r
 # counterparts B3 and B4, and B5, the per-edge messages of ops/pallas_mp.py
 _SOURCES = {"fused_edge_conv": "fused_edge_conv.cu",
+            "fused_edge_conv_wgmma": "fused_edge_conv_wgmma.cu",
             "fused_edge_conv_bwd": "fused_edge_conv_bwd.cu",
+            "fused_edge_conv_bwd_wgmma": "fused_edge_conv_bwd_wgmma.cu",
             "fused_edge_conv_lowrank": "fused_edge_conv_lowrank.cu",
             "fused_edge_conv_lowrank_bwd": "fused_edge_conv_lowrank_bwd.cu",
             "fused_edge_messages": "fused_edge_messages.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _libs: dict = {}
 _lib_lock = threading.Lock()
 
@@ -241,12 +244,20 @@ def _lib_path(name: str) -> str:
     return os.path.join(_BUILD_DIR, f"lib{name}.so")
 
 
+def ptxas_report(name: str) -> str:
+    """What ptxas said of library ``name``'s kernels when it was last built
+    (registers, shared memory and spills per kernel)."""
+    with open(os.path.join(_BUILD_DIR, f"lib{name}.ptxas.txt")) as f:
+        return f.read()
+
+
 def build_kernel(force: bool = False) -> list[str]:
     """Compiles each ``csrc/*.cu`` source into its own library under
     ``_build/``, one nvcc per source, all started together; returns the
     library paths.  A library is rebuilt when it is missing or older than
     any file under ``csrc/``.  Each compile goes to a temporary file renamed
-    into place, so concurrent builds never load a half-written library.
+    into place, so concurrent builds never load a half-written library;
+    nvcc's report (``-Xptxas -v``) is kept beside it (``ptxas_report``).
     Raises on a failed build."""
     newest = max(os.path.getmtime(os.path.join(_SRC_DIR, f))
                  for f in os.listdir(_SRC_DIR))
@@ -270,6 +281,9 @@ def build_kernel(force: bool = False) -> list[str]:
             if proc.returncode != 0:
                 failed.append(f"nvcc failed building {src}:\n{err}")
             else:
+                with open(os.path.join(_BUILD_DIR, f"lib{name}.ptxas.txt"),
+                          "w") as f:
+                    f.write(err)
                 os.replace(tmp, _lib_path(name))
         if failed:
             raise RuntimeError("\n".join(failed))
@@ -288,8 +302,11 @@ def build_kernel(force: bool = False) -> list[str]:
 # arguments), then the size query's int arguments; every launcher takes the
 # stream as its last argument and returns the cudaError_t
 _BINDINGS = {
-    "fused_edge_conv": (("fused_edge_conv_forward", 9, 7), 3),
-    "fused_edge_conv_bwd": (("fused_edge_conv_backward", 12, 7), 3),
+    "fused_edge_conv": (("fused_edge_conv_forward", 9, 6), 3),
+    "fused_edge_conv_wgmma": (("fused_edge_conv_wgmma_forward", 9, 7), 3),
+    "fused_edge_conv_bwd": (("fused_edge_conv_backward", 12, 6), 3),
+    "fused_edge_conv_bwd_wgmma": (("fused_edge_conv_bwd_wgmma_backward", 12,
+                                   6), 3),
     "fused_edge_conv_lowrank": (("fused_edge_conv_lowrank_forward", 9, 8), 4),
     "fused_edge_conv_lowrank_bwd": (("fused_edge_conv_lowrank_backward", 14, 8),
                                     4),
@@ -406,13 +423,68 @@ def _s_pointers(s, slots: int, nb: int, rows_blk: int, blk: int) -> tuple:
     return None, None, s.data_ptr()
 
 
+def design(dt: torch.dtype) -> str:
+    """The design B1 and B2 launch for GEMM type ``dt``: 'wgmma' (bfloat16,
+    csrc/fused_edge_conv_wgmma.cu and csrc/fused_edge_conv_bwd_wgmma.cu, on
+    the tensor cores) or 'fma' (float32, csrc/fused_edge_conv.cu and
+    csrc/fused_edge_conv_bwd.cu, float32 FMAs on the CUDA cores)."""
+    return "wgmma" if dt == torch.bfloat16 else "fma"
+
+
+# B1's tensor-core blocks resident per SM (shared memory allows 3-4 at
+# width 48) and the waves of them a launch should fill
+_FWD_BLOCKS_PER_SM = 3
+_FWD_WAVES = 2
+
+
+def conv_parts(num_blocks: int, tiles_per_block: int, sms: int) -> int:
+    """Parts each receiver block's slot walk is split into for the bfloat16
+    B1: enough blocks for ``_FWD_WAVES`` waves of ``_FWD_BLOCKS_PER_SM``
+    per SM, at most one part per 64-slot tile, at least one part."""
+    target = sms * _FWD_BLOCKS_PER_SM * _FWD_WAVES
+    return max(1, min(tiles_per_block, -(-target // num_blocks)))
+
+
+def part_bounds(tiles_per_block: int, parts: int) -> list:
+    """[(first tile, end tile)] of each part, in order, as the kernel cuts
+    a receiver block's tiles: part p walks tiles p*T//P .. (p+1)*T//P."""
+    return [(p * tiles_per_block // parts, (p + 1) * tiles_per_block // parts)
+            for p in range(parts)]
+
+
+def weight_tiles(k: int, c_in: int, c_out: int) -> tuple:
+    """(column tiles, row tiles) of the bfloat16 B2 weights kernel's output
+    [K, c_in*c_out]: 128 columns by 64 rows of K each."""
+    return -(-c_in * c_out // 128), -(-k // 64)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def occupancy(k: int, c_in: int, c_out: int) -> dict:
+    """Thread blocks of each bfloat16 tensor-core kernel that one SM of the
+    current card holds at once at these widths (the CUDA runtime's
+    occupancy query, with each kernel's shared memory)."""
+    fwd = _load_kernel("fused_edge_conv_wgmma")
+    bwd = _load_kernel("fused_edge_conv_bwd_wgmma")
+    return {"fwd": fwd.fused_edge_conv_wgmma_blocks_per_sm(k, c_in, c_out),
+            "bwd_rows": bwd.fused_edge_conv_bwd_wgmma_blocks_per_sm(
+                k, c_in, c_out, 0),
+            "bwd_weights": bwd.fused_edge_conv_bwd_wgmma_blocks_per_sm(
+                k, c_in, c_out, 1)}
+
+
 def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
                          c_in: int, c_out: int, rows_blk: int,
                          blk: int) -> torch.Tensor:
-    """Launches the CUDA kernel on the current stream.  h_blocked, x and w3
-    share one dtype (float32 or bfloat16, the GEMM input type); b3 and S are
+    """Launches the CUDA kernel on the current stream: the tensor-core
+    design for bfloat16, the FMA design for float32 (``design``).
+    h_blocked, x and w3 share one dtype (the GEMM input type); b3 and S are
     float32, index arrays int32.  Checks every operand and raises on what the
-    kernel does not take; raises if the launch fails."""
+    kernel does not take; raises if the launch fails.  The bfloat16 kernel
+    splits each receiver block's slot walk into ``conv_parts`` parts whose
+    partial sums are added here in a fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
     _check_geometry(dt, slots, rows_blk, blk, k_max=128, K=k, c_in=c_in,
@@ -430,22 +502,29 @@ def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
                     ("b3", b3)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
-    lib = _load_kernel()
-    out = torch.empty((nb * rows_blk, c_out), dtype=torch.float32, device=dev)
+    wgmma = design(dt) == "wgmma"
+    name = "fused_edge_conv_wgmma" if wgmma else "fused_edge_conv"
+    lib = _load_kernel(name)
+    parts = conv_parts(nb, blk // 64, _sms(dev)) if wgmma else 1
+    out = torch.empty((parts, nb * rows_blk, c_out), dtype=torch.float32,
+                      device=dev)
+    args = (h_blocked.data_ptr(), x.data_ptr(), senders_perm.data_ptr(),
+            w3.data_ptr(), b3.data_ptr(), *ptrs, out.data_ptr(), nb, blk, k,
+            c_in, c_out, n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_edge_conv_forward(
-            h_blocked.data_ptr(), x.data_ptr(), senders_perm.data_ptr(),
-            w3.data_ptr(), b3.data_ptr(), *ptrs, out.data_ptr(), nb, blk, k,
-            c_in, c_out, n, int(dt == torch.bfloat16), stream)
+        if wgmma:
+            err = lib.fused_edge_conv_wgmma_forward(*args, parts, stream)
+        else:
+            err = lib.fused_edge_conv_forward(*args, stream)
     if err != 0:
-        smem = lib.fused_edge_conv_smem_bytes(k, c_in, c_out)
+        smem = getattr(lib, f"{name}_smem_bytes")(k, c_in, c_out)
         raise RuntimeError(
-            f"fused_edge_conv kernel launch failed: cudaError {err} "
+            f"{name} kernel launch failed: cudaError {err} "
             f"(K={k}, c_in={c_in}, c_out={c_out}: {smem} B of shared memory "
             "per block)")
     fused_edge_conv.launches += 1
-    return out
+    return out[0] if parts == 1 else out.sum(0)
 
 
 def fused_edge_conv(h_blocked, x, senders_perm, w3, b3, s, *,
@@ -510,23 +589,27 @@ def fused_edge_conv_bwd_plain(g, h_blocked, x_src, w3, b3, s, *,
     return dh, dx_src, dw3, db3
 
 
-def _weight_splits(slots: int, tiles: int, device) -> int:
+def weight_splits(slots: int, tiles: int, sms: int) -> int:
     """Slot splits of a backward's weights kernel: about six thread blocks
     per SM over its ``tiles`` output tiles, at least one 64-slot chunk per
     split."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(slots // 64, -(-6 * sms // tiles)))
+
+
+def _weight_splits(slots: int, tiles: int, device) -> int:
+    return weight_splits(slots, tiles, _sms(device))
 
 
 def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
                              c_out: int, rows_blk: int, blk: int):
-    """Launches the backward kernel (csrc/fused_edge_conv_bwd.cu) on the
-    current stream.  h_blocked, x_src and w3 share one dtype (float32 or
-    bfloat16, the GEMM input type); g, b3 and S are float32, slot_rows
-    int32.  Checks every operand and raises on what the kernel does not
-    take; raises if the launch fails.  Returns (dh, dx_src, dw3, db3),
-    float32; dw3/db3 are the kernel's per-split partials summed in a fixed
-    order."""
+    """Launches the backward kernels on the current stream: the tensor-core
+    design (csrc/fused_edge_conv_bwd_wgmma.cu) for bfloat16, the FMA design
+    (csrc/fused_edge_conv_bwd.cu) for float32 (``design``).  h_blocked,
+    x_src and w3 share one dtype (the GEMM input type); g, b3 and S are
+    float32, slot_rows int32.  Checks every operand and raises on what the
+    kernel does not take; raises if the launch fails.  Returns (dh, dx_src,
+    dw3, db3), float32; dw3/db3 are the kernel's per-split partials summed in
+    a fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
     _check_geometry(dt, slots, rows_blk, blk, k_max=128, K=k, c_in=c_in,
@@ -542,25 +625,31 @@ def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
     for name, t in (("g", g), ("x_src", x_src), ("w3", w3), ("b3", b3)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
-    lib = _load_kernel("fused_edge_conv_bwd")
+    wgmma = design(dt) == "wgmma"
+    name = "fused_edge_conv_bwd_wgmma" if wgmma else "fused_edge_conv_bwd"
+    lib = _load_kernel(name)
     f32 = dict(dtype=torch.float32, device=dev)
     dh = torch.empty((slots, k), **f32)
     dx_src = torch.empty((slots, c_in), **f32)
-    dmsg = torch.empty((slots, c_out), **f32)  # scratch between the launches
-    # 4-channel tiles, times the K parts of at most 64 rows
-    splits = _weight_splits(slots, -(-c_in // 4) * -(-k // 64), dev)
+    # scratch between the launches: dmsg, already rounded to the GEMM type
+    dmsg = torch.empty((slots, c_out), dtype=dt, device=dev)
+    if wgmma:
+        col_tiles, row_tiles = weight_tiles(k, c_in, c_out)
+        splits = _weight_splits(slots, col_tiles * row_tiles, dev)
+    else:  # 4-channel tiles, times the K parts of at most 64 rows
+        splits = _weight_splits(slots, -(-c_in // 4) * -(-k // 64), dev)
     partial = torch.empty((splits, k + 1, c2), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_edge_conv_backward(
+        err = getattr(lib, _BINDINGS[name][0][0])(
             g.data_ptr(), h_blocked.data_ptr(), x_src.data_ptr(),
             w3.data_ptr(), b3.data_ptr(), *ptrs, dh.data_ptr(),
             dx_src.data_ptr(), dmsg.data_ptr(), partial.data_ptr(), nb, blk,
-            k, c_in, c_out, splits, int(dt == torch.bfloat16), stream)
+            k, c_in, c_out, splits, stream)
     if err != 0:
-        smem = lib.fused_edge_conv_bwd_smem_bytes(k, c_in, c_out)
+        smem = getattr(lib, f"{name}_smem_bytes")(k, c_in, c_out)
         raise RuntimeError(
-            f"fused_edge_conv_bwd kernel launch failed: cudaError {err} "
+            f"{name} kernel launch failed: cudaError {err} "
             f"(K={k}, c_in={c_in}, c_out={c_out}: {smem} B of shared memory "
             "per block)")
     fused_edge_conv_bwd.launches += 1

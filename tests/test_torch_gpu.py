@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (B1 forward, B2 backward, their rank-r
-counterparts B3 and B4, and B5, the per-edge messages) against their plain
-PyTorch versions, on the card.
+"""The port's CUDA kernels (B1 forward, B2 backward, each in its float32 FMA
+and its bfloat16 tensor-core design, their rank-r counterparts B3 and B4,
+and B5, the per-edge messages) against their plain PyTorch versions, on the
+card.
 
 Every test here is marked ``gpu`` and skips on a machine without CUDA.  The
 file imports neither jax nor the test conftest's JAX setup, so it runs where
@@ -220,6 +221,123 @@ def test_k_limits_of_b1_and_b2(cuda):
         tfc.fused_edge_conv_bwd_cuda(
             t(_g(blocks, 8, 17)), t(h), t(x[blocks.senders_perm]), t(w3),
             t(b3), blocks.compact_s.to("cuda"), **kw)
+
+
+# The bfloat16 B1 and B2 run on the tensor cores (csrc/*_wgmma.cu); the
+# float32 instances keep the FMA design.  Widths and K around wgmma's
+# granularity (N a multiple of 8, depth 16) and its K range.
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("k", [1, 17, 48, 100, 128])
+@pytest.mark.parametrize("c", [5, 16, 48, 64])
+def test_wgmma_kernels_match_plain(cuda, c, k, compact):
+    assert tfc.design(torch.bfloat16) == "wgmma"
+    assert tfc.design(torch.float32) == "fma"
+    blocks, h, x, w3, b3 = _operands(c, k=k, seed=10 * c + k)
+    got = _layer(blocks, h, x, w3, b3, c, "bfloat16", compact, "cuda")
+    args = (blocks, _g(blocks, c, k + 1), h, x[blocks.senders_perm], w3, b3,
+            c, "bfloat16", compact)
+    got_bwd = _bwd(*args, "cuda")
+    torch.cuda.synchronize()
+    ref = _layer(blocks, h, x, w3, b3, c, "bfloat16", compact, "cpu")
+    err = (got.cpu() - ref).abs().max().item() / ref.abs().max().item()
+    assert err < TOL, err
+    for name, a, b in zip(("dh", "dx_src", "dw3", "db3"), got_bwd,
+                          _bwd(*args, "cpu")):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        err = (a.cpu() - b).abs().max().item() / b.abs().max().item()
+        assert err < BWD_TOL, (name, err)
+
+
+def _skewed_operands(c, k, seed, n):
+    """A graph whose first receiver block takes most edges, so that blk is
+    large and the other blocks hold tiles of padding only (and one receiver
+    block, rows 64-127, has no edge at all)."""
+    rng = np.random.default_rng(seed)
+    recv = np.concatenate([rng.integers(0, 64, 900),
+                           rng.integers(128, n, 200)]).astype(np.int32)
+    recv.sort()
+    send = rng.integers(0, n, recv.size).astype(np.int32)
+    blocks = tfc.build_scatter_blocks(recv, send, n, quantum=64)
+    slots = len(blocks.senders_perm)
+    h = np.maximum(rng.normal(size=(slots, k)), 0).astype(np.float32)
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    w3 = (rng.normal(size=(k, c * c)) * 0.2).astype(np.float32)
+    b3 = (rng.normal(size=(c * c,)) * 0.1).astype(np.float32)
+    return blocks, h, x, w3, b3
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("n", [300, 50])
+def test_wgmma_kernels_padding_tiles_and_one_block(cuda, n, compact):
+    """Tiles of padding only (n = 300) and a graph of one receiver block
+    (n = 50: every part is one tile when the card has more SMs than the
+    block has tiles) against the plain versions."""
+    c, k = 24, 20
+    if n == 50:
+        blocks, h, x, w3, b3 = _operands(c, k=k, seed=21, n=50, e=700)
+        assert blocks.num_blocks == 1
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        tiles = blocks.blk // 64
+        assert tfc.conv_parts(1, tiles, sms) == tiles
+    else:
+        blocks, h, x, w3, b3 = _skewed_operands(c, k, seed=22, n=n)
+        pad_tiles = (blocks.compact_s.slot_rows.reshape(-1, 64) < 0).all(1)
+        assert pad_tiles.sum() >= blocks.blk // 64
+    got = _layer(blocks, h, x, w3, b3, c, "bfloat16", compact, "cuda")
+    args = (blocks, _g(blocks, c, 23), h, x[blocks.senders_perm], w3, b3, c,
+            "bfloat16", compact)
+    got_bwd = _bwd(*args, "cuda")
+    torch.cuda.synchronize()
+    ref = _layer(blocks, h, x, w3, b3, c, "bfloat16", compact, "cpu")
+    err = (got.cpu() - ref).abs().max().item() / ref.abs().max().item()
+    assert err < TOL, err
+    for name, a, b in zip(("dh", "dx_src", "dw3", "db3"), got_bwd,
+                          _bwd(*args, "cpu")):
+        err = (a.cpu() - b).abs().max().item() / b.abs().max().item()
+        assert err < BWD_TOL, (name, err)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_wgmma_kernels_bit_identical(cuda, compact):
+    """No atomics: two launches on the same inputs give the same bits."""
+    c, k = 48, 128
+    blocks, h, x, w3, b3 = _operands(c, k=k, seed=24)
+    args = (blocks, _g(blocks, c, 25), h, x[blocks.senders_perm], w3, b3, c,
+            "bfloat16", compact)
+    runs = [(_layer(blocks, h, x, w3, b3, c, "bfloat16", compact, "cuda"),
+             *_bwd(*args, "cuda")) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_fused_edge_conv_bf16_grads_on_card_match_cpu(cuda):
+    """FusedEdgeConv in bfloat16 (the tensor-core B1 and B2) on the card
+    against the same layer's plain versions on the CPU: 1e-5 of each
+    gradient's max."""
+    c, k = 48, 48
+    blocks, h, x, w3, b3 = _operands(c, k=k, seed=26)
+    g = _g(blocks, c, 27)
+
+    def grads(device):
+        aux = {key: torch.as_tensor(v, device=device)
+               for key, v in blocks.train_aux().items()}
+        ts = [torch.tensor(a, device=device, requires_grad=True)
+              for a in (h, x, w3, b3)]
+        out = tfc.fused_edge_conv_ad(*ts, blocks.compact_s.to(device), aux,
+                                     c_in=c, c_out=c, rows_blk=blocks.rows_blk,
+                                     blk=blocks.blk, gemm_dtype="bfloat16")
+        (out * torch.as_tensor(g, device=device)).sum().backward()
+        return [t.grad.cpu() for t in ts]
+
+    fwd, bwd = tfc.fused_edge_conv.launches, tfc.fused_edge_conv_bwd.launches
+    got = grads("cuda")
+    torch.cuda.synchronize()
+    assert tfc.fused_edge_conv.launches == fwd + 1
+    assert tfc.fused_edge_conv_bwd.launches == bwd + 1
+    for name, a, b in zip(("h", "x", "w3", "b3"), got, grads("cpu")):
+        err = (a - b).abs().max().item() / b.abs().max().item()
+        assert err < BWD_TOL, (name, err)
 
 
 def _messages_operands(e, k, c, seed):
