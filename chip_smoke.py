@@ -4,23 +4,26 @@ Phases, each printing its own lines; any failure raises and the script exits
 non-zero without the final result line:
 
 1. device  — needs CUDA; prints the card's name and power limit.
-2. build   — compiles the five kernels' seven libraries (the forward B1 as
+2. build   — compiles the five kernels' nine libraries (the forward B1 as
              csrc/fused_edge_conv.cu, float32 FMAs, and
              csrc/fused_edge_conv_wgmma.cu, bfloat16 on the tensor cores; the
              backward B2 as csrc/fused_edge_conv_bwd.cu and
-             csrc/fused_edge_conv_bwd_wgmma.cu; their rank-r counterparts
-             csrc/fused_edge_conv_lowrank.cu, B3, and
-             csrc/fused_edge_conv_lowrank_bwd.cu, B4, and
+             csrc/fused_edge_conv_bwd_wgmma.cu; their rank-r counterparts B3
+             as csrc/fused_edge_conv_lowrank.cu and
+             csrc/fused_edge_conv_lowrank_wgmma.cu and B4 as
+             csrc/fused_edge_conv_lowrank_bwd.cu and
+             csrc/fused_edge_conv_lowrank_bwd_wgmma.cu; and
              csrc/fused_edge_messages.cu, B5, the per-edge messages of conv
              mode 'pallas') from the checkout, one nvcc each, started
              together; prints ptxas's registers and spills of the
-             tensor-core kernels (``[ptxas]``).
+             tensor-core kernels and their blocks per SM (``[ptxas]``).
 3. kernel  — B1 against its plain PyTorch version on the card, at the
              full-size serving chunk shape, on operands from the real dataset
              chunk: float32 (TF32 off) and bfloat16, compact and dense S,
              each line naming the design that ran (``design=wgmma`` for
-             bfloat16 B1/B2, ``fma`` otherwise); a tensor-core launch is
-             repeated and must give the same bits.
+             bfloat16 B1/B2, and B3/B4 at rank 16; ``fma`` otherwise, as
+             ``fused_conv.design`` says); a tensor-core launch is repeated
+             and must give the same bits.
 4. bwd     — B2 against its plain version at the same shape and operands with
              a seeded output gradient, both types and both S forms (repeated
              as B1); then the differentiable layer's gradients on the card
@@ -54,7 +57,8 @@ edge kernels) and its depth cut to 2 to keep the run short: B3 and B4
 against their plain versions at the same shapes (``[lowrank_kernel]``,
 ``[lowrank_bwd]``), serving with 4 B3 launches per full-size request and
 none of B1, training with B4 launched depth x steps
-times and neither B1 nor B2, card-vs-CPU parity, and their times
+times and neither B1 nor B2 (and the same training in float32, for its
+loss curve beside the bfloat16 one), card-vs-CPU parity, and their times
 (``[lowrank_*]`` lines).  They run a third time for TEECNet at the full
 width of configs/exp_config/teecnet_ansys.yaml (width 48, 5 layers, edge MLP
 K = 128) on the same meshes (``[teecnet_*]`` lines): B1 and B2 at K = 128,
@@ -346,12 +350,10 @@ def layer(op, gemm_dtype, plain=False, dense=False):
 
 
 def design_of(op, gemm_dtype: str) -> str:
-    """The design the kernel of ``op`` runs in ``gemm_dtype``: B1/B2 in
-    bfloat16 on the tensor cores ('wgmma'), everything else ('fma') as
-    float32 FMAs on the CUDA cores."""
-    if op["rank"] is not None:
-        return "fma"
-    return fused_conv.design(getattr(torch, gemm_dtype))
+    """The design the kernel of ``op`` runs in ``gemm_dtype``: bfloat16 on
+    the tensor cores ('wgmma': B1/B2, and B3/B4 at a rank that is a multiple
+    of 8), else ('fma') float32 FMAs on the CUDA cores."""
+    return fused_conv.design(getattr(torch, gemm_dtype), op["rank"])
 
 
 def check_repeat(label: str, at: str, dt: str, dense: bool, first,
@@ -369,16 +371,23 @@ def check_repeat(label: str, at: str, dt: str, dense: bool, first,
 def log_ptxas() -> None:
     """Registers and spills of the tensor-core kernels, as ptxas reported
     them when the libraries were built, and their blocks per SM at width 48
-    and K 48 and 128."""
+    and K 48 and 128 (B1/B2) and at K 48, rank 16 (B3/B4)."""
     import re
-    for lib in ("fused_edge_conv_wgmma", "fused_edge_conv_bwd_wgmma"):
+    for lib in ("fused_edge_conv_wgmma", "fused_edge_conv_bwd_wgmma",
+                "fused_edge_conv_lowrank_wgmma",
+                "fused_edge_conv_lowrank_bwd_wgmma"):
         name, spills = None, ("?", "?")
         for line in fused_conv.ptxas_report(lib).splitlines():
             m = re.search(r"Function properties for \S*?"
-                          r"(conv_fwd_wgmma|bwd_rows_wgmma|bwd_weights_wgmma)"
+                          r"(lowrank_fwd_wgmma|lowrank_bwd_rows_wgmma|"
+                          r"lowrank_bwd_weights_wgmma|conv_fwd_wgmma|"
+                          r"bwd_rows_wgmma|bwd_weights_wgmma)"
                           r"(?:ILi(\d+)E)?", line)
             if m:
-                name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                arg = m.group(2)
+                if arg and m.group(1).startswith("lowrank"):
+                    arg = f"r{8 * int(arg)}"  # the template's r / 8
+                name = m.group(1) + (f"<{arg}>" if arg else "")
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
@@ -392,6 +401,8 @@ def log_ptxas() -> None:
                 name = None
     for k in (48, 128):
         log("ptxas", k=k, c=48, blocks_per_sm=fused_conv.occupancy(k, 48, 48))
+    log("ptxas", k=48, c=48, rank=RANK,
+        blocks_per_sm=fused_conv.occupancy(48, 48, 48, rank=RANK))
 
 
 def phase_kernel(op, at: str = "chunk", errs: dict | None = None) -> dict:
@@ -822,6 +833,24 @@ def phase_train(root: str, datasets: dict, cfgs: dict, tag: str = "") -> dict:
         nodes=len(fields[0]["pressure"]), finite=True)
     check_only(f"{label}: the trained checkpoint's request",
                {fwd: CHUNKS["full"] * depth})
+    if rank is not None:
+        # the same training in float32 (the FMA kernels) from the same seed,
+        # so that the loss curve at this lr can be told from bf16 rounding
+        reset_launches()
+        train_graph_ALDD(exp + "_f32", make_model(cfg), ds, 1, train_cfg,
+                         log_dir=log_dir, gemm_dtype="float32")
+        torch.cuda.synchronize()
+        check_only(f"{label} float32",
+                   {fwd: depth * (steps + evals), bwd_k: depth * steps})
+        with open(os.path.join(log_dir, "metrics",
+                               f"{exp}_f32_partition_0.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        log(label, dtype="float32", design=fused_conv.design(torch.float32,
+                                                             rank),
+            losses=",".join(f"{r['train_loss']:.5g}" for r in records
+                            if "train_loss" in r),
+            val_losses=",".join(f"{r['val_loss']:.5g}" for r in records
+                                if "val_loss" in r))
     return dict(fwd=n_fwd, bwd=n_bwd, served=served, steps=steps,
                 evals=evals, losses=losses)
 
@@ -1046,12 +1075,14 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
     """The forward's and the backward's entries of the kernels JSON line,
     tagged with the ``path`` that ran them."""
     pkg = "fast_eng_super_resolution_tpu_torch/csrc/"
-    # full rank: the bfloat16 numbers are the tensor-core design's, in its
-    # own source; the float32 ones the FMA design's
+    # the bfloat16 numbers are the tensor-core design's, in its own source
+    # (B3/B4 at a rank that is a multiple of 8); the float32 ones the FMA
+    # design's
     suffix = {"bfloat16": "", "float32": ""}
+    if fused_conv.design(torch.bfloat16, rank) == "wgmma":
+        suffix["bfloat16"] = "_wgmma"
     if rank is None:
         names, lines = ("fused_edge_conv", "fused_edge_conv_bwd"), (322, 442)
-        suffix["bfloat16"] = "_wgmma"
     else:
         names = ("fused_edge_conv_lowrank", "fused_edge_conv_lowrank_bwd")
         lines = (637, 717)

@@ -36,9 +36,11 @@
 // operations (the uv GEMM; t and msg add 2 r (c_in + c_out)) and moves
 // (K + c_in) sizeof(T) + 8 bytes: at width 48, rank 16 that is ~150 kFLOP
 // against ~200 B, far above the H100's ridge, so the kernel is bounded by
-// operations.  This version runs them as float32 FMAs on the CUDA cores
-// (bf16 inputs are widened on load): a correct first kernel, not a
-// tensor-core one.
+// operations.  This design runs them as float32 FMAs on the CUDA cores
+// (bf16 inputs are widened on load).  It serves float32, and bfloat16 at
+// ranks that are not a multiple of 8; bfloat16 at the other ranks runs on
+// the tensor cores (fused_edge_conv_lowrank_wgmma.cu; ops/fused_conv.py:
+// design).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_edge_conv_lowrank.so

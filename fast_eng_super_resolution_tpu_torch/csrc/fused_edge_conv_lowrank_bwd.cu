@@ -46,8 +46,10 @@
 // recompute and dh in (a), dw3/db3 in (b); the rest is O(r (c_in + c_out)))
 // against (K + c_in) (sizeof(T) + 4) + c_out 4 bytes of inputs and outputs:
 // ~450 kFLOP against ~500 B at width 48, rank 16, far above the card's
-// ridge, so it is bounded by operations.  This version runs them as float32
-// FMAs on the CUDA cores: a correct first kernel, not a tensor-core one.
+// ridge, so it is bounded by operations.  This design runs them as float32
+// FMAs on the CUDA cores.  It serves float32, and bfloat16 at ranks that are
+// not a multiple of 8; bfloat16 at the other ranks runs on the tensor cores
+// (fused_edge_conv_lowrank_bwd_wgmma.cu; ops/fused_conv.py:design).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_edge_conv_lowrank_bwd.so

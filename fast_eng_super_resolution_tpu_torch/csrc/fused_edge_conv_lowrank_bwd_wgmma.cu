@@ -1,0 +1,686 @@
+// Fused edge-conditioned conv layer with rank-r factorized edge kernels,
+// backward, in bfloat16 on Hopper's tensor cores (wgmma, sm_90a): the
+// gradients of fused_edge_conv_lowrank_wgmma.cu's forward.
+//
+// Replaces the TPU Pallas kernel
+//   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_bwd_jit
+// for bfloat16 operands at ranks that are a multiple of 8
+// (fused_edge_conv_lowrank_bwd.cu keeps the float32 instance and the other
+// ranks) and computes the same function, w3's and b3's gradients in the
+// model's column layout.  With the forward's notation and g the gradient of
+// its output, per slot e:
+//
+//   dmsg[o]   = sum_r S[r, e] g[r, o]                 (0 on padding)
+//   dt[q]     = sum_o V[o, q] dmsg[o]
+//   dx_src[i] = sum_q U[i, q] dt[q]
+//   duv[i r + q]         = x_src[i] dt[q]             (the U columns)
+//   duv[r c_in + o r + q] = dmsg[o] t[q]              (the V columns)
+//   dh[k]     = sum_j duv[j] w3[k, j]
+//   dw3[k, j] = sum_e h[e, k] duv[e, j],  db3[j] = sum_e duv[e, j]
+//
+// Numbers.  h, x_src, w3 and dmsg are bfloat16 values (the plain version,
+// ops/fused_conv.py:fused_edge_conv_lowrank_bwd_plain, rounds the same
+// four); b3, uv, t, dt, duv and every sum are float32.  No operand of a
+// wgmma is a rounding of a float32 product or sum:
+//
+//  (a) rows kernel, factored.  uv is recomputed as h @ w3 chunks (as the
+//      forward); dh = duv w3^T is not formed from duv but as
+//        dh[k] = sum_q dt[q] P[k, q] + sum_q t[q] Q[k, q],
+//        P = x_src @ W3U,  Q = dmsg @ W3V,
+//      W3U[i, (k, q)] = w3[k, i r + q], W3V[o, (k, q)] = w3[k, r c_in + o r
+//      + q]: two more products of bf16 values the plain version rounds,
+//      weighted by t and dt in float32 on the CUDA cores.
+//  (b) weights kernel, exact split.  duv is float32 (a bf16 value times a
+//      float32 one), so it is split into three bf16 parts d1 = bf16(duv),
+//      d2 = bf16(duv - d1), d3 = bf16(duv - d1 - d2) with d1 + d2 + d3 = duv
+//      EXACTLY: each remainder is exact in float32 and 8 + 8 + 8 significant
+//      bits cover float32's 24 (tests/test_torch_lowrank_wgmma_host.py;
+//      bf16 has float32's exponent range, so this holds for 2^-110 <= |duv|
+//      <= 3.38e38).  dw3 = h^T d1 + h^T d2 + h^T d3 runs as three wgmma
+//      passes whose products are exact in the float32 accumulator; db3 is
+//      summed from duv itself in float32 by the thread that forms its
+//      column.
+//
+// Design.
+//  (a) one warpgroup per 64-slot tile (grid: every tile of the graph, 4864
+//      at the serving chunk); the tile's receiver block is tile / (blk /
+//      64).  It forms dmsg = row_weight g[slot_rows[e]] (CompactS; the dense
+//      form sums S^T g), rounds it to bf16 and writes it once as scratch for
+//      (b); stages h, x_src and dmsg as A operands, then runs m64n128
+//      products in 128-column chunks of whole channels (lowrank_wgmma.cuh),
+//      each chunk's w3 columns double-buffered and copied in 16-byte pieces
+//      while the previous product runs: the V chunks of uv give dt (in
+//      registers: every thread holds the same q of every channel), the U
+//      chunks t and dx_src (a quad shuffle), then for each group of k the
+//      P chunk and the Q chunk give dh (one quad shuffle per k; the P
+//      chunk's per-thread partials wait in shared memory).  It writes
+//      t and dt as float32 scratch for (b).  Tiles of padding only write
+//      zeros in CompactS form.
+//  (b) grid (128-column tiles of r (c_in + c_out), slot splits).  Per
+//      64-slot chunk a block copies h rows in 16-byte pieces as A (h^T,
+//      MN-major, K <= 64 is one row tile) and the chunk's x_src and dt (U
+//      columns) or dmsg and t (V columns), with cp.async into one of two
+//      sets while the chunk before runs; each thread forms its column's duv
+//      for 16 slots at a time
+//      and its three parts (B, K-major), and the three products of those 16
+//      slots are issued before the next 16 are formed, so that forming
+//      overlaps the tensor cores.  The sums move into the split's partial
+//      [K+1, r (c_in + c_out)] (row K: db3) every 32 chunks; the wrapper
+//      sums the partials in a fixed order.  No atomics anywhere: two
+//      launches on the same inputs give the same bits.
+//
+// Bound.  Per real slot about 2 (K+1) r (c_in + c_out) operations for the
+// uv recompute, 2 K r (c_in + c_out) for dh and 2 (K+1) r (c_in + c_out) for
+// dw3 and db3 (the rest is O(r (c_in + c_out))), against (K + c_in) (2 + 4)
+// + c_out 4 bytes of inputs and outputs: bounded by operations on the
+// tensor cores.  What stands in the way here: w3 is read from L2 twice per
+// tile in (a), the float32 epilogues run on the CUDA cores, and (b) runs its
+// products three times over and forms duv on the CUDA cores.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -o libfused_edge_conv_lowrank_bwd_wgmma.so
+//        fused_edge_conv_lowrank_bwd_wgmma.cu
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "lowrank_wgmma.cuh"
+
+namespace {
+
+using namespace lowrank_wgmma;
+
+constexpr int kRows = 64;     // receiver rows per block (rows_blk)
+constexpr int kPromote = 32;  // weights kernel: chunks per tensor-core sum
+constexpr int kSlice = 16;    // weights kernel: slots formed per product
+
+// A bf16 pair as one 32-bit word, .x first (the lower address).
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  union {
+    __nv_bfloat162 b;
+    uint32_t u;
+  } cv;
+  cv.b = v;
+  return cv.u;
+}
+
+// Byte offsets of the rows kernel's shared memory.  The P half of dh waits
+// for its Q chunk in shared memory, as each thread's 2 G unreduced partials
+// in a column of its own ([2 G][128]: no bank conflicts, no barrier).
+struct RowsLayout {
+  int kp, dpi, dpo, dmax;
+  long ax, ad, b, b3, dhp, srow, total;
+  __host__ __device__ RowsLayout(int K, int c_in, int c_out, int r) {
+    kp = round_up(K, 16);
+    dpi = round_up(c_in, 16);
+    dpo = round_up(c_out, 16);
+    dmax = kp > dpi ? kp : dpi;
+    dmax = dmax > dpo ? dmax : dpo;
+    ax = 2L * kTile * kp;                    // a: h [64][kp]
+    ad = ax + 2L * kTile * dpi;              // x_src [64][dpi]
+    b = ad + 2L * kTile * dpo;               // dmsg [64][dpo]
+    b3 = b + 2L * 2 * kCols * dmax;          // w3 chunk [2][128][dmax]
+    dhp = b3 + 4L * r * (c_in + c_out);      // b3 [ncol] f32
+    srow = dhp + 4L * 2 * (kCols / r) * kWarpgroup;  // P half [2 G][128] f32
+    total = srow + 4L * kTile;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// (a) dmsg, t, dt, dx_src and dh for one 64-slot tile.
+template <int R8>
+__global__ void __launch_bounds__(kWarpgroup)
+lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
+                       const bf16* __restrict__ x_src,
+                       const bf16* __restrict__ w3,
+                       const float* __restrict__ b3,
+                       const int* __restrict__ slot_rows,
+                       const float* __restrict__ row_weight,
+                       const float* __restrict__ s_dense,
+                       float* __restrict__ dh, float* __restrict__ dx_src,
+                       bf16* __restrict__ dmsg_out, float* __restrict__ t_out,
+                       float* __restrict__ dt_out, int blk, int K, int c_in,
+                       int c_out) {
+  constexpr int R = 8 * R8, G = kCols / R;  // rank, channels per chunk
+  extern __shared__ __align__(128) unsigned char smem[];
+  const RowsLayout L(K, c_in, c_out, R);
+  const int kp = L.kp, dpi = L.dpi, dpo = L.dpo;
+  bf16* ah_sm = reinterpret_cast<bf16*>(smem);
+  bf16* ax_sm = reinterpret_cast<bf16*>(smem + L.ax);
+  bf16* ad_sm = reinterpret_cast<bf16*>(smem + L.ad);
+  bf16* b_sm = reinterpret_cast<bf16*>(smem + L.b);
+  float* b3_sm = reinterpret_cast<float*>(smem + L.b3);
+  float* dhp_sm = reinterpret_cast<float*>(smem + L.dhp) + threadIdx.x;
+  int* srow = reinterpret_cast<int*>(smem + L.srow);
+
+  const int tid = threadIdx.x;
+  const bool writer = tid % 4 == 0;
+  const long slot0 = static_cast<long>(blockIdx.x) * kTile;
+  const long b = slot0 / blk;
+  const long row_base = b * kRows;
+  const bool compact = s_dense == nullptr;
+  const bf16 zero = __float2bfloat16(0.f);
+  const int ru = R * c_in, ncol = R * (c_in + c_out);
+
+  if (compact) {
+    int real = 0;
+    if (tid < kTile) {
+      srow[tid] = slot_rows[slot0 + tid];
+      real = srow[tid] >= 0;
+    }
+    if (!__syncthreads_or(real)) {  // padding only: every gradient is 0
+      for (int e = tid; e < kTile * K; e += kWarpgroup) dh[slot0 * K + e] = 0.f;
+      for (int e = tid; e < kTile * c_in; e += kWarpgroup)
+        dx_src[slot0 * c_in + e] = 0.f;
+      for (int e = tid; e < kTile * c_out; e += kWarpgroup)
+        dmsg_out[slot0 * c_out + e] = zero;
+      for (int e = tid; e < kTile * R; e += kWarpgroup) {
+        t_out[slot0 * R + e] = 0.f;
+        dt_out[slot0 * R + e] = 0.f;
+      }
+      return;
+    }
+  }
+
+  // chunks: the V chunks of uv (output channels G c ..), the U chunks, then
+  // for each group of G k the P chunk and the Q chunk
+  const int n_v = (c_out + G - 1) / G, n_u = (c_in + G - 1) / G;
+  const int n_c = n_v + n_u + 2 * ((K + G - 1) / G);
+  auto chunk = [&](int c) {
+    if (c < n_v + n_u) {
+      const bool v = c < n_v;
+      const int ch0 = (v ? c : c - n_v) * G;
+      const int gc = min(G, (v ? c_out : c_in) - ch0);
+      return Chunk{kUv, (v ? ru : 0) + ch0 * R, gc * R, kp, K};
+    }
+    const int e = c - n_v - n_u, k0 = (e / 2) * G, gk = min(G, K - k0);
+    return e % 2 == 0 ? Chunk{kP, k0 * R, gk * R, dpi, c_in}
+                      : Chunk{kQ, k0 * R, gk * R, dpo, c_out};
+  };
+  ChunkStage<R8> st(w3, c_in, c_out);
+  st.load(chunk(0));
+
+  // ---- stage dmsg (rounded to bf16; channel o = tid % 64 of slots
+  // tid / 64 + 2 m), h, x_src and b3 ----
+#pragma unroll 4
+  for (int s = tid >> 6, o = tid & 63; s < kTile && o < dpo; s += 2) {
+    bf16 v = zero;
+    if (o < c_out) {
+      float d = 0.f;
+      if (compact) {
+        const int r = srow[s];
+        if (r >= 0) d = row_weight[row_base + r] * g[(row_base + r) * c_out + o];
+      } else {
+        const float* s_col = s_dense + row_base * blk + (slot0 - b * blk) + s;
+        for (int r = 0; r < kRows; ++r)
+          d += s_col[static_cast<long>(r) * blk] * g[(row_base + r) * c_out + o];
+      }
+      v = __float2bfloat16(d);
+      dmsg_out[(slot0 + s) * c_out + o] = v;
+    }
+    ad_sm[kmajor(s, o, dpo)] = v;
+  }
+  stage_rows(ah_sm, h + slot0 * K, K, kp);
+  stage_rows(ax_sm, x_src + slot0 * c_in, c_in, dpi);
+  for (int e = tid; e < ncol; e += kWarpgroup) b3_sm[e] = b3[e];
+  // chunk c is read from buffer c % 2 while the registers fill the other
+  // with chunk c + 1 and load chunk c + 2
+  const int bsize = kCols * L.dmax;
+  st.store(b_sm);
+  st.load(chunk(1));
+  fence_async_smem();
+  __syncthreads();
+
+  // this thread's rows r0, r0 + 8 at its 2 R8 values of q
+  const int r0 = acc_row(0);
+  float tq[2][R8][2], dq[2][R8][2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int m = 0; m < R8; ++m)
+      tq[hf][m][0] = tq[hf][m][1] = dq[hf][m][0] = dq[hf][m][1] = 0.f;
+
+  for (int c = 0; c < n_c; ++c) {
+    const Chunk ch = chunk(c);
+    const bf16* a = ch.kind == kP ? ax_sm : ch.kind == kQ ? ad_sm : ah_sm;
+    float acc[kCols / 2];
+    product<kCols, 1>(acc, a, b_sm + (c & 1) * bsize, ch.depth);
+    if (c + 1 < n_c) {
+      st.store(b_sm + ((c + 1) & 1) * bsize);
+      if (c + 2 < n_c) st.load(chunk(c + 2));
+    }
+    wait_all();
+    fence_operand(acc);
+    if (c < n_v) {  // dt[s, q] += dmsg[s, o] V[s, o, q]
+      const int o0 = c * G, gc = min(G, c_out - o0);
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) {
+        if (gg >= gc) continue;
+        const float da = __bfloat162float(ad_sm[kmajor(r0, o0 + gg, dpo)]);
+        const float db = __bfloat162float(ad_sm[kmajor(r0 + 8, o0 + gg, dpo)]);
+        const float* bias = b3_sm + ru + (o0 + gg) * R;
+#pragma unroll
+        for (int u = 0; u < 4 * R8; ++u) {
+          const int j = 4 * R8 * gg + u;
+          const float uv = acc[j] + bias[q_of<R8>(j)];
+          dq[(u >> 1) & 1][u >> 2][u & 1] += ((u >> 1) & 1 ? db : da) * uv;
+        }
+      }
+    } else if (c < n_v + n_u) {  // t += x U; dx_src[s, i] = sum_q U dt
+      const int i0 = (c - n_v) * G, gc = min(G, c_in - i0);
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) {
+        if (gg >= gc) continue;
+        const float xa = __bfloat162float(ax_sm[kmajor(r0, i0 + gg, dpi)]);
+        const float xb = __bfloat162float(ax_sm[kmajor(r0 + 8, i0 + gg, dpi)]);
+        const float* bias = b3_sm + (i0 + gg) * R;
+        float pa = 0.f, pb = 0.f;
+#pragma unroll
+        for (int u = 0; u < 4 * R8; ++u) {
+          const int j = 4 * R8 * gg + u;
+          const float uv = acc[j] + bias[q_of<R8>(j)];
+          if ((u >> 1) & 1) {
+            tq[1][u >> 2][u & 1] += xb * uv;
+            pb += uv * dq[1][u >> 2][u & 1];
+          } else {
+            tq[0][u >> 2][u & 1] += xa * uv;
+            pa += uv * dq[0][u >> 2][u & 1];
+          }
+        }
+        pa = quad_sum(pa);
+        pb = quad_sum(pb);
+        if (writer) {
+          dx_src[(slot0 + r0) * c_in + i0 + gg] = pa;
+          dx_src[(slot0 + r0 + 8) * c_in + i0 + gg] = pb;
+        }
+      }
+    } else {  // dh[s, k] = sum_q dt[s, q] P[s, k, q] + sum_q t[s, q] Q[s, k, q]
+      const bool p_half = ch.kind == kP;
+      const int k0 = ch.lo / R, gk = ch.cw / R;
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) {
+        if (gg >= gk) continue;
+        float pa = 0.f, pb = 0.f;
+#pragma unroll
+        for (int u = 0; u < 4 * R8; ++u) {
+          const int j = 4 * R8 * gg + u;
+          const int hf = (u >> 1) & 1;
+          const float w = p_half ? dq[hf][u >> 2][u & 1] : tq[hf][u >> 2][u & 1];
+          if (hf) pb += acc[j] * w; else pa += acc[j] * w;
+        }
+        if (p_half) {
+          dhp_sm[2 * gg * kWarpgroup] = pa;
+          dhp_sm[(2 * gg + 1) * kWarpgroup] = pb;
+          continue;
+        }
+        pa = quad_sum(dhp_sm[2 * gg * kWarpgroup] + pa);
+        pb = quad_sum(dhp_sm[(2 * gg + 1) * kWarpgroup] + pb);
+        if (writer) {
+          dh[(slot0 + r0) * K + k0 + gg] = pa;
+          dh[(slot0 + r0 + 8) * K + k0 + gg] = pb;
+        }
+      }
+    }
+    fence_async_smem();
+    __syncthreads();
+  }
+
+  // ---- t and dt, scratch for the weights kernel ----
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int m = 0; m < R8; ++m)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const long at = (slot0 + r0 + 8 * hf) * R + q_of<R8>(4 * m + u);
+        t_out[at] = tq[hf][m][u];
+        dt_out[at] = dq[hf][m][u];
+      }
+}
+
+// Adds the weights kernel's tensor-core sums into its partial (stores them
+// the first time) and restarts them from zero.
+__device__ __forceinline__ void promote(float (&acc)[kCols / 2], float* dst,
+                                        bool& first, int n0, int K,
+                                        int ncol) {
+#pragma unroll
+  for (int j = 0; j < kCols / 2; ++j) {
+    const int k = acc_row(j), c = n0 + acc_col(j);
+    if (k < K && c < ncol) {
+      float* p = dst + static_cast<long>(k) * ncol + c;
+      *p = first ? acc[j] : *p + acc[j];
+    }
+    acc[j] = 0.f;
+  }
+  first = false;
+}
+
+// Byte offsets of the weights kernel's shared memory: duv's three parts,
+// then two sets of staged operands (chunk n of a split in set n % 2); within
+// a set, the offsets of its arrays.
+struct WeightsLayout {
+  long sets, x, m, t, dt, set, total;
+  __host__ __device__ WeightsLayout(int c_in, int c_out, int r) {
+    sets = 2L * 3 * kCols * kTile;           // d1, d2, d3 [3][128][64 e]
+    x = 2L * kTile * kTile;                  // a: h^T [64 k][64 e]
+    m = x + 2L * kTile * c_in;               // x_src [64][c_in] bf16
+    t = m + 2L * kTile * c_out;              // dmsg [64][c_out] bf16
+    dt = t + 4L * kTile * r;                 // t [64][r] f32
+    set = dt + 4L * kTile * r;               // dt [64][r] f32
+    total = sets + 2 * set;
+  }
+};
+
+// Asynchronous 16-byte copy from device to shared memory (cp.async), its
+// group commit and the wait for all but the newest group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copies n bytes from src to dst: 16-byte cp.async pieces (async: both
+// ends 16-byte aligned, n a multiple of 16), else 2-byte loads and stores.
+__device__ __forceinline__ void copy_bytes(void* dst, const void* src, int n,
+                                           bool async) {
+  if (async) {
+    for (int e = threadIdx.x; e < n / 16; e += kWarpgroup)
+      cp_async16(static_cast<uint4*>(dst) + e, static_cast<const uint4*>(src) + e);
+  } else {
+    for (int e = threadIdx.x; e < n / 2; e += kWarpgroup)
+      reinterpret_cast<uint16_t*>(dst)[e] = reinterpret_cast<const uint16_t*>(src)[e];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (b) partial[split, k, c] = sum over the split's slots e of h[e, k] duv[e, c]
+// for the block's 128 columns c of r (c_in + c_out), and row K: db3.
+template <int R8>
+__global__ void __launch_bounds__(kWarpgroup)
+lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
+                          const bf16* __restrict__ x_src,
+                          const bf16* __restrict__ dmsg,
+                          const float* __restrict__ t_vec,
+                          const float* __restrict__ dt_vec,
+                          const int* __restrict__ slot_rows,
+                          float* __restrict__ partial, long num_chunks,
+                          long chunks_per_split, int K, int c_in, int c_out) {
+  constexpr int R = 8 * R8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WeightsLayout L(c_in, c_out, R);
+  bf16* d_sm = reinterpret_cast<bf16*>(smem);
+  unsigned char* sets = smem + L.sets;
+  const int tid = threadIdx.x;
+  const int ru = R * c_in, ncol = R * (c_in + c_out);
+  const int n0 = blockIdx.x * kCols;
+  const long split = blockIdx.y;
+  const long c_lo = split * chunks_per_split;
+  const long c_hi = c_lo + chunks_per_split < num_chunks
+                        ? c_lo + chunks_per_split
+                        : num_chunks;
+  const bf16 zero = __float2bfloat16(0.f);
+  // this thread's column of duv: col = n0 + tid (none past ncol): U column
+  // (channel i, q) = x_src[:, i] dt[:, q], or V column (o, q) = dmsg[:, o]
+  // t[:, q]; the block stages only the factors its columns use
+  const int col = n0 + tid;
+  const bool has_col = col < ncol;
+  const bool u_col = col < ru;
+  const bool need_u = n0 < ru, need_v = n0 + kCols > ru;
+  const int ch = has_col ? (u_col ? col : col - ru) / R : 0;
+  const int q = has_col ? col % R : 0;
+  const long f_off = (u_col ? L.x : L.m) + 2L * ch;  // the channel factor
+  const int f_stride = u_col ? c_in : c_out;
+  const long v_off = (u_col ? L.dt : L.t) + 4L * q;  // the rank factor
+
+  // columns past ncol, and h^T's rows past K, stay zero
+  for (int e = tid; e < 3 * kCols * kTile; e += kWarpgroup) d_sm[e] = zero;
+  for (int e = tid; e < 2 * kTile * kTile; e += kWarpgroup)
+    reinterpret_cast<bf16*>(sets + (e >= kTile * kTile ? L.set : 0))
+        [e % (kTile * kTile)] = zero;
+  float acc[kCols / 2];
+#pragma unroll
+  for (int j = 0; j < kCols / 2; ++j) acc[j] = 0.f;
+  float dbias = 0.f;
+  // The tensor cores' float32 sum is moved into the split's partial in
+  // device memory every kPromote chunks and restarted from zero (as B2's
+  // weights kernel); each thread adds to its own entries, in chunk order.
+  float* dst = partial + split * (K + 1) * static_cast<long>(ncol);
+  int pending = 0;
+  bool first = true;
+
+  // With every operand 16-byte aligned and K a multiple of 8 the next
+  // chunk's operands are copied (cp.async) into the other set while this
+  // chunk's run; otherwise each chunk is staged after the last one, with
+  // plain loads.
+  const bool async =
+      K % 8 == 0 &&
+      (reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(x_src) |
+       reinterpret_cast<uintptr_t>(dmsg) | reinterpret_cast<uintptr_t>(t_vec) |
+       reinterpret_cast<uintptr_t>(dt_vec)) % 16 == 0;
+  auto stage = [&](unsigned char* set, long s0) {
+    // A = h^T, MN-major: 8 consecutive k of one slot are a 16-byte piece
+    // of an h row (zeros past K, written above); 8 consecutive threads take
+    // 8 slots' pieces of one k, 128 contiguous bytes of A
+    bf16* a = reinterpret_cast<bf16*>(set);
+    if (async) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int p = tid + kWarpgroup * m;
+        const int s = p % 8 + 8 * (p / 64), k = 8 * ((p / 8) % 8);
+        if (k < K) cp_async16(a + mnmajor(k, s, kTile), h + (s0 + s) * K + k);
+      }
+    } else {
+      for (int e = tid; e < kTile * kTile; e += kWarpgroup) {
+        const int s = e >> 6, k = e & 63;
+        if (k < K) a[mnmajor(k, s, kTile)] = h[(s0 + s) * K + k];
+      }
+    }
+    if (need_u) {
+      copy_bytes(set + L.x, x_src + s0 * c_in, 2 * kTile * c_in, async);
+      copy_bytes(set + L.dt, dt_vec + s0 * R, 4 * kTile * R, async);
+    }
+    if (need_v) {
+      copy_bytes(set + L.m, dmsg + s0 * c_out, 2 * kTile * c_out, async);
+      copy_bytes(set + L.t, t_vec + s0 * R, 4 * kTile * R, async);
+    }
+  };
+
+  // CompactS: chunks of padding only are skipped; each chunk loads the
+  // next one's flags, so that the test waits on no load
+  const bool compact = slot_rows != nullptr;
+  int real_next = 0;
+  if (compact && tid < kTile && c_lo < c_hi)
+    real_next = slot_rows[c_lo * kTile + tid] >= 0;
+  uint64_t da[2], dd[3];
+#pragma unroll
+  for (int st = 0; st < 2; ++st) da[st] = desc_mn(sets + st * L.set, kTile);
+#pragma unroll
+  for (int p = 0; p < 3; ++p) dd[p] = desc(d_sm + p * kCols * kTile, kTile);
+  __syncthreads();  // the zeros land before the first copies
+  if (async && c_lo < c_hi) stage(sets, c_lo * kTile);
+  cp_async_commit();
+
+  for (long chk = c_lo; chk < c_hi; ++chk) {
+    const long s0 = chk * kTile;
+    const int cur = static_cast<int>(chk - c_lo) & 1;
+    unsigned char* set = sets + cur * L.set;
+    if (async) {  // the next chunk into the other set (last read by the
+                  // chunk before this one, whose products have completed)
+      if (chk + 1 < c_hi) stage(sets + (cur ^ 1) * L.set, s0 + kTile);
+      cp_async_commit();
+      cp_async_wait<1>();  // this chunk's copies have landed
+      fence_async_smem();
+    }
+    const int real = real_next;
+    if (compact && tid < kTile && chk + 1 < c_hi)
+      real_next = slot_rows[s0 + kTile + tid] >= 0;
+    if (compact) {
+      if (!__syncthreads_or(real)) continue;
+    } else {
+      __syncthreads();
+    }
+    if (!async) {
+      stage(set, s0);
+      __syncthreads();
+    }
+    const bf16* f_sm = reinterpret_cast<const bf16*>(set + f_off);
+    const float* v_sm = reinterpret_cast<const float*>(set + v_off);
+
+    // ---- per 16 slots: form duv's three parts, then issue their products
+    // (which run while the next 16 are formed) ----
+#pragma unroll
+    for (int sl = 0; sl < kTile / kSlice; ++sl) {
+      if (has_col) {
+#pragma unroll
+        for (int s = kSlice * sl; s < kSlice * (sl + 1); s += 8) {
+          uint32_t p1[4], p2[4], p3[4];
+#pragma unroll
+          for (int pr = 0; pr < 4; ++pr) {
+            float z[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int e = s + 2 * pr + u;
+              z[u] = __bfloat162float(f_sm[e * f_stride]) * v_sm[e * R];
+              dbias += z[u];
+            }
+            const __nv_bfloat162 z1 = __floats2bfloat162_rn(z[0], z[1]);
+            const float2 f1 = __bfloat1622float2(z1);
+            const float ra = z[0] - f1.x, rb = z[1] - f1.y;
+            const __nv_bfloat162 z2 = __floats2bfloat162_rn(ra, rb);
+            const float2 f2 = __bfloat1622float2(z2);
+            p1[pr] = as_u32(z1);
+            p2[pr] = as_u32(z2);
+            p3[pr] = as_u32(__floats2bfloat162_rn(ra - f2.x, rb - f2.y));
+          }
+          const int at = kmajor(tid, s, kTile);
+          *reinterpret_cast<uint4*>(d_sm + at) = make_uint4(p1[0], p1[1], p1[2], p1[3]);
+          *reinterpret_cast<uint4*>(d_sm + kCols * kTile + at) =
+              make_uint4(p2[0], p2[1], p2[2], p2[3]);
+          *reinterpret_cast<uint4*>(d_sm + 2 * kCols * kTile + at) =
+              make_uint4(p3[0], p3[1], p3[2], p3[3]);
+        }
+      }
+      fence_async_smem();
+      __syncthreads();
+      fence_operand(acc);
+      fence();
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        Mma<kCols, 1>::run(acc, da[cur] + 16 * sl, dd[p] + 16 * sl, 1);
+      commit();
+      fence_operand(acc);
+    }
+    wait_all();
+    fence_operand(acc);
+    if (++pending == kPromote) {
+      promote(acc, dst, first, n0, K, ncol);
+      pending = 0;
+    }
+  }
+  cp_async_wait<0>();
+  if (pending > 0 || first) promote(acc, dst, first, n0, K, ncol);
+  if (has_col) dst[static_cast<long>(K) * ncol + col] = dbias;
+}
+
+template <int R8>
+cudaError_t launch(const void* g, const void* h, const void* x_src,
+                   const void* w3, const void* b3, const void* slot_rows,
+                   const void* row_weight, const void* s_dense, void* dh,
+                   void* dx_src, void* dmsg, void* t_vec, void* dt_vec,
+                   void* partial, int num_blocks, int blk, int K, int c_in,
+                   int c_out, int num_splits, cudaStream_t stream) {
+  constexpr int R = 8 * R8;
+  const long num_tiles = static_cast<long>(num_blocks) * blk / kTile;
+  const size_t smem = static_cast<size_t>(RowsLayout(K, c_in, c_out, R).total);
+  auto rows = lowrank_bwd_rows_wgmma<R8>;
+  cudaError_t err = allow_smem(rows, smem);
+  if (err != cudaSuccess) return err;
+  rows<<<static_cast<unsigned>(num_tiles), kWarpgroup, smem, stream>>>(
+      static_cast<const float*>(g), static_cast<const bf16*>(h),
+      static_cast<const bf16*>(x_src), static_cast<const bf16*>(w3),
+      static_cast<const float*>(b3), static_cast<const int*>(slot_rows),
+      static_cast<const float*>(row_weight),
+      static_cast<const float*>(s_dense), static_cast<float*>(dh),
+      static_cast<float*>(dx_src), static_cast<bf16*>(dmsg),
+      static_cast<float*>(t_vec), static_cast<float*>(dt_vec), blk, K, c_in,
+      c_out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // column tiles (as ops/fused_conv.py:lowrank_weight_tiles) x slot splits
+  const int tiles = (R * (c_in + c_out) + kCols - 1) / kCols;
+  const long per_split = (num_tiles + num_splits - 1) / num_splits;
+  const size_t wsmem = static_cast<size_t>(WeightsLayout(c_in, c_out, R).total);
+  auto weights = lowrank_bwd_weights_wgmma<R8>;
+  err = allow_smem(weights, wsmem);
+  if (err != cudaSuccess) return err;
+  weights<<<dim3(tiles, num_splits), kWarpgroup, wsmem, stream>>>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(x_src),
+      static_cast<const bf16*>(dmsg), static_cast<const float*>(t_vec),
+      static_cast<const float*>(dt_vec), static_cast<const int*>(slot_rows),
+      static_cast<float*>(partial), num_tiles, per_split, K, c_in, c_out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of dynamic shared memory one block of the rows kernel needs.
+long fused_edge_conv_lowrank_bwd_wgmma_smem_bytes(int K, int c_in, int c_out,
+                                                  int r) {
+  return RowsLayout(K, c_in, c_out, r).total;
+}
+
+// Blocks one SM holds at once at these widths: the rows kernel's
+// (weights = 0) or the weights kernel's (-1 if they are not taken).
+int fused_edge_conv_lowrank_bwd_wgmma_blocks_per_sm(int K, int c_in,
+                                                    int c_out, int r,
+                                                    int weights) {
+  return with_rank(r, [&](auto r8) {
+    constexpr int R8 = decltype(r8)::value;
+    if (weights)
+      return blocks_per_sm(lowrank_bwd_weights_wgmma<R8>,
+                           static_cast<size_t>(WeightsLayout(c_in, c_out, r).total));
+    return blocks_per_sm(lowrank_bwd_rows_wgmma<R8>,
+                         static_cast<size_t>(RowsLayout(K, c_in, c_out, r).total));
+  }, -1);
+}
+
+// Launches the bfloat16 backward on `stream`: the rows kernel, then the
+// weights kernel.  Pointers are device pointers; h, x_src and w3 bfloat16;
+// g, b3, row_weight, s_dense, dh, dx_src, t_vec, dt_vec and partial
+// float32; dmsg bfloat16 (written by the first launch, read by the second,
+// as t_vec and dt_vec); slot_rows int32.  Exactly one of s_dense and
+// (slot_rows, row_weight) is non-null.  w3 is [K, r*(c_in+c_out)] in the
+// model's column layout; 1 <= K, c_in, c_out <= 64 and r one of 8, 16, 24,
+// 32.  partial is [num_splits, K+1, r*(c_in+c_out)] (dw3 rows then the db3
+// row, summed over splits by the caller).  Returns the cudaError_t of the
+// launches (0 on success).
+int fused_edge_conv_lowrank_bwd_wgmma_backward(
+    const void* g, const void* h, const void* x_src, const void* w3,
+    const void* b3, const void* slot_rows, const void* row_weight,
+    const void* s_dense, void* dh, void* dx_src, void* dmsg, void* t_vec,
+    void* dt_vec, void* partial, int num_blocks, int blk, int K, int c_in,
+    int c_out, int r, int num_splits, void* stream) {
+  if (K < 1 || K > kMaxDim || c_in < 1 || c_in > kMaxDim || c_out < 1 ||
+      c_out > kMaxDim || blk % kTile != 0 || blk < kTile || num_blocks < 1 ||
+      num_splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_rank(r, [&](auto r8) {
+    return launch<decltype(r8)::value>(g, h, x_src, w3, b3, slot_rows,
+                                       row_weight, s_dense, dh, dx_src, dmsg,
+                                       t_vec, dt_vec, partial, num_blocks, blk,
+                                       K, c_in, c_out, num_splits, s);
+  }, cudaErrorInvalidValue));
+}
+
+}  // extern "C"

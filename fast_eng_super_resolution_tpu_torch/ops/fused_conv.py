@@ -24,7 +24,9 @@ version, ``fused_edge_conv_bwd_plain``, on the CPU).  Models with rank-r
 factorized edge kernels (``kernel_rank``) run ``fused_edge_conv_lowrank``
 (``csrc/fused_edge_conv_lowrank.cu``) and train through
 ``FusedEdgeConvLowrank``, whose backward is
-``csrc/fused_edge_conv_lowrank_bwd.cu``.
+``csrc/fused_edge_conv_lowrank_bwd.cu``.  Each of the four kernels also has
+a bfloat16 instance on the tensor cores (``csrc/*_wgmma.cu``); ``design``
+says which one a launch runs.
 """
 
 from __future__ import annotations
@@ -216,15 +218,19 @@ def prepare_fused_train(senders, receivers, edge_attr, n_nodes,
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-# library -> its source: B1 (forward) and B2 (backward), each as a float32
-# FMA instance and a bfloat16 tensor-core (wgmma) instance, their rank-r
-# counterparts B3 and B4, and B5, the per-edge messages of ops/pallas_mp.py
+# library -> its source: B1 (forward) and B2 (backward), their rank-r
+# counterparts B3 and B4, each as a float32 FMA instance and a bfloat16
+# tensor-core (wgmma) instance, and B5, the per-edge messages of
+# ops/pallas_mp.py
 _SOURCES = {"fused_edge_conv": "fused_edge_conv.cu",
             "fused_edge_conv_wgmma": "fused_edge_conv_wgmma.cu",
             "fused_edge_conv_bwd": "fused_edge_conv_bwd.cu",
             "fused_edge_conv_bwd_wgmma": "fused_edge_conv_bwd_wgmma.cu",
             "fused_edge_conv_lowrank": "fused_edge_conv_lowrank.cu",
+            "fused_edge_conv_lowrank_wgmma": "fused_edge_conv_lowrank_wgmma.cu",
             "fused_edge_conv_lowrank_bwd": "fused_edge_conv_lowrank_bwd.cu",
+            "fused_edge_conv_lowrank_bwd_wgmma":
+                "fused_edge_conv_lowrank_bwd_wgmma.cu",
             "fused_edge_messages": "fused_edge_messages.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -308,8 +314,12 @@ _BINDINGS = {
     "fused_edge_conv_bwd_wgmma": (("fused_edge_conv_bwd_wgmma_backward", 12,
                                    6), 3),
     "fused_edge_conv_lowrank": (("fused_edge_conv_lowrank_forward", 9, 8), 4),
+    "fused_edge_conv_lowrank_wgmma": (("fused_edge_conv_lowrank_wgmma_forward",
+                                       9, 8), 4),
     "fused_edge_conv_lowrank_bwd": (("fused_edge_conv_lowrank_backward", 14, 8),
                                     4),
+    "fused_edge_conv_lowrank_bwd_wgmma": ((
+        "fused_edge_conv_lowrank_bwd_wgmma_backward", 14, 7), 4),
     "fused_edge_messages": (("fused_edge_messages_forward", 5, 4), 3),
 }
 
@@ -423,23 +433,28 @@ def _s_pointers(s, slots: int, nb: int, rows_blk: int, blk: int) -> tuple:
     return None, None, s.data_ptr()
 
 
-def design(dt: torch.dtype) -> str:
-    """The design B1 and B2 launch for GEMM type ``dt``: 'wgmma' (bfloat16,
-    csrc/fused_edge_conv_wgmma.cu and csrc/fused_edge_conv_bwd_wgmma.cu, on
-    the tensor cores) or 'fma' (float32, csrc/fused_edge_conv.cu and
-    csrc/fused_edge_conv_bwd.cu, float32 FMAs on the CUDA cores)."""
-    return "wgmma" if dt == torch.bfloat16 else "fma"
+def design(dt: torch.dtype, rank: int | None = None) -> str:
+    """The design a kernel launches for GEMM type ``dt``: 'wgmma' (the
+    bfloat16 instances on the tensor cores, csrc/*_wgmma.cu) or 'fma'
+    (float32 FMAs on the CUDA cores).  B1 and B2 (``rank`` None) take
+    'wgmma' for bfloat16.  B3 and B4 (rank r) take it for bfloat16 at a rank
+    that is a multiple of 8 (8, 16, 24, 32), whose 128-column chunks of uv
+    hold whole channels of 8-column groups (csrc/lowrank_wgmma.cuh); other
+    ranks, and float32, run 'fma'."""
+    if dt != torch.bfloat16:
+        return "fma"
+    return "wgmma" if rank is None or rank % 8 == 0 else "fma"
 
 
-# B1's tensor-core blocks resident per SM (shared memory allows 3-4 at
-# width 48) and the waves of them a launch should fill
+# B1's (and B3's) tensor-core blocks resident per SM (shared memory allows
+# 3-4 at width 48) and the waves of them a launch should fill
 _FWD_BLOCKS_PER_SM = 3
 _FWD_WAVES = 2
 
 
 def conv_parts(num_blocks: int, tiles_per_block: int, sms: int) -> int:
     """Parts each receiver block's slot walk is split into for the bfloat16
-    B1: enough blocks for ``_FWD_WAVES`` waves of ``_FWD_BLOCKS_PER_SM``
+    B1 and B3: enough blocks for ``_FWD_WAVES`` waves of ``_FWD_BLOCKS_PER_SM``
     per SM, at most one part per 64-slot tile, at least one part."""
     target = sms * _FWD_BLOCKS_PER_SM * _FWD_WAVES
     return max(1, min(tiles_per_block, -(-target // num_blocks)))
@@ -458,21 +473,38 @@ def weight_tiles(k: int, c_in: int, c_out: int) -> tuple:
     return -(-c_in * c_out // 128), -(-k // 64)
 
 
+def lowrank_weight_tiles(rank: int, c_in: int, c_out: int) -> int:
+    """Column tiles of the bfloat16 B4 weights kernel's output [K+1,
+    r*(c_in+c_out)]: 128 columns each; K+1 <= 65 rows are one tile (dw3 on
+    the tensor cores, db3 summed by the thread that forms its column)."""
+    return -(-rank * (c_in + c_out) // 128)
+
+
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def occupancy(k: int, c_in: int, c_out: int) -> dict:
+def occupancy(k: int, c_in: int, c_out: int,
+              rank: int | None = None) -> dict:
     """Thread blocks of each bfloat16 tensor-core kernel that one SM of the
     current card holds at once at these widths (the CUDA runtime's
-    occupancy query, with each kernel's shared memory)."""
-    fwd = _load_kernel("fused_edge_conv_wgmma")
-    bwd = _load_kernel("fused_edge_conv_bwd_wgmma")
-    return {"fwd": fwd.fused_edge_conv_wgmma_blocks_per_sm(k, c_in, c_out),
-            "bwd_rows": bwd.fused_edge_conv_bwd_wgmma_blocks_per_sm(
-                k, c_in, c_out, 0),
-            "bwd_weights": bwd.fused_edge_conv_bwd_wgmma_blocks_per_sm(
-                k, c_in, c_out, 1)}
+    occupancy query, with each kernel's shared memory): B1's and B2's, or
+    at a ``rank`` B3's and B4's."""
+    if rank is None:
+        fwd = _load_kernel("fused_edge_conv_wgmma")
+        bwd = _load_kernel("fused_edge_conv_bwd_wgmma")
+        return {"fwd": fwd.fused_edge_conv_wgmma_blocks_per_sm(k, c_in, c_out),
+                "bwd_rows": bwd.fused_edge_conv_bwd_wgmma_blocks_per_sm(
+                    k, c_in, c_out, 0),
+                "bwd_weights": bwd.fused_edge_conv_bwd_wgmma_blocks_per_sm(
+                    k, c_in, c_out, 1)}
+    fwd = _load_kernel("fused_edge_conv_lowrank_wgmma")
+    bwd = _load_kernel("fused_edge_conv_lowrank_bwd_wgmma")
+    query = bwd.fused_edge_conv_lowrank_bwd_wgmma_blocks_per_sm
+    return {"fwd": fwd.fused_edge_conv_lowrank_wgmma_blocks_per_sm(
+                k, c_in, c_out, rank),
+            "bwd_rows": query(k, c_in, c_out, rank, 0),
+            "bwd_weights": query(k, c_in, c_out, rank, 1)}
 
 
 def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
@@ -770,11 +802,15 @@ def fused_edge_conv_lowrank_plain(h_blocked, x, senders_perm, w3, b3, s, *,
 def fused_edge_conv_lowrank_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
                                  c_in: int, c_out: int, rank: int,
                                  rows_blk: int, blk: int) -> torch.Tensor:
-    """Launches the rank-r forward kernel (csrc/fused_edge_conv_lowrank.cu)
-    on the current stream.  h_blocked, x and w3 share one dtype (float32 or
-    bfloat16, the GEMM input type); b3 and S are float32, index arrays
-    int32.  Checks every operand and raises on what the kernel does not
-    take; raises if the launch fails."""
+    """Launches the rank-r forward kernel on the current stream: the
+    tensor-core design (csrc/fused_edge_conv_lowrank_wgmma.cu) or the FMA
+    design (csrc/fused_edge_conv_lowrank.cu), as ``design(dtype, rank)``
+    says.  h_blocked, x and w3 share one dtype (float32 or bfloat16, the
+    GEMM input type); b3 and S are float32, index arrays int32.  Checks
+    every operand and raises on what the kernel does not take; raises if
+    the launch fails.  The tensor-core kernel splits each receiver block's
+    slot walk into ``conv_parts`` parts whose partial sums are added here in
+    a fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
     _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out,
@@ -792,22 +828,31 @@ def fused_edge_conv_lowrank_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
                     ("b3", b3)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
-    lib = _load_kernel("fused_edge_conv_lowrank")
-    out = torch.empty((nb * rows_blk, c_out), dtype=torch.float32, device=dev)
+    wgmma = design(dt, rank) == "wgmma"
+    name = "fused_edge_conv_lowrank" + ("_wgmma" if wgmma else "")
+    lib = _load_kernel(name)
+    parts = conv_parts(nb, blk // 64, _sms(dev)) if wgmma else 1
+    out = torch.empty((parts, nb * rows_blk, c_out), dtype=torch.float32,
+                      device=dev)
+    args = (h_blocked.data_ptr(), x.data_ptr(), senders_perm.data_ptr(),
+            w3.data_ptr(), b3.data_ptr(), *ptrs, out.data_ptr(), nb, blk, k,
+            c_in, c_out, rank, n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_edge_conv_lowrank_forward(
-            h_blocked.data_ptr(), x.data_ptr(), senders_perm.data_ptr(),
-            w3.data_ptr(), b3.data_ptr(), *ptrs, out.data_ptr(), nb, blk, k,
-            c_in, c_out, rank, n, int(dt == torch.bfloat16), stream)
+        if wgmma:
+            err = lib.fused_edge_conv_lowrank_wgmma_forward(*args, parts,
+                                                            stream)
+        else:
+            err = lib.fused_edge_conv_lowrank_forward(
+                *args, int(dt == torch.bfloat16), stream)
     if err != 0:
-        smem = lib.fused_edge_conv_lowrank_smem_bytes(k, c_in, c_out, rank)
+        smem = getattr(lib, f"{name}_smem_bytes")(k, c_in, c_out, rank)
         raise RuntimeError(
-            f"fused_edge_conv_lowrank kernel launch failed: cudaError {err} "
+            f"{name} kernel launch failed: cudaError {err} "
             f"(K={k}, c_in={c_in}, c_out={c_out}, rank={rank}: {smem} B of "
             "shared memory per block)")
     fused_edge_conv_lowrank.launches += 1
-    return out
+    return out[0] if parts == 1 else out.sum(0)
 
 
 def fused_edge_conv_lowrank(h_blocked, x, senders_perm, w3, b3, s, *,
@@ -864,13 +909,15 @@ def fused_edge_conv_lowrank_bwd_plain(g, h_blocked, x_src, w3, b3, s, *,
 def fused_edge_conv_lowrank_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *,
                                      c_in: int, c_out: int, rank: int,
                                      rows_blk: int, blk: int):
-    """Launches the rank-r backward kernel
-    (csrc/fused_edge_conv_lowrank_bwd.cu) on the current stream.  h_blocked,
-    x_src and w3 share one dtype (float32 or bfloat16, the GEMM input type);
-    g, b3 and S are float32, slot_rows int32.  Checks every operand and
-    raises on what the kernel does not take; raises if the launch fails.
-    Returns (dh, dx_src, dw3, db3), float32; dw3/db3 are the kernel's
-    per-split partials summed in a fixed order."""
+    """Launches the rank-r backward kernels on the current stream: the
+    tensor-core design (csrc/fused_edge_conv_lowrank_bwd_wgmma.cu) or the
+    FMA design (csrc/fused_edge_conv_lowrank_bwd.cu), as ``design(dtype,
+    rank)`` says.  h_blocked, x_src and w3 share one dtype (float32 or
+    bfloat16, the GEMM input type); g, b3 and S are float32, slot_rows
+    int32.  Checks every operand and raises on what the kernel does not
+    take; raises if the launch fails.  Returns (dh, dx_src, dw3, db3),
+    float32; dw3/db3 are the kernel's per-split partials summed in a fixed
+    order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
     _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out,
@@ -886,31 +933,42 @@ def fused_edge_conv_lowrank_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *,
     for name, t in (("g", g), ("x_src", x_src), ("w3", w3), ("b3", b3)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
-    lib = _load_kernel("fused_edge_conv_lowrank_bwd")
+    wgmma = design(dt, rank) == "wgmma"
+    name = "fused_edge_conv_lowrank_bwd" + ("_wgmma" if wgmma else "")
+    lib = _load_kernel(name)
     f32 = dict(dtype=torch.float32, device=dev)
     dh = torch.empty((slots, k), **f32)
     dx_src = torch.empty((slots, c_in), **f32)
-    # scratch between the launches: per-slot dmsg, t and dt
-    dmsg = torch.empty((slots, c_out), **f32)
+    # scratch between the launches: per-slot dmsg (bfloat16 values, stored
+    # so by the tensor-core design), t and dt
+    dmsg = torch.empty((slots, c_out), dtype=dt if wgmma else torch.float32,
+                       device=dev)
     t_vec = torch.empty((slots, rank), **f32)
     dt_vec = torch.empty((slots, rank), **f32)
-    # 8-channel column tiles of the U and the V half
-    splits = _weight_splits(slots, -(-c_in // 8) + -(-c_out // 8), dev)
+    if wgmma:  # 128-column tiles
+        splits = _weight_splits(slots, lowrank_weight_tiles(rank, c_in, c_out),
+                                dev)
+    else:  # 8-channel column tiles of the U and the V half
+        splits = _weight_splits(slots, -(-c_in // 8) + -(-c_out // 8), dev)
     partial = torch.empty((splits, k + 1, ncol), **f32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_edge_conv_lowrank_backward(
-            g.data_ptr(), h_blocked.data_ptr(), x_src.data_ptr(),
+    args = (g.data_ptr(), h_blocked.data_ptr(), x_src.data_ptr(),
             w3.data_ptr(), b3.data_ptr(), *ptrs, dh.data_ptr(),
             dx_src.data_ptr(), dmsg.data_ptr(), t_vec.data_ptr(),
             dt_vec.data_ptr(), partial.data_ptr(), nb, blk, k, c_in, c_out,
-            rank, splits, int(dt == torch.bfloat16), stream)
+            rank, splits)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if wgmma:
+            err = lib.fused_edge_conv_lowrank_bwd_wgmma_backward(*args, stream)
+        else:
+            err = lib.fused_edge_conv_lowrank_backward(
+                *args, int(dt == torch.bfloat16), stream)
     if err != 0:
-        smem = lib.fused_edge_conv_lowrank_bwd_smem_bytes(k, c_in, c_out, rank)
+        smem = getattr(lib, f"{name}_smem_bytes")(k, c_in, c_out, rank)
         raise RuntimeError(
-            f"fused_edge_conv_lowrank_bwd kernel launch failed: cudaError "
-            f"{err} (K={k}, c_in={c_in}, c_out={c_out}, rank={rank}: {smem} B "
-            "of shared memory per block)")
+            f"{name} kernel launch failed: cudaError {err} (K={k}, "
+            f"c_in={c_in}, c_out={c_out}, rank={rank}: {smem} B of shared "
+            "memory per block)")
     fused_edge_conv_lowrank_bwd.launches += 1
     total = partial.sum(0)
     return dh, dx_src, total[:k], total[k]

@@ -1,7 +1,7 @@
-"""The port's CUDA kernels (B1 forward, B2 backward, each in its float32 FMA
-and its bfloat16 tensor-core design, their rank-r counterparts B3 and B4,
-and B5, the per-edge messages) against their plain PyTorch versions, on the
-card.
+"""The port's CUDA kernels (B1 forward, B2 backward, their rank-r
+counterparts B3 and B4, each in its float32 FMA and its bfloat16 tensor-core
+design, and B5, the per-edge messages) against their plain PyTorch versions,
+on the card.
 
 Every test here is marked ``gpu`` and skips on a machine without CUDA.  The
 file imports neither jax nor the test conftest's JAX setup, so it runs where
@@ -518,3 +518,123 @@ def test_fused_edge_conv_lowrank_grads_on_card_match_cpu(cuda, compact):
     for name, a, b in zip(("h", "x", "w3", "b3"), got, grads("cpu")):
         err = (a - b).abs().max().item() / b.abs().max().item()
         assert err < BWD_TOL, (name, err)
+
+
+# The bfloat16 B3 and B4 at ranks that are a multiple of 8 run on the tensor
+# cores (csrc/fused_edge_conv_lowrank*_wgmma.cu); other ranks and float32
+# keep the FMA design.  Widths, K and ranks around the chunks' granularity
+# (whole channels of 128 // r, 8-column groups, depth 16): TOL / BWD_TOL of
+# each output's max, as for the FMA design.
+LOWRANK_WGMMA = [(48, 48, 16), (48, 17, 8), (16, 64, 32), (5, 1, 16),
+                 (64, 48, 24), (24, 20, 16), (12, 33, 8)]
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("c,k,rank", LOWRANK_WGMMA)
+def test_lowrank_wgmma_kernels_match_plain(cuda, c, k, rank, compact):
+    assert tfc.design(torch.bfloat16, rank) == "wgmma"
+    blocks, h, x, w3, b3 = _lowrank_operands(c, rank, seed=c + k + rank, k=k)
+    fwd = tfc.fused_edge_conv_lowrank.launches
+    bwd = tfc.fused_edge_conv_lowrank_bwd.launches
+    got = _lowrank(blocks, h, x, w3, b3, c, rank, "bfloat16", compact, "cuda")
+    args = (blocks, _g(blocks, c, k + 2), h, x[blocks.senders_perm], w3, b3,
+            c, rank, "bfloat16", compact)
+    got_bwd = _lowrank_bwd(*args, "cuda")
+    torch.cuda.synchronize()
+    assert tfc.fused_edge_conv_lowrank.launches == fwd + 1
+    assert tfc.fused_edge_conv_lowrank_bwd.launches == bwd + 1
+    ref = _lowrank(blocks, h, x, w3, b3, c, rank, "bfloat16", compact, "cpu")
+    err = (got.cpu() - ref).abs().max().item() / ref.abs().max().item()
+    assert err < TOL, err
+    for name, a, b in zip(("dh", "dx_src", "dw3", "db3"), got_bwd,
+                          _lowrank_bwd(*args, "cpu")):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        err = (a.cpu() - b).abs().max().item() / b.abs().max().item()
+        assert err < BWD_TOL, (name, err)
+
+
+def _lowrank_head(k, c, rank, seed):
+    rng = np.random.default_rng(seed)
+    return ((rng.normal(size=(k, 2 * rank * c)) * 0.2).astype(np.float32),
+            (rng.normal(size=(2 * rank * c,)) * 0.1).astype(np.float32))
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("n", [300, 50])
+def test_lowrank_wgmma_padding_tiles_and_one_block(cuda, n, compact):
+    """Tiles of padding only (n = 300) and a graph of one receiver block
+    (n = 50: every part of B3's walk is one tile) against the plain
+    versions."""
+    c, k, rank = 24, 20, 16
+    if n == 50:
+        blocks, h, x, _, _ = _operands(c, k=k, seed=31, n=50, e=700)
+        assert blocks.num_blocks == 1
+    else:
+        blocks, h, x, _, _ = _skewed_operands(c, k, seed=32, n=n)
+        pad_tiles = (blocks.compact_s.slot_rows.reshape(-1, 64) < 0).all(1)
+        assert pad_tiles.sum() >= blocks.blk // 64
+    w3, b3 = _lowrank_head(k, c, rank, 33)
+    got = _lowrank(blocks, h, x, w3, b3, c, rank, "bfloat16", compact, "cuda")
+    args = (blocks, _g(blocks, c, 34), h, x[blocks.senders_perm], w3, b3, c,
+            rank, "bfloat16", compact)
+    got_bwd = _lowrank_bwd(*args, "cuda")
+    torch.cuda.synchronize()
+    ref = _lowrank(blocks, h, x, w3, b3, c, rank, "bfloat16", compact, "cpu")
+    err = (got.cpu() - ref).abs().max().item() / ref.abs().max().item()
+    assert err < TOL, err
+    for name, a, b in zip(("dh", "dx_src", "dw3", "db3"), got_bwd,
+                          _lowrank_bwd(*args, "cpu")):
+        err = (a.cpu() - b).abs().max().item() / b.abs().max().item()
+        assert err < BWD_TOL, (name, err)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_lowrank_wgmma_kernels_bit_identical(cuda, compact):
+    """No atomics: two launches on the same inputs give the same bits."""
+    c, k, rank = 48, 48, 16
+    blocks, h, x, w3, b3 = _lowrank_operands(c, rank, seed=35, k=k)
+    args = (blocks, _g(blocks, c, 36), h, x[blocks.senders_perm], w3, b3, c,
+            rank, "bfloat16", compact)
+    runs = [(_lowrank(blocks, h, x, w3, b3, c, rank, "bfloat16", compact,
+                      "cuda"), *_lowrank_bwd(*args, "cuda")) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_fused_edge_conv_lowrank_bf16_grads_on_card_match_cpu(cuda):
+    """FusedEdgeConvLowrank in bfloat16 (the tensor-core B3 and B4, rank
+    16) on the card against the same layer's plain versions on the CPU:
+    BWD_TOL of each gradient's max."""
+    c, k, rank = 48, 48, 16
+    blocks, h, x, w3, b3 = _lowrank_operands(c, rank, seed=37, k=k)
+    g = _g(blocks, c, 38)
+
+    def grads(device):
+        aux = {key: torch.as_tensor(v, device=device)
+               for key, v in blocks.train_aux().items()}
+        ts = [torch.tensor(a, device=device, requires_grad=True)
+              for a in (h, x, w3, b3)]
+        out = tfc.fused_edge_conv_lowrank_ad(
+            *ts, blocks.compact_s.to(device), aux, c_in=c, c_out=c,
+            rank=rank, rows_blk=blocks.rows_blk, blk=blocks.blk,
+            gemm_dtype="bfloat16")
+        (out * torch.as_tensor(g, device=device)).sum().backward()
+        return [t.grad.cpu() for t in ts]
+
+    fwd = tfc.fused_edge_conv_lowrank.launches
+    bwd = tfc.fused_edge_conv_lowrank_bwd.launches
+    got = grads("cuda")
+    torch.cuda.synchronize()
+    assert tfc.fused_edge_conv_lowrank.launches == fwd + 1
+    assert tfc.fused_edge_conv_lowrank_bwd.launches == bwd + 1
+    for name, a, b in zip(("h", "x", "w3", "b3"), got, grads("cpu")):
+        err = (a - b).abs().max().item() / b.abs().max().item()
+        assert err < BWD_TOL, (name, err)
+
+
+def test_lowrank_occupancy_query(cuda):
+    """The tensor-core B3/B4 kernels fit an SM at the model's widths."""
+    occ = tfc.occupancy(48, 48, 48, rank=16)
+    assert set(occ) == {"fwd", "bwd_rows", "bwd_weights"}
+    assert all(v >= 1 for v in occ.values()), occ

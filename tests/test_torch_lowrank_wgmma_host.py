@@ -1,0 +1,421 @@
+"""Host-side pieces of the bfloat16 tensor-core B3 and B4
+(csrc/fused_edge_conv_lowrank_wgmma.cu, csrc/fused_edge_conv_lowrank_bwd_wgmma.cu
+and csrc/lowrank_wgmma.cuh), on the CPU: the design rule by type and rank,
+the exact three-part bf16 split of float32 values that the weights kernel
+relies on, the wgmma accumulator's column -> (channel, q) mapping, the chunk
+schedules and column tiles, a numpy emulation of both kernels' tile loops
+(the w3 pieces they stage, the accumulator values each thread holds, the
+per-thread sums and quad shuffles) against the plain versions' indexing, and
+the wrappers refusing geometry they do not take."""
+
+import numpy as np
+import pytest
+import torch
+
+from fast_eng_super_resolution_tpu_torch.ops import fused_conv as tfc
+
+THREADS = np.arange(128)[:, None]   # a warpgroup's threads
+VALUES = np.arange(64)[None, :]     # an m64n128 accumulator's values j
+
+
+def acc_row(t, j):
+    """wgmma_tile.cuh acc_row: the row of value j of thread t."""
+    return 16 * (t // 32) + (t % 32) // 4 + 8 * ((j >> 1) & 1)
+
+
+def acc_col(t, j):
+    """wgmma_tile.cuh acc_col: the column of value j of thread t."""
+    return 8 * (j >> 2) + 2 * (t % 4) + (j & 1)
+
+
+def channel_of(j, r8):
+    """lowrank_wgmma.cuh channel_of."""
+    return (j >> 2) // r8
+
+
+def q_of(t, j, r8):
+    """lowrank_wgmma.cuh q_of."""
+    return 8 * ((j >> 2) % r8) + 2 * (t % 4) + (j & 1)
+
+
+def lowrank_chunks(k, c_in, c_out, rank, backward=False):
+    """The 128-column chunks B3 (``backward`` False) or B4's rows kernel
+    walks per 64-slot tile, in order, as (kind, first column, columns), as
+    the kernels build them: 'u' and 'v' chunks of uv's U and V columns in
+    whole channels of G = 128 // rank; in B4 the V chunks first, then the U
+    chunks, then for each group of G rows k of w3 a 'p' chunk (P = x_src @
+    W3U) and a 'q' chunk (Q = dmsg @ W3V) over the (k, q) columns
+    k*rank + q."""
+    g = 128 // rank
+
+    def groups(kind, n, base):
+        return [(kind, base + c0 * rank, min(g, n - c0) * rank)
+                for c0 in range(0, n, g)]
+
+    u = groups("u", c_in, 0)
+    v = groups("v", c_out, rank * c_in)
+    if not backward:
+        return u + v
+    pq = [c for p, q in zip(groups("p", k, 0), groups("q", k, 0))
+          for c in (p, q)]
+    return v + u + pq
+
+
+@pytest.mark.parametrize("dt,rank,want", [
+    (torch.bfloat16, None, "wgmma"), (torch.float32, None, "fma"),
+    (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 16, "wgmma"),
+    (torch.bfloat16, 24, "wgmma"), (torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, 3, "fma"), (torch.bfloat16, 12, "fma"),
+    (torch.bfloat16, 1, "fma"), (torch.float32, 16, "fma"),
+    (torch.float32, 3, "fma")])
+def test_design_by_type_and_rank(dt, rank, want):
+    """bfloat16 B1/B2 and bfloat16 B3/B4 at ranks that are a multiple of 8
+    take the tensor cores; float32 and the other ranks the FMA design."""
+    assert tfc.design(dt, rank) == want
+
+
+def _split3(v: torch.Tensor):
+    d1 = v.to(torch.bfloat16).float()
+    r1 = v - d1
+    d2 = r1.to(torch.bfloat16).float()
+    d3 = (r1 - d2).to(torch.bfloat16).float()
+    return d1, d2, d3
+
+
+def _float32_values(kind: str, n: int = 200_000) -> torch.Tensor:
+    rng = np.random.default_rng(["normal", "tiny", "huge", "negative",
+                                 "products"].index(kind))
+    if kind == "products":  # duv as the kernel forms it: bf16 x float32
+        a = torch.as_tensor(rng.normal(size=n), dtype=torch.float32)
+        b = torch.as_tensor(rng.normal(size=n) * np.exp2(rng.integers(-30, 30, n)),
+                            dtype=torch.float32)
+        return a.to(torch.bfloat16).float() * b
+    lo, hi = {"normal": (-30, 30), "tiny": (-110, -90), "huge": (100, 127),
+              "negative": (-60, 60)}[kind]
+    # full 24-bit significands, so that all three parts carry bits
+    mant = 1.0 + rng.integers(0, 1 << 23, n) / float(1 << 23)
+    v = mant * np.exp2(rng.integers(lo, hi, n).astype(np.float64))
+    if kind == "huge":
+        v = np.minimum(v, 3.38e38)
+    sign = -1.0 if kind == "negative" else rng.choice([-1.0, 1.0], n)
+    return torch.as_tensor(sign * v, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["normal", "tiny", "huge", "negative",
+                                  "products"])
+def test_three_part_split_is_exact(kind):
+    """d1 = bf16(v), d2 = bf16(v - d1), d3 = bf16(v - d1 - d2): each
+    remainder is exact in float32 and 8 + 8 + 8 significant bits cover
+    float32's 24, so d1 + d2 + d3 == v exactly (in float64), for tiny
+    (2^-110), huge (up to 3.38e38) and negative values alike."""
+    v = _float32_values(kind)
+    d1, d2, d3 = _split3(v)
+    for d in (d1, d2, d3):  # each part is a bf16 value
+        assert torch.equal(d.to(torch.bfloat16).float(), d)
+        assert torch.isfinite(d).all()
+    assert torch.equal(d1.double() + d2.double() + d3.double(), v.double())
+    # the split is not trivial: the third part carries bits for most values
+    assert (d3 != 0).float().mean() > 0.5
+
+
+def test_two_part_split_is_not_exact():
+    """Two bf16 parts cover 16 of float32's 24 significant bits: without
+    the third, most float32 values are not represented."""
+    v = _float32_values("products")
+    d1, d2, _ = _split3(v)
+    assert (d1.double() + d2.double() != v.double()).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("rank", [8, 16, 24, 32])
+def test_accumulator_maps_to_channel_and_q(rank):
+    """The column of accumulator value j of thread t is channel
+    channel_of(j) * rank + q_of(t, j) of its chunk; every thread holds the
+    same 2 r/8 values of q for every channel, and the 4 threads of a quad
+    (one row) hold each (channel, q) of the chunk's whole channels once."""
+    r8 = rank // 8
+    g = 128 // rank
+    col = acc_col(THREADS, VALUES)
+    ch = channel_of(VALUES, r8) + 0 * THREADS
+    q = q_of(THREADS, VALUES, r8)
+    real = ch < g  # r = 24: the last 8 of 128 columns hold no whole channel
+    assert np.array_equal((ch * rank + q)[real], col[real])
+    assert (q[real] < rank).all()
+    for t in range(128):
+        sets = [set(q[t][(ch[t] == c) & real[t]]) for c in range(g)]
+        assert all(s == sets[0] for s in sets) and len(sets[0]) == 2 * r8
+    rows = acc_row(THREADS, VALUES)
+    for quad in range(32):
+        for row in set(rows[4 * quad:4 * quad + 4].ravel()):
+            sel = (rows[4 * quad:4 * quad + 4] == row) & real[4 * quad:4 * quad + 4]
+            pairs = sorted(zip(ch[4 * quad:4 * quad + 4][sel],
+                               q[4 * quad:4 * quad + 4][sel]))
+            assert pairs == [(c, qq) for c in range(g) for qq in range(rank)]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("k,c_in,c_out,rank", [
+    (48, 48, 48, 16), (48, 48, 48, 8), (64, 64, 64, 32), (17, 5, 7, 16),
+    (1, 1, 1, 8), (20, 30, 13, 24), (64, 64, 64, 24)])
+def test_lowrank_chunks_cover_every_column_once_in_order(k, c_in, c_out,
+                                                         rank, backward):
+    """The forward walks uv's U then V columns; the rows kernel its V then U
+    columns, then P and Q chunks over the (k, q) columns in pairs: each
+    column once, in order, in chunks of whole channels of at most 128
+    columns."""
+    chunks = lowrank_chunks(k, c_in, c_out, rank, backward)
+    ru, ncol = rank * c_in, rank * (c_in + c_out)
+    for kind, lo, cw in chunks:
+        assert 0 < cw <= 128 and cw % rank == 0 and lo % rank == 0
+        assert cw == 128 // rank * rank or lo + cw in (ru, ncol, k * rank)
+    uv = [c for c in chunks if c[0] in "uv"]
+    order = (sorted(uv, key=lambda c: (c[0] == "u", c[1])) if backward
+             else sorted(uv, key=lambda c: c[1]))
+    assert uv == order
+    covered = [col for _, lo, cw in uv for col in range(lo, lo + cw)]
+    assert sorted(covered) == list(range(ncol))
+    assert all(c[1] < ru for c in uv if c[0] == "u")
+    pq = [c for c in chunks if c[0] in "pq"]
+    if not backward:
+        assert not pq
+        return
+    assert chunks[:len(uv)] == uv and chunks[len(uv):] == pq
+    assert [c[0] for c in pq] == ["p", "q"] * (len(pq) // 2)
+    for kind in "pq":
+        cols = [col for kd, lo, cw in pq if kd == kind
+                for col in range(lo, lo + cw)]
+        assert cols == list(range(k * rank))
+
+
+@pytest.mark.parametrize("rank,c_in,c_out", [(16, 48, 48), (8, 5, 5),
+                                             (32, 64, 64), (24, 13, 30)])
+def test_lowrank_weight_tiles_cover_the_output_once(rank, c_in, c_out):
+    tiles = tfc.lowrank_weight_tiles(rank, c_in, c_out)
+    ncol = rank * (c_in + c_out)
+    cover = np.zeros(tiles * 128, np.int32)
+    for n in range(tiles):
+        cover[n * 128:(n + 1) * 128] += 1
+    assert (cover[:ncol] == 1).all() and (tiles - 1) * 128 < ncol
+    # with the slot splits the wrapper picks, every 64-slot chunk once, in
+    # order (a split past the last chunk writes a zero partial)
+    chunks = 247_808 // 64
+    splits = tfc.weight_splits(247_808, tiles, 132)
+    per = -(-chunks // splits)  # as the kernel cuts them
+    got = [c for sp in range(splits)
+           for c in range(sp * per, min((sp + 1) * per, chunks))]
+    assert got == list(range(chunks))
+
+
+# ---------------------------------------------------------------------------
+# numpy emulation of the kernels' tile loops (float64, one 64-slot tile)
+
+
+def _stage(w3, kind, lo, cw, depth, real, rank, c_in):
+    """The B operand [128 columns, depth] as ChunkStage stages it: piece p
+    of 8 columns at depth row d read as 8 consecutive entries of w3 from the
+    piece's offset (lowrank_wgmma.cuh), zeros outside the chunk."""
+    ncol = w3.shape[1]
+    flat = w3.reshape(-1)
+    b = np.zeros((128, depth))
+    for d in range(depth):
+        for n in range(0, 128, 8):
+            if d >= real or n >= cw:
+                continue
+            if kind == "uv":
+                off = d * ncol + lo + n
+            else:
+                col = lo + n
+                kk, q = col // rank, col % rank
+                off = kk * ncol + (rank * c_in if kind == "q" else 0) + d * rank + q
+            b[n:n + 8, d] = flat[off:off + 8]
+    return b
+
+
+def _products(a, b):
+    """Each thread's accumulator values of a m64n128 product a @ b^T."""
+    full = np.zeros((64, 128))
+    full[:, :] = a @ b.T
+    return full[acc_row(THREADS, VALUES), acc_col(THREADS, VALUES)]
+
+
+def _tile(rank, c_in, c_out, k, seed):
+    rng = np.random.default_rng(seed)
+    ncol = rank * (c_in + c_out)
+    return dict(h=rng.normal(size=(64, k)), x=rng.normal(size=(64, c_in)),
+                d=rng.normal(size=(64, c_out)),
+                w3=rng.normal(size=(k, ncol)), b3=rng.normal(size=ncol))
+
+
+def _pad(a, depth):
+    return np.pad(a, ((0, 0), (0, depth - a.shape[1])))
+
+
+def _plain(o, rank, c_in):
+    """The plain versions' quantities for one tile, written out."""
+    uv = o["h"] @ o["w3"] + o["b3"]
+    u = uv[:, :rank * c_in].reshape(64, c_in, rank)
+    v = uv[:, rank * c_in:].reshape(64, -1, rank)
+    t = np.einsum("ei,eiq->eq", o["x"], u)
+    dt = np.einsum("eo,eoq->eq", o["d"], v)
+    duv = np.concatenate([(o["x"][:, :, None] * dt[:, None, :]).reshape(64, -1),
+                          (o["d"][:, :, None] * t[:, None, :]).reshape(64, -1)], 1)
+    return dict(t=t, msg=np.einsum("eq,eoq->eo", t, v), dt=dt,
+                dx=np.einsum("eiq,eq->ei", u, dt), duv=duv,
+                dh=duv @ o["w3"].T)
+
+
+def _emulate(o, rank, c_in, c_out, k, backward):
+    """Both kernels' chunk loops over one tile, thread by thread: t and dt
+    accumulated per thread at its q (tq, dq [thread, half, r/8, 2]), msg,
+    dx_src and dh as per-thread partials summed over each quad."""
+    r8, g = rank // 8, 128 // rank
+    kp, dpi, dpo = (-(-n // 16) * 16 for n in (k, c_in, c_out))
+    rows = acc_row(THREADS, VALUES)
+    hf, m, b = (VALUES >> 1) & 1, (VALUES >> 2) % r8, VALUES & 1
+    ch = channel_of(VALUES, r8) + 0 * THREADS
+    q = q_of(THREADS, VALUES, r8)
+    tq = np.zeros((128, 2, r8, 2))
+    dq = np.zeros((128, 2, r8, 2))
+    out = {"msg": np.zeros((64, c_out)), "dx": np.zeros((64, c_in)),
+           "dh": np.zeros((64, k))}
+    t_idx = (THREADS + 0 * VALUES, hf + 0 * THREADS, m + 0 * THREADS,
+             b + 0 * THREADS)
+    dh_p = None
+    for kind, lo, cw in lowrank_chunks(k, c_in, c_out, rank, backward):
+        real = ch < cw // rank
+        if kind in "uv":
+            acc = _products(_pad(o["h"], kp),
+                            _stage(o["w3"], "uv", lo, cw, kp, k, rank, c_in))
+            base = lo // rank - (c_in if kind == "v" else 0)  # first channel
+            uv = acc + o["b3"][np.minimum(lo + ch * rank + q, len(o["b3"]) - 1)]
+            chan = base + ch
+        else:
+            a, depth, real_d = ((o["x"], dpi, c_in) if kind == "p"
+                                else (o["d"], dpo, c_out))
+            acc = _products(_pad(a, depth),
+                            _stage(o["w3"], kind, lo, cw, depth, real_d, rank,
+                                   c_in))
+            chan = lo // rank + ch
+        if kind == "u":
+            xv = o["x"][rows, np.minimum(chan, c_in - 1)]
+            np.add.at(tq, t_idx, np.where(real, xv * uv, 0.0))
+            if backward:  # dx_src: partials of U dt, summed over the quad
+                part = np.where(real, uv * dq[t_idx], 0.0)
+                np.add.at(out["dx"], (rows, np.minimum(chan, c_in - 1)), part)
+        elif kind == "v":
+            if backward:  # dt += dmsg V
+                dv = o["d"][rows, np.minimum(chan, c_out - 1)]
+                np.add.at(dq, t_idx, np.where(real, dv * uv, 0.0))
+            else:  # msg: partials of V t, summed over the quad
+                part = np.where(real, uv * tq[t_idx], 0.0)
+                np.add.at(out["msg"], (rows, np.minimum(chan, c_out - 1)), part)
+        elif kind == "p":  # the P half of dh, held until the Q chunk
+            dh_p = np.where(real, acc * dq[t_idx], 0.0)
+        else:
+            part = dh_p + np.where(real, acc * tq[t_idx], 0.0)
+            np.add.at(out["dh"], (rows, np.minimum(chan, k - 1)), part)
+    # t and dt as the rows kernel writes them: thread t's (half, m, b) at
+    # row r0 + 8 half, q = q_of(4 m + b)
+    for name, acc in (("t", tq), ("dt", dq)):
+        vec = np.full((64, rank), np.nan)
+        for th in range(128):
+            for h2 in range(2):
+                for mm in range(r8):
+                    for bb in range(2):
+                        j = 4 * mm + bb + 2 * h2
+                        vec[acc_row(th, j), q_of(th, 4 * mm + bb, r8)] = \
+                            acc[th, h2, mm, bb]
+        out[name] = vec
+    return out
+
+
+@pytest.mark.parametrize("rank,c_in,c_out,k", [
+    (16, 48, 48, 48), (8, 12, 12, 5), (24, 7, 11, 33), (32, 9, 9, 64),
+    (16, 5, 5, 1)])
+def test_forward_tile_loop_matches_plain_indexing(rank, c_in, c_out, k):
+    """B3's tile loop as the kernel runs it (chunks of whole channels, the
+    accumulator's (channel, q) per thread, t in registers, msg as quad
+    sums) gives the plain version's t and msg."""
+    o = _tile(rank, c_in, c_out, k, seed=rank + k)
+    got = _emulate(o, rank, c_in, c_out, k, backward=False)
+    want = _plain(o, rank, c_in)
+    np.testing.assert_allclose(got["t"], want["t"], rtol=1e-12, atol=1e-10)
+    np.testing.assert_allclose(got["msg"], want["msg"], rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.parametrize("rank,c_in,c_out,k", [
+    (16, 48, 48, 48), (8, 12, 12, 5), (24, 7, 11, 33), (32, 9, 9, 64),
+    (16, 5, 5, 1)])
+def test_backward_tile_loop_matches_plain_indexing(rank, c_in, c_out, k):
+    """B4's rows kernel as it runs (dt from the V chunks, t and dx_src from
+    the U chunks, dh from the factored P = x_src W3U and Q = dmsg W3V
+    products weighted by dt and t) gives the plain version's dt, t, dx_src
+    and dh = duv w3^T."""
+    o = _tile(rank, c_in, c_out, k, seed=rank + k + 1)
+    got = _emulate(o, rank, c_in, c_out, k, backward=True)
+    want = _plain(o, rank, c_in)
+    for name in ("t", "dt", "dx", "dh"):
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-12,
+                                   atol=1e-9, err_msg=name)
+
+
+@pytest.mark.parametrize("k", [48, 17, 64])
+def test_weights_kernel_split_products_give_dw3(k):
+    """The weights kernel's three passes h^T d1 + h^T d2 + h^T d3 over duv's
+    exact split equal h^T duv (float64: each bf16 x bf16 product is exact),
+    and db3 is summed from duv itself."""
+    rank, c = 16, 12
+    o = _tile(rank, c, c, k, seed=k)
+    h = torch.as_tensor(o["h"], dtype=torch.float32).to(torch.bfloat16).double()
+    duv = torch.as_tensor(_plain(o, rank, c)["duv"], dtype=torch.float32)
+    parts = _split3(duv)
+    got = sum(h.t() @ d.double() for d in parts)
+    torch.testing.assert_close(got, h.t() @ duv.double(), rtol=1e-13,
+                               atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers refuse what the kernels do not take, before any launch
+
+
+def _small(rank=16, c=8, k=6):
+    rng = np.random.default_rng(4)
+    recv = np.sort(rng.integers(0, 100, 300)).astype(np.int32)
+    send = rng.integers(0, 100, 300).astype(np.int32)
+    blocks = tfc.build_scatter_blocks(recv, send, 100, quantum=64)
+    slots = len(blocks.senders_perm)
+    ncol = 2 * rank * c
+    bf = lambda a: torch.as_tensor(a, dtype=torch.float32).bfloat16()  # noqa: E731
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)  # noqa: E731
+    s = blocks.compact_s.to("cpu")
+    fwd = (bf(rng.normal(size=(slots, k))), bf(rng.normal(size=(100, c))),
+           torch.as_tensor(blocks.senders_perm), bf(rng.normal(size=(k, ncol))),
+           f32(rng.normal(size=ncol)), s)
+    bwd = (f32(rng.normal(size=(blocks.n_pad, c))), fwd[0],
+           bf(rng.normal(size=(slots, c))), fwd[3], fwd[4], s)
+    return fwd, bwd, dict(c_in=c, c_out=c, rank=rank, rows_blk=64,
+                          blk=blocks.blk)
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+@pytest.mark.parametrize("bad,match", [
+    ({"rank": 33}, "rank=33"), ({"rank": 0}, "rank=0"),
+    ({"c_out": 65}, "c_out=65"), ({"c_in": 0}, "c_in=0"),
+    ({"rows_blk": 16}, "rows_blk=16"), ({"blk": 32}, "blk=32")])
+def test_lowrank_wrappers_refuse_geometry_before_launch(which, bad, match):
+    fwd, bwd, kw = _small()
+    fn, args = ((tfc.fused_edge_conv_lowrank_cuda, fwd) if which == "fwd"
+                else (tfc.fused_edge_conv_lowrank_bwd_cuda, bwd))
+    with pytest.raises(ValueError, match=match):
+        fn(*args, **{**kw, **bad})
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_lowrank_wrappers_refuse_k_past_64_and_cpu_tensors(which):
+    fwd, bwd, kw = _small(k=65)
+    fn, args = ((tfc.fused_edge_conv_lowrank_cuda, fwd) if which == "fwd"
+                else (tfc.fused_edge_conv_lowrank_bwd_cuda, bwd))
+    with pytest.raises(ValueError, match="K=65"):
+        fn(*args, **kw)
+    fwd, bwd, kw = _small()
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fn(*(fwd if which == "fwd" else bwd), **kw)

@@ -101,7 +101,7 @@ def test_merged_fused_loss_and_grads_match_jax(graph, kernel_rank):
                                    err_msg=key)
 
 
-@pytest.mark.parametrize("kernel_rank", [None, 3])
+@pytest.mark.parametrize("kernel_rank", [None, 3, 16])
 def test_fused_trainer_steps_match_jax(graph, kernel_rank):
     """Five Adam steps of the port's fused Trainer against the JAX
     package's, from the same params: per-step losses within 1e-4
