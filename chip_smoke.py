@@ -12,10 +12,11 @@ non-zero without the final result line:
              as csrc/fused_edge_conv_lowrank.cu and
              csrc/fused_edge_conv_lowrank_wgmma.cu and B4 as
              csrc/fused_edge_conv_lowrank_bwd.cu and
-             csrc/fused_edge_conv_lowrank_bwd_wgmma.cu; and
-             csrc/fused_edge_messages.cu, B5, the per-edge messages of conv
-             mode 'pallas') from the checkout, one nvcc each, started
-             together; prints ptxas's registers and spills of the
+             csrc/fused_edge_conv_lowrank_bwd_wgmma.cu; and B5, the
+             per-edge messages of conv mode 'pallas', float32 on the tensor
+             cores through exact bf16 splits as
+             csrc/fused_edge_messages_wgmma.cu) from the checkout, one nvcc
+             each, started together; prints ptxas's registers and spills of the
              tensor-core kernels and their blocks per SM (``[ptxas]``).
 3. kernel  — B1 against its plain PyTorch version on the card, at the
              full-size serving chunk shape, on operands from the real dataset
@@ -69,8 +70,14 @@ to 3 epochs (its loss is recorded, not held to fall).
              full-size mesh each with FESR_FUSED_PREDICT=0 (the general lane's
              ``apply``): B5 launched depth x chunks times (8, 10), no other
              kernel; the prediction against the same checkpoint's 'edge3d'
-             prediction on the card.  B5 against its plain version at both
-             chunk shapes (K 48, K 128), and their times.
+             prediction on the card; each model's warm request time in
+             both modes.  B5 against its plain version at both chunk shapes
+             (K 48, K 128), repeated launches bit-identical, its first
+             launch (the stage image of w3 and b3) bit-equal to its plain
+             version, and the times of B5, its plain version and one
+             einsum computing the same function (``library_ms``); its
+             bound is the lesser of float32 FMAs and six bf16 tensor-core
+             passes (``bound_basis``; ``bound_fma_ms`` the former).
 
 The second-to-last line is a JSON object with the kernels' numbers, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -370,23 +377,30 @@ def check_repeat(label: str, at: str, dt: str, dense: bool, first,
 
 def log_ptxas() -> None:
     """Registers and spills of the tensor-core kernels, as ptxas reported
-    them when the libraries were built, and their blocks per SM at width 48
-    and K 48 and 128 (B1/B2) and at K 48, rank 16 (B3/B4)."""
+    them when the libraries were built (and any wgmma serialization it
+    warned of), and their blocks per SM at width 48 and K 48 and 128
+    (B1/B2, B5) and at K 48, rank 16 (B3/B4)."""
     import re
     for lib in ("fused_edge_conv_wgmma", "fused_edge_conv_bwd_wgmma",
                 "fused_edge_conv_lowrank_wgmma",
-                "fused_edge_conv_lowrank_bwd_wgmma"):
+                "fused_edge_conv_lowrank_bwd_wgmma",
+                "fused_edge_messages_wgmma"):
         name, spills = None, ("?", "?")
         for line in fused_conv.ptxas_report(lib).splitlines():
+            if "wgmma" in line and "erialized" in line:
+                log("ptxas", lib=lib, warning=repr(line.strip()[:200]))
             m = re.search(r"Function properties for \S*?"
                           r"(lowrank_fwd_wgmma|lowrank_bwd_rows_wgmma|"
                           r"lowrank_bwd_weights_wgmma|conv_fwd_wgmma|"
-                          r"bwd_rows_wgmma|bwd_weights_wgmma)"
-                          r"(?:ILi(\d+)E)?", line)
+                          r"bwd_rows_wgmma|bwd_weights_wgmma|"
+                          r"messages_wgmma(?=I))"
+                          r"(?:ILi(\d+)E)?(?:Li(\d+)E)?", line)
             if m:
                 arg = m.group(2)
                 if arg and m.group(1).startswith("lowrank"):
                     arg = f"r{8 * int(arg)}"  # the template's r / 8
+                if m.group(3):  # B5: N = c_out padded, S k16 steps of c_in
+                    arg = f"N{arg},S{m.group(3)}"
                 name = m.group(1) + (f"<{arg}>" if arg else "")
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -403,6 +417,11 @@ def log_ptxas() -> None:
         log("ptxas", k=k, c=48, blocks_per_sm=fused_conv.occupancy(k, 48, 48))
     log("ptxas", k=48, c=48, rank=RANK,
         blocks_per_sm=fused_conv.occupancy(48, 48, 48, rank=RANK))
+    b5 = fused_conv._load_kernel("fused_edge_messages_wgmma")
+    for k in (48, 128):
+        log("ptxas", kernel="messages_wgmma", k=k, c=48,
+            blocks_per_sm=b5.fused_edge_messages_wgmma_blocks_per_sm(k, 48, 48),
+            smem_bytes=b5.fused_edge_messages_wgmma_smem_bytes(k, 48, 48))
 
 
 def phase_kernel(op, at: str = "chunk", errs: dict | None = None) -> dict:
@@ -557,13 +576,25 @@ def request_times(datasets, models, root, smi, tag: str = "") -> dict:
     """One warm full-size request (exp ``full{tag}``): predict (2 chunks) +
     node weights + host overlap average, on a scheduler whose operand cache
     is warm; median of 5 and one profile."""
+    ms, request = warm_request(datasets["full"], models["full"],
+                               os.path.join(root, "logs"), "full" + tag)
+    label = prefix(models["full"]) + "times"
+    t = {"request_ms": ms}
+    t.update(profile_call(request, label + "_request"))
+    log_times(label, "request", t, smi)
+    return t
+
+
+def warm_request(ds, model, log_dir: str, exp: str) -> tuple:
+    """(median wall ms of 5 full-size requests of mesh 0 after one warm-up,
+    the request): predict + host overlap average, ending in a device sync,
+    on a scheduler serving ``model`` from exp ``exp``'s checkpoint."""
     from fast_eng_super_resolution_tpu_torch.data.reconstruct import overlap_average
 
-    sched = PartitionScheduler("full" + tag, 1, datasets["full"],
-                               models["full"], train=False,
-                               log_dir=os.path.join(root, "logs"))
-    x = datasets["full"].get_one_full_sample(0)
-    num_nodes = len(datasets["full"].full_mesh(0)["points"])
+    sched = PartitionScheduler(exp, 1, ds, model, train=False,
+                               log_dir=log_dir)
+    x = ds.get_one_full_sample(0)
+    num_nodes = len(ds.full_mesh(0)["points"])
     gids = [d["global_node_ids"] for d in x]
 
     def request():
@@ -577,11 +608,7 @@ def request_times(datasets, models, root, smi, tag: str = "") -> dict:
         request()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    label = prefix(models["full"]) + "times"
-    t = {"request_ms": statistics.median(walls) * 1e3}
-    t.update(profile_call(request, label + "_request"))
-    log_times(label, "request", t, smi)
-    return t
+    return statistics.median(walls) * 1e3, request
 
 
 def profile_call(fn, label: str) -> dict:
@@ -981,16 +1008,18 @@ def run_path(root, name, smi, datasets, models, cfgs, tag: str = "") -> dict:
                 t=t, tb=tb, msg=msg)
 
 
-def phase_pallas(root: str, datasets: dict, paths: dict) -> dict:
+def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
     """Conv mode 'pallas' end to end: for each (label -> (cfg, exp tag)) of
     ``paths``, the model built with ``mode='pallas'`` serves full-size mesh 0
     from the checkpoint of exp ``full{tag}`` with FESR_FUSED_PREDICT=0 (the
     general lane's ``apply`` per chunk): B5 launched chunks x depth times
     and no other kernel.  The same checkpoint served by the model in its
     default mode ('edge3d' on the card, no kernel) is the reference.
-    Returns B5's launches per path."""
+    Then each model's warm request time in both modes (B5's share of the
+    path that uses it).  Returns B5's launches per path and the warm
+    request times."""
     log_dir = os.path.join(root, "logs")
-    launches = {}
+    launches, requests = {}, {}
     saved = os.environ.get("FESR_FUSED_PREDICT")
     os.environ["FESR_FUSED_PREDICT"] = "0"
     try:
@@ -1014,6 +1043,11 @@ def phase_pallas(root: str, datasets: dict, paths: dict) -> dict:
                            {pallas_mp.fused_edge_messages: want}
                            if mode == "pallas" else {})
                 fields[mode] = f
+                ms, _ = warm_request(datasets["full"], model, log_dir,
+                                     "full" + tag)
+                requests.setdefault(label, {})[mode] = ms
+                log("pallas", model=label, mode=mode,
+                    request_ms=f"{ms:.4f}", card=repr(smi))
             launches[label] = want
             for key in ("velocity", "pressure"):
                 r, g = fields["edge3d"][key], fields["pallas"][key]
@@ -1027,14 +1061,15 @@ def phase_pallas(root: str, datasets: dict, paths: dict) -> dict:
             os.environ.pop("FESR_FUSED_PREDICT")
         else:
             os.environ["FESR_FUSED_PREDICT"] = saved
-    return launches
+    return launches, requests
 
 
 def phase_messages(ops: dict, smi) -> dict:
     """B5 against its plain version on the card at each chunk shape of
     ``ops`` (label -> (h, x_src, w3, b3): every edge of the full-size
-    chunk, padding included), then both one's CUDA-event medians and B5's
-    bound."""
+    chunk, padding included), then the CUDA-event medians of B5, of its
+    plain version and of one PyTorch call computing the same function, and
+    B5's bound."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for label, (h, x_src, w3, b3) in ops.items():
@@ -1044,27 +1079,52 @@ def phase_messages(ops: dict, smi) -> dict:
         with torch.no_grad():
             ref = pallas_mp.fused_edge_messages_plain(h, x_src, w3, b3)
             got = pallas_mp.fused_edge_messages_cuda(h, x_src, w3, b3)
+            again = pallas_mp.fused_edge_messages_cuda(h, x_src, w3, b3)
+            # the kernel's first launch, the stage image, against its plain
+            # version: the same bits
+            image = pallas_mp.stage_image_cuda(w3, b3, c_in)
             torch.cuda.synchronize()
             abs_err = (got - ref).abs().max().item()
             rel = abs_err / ref.abs().max().item()
-            del ref, got
+            same = torch.equal(got, again)
+            image_ok = torch.equal(
+                image.view(torch.int16),
+                pallas_mp.stage_image(w3, b3, c_in).view(torch.int16))
+            del ref, got, again, image
             log("messages", model=label, edges=e, k=k, c_in=c_in,
-                c_out=c_out, max_abs_err=f"{abs_err:.3e}",
-                rel_to_max=f"{rel:.3e}", tol=MSG_TOL)
-            if not rel <= MSG_TOL:
-                raise AssertionError(f"B5 at {label}: {rel:.3e} > {MSG_TOL}")
+                c_out=c_out, design=pallas_mp.design(),
+                max_abs_err=f"{abs_err:.3e}", rel_to_max=f"{rel:.3e}",
+                tol=MSG_TOL, bit_identical=same, stage_image_exact=image_ok)
+            if not (rel <= MSG_TOL and same and image_ok):
+                raise AssertionError(f"B5 at {label}: {rel:.3e} (tol "
+                                     f"{MSG_TOL}), repeat identical {same}, "
+                                     f"stage image exact {image_ok}")
+            # the library yardstick: one einsum over [h, 1] and [w3; b3],
+            # prepared outside the timed window (float32, TF32 off)
+            h1 = torch.cat([h, torch.ones_like(h[:, :1])], 1)
+            w3_aug = torch.cat([w3, b3[None]]).reshape(k + 1, c_in, c_out)
             t = {"ms": cuda_ms(lambda: pallas_mp.fused_edge_messages_cuda(
                      h, x_src, w3, b3)),
                  "plain_ms": cuda_ms(lambda: pallas_mp.fused_edge_messages_plain(
-                     h, x_src, w3, b3), reps=5)}
+                     h, x_src, w3, b3), reps=5),
+                 "library_ms": cuda_ms(lambda: torch.einsum(
+                     "ek,ei,kio->eo", h1, x_src, w3_aug), reps=5)}
+            del h1, w3_aug
         torch.cuda.empty_cache()
-        # bound: every edge's (K+1) c_in c_out FMAs at the float32 peak vs
-        # h, x_src, w3, b3 read once and the messages written once
+        # bound: every edge's (K+1) c_in c_out multiply-adds, float32-exact:
+        # the lesser of float32 FMAs at their peak and six bf16 passes (the
+        # split products) on the tensor cores, against h, x_src, w3, b3 read
+        # once and the messages written once
         flops = 2 * e * (k + 1) * c_in * c_out
         nbytes = 4 * (e * k + e * c_in + w3.numel() + b3.numel() + e * c_out)
-        t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES_PER_S
+        t_fma = flops / PEAK_FLOPS["float32"]
+        t_ops = min(t_fma, 6 * flops / PEAK_FLOPS["bfloat16"])
+        t_bytes = nbytes / HBM_BYTES_PER_S
         t.update(bound_ms=max(t_ops, t_bytes) * 1e3,
                  bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 bound_basis=("six bf16 passes" if t_ops < t_fma
+                              else "float32 FMA"),
+                 bound_fma_ms=max(t_fma, t_bytes) * 1e3,
                  flops=flops, bytes=nbytes, max_abs_err=abs_err, k=k)
         log_times("messages", f"b5_k{k}", t, smi)
         out[label] = t
@@ -1123,21 +1183,26 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
     return entries
 
 
-def messages_entry(t: dict, launches: dict, smi: str) -> dict:
+def messages_entry(t: dict, launches: dict, requests: dict,
+                   smi: str) -> dict:
     """B5's entry: the numbers at KernelNN's chunk (K 48) at the top, those
-    at TEECNet's (K 128) under ``teecnet_k128``."""
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "k")
+    at TEECNet's (K 128) under ``teecnet_k128``, and each model's warm
+    request time in modes 'pallas' and 'edge3d'."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "bound_basis", "bound_fma_ms", "k")
     return {
         "name": "fused_edge_messages",
         "path": "kernelnn_pallas",
         "route": "cuda",
-        "source": "fast_eng_super_resolution_tpu_torch/csrc/fused_edge_messages.cu",
+        "source": "fast_eng_super_resolution_tpu_torch/csrc/"
+                  "fused_edge_messages_wgmma.cu",
+        "design": pallas_mp.design(),
         "replaces": "fast_eng_super_resolution_tpu/ops/pallas_mp.py:41",
         "launches": sum(launches.values()),
         "launches_by_path": {f"{k}_pallas": v for k, v in launches.items()},
         **{key: t["kernelnn"][key] for key in keys},
-        "library_ms": None,
         "teecnet_k128": {key: t["teecnet"][key] for key in keys},
+        "request_ms": requests,
         "card": smi,
     }
 
@@ -1189,9 +1254,9 @@ def main() -> int:
         teecnet = run_path(root, name, smi, datasets, models_tc, cfgs_tc,
                            "_teecnet")
         t1 = time.time()
-        pallas_launches = phase_pallas(
+        pallas_launches, pallas_requests = phase_pallas(
             root, datasets, {"kernelnn": (cfgs["full"], ""),
-                             "teecnet": (cfgs_tc["full"], "_teecnet")})
+                             "teecnet": (cfgs_tc["full"], "_teecnet")}, smi)
         msg_t = phase_messages({"kernelnn": full["msg"],
                                 "teecnet": teecnet["msg"]}, smi)
         log("pallas", wall_s=f"{time.time() - t1:.1f}")
@@ -1199,7 +1264,8 @@ def main() -> int:
     kernels = (kernel_entries(full, smi, None, "kernelnn")
                + kernel_entries(lowrank, smi, RANK, "kernelnn_rank16")
                + kernel_entries(teecnet, smi, None, "teecnet")
-               + [messages_entry(msg_t, pallas_launches, smi)])
+               + [messages_entry(msg_t, pallas_launches, pallas_requests,
+                                 smi)])
     log("done", seconds=f"{time.time() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,10 +24,10 @@
 // One thread block owns one 64-row receiver block and walks its slots in
 // tiles of 64: it gathers x[senders_perm] and h into shared memory, streams
 // w3 row by row (double-buffered) through shared memory, forms the 64-slot
-// message tile in registers (message_tile.cuh, shared with
-// fused_edge_messages.cu), and folds it into a per-thread [64, c_out]
-// accumulator through the S tile — fixed summation order, no atomics, and
-// each output row is written once (blocks partition the rows).  In CompactS
+// message tile in registers (message_tile.cuh), and folds it into a
+// per-thread [64, c_out] accumulator through the S tile — fixed summation
+// order, no atomics, and each output row is written once (blocks partition
+// the rows).  In CompactS
 // mode a tile made only of padding slots is skipped.
 //
 // Bound.  Per real slot the layer needs 2*(K+1)*c_in*c_out operations and

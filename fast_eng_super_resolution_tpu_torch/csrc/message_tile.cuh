@@ -1,6 +1,6 @@
-// The message stage shared by fused_edge_conv.cu (B1) and
-// fused_edge_messages.cu (B5): for one tile of 64 slots (edges) whose
-// operands are staged in shared memory as float32,
+// The message stage of fused_edge_conv.cu (B1's float32 instance): for one
+// tile of 64 slots (edges) whose operands are staged in shared memory as
+// float32,
 //
 //   m[s, o] = sum_{k <= K, i} hT[k, s] xT[i, s] W~[k, i, o],
 //

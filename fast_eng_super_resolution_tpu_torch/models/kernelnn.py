@@ -9,7 +9,10 @@ aggr='mean' (model.py:551).  Forward: fc1 -> depth x relu(conv) -> fc2
 ``apply`` is the plain whole-graph form in the conv formulation ``mode``
 (ops/message_passing.py: 'auto', 'edge3d', 'factored', 'pallas'); the
 JAX package's scheduling knobs (``remat``, ``edges_sorted``) change no
-result and are left out.  ``apply_fused`` runs each layer
+result and are left out.  ``kernel_dtype`` and ``lut_knots`` are taken at
+the JAX package's defaults (None, 512) and stamped into checkpoints as JAX
+stamps them; other values (bf16 per-edge matrices, mode 'lut') are not
+ported.  ``apply_fused`` runs each layer
 through the fused edge-conv layer (ops/fused_conv.py), a hand-written CUDA
 kernel on the GPU, and ``apply_fused_ad`` is its differentiable form for
 training (the backward a second hand-written kernel).  With ``kernel_rank``
@@ -42,13 +45,20 @@ class KernelNN(nn.Module):
     def __init__(self, width: int, ker_width: int, depth: int,
                  ker_in: int = 1, in_width: int = 3, out_width: int = 3,
                  mode: str = "auto", kernel_rank: int | None = None,
+                 kernel_dtype: str | None = None, lut_knots: int = 512,
                  seed: int = 0):
         super().__init__()
         check_mode(mode)
+        if kernel_dtype is not None or lut_knots != 512:
+            raise NotImplementedError(
+                f"kernel_dtype={kernel_dtype!r}, lut_knots={lut_knots!r}: "
+                "only the JAX package's defaults (None, 512) are ported "
+                "(ROADMAP.md queue A item 3)")
         self.width, self.ker_width, self.depth = width, ker_width, depth
         self.ker_in, self.in_width, self.out_width = ker_in, in_width, out_width
         self.mode = mode
         self.kernel_rank = kernel_rank
+        self.kernel_dtype, self.lut_knots = kernel_dtype, lut_knots
         skip = nn.utils.skip_init
         self.fc1 = skip(nn.Linear, in_width, width)
         self.edge_mlp = nn.ModuleList([

@@ -221,7 +221,8 @@ _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # library -> its source: B1 (forward) and B2 (backward), their rank-r
 # counterparts B3 and B4, each as a float32 FMA instance and a bfloat16
 # tensor-core (wgmma) instance, and B5, the per-edge messages of
-# ops/pallas_mp.py
+# ops/pallas_mp.py (float32, on the tensor cores through split bf16
+# operands)
 _SOURCES = {"fused_edge_conv": "fused_edge_conv.cu",
             "fused_edge_conv_wgmma": "fused_edge_conv_wgmma.cu",
             "fused_edge_conv_bwd": "fused_edge_conv_bwd.cu",
@@ -231,7 +232,7 @@ _SOURCES = {"fused_edge_conv": "fused_edge_conv.cu",
             "fused_edge_conv_lowrank_bwd": "fused_edge_conv_lowrank_bwd.cu",
             "fused_edge_conv_lowrank_bwd_wgmma":
                 "fused_edge_conv_lowrank_bwd_wgmma.cu",
-            "fused_edge_messages": "fused_edge_messages.cu"}
+            "fused_edge_messages_wgmma": "fused_edge_messages_wgmma.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _libs: dict = {}
@@ -320,7 +321,8 @@ _BINDINGS = {
                                     4),
     "fused_edge_conv_lowrank_bwd_wgmma": ((
         "fused_edge_conv_lowrank_bwd_wgmma_backward", 14, 7), 4),
-    "fused_edge_messages": (("fused_edge_messages_forward", 5, 4), 3),
+    "fused_edge_messages_wgmma": (("fused_edge_messages_wgmma_forward", 6, 4),
+                                  3),
 }
 
 

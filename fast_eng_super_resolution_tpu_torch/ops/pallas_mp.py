@@ -9,21 +9,94 @@ and writes only the [E, C_out] messages: the per-edge [C_in, C_out] matrices
 never reach device memory.  It is reached through ``mode='pallas'`` in
 ``ops.message_passing.edge_conditioned_conv``.  On a CUDA tensor
 ``fused_edge_messages`` launches the hand-written kernel in
-``csrc/fused_edge_messages.cu`` (built with the other kernels at first use);
-on a CPU tensor it runs ``fused_edge_messages_plain``, the same function and
-the reference the kernel is checked against.  Float32 only, and forward only:
-the JAX kernel has no VJP, so the wrapper refuses inputs that need a
-gradient.
+``csrc/fused_edge_messages_wgmma.cu`` (built with the other kernels at first
+use): float32 in and out on the tensor cores, each float32 operand split
+exactly into three bf16 parts (``split3``), w3 and b3 laid out once per call
+as the kernel's shared-memory stages by its first launch (``stage_image`` is
+that launch's plain version).  On a CPU tensor
+it runs ``fused_edge_messages_plain``, the same function and the reference
+the kernel is checked against.  Float32 only, and forward only: the JAX
+kernel has no VJP, so the wrapper refuses inputs that need a gradient.
 """
 
 from __future__ import annotations
 
-import torch
+import ctypes
 
-from .fused_conv import _check, _load_kernel
+import torch
+import torch.nn.functional as F
+
+from .fused_conv import _check, _load_kernel, _round_up
 
 _MAX_K = 128
 _MAX_C = 64
+
+
+def design() -> str:
+    """The design a B5 launch runs: 'wgmma', the tensor cores' float32-exact
+    products of three-part bf16 splits (csrc/fused_edge_messages_wgmma.cu)."""
+    return "wgmma"
+
+
+def split3(v: torch.Tensor) -> tuple:
+    """Three bf16 parts of float32 ``v`` with v1 + v2 + v3 == v exactly:
+    v1 = bf16(v), v2 = bf16(v - v1), v3 = bf16(v - v1 - v2), each remainder
+    exact in float32 and 8 + 8 + 8 significant bits covering float32's 24.
+    Exact for 2^-110 <= |v| <= 3.38e38 and for 0 (bf16 has float32's
+    exponent range; in the subnormal range the lowest part loses bits)."""
+    v1 = v.to(torch.bfloat16)
+    r = v - v1.float()
+    v2 = r.to(torch.bfloat16)
+    return v1, v2, (r - v2.float()).to(torch.bfloat16)
+
+
+def image_shape(k: int, c_in: int, c_out: int) -> tuple:
+    """Shape of the stage image at K = ``k``: [K+1, 3, np // 8, dp // 8, 8,
+    8] bf16, np = c_out rounded up to 8, dp = c_in rounded up to 16."""
+    return (k + 1, 3, _round_up(c_out, 8) // 8, _round_up(c_in, 16) // 8, 8, 8)
+
+
+def stage_image(w3: torch.Tensor, b3: torch.Tensor, c_in: int) -> torch.Tensor:
+    """The kernel's K+1 shared-memory stages of W~ = [w3; b3] as [K+1, c_in,
+    c_out]: stage k holds W~_k's three bf16 parts (``split3``), each the
+    K-major B operand of a wgmma, [np rows (o), dp deep (i)] with np = c_out
+    rounded up to 8 and dp = c_in rounded up to 16, zero padded, in 8 x 8
+    core matrices: element (o, i) at (o // 8) * 8 dp + (i // 8) * 64 +
+    (o % 8) * 8 + i % 8 (csrc/wgmma_tile.cuh, kmajor).  Returns the bf16
+    tensor of ``image_shape`` (contiguous).  The plain version of the
+    kernel's first launch, which writes the same bits."""
+    k1 = w3.shape[0] + 1
+    c_out = w3.shape[1] // c_in
+    shape = image_shape(k1 - 1, c_in, c_out)
+    w = torch.cat([w3, b3[None]]).reshape(k1, c_in, c_out)
+    parts = torch.stack(split3(w), 1).transpose(2, 3)  # [K+1, 3, o, i]
+    parts = F.pad(parts, (0, 8 * shape[3] - c_in, 0, 8 * shape[2] - c_out))
+    return parts.reshape(shape[:3] + (8, shape[3], 8)).permute(
+        0, 1, 2, 4, 3, 5).contiguous()
+
+
+def stage_image_cuda(w3: torch.Tensor, b3: torch.Tensor,
+                     c_in: int) -> torch.Tensor:
+    """The kernel's first launch alone, on float32 CUDA tensors w3 [K,
+    c_in*c_out] and b3: the stage image, the same bits as ``stage_image``."""
+    k, c2 = w3.shape
+    c_out = c2 // c_in
+    if not (1 <= k <= _MAX_K and 1 <= c_in <= _MAX_C and 1 <= c_out <= _MAX_C
+            and c2 == c_in * c_out):
+        raise ValueError(f"w3 {tuple(w3.shape)} at c_in={c_in}: outside the "
+                         f"kernel's K 1..{_MAX_K}, widths 1..{_MAX_C}")
+    _check("w3", w3, torch.float32, (k, c2))
+    _check("b3", b3, torch.float32, (c2,))
+    image = torch.empty(image_shape(k, c_in, c_out), dtype=torch.bfloat16,
+                        device=w3.device)
+    fn = _load_kernel("fused_edge_messages_wgmma").fused_edge_messages_wgmma_stage_image
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    with torch.cuda.device(w3.device):
+        err = fn(w3.data_ptr(), b3.data_ptr(), image.data_ptr(), k, c_in,
+                 c_out, torch.cuda.current_stream(w3.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stage image launch failed: cudaError {err}")
+    return image
 
 
 def fused_edge_messages_plain(h: torch.Tensor, x_src: torch.Tensor,
@@ -38,7 +111,8 @@ def fused_edge_messages_plain(h: torch.Tensor, x_src: torch.Tensor,
 
 def fused_edge_messages_cuda(h: torch.Tensor, x_src: torch.Tensor,
                              w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
-    """Launches the CUDA kernel on the current stream: every operand float32,
+    """Launches the CUDA kernels on the current stream (the stage image of
+    w3 and b3 into scratch, then the messages): every operand float32,
     contiguous and on one device; K in 1..128, c_in and c_out in 1..64.
     Checks every operand and raises on what the kernel does not take; raises
     if the launch fails."""
@@ -69,14 +143,16 @@ def fused_edge_messages_cuda(h: torch.Tensor, x_src: torch.Tensor,
     out = torch.empty((e, c_out), dtype=f32, device=dev)
     if e == 0:
         return out
-    lib = _load_kernel("fused_edge_messages")
+    lib = _load_kernel("fused_edge_messages_wgmma")
+    image = torch.empty(image_shape(k, c_in, c_out), dtype=torch.bfloat16,
+                        device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_edge_messages_forward(
+        err = lib.fused_edge_messages_wgmma_forward(
             h.data_ptr(), x_src.data_ptr(), w3.data_ptr(), b3.data_ptr(),
-            out.data_ptr(), e, k, c_in, c_out, stream)
+            image.data_ptr(), out.data_ptr(), e, k, c_in, c_out, stream)
     if err != 0:
-        smem = lib.fused_edge_messages_smem_bytes(k, c_in, c_out)
+        smem = lib.fused_edge_messages_wgmma_smem_bytes(k, c_in, c_out)
         raise RuntimeError(
             f"fused_edge_messages kernel launch failed: cudaError {err} "
             f"(E={e}, K={k}, c_in={c_in}, c_out={c_out}: {smem} B of shared "

@@ -34,7 +34,7 @@ from ..parallel.train import (CosineLR, ReduceLROnPlateau, StepLR, Trainer,
                               make_fused_batches, train_val_split)
 from ..utils.device import resolve_device
 from ..utils.logging import MetricLogger
-from .serving import ServingLanes, _as_raw_graph, edge_budget
+from .serving import ServingLanes, _as_raw_graph, edge_budget, fused_ok
 
 
 class PartitionScheduler(ServingLanes):
@@ -315,7 +315,8 @@ class PartitionScheduler(ServingLanes):
         labels = np.zeros(len(x), dtype=int)
         expert = self.experts[0]
         dev = self.device
-        use_fused = os.environ.get("FESR_FUSED_PREDICT", "1") != "0"
+        use_fused = (os.environ.get("FESR_FUSED_PREDICT", "1") != "0"
+                     and fused_ok(expert))
 
         def fused_expert(chunk, ckey):
             b, n = chunk.x.shape[0], chunk.x.shape[1]

@@ -9,8 +9,8 @@ lanes are ROADMAP.md queue A items 13 and 16.
 
 The fused lane runs on the scheduler's device: on ``cuda`` every layer
 launches the fused edge-conv kernel, on an explicit ``cpu`` its plain
-version.  ``FESR_FUSED_PREDICT=0`` turns the lane off (requests then take
-``predict`` with the non-fused ``apply``).
+version.  ``FESR_FUSED_PREDICT=0``, or a model without a fused kernel
+(``fused_ok``), sends requests to ``predict`` with the non-fused ``apply``.
 """
 
 from __future__ import annotations
@@ -29,6 +29,13 @@ def _as_raw_graph(d: dict) -> dict:
     return dict(x=d["x"], y=d.get("y"), pos=d["pos"], senders=d["senders"],
                 receivers=d["receivers"], edge_attr=d["edge_attr"],
                 global_ids=d.get("global_node_ids"))
+
+
+def fused_ok(model) -> bool:
+    """Whether ``model`` serves through its fused kernel: it has
+    ``apply_fused`` and its ``fused_ok`` (True if it has none) holds, as the
+    JAX package's lanes and ``predict`` check."""
+    return hasattr(model, "apply_fused") and getattr(model, "fused_ok", True)
 
 
 def edge_budget() -> int:
@@ -116,6 +123,8 @@ class ServingLanes:
         for reason, ok in checks:
             if not ok:
                 return "general", reason
+        if not fused_ok(self.model):
+            return "general", "model has no fused kernel"
         return "fast", "single-expert fused one-dispatch lane"
 
     @torch.inference_mode()

@@ -386,6 +386,118 @@ def test_messages_wrapper_checks_operands(cuda):
         pallas_mp.fused_edge_messages(h, x, w3.requires_grad_(), b3)
 
 
+# B5's tensor-core design against its plain version: chip_smoke.py's
+# MSG_TOL (float32 on both sides, TF32 off; the kernel's products of exact
+# bf16 splits sum in another order than the plain version's float32 GEMMs),
+# and the 'pallas' request against the 'edge3d' one, PALLAS_TOL (float32 end
+# to end, through the layers and the overlap average), both relative to the
+# max.
+MSG_TOL = 5e-5
+PALLAS_TOL = 1e-4
+
+
+def _messages_rel(h, x, w3, b3):
+    ops = [torch.as_tensor(a) for a in (h, x, w3, b3)]
+    with torch.no_grad():
+        got = pallas_mp.fused_edge_messages_cuda(*(a.cuda() for a in ops))
+    torch.cuda.synchronize()
+    ref = pallas_mp.fused_edge_messages_plain(*ops)
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    return (got.cpu() - ref).abs().max().item() / ref.abs().max().item()
+
+
+def _rect_messages_operands(e, k, c_in, c_out, seed):
+    """B5's operands at any widths (``_messages_operands`` is square)."""
+    rng = np.random.default_rng(seed)
+    return (np.maximum(rng.normal(size=(e, k)), 0).astype(np.float32),
+            rng.normal(size=(e, c_in)).astype(np.float32),
+            (rng.normal(size=(k, c_in * c_out)) * 0.2).astype(np.float32),
+            (rng.normal(size=(c_in * c_out,)) * 0.1).astype(np.float32))
+
+
+@pytest.mark.parametrize("c_in,c_out", [(1, 1), (5, 7), (24, 24), (48, 48),
+                                        (64, 64)])
+@pytest.mark.parametrize("k", [1, 48, 128])
+@pytest.mark.parametrize("e", [1, 63, 64, 65, 4097])
+def test_messages_wgmma_matches_plain(cuda, e, k, c_in, c_out):
+    """One edge, a tile short of one, one, one and a bit, and many tiles
+    (an odd number: one consumer warpgroup passes its last stages on)."""
+    assert pallas_mp.design() == "wgmma"
+    ops = _rect_messages_operands(e, k, c_in, c_out, seed=e + k + c_in)
+    assert _messages_rel(*ops) < MSG_TOL
+
+
+@pytest.mark.parametrize("c_in,c_out,k", [(48, 48, 48), (48, 48, 128),
+                                          (5, 7, 1), (64, 64, 17)])
+def test_messages_stage_image_kernel_matches_plain(cuda, c_in, c_out, k):
+    """The kernel's first launch lays w3 and b3 out as the stage image:
+    the same bits as ``stage_image``, its plain version."""
+    _, _, w3, b3 = (torch.as_tensor(a, device="cuda")
+                    for a in _rect_messages_operands(1, k, c_in, c_out, seed=k))
+    image = pallas_mp.stage_image_cuda(w3, b3, c_in)
+    torch.cuda.synchronize()
+    want = pallas_mp.stage_image(w3.cpu(), b3.cpu(), c_in)
+    assert torch.equal(image.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("scale", [1e-20, 1e15])
+def test_messages_wgmma_tiny_and_huge_x(cuda, scale):
+    """x_src scaled far from 1: the split parts of x keep float32's
+    exponent range, so the error relative to the max stays the same."""
+    h, x, w3, b3 = _rect_messages_operands(3000, 48, 48, 48, seed=11)
+    assert _messages_rel(h, x * np.float32(scale), w3, b3) < MSG_TOL
+
+
+def test_messages_wgmma_bit_identical(cuda):
+    """Each output is written once by one thread: two launches give the
+    same bits."""
+    ops = [torch.as_tensor(a, device="cuda")
+           for a in _rect_messages_operands(5000, 128, 48, 48, seed=12)]
+    with torch.no_grad():
+        a = pallas_mp.fused_edge_messages_cuda(*ops)
+        b = pallas_mp.fused_edge_messages_cuda(*ops)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("model", ["neuralop", "teecnet"])
+def test_pallas_request_matches_edge3d(cuda, model, tmp_path, monkeypatch):
+    """A request served by the model in conv mode 'pallas' (the general
+    lane's ``apply``, B5 per layer) against the same checkpoint in mode
+    'edge3d', on the card."""
+    from fast_eng_super_resolution_tpu_torch.data.dataset import SyntheticDataset
+    from fast_eng_super_resolution_tpu_torch.data.reconstruct import overlap_average
+    from fast_eng_super_resolution_tpu_torch.models.kernelnn import KernelNN
+    from fast_eng_super_resolution_tpu_torch.models.teecnet import TEECNet
+    from fast_eng_super_resolution_tpu_torch.sched.scheduler import PartitionScheduler
+
+    monkeypatch.setenv("FESR_FUSED_PREDICT", "0")
+    ds = SyntheticDataset(root=str(tmp_path / "data"), sub_size=4,
+                          n_high=(16, 8, 8), n_low=(8, 4, 4), num_cases=1)
+
+    def make(mode):
+        if model == "teecnet":
+            return TEECNet(4, 16, 4, 3, mode=mode, seed=1)
+        return KernelNN(16, 16, 3, in_width=4, out_width=4, mode=mode, seed=1)
+
+    log_dir = str(tmp_path / "logs")
+    PartitionScheduler("p", 1, ds, make("edge3d"), train=True,
+                       log_dir=log_dir)._save_model(0, make("edge3d"))
+    x = ds.get_one_full_sample(0)
+    n = len(ds.full_mesh(0)["points"])
+    gids = [d["global_node_ids"] for d in x]
+    fields = {}
+    for mode in ("pallas", "edge3d"):
+        sched = PartitionScheduler("p", 1, ds, make(mode), train=False,
+                                   log_dir=log_dir)
+        before = pallas_mp.fused_edge_messages.launches
+        fields[mode] = overlap_average(sched.predict(x)[0], gids, n)
+        launched = pallas_mp.fused_edge_messages.launches - before
+        assert launched == (3 if mode == "pallas" else 0)
+    ref, got = fields["edge3d"], fields["pallas"]
+    assert np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= PALLAS_TOL * np.abs(ref).max()
+
+
 def _lowrank_operands(c, rank, seed, k=None):
     """Operands of the rank-r layer at width c (K = c unless given): w3 and
     b3 are the edge MLP's head [K, 2 r c] in the model's column layout."""

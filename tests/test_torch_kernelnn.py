@@ -203,3 +203,30 @@ def test_unported_options_raise():
             TEECNet(4, W, 4, mode=mode)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TEECNet(4, W, 4, kernel_type="powerseries")
+
+
+@pytest.mark.parametrize("rank", [None, 3])
+def test_kernel_dtype_and_lut_knots_as_jax(rank):
+    """KernelNN takes the JAX package's ``kernel_dtype`` and ``lut_knots``
+    at their defaults (None, 512) and stamps them, with every other scalar
+    field, into a checkpoint's spec as the JAX package stamps its model;
+    other values raise NotImplementedError naming ROADMAP.md queue A item 3
+    (bf16 per-edge matrices and mode 'lut' are not ported), not a
+    TypeError."""
+    from types import SimpleNamespace
+
+    from fast_eng_super_resolution_tpu.sched.scheduler import PartitionScheduler as JSched
+    from fast_eng_super_resolution_tpu_torch.sched.scheduler import PartitionScheduler
+
+    port = KernelNN(**_cfg(rank), kernel_dtype=None, lut_knots=512)
+    jmodel = JKernelNN(**_cfg(rank))
+    assert (port.kernel_dtype, port.lut_knots) == (jmodel.kernel_dtype,
+                                                   jmodel.lut_knots)
+    spec = PartitionScheduler._model_spec(SimpleNamespace(model=port))
+    jspec = JSched._model_spec(SimpleNamespace(model=jmodel))
+    assert spec["cfg_kernel_dtype"] == jspec["cfg_kernel_dtype"] == "None"
+    assert spec["cfg_lut_knots"] == jspec["cfg_lut_knots"] == "512"
+    assert spec.items() <= jspec.items()
+    for kw in (dict(kernel_dtype="bfloat16"), dict(lut_knots=256)):
+        with pytest.raises(NotImplementedError, match="queue A item 3"):
+            KernelNN(**_cfg(rank), **kw)

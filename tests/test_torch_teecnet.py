@@ -304,3 +304,48 @@ def test_cli_teecnet_on_cpu(tmp_path, monkeypatch):
     paths = main(parse_args(argv + ["--mode=pred"]))
     fields = read_vtu(paths[0])["point_data"]
     assert all(np.all(np.isfinite(v)) for v in fields.values())
+
+
+def test_model_without_fused_kernel_serves_general_lane(synth, tmp_path,
+                                                       monkeypatch):
+    """As the JAX package (sched/serving.py:233-235, sched/scheduler.py:
+    582-586): a model whose ``fused_ok`` is False takes the general lane
+    ("model has no fused kernel") and ``predict``'s non-fused ``apply``,
+    never ``apply_fused``; its field equals the default model's (fused lane,
+    plain versions on the CPU) on the same weights."""
+    log_dir = str(tmp_path)
+    model = init_model("teecnet", 4, 4, width=8, num_layers=2)
+    PartitionScheduler("fo", 1, synth, model, train=True, log_dir=log_dir,
+                       device="cpu")._save_model(0, model)
+    x = synth.get_one_full_sample(0)
+    n = len(synth.full_mesh(0)["points"])
+
+    def sched():
+        return PartitionScheduler("fo", 1, synth, model, train=False,
+                                  log_dir=log_dir, device="cpu",
+                                  gemm_dtype="float32")
+
+    default = sched()
+    assert default._select_lane(x, "1")[0] == "fast"
+    ref = default.predict_full(x, n)[0]
+    monkeypatch.setattr(TEECNet, "fused_ok", property(lambda self: False))
+
+    def no_fused(*args, **kwargs):
+        raise AssertionError("apply_fused called on a model without one")
+
+    monkeypatch.setattr(TEECNet, "apply_fused", no_fused)
+    gated = sched()
+    assert gated._select_lane(x, "1") == ("general", "model has no fused kernel")
+    assert gated.predict_full(x, n) is None
+    assert gated.last_lane == ("general", "model has no fused kernel")
+    preds = gated.predict(x)[0]
+    from fast_eng_super_resolution_tpu_torch.data.reconstruct import overlap_average
+    got = overlap_average(preds, [d["global_node_ids"] for d in x], n)
+    assert np.isfinite(got).all()
+    assert _rel(got, ref) <= 1e-4
+    # the JAX package's lane table on the same checkpoint and flag
+    monkeypatch.setattr(JTEECNet, "fused_ok", property(lambda self: False))
+    jsched = JSched("fo", 1, synth, JTEECNet(**CFG), train=False,
+                    log_dir=log_dir, use_mesh=False)
+    assert jsched._select_lane(x, "force") == ("general",
+                                               "model has no fused kernel")
