@@ -79,12 +79,37 @@ to 3 epochs (its loss is recorded, not held to fall).
              bound is the lesser of float32 FMAs and six bf16 tensor-core
              passes (``bound_basis``; ``bound_fma_ms`` the former).
 
+10. routed — the paper's routed pipeline at the full width of
+             configs/exp_config/neuralop_synthetic_full.yaml with
+             ``n_clusters: 2`` and ``n_components: 2`` of
+             configs/exp_config/neuralop_synthetic_routed.yaml added in
+             memory, ``--encoder=pca --classifier=kmeans``: training on the
+             full-size meshes (partition sizes, each expert's losses, B2
+             launched depth x steps summed over the experts, checkpoints and
+             routing state written); serving both full-size meshes through
+             the routed predict (B1 launched depth x sum_k ceil(n_k /
+             chunk_b) times for the request's label counts n_k), full
+             mesh 0 again with a smaller budget (a padded tail chunk in a
+             label group) and a larger one (the routed lane over at least
+             two label groups), and the small mesh through the routed lane;
+             every .vtu finite, labels
+             on the card equal to the CPU's, the prediction against the
+             port's float32 plain one on the CPU; B1 and B2 against their
+             plain versions on a routed chunk's and an expert's batches;
+             warm times of a routed full-size request and a routed-lane
+             request (``[routed_*]`` lines).
+11. coalesced — R = 4 seeded payloads on the small mesh through
+             ``predict_full_batch``, each against its own ``predict_full``,
+             and the batch's warm time against R single requests
+             (``[coalesced*]`` lines).
+
 The second-to-last line is a JSON object with the kernels' numbers, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -110,6 +135,8 @@ from fast_eng_super_resolution_tpu_torch.ops.message_passing import apply_edge_m
 from fast_eng_super_resolution_tpu_torch.parallel.train import (  # noqa: E402
     Trainer, make_fused_batch, make_fused_batches, train_val_split)
 from fast_eng_super_resolution_tpu_torch.runner import pred_graph_ALDD, train_graph_ALDD  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.sched.classifiers import init_classifier  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.sched.encoders import init_encoder  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.sched.scheduler import PartitionScheduler  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.sched.serving import _as_raw_graph, edge_budget  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.utils.config import load_yaml  # noqa: E402
@@ -124,6 +151,11 @@ TEECNET_CONFIG = os.path.join(REPO, "configs", "exp_config",
                               "teecnet_ansys.yaml")
 TEECNET_TRAIN = os.path.join(REPO, "configs", "train_config", "teecnet.yaml")
 TEECNET_EPOCHS = 3  # the one cut of teecnet.yaml (151 epochs)
+# the routed path: the full config with this config's n_clusters and
+# n_components added in memory, trained TRAIN_EPOCHS epochs
+ROUTED_CONFIG = os.path.join(REPO, "configs", "exp_config",
+                             "neuralop_synthetic_routed.yaml")
+COALESCED_R = 4  # requests per coalesced batch
 FULL = dict(n_high=(48, 24, 24), n_low=(20, 10, 10), sub_size=8, num_cases=2)
 SMALL = dict(n_high=(16, 8, 8), n_low=(8, 4, 4), sub_size=4, num_cases=1)
 SEED = 0
@@ -170,6 +202,10 @@ SERVE_TOL = 3e-2
 # relative to the max.
 MSG_TOL = 5e-5
 PALLAS_TOL = 1e-4
+# A coalesced request vs the same request alone: the same kernel launches
+# (bit-identical) and the same segment sums, whose index_add_ atomics may
+# add in another order: 1e-6 of the max.
+COALESCED_TOL = 1e-6
 
 # H100 SXM data sheet: HBM rate and dense peaks per input type
 HBM_BYTES_PER_S = 3.35e12
@@ -305,13 +341,15 @@ def write_checkpoint(log_dir: str, exp: str, cfg: dict):
     return model
 
 
-def chunk_operands(dataset, model, device):
-    """The first serving chunk of mesh 0 (the scheduler's chunking) and the
-    first layer's fused operands on ``device``."""
+def chunk_operands(dataset, model, device, idx=None):
+    """The first serving chunk of mesh 0 (the scheduler's chunking), or its
+    subdomains ``idx`` (a routed chunk), and the first layer's fused
+    operands on ``device``."""
     raw = [_as_raw_graph(d) for d in dataset.get_one_full_sample(0)]
     (_, _, batch), = pad_and_bucket(raw, uniform=True)
-    chunk_b = max(1, edge_budget() // batch.senders.shape[1])
-    chunk = batch.map(lambda a: a[:chunk_b])
+    if idx is None:
+        idx = np.arange(max(1, edge_budget() // batch.senders.shape[1]))
+    chunk = batch.map(lambda a: a[idx])
     merged, _ = merge_batch(chunk)
     ea_b, sp, sm, rows_blk, blk = model.prepare_fused(
         merged.senders, merged.receivers, merged.edge_attr,
@@ -460,9 +498,11 @@ def phase_kernel(op, at: str = "chunk", errs: dict | None = None) -> dict:
     return errs
 
 
-def serve(ds, model, idxs, log_dir, exp, device, **kw):
+def serve(ds, model, idxs, log_dir, exp, device, n: int = 1, **kw):
+    """``pred_graph_ALDD`` of meshes ``idxs`` from exp ``exp``'s ``n``
+    experts: (lanes, each .vtu's point data), every field finite."""
     lanes = []
-    paths = pred_graph_ALDD(idxs, exp, model, ds, 1, log_dir=log_dir,
+    paths = pred_graph_ALDD(idxs, exp, model, ds, n, log_dir=log_dir,
                             device=device, lanes=lanes, **kw)
     fields = []
     for p in paths:
@@ -585,14 +625,30 @@ def request_times(datasets, models, root, smi, tag: str = "") -> dict:
     return t
 
 
-def warm_request(ds, model, log_dir: str, exp: str) -> tuple:
+def warm_ms(fn, reps: int = 5) -> float:
+    """Median wall ms of ``reps`` calls of ``fn`` after one warm-up, each
+    ending in a device sync."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls) * 1e3
+
+
+def warm_request(ds, model, log_dir: str, exp: str, n: int = 1,
+                 **routing) -> tuple:
     """(median wall ms of 5 full-size requests of mesh 0 after one warm-up,
     the request): predict + host overlap average, ending in a device sync,
-    on a scheduler serving ``model`` from exp ``exp``'s checkpoint."""
+    on a scheduler serving ``model`` from exp ``exp``'s checkpoints (``n``
+    experts, routed by ``routing``'s encoder and classifier)."""
     from fast_eng_super_resolution_tpu_torch.data.reconstruct import overlap_average
 
-    sched = PartitionScheduler(exp, 1, ds, model, train=False,
-                               log_dir=log_dir)
+    sched = PartitionScheduler(exp, n, ds, model, train=False,
+                               log_dir=log_dir, **routing)
     x = ds.get_one_full_sample(0)
     num_nodes = len(ds.full_mesh(0)["points"])
     gids = [d["global_node_ids"] for d in x]
@@ -601,14 +657,7 @@ def warm_request(ds, model, log_dir: str, exp: str) -> tuple:
         pred_l, _, _, _ = sched.predict(x)
         return overlap_average(pred_l, gids, num_nodes)
 
-    request()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        request()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    return statistics.median(walls) * 1e3, request
+    return warm_ms(request), request
 
 
 def profile_call(fn, label: str) -> dict:
@@ -758,16 +807,17 @@ def phase_bwd(bop, small_merged, small_model) -> dict:
     return errs
 
 
-def train_batches(ds, cfg: dict):
+def train_batches(ds, cfg: dict, subset=None):
     """(model, [train batch, val batch], rows_blk, blk): the first train and
-    the first val batch ``PartitionScheduler.train`` builds for ``ds`` with
-    seed 0 and the path's train config's batch size (the 12 train and the 4
-    val subdomains whole at a batch size of 16) — each merged into one
-    graph, both blocked with one common blk — on the card, with a seeded
-    full-width model."""
-    tr_idx, va_idx = train_val_split(len(ds), 0.2, 0)
+    the first val batch ``PartitionScheduler.train`` builds for ``ds`` (or
+    for an expert's ``subset`` of it) with seed 0 and the path's train
+    config's batch size (the 12 train and the 4 val subdomains whole at a
+    batch size of 16) — each merged into one graph, both blocked with one
+    common blk — on the card, with a seeded full-width model."""
+    subset = np.arange(len(ds)) if subset is None else np.asarray(subset)
+    tr_idx, va_idx = train_val_split(len(subset), 0.2, 0)
     bs = min(load_yaml(cfg["train_config"])["batch_size"], len(tr_idx))
-    tr_idx, va_idx = tr_idx[:bs], va_idx[:bs]
+    tr_idx, va_idx = subset[tr_idx[:bs]], subset[va_idx[:bs]]
     model = make_model(cfg).cuda()
     fbs, rows_blk, blk = make_fused_batches(
         [merged_subdomains(ds, ix) for ix in (tr_idx, va_idx)], model)
@@ -776,22 +826,24 @@ def train_batches(ds, cfg: dict):
     return model, fbs, rows_blk, blk
 
 
-def batch_operands(fb, model, rows_blk: int, blk: int) -> dict:
+def batch_operands(fb, model, rows_blk: int, blk: int, tag: str) -> dict:
     """The first conv layer's operands of a fused training batch, as
-    ``apply_fused_ad`` hands them to the layer."""
+    ``apply_fused_ad`` hands them to the layer, logged as ``tag``."""
     g, fused = fb["graph"], fb["fused"]
     h_e, x, w3, b3 = layer_operands(model, fused["edge_attr"], g.x)
     return dict(h=h_e, x=x, sp=fused["aux"]["senders_perm"], w3=w3, b3=b3,
                 s=fused["s"], rows_blk=rows_blk, blk=blk, n=g.x.shape[0],
-                b=fb["subdomains"], rank=rank_of(model), tag=prefix(model))
+                b=fb["subdomains"], rank=rank_of(model), tag=tag)
 
 
-def phase_train_kernels(batches, errs: dict, errs_bwd: dict) -> None:
+def phase_train_kernels(batches, errs: dict, errs_bwd: dict,
+                        tag: str | None = None) -> None:
     """Both kernels against their plain versions at the shapes training
     gives them: B1 and B2 (B3 and B4) on the train and the val batch."""
     model, fbs, rows_blk, blk = batches
     for at, fb in zip(("train_batch", "val_batch"), fbs):
-        op = batch_operands(fb, model, rows_blk, blk)
+        op = batch_operands(fb, model, rows_blk, blk,
+                            prefix(model) if tag is None else tag)
         phase_kernel(op, at, errs)
         check_bwd(bwd_operands(op), at, errs_bwd)
         del op
@@ -947,13 +999,13 @@ def phase_bwd_times(bop, smi) -> dict:
     return t
 
 
-def phase_train_times(batches, cfg: dict, smi) -> dict:
+def phase_train_times(batches, cfg: dict, smi, tag: str | None = None) -> dict:
     """Warm wall time of one fused bf16 train step on the training batch
     (the 12 train subdomains merged at batch size 16), and one profiled
     step."""
     model, (fb, _), rows_blk, blk = batches
     s = fb["fused"]["s"]
-    label = prefix(model) + "times"
+    label = (prefix(model) if tag is None else tag) + "times"
     log(label, train_batch=fb["subdomains"], nodes=fb["graph"].x.shape[0],
         edges=int(fb["graph"].edge_mask.sum()), blk=blk,
         slots=len(s.slot_rows), real_slots=int((s.slot_rows >= 0).sum()))
@@ -964,15 +1016,7 @@ def phase_train_times(batches, cfg: dict, smi) -> dict:
     def step():
         return trainer.step(opt, fb)
 
-    step()
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    t = {"train_step_ms": statistics.median(walls) * 1e3}
+    t = {"train_step_ms": warm_ms(step)}
     t.update({f"train_{k}": v for k, v in
               profile_call(step, label + "_train_step").items()})
     log_times(label, "train_step", t, smi)
@@ -1131,6 +1175,302 @@ def phase_messages(ops: dict, smi) -> dict:
     return out
 
 
+def routing(cfg: dict) -> dict:
+    """The routed path's encoder and classifier, built as the CLI builds
+    them for ``--encoder=pca --classifier=kmeans`` from the exp config."""
+    return dict(encoder=init_encoder("pca", **cfg),
+                classifier=init_classifier("kmeans", **cfg))
+
+
+def expert_batches(subset_size: int, batch_size: int) -> tuple:
+    """(train, val) batches per epoch ``PartitionScheduler.train`` gives an
+    expert of ``subset_size`` subdomains (seed 0): none for an expert with
+    nothing to train on, which saves its initial weights."""
+    tr, va = train_val_split(subset_size, 0.2, 0)
+    if len(va) == 0:
+        va = tr[-1:]
+    if len(tr) == 0:
+        return 0, 0
+    bs = max(1, min(batch_size, len(tr)))
+    return -(-len(tr) // bs), -(-len(va) // bs)
+
+
+def phase_routed_train(root: str, ds, cfg: dict) -> dict:
+    """Routed training end to end: ``train_graph_ALDD`` with ``n_clusters``
+    experts routed by PCA + k-means on the full-size meshes (exp
+    ``routed``): partition sizes, each expert's losses (finite, and falling
+    for an expert with at least 4 train subdomains), B2 launched depth x
+    steps summed over the experts and B1 depth x (steps + validations),
+    every checkpoint and the routing state written."""
+    log_dir = os.path.join(root, "logs")
+    depth, n = cfg["num_layers"], cfg["n_clusters"]
+    epochs = cfg["train_epochs"]
+    train_cfg = load_yaml(cfg["train_config"])
+    train_cfg.update(epochs=epochs, val_interval=1)
+    fwd, bwd_k = FWD[False][0], BWD[False][0]
+    reset_launches()
+    t0 = time.time()
+    sched = train_graph_ALDD("routed", make_model(cfg), ds, n, train_cfg,
+                             log_dir=log_dir, **routing(cfg))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_fwd, n_bwd = fwd.launches, bwd_k.launches
+    sizes = [len(sub) for sub in sched.subset_indices]
+    per = [expert_batches(size, train_cfg["batch_size"]) for size in sizes]
+    steps = epochs * sum(s for s, _ in per)
+    evals = epochs * sum(v for _, v in per)
+    log("routed_train", config=os.path.relpath(ROUTED_CONFIG, REPO),
+        n_clusters=n, n_components=cfg["n_components"],
+        encoder="pca", classifier="kmeans",
+        partitions=",".join(map(str, sizes)), epochs=epochs, steps=steps,
+        val_evals=evals, fwd_launches=n_fwd, bwd_launches=n_bwd,
+        wall_s=f"{wall:.1f}")
+    coll = os.path.join(log_dir, "models", "collection_routed")
+    for i, size in enumerate(sizes):
+        n_train = len(train_val_split(size, 0.2, 0)[0])
+        if not os.path.exists(os.path.join(coll, f"partition_{i}.npz")):
+            raise AssertionError(f"expert {i}: no checkpoint")
+        if n_train == 0:
+            log("routed_train", expert=i, subdomains=size, trained=False)
+            continue
+        with open(os.path.join(log_dir, "metrics",
+                               f"routed_partition_{i}.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        losses = [r["train_loss"] for r in records if "train_loss" in r]
+        vals = [r["val_loss"] for r in records if "val_loss" in r]
+        log("routed_train", expert=i, subdomains=size, train=n_train,
+            losses=",".join(f"{v:.5g}" for v in losses),
+            val_losses=",".join(f"{v:.5g}" for v in vals))
+        if len(losses) != epochs or not np.all(np.isfinite(losses + vals)):
+            raise AssertionError(f"expert {i}: losses {losses}, val {vals}")
+        if n_train >= 4 and not losses[-1] < losses[0]:
+            raise AssertionError(f"expert {i}: loss did not fall: {losses}")
+    for f in ("pca_encoder.npz", "kmeans_classifier.npz", "kmeans_scaler.npz"):
+        if not os.path.exists(os.path.join(coll, f)):
+            raise AssertionError(f"routing state {f} was not written")
+    check_only("routed_train", {fwd: depth * (steps + evals),
+                                bwd_k: depth * steps})
+    return dict(fwd=n_fwd, bwd=n_bwd, steps=steps, evals=evals,
+                subsets=sched.subset_indices)
+
+
+@contextlib.contextmanager
+def edge_budget_set(budget):
+    """``FESR_PREDICT_EDGE_BUDGET`` set to ``budget`` (None: unchanged)
+    while the block runs."""
+    saved = os.environ.get("FESR_PREDICT_EDGE_BUDGET")
+    if budget is not None:
+        os.environ["FESR_PREDICT_EDGE_BUDGET"] = str(budget)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("FESR_PREDICT_EDGE_BUDGET", None)
+        else:
+            os.environ["FESR_PREDICT_EDGE_BUDGET"] = saved
+
+
+def phase_routed_serve(root: str, datasets: dict, cfgs: dict) -> dict:
+    """Routed serving from the trained experts: both full-size meshes (over
+    the edge budget, so the routed predict: label groups cut into chunks,
+    B1 launched depth x sum_k ceil(n_k / chunk_b) times); full mesh 0 again
+    with a budget of one subdomain less than its largest label group
+    (``full_padded``: every such group's tail chunk is padded by
+    repetition) and with a budget that holds the whole request
+    (``full_lane``: the routed lane, which must serve at least two label
+    groups, B1 launched depth x groups times); and the small mesh (the
+    routed lane).  Labels on the card equal the CPU's; each mesh-0 request
+    on the card is held against the port's float32 plain one on the CPU
+    from the same checkpoints."""
+    log_dir = os.path.join(root, "logs")
+    cfg = cfgs["full"]
+    depth, n = cfg["num_layers"], cfg["n_clusters"]
+    fwd = FWD[False][0]
+    cases = [("full", "full", idx, None) for idx in cfg["idxs"]] + [
+        ("full_padded", "full", 0, "padded"),
+        ("full_lane", "full", 0, "lane"), ("small", "small", 0, None)]
+    launches = {case: 0 for case, _, _, _ in cases}
+    card = []
+    for case, name, idx, budget_for in cases:
+        ds = datasets[name]
+        scheds = {dev: PartitionScheduler(
+            "routed", n, ds, make_model(cfg), train=False, log_dir=log_dir,
+            device=dev, **routing(cfg)) for dev in (None, "cpu")}
+        x = ds.get_one_full_sample(idx)
+        labels = scheds[None]._route(x)
+        if not np.array_equal(labels, scheds["cpu"]._route(x)):
+            raise AssertionError(f"routed {case} {idx}: card labels differ "
+                                 "from the CPU's")
+        counts = np.bincount(labels, minlength=n)
+        b, _, e_pad = scheds[None]._request_shape(
+            [_as_raw_graph(d) for d in x])
+        budget = {None: None, "padded": (counts.max() - 1) * e_pad,
+                  "lane": b * e_pad}[budget_for]
+        with edge_budget_set(budget):
+            chunk_b = max(1, min(b, edge_budget() // e_pad))
+            if b * e_pad > edge_budget():
+                # routed predict: chunks of each label group
+                lane, want = "general", depth * sum(-(-c // chunk_b)
+                                                    for c in counts)
+            else:  # routed lane: one launch per label group and layer
+                lane, want = "routed", depth * np.count_nonzero(counts)
+            if budget_for == "padded" and not np.any(counts % chunk_b):
+                raise AssertionError(f"routed {case}: no label group pads "
+                                     f"its tail chunk ({counts}, {chunk_b})")
+            if budget_for == "lane" and np.count_nonzero(counts) < 2:
+                raise AssertionError(f"routed {case}: one label group only")
+            reset_launches()
+            t0 = time.time()
+            lanes, (f,) = serve(ds, make_model(cfg), [idx], log_dir,
+                                "routed", None, n, **routing(cfg))
+            torch.cuda.synchronize()
+            got = fwd.launches
+        log("routed_serve", mesh=name, case=case, idx=idx, lane=lanes[0][1],
+            reason=repr(lanes[0][2]), labels=",".join(map(str, labels)),
+            chunk_b=chunk_b, launches=got, expected=want,
+            nodes=len(f["pressure"]), cold_s=f"{time.time() - t0:.3f}")
+        if lanes[0][1] != lane:
+            raise AssertionError(f"routed {case} took lane {lanes[0][1]}")
+        check_only(f"routed_serve {case} request", {fwd: want})
+        launches[case] += got
+        if idx == 0:
+            card.append((case, name, f))
+    refs = {}
+    for case, name, f in card:
+        t0 = time.time()
+        if name not in refs:
+            refs[name] = serve(datasets[name], make_model(cfg), [0], log_dir,
+                               "routed", "cpu", n, gemm_dtype="float32",
+                               **routing(cfg))[1][0]
+        for key in ("velocity", "pressure"):
+            r, g = refs[name][key], f[key]
+            rel = np.abs(g - r).max() / np.abs(r).max()
+            log("routed_serve", mesh=name, case=case, field=key,
+                vs_cpu_f32=f"{rel:.3e}", tol=SERVE_TOL,
+                cpu_s=f"{time.time() - t0:.1f}")
+            if not rel <= SERVE_TOL:
+                raise AssertionError(f"routed {case} {key}: {rel:.3e}")
+    return launches
+
+
+def phase_routed_times(root: str, datasets: dict, cfgs: dict, smi) -> dict:
+    """Warm wall times of a routed full-size request (predict + host
+    overlap average) and of a routed-lane request on the small mesh
+    (``predict_full``), each with one profile."""
+    log_dir = os.path.join(root, "logs")
+    cfg = cfgs["full"]
+    ms, request = warm_request(datasets["full"], make_model(cfg), log_dir,
+                               "routed", cfg["n_clusters"], **routing(cfg))
+    t = {"request_ms": ms}
+    t.update(profile_call(request, "routed_request"))
+    log_times("routed_times", "request", t, smi)
+    ds = datasets["small"]
+    sched = PartitionScheduler("routed", cfg["n_clusters"], ds,
+                               make_model(cfg), train=False, log_dir=log_dir,
+                               **routing(cfg))
+    x = ds.get_one_full_sample(0)
+    num_nodes = len(ds.full_mesh(0)["points"])
+
+    def lane_request():
+        return sched.predict_full(x, num_nodes)
+
+    lt = {"routed_lane_ms": warm_ms(lane_request)}
+    if sched.last_lane[0] != "routed":
+        raise AssertionError(f"small mesh took lane {sched.last_lane}")
+    lt.update({f"routed_lane_{k}": v for k, v in
+               profile_call(lane_request, "routed_lane_request").items()})
+    log_times("routed_times", "routed_lane", lt, smi)
+    return {**t, **lt}
+
+
+def run_routed(root, smi, datasets, cfgs) -> dict:
+    """The routed path: training, serving, B1 and B2 against their plain
+    versions on a routed chunk's operands (the largest label group of full
+    mesh 0, as the routed predict cuts it) and on the largest expert's
+    train and val batches, and times.  Returns what the kernels' JSON
+    entries need."""
+    t0 = time.time()
+    cfg = cfgs["full"]
+    train = phase_routed_train(root, datasets["full"], cfg)
+    serve_launches = phase_routed_serve(root, datasets, cfgs)
+    sched = PartitionScheduler("routed", cfg["n_clusters"], datasets["full"],
+                               make_model(cfg), train=False,
+                               log_dir=os.path.join(root, "logs"),
+                               **routing(cfg))
+    labels = sched._route(datasets["full"].get_one_full_sample(0))
+    k = int(np.bincount(labels).argmax())
+    raw = [_as_raw_graph(d) for d in datasets["full"].get_one_full_sample(0)]
+    chunk_b = max(1, edge_budget() // sched._request_shape(raw)[2])
+    idx = np.flatnonzero(labels == k)[:chunk_b]
+    idx = np.concatenate([idx, np.repeat(idx[-1:], chunk_b - len(idx))])
+    op = dict(chunk_operands(datasets["full"], sched.experts[k], "cuda", idx),
+              tag="routed_", msg=None)
+    errs = phase_kernel(op, "routed_chunk")
+    bop = bwd_operands(op)
+    errs_bwd = check_bwd(bop, "routed_chunk")
+    largest = max(train["subsets"], key=len)
+    batches = train_batches(datasets["full"], cfg, largest)
+    phase_train_kernels(batches, errs, errs_bwd, "routed_")
+    t = fwd_times(op, smi)
+    t.update(phase_routed_times(root, datasets, cfgs, smi))
+    tb = phase_bwd_times(bop, smi)
+    t.update(phase_train_times(batches, cfg, smi, "routed_"))
+    del op, bop, batches
+    torch.cuda.empty_cache()
+    log("routed_path", depth=cfg["num_layers"], expert=k,
+        chunk=",".join(map(str, idx)), wall_s=f"{time.time() - t0:.1f}")
+    return dict(errs=errs, errs_bwd=errs_bwd, serve=serve_launches,
+                train=train, t=t, tb=tb)
+
+
+def phase_coalesced(root: str, ds, model, smi) -> dict:
+    """The coalesced lane on the small mesh: R seeded payloads on one
+    geometry through ``predict_full_batch`` (B1 launched R x depth times),
+    each against its own ``predict_full``; the warm wall time of the batch
+    against R single requests, each with one profile."""
+    sched = PartitionScheduler("small", 1, ds, model, train=False,
+                               log_dir=os.path.join(root, "logs"))
+    x = ds.get_one_full_sample(0)
+    num_nodes = len(ds.full_mesh(0)["points"])
+    rng = np.random.default_rng(SEED)
+    reqs = [[dict(d, x=np.asarray(d["x"]) * rng.uniform(0.5, 1.5),
+                  y=np.asarray(d["y"]) * rng.uniform(0.5, 1.5)) for d in x]
+            for _ in range(COALESCED_R)]
+    depth = model.depth
+    reset_launches()
+    got = sched.predict_full_batch(reqs, num_nodes)
+    torch.cuda.synchronize()
+    launches = FWD[False][0].launches
+    log("coalesced", requests=COALESCED_R, lane=sched.last_lane[0],
+        reason=repr(sched.last_lane[1]), launches=launches,
+        nodes=num_nodes)
+    if sched.last_lane[0] != "coalesced" or got is None:
+        raise AssertionError(f"coalesced lane not taken: {sched.last_lane}")
+    check_only("coalesced", {FWD[False][0]: COALESCED_R * depth})
+    for i, (pred, ref) in enumerate(got):
+        one_pred, one_ref = sched.predict_full(reqs[i], num_nodes)
+        rel = max(np.abs(pred - one_pred).max() / np.abs(one_pred).max(),
+                  np.abs(ref - one_ref).max() / np.abs(one_ref).max())
+        log("coalesced", request=i, vs_predict_full=f"{rel:.3e}",
+            tol=COALESCED_TOL, finite=bool(np.isfinite(pred).all()))
+        if not (rel <= COALESCED_TOL and np.isfinite(pred).all()):
+            raise AssertionError(f"coalesced request {i}: {rel:.3e}")
+
+    def batch():
+        return sched.predict_full_batch(reqs, num_nodes)
+
+    def singles():
+        return [sched.predict_full(r, num_nodes) for r in reqs]
+
+    t = {"batch_ms": warm_ms(batch), "singles_ms": warm_ms(singles)}
+    t.update({f"batch_{k}": v for k, v in
+              profile_call(batch, "coalesced_batch").items()})
+    t.update({f"singles_{k}": v for k, v in
+              profile_call(singles, "coalesced_singles").items()})
+    log_times("coalesced_times", f"r{COALESCED_R}", t, smi)
+    return dict(launches=launches, t=t)
+
+
 def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
     """The forward's and the backward's entries of the kernels JSON line,
     tagged with the ``path`` that ran them."""
@@ -1180,6 +1520,24 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
             **extra,
             "card": smi,
         })
+    return entries
+
+
+def routed_entries(r: dict, smi: str) -> list:
+    """B1's and B2's entries for the routed path: B1's launches by phase
+    (full-size routed predicts, the small mesh's routed lane, training)
+    and the routed lane's warm time beside the full-size request's."""
+    serve, train = r["serve"], r["train"]
+    entries = kernel_entries(dict(r, launches=0, train=dict(train, served=0)),
+                             smi, None, "kernelnn_routed")
+    entries[0].update(
+        launches=sum(serve.values()) + train["fwd"],
+        launches_by_path={"serve_full": serve["full"],
+                          "serve_full_padded": serve["full_padded"],
+                          "serve_full_routed_lane": serve["full_lane"],
+                          "serve_routed_lane": serve["small"],
+                          "train": train["fwd"]},
+        routed_lane_ms=r["t"]["routed_lane_ms"])
     return entries
 
 
@@ -1260,12 +1618,25 @@ def main() -> int:
         msg_t = phase_messages({"kernelnn": full["msg"],
                                 "teecnet": teecnet["msg"]}, smi)
         log("pallas", wall_s=f"{time.time() - t1:.1f}")
+        routed_cfg = load_yaml(ROUTED_CONFIG)
+        cfgs_rt = {k: dict(v, n_clusters=routed_cfg["n_clusters"],
+                           n_components=routed_cfg["n_components"])
+                   for k, v in cfgs.items()}
+        routed = run_routed(root, smi, datasets, cfgs_rt)
+        coalesced = phase_coalesced(root, datasets["small"], models["small"],
+                                    smi)
 
     kernels = (kernel_entries(full, smi, None, "kernelnn")
                + kernel_entries(lowrank, smi, RANK, "kernelnn_rank16")
                + kernel_entries(teecnet, smi, None, "teecnet")
                + [messages_entry(msg_t, pallas_launches, pallas_requests,
-                                 smi)])
+                                 smi)]
+               + routed_entries(routed, smi))
+    # the coalesced lane serves the KernelNN path's small-mesh checkpoint
+    kernels[0]["launches"] += coalesced["launches"]
+    kernels[0]["launches_by_path"]["coalesced"] = coalesced["launches"]
+    kernels[0]["coalesced_ms"] = {k: coalesced["t"][k]
+                                  for k in ("batch_ms", "singles_ms")}
     log("done", seconds=f"{time.time() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

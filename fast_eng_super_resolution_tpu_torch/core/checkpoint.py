@@ -150,6 +150,32 @@ def load_tree_like(path: str, template: Any) -> tuple[Any, dict]:
     return unflatten_params(flat), extra
 
 
+def save_state(stem: str, state: Any) -> None:
+    """Writes a routing model's state (an encoder's or a classifier's tree
+    of arrays and scalars) as ``{stem}.npz``, flat-keyed like
+    ``save_params``."""
+    save_params(stem + ".npz", state)
+
+
+def load_state(stem: str) -> Any:
+    """Reads the state ``save_state`` wrote as ``{stem}.npz`` (scalars come
+    back as 0-d arrays).  When only the JAX package's ``{stem}.joblib``
+    exists, that file is read through joblib, imported here only: a host
+    without joblib gets an error naming the file instead."""
+    npz, jl = stem + ".npz", stem + ".joblib"
+    if os.path.exists(npz):
+        return load_params(npz)
+    if not os.path.exists(jl):
+        raise FileNotFoundError(f"no routing state: tried {npz} and {jl}")
+    try:
+        import joblib
+    except ImportError:
+        raise RuntimeError(
+            f"{jl} is a joblib file and joblib is not installed: load it "
+            f"where joblib is and re-save it as {npz}") from None
+    return joblib.load(jl)
+
+
 def load_pth_state_dict(path: str) -> dict[str, np.ndarray]:
     """Loads a torch ``.pth`` state_dict into numpy arrays (CPU, no grad)."""
 

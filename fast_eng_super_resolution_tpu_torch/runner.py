@@ -25,7 +25,9 @@ def train_graph_ALDD(exp_name: str, model, dataset, num_partitions: int,
     """Trains the partition experts on ``dataset`` and writes their
     checkpoints under ``log_dir``; returns the scheduler.  Runs on ``cuda``
     unless ``device="cpu"``, in the device's default training layout;
-    ``FESR_FUSED_TRAIN=0`` selects the plain 'merged' layout."""
+    ``FESR_FUSED_TRAIN=0`` selects the plain 'merged' layout.  With
+    ``num_partitions`` > 1, ``kwargs`` carry the ``encoder`` and
+    ``classifier`` that route the subdomains (fitted and saved here)."""
     scheduler = PartitionScheduler(exp_name, num_partitions, dataset, model,
                                    train=True, log_dir=log_dir,
                                    device=device, **kwargs)
@@ -42,7 +44,9 @@ def pred_graph_ALDD(idxs, exp_name: str, model, dataset, num_partitions: int,
     """Serves mesh ``idx`` of ``dataset`` for each idx in ``idxs`` and writes
     one ``.vtu`` each; returns their paths.  Runs on ``cuda`` unless
     ``device="cpu"``.  ``lanes``, when given, receives (idx, lane, reason)
-    per mesh: the serving lane the scheduler took."""
+    per mesh: the serving lane the scheduler took.  With ``num_partitions``
+    > 1, ``kwargs`` carry the ``encoder`` and ``classifier`` (their saved
+    state is loaded)."""
     if smooth:
         raise NotImplementedError(
             "smooth: true (divergence-free projection) is not ported yet "
@@ -59,7 +63,8 @@ def pred_graph_ALDD(idxs, exp_name: str, model, dataset, num_partitions: int,
         # serving fast path: fused predict + device-side segment-mean
         # reconstruction (scheduler.predict_full) — falls back to the general
         # predict + host overlap_average when its preconditions don't hold
-        # (missing global ids, per-subdomain field norm, over edge budget)
+        # (missing global ids, per-subdomain field norm, over edge budget);
+        # routed experts take the routed lane
         with span("Prediction"):
             fast = scheduler.predict_full(x, num_nodes)
             if fast is None:
@@ -117,9 +122,12 @@ def main(args):
     """``__main__`` body (reference run_ALDS_3D.py:44-73).
 
     Trains or serves on the exp config's ``device`` key (``cpu``), else on
-    ``cuda``."""
+    ``cuda``.  With ``n_clusters`` != 1 the ``--encoder`` and
+    ``--classifier`` route the subdomains to that many experts."""
     from .data.dataset import init_dataset
     from .models.registry import init_model
+    from .sched.classifiers import init_classifier
+    from .sched.encoders import init_encoder
     from .utils.config import load_yaml
 
     if os.environ.get("FESR_MULTIHOST") == "1":
@@ -130,14 +138,13 @@ def main(args):
     n_clusters = exp_config["n_clusters"]
     if args.mode not in ("train", "pred", "predict"):  # README: 'predict'
         raise ValueError(f"Unknown mode: {args.mode}")
-    if n_clusters != 1:
-        raise NotImplementedError(
-            "routed experts (n_clusters != 1) are not ported yet "
-            "(ROADMAP.md queue A item 13)")
     model = init_model(args.model, **exp_config)
     dataset = init_dataset(args.dataset, **exp_config)
+    kwargs = dict(device=exp_config.get("device"))
+    if n_clusters != 1:
+        kwargs["encoder"] = init_encoder(args.encoder, **exp_config)
+        kwargs["classifier"] = init_classifier(args.classifier, **exp_config)
     print("Dataset loaded!")
-    device = exp_config.get("device")
     if args.mode == "train":
         train_config = load_yaml(args.train_config)
         train_dataset = dataset
@@ -153,8 +160,7 @@ def main(args):
             print(f"Training restricted to meshes {list(train_meshes)} "
                   f"({len(flat)} subdomains)")
         return train_graph_ALDD(args.exp_name, model, train_dataset,
-                                n_clusters, train_config, device=device)
+                                n_clusters, train_config, **kwargs)
     return pred_graph_ALDD(exp_config["idxs"], args.exp_name, model, dataset,
                            n_clusters, exp_config.get("save_mode", "save_png"),
-                           smooth=exp_config.get("smooth", False),
-                           device=device)
+                           smooth=exp_config.get("smooth", False), **kwargs)

@@ -1,7 +1,7 @@
 """PartitionScheduler — the orchestration layer.
 
 Parity target: GNNPartitionScheduler (reference models/scheduler_gnn.py:
-23-469).  This port trains and serves one expert on one device:
+23-469).  This port trains and serves its experts on one device:
 
 - ``train``: 80/20 split, merged batches, the fused training layout on the
   GPU (kernels B1/B2), Adam with the reference's LR schedules, a NaN guard
@@ -14,13 +14,20 @@ Parity target: GNNPartitionScheduler (reference models/scheduler_gnn.py:
   edge-budgeted chunks through the fused edge-conv layer, and computes the
   per-subdomain node weights (scheduler_gnn.py:204-311).
 
-Routed experts and multi-device lanes raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+With ``num_partitions`` > 1 an encoder and a classifier route the subdomains
+(scheduler_gnn.py:53-83): ``__init__`` fits and saves them (train) or loads
+them (pred), each partition trains its own expert on its cluster, and
+``predict`` sends each subdomain to its cluster's expert — by label groups
+through the fused layer, or through ``parallel.dispatch.routed_apply``;
+one partition is the case of a single label.
+Multi-device lanes raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
 import copy
+import hashlib
 import inspect
 import os
 
@@ -30,6 +37,7 @@ import torch
 from ..core import checkpoint as ckpt
 from ..core.graph import merge_batch, pad_and_bucket
 from ..ops.loss import compute_node_weight
+from ..parallel.dispatch import routed_apply
 from ..parallel.train import (CosineLR, ReduceLROnPlateau, StepLR, Trainer,
                               make_fused_batches, train_val_split)
 from ..utils.device import resolve_device
@@ -42,10 +50,6 @@ class PartitionScheduler(ServingLanes):
                  train: bool = True, encoder=None, classifier=None,
                  log_dir: str = "logs", device=None,
                  gemm_dtype: str = "bfloat16"):
-        if num_partitions != 1 or encoder is not None or classifier is not None:
-            raise NotImplementedError(
-                "routed experts (n_clusters != 1) are not ported yet "
-                "(ROADMAP.md queue A item 13)")
         self.name = exp_name
         self.num_partitions = num_partitions
         self.model = model
@@ -54,10 +58,19 @@ class PartitionScheduler(ServingLanes):
         self.device = resolve_device(device)
         self.gemm_dtype = gemm_dtype
         self._fused_cache: dict = {}  # graph-content -> fused operands
-        # one expert: every subdomain is its subset (scheduler_gnn.py:55-56)
-        self.subset_indices = [np.arange(len(dataset))]
+        if num_partitions != 1:
+            self.encoder = encoder
+            self.classifier = classifier
+        self.subset_indices = self._train_partitions(num_partitions, train)
         if not train:
             self.experts = self._load_models()
+
+    def get_sub_dataset(self):
+        """Per-cluster dataset views (GNNPartitionScheduler.get_sub_dataset,
+        scheduler_gnn.py:39-40)."""
+        from ..data.subsets import Subset
+
+        return [Subset(self.dataset, idx) for idx in self.subset_indices]
 
     # -- paths -----------------------------------------------------------
     def collection_dir(self) -> str:
@@ -68,6 +81,55 @@ class PartitionScheduler(ServingLanes):
 
     def _pth_path(self, i: int) -> str:
         return os.path.join(self.collection_dir(), f"partition_{i}.pth")
+
+    # -- routing ---------------------------------------------------------
+    def _train_partitions(self, num_partitions: int, train: bool) -> list:
+        """Clusters the dataset into expert subsets (scheduler_gnn.py:53-83):
+        on train, fits the encoder on every subdomain and the classifier on
+        their latents and saves both to the collection dir; on pred, loads
+        them.  One partition takes every subdomain (:55-56)."""
+        n = len(self.dataset)
+        if num_partitions == 1:
+            return [np.arange(n)]
+        data = [self.dataset.get(i) for i in range(n)]
+        path = self.collection_dir()
+        if train:
+            os.makedirs(path, exist_ok=True)
+            self.encoder.train(data, save_model=True, path=path)
+            latent = self.encoder.get_latent_space(data)
+            print("Latent space shape:", latent.shape)
+            self.classifier.train(latent, save_model=True, path=path)
+        else:
+            self.encoder.load_model(path)
+            self.classifier.load_model(path)
+            latent = self.encoder.get_latent_space(data)
+        labels = self.classifier.cluster(latent)
+        subsets = []
+        for i in range(num_partitions):
+            idx = np.where(labels == i)[0]
+            print(f"Partition {i}: {len(idx)} samples")
+            subsets.append(idx)
+        return subsets
+
+    def _route(self, x: list[dict]) -> np.ndarray:
+        """Each subdomain's expert index (all 0 with one partition)."""
+        if self.num_partitions == 1:
+            return np.zeros(len(x), dtype=int)
+        latent = self.encoder.get_latent_space(x)
+        labels = np.asarray(self.classifier.cluster(latent), dtype=int)
+        self._check_labels(labels)
+        return labels
+
+    def _check_labels(self, labels: np.ndarray) -> None:
+        """Routing labels must be valid expert indices before any indexing:
+        a -1 would silently pick the last expert, and a stale classifier
+        may know more clusters than there are experts."""
+        if len(labels) and (labels.min() < 0
+                            or labels.max() >= self.num_partitions):
+            raise ValueError(
+                f"routing labels outside [0, {self.num_partitions}): "
+                f"min={labels.min()}, max={labels.max()} — classifier and "
+                "expert count disagree (stale routing model?)")
 
     # -- checkpoints -----------------------------------------------------
     def _load_models(self) -> list:
@@ -305,77 +367,77 @@ class PartitionScheduler(ServingLanes):
 
         Returns (pred_y_list, ref_y_list, model_idx, weights_list) — the
         reference 4-tuple (scheduler_gnn.py:228, 311), with per-subdomain
-        arrays trimmed back to real node counts.
+        arrays trimmed back to real node counts; model_idx holds each
+        subdomain's expert.
+
+        Every dispatch covers one expert's edge-budgeted chunk: the
+        subdomains are grouped by label (all 0 with one partition) and each
+        group is cut into chunks of ``chunk_b``; a short tail chunk keeps
+        the chunk shape by repeating its last subdomain, whose copies are
+        dropped on write-back.  A chunk runs through its expert's fused
+        layer, or, with ``FESR_FUSED_PREDICT=0``, through ``routed_apply``
+        (the plain ``apply``).
         """
         raw = [_as_raw_graph(d) for d in x]
         n_real = [g["x"].shape[0] for g in raw]
         ref_y_list = [np.asarray(d["y"]) for d in x]
         # raw-geometry mesh hash: chunk-level fused-operand cache key
         mesh_hex = self._hash_geometry(raw)
-        labels = np.zeros(len(x), dtype=int)
-        expert = self.experts[0]
+        labels = self._route(x)
         dev = self.device
         use_fused = (os.environ.get("FESR_FUSED_PREDICT", "1") != "0"
-                     and fused_ok(expert))
+                     and fused_ok(self.model))
+        (_, idxs, batch), = pad_and_bucket(raw, uniform=True)
+        # one upload per request: chunks are gathered on the device
+        g = batch.to_torch(dev)
 
-        def fused_expert(chunk, ckey):
-            b, n = chunk.x.shape[0], chunk.x.shape[1]
+        def fused_expert(expert, idx, ckey):
+            x = g.x[torch.as_tensor(idx, device=dev)]
+            b, n = x.shape[0], x.shape[1]
             # scatter blocks are graph-static: cached by the RAW mesh hash +
-            # chunk identity.  On a hit, merge_batch is skipped too: the
-            # layer needs only merged.x, which in the block-diagonal layout
-            # is a pure reshape of chunk.x
+            # chunk identity.  On a hit only x is gathered and merge_batch is
+            # skipped: the layer needs only merged.x, which in the
+            # block-diagonal layout is a pure reshape of the chunk's x
             key = ("chunk",) + ckey + (b, n)
             entry = self._fused_cache.get(key)
             if entry is None:
-                merged, _ = merge_batch(chunk)
+                merged, _ = merge_batch(batch.map(lambda a: a[idx]))
                 entry = self._cache_put(key, *self._fused_operands(
                     merged, merged.x.shape[0]))
             ea_b, sp, sm, rows_blk, blk = entry[0]
-            xm = torch.as_tensor(chunk.x.reshape(b * n, -1), device=dev)
-            return expert.apply_fused(xm, ea_b, sp, sm, rows_blk=rows_blk,
-                                      blk=blk, gemm_dtype=self.gemm_dtype
+            return expert.apply_fused(x.reshape(b * n, -1), ea_b, sp, sm,
+                                      rows_blk=rows_blk, blk=blk,
+                                      gemm_dtype=self.gemm_dtype
                                       ).reshape(b, n, -1)
 
-        def single_expert(chunk):
-            b, n = chunk.x.shape[0], chunk.x.shape[1]
-            merged, _ = merge_batch(chunk.to_torch(dev))
-            out = expert.apply(merged.x, merged.senders, merged.receivers,
-                               merged.edge_attr, edge_mask=merged.edge_mask)
-            return out.reshape(b, n, -1)
-
-        (_, idxs, batch), = pad_and_bucket(raw, uniform=True)
-        real_b = batch.x.shape[0]
-
-        def _chunked(apply_chunk):
-            # chunk to an edge budget (bounds the per-dispatch transients);
-            # a short tail chunk re-uses the full chunk shape
-            b_total = batch.x.shape[0]
-            chunk_b = max(1, min(b_total,
-                                 edge_budget() // max(batch.senders.shape[1], 1)))
-            outs = []
-            start = 0
-            while start < b_total:
-                end = min(start + chunk_b, b_total)
-                if end - start < chunk_b and start > 0:
-                    start = b_total - chunk_b
-                    end = b_total
-                chunk = batch.map(lambda a: a[start:end])
-                outs.append((start, apply_chunk(chunk, start, end)))
-                start = end
-            preds = torch.zeros((b_total,) + tuple(outs[0][1].shape[1:]),
-                                dtype=torch.float32, device=dev)
-            for s, o in outs:
-                preds[s:s + o.shape[0]] = o
-            return preds
-
-        if use_fused:
-            preds = _chunked(lambda c, s, e: fused_expert(c, (mesh_hex, "se", s, e)))
-        else:
-            preds = _chunked(lambda c, s, e: single_expert(c))
-        preds = preds[:real_b]
+        lab = labels[idxs]
+        # chunk to an edge budget (bounds the per-dispatch transients)
+        chunk_b = max(1, min(len(idxs),
+                             edge_budget() // max(batch.senders.shape[1], 1)))
+        outs, rows = [], []
+        for k in range(self.num_partitions):
+            sel = np.flatnonzero(lab == k)
+            for start in range(0, len(sel), chunk_b):
+                idx = sel[start:start + chunk_b]
+                real = len(idx)
+                idx = np.concatenate([idx,
+                                      np.repeat(idx[-1:], chunk_b - real)])
+                if use_fused:
+                    ck = (mesh_hex, "r", k, start,
+                          hashlib.blake2b(idx.tobytes(),
+                                          digest_size=8).hexdigest())
+                    out = fused_expert(self.experts[k], idx, ck)
+                else:
+                    idx_t = torch.as_tensor(idx, device=dev)
+                    out = routed_apply(self.experts, lab[idx],
+                                       g.map(lambda a: a[idx_t]))
+                outs.append(out[:real])
+                rows.append(idx[:real])
+        # every subdomain sits in exactly one chunk: one scatter back
+        preds = torch.cat(outs)[torch.as_tensor(
+            np.argsort(np.concatenate(rows)), device=dev)]
 
         # node weights (scheduler_gnn.py:222-226) — batched over subdomains
-        g = batch.to_torch(dev)
         weights = compute_node_weight(preds, g.y, g.senders, g.receivers,
                                       g.edge_attr, g.edge_mask,
                                       g.node_mask).cpu().numpy()

@@ -1,16 +1,17 @@
 """Serving lanes for PartitionScheduler: the ordered lane-selection table, the
-single-expert fused lane (``predict_full``) and the raw-geometry operand
-cache it shares with the general ``predict`` path.
+single-expert fused lane (``predict_full``), the coalesced lane for R
+requests on one geometry (``predict_full_batch``), the routed lane for
+several experts, and the raw-geometry operand cache they share with the
+general ``predict`` path.
 
 Reference analog: the inference half of GNNPartitionScheduler
-(scheduler_gnn.py:204-347).  Of the JAX package's lanes only ``fast`` (and
-the ``general`` fallback) exist here; the routed, coalesced and multi-device
-lanes are ROADMAP.md queue A items 13 and 16.
+(scheduler_gnn.py:204-347).  The JAX package's multi-device lanes
+(``fast_mc``, ``routed_mc``) are ROADMAP.md queue A item 16.
 
-The fused lane runs on the scheduler's device: on ``cuda`` every layer
-launches the fused edge-conv kernel, on an explicit ``cpu`` its plain
-version.  ``FESR_FUSED_PREDICT=0``, or a model without a fused kernel
-(``fused_ok``), sends requests to ``predict`` with the non-fused ``apply``.
+The lanes run on the scheduler's device: on ``cuda`` every layer launches
+the fused edge-conv kernel, on an explicit ``cpu`` its plain version.
+``FESR_FUSED_PREDICT=0``, or a model without a fused kernel (``fused_ok``),
+sends requests to ``predict`` with the non-fused ``apply``.
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ def edge_budget() -> int:
 
 class ServingLanes:
     """Mixin: serving-lane methods for PartitionScheduler.  Expects the host
-    class to provide model/experts/device/gemm_dtype and the
-    ``_fused_cache`` dict."""
+    class to provide model/experts/num_partitions/device/gemm_dtype,
+    ``_route`` (each subdomain's expert) and the ``_fused_cache`` dict."""
 
     # -- serving caches ---------------------------------------------------
     @staticmethod
@@ -108,9 +109,12 @@ class ServingLanes:
         """Ordered predicate table for serving-lane selection.
 
         Returns (lane, reason): 'general' = caller falls back to ``predict``
-        + host overlap_average; 'fast' = single-expert fused one-dispatch
-        lane.  The size and cache gates inside the lane may still demote to
-        'general' — they call _note_lane with their own reason.
+        + host overlap_average; 'routed' = multi-expert lane; 'fast' =
+        single-expert fused one-dispatch lane.  The size gates inside the
+        lanes may still demote to 'general' — they call _note_lane with their
+        own reason.  The routed lane runs the fused layer too, so a model
+        without one serves routed requests through ``predict`` (the JAX
+        package's routed lane runs the plain ``apply`` and takes it).
         """
         checks = [
             ("fused predict disabled (FESR_FUSED_PREDICT=0)",
@@ -125,12 +129,34 @@ class ServingLanes:
                 return "general", reason
         if not fused_ok(self.model):
             return "general", "model has no fused kernel"
+        if self.num_partitions > 1:
+            return "routed", f"{self.num_partitions} experts, routed lane"
         return "fast", "single-expert fused one-dispatch lane"
+
+    @staticmethod
+    def _request_shape(raw) -> tuple[int, int, int]:
+        """(subdomains, padded nodes, padded edges) of a request: its one
+        uniform bucket."""
+        n_pad, e_pad = BucketSpec().bucket_for(
+            max(g["x"].shape[0] for g in raw),
+            max(g["senders"].shape[0] for g in raw))
+        return len(raw), n_pad, e_pad
 
     @torch.inference_mode()
     def predict_full(self, x: list[dict], num_nodes: int):
         """Single-dispatch serving path: fused predict AND overlap-average
         reconstruction on the device, one upload and one fetch.
+
+        Serves the 'fast' lane (one expert) and the 'routed' lane (several)
+        alike: each label group of the request, merged into one
+        block-diagonal graph, runs through its expert's ``apply_fused``
+        (kernel B1 on the card), with the group operands cached by the raw
+        geometry and the label assignment; a group that covers the whole
+        request needs no gather or scatter.  The JAX package's routed lane
+        runs the vmapped plain ``apply`` over the stacked experts instead,
+        because a label-grouped Pallas program would recompile per label
+        assignment; a CUDA kernel compiles once.  The math is the same conv
+        and the same exact segment mean.
 
         Returns (pred_full, ref_full) [num_nodes, C] numpy, or None when the
         lane's preconditions don't hold (caller falls back to ``predict`` +
@@ -143,56 +169,66 @@ class ServingLanes:
         if lane == "general":
             return None
         raw = [_as_raw_graph(d) for d in x]
-        spec = BucketSpec()
-        b = len(raw)
-        n_pad, e_pad = spec.bucket_for(
-            max(g["x"].shape[0] for g in raw),
-            max(g["senders"].shape[0] for g in raw))
+        b, n_pad, e_pad = self._request_shape(raw)
         budget = edge_budget()
         if b * e_pad > budget:
             # big meshes chunk through the general path
-            self._note_lane("general",
-                            f"edge budget exceeded ({b * e_pad} > {budget})")
+            self._note_lane("general", (
+                "routed lane demoted (edge budget)" if lane == "routed"
+                else f"edge budget exceeded ({b * e_pad} > {budget})"))
             return None
-
-        entry = self._full_cache_entry(raw, num_nodes, b, n_pad, e_pad)
-        ea_b, sp, sm, gid, w, rows_blk, blk = entry[0]
+        # routing is payload-dependent: computed per request on the host
+        groups, gid, w = self._request_operands(raw, self._route(x),
+                                                num_nodes, n_pad, e_pad)
         xm, ym = self._pack_full_payload(raw, b, n_pad)
         dev = self.device
-        out = self._serve_body(self.experts[0], torch.as_tensor(xm, device=dev),
-                               torch.as_tensor(ym, device=dev), ea_b, sp, sm,
-                               gid, w, rows_blk, blk, num_nodes,
-                               self.gemm_dtype)
-        if isinstance(out, tuple):  # pred/ref channel counts differ
-            return out[0].cpu().numpy(), out[1].cpu().numpy()
-        o = out.cpu().numpy()  # stacked [2, num_nodes, C] — ONE fetch
-        return o[0], o[1]
+        xb = torch.as_tensor(xm, device=dev).reshape(b, n_pad, -1)
+        return _fetch(self._serve_body(groups, xb,
+                                       torch.as_tensor(ym, device=dev), gid,
+                                       w, num_nodes))
 
-    def _full_cache_entry(self, raw, num_nodes: int, b: int, n_pad: int,
-                          e_pad: int):
-        """Build-or-fetch the fused serving operands for one mesh geometry,
-        keyed by the RAW (host numpy) geometry — per-subdomain shapes are
-        hashed too, so node/edge counts are part of the identity."""
+    def _request_operands(self, raw, labels: np.ndarray, num_nodes: int,
+                          n_pad: int, e_pad: int):
+        """Build-or-fetch a request's device operands, keyed by the RAW
+        (host numpy) geometry — per-subdomain shapes are hashed too, so
+        node/edge counts are part of the identity — and the label
+        assignment: per label present, (label, its subdomains' batch
+        positions or None for the whole request, the fused operands of
+        their merged graph), then the reconstruction operands."""
+        b = len(raw)
         key = ("full", self._hash_geometry(raw, with_gids=True), num_nodes,
-               b * n_pad, e_pad)
+               b * n_pad, e_pad, labels.tobytes())
         entry = self._fused_cache.get(key)
         if entry is None:
             (_, _, batch), = pad_and_bucket(raw, uniform=True)
-            merged, _ = merge_batch(batch)
-            (ea_b, sp, sm, rows_blk, blk), nbytes = self._fused_operands(
-                merged, merged.x.shape[0])
-            gids = np.asarray(merged.global_ids)
-            nm = np.asarray(merged.node_mask)
-            # padding / out-of-mesh rows scatter to a dump segment
-            gid_dump = np.where(nm & (gids >= 0), gids,
-                                np.int64(num_nodes)).astype(np.int64)
-            dev = self.device
-            ops = (ea_b, sp, sm, torch.as_tensor(gid_dump, device=dev),
-                   torch.as_tensor(nm.astype(np.float32), device=dev),
-                   rows_blk, blk)
-            entry = self._cache_put(key, ops,
-                                    nbytes + gid_dump.nbytes + nm.size * 4)
-        return entry
+            whole, _ = merge_batch(batch)
+            groups, nbytes = [], 0
+            for k in np.unique(labels):
+                idx = np.flatnonzero(labels == k)
+                if len(idx) == b:
+                    merged, idx_t = whole, None
+                else:
+                    merged, _ = merge_batch(batch.map(lambda a: a[idx]))
+                    idx_t = torch.as_tensor(idx, device=self.device)
+                ops, nb = self._fused_operands(merged, merged.x.shape[0])
+                groups.append((int(k), idx_t, ops))
+                nbytes += nb + idx.nbytes
+            gid, w, nb = self._reconstruction_operands(whole, num_nodes)
+            entry = self._cache_put(key, (groups, gid, w), nbytes + nb)
+        return entry[0]
+
+    def _reconstruction_operands(self, merged, num_nodes: int):
+        """(global node id per row, 0/1 real-node weight per row, bytes) of
+        a merged request on the device: padding and out-of-mesh rows
+        scatter to a dump segment ``num_nodes``."""
+        gids = np.asarray(merged.global_ids)
+        nm = np.asarray(merged.node_mask)
+        gid_dump = np.where(nm & (gids >= 0), gids,
+                            np.int64(num_nodes)).astype(np.int64)
+        dev = self.device
+        return (torch.as_tensor(gid_dump, device=dev),
+                torch.as_tensor(nm.astype(np.float32), device=dev),
+                gid_dump.nbytes + nm.size * 4)
 
     @staticmethod
     def _pack_full_payload(raw, b: int, n_pad: int):
@@ -211,14 +247,85 @@ class ServingLanes:
                 ym[i * n_pad: i * n_pad + n_i] = g["y"]
         return xm, ym
 
+    @torch.inference_mode()
+    def predict_full_batch(self, requests: list, num_nodes: int):
+        """Coalesced serving: R requests on one geometry, one upload and one
+        fetch.
+
+        The R payloads go up as one [R, nodes, C] tensor; each request then
+        runs the fast lane's fused forward and segment-mean reconstruction
+        with the geometry operands shared, and the stacked outputs come back
+        in one transfer.  Same preconditions as ``predict_full`` plus a
+        shared geometry (senders/receivers/edge_attr/global_ids equal across
+        requests, checked by raw-geometry hash); the budget is per request.
+        Returns a list of (pred_full, ref_full) numpy pairs in request order,
+        or None when the lane does not apply (caller serves per request).
+        The JAX package pads R to a power of two to bound its recompiles;
+        nothing is compiled per R here, so R is not padded.
+        """
+        if not requests:
+            return []
+        fused_env = os.environ.get("FESR_FUSED_PREDICT", "1")
+        lane, reason = self._select_lane(
+            [d for r in requests for d in r], fused_env)
+        if lane != "fast":
+            self._note_lane(
+                "per-request",
+                reason if lane == "general"
+                else "routed scheduler: coalescing unsupported, "
+                     "serving per-request")
+            return None
+        self._note_lane("coalesced", f"{len(requests)} requests, one dispatch")
+        raws = [[_as_raw_graph(d) for d in r] for r in requests]
+        h0 = self._hash_geometry(raws[0], with_gids=True)
+        if any(self._hash_geometry(r, with_gids=True) != h0
+               for r in raws[1:]):
+            self._note_lane("per-request", "request geometries differ")
+            return None
+        b, n_pad, e_pad = self._request_shape(raws[0])
+        if b * e_pad > edge_budget():
+            self._note_lane("general", "edge budget exceeded")
+            return None
+        groups, gid, w = self._request_operands(
+            raws[0], np.zeros(b, dtype=int), num_nodes, n_pad, e_pad)
+        packed = [self._pack_full_payload(r, b, n_pad) for r in raws]
+        dev = self.device
+        xb = torch.as_tensor(np.stack([p[0] for p in packed]),
+                             device=dev).reshape(len(raws), b, n_pad, -1)
+        yb = torch.as_tensor(np.stack([p[1] for p in packed]), device=dev)
+        outs = [self._serve_body(groups, xm, ym, gid, w, num_nodes)
+                for xm, ym in zip(xb, yb)]
+        if isinstance(outs[0], tuple):  # pred/ref channel counts differ
+            preds = torch.stack([o[0] for o in outs]).cpu().numpy()
+            refs = torch.stack([o[1] for o in outs]).cpu().numpy()
+            return list(zip(preds, refs))
+        o = torch.stack(outs).cpu().numpy()  # [R, 2, num_nodes, C] — ONE fetch
+        return [(o[i, 0], o[i, 1]) for i in range(len(requests))]
+
+    def _serve_body(self, groups, xb, ym, gid, w, num_nodes):
+        """Each label group's fused forward over the payload ``xb``
+        [B, n_pad, C], then the weighted segment-mean reconstruction."""
+        b, n_pad, c_in = xb.shape
+        pred = None
+        for k, idx, (ea_b, sp, sm, rows_blk, blk) in groups:
+            xg = xb if idx is None else xb[idx]
+            out = self.experts[k].apply_fused(
+                xg.reshape(-1, c_in), ea_b, sp, sm, rows_blk=rows_blk,
+                blk=blk, gemm_dtype=self.gemm_dtype)
+            if idx is None:  # one expert serves the whole request
+                pred = out
+                continue
+            if pred is None:
+                pred = out.new_zeros((b, n_pad, out.shape[-1]))
+            pred[idx] = out.reshape(len(idx), n_pad, -1)
+        return self._reconstruct(pred.reshape(b * n_pad, -1), ym, gid, w,
+                                 num_nodes)
+
     @staticmethod
-    def _serve_body(model, xm, ym, ea_b, sp, sm, gid, w, rows_blk, blk,
-                    num_nodes, gemm_dtype):
-        """Fused forward + weighted segment-mean reconstruction over global
-        node ids.  ``w`` is the 0/1 real-node mask, so the ``1e-30`` floor
-        only keeps uncovered nodes (sum 0) at 0/1e-30 = 0."""
-        pred = model.apply_fused(xm, ea_b, sp, sm, rows_blk=rows_blk, blk=blk,
-                                 gemm_dtype=gemm_dtype)
+    def _reconstruct(pred, ym, gid, w, num_nodes):
+        """Weighted segment mean of the merged rows ``pred`` and ``ym`` over
+        global node ids.  ``w`` is the 0/1 real-node mask, so the ``1e-30``
+        floor only keeps uncovered nodes (sum 0) at 0/1e-30 = 0."""
         wc = w[:, None]
         accp = masked_segment_sum(pred * wc, gid, num_nodes + 1)
         accr = masked_segment_sum(ym * wc, gid, num_nodes + 1)
@@ -229,3 +336,11 @@ class ServingLanes:
             # one stacked output -> ONE device->host transfer per request
             return torch.stack([pred_o, ref_o])
         return (pred_o, ref_o)
+
+
+def _fetch(out):
+    """(pred_full, ref_full) numpy from a lane's device output."""
+    if isinstance(out, tuple):  # pred/ref channel counts differ
+        return out[0].cpu().numpy(), out[1].cpu().numpy()
+    o = out.cpu().numpy()  # stacked [2, num_nodes, C] — ONE fetch
+    return o[0], o[1]

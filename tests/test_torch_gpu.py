@@ -10,6 +10,8 @@ only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -750,3 +752,111 @@ def test_lowrank_occupancy_query(cuda):
     occ = tfc.occupancy(48, 48, 48, rank=16)
     assert set(occ) == {"fwd", "bwd_rows", "bwd_weights"}
     assert all(v >= 1 for v in occ.values()), occ
+
+
+def _routed_scheduler(tmp_path, device, gemm_dtype):
+    """A two-expert KernelNN scheduler (width 16, depth 3, seeded experts)
+    serving the small duct at three cases, routed by PCA + k-means fitted
+    on its subdomains, on ``device``."""
+    from fast_eng_super_resolution_tpu_torch.data.dataset import SyntheticDataset
+    from fast_eng_super_resolution_tpu_torch.models.kernelnn import KernelNN
+    from fast_eng_super_resolution_tpu_torch.sched import (
+        PartitionScheduler, init_classifier, init_encoder)
+
+    ds = SyntheticDataset(root=str(tmp_path / "data"), sub_size=4,
+                          n_high=(16, 8, 8), n_low=(8, 4, 4), num_cases=3)
+    log_dir = str(tmp_path / "logs")
+
+    def make(seed):
+        return KernelNN(16, 16, 3, in_width=4, out_width=4, seed=seed)
+
+    routing = dict(encoder=init_encoder("pca", 2),
+                   classifier=init_classifier("kmeans", 2))
+    if not os.path.exists(os.path.join(log_dir, "models")):
+        fit = PartitionScheduler("r", 2, ds, make(0), train=True,
+                                 log_dir=log_dir, device="cpu", **routing)
+        for i in range(2):
+            fit._save_model(i, make(i + 1))
+        routing = dict(encoder=init_encoder("pca", 2),
+                       classifier=init_classifier("kmeans", 2))
+    return ds, PartitionScheduler("r", 2, ds, make(0), train=False,
+                                  log_dir=log_dir, device=device,
+                                  gemm_dtype=gemm_dtype, **routing)
+
+
+@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_routed_group(cuda, tmp_path, gemm_dtype):
+    """B1 against its plain version on the operands of one routed label
+    group: the first layer of expert k over the merge of the subdomains
+    routed to k, as the routed lane hands them over."""
+    from fast_eng_super_resolution_tpu_torch.core.graph import (merge_batch,
+                                                                 pad_and_bucket)
+    from fast_eng_super_resolution_tpu_torch.ops.message_passing import (
+        apply_edge_mlp_hidden)
+    from fast_eng_super_resolution_tpu_torch.sched.serving import _as_raw_graph
+
+    ds, sched = _routed_scheduler(tmp_path, "cuda", gemm_dtype)
+    x = ds.get_one_full_sample(0)
+    labels = sched._route(x)
+    assert sorted(set(labels)) == [0, 1]
+    k = int(labels[0])
+    idx = np.flatnonzero(labels == k)
+    (_, _, batch), = pad_and_bucket([_as_raw_graph(d) for d in x])
+    merged, _ = merge_batch(batch.map(lambda a: a[idx]))
+    expert = sched.experts[k]
+    ea_b, sp, s, rows_blk, blk = expert.prepare_fused(
+        merged.senders, merged.receivers, merged.edge_attr,
+        merged.x.shape[0], merged.edge_mask, compact=True)
+    with torch.no_grad():
+        h = apply_edge_mlp_hidden(expert.edge_mlp,
+                                  torch.as_tensor(ea_b, device="cuda"),
+                                  torch.relu).contiguous()
+        xl = expert.fc1(torch.as_tensor(merged.x, device="cuda")).contiguous()
+        w3 = expert.edge_mlp[-1].weight.t().contiguous()
+        b3 = expert.edge_mlp[-1].bias.contiguous()
+        ops = (h, xl, torch.as_tensor(sp, device="cuda"), w3, b3)
+        kw = dict(c_in=16, c_out=16, rows_blk=rows_blk, blk=blk,
+                  gemm_dtype=gemm_dtype)
+        before = tfc.fused_edge_conv.launches
+        got = tfc.fused_edge_conv(*ops, s.to("cuda"), **kw)
+        torch.cuda.synchronize()
+        assert tfc.fused_edge_conv.launches == before + 1
+        ref = tfc.fused_edge_conv_plain(*(t.cpu() for t in ops), s.to("cpu"),
+                                        **kw)
+    err = (got.cpu() - ref).abs().max().item() / ref.abs().max().item()
+    assert err < TOL, err
+
+
+def test_routed_request_on_card_matches_cpu(cuda, tmp_path):
+    """A routed request on the card (the fused routed predict and the routed
+    lane, B1 per layer per label chunk) against the same scheduler's plain
+    versions on the CPU, float32: the same labels, the same refs and
+    predictions within 1e-4 of the max."""
+    from fast_eng_super_resolution_tpu_torch.data.reconstruct import overlap_average
+
+    ds, card = _routed_scheduler(tmp_path, "cuda", "float32")
+    _, cpu = _routed_scheduler(tmp_path, "cpu", "float32")
+    x = ds.get_one_full_sample(0)
+    n = len(ds.full_mesh(0)["points"])
+    before = tfc.fused_edge_conv.launches
+    got = card.predict(x)
+    torch.cuda.synchronize()
+    labels = got[2]
+    groups = len(set(labels.tolist()))
+    assert groups == 2
+    # one chunk per label group (the request is within the edge budget)
+    assert tfc.fused_edge_conv.launches - before == 3 * groups
+    want = cpu.predict(x)
+    np.testing.assert_array_equal(labels, want[2])
+    for a, b in zip(got[1], want[1]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(got[0] + got[3], want[0] + want[3]):
+        assert np.abs(a - b).max() <= PALLAS_TOL * np.abs(b).max()
+    before = tfc.fused_edge_conv.launches
+    lane = card.predict_full(x, n)
+    torch.cuda.synchronize()
+    assert card.last_lane[0] == "routed"
+    assert tfc.fused_edge_conv.launches - before == 3 * groups
+    ref = overlap_average(want[0], [d["global_node_ids"] for d in x], n)
+    assert np.isfinite(lane[0]).all()
+    assert np.abs(lane[0] - ref).max() <= PALLAS_TOL * np.abs(ref).max()

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and its
-entry points run on CUDA unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither jax nor the JAX package (nor
+joblib, which the GPU host lacks), and its entry points run on CUDA unless
+the caller asks for the CPU."""
 
 import ast
 import os
@@ -16,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "fast_eng_super_resolution_tpu")
 
 _CHILD = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "fast_eng_super_resolution_tpu"):
+# the JAX package and jax, and joblib (which the GPU host lacks)
+for name in ("jax", "jaxlib", "fast_eng_super_resolution_tpu", "joblib"):
     sys.modules[name] = None          # any import of them now fails
 import numpy as np, torch
 import fast_eng_super_resolution_tpu_torch as port

@@ -31,6 +31,8 @@ from fast_eng_super_resolution_tpu_torch.data.dataset import SyntheticDataset
 from fast_eng_super_resolution_tpu_torch.data.vtu import read_vtu
 from fast_eng_super_resolution_tpu_torch.models.registry import init_model
 from fast_eng_super_resolution_tpu_torch.runner import pred_graph_ALDD
+from fast_eng_super_resolution_tpu_torch.sched.classifiers import KMeansClassifier
+from fast_eng_super_resolution_tpu_torch.sched.encoders import PCAEncoder
 from fast_eng_super_resolution_tpu_torch.sched.scheduler import PartitionScheduler
 
 DS_KW = dict(sub_size=4, n_high=(16, 8, 8), n_low=(8, 4, 4), num_cases=2)
@@ -84,7 +86,10 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("kernel_rank", [None, 3])
-@pytest.mark.parametrize("lane,budget", [("fast", None), ("general", "5000")])
+# budget 5000: one subdomain per chunk; 15360: chunks of 3 of the 4
+# subdomains, the tail chunk padded by repetition (JAX shifts it instead)
+@pytest.mark.parametrize("lane,budget", [("fast", None), ("general", "5000"),
+                                         ("general", "15360")])
 def test_pred_graph_matches_jax(lane, budget, kernel_rank, jax_dataset,
                                 log_dir, jax_fused_f32, monkeypatch):
     if budget is not None:
@@ -183,24 +188,32 @@ def test_overlap_average_matches_jax():
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
 
 
-def test_unported_paths_raise(jax_dataset, log_dir, monkeypatch):
+def test_unported_paths_raise(jax_dataset, log_dir, monkeypatch, tmp_path):
     model = init_model("neuralop", 4, 4, **MODEL_KW)
     sched = PartitionScheduler("fast", 1, jax_dataset, model, train=True,
                                log_dir=log_dir, device="cpu")
     monkeypatch.setenv("FESR_PLOT_VAL", "1")  # validation plots wait
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         sched.train(dict(epochs=1, batch_size=4, lr=1e-3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PartitionScheduler("fast", 2, jax_dataset, model, train=False,
-                           log_dir=log_dir, device="cpu")
+    # routed experts are ported: two partitions fit their routing and split
+    # the subdomains between them
+    routed = PartitionScheduler("routed", 2, jax_dataset, model, train=True,
+                                encoder=PCAEncoder(2),
+                                classifier=KMeansClassifier(2),
+                                log_dir=str(tmp_path), device="cpu")
+    assert len(routed.subset_indices) == 2
+    assert sorted(np.concatenate(routed.subset_indices)) == list(
+        range(len(jax_dataset)))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pred_graph_ALDD([0], "fast", model, jax_dataset, 1, log_dir=log_dir,
                         device="cpu", smooth=True)
 
 
-def test_cli_main_serves_on_cpu(tmp_path, monkeypatch, log_dir):
+def test_cli_main_serves_on_cpu(tmp_path, monkeypatch, log_dir, capsys):
     """``python -m fast_eng_super_resolution_tpu_torch --mode=pred`` flow
-    (runner.main) with ``device: cpu`` in the exp config."""
+    (runner.main) with ``device: cpu`` in the exp config; then, with
+    ``n_clusters: 2``, ``--mode=train`` and ``--mode=pred`` routed by
+    ``--encoder=pca --classifier=kmeans``."""
     import shutil
 
     import yaml
@@ -222,8 +235,23 @@ def test_cli_main_serves_on_cpu(tmp_path, monkeypatch, log_dir):
     assert paths == [os.path.join("logs", "vtk", "cli", "pred_0.vtu")]
     fields = read_vtu(paths[0])["point_data"]
     assert all(np.all(np.isfinite(v)) for v in fields.values())
-    # routed experts are still to port, in either mode
-    (tmp_path / "routed.yaml").write_text(yaml.safe_dump({**cfg, "n_clusters": 2}))
-    for mode in ("--mode=pred", "--mode=train"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            main(parse_args(argv[1:-1] + [mode, "--exp_config=routed.yaml"]))
+    # routed experts: train both, then serve through them
+    (tmp_path / "routed.yaml").write_text(yaml.safe_dump(
+        {**cfg, "n_clusters": 2, "n_components": 2}))
+    (tmp_path / "train.yaml").write_text(yaml.safe_dump(
+        dict(epochs=1, batch_size=4, lr=1e-3, val_interval=1)))
+    routed = ["--model=neuralop", "--dataset=synthetic", "--encoder=pca",
+              "--classifier=kmeans", "--exp_name=cli_routed",
+              "--exp_config=routed.yaml", "--train_config=train.yaml"]
+    capsys.readouterr()
+    main(parse_args(["--mode=train"] + routed))
+    out = capsys.readouterr().out
+    assert "Partition 0:" in out and "Partition 1:" in out
+    coll = tmp_path / "logs" / "models" / "collection_cli_routed"
+    for f in ("partition_0.npz", "partition_1.npz", "pca_encoder.npz",
+              "kmeans_classifier.npz", "kmeans_scaler.npz"):
+        assert (coll / f).exists(), f
+    paths = main(parse_args(["--mode=pred"] + routed))
+    assert paths == [os.path.join("logs", "vtk", "cli_routed", "pred_0.vtu")]
+    fields = read_vtu(paths[0])["point_data"]
+    assert all(np.all(np.isfinite(v)) for v in fields.values())
