@@ -103,6 +103,36 @@ to 3 epochs (its loss is recorded, not held to fall).
              and the batch's warm time against R single requests
              (``[coalesced*]`` lines).
 
+12. physics_ops — every physics operator on the full mesh's duct (27 648
+             nodes, K 16) with the analytic field plus noise 0.05: both
+             weight operators (and the fallback-branch nodes counted on both
+             sides), both divergences, the Laplacian, the composite A and its
+             adjoint A^T in both forms, the pressure correction and one CGNR
+             solve at 20 iterations, card against the port's CPU results;
+             the adjoint's dot-product test in float64 on the card; the
+             composite pair's time against its bound, and the masked CG's
+             cost per inner iteration (``[physics_ops]``).
+13. physics_smooth — ``pred_graph_ALDD(smooth=True)`` on both full meshes
+             from the serve phase's checkpoint (B1 8 times each, counted as
+             B1's ``smooth`` launches): initial and final divergence, ratio,
+             the projection's and the request's wall time; two projections
+             of one field give the same bits; on the small mesh the card's
+             host and device loops against the CPU's.
+14. physics_amg — the AMG host build on the full mesh (seconds, level
+             sizes), one V-cycle card vs CPU on the same hierarchy, and the
+             device loop with ``precond='amg'`` against ``'none'``.
+15. physics_scale — the device loop at 97 556 nodes
+             (benchmarks/projection_scale.py's field; the reference's
+             500k-1M nodes are cut to fit the time limit), plain and AMG.
+16. wss     — ``python -m fast_eng_super_resolution_tpu_torch.compute_wss``
+             on the first smoothed .vtu, each field's .vtp against the CPU,
+             and the analytic shear on a duct.
+17. powerseries — TEECNet at teecnet_ansys.yaml's width with
+             ``kernel_type='powerseries'``: one full-size request through the
+             general lane, no kernel launched; the small mesh card vs CPU.
+18. lut     — KernelNN at full width in mode 'lut' and with
+             ``kernel_dtype='bfloat16'`` in mode 'edge3d', the same way.
+
 The second-to-last line is a JSON object with the kernels' numbers, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -126,12 +156,19 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from fast_eng_super_resolution_tpu_torch.core import checkpoint as ckpt  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.core.graph import merge_batch, pad_and_bucket  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.data.dataset import init_dataset  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.data.synthetic import duct_field, make_duct_mesh  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.data.tensorize import cells_to_edges  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.data.vtu import read_vtu  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.models.kernelnn import KernelNN  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.models.registry import init_model  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.models.teecnet import TEECNet, _leaky_relu  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.ops import fused_conv, pallas_mp  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.ops.message_passing import apply_edge_mlp_hidden  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.physics import amg as pamg  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.physics import divergence as pdiv  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.physics import projection as pproj  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.physics.projection import DivergenceFreeProjection  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.physics.wss import compute_wall_shear_stress  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.parallel.train import (  # noqa: E402
     Trainer, make_fused_batch, make_fused_batches, train_val_split)
 from fast_eng_super_resolution_tpu_torch.runner import pred_graph_ALDD, train_graph_ALDD  # noqa: E402
@@ -1471,6 +1508,501 @@ def phase_coalesced(root: str, ds, model, smi) -> dict:
     return dict(launches=launches, t=t)
 
 
+# -- physics post-passes, powerseries and 'lut' (phases 12-18) -------------
+CARD = torch.device("cuda")
+PHYS_FULL = (48, 24, 24)    # the full mesh's duct: 27 648 nodes
+PHYS_SMALL = (16, 8, 8)     # the small mesh's: 1 024 nodes
+# benchmarks/projection_scale.py's 4:1:1 proportions, cut from the
+# reference's 500k-1M nodes to fit the script's time limit: 97 556 nodes
+PHYS_SCALE = (116, 29, 29)
+PHYS_OP_TOL = 1e-5       # one float32 operator, card vs CPU, other sum orders
+PHYS_CGNR_TOL = 5e-3     # 20 CGNR iterations (tests/test_torch_physics.py)
+# the whole outer loop, card vs CPU: the tolerance the JAX package holds its
+# two loops to (tests/test_physics.py), final norm rtol and field / max
+PHYS_LOOP_RTOL = 2e-2
+VCYCLE_TOL = 1e-4        # one V-cycle: ~10 float32 operator passes
+WSS_TOL = 1e-5           # of the magnitude's max
+GENERAL_TOL = 1e-4       # float32 general-lane request, card vs CPU
+BF16_GENERAL_TOL = 5e-3  # bf16 per-edge matrices: a last-bit f32 difference
+#                          can flip one bf16 rounding (2^-8 of that entry)
+
+
+def noisy_duct(shape, seed: int = 0):
+    """(mesh, edges, velocity, pressure): the analytic duct field plus
+    noise 0.05 from ``seed``, as benchmarks/projection_scale.py builds it."""
+    mesh = make_duct_mesh(*shape)
+    v, p = duct_field(mesh.points)
+    rng = np.random.default_rng(seed)
+    v = v + 0.05 * rng.normal(size=v.shape).astype(np.float32)
+    return mesh, cells_to_edges(mesh.cells), v, p[:, 0]
+
+
+def rel_err(got, ref) -> float:
+    got = got.detach().cpu().numpy() if torch.is_tensor(got) else np.asarray(got)
+    ref = ref.detach().cpu().numpy() if torch.is_tensor(ref) else np.asarray(ref)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def hold(phase: str, what: str, got, ref, tol: float, **extra) -> float:
+    """Logs ``got`` against ``ref`` relative to ref's max and raises past
+    ``tol``."""
+    err = rel_err(got, ref)
+    log(phase, check=what, rel_err=f"{err:.3e}", tol=tol, **extra)
+    if not err <= tol:
+        raise AssertionError(f"{phase} {what}: {err:.3e} > {tol}")
+    return err
+
+
+def pair_bound_ms(proj) -> tuple[float, int]:
+    """(bound ms, bytes) of one composite pair A^T (A q) on ``proj``'s
+    mesh: each array it reads once (nbr int64, mask, the weights [N, 3, K];
+    the transposed table's sources int64 and weights [N, KT, 3], the row
+    sums [N, 3]; q) and its output written once, at 3.35 TB/s."""
+    n, k = proj.nbr.shape
+    kt = proj.table[0].shape[1]
+    nbytes = n * k * (8 + 1 + 12) + n * kt * (8 + 12) + n * 12 + 2 * n * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def phase_physics_ops(smi) -> dict:
+    """Every physics operator on the full mesh, card against the port's CPU
+    result (float32, TF32 off): both weight operators (and the nodes on the
+    fallback branch), both divergences, the Laplacian, the composite A and
+    A^T in both forms, the pressure correction, one CGNR solve at 20
+    iterations; the adjoint's dot-product test on the card; the composite
+    pair's time against its bound and the masked CG's cost per inner
+    iteration."""
+    mesh, edges, v, p = noisy_duct(PHYS_FULL)
+    t0 = time.time()
+    card = DivergenceFreeProjection(mesh.points, edges, v, p, device=CARD)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    cpu = DivergenceFreeProjection(mesh.points, edges, v, p, device="cpu")
+    n, k = card.nbr.shape
+    log("physics_ops", nodes=n, edges=len(edges), K=k,
+        KT=card.table[0].shape[1], mean_neighbors=f"{cpu.mask.sum(1).float().mean():.2f}",
+        setup_s=f"{setup_s:.3f}")
+    cuda = CARD
+    for faithful, fn in ((True, pdiv.compute_weights),
+                         (False, pdiv.compute_gradient_weights)):
+        args = (card.points, card.nbr, card.mask)
+        cargs = (cpu.points, cpu.nbr, cpu.mask)
+        if faithful:
+            got, s_card = fn(*args, return_simple=True)
+            ref, s_cpu = fn(*cargs, return_simple=True)
+            log("physics_ops", simple_nodes_card=int(s_card.sum()),
+                simple_nodes_cpu=int(s_cpu.sum()))
+            if int(s_card.sum()) != int(s_cpu.sum()):
+                raise AssertionError("simple-branch node counts differ")
+        else:
+            got, ref = fn(*args), fn(*cargs)
+        hold("physics_ops", f"weights_faithful={faithful}", got, ref,
+             PHYS_OP_TOL)
+    # the operators on the same (the CPU's) weights on both sides
+    for faithful in (True, False):
+        w = (pdiv.compute_weights if faithful else pdiv.compute_gradient_weights)(
+            cpu.points, cpu.nbr, cpu.mask)
+        sides = {"cpu": (cpu.nbr, cpu.mask, w, cpu.table),
+                 "card": (card.nbr, card.mask, w.to(cuda), card.table)}
+        vel = {"cpu": cpu.velocity, "card": card.velocity}
+        q = torch.as_tensor(np.random.default_rng(1).standard_normal(n)
+                            .astype(np.float32))
+        qs = {"cpu": q, "card": q.to(cuda)}
+        out = {}
+        for side, (nbr, mask, ws, table) in sides.items():
+            mv, gf = pdiv.make_consistent_matvec(nbr, mask, ws,
+                                                 trace=not faithful)
+            rmv = pdiv.make_consistent_rmatvec(nbr, mask, ws, table,
+                                               trace=not faithful)
+            lw = pdiv.laplacian_weights(ws, mask)
+            lmv, diag = pdiv.make_laplacian_matvec(nbr, mask, lw)
+            out[side] = {
+                "divergence": pdiv.compute_divergence(vel[side], nbr, mask, ws),
+                "divergence_trace": pdiv.compute_divergence_trace(
+                    vel[side], nbr, mask, ws),
+                "laplacian": lmv(qs[side]), "laplacian_diag": diag,
+                "composite": mv(qs[side]), "grad_field": gf(qs[side]),
+                "adjoint": rmv(qs[side]),
+                "pressure_correction": pdiv.apply_pressure_correction(
+                    vel[side], qs[side], nbr, mask, ws, alpha=0.7)}
+        for key in out["cpu"]:
+            hold("physics_ops", f"{key}_faithful={faithful}", out["card"][key],
+                 out["cpu"][key], PHYS_OP_TOL)
+        # <y, A q> = <A^T y, q> on the card in float64
+        w64 = w.double().to(cuda)
+        mv, _ = pdiv.make_consistent_matvec(card.nbr, card.mask, w64,
+                                            trace=not faithful)
+        rmv = pdiv.make_consistent_rmatvec(card.nbr, card.mask, w64,
+                                           card.table, trace=not faithful)
+        y = torch.as_tensor(np.random.default_rng(2).standard_normal(n),
+                            device=cuda)
+        x = q.double().to(cuda)
+        lhs, rhs = float(y @ mv(x)), float(rmv(y) @ x)
+        gap = abs(lhs - rhs) / max(abs(lhs), 1.0)
+        log("physics_ops", check=f"dot_product_faithful={faithful}",
+            lhs=f"{lhs:.12e}", rhs=f"{rhs:.12e}", rel_gap=f"{gap:.2e}",
+            tol=1e-10)
+        if not gap <= 1e-10:
+            raise AssertionError(f"adjoint dot-product test: {gap:.2e}")
+    # one CGNR solve, each side on its own weights
+    p_card = card.solve_pressure_poisson(card.calculate_divergence(),
+                                         tol=1e-5, maxiter=20)
+    p_cpu = cpu.solve_pressure_poisson(cpu.calculate_divergence(),
+                                       tol=1e-5, maxiter=20)
+    hold("physics_ops", "cgnr_maxiter=20", p_card, p_cpu, PHYS_CGNR_TOL,
+         iterations=card.cg_iterations[-1])
+    # the unit of cost of every inner iteration: A q then A^T y
+    q = torch.randn(n, generator=torch.Generator().manual_seed(0)).to(cuda)
+    pair_ms = cuda_ms(lambda: card.normal_matvec(q))
+    bound_ms, nbytes = pair_bound_ms(card)
+    div = card.calculate_divergence()
+    per_iter = {}
+    for every in (1, pproj.CHECK_EVERY):
+        def solve():
+            return pproj.cg(card.normal_matvec,
+                            card.consistent_rmatvec(div), tol=1e-30,
+                            maxiter=200, check_every=every)
+        per_iter[every] = warm_ms(solve, reps=3) / 200
+    log("physics_ops", pair_ms=f"{pair_ms:.4f}", pair_bound_ms=f"{bound_ms:.5f}",
+        pair_bytes=nbytes, bound_by="bytes",
+        cg_iter_ms_check_every_1=f"{per_iter[1]:.4f}",
+        **{f"cg_iter_ms_check_every_{pproj.CHECK_EVERY}":
+           f"{per_iter[pproj.CHECK_EVERY]:.4f}"}, card=repr(smi))
+    return {"pair_ms": pair_ms, "pair_bound_ms": bound_ms,
+            "cg_iter_ms": per_iter[pproj.CHECK_EVERY]}
+
+
+class _Tee:
+    """Writes to the real stdout and keeps a copy of the text."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _printed(text: str, prefix: str) -> list[str]:
+    return [ln[len(prefix):].strip() for ln in text.splitlines()
+            if ln.startswith(prefix)]
+
+
+def phase_physics_smooth(root: str, datasets: dict, models: dict,
+                         cfgs: dict, smi) -> int:
+    """``pred_graph_ALDD(smooth=True)`` on both full meshes from the serve
+    phase's KernelNN checkpoint (general lane, B1 8 times each): the
+    projection's initial and final divergence and wall time; the .vtu
+    velocity finite and moved off the unsmoothed prediction.  Two
+    projections of one field on the card give the same bits, and on the
+    small mesh the card's whole loop (host and device) agrees with the
+    CPU's.  Returns B1's launches in the smoothed requests."""
+    log_dir = os.path.join(root, "logs")
+    launches = 0
+    for idx in cfgs["full"]["idxs"]:
+        _, (plain,) = serve(datasets["full"], models["full"], [idx], log_dir,
+                            "full", None)
+        reset_launches()
+        tee = _Tee(sys.stdout)
+        t0 = time.time()
+        with contextlib.redirect_stdout(tee):
+            lanes, (fields,) = serve(datasets["full"], models["full"], [idx],
+                                     log_dir, "full", None, smooth=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        got = fused_conv.fused_edge_conv.launches
+        check_only(f"smooth request {idx}",
+                   {fused_conv.fused_edge_conv: CHUNKS["full"]
+                    * cfgs["full"]["num_layers"]})
+        launches += got
+        text = "".join(tee.parts)
+        init = float(_printed(text, "Initial divergence:")[0])
+        final_s, _, iters = _printed(text, "Final divergence:")[0].partition(" in ")
+        final = float(final_s)
+        smooth_s = float(_printed(text, "Smoothing time:")[0])
+        moved = float(np.abs(fields["velocity"] - plain["velocity"]).max())
+        log("physics_smooth", mesh="full", idx=idx, lane=lanes[0][1],
+            b1_launches=got, initial=f"{init:.6f}", final=f"{final:.6f}",
+            ratio=f"{init / max(final, 1e-30):.3f}", iterations=iters,
+            smooth_s=f"{smooth_s:.3f}", request_s=f"{wall:.3f}",
+            max_velocity_change=f"{moved:.4e}", card=repr(smi))
+        if not final < init:
+            raise AssertionError(f"smooth {idx}: final {final} >= initial {init}")
+        if not (np.isfinite(fields["velocity"]).all() and moved > 0):
+            raise AssertionError(f"smooth {idx}: velocity not finite or unmoved")
+        if idx == 0:
+            first = plain
+    # two projections of one field on the card: the same bits
+    full = datasets["full"].full_mesh(0)
+    edges = cells_to_edges(full["cells"])
+    runs = []
+    for _ in range(2):
+        proj = DivergenceFreeProjection(full["points"], edges,
+                                        first["velocity"], first["pressure"],
+                                        device=CARD)
+        t0 = time.time()
+        v, pr, final, _ = proj.apply_divergence_free_projection(
+            max_iterations=20, tolerance=1e-2)
+        torch.cuda.synchronize()
+        runs.append((v.cpu().numpy(), pr.cpu().numpy(), final,
+                     time.time() - t0, proj))
+    same = all(np.array_equal(a, b) for a, b in zip(runs[0][:2], runs[1][:2]))
+    proj = runs[0][4]
+    log("physics_smooth", check="repeat_bits", identical=same,
+        final=f"{runs[0][2]:.6f}", pair_calls=proj.pair_calls,
+        inner_iterations=sum(proj.cg_iterations),
+        outer_iterations=len(proj.cg_iterations),
+        wall_s=f"{runs[0][3]:.3f},{runs[1][3]:.3f}")
+    if not same:
+        raise AssertionError("two projections of one field differ on the card")
+    # the small mesh: the card's whole loop against the CPU's
+    mesh, edges, v, p = noisy_duct(PHYS_SMALL)
+    for loop in ("host", "device"):
+        res = {}
+        for dev in (CARD, "cpu"):
+            proj = DivergenceFreeProjection(mesh.points, edges, v, p,
+                                            device=dev)
+            if loop == "host":
+                vel, _, final, _ = proj.apply_divergence_free_projection(
+                    max_iterations=20, tolerance=1e-2)
+            else:
+                vel, _, final, _ = proj.apply_divergence_free_projection_device(
+                    max_iterations=20, tolerance=1e-2)
+            res[dev] = (vel, final)
+        rel = abs(res[CARD][1] - res["cpu"][1]) / res["cpu"][1]
+        log("physics_smooth", mesh="small", loop=loop,
+            final_card=f"{res[CARD][1]:.6f}", final_cpu=f"{res['cpu'][1]:.6f}",
+            final_rel=f"{rel:.3e}", tol=PHYS_LOOP_RTOL)
+        if not rel <= PHYS_LOOP_RTOL:
+            raise AssertionError(f"small {loop} loop: final norms {rel:.3e}")
+        hold("physics_smooth", f"small_{loop}_velocity", res[CARD][0],
+             res["cpu"][0], PHYS_LOOP_RTOL)
+    return launches
+
+
+def phase_physics_amg(smi) -> None:
+    """The AMG hierarchy on the full mesh: its host build's seconds and
+    level sizes, one V-cycle on the card against the CPU on the same
+    hierarchy and weights, and the device loop with ``precond='amg'``
+    against ``'none'`` on the same noisy field."""
+    mesh, edges, v, p = noisy_duct(PHYS_FULL)
+    proj = DivergenceFreeProjection(mesh.points, edges, v, p, device=CARD)
+    nbr, mask = proj.nbr.cpu().numpy(), proj.mask.cpu().numpy()
+    w = proj.weights.cpu().numpy()
+    t0 = time.time()
+    N = pamg.assemble_normal(nbr, mask, w, a_drop=0.0)
+    levels, cinv = pamg.build_hierarchy(N, implicit_level0=True)
+    build_s = time.time() - t0
+    log("physics_amg", nodes=len(nbr), normal_nnz=N.nnz,
+        normal_nnz_per_row=f"{N.nnz / len(nbr):.1f}",
+        levels=[lv["n"] for lv in levels] + [len(cinv)],
+        host_build_s=f"{build_s:.2f}")
+    r = np.random.default_rng(3).standard_normal(len(nbr)).astype(np.float32)
+    out = {}
+    for dev in (CARD, "cpu"):
+        t = (lambda a, dev=dev: a.to(dev))
+        mv, _ = pdiv.make_consistent_matvec(t(proj.nbr), t(proj.mask),
+                                            t(proj.weights))
+        rmv = pdiv.make_consistent_rmatvec(t(proj.nbr), t(proj.mask),
+                                           t(proj.weights),
+                                           [t(a) for a in proj.table])
+        lv, ci = pamg.levels_from_arrays(levels, cinv, dev)
+        vc = pamg.make_vcycle(lv, ci, cheb_degree=3, smooth_band=16.0,
+                              matvec0=lambda q, mv=mv, rmv=rmv: rmv(mv(q)))
+        rt = torch.as_tensor(r, device=dev)
+        out[dev] = vc(rt)
+        if dev == CARD:
+            vcycle_ms = cuda_ms(lambda: vc(rt))
+    hold("physics_amg", "vcycle", out[CARD], out["cpu"], VCYCLE_TOL,
+         vcycle_ms=f"{vcycle_ms:.4f}", card=repr(smi))
+    for precond in ("none", "amg"):
+        proj = DivergenceFreeProjection(mesh.points, edges, v, p, device=CARD)
+        init = float(torch.linalg.vector_norm(proj.calculate_divergence()))
+        t0 = time.time()
+        _, _, final, it = proj.apply_divergence_free_projection_device(
+            max_iterations=20, tolerance=1e-2, cg_maxiter=200, precond=precond)
+        torch.cuda.synchronize()
+        log("physics_amg", precond=precond, initial=f"{init:.6f}",
+            final=f"{final:.6f}", ratio=f"{init / max(final, 1e-30):.3f}",
+            outer=it, inner=sum(proj.cg_iterations),
+            pair_calls=proj.pair_calls, wall_s=f"{time.time() - t0:.3f}")
+        if not final < init:
+            raise AssertionError(f"amg phase {precond}: no reduction")
+
+
+def phase_physics_scale(smi, max_iterations: int = 20) -> None:
+    """The device loop at 97 556 nodes (benchmarks/projection_scale.py's
+    field): setup seconds, then plain CGNR and ``precond='amg'``: the
+    ratio, outer and inner iterations, wall seconds, and the composite
+    pair's time against its bound."""
+    t0 = time.time()
+    mesh, edges, v, p = noisy_duct(PHYS_SCALE)
+    mesh_s = time.time() - t0
+    for precond in ("none", "amg"):
+        t0 = time.time()
+        proj = DivergenceFreeProjection(mesh.points, edges, v, p, device=CARD)
+        init = float(torch.linalg.vector_norm(proj.calculate_divergence()))
+        setup_s = time.time() - t0
+        amg_s = 0.0
+        if precond == "amg":
+            t0 = time.time()
+            proj._amg_preconditioner()
+            amg_s = time.time() - t0
+        t0 = time.time()
+        _, _, final, it = proj.apply_divergence_free_projection_device(
+            max_iterations=max_iterations, tolerance=1e-2, cg_maxiter=200,
+            precond=precond)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        q = torch.randn(len(mesh.points)).to(CARD)
+        pair_ms = cuda_ms(lambda: proj.normal_matvec(q))
+        bound_ms, nbytes = pair_bound_ms(proj)
+        log("physics_scale", precond=precond, nodes=len(mesh.points),
+            edges=len(edges), K=proj.nbr.shape[1], mesh_s=f"{mesh_s:.2f}",
+            setup_s=f"{setup_s:.2f}", amg_build_s=f"{amg_s:.2f}",
+            amg_levels=proj.amg_sizes, initial=f"{init:.4f}",
+            final=f"{final:.4f}", ratio=f"{init / max(final, 1e-30):.3f}",
+            outer=it, inner=sum(proj.cg_iterations),
+            max_outer=max_iterations, wall_s=f"{wall:.3f}",
+            pair_ms=f"{pair_ms:.4f}", pair_bound_ms=f"{bound_ms:.5f}",
+            pair_bytes=nbytes, card=repr(smi))
+        if not final < init:
+            raise AssertionError(f"scale {precond}: no reduction")
+
+
+def _read_vtp(path: str) -> dict:
+    """PointData arrays of a .vtp written by ``write_vtp_polydata``."""
+    import xml.etree.ElementTree as ET
+
+    from fast_eng_super_resolution_tpu_torch.data.vtu import _decode_data_array
+
+    piece = ET.parse(path).getroot().find(".//Piece")
+    return {el.get("Name"): _decode_data_array(el)
+            for el in piece.find("PointData").findall("DataArray")}
+
+
+def phase_wss(root: str, smi) -> None:
+    """``python -m fast_eng_super_resolution_tpu_torch.compute_wss`` on the
+    first smoothed full-mesh .vtu (a subprocess: the entry point itself,
+    on the card), each field's .vtp against the port's CPU post-pass; and
+    the analytic shear u = (gamma y, 0, 0) on the duct, |tau| = mu gamma on
+    the bottom wall (tests/test_physics.py's check)."""
+    src = os.path.join(root, "logs", "vtk", "full", "pred_0.vtu")
+    work = os.path.join(root, "wss")
+    os.makedirs(work, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    run = subprocess.run([sys.executable, "-m",
+                          "fast_eng_super_resolution_tpu_torch.compute_wss",
+                          "--input", src], cwd=work, env=env,
+                         capture_output=True, text=True, timeout=300)
+    if run.returncode != 0:
+        raise AssertionError(f"compute_wss failed: {run.stderr[-2000:]}")
+    log("wss", cli_s=f"{time.time() - t0:.2f}", input=os.path.basename(src))
+    grid = read_vtu(src)
+    cells = np.asarray(grid["cells"])
+    edges = cells_to_edges(cells)
+    for field, tag in (("velocity", "pred"),
+                       ("interpolated_velocity", "interpolated"),
+                       ("ref_velocity", "reference")):
+        got = _read_vtp(os.path.join(work, f"wall_shear_stress_results_{tag}.vtp"))
+        with contextlib.redirect_stdout(open(os.devnull, "w")):
+            _, tau, mag = compute_wall_shear_stress(
+                grid["points"], cells, edges, grid["point_data"][field], 1e-3,
+                device="cpu")
+        scale = float(mag.max())
+        err = max(np.abs(got["WallShearStressMagnitude"] - mag).max(),
+                  np.abs(got["WallShearStressVector"] - tau).max()) / scale
+        log("wss", field=field, surface_points=len(mag),
+            max_magnitude=f"{scale:.6e}", card_vs_cpu=f"{err:.3e}", tol=WSS_TOL)
+        if not err <= WSS_TOL:
+            raise AssertionError(f"wss {field}: {err:.3e} > {WSS_TOL}")
+    mesh = make_duct_mesh(10, 6, 6)
+    gamma, mu = 2.0, 1e-3
+    vel = np.stack([gamma * mesh.points[:, 1], 0 * mesh.points[:, 0],
+                    0 * mesh.points[:, 0]], 1).astype(np.float32)
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        ids, _, mag = compute_wall_shear_stress(
+            mesh.points, mesh.cells, cells_to_edges(mesh.cells), vel, mu,
+            device=CARD)
+    pts = mesh.points[ids]
+    bottom = (np.isclose(pts[:, 1], 0) & (pts[:, 0] > 0.3) & (pts[:, 0] < 1.7)
+              & (pts[:, 2] > 0.15) & (pts[:, 2] < 0.35))
+    err = float(np.abs(mag[bottom] / (mu * gamma) - 1).max())
+    log("wss", check="analytic_shear", nodes=int(bottom.sum()),
+        max_rel_err=f"{err:.3e}", tol=0.15, card=repr(smi))
+    if not (bottom.sum() > 0 and err <= 0.15):
+        raise AssertionError(f"analytic shear: {err:.3e}")
+
+
+def general_request(label: str, phase: str, datasets: dict, model, tag: str,
+                    root: str, tol: float) -> None:
+    """One full-size request of ``model`` from exp ``full{tag}``'s
+    checkpoint with FESR_FUSED_PREDICT=0 (general lane, plain ``apply``):
+    no kernel launched; then the small mesh's request (exp
+    ``small{tag}``) on the card against the CPU's within ``tol``."""
+    log_dir = os.path.join(root, "logs")
+    saved = os.environ.get("FESR_FUSED_PREDICT")
+    os.environ["FESR_FUSED_PREDICT"] = "0"
+    try:
+        reset_launches()
+        t0 = time.time()
+        lanes, (f,) = serve(datasets["full"], model, [0], log_dir,
+                            "full" + tag, None)
+        torch.cuda.synchronize()
+        log(phase, model=label, mesh="full", lane=lanes[0][1],
+            reason=repr(lanes[0][2]), nodes=len(f["pressure"]),
+            cold_s=f"{time.time() - t0:.3f}", **launches_of(*KERNELS))
+        if lanes[0][1] != "general":
+            raise AssertionError(f"{label} took lane {lanes[0][1]}")
+        check_only(f"{label} request", {})
+        _, (card,) = serve(datasets["small"], model, [0], log_dir,
+                           "small" + tag, None)
+        _, (cpu,) = serve(datasets["small"], model, [0], log_dir,
+                          "small" + tag, "cpu")
+        for key in ("velocity", "pressure"):
+            hold(phase, f"{label}_small_{key}_vs_cpu", card[key], cpu[key], tol)
+    finally:
+        if saved is None:
+            os.environ.pop("FESR_FUSED_PREDICT")
+        else:
+            os.environ["FESR_FUSED_PREDICT"] = saved
+
+
+def phase_powerseries(root: str, datasets: dict, cfg: dict) -> None:
+    """TEECNet at teecnet_ansys.yaml's width with the power-series kernel:
+    no fused form, so the general lane; seeded checkpoints written for the
+    full and small meshes."""
+    model = TEECNet(cfg["in_channels"], cfg["width"], cfg["out_channels"],
+                    cfg["num_layers"], kernel_type="powerseries", seed=SEED)
+    for exp in ("full_ps", "small_ps"):
+        ckpt.save_params(os.path.join(root, "logs", "models",
+                                      f"collection_{exp}", "partition_0.npz"),
+                         model.to_jax_params(), meta={"model": "TEECNet"})
+    general_request("teecnet_powerseries", "powerseries", datasets, model,
+                    "_ps", root, GENERAL_TOL)
+
+
+def phase_lut(root: str, datasets: dict, cfg: dict) -> None:
+    """KernelNN at full width from the serve phase's checkpoints in mode
+    'lut' (512 knots), and with ``kernel_dtype='bfloat16'`` in mode
+    'edge3d': both through the general lane's ``apply``."""
+    w = cfg["width"]
+    kw = dict(in_width=cfg["in_channels"], out_width=cfg["out_channels"],
+              seed=SEED)
+    general_request("kernelnn_lut", "lut", datasets,
+                    KernelNN(w, w, cfg["num_layers"], mode="lut", **kw),
+                    "", root, GENERAL_TOL)
+    general_request("kernelnn_bf16_edge3d", "lut", datasets,
+                    KernelNN(w, w, cfg["num_layers"], mode="edge3d",
+                             kernel_dtype="bfloat16", **kw),
+                    "", root, BF16_GENERAL_TOL)
+
+
 def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
     """The forward's and the backward's entries of the kernels JSON line,
     tagged with the ``path`` that ran them."""
@@ -1625,6 +2157,18 @@ def main() -> int:
         routed = run_routed(root, smi, datasets, cfgs_rt)
         coalesced = phase_coalesced(root, datasets["small"], models["small"],
                                     smi)
+        t1 = time.time()
+        phase_physics_ops(smi)
+        smooth_launches = phase_physics_smooth(root, datasets, models, cfgs,
+                                               smi)
+        phase_physics_amg(smi)
+        phase_physics_scale(smi)
+        phase_wss(root, smi)
+        log("physics", wall_s=f"{time.time() - t1:.1f}")
+        t1 = time.time()
+        phase_powerseries(root, datasets, cfgs_tc["full"])
+        phase_lut(root, datasets, cfgs["full"])
+        log("general_modes", wall_s=f"{time.time() - t1:.1f}")
 
     kernels = (kernel_entries(full, smi, None, "kernelnn")
                + kernel_entries(lowrank, smi, RANK, "kernelnn_rank16")
@@ -1637,6 +2181,9 @@ def main() -> int:
     kernels[0]["launches_by_path"]["coalesced"] = coalesced["launches"]
     kernels[0]["coalesced_ms"] = {k: coalesced["t"][k]
                                   for k in ("batch_ms", "singles_ms")}
+    # smooth: true serves through the same B1 lane before the projection
+    kernels[0]["launches"] += smooth_launches
+    kernels[0]["launches_by_path"]["smooth"] = smooth_launches
     log("done", seconds=f"{time.time() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,12 @@ aggr='mean' (model.py:551).  Forward: fc1 -> depth x relu(conv) -> fc2
 (model.py:555-562), the conv weights shared across depth (model.py:558-559).
 
 ``apply`` is the plain whole-graph form in the conv formulation ``mode``
-(ops/message_passing.py: 'auto', 'edge3d', 'factored', 'pallas'); the
-JAX package's scheduling knobs (``remat``, ``edges_sorted``) change no
-result and are left out.  ``kernel_dtype`` and ``lut_knots`` are taken at
-the JAX package's defaults (None, 512) and stamped into checkpoints as JAX
-stamps them; other values (bf16 per-edge matrices, mode 'lut') are not
-ported.  ``apply_fused`` runs each layer
+(ops/message_passing.py: 'auto', 'edge3d', 'factored', 'pallas', 'lut');
+the JAX package's scheduling knobs (``remat``, ``edges_sorted``) change no
+result and are left out.  ``kernel_dtype`` (e.g. 'bfloat16') stores the
+'edge3d' per-edge matrices (and the rank-r U, V) in that type, as the JAX
+package does, and ``lut_knots`` sizes mode 'lut''s table; both only affect
+``apply``.  ``apply_fused`` runs each layer
 through the fused edge-conv layer (ops/fused_conv.py), a hand-written CUDA
 kernel on the GPU, and ``apply_fused_ad`` is its differentiable form for
 training (the backward a second hand-written kernel).  With ``kernel_rank``
@@ -32,7 +32,7 @@ import torch
 from torch import nn
 
 from ..ops.message_passing import (apply_edge_mlp_hidden, check_mode,
-                                   edge_conditioned_conv,
+                                   edge_conditioned_conv, kernel_torch_dtype,
                                    precompute_edge_kernel, resolve_mode)
 from ..ops.segment import masked_segment_mean, segment_degree
 from .common import (from_torch_linear, jax_tree, linear_init, load_jax_tree,
@@ -49,11 +49,9 @@ class KernelNN(nn.Module):
                  seed: int = 0):
         super().__init__()
         check_mode(mode)
-        if kernel_dtype is not None or lut_knots != 512:
-            raise NotImplementedError(
-                f"kernel_dtype={kernel_dtype!r}, lut_knots={lut_knots!r}: "
-                "only the JAX package's defaults (None, 512) are ported "
-                "(ROADMAP.md queue A item 3)")
+        kernel_torch_dtype(kernel_dtype)  # raises on an unknown type
+        if int(lut_knots) < 2:
+            raise ValueError(f"lut_knots={lut_knots!r}: needs at least 2")
         self.width, self.ker_width, self.depth = width, ker_width, depth
         self.ker_in, self.in_width, self.out_width = ker_in, in_width, out_width
         self.mode = mode
@@ -101,28 +99,36 @@ class KernelNN(nn.Module):
                                        edge_mask)
         mode = resolve_mode(self.mode, x.device)
         pre = precompute_edge_kernel(self.edge_mlp, edge_attr, torch.relu,
-                                     mode, edge_mask=edge_mask)
+                                     mode, edge_mask=edge_mask,
+                                     kernel_dtype=self.kernel_dtype,
+                                     lut_knots=self.lut_knots)
         deg = segment_degree(receivers, x.shape[0], edge_mask)
         for _ in range(self.depth):
             h = torch.relu(edge_conditioned_conv(
                 h, senders, receivers, edge_attr, self.edge_mlp, self.root,
                 self.bias, edge_mask=edge_mask, mode=mode, precomputed=pre,
-                degree=deg))
+                degree=deg, lut_knots=self.lut_knots))
         return self.fc2(h)
 
     def _apply_lowrank(self, h: torch.Tensor, senders: torch.Tensor,
                        receivers: torch.Tensor, edge_attr: torch.Tensor,
                        edge_mask: torch.Tensor | None) -> torch.Tensor:
         """Rank-r conv: msg_e = (h[s_e] @ U_e) @ V_e^T, scatter-mean; U/V
-        from one loop-invariant edge-MLP pass [E, 2 r w]."""
+        from one loop-invariant edge-MLP pass [E, 2 r w].  With
+        ``kernel_dtype``, U, V, h[s_e] and the first product are rounded to
+        it (float32 sums), as the JAX package computes them under jit: XLA
+        keeps the second product, converted straight back, in float32."""
         w, r = self.width, self.kernel_rank
+        dt = kernel_torch_dtype(self.kernel_dtype)
+        rnd = ((lambda a: a) if dt is None
+               else (lambda a: a.to(dt).to(torch.float32)))
         hid = apply_edge_mlp_hidden(self.edge_mlp, edge_attr, torch.relu)
-        uv = self.edge_mlp[-1](hid)
+        uv = rnd(self.edge_mlp[-1](hid))
         u = uv[:, :w * r].reshape(-1, w, r)
         v = uv[:, w * r:].reshape(-1, w, r)
         deg = segment_degree(receivers, h.shape[0], edge_mask)
         for _ in range(self.depth):
-            t = torch.einsum("ei,eir->er", h[senders.long()], u)
+            t = rnd(torch.einsum("ei,eir->er", rnd(h[senders.long()]), u))
             msg = torch.einsum("er,eor->eo", t, v)
             agg = masked_segment_mean(msg, receivers, h.shape[0], edge_mask,
                                       count=deg)

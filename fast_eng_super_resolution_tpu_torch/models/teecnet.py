@@ -14,8 +14,11 @@ layer through the fused edge-conv layer on ``linear(h)`` (B1 forward and B2
 backward on the GPU), with the same signatures as KernelNN's, so the serving
 lanes and the trainer take either model.  The JAX package's ``remat`` and
 ``edges_sorted`` are XLA scheduling knobs that change no result and are
-left out; its ``kernel_type='powerseries'`` (models/powerseries.py), which
-its ``init_model`` never builds, raises.
+left out.  ``kernel_type='powerseries'`` (models/powerseries.py, which
+``init_model`` never builds, as in the JAX package) makes the per-edge
+matrices with the nonlinear power-series stack ``kernel.ps``: its last stage
+is nonlinear, so it has no fused form (``fused_ok`` False) and serves and
+trains through ``apply``, the general lane.
 """
 
 from __future__ import annotations
@@ -30,9 +33,10 @@ from torch import nn
 from ..ops.message_passing import (apply_edge_mlp_hidden, check_mode,
                                    edge_conditioned_conv,
                                    precompute_edge_kernel, resolve_mode)
-from ..ops.segment import segment_degree
+from ..ops.segment import masked_segment_mean, segment_degree
 from .common import (from_torch_linear, jax_tree, linear_init, load_jax_tree,
                      pyg_uniform_init, to_torch_linear)
+from .powerseries import PowerSeriesKernel
 
 _leaky_relu = functools.partial(F.leaky_relu, negative_slope=0.01)
 _EDGE_HIDDEN = (32, 64, 128)  # the operator kernel's hidden widths (model.py:403)
@@ -59,27 +63,32 @@ class TEECNet(nn.Module):
 
     def __init__(self, in_channels: int, width: int, out_channels: int,
                  num_layers: int = 4, in_edge: int = 1, mode: str = "auto",
-                 kernel_type: str = "dense", seed: int = 0):
+                 kernel_type: str = "dense", num_powers: int = 3,
+                 ps_layers: int = 3, seed: int = 0):
         super().__init__()
-        if kernel_type != "dense":
-            raise NotImplementedError(
-                f"kernel_type {kernel_type!r} is not ported (the powerseries "
-                "kernel is what remains of ROADMAP.md queue A item 11)")
+        if kernel_type not in ("dense", "powerseries"):
+            raise ValueError(f"unknown kernel_type {kernel_type!r} "
+                             "(expected dense | powerseries)")
         check_mode(mode)
         self.in_channels, self.width, self.out_channels = (
             in_channels, width, out_channels)
         self.num_layers, self.in_edge = num_layers, in_edge
         self.mode, self.kernel_type = mode, kernel_type
+        self.num_powers, self.ps_layers = num_powers, ps_layers
         skip = nn.utils.skip_init
         self.fc1 = skip(nn.Linear, in_channels, width)
         self.kernel = KernelConv(width, in_edge)
+        if kernel_type == "powerseries":
+            self.kernel.ps = PowerSeriesKernel(in_edge, width * width,
+                                               ps_layers, num_powers)
         self.fc_out = skip(nn.Linear, width, out_channels)
         self.init_params(torch.Generator().manual_seed(seed))
 
     @property
     def fused_ok(self) -> bool:
         """The fused layer folds the operator kernel's last Linear into the
-        kernel: valid for the dense kernel, the only one ported."""
+        kernel: valid for the dense kernel only (the power-series kernel is
+        nonlinear in its last stage)."""
         return self.kernel_type == "dense"
 
     def init_params(self, generator: torch.Generator) -> None:
@@ -93,6 +102,8 @@ class TEECNet(nn.Module):
         pyg_uniform_init(kern.root, self.width, generator)
         pyg_uniform_init(kern.bias, self.width, generator)
         linear_init(self.fc_out, generator)
+        if self.kernel_type == "powerseries":
+            kern.ps.init_params(generator)
 
     def apply(self, x: torch.Tensor, senders: torch.Tensor,
               receivers: torch.Tensor, edge_attr: torch.Tensor,
@@ -100,11 +111,21 @@ class TEECNet(nn.Module):
         """Forward pass for one (padded) graph. x: [N, C_in] -> [N, C_out].
         The per-edge operator kernel is shared across layers: computed once."""
         kern = self.kernel
-        mode = resolve_mode(self.mode, x.device)
         h = self.fc1(x)
+        deg = segment_degree(receivers, x.shape[0], edge_mask)
+        if self.kernel_type == "powerseries":
+            # per-edge matrices from the nonlinear series (whatever the mode)
+            w_e = kern.ps(edge_attr).reshape(-1, self.width, self.width)
+            src = senders.long()
+            for _ in range(self.num_layers):
+                msg = torch.einsum("ei,eio->eo", kern.linear(h)[src], w_e)
+                h = (masked_segment_mean(msg, receivers, h.shape[0],
+                                         edge_mask, count=deg)
+                     + h @ kern.root + kern.bias)
+            return self.fc_out(h)
+        mode = resolve_mode(self.mode, x.device)
         pre = precompute_edge_kernel(kern.edge_mlp, edge_attr, _leaky_relu,
                                      mode, edge_mask=edge_mask)
-        deg = segment_degree(receivers, x.shape[0], edge_mask)
         for _ in range(self.num_layers):
             h = edge_conditioned_conv(
                 kern.linear(h), senders, receivers, edge_attr, kern.edge_mlp,
@@ -239,7 +260,7 @@ class TEECNet(nn.Module):
     def from_jax_params(self, params: dict) -> "TEECNet":
         """Loads the JAX package's TEECNet parameter tree (numpy leaves:
         fc1/{w,b}, kernel/linear, kernel/edge_mlp/[4], kernel/root,
-        kernel/bias, fc_out)."""
+        kernel/bias, fc_out, and kernel/ps for the power-series kernel)."""
         self._check_shapes(np.shape(params["kernel"]["root"])[0],
                            np.shape(params["fc1"]["w"])[::-1])
         load_jax_tree(self, params)
@@ -249,10 +270,14 @@ class TEECNet(nn.Module):
     def jax_key(name: str) -> tuple[str, bool]:
         """(flat key in the JAX package's parameter tree, transposed?) of the
         parameter ``name``: a linear layer's weight is stored there as
-        w [in, out], the transpose of ``nn.Linear.weight``."""
-        if name in ("kernel.root", "kernel.bias"):
-            return name.replace(".", "/"), False
+        w [in, out], the transpose of ``nn.Linear.weight``; a power-series
+        conv keeps its w, b beside its root_param (no ``linear`` level)."""
         *path, leaf = name.split(".")
+        if leaf not in ("weight", "bias") or name in ("kernel.root",
+                                                      "kernel.bias"):
+            return "/".join(path + [leaf]), False
+        if path[:2] == ["kernel", "ps"]:
+            path = path[:-1]  # kernel.ps.<conv>.linear.weight -> .../<conv>/w
         return "/".join(path + [{"weight": "w", "bias": "b"}[leaf]]), \
             leaf == "weight"
 

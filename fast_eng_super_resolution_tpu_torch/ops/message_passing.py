@@ -18,9 +18,17 @@ The JAX package's forms, of which the port has three:
 - 'pallas': the per-edge messages from ``ops.pallas_mp.fused_edge_messages``
   (a hand-written CUDA kernel on the GPU, its plain version on the CPU);
   forward only, as in the JAX package.
+- 'lut': the tabulated edge kernel.  The edge MLP maps a scalar (the edge
+  length) to the c_in x c_out matrix, so it is sampled at ``lut_knots``
+  knots spanning the real edges' range, the node-side products for every
+  knot come from one GEMM, and each edge interpolates linearly between the
+  two knots around its length: [E, 2, c_out] gathered instead of
+  [E, c_in * c_out] computed.
 
-'edge' (a TPU layout experiment) and 'lut' (the tabulated edge kernel) raise.
-The serving path's fused layer is ops/fused_conv.py.
+``kernel_dtype`` (KernelNN's) stores the 'edge3d' per-edge matrices in that
+type; the contraction rounds x the same way and accumulates in float32, as
+the JAX package's ``preferred_element_type`` does.  'edge' (a TPU layout
+experiment) raises.  The serving path's fused layer is ops/fused_conv.py.
 """
 
 from __future__ import annotations
@@ -31,8 +39,7 @@ from .pallas_mp import fused_edge_messages
 from .segment import masked_segment_mean, masked_segment_sum
 
 MODES = ("auto", "factored", "edge", "edge3d", "pallas", "lut")
-_NOT_PORTED = {"edge": "a TPU layout experiment, ROADMAP.md queue A item 3",
-               "lut": "ROADMAP.md queue A item 3"}
+_NOT_PORTED = {"edge": "a TPU layout experiment, ROADMAP.md queue A item 3"}
 
 
 def check_mode(mode: str) -> None:
@@ -66,20 +73,58 @@ def apply_edge_mlp_hidden(layers, e: torch.Tensor, activation) -> torch.Tensor:
     return h
 
 
+def kernel_torch_dtype(kernel_dtype: str | None):
+    """The torch type of a ``kernel_dtype`` name (None stays None)."""
+    if kernel_dtype is None:
+        return None
+    dt = getattr(torch, str(kernel_dtype), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"unknown kernel_dtype {kernel_dtype!r}")
+    return dt
+
+
 def precompute_edge_kernel(edge_mlp, edge_attr: torch.Tensor,
                            activation=torch.relu, mode: str = "auto",
-                           edge_mask: torch.Tensor | None = None):
+                           edge_mask: torch.Tensor | None = None,
+                           kernel_dtype: str | None = None,
+                           lut_knots: int = 512):
     """Hoists the edge-attr-only part of the conv out of shared-weight loops:
     the per-edge kernel depends only on (params, edge_attr), so it is
     identical across depth.  Returns an opaque (mode, value) token for
     ``edge_conditioned_conv(precomputed=...)``: the per-edge matrices
-    [E, c_in*c_out] for 'edge3d', the edge MLP's hidden features [E, K]
-    otherwise.  ``edge_mask`` is read only by the (unported) 'lut' form."""
-    del edge_mask
+    [E, c_in*c_out] for 'edge3d' (in ``kernel_dtype`` when given), the
+    table (w_knots, i0, frac) for 'lut', the edge MLP's hidden features
+    [E, K] otherwise.
+
+    'lut' spans its knots over the real edges (``edge_mask``) only: padding
+    slots carry edge_attr 1.0, which on fine meshes would stretch the table
+    far past the real range.  A graph whose edges are all masked keeps
+    finite knots [0, 1], so the backward stays finite."""
     mode = resolve_mode(mode, edge_attr.device)
+    if mode == "lut":
+        knots = int(lut_knots)
+        e = edge_attr[:, 0]
+        if edge_mask is not None:
+            lo = torch.where(edge_mask, e, torch.inf).min()
+            hi = torch.where(edge_mask, e, -torch.inf).max()
+            ok = torch.isfinite(lo) & torch.isfinite(hi)
+            lo = torch.where(ok, lo, 0.0)
+            hi = torch.where(ok, hi, 1.0)
+        else:
+            lo, hi = e.min(), e.max()
+        span = (hi - lo).clamp_min(1e-30)
+        grid = torch.arange(knots, device=e.device) / (knots - 1)
+        knot_attr = (lo + span * grid)[:, None]
+        w_knots = edge_mlp[-1](apply_edge_mlp_hidden(edge_mlp, knot_attr,
+                                                     activation))
+        t = (e - lo) / span * (knots - 1)
+        i0 = torch.clamp(torch.floor(t).to(torch.int32), 0, knots - 2)
+        return (mode, (w_knots, i0, t - i0.to(t.dtype)))
     hidden = apply_edge_mlp_hidden(edge_mlp, edge_attr, activation)
     if mode == "edge3d":
-        return (mode, edge_mlp[-1](hidden))
+        w_e = edge_mlp[-1](hidden)
+        dt = kernel_torch_dtype(kernel_dtype)
+        return (mode, w_e if dt is None else w_e.to(dt))
     return (mode, hidden)
 
 
@@ -91,7 +136,8 @@ def edge_conditioned_conv(x: torch.Tensor, senders: torch.Tensor,
                           mode: str = "factored",
                           root_input: torch.Tensor | None = None,
                           precomputed=None,
-                          degree: torch.Tensor | None = None) -> torch.Tensor:
+                          degree: torch.Tensor | None = None,
+                          lut_knots: int = 512) -> torch.Tensor:
     """One edge-conditioned convolution layer (single graph, static shapes).
 
     Args:
@@ -111,6 +157,7 @@ def edge_conditioned_conv(x: torch.Tensor, senders: torch.Tensor,
         ``linear(x)`` (model.py:430-445), so callers pass both.
       precomputed: token from ``precompute_edge_kernel``.
       degree: optional precomputed real-edge counts per node.
+      lut_knots: the table size of mode 'lut' when ``precomputed`` is None.
 
     Returns:
       [N, C_out] updated node features.
@@ -125,10 +172,26 @@ def edge_conditioned_conv(x: torch.Tensor, senders: torch.Tensor,
             raise ValueError(f"precomputed kernel for mode {pre_mode}, got {mode}")
     else:
         value = precompute_edge_kernel(edge_mlp, edge_attr, activation,
-                                       mode)[1]
+                                       mode, edge_mask=edge_mask,
+                                       lut_knots=lut_knots)[1]
     src = senders.long()
     if mode == "edge3d":
-        msg = torch.einsum("ei,eio->eo", x[src], value.reshape(-1, c_in, c_out))
+        xs = x[src]
+        if value.dtype != xs.dtype:
+            # x rounded as the matrices are, the products summed in float32
+            xs, value = xs.to(value.dtype).to(xs.dtype), value.to(xs.dtype)
+        msg = torch.einsum("ei,eio->eo", xs, value.reshape(-1, c_in, c_out))
+    elif mode == "lut":
+        # the node-side knot products as one GEMM, then per edge the two
+        # interpolation endpoints
+        w_knots, i0, frac = value
+        kk = w_knots.shape[0]
+        w2 = (w_knots.reshape(kk, c_in, c_out).permute(1, 0, 2)
+              .reshape(c_in, kk * c_out))
+        uf = (x @ w2).reshape(n * kk, c_out)
+        base = src * kk + i0.long()
+        msg = (uf[base] * (1.0 - frac)[:, None]
+               + uf[base + 1] * frac[:, None])
     elif mode == "pallas":
         msg = fused_edge_messages(value, x[src], last.weight.t(), last.bias)
     else:  # factored

@@ -46,11 +46,10 @@ def pred_graph_ALDD(idxs, exp_name: str, model, dataset, num_partitions: int,
     ``device="cpu"``.  ``lanes``, when given, receives (idx, lane, reason)
     per mesh: the serving lane the scheduler took.  With ``num_partitions``
     > 1, ``kwargs`` carry the ``encoder`` and ``classifier`` (their saved
-    state is loaded)."""
-    if smooth:
-        raise NotImplementedError(
-            "smooth: true (divergence-free projection) is not ported yet "
-            "(ROADMAP.md queue A item 15)")
+    state is loaded).  ``smooth=True`` projects each stitched prediction
+    to a divergence-free field (``physics.smooth_with_continuity``, on the
+    same device) before the ``.vtu`` is written; its pressure is then the
+    solve's correction field, as in the JAX package."""
     scheduler = PartitionScheduler(exp_name, num_partitions, dataset, model,
                                    train=False, log_dir=log_dir,
                                    device=device, **kwargs)
@@ -100,6 +99,18 @@ def pred_graph_ALDD(idxs, exp_name: str, model, dataset, num_partitions: int,
                 pred = overlap_average(pred_y_list, gids, num_nodes)
                 ref = overlap_average([np.asarray(r) for r in ref_y_list],
                                       gids, num_nodes)
+
+        if smooth:
+            from .data.tensorize import cells_to_edges
+            from .physics.projection import smooth_with_continuity
+
+            edges = cells_to_edges(full["cells"])
+            with span("Smoothing"):
+                v, p = smooth_with_continuity(full["points"], edges,
+                                              pred[:, :3], pred[:, 3],
+                                              device=device)
+            pred = np.concatenate([np.asarray(v),
+                                   np.asarray(p).reshape(-1, 1)], 1)
 
         out_dir = os.path.join(log_dir, "vtk", exp_name)
         os.makedirs(out_dir, exist_ok=True)

@@ -860,3 +860,152 @@ def test_routed_request_on_card_matches_cpu(cuda, tmp_path):
     ref = overlap_average(want[0], [d["global_node_ids"] for d in x], n)
     assert np.isfinite(lane[0]).all()
     assert np.abs(lane[0] - ref).max() <= PALLAS_TOL * np.abs(ref).max()
+
+
+# -- physics: the projection's operators, CG and AMG on the card ------------
+# one float32 operator, card vs CPU, sums in other orders: 1e-5 of the max
+PHYS_TOL = 1e-5
+
+
+def _duct_projection(device, shape=(16, 8, 8), seed=0):
+    from fast_eng_super_resolution_tpu_torch.data.synthetic import (
+        duct_field, make_duct_mesh)
+    from fast_eng_super_resolution_tpu_torch.data.tensorize import cells_to_edges
+    from fast_eng_super_resolution_tpu_torch.physics.projection import (
+        DivergenceFreeProjection)
+
+    mesh = make_duct_mesh(*shape)
+    v, p = duct_field(mesh.points)
+    v = v + 0.05 * np.random.default_rng(seed).normal(size=v.shape).astype(np.float32)
+    edges = cells_to_edges(mesh.cells)
+    return DivergenceFreeProjection(mesh.points, edges, v, p[:, 0],
+                                    device=device)
+
+
+def _rel(got, ref):
+    return float((got.cpu() - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("faithful", [False, True])
+def test_physics_ops_card_match_cpu(cuda, faithful):
+    """Weights (and the fallback-branch count), divergence, the composite A
+    and its adjoint A^T (gathers over the transposed table) and the
+    pressure correction: card against CPU, float32, 1e-5 of the max."""
+    from fast_eng_super_resolution_tpu_torch.physics import divergence as pdiv
+
+    cpu, card = _duct_projection("cpu"), _duct_projection("cuda")
+    fn = pdiv.compute_weights if faithful else pdiv.compute_gradient_weights
+    if faithful:
+        (w_g, s_g), (w_c, s_c) = (fn(card.points, card.nbr, card.mask, True),
+                                  fn(cpu.points, cpu.nbr, cpu.mask, True))
+        assert int(s_g.sum()) == int(s_c.sum())
+    else:
+        w_g, w_c = (fn(card.points, card.nbr, card.mask),
+                    fn(cpu.points, cpu.nbr, cpu.mask))
+    assert _rel(w_g, w_c) < PHYS_TOL
+    w = w_c
+    q = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        len(w)).astype(np.float32))
+    out = {}
+    for side, proj, ws, x in (("cpu", cpu, w, q),
+                              ("card", card, w.cuda(), q.cuda())):
+        mv, _ = pdiv.make_consistent_matvec(proj.nbr, proj.mask, ws,
+                                            trace=not faithful)
+        rmv = pdiv.make_consistent_rmatvec(proj.nbr, proj.mask, ws,
+                                           proj.table, trace=not faithful)
+        div = (pdiv.compute_divergence if faithful
+               else pdiv.compute_divergence_trace)
+        out[side] = (mv(x), rmv(x), div(proj.velocity, proj.nbr, proj.mask, ws),
+                     pdiv.apply_pressure_correction(proj.velocity, x, proj.nbr,
+                                                    proj.mask, ws, 0.5))
+    for got, ref in zip(out["card"], out["cpu"]):
+        assert _rel(got, ref) < PHYS_TOL
+
+
+@pytest.mark.parametrize("trace", [True, False])
+def test_physics_adjoint_dot_product_on_card(cuda, trace):
+    """<y, A q> = <A^T y, q> on the card, float64."""
+    from fast_eng_super_resolution_tpu_torch.physics import divergence as pdiv
+
+    card = _duct_projection("cuda")
+    w = card.weights.double()
+    mv, _ = pdiv.make_consistent_matvec(card.nbr, card.mask, w, trace=trace)
+    rmv = pdiv.make_consistent_rmatvec(card.nbr, card.mask, w, card.table,
+                                       trace=trace)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    y = torch.randn(len(w), dtype=torch.float64, device="cuda", generator=g)
+    q = torch.randn(len(w), dtype=torch.float64, device="cuda", generator=g)
+    lhs, rhs = float(y @ mv(q)), float(rmv(y) @ q)
+    assert abs(lhs - rhs) <= 1e-10 * max(abs(lhs), 1.0)
+
+
+@pytest.mark.parametrize("loop", ["host", "device"])
+def test_physics_projection_repeats_bit_identical(cuda, loop):
+    """No operator scatters (no float atomics), so two projections of one
+    field on the card give the same bits; and the card's result agrees
+    with the CPU's within the loops' tolerance (final norm rtol 2e-2, field
+    within 2e-2 of its max)."""
+    runs = []
+    for device in ("cuda", "cuda", "cpu"):
+        proj = _duct_projection(device)
+        if loop == "host":
+            res = proj.apply_divergence_free_projection(max_iterations=8,
+                                                        tolerance=1e-3)
+        else:
+            res = proj.apply_divergence_free_projection_device(
+                max_iterations=8, tolerance=1e-3, precond="amg")
+        runs.append(res)
+    (v1, p1, f1, _), (v2, p2, f2, _), (vc, _, fc, _) = runs
+    assert torch.equal(v1, v2) and torch.equal(p1, p2) and f1 == f2
+    assert abs(f1 - fc) <= 2e-2 * fc
+    assert _rel(v1, vc) < 2e-2
+
+
+def test_physics_vcycle_card_matches_cpu(cuda):
+    """One V-cycle on the same host-built hierarchy (an implicit level 0
+    applying the composite pair, Chebyshev degree 3), card vs CPU: 1e-4 of
+    the max (about ten float32 operator passes)."""
+    from fast_eng_super_resolution_tpu_torch.physics import amg as pamg
+
+    cpu = _duct_projection("cpu")
+    N = pamg.assemble_normal(cpu.nbr.numpy(), cpu.mask.numpy(),
+                             cpu.weights.numpy(), a_drop=0.0)
+    levels, cinv = pamg.build_hierarchy(N, implicit_level0=True)
+    assert levels and "agg" in levels[0]
+    from fast_eng_super_resolution_tpu_torch.physics import divergence as pdiv
+
+    card = _duct_projection("cuda")
+    r = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        N.shape[0]).astype(np.float32))
+    out = {}
+    for side, proj in (("cpu", cpu), ("card", card)):
+        dev = proj.device
+        w = cpu.weights.to(dev)   # the same weights on both sides
+        mv, _ = pdiv.make_consistent_matvec(proj.nbr, proj.mask, w)
+        rmv = pdiv.make_consistent_rmatvec(proj.nbr, proj.mask, w, proj.table)
+        lv, ci = pamg.levels_from_arrays(levels, cinv, dev)
+        out[side] = pamg.make_vcycle(lv, ci, cheb_degree=3, smooth_band=16.0,
+                                     matvec0=lambda q, mv=mv, rmv=rmv: rmv(mv(q)))(
+                                         r.to(dev))
+    assert _rel(out["card"], out["cpu"]) < 1e-4
+
+
+def test_physics_wss_card_matches_cpu(cuda):
+    """The WSS post-pass on the card against the CPU: 1e-5 of the
+    magnitude's max."""
+    from fast_eng_super_resolution_tpu_torch.data.synthetic import (
+        duct_field, make_duct_mesh)
+    from fast_eng_super_resolution_tpu_torch.data.tensorize import cells_to_edges
+    from fast_eng_super_resolution_tpu_torch.physics.wss import (
+        compute_wall_shear_stress)
+
+    mesh = make_duct_mesh(10, 6, 6)
+    v, _ = duct_field(mesh.points)
+    edges = cells_to_edges(mesh.cells)
+    ids_g, tau_g, mag_g = compute_wall_shear_stress(
+        mesh.points, mesh.cells, edges, v, 1e-3, device="cuda")
+    ids_c, tau_c, mag_c = compute_wall_shear_stress(
+        mesh.points, mesh.cells, edges, v, 1e-3, device="cpu")
+    np.testing.assert_array_equal(ids_g, ids_c)
+    assert np.abs(mag_g - mag_c).max() <= 1e-5 * mag_c.max()
+    assert np.abs(tau_g - tau_c).max() <= 1e-5 * mag_c.max()

@@ -191,42 +191,80 @@ def test_apply_fused_ad_grads_match_jax(rank):
 
 
 def test_unported_options_raise():
+    """The grid models and conv mode 'edge' (a TPU layout experiment) still
+    raise, naming their ROADMAP.md item; mode 'lut' and TEECNet's
+    power-series kernel are ported and build (their outputs are held
+    against JAX in tests/test_torch_pallas_mp.py and
+    tests/test_torch_teecnet.py)."""
     for name in ("fno", "deeponet", "graphsage"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             init_model(name, 4, 4, width=W, num_layers=2)
     with pytest.raises(ValueError):
         init_model("nope", 4, 4, width=W, num_layers=2)
-    for mode in ("edge", "lut"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            KernelNN(**_cfg(None), mode=mode)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TEECNet(4, W, 4, mode=mode)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TEECNet(4, W, 4, kernel_type="powerseries")
+        KernelNN(**_cfg(None), mode="edge")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TEECNet(4, W, 4, mode="edge")
+    assert KernelNN(**_cfg(None), mode="lut").mode == "lut"
+    assert TEECNet(4, W, 4, mode="lut").mode == "lut"
+    ps = TEECNet(4, W, 4, kernel_type="powerseries")
+    assert not ps.fused_ok and TEECNet(4, W, 4).fused_ok
+    assert ps.kernel.ps.conv_out.linear.out_features == W * W
+    with pytest.raises(ValueError, match="kernel_type"):
+        TEECNet(4, W, 4, kernel_type="chebyshev")
 
 
 @pytest.mark.parametrize("rank", [None, 3])
 def test_kernel_dtype_and_lut_knots_as_jax(rank):
     """KernelNN takes the JAX package's ``kernel_dtype`` and ``lut_knots``
-    at their defaults (None, 512) and stamps them, with every other scalar
-    field, into a checkpoint's spec as the JAX package stamps its model;
-    other values raise NotImplementedError naming ROADMAP.md queue A item 3
-    (bf16 per-edge matrices and mode 'lut' are not ported), not a
-    TypeError."""
+    and stamps them, with every other scalar field, into a checkpoint's spec
+    as the JAX package stamps its model: at the defaults (None, 512) and at
+    bf16 per-edge matrices with a 256-knot table; an unknown type or a
+    table of fewer than 2 knots raises ValueError."""
     from types import SimpleNamespace
 
     from fast_eng_super_resolution_tpu.sched.scheduler import PartitionScheduler as JSched
     from fast_eng_super_resolution_tpu_torch.sched.scheduler import PartitionScheduler
 
-    port = KernelNN(**_cfg(rank), kernel_dtype=None, lut_knots=512)
-    jmodel = JKernelNN(**_cfg(rank))
-    assert (port.kernel_dtype, port.lut_knots) == (jmodel.kernel_dtype,
-                                                   jmodel.lut_knots)
-    spec = PartitionScheduler._model_spec(SimpleNamespace(model=port))
-    jspec = JSched._model_spec(SimpleNamespace(model=jmodel))
-    assert spec["cfg_kernel_dtype"] == jspec["cfg_kernel_dtype"] == "None"
-    assert spec["cfg_lut_knots"] == jspec["cfg_lut_knots"] == "512"
-    assert spec.items() <= jspec.items()
-    for kw in (dict(kernel_dtype="bfloat16"), dict(lut_knots=256)):
-        with pytest.raises(NotImplementedError, match="queue A item 3"):
+    for kw, want in ((dict(kernel_dtype=None, lut_knots=512), ("None", "512")),
+                     (dict(kernel_dtype="bfloat16", lut_knots=256),
+                      ("bfloat16", "256"))):
+        port = KernelNN(**_cfg(rank), **kw)
+        jmodel = JKernelNN(**_cfg(rank), **kw)
+        assert (port.kernel_dtype, port.lut_knots) == (jmodel.kernel_dtype,
+                                                       jmodel.lut_knots)
+        spec = PartitionScheduler._model_spec(SimpleNamespace(model=port))
+        jspec = JSched._model_spec(SimpleNamespace(model=jmodel))
+        assert (spec["cfg_kernel_dtype"], spec["cfg_lut_knots"]) == want
+        assert (jspec["cfg_kernel_dtype"], jspec["cfg_lut_knots"]) == want
+        assert spec.items() <= jspec.items()
+    for kw in (dict(kernel_dtype="bfloat17"), dict(lut_knots=1)):
+        with pytest.raises(ValueError):
             KernelNN(**_cfg(rank), **kw)
+
+
+@pytest.mark.parametrize("rank", RANKS)
+def test_kernel_dtype_bfloat16_matches_jax(rank):
+    """``kernel_dtype='bfloat16'`` in mode 'edge3d' (and the rank-r
+    branch): both sides round the per-edge matrices and x to bf16 and sum
+    in float32 (the rank-r branch also rounds its first product, as XLA
+    keeps it under jit): 1e-4 of the max (measured 2.4e-7); the float32
+    model differs from JAX's bf16 one by more (8e-4 to 1.6e-3), so the
+    rounding really happens."""
+    model = JKernelNN(mode="edge3d", kernel_dtype="bfloat16", **_cfg(rank))
+    params = jax.tree_util.tree_map(np.asarray,
+                                    model.init(jax.random.PRNGKey(1)))
+    g = _padded_graph(1)
+    args = (g.x, g.senders, g.receivers, g.edge_attr)
+    ref = np.asarray(model.apply(params, *(jnp.asarray(a) for a in args),
+                                 edge_mask=jnp.asarray(g.edge_mask)))
+    t = torch.as_tensor
+    kw = dict(edge_mask=t(g.edge_mask))
+    port = KernelNN(mode="edge3d", kernel_dtype="bfloat16",
+                    **_cfg(rank)).from_jax_params(params)
+    f32 = KernelNN(mode="edge3d", **_cfg(rank)).from_jax_params(params)
+    with torch.no_grad():
+        got = port.apply(*(t(a) for a in args), **kw).numpy()
+        full = f32.apply(*(t(a) for a in args), **kw).numpy()
+    assert _rel(got, ref) < 1e-4, _rel(got, ref)
+    assert _rel(full, ref) > 1e-4

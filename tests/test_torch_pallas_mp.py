@@ -2,7 +2,8 @@
 modes of ops/message_passing.py: the plain version against the JAX Pallas
 kernel in interpret mode, the wrapper on the CPU, its refusal under
 autograd, and each mode of ``edge_conditioned_conv`` and ``KernelNN`` against
-the JAX package's same mode.  The kernel itself is checked against its plain
+the JAX package's same mode; mode 'lut''s table, its fully masked graphs and
+its gradients.  The kernel itself is checked against its plain
 version on the card in tests/test_torch_gpu.py."""
 
 import numpy as np
@@ -25,7 +26,7 @@ from fast_eng_super_resolution_tpu_torch.ops.pallas_mp import (
 from fast_eng_super_resolution_tpu_torch.parallel.train import Trainer
 from fast_eng_super_resolution_tpu_torch.core.graph import Graph
 
-PORTED = ("edge3d", "factored", "pallas")
+PORTED = ("edge3d", "factored", "pallas", "lut")
 
 
 def _operands(e, k, w, seed=0):
@@ -69,9 +70,8 @@ def test_resolve_mode():
     assert tmp.resolve_mode("auto", torch.device("cuda")) == "edge3d"
     for mode in PORTED:
         assert tmp.resolve_mode(mode, "cpu") == mode
-    for mode in ("edge", "lut"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tmp.resolve_mode(mode, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tmp.resolve_mode("edge", "cpu")
     with pytest.raises(ValueError, match="unknown conv mode"):
         tmp.resolve_mode("dense", "cpu")
 
@@ -166,3 +166,71 @@ def test_pallas_mode_merged_training_raises():
                 trainer.step(opt, graph)
     assert np.isfinite(losses["pallas"])
     assert abs(losses["pallas"] - losses["edge3d"]) <= 1e-5 * abs(losses["edge3d"])
+
+
+@pytest.mark.parametrize("masked", ["none", "some", "all"])
+@pytest.mark.parametrize("knots", [2, 64, 512])
+def test_lut_table_matches_jax(masked, knots):
+    """Mode 'lut''s precomputed table (w_knots, i0, frac) against the JAX
+    package's: the knots span the real edges only (padding slots carry
+    edge_attr 1.0 far outside the real range), and a graph whose edges are
+    all masked keeps finite knots."""
+    rng = np.random.default_rng(7)
+    e, c, k = 200, 4, 8
+    ea = (rng.random((e, 1)) * 1e-2 + 1e-3).astype(np.float32)
+    mask = {"none": None, "some": rng.random(e) > 0.3,
+            "all": np.zeros(e, bool)}[masked]
+    if mask is not None:
+        ea[~mask] = 1.0                  # pad_graph's padding attribute
+    jlayers, tlayers = _mlp(rng, [1, k, c * c])
+    _, (wk_j, i0_j, fr_j) = jmp.precompute_edge_kernel(
+        jlayers, jnp.asarray(ea), mode="lut", lut_knots=knots,
+        edge_mask=None if mask is None else jnp.asarray(mask))
+    with torch.no_grad():
+        mode, (wk_t, i0_t, fr_t) = tmp.precompute_edge_kernel(
+            tlayers, torch.as_tensor(ea), mode="lut", lut_knots=knots,
+            edge_mask=None if mask is None else torch.as_tensor(mask))
+    assert mode == "lut" and wk_t.shape == (knots, c * c)
+    assert np.isfinite(wk_t.numpy()).all()
+    assert np.abs(wk_t.numpy() - np.asarray(wk_j)).max() <= 1e-5 * np.abs(
+        np.asarray(wk_j)).max()
+    real = slice(None) if mask is None else mask
+    np.testing.assert_array_equal(i0_t.numpy()[real], np.asarray(i0_j)[real])
+    np.testing.assert_allclose(fr_t.numpy()[real], np.asarray(fr_j)[real],
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("all_masked", [False, True])
+def test_lut_grads_match_jax(all_masked):
+    """KernelNN in mode 'lut' differentiates as the JAX package's: the loss
+    and every parameter's gradient (float32, 1e-4 of the gradient's norm);
+    with every edge masked both stay finite."""
+    cfg = dict(width=8, ker_width=8, depth=2, in_width=4, out_width=4)
+    jmodel = JKernelNN(mode="lut", lut_knots=64, **cfg)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jmodel.init(jax.random.PRNGKey(4)))
+    g = _padded_graph(5)
+    mask = np.zeros_like(g.edge_mask) if all_masked else g.edge_mask
+    args = (g.x, g.senders, g.receivers, g.edge_attr)
+
+    def jloss(p):
+        out = jmodel.apply(p, *(jnp.asarray(a) for a in args),
+                           edge_mask=jnp.asarray(mask))
+        return jnp.sum((out - jnp.asarray(g.y)) ** 2)
+
+    ref, ref_grads = jax.value_and_grad(jloss)(params)
+    port = KernelNN(mode="lut", lut_knots=64, **cfg).from_jax_params(params)
+    out = port.apply(*(torch.as_tensor(a) for a in args),
+                     edge_mask=torch.as_tensor(mask))
+    loss = ((out - torch.as_tensor(g.y)) ** 2).sum()
+    loss.backward()
+    assert abs(float(loss.detach()) - float(ref)) <= 1e-5 * abs(float(ref))
+    from fast_eng_super_resolution_tpu_torch.core.checkpoint import flatten_params
+
+    want = flatten_params(jax.tree_util.tree_map(np.asarray, ref_grads))
+    for name, p in port.named_parameters():
+        key, transposed = port.jax_key(name)
+        got = p.grad.numpy().T if transposed else p.grad.numpy()
+        assert np.isfinite(got).all(), key
+        denom = max(np.linalg.norm(want[key]), 1e-6)
+        assert np.linalg.norm(got - want[key]) / denom < 1e-4, key

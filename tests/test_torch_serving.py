@@ -85,6 +85,17 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)
 
 
+@pytest.fixture
+def one_torch_thread():
+    """The projection runs thousands of tiny torch ops; with other test
+    workers on the machine, idle OpenMP threads spinning beside each op slow
+    it about tenfold.  One intra-op thread for the test; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("kernel_rank", [None, 3])
 # budget 5000: one subdomain per chunk; 15360: chunks of 3 of the 4
 # subdomains, the tail chunk padded by repetition (JAX shifts it instead)
@@ -188,7 +199,8 @@ def test_overlap_average_matches_jax():
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
 
 
-def test_unported_paths_raise(jax_dataset, log_dir, monkeypatch, tmp_path):
+def test_unported_paths_raise(jax_dataset, log_dir, monkeypatch, tmp_path,
+                              one_torch_thread):
     model = init_model("neuralop", 4, 4, **MODEL_KW)
     sched = PartitionScheduler("fast", 1, jax_dataset, model, train=True,
                                log_dir=log_dir, device="cpu")
@@ -204,9 +216,74 @@ def test_unported_paths_raise(jax_dataset, log_dir, monkeypatch, tmp_path):
     assert len(routed.subset_indices) == 2
     assert sorted(np.concatenate(routed.subset_indices)) == list(
         range(len(jax_dataset)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # smooth: true is ported: the stitched prediction is projected to a
+    # divergence-free field before the .vtu is written, as in JAX's runner
+    _check_smooth_matches_jax(
+        pred_graph_ALDD([0], "fast", model, jax_dataset, 1, log_dir=log_dir,
+                        device="cpu", smooth=True, gemm_dtype="float32")[0],
+        jax_dataset, log_dir, tmp_path)
+
+
+# the projection amplifies the 1e-6 differences of the two predictions
+# through 20 outer iterations of 200-iteration CGNR solves; the JAX
+# package holds its own two projection loops to 2e-2 of the field's max
+# (tests/test_physics.py), and so does this comparison
+SMOOTH_TOL = 2e-2
+
+
+def _check_smooth_matches_jax(got_path, jax_dataset, log_dir, tmp_path):
+    """JAX's runner with ``smooth=True`` on the same mesh and checkpoint
+    (exp "fast", mesh 0): velocity and pressure (the projection's
+    correction field) within SMOOTH_TOL of the max; the unsmoothed fields
+    and the references equal to 1e-4 as in the unsmoothed comparison."""
+    import shutil
+
+    jlogs = str(tmp_path / "jax_logs")
+    shutil.copytree(os.path.join(log_dir, "models", "collection_fast"),
+                    os.path.join(jlogs, "models", "collection_fast"))
+    (ref_path,) = jpred([0], "fast", jinit("neuralop", 4, 4, **MODEL_KW),
+                        jax_dataset, 1, log_dir=jlogs, smooth=True,
+                        use_mesh=False)
+    ref, got = read_vtu(ref_path)["point_data"], read_vtu(got_path)["point_data"]
+    assert sorted(ref) == sorted(got)
+    for key in ref:
+        assert np.all(np.isfinite(got[key])), key
+        tol = SMOOTH_TOL if key in ("velocity", "pressure") else TOL
+        assert _rel(got[key], ref[key]) < tol, (key, _rel(got[key], ref[key]))
+
+
+def test_smooth_device_error_propagates(jax_dataset, log_dir, monkeypatch,
+                                        one_torch_thread):
+    """A device error inside the projection propagates out of the runner
+    (no unsmoothed .vtu hides it); a numerical failure writes the
+    unsmoothed prediction, as the reference does."""
+    from fast_eng_super_resolution_tpu_torch.physics import projection
+
+    def fail(error):
+        def run(self, *a, **k):
+            raise error
+        return run
+
+    monkeypatch.setattr(projection.DivergenceFreeProjection,
+                        "apply_divergence_free_projection",
+                        fail(RuntimeError("CUDA error: device-side assert")))
+    model = init_model("neuralop", 4, 4, **MODEL_KW)
+    with pytest.raises(RuntimeError, match="CUDA error"):
         pred_graph_ALDD([0], "fast", model, jax_dataset, 1, log_dir=log_dir,
                         device="cpu", smooth=True)
+    monkeypatch.setattr(projection.DivergenceFreeProjection,
+                        "apply_divergence_free_projection",
+                        fail(FloatingPointError("overflow")))
+    (smoothed,) = pred_graph_ALDD([0], "fast", model, jax_dataset, 1,
+                                  log_dir=log_dir, device="cpu", smooth=True,
+                                  gemm_dtype="float32")
+    smoothed = read_vtu(smoothed)["point_data"]
+    (plain,) = pred_graph_ALDD([0], "fast", model, jax_dataset, 1,
+                               log_dir=log_dir, device="cpu",
+                               gemm_dtype="float32")
+    plain = read_vtu(plain)["point_data"]
+    for key in plain:
+        np.testing.assert_array_equal(smoothed[key], plain[key])
 
 
 def test_cli_main_serves_on_cpu(tmp_path, monkeypatch, log_dir, capsys):
@@ -255,3 +332,31 @@ def test_cli_main_serves_on_cpu(tmp_path, monkeypatch, log_dir, capsys):
     assert paths == [os.path.join("logs", "vtk", "cli_routed", "pred_0.vtu")]
     fields = read_vtu(paths[0])["point_data"]
     assert all(np.all(np.isfinite(v)) for v in fields.values())
+
+
+def test_cli_main_smooth_matches_jax(tmp_path, monkeypatch, log_dir,
+                                     jax_dataset, capsys, one_torch_thread):
+    """``python -m fast_eng_super_resolution_tpu_torch --mode=pred`` with
+    ``smooth: True`` in the exp config (runner.main, ``device: cpu``): the
+    .vtu against JAX's runner with ``smooth=True`` on the same mesh and
+    checkpoint."""
+    import shutil
+
+    import yaml
+
+    from fast_eng_super_resolution_tpu_torch.runner import main
+    from fast_eng_super_resolution_tpu_torch.utils.config import parse_args
+
+    monkeypatch.chdir(tmp_path)
+    shutil.copytree(os.path.join(log_dir, "models", "collection_fast"),
+                    tmp_path / "logs" / "models" / "collection_cli")
+    cfg = dict(n_clusters=1, in_channels=4, out_channels=4, num_layers=2,
+               root=str(tmp_path / "data"), idxs=[0], device="cpu",
+               smooth=True, **DS_KW, width=MODEL_KW["width"])
+    (tmp_path / "exp.yaml").write_text(yaml.safe_dump(cfg))
+    (path,) = main(parse_args(["--mode=pred", "--model=neuralop",
+                               "--dataset=synthetic", "--exp_name=cli",
+                               "--exp_config=exp.yaml"]))
+    out = capsys.readouterr().out
+    assert "Initial divergence:" in out and "Final divergence:" in out
+    _check_smooth_matches_jax(path, jax_dataset, log_dir, tmp_path)

@@ -70,7 +70,7 @@ def _t(*arrays):
     return tuple(torch.as_tensor(np.asarray(a)) for a in arrays)
 
 
-@pytest.mark.parametrize("mode", ["edge3d", "factored", "pallas"])
+@pytest.mark.parametrize("mode", ["edge3d", "factored", "pallas", "lut"])
 def test_apply_matches_jax(mode):
     model, params = _jax_model_and_params(mode=mode)
     g = _padded_graph()
@@ -349,3 +349,88 @@ def test_model_without_fused_kernel_serves_general_lane(synth, tmp_path,
                     log_dir=log_dir, use_mesh=False)
     assert jsched._select_lane(x, "force") == ("general",
                                                "model has no fused kernel")
+
+
+PS_CFG = dict(CFG, kernel_type="powerseries", num_powers=3, ps_layers=2)
+
+
+def _ps_jax(seed=0):
+    model = JTEECNet(mode="edge3d", **PS_CFG)
+    return model, jax.tree_util.tree_map(np.asarray,
+                                         model.init(jax.random.PRNGKey(seed)))
+
+
+def test_powerseries_params_round_trip():
+    """``kernel.ps`` crosses both ways with the JAX tree (kernel/ps/conv0,
+    convs/[i], conv_out as {w, b, root_param}, norm_scale, norm_bias)."""
+    _, params = _ps_jax()
+    port = TEECNet(**PS_CFG).from_jax_params(params)
+    assert port.kernel_type == "powerseries" and not port.fused_ok
+    back = port.to_jax_params()
+    flat_a = jax.tree_util.tree_leaves_with_path(params)
+    flat_b = jax.tree_util.tree_leaves_with_path(back)
+    assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
+    for (_, a), (_, b) in zip(flat_a, flat_b):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("powers", [2, 3, 4])
+def test_powerseries_apply_and_grads_match_jax(powers):
+    """TEECNet(kernel_type='powerseries') forward and the gradients of a
+    squared loss through ``apply`` (the general lane's form) against the
+    JAX package's, same weights: the series' integer powers by repeated
+    products on both sides; float32, 1e-5 of the max (forward), 1e-4 of
+    each gradient's norm."""
+    model = JTEECNet(mode="edge3d", **dict(PS_CFG, num_powers=powers))
+    params = jax.tree_util.tree_map(np.asarray,
+                                    model.init(jax.random.PRNGKey(powers)))
+    g = _padded_graph(2)
+    args = (g.x, g.senders, g.receivers, g.edge_attr)
+
+    def jloss(p):
+        out = model.apply(p, *(jnp.asarray(a) for a in args),
+                          edge_mask=jnp.asarray(g.edge_mask))
+        return jnp.sum((out - jnp.asarray(g.y)) ** 2), out
+
+    (ref, ref_out), ref_grads = jax.value_and_grad(jloss, has_aux=True)(params)
+    port = TEECNet(**dict(PS_CFG, num_powers=powers)).from_jax_params(params)
+    out = port.apply(*_t(*args), edge_mask=torch.as_tensor(g.edge_mask))
+    assert _rel(out.detach().numpy(), ref_out) < TOL
+    loss = ((out - torch.as_tensor(g.y)) ** 2).sum()
+    loss.backward()
+    assert abs(float(loss.detach()) - float(ref)) <= 1e-5 * abs(float(ref))
+    want = flatten_params(jax.tree_util.tree_map(np.asarray, ref_grads))
+    for name, p in port.named_parameters():
+        key, transposed = port.jax_key(name)
+        if p.grad is None:               # the unused dense edge MLP
+            assert name.startswith("kernel.edge_mlp") and not np.any(want[key])
+            continue
+        got = p.grad.numpy().T if transposed else p.grad.numpy()
+        err = np.linalg.norm(got - want[key]) / np.linalg.norm(want[key])
+        assert err < 1e-4, (key, err)
+
+
+def test_powerseries_serves_general_lane_as_jax(synth, tmp_path):
+    """A power-series TEECNet has no fused kernel: the scheduler serves it
+    through the general lane ("model has no fused kernel") and the plain
+    ``apply``; its checkpoint, written by the port, serves on the JAX
+    package's scheduler to the same field (float32, 1e-4 of the max)."""
+    from fast_eng_super_resolution_tpu_torch.data.reconstruct import overlap_average
+
+    log_dir = str(tmp_path)
+    model = TEECNet(**PS_CFG, seed=3)
+    PartitionScheduler("ps", 1, synth, model, train=True, log_dir=log_dir,
+                       device="cpu")._save_model(0, model)
+    x = synth.get_one_full_sample(0)
+    n = len(synth.full_mesh(0)["points"])
+    gids = [d["global_node_ids"] for d in x]
+    sched = PartitionScheduler("ps", 1, synth, TEECNet(**PS_CFG), train=False,
+                               log_dir=log_dir, device="cpu")
+    assert sched.predict_full(x, n) is None
+    assert sched.last_lane == ("general", "model has no fused kernel")
+    got = overlap_average(sched.predict(x)[0], gids, n)
+    jsched = JSched("ps", 1, synth, JTEECNet(**PS_CFG), train=False,
+                    log_dir=log_dir, use_mesh=False)
+    ref = overlap_average([np.asarray(p) for p in jsched.predict(x)[0]], gids, n)
+    assert np.isfinite(got).all()
+    assert _rel(got, ref) < 1e-4
