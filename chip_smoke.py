@@ -133,6 +133,27 @@ to 3 epochs (its loss is recorded, not held to fall).
 18. lut     — KernelNN at full width in mode 'lut' and with
              ``kernel_dtype='bfloat16'`` in mode 'edge3d', the same way.
 
+19. grid    — the one-step grid family, which runs no hand-written kernel
+             (B1-B5 launched 0 times across these phases), at the published
+             widths, modes, resolution, padding and batch of
+             configs/exp_config/fno_advected_256.yaml (FNO2d, width 16,
+             modes 12, 256^2 padded to 265^2, batch 32),
+             fno3d_advected_64.yaml (FNO3d, width 16, modes 8, 64^3 padded
+             to 70^3, batch 16), fno_burgers.yaml (FNO1d, width 32, modes
+             16, 256 points) and deeponet_advected.yaml (width 128, 64^2,
+             trunk_size 2), each with its recipe (fno_advected.yaml,
+             fno3d_advected.yaml).  Cut: the sample count (72, 24, 40, 40,
+             with train_samples 64, 16, 32, 32 and the idxs to match; the
+             datasets are generated in worker processes during phases
+             2-18) and the recipe's 300 epochs to 10.  ``[grid_spectral]``:
+             one spectral conv per FNO, 'fft' (cuFFT) vs 'matmul' on the
+             card vs the CPU, their warm times and the form 'auto' takes;
+             ``[grid_train]``: ``train_grid`` per model (finite losses,
+             FNO2d's falling, the stamped checkpoint, the warm step, the
+             peak memory); ``[grid_parity]``: three FNO2d steps card vs
+             CPU; ``[grid_serve]``: ``pred_grid`` per checkpoint (finite
+             .npz, the improvement factors, the warm request).
+
 The second-to-last line is a JSON object with the kernels' numbers, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -243,6 +264,31 @@ PALLAS_TOL = 1e-4
 # (bit-identical) and the same segment sums, whose index_add_ atomics may
 # add in another order: 1e-6 of the max.
 COALESCED_TOL = 1e-6
+
+# The grid family, one path per shipped config at its published widths,
+# modes, resolution, padding and batch size; cut: the sample count (and
+# train_samples and idxs with it) and the recipe's epochs (300).  FNO1d and
+# DeepONet train with fno_advected.yaml, as their configs' comments say.
+GRID = {
+    "fno2d": dict(model="fno", dataset="advected_grid",
+                  exp="fno_advected_256.yaml", train="fno_advected.yaml",
+                  num_samples=72, train_samples=64),
+    "fno3d": dict(model="fno3d", dataset="advected3d_grid",
+                  exp="fno3d_advected_64.yaml", train="fno3d_advected.yaml",
+                  num_samples=24, train_samples=16),
+    "fno1d": dict(model="fno1d", dataset="burgers_grid",
+                  exp="fno_burgers.yaml", train="fno_advected.yaml",
+                  num_samples=40, train_samples=32),
+    "deeponet": dict(model="deeponet", dataset="advected_grid",
+                     exp="deeponet_advected.yaml", train="fno_advected.yaml",
+                     num_samples=40, train_samples=32),
+}
+GRID_EPOCHS = 10
+# One spectral conv, card 'fft' vs card 'matmul' vs CPU 'fft' (float32,
+# TF32 off; FFTs and DFT sums in other orders over up to 265 points),
+# relative to the max; FNO2d's first three train losses card vs CPU.
+GRID_SPECTRAL_TOL = 1e-5
+GRID_PARITY_TOL = 1e-4
 
 # H100 SXM data sheet: HBM rate and dense peaks per input type
 HBM_BYTES_PER_S = 3.35e12
@@ -2003,6 +2049,261 @@ def phase_lut(root: str, datasets: dict, cfg: dict) -> None:
                     "", root, BF16_GENERAL_TOL)
 
 
+# -- the grid family: FNO1d/2d/3d and DeepONet (no hand-written kernel) ----
+
+def _make_grid_data(key: str, cfg: dict) -> float:
+    """Generates (and caches under ``cfg['root']``) one grid dataset in a
+    worker process; returns its seconds."""
+    t0 = time.time()
+    init_dataset(GRID[key]["dataset"], **cfg)
+    return time.time() - t0
+
+
+def grid_configs(root: str) -> dict:
+    """Per grid path, (exp config, train config): the shipped configs with
+    this run's root and sample cut, the recipe cut to GRID_EPOCHS epochs,
+    and on the card."""
+    out = {}
+    for key, g in GRID.items():
+        cfg = load_yaml(os.path.join(REPO, "configs", "exp_config", g["exp"]))
+        n, k = g["num_samples"], g["train_samples"]
+        cfg.update(root=os.path.join(root, "grid", key), num_samples=n,
+                   train_samples=k, idxs=[k, (k + n) // 2, n - 1])
+        cfg.setdefault("trunk_size", 2)  # as the JAX package's CLI test
+        train = load_yaml(os.path.join(REPO, "configs", "train_config",
+                                       g["train"]))
+        out[key] = (cfg, dict(train, epochs=GRID_EPOCHS))
+    return out
+
+
+def start_grid_data(cfgs: dict):
+    """Starts the grid datasets' generation (host numpy, one worker process
+    each) so it overlaps the kernel phases; returns (pool, futures)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    pool = cf.ProcessPoolExecutor(len(cfgs), mp_context=mp.get_context("spawn"))
+    return pool, {key: pool.submit(_make_grid_data, key, cfg)
+                  for key, (cfg, _) in cfgs.items()}
+
+
+def grid_model(key: str, cfg: dict):
+    return init_model(GRID[key]["model"], seed=SEED, **cfg)
+
+
+def phase_grid_spectral(cfgs: dict) -> dict:
+    """One spectral conv of each FNO at its config's padded grid and its
+    recipe's batch: 'fft' (cuFFT) against 'matmul' on the card, both
+    against the port's CPU 'fft' on the first two samples (same weights,
+    TF32 off); the warm CUDA-event medians of each form, forward and
+    forward + backward, and the form 'auto' resolves to."""
+    import copy
+    from unittest import mock
+
+    from fast_eng_super_resolution_tpu_torch.models import fno
+    from fast_eng_super_resolution_tpu_torch.models.fno import spectral_conv
+
+    out = {}
+    for key in ("fno2d", "fno3d", "fno1d"):
+        cfg, train = cfgs[key]
+        model = grid_model(key, cfg).cuda()
+        grid = [cfg["resolution"] + model.padding] * model.ndim
+        shape = (int(train["batch_size"]), model.width, *grid)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        x = torch.randn(shape, device="cuda", generator=gen)
+        with torch.no_grad():
+            fft = spectral_conv(model, 0, x, "fft")
+            mm = spectral_conv(model, 0, x, "matmul")
+            ref = spectral_conv(copy.deepcopy(model).cpu(), 0, x[:2].cpu(),
+                                "fft")
+            errs = {"err_fft_matmul": float((fft - mm).abs().max()
+                                            / mm.abs().max()),
+                    "err_fft_cpu": rel_err(fft[:2], ref),
+                    "err_matmul_cpu": rel_err(mm[:2], ref)}
+            # recorded, not held: cuFFT's C2R on the raw spectrum (the DC
+            # and Nyquist columns' imaginary parts left in)
+            with mock.patch.object(fno, "_irfft_last",
+                                   lambda u, n: torch.fft.irfft(u, n=n)):
+                raw = spectral_conv(model, 0, x, "fft")
+            raw_err = float((raw - mm).abs().max() / mm.abs().max())
+            del fft, mm, raw
+            t = {f"{impl}_ms": cuda_ms(
+                lambda impl=impl: spectral_conv(model, 0, x, impl))
+                for impl in ("fft", "matmul")}
+        xg = x.clone().requires_grad_(True)
+        for impl in ("fft", "matmul"):
+            t[f"{impl}_fwd_bwd_ms"] = cuda_ms(
+                lambda impl=impl: spectral_conv(model, 0, xg, impl).sum()
+                .backward())
+        auto = model.resolve_impl(torch.device("cuda"))
+        log("grid_spectral", model=key, shape="x".join(map(str, shape)),
+            auto=auto, **{k: f"{v:.2e}" for k, v in errs.items()},
+            err_raw_c2r_matmul=f"{raw_err:.2e}",
+            **{k: f"{v:.4f}" for k, v in t.items()}, tol=GRID_SPECTRAL_TOL)
+        for k, v in errs.items():
+            if not v < GRID_SPECTRAL_TOL:
+                raise AssertionError(f"grid_spectral {key} {k}={v}")
+        out[key] = dict(t, auto=auto, **errs)
+        del x, xg
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_losses(log_dir: str, exp: str) -> list:
+    with open(os.path.join(log_dir, "metrics", f"{exp}.jsonl")) as f:
+        return [json.loads(ln)["train_loss"] for ln in f]
+
+
+def phase_grid_train(cfgs: dict, log_dir: str, futures: dict) -> dict:
+    """``train_grid`` of each grid model on the card from its cut recipe:
+    finite losses (FNO2d's train loss falls from the first logged epoch to
+    the last), a checkpoint with its task-spec stamp, the warm train step
+    (recipe batch) and the phase's peak memory."""
+    from fast_eng_super_resolution_tpu_torch.grid_runner import train_grid
+    from fast_eng_super_resolution_tpu_torch.parallel.grid_train import GridTrainer
+
+    out = {}
+    for key, (cfg, train) in cfgs.items():
+        data_s = futures[key].result()
+        ds = init_dataset(GRID[key]["dataset"], **cfg)
+        model = grid_model(key, cfg)
+        exp = f"grid_{key}"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = train_grid(exp, model, ds, train, cfg, log_dir=log_dir)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = _train_losses(log_dir, exp)
+        if not np.all(np.isfinite(losses)) or not np.isfinite(res["best_val"]):
+            raise AssertionError(f"grid_train {key}: losses {losses}")
+        if key == "fno2d" and not losses[-1] < losses[0]:
+            raise AssertionError(f"grid_train fno2d: loss did not fall {losses}")
+        meta = ckpt.load_meta(res["ckpt"])
+        if meta.get("model") != type(model).__name__ or "task" not in meta:
+            raise AssertionError(f"grid_train {key}: checkpoint meta {meta}")
+        # the warm step: the trained weights, one recipe batch
+        bs = min(int(train["batch_size"]), int(cfg["train_samples"]))
+        xb = torch.as_tensor(ds.x[:bs], device="cuda")
+        yb = torch.as_tensor(ds.y[:bs], device="cuda")
+        tr = GridTrainer(model, lr=float(train["lr"]),
+                         out_channels=int(ds.y.shape[-1]))
+        tr.net.from_jax_params(ckpt.load_params(res["ckpt"]))
+        opt = tr.optimizer()
+        step_ms = warm_ms(lambda: tr.step(opt, xb, yb))
+        impl, steps = "-", {}
+        if hasattr(model, "resolve_impl"):  # the step in each spectral form
+            impl = model.resolve_impl(torch.device("cuda"))
+            for form in ("fft", "matmul"):
+                model.spectral_impl = form
+                ms = warm_ms(lambda: tr.step(opt, xb, yb))
+                steps[f"step_ms_{form}"] = f"{ms:.3f}"
+            model.spectral_impl = "auto"
+        log("grid_train", model=key, impl=impl, data_s=f"{data_s:.1f}",
+            train_s=f"{wall:.2f}", epochs=train["epochs"],
+            steps_per_epoch=max(1, int(cfg["train_samples"]) // bs),
+            first_loss=f"{losses[0]:.6f}", last_loss=f"{losses[-1]:.6f}",
+            best_val=f"{res['best_val']:.6f}", step_ms=f"{step_ms:.3f}",
+            **steps, peak_mib=f"{peak / 2**20:.0f}",
+            ckpt=os.path.basename(res["ckpt"]))
+        out[key] = dict(ds=ds, model=model, exp=exp, step_ms=step_ms,
+                        peak_mib=peak / 2**20, impl=impl, losses=losses)
+    return out
+
+
+def phase_grid_parity() -> None:
+    """Three Adam steps of FNO2d (fno_advected_256.yaml's width 16 and
+    modes 12, at a 32x32 grid) from the same weights and batches on the
+    card, in both spectral forms, and on the CPU: the losses agree."""
+    from fast_eng_super_resolution_tpu_torch.parallel.grid_train import GridTrainer
+
+    rng = np.random.default_rng(SEED)
+    x = rng.random((6, 32, 32, 1)).astype(np.float32)
+    y = rng.random((6, 32, 32, 1)).astype(np.float32)
+    order = rng.permutation(6).reshape(3, 2)
+    losses = {}
+    for dev, impl in (("cpu", "fft"), ("cuda", "fft"), ("cuda", "matmul")):
+        model = init_model("fno", 12, 12, width=16, in_feats=1, seed=SEED)
+        model.spectral_impl = impl
+        tr = GridTrainer(model.to(dev), lr=1e-3, out_channels=1)
+        opt = tr.init(SEED, x)
+        losses[(dev, impl)] = tr.epoch(
+            opt, torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev),
+            order).cpu().numpy()
+    ref = losses[("cpu", "fft")]
+    for k, v in losses.items():
+        err = float(np.max(np.abs(v - ref) / ref))
+        log("grid_parity", device=k[0], impl=k[1],
+            losses=",".join(f"{a:.7f}" for a in v), rel_err=f"{err:.2e}",
+            tol=GRID_PARITY_TOL)
+        if not err < GRID_PARITY_TOL:
+            raise AssertionError(f"grid_parity {k}: {v} vs {ref}")
+
+
+def phase_grid_serve(cfgs: dict, trained: dict, log_dir: str) -> dict:
+    """``pred_grid`` of each checkpoint on the card: every ``pred_{idx}.npz``
+    finite, the improvement factors (recorded, not held to a value after a
+    handful of epochs), then the warm time of a one-sample request
+    (``pred_grid``: checkpoint load, upload, forward, fetch, .npz) and of
+    its predict alone (upload, forward, fetch)."""
+    import io
+
+    from fast_eng_super_resolution_tpu_torch.grid_runner import pred_grid
+    from fast_eng_super_resolution_tpu_torch.parallel.grid_train import GridTrainer
+
+    out = {}
+    for key, (cfg, _) in cfgs.items():
+        r = trained[key]
+        ds, model, exp = r["ds"], r["model"], r["exp"]
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            paths = pred_grid(cfg["idxs"], exp, model, ds, cfg,
+                              log_dir=log_dir)
+        for p in paths:
+            with np.load(p) as z:
+                if not np.all(np.isfinite(z["pred"])):
+                    raise AssertionError(f"{p}: non-finite prediction")
+        factors = [ln.rsplit("improvement ", 1)[1]
+                   for ln in "".join(tee.parts).splitlines()
+                   if "improvement" in ln]
+        if len(factors) != len(cfg["idxs"]):
+            raise AssertionError(f"grid_serve {key}: {factors}")
+        idx = cfg["idxs"][0]
+        with contextlib.redirect_stdout(io.StringIO()):
+            request_ms = warm_ms(lambda: pred_grid([idx], exp, model, ds, cfg,
+                                                   log_dir=log_dir))
+        tr = GridTrainer(model, lr=0.0)
+        tr.net.from_jax_params(ckpt.load_params(
+            os.path.join(log_dir, "models", f"collection_{exp}",
+                         "partition_0.npz")))
+        x1 = ds[idx]["x"][None]
+        predict_ms = warm_ms(
+            lambda: tr.predict(torch.as_tensor(x1, device="cuda")).cpu())
+        log("grid_serve", model=key, idxs=cfg["idxs"],
+            improvement=",".join(factors), request_ms=f"{request_ms:.3f}",
+            predict_ms=f"{predict_ms:.3f}")
+        out[key] = dict(request_ms=request_ms, predict_ms=predict_ms,
+                        improvement=factors)
+    return out
+
+
+def run_grid(cfgs: dict, root: str, futures: dict) -> dict:
+    """The grid phases; the launch counters of B1-B5 stay at 0 (the grid
+    path runs no hand-written kernel)."""
+    t0 = time.time()
+    reset_launches()
+    log_dir = os.path.join(root, "grid_logs")
+    spectral = phase_grid_spectral(cfgs)
+    trained = phase_grid_train(cfgs, log_dir, futures)
+    phase_grid_parity()
+    served = phase_grid_serve(cfgs, trained, log_dir)
+    check_only("grid phases", {})
+    log("grid", launches=launches_of(*KERNELS), wall_s=f"{time.time() - t0:.1f}")
+    return dict(spectral=spectral, served=served,
+                train={k: {f: v[f] for f in ("step_ms", "peak_mib", "impl")}
+                       for k, v in trained.items()})
+
+
 def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
     """The forward's and the backward's entries of the kernels JSON line,
     tagged with the ``path`` that ran them."""
@@ -2107,7 +2408,13 @@ def main() -> int:
         libs=",".join(os.path.relpath(lib, REPO) for lib in libs))
     log_ptxas()
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root, \
+            contextlib.ExitStack() as workers:
+        # the grid datasets are host numpy: generated in worker processes
+        # while the kernel phases run (stopped before the directory goes)
+        grid_cfgs = grid_configs(root)
+        grid_pool, grid_futures = start_grid_data(grid_cfgs)
+        workers.callback(grid_pool.shutdown, wait=True, cancel_futures=True)
         cfgs = {"full": make_config(os.path.join(root, "full"), FULL),
                 "small": make_config(os.path.join(root, "small"), SMALL)}
         # the rank-16 path: the same config with kernel_rank added, at a
@@ -2169,6 +2476,7 @@ def main() -> int:
         phase_powerseries(root, datasets, cfgs_tc["full"])
         phase_lut(root, datasets, cfgs["full"])
         log("general_modes", wall_s=f"{time.time() - t1:.1f}")
+        run_grid(grid_cfgs, root, grid_futures)
 
     kernels = (kernel_entries(full, smi, None, "kernelnn")
                + kernel_entries(lowrank, smi, RANK, "kernelnn_rank16")

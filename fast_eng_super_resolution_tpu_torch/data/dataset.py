@@ -659,10 +659,18 @@ class SyntheticDataset(AnsysDataset):
                                   self.pressure_col)
 
 
-_GRID_DATASETS = ("turbulence_grid", "advected_grid", "advected3d_grid",
-                  "darcy_grid", "ns_grid", "ns3d_grid", "ns_rollout",
-                  "advected_rollout", "advected3d_rollout", "mat_grid",
-                  "burgers_grid")
+# the one-step grid datasets (data/grid_dataset.py), by factory name
+_GRID_DATASETS = {
+    "turbulence_grid": "TurbulenceGridDataset",
+    "advected_grid": "AdvectedScalarDataset",
+    "advected3d_grid": "AdvectedScalar3DDataset",
+    "darcy_grid": "DarcyFlowDataset",
+    "ns_grid": "NavierStokesDataset",
+    "ns3d_grid": "NSSpacetimeDataset",
+    "burgers_grid": "BurgersDataset",
+}
+_NOT_PORTED = ("ns_rollout", "advected_rollout", "advected3d_rollout",
+               "mat_grid")
 
 
 def init_dataset(name: str, root: str, **kwargs):
@@ -674,8 +682,11 @@ def init_dataset(name: str, root: str, **kwargs):
     elif name == "synthetic":
         return SyntheticDataset(root=root, **kwargs)
     elif name in _GRID_DATASETS:
+        from . import grid_dataset
+        return getattr(grid_dataset, _GRID_DATASETS[name])(root=root, **kwargs)
+    elif name in _NOT_PORTED:
         raise NotImplementedError(
-            f"dataset {name!r} belongs to the grid family, not yet ported "
-            "(ROADMAP.md queue A item 14)")
+            f"dataset {name!r} belongs to the grid family's rollout and "
+            ".mat part, not yet ported (ROADMAP.md queue A item 14 (ii))")
     else:
         raise ValueError(f"Invalid dataset name: {name}")

@@ -3,7 +3,8 @@
 Parity target: SubGraphDataset (reference dataset/GraphDataset.py:1487-1494),
 "take these indices of an already-processed dataset" — also what the
 scheduler's ``train_meshes`` restriction needs.  The grid family's
-``SubJHTDB`` comes with that family (ROADMAP.md queue A item 14).
+``SubJHTDB`` comes with the rest of that family (ROADMAP.md queue A item
+14 (ii)).
 """
 
 from __future__ import annotations

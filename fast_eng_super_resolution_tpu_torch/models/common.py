@@ -5,6 +5,7 @@ parameter tree (each model names a parameter's key there: ``jax_key``)."""
 
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
@@ -21,6 +22,21 @@ def linear_init(layer: nn.Linear, generator: torch.Generator,
     with torch.no_grad():
         layer.weight.uniform_(-bound, bound, generator=generator)
         layer.bias.uniform_(-bound, bound, generator=generator)
+
+
+def mlp_layers(sizes: list[int]) -> nn.ModuleList:
+    """Linear layers ``sizes[0] -> sizes[1] -> ...`` (uninitialized: the
+    owner draws them with ``linear_init``)."""
+    return nn.ModuleList([nn.utils.skip_init(nn.Linear, a, b)
+                          for a, b in zip(sizes[:-1], sizes[1:])])
+
+
+def mlp_apply(layers, x: torch.Tensor, activation) -> torch.Tensor:
+    """``activation`` after every layer but the last (the JAX package's
+    ``mlp_apply``)."""
+    for layer in layers[:-1]:
+        x = activation(layer(x))
+    return layers[-1](x)
 
 
 def pyg_uniform_init(param: torch.Tensor, size: int,
@@ -66,3 +82,15 @@ def jax_tree(model: nn.Module) -> dict:
         a = p.detach().cpu().numpy()
         flat[key] = (a.T if transposed else a).copy()
     return unflatten_params(flat)
+
+
+def with_edges_sorted(model: nn.Module) -> nn.Module:
+    """``model`` promising receiver-sorted edges: a shallow copy sharing its
+    parameters with ``edges_sorted`` True (the JAX package's
+    ``dataclasses.replace(model, edges_sorted=True)``), or ``model`` itself
+    when it has no such field."""
+    if not hasattr(model, "edges_sorted"):
+        return model
+    view = copy.copy(model)
+    view.edges_sorted = True
+    return view

@@ -8,12 +8,12 @@ aggr='mean' (model.py:551).  Forward: fc1 -> depth x relu(conv) -> fc2
 
 ``apply`` is the plain whole-graph form in the conv formulation ``mode``
 (ops/message_passing.py: 'auto', 'edge3d', 'factored', 'pallas', 'lut');
-the JAX package's scheduling knobs (``remat``, ``edges_sorted``) change no
-result and are left out.  ``kernel_dtype`` (e.g. 'bfloat16') stores the
-'edge3d' per-edge matrices (and the rank-r U, V) in that type, as the JAX
-package does, and ``lut_knots`` sizes mode 'lut''s table; both only affect
-``apply``.  ``apply_fused`` runs each layer
-through the fused edge-conv layer (ops/fused_conv.py), a hand-written CUDA
+the JAX package's scheduling knob ``remat`` changes no result and is left
+out, and ``edges_sorted`` is kept as a hint that changes no bit.
+``kernel_dtype`` (e.g. 'bfloat16') stores the 'edge3d' per-edge matrices
+(and the rank-r U, V) in that type, as the JAX package does, and
+``lut_knots`` sizes mode 'lut''s table; both only affect ``apply``.
+``apply_fused`` runs each layer through the fused edge-conv layer (ops/fused_conv.py), a hand-written CUDA
 kernel on the GPU, and ``apply_fused_ad`` is its differentiable form for
 training (the backward a second hand-written kernel).  With ``kernel_rank``
 = r the edge MLP's head gives each edge a factorized kernel W_e = U_e V_e^T
@@ -46,7 +46,7 @@ class KernelNN(nn.Module):
                  ker_in: int = 1, in_width: int = 3, out_width: int = 3,
                  mode: str = "auto", kernel_rank: int | None = None,
                  kernel_dtype: str | None = None, lut_knots: int = 512,
-                 seed: int = 0):
+                 edges_sorted: bool = False, seed: int = 0):
         super().__init__()
         check_mode(mode)
         kernel_torch_dtype(kernel_dtype)  # raises on an unknown type
@@ -57,6 +57,9 @@ class KernelNN(nn.Module):
         self.mode = mode
         self.kernel_rank = kernel_rank
         self.kernel_dtype, self.lut_knots = kernel_dtype, lut_knots
+        # promise of receiver-sorted edges (pad_graph emits them sorted): a
+        # hint that changes no bit, kept for the JAX package's field
+        self.edges_sorted = edges_sorted
         skip = nn.utils.skip_init
         self.fc1 = skip(nn.Linear, in_width, width)
         self.edge_mlp = nn.ModuleList([
@@ -107,7 +110,8 @@ class KernelNN(nn.Module):
             h = torch.relu(edge_conditioned_conv(
                 h, senders, receivers, edge_attr, self.edge_mlp, self.root,
                 self.bias, edge_mask=edge_mask, mode=mode, precomputed=pre,
-                degree=deg, lut_knots=self.lut_knots))
+                degree=deg, edges_sorted=self.edges_sorted,
+                lut_knots=self.lut_knots))
         return self.fc2(h)
 
     def _apply_lowrank(self, h: torch.Tensor, senders: torch.Tensor,

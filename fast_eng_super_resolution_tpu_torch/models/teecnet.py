@@ -12,9 +12,9 @@ weights and inputs the output can grow large: compare it relative to its max.
 (ops/message_passing.py); ``apply_fused`` and ``apply_fused_ad`` run each
 layer through the fused edge-conv layer on ``linear(h)`` (B1 forward and B2
 backward on the GPU), with the same signatures as KernelNN's, so the serving
-lanes and the trainer take either model.  The JAX package's ``remat`` and
-``edges_sorted`` are XLA scheduling knobs that change no result and are
-left out.  ``kernel_type='powerseries'`` (models/powerseries.py, which
+lanes and the trainer take either model.  The JAX package's ``remat``, an XLA
+scheduling knob, is left out; ``edges_sorted`` is kept as a hint that
+changes no bit.  ``kernel_type='powerseries'`` (models/powerseries.py, which
 ``init_model`` never builds, as in the JAX package) makes the per-edge
 matrices with the nonlinear power-series stack ``kernel.ps``: its last stage
 is nonlinear, so it has no fused form (``fused_ok`` False) and serves and
@@ -64,7 +64,8 @@ class TEECNet(nn.Module):
     def __init__(self, in_channels: int, width: int, out_channels: int,
                  num_layers: int = 4, in_edge: int = 1, mode: str = "auto",
                  kernel_type: str = "dense", num_powers: int = 3,
-                 ps_layers: int = 3, seed: int = 0):
+                 ps_layers: int = 3, edges_sorted: bool = False,
+                 seed: int = 0):
         super().__init__()
         if kernel_type not in ("dense", "powerseries"):
             raise ValueError(f"unknown kernel_type {kernel_type!r} "
@@ -75,6 +76,7 @@ class TEECNet(nn.Module):
         self.num_layers, self.in_edge = num_layers, in_edge
         self.mode, self.kernel_type = mode, kernel_type
         self.num_powers, self.ps_layers = num_powers, ps_layers
+        self.edges_sorted = edges_sorted  # a hint (see KernelNN)
         skip = nn.utils.skip_init
         self.fc1 = skip(nn.Linear, in_channels, width)
         self.kernel = KernelConv(width, in_edge)
@@ -131,7 +133,7 @@ class TEECNet(nn.Module):
                 kern.linear(h), senders, receivers, edge_attr, kern.edge_mlp,
                 kern.root, kern.bias, edge_mask=edge_mask,
                 activation=_leaky_relu, mode=mode, root_input=h,
-                precomputed=pre, degree=deg)
+                precomputed=pre, degree=deg, edges_sorted=self.edges_sorted)
         return self.fc_out(h)
 
     def apply_fused(self, x: torch.Tensor, edge_attr_blocked: torch.Tensor,

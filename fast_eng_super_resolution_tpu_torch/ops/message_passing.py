@@ -85,9 +85,9 @@ def kernel_torch_dtype(kernel_dtype: str | None):
 
 def precompute_edge_kernel(edge_mlp, edge_attr: torch.Tensor,
                            activation=torch.relu, mode: str = "auto",
-                           edge_mask: torch.Tensor | None = None,
                            kernel_dtype: str | None = None,
-                           lut_knots: int = 512):
+                           lut_knots: int = 512,
+                           edge_mask: torch.Tensor | None = None):
     """Hoists the edge-attr-only part of the conv out of shared-weight loops:
     the per-edge kernel depends only on (params, edge_attr), so it is
     identical across depth.  Returns an opaque (mode, value) token for
@@ -137,6 +137,7 @@ def edge_conditioned_conv(x: torch.Tensor, senders: torch.Tensor,
                           root_input: torch.Tensor | None = None,
                           precomputed=None,
                           degree: torch.Tensor | None = None,
+                          edges_sorted: bool = False,
                           lut_knots: int = 512) -> torch.Tensor:
     """One edge-conditioned convolution layer (single graph, static shapes).
 
@@ -157,6 +158,10 @@ def edge_conditioned_conv(x: torch.Tensor, senders: torch.Tensor,
         ``linear(x)`` (model.py:430-445), so callers pass both.
       precomputed: token from ``precompute_edge_kernel``.
       degree: optional precomputed real-edge counts per node.
+      edges_sorted: the caller's promise of ascending receivers (pad_graph
+        emits them sorted).  A hint that changes no bit: the JAX package
+        picks a sorted-scatter lowering from it; the segment sums here
+        read no order.
       lut_knots: the table size of mode 'lut' when ``precomputed`` is None.
 
     Returns:

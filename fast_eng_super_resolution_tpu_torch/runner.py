@@ -134,9 +134,10 @@ def main(args):
 
     Trains or serves on the exp config's ``device`` key (``cpu``), else on
     ``cuda``.  With ``n_clusters`` != 1 the ``--encoder`` and
-    ``--classifier`` route the subdomains to that many experts."""
+    ``--classifier`` route the subdomains to that many experts.  The grid
+    models (``GRID_MODELS``) train and predict through ``grid_runner``."""
     from .data.dataset import init_dataset
-    from .models.registry import init_model
+    from .models.registry import GRID_MODELS, init_model
     from .sched.classifiers import init_classifier
     from .sched.encoders import init_encoder
     from .utils.config import load_yaml
@@ -152,6 +153,21 @@ def main(args):
     model = init_model(args.model, **exp_config)
     dataset = init_dataset(args.dataset, **exp_config)
     kwargs = dict(device=exp_config.get("device"))
+    if args.model in GRID_MODELS:
+        # the dense-tensor family trains on [B, *S, C] samples, not on the
+        # graph scheduler (grid_runner.py)
+        from .grid_runner import pred_grid, pred_rollout, train_grid
+
+        print("Dataset loaded!")
+        if args.mode == "train":
+            return train_grid(args.exp_name, model, dataset,
+                              load_yaml(args.train_config), exp_config,
+                              **kwargs)
+        if getattr(dataset, "rollout_eval", False):
+            return pred_rollout(exp_config["idxs"], args.exp_name, model,
+                                dataset, exp_config, **kwargs)
+        return pred_grid(exp_config["idxs"], args.exp_name, model, dataset,
+                         exp_config, **kwargs)
     if n_clusters != 1:
         kwargs["encoder"] = init_encoder(args.encoder, **exp_config)
         kwargs["classifier"] = init_classifier(args.classifier, **exp_config)

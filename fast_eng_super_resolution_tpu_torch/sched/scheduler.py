@@ -36,6 +36,7 @@ import torch
 
 from ..core import checkpoint as ckpt
 from ..core.graph import merge_batch, pad_and_bucket
+from ..models.common import with_edges_sorted
 from ..ops.loss import compute_node_weight
 from ..parallel.dispatch import routed_apply
 from ..parallel.train import (CosineLR, ReduceLROnPlateau, StepLR, Trainer,
@@ -390,6 +391,10 @@ class PartitionScheduler(ServingLanes):
         (_, idxs, batch), = pad_and_bucket(raw, uniform=True)
         # one upload per request: chunks are gathered on the device
         g = batch.to_torch(dev)
+        # pad_and_bucket emits receiver-sorted edges: the plain lane's
+        # experts get the hint, as the JAX package's do
+        plain_experts = None if use_fused else [
+            with_edges_sorted(e) for e in self.experts]
 
         def fused_expert(expert, idx, ckey):
             x = g.x[torch.as_tensor(idx, device=dev)]
@@ -429,7 +434,7 @@ class PartitionScheduler(ServingLanes):
                     out = fused_expert(self.experts[k], idx, ck)
                 else:
                     idx_t = torch.as_tensor(idx, device=dev)
-                    out = routed_apply(self.experts, lab[idx],
+                    out = routed_apply(plain_experts, lab[idx],
                                        g.map(lambda a: a[idx_t]))
                 outs.append(out[:real])
                 rows.append(idx[:real])

@@ -1009,3 +1009,45 @@ def test_physics_wss_card_matches_cpu(cuda):
     np.testing.assert_array_equal(ids_g, ids_c)
     assert np.abs(mag_g - mag_c).max() <= 1e-5 * mag_c.max()
     assert np.abs(tau_g - tau_c).max() <= 1e-5 * mag_c.max()
+
+
+# -- the grid family (no kernel: torch.fft / einsums on the card) ----------
+
+def _grid_model(name, impl):
+    from fast_eng_super_resolution_tpu_torch.models import fno
+
+    m = (fno.FNO2d(4, 4, 8, in_feats=1) if name == "fno2d"
+         else fno.FNO3d(3, 3, 3, 8, in_feats=1))
+    m.spectral_impl = impl
+    return m
+
+
+@pytest.mark.parametrize("impl", ["fft", "matmul"])
+@pytest.mark.parametrize("name", ["fno2d", "fno3d"])
+def test_grid_forward_and_train_step_card_match_cpu(cuda, name, impl,
+                                                    monkeypatch):
+    """The same weights and batch on the card and the CPU (TF32 off):
+    forward rel 1e-5 of the max, and one GridTrainer step's loss and
+    gradients rel 1e-4 (float32 in other summation orders; the card's
+    'fft' runs cuFFT on the explicitly Hermitian spectrum)."""
+    from fast_eng_super_resolution_tpu_torch.parallel.grid_train import GridTrainer
+
+    monkeypatch.delenv("FESR_FNO_IMPL", raising=False)
+    shape = (2, 16, 16, 1) if name == "fno2d" else (2, 12, 12, 12, 1)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=shape).astype(np.float32)
+    y = (rng.normal(size=shape) * 0.1).astype(np.float32)
+    out, loss, grads = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        tr = GridTrainer(_grid_model(name, impl).to(dev), lr=1e-3,
+                         out_channels=1)
+        opt = tr.init(0, x)
+        xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+        out[dev] = tr.predict(xt).cpu()
+        loss[dev] = float(tr.step(opt, xt, yt))
+        grads[dev] = {k: v.grad.cpu() for k, v in tr.net.named_parameters()}
+    assert _rel(out["cuda"], out["cpu"]) < 1e-5
+    assert abs(loss["cuda"] - loss["cpu"]) / loss["cpu"] < 1e-4
+    for k, g in grads["cpu"].items():
+        err = float((grads["cuda"][k] - g).norm() / g.norm())
+        assert err < 1e-4, (k, err)

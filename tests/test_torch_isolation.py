@@ -48,6 +48,16 @@ with torch.no_grad():  # conv mode 'pallas': the per-edge message kernel
     out = KernelNN(8, 8, 2, in_width=4, out_width=4, mode="pallas").apply(
         x, *graph)
 assert out.shape == (n, 4) and torch.isfinite(out).all()
+# the grid family: each model through init_model, one forward on the CPU
+for name, kw, shape in (
+        ("fno", dict(width=4, in_feats=1), (1, 8, 8, 1)),
+        ("fno1d", dict(width=4, modes=3), (1, 16, 2)),
+        ("fno3d", dict(width=4, modes=2, padding=2), (1, 4, 4, 4, 2)),
+        ("deeponet", dict(width=8, trunk_size=2), (1, 8, 8, 2))):
+    m = init_model(name, 2, 2, **kw)
+    with torch.no_grad():
+        out = m(torch.randn(*shape))
+    assert out.shape[:-1] == shape[:-1] and torch.isfinite(out).all()
 print("imported", len(names), "modules")
 """
 

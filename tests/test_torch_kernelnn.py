@@ -191,14 +191,18 @@ def test_apply_fused_ad_grads_match_jax(rank):
 
 
 def test_unported_options_raise():
-    """The grid models and conv mode 'edge' (a TPU layout experiment) still
-    raise, naming their ROADMAP.md item; mode 'lut' and TEECNet's
-    power-series kernel are ported and build (their outputs are held
-    against JAX in tests/test_torch_pallas_mp.py and
+    """GraphSAGE and conv mode 'edge' (a TPU layout experiment) still
+    raise, naming their ROADMAP.md item; the one-step grid models build
+    ('deeponet' needs ``trunk_size``, as in the JAX package; their outputs
+    are held against JAX in tests/test_torch_grid.py); mode 'lut' and
+    TEECNet's power-series kernel are ported and build (their outputs are
+    held against JAX in tests/test_torch_pallas_mp.py and
     tests/test_torch_teecnet.py)."""
-    for name in ("fno", "deeponet", "graphsage"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            init_model(name, 4, 4, width=W, num_layers=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        init_model("graphsage", 4, 4, width=W, num_layers=2)
+    assert init_model("fno", 4, 4, width=W, num_layers=2).modes == (4, 4)
+    with pytest.raises(KeyError, match="trunk_size"):
+        init_model("deeponet", 4, 4, width=W, num_layers=2)
     with pytest.raises(ValueError):
         init_model("nope", 4, 4, width=W, num_layers=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
