@@ -154,6 +154,53 @@ to 3 epochs (its loss is recorded, not held to fall).
              CPU; ``[grid_serve]``: ``pred_grid`` per checkpoint (finite
              .npz, the improvement factors, the warm request).
 
+20. rollout — the grid rollout lane at the published widths, modes,
+             resolution, t_frames, trajectory counts and train_samples of
+             configs/exp_config/fno_ns_rollout.yaml (128 NS trajectories,
+             64^2, T 16), fno_ns_rollout_guided.yaml (the same data with
+             the coarse guidance channel), fno_adv_rollout.yaml (128, 64^2,
+             T 10, velocity as static channels) and fno3d_adv_rollout.yaml
+             (64 volumes, 32^3, T 10), each with its recipe
+             (fno_advected.yaml, batch 32; fno3d_advected.yaml, batch 16)
+             cut from 300 epochs to ROLLOUT_EPOCHS (the trajectories are
+             generated in worker processes during phases 2-18):
+             ``train_grid``, then ``pred_rollout`` with rollout_impl 'scan'
+             and 'stepwise' (the same bits), the card against the port's
+             CPU run of the same checkpoint, finite .npz artifacts; the warm
+             rollout per impl, per step, its peak memory, the train step and
+             the improvement factors (recorded, not held)
+             (``[rollout_*]`` lines).
+21. mat     — ``mat_grid``: fno_darcy_mat.yaml on the repo's
+             tests/fixtures/darcy_sample_r32_N12.mat ('sr'), and
+             fno_darcy_mat_operator.yaml's layout ('operator', width 32) on
+             a 64^2, 160-sample v5 file this script writes with
+             benchmarks/make_darcy_mat.py's recipe (the port's
+             ``_grf_threshold_coeff`` and ``solve_darcy``, scipy's
+             ``savemat``): ``train_grid`` (epochs cut), then ``pred_grid``
+             (``[mat]`` lines).
+22. graphsage — ``init_model('graphsage', 4, 4)`` (5 layers, no fused
+             form) on the full duct: a full-size request through
+             ``pred_graph_ALDD`` (the general lane) and its warm time, the
+             small mesh card vs CPU, ``train_graph_ALDD`` in the 'merged'
+             layout (the gate's choice, asserted) with the trained
+             checkpoint served, three merged steps card vs CPU; then the
+             training-layout gate's check: TEECNet with
+             ``kernel_type='powerseries'`` trains through
+             ``train_graph_ALDD`` on the card in the 'merged' layout (B1
+             and B2 at 0), and three of its steps on the card agree with the
+             CPU's (layout_gate_check.py) (``[graphsage*]``,
+             ``[powerseries_train]`` lines).
+23. host    — ``prefetch_to_device`` over the full KernelNN path's train
+             batches on the card (order, bits, device; its wall time beside
+             sequential uploads); one full-size KernelNN request under
+             ``FESR_TRACE_DIR`` (``utils.tracing.trace_dir``): the Chrome
+             trace exists and names B1's CUDA kernel; and
+             ``gaussian_interpolate_device`` card vs CPU on the duct's
+             low-to-high neighbour lists (27 648 destination nodes), its
+             time beside its bound (``[host_*]`` lines).
+
+Phases 20-23 launch no B1-B5 but the traced request's B1 (8 launches).
+
 The second-to-last line is a JSON object with the kernels' numbers, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -284,11 +331,41 @@ GRID = {
                      num_samples=40, train_samples=32),
 }
 GRID_EPOCHS = 10
+DATA_WORKERS = 4  # processes generating the grid data during phases 2-18
 # One spectral conv, card 'fft' vs card 'matmul' vs CPU 'fft' (float32,
 # TF32 off; FFTs and DFT sums in other orders over up to 265 points),
 # relative to the max; FNO2d's first three train losses card vs CPU.
 GRID_SPECTRAL_TOL = 1e-5
 GRID_PARITY_TOL = 1e-4
+
+# The grid rollout lane (phase 20), one path per shipped config at its
+# published sizes; cut: the recipe's 300 epochs to ROLLOUT_EPOCHS.  "data"
+# names the generation job (the two NS configs share one dataset).
+ROLLOUT = {
+    "ns": dict(model="fno", dataset="ns_rollout", data="ns_rollout",
+               exp="fno_ns_rollout.yaml", train="fno_advected.yaml"),
+    "ns_guided": dict(model="fno", dataset="ns_rollout", data="ns_rollout",
+                      exp="fno_ns_rollout_guided.yaml",
+                      train="fno_advected.yaml"),
+    "adv": dict(model="fno", dataset="advected_rollout",
+                data="advected_rollout", exp="fno_adv_rollout.yaml",
+                train="fno_advected.yaml"),
+    "adv3d": dict(model="fno3d", dataset="advected3d_rollout",
+                  data="advected3d_rollout", exp="fno3d_adv_rollout.yaml",
+                  train="fno3d_advected.yaml"),
+}
+ROLLOUT_EPOCHS = 3
+# The rolled-out frames card vs the CPU from one checkpoint: float32, the
+# card's 'matmul' spectral form against the CPU's 'fft' (6.8e-7 per conv,
+# PERF.md), compounded over T <= 16 steps of the same map: 1e-4 of the max.
+ROLLOUT_TOL = 1e-4
+# mat_grid (phase 21): the operator layout's file, written by this script
+MAT_OPERATOR = dict(n=64, samples=160)
+MAT_EPOCHS = 3
+# GraphSAGE (phase 22): its train cut; the interpolation (phase 23) card vs
+# CPU, float32 sums of 32 weighted neighbours in other orders
+SAGE_EPOCHS = 3
+INTERP_TOL = 1e-6
 
 # H100 SXM data sheet: HBM rate and dense peaks per input type
 HBM_BYTES_PER_S = 3.35e12
@@ -2051,11 +2128,11 @@ def phase_lut(root: str, datasets: dict, cfg: dict) -> None:
 
 # -- the grid family: FNO1d/2d/3d and DeepONet (no hand-written kernel) ----
 
-def _make_grid_data(key: str, cfg: dict) -> float:
+def _make_grid_data(dataset: str, cfg: dict) -> float:
     """Generates (and caches under ``cfg['root']``) one grid dataset in a
     worker process; returns its seconds."""
     t0 = time.time()
-    init_dataset(GRID[key]["dataset"], **cfg)
+    init_dataset(dataset, **cfg)
     return time.time() - t0
 
 
@@ -2076,15 +2153,18 @@ def grid_configs(root: str) -> dict:
     return out
 
 
-def start_grid_data(cfgs: dict):
-    """Starts the grid datasets' generation (host numpy, one worker process
-    each) so it overlaps the kernel phases; returns (pool, futures)."""
+def start_data(jobs: dict):
+    """Starts the host data generation (numpy, in DATA_WORKERS worker
+    processes) so it overlaps the kernel phases; ``jobs``: key ->
+    (function, args), each returning its seconds; returns (pool,
+    futures)."""
     import concurrent.futures as cf
     import multiprocessing as mp
 
-    pool = cf.ProcessPoolExecutor(len(cfgs), mp_context=mp.get_context("spawn"))
-    return pool, {key: pool.submit(_make_grid_data, key, cfg)
-                  for key, (cfg, _) in cfgs.items()}
+    pool = cf.ProcessPoolExecutor(DATA_WORKERS,
+                                  mp_context=mp.get_context("spawn"))
+    return pool, {key: pool.submit(fn, *args)
+                  for key, (fn, args) in jobs.items()}
 
 
 def grid_model(key: str, cfg: dict):
@@ -2150,8 +2230,10 @@ def phase_grid_spectral(cfgs: dict) -> dict:
 
 
 def _train_losses(log_dir: str, exp: str) -> list:
+    """The train losses a MetricLogger wrote for ``exp``, in order."""
     with open(os.path.join(log_dir, "metrics", f"{exp}.jsonl")) as f:
-        return [json.loads(ln)["train_loss"] for ln in f]
+        records = [json.loads(ln) for ln in f]
+    return [r["train_loss"] for r in records if "train_loss" in r]
 
 
 def phase_grid_train(cfgs: dict, log_dir: str, futures: dict) -> dict:
@@ -2304,6 +2386,456 @@ def run_grid(cfgs: dict, root: str, futures: dict) -> dict:
                        for k, v in trained.items()})
 
 
+# -- the grid rollout lane, .mat, GraphSAGE, host utilities (phases 20-23) --
+
+def rollout_configs(root: str) -> dict:
+    """Per rollout path, (exp config, train config): the shipped configs
+    at their published sizes with this run's root (the two NS configs
+    share one), the recipe cut to ROLLOUT_EPOCHS epochs, on the card."""
+    out = {}
+    for key, r in ROLLOUT.items():
+        cfg = load_yaml(os.path.join(REPO, "configs", "exp_config", r["exp"]))
+        cfg.update(root=os.path.join(root, "rollout", r["data"]))
+        train = load_yaml(os.path.join(REPO, "configs", "train_config",
+                                       r["train"]))
+        out[key] = (cfg, dict(train, epochs=ROLLOUT_EPOCHS))
+    return out
+
+
+def _held_out_inputs(ds, cfg: dict, device) -> tuple:
+    """The held-out trajectories' (first frames on ``device``, host
+    guidance [T, B, *sp], static channels on ``device`` or None), as
+    ``pred_rollout`` hands them to ``rollout``."""
+    ev = list(range(int(cfg["train_samples"]) // ds.t_frames,
+                    ds.trajectories.shape[0]))
+    static = ds.static_fields
+    return (torch.as_tensor(ds.trajectories[ev, 0], device=device),
+            np.moveaxis(ds.coarse_frames[ev], 1, 0),
+            None if static is None else torch.as_tensor(static[ev],
+                                                        device=device))
+
+
+def _rollout_artifacts(paths: list, guided: bool) -> dict:
+    """Each ``pred_{idx}.npz``'s arrays, all finite, with the keys the JAX
+    package writes."""
+    want = {"pred", "ref", "input", "rollout"} | ({"coarse"} if guided
+                                                  else set())
+    out = {}
+    for p in paths:
+        with np.load(p) as z:
+            arrays = {k: z[k] for k in z.files}
+        if set(arrays) != want or not all(np.all(np.isfinite(a))
+                                          for a in arrays.values()):
+            raise AssertionError(f"{p}: keys {sorted(arrays)} or non-finite")
+        out[os.path.basename(p)] = arrays
+    return out
+
+
+def phase_rollout(key: str, cfg: dict, train: dict, log_dir: str,
+                  data_s: float) -> dict:
+    """One rollout path: ``train_grid`` on the one-step pairs, then
+    ``pred_rollout`` in both impls (the same bits) and on the CPU from the
+    same checkpoint (within ROLLOUT_TOL); the warm train step, the warm
+    rollout per impl (upload, T forwards, one fetch) and its peak memory,
+    the warm request (``pred_rollout`` whole) and the improvement
+    factors."""
+    import copy
+    import io
+
+    from fast_eng_super_resolution_tpu_torch.grid_runner import (
+        pred_rollout, rollout, train_grid)
+    from fast_eng_super_resolution_tpu_torch.parallel.grid_train import GridTrainer
+
+    r = ROLLOUT[key]
+    ds = init_dataset(r["dataset"], **cfg)
+    model = init_model(r["model"], seed=SEED, **cfg)
+    exp = f"rollout_{key}"
+    T, n_traj = ds.t_frames, ds.trajectories.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = train_grid(exp, model, ds, train, cfg, log_dir=log_dir)
+    torch.cuda.synchronize()
+    train_s, train_peak = time.time() - t0, torch.cuda.max_memory_allocated()
+    losses = _train_losses(log_dir, exp)
+    if not np.all(np.isfinite(losses)) or not np.isfinite(res["best_val"]):
+        raise AssertionError(f"rollout {key}: losses {losses}")
+    bs = int(train["batch_size"])
+    xb, yb = (torch.as_tensor(np.stack([ds[i][k] for i in range(bs)]),
+                              device="cuda") for k in ("x", "y"))
+    tr = GridTrainer(model, lr=float(train["lr"]),
+                     out_channels=int(yb.shape[-1]))
+    tr.net.from_jax_params(ckpt.load_params(res["ckpt"]))
+    opt = tr.optimizer()
+    step_ms = warm_ms(lambda: tr.step(opt, xb, yb))
+
+    arts, means = {}, {}
+    for impl in ("scan", "stepwise"):
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            paths = pred_rollout(cfg["idxs"], exp, model, ds,
+                                 dict(cfg, rollout_impl=impl),
+                                 log_dir=log_dir)
+        arts[impl] = _rollout_artifacts(paths, ds.guided)
+        (line,) = [ln for ln in "".join(tee.parts).splitlines()
+                   if "all-held-out mean" in ln]
+        means[impl] = line.split(": ", 1)[1]
+    for name, a in arts["scan"].items():
+        for k, v in a.items():
+            if not np.array_equal(v, arts["stepwise"][name][k]):
+                raise AssertionError(f"rollout {key} {name} {k}: scan and "
+                                     "stepwise differ")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = _rollout_artifacts(
+            pred_rollout(cfg["idxs"], exp, copy.deepcopy(model).cpu(), ds,
+                         cfg, log_dir=log_dir, device="cpu"), ds.guided)
+    card_frames = np.stack([a["rollout"] for a in arts["scan"].values()])
+    cpu_frames = np.stack([cpu[name]["rollout"] for name in arts["scan"]])
+    err = hold(f"rollout_{key}", "frames_vs_cpu", card_frames, cpu_frames,
+               ROLLOUT_TOL)
+
+    net = GridTrainer(model.cuda(), lr=0.0).net
+    net.from_jax_params(ckpt.load_params(res["ckpt"]))
+    f0, coarse_tmaj, static = _held_out_inputs(ds, cfg, "cuda")
+    times, peaks = {}, {}
+    for impl in ("scan", "stepwise"):
+        torch.cuda.reset_peak_memory_stats()
+        times[impl] = warm_ms(lambda impl=impl: rollout(
+            net, f0, coarse_tmaj, static, ds.guided, impl).cpu())
+        peaks[impl] = torch.cuda.max_memory_allocated() / 2**20
+    with contextlib.redirect_stdout(io.StringIO()):
+        request_ms = warm_ms(lambda: pred_rollout(cfg["idxs"], exp, model,
+                                                  ds, cfg, log_dir=log_dir))
+    faster = min(times, key=times.get)
+    log(f"rollout_{key}", config=ROLLOUT[key]["exp"],
+        trajectories=n_traj, held_out=len(f0), t_frames=T,
+        grid="x".join(map(str, ds.trajectories.shape[2:])),
+        guided=ds.guided, data_s=f"{data_s:.1f}", train_s=f"{train_s:.2f}",
+        epochs=train["epochs"], batch=bs, first_loss=f"{losses[0]:.6f}",
+        last_loss=f"{losses[-1]:.6f}", step_ms=f"{step_ms:.3f}",
+        train_peak_mib=f"{train_peak / 2**20:.0f}",
+        scan_ms=f"{times['scan']:.3f}", stepwise_ms=f"{times['stepwise']:.3f}",
+        scan_step_ms=f"{times['scan'] / T:.3f}",
+        stepwise_step_ms=f"{times['stepwise'] / T:.3f}",
+        scan_peak_mib=f"{peaks['scan']:.0f}",
+        stepwise_peak_mib=f"{peaks['stepwise']:.0f}", faster=faster,
+        request_ms=f"{request_ms:.3f}", err_vs_cpu=f"{err:.2e}",
+        tol=ROLLOUT_TOL, mean=repr(means["scan"]), identical=True)
+    return dict(step_ms=step_ms, times=times, peaks=peaks, err=err,
+                request_ms=request_ms, mean=means["scan"])
+
+
+def run_rollout(cfgs: dict, root: str, futures: dict, smi: str) -> dict:
+    """Phase 20 over the four rollout paths; B1-B5 launched 0 times."""
+    t0 = time.time()
+    reset_launches()
+    log_dir = os.path.join(root, "rollout_logs")
+    for key, (cfg, train) in cfgs.items():
+        phase_rollout(key, cfg, train, log_dir,
+                      futures[ROLLOUT[key]["data"]].result())
+    check_only("rollout phases", {})
+    log("rollout", card=repr(smi), launches=launches_of(*KERNELS),
+        wall_s=f"{time.time() - t0:.1f}")
+    return launches_of(*KERNELS)
+
+
+def mat_configs(root: str) -> dict:
+    """(exp config, train config) of each ``mat_grid`` task: the shipped
+    configs (the 'sr' one on the repo's fixture, the 'operator' one under
+    this run's root), fno_advected.yaml cut to MAT_EPOCHS epochs."""
+    train = load_yaml(os.path.join(REPO, "configs", "train_config",
+                                   "fno_advected.yaml"))
+    out = {}
+    for key, name, base in (("sr", "fno_darcy_mat.yaml", REPO),
+                            ("operator", "fno_darcy_mat_operator.yaml",
+                             root)):
+        cfg = load_yaml(os.path.join(REPO, "configs", "exp_config", name))
+        cfg.update(root=os.path.join(base, cfg["root"]), config=name)
+        out[key] = (cfg, dict(train, epochs=MAT_EPOCHS))
+    return out
+
+
+def mat_path(cfg: dict) -> str:
+    return os.path.join(cfg["root"], cfg["mat_file"])
+
+
+def _write_darcy_mat(path: str) -> float:
+    """benchmarks/make_darcy_mat.py's recipe through the port's copies of
+    its solver: MAT_OPERATOR's fields as a v5 ``.mat`` (coeff, sol)."""
+    import scipy.io as sio
+
+    from fast_eng_super_resolution_tpu_torch.data.grid_dataset import (
+        _grf_threshold_coeff, solve_darcy)
+
+    t0 = time.time()
+    n, samples = MAT_OPERATOR["n"], MAT_OPERATOR["samples"]
+    rng = np.random.default_rng(SEED)
+    coeff = np.empty((samples, n, n), np.float32)
+    sol = np.empty((samples, n, n), np.float32)
+    for i in range(samples):
+        coeff[i] = _grf_threshold_coeff(n, rng)
+        sol[i] = solve_darcy(coeff[i])
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    sio.savemat(path, {"coeff": coeff, "sol": sol})
+    return time.time() - t0
+
+
+def phase_mat(cfgs: dict, root: str, futures: dict) -> dict:
+    """Phase 21: ``train_grid`` then ``pred_grid`` of each ``mat_grid``
+    config on the card; finite predictions, B1-B5 at 0."""
+    import io
+
+    from fast_eng_super_resolution_tpu_torch.grid_runner import (pred_grid,
+                                                                  train_grid)
+
+    t0 = time.time()
+    reset_launches()
+    log_dir = os.path.join(root, "mat_logs")
+    data_s = futures["mat_operator"].result()
+    for key, (cfg, train) in cfgs.items():
+        ds = init_dataset("mat_grid", **cfg)
+        model = init_model("fno", seed=SEED, **cfg)
+        exp = f"mat_{key}"
+        t1 = time.time()
+        res = train_grid(exp, model, ds, train, cfg, log_dir=log_dir)
+        torch.cuda.synchronize()
+        train_s = time.time() - t1
+        losses = _train_losses(log_dir, exp)
+        tee = _Tee(io.StringIO())
+        with contextlib.redirect_stdout(tee):
+            paths = pred_grid(cfg["idxs"], exp, model, ds, cfg,
+                              log_dir=log_dir)
+        for p in paths:
+            with np.load(p) as z:
+                if not np.all(np.isfinite(z["pred"])):
+                    raise AssertionError(f"{p}: non-finite prediction")
+        if not np.all(np.isfinite(losses)) or len(paths) != len(cfg["idxs"]):
+            raise AssertionError(f"mat {key}: losses {losses}, {paths}")
+        factors = [ln.rsplit("improvement ", 1)[1]
+                   for ln in "".join(tee.parts).splitlines()
+                   if "improvement" in ln]
+        log("mat", task=key, config=cfg["config"],
+            file=os.path.basename(mat_path(cfg)), samples=len(ds),
+            grid="x".join(map(str, ds.x.shape[1:-1])), width=cfg["width"],
+            written_s=f"{data_s:.1f}" if key == "operator" else "-",
+            train_s=f"{train_s:.2f}", first_loss=f"{losses[0]:.6f}",
+            last_loss=f"{losses[-1]:.6f}",
+            best_val=f"{res['best_val']:.6f}",
+            improvement=",".join(factors))
+    check_only("mat phases", {})
+    log("mat", launches=launches_of(*KERNELS),
+        wall_s=f"{time.time() - t0:.1f}")
+    return launches_of(*KERNELS)
+
+
+def phase_graphsage(root: str, datasets: dict, cfgs: dict, smi: str) -> dict:
+    """Phase 22: GraphSAGE through the general lane and the merged layout,
+    then the power-series TEECNet's training on the card (the layout
+    gate); returns the launch counts of both parts by path."""
+    import layout_gate_check
+
+    from fast_eng_super_resolution_tpu_torch.sched.scheduler import _train_layout
+
+    t0 = time.time()
+    log_dir = os.path.join(root, "logs")
+    cfg = cfgs["full"]
+    model = init_model("graphsage", cfg["in_channels"], cfg["out_channels"],
+                       seed=SEED)
+    if _train_layout(model, CARD) != "merged":
+        raise AssertionError("graphsage: the gate would train it fused")
+    for exp in ("full_sage", "small_sage"):
+        ckpt.save_params(os.path.join(log_dir, "models", f"collection_{exp}",
+                                      "partition_0.npz"),
+                         model.to_jax_params(), meta={"model": "GraphSAGE"})
+    reset_launches()
+    t1 = time.time()
+    lanes, (f,) = serve(datasets["full"], model, [0], log_dir, "full_sage",
+                        None)
+    torch.cuda.synchronize()
+    cold_s = time.time() - t1
+    if lanes[0][1] != "general":
+        raise AssertionError(f"graphsage took lane {lanes[0][1]}")
+    request_ms, _ = warm_request(datasets["full"], model, log_dir,
+                                 "full_sage")
+    _, (card,) = serve(datasets["small"], model, [0], log_dir, "small_sage",
+                       None)
+    _, (cpu,) = serve(datasets["small"], model, [0], log_dir, "small_sage",
+                      "cpu")
+    for key in ("velocity", "pressure"):
+        hold("graphsage", f"small_{key}_vs_cpu", card[key], cpu[key],
+             GENERAL_TOL)
+    train_cfg = load_yaml(cfg["train_config"])
+    train_cfg.update(epochs=SAGE_EPOCHS, val_interval=1)
+    t1 = time.time()
+    train_graph_ALDD("train_sage", model, datasets["full"], 1, train_cfg,
+                     log_dir=log_dir)
+    torch.cuda.synchronize()
+    train_s = time.time() - t1
+    losses = _train_losses(log_dir, "train_sage_partition_0")
+    if len(losses) != SAGE_EPOCHS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"graphsage train losses {losses}")
+    lanes, _ = serve(datasets["full"], model, [0], log_dir, "train_sage",
+                     None)
+    # three merged steps card vs CPU on the small mesh, same weights
+    small = merged_subdomains(datasets["small"])
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(init_model("graphsage", 4, 4, seed=SEED).to(dev),
+                     lr=train_cfg["lr"], layout="merged")
+        opt = tr.init(SEED)
+        batch = small.to_torch(dev)
+        steps[dev] = [float(tr.step(opt, batch)) for _ in range(3)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(steps["cuda"], steps["cpu"]))
+    check_only("graphsage", {})
+    log("graphsage", card=repr(smi), layers=model.num_layers,
+        mesh="full", lane=lanes[0][1], nodes=len(f["pressure"]),
+        cold_s=f"{cold_s:.3f}", request_ms=f"{request_ms:.3f}",
+        train_layout="merged", train_s=f"{train_s:.2f}",
+        losses=",".join(f"{v:.5g}" for v in losses),
+        parity=",".join(f"{v:.8g}" for v in steps["cuda"]),
+        parity_rel=f"{rel:.3e}", tol=PARITY_TOL,
+        launches=launches_of(*KERNELS))
+    if not rel <= PARITY_TOL:
+        raise AssertionError(f"graphsage steps card {steps['cuda']} vs cpu "
+                             f"{steps['cpu']}")
+    sage = launches_of(*KERNELS)
+
+    # the layout gate: the power-series TEECNet (teecnet_ansys.yaml's
+    # width and layers, teecnet.yaml cut to SAGE_EPOCHS) trains merged
+    tc = load_yaml(TEECNET_CONFIG)
+    ps = TEECNet(tc["in_channels"], tc["width"], tc["out_channels"],
+                 tc["num_layers"], kernel_type="powerseries", seed=SEED)
+    if _train_layout(ps, CARD) != "merged":
+        raise AssertionError("powerseries: the gate would train it fused")
+    train_cfg = load_yaml(TEECNET_TRAIN)
+    train_cfg.update(epochs=SAGE_EPOCHS, val_interval=1)
+    reset_launches()
+    t1 = time.time()
+    train_graph_ALDD("train_ps", ps, datasets["full"], 1, train_cfg,
+                     log_dir=log_dir)
+    torch.cuda.synchronize()
+    ps_train_s = time.time() - t1
+    check_only("powerseries training", {})
+    ps_losses = _train_losses(log_dir, "train_ps_partition_0")
+    with tempfile.TemporaryDirectory(dir=root) as d:
+        gate = layout_gate_check.compare(d)
+    check_only("powerseries training", {})
+    log("powerseries_train", card=repr(smi), layout="merged",
+        full_train_s=f"{ps_train_s:.2f}",
+        full_losses=",".join(f"{v:.5g}" for v in ps_losses),
+        steps_card=",".join(f"{v:.8g}" for v in gate["card"]),
+        steps_cpu=",".join(f"{v:.8g}" for v in gate["cpu"]),
+        rel=f"{gate['max_rel']:.3e}", tol=PARITY_TOL,
+        launches=launches_of(*KERNELS))
+    if not np.all(np.isfinite(ps_losses)) or not gate["max_rel"] <= PARITY_TOL:
+        raise AssertionError(f"powerseries training: {ps_losses}, {gate}")
+    log("graphsage", wall_s=f"{time.time() - t0:.1f}")
+    return {"graphsage": sage, "powerseries_train": launches_of(*KERNELS)}
+
+
+def phase_host(root: str, datasets: dict, models: dict, cfgs: dict,
+               smi: str) -> dict:
+    """Phase 23: ``prefetch_to_device`` over the full KernelNN path's train
+    batches, a traced full-size request, ``gaussian_interpolate_device``
+    card vs CPU; returns the launch counts by path."""
+    from fast_eng_super_resolution_tpu_torch.data.pipeline import prefetch_to_device
+    from fast_eng_super_resolution_tpu_torch.ops import interpolate
+    from fast_eng_super_resolution_tpu_torch.utils import tracing
+
+    t0 = time.time()
+    out = {}
+    # the KernelNN path's train batches, as the scheduler merges them, over
+    # two epochs of its shuffled order
+    ds = datasets["full"]
+    tr_idx, _ = train_val_split(len(ds), 0.2, 0)
+    bs = 4
+    host = [merged_subdomains(ds, tr_idx[i:i + bs])
+            for i in range(0, len(tr_idx), bs)]
+    rng = np.random.default_rng(SEED)
+    order = np.concatenate([rng.permutation(len(host)) for _ in range(2)])
+    model = models["full"].cuda()
+
+    def consume(batches) -> tuple:
+        """(wall s, the batches) of one plain forward per batch."""
+        seen = []
+        t1 = time.perf_counter()
+        for g in batches:
+            with torch.no_grad():
+                model.apply(g.x, g.senders, g.receivers, g.edge_attr,
+                            edge_mask=g.edge_mask)
+            seen.append(g)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1, seen
+
+    reset_launches()
+    prefetch_s, got = consume(prefetch_to_device((host[i] for i in order),
+                                                 size=2))
+    plain_s, _ = consume(host[i].to_torch("cuda") for i in order)
+    for g, i in zip(got, order):
+        for name, leaf in vars(g).items():
+            if leaf.device.type != "cuda" or not np.array_equal(
+                    leaf.cpu().numpy(), getattr(host[i], name)):
+                raise AssertionError(f"prefetch batch {i} {name}")
+    if len(got) != len(order):
+        raise AssertionError(f"prefetch: {len(got)} of {len(order)} batches")
+    check_only("prefetch", {})
+    out["host_prefetch"] = launches_of(*KERNELS)
+    log("host_prefetch", card=repr(smi), batches=len(order),
+        nodes=host[0].x.shape[0], in_order=True, bits_equal=True,
+        device="cuda", prefetch_s=f"{prefetch_s:.4f}",
+        sequential_s=f"{plain_s:.4f}")
+
+    # one full-size KernelNN request under FESR_TRACE_DIR
+    trace_root = os.path.join(root, "traces")
+    os.environ["FESR_TRACE_DIR"] = trace_root
+    reset_launches()
+    try:
+        with tracing.trace_dir("kernelnn_request"):
+            serve(ds, models["full"], [0], os.path.join(root, "logs"), "full",
+                  None)
+            torch.cuda.synchronize()
+    finally:
+        os.environ.pop("FESR_TRACE_DIR")
+    path = os.path.join(trace_root, "kernelnn_request", "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events
+                      if e.get("cat") == "kernel" and "conv_fwd" in e["name"]})
+    check_only("traced request", {fused_conv.fused_edge_conv:
+                                  CHUNKS["full"] * cfgs["full"]["num_layers"]})
+    out["host_trace"] = launches_of(*KERNELS)
+    log("host_trace", card=repr(smi), file=os.path.relpath(path, root),
+        bytes=os.path.getsize(path), events=len(events),
+        b1_kernels=repr(kernels), launches=launches_of(*KERNELS))
+    if not kernels:
+        raise AssertionError(f"{path} names no B1 kernel")
+
+    # the duct's low -> high Gaussian interpolation on tensors
+    high, low = (make_duct_mesh(*FULL[k]) for k in ("n_high", "n_low"))
+    v, p = duct_field(low.points)
+    vals = np.concatenate([v, p.reshape(-1, 1)], 1).astype(np.float32)
+    radius = ds.gauss_radius
+    lists = interpolate.build_neighbor_lists(low.points, high.points, radius)
+    reset_launches()
+    res = {}
+    for dev in ("cuda", "cpu"):
+        args = [torch.as_tensor(a, device=dev) for a in (vals, *lists)]
+        res[dev] = interpolate.gaussian_interpolate_device(*args, radius)
+    err = hold("host_interp", "card_vs_cpu", res["cuda"].cpu().numpy(),
+               res["cpu"].numpy(), INTERP_TOL)
+    args = [torch.as_tensor(a, device="cuda") for a in (vals, *lists)]
+    ms = cuda_ms(lambda: interpolate.gaussian_interpolate_device(*args,
+                                                                 radius))
+    nbytes = sum(a.nbytes for a in (vals, *lists)) + res["cpu"].numel() * 4
+    check_only("interpolation", {})
+    out["host_interp"] = launches_of(*KERNELS)
+    log("host_interp", card=repr(smi), src=len(low.points),
+        dst=len(high.points), k=lists[0].shape[1], radius=f"{radius:.4f}",
+        err=f"{err:.2e}", ms=f"{ms:.4f}",
+        bound_ms=f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}", bound_by="bytes")
+    log("host", wall_s=f"{time.time() - t0:.1f}")
+    return out
+
+
 def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
     """The forward's and the backward's entries of the kernels JSON line,
     tagged with the ``path`` that ran them."""
@@ -2413,8 +2945,17 @@ def main() -> int:
         # the grid datasets are host numpy: generated in worker processes
         # while the kernel phases run (stopped before the directory goes)
         grid_cfgs = grid_configs(root)
-        grid_pool, grid_futures = start_grid_data(grid_cfgs)
-        workers.callback(grid_pool.shutdown, wait=True, cancel_futures=True)
+        roll_cfgs = rollout_configs(root)
+        mat_cfgs = mat_configs(root)
+        jobs = {key: (_make_grid_data, (GRID[key]["dataset"], cfg))
+                for key, (cfg, _) in grid_cfgs.items()}
+        for key, (cfg, _) in roll_cfgs.items():
+            jobs[ROLLOUT[key]["data"]] = (_make_grid_data,
+                                          (ROLLOUT[key]["dataset"], cfg))
+        jobs["mat_operator"] = (_write_darcy_mat,
+                                (mat_path(mat_cfgs["operator"][0]),))
+        data_pool, data_futures = start_data(jobs)
+        workers.callback(data_pool.shutdown, wait=True, cancel_futures=True)
         cfgs = {"full": make_config(os.path.join(root, "full"), FULL),
                 "small": make_config(os.path.join(root, "small"), SMALL)}
         # the rank-16 path: the same config with kernel_rank added, at a
@@ -2476,7 +3017,12 @@ def main() -> int:
         phase_powerseries(root, datasets, cfgs_tc["full"])
         phase_lut(root, datasets, cfgs["full"])
         log("general_modes", wall_s=f"{time.time() - t1:.1f}")
-        run_grid(grid_cfgs, root, grid_futures)
+        run_grid(grid_cfgs, root, data_futures)
+        new_paths = {"rollout": run_rollout(roll_cfgs, root, data_futures,
+                                            smi),
+                     "mat": phase_mat(mat_cfgs, root, data_futures)}
+        new_paths.update(phase_graphsage(root, datasets, cfgs, smi))
+        new_paths.update(phase_host(root, datasets, models, cfgs, smi))
 
     kernels = (kernel_entries(full, smi, None, "kernelnn")
                + kernel_entries(lowrank, smi, RANK, "kernelnn_rank16")
@@ -2492,6 +3038,15 @@ def main() -> int:
     # smooth: true serves through the same B1 lane before the projection
     kernels[0]["launches"] += smooth_launches
     kernels[0]["launches_by_path"]["smooth"] = smooth_launches
+    # phases 20-23, each kernel's count under the first entry of its name
+    # (0 everywhere but the traced KernelNN request's B1)
+    first = {}
+    for e in kernels:
+        first.setdefault(e["name"], e)
+    for path, counts in new_paths.items():
+        for kernel, n in counts.items():
+            first[kernel]["launches"] += n
+            first[kernel]["launches_by_path"][path] = n
     log("done", seconds=f"{time.time() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

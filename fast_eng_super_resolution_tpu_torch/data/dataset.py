@@ -659,7 +659,7 @@ class SyntheticDataset(AnsysDataset):
                                   self.pressure_col)
 
 
-# the one-step grid datasets (data/grid_dataset.py), by factory name
+# the grid datasets (data/grid_dataset.py), by factory name
 _GRID_DATASETS = {
     "turbulence_grid": "TurbulenceGridDataset",
     "advected_grid": "AdvectedScalarDataset",
@@ -667,10 +667,11 @@ _GRID_DATASETS = {
     "darcy_grid": "DarcyFlowDataset",
     "ns_grid": "NavierStokesDataset",
     "ns3d_grid": "NSSpacetimeDataset",
+    "ns_rollout": "NSRolloutDataset",
+    "advected_rollout": "AdvectedRolloutDataset",
+    "advected3d_rollout": "AdvectedRollout3DDataset",
     "burgers_grid": "BurgersDataset",
 }
-_NOT_PORTED = ("ns_rollout", "advected_rollout", "advected3d_rollout",
-               "mat_grid")
 
 
 def init_dataset(name: str, root: str, **kwargs):
@@ -684,9 +685,8 @@ def init_dataset(name: str, root: str, **kwargs):
     elif name in _GRID_DATASETS:
         from . import grid_dataset
         return getattr(grid_dataset, _GRID_DATASETS[name])(root=root, **kwargs)
-    elif name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {name!r} belongs to the grid family's rollout and "
-            ".mat part, not yet ported (ROADMAP.md queue A item 14 (ii))")
+    elif name == "mat_grid":
+        from .mat_dataset import MatGridDataset
+        return MatGridDataset(root=root, **kwargs)
     else:
         raise ValueError(f"Invalid dataset name: {name}")

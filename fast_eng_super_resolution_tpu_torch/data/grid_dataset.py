@@ -1,14 +1,13 @@
 """Regular-grid datasets of the grid model family (FNO1d/2d/3d, DeepONet):
-the one-step super-resolution pairs.
+the one-step super-resolution pairs and the rollout lane's trajectories.
 
-A numpy/scipy copy of the JAX package's ``data/grid_dataset.py`` (its
-one-step part): the same generators draw the same numbers from the same
-seeded RNG, and the cache files (``root/processed/<name>.npz``) carry the
+A numpy/scipy copy of the JAX package's ``data/grid_dataset.py``: the same
+generators draw the same numbers from the same seeded RNG, and the cache files (``root/processed/<name>.npz``) carry the
 same JSON ``params`` stamp, so a cache written by either package is served
 by the other and the arrays are bit-identical for one seed.  The module
-needs no torch.  The trajectory datasets of the rollout lane
-(``ns_rollout``, ``advected_rollout``, ``advected3d_rollout``) are not here
-yet (ROADMAP.md queue A item 14 (ii)).
+needs no torch.  Besides the one-step pairs below it holds the trajectory
+datasets of the rollout lane (``ns_rollout``, ``advected_rollout``,
+``advected3d_rollout``), cached the same way.
 
 The reference's FNO path consumed JHTDB turbulence cutouts (reference
 dataset/MatDataset.py:21-39) whose processing lived out of its repo; these
@@ -815,3 +814,263 @@ class BurgersDataset(_CachedGridDataset):
         super().__init__(root, params, lambda rng: burgers_pair(
             resolution, rng, factor=downsample, t_end=t_end, nu=nu, amp=amp,
             dt=dt, max_mode=max_mode))
+
+
+def advected_rollout_traj(n: int, rng: np.random.Generator, factor: int = 4,
+                          t_frames: int = 10, steps_per_frame: int = 4,
+                          dt: float = 0.02, max_mode: int = 3):
+    """One advected-scalar TRAJECTORY pair for the rollout lane.
+
+    Same physics as ``advected_scalar_pair`` (shared blob IC, shared
+    low-mode solenoidal velocity, semi-Lagrangian at two resolutions), but
+    recording ``t_frames`` intermediate frames every ``steps_per_frame``
+    steps from BOTH runs.  With the defaults (10 frames x 4 steps) the
+    final frame is the one-shot task's target exactly (steps=40, same dt),
+    so rollout endpoints compare directly against the one-shot rows.
+
+    Unlike NS vorticity, advection is NOT self-contained dynamics: theta_t
+    alone does not determine theta_{t+1} — the velocity does.  The velocity
+    is coarse-resolvable and part of the problem spec at serve time, so it
+    rides as static input channels (normalized by n: grid-units/time ->
+    O(1) fractions-of-domain/time, preserving across-trajectory speed
+    differences).
+
+    Returns (traj [T+1, n, n], coarse [T, n, n], vel [n, n, 2]) float32,
+    theta scaled per-trajectory like every other grid task.
+    """
+    _check_coarse_nyquist(n, factor, max_mode)
+    grid = np.arange(n)
+    gx, gy = np.meshgrid(grid, grid, indexing="ij")
+    theta0 = np.zeros((n, n))
+    for _ in range(4):
+        cx, cy = rng.random(2) * n
+        s = (0.05 + 0.05 * rng.random()) * n
+        dx = np.minimum(np.abs(gx - cx), n - np.abs(gx - cx))
+        dy = np.minimum(np.abs(gy - cy), n - np.abs(gy - cy))
+        theta0 += rng.random() * np.exp(-(dx ** 2 + dy ** 2) / (2 * s * s))
+    vel = _solenoidal_low_mode_velocity(n, rng, max_mode=max_mode)
+
+    def run_frames(field, velocity, m):
+        xq0, yq0 = np.meshgrid(np.arange(m), np.arange(m), indexing="ij")
+        xq = xq0 - velocity[..., 0] * dt
+        yq = yq0 - velocity[..., 1] * dt
+        f, frames = field.copy(), []
+        for _ in range(t_frames):
+            for _ in range(steps_per_frame):
+                f = _bilinear_sample(f, xq, yq)
+            frames.append(f)
+        return np.stack(frames)
+
+    fine = run_frames(theta0, vel, n)
+    m = n // factor
+    coarse = run_frames(theta0[::factor, ::factor],
+                        vel[::factor, ::factor] / factor, m)
+    q = np.arange(n) / factor
+    gxq, gyq = np.meshgrid(q, q, indexing="ij")
+    up = np.stack([_bilinear_sample(c, gxq, gyq) for c in coarse])
+    scale = max(np.abs(fine).max(), np.abs(theta0).max()) + 1e-12
+    traj = np.concatenate([theta0[None], fine]) / scale
+    return (traj.astype(np.float32), (up / scale).astype(np.float32),
+            (vel / n).astype(np.float32))
+
+
+def advected3d_rollout_traj(n: int, rng: np.random.Generator,
+                            factor: int = 2, t_frames: int = 10,
+                            steps_per_frame: int = 3, dt: float = 0.02,
+                            max_mode: int = 2):
+    """One VOLUMETRIC advected-scalar trajectory pair for the FNO3d
+    time-stepper.  3D analog
+    of ``advected_rollout_traj``; with the defaults (10 x 3 steps) the
+    endpoint matches ``advected_scalar3d_pair``'s steps=30 target.
+    Returns (traj [T+1, n, n, n], coarse [T, n, n, n], vel [n, n, n, 3])."""
+    _check_coarse_nyquist(n, factor, max_mode, ndim=3)
+    grid = np.arange(n)
+    gx, gy, gz = np.meshgrid(grid, grid, grid, indexing="ij")
+    theta0 = np.zeros((n, n, n))
+    for _ in range(4):
+        cx, cy, cz = rng.random(3) * n
+        s = (0.06 + 0.06 * rng.random()) * n
+        dx = np.minimum(np.abs(gx - cx), n - np.abs(gx - cx))
+        dy = np.minimum(np.abs(gy - cy), n - np.abs(gy - cy))
+        dz = np.minimum(np.abs(gz - cz), n - np.abs(gz - cz))
+        theta0 += rng.random() * np.exp(
+            -(dx ** 2 + dy ** 2 + dz ** 2) / (2 * s * s))
+    vel = _solenoidal_low_mode_velocity_3d(n, rng, max_mode=max_mode)
+
+    def run_frames(field, velocity, m):
+        q0 = np.meshgrid(np.arange(m), np.arange(m), np.arange(m),
+                         indexing="ij")
+        xq = q0[0] - velocity[..., 0] * dt
+        yq = q0[1] - velocity[..., 1] * dt
+        zq = q0[2] - velocity[..., 2] * dt
+        f, frames = field.copy(), []
+        for _ in range(t_frames):
+            for _ in range(steps_per_frame):
+                f = _trilinear_sample(f, xq, yq, zq)
+            frames.append(f)
+        return np.stack(frames)
+
+    fine = run_frames(theta0, vel, n)
+    coarse = run_frames(theta0[::factor, ::factor, ::factor],
+                        vel[::factor, ::factor, ::factor] / factor,
+                        n // factor)
+    q = np.arange(n) / factor
+    gxq, gyq, gzq = np.meshgrid(q, q, q, indexing="ij")
+    up = np.stack([_trilinear_sample(c, gxq, gyq, gzq) for c in coarse])
+    scale = max(np.abs(fine).max(), np.abs(theta0).max()) + 1e-12
+    traj = np.concatenate([theta0[None], fine]) / scale
+    return (traj.astype(np.float32), (up / scale).astype(np.float32),
+            (vel / n).astype(np.float32))
+
+
+class _CachedTrajDataset:
+    """Shared base for trajectory (rollout-lane) datasets: caches
+    ``trajectories`` [S, T+1, *sp], ``coarse_frames`` [S, T, *sp] and
+    ``static_fields`` [S, *sp, K] in one param-keyed npz (same verification
+    contract as _CachedGridDataset), and serves the S*T one-step training
+    pairs trajectory-major — ``train_samples: K*t_frames`` holds out whole
+    trajectories, like NSRolloutDataset.
+
+    One-step sample layout (must match grid_runner.pred_rollout's step
+    input): x channels = [theta_t, (coarse_t if guided), *static], y =
+    theta_{t+1}.
+    """
+
+    _filename: str = ""
+    rollout_eval = True
+
+    def __init__(self, root: str, params: dict, traj_fn,
+                 guided: bool = False) -> None:
+        self.root = root
+        path = os.path.join(root, "processed", self._filename)
+        stamp = json.dumps(params, sort_keys=True)
+        traj = None
+        if os.path.exists(path):
+            with np.load(path) as z:
+                if "params" in z and str(z["params"]) == stamp:
+                    traj, coarse, static = (z["traj"], z["coarse"],
+                                            z["static"])
+                # no legacy grace: this format never shipped without params
+        if traj is None:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            rng = np.random.default_rng(params["seed"])
+            ts, cs, ss = [], [], []
+            for _ in range(params["num_samples"]):
+                t, c, s = traj_fn(rng)
+                ts.append(t)
+                cs.append(c)
+                ss.append(s)
+            traj, coarse, static = np.stack(ts), np.stack(cs), np.stack(ss)
+            np.savez(path, traj=traj, coarse=coarse, static=static,
+                     params=np.array(stamp))
+        self.trajectories = traj
+        self.coarse_frames = coarse
+        self.static_fields = static
+        self.guided = bool(guided)
+        self.t_frames = int(coarse.shape[1])
+
+    def __len__(self):
+        return self.trajectories.shape[0] * self.t_frames
+
+    def __getitem__(self, i):
+        s, t = divmod(int(i), self.t_frames)
+        chans = [self.trajectories[s, t]]
+        if self.guided:
+            # coarse_frames[s, t] is the coarse solve AT the target time
+            chans.append(self.coarse_frames[s, t])
+        x = np.concatenate([np.stack(chans, axis=-1), self.static_fields[s]],
+                           axis=-1)
+        return {"x": x, "y": self.trajectories[s, t + 1][..., None]}
+
+
+class AdvectedRolloutDataset(_CachedTrajDataset):
+    """2D advected-scalar rollout workload (see advected_rollout_traj).
+    Samples: x [n, n, 3|4] = [theta_t, (coarse_t), u, v], y [n, n, 1]."""
+
+    _filename = "advected_rollout.npz"
+
+    def __init__(self, root: str, num_samples: int = 128,
+                 resolution: int = 64, downsample: int = 4,
+                 t_frames: int = 10, steps_per_frame: int = 4,
+                 max_mode: int = 3, guided: bool = False, seed: int = 0,
+                 **kwargs):
+        params = dict(num_samples=num_samples, resolution=resolution,
+                      downsample=downsample, t_frames=t_frames,
+                      steps_per_frame=steps_per_frame, max_mode=max_mode,
+                      seed=seed)
+        super().__init__(root, params, lambda rng: advected_rollout_traj(
+            resolution, rng, factor=downsample, t_frames=t_frames,
+            steps_per_frame=steps_per_frame, max_mode=max_mode),
+            guided=guided)
+
+
+class AdvectedRollout3DDataset(_CachedTrajDataset):
+    """Volumetric advected-scalar rollout workload for the FNO3d stepper
+    (see advected3d_rollout_traj).  Samples: x [n, n, n, 4|5] =
+    [theta_t, (coarse_t), u, v, w], y [n, n, n, 1]."""
+
+    _filename = "advected3d_rollout.npz"
+
+    def __init__(self, root: str, num_samples: int = 128,
+                 resolution: int = 32, downsample: int = 2,
+                 t_frames: int = 10, steps_per_frame: int = 3,
+                 max_mode: int = 2, guided: bool = False, seed: int = 0,
+                 **kwargs):
+        params = dict(num_samples=num_samples, resolution=resolution,
+                      downsample=downsample, t_frames=t_frames,
+                      steps_per_frame=steps_per_frame, max_mode=max_mode,
+                      seed=seed)
+        super().__init__(root, params, lambda rng: advected3d_rollout_traj(
+            resolution, rng, factor=downsample, t_frames=t_frames,
+            steps_per_frame=steps_per_frame, max_mode=max_mode),
+            guided=guided)
+
+
+class NSRolloutDataset:
+    """Autoregressive-rollout view of the space-time NS workload.
+
+    No reference analog (the reference's FNO is a one-shot map,
+    models/model.py:13-141): instead of
+    mapping the coarse solve to the fine solve at a fixed horizon, train a
+    fine-resolution TIME-STEPPER on consecutive fine-frame pairs and compose
+    it at serve time — the standard autoregressive use of the FNO.  Because
+    the initial vorticity is low-mode (exactly representable on the coarse
+    grid), the rollout needs ONLY the IC: it replaces the fine solver
+    outright rather than correcting a coarse run.  ``guided=True`` adds the
+    upsampled coarse frame at the TARGET time as a second input channel (the
+    coarse solve is cheap at serve time), anchoring the rollout against
+    accumulated drift.
+
+    Training samples are the S*T one-step pairs, trajectory-major — so
+    ``train_samples: K*t_frames`` holds out whole trajectories, and the
+    one-step val loss is computed on frames from UNSEEN trajectories.
+    Rollout evaluation (grid_runner.pred_rollout) reads ``trajectories``
+    [S, T+1, n, n] (frame 0 = the IC) and ``coarse_frames`` [S, T, n, n]
+    directly.  Wraps NSSpacetimeDataset, reusing its cache byte-for-byte.
+    """
+
+    rollout_eval = True
+    static_fields = None   # NS is self-contained dynamics: no extra inputs
+
+    def __init__(self, root: str, guided: bool = False, **kwargs):
+        inner = NSSpacetimeDataset(root=root, **kwargs)
+        ic = inner.x[:, 0, :, :, 1]            # [S, n, n]: the IC channel
+        fine = inner.y[..., 0]                 # [S, T, n, n]
+        self.trajectories = np.concatenate([ic[:, None], fine], axis=1)
+        self.coarse_frames = inner.x[..., 0]   # [S, T, n, n], upsampled
+        self.guided = bool(guided)
+        self.t_frames = int(fine.shape[1])
+
+    def __len__(self):
+        return self.trajectories.shape[0] * self.t_frames
+
+    def __getitem__(self, i):
+        s, t = divmod(int(i), self.t_frames)
+        cur = self.trajectories[s, t]
+        if self.guided:
+            # coarse_frames[s, t] is the coarse solve AT the target time
+            # (frames exclude t=0, so coarse index t aligns with traj t+1)
+            x = np.stack([cur, self.coarse_frames[s, t]], axis=-1)
+        else:
+            x = cur[..., None]
+        return {"x": x, "y": self.trajectories[s, t + 1][..., None]}

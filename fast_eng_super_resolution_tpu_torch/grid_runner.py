@@ -11,11 +11,11 @@ parameters go to ``logs/models/collection_{exp}/partition_0.npz`` in the
 JAX package's flat-key layout with the task-spec stamp, so either package
 serves the other's checkpoint.  Prediction writes
 ``logs/vtk/{exp}/pred_{idx}.npz`` (pred, ref, input) and prints the
-held-out MSE improvement over the upsampled-coarse baseline.  Both run on
-``cuda`` unless the caller (or the exp config's ``device``) says ``cpu``.
-
-The rollout lane (``pred_rollout``, the trajectory datasets) is not ported
-yet (ROADMAP.md queue A item 14 (ii)).
+held-out MSE improvement over the upsampled-coarse baseline.  The rollout
+lane (``pred_rollout``) composes a trained one-step model over a
+trajectory dataset's horizon from each held-out trajectory's first frame.
+All run on ``cuda`` unless the caller (or the exp config's ``device``) says
+``cpu``.
 """
 
 from __future__ import annotations
@@ -27,10 +27,6 @@ import torch
 
 from .utils.device import resolve_device
 from .utils.logging import MetricLogger, span
-
-_ROLLOUT = ("the grid rollout lane is not ported yet (ROADMAP.md queue A "
-            "item 14 (ii))")
-
 
 def _collection_path(log_dir: str, exp_name: str) -> str:
     d = os.path.join(log_dir, "models", f"collection_{exp_name}")
@@ -215,5 +211,136 @@ def pred_grid(idxs, exp_name: str, model, dataset, exp_config: dict,
     return outputs
 
 
-def pred_rollout(*args, **kwargs):
-    raise NotImplementedError(_ROLLOUT)
+# rollout_impl 'auto': the form measured faster on the card (PERF.md)
+AUTO_ROLLOUT_IMPL = "scan"
+
+
+@torch.no_grad()
+def rollout(net, frame0: torch.Tensor, coarse_tmaj: np.ndarray,
+            static: torch.Tensor | None, guided: bool,
+            impl: str = "scan") -> torch.Tensor:
+    """T one-step forwards of ``net`` from ``frame0`` [B, *sp] (on the
+    device), each step's input ``[frame, (coarse_t if guided), *static]``
+    (the datasets' one-step channel order); returns the frames [T, B, *sp]
+    on the device.  ``coarse_tmaj`` [T, B, *sp] is the host guidance
+    sequence: 'scan' uploads it once before the loop, 'stepwise' uploads
+    each step's frame as the step needs it.  The two give the same bits."""
+    if impl not in ("scan", "stepwise"):
+        raise ValueError(f"rollout_impl={impl!r} (expected scan | stepwise "
+                         "| auto)")
+    dev = frame0.device
+    coarse = None
+    if guided and impl == "scan":
+        coarse = torch.as_tensor(np.ascontiguousarray(coarse_tmaj),
+                                 device=dev)
+    f, outs = frame0, []
+    for t in range(coarse_tmaj.shape[0]):
+        chans = [f[..., None]]
+        if guided:
+            chans.append((coarse[t] if coarse is not None else
+                          torch.as_tensor(coarse_tmaj[t], device=dev))[..., None])
+        if static is not None:
+            chans.append(static)
+        f = net(chans[0] if len(chans) == 1 else torch.cat(chans, -1))[..., 0]
+        outs.append(f)
+    return torch.stack(outs)
+
+
+def pred_rollout(idxs, exp_name: str, model, dataset, exp_config: dict,
+                 log_dir: str = "logs", device=None) -> list[str]:
+    """Autoregressive rollout evaluation over the held-out trajectories.
+
+    Rolls the trained one-step model from each trajectory's first frame for
+    T frames, all held-out trajectories in one batch (``rollout``), then
+    scores the final frame against the fine solve, with the upsampled coarse
+    solve's final frame as the improvement baseline (the one-shot 'ns_grid'
+    lane's baseline, so the numbers compare directly).  With
+    ``train_samples`` in the exp config the held-out trajectories are those
+    after the first ``train_samples / t_frames`` (it must be a multiple of
+    ``t_frames``), else ``idxs``.  Writes ``pred_{idx}.npz`` (pred, ref,
+    input, rollout, and coarse when guided) per held-out ``idx`` and prints
+    the pred_grid lines plus the all-held-out mean.  ``rollout_impl`` in
+    the exp config: 'scan', 'stepwise' or 'auto' (``AUTO_ROLLOUT_IMPL``)."""
+    from .core import checkpoint as ckpt
+    from .parallel.grid_train import GridTrainer
+
+    dev = resolve_device(device)
+    T = dataset.t_frames
+    k_pairs = exp_config.get("train_samples")
+    n_traj = dataset.trajectories.shape[0]
+    if k_pairs is not None:
+        # trajectory-major one-step pairs: a train_samples that is not a
+        # whole number of trajectories would put some of the boundary
+        # trajectory's pairs in the training split while this evaluation
+        # still counted it held-out
+        if int(k_pairs) % T != 0:
+            raise ValueError(
+                f"train_samples={k_pairs} must be a multiple of "
+                f"t_frames={T} for rollout evaluation (whole held-out "
+                f"trajectories)")
+        eval_idx = list(range(int(k_pairs) // T, n_traj))
+    else:
+        eval_idx = sorted(int(i) for i in idxs)
+    path = _collection_path(log_dir, exp_name)
+    _check_task_spec(path, model, dataset, exp_config)
+    trainer = GridTrainer(model.to(dev), lr=0.0)
+    trainer.net.from_jax_params(ckpt.load_params(path))
+
+    traj = dataset.trajectories[eval_idx]      # [B, T+1, *sp]
+    coarse = dataset.coarse_frames[eval_idx]   # [B, T, *sp]
+    guided = dataset.guided
+    # static per-trajectory input channels (the advected family's velocity
+    # [B, *sp, K]); None for self-contained dynamics like NS
+    static = getattr(dataset, "static_fields", None)
+    static_d = (None if static is None
+                else torch.as_tensor(np.asarray(static[eval_idx]), device=dev))
+
+    impl = str(exp_config.get("rollout_impl", "auto"))
+    if impl == "auto":
+        impl = AUTO_ROLLOUT_IMPL
+    print(f"rollout_impl: {impl}")
+    with span("Prediction"):
+        frames = rollout(trainer.net, torch.as_tensor(traj[:, 0], device=dev),
+                         np.moveaxis(coarse, 1, 0), static_d, guided,
+                         impl).cpu().numpy()
+    frames = np.moveaxis(frames, 0, 1)         # [B, T, *sp]
+
+    fine = traj[:, 1:]                          # [B, T, *sp]
+    ax = tuple(range(1, fine.ndim - 1))         # spatial axes of one frame
+    axf = tuple(range(2, fine.ndim))            # spatial axes under [B, T]
+    mse_roll_final = ((frames[:, -1] - fine[:, -1]) ** 2).mean(ax)
+    mse_base_final = ((coarse[:, -1] - fine[:, -1]) ** 2).mean(ax)
+    mse_roll_all = ((frames - fine) ** 2).mean(axf)      # [B, T]
+    mse_base_all = ((coarse - fine) ** 2).mean(axf)
+
+    out_dir = os.path.join(log_dir, "vtk", exp_name)
+    os.makedirs(out_dir, exist_ok=True)
+    outputs = []
+    pos = {s: j for j, s in enumerate(eval_idx)}
+    for idx in idxs:
+        j = pos.get(int(idx))
+        if j is None:
+            print(f"pred_{idx}: not in the held-out range, skipped")
+            continue
+        factor = float(mse_base_final[j] / max(mse_roll_final[j], 1e-30))
+        out_path = os.path.join(out_dir, f"pred_{idx}.npz")
+        # a guided artifact carries the guidance sequence it consumed
+        extra = {"coarse": coarse[j]} if guided else {}
+        np.savez(out_path, pred=frames[j, -1][..., None],
+                 ref=fine[j, -1][..., None], input=traj[j, 0][..., None],
+                 rollout=frames[j], **extra)
+        print(f"pred_{idx}: baseline MSE {float(mse_base_final[j]):.6e}, "
+              f"model MSE {float(mse_roll_final[j]):.6e}, "
+              f"improvement {factor:.2f}x")
+        print("Prediction done!")
+        outputs.append(out_path)
+
+    mean_final = float((mse_base_final / np.maximum(mse_roll_final,
+                                                    1e-30)).mean())
+    mean_frames = float((mse_base_all / np.maximum(mse_roll_all,
+                                                   1e-30)).mean())
+    mode = "guided" if guided else "pure"
+    print(f"rollout[{mode}] all-held-out mean over {len(eval_idx)} "
+          f"trajectories: final-frame {mean_final:.2f}x, "
+          f"per-frame {mean_frames:.2f}x")
+    return outputs

@@ -9,20 +9,19 @@ The grid family keeps the JAX package's quirks: ``'fno'`` binds
 (reference utils.py:30-31 against model.py:64), so the shipped configs build
 the same network, with ``in_feats`` 256 unless the config names it;
 ``'fno1d'`` and ``'fno3d'`` read ``modes``; ``'deeponet'`` needs
-``trunk_size`` (utils.py:37), which no reference config has.  GraphSAGE is
-not ported yet and raises."""
+``trunk_size`` (utils.py:37), which no reference config has.
+``'graphsage'`` is PyG's GraphSAGE at 5 layers (utils.py:38-39)."""
 
 from __future__ import annotations
 
 from .deeponet import DeepONet
 from .fno import FNO1d, FNO2d, FNO3d
+from .graphsage import GraphSAGE
 from .kernelnn import KernelNN
 from .teecnet import TEECNet
 
 GRAPH_MODELS = ("teecnet", "graphsage", "neuralop")
 GRID_MODELS = ("fno", "fno1d", "fno3d", "deeponet")
-
-_NOT_PORTED = {"graphsage": "ROADMAP.md queue A item 14 (ii)"}
 
 
 def init_model(type: str, in_channels: int, out_channels: int,
@@ -70,7 +69,6 @@ def init_model(type: str, in_channels: int, out_channels: int,
                         trunk_input_dim=kwargs["trunk_size"],
                         hidden_dim=kwargs["width"], output_dim=out_channels,
                         seed=seed)
-    if type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {type!r} is not ported yet ({_NOT_PORTED[type]})")
+    if type == "graphsage":
+        return GraphSAGE(in_channels, out_channels, num_layers=5, seed=seed)
     raise ValueError(f"Invalid model type: {type}")

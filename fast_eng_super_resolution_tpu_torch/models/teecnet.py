@@ -17,8 +17,9 @@ scheduling knob, is left out; ``edges_sorted`` is kept as a hint that
 changes no bit.  ``kernel_type='powerseries'`` (models/powerseries.py, which
 ``init_model`` never builds, as in the JAX package) makes the per-edge
 matrices with the nonlinear power-series stack ``kernel.ps``: its last stage
-is nonlinear, so it has no fused form (``fused_ok`` False) and serves and
-trains through ``apply``, the general lane.
+is nonlinear, so it has no fused form (``fused_ok`` False; ``apply_fused``
+and ``apply_fused_ad`` raise) and serves and trains through ``apply``, the
+general lane and the 'merged' layout.
 """
 
 from __future__ import annotations
@@ -93,6 +94,17 @@ class TEECNet(nn.Module):
         nonlinear in its last stage)."""
         return self.kernel_type == "dense"
 
+    def _check_fused(self) -> None:
+        """The fused forms build every layer from the dense operator
+        kernel ``edge_mlp``; a power-series model's own kernel is
+        ``kernel.ps``, so they refuse it rather than compute another
+        model's math."""
+        if not self.fused_ok:
+            raise ValueError(
+                f"kernel_type={self.kernel_type!r} has no fused form: serve "
+                "and train it through apply (the general lane, the 'merged' "
+                "layout)")
+
     def init_params(self, generator: torch.Generator) -> None:
         """The JAX package's init distributions (TEECNet.init), drawn from
         ``generator`` (the draws themselves differ from jax.random's)."""
@@ -145,6 +157,7 @@ class TEECNet(nn.Module):
         ``agg[:n] + h @ root + bias`` on the pre-linear ``h``."""
         from ..ops.fused_conv import _gemm_dtype, fused_edge_conv
 
+        self._check_fused()
         kern = self.kernel
         dt = _gemm_dtype(gemm_dtype)
         n = x.shape[0]
@@ -173,6 +186,7 @@ class TEECNet(nn.Module):
         ``prepare_fused_train``."""
         from ..ops.fused_conv import fused_edge_conv_ad
 
+        self._check_fused()
         kern = self.kernel
         n = x.shape[0]
         h = self.fc1(x)

@@ -1,5 +1,4 @@
-"""Gaussian-kernel scattered-field interpolation (low-res -> high-res mesh),
-host half.
+"""Gaussian-kernel scattered-field interpolation (low-res -> high-res mesh).
 
 Replaces vtkPointInterpolator + vtkGaussianKernel(radius=0.012*3, sharpness=2)
 (reference dataset/GraphDataset.py:1078-1094).  VTK's Gaussian kernel weights
@@ -7,13 +6,17 @@ points within ``radius`` by w_i = exp(-(sharpness * d_i / radius)^2),
 normalized to sum 1.  Empty neighborhoods fall back to the nearest source
 point (the reference produces NaNs there, GraphDataset.py:1013-1014).
 
-Only the numpy + cKDTree path the ETL uses is here; the on-device weighted
-gather is not part of the serving path.
+Two paths over the same host-built neighbour lists (``build_neighbor_lists``):
+- ``gaussian_interpolate_host``: numpy + cKDTree, used in one-shot ETL;
+- ``gaussian_interpolate_device``: the weighted gather on torch tensors, on
+  whatever device they lie on (for interpolation inside an on-device
+  pipeline).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy.spatial import cKDTree
 
 
@@ -53,3 +56,17 @@ def gaussian_interpolate_host(src_points: np.ndarray, src_values: np.ndarray,
     w_sum = np.maximum(w.sum(axis=1, keepdims=True), 1e-30)
     vals = src_values[idxs]  # [M, K, C]
     return ((w[..., None] * vals).sum(axis=1) / w_sum).astype(np.float32)
+
+
+def gaussian_interpolate_device(src_values: torch.Tensor, idxs: torch.Tensor,
+                                dists: torch.Tensor, mask: torch.Tensor,
+                                radius: float,
+                                sharpness: float = 2.0) -> torch.Tensor:
+    """The weighted gather of ``gaussian_interpolate_host`` on tensors:
+    ``src_values`` [S, C] at the [M, K] neighbour lists (``idxs``,
+    ``dists``, ``mask`` from ``build_neighbor_lists``) -> [M, C]."""
+    w = torch.exp(-((sharpness * dists / radius) ** 2)) * mask.to(
+        src_values.dtype)
+    w_sum = torch.clamp(w.sum(dim=1, keepdim=True), min=1e-30)
+    vals = src_values[idxs.long()]  # [M, K, C]
+    return (w[..., None] * vals).sum(dim=1) / w_sum

@@ -4,8 +4,9 @@ Parity target: GNNPartitionScheduler (reference models/scheduler_gnn.py:
 23-469).  This port trains and serves its experts on one device:
 
 - ``train``: 80/20 split, merged batches, the fused training layout on the
-  GPU (kernels B1/B2), Adam with the reference's LR schedules, a NaN guard
-  that rolls back and halves the LR, best-val checkpointing to
+  GPU for a model with a fused form (kernels B1/B2; ``_train_layout``),
+  Adam with the reference's LR schedules, a NaN guard that rolls back and
+  halves the LR, best-val checkpointing to
   ``logs/models/collection_{exp}/partition_{i}.npz`` in the JAX package's
   layout (plus ``.pth`` and the port's own optimizer-state file) and
   step-resume (scheduler_gnn.py:86-189);
@@ -177,7 +178,7 @@ class PartitionScheduler(ServingLanes):
         os.makedirs(self.collection_dir(), exist_ok=True)
         ckpt.save_params(self._ckpt_path(i), model.to_jax_params(),
                          meta=self._model_spec())
-        if export_pth:
+        if export_pth and hasattr(model, "export_pth"):
             ckpt.save_pth_state_dict(self._pth_path(i), model.export_pth())
 
     # -- batching --------------------------------------------------------
@@ -225,16 +226,13 @@ class PartitionScheduler(ServingLanes):
         ``subset_idx`` holds real partition ids (checkpoints, loggers and
         seeds are keyed by them).  ``layout``: 'fused' (kernels B1/B2 on
         CUDA, their plain versions on the CPU) or 'merged'; by default
-        'fused' on CUDA and 'merged' on the CPU, as the JAX package trains
-        fused on the TPU only.
+        ``_train_layout``'s choice.  With ``FESR_PLOT_VAL`` set, each new
+        best validation epoch writes a PNG of the first validation batch's
+        prediction under ``logs/figures/{exp}``.
         """
-        if os.environ.get("FESR_PLOT_VAL"):
-            raise NotImplementedError(
-                "FESR_PLOT_VAL (validation prediction panels) is not ported "
-                "yet (ROADMAP.md queue A item 17)")
         part_ids = (range(len(self.subset_indices)) if subset_idx is None
                     else [int(i) for i in subset_idx])
-        layout = layout or ("fused" if self.device.type == "cuda" else "merged")
+        layout = layout or _train_layout(self.model, self.device)
         pretrained = self._load_models() if start_from_pretrained else None
         dev = self.device
 
@@ -350,6 +348,7 @@ class PartitionScheduler(ServingLanes):
                                        extra={"epoch": epoch,
                                               "best_loss": best_loss})
                         print(f"Epoch {epoch}: Validation loss: {val_loss}")
+                        self._maybe_plot_val(trainer, val_batches, i, epoch)
                 if schedule_name == "plateau":
                     new_lr = sched.update(train_loss)
                 else:
@@ -360,6 +359,30 @@ class PartitionScheduler(ServingLanes):
             logger.finish()
         self.experts = self._load_models()
         return self.experts
+
+    def _maybe_plot_val(self, trainer, val_batches, partition: int,
+                        epoch: int) -> None:
+        """Validation prediction panels (scheduler_gnn.py:440-442 plots to
+        wandb; here PNGs under ``logs/figures/{exp}``), with
+        ``FESR_PLOT_VAL`` set.  A failed plot (matplotlib missing, say) is
+        printed and training goes on, as in the JAX package."""
+        if not os.environ.get("FESR_PLOT_VAL"):
+            return
+        try:
+            from ..utils.plotting import plot_3d_prediction
+
+            _, batch = val_batches[0]
+            pred = trainer.predict(batch).cpu().numpy()
+            # the fused layout's batch carries the merged graph it plots
+            graph = batch["graph"] if isinstance(batch, dict) else batch
+            pos, x, y = (graph.pos.cpu().numpy(), graph.x.cpu().numpy(),
+                         graph.y.cpu().numpy())
+            plot_3d_prediction(
+                pos, x, y, pred, save_mode="save_png",
+                path=os.path.join(self.log_dir, "figures", self.name,
+                                  f"val_p{partition}_e{epoch}"))
+        except Exception as exc:  # plotting must never break training
+            print(f"val plot skipped: {exc}")
 
     # -- prediction ------------------------------------------------------
     @torch.inference_mode()
@@ -454,6 +477,20 @@ class PartitionScheduler(ServingLanes):
             pred_y_list[orig_idx] = preds[pos][: n_real[orig_idx]]
             weights_list[orig_idx] = weights[pos][: n_real[orig_idx]]
         return pred_y_list, ref_y_list, labels, weights_list
+
+
+def _train_layout(model, device: torch.device) -> str:
+    """The default training layout: 'fused' only on CUDA, for a model with
+    a differentiable fused form (``apply_fused_ad``) whose
+    ``fused_train_ok`` (else ``fused_ok``, else True) holds, and unless
+    ``FESR_FUSED_TRAIN`` is '0' (the JAX package's gate, whose fused
+    training runs on the TPU); 'merged' otherwise."""
+    fused = (device.type == "cuda"
+             and hasattr(model, "apply_fused_ad")
+             and getattr(model, "fused_train_ok",
+                         getattr(model, "fused_ok", True))
+             and os.environ.get("FESR_FUSED_TRAIN", "1") != "0")
+    return "fused" if fused else "merged"
 
 
 def _snapshot(model) -> dict:

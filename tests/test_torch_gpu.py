@@ -1051,3 +1051,89 @@ def test_grid_forward_and_train_step_card_match_cpu(cuda, name, impl,
     for k, g in grads["cpu"].items():
         err = float((grads["cuda"][k] - g).norm() / g.norm())
         assert err < 1e-4, (k, err)
+
+
+# -- the rest of the grid family, GraphSAGE and the host utilities ---------
+
+def test_graphsage_card_matches_cpu(cuda):
+    """The same weights and masked graph on the card and the CPU: forward
+    rel 1e-5 of the max, and three merged Trainer steps' losses rel 1e-4
+    (index_add_ atomics sum in another order on the card)."""
+    from fast_eng_super_resolution_tpu_torch.core.graph import Graph
+    from fast_eng_super_resolution_tpu_torch.models.registry import init_model
+    from fast_eng_super_resolution_tpu_torch.parallel.train import Trainer
+
+    rng = np.random.default_rng(0)
+    n, e = 500, 4000
+    g = Graph(x=rng.normal(size=(n, 4)).astype(np.float32),
+              y=rng.normal(size=(n, 4)).astype(np.float32),
+              pos=rng.normal(size=(n, 3)).astype(np.float32),
+              senders=rng.integers(0, n, e).astype(np.int32),
+              receivers=np.sort(rng.integers(0, n, e)).astype(np.int32),
+              edge_attr=rng.random((e, 1)).astype(np.float32),
+              node_mask=np.ones(n, bool), edge_mask=rng.random(e) > 0.2,
+              global_ids=np.arange(n, dtype=np.int32))
+    out, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(init_model("graphsage", 4, 4).to(dev), lr=1e-3)
+        opt = tr.init(0)
+        batch = g.to_torch(dev)
+        out[dev] = tr.predict(batch).cpu()
+        losses[dev] = np.array([float(tr.step(opt, batch)) for _ in range(3)])
+    assert _rel(out["cuda"], out["cpu"]) < 1e-5
+    assert np.max(np.abs(losses["cuda"] - losses["cpu"]) / losses["cpu"]) < 1e-4
+
+
+@pytest.mark.parametrize("guided", [False, True])
+def test_rollout_card_matches_cpu_and_impls_agree(cuda, guided):
+    """``grid_runner.rollout`` of one FNO2d stepper over 5 frames with
+    static channels: 'scan' and 'stepwise' bit-identical on the card, and
+    the card within 1e-5 of the CPU's frames (relative to the max)."""
+    from fast_eng_super_resolution_tpu_torch.grid_runner import rollout
+    from fast_eng_super_resolution_tpu_torch.models import fno
+    from fast_eng_super_resolution_tpu_torch.parallel.grid_train import GridNet
+
+    rng = np.random.default_rng(1)
+    f0 = rng.normal(size=(3, 32, 32)).astype(np.float32)
+    coarse = rng.normal(size=(5, 3, 32, 32)).astype(np.float32)
+    static = rng.normal(size=(3, 32, 32, 2)).astype(np.float32) * 0.1
+    frames = {}
+    for dev, impl in (("cuda", "scan"), ("cuda", "stepwise"), ("cpu", "scan")):
+        net = GridNet(fno.FNO2d(6, 6, 8, in_feats=3 + guided)).to(dev)
+        frames[(dev, impl)] = rollout(
+            net, torch.as_tensor(f0, device=dev), coarse,
+            torch.as_tensor(static, device=dev), guided, impl).cpu()
+    assert torch.equal(frames[("cuda", "scan")], frames[("cuda", "stepwise")])
+    assert _rel(frames[("cuda", "scan")], frames[("cpu", "scan")]) < 1e-5
+
+
+def test_gaussian_interpolate_device_card_matches_cpu(cuda):
+    from fast_eng_super_resolution_tpu_torch.ops import interpolate
+
+    rng = np.random.default_rng(2)
+    src = rng.random((2000, 3)).astype(np.float32)
+    dst = rng.random((5000, 3)).astype(np.float32)
+    vals = rng.normal(size=(2000, 4)).astype(np.float32)
+    lists = interpolate.build_neighbor_lists(src, dst, 0.08, 32)
+    out = {dev: interpolate.gaussian_interpolate_device(
+        torch.as_tensor(vals, device=dev),
+        *(torch.as_tensor(a, device=dev) for a in lists), 0.08).cpu()
+        for dev in ("cuda", "cpu")}
+    assert _rel(out["cuda"], out["cpu"]) < 1e-6
+
+
+def test_prefetch_to_device_on_a_stream(cuda):
+    """Batches uploaded on the side stream arrive in order, bit for bit,
+    on the card, and a kernel on the consumer's stream reads them after
+    the upload (the wait on the upload's event)."""
+    from fast_eng_super_resolution_tpu_torch.data.pipeline import prefetch_to_device
+
+    rng = np.random.default_rng(3)
+    host = [{"x": rng.normal(size=(1 << 20,)).astype(np.float32), "i": i}
+            for i in range(6)]
+    got = list(prefetch_to_device(iter(host), size=2))
+    assert [b["i"] for b in got] == list(range(6))
+    for b, h in zip(got, host):
+        assert b["x"].device.type == "cuda"
+        assert float(b["x"].sum()) == float(torch.as_tensor(h["x"]).cuda().sum())
+        assert np.array_equal(b["x"].cpu().numpy(), h["x"])

@@ -257,7 +257,7 @@ def test_deeponet_forward_matches_jax(cls):
 def test_registry_grid_entries():
     """``fno`` binds in/out channels onto modes1/modes2 with in_feats 256
     unless named; ``fno1d``/``fno3d`` read ``modes``; ``deeponet`` needs
-    ``trunk_size`` (JAX's KeyError); graphsage still refuses."""
+    ``trunk_size`` (JAX's KeyError); graphsage builds JAX's 5 layers."""
     m = init_model("fno", 12, 10, width=16)
     assert isinstance(m, fno.FNO2d) and m.modes == (12, 10)
     assert m.in_feats == 256 and m.padding == 9
@@ -278,8 +278,8 @@ def test_registry_grid_entries():
         m = init_model("deeponet", 1, 1, width=16, **kw)
         assert (m.trunk_input_dim, m.hidden_dim) == (jm.trunk_input_dim,
                                                      jm.hidden_dim)
-    with pytest.raises(NotImplementedError, match=r"item 14 \(ii\)"):
-        init_model("graphsage", 4, 4, width=8)
+    assert (init_model("graphsage", 4, 4, width=8).num_layers
+            == jinit_model("graphsage", 4, 4, width=8).num_layers == 5)
     with pytest.raises(NotImplementedError, match="item 16"):
         grid_train.shard_grid_epoch(None, None, None)
 

@@ -5,7 +5,7 @@ package serves the other's cache; ``python -m
 fast_eng_super_resolution_tpu_torch`` trains and predicts the grid models
 on the CPU; checkpoints interchange both ways with the same predictions;
 the task-spec guard and the diverged-run fallback behave as JAX's; the
-parts of the family not yet ported refuse, naming their ROADMAP.md item."""
+rest of the family (rollout, ``mat_grid``, graphsage) builds."""
 
 import os
 import subprocess
@@ -78,14 +78,24 @@ def test_one_step_dataset_bit_equal_to_jax_and_caches_interchange(
 
 
 def test_unported_parts_refuse(tmp_path):
-    for name in ("ns_rollout", "advected_rollout", "advected3d_rollout",
-                 "mat_grid"):
-        with pytest.raises(NotImplementedError, match=r"item 14 \(ii\)"):
-            init_dataset(name, root=str(tmp_path))
-    with pytest.raises(NotImplementedError, match=r"item 14 \(ii\)"):
-        init_model("graphsage", 4, 4)
-    with pytest.raises(NotImplementedError, match=r"item 14 \(ii\)"):
-        grid_runner.pred_rollout([0], "x", None, None, {})
+    """The rest of the family is ported: the rollout datasets, ``mat_grid``
+    and graphsage build and ``pred_rollout`` runs (their outputs are held
+    against JAX in tests/test_torch_rollout.py, test_torch_mat.py and
+    test_torch_graphsage.py); an unknown dataset still raises."""
+    kw = dict(num_samples=1, downsample=2, t_frames=2)
+    for name, extra in (("ns_rollout", dict(resolution=16, t_end=0.01)),
+                        ("advected_rollout", dict(resolution=8, max_mode=1)),
+                        ("advected3d_rollout", dict(resolution=8,
+                                                    max_mode=1))):
+        ds = init_dataset(name, root=str(tmp_path / name), **kw, **extra)
+        assert ds.rollout_eval and len(ds) == 2
+    mat = init_dataset("mat_grid", root=os.path.join(REPO, "tests", "fixtures"),
+                       mat_file="darcy_sample_r32_N12.mat", num_samples=2)
+    assert len(mat) == 2
+    assert init_model("graphsage", 4, 4).num_layers == 5
+    with pytest.raises(ValueError, match="multiple of"):
+        grid_runner.pred_rollout([0], "x", None, ds, {"train_samples": 3},
+                                 device="cpu")
     with pytest.raises(ValueError, match="Invalid dataset"):
         init_dataset("nope", root=str(tmp_path))
 

@@ -17,8 +17,10 @@ FORBIDDEN = ("jax", "jaxlib", "fast_eng_super_resolution_tpu")
 
 _CHILD = r"""
 import importlib, pkgutil, sys
-# the JAX package and jax, and joblib (which the GPU host lacks)
-for name in ("jax", "jaxlib", "fast_eng_super_resolution_tpu", "joblib"):
+# the JAX package and jax, and joblib, h5py and matplotlib (which the GPU
+# host lacks)
+for name in ("jax", "jaxlib", "fast_eng_super_resolution_tpu", "joblib",
+             "h5py", "matplotlib"):
     sys.modules[name] = None          # any import of them now fails
 import numpy as np, torch
 import fast_eng_super_resolution_tpu_torch as port
@@ -58,6 +60,20 @@ for name, kw, shape in (
     with torch.no_grad():
         out = m(torch.randn(*shape))
     assert out.shape[:-1] == shape[:-1] and torch.isfinite(out).all()
+# the rest of the grid family and the host utilities
+with torch.no_grad():
+    out = init_model("graphsage", 4, 4).apply(x, *graph)
+assert out.shape == (n, 4) and torch.isfinite(out).all()
+from fast_eng_super_resolution_tpu_torch.data.dataset import init_dataset
+mat = init_dataset("mat_grid", root="tests/fixtures",
+                   mat_file="darcy_sample_r32_N12.mat", num_samples=2)
+assert mat[0]["x"].shape == (32, 32, 2)
+from fast_eng_super_resolution_tpu_torch.data.pipeline import prefetch_to_device
+got = list(prefetch_to_device(iter([{"x": np.ones(2)}]), device="cpu"))
+assert torch.equal(got[0]["x"], torch.ones(2, dtype=torch.float64))
+from fast_eng_super_resolution_tpu_torch.utils import tracing
+with tracing.trace_dir("t"), tracing.annotate("a"):
+    pass
 print("imported", len(names), "modules")
 """
 

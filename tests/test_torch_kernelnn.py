@@ -191,15 +191,15 @@ def test_apply_fused_ad_grads_match_jax(rank):
 
 
 def test_unported_options_raise():
-    """GraphSAGE and conv mode 'edge' (a TPU layout experiment) still
-    raise, naming their ROADMAP.md item; the one-step grid models build
+    """Conv mode 'edge' (a TPU layout experiment) still raises, naming
+    its ROADMAP.md item; GraphSAGE builds (its outputs are held against JAX
+    in tests/test_torch_graphsage.py); the one-step grid models build
     ('deeponet' needs ``trunk_size``, as in the JAX package; their outputs
     are held against JAX in tests/test_torch_grid.py); mode 'lut' and
     TEECNet's power-series kernel are ported and build (their outputs are
     held against JAX in tests/test_torch_pallas_mp.py and
     tests/test_torch_teecnet.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_model("graphsage", 4, 4, width=W, num_layers=2)
+    assert init_model("graphsage", 4, 4, width=W, num_layers=2).num_layers == 5
     assert init_model("fno", 4, 4, width=W, num_layers=2).modes == (4, 4)
     with pytest.raises(KeyError, match="trunk_size"):
         init_model("deeponet", 4, 4, width=W, num_layers=2)
