@@ -201,6 +201,29 @@ to 3 epochs (its loss is recorded, not held to fall).
 
 Phases 20-23 launch no B1-B5 but the traced request's B1 (8 launches).
 
+24. multi   — multi-device training and serving over ``torch.distributed``
+             on the one card, at the full configuration (KernelNN width 48,
+             4 layers, the 12 training subdomains and the 2 full meshes).
+             (a) Two gloo ranks, spawned processes sharing the card
+             (``--multi-rank``), against this process: 3 fused shard steps
+             (B1/B2 on each rank's merged group of 6 subdomains; bf16, then
+             float32 with TF32 off) against one process's fused step on the
+             12, B1/B2 launches per rank; ``predict_full`` on full mesh 0
+             through lane ``fast_mc`` against ``predict`` + the host overlap
+             average, and through ``routed_mc`` (the routed collection of
+             phase 10) against the one-process routed lane; one FNO2d
+             data-parallel epoch at fno_advected_256.yaml's widths and
+             recipe batch (32 as 16 + 16, seeded data) against one
+             process's (``[multi]`` lines, each with its error and
+             tolerance).  (b) NCCL at world size 1: ``torchrun --standalone
+             --nproc-per-node=1 -m fast_eng_super_resolution_tpu_torch``
+             trains (``FESR_STEP_IMPL=shard_map_fused``, 2 epochs) and
+             serves both meshes to finite ``.vtu`` files, and under torchrun
+             (``--multi-nccl``) the fused shard step and the
+             explicit-collective step run over that NCCL group against the
+             single-device steps.  Two ranks on one card say nothing about
+             scaling across cards.
+
 The second-to-last line is a JSON object with the kernels' numbers, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -237,8 +260,12 @@ from fast_eng_super_resolution_tpu_torch.physics import divergence as pdiv  # no
 from fast_eng_super_resolution_tpu_torch.physics import projection as pproj  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.physics.projection import DivergenceFreeProjection  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.physics.wss import compute_wall_shear_stress  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.data.reconstruct import overlap_average  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.parallel.mesh import (  # noqa: E402
+    pad_batch_to_multiple, replicate, shard_batch)
 from fast_eng_super_resolution_tpu_torch.parallel.train import (  # noqa: E402
-    Trainer, make_fused_batch, make_fused_batches, train_val_split)
+    Trainer, make_fused_batch, make_fused_batches, make_fused_shard_batches,
+    train_val_split)
 from fast_eng_super_resolution_tpu_torch.runner import pred_graph_ALDD, train_graph_ALDD  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.sched.classifiers import init_classifier  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.sched.encoders import init_encoder  # noqa: E402
@@ -2836,6 +2863,493 @@ def phase_host(root: str, datasets: dict, models: dict, cfgs: dict,
     return out
 
 
+# -- phase 24: multi ------------------------------------------------------------
+
+MULTI_WORLD = 2  # gloo ranks sharing the one card
+MULTI_STEPS = 3
+MULTI_EPOCHS = 2  # the torchrun training's cut of synthetic_full.yaml
+MULTI_TIMEOUT = 300  # seconds per spawned group
+# The data-parallel fused step (each rank its group of 6 subdomains) against
+# one process's fused step on the concatenated 12, from the same seed.
+# float32 (TF32 off): the JAX package's tolerances for the same comparison
+# (tests/test_train.py:281-284), losses rtol 1e-5 and parameters rtol 1e-3 /
+# atol 1e-5.  bfloat16: the GEMM inputs are rounded from float32 values that
+# other block geometries (and atomics) sum in other orders, so a rounding may
+# flip by one bf16 ulp (2^-8): losses rtol 1e-3, and the update each run
+# made to the parameters within 1e-2 of the single process's in L2.
+MULTI_STEP_TOL = {"float32": dict(loss=1e-5, rtol=1e-3, atol=1e-5),
+                  "bfloat16": dict(loss=1e-3, update=1e-2)}
+# predict_full's data-parallel lanes against one process (relative to the
+# max): fast_mc serves each rank the same 4-subdomain groups the general
+# lane's chunks hold, so B1 sees the same operands and only the overlap sums
+# change order (1e-5); routed_mc's label groups are the rank's, not the
+# request's, so bf16 roundings may flip as above: the JAX package's routed
+# fused-vs-plain tolerance, 2e-2 (1e-5 in float32, TF32 off).
+MULTI_SERVE_TOL = {("fast_mc", "bfloat16"): 1e-5,
+                   ("fast_mc", "float32"): 1e-5,
+                   ("routed_mc", "bfloat16"): 2e-2,
+                   ("routed_mc", "float32"): 1e-5}
+# The FNO2d epoch, 16 + 16 per step against 32 (float32, TF32 off): the JAX
+# package's tolerances (tests/test_train.py:321-325).
+MULTI_GRID_TOL = dict(loss=1e-5, rtol=1e-4, atol=1e-6)
+MULTI_GRID = dict(exp="fno_advected_256.yaml", train="fno_advected.yaml",
+                  steps=2)
+MULTI_DTYPES = ("bfloat16", "float32")
+MULTI_TIMED = 5  # warm steps timed per rank and in one process
+
+
+def multi_batch(ds):
+    """The 12 training subdomains of the full meshes (seed 0's split) as one
+    [12, ...] host batch, as the scheduler pads them."""
+    tr_idx, _ = train_val_split(len(ds), 0.2, 0)
+    raw = [_as_raw_graph(ds.get(int(i))) for i in tr_idx]
+    (_, _, batch), = pad_and_bucket(raw, uniform=True)
+    return batch
+
+
+def multi_grid_data(cfg: dict) -> tuple:
+    """Seeded inputs and targets of one epoch at the config's published
+    shapes: [steps, batch, resolution, resolution, 1]."""
+    rng = np.random.default_rng(SEED)
+    n = cfg["resolution"]
+    shape = (MULTI_GRID["steps"], cfg["batch_size"], n, n, cfg["in_feats"])
+    return (rng.standard_normal(shape, dtype=np.float32),
+            0.1 * rng.standard_normal(shape[:-1] + (1,), dtype=np.float32))
+
+
+def multi_grid_config() -> dict:
+    cfg = load_yaml(os.path.join(REPO, "configs", "exp_config",
+                                 MULTI_GRID["exp"]))
+    train = load_yaml(os.path.join(REPO, "configs", "train_config",
+                                   MULTI_GRID["train"]))
+    return dict(cfg, batch_size=train["batch_size"], lr=train["lr"])
+
+
+def flat_params(model) -> dict:
+    return {k: np.asarray(v) for k, v in
+            ckpt.flatten_params(model.to_jax_params()).items()}
+
+
+def multi_steps(model, batch, dtype: str, lr: float, dev, mesh=None,
+                timed: int = 0) -> dict:
+    """``MULTI_STEPS`` fused train steps from ``model``'s weights: on a
+    ``mesh``, this rank's fused shard step over its group; without, one
+    process's fused step on the whole batch merged.  Returns the losses, the
+    parameters before and after, and B1's and B2's launches; with ``timed``,
+    also the median wall ms of that many more steps (each ending in a
+    device sync)."""
+    p0 = flat_params(model)
+    if mesh is None:
+        fb, rows_blk, blk = make_fused_batch(merge_batch(batch)[0], model,
+                                             device=dev)
+        tr = Trainer(model, lr=lr, layout="fused", fused_rows_blk=rows_blk,
+                     fused_blk=blk, fused_dtype=dtype)
+        step = tr.step
+    else:
+        tr = Trainer(model, lr=lr, layout="batched", fused_dtype=dtype)
+        replicate(model, mesh)
+        fb, rows_blk, blk = make_fused_shard_batches(
+            pad_batch_to_multiple(batch, mesh.size)[0], model, mesh.size,
+            expand_s=False, mesh=mesh)
+        step = tr.make_fused_shard_map_step(mesh, rows_blk, blk)
+    opt = tr.init()
+    reset_launches()
+    losses = [float(step(opt, fb)) for _ in range(MULTI_STEPS)]
+    out = dict(losses=np.array(losses), p0=p0, p=flat_params(model),
+               launches=launches_of(fused_conv.fused_edge_conv,
+                                    fused_conv.fused_edge_conv_bwd))
+    if timed:
+        out["step_ms"] = warm_ms(lambda: step(opt, fb), timed)
+    return out
+
+
+def multi_serve(ds, log_dir: str, exp: str, cfg: dict, dtype: str, dev,
+                mesh=None) -> dict:
+    """Full mesh 0 through ``predict_full``: on a ``mesh``, its
+    data-parallel lane; without, one process's lane (the routed lane with
+    the budget of the whole request, or the general lane's ``predict`` and
+    the host overlap average)."""
+    n_part = cfg["n_clusters"]
+    sched = PartitionScheduler(exp, n_part, ds, make_model(cfg), train=False,
+                               log_dir=log_dir, device=dev, gemm_dtype=dtype,
+                               **(routing(cfg) if n_part > 1 else {}))
+    x = ds.get_one_full_sample(0)
+    n = len(ds.full_mesh(0)["points"])
+    b, _, e_pad = sched._request_shape([_as_raw_graph(d) for d in x])
+    budget = b * e_pad if (mesh is None and n_part > 1) else None
+    reset_launches()
+    with edge_budget_set(budget):
+        got = sched.predict_full(x, n)
+    lane = sched.last_lane[0]
+    if got is None:  # one process over the budget: the general lane
+        p_list, r_list, _, _ = sched.predict(x)
+        gids = [d["global_node_ids"] for d in x]
+        got = (overlap_average(p_list, gids, n),
+               overlap_average(r_list, gids, n))
+    return dict(pred=np.asarray(got[0]), ref=np.asarray(got[1]), lane=lane,
+                launches=fused_conv.fused_edge_conv.launches)
+
+
+def multi_grid(cfg: dict, dev, mesh=None) -> dict:
+    """One FNO2d epoch from seed 0 on the seeded data: on a ``mesh``, this
+    rank's half of every batch, gradients averaged over the ranks."""
+    from fast_eng_super_resolution_tpu_torch.parallel.grid_train import (
+        GridTrainer, shard_grid_epoch)
+
+    xb, yb = multi_grid_data(cfg)
+    model = init_model("fno", seed=SEED, **cfg).to(dev)
+    tr = GridTrainer(model, lr=cfg["lr"], out_channels=1)
+    opt = tr.init(SEED, xb[0])
+    p0 = flat_params(tr.net)
+    if mesh is None:
+        xs, ys = (torch.as_tensor(a, device=dev) for a in (xb, yb))
+    else:
+        replicate(tr.net, mesh)
+        xs, ys = shard_grid_epoch(xb, yb, mesh)
+    reset_launches()
+    losses = tr.epoch_stacked(opt, xs, ys, mesh).cpu().numpy()
+    return dict(losses=losses, p0=p0, p=flat_params(tr.net),
+                per_rank=int(xs.shape[1]),
+                launches=sum(launches_of(*KERNELS).values()))
+
+
+def multi_rank(rank: int, work: str) -> None:
+    """One gloo rank of phase 24 on the card (``--multi-rank``): the fused
+    shard steps, both data-parallel serving lanes and the FNO2d epoch, its
+    results to ``work/rank{rank}.npz``."""
+    from fast_eng_super_resolution_tpu_torch.parallel.mesh import make_mesh
+    from fast_eng_super_resolution_tpu_torch.utils.env import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(work, "spec.json")) as f:
+        spec = json.load(f)
+    init_distributed(rank, MULTI_WORLD, f"file://{work}/pg", backend="gloo",
+                     device=spec["device"])
+    mesh = make_mesh(spec["device"])
+    dev = mesh.device
+    out = {"mesh": np.array([mesh.size, mesh.rank])}
+    cfg = spec["cfg"]
+    ds = init_dataset("synthetic", **cfg)
+    batch = multi_batch(ds)
+    lr = load_yaml(cfg["train_config"])["lr"]
+    for dtype in MULTI_DTYPES:
+        r = multi_steps(make_model(cfg).to(dev), batch, dtype, lr, dev, mesh,
+                        timed=MULTI_TIMED if dev.type == "cuda" else 0)
+        out.update(_prefixed(f"steps/{dtype}", r))
+        for exp, c in (("full", cfg), ("routed", spec["cfg_routed"])):
+            r = multi_serve(ds, spec["log_dir"], exp, c, dtype, dev, mesh)
+            out.update(_prefixed(f"serve/{exp}/{dtype}", r))
+    out.update(_prefixed("grid", multi_grid(spec["grid"], dev, mesh)))
+    torch.distributed.destroy_process_group()
+    np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
+
+
+def _prefixed(prefix: str, r: dict) -> dict:
+    """A result dict flattened to npz keys under ``prefix``."""
+    out = {}
+    for k, v in r.items():
+        if isinstance(v, dict):
+            out.update({f"{prefix}/{k}/{kk}": np.asarray(vv)
+                        for kk, vv in v.items()})
+        else:
+            out[f"{prefix}/{k}"] = np.asarray(v)
+    return out
+
+
+def _unprefixed(arrays: dict, prefix: str) -> dict:
+    out = {}
+    for k, v in arrays.items():
+        if not k.startswith(prefix + "/"):
+            continue
+        head, _, tail = k[len(prefix) + 1:].partition("/")
+        if tail:
+            out.setdefault(head, {})[tail] = v
+        else:
+            out[head] = v if v.ndim else v.item()
+    return out
+
+
+def _param_errs(got: dict, want: dict, p0: dict) -> tuple:
+    """(the L2 of the update difference relative to the single run's update,
+    the max abs error) of parameter trees ``got`` and ``want`` from
+    ``p0``."""
+    du = sum(float(np.sum(((got[k] - p0[k]) - (want[k] - p0[k])) ** 2))
+             for k in want)
+    u = sum(float(np.sum((want[k] - p0[k]) ** 2)) for k in want)
+    abs_err = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+    return (du / max(u, 1e-30)) ** 0.5, abs_err
+
+
+def _hold_params(label: str, got: dict, want: dict, p0: dict, tol: dict,
+                 **extra) -> dict:
+    """Logs and holds ``got`` against ``want`` (elementwise rtol/atol, or
+    the relative L2 of the update) and the losses."""
+    if got["p"].keys() != want["p"].keys():
+        raise AssertionError(f"{label}: parameter keys differ")
+    upd, abs_err = _param_errs(got["p"], want["p"], p0)
+    loss_rel = float(np.max(np.abs(got["losses"] - want["losses"])
+                            / np.abs(want["losses"])))
+    ok = loss_rel <= tol["loss"]
+    if "update" in tol:
+        ok &= upd <= tol["update"]
+    else:
+        ok &= all(np.allclose(got["p"][k], want["p"][k], rtol=tol["rtol"],
+                              atol=tol["atol"]) for k in want["p"])
+    log("multi", what=label, loss_rel=f"{loss_rel:.3e}",
+        param_max_abs_err=f"{abs_err:.3e}", update_rel_l2=f"{upd:.3e}",
+        tol=tol, losses=",".join(f"{v:.6g}" for v in got["losses"]), **extra)
+    if not ok:
+        raise AssertionError(f"{label}: losses {got['losses']} vs "
+                             f"{want['losses']}, update rel {upd:.3e}, "
+                             f"param max abs err {abs_err:.3e}")
+    return dict(loss_rel=loss_rel, param_max_abs_err=abs_err,
+                update_rel_l2=upd)
+
+
+def _run(cmd: list, label: str, cwd: str, env: dict) -> str:
+    """Runs ``cmd`` to its end (raising on a non-zero exit, with its
+    output's tail); returns its output."""
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=MULTI_TIMEOUT)
+    text = proc.stdout + proc.stderr
+    log("multi", what=label, rc=proc.returncode,
+        wall_s=f"{time.time() - t0:.1f}")
+    if proc.returncode:
+        raise AssertionError(f"{label} exited {proc.returncode}:\n"
+                             f"{text[-4000:]}")
+    return text
+
+
+def multi_nccl(work: str) -> None:
+    """Phase 24 (b)'s direct calls, under ``torchrun --nproc-per-node=1``
+    (``--multi-nccl``): the process joins its NCCL group of one
+    (``maybe_init_distributed``), and the fused shard step and the
+    explicit-collective step over that group (their collectives through
+    NCCL) are held against the single-device steps."""
+    from fast_eng_super_resolution_tpu_torch.parallel.mesh import make_mesh
+    from fast_eng_super_resolution_tpu_torch.utils.env import (
+        finalize_distributed, maybe_init_distributed)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(work, "spec.json")) as f:
+        spec = json.load(f)
+    on_card = spec["device"].startswith("cuda")
+    # on the card: the rank's own card and NCCL, as the CLI joins
+    if not maybe_init_distributed(device=None if on_card else "cpu"):
+        raise AssertionError("FESR_MULTIHOST=1 did not join a group")
+    mesh = make_mesh(None if on_card else "cpu")
+    dev = mesh.device
+    cfg = spec["cfg"]
+    ds = init_dataset("synthetic", **cfg)
+    batch = multi_batch(ds)
+    lr = load_yaml(cfg["train_config"])["lr"]
+    out = {"mesh": [mesh.size, mesh.rank, mesh.backend, str(mesh.device)]}
+    for dtype in MULTI_DTYPES:
+        one = multi_steps(make_model(cfg).to(dev), batch, dtype, lr, dev)
+        grp = multi_steps(make_model(cfg).to(dev), batch, dtype, lr, dev,
+                          mesh)
+        out[f"fused_{dtype}"] = _hold_params(
+            f"nccl_fused_{dtype}", grp, one, one["p0"],
+            MULTI_STEP_TOL[dtype], launches=grp["launches"])
+        out[f"fused_{dtype}"]["launches"] = grp["launches"]
+    # the explicit-collective step (plain apply) against the merged step
+    res = {}
+    for m in (None, mesh):
+        model = make_model(cfg).to(dev)
+        p0 = flat_params(model)
+        tr = Trainer(model, lr=lr, layout="merged" if m is None else "batched")
+        opt = tr.init()
+        if m is None:
+            data, step = merge_batch(batch)[0].to_torch(dev), tr.step
+        else:
+            data = shard_batch(pad_batch_to_multiple(batch, m.size)[0], m)
+            step = tr.make_shard_map_step(m)
+        res[m is None] = dict(losses=np.array([float(step(opt, data))
+                                               for _ in range(MULTI_STEPS)]),
+                              p=flat_params(model))
+    out["shard_map"] = _hold_params("nccl_shard_map", res[False], res[True],
+                                    p0, MULTI_STEP_TOL["float32"])
+    finalize_distributed()
+    with open(os.path.join(work, "nccl.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_multi(root: str, datasets: dict, cfgs: dict, cfgs_rt: dict,
+                smi: str, dev=torch.device("cuda", 0)) -> dict:
+    """Phase 24: multi-device training and serving through
+    ``torch.distributed`` on the one card.  (a) Two gloo ranks, spawned
+    processes on the same card, against one process: the fused shard step
+    (B1/B2 on each rank's group of 6 of the 12 training subdomains, bf16
+    and float32), ``predict_full``'s lanes fast_mc and routed_mc on full
+    mesh 0, and one FNO2d data-parallel epoch.  (b) NCCL at world size 1:
+    ``torchrun`` trains (``FESR_STEP_IMPL=shard_map_fused``) and serves
+    through the CLI, and the shard steps run over that group.  Returns the
+    B1/B2 launches by path."""
+    t0 = time.time()
+    work = os.path.join(root, "multi")
+    os.makedirs(work, exist_ok=True)
+    log_dir = os.path.join(root, "logs")
+    cfg, ds = cfgs["full"], datasets["full"]
+    grid = multi_grid_config()
+    spec = dict(cfg=cfg, cfg_routed=cfgs_rt["full"], log_dir=log_dir,
+                grid=grid, device=str(dev))
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="4")
+    me = os.path.abspath(__file__)
+    # (a) the references of one process first, then the two ranks alone on
+    # the card (their step times are not shared with this process's work)
+    lr = load_yaml(cfg["train_config"])["lr"]
+    batch = multi_batch(ds)
+    refs = {}
+    for dtype in MULTI_DTYPES:
+        refs[("steps", dtype)] = multi_steps(
+            make_model(cfg).to(dev), batch, dtype, lr, dev,
+            timed=MULTI_TIMED if dev.type == "cuda" else 0)
+        for exp, c in (("full", cfg), ("routed", cfgs_rt["full"])):
+            refs[(exp, dtype)] = multi_serve(ds, log_dir, exp, c, dtype, dev)
+    refs["grid"] = multi_grid(grid, dev)
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w")
+            for r in range(MULTI_WORLD)]
+    procs = [subprocess.Popen([sys.executable, me, "--multi-rank", str(r),
+                               work], env=env, stdout=f,
+                              stderr=subprocess.STDOUT)
+             for r, f in enumerate(logs)]
+    try:
+        codes = [p.wait(timeout=MULTI_TIMEOUT) for p in procs]
+    finally:  # a failed rank leaves its peer waiting in a collective
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, code in enumerate(codes):
+        if code:
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                text = f.read()
+            raise AssertionError(f"multi rank {r} exited {code}:\n"
+                                 f"{text[-4000:]}")
+    outs = [dict(np.load(os.path.join(work, f"rank{r}.npz")))
+            for r in range(MULTI_WORLD)]
+    by_path = {}
+    for r, o in enumerate(outs):
+        if tuple(o["mesh"]) != (MULTI_WORLD, r):
+            raise AssertionError(f"rank {r}: mesh {o['mesh']}")
+        b1 = b2 = 0
+        for dtype in MULTI_DTYPES:
+            got = _unprefixed(o, f"steps/{dtype}")
+            want = refs[("steps", dtype)]
+            # every rank must hold the parameters the single process does
+            _hold_params(f"fused_step_{dtype}_rank{r}", got, want,
+                         want["p0"], MULTI_STEP_TOL[dtype],
+                         b1=got["launches"]["fused_edge_conv"],
+                         b2=got["launches"]["fused_edge_conv_bwd"],
+                         step_ms=got.get("step_ms"),
+                         single_step_ms=want.get("step_ms"), card=repr(smi))
+            depth_steps = cfg["num_layers"] * MULTI_STEPS
+            if dev.type == "cuda" and (
+                    got["launches"]["fused_edge_conv"] != depth_steps
+                    or got["launches"]["fused_edge_conv_bwd"] != depth_steps):
+                raise AssertionError(f"rank {r} {dtype}: launches "
+                                     f"{got['launches']}, want {depth_steps}")
+            b1 += int(got["launches"]["fused_edge_conv"])
+            b2 += int(got["launches"]["fused_edge_conv_bwd"])
+            for exp, lane in (("full", "fast_mc"), ("routed", "routed_mc")):
+                got = _unprefixed(o, f"serve/{exp}/{dtype}")
+                want = refs[(exp, dtype)]
+                tol = MULTI_SERVE_TOL[(lane, dtype)]
+                err = rel_err(got["pred"], want["pred"])
+                ref_err = rel_err(got["ref"], want["ref"])
+                log("multi", what=f"{lane}_{dtype}_rank{r}",
+                    lane=got["lane"], single_lane=want["lane"],
+                    max_rel_err=f"{err:.3e}", ref_rel_err=f"{ref_err:.3e}",
+                    tol=tol, b1=int(got["launches"]))
+                if (got["lane"] != lane or not err <= tol
+                        or not ref_err <= 1e-6
+                        or (dev.type == "cuda" and not got["launches"])):
+                    raise AssertionError(f"{lane} {dtype} rank {r}: lane "
+                                         f"{got['lane']}, err {err:.3e}")
+                b1 += int(got["launches"])
+        got = _unprefixed(o, "grid")
+        _hold_params(f"fno2d_epoch_rank{r}", got, refs["grid"],
+                     refs["grid"]["p0"], MULTI_GRID_TOL,
+                     per_rank=got["per_rank"],
+                     batch=grid["batch_size"], launches=got["launches"])
+        if got["launches"]:
+            raise AssertionError(f"rank {r}: the grid epoch launched B1-B5")
+        by_path[f"multi_gloo_rank{r}"] = (b1, b2)
+    log("multi", what="gloo_ranks", card=repr(smi), world=MULTI_WORLD,
+        launches={k: v for k, v in by_path.items()})
+
+    # (b) NCCL at world size 1 through torchrun
+    exp_cfg = {k: v for k, v in cfg.items()
+               if k not in ("model", "train_config", "train_epochs")}
+    if dev.type == "cpu":
+        exp_cfg["device"] = "cpu"
+    train_cfg = dict(load_yaml(cfg["train_config"]), epochs=MULTI_EPOCHS,
+                     val_interval=1)
+    for name, c in (("exp.yaml", exp_cfg), ("train.yaml", train_cfg)):
+        with open(os.path.join(work, name), "w") as f:
+            json.dump(c, f)  # JSON is YAML
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node=1"]
+    cli = ["-m", "fast_eng_super_resolution_tpu_torch", "--model=neuralop",
+           "--dataset=synthetic", "--exp_name=multi_nccl",
+           "--exp_config=exp.yaml", "--train_config=train.yaml"]
+    env = dict(env, FESR_MULTIHOST="1", FESR_STEP_IMPL="shard_map_fused")
+    # the direct calls (a group of their own) run beside the CLI's two
+    t1 = time.time()
+    direct_log = open(os.path.join(work, "direct.log"), "w")
+    direct = subprocess.Popen(run + [me, "--multi-nccl", work], cwd=work,
+                              env=env, stdout=direct_log,
+                              stderr=subprocess.STDOUT)
+    try:
+        _run(run + cli + ["--mode=train"], "torchrun_train", work, env)
+        logs = os.path.join(work, "logs")
+        for path in (os.path.join(logs, "models", "collection_multi_nccl",
+                                  "partition_0.npz"),
+                     os.path.join(logs, "metrics",
+                                  "multi_nccl_partition_0.jsonl")):
+            if not os.path.exists(path):
+                raise AssertionError(f"torchrun train wrote no {path}")
+        _run(run + cli + ["--mode=pred"], "torchrun_pred", work, env)
+        for idx in cfg["idxs"]:
+            fields = read_vtu(os.path.join(logs, "vtk", "multi_nccl",
+                                           f"pred_{idx}.vtu"))["point_data"]
+            if not all(np.all(np.isfinite(v)) for v in fields.values()):
+                raise AssertionError(f"torchrun pred_{idx}.vtu not finite")
+        log("multi", what="torchrun_cli", vtu=len(cfg["idxs"]), finite=True)
+        code = direct.wait(timeout=MULTI_TIMEOUT)
+    finally:
+        if direct.poll() is None:
+            direct.kill()
+            direct.wait()
+        direct_log.close()
+    log("multi", what="torchrun_direct", rc=code,
+        wall_s=f"{time.time() - t1:.1f}")
+    if code:
+        with open(os.path.join(work, "direct.log")) as f:
+            raise AssertionError(f"torchrun direct calls exited {code}:\n"
+                                 f"{f.read()[-4000:]}")
+    with open(os.path.join(work, "nccl.json")) as f:
+        nccl = json.load(f)
+    log("multi", what="nccl_group", mesh=nccl["mesh"],
+        **{k: v for k, v in nccl.items() if k != "mesh"})
+    if nccl["mesh"][:3] != [1, 0, "nccl" if dev.type == "cuda" else "gloo"]:
+        raise AssertionError(f"torchrun's group: {nccl['mesh']}")
+    b1 = sum(nccl[f"fused_{d}"]["launches"]["fused_edge_conv"]
+             for d in MULTI_DTYPES)
+    b2 = sum(nccl[f"fused_{d}"]["launches"]["fused_edge_conv_bwd"]
+             for d in MULTI_DTYPES)
+    by_path["multi_nccl_direct"] = (b1, b2)
+    log("multi", wall_s=f"{time.time() - t0:.1f}")
+    return by_path
+
+
 def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
     """The forward's and the backward's entries of the kernels JSON line,
     tagged with the ``path`` that ran them."""
@@ -3023,6 +3537,7 @@ def main() -> int:
                      "mat": phase_mat(mat_cfgs, root, data_futures)}
         new_paths.update(phase_graphsage(root, datasets, cfgs, smi))
         new_paths.update(phase_host(root, datasets, models, cfgs, smi))
+        multi = phase_multi(root, datasets, cfgs, cfgs_rt, smi)
 
     kernels = (kernel_entries(full, smi, None, "kernelnn")
                + kernel_entries(lowrank, smi, RANK, "kernelnn_rank16")
@@ -3047,6 +3562,12 @@ def main() -> int:
         for kernel, n in counts.items():
             first[kernel]["launches"] += n
             first[kernel]["launches_by_path"][path] = n
+    # phase 24: B1/B2 in the ranks' own processes, counted there
+    for path, counts in multi.items():
+        for kernel, n in zip(("fused_edge_conv", "fused_edge_conv_bwd"),
+                             counts):
+            first[kernel]["launches"] += n
+            first[kernel]["launches_by_path"][path] = n
     log("done", seconds=f"{time.time() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3055,4 +3576,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # phase 24's ranks run this file again, each in its own process
+    if sys.argv[1:2] == ["--multi-rank"]:
+        multi_rank(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--multi-nccl"]:
+        multi_nccl(sys.argv[2])
+    else:
+        sys.exit(main())

@@ -48,14 +48,18 @@ def _leaves(tree) -> list:
 def prefetch_to_device(batch_iter: Iterable, size: int = 2, device=None,
                        sharding=None) -> Iterator:
     """Yields ``batch_iter``'s batches on ``device`` (``cuda`` unless
-    ``"cpu"`` is asked for), keeping ``size`` in flight.  An error of the
-    producer is raised on the consumer's side; a consumer that stops early
-    stops the producer."""
+    ``"cpu"`` is asked for), keeping ``size`` in flight.  With ``sharding``
+    (a ``parallel.mesh.Mesh``) it yields this rank's block of each batch's
+    leading axis on the rank's device, cut on the host before the upload.
+    An error of the producer is raised on the consumer's side; a consumer
+    that stops early stops the producer."""
     if sharding is not None:
-        raise NotImplementedError(
-            "prefetch over a device mesh (sharding=) is not ported yet "
-            "(ROADMAP.md queue A item 16)")
-    dev = resolve_device(device)
+        from ..parallel.mesh import local_block
+
+        dev = sharding.device
+        batch_iter = (local_block(b, sharding) for b in batch_iter)
+    else:
+        dev = resolve_device(device)
     side = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
 
     def upload(batch):

@@ -25,7 +25,10 @@ import os
 import numpy as np
 import torch
 
+from .parallel.grid_train import shard_grid_epoch
+from .parallel.mesh import make_mesh, replicate
 from .utils.device import resolve_device
+from .utils.env import is_primary
 from .utils.logging import MetricLogger, span
 
 def _collection_path(log_dir: str, exp_name: str) -> str:
@@ -133,16 +136,23 @@ def train_grid(exp_name: str, model, dataset, train_config: dict,
 
     trainer = GridTrainer(model.to(dev), lr=lr, out_channels=target_c)
     opt = trainer.init(int(exp_config.get("seed", 0)), x_tr)
-    # upload once; each batch is an index gather on the device.  The JAX
-    # package shards each step's batch over a device mesh when it has
-    # several devices; one card runs the single-device loop (multi-device:
-    # ROADMAP.md queue A item 16)
+    # upload once; each batch is an index gather on the device
     x_tr, y_tr, x_va, y_va = (torch.as_tensor(a, device=dev)
                               for a in (x_tr, y_tr, x_va, y_va))
+    # data parallelism over a process group of several ranks when the
+    # batch divides over them (FESR_GRID_DP=0 keeps one device's loop on
+    # each rank): every rank steps on its block of each batch, gradients
+    # averaged, parameters broadcast from rank 0 first
+    mesh = make_mesh(dev)
+    use_dp = (mesh.size > 1 and batch_size % mesh.size == 0
+              and os.environ.get("FESR_GRID_DP", "1") != "0")
+    if use_dp:
+        replicate(trainer.net, mesh)
 
     logger = MetricLogger(exp_name, log_dir, config=dict(train_config))
     rng = np.random.default_rng(0)
     best_val = float("inf")
+    primary = is_primary()
     path = _collection_path(log_dir, exp_name)
     spec = _task_spec(model, dataset, exp_config)
     n_tr = len(train_idx)
@@ -152,7 +162,11 @@ def train_grid(exp_name: str, model, dataset, train_config: dict,
         # sample is still seen with equal probability across epochs
         order = rng.permutation(n_tr)[: n_batches * batch_size]
         order = order.reshape(n_batches, batch_size)
-        losses = trainer.epoch(opt, x_tr, y_tr, order)
+        if use_dp:
+            xs, ys = shard_grid_epoch(x_tr[order], y_tr[order], mesh)
+            losses = trainer.epoch_stacked(opt, xs, ys, mesh)
+        else:
+            losses = trainer.epoch(opt, x_tr, y_tr, order)
         trainer.set_lr(opt, sched(epoch + 1))
         if epoch % val_interval == 0 or epoch == epochs - 1:
             # the losses' host read stays in the val branch: one sync per
@@ -164,14 +178,16 @@ def train_grid(exp_name: str, model, dataset, train_config: dict,
                         "lr": sched(epoch)}, step=epoch)
             if val_loss < best_val:
                 best_val = val_loss
-                ckpt.save_params(path, trainer.net.to_jax_params(),
-                                 meta=spec)
+                if primary:
+                    ckpt.save_params(path, trainer.net.to_jax_params(),
+                                     meta=spec)
             print(f"Epoch {epoch}: train {train_loss:.6f} val {val_loss:.6f}")
-    if not np.isfinite(best_val):
+    if not np.isfinite(best_val) and primary:
         # diverged run (every val loss NaN/inf): the last parameters, so
         # pred_grid finds a checkpoint
         ckpt.save_params(path, trainer.net.to_jax_params(), meta=spec)
     logger.finish()
+    mesh.barrier()  # rank 0's checkpoint is written
     print(f"Best val loss {best_val:.6f} -> {path}")
     return {"best_val": best_val, "ckpt": path}
 
@@ -203,7 +219,8 @@ def pred_grid(idxs, exp_name: str, model, dataset, exp_config: dict,
         mse_pred = float(((pred - y) ** 2).mean())
         factor = mse_base / max(mse_pred, 1e-30)
         out_path = os.path.join(out_dir, f"pred_{idx}.npz")
-        np.savez(out_path, pred=pred[0], ref=y[0], input=x[0])
+        if is_primary():
+            np.savez(out_path, pred=pred[0], ref=y[0], input=x[0])
         print(f"pred_{idx}: baseline MSE {mse_base:.6e}, model MSE "
               f"{mse_pred:.6e}, improvement {factor:.2f}x")
         print("Prediction done!")
@@ -326,9 +343,10 @@ def pred_rollout(idxs, exp_name: str, model, dataset, exp_config: dict,
         out_path = os.path.join(out_dir, f"pred_{idx}.npz")
         # a guided artifact carries the guidance sequence it consumed
         extra = {"coarse": coarse[j]} if guided else {}
-        np.savez(out_path, pred=frames[j, -1][..., None],
-                 ref=fine[j, -1][..., None], input=traj[j, 0][..., None],
-                 rollout=frames[j], **extra)
+        if is_primary():
+            np.savez(out_path, pred=frames[j, -1][..., None],
+                     ref=fine[j, -1][..., None],
+                     input=traj[j, 0][..., None], rollout=frames[j], **extra)
         print(f"pred_{idx}: baseline MSE {float(mse_base_final[j]):.6e}, "
               f"model MSE {float(mse_roll_final[j]):.6e}, "
               f"improvement {factor:.2f}x")

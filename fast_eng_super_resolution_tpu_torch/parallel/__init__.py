@@ -1,2 +1,2 @@
 """Training engines, graph (``train``) and grid (``grid_train``), on one
-device (multi-device is ROADMAP.md queue A item 16)."""
+device or one rank of a data-parallel group (``mesh``)."""

@@ -10,6 +10,12 @@ the data uploaded once to the device, and the per-step losses stay on the
 device until the caller reads them.  The parameters move to and from the
 JAX package's ``{"model": ..., "proj": ...}`` tree (``GridNet``), so a
 checkpoint of either package serves on the other.
+
+Data parallelism: with a ``mesh`` of several ranks each rank steps on its
+equal block of every batch (``shard_grid_epoch``) and the gradients are
+averaged over the ranks.  The loss is a plain mean over equal blocks, so
+the average of the blocks' gradients is the batch's gradient, and every
+rank takes the single-device step on the whole batch.
 """
 
 from __future__ import annotations
@@ -21,10 +27,8 @@ import torch
 from torch import nn
 
 from ..models.common import jax_tree, linear_init, load_jax_tree
-from .train import Trainer
-
-_MULTI_DEVICE = ("multi-device grid training is not ported yet "
-                 "(ROADMAP.md queue A item 16)")
+from .mesh import Mesh, local_block
+from .train import Trainer, _all_reduce_grads
 
 
 class GridNet(nn.Module):
@@ -110,27 +114,41 @@ class GridTrainer:
         return ((self.net(x) - y) ** 2).mean()
 
     def step(self, opt: torch.optim.Optimizer, x: torch.Tensor,
-             y: torch.Tensor) -> torch.Tensor:
-        """One Adam step; returns the loss before it (a 0-d device tensor)."""
+             y: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
+        """One Adam step; returns the loss before it (a 0-d device tensor).
+        With a ``mesh``, ``x``/``y`` are this rank's equal block of the
+        batch: the gradients and the loss are averaged over the ranks."""
         opt.zero_grad(set_to_none=True)
         loss = self.loss(x, y)
         loss.backward()
+        if mesh is not None and mesh.backend is not None:
+            params = [p for p in self.net.parameters() if p.grad is not None]
+            _all_reduce_grads(params, mesh)
+            for p in params:
+                p.grad.div_(mesh.size)
+            loss = mesh.all_reduce(loss.detach(), "sum") / mesh.size
         opt.step()
         return loss.detach()
 
     def epoch(self, opt: torch.optim.Optimizer, x: torch.Tensor,
-              y: torch.Tensor, order) -> torch.Tensor:
+              y: torch.Tensor, order, mesh: Mesh | None = None
+              ) -> torch.Tensor:
         """A step per row of ``order`` ([n_batches, batch_size] sample
-        indices into the device arrays ``x``/``y``); returns the losses [S]
-        on the device."""
+        indices into the device arrays ``x``/``y``; on a ``mesh``, this
+        rank's columns); returns the losses [S] on the device."""
         order = torch.as_tensor(np.asarray(order), dtype=torch.long,
                                 device=x.device)
-        return torch.stack([self.step(opt, x[sel], y[sel]) for sel in order])
+        return torch.stack([self.step(opt, x[sel], y[sel], mesh)
+                            for sel in order])
 
     def epoch_stacked(self, opt: torch.optim.Optimizer, xb: torch.Tensor,
-                      yb: torch.Tensor) -> torch.Tensor:
-        """A step per leading index of the pre-batched [S, B, ...] arrays."""
-        return torch.stack([self.step(opt, a, b) for a, b in zip(xb, yb)])
+                      yb: torch.Tensor, mesh: Mesh | None = None
+                      ) -> torch.Tensor:
+        """A step per leading index of the pre-batched [S, B, ...] arrays
+        (on a ``mesh``, this rank's [S, B / size, ...] from
+        ``shard_grid_epoch``)."""
+        return torch.stack([self.step(opt, a, b, mesh)
+                            for a, b in zip(xb, yb)])
 
     @torch.no_grad()
     def evaluate(self, x: torch.Tensor, y: torch.Tensor) -> float:
@@ -143,5 +161,13 @@ class GridTrainer:
     set_lr = staticmethod(Trainer.set_lr)
 
 
-def shard_grid_epoch(*args, **kwargs):
-    raise NotImplementedError(_MULTI_DEVICE)
+def shard_grid_epoch(xb, yb, mesh: Mesh):
+    """This rank's block of the per-step batch axis (axis 1) of the [S, B,
+    ...] epoch arrays, on the rank's device (B must divide over the
+    ranks)."""
+    def shard(a):
+        a = torch.as_tensor(a)
+        return local_block(a.transpose(0, 1), mesh).transpose(0, 1).to(
+            mesh.device).contiguous()
+
+    return shard(xb), shard(yb)

@@ -3,7 +3,9 @@
 Mirrors the entry scripts' flow (reference run_ALDS_3D.py:10-41): build the
 scheduler, then train, or predict per sample index, reconstruct with overlap
 averaging, write ``logs/vtk/{exp}/pred_{idx}.vtu`` and print the two timing
-spans the reference prints (:19-29).
+spans the reference prints (:19-29).  Under ``torchrun`` with
+``FESR_MULTIHOST=1`` every rank trains and serves its share on its own card
+(``utils.env.maybe_init_distributed``) and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from .data.reconstruct import overlap_average
 from .data.tensorize import infer_cell_types
 from .data.vtu import write_vtu
 from .sched.scheduler import PartitionScheduler
+from .utils.env import finalize_distributed, is_primary, maybe_init_distributed
 from .utils.logging import span
 
 
@@ -100,6 +103,10 @@ def pred_graph_ALDD(idxs, exp_name: str, model, dataset, num_partitions: int,
                 ref = overlap_average([np.asarray(r) for r in ref_y_list],
                                       gids, num_nodes)
 
+        out_path = os.path.join(log_dir, "vtk", exp_name, f"pred_{idx}.vtu")
+        outputs.append(out_path)
+        if not is_primary():  # every rank holds the result; rank 0 writes
+            continue
         if smooth:
             from .data.tensorize import cells_to_edges
             from .physics.projection import smooth_with_continuity
@@ -112,9 +119,7 @@ def pred_graph_ALDD(idxs, exp_name: str, model, dataset, num_partitions: int,
             pred = np.concatenate([np.asarray(v),
                                    np.asarray(p).reshape(-1, 1)], 1)
 
-        out_dir = os.path.join(log_dir, "vtk", exp_name)
-        os.makedirs(out_dir, exist_ok=True)
-        out_path = os.path.join(out_dir, f"pred_{idx}.vtu")
+        os.makedirs(os.path.dirname(out_path), exist_ok=True)
         cells = full["cells"]
         write_vtu(out_path, full["points"], cells,
                   infer_cell_types(cells),
@@ -125,7 +130,6 @@ def pred_graph_ALDD(idxs, exp_name: str, model, dataset, num_partitions: int,
                       "interpolated_pressure": full["x"][:, 3],
                   })
         print("Prediction done!")
-        outputs.append(out_path)
     return outputs
 
 
@@ -133,20 +137,30 @@ def main(args):
     """``__main__`` body (reference run_ALDS_3D.py:44-73).
 
     Trains or serves on the exp config's ``device`` key (``cpu``), else on
-    ``cuda``.  With ``n_clusters`` != 1 the ``--encoder`` and
-    ``--classifier`` route the subdomains to that many experts.  The grid
-    models (``GRID_MODELS``) train and predict through ``grid_runner``."""
+    ``cuda``.  With ``FESR_MULTIHOST=1`` (under ``torchrun``, or with the
+    ``FESR_*`` rendezvous variables) the process first joins its group:
+    NCCL on its card, gloo with ``device: cpu``.  With ``n_clusters`` != 1
+    the ``--encoder`` and ``--classifier`` route the subdomains to that many
+    experts.  The grid models (``GRID_MODELS``) train and predict through
+    ``grid_runner``."""
+    from .utils.config import load_yaml
+
+    exp_config = load_yaml(args.exp_config)
+    joined = maybe_init_distributed(device=exp_config.get("device"))
+    try:
+        return _main(args, exp_config)
+    finally:
+        if joined:
+            finalize_distributed()
+
+
+def _main(args, exp_config: dict):
     from .data.dataset import init_dataset
     from .models.registry import GRID_MODELS, init_model
     from .sched.classifiers import init_classifier
     from .sched.encoders import init_encoder
     from .utils.config import load_yaml
 
-    if os.environ.get("FESR_MULTIHOST") == "1":
-        raise NotImplementedError(
-            "multi-device serving is not ported yet (ROADMAP.md queue A "
-            "item 16)")
-    exp_config = load_yaml(args.exp_config)
     n_clusters = exp_config["n_clusters"]
     if args.mode not in ("train", "pred", "predict"):  # README: 'predict'
         raise ValueError(f"Unknown mode: {args.mode}")

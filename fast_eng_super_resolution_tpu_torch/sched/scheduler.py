@@ -1,7 +1,9 @@
 """PartitionScheduler — the orchestration layer.
 
 Parity target: GNNPartitionScheduler (reference models/scheduler_gnn.py:
-23-469).  This port trains and serves its experts on one device:
+23-469).  The port trains and serves its experts on one device, or on each
+rank of a data-parallel group (``mesh``, one process per device as the
+reference's DDP workers, :313-469):
 
 - ``train``: 80/20 split, merged batches, the fused training layout on the
   GPU for a model with a fused form (kernels B1/B2; ``_train_layout``),
@@ -21,8 +23,14 @@ them (pred), each partition trains its own expert on its cluster, and
 ``predict`` sends each subdomain to its cluster's expert — by label groups
 through the fused layer, or through ``parallel.dispatch.routed_apply``;
 one partition is the case of a single label.
-Multi-device lanes raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+
+On a mesh of several ranks, ``train`` pads every batch to a multiple of the
+ranks and trains each rank's shard with the explicit-collective step
+(``FESR_STEP_IMPL`` unset or ``shard_map``; the plain ``apply``) or the
+fused shard step (``shard_map_fused``: B1/B2 on every rank's merged group),
+validating with the batched loss over the group; ``predict`` gives each
+rank its block of every chunk and gathers the outputs.  Rank 0 alone
+writes checkpoints, routing state, plots and metrics.
 """
 
 from __future__ import annotations
@@ -40,9 +48,13 @@ from ..core.graph import merge_batch, pad_and_bucket
 from ..models.common import with_edges_sorted
 from ..ops.loss import compute_node_weight
 from ..parallel.dispatch import routed_apply
+from ..parallel.mesh import (Mesh, local_block, make_mesh,
+                             pad_batch_to_multiple, replicate, shard_batch)
 from ..parallel.train import (CosineLR, ReduceLROnPlateau, StepLR, Trainer,
-                              make_fused_batches, train_val_split)
+                              make_fused_batches, make_fused_shard_batches,
+                              train_val_split)
 from ..utils.device import resolve_device
+from ..utils.env import is_primary
 from ..utils.logging import MetricLogger
 from .serving import ServingLanes, _as_raw_graph, edge_budget, fused_ok
 
@@ -51,7 +63,7 @@ class PartitionScheduler(ServingLanes):
     def __init__(self, exp_name: str, num_partitions: int, dataset, model=None,
                  train: bool = True, encoder=None, classifier=None,
                  log_dir: str = "logs", device=None,
-                 gemm_dtype: str = "bfloat16"):
+                 gemm_dtype: str = "bfloat16", mesh: Mesh | None = None):
         self.name = exp_name
         self.num_partitions = num_partitions
         self.model = model
@@ -59,6 +71,8 @@ class PartitionScheduler(ServingLanes):
         self.log_dir = log_dir
         self.device = resolve_device(device)
         self.gemm_dtype = gemm_dtype
+        # the process group's ranks when one is up, else this device alone
+        self.mesh = mesh if mesh is not None else make_mesh(self.device)
         self._fused_cache: dict = {}  # graph-content -> fused operands
         if num_partitions != 1:
             self.encoder = encoder
@@ -96,11 +110,14 @@ class PartitionScheduler(ServingLanes):
         data = [self.dataset.get(i) for i in range(n)]
         path = self.collection_dir()
         if train:
-            os.makedirs(path, exist_ok=True)
-            self.encoder.train(data, save_model=True, path=path)
+            # every rank fits the same state; rank 0 alone saves it
+            save = is_primary()
+            if save:
+                os.makedirs(path, exist_ok=True)
+            self.encoder.train(data, save_model=save, path=path)
             latent = self.encoder.get_latent_space(data)
             print("Latent space shape:", latent.shape)
-            self.classifier.train(latent, save_model=True, path=path)
+            self.classifier.train(latent, save_model=save, path=path)
         else:
             self.encoder.load_model(path)
             self.classifier.load_model(path)
@@ -174,7 +191,9 @@ class PartitionScheduler(ServingLanes):
 
     def _save_model(self, i: int, model, export_pth: bool = True) -> None:
         """``partition_{i}.npz`` in the JAX package's layout, and ``.pth`` in
-        the reference's."""
+        the reference's (on rank 0 alone)."""
+        if not is_primary():
+            return
         os.makedirs(self.collection_dir(), exist_ok=True)
         ckpt.save_params(self._ckpt_path(i), model.to_jax_params(),
                          meta=self._model_spec())
@@ -182,12 +201,16 @@ class PartitionScheduler(ServingLanes):
             ckpt.save_pth_state_dict(self._pth_path(i), model.export_pth())
 
     # -- batching --------------------------------------------------------
+    def _single_device(self) -> bool:
+        return self.mesh.size == 1
+
     def _make_batches(self, raw_graphs: list[dict], batch_size: int,
-                      hetero: bool = False):
-        """Chunks the subset into merged host graphs: (member indices,
-        graph), each chunk flattened into one block-diagonal graph
-        (core/graph.py:merge_batch) — the single-device layout; the
-        [B, ...] layout for a device mesh is ROADMAP.md queue A item 16.
+                      hetero: bool = False, merged: bool = True):
+        """Chunks the subset into host graphs: (member indices, graph), each
+        chunk flattened into one block-diagonal graph
+        (core/graph.py:merge_batch) — the single-device layout — or, with
+        ``merged=False``, kept as a [B, ...] batch whose leading axis
+        shards over a mesh.
 
         hetero=True sorts the graphs by node count and pads each batch only
         to its own bucket (``hetero_batches: true`` in the train config), so
@@ -202,14 +225,16 @@ class PartitionScheduler(ServingLanes):
                 sel = order[start:start + batch_size]
                 (_, _, chunk), = pad_and_bucket([raw_graphs[i] for i in sel],
                                                 uniform=True)
-                batches.append((sel, merge_batch(chunk)[0]))
+                batches.append((sel, merge_batch(chunk)[0] if merged
+                                else chunk))
             return batches
         (_, idxs, big_batch), = pad_and_bucket(raw_graphs, uniform=True)
         batches = []
         for start in range(0, len(idxs), batch_size):
             sl = slice(start, start + batch_size)
+            chunk = big_batch.map(lambda a: a[sl])
             batches.append((idxs[sl],
-                            merge_batch(big_batch.map(lambda a: a[sl]))[0]))
+                            merge_batch(chunk)[0] if merged else chunk))
         return batches
 
     # -- training --------------------------------------------------------
@@ -226,13 +251,19 @@ class PartitionScheduler(ServingLanes):
         ``subset_idx`` holds real partition ids (checkpoints, loggers and
         seeds are keyed by them).  ``layout``: 'fused' (kernels B1/B2 on
         CUDA, their plain versions on the CPU) or 'merged'; by default
-        ``_train_layout``'s choice.  With ``FESR_PLOT_VAL`` set, each new
-        best validation epoch writes a PNG of the first validation batch's
+        ``_train_layout``'s choice.  On a mesh of several ranks the layout
+        is the sharded step's instead, which ``FESR_STEP_IMPL`` picks
+        (``_shard_impl``).  With ``FESR_PLOT_VAL`` set, each new best
+        validation epoch writes a PNG of the first validation batch's
         prediction under ``logs/figures/{exp}``.
         """
         part_ids = (range(len(self.subset_indices)) if subset_idx is None
                     else [int(i) for i in subset_idx])
-        layout = layout or _train_layout(self.model, self.device)
+        multi = not self._single_device()
+        if multi:
+            layout = _shard_impl(self.model)
+        else:
+            layout = layout or _train_layout(self.model, self.device)
         pretrained = self._load_models() if start_from_pretrained else None
         dev = self.device
 
@@ -259,11 +290,16 @@ class PartitionScheduler(ServingLanes):
             batch_size = max(1, min(train_config["batch_size"], len(tr_idx)))
             hetero = bool(train_config.get("hetero_batches", False))
             train_batches = self._make_batches([raw[j] for j in tr_idx],
-                                               batch_size, hetero=hetero)
+                                               batch_size, hetero=hetero,
+                                               merged=not multi)
             val_batches = self._make_batches([raw[j] for j in va_idx],
-                                             batch_size, hetero=hetero)
+                                             batch_size, hetero=hetero,
+                                             merged=not multi)
             fused_kw = {}
-            if layout == "fused":
+            if multi:
+                # the group's val loss is the batched loss of its shards
+                fused_kw = dict(fused_dtype=self.gemm_dtype)
+            elif layout == "fused":
                 # one block geometry across ALL this partition's batches
                 both = train_batches + val_batches
                 fbs, rows_blk, blk = make_fused_batches(
@@ -279,8 +315,14 @@ class PartitionScheduler(ServingLanes):
                 val_batches = [(bidx, g.to_torch(dev))
                                for bidx, g in val_batches]
 
-            trainer = Trainer(model, lr=train_config["lr"], layout=layout,
+            trainer = Trainer(model, lr=train_config["lr"],
+                              layout="batched" if multi else layout,
                               **fused_kw)
+            step, mesh = None, None
+            if multi:
+                mesh = self.mesh
+                train_batches, val_batches, step = self._shard_batches(
+                    trainer, layout, train_batches, val_batches)
             opt = trainer.init(seed + i)
             if pretrained is not None and i < len(pretrained):
                 model.load_state_dict(pretrained[i].state_dict())
@@ -298,6 +340,7 @@ class PartitionScheduler(ServingLanes):
                 resumed_best = float(extra.get("best_loss", np.inf))
                 print(f"Resuming partition {i} from epoch {start_epoch} "
                       f"(best val {resumed_best:g})")
+            replicate(model, self.mesh)  # rank 0's weights on every rank
 
             schedule_name = train_config.get("lr_schedule", lr_schedule)
             if schedule_name == "plateau":
@@ -322,7 +365,8 @@ class PartitionScheduler(ServingLanes):
             batches = [b for _, b in train_batches]
             for epoch in range(start_epoch, epochs):
                 order = rng.permutation(len(batches))
-                train_loss = float(trainer.epoch(opt, batches, order).mean())
+                train_loss = float(trainer.epoch(opt, batches, order,
+                                                 step).mean())
                 if not np.isfinite(train_loss):
                     # NaN guard: roll back to the last finite params and
                     # halve the LR (the reference has none)
@@ -337,16 +381,17 @@ class PartitionScheduler(ServingLanes):
                 if epoch % log_interval == 0:
                     print(f"Epoch {epoch}: Train loss: {train_loss}")
                 if epoch % val_interval == 0:
-                    val_loss = float(np.mean([trainer.evaluate(b)
+                    val_loss = float(np.mean([trainer.evaluate(b, mesh)
                                               for _, b in val_batches]))
                     logger.log({"val_loss": val_loss}, step=epoch)
                     if val_loss < best_loss:
                         best_loss = val_loss
                         self._save_model(i, model)
-                        ckpt.save_tree(self._state_path(i),
-                                       trainer.state_tree(opt),
-                                       extra={"epoch": epoch,
-                                              "best_loss": best_loss})
+                        if is_primary():
+                            ckpt.save_tree(self._state_path(i),
+                                           trainer.state_tree(opt),
+                                           extra={"epoch": epoch,
+                                                  "best_loss": best_loss})
                         print(f"Epoch {epoch}: Validation loss: {val_loss}")
                         self._maybe_plot_val(trainer, val_batches, i, epoch)
                 if schedule_name == "plateau":
@@ -357,8 +402,42 @@ class PartitionScheduler(ServingLanes):
             if not np.isfinite(best_loss):
                 self._save_model(i, model)
             logger.finish()
+        self.mesh.barrier()  # rank 0's checkpoints are written
         self.experts = self._load_models()
         return self.experts
+
+    def _shard_batches(self, trainer: Trainer, impl: str, train_batches,
+                       val_batches):
+        """The mesh's form of a partition's batches and its train step:
+        each [B, ...] host batch padded to a multiple of the ranks (masked
+        copies of its first graph) and this rank's block uploaded, with the
+        explicit-collective step; or, for ``impl`` 'fused', this rank's
+        merged group of each training batch, at one block geometry across
+        the batches, with the fused shard step.  Returns (train, val,
+        step)."""
+        mesh = self.mesh
+
+        def padded(batches):
+            return [(bidx, pad_batch_to_multiple(b, mesh.size)[0])
+                    for bidx, b in batches]
+
+        train_batches, val_batches = padded(train_batches), padded(val_batches)
+        val = [(bidx, shard_batch(b, mesh)) for bidx, b in val_batches]
+        if impl != "fused":
+            return ([(bidx, shard_batch(b, mesh)) for bidx, b in train_batches],
+                    val, trainer.make_shard_map_step(mesh))
+
+        def build(quantum):
+            return [(bidx, *make_fused_shard_batches(
+                b, trainer.model, mesh.size, quantum=quantum,
+                expand_s=False, mesh=mesh)) for bidx, b in train_batches]
+
+        built = build(256)
+        blk = max(bk for *_, bk in built)
+        if any(bk != blk for *_, bk in built):
+            built = build(blk)
+        return ([(bidx, fb) for bidx, fb, _, _ in built], val,
+                trainer.make_fused_shard_map_step(mesh, 64, blk))
 
     def _maybe_plot_val(self, trainer, val_batches, partition: int,
                         epoch: int) -> None:
@@ -366,7 +445,7 @@ class PartitionScheduler(ServingLanes):
         wandb; here PNGs under ``logs/figures/{exp}``), with
         ``FESR_PLOT_VAL`` set.  A failed plot (matplotlib missing, say) is
         printed and training goes on, as in the JAX package."""
-        if not os.environ.get("FESR_PLOT_VAL"):
+        if not os.environ.get("FESR_PLOT_VAL") or not is_primary():
             return
         try:
             from ..utils.plotting import plot_3d_prediction
@@ -377,6 +456,8 @@ class PartitionScheduler(ServingLanes):
             graph = batch["graph"] if isinstance(batch, dict) else batch
             pos, x, y = (graph.pos.cpu().numpy(), graph.x.cpu().numpy(),
                          graph.y.cpu().numpy())
+            if pred.ndim == 3:  # a batched shard: its first graph
+                pos, x, y, pred = pos[0], x[0], y[0], pred[0]
             plot_3d_prediction(
                 pos, x, y, pred, save_mode="save_png",
                 path=os.path.join(self.log_dir, "figures", self.name,
@@ -400,7 +481,9 @@ class PartitionScheduler(ServingLanes):
         the chunk shape by repeating its last subdomain, whose copies are
         dropped on write-back.  A chunk runs through its expert's fused
         layer, or, with ``FESR_FUSED_PREDICT=0``, through ``routed_apply``
-        (the plain ``apply``).
+        (the plain ``apply``).  On a mesh of several ranks ``chunk_b`` is a
+        multiple of the ranks, each rank runs its block of every chunk, and
+        the blocks are gathered, so every rank returns the whole result.
         """
         raw = [_as_raw_graph(d) for d in x]
         n_real = [g["x"].shape[0] for g in raw]
@@ -439,9 +522,12 @@ class PartitionScheduler(ServingLanes):
                                       ).reshape(b, n, -1)
 
         lab = labels[idxs]
-        # chunk to an edge budget (bounds the per-dispatch transients)
+        mesh = self.mesh
+        # chunk to an edge budget (bounds the per-dispatch transients); on
+        # a mesh, to a multiple of the ranks
         chunk_b = max(1, min(len(idxs),
                              edge_budget() // max(batch.senders.shape[1], 1)))
+        chunk_b = max(mesh.size, chunk_b // mesh.size * mesh.size)
         outs, rows = [], []
         for k in range(self.num_partitions):
             sel = np.flatnonzero(lab == k)
@@ -450,15 +536,17 @@ class PartitionScheduler(ServingLanes):
                 real = len(idx)
                 idx = np.concatenate([idx,
                                       np.repeat(idx[-1:], chunk_b - real)])
+                mine = local_block(idx, mesh)  # this rank's block
                 if use_fused:
                     ck = (mesh_hex, "r", k, start,
-                          hashlib.blake2b(idx.tobytes(),
+                          hashlib.blake2b(mine.tobytes(),
                                           digest_size=8).hexdigest())
-                    out = fused_expert(self.experts[k], idx, ck)
+                    out = fused_expert(self.experts[k], mine, ck)
                 else:
-                    idx_t = torch.as_tensor(idx, device=dev)
-                    out = routed_apply(plain_experts, lab[idx],
+                    idx_t = torch.as_tensor(mine, device=dev)
+                    out = routed_apply(plain_experts, lab[mine],
                                        g.map(lambda a: a[idx_t]))
+                out = mesh.all_gather(out)
                 outs.append(out[:real])
                 rows.append(idx[:real])
         # every subdomain sits in exactly one chunk: one scatter back
@@ -491,6 +579,23 @@ def _train_layout(model, device: torch.device) -> str:
                          getattr(model, "fused_ok", True))
              and os.environ.get("FESR_FUSED_TRAIN", "1") != "0")
     return "fused" if fused else "merged"
+
+
+def _shard_impl(model) -> str:
+    """The sharded training step on a mesh of several ranks, by
+    ``FESR_STEP_IMPL``: 'fused' for ``shard_map_fused`` where the model has
+    a differentiable fused form whose ``fused_train_ok`` (else
+    ``fused_ok``) holds (the JAX package's gate), else 'batched', the
+    explicit-collective step (unset or ``shard_map``; the JAX package's
+    default GSPMD step computes the same)."""
+    impl = os.environ.get("FESR_STEP_IMPL", "shard_map")
+    if impl not in ("shard_map", "shard_map_fused"):
+        raise ValueError(f"FESR_STEP_IMPL={impl!r} (expected shard_map | "
+                         "shard_map_fused)")
+    fused = (impl == "shard_map_fused" and hasattr(model, "apply_fused_ad")
+             and getattr(model, "fused_train_ok",
+                         getattr(model, "fused_ok", True)))
+    return "fused" if fused else "batched"
 
 
 def _snapshot(model) -> dict:

@@ -1,12 +1,15 @@
 """Serving lanes for PartitionScheduler: the ordered lane-selection table, the
 single-expert fused lane (``predict_full``), the coalesced lane for R
 requests on one geometry (``predict_full_batch``), the routed lane for
-several experts, and the raw-geometry operand cache they share with the
-general ``predict`` path.
+several experts, their data-parallel forms ``fast_mc`` and ``routed_mc`` on
+a mesh of several ranks, and the raw-geometry operand cache they share with
+the general ``predict`` path.
 
 Reference analog: the inference half of GNNPartitionScheduler
-(scheduler_gnn.py:204-347).  The JAX package's multi-device lanes
-(``fast_mc``, ``routed_mc``) are ROADMAP.md queue A item 16.
+(scheduler_gnn.py:204-347), whose multi-GPU worker splits the subdomains
+over the ranks and merges on the host (:253-291, 313-347).  On a mesh each
+rank serves its block of the request's subdomains, and one all-reduce of
+the partial overlap sums completes the reconstruction on every rank.
 
 The lanes run on the scheduler's device: on ``cuda`` every layer launches
 the fused edge-conv kernel, on an explicit ``cpu`` its plain version.
@@ -24,6 +27,7 @@ import torch
 
 from ..core.graph import BucketSpec, merge_batch, pad_and_bucket
 from ..ops.segment import masked_segment_sum
+from ..parallel.mesh import local_block, pad_batch_to_multiple
 
 
 def _as_raw_graph(d: dict) -> dict:
@@ -47,8 +51,9 @@ def edge_budget() -> int:
 
 class ServingLanes:
     """Mixin: serving-lane methods for PartitionScheduler.  Expects the host
-    class to provide model/experts/num_partitions/device/gemm_dtype,
-    ``_route`` (each subdomain's expert) and the ``_fused_cache`` dict."""
+    class to provide model/experts/num_partitions/device/gemm_dtype/mesh,
+    ``_single_device``, ``_route`` (each subdomain's expert) and the
+    ``_fused_cache`` dict."""
 
     # -- serving caches ---------------------------------------------------
     @staticmethod
@@ -110,11 +115,13 @@ class ServingLanes:
 
         Returns (lane, reason): 'general' = caller falls back to ``predict``
         + host overlap_average; 'routed' = multi-expert lane; 'fast' =
-        single-expert fused one-dispatch lane.  The size gates inside the
-        lanes may still demote to 'general' — they call _note_lane with their
-        own reason.  The routed lane runs the fused layer too, so a model
-        without one serves routed requests through ``predict`` (the JAX
-        package's routed lane runs the plain ``apply`` and takes it).
+        single-expert fused one-dispatch lane; on a mesh of several ranks
+        'routed_mc' and 'fast_mc', their data-parallel forms.  The size
+        gates inside the lanes may still demote to 'general' — they call
+        _note_lane with their own reason.  The routed lanes run the fused
+        layer too, so a model without one serves routed requests through
+        ``predict`` (the JAX package's routed lanes run the plain ``apply``
+        and take them).
         """
         checks = [
             ("fused predict disabled (FESR_FUSED_PREDICT=0)",
@@ -127,6 +134,15 @@ class ServingLanes:
         for reason, ok in checks:
             if not ok:
                 return "general", reason
+        if not self._single_device():
+            n_dev = self.mesh.size
+            if not fused_ok(self.model):
+                return "general", ("multi-device mesh: non-fused requests "
+                                   "serve through predict")
+            if self.num_partitions > 1:
+                return "routed_mc", (f"{self.num_partitions} experts x "
+                                     f"{n_dev} devices, routed lane")
+            return "fast_mc", f"{n_dev}-device fused lane"
         if not fused_ok(self.model):
             return "general", "model has no fused kernel"
         if self.num_partitions > 1:
@@ -158,6 +174,12 @@ class ServingLanes:
         assignment; a CUDA kernel compiles once.  The math is the same conv
         and the same exact segment mean.
 
+        On a mesh of several ranks ('fast_mc', 'routed_mc') the request's
+        subdomains are padded to a multiple of the ranks (masked graphs
+        that add nothing) and each rank serves its block the same way; the
+        edge budget is per rank, and one all-reduce of the partial sums
+        gives every rank the whole reconstruction.
+
         Returns (pred_full, ref_full) [num_nodes, C] numpy, or None when the
         lane's preconditions don't hold (caller falls back to ``predict`` +
         host ``overlap_average``; same math either way — the reconstruction
@@ -170,22 +192,30 @@ class ServingLanes:
             return None
         raw = [_as_raw_graph(d) for d in x]
         b, n_pad, e_pad = self._request_shape(raw)
-        budget = edge_budget()
+        n_dev = self.mesh.size
+        budget = edge_budget() * n_dev  # per device
         if b * e_pad > budget:
             # big meshes chunk through the general path
-            self._note_lane("general", (
-                "routed lane demoted (edge budget)" if lane == "routed"
-                else f"edge budget exceeded ({b * e_pad} > {budget})"))
+            self._note_lane("general", {
+                "routed": "routed lane demoted (edge budget)",
+                "fast": f"edge budget exceeded ({b * e_pad} > {budget})",
+                "fast_mc": "multi-chip lane demoted (edge budget: "
+                           f"{b * e_pad} > {budget})",
+                "routed_mc": "routed multi-chip lane demoted (edge budget: "
+                             f"{b * e_pad} > {budget})"}[lane])
             return None
         # routing is payload-dependent: computed per request on the host
         groups, gid, w = self._request_operands(raw, self._route(x),
                                                 num_nodes, n_pad, e_pad)
-        xm, ym = self._pack_full_payload(raw, b, n_pad)
+        b_pad = -(-b // n_dev) * n_dev
+        xm, ym = self._pack_full_payload(raw, b_pad, n_pad)
+        xm, ym = (local_block(a.reshape(b_pad, n_pad, -1), self.mesh)
+                  for a in (xm, ym))
         dev = self.device
-        xb = torch.as_tensor(xm, device=dev).reshape(b, n_pad, -1)
-        return _fetch(self._serve_body(groups, xb,
-                                       torch.as_tensor(ym, device=dev), gid,
-                                       w, num_nodes))
+        xb = torch.as_tensor(xm, device=dev)
+        return _fetch(self._serve_body(
+            groups, xb, torch.as_tensor(ym, device=dev).reshape(
+                -1, ym.shape[-1]), gid, w, num_nodes))
 
     def _request_operands(self, raw, labels: np.ndarray, num_nodes: int,
                           n_pad: int, e_pad: int):
@@ -194,13 +224,22 @@ class ServingLanes:
         node/edge counts are part of the identity — and the label
         assignment: per label present, (label, its subdomains' batch
         positions or None for the whole request, the fused operands of
-        their merged graph), then the reconstruction operands."""
-        b = len(raw)
+        their merged graph), then the reconstruction operands.  On a mesh,
+        those of this rank's block of the request padded to a multiple of
+        the ranks (padding graphs take label 0 and weight 0)."""
+        mesh = self.mesh
         key = ("full", self._hash_geometry(raw, with_gids=True), num_nodes,
-               b * n_pad, e_pad, labels.tobytes())
+               len(raw) * n_pad, e_pad, labels.tobytes(), mesh.rank,
+               mesh.size)
         entry = self._fused_cache.get(key)
         if entry is None:
             (_, _, batch), = pad_and_bucket(raw, uniform=True)
+            if mesh.size > 1:
+                batch, _ = pad_batch_to_multiple(batch, mesh.size)
+                labels = np.concatenate([labels, np.zeros(
+                    batch.x.shape[0] - len(labels), labels.dtype)])
+                batch, labels = local_block((batch, labels), mesh)
+            b = batch.x.shape[0]
             whole, _ = merge_batch(batch)
             groups, nbytes = [], 0
             for k in np.unique(labels):
@@ -304,7 +343,8 @@ class ServingLanes:
 
     def _serve_body(self, groups, xb, ym, gid, w, num_nodes):
         """Each label group's fused forward over the payload ``xb``
-        [B, n_pad, C], then the weighted segment-mean reconstruction."""
+        [B, n_pad, C], then the weighted segment-mean reconstruction (over
+        the mesh's ranks, whose payloads are their blocks)."""
         b, n_pad, c_in = xb.shape
         pred = None
         for k, idx, (ea_b, sp, sm, rows_blk, blk) in groups:
@@ -319,17 +359,22 @@ class ServingLanes:
                 pred = out.new_zeros((b, n_pad, out.shape[-1]))
             pred[idx] = out.reshape(len(idx), n_pad, -1)
         return self._reconstruct(pred.reshape(b * n_pad, -1), ym, gid, w,
-                                 num_nodes)
+                                 num_nodes, self.mesh)
 
     @staticmethod
-    def _reconstruct(pred, ym, gid, w, num_nodes):
+    def _reconstruct(pred, ym, gid, w, num_nodes, mesh=None):
         """Weighted segment mean of the merged rows ``pred`` and ``ym`` over
-        global node ids.  ``w`` is the 0/1 real-node mask, so the ``1e-30``
-        floor only keeps uncovered nodes (sum 0) at 0/1e-30 = 0."""
+        global node ids; with a ``mesh``, of every rank's rows (the partial
+        sums all-reduced).  ``w`` is the 0/1 real-node mask, so the
+        ``1e-30`` floor only keeps uncovered nodes (sum 0) at 0/1e-30 = 0."""
         wc = w[:, None]
-        accp = masked_segment_sum(pred * wc, gid, num_nodes + 1)
-        accr = masked_segment_sum(ym * wc, gid, num_nodes + 1)
-        ws = torch.clamp(masked_segment_sum(w, gid, num_nodes + 1), min=1e-30)
+        acc = masked_segment_sum(torch.cat([pred * wc, ym * wc, wc], 1), gid,
+                                 num_nodes + 1)
+        if mesh is not None:
+            acc = mesh.all_reduce(acc, "sum")
+        c = pred.shape[1]
+        accp, accr = acc[:, :c], acc[:, c:-1]
+        ws = torch.clamp(acc[:, -1], min=1e-30)
         pred_o = accp[:num_nodes] / ws[:num_nodes, None]
         ref_o = accr[:num_nodes] / ws[:num_nodes, None]
         if pred_o.shape == ref_o.shape:

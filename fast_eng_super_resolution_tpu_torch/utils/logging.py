@@ -15,16 +15,24 @@ import os
 import time
 from contextlib import contextmanager
 
+from .env import is_primary
+
 
 class MetricLogger:
+    """Appends metrics to ``{log_dir}/metrics/{exp_name}.jsonl``; in a
+    process group only rank 0 writes (the others log nothing)."""
+
     def __init__(self, exp_name: str, log_dir: str = "logs",
                  use_wandb: bool | None = None, config: dict | None = None):
         self.exp_name = exp_name
         self.path = os.path.join(log_dir, "metrics", f"{exp_name}.jsonl")
-        os.makedirs(os.path.dirname(self.path), exist_ok=True)
-        self._f = open(self.path, "a")
+        self._f = None
         self.step = 0
         self._wandb = None
+        if not is_primary():
+            return
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self._f = open(self.path, "a")
         if use_wandb is None:
             use_wandb = bool(os.environ.get("WANDB_API_KEY"))
         if use_wandb:
@@ -40,16 +48,19 @@ class MetricLogger:
     def log(self, metrics: dict, step: int | None = None):
         rec = {"ts": time.time(), "step": self.step if step is None else step,
                **{k: float(v) for k, v in metrics.items()}}
+        self.step = rec["step"] + 1
+        if self._f is None:
+            return
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
-        self.step = rec["step"] + 1
         if self._wandb is not None:
             # explicit step: wandb's auto-increment counts calls, which
             # diverges from the epoch when val logs less often than train
             self._wandb.log(metrics, step=int(rec["step"]))
 
     def finish(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
         if self._wandb is not None:
             self._wandb.finish()
 

@@ -30,6 +30,7 @@ from fast_eng_super_resolution_tpu_torch.models import deeponet, fno
 from fast_eng_super_resolution_tpu_torch.models.registry import init_model
 from fast_eng_super_resolution_tpu_torch.parallel import grid_train
 from fast_eng_super_resolution_tpu_torch.parallel.grid_train import GridTrainer
+from fast_eng_super_resolution_tpu_torch.parallel.mesh import make_mesh
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -280,8 +281,12 @@ def test_registry_grid_entries():
                                                      jm.hidden_dim)
     assert (init_model("graphsage", 4, 4, width=8).num_layers
             == jinit_model("graphsage", 4, 4, width=8).num_layers == 5)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        grid_train.shard_grid_epoch(None, None, None)
+    # shard_grid_epoch on a one-device mesh keeps the whole per-step batch
+    # (the data-parallel epoch across ranks: test_torch_multidevice.py)
+    xb = np.arange(2 * 4 * 3, dtype=np.float32).reshape(2, 4, 3)
+    xs, ys = grid_train.shard_grid_epoch(xb, xb + 1, make_mesh("cpu"))
+    assert np.array_equal(xs.numpy(), xb) and np.array_equal(ys.numpy(),
+                                                             xb + 1)
 
 
 @pytest.mark.parametrize("proj", [True, False])

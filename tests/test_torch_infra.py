@@ -27,6 +27,7 @@ from fast_eng_super_resolution_tpu_torch.models.kernelnn import KernelNN
 from fast_eng_super_resolution_tpu_torch.models.registry import init_model
 from fast_eng_super_resolution_tpu_torch.models.teecnet import TEECNet
 from fast_eng_super_resolution_tpu_torch.ops import interpolate
+from fast_eng_super_resolution_tpu_torch.parallel.mesh import make_mesh
 from fast_eng_super_resolution_tpu_torch.sched.scheduler import (
     PartitionScheduler, _train_layout)
 from fast_eng_super_resolution_tpu_torch.utils import mesh_io, tracing
@@ -78,8 +79,13 @@ def test_prefetch_to_device_order_bits_and_device():
         assert np.array_equal(g["x"].numpy(), h["x"])
         assert np.array_equal(g["ids"].numpy(), h["ids"])
         assert g["meta"] == h["meta"]
-    with pytest.raises(NotImplementedError, match="item 16"):
-        next(pipeline.prefetch_to_device(iter(host), sharding=object()))
+    # over a one-device mesh: the whole batch on the mesh's device (a
+    # rank's block of a group's batch: test_torch_multidevice.py)
+    got = list(pipeline.prefetch_to_device(iter(host),
+                                           sharding=make_mesh("cpu")))
+    assert [g["ids"].tolist() for g in got] == [h["ids"].tolist()
+                                                for h in host]
+    assert got[0]["x"].device == CPU
 
 
 def test_prefetch_default_device_is_cuda(monkeypatch):

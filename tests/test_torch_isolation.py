@@ -74,6 +74,10 @@ assert torch.equal(got[0]["x"], torch.ones(2, dtype=torch.float64))
 from fast_eng_super_resolution_tpu_torch.utils import tracing
 with tracing.trace_dir("t"), tracing.annotate("a"):
     pass
+# the multi-device helpers: without a process group, one device
+from fast_eng_super_resolution_tpu_torch.parallel.mesh import make_mesh
+from fast_eng_super_resolution_tpu_torch.utils.env import maybe_init_distributed
+assert make_mesh("cpu").size == 1 and maybe_init_distributed() is False
 print("imported", len(names), "modules")
 """
 

@@ -25,11 +25,13 @@ from fast_eng_super_resolution_tpu.models.kernelnn import KernelNN as JKernelNN
 from fast_eng_super_resolution_tpu.parallel import train as jtrain
 from fast_eng_super_resolution_tpu.sched.scheduler import PartitionScheduler as JSched
 from fast_eng_super_resolution_tpu_torch.core import checkpoint as tckpt
+from fast_eng_super_resolution_tpu_torch.core import graph as tgraph
 from fast_eng_super_resolution_tpu_torch.core.graph import Graph
 from fast_eng_super_resolution_tpu_torch.data.dataset import SyntheticDataset
 from fast_eng_super_resolution_tpu_torch.models.kernelnn import KernelNN
 from fast_eng_super_resolution_tpu_torch.models.registry import init_model
 from fast_eng_super_resolution_tpu_torch.parallel import train as ttrain
+from fast_eng_super_resolution_tpu_torch.parallel.mesh import make_mesh
 from fast_eng_super_resolution_tpu_torch.sched.scheduler import PartitionScheduler
 
 CFG = dict(width=12, ker_width=8, depth=2, ker_in=1, in_width=4, out_width=4)
@@ -166,14 +168,59 @@ def test_schedules_and_split_match_jax(seed):
 
 
 def test_multi_device_layouts_raise():
-    model = KernelNN(**CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttrain.Trainer(model, lr=1e-3, layout="batched")
-    trainer = ttrain.Trainer(model, lr=1e-3)
-    for fn in (trainer.make_shard_map_step, trainer.make_fused_shard_map_step,
-               ttrain.make_fused_shard_batches, ttrain.stack_batches):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn()
+    """The multi-device layouts, which raised until they were ported, run:
+    on a one-device mesh the 'batched' layout and the explicit-collective
+    step equal the merged step, the fused shard step equals the fused step,
+    and an epoch over ``stack_batches``' stack equals one over the list
+    (float32); an unknown layout raises.  Across ranks and against the JAX
+    package: tests/test_torch_mesh.py and tests/test_torch_multidevice.py."""
+    s = make_sample_pair(n_high=(10, 5, 5), n_low=(6, 3, 3), seed=0)
+    subs = extract_subdomains(s["pos"], s["mesh"].cells, s["x"], s["y"], 2,
+                              "all_intersecting")
+    (_, _, batch), = tgraph.pad_and_bucket([dict(
+        x=g.x, y=g.y, pos=g.pos, senders=g.senders, receivers=g.receivers,
+        edge_attr=g.edge_attr, global_ids=g.global_node_ids) for g in subs])
+    merged, _ = tgraph.merge_batch(batch)
+    mesh = make_mesh("cpu")
+    with pytest.raises(ValueError, match="unknown layout"):
+        ttrain.Trainer(KernelNN(**CFG), lr=1e-3, layout="sharded")
+
+    def run(layout, step_of, data, **kw):
+        tr = ttrain.Trainer(KernelNN(**CFG), lr=1e-3, layout=layout,
+                            fused_dtype="float32", **kw)
+        opt = tr.init(0)
+        losses = [float(step_of(tr)(opt, data)) for _ in range(2)]
+        return losses, torch.cat([p.detach().reshape(-1)
+                                  for p in tr.model.parameters()])
+
+    ref = run("merged", lambda tr: tr.step, merged.to_torch("cpu"))
+    for got in (run("batched", lambda tr: tr.step, batch.to_torch("cpu")),
+                run("batched", lambda tr: tr.make_shard_map_step(mesh),
+                    batch.to_torch("cpu"))):
+        np.testing.assert_allclose(got[0], ref[0], rtol=1e-6)
+        torch.testing.assert_close(got[1], ref[1], rtol=1e-6, atol=1e-7)
+
+    fb, rb, blk = ttrain.make_fused_batch(merged, KernelNN(**CFG),
+                                          rows_blk=ROWS_BLK, device="cpu")
+    sb, rb2, blk2 = ttrain.make_fused_shard_batches(
+        batch, KernelNN(**CFG), 1, rows_blk=ROWS_BLK, device="cpu")
+    assert (rb2, blk2) == (rb, blk)
+    ref = run("fused", lambda tr: tr.step, fb, fused_rows_blk=rb,
+              fused_blk=blk)
+    got = run("batched",
+              lambda tr: tr.make_fused_shard_map_step(mesh, rb, blk), sb)
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-6)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-6, atol=1e-7)
+
+    g = merged.to_torch("cpu")
+    stacked = ttrain.stack_batches([merged, merged], device="cpu")
+    assert stacked.x.shape == (2,) + tuple(g.x.shape)
+    epochs = []
+    for batches in ([g, g], stacked):
+        tr = ttrain.Trainer(KernelNN(**CFG), lr=1e-3)
+        opt = tr.init(0)
+        epochs.append(tr.epoch(opt, batches, [1, 0]).numpy())
+    np.testing.assert_array_equal(epochs[0], epochs[1])
 
 
 @pytest.fixture(scope="module")
