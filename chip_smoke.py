@@ -223,6 +223,22 @@ Phases 20-23 launch no B1-B5 but the traced request's B1 (8 launches).
              explicit-collective step run over that NCCL group against the
              single-device steps.  Two ranks on one card say nothing about
              scaling across cards.
+25. closing — conv mode 'edge' and the hand-written loss backward
+             (``[closing]`` lines).  The full path's KernelNN and the
+             teecnet path's TEECNet serve full mesh 0 in 'edge' and in
+             'edge3d' through the general lane (float32): the fields agree
+             within 1e-4 of the max, B1-B5 launched 0 times, each mode's
+             warm request time; three merged float32 train steps of
+             KernelNN in 'edge' on the small mesh, card against CPU.
+             ``FESR_LOSS_VJP=custom``: ``gradient_weight_scalar`` on the
+             full request's chunk against autograd on the card (value 1e-4,
+             gradients 1e-5 in relative L2) with each one's forward +
+             backward ms; three fused float32 train steps of the 12
+             training subdomains with it against the same steps without it
+             (B1 and B2 launched 4 times per step in each), and the same
+             custom steps merged on the CPU against the card's.  One
+             ``make_fused_shard_batches`` under ``FESR_TIMING=1`` prints its
+             ``[fesr-timing]`` line.
 
 The second-to-last line is a JSON object with the kernels' numbers, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -231,6 +247,7 @@ The second-to-last line is a JSON object with the kernels' numbers, the last
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -254,6 +271,7 @@ from fast_eng_super_resolution_tpu_torch.models.kernelnn import KernelNN  # noqa
 from fast_eng_super_resolution_tpu_torch.models.registry import init_model  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.models.teecnet import TEECNet, _leaky_relu  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.ops import fused_conv, pallas_mp  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.ops.loss import gradient_weight_scalar  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.ops.message_passing import apply_edge_mlp_hidden  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.physics import amg as pamg  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.physics import divergence as pdiv  # noqa: E402
@@ -421,6 +439,22 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+@contextlib.contextmanager
+def env_set(name: str, value):
+    """Environment variable ``name`` set to ``str(value)`` while the block
+    runs (``None``: left as it is)."""
+    saved = os.environ.get(name)
+    if value is not None:
+        os.environ[name] = str(value)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
@@ -459,15 +493,16 @@ def make_model(cfg: dict):
                       **{k: cfg[k] for k in ("width", "num_layers")})
 
 
-def make_pallas_model(cfg: dict):
-    """The model of ``cfg`` in conv mode 'pallas': the mode is a constructor
-    argument (never read from a config), so the model is built directly."""
+def make_mode_model(cfg: dict, mode: str):
+    """The seeded model of ``cfg`` in conv mode ``mode``: the mode is a
+    constructor argument (never read from a config), so the model is built
+    directly."""
     if cfg["model"] == "teecnet":
         return TEECNet(cfg["in_channels"], cfg["width"], cfg["out_channels"],
-                       cfg["num_layers"], mode="pallas", seed=SEED)
+                       cfg["num_layers"], mode=mode, seed=SEED)
     w = cfg["width"]
     return KernelNN(w, w, cfg["num_layers"], in_width=cfg["in_channels"],
-                    out_width=cfg["out_channels"], mode="pallas", seed=SEED)
+                    out_width=cfg["out_channels"], mode=mode, seed=SEED)
 
 
 def conv_parts(model):
@@ -528,16 +563,21 @@ def write_checkpoint(log_dir: str, exp: str, cfg: dict):
     return model
 
 
-def chunk_operands(dataset, model, device, idx=None):
-    """The first serving chunk of mesh 0 (the scheduler's chunking), or its
-    subdomains ``idx`` (a routed chunk), and the first layer's fused
-    operands on ``device``."""
+def request_chunk(dataset, idx=None):
+    """(the first serving chunk of mesh 0 (the scheduler's chunking), or its
+    subdomains ``idx``, merged into one host graph; its subdomain count)."""
     raw = [_as_raw_graph(d) for d in dataset.get_one_full_sample(0)]
     (_, _, batch), = pad_and_bucket(raw, uniform=True)
     if idx is None:
         idx = np.arange(max(1, edge_budget() // batch.senders.shape[1]))
-    chunk = batch.map(lambda a: a[idx])
-    merged, _ = merge_batch(chunk)
+    return merge_batch(batch.map(lambda a: a[idx]))[0], len(idx)
+
+
+def chunk_operands(dataset, model, device, idx=None):
+    """The first serving chunk of mesh 0 (the scheduler's chunking), or its
+    subdomains ``idx`` (a routed chunk), and the first layer's fused
+    operands on ``device``."""
+    merged, n_sub = request_chunk(dataset, idx)
     ea_b, sp, sm, rows_blk, blk = model.prepare_fused(
         merged.senders, merged.receivers, merged.edge_attr,
         merged.x.shape[0], merged.edge_mask, compact=True)
@@ -556,7 +596,7 @@ def chunk_operands(dataset, model, device, idx=None):
         msg = (hid, xl[src].contiguous(), w3, b3)
     return dict(h=h_e, x=x, sp=torch.as_tensor(sp, device=device),
                 w3=w3, b3=b3, s=sm.to(device), rows_blk=rows_blk, blk=blk,
-                n=merged.x.shape[0], b=chunk.x.shape[0], rank=rank_of(model),
+                n=merged.x.shape[0], b=n_sub, rank=rank_of(model),
                 tag=prefix(model), msg=msg)
 
 
@@ -1251,13 +1291,11 @@ def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
     request times."""
     log_dir = os.path.join(root, "logs")
     launches, requests = {}, {}
-    saved = os.environ.get("FESR_FUSED_PREDICT")
-    os.environ["FESR_FUSED_PREDICT"] = "0"
-    try:
+    with env_set("FESR_FUSED_PREDICT", "0"):
         for label, (cfg, tag) in paths.items():
             want = CHUNKS["full"] * cfg["num_layers"]
             fields = {}
-            for mode, model in (("pallas", make_pallas_model(cfg)),
+            for mode, model in (("pallas", make_mode_model(cfg, "pallas")),
                                 ("edge3d", make_model(cfg))):
                 reset_launches()
                 t0 = time.time()
@@ -1287,11 +1325,6 @@ def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
                     vs_edge3d=f"{rel:.3e}", tol=PALLAS_TOL)
                 if not rel <= PALLAS_TOL:
                     raise AssertionError(f"pallas {label} {key}: {rel:.3e}")
-    finally:
-        if saved is None:
-            os.environ.pop("FESR_FUSED_PREDICT")
-        else:
-            os.environ["FESR_FUSED_PREDICT"] = saved
     return launches, requests
 
 
@@ -1441,22 +1474,6 @@ def phase_routed_train(root: str, ds, cfg: dict) -> dict:
                 subsets=sched.subset_indices)
 
 
-@contextlib.contextmanager
-def edge_budget_set(budget):
-    """``FESR_PREDICT_EDGE_BUDGET`` set to ``budget`` (None: unchanged)
-    while the block runs."""
-    saved = os.environ.get("FESR_PREDICT_EDGE_BUDGET")
-    if budget is not None:
-        os.environ["FESR_PREDICT_EDGE_BUDGET"] = str(budget)
-    try:
-        yield
-    finally:
-        if saved is None:
-            os.environ.pop("FESR_PREDICT_EDGE_BUDGET", None)
-        else:
-            os.environ["FESR_PREDICT_EDGE_BUDGET"] = saved
-
-
 def phase_routed_serve(root: str, datasets: dict, cfgs: dict) -> dict:
     """Routed serving from the trained experts: both full-size meshes (over
     the edge budget, so the routed predict: label groups cut into chunks,
@@ -1493,7 +1510,7 @@ def phase_routed_serve(root: str, datasets: dict, cfgs: dict) -> dict:
             [_as_raw_graph(d) for d in x])
         budget = {None: None, "padded": (counts.max() - 1) * e_pad,
                   "lane": b * e_pad}[budget_for]
-        with edge_budget_set(budget):
+        with env_set("FESR_PREDICT_EDGE_BUDGET", budget):
             chunk_b = max(1, min(b, edge_budget() // e_pad))
             if b * e_pad > edge_budget():
                 # routed predict: chunks of each label group
@@ -2096,9 +2113,7 @@ def general_request(label: str, phase: str, datasets: dict, model, tag: str,
     no kernel launched; then the small mesh's request (exp
     ``small{tag}``) on the card against the CPU's within ``tol``."""
     log_dir = os.path.join(root, "logs")
-    saved = os.environ.get("FESR_FUSED_PREDICT")
-    os.environ["FESR_FUSED_PREDICT"] = "0"
-    try:
+    with env_set("FESR_FUSED_PREDICT", "0"):
         reset_launches()
         t0 = time.time()
         lanes, (f,) = serve(datasets["full"], model, [0], log_dir,
@@ -2116,11 +2131,6 @@ def general_request(label: str, phase: str, datasets: dict, model, tag: str,
                           "small" + tag, "cpu")
         for key in ("velocity", "pressure"):
             hold(phase, f"{label}_small_{key}_vs_cpu", card[key], cpu[key], tol)
-    finally:
-        if saved is None:
-            os.environ.pop("FESR_FUSED_PREDICT")
-        else:
-            os.environ["FESR_FUSED_PREDICT"] = saved
 
 
 def phase_powerseries(root: str, datasets: dict, cfg: dict) -> None:
@@ -2813,15 +2823,12 @@ def phase_host(root: str, datasets: dict, models: dict, cfgs: dict,
 
     # one full-size KernelNN request under FESR_TRACE_DIR
     trace_root = os.path.join(root, "traces")
-    os.environ["FESR_TRACE_DIR"] = trace_root
     reset_launches()
-    try:
-        with tracing.trace_dir("kernelnn_request"):
-            serve(ds, models["full"], [0], os.path.join(root, "logs"), "full",
-                  None)
-            torch.cuda.synchronize()
-    finally:
-        os.environ.pop("FESR_TRACE_DIR")
+    with env_set("FESR_TRACE_DIR", trace_root), \
+            tracing.trace_dir("kernelnn_request"):
+        serve(ds, models["full"], [0], os.path.join(root, "logs"), "full",
+              None)
+        torch.cuda.synchronize()
     path = os.path.join(trace_root, "kernelnn_request", "trace.json")
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -2978,7 +2985,7 @@ def multi_serve(ds, log_dir: str, exp: str, cfg: dict, dtype: str, dev,
     b, _, e_pad = sched._request_shape([_as_raw_graph(d) for d in x])
     budget = b * e_pad if (mesh is None and n_part > 1) else None
     reset_launches()
-    with edge_budget_set(budget):
+    with env_set("FESR_PREDICT_EDGE_BUDGET", budget):
         got = sched.predict_full(x, n)
     lane = sched.last_lane[0]
     if got is None:  # one process over the budget: the general lane
@@ -3350,6 +3357,229 @@ def phase_multi(root: str, datasets: dict, cfgs: dict, cfgs_rt: dict,
     return by_path
 
 
+# -- phase 25: closing ----------------------------------------------------------
+
+# 'edge' against 'edge3d' (float32, TF32 off): the same per-edge matrices
+# contracted as c_in slice-MACs or as one batched einsum, through 4-5 layers
+# and the overlap average: the conv modes' tolerance, 1e-4 of the max.
+EDGE_TOL = 1e-4
+# FESR_LOSS_VJP=custom against autograd on the card: the JAX package's bounds
+# for the same comparison (tests/test_ops.py), the value within 1e-4
+# relative and both gradients within 1e-5 in relative L2.
+LOSS_VALUE_TOL, LOSS_GRAD_TOL = 1e-4, 1e-5
+# Three fused float32 train steps with the custom backward against the same
+# steps with autograd's: the JAX package's step tolerances (losses rtol
+# 1e-5, parameters rtol 1e-3 / atol 1e-5); the card against the CPU's merged
+# steps as phase 7 holds them (1e-4).
+CUSTOM_STEP_TOL = dict(loss=1e-5, rtol=1e-3, atol=1e-5)
+CLOSING_STEPS = 3
+
+
+def closing_edge(root: str, datasets: dict, paths: dict, smi: str) -> None:
+    """Conv mode 'edge' end to end: for each (label -> (cfg, exp tag)) of
+    ``paths`` the model in 'edge' and in 'edge3d' serves full mesh 0 from
+    exp ``full{tag}``'s checkpoint through the general lane (float32), no
+    kernel launched; the fields agree; each mode's warm request time."""
+    log_dir = os.path.join(root, "logs")
+    with env_set("FESR_FUSED_PREDICT", "0"):
+        for label, (cfg, tag) in paths.items():
+            fields = {}
+            for mode in ("edge", "edge3d"):
+                model = make_mode_model(cfg, mode)
+                reset_launches()
+                lanes, (f,) = serve(datasets["full"], model, [0], log_dir,
+                                    "full" + tag, None)
+                ms, _ = warm_request(datasets["full"], model, log_dir,
+                                     "full" + tag)
+                if lanes[0][1] != "general":
+                    raise AssertionError(f"{label} {mode} took lane "
+                                         f"{lanes[0][1]}")
+                check_only(f"closing {label} {mode} requests", {})
+                fields[mode] = f
+                log("closing", model=label, mode=mode, lane=lanes[0][1],
+                    nodes=len(f["pressure"]), request_ms=f"{ms:.4f}",
+                    card=repr(smi), **launches_of(*KERNELS))
+            for key in ("velocity", "pressure"):
+                hold("closing", f"{label}_edge_vs_edge3d_{key}",
+                     fields["edge"][key], fields["edge3d"][key], EDGE_TOL)
+
+
+def closing_edge_train(small_merged, cfg: dict) -> None:
+    """Three merged float32 train steps of KernelNN in mode 'edge' on the
+    small mesh, on the card and on the CPU from the same seeded weights: the
+    losses agree, and no kernel is launched."""
+    lr = load_yaml(cfg["train_config"])["lr"]
+    losses = {}
+    reset_launches()
+    for dev in ("cuda", "cpu"):
+        trainer = Trainer(make_mode_model(cfg, "edge").to(dev), lr=lr)
+        opt = trainer.init()
+        batch = small_merged.to_torch(dev)
+        losses[dev] = np.array([float(trainer.step(opt, batch))
+                                for _ in range(CLOSING_STEPS)])
+    check_only("closing edge train steps", {})
+    hold("closing", "kernelnn_edge_merged_steps_card_vs_cpu",
+         losses["cuda"], losses["cpu"], PARITY_TOL,
+         losses=",".join(f"{v:.8g}" for v in losses["cuda"]))
+
+
+def closing_loss(ds, smi: str) -> None:
+    """``gradient_weight_scalar`` with the training call's arguments on the
+    full request's chunk (a seeded perturbation of its target as the
+    prediction), custom backward against autograd on the card, and the
+    forward + backward ms of each."""
+    merged, n_sub = request_chunk(ds)
+    g = merged.to_torch("cuda")
+    rng = np.random.default_rng(SEED)
+    y = np.asarray(merged.y)
+    pred = torch.as_tensor(
+        (y + 0.1 * y.std() * rng.standard_normal(y.shape)).astype(np.float32),
+        device="cuda")
+
+    def fwd_bwd():
+        p = pred.clone().requires_grad_(True)
+        t = g.y.clone().requires_grad_(True)
+        w = gradient_weight_scalar(p, t, g.senders, g.receivers, g.edge_attr,
+                                   g.edge_mask, g.node_mask, min_weight=0.0)
+        w.backward()
+        return w.detach(), p.grad, t.grad
+
+    got, ms = {}, {}
+    for impl in ("xla", "custom"):
+        with env_set("FESR_LOSS_VJP", impl):
+            got[impl] = fwd_bwd()
+            ms[impl] = cuda_ms(fwd_bwd)
+    (va, *ga), (vb, *gb) = got["xla"], got["custom"]
+    value_rel = abs(float(vb) - float(va)) / max(abs(float(va)), 1.0)
+    grad_rel = [float(torch.linalg.norm(b - a) / torch.linalg.norm(a))
+                for a, b in zip(ga, gb)]
+    log("closing", check="loss_custom_vs_autograd", subdomains=n_sub,
+        nodes=merged.x.shape[0], edges=merged.senders.shape[0],
+        real_edges=int(np.asarray(merged.edge_mask).sum()),
+        value=f"{float(vb):.8g}", value_rel=f"{value_rel:.3e}",
+        grad_pred_rel_l2=f"{grad_rel[0]:.3e}",
+        grad_target_rel_l2=f"{grad_rel[1]:.3e}",
+        tol=(LOSS_VALUE_TOL, LOSS_GRAD_TOL),
+        autograd_ms=f"{ms['xla']:.4f}", custom_ms=f"{ms['custom']:.4f}",
+        card=repr(smi))
+    if not (value_rel <= LOSS_VALUE_TOL
+            and max(grad_rel) <= LOSS_GRAD_TOL
+            and float(torch.linalg.norm(ga[0])) > 0):
+        raise AssertionError(f"custom loss backward: value {value_rel:.3e}, "
+                             f"gradients {grad_rel}")
+
+
+def closing_fused_custom(ds, cfg: dict, smi: str) -> list:
+    """Three fused float32 train steps (B1 forward, B2 backward) of the
+    train cell's batch (the 12 training subdomains merged) with
+    ``FESR_LOSS_VJP=custom`` against the same steps without it; B1 and B2
+    launched depth times per step in each; then the same custom steps in the
+    merged layout on the CPU ('edge3d', plain torch) against the card's.
+    Returns B1's and B2's launches."""
+    model0, (fb, _), rows_blk, blk = train_batches(ds, cfg)
+    depth = cfg["num_layers"]
+    lr = load_yaml(cfg["train_config"])["lr"]
+    p0 = flat_params(model0)
+    del model0
+    runs, launches, wall_ms = {}, [0, 0], {}
+    for impl in ("xla", "custom"):
+        with env_set("FESR_LOSS_VJP", impl):
+            model = make_model(cfg).cuda()
+            tr = Trainer(model, lr=lr, layout="fused", fused_rows_blk=rows_blk,
+                         fused_blk=blk, fused_dtype="float32")
+            opt = tr.init()
+            reset_launches()
+            t0 = time.perf_counter()
+            losses = np.array([float(tr.step(opt, fb))
+                               for _ in range(CLOSING_STEPS)])
+            # the steps' mean wall time, the first (cold) step included
+            wall_ms[impl] = (time.perf_counter() - t0) / CLOSING_STEPS * 1e3
+            want = depth * CLOSING_STEPS
+            check_only(f"closing fused steps ({impl})",
+                       {fused_conv.fused_edge_conv: want,
+                        fused_conv.fused_edge_conv_bwd: want})
+            launches[0] += fused_conv.fused_edge_conv.launches
+            launches[1] += fused_conv.fused_edge_conv_bwd.launches
+            runs[impl] = dict(losses=losses, p=flat_params(model))
+            del tr, opt, model
+    got, ref = runs["custom"], runs["xla"]
+    loss_rel = float(np.max(np.abs(got["losses"] - ref["losses"])
+                            / np.abs(ref["losses"])))
+    upd, abs_err = _param_errs(got["p"], ref["p"], p0)
+    ok = loss_rel <= CUSTOM_STEP_TOL["loss"] and all(
+        np.allclose(got["p"][k], ref["p"][k], rtol=CUSTOM_STEP_TOL["rtol"],
+                    atol=CUSTOM_STEP_TOL["atol"]) for k in ref["p"])
+    log("closing", check="fused_custom_vs_autograd_steps",
+        nodes=fb["graph"].x.shape[0], loss_rel=f"{loss_rel:.3e}",
+        param_max_abs_err=f"{abs_err:.3e}", update_rel_l2=f"{upd:.3e}",
+        tol=CUSTOM_STEP_TOL, b1_launches=launches[0],
+        b2_launches=launches[1],
+        losses=",".join(f"{v:.8g}" for v in got["losses"]),
+        wall_ms_per_step_autograd=f"{wall_ms['xla']:.2f}",
+        wall_ms_per_step_custom=f"{wall_ms['custom']:.2f}", card=repr(smi))
+    if not ok:
+        raise AssertionError(f"fused custom steps: losses {got['losses']} vs "
+                             f"{ref['losses']}, param max abs err "
+                             f"{abs_err:.3e}")
+    graph = fb["graph"].map(lambda a: a.cpu())
+    del fb
+    torch.cuda.empty_cache()
+    with env_set("FESR_LOSS_VJP", "custom"):
+        tr = Trainer(make_mode_model(cfg, "edge3d"), lr=lr)
+        opt = tr.init()
+        t0 = time.perf_counter()
+        cpu = np.array([float(tr.step(opt, graph))
+                        for _ in range(CLOSING_STEPS)])
+    hold("closing", "fused_custom_card_vs_merged_custom_cpu", got["losses"],
+         cpu, PARITY_TOL, cpu_s=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
+def closing_timing(ds, cfg: dict) -> None:
+    """One ``make_fused_shard_batches`` of the 12 training subdomains under
+    ``FESR_TIMING=1``: its ``[fesr-timing]`` line is printed."""
+    buf = io.StringIO()
+    with env_set("FESR_TIMING", "1"), contextlib.redirect_stdout(buf):
+        make_fused_shard_batches(multi_batch(ds), make_model(cfg).cuda(), 1,
+                                 expand_s=False, device="cuda")
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    lines = [ln for ln in text.splitlines() if ln.startswith(
+        "[fesr-timing] make_fused_shard_batches: ")]
+    stages = ("device_get=", "merge=", "scatter_build=", "stack_upload=")
+    if len(lines) != 1 or not all(k in lines[0] for k in stages):
+        raise AssertionError(f"FESR_TIMING=1 printed {text!r}")
+    log("closing", check="fesr_timing", printed=True)
+
+
+def phase_closing(root: str, datasets: dict, cfgs: dict, cfgs_tc: dict,
+                  smi: str) -> list:
+    """Phase 25: conv mode 'edge' (KernelNN and TEECNet requests, KernelNN
+    merged training), the custom loss backward (alone at the full chunk,
+    and inside fused training with B1/B2), and ``FESR_TIMING``.  Returns
+    B1's and B2's launches."""
+    t0 = time.time()
+    walls = []
+
+    def part(name, fn, *args):
+        t1 = time.time()
+        out = fn(*args)
+        walls.append(f"{name}:{time.time() - t1:.1f}")
+        return out
+
+    part("edge", closing_edge, root, datasets,
+         {"kernelnn": (cfgs["full"], ""),
+          "teecnet": (cfgs_tc["full"], "_teecnet")}, smi)
+    part("edge_train", closing_edge_train,
+         merged_subdomains(datasets["small"]), cfgs["small"])
+    part("loss", closing_loss, datasets["full"], smi)
+    launches = part("fused_custom", closing_fused_custom, datasets["full"],
+                    cfgs["full"], smi)
+    part("timing", closing_timing, datasets["full"], cfgs["full"])
+    log("closing", wall_s=f"{time.time() - t0:.1f}", parts=",".join(walls))
+    return launches
+
+
 def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
     """The forward's and the backward's entries of the kernels JSON line,
     tagged with the ``path`` that ran them."""
@@ -3538,6 +3768,7 @@ def main() -> int:
         new_paths.update(phase_graphsage(root, datasets, cfgs, smi))
         new_paths.update(phase_host(root, datasets, models, cfgs, smi))
         multi = phase_multi(root, datasets, cfgs, cfgs_rt, smi)
+        closing = phase_closing(root, datasets, cfgs, cfgs_tc, smi)
 
     kernels = (kernel_entries(full, smi, None, "kernelnn")
                + kernel_entries(lowrank, smi, RANK, "kernelnn_rank16")
@@ -3562,8 +3793,9 @@ def main() -> int:
         for kernel, n in counts.items():
             first[kernel]["launches"] += n
             first[kernel]["launches_by_path"][path] = n
-    # phase 24: B1/B2 in the ranks' own processes, counted there
-    for path, counts in multi.items():
+    # phase 24: B1/B2 in the ranks' own processes, counted there; phase
+    # 25: the fused train steps with and without the custom loss backward
+    for path, counts in dict(multi, closing=closing).items():
         for kernel, n in zip(("fused_edge_conv", "fused_edge_conv_bwd"),
                              counts):
             first[kernel]["launches"] += n

@@ -70,6 +70,16 @@ class Graph:
     def num_edges(self) -> int:
         return self.senders.shape[-1]
 
+    @property
+    def num_real_nodes(self):
+        """The int32 count of real nodes along the last axis (a numpy
+        array on the host, a tensor on a device)."""
+        if isinstance(self.node_mask, torch.Tensor):
+            return self.node_mask.to(torch.int32).sum(dim=-1,
+                                                      dtype=torch.int32)
+        return np.sum(np.asarray(self.node_mask).astype(np.int32), axis=-1,
+                      dtype=np.int32)
+
     def map(self, fn) -> "Graph":
         """A Graph with ``fn`` applied to every leaf."""
         return Graph(**{f.name: fn(getattr(self, f.name))

@@ -31,12 +31,14 @@ def mlp_layers(sizes: list[int]) -> nn.ModuleList:
                           for a, b in zip(sizes[:-1], sizes[1:])])
 
 
-def mlp_apply(layers, x: torch.Tensor, activation) -> torch.Tensor:
-    """``activation`` after every layer but the last (the JAX package's
-    ``mlp_apply``)."""
+def mlp_apply(layers, x: torch.Tensor, activation,
+              final_activation=None) -> torch.Tensor:
+    """``activation`` after every layer but the last, ``final_activation``
+    (when given) after the last (the JAX package's ``mlp_apply``)."""
     for layer in layers[:-1]:
         x = activation(layer(x))
-    return layers[-1](x)
+    x = layers[-1](x)
+    return x if final_activation is None else final_activation(x)
 
 
 def pyg_uniform_init(param: torch.Tensor, size: int,

@@ -7,11 +7,12 @@ aggr='mean' (model.py:551).  Forward: fc1 -> depth x relu(conv) -> fc2
 (model.py:555-562), the conv weights shared across depth (model.py:558-559).
 
 ``apply`` is the plain whole-graph form in the conv formulation ``mode``
-(ops/message_passing.py: 'auto', 'edge3d', 'factored', 'pallas', 'lut');
+(ops/message_passing.py: 'auto', 'edge', 'edge3d', 'factored', 'pallas',
+'lut');
 the JAX package's scheduling knob ``remat`` changes no result and is left
 out, and ``edges_sorted`` is kept as a hint that changes no bit.
-``kernel_dtype`` (e.g. 'bfloat16') stores the 'edge3d' per-edge matrices
-(and the rank-r U, V) in that type, as the JAX package does, and
+``kernel_dtype`` (e.g. 'bfloat16') stores the 'edge3d' and 'edge' per-edge
+matrices (and the rank-r U, V) in that type, as the JAX package does, and
 ``lut_knots`` sizes mode 'lut''s table; both only affect ``apply``.
 ``apply_fused`` runs each layer through the fused edge-conv layer (ops/fused_conv.py), a hand-written CUDA
 kernel on the GPU, and ``apply_fused_ad`` is its differentiable form for
@@ -77,6 +78,16 @@ class KernelNN(nn.Module):
         (U_e then V_e) at rank r."""
         w, r = self.width, self.kernel_rank
         return w * w if r is None else 2 * r * w
+
+    @property
+    def fused_ok(self) -> bool:
+        """Serving: full rank and rank r both have a fused layer."""
+        return True
+
+    @property
+    def fused_train_ok(self) -> bool:
+        """Training: both fused layers have a hand-written backward."""
+        return True
 
     def init_params(self, generator: torch.Generator) -> None:
         """The JAX package's init distributions (KernelNN.init), drawn from

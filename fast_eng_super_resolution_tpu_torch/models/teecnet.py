@@ -9,10 +9,11 @@ There is no nonlinearity between layers (model.py:280-282), so on random
 weights and inputs the output can grow large: compare it relative to its max.
 
 ``apply`` is the plain whole-graph form in the conv formulation ``mode``
-(ops/message_passing.py); ``apply_fused`` and ``apply_fused_ad`` run each
-layer through the fused edge-conv layer on ``linear(h)`` (B1 forward and B2
-backward on the GPU), with the same signatures as KernelNN's, so the serving
-lanes and the trainer take either model.  The JAX package's ``remat``, an XLA
+(ops/message_passing.py, 'edge' included); ``apply_fused`` and
+``apply_fused_ad`` run each layer through the fused edge-conv layer on
+``linear(h)`` (B1 forward and B2 backward on the GPU), with the same
+signatures as KernelNN's, so the serving lanes and the trainer take either
+model.  The JAX package's ``remat``, an XLA
 scheduling knob, is left out; ``edges_sorted`` is kept as a hint that
 changes no bit.  ``kernel_type='powerseries'`` (models/powerseries.py, which
 ``init_model`` never builds, as in the JAX package) makes the per-edge

@@ -7,11 +7,16 @@ model.py:421-445):
     m_e  = x_sender(e) @ W_e                                  # per-edge bmm
     out_i = mean_{e: receiver(e)=i} m_e + x_i @ root + bias
 
-The JAX package's forms, of which the port has three:
+The JAX package's forms, all of which the port has:
 
 - 'edge3d': the per-edge matrices from one [E, K] @ [K, C_in*C_out] GEMM,
   contracted by a batched einsum ('auto' on a CUDA device: the general
   serving lane's form).
+- 'edge': the same per-edge matrices kept 2D [E, C_in*C_out], the
+  contraction unrolled as C_in slice-MACs in the JAX package's order
+  (msg = xs[:, 0:1] * W[:, 0:C_out], then + xs[:, a:a+1] * W[:, a*C_out:
+  (a+1)*C_out] for a = 1 .. C_in-1), each product in float32 when W is
+  stored in bf16 (x itself is not rounded, as jnp promotes bf16 x f32).
 - 'factored': the dominant contraction moved to the node axis,
   U = einsum('ni,kio->nko', x, M3); m_e = einsum('ek,eko->eo', h_e, U[src])
   + (x @ b3)[src] ('auto' on the CPU, as in the JAX package off the TPU).
@@ -25,10 +30,10 @@ The JAX package's forms, of which the port has three:
   two knots around its length: [E, 2, c_out] gathered instead of
   [E, c_in * c_out] computed.
 
-``kernel_dtype`` (KernelNN's) stores the 'edge3d' per-edge matrices in that
-type; the contraction rounds x the same way and accumulates in float32, as
-the JAX package's ``preferred_element_type`` does.  'edge' (a TPU layout
-experiment) raises.  The serving path's fused layer is ops/fused_conv.py.
+``kernel_dtype`` (KernelNN's) stores the 'edge3d' and 'edge' per-edge
+matrices in that type; 'edge3d''s contraction rounds x the same way and
+accumulates in float32, as the JAX package's ``preferred_element_type``
+does.  The serving path's fused layer is ops/fused_conv.py.
 """
 
 from __future__ import annotations
@@ -39,21 +44,17 @@ from .pallas_mp import fused_edge_messages
 from .segment import masked_segment_mean, masked_segment_sum
 
 MODES = ("auto", "factored", "edge", "edge3d", "pallas", "lut")
-_NOT_PORTED = {"edge": "a TPU layout experiment, ROADMAP.md queue A item 3"}
 
 
 def check_mode(mode: str) -> None:
-    """Raises on a mode the port does not take."""
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"conv mode {mode!r} is not ported ({_NOT_PORTED[mode]})")
+    """Raises on an unknown mode."""
     if mode not in MODES:
         raise ValueError(f"unknown conv mode {mode!r} (expected one of {MODES})")
 
 
 def resolve_mode(mode: str, device) -> str:
     """'auto' -> 'edge3d' on a CUDA device, 'factored' elsewhere; any other
-    ported mode is returned as it is."""
+    mode is returned as it is."""
     check_mode(mode)
     if mode != "auto":
         return mode
@@ -92,9 +93,9 @@ def precompute_edge_kernel(edge_mlp, edge_attr: torch.Tensor,
     the per-edge kernel depends only on (params, edge_attr), so it is
     identical across depth.  Returns an opaque (mode, value) token for
     ``edge_conditioned_conv(precomputed=...)``: the per-edge matrices
-    [E, c_in*c_out] for 'edge3d' (in ``kernel_dtype`` when given), the
-    table (w_knots, i0, frac) for 'lut', the edge MLP's hidden features
-    [E, K] otherwise.
+    [E, c_in*c_out] for 'edge' and 'edge3d' (in ``kernel_dtype`` when
+    given), the table (w_knots, i0, frac) for 'lut', the edge MLP's hidden
+    features [E, K] otherwise.
 
     'lut' spans its knots over the real edges (``edge_mask``) only: padding
     slots carry edge_attr 1.0, which on fine meshes would stretch the table
@@ -121,7 +122,7 @@ def precompute_edge_kernel(edge_mlp, edge_attr: torch.Tensor,
         i0 = torch.clamp(torch.floor(t).to(torch.int32), 0, knots - 2)
         return (mode, (w_knots, i0, t - i0.to(t.dtype)))
     hidden = apply_edge_mlp_hidden(edge_mlp, edge_attr, activation)
-    if mode == "edge3d":
+    if mode in ("edge", "edge3d"):
         w_e = edge_mlp[-1](hidden)
         dt = kernel_torch_dtype(kernel_dtype)
         return (mode, w_e if dt is None else w_e.to(dt))
@@ -180,7 +181,16 @@ def edge_conditioned_conv(x: torch.Tensor, senders: torch.Tensor,
                                        mode, edge_mask=edge_mask,
                                        lut_knots=lut_knots)[1]
     src = senders.long()
-    if mode == "edge3d":
+    if mode == "edge":
+        # column a of x[src] times block a of the matrices, summed in a's
+        # order; unbind (not slicing) so the backward stacks the blocks'
+        # gradients once instead of a full-size zero tensor per slice
+        xs = x[src].unbind(1)
+        w = value.to(x.dtype).reshape(-1, c_in, c_out).unbind(1)
+        msg = xs[0][:, None] * w[0]
+        for a in range(1, c_in):
+            msg = msg + xs[a][:, None] * w[a]
+    elif mode == "edge3d":
         xs = x[src]
         if value.dtype != xs.dtype:
             # x rounded as the matrices are, the products summed in float32

@@ -36,6 +36,8 @@ epoch, mirroring both reference schedules: StepLR(step_size, gamma)
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 
 import numpy as np
 import torch
@@ -172,6 +174,10 @@ def make_fused_shard_batches(batch: Graph, model, n_dev: int,
     With ``mesh`` (of ``n_dev`` ranks) a rank builds its own group alone,
     row ``mesh.rank`` of that stack with a leading axis of 1, on the rank's
     device; the ranks agree on blk by an all-reduce.
+
+    ``FESR_TIMING=1`` prints one ``[fesr-timing] make_fused_shard_batches:``
+    line of the host stages' seconds (``device_get`` is the host copy of the
+    batch); on a mesh only rank 0 prints.
     """
     b = batch.x.shape[0]
     if b % n_dev:
@@ -181,11 +187,14 @@ def make_fused_shard_batches(batch: Graph, model, n_dev: int,
         raise ValueError(f"n_dev={n_dev} on a mesh of {mesh.size} ranks")
     dev = mesh.device if mesh is not None else resolve_device(device)
     per = b // n_dev
+    marks = [("start", time.perf_counter())]
     host = batch.map(lambda a: a.cpu().numpy() if isinstance(a, torch.Tensor)
                      else np.asarray(a))
+    marks.append(("device_get", time.perf_counter()))
     ranks = range(n_dev) if mesh is None else (mesh.rank,)
     groups = [merge_batch(host.map(lambda a: a[d * per:(d + 1) * per]))[0]
               for d in ranks]
+    marks.append(("merge", time.perf_counter()))
 
     def build(merged, q):
         ea, aux, s, rb, bk = model.prepare_fused_train(
@@ -199,6 +208,7 @@ def make_fused_shard_batches(batch: Graph, model, n_dev: int,
     if mesh is not None:
         blk = int(mesh.all_reduce(torch.tensor([blk], device=dev), "max")[0])
     built = [x if x[-1] == blk else build(x[0], blk) for x in built]
+    marks.append(("scatter_build", time.perf_counter()))
 
     def stack(leaves):
         return torch.as_tensor(np.stack([np.asarray(a) for a in leaves]),
@@ -219,6 +229,12 @@ def make_fused_shard_batches(batch: Graph, model, n_dev: int,
                                     ).reshape(len(built), -1, blk)
     else:
         fused["s_compact"] = {"slot_rows": sr, "row_weight": rw}
+    marks.append(("stack_upload", time.perf_counter()))
+    if (os.environ.get("FESR_TIMING") == "1"
+            and (mesh is None or mesh.rank == 0)):
+        stages = ", ".join(f"{name}={t1 - t0:.2f}s" for (name, t1), (_, t0)
+                           in zip(marks[1:], marks[:-1]))
+        print(f"[fesr-timing] make_fused_shard_batches: {stages}", flush=True)
     return {"graph": graphs, "fused": fused}, rows_blk, blk
 
 

@@ -1137,3 +1137,74 @@ def test_prefetch_to_device_on_a_stream(cuda):
         assert b["x"].device.type == "cuda"
         assert float(b["x"].sum()) == float(torch.as_tensor(h["x"]).cuda().sum())
         assert np.array_equal(b["x"].cpu().numpy(), h["x"])
+
+
+def _loss_weight_and_grads(impl: str, device: str, arrays: dict,
+                           monkeypatch) -> tuple:
+    """(value, d/dpred, d/dtarget) of ``gradient_weight_scalar`` under
+    ``FESR_LOSS_VJP=impl`` on ``device``, with the training call's
+    arguments (masks, min_weight 0)."""
+    from fast_eng_super_resolution_tpu_torch.ops.loss import gradient_weight_scalar
+
+    monkeypatch.setenv("FESR_LOSS_VJP", impl)
+    t = {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+    p = t["pred"].clone().requires_grad_(True)
+    y = t["target"].clone().requires_grad_(True)
+    w = gradient_weight_scalar(p, y, t["senders"], t["receivers"],
+                               t["edge_attr"], t["edge_mask"],
+                               t["node_mask"], min_weight=0.0)
+    w.backward()
+    return float(w.detach()), p.grad.cpu().numpy(), y.grad.cpu().numpy()
+
+
+def test_custom_loss_backward_on_card_matches_autograd(cuda, monkeypatch):
+    """``FESR_LOSS_VJP=custom`` on the card (the one-hot argmax backward
+    with two ``index_add_``) against autograd on the card and against the
+    custom path on the CPU: the value within 1e-4 relative, both gradients
+    within 1e-5 in relative L2 (the JAX package's bounds for custom vs
+    autograd, tests/test_ops.py)."""
+    rng = np.random.default_rng(11)
+    n, e, c = 2000, 16000, 4
+    pred = rng.normal(size=(n, c)).astype(np.float32)
+    arrays = dict(pred=pred,
+                  target=pred + 0.1 * rng.normal(size=(n, c)).astype(
+                      np.float32),
+                  senders=rng.integers(0, n, e).astype(np.int32),
+                  receivers=np.sort(rng.integers(0, n, e)).astype(np.int32),
+                  edge_attr=(0.5 + rng.random((e, 1))).astype(np.float32),
+                  edge_mask=rng.random(e) > 0.2, node_mask=rng.random(n) > 0.1)
+    ref = _loss_weight_and_grads("xla", "cuda", arrays, monkeypatch)
+    assert np.abs(ref[1]).sum() > 0   # some clamp gates are open
+    for dev in ("cuda", "cpu"):
+        got = _loss_weight_and_grads("custom", dev, arrays, monkeypatch)
+        assert abs(got[0] - ref[0]) <= 1e-4 * max(abs(ref[0]), 1.0)
+        for g, want in zip(got[1:], ref[1:]):
+            assert np.linalg.norm(g - want) / np.linalg.norm(want) < 1e-5
+
+
+def test_edge_mode_on_card_matches_edge3d(cuda):
+    """KernelNN in conv mode 'edge' on the card (c_in slice-MACs) against
+    the same weights in 'edge3d' (one batched einsum): float32, TF32 off,
+    1e-5 of the max; no kernel launched."""
+    from fast_eng_super_resolution_tpu_torch.models.kernelnn import KernelNN
+
+    rng = np.random.default_rng(12)
+    n, e = 500, 4000
+    x = torch.as_tensor(rng.normal(size=(n, 4)).astype(np.float32),
+                        device="cuda")
+    graph = [torch.as_tensor(a, device="cuda") for a in (
+        rng.integers(0, n, e).astype(np.int32),
+        np.sort(rng.integers(0, n, e)).astype(np.int32),
+        rng.random((e, 1)).astype(np.float32))]
+    mask = torch.as_tensor(rng.random(e) > 0.2, device="cuda")
+    before = (tfc.fused_edge_conv.launches,
+              pallas_mp.fused_edge_messages.launches)
+    out = {}
+    with torch.no_grad():
+        for mode in ("edge", "edge3d"):
+            model = KernelNN(48, 48, 2, in_width=4, out_width=4, mode=mode,
+                             seed=3).cuda()
+            out[mode] = model.apply(x, *graph, edge_mask=mask).cpu()
+    assert (tfc.fused_edge_conv.launches,
+            pallas_mp.fused_edge_messages.launches) == before
+    assert _rel(out["edge"], out["edge3d"]) < 1e-5

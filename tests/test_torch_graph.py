@@ -64,3 +64,26 @@ def test_bucket_spec_and_pad_invariants():
     with pytest.raises(ValueError, match="padded edges need a padded node"):
         tg.pad_graph(raw["x"], raw["y"], raw["pos"], raw["senders"],
                      raw["receivers"], raw["edge_attr"], 40, 256)
+
+
+def test_num_real_nodes_matches_jax():
+    """``Graph.num_real_nodes``: the int32 count of real nodes along the
+    last axis, as JAX's property gives it, for one graph and for a
+    [B, ...] batch, on the host and as torch tensors."""
+    rng = np.random.default_rng(2)
+    raws = [make_random_graph(rng, n=n, e=4 * n) for n in (50, 90, 120)]
+    spec = dict(node_multiple=128, edge_multiple=512, min_nodes=128,
+                min_edges=512)
+    (_, _, batch), = tg.pad_and_bucket(raws, tg.BucketSpec(**spec))
+    (_, _, jbatch), = jg.pad_and_bucket(raws, jg.BucketSpec(**spec),
+                                        to_device=False)
+    jsingle = jg.Graph(**{f.name: np.asarray(getattr(jbatch, f.name))[1]
+                          for f in dataclasses.fields(jg.Graph)})
+    for got, ref in ((batch, jbatch), (batch.map(lambda a: a[1]), jsingle)):
+        want = np.asarray(ref.num_real_nodes)
+        host = got.num_real_nodes
+        dev = got.to_torch("cpu").num_real_nodes
+        assert host.dtype == np.int32 and dev.dtype == torch.int32
+        np.testing.assert_array_equal(host, want)
+        np.testing.assert_array_equal(dev.numpy(), want)
+    np.testing.assert_array_equal(batch.num_real_nodes, [50, 90, 120])

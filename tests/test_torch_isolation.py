@@ -50,6 +50,19 @@ with torch.no_grad():  # conv mode 'pallas': the per-edge message kernel
     out = KernelNN(8, 8, 2, in_width=4, out_width=4, mode="pallas").apply(
         x, *graph)
 assert out.shape == (n, 4) and torch.isfinite(out).all()
+# conv mode 'edge', and the hand-written loss backward (FESR_LOSS_VJP=custom)
+import os
+with torch.no_grad():
+    out = KernelNN(8, 8, 2, in_width=4, out_width=4, mode="edge").apply(
+        x, *graph)
+assert out.shape == (n, 4) and torch.isfinite(out).all()
+from fast_eng_super_resolution_tpu_torch.ops.loss import gradient_weight_scalar
+os.environ["FESR_LOSS_VJP"] = "custom"
+pred = torch.randn(n, 4, requires_grad=True)
+gradient_weight_scalar(pred, torch.randn(n, 4), *graph,
+                       max_weight=1e6).backward()   # no clamp active
+del os.environ["FESR_LOSS_VJP"]
+assert torch.isfinite(pred.grad).all() and pred.grad.abs().sum() > 0
 # the grid family: each model through init_model, one forward on the CPU
 for name, kw, shape in (
         ("fno", dict(width=4, in_feats=1), (1, 8, 8, 1)),

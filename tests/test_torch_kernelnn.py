@@ -191,11 +191,12 @@ def test_apply_fused_ad_grads_match_jax(rank):
 
 
 def test_unported_options_raise():
-    """Conv mode 'edge' (a TPU layout experiment) still raises, naming
-    its ROADMAP.md item; GraphSAGE builds (its outputs are held against JAX
-    in tests/test_torch_graphsage.py); the one-step grid models build
-    ('deeponet' needs ``trunk_size``, as in the JAX package; their outputs
-    are held against JAX in tests/test_torch_grid.py); mode 'lut' and
+    """Conv mode 'edge' builds for KernelNN and TEECNet (its outputs and
+    gradients are held against JAX below and in tests/test_torch_teecnet.py),
+    and an unknown mode still raises; GraphSAGE builds (its outputs are held
+    against JAX in tests/test_torch_graphsage.py); the one-step grid models
+    build ('deeponet' needs ``trunk_size``, as in the JAX package; their
+    outputs are held against JAX in tests/test_torch_grid.py); mode 'lut' and
     TEECNet's power-series kernel are ported and build (their outputs are
     held against JAX in tests/test_torch_pallas_mp.py and
     tests/test_torch_teecnet.py)."""
@@ -205,14 +206,19 @@ def test_unported_options_raise():
         init_model("deeponet", 4, 4, width=W, num_layers=2)
     with pytest.raises(ValueError):
         init_model("nope", 4, 4, width=W, num_layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        KernelNN(**_cfg(None), mode="edge")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TEECNet(4, W, 4, mode="edge")
+    assert KernelNN(**_cfg(None), mode="edge").mode == "edge"
+    assert TEECNet(4, W, 4, mode="edge").mode == "edge"
+    for build in (lambda: KernelNN(**_cfg(None), mode="edges"),
+                  lambda: TEECNet(4, W, 4, mode="edges")):
+        with pytest.raises(ValueError, match="unknown conv mode"):
+            build()
     assert KernelNN(**_cfg(None), mode="lut").mode == "lut"
     assert TEECNet(4, W, 4, mode="lut").mode == "lut"
     ps = TEECNet(4, W, 4, kernel_type="powerseries")
     assert not ps.fused_ok and TEECNet(4, W, 4).fused_ok
+    # KernelNN's fused gates, as the JAX model's properties
+    assert all(KernelNN(**_cfg(r)).fused_ok and KernelNN(**_cfg(r)).fused_train_ok
+               for r in (None, 3))
     assert ps.kernel.ps.conv_out.linear.out_features == W * W
     with pytest.raises(ValueError, match="kernel_type"):
         TEECNet(4, W, 4, kernel_type="chebyshev")
@@ -272,3 +278,49 @@ def test_kernel_dtype_bfloat16_matches_jax(rank):
         full = f32.apply(*(t(a) for a in args), **kw).numpy()
     assert _rel(got, ref) < 1e-4, _rel(got, ref)
     assert _rel(full, ref) > 1e-4
+
+
+@pytest.mark.parametrize("kernel_dtype", [None, "bfloat16"])
+def test_edge_mode_apply_and_grads_match_jax(kernel_dtype):
+    """Conv mode 'edge' (the per-edge matrices kept 2D, the contraction as
+    c_in slice-MACs) against the JAX KernelNN in the same mode, same
+    weights, with float32 and with bf16 per-edge matrices (each product in
+    float32 on both sides): the output within 1e-5 of its max, the loss
+    within 1e-5 relative, each gradient within 1e-4 of its norm.  With bf16
+    matrices each side rounds its own float32 matrices, which differ in the
+    last bits, so a few entries round to neighbouring bf16 values (2^-8
+    apart): the output is held to this file's bf16 bound, 1e-4 of the max
+    (``test_kernel_dtype_bfloat16_matches_jax``; measured 3.0e-5), and the
+    gradients to 1e-3 of their norms (measured 1.9e-4); the contraction
+    from the same bf16 matrices is held to 1e-5 in
+    tests/test_torch_teecnet.py."""
+    cfg = dict(_cfg(None), kernel_dtype=kernel_dtype)
+    jmodel = JKernelNN(mode="edge", **cfg)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jmodel.init(jax.random.PRNGKey(5)))
+    g = _padded_graph(5)
+    y = np.random.default_rng(5).normal(size=(g.x.shape[0], 4)).astype(
+        np.float32)
+    args = (g.x, g.senders, g.receivers, g.edge_attr)
+
+    def loss_jax(p):
+        out = jmodel.apply(p, *(jnp.asarray(a) for a in args),
+                           edge_mask=jnp.asarray(g.edge_mask))
+        return jnp.sum((out - y) ** 2), out
+
+    (ref, ref_out), ref_grads = jax.value_and_grad(loss_jax, has_aux=True)(
+        params)
+    port = KernelNN(mode="edge", **cfg).from_jax_params(params)
+    out = port.apply(*(torch.as_tensor(a) for a in args),
+                     edge_mask=torch.as_tensor(g.edge_mask))
+    assert _rel(out.detach().numpy(), ref_out) < (TOL if kernel_dtype is None
+                                                  else 1e-4)
+    loss = ((out - torch.as_tensor(y)) ** 2).sum()
+    loss.backward()
+    assert abs(float(loss.detach()) - float(ref)) <= 1e-5 * abs(float(ref))
+    want = flatten_params(jax.tree_util.tree_map(np.asarray, ref_grads))
+    for name, p in port.named_parameters():
+        key, transposed = port.jax_key(name)
+        got = p.grad.numpy().T if transposed else p.grad.numpy()
+        err = np.linalg.norm(got - want[key]) / np.linalg.norm(want[key])
+        assert err < (1e-4 if kernel_dtype is None else 1e-3), (key, err)

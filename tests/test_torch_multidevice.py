@@ -153,12 +153,11 @@ def batch():
     return jax.tree_util.tree_map(np.asarray, b)
 
 
-@pytest.fixture(scope="module")
-def jax_refs(batch):
+def _jax_single_steps(batch, jmodel):
     """JAX's single-device steps on the whole batch: the merged plain step
     and the fused step (Pallas in interpret mode, float32), 3 Adam steps
-    each from PRNGKey(0); the initial parameters."""
-    jmodel = JKernelNN(mode="edge3d", **CFG)
+    each from PRNGKey(0); and the initial parameters.  Traced anew, so
+    under the ``FESR_LOSS_VJP`` of the caller."""
     merged, _ = jmerge(batch)
     out = {}
     tr = jtrain.Trainer(jmodel, lr=LR, donate=False, layout="merged")
@@ -178,7 +177,16 @@ def jax_refs(batch):
         p, opt, loss = tr.step(p, opt, fb)
         losses.append(float(loss))
     out["fused"] = (np.array(losses), _flat(p))
-    return out, jmodel, _flat(params0)
+    return out, _flat(params0)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(batch):
+    """``_jax_single_steps`` under the default loss backward, the JAX
+    model and the initial parameters."""
+    jmodel = JKernelNN(mode="edge3d", **CFG)
+    out, params0 = _jax_single_steps(batch, jmodel)
+    return out, jmodel, params0
 
 
 def _jax_shard_map(batch, jmodel, world: int, fused: bool):
@@ -260,6 +268,90 @@ def test_shard_steps_match_jax(world, batch, jax_refs, tmp_path):
                                        rtol=STEP_TOL["loss"])
             _assert_params(got, want_params, STEP_TOL["rtol"],
                            STEP_TOL["atol"])
+
+
+def test_custom_loss_vjp_steps_match_jax(batch, jax_refs, monkeypatch):
+    """``FESR_LOSS_VJP=custom`` drives the merged and the fused train steps
+    (one process, float32; the fused layers' plain versions): 3 steps of
+    the port against JAX's same steps under the same setting (its custom
+    VJP) and against the default steps, losses rtol 1e-5 and parameters
+    rtol 1e-3 / atol 1e-5 (no ties on this batch, so both backwards
+    agree)."""
+    from fast_eng_super_resolution_tpu_torch.ops import loss as tloss
+
+    refs, jmodel, params0 = jax_refs
+    monkeypatch.setenv("FESR_LOSS_VJP", "custom")
+    custom, p0 = _jax_single_steps(batch, jmodel)
+    assert p0.keys() == params0.keys()
+    calls = []
+    apply = tloss.GradientWeightScalar.apply
+    monkeypatch.setattr(tloss.GradientWeightScalar, "apply",
+                        lambda *a: calls.append(1) or apply(*a))
+    for layout in ("merged", "fused"):
+        calls.clear()
+        losses, params = _port_merged_steps(batch, params0, layout)
+        assert len(calls) == STEPS, (layout, calls)
+        for want_losses, want_params in (custom[layout], refs[layout]):
+            np.testing.assert_allclose(losses, want_losses,
+                                       rtol=STEP_TOL["loss"])
+            _assert_params(params, want_params, STEP_TOL["rtol"],
+                           STEP_TOL["atol"])
+
+
+def test_custom_loss_vjp_shard_steps_match_one_process(batch, jax_refs,
+                                                       tmp_path, monkeypatch):
+    """The explicit-collective and the fused shard steps over 2 gloo ranks
+    under ``FESR_LOSS_VJP=custom`` (the custom backward composed with the
+    shard steps' linearisation of the global loss) against one process of
+    the port on the concatenated batch under the same setting: losses rtol
+    1e-5, parameters rtol 1e-3 / atol 1e-5, both ranks equal.  Under
+    ``FESR_TIMING=1`` the ranks' ``make_fused_shard_batches`` on the mesh
+    prints its ``[fesr-timing]`` line on rank 0 only (each rank also calls
+    it once without a mesh, which prints)."""
+    _, _, params0 = jax_refs
+    arrays = {f"batch/{k}": np.asarray(getattr(batch, k))
+              for k in Graph.__dataclass_fields__}
+    arrays.update({f"params/{k}": v for k, v in params0.items()})
+    outs = _spawn("steps", 2, tmp_path, dict(
+        cfg=CFG, lr=LR, rows_blk=ROWS_BLK, steps=STEPS,
+        impls=["shard_map", "dense"]), arrays,
+        env={"FESR_LOSS_VJP": "custom", "FESR_TIMING": "1"})
+    monkeypatch.setenv("FESR_LOSS_VJP", "custom")
+    for impl, layout in (("shard_map", "merged"), ("dense", "fused")):
+        got = _ranks_agree(outs, f"{impl}/")
+        losses = got.pop("losses")
+        got = {k[len("params/"):]: v for k, v in got.items()}
+        want_losses, want_params = _port_merged_steps(batch, params0, layout)
+        np.testing.assert_allclose(losses, want_losses, rtol=STEP_TOL["loss"])
+        _assert_params(got, want_params, STEP_TOL["rtol"], STEP_TOL["atol"])
+    lines = [open(tmp_path / f"log_{r}.txt").read().count(
+        "[fesr-timing] make_fused_shard_batches:") for r in range(2)]
+    assert lines == [2, 1], lines
+
+
+def test_fesr_timing_line(batch, capsys, monkeypatch):
+    """``FESR_TIMING=1``: ``make_fused_shard_batches`` prints the JAX
+    package's one line of host stage times; unset, nothing."""
+    import re
+
+    host = Graph(**{k: np.asarray(getattr(batch, k))
+                    for k in Graph.__dataclass_fields__})
+    model = KernelNN(**CFG)
+    monkeypatch.delenv("FESR_TIMING", raising=False)
+    ttrain.make_fused_shard_batches(host, model, 2, rows_blk=ROWS_BLK,
+                                    device="cpu")
+    assert "[fesr-timing]" not in capsys.readouterr().out
+    monkeypatch.setenv("FESR_TIMING", "1")
+    ttrain.make_fused_shard_batches(host, model, 2, rows_blk=ROWS_BLK,
+                                    device="cpu")
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[fesr-timing]")]
+    stage = r"=\d+\.\d\ds"
+    assert len(lines) == 1 and re.fullmatch(
+        r"\[fesr-timing\] make_fused_shard_batches: "
+        + ", ".join(n + stage for n in ("device_get", "merge",
+                                        "scatter_build", "stack_upload")),
+        lines[0]), lines
 
 
 # -- the serving lanes ----------------------------------------------------------

@@ -3,7 +3,8 @@ modes of ops/message_passing.py: the plain version against the JAX Pallas
 kernel in interpret mode, the wrapper on the CPU, its refusal under
 autograd, and each mode of ``edge_conditioned_conv`` and ``KernelNN`` against
 the JAX package's same mode; mode 'lut''s table, its fully masked graphs and
-its gradients.  The kernel itself is checked against its plain
+its gradients; conv mode 'edge' (the contraction unrolled as c_in
+slice-MACs).  The kernel itself is checked against its plain
 version on the card in tests/test_torch_gpu.py."""
 
 import numpy as np
@@ -26,7 +27,7 @@ from fast_eng_super_resolution_tpu_torch.ops.pallas_mp import (
 from fast_eng_super_resolution_tpu_torch.parallel.train import Trainer
 from fast_eng_super_resolution_tpu_torch.core.graph import Graph
 
-PORTED = ("edge3d", "factored", "pallas", "lut")
+PORTED = ("edge3d", "factored", "pallas", "lut", "edge")
 
 
 def _operands(e, k, w, seed=0):
@@ -70,8 +71,7 @@ def test_resolve_mode():
     assert tmp.resolve_mode("auto", torch.device("cuda")) == "edge3d"
     for mode in PORTED:
         assert tmp.resolve_mode(mode, "cpu") == mode
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmp.resolve_mode("edge", "cpu")
+        assert tmp.resolve_mode(mode, torch.device("cuda")) == mode
     with pytest.raises(ValueError, match="unknown conv mode"):
         tmp.resolve_mode("dense", "cpu")
 

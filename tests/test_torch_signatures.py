@@ -39,7 +39,8 @@ def _graph(seed=0, n=40, e=200, w=6):
 
 
 @pytest.mark.parametrize("mode,kernel_dtype",
-                         [("edge3d", "bfloat16"), ("lut", None),
+                         [("edge3d", "bfloat16"), ("edge", "bfloat16"),
+                          ("edge", None), ("lut", None),
                           ("factored", None)])
 def test_precompute_edge_kernel_jax_positional_call(mode, kernel_dtype):
     """JAX's positional order (mode, kernel_dtype, lut_knots, edge_mask)
@@ -59,7 +60,7 @@ def test_precompute_edge_kernel_jax_positional_call(mode, kernel_dtype):
         assert a[0].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("mode", ["edge3d", "factored", "lut"])
+@pytest.mark.parametrize("mode", ["edge3d", "factored", "lut", "edge"])
 def test_edges_sorted_changes_no_bit(mode):
     m = KernelNN(6, 6, 2, in_width=6, out_width=6)
     g = _graph(1)
@@ -91,3 +92,37 @@ def test_models_carry_edges_sorted_as_jax():
     assert view.fc1.weight is m.fc1.weight
     plain = torch.nn.Linear(2, 2)
     assert with_edges_sorted(plain) is plain
+
+
+@pytest.mark.parametrize("final", [None, "tanh"])
+def test_mlp_apply_final_activation_as_jax(final):
+    """``models.common.mlp_apply`` takes JAX's ``final_activation`` (after
+    the last layer when given): the same MLP gives JAX's output (float32,
+    1e-6 of the max)."""
+    import jax
+    import jax.numpy as jnp
+
+    from fast_eng_super_resolution_tpu.models import common as jcommon
+    from fast_eng_super_resolution_tpu_torch.models import common as tcommon
+
+    rng = np.random.default_rng(3)
+    sizes = [3, 5, 4]
+    x = rng.normal(size=(7, 3)).astype(np.float32)
+    ws = [(rng.normal(size=(a, b)).astype(np.float32),
+           rng.normal(size=(b,)).astype(np.float32))
+          for a, b in zip(sizes[:-1], sizes[1:])]
+    layers = torch.nn.ModuleList()
+    for w, b in ws:
+        lin = torch.nn.Linear(*w.shape)
+        with torch.no_grad():
+            lin.weight.copy_(torch.as_tensor(w.T))
+            lin.bias.copy_(torch.as_tensor(b))
+        layers.append(lin)
+    ref = np.asarray(jcommon.mlp_apply(
+        [{"w": jnp.asarray(w), "b": jnp.asarray(b)} for w, b in ws],
+        jnp.asarray(x), jax.nn.relu,
+        None if final is None else jnp.tanh))
+    with torch.no_grad():
+        got = tcommon.mlp_apply(layers, torch.as_tensor(x), torch.relu,
+                                None if final is None else torch.tanh)
+    assert np.abs(got.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()

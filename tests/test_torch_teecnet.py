@@ -70,7 +70,8 @@ def _t(*arrays):
     return tuple(torch.as_tensor(np.asarray(a)) for a in arrays)
 
 
-@pytest.mark.parametrize("mode", ["edge3d", "factored", "pallas", "lut"])
+@pytest.mark.parametrize("mode", ["edge3d", "factored", "pallas", "lut",
+                                  "edge"])
 def test_apply_matches_jax(mode):
     model, params = _jax_model_and_params(mode=mode)
     g = _padded_graph()
@@ -145,6 +146,117 @@ def test_apply_fused_ad_grads_match_jax():
         got = p.grad.numpy().T if transposed else p.grad.numpy()
         err = np.linalg.norm(got - want[key]) / np.linalg.norm(want[key])
         assert err < 1e-4, (key, err)
+
+
+def test_edge_mode_grads_match_jax():
+    """TEECNet in conv mode 'edge': ``jax.grad`` of the JAX model's
+    ``apply`` in the same mode against the port's autograd, same weights,
+    float32: loss within 1e-5 relative, each gradient within 1e-4 of its
+    norm."""
+    model, params = _jax_model_and_params(6, mode="edge")
+    g = _padded_graph(6)
+    y = np.random.default_rng(6).normal(size=g.x.shape).astype(np.float32)
+    args = (g.x, g.senders, g.receivers, g.edge_attr)
+
+    def loss_jax(p):
+        out = model.apply(p, *(jnp.asarray(a) for a in args),
+                          edge_mask=jnp.asarray(g.edge_mask))
+        return jnp.sum((out - y) ** 2)
+
+    ref, ref_grads = jax.value_and_grad(loss_jax)(params)
+    port = _port(params, "edge")
+    out = port.apply(*_t(*args), edge_mask=torch.as_tensor(g.edge_mask))
+    loss = ((out - torch.as_tensor(y)) ** 2).sum()
+    loss.backward()
+    assert abs(float(loss.detach()) - float(ref)) <= 1e-5 * abs(float(ref))
+    want = flatten_params(jax.tree_util.tree_map(np.asarray, ref_grads))
+    for name, p in port.named_parameters():
+        key, transposed = port.jax_key(name)
+        got = p.grad.numpy().T if transposed else p.grad.numpy()
+        err = np.linalg.norm(got - want[key]) / np.linalg.norm(want[key])
+        assert err < 1e-4, (key, err)
+
+
+@pytest.mark.parametrize("kernel_dtype", [None, "bfloat16"])
+def test_edge_mode_conv_layer_matches_jax(kernel_dtype):
+    """One TEECNet-shaped conv layer in mode 'edge' (LeakyReLU operator
+    kernel, root on the pre-linear features) from a precomputed kernel,
+    float32 and bf16 per-edge matrices (the JAX TEECNet has no
+    ``kernel_dtype``; the layer takes one): output within 1e-5 of its max,
+    the gradients of x and of every kernel layer within 1e-4 of their
+    norms; and the port's contraction fed JAX's own precomputed matrices
+    (the same bf16 values) within 1e-5 of the max."""
+    from fast_eng_super_resolution_tpu.ops import message_passing as jmp
+    from fast_eng_super_resolution_tpu_torch.models.teecnet import _leaky_relu
+    from fast_eng_super_resolution_tpu_torch.ops import message_passing as tmp
+
+    rng = np.random.default_rng(8)
+    g = _padded_graph(8)
+    c, sizes = 6, [1, 16, 6 * 6]
+    x = rng.normal(size=(g.x.shape[0], c)).astype(np.float32)
+    xr = rng.normal(size=(g.x.shape[0], c)).astype(np.float32)
+    root = (rng.normal(size=(c, c)) * 0.3).astype(np.float32)
+    bias = rng.normal(size=(c,)).astype(np.float32)
+    layers = [((rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32),
+               (rng.normal(size=(b,)) * 0.1).astype(np.float32))
+              for a, b in zip(sizes[:-1], sizes[1:])]
+    tgt = rng.normal(size=(g.x.shape[0], c)).astype(np.float32)
+    graph = (g.senders, g.receivers, g.edge_attr)
+
+    def jax_pre(mlp):
+        return jmp.precompute_edge_kernel(
+            mlp, jnp.asarray(g.edge_attr), jax.nn.leaky_relu, "edge",
+            kernel_dtype=kernel_dtype)
+
+    def jax_loss(xj, mlp):
+        pre = jax_pre(mlp)
+        out = jmp.edge_conditioned_conv(
+            xj, *(jnp.asarray(a) for a in graph), mlp, jnp.asarray(root),
+            jnp.asarray(bias), edge_mask=jnp.asarray(g.edge_mask),
+            activation=jax.nn.leaky_relu, mode="edge",
+            root_input=jnp.asarray(xr), precomputed=pre)
+        return jnp.sum((out - tgt) ** 2), out
+
+    jmlp = [{"w": jnp.asarray(w), "b": jnp.asarray(b)} for w, b in layers]
+    (ref, ref_out), (gx, gmlp) = jax.value_and_grad(
+        jax_loss, argnums=(0, 1), has_aux=True)(jnp.asarray(x), jmlp)
+    tlayers = torch.nn.ModuleList()
+    for w, b in layers:
+        lin = torch.nn.Linear(*w.shape)
+        with torch.no_grad():
+            lin.weight.copy_(torch.as_tensor(w.T))
+            lin.bias.copy_(torch.as_tensor(b))
+        tlayers.append(lin)
+    xt = torch.tensor(x, requires_grad=True)
+    pre = tmp.precompute_edge_kernel(tlayers, torch.as_tensor(g.edge_attr),
+                                     _leaky_relu, "edge",
+                                     kernel_dtype=kernel_dtype)
+    out = tmp.edge_conditioned_conv(
+        xt, *_t(*graph), tlayers, torch.as_tensor(root),
+        torch.as_tensor(bias), edge_mask=torch.as_tensor(g.edge_mask),
+        activation=_leaky_relu, mode="edge", root_input=torch.as_tensor(xr),
+        precomputed=pre)
+    assert _rel(out.detach().numpy(), ref_out) < TOL
+    loss = ((out - torch.as_tensor(tgt)) ** 2).sum()
+    loss.backward()
+    assert abs(float(loss.detach()) - float(ref)) <= 1e-5 * abs(float(ref))
+    pairs = [(xt.grad.numpy(), gx)]
+    for lin, gl in zip(tlayers, gmlp):
+        pairs += [(lin.weight.grad.numpy().T, gl["w"]),
+                  (lin.bias.grad.numpy(), gl["b"])]
+    for got, want in pairs:
+        want = np.asarray(want)
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-4
+    mode, w_j = jax_pre(jmlp)
+    assert pre[0] == mode == "edge" and pre[1].shape == w_j.shape
+    shared = torch.as_tensor(np.asarray(w_j, np.float32)).to(pre[1].dtype)
+    with torch.no_grad():
+        out = tmp.edge_conditioned_conv(
+            torch.as_tensor(x), *_t(*graph), tlayers, torch.as_tensor(root),
+            torch.as_tensor(bias), edge_mask=torch.as_tensor(g.edge_mask),
+            activation=_leaky_relu, mode="edge",
+            root_input=torch.as_tensor(xr), precomputed=(mode, shared))
+    assert _rel(out.numpy(), ref_out) < TOL
 
 
 def test_weight_layouts_round_trip_and_check_shapes():
