@@ -5,13 +5,14 @@ non-zero without the final result line:
 
 1. device  — needs CUDA; prints the card's name and power limit.
 2. build   — compiles the five kernels' nine libraries (the forward B1 as
-             csrc/fused_edge_conv.cu, float32 FMAs, and
-             csrc/fused_edge_conv_wgmma.cu, bfloat16 on the tensor cores; the
-             backward B2 as csrc/fused_edge_conv_bwd.cu and
-             csrc/fused_edge_conv_bwd_wgmma.cu; their rank-r counterparts B3
-             as csrc/fused_edge_conv_lowrank.cu and
-             csrc/fused_edge_conv_lowrank_wgmma.cu and B4 as
-             csrc/fused_edge_conv_lowrank_bwd.cu and
+             csrc/fused_edge_conv_wgmma.cu, bfloat16 on the tensor cores, and
+             csrc/fused_edge_conv_f32_wgmma.cu, float32 on the tensor cores
+             through exact three-part bf16 splits; the backward B2 as
+             csrc/fused_edge_conv_bwd_wgmma.cu and
+             csrc/fused_edge_conv_bwd_f32_wgmma.cu, the same way; their
+             rank-r counterparts B3 as csrc/fused_edge_conv_lowrank.cu,
+             float32 FMAs, and csrc/fused_edge_conv_lowrank_wgmma.cu and B4
+             as csrc/fused_edge_conv_lowrank_bwd.cu and
              csrc/fused_edge_conv_lowrank_bwd_wgmma.cu; and B5, the
              per-edge messages of conv mode 'pallas', float32 on the tensor
              cores through exact bf16 splits as
@@ -21,10 +22,10 @@ non-zero without the final result line:
 3. kernel  — B1 against its plain PyTorch version on the card, at the
              full-size serving chunk shape, on operands from the real dataset
              chunk: float32 (TF32 off) and bfloat16, compact and dense S,
-             each line naming the design that ran (``design=wgmma`` for
-             bfloat16 B1/B2, and B3/B4 at rank 16; ``fma`` otherwise, as
-             ``fused_conv.design`` says); a tensor-core launch is repeated
-             and must give the same bits.
+             each line naming the design that ran (``design=wgmma`` for B1/B2
+             in both types and for bfloat16 B3/B4 at rank 16; ``fma`` for
+             float32 B3/B4, as ``fused_conv.design`` says); a tensor-core
+             launch is repeated and must give the same bits.
 4. bwd     — B2 against its plain version at the same shape and operands with
              a seeded output gradient, both types and both S forms (repeated
              as B1); then the differentiable layer's gradients on the card
@@ -46,11 +47,13 @@ non-zero without the final result line:
              steps times and B1 depth x (steps + validations), a checkpoint
              written, then served to a finite .vtu.
 7. parity  — three float32 fused train steps on the small mesh on the card
-             (kernels) and on the CPU (plain versions), same weights: the
-             losses agree.
+             (kernels, each launched depth times a step and no other) and
+             on the CPU (plain versions), same weights: the losses agree.
 8. times   — CUDA-event medians of both kernels and their plain versions, the
              warm wall time of one full-size request and of one fused train
-             step, and profiles of both.
+             step, and profiles of both.  A float32 kernel on the tensor
+             cores is bound by the lesser of float32 FMAs and six bf16
+             passes (``bound_basis``; ``bound_fma_ms`` the former).
 
 Phases 3-8 then run again for the rank-16 path, the same config with
 ``kernel_rank: 16`` (edge-MLP head 2 x 16 x 48 = 1536 columns, factorized
@@ -622,9 +625,9 @@ def layer(op, gemm_dtype, plain=False, dense=False):
 
 
 def design_of(op, gemm_dtype: str) -> str:
-    """The design the kernel of ``op`` runs in ``gemm_dtype``: bfloat16 on
-    the tensor cores ('wgmma': B1/B2, and B3/B4 at a rank that is a multiple
-    of 8), else ('fma') float32 FMAs on the CUDA cores."""
+    """The design the kernel of ``op`` runs in ``gemm_dtype``: on the tensor
+    cores ('wgmma': B1/B2 in both types, and bfloat16 B3/B4 at a rank that
+    is a multiple of 8), else ('fma') float32 FMAs on the CUDA cores."""
     return fused_conv.design(getattr(torch, gemm_dtype), op["rank"])
 
 
@@ -644,9 +647,10 @@ def log_ptxas() -> None:
     """Registers and spills of the tensor-core kernels, as ptxas reported
     them when the libraries were built (and any wgmma serialization it
     warned of), and their blocks per SM at width 48 and K 48 and 128
-    (B1/B2, B5) and at K 48, rank 16 (B3/B4)."""
+    (B1/B2 in both types, B5) and at K 48, rank 16 (B3/B4)."""
     import re
     for lib in ("fused_edge_conv_wgmma", "fused_edge_conv_bwd_wgmma",
+                "fused_edge_conv_f32_wgmma", "fused_edge_conv_bwd_f32_wgmma",
                 "fused_edge_conv_lowrank_wgmma",
                 "fused_edge_conv_lowrank_bwd_wgmma",
                 "fused_edge_messages_wgmma"):
@@ -658,13 +662,15 @@ def log_ptxas() -> None:
                           r"(lowrank_fwd_wgmma|lowrank_bwd_rows_wgmma|"
                           r"lowrank_bwd_weights_wgmma|conv_fwd_wgmma|"
                           r"bwd_rows_wgmma|bwd_weights_wgmma|"
+                          r"conv_fwd_f32_wgmma|bwd_rows_f32_wgmma|"
+                          r"bwd_weights_f32_wgmma|"
                           r"messages_wgmma(?=I))"
                           r"(?:ILi(\d+)E)?(?:Li(\d+)E)?", line)
             if m:
                 arg = m.group(2)
                 if arg and m.group(1).startswith("lowrank"):
                     arg = f"r{8 * int(arg)}"  # the template's r / 8
-                if m.group(3):  # B5: N = c_out padded, S k16 steps of c_in
+                if m.group(3):  # B5, float32 B1/B2: N, then S k16 steps
                     arg = f"N{arg},S{m.group(3)}"
                 name = m.group(1) + (f"<{arg}>" if arg else "")
                 continue
@@ -680,6 +686,9 @@ def log_ptxas() -> None:
                 name = None
     for k in (48, 128):
         log("ptxas", k=k, c=48, blocks_per_sm=fused_conv.occupancy(k, 48, 48))
+        for lib in ("fused_edge_conv_f32_wgmma", "fused_edge_conv_bwd_f32_wgmma"):
+            log("ptxas", lib=lib, k=k, c=48, smem_bytes=getattr(
+                fused_conv._load_kernel(lib), f"{lib}_smem_bytes")(k, 48, 48))
     log("ptxas", k=48, c=48, rank=RANK,
         blocks_per_sm=fused_conv.occupancy(48, 48, 48, rank=RANK))
     b5 = fused_conv._load_kernel("fused_edge_messages_wgmma")
@@ -824,12 +833,39 @@ def fwd_times(op, smi) -> dict:
                   + 4 * (op["b3"].numel() + op["sp"].numel()
                          + op["s"].slot_rows.numel() + op["s"].row_weight.numel()
                          + (slots // op["blk"]) * op["rows_blk"] * c))
-        t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
-        t[f"bound_ms_{dt}"] = max(t_ops, t_bytes) * 1e3
-        t[f"bound_by_{dt}"] = "operations" if t_ops >= t_bytes else "bytes"
-        t[f"flops_{dt}"], t[f"bytes_{dt}"] = flops, nbytes
+        t.update(typed(bound(flops, nbytes, dt, split_of(op, dt)), dt))
     log_times(op["tag"] + "times", "fwd", t, smi)
     return t
+
+
+def bound(flops: int, nbytes: int, dt: str, split: bool) -> dict:
+    """The least time for ``flops`` operations on ``dt`` inputs and
+    ``nbytes`` moved once: the operations at the type's dense peak or, for a
+    float32 kernel on the tensor cores (``split``: exact through three-part
+    bf16 splits), the lesser of float32 FMAs and six bf16 passes
+    (``bound_basis``; ``bound_fma_ms`` the FMAs' bound), against the bytes
+    at the HBM rate."""
+    t_fma = flops / PEAK_FLOPS[dt]
+    t_ops = min(t_fma, 6 * flops / PEAK_FLOPS["bfloat16"]) if split else t_fma
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    out = dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               flops=flops, bytes=nbytes)
+    if split:
+        out.update(bound_basis=("six bf16 passes" if t_ops < t_fma
+                                else "float32 FMA"),
+                   bound_fma_ms=max(t_fma, t_bytes) * 1e3)
+    return out
+
+
+def split_of(op, dt: str) -> bool:
+    """Whether the kernel of ``op`` runs float32 on the tensor cores."""
+    return dt == "float32" and design_of(op, dt) == "wgmma"
+
+
+def typed(t: dict, dt: str) -> dict:
+    """``t``'s keys suffixed with the type ``dt``."""
+    return {f"{key}_{dt}": v for key, v in t.items()}
 
 
 def log_times(label: str, kernel: str, t: dict, smi) -> None:
@@ -1162,9 +1198,12 @@ def phase_train(root: str, datasets: dict, cfgs: dict, tag: str = "") -> dict:
 
 
 def phase_parity(small_merged, cfg: dict) -> None:
-    """Three float32 fused train steps on the card (kernels) and on the CPU
+    """Three float32 fused train steps on the card (kernels, depth launches
+    of the forward and of the backward kernel per step) and on the CPU
     (plain versions), from the same seeded weights."""
     lr = load_yaml(cfg["train_config"])["lr"]
+    rank = cfg.get("kernel_rank")
+    kernels = (FWD[rank is not None][0], BWD[rank is not None][0])
     losses = {}
     for dev in ("cuda", "cpu"):
         model = make_model(cfg)
@@ -1173,7 +1212,15 @@ def phase_parity(small_merged, cfg: dict) -> None:
                           fused_rows_blk=rows_blk, fused_blk=blk,
                           fused_dtype="float32")
         opt = trainer.init()
+        reset_launches()
         losses[dev] = [float(trainer.step(opt, fb)) for _ in range(3)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            want = {k: 3 * cfg["num_layers"] for k in kernels}
+            check_only(prefix(model) + "parity", want)
+            log(prefix(model) + "parity", dtype="float32",
+                design=fused_conv.design(torch.float32, rank),
+                **launches_of(*kernels))
     for step, (a, b) in enumerate(zip(losses["cuda"], losses["cpu"])):
         rel = abs(a - b) / abs(b)
         log(prefix(model) + "parity", step=step,
@@ -1218,10 +1265,7 @@ def phase_bwd_times(bop, smi) -> dict:
         nbytes = (size * (slots * k + slots * c + k * ncol)
                   + 4 * (rows * c + ncol + slots + rows)      # g, b3, S
                   + 4 * (slots * k + slots * c + k * ncol + ncol))  # outputs
-        t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
-        t[f"bound_ms_{dt}"] = max(t_ops, t_bytes) * 1e3
-        t[f"bound_by_{dt}"] = "operations" if t_ops >= t_bytes else "bytes"
-        t[f"flops_{dt}"], t[f"bytes_{dt}"] = flops, nbytes
+        t.update(typed(bound(flops, nbytes, dt, split_of(bop, dt)), dt))
     log_times(bop["tag"] + "times", "bwd", t, smi)
     return t
 
@@ -1381,15 +1425,8 @@ def phase_messages(ops: dict, smi) -> dict:
         # once and the messages written once
         flops = 2 * e * (k + 1) * c_in * c_out
         nbytes = 4 * (e * k + e * c_in + w3.numel() + b3.numel() + e * c_out)
-        t_fma = flops / PEAK_FLOPS["float32"]
-        t_ops = min(t_fma, 6 * flops / PEAK_FLOPS["bfloat16"])
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t.update(bound_ms=max(t_ops, t_bytes) * 1e3,
-                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                 bound_basis=("six bf16 passes" if t_ops < t_fma
-                              else "float32 FMA"),
-                 bound_fma_ms=max(t_fma, t_bytes) * 1e3,
-                 flops=flops, bytes=nbytes, max_abs_err=abs_err, k=k)
+        t.update(bound(flops, nbytes, "float32", split=True),
+                 max_abs_err=abs_err, k=k)
         log_times("messages", f"b5_k{k}", t, smi)
         out[label] = t
     return out
@@ -3584,12 +3621,13 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
     """The forward's and the backward's entries of the kernels JSON line,
     tagged with the ``path`` that ran them."""
     pkg = "fast_eng_super_resolution_tpu_torch/csrc/"
-    # the bfloat16 numbers are the tensor-core design's, in its own source
-    # (B3/B4 at a rank that is a multiple of 8); the float32 ones the FMA
-    # design's
-    suffix = {"bfloat16": "", "float32": ""}
-    if fused_conv.design(torch.bfloat16, rank) == "wgmma":
-        suffix["bfloat16"] = "_wgmma"
+    # each type's numbers are its design's, in its own source: on the tensor
+    # cores csrc/<name>_wgmma.cu (bfloat16) or csrc/<name>_f32_wgmma.cu
+    # (float32 B1/B2), else the FMA design's csrc/<name>.cu
+    suffix = {dt: "" for dt in ("bfloat16", "float32")}
+    for dt in suffix:
+        if fused_conv.design(getattr(torch, dt), rank) == "wgmma":
+            suffix[dt] = ("_f32" if dt == "float32" else "") + "_wgmma"
     if rank is None:
         names, lines = ("fused_edge_conv", "fused_edge_conv_bwd"), (322, 442)
     else:
@@ -3620,12 +3658,13 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
             "bound_ms": times["bound_ms_bfloat16"],
             "bound_by": times["bound_by_bfloat16"],
             "library_ms": None,
-            "float32": {"source": pkg + name + ".cu", "design": "fma",
+            "float32": {"source": pkg + name + suffix["float32"] + ".cu",
+                        "design": "wgmma" if suffix["float32"] else "fma",
                         "max_abs_err": errs["float32"],
-                        "ms": times["ms_float32"],
-                        "plain_ms": times["plain_ms_float32"],
-                        "bound_ms": times["bound_ms_float32"],
-                        "bound_by": times["bound_by_float32"]},
+                        **{key: times[f"{key}_float32"] for key in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "bound_basis", "bound_fma_ms")
+                           if f"{key}_float32" in times}},
             **extra,
             "card": smi,
         })

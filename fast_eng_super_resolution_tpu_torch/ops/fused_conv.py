@@ -14,19 +14,21 @@ into row blocks (``build_scatter_blocks``, identical to the JAX package's):
 a fixed ``blk`` slots, and the scatter-mean given as S (dense
 [num_blocks*rows_blk, blk], or its ``CompactS`` generators).
 
-On a CUDA tensor the layer launches the hand-written kernel in
-``csrc/fused_edge_conv.cu`` (built with nvcc at first use, loaded with
-ctypes); on a CPU tensor it runs the plain PyTorch version below, which is
-the same function and the reference the kernel is checked against.  Nothing
-falls back from one to the other.  Training goes through ``FusedEdgeConv``,
-whose backward is the kernel in ``csrc/fused_edge_conv_bwd.cu`` (or its plain
-version, ``fused_edge_conv_bwd_plain``, on the CPU).  Models with rank-r
-factorized edge kernels (``kernel_rank``) run ``fused_edge_conv_lowrank``
-(``csrc/fused_edge_conv_lowrank.cu``) and train through
-``FusedEdgeConvLowrank``, whose backward is
-``csrc/fused_edge_conv_lowrank_bwd.cu``.  Each of the four kernels also has
-a bfloat16 instance on the tensor cores (``csrc/*_wgmma.cu``); ``design``
-says which one a launch runs.
+On a CUDA tensor the layer launches a hand-written kernel on Hopper's
+tensor cores (built with nvcc at first use, loaded with ctypes):
+``csrc/fused_edge_conv_wgmma.cu`` for bfloat16, and for float32
+``csrc/fused_edge_conv_f32_wgmma.cu``, exact to float32 through three-part
+bf16 splits.  On a CPU tensor it runs the plain PyTorch version below, which
+is the same function and the reference the kernels are checked against.
+Nothing falls back from one to the other.  Training goes through
+``FusedEdgeConv``, whose backward is ``csrc/fused_edge_conv_bwd_wgmma.cu``
+or ``csrc/fused_edge_conv_bwd_f32_wgmma.cu`` (or its plain version,
+``fused_edge_conv_bwd_plain``, on the CPU).  Models with rank-r factorized
+edge kernels (``kernel_rank``) run ``fused_edge_conv_lowrank``
+(``csrc/fused_edge_conv_lowrank.cu``, float32 FMAs, and a bfloat16
+instance on the tensor cores) and train through ``FusedEdgeConvLowrank``,
+whose backward is ``csrc/fused_edge_conv_lowrank_bwd.cu`` (and its
+bfloat16 tensor-core instance).  ``design`` says which one a launch runs.
 """
 
 from __future__ import annotations
@@ -218,14 +220,15 @@ def prepare_fused_train(senders, receivers, edge_attr, n_nodes,
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-# library -> its source: B1 (forward) and B2 (backward), their rank-r
-# counterparts B3 and B4, each as a float32 FMA instance and a bfloat16
-# tensor-core (wgmma) instance, and B5, the per-edge messages of
-# ops/pallas_mp.py (float32, on the tensor cores through split bf16
-# operands)
-_SOURCES = {"fused_edge_conv": "fused_edge_conv.cu",
+# library -> its source: B1 (forward) and B2 (backward) as a bfloat16
+# and a float32 tensor-core (wgmma) instance, the float32 one exact through
+# split bf16 operands; their rank-r counterparts B3 and B4 as a float32 FMA
+# instance and a bfloat16 tensor-core instance; and B5, the per-edge
+# messages of ops/pallas_mp.py (float32, on the tensor cores through split
+# bf16 operands)
+_SOURCES = {"fused_edge_conv_f32_wgmma": "fused_edge_conv_f32_wgmma.cu",
             "fused_edge_conv_wgmma": "fused_edge_conv_wgmma.cu",
-            "fused_edge_conv_bwd": "fused_edge_conv_bwd.cu",
+            "fused_edge_conv_bwd_f32_wgmma": "fused_edge_conv_bwd_f32_wgmma.cu",
             "fused_edge_conv_bwd_wgmma": "fused_edge_conv_bwd_wgmma.cu",
             "fused_edge_conv_lowrank": "fused_edge_conv_lowrank.cu",
             "fused_edge_conv_lowrank_wgmma": "fused_edge_conv_lowrank_wgmma.cu",
@@ -309,9 +312,11 @@ def build_kernel(force: bool = False) -> list[str]:
 # arguments), then the size query's int arguments; every launcher takes the
 # stream as its last argument and returns the cudaError_t
 _BINDINGS = {
-    "fused_edge_conv": (("fused_edge_conv_forward", 9, 6), 3),
+    "fused_edge_conv_f32_wgmma": (("fused_edge_conv_f32_wgmma_forward", 10,
+                                   7), 3),
     "fused_edge_conv_wgmma": (("fused_edge_conv_wgmma_forward", 9, 7), 3),
-    "fused_edge_conv_bwd": (("fused_edge_conv_backward", 12, 6), 3),
+    "fused_edge_conv_bwd_f32_wgmma": ((
+        "fused_edge_conv_bwd_f32_wgmma_backward", 13, 6), 3),
     "fused_edge_conv_bwd_wgmma": (("fused_edge_conv_bwd_wgmma_backward", 12,
                                    6), 3),
     "fused_edge_conv_lowrank": (("fused_edge_conv_lowrank_forward", 9, 8), 4),
@@ -326,7 +331,7 @@ _BINDINGS = {
 }
 
 
-def _load_kernel(name: str = "fused_edge_conv"):
+def _load_kernel(name: str):
     """The library ``name`` (a key of ``_SOURCES``), building every library
     first if one is stale."""
     with _lib_lock:
@@ -436,27 +441,42 @@ def _s_pointers(s, slots: int, nb: int, rows_blk: int, blk: int) -> tuple:
 
 
 def design(dt: torch.dtype, rank: int | None = None) -> str:
-    """The design a kernel launches for GEMM type ``dt``: 'wgmma' (the
-    bfloat16 instances on the tensor cores, csrc/*_wgmma.cu) or 'fma'
-    (float32 FMAs on the CUDA cores).  B1 and B2 (``rank`` None) take
-    'wgmma' for bfloat16.  B3 and B4 (rank r) take it for bfloat16 at a rank
+    """The design a kernel launches for GEMM type ``dt``: 'wgmma' (on the
+    tensor cores, csrc/*_wgmma.cu) or 'fma' (float32 FMAs on the CUDA
+    cores).  B1 and B2 (``rank`` None) take 'wgmma' for both types: bfloat16
+    products, or float32 ones exact through three-part bf16 splits
+    (csrc/f32_wgmma.cuh).  B3 and B4 (rank r) take it for bfloat16 at a rank
     that is a multiple of 8 (8, 16, 24, 32), whose 128-column chunks of uv
     hold whole channels of 8-column groups (csrc/lowrank_wgmma.cuh); other
     ranks, and float32, run 'fma'."""
-    if dt != torch.bfloat16:
-        return "fma"
-    return "wgmma" if rank is None or rank % 8 == 0 else "fma"
+    if rank is None:
+        return "wgmma"
+    return "wgmma" if dt == torch.bfloat16 and rank % 8 == 0 else "fma"
 
 
-# B1's (and B3's) tensor-core blocks resident per SM (shared memory allows
-# 3-4 at width 48) and the waves of them a launch should fill
+def _conv_library(dt: torch.dtype, backward: bool = False) -> str:
+    """The library of B1 (B2 if ``backward``) for GEMM type ``dt``."""
+    name = "fused_edge_conv_bwd" if backward else "fused_edge_conv"
+    return name + ("_f32" if dt == torch.float32 else "") + "_wgmma"
+
+
+def image_numel(k: int, rows: int, depth: int) -> int:
+    """bf16 elements of the float32 B1's (B2's) stage image of [w3; b3]:
+    K+1 stages of three [rows rounded up to 8, depth rounded up to 16]
+    operands (csrc/f32_wgmma.cuh); B1's rows are c_out and its depth c_in,
+    B2's the other way round."""
+    return (k + 1) * 3 * _round_up(rows, 8) * _round_up(depth, 16)
+
+
+# The bfloat16 B1's (and B3's) tensor-core blocks resident per SM (shared
+# memory allows 3-4 at width 48) and the waves of them a launch should fill
 _FWD_BLOCKS_PER_SM = 3
 _FWD_WAVES = 2
 
 
 def conv_parts(num_blocks: int, tiles_per_block: int, sms: int) -> int:
-    """Parts each receiver block's slot walk is split into for the bfloat16
-    B1 and B3: enough blocks for ``_FWD_WAVES`` waves of ``_FWD_BLOCKS_PER_SM``
+    """Parts each receiver block's slot walk is split into for B1 and the
+    bfloat16 B3: enough blocks for ``_FWD_WAVES`` waves of ``_FWD_BLOCKS_PER_SM``
     per SM, at most one part per 64-slot tile, at least one part."""
     target = sms * _FWD_BLOCKS_PER_SM * _FWD_WAVES
     return max(1, min(tiles_per_block, -(-target // num_blocks)))
@@ -470,8 +490,8 @@ def part_bounds(tiles_per_block: int, parts: int) -> list:
 
 
 def weight_tiles(k: int, c_in: int, c_out: int) -> tuple:
-    """(column tiles, row tiles) of the bfloat16 B2 weights kernel's output
-    [K, c_in*c_out]: 128 columns by 64 rows of K each."""
+    """(column tiles, row tiles) of the B2 weights kernel's output [K,
+    c_in*c_out] (both types): 128 columns by 64 rows of K each."""
     return -(-c_in * c_out // 128), -(-k // 64)
 
 
@@ -488,18 +508,22 @@ def _sms(device) -> int:
 
 def occupancy(k: int, c_in: int, c_out: int,
               rank: int | None = None) -> dict:
-    """Thread blocks of each bfloat16 tensor-core kernel that one SM of the
-    current card holds at once at these widths (the CUDA runtime's
-    occupancy query, with each kernel's shared memory): B1's and B2's, or
-    at a ``rank`` B3's and B4's."""
+    """Thread blocks of each tensor-core kernel that one SM of the current
+    card holds at once at these widths (the CUDA runtime's occupancy query,
+    with each kernel's shared memory): B1's and B2's in bfloat16 and (keys
+    ending ``_f32``) in float32, or at a ``rank`` the bfloat16 B3's and
+    B4's."""
     if rank is None:
-        fwd = _load_kernel("fused_edge_conv_wgmma")
-        bwd = _load_kernel("fused_edge_conv_bwd_wgmma")
-        return {"fwd": fwd.fused_edge_conv_wgmma_blocks_per_sm(k, c_in, c_out),
-                "bwd_rows": bwd.fused_edge_conv_bwd_wgmma_blocks_per_sm(
-                    k, c_in, c_out, 0),
-                "bwd_weights": bwd.fused_edge_conv_bwd_wgmma_blocks_per_sm(
-                    k, c_in, c_out, 1)}
+        out = {}
+        for dt, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+            fwd, bwd = _conv_library(dt), _conv_library(dt, backward=True)
+            query = getattr(_load_kernel(bwd), f"{bwd}_blocks_per_sm")
+            out.update({
+                "fwd" + suffix: getattr(_load_kernel(fwd),
+                                        f"{fwd}_blocks_per_sm")(k, c_in, c_out),
+                "bwd_rows" + suffix: query(k, c_in, c_out, 0),
+                "bwd_weights" + suffix: query(k, c_in, c_out, 1)})
+        return out
     fwd = _load_kernel("fused_edge_conv_lowrank_wgmma")
     bwd = _load_kernel("fused_edge_conv_lowrank_bwd_wgmma")
     query = bwd.fused_edge_conv_lowrank_bwd_wgmma_blocks_per_sm
@@ -512,13 +536,15 @@ def occupancy(k: int, c_in: int, c_out: int,
 def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
                          c_in: int, c_out: int, rows_blk: int,
                          blk: int) -> torch.Tensor:
-    """Launches the CUDA kernel on the current stream: the tensor-core
-    design for bfloat16, the FMA design for float32 (``design``).
-    h_blocked, x and w3 share one dtype (the GEMM input type); b3 and S are
-    float32, index arrays int32.  Checks every operand and raises on what the
-    kernel does not take; raises if the launch fails.  The bfloat16 kernel
-    splits each receiver block's slot walk into ``conv_parts`` parts whose
-    partial sums are added here in a fixed order."""
+    """Launches the CUDA kernel on the current stream, on the tensor cores
+    for both types (``design``): csrc/fused_edge_conv_wgmma.cu for
+    bfloat16, csrc/fused_edge_conv_f32_wgmma.cu for float32 (after its
+    first launch, the stage image of w3 and b3, into scratch).  h_blocked,
+    x and w3 share one dtype (the GEMM input type); b3 and S are float32,
+    index arrays int32.  Checks every operand and raises on what the kernel
+    does not take; raises if the launch fails.  The kernel splits each
+    receiver block's slot walk into ``conv_parts`` parts whose partial sums
+    are added here in a fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
     _check_geometry(dt, slots, rows_blk, blk, k_max=128, K=k, c_in=c_in,
@@ -536,21 +562,20 @@ def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
                     ("b3", b3)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
-    wgmma = design(dt) == "wgmma"
-    name = "fused_edge_conv_wgmma" if wgmma else "fused_edge_conv"
+    name = _conv_library(dt)
     lib = _load_kernel(name)
-    parts = conv_parts(nb, blk // 64, _sms(dev)) if wgmma else 1
+    parts = conv_parts(nb, blk // 64, _sms(dev))
     out = torch.empty((parts, nb * rows_blk, c_out), dtype=torch.float32,
                       device=dev)
-    args = (h_blocked.data_ptr(), x.data_ptr(), senders_perm.data_ptr(),
-            w3.data_ptr(), b3.data_ptr(), *ptrs, out.data_ptr(), nb, blk, k,
-            c_in, c_out, n)
+    if dt == torch.float32:  # scratch: the stage image of w3 and b3
+        image = torch.empty(image_numel(k, c_out, c_in), dtype=torch.bfloat16,
+                            device=dev)
+        ptrs = (*ptrs, image.data_ptr())
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if wgmma:
-            err = lib.fused_edge_conv_wgmma_forward(*args, parts, stream)
-        else:
-            err = lib.fused_edge_conv_forward(*args, stream)
+        err = getattr(lib, _BINDINGS[name][0][0])(
+            h_blocked.data_ptr(), x.data_ptr(), senders_perm.data_ptr(),
+            w3.data_ptr(), b3.data_ptr(), *ptrs, out.data_ptr(), nb, blk, k,
+            c_in, c_out, n, parts, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         smem = getattr(lib, f"{name}_smem_bytes")(k, c_in, c_out)
         raise RuntimeError(
@@ -636,14 +661,15 @@ def _weight_splits(slots: int, tiles: int, device) -> int:
 
 def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
                              c_out: int, rows_blk: int, blk: int):
-    """Launches the backward kernels on the current stream: the tensor-core
-    design (csrc/fused_edge_conv_bwd_wgmma.cu) for bfloat16, the FMA design
-    (csrc/fused_edge_conv_bwd.cu) for float32 (``design``).  h_blocked,
-    x_src and w3 share one dtype (the GEMM input type); g, b3 and S are
-    float32, slot_rows int32.  Checks every operand and raises on what the
-    kernel does not take; raises if the launch fails.  Returns (dh, dx_src,
-    dw3, db3), float32; dw3/db3 are the kernel's per-split partials summed in
-    a fixed order."""
+    """Launches the backward kernels on the current stream, on the tensor
+    cores for both types (``design``): csrc/fused_edge_conv_bwd_wgmma.cu
+    for bfloat16, csrc/fused_edge_conv_bwd_f32_wgmma.cu for float32 (after
+    the stage image of w3 and b3, into scratch).  h_blocked, x_src and w3
+    share one dtype (the GEMM input type); g, b3 and S are float32,
+    slot_rows int32.  Checks every operand and raises on what the kernel
+    does not take; raises if the launch fails.  Returns (dh, dx_src, dw3,
+    db3), float32; dw3/db3 are the kernel's per-split partials summed in a
+    fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
     _check_geometry(dt, slots, rows_blk, blk, k_max=128, K=k, c_in=c_in,
@@ -659,20 +685,20 @@ def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
     for name, t in (("g", g), ("x_src", x_src), ("w3", w3), ("b3", b3)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
-    wgmma = design(dt) == "wgmma"
-    name = "fused_edge_conv_bwd_wgmma" if wgmma else "fused_edge_conv_bwd"
+    name = _conv_library(dt, backward=True)
     lib = _load_kernel(name)
     f32 = dict(dtype=torch.float32, device=dev)
     dh = torch.empty((slots, k), **f32)
     dx_src = torch.empty((slots, c_in), **f32)
     # scratch between the launches: dmsg, already rounded to the GEMM type
     dmsg = torch.empty((slots, c_out), dtype=dt, device=dev)
-    if wgmma:
-        col_tiles, row_tiles = weight_tiles(k, c_in, c_out)
-        splits = _weight_splits(slots, col_tiles * row_tiles, dev)
-    else:  # 4-channel tiles, times the K parts of at most 64 rows
-        splits = _weight_splits(slots, -(-c_in // 4) * -(-k // 64), dev)
+    col_tiles, row_tiles = weight_tiles(k, c_in, c_out)
+    splits = _weight_splits(slots, col_tiles * row_tiles, dev)
     partial = torch.empty((splits, k + 1, c2), **f32)
+    if dt == torch.float32:  # scratch: the stage image of w3 and b3
+        image = torch.empty(image_numel(k, c_in, c_out), dtype=torch.bfloat16,
+                            device=dev)
+        ptrs = (*ptrs, image.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, _BINDINGS[name][0][0])(

@@ -1,7 +1,7 @@
-"""The port's CUDA kernels (B1 forward, B2 backward, their rank-r
-counterparts B3 and B4, each in its float32 FMA and its bfloat16 tensor-core
-design, and B5, the per-edge messages) against their plain PyTorch versions,
-on the card.
+"""The port's CUDA kernels (B1 forward and B2 backward, on the tensor cores
+in bfloat16 and in float32; their rank-r counterparts B3 and B4, each in its
+float32 FMA and its bfloat16 tensor-core design; and B5, the per-edge
+messages) against their plain PyTorch versions, on the card.
 
 Every test here is marked ``gpu`` and skips on a machine without CUDA.  The
 file imports neither jax nor the test conftest's JAX setup, so it runs where
@@ -225,15 +225,16 @@ def test_k_limits_of_b1_and_b2(cuda):
             t(b3), blocks.compact_s.to("cuda"), **kw)
 
 
-# The bfloat16 B1 and B2 run on the tensor cores (csrc/*_wgmma.cu); the
-# float32 instances keep the FMA design.  Widths and K around wgmma's
+# The bfloat16 B1 and B2 run on the tensor cores (csrc/*_wgmma.cu), and so
+# do the float32 ones, exact through three-part bf16 splits
+# (csrc/*_f32_wgmma.cu; their cases follow).  Widths and K around wgmma's
 # granularity (N a multiple of 8, depth 16) and its K range.
 @pytest.mark.parametrize("compact", [True, False])
 @pytest.mark.parametrize("k", [1, 17, 48, 100, 128])
 @pytest.mark.parametrize("c", [5, 16, 48, 64])
 def test_wgmma_kernels_match_plain(cuda, c, k, compact):
     assert tfc.design(torch.bfloat16) == "wgmma"
-    assert tfc.design(torch.float32) == "fma"
+    assert tfc.design(torch.float32) == "wgmma"
     blocks, h, x, w3, b3 = _operands(c, k=k, seed=10 * c + k)
     got = _layer(blocks, h, x, w3, b3, c, "bfloat16", compact, "cuda")
     args = (blocks, _g(blocks, c, k + 1), h, x[blocks.senders_perm], w3, b3,
@@ -340,6 +341,114 @@ def test_fused_edge_conv_bf16_grads_on_card_match_cpu(cuda):
     for name, a, b in zip(("h", "x", "w3", "b3"), got, grads("cpu")):
         err = (a - b).abs().max().item() / b.abs().max().item()
         assert err < BWD_TOL, (name, err)
+
+
+def _f32_operands(c_in, c_out, k, seed, n=300, e=2500):
+    """_operands at c_in != c_out, with x_src and a seeded g for B2."""
+    rng = np.random.default_rng(seed)
+    recv = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    send = rng.integers(0, n, e).astype(np.int32)
+    blocks = tfc.build_scatter_blocks(recv, send, n, rng.random(e) > 0.2,
+                                      quantum=64)
+    slots = len(blocks.senders_perm)
+    ops = dict(h=np.maximum(rng.normal(size=(slots, k)), 0),
+               x=rng.normal(size=(n, c_in)),
+               w3=rng.normal(size=(k, c_in * c_out)) * 0.2,
+               b3=rng.normal(size=(c_in * c_out,)) * 0.1,
+               g=rng.normal(size=(blocks.n_pad, c_out)))
+    ops = {key: v.astype(np.float32) for key, v in ops.items()}
+    ops["x_src"] = ops["x"][blocks.senders_perm]
+    return blocks, ops
+
+
+def _f32_both(blocks, o, c_in, c_out, compact, device):
+    """(B1's output, B2's four gradients) in float32 on ``device``."""
+    s = (blocks.compact_s.to(device) if compact
+         else torch.as_tensor(blocks.s_matrix, device=device))
+    t = {key: torch.as_tensor(v, device=device) for key, v in o.items()}
+    kw = dict(c_in=c_in, c_out=c_out, rows_blk=blocks.rows_blk,
+              blk=blocks.blk, gemm_dtype="float32")
+    fwd = tfc.fused_edge_conv(t["h"], t["x"], torch.as_tensor(
+        blocks.senders_perm, device=device), t["w3"], t["b3"], s, **kw)
+    return (fwd, *tfc.fused_edge_conv_bwd(t["g"], t["h"], t["x_src"], t["w3"],
+                                          t["b3"], s, **kw))
+
+
+def _hold_f32(got, ref):
+    for name, a, b in zip(("out", "dh", "dx_src", "dw3", "db3"), got, ref):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        err = (a.cpu() - b).abs().max().item() / b.abs().max().item()
+        assert err < (TOL if name == "out" else BWD_TOL), (name, err)
+
+
+# The float32 B1 and B2 on the tensor cores against their plain versions
+# (float32 on both sides, TF32 off): TOL and BWD_TOL, as for the bfloat16
+# instances.  Widths, K and c_in != c_out around wgmma's granularity (N a
+# multiple of 8, depth 16), both S forms.
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("k", [1, 17, 48, 100, 128])
+@pytest.mark.parametrize("c_in,c_out", [(5, 5), (16, 16), (48, 48), (64, 64),
+                                        (5, 24), (64, 8), (17, 40)])
+def test_f32_wgmma_kernels_match_plain(cuda, c_in, c_out, k, compact):
+    assert tfc.design(torch.float32) == "wgmma"
+    blocks, o = _f32_operands(c_in, c_out, k, seed=c_in + 7 * c_out + k)
+    fwd, bwd = tfc.fused_edge_conv.launches, tfc.fused_edge_conv_bwd.launches
+    got = _f32_both(blocks, o, c_in, c_out, compact, "cuda")
+    torch.cuda.synchronize()
+    assert tfc.fused_edge_conv.launches == fwd + 1
+    assert tfc.fused_edge_conv_bwd.launches == bwd + 1
+    _hold_f32(got, _f32_both(blocks, o, c_in, c_out, compact, "cpu"))
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("n", [300, 50])
+def test_f32_wgmma_kernels_padding_tiles_and_one_block(cuda, n, compact):
+    """The float32 instances at tiles of padding only (n = 300: the producer
+    and the consumers skip the same tiles) and at one receiver block (n =
+    50, one tile per part)."""
+    c, k = 24, 20
+    if n == 50:
+        blocks, h, x, w3, b3 = _operands(c, k=k, seed=31, n=50, e=700)
+        assert blocks.num_blocks == 1
+    else:
+        blocks, h, x, w3, b3 = _skewed_operands(c, k, seed=32, n=n)
+        pad_tiles = (blocks.compact_s.slot_rows.reshape(-1, 64) < 0).all(1)
+        assert pad_tiles.sum() >= blocks.blk // 64
+    o = dict(h=h, x=x, w3=w3, b3=b3, x_src=x[blocks.senders_perm],
+             g=_g(blocks, c, 33))
+    got = _f32_both(blocks, o, c, c, compact, "cuda")
+    torch.cuda.synchronize()
+    _hold_f32(got, _f32_both(blocks, o, c, c, compact, "cpu"))
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_f32_wgmma_kernels_bit_identical(cuda, compact):
+    """No atomics: two float32 launches on the same inputs give the same
+    bits."""
+    blocks, o = _f32_operands(48, 48, 128, seed=34)
+    runs = [_f32_both(blocks, o, 48, 48, compact, "cuda") for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_f32_wgmma_kernels_exact_at_extreme_scales(cuda):
+    """The three-part split is exact from about 1e-30 to 1e30: x scaled by
+    1e-20 and by 1e15 (and g by the inverse for B2) meets the same limits."""
+    blocks, o = _f32_operands(16, 16, 8, seed=35)
+    for scale in (1e-20, 1e15):
+        scaled = dict(o, x=o["x"] * np.float32(scale),
+                      x_src=o["x_src"] * np.float32(scale),
+                      g=o["g"] / np.float32(scale))
+        _hold_f32(_f32_both(blocks, scaled, 16, 16, True, "cuda"),
+                  _f32_both(blocks, scaled, 16, 16, True, "cpu"))
+
+
+def test_f32_wgmma_occupancy_query(cuda):
+    occ = tfc.occupancy(48, 48, 48)
+    for key in ("fwd", "bwd_rows", "bwd_weights", "fwd_f32", "bwd_rows_f32",
+                "bwd_weights_f32"):
+        assert occ[key] >= 1, (key, occ)
 
 
 def _messages_operands(e, k, c, seed):

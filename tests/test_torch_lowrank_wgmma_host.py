@@ -62,15 +62,16 @@ def lowrank_chunks(k, c_in, c_out, rank, backward=False):
 
 
 @pytest.mark.parametrize("dt,rank,want", [
-    (torch.bfloat16, None, "wgmma"), (torch.float32, None, "fma"),
+    (torch.bfloat16, None, "wgmma"), (torch.float32, None, "wgmma"),
     (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 16, "wgmma"),
     (torch.bfloat16, 24, "wgmma"), (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 3, "fma"), (torch.bfloat16, 12, "fma"),
     (torch.bfloat16, 1, "fma"), (torch.float32, 16, "fma"),
     (torch.float32, 3, "fma")])
 def test_design_by_type_and_rank(dt, rank, want):
-    """bfloat16 B1/B2 and bfloat16 B3/B4 at ranks that are a multiple of 8
-    take the tensor cores; float32 and the other ranks the FMA design."""
+    """B1/B2 in both types and bfloat16 B3/B4 at ranks that are a multiple
+    of 8 take the tensor cores; float32 B3/B4 and the other ranks the FMA
+    design."""
     assert tfc.design(dt, rank) == want
 
 

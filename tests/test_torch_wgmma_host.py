@@ -1,4 +1,5 @@
-"""Host-side pieces of the bfloat16 tensor-core B1 and B2 (csrc/*_wgmma.cu),
+"""Host-side pieces of the bfloat16 tensor-core B1 and B2 (csrc/*_wgmma.cu;
+the float32 ones are tests/test_torch_f32_wgmma_host.py's),
 on the CPU: the forward's split planner, the weights kernel's tiling and
 slot splits, the operand checks of the wrappers, and the exact hi/lo split
 of bf16 products that the weights kernel relies on."""
@@ -12,7 +13,7 @@ from fast_eng_super_resolution_tpu_torch.ops import fused_conv as tfc
 
 def test_design_by_type():
     assert tfc.design(torch.bfloat16) == "wgmma"
-    assert tfc.design(torch.float32) == "fma"
+    assert tfc.design(torch.float32) == "wgmma"
 
 
 # (num_blocks, tiles per receiver block, SMs): the serving chunk, KernelNN's
