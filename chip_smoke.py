@@ -4,18 +4,21 @@ Phases, each printing its own lines; any failure raises and the script exits
 non-zero without the final result line:
 
 1. device  — needs CUDA; prints the card's name and power limit.
-2. build   — compiles the five kernels' nine libraries (the forward B1 as
-             csrc/fused_edge_conv_wgmma.cu, bfloat16 on the tensor cores, and
-             csrc/fused_edge_conv_f32_wgmma.cu, float32 on the tensor cores
-             through exact three-part bf16 splits; the backward B2 as
+2. build   — compiles the five kernels' eleven libraries (the forward B1
+             as csrc/fused_edge_conv_wgmma.cu, bfloat16 on the tensor cores,
+             and csrc/fused_edge_conv_f32_wgmma.cu, float32 on the tensor
+             cores through exact three-part bf16 splits; the backward B2 as
              csrc/fused_edge_conv_bwd_wgmma.cu and
              csrc/fused_edge_conv_bwd_f32_wgmma.cu, the same way; their
-             rank-r counterparts B3 as csrc/fused_edge_conv_lowrank.cu,
-             float32 FMAs, and csrc/fused_edge_conv_lowrank_wgmma.cu and B4
-             as csrc/fused_edge_conv_lowrank_bwd.cu and
-             csrc/fused_edge_conv_lowrank_bwd_wgmma.cu; and B5, the
-             per-edge messages of conv mode 'pallas', float32 on the tensor
-             cores through exact bf16 splits as
+             rank-r counterparts B3 as csrc/fused_edge_conv_lowrank_wgmma.cu
+             and csrc/fused_edge_conv_lowrank_f32_wgmma.cu, and B4 as
+             csrc/fused_edge_conv_lowrank_bwd_wgmma.cu and
+             csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu, the same way at
+             ranks that are a multiple of 8, and as
+             csrc/fused_edge_conv_lowrank.cu and
+             csrc/fused_edge_conv_lowrank_bwd.cu, float32 FMAs, at the other
+             ranks; and B5, the per-edge messages of conv mode 'pallas',
+             float32 on the tensor cores through exact bf16 splits as
              csrc/fused_edge_messages_wgmma.cu) from the checkout, one nvcc
              each, started together; prints ptxas's registers and spills of the
              tensor-core kernels and their blocks per SM (``[ptxas]``).
@@ -23,9 +26,9 @@ non-zero without the final result line:
              full-size serving chunk shape, on operands from the real dataset
              chunk: float32 (TF32 off) and bfloat16, compact and dense S,
              each line naming the design that ran (``design=wgmma`` for B1/B2
-             in both types and for bfloat16 B3/B4 at rank 16; ``fma`` for
-             float32 B3/B4, as ``fused_conv.design`` says); a tensor-core
-             launch is repeated and must give the same bits.
+             and for B3/B4 at rank 16, in both types, as
+             ``fused_conv.design`` says); a tensor-core launch is repeated
+             and must give the same bits.
 4. bwd     — B2 against its plain version at the same shape and operands with
              a seeded output gradient, both types and both S forms (repeated
              as B1); then the differentiable layer's gradients on the card
@@ -47,8 +50,9 @@ non-zero without the final result line:
              steps times and B1 depth x (steps + validations), a checkpoint
              written, then served to a finite .vtu.
 7. parity  — three float32 fused train steps on the small mesh on the card
-             (kernels, each launched depth times a step and no other) and
-             on the CPU (plain versions), same weights: the losses agree.
+             (kernels, each launched depth times a step and no other, their
+             design and counts logged) and on the CPU (plain versions), same
+             weights: the losses agree.
 8. times   — CUDA-event medians of both kernels and their plain versions, the
              warm wall time of one full-size request and of one fused train
              step, and profiles of both.  A float32 kernel on the tensor
@@ -58,12 +62,15 @@ non-zero without the final result line:
 Phases 3-8 then run again for the rank-16 path, the same config with
 ``kernel_rank: 16`` (edge-MLP head 2 x 16 x 48 = 1536 columns, factorized
 edge kernels) and its depth cut to 2 to keep the run short: B3 and B4
-against their plain versions at the same shapes (``[lowrank_kernel]``,
-``[lowrank_bwd]``), serving with 4 B3 launches per full-size request and
-none of B1, training with B4 launched depth x steps
-times and neither B1 nor B2 (and the same training in float32, for its
-loss curve beside the bfloat16 one), card-vs-CPU parity, and their times
-(``[lowrank_*]`` lines).  They run a third time for TEECNet at the full
+against their plain versions at the same shapes in both types
+(``[lowrank_kernel]``, ``[lowrank_bwd]``; float32 on the tensor cores,
+``design=wgmma``, csrc/fused_edge_conv_lowrank_f32_wgmma.cu and
+csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu), serving with 4 B3 launches
+per full-size request and none of B1, training with B4 launched depth x
+steps times and neither B1 nor B2 (and the same training in float32, for
+its loss curve beside the bfloat16 one), card-vs-CPU parity (float32: 6 B3
+and 6 B4 launches), and their times (``[lowrank_*]`` lines; the float32
+bounds on the six-pass basis).  They run a third time for TEECNet at the full
 width of configs/exp_config/teecnet_ansys.yaml (width 48, 5 layers, edge MLP
 K = 128) on the same meshes (``[teecnet_*]`` lines): B1 and B2 at K = 128,
 10 B1 launches per full-size request, configs/train_config/teecnet.yaml cut
@@ -626,8 +633,8 @@ def layer(op, gemm_dtype, plain=False, dense=False):
 
 def design_of(op, gemm_dtype: str) -> str:
     """The design the kernel of ``op`` runs in ``gemm_dtype``: on the tensor
-    cores ('wgmma': B1/B2 in both types, and bfloat16 B3/B4 at a rank that
-    is a multiple of 8), else ('fma') float32 FMAs on the CUDA cores."""
+    cores ('wgmma': B1/B2, and B3/B4 at a rank that is a multiple of 8, in
+    both types), else ('fma') float32 FMAs on the CUDA cores."""
     return fused_conv.design(getattr(torch, gemm_dtype), op["rank"])
 
 
@@ -647,12 +654,15 @@ def log_ptxas() -> None:
     """Registers and spills of the tensor-core kernels, as ptxas reported
     them when the libraries were built (and any wgmma serialization it
     warned of), and their blocks per SM at width 48 and K 48 and 128
-    (B1/B2 in both types, B5) and at K 48, rank 16 (B3/B4)."""
+    (B1/B2 in both types, B5) and at K 48, rank 16 (B3/B4 in both
+    types)."""
     import re
     for lib in ("fused_edge_conv_wgmma", "fused_edge_conv_bwd_wgmma",
                 "fused_edge_conv_f32_wgmma", "fused_edge_conv_bwd_f32_wgmma",
                 "fused_edge_conv_lowrank_wgmma",
                 "fused_edge_conv_lowrank_bwd_wgmma",
+                "fused_edge_conv_lowrank_f32_wgmma",
+                "fused_edge_conv_lowrank_bwd_f32_wgmma",
                 "fused_edge_messages_wgmma"):
         name, spills = None, ("?", "?")
         for line in fused_conv.ptxas_report(lib).splitlines():
@@ -660,7 +670,9 @@ def log_ptxas() -> None:
                 log("ptxas", lib=lib, warning=repr(line.strip()[:200]))
             m = re.search(r"Function properties for \S*?"
                           r"(lowrank_fwd_wgmma|lowrank_bwd_rows_wgmma|"
-                          r"lowrank_bwd_weights_wgmma|conv_fwd_wgmma|"
+                          r"lowrank_bwd_weights_wgmma|lowrank_fwd_f32_wgmma|"
+                          r"lowrank_bwd_rows_f32_wgmma|"
+                          r"lowrank_bwd_weights_f32_wgmma|conv_fwd_wgmma|"
                           r"bwd_rows_wgmma|bwd_weights_wgmma|"
                           r"conv_fwd_f32_wgmma|bwd_rows_f32_wgmma|"
                           r"bwd_weights_f32_wgmma|"
@@ -670,7 +682,9 @@ def log_ptxas() -> None:
                 arg = m.group(2)
                 if arg and m.group(1).startswith("lowrank"):
                     arg = f"r{8 * int(arg)}"  # the template's r / 8
-                if m.group(3):  # B5, float32 B1/B2: N, then S k16 steps
+                    if m.group(3):  # float32 B3/B4: then S k16 steps
+                        arg += f",S{m.group(3)}"
+                elif m.group(3):  # B5, float32 B1/B2: N, then S k16 steps
                     arg = f"N{arg},S{m.group(3)}"
                 name = m.group(1) + (f"<{arg}>" if arg else "")
                 continue
@@ -691,6 +705,10 @@ def log_ptxas() -> None:
                 fused_conv._load_kernel(lib), f"{lib}_smem_bytes")(k, 48, 48))
     log("ptxas", k=48, c=48, rank=RANK,
         blocks_per_sm=fused_conv.occupancy(48, 48, 48, rank=RANK))
+    for lib in ("fused_edge_conv_lowrank_f32_wgmma",
+                "fused_edge_conv_lowrank_bwd_f32_wgmma"):
+        log("ptxas", lib=lib, k=48, c=48, rank=RANK, smem_bytes=getattr(
+            fused_conv._load_kernel(lib), f"{lib}_smem_bytes")(48, 48, 48, RANK))
     b5 = fused_conv._load_kernel("fused_edge_messages_wgmma")
     for k in (48, 128):
         log("ptxas", kernel="messages_wgmma", k=k, c=48,
@@ -1176,7 +1194,7 @@ def phase_train(root: str, datasets: dict, cfgs: dict, tag: str = "") -> dict:
     check_only(f"{label}: the trained checkpoint's request",
                {fwd: CHUNKS["full"] * depth})
     if rank is not None:
-        # the same training in float32 (the FMA kernels) from the same seed,
+        # the same training in float32 (the float32 kernels) from the same seed,
         # so that the loss curve at this lr can be told from bf16 rounding
         reset_launches()
         train_graph_ALDD(exp + "_f32", make_model(cfg), ds, 1, train_cfg,
@@ -1273,7 +1291,7 @@ def phase_bwd_times(bop, smi) -> dict:
 def phase_train_times(batches, cfg: dict, smi, tag: str | None = None) -> dict:
     """Warm wall time of one fused bf16 train step on the training batch
     (the 12 train subdomains merged at batch size 16), and one profiled
-    step."""
+    step; on the rank-r path also of one float32 step."""
     model, (fb, _), rows_blk, blk = batches
     s = fb["fused"]["s"]
     label = (prefix(model) if tag is None else tag) + "times"
@@ -1290,6 +1308,14 @@ def phase_train_times(batches, cfg: dict, smi, tag: str | None = None) -> dict:
     t = {"train_step_ms": warm_ms(step)}
     t.update({f"train_{k}": v for k, v in
               profile_call(step, label + "_train_step").items()})
+    if rank_of(model) is not None:
+        # the float32 step of the rank-r path (float32 B3/B4), as its
+        # float32 training runs it
+        trainer32 = Trainer(model, lr=load_yaml(cfg["train_config"])["lr"],
+                            layout="fused", fused_rows_blk=rows_blk,
+                            fused_blk=blk, fused_dtype="float32")
+        opt32 = trainer32.init(SEED)
+        t["train_step_ms_float32"] = warm_ms(lambda: trainer32.step(opt32, fb))
     log_times(label, "train_step", t, smi)
     return t
 
@@ -3623,7 +3649,7 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
     pkg = "fast_eng_super_resolution_tpu_torch/csrc/"
     # each type's numbers are its design's, in its own source: on the tensor
     # cores csrc/<name>_wgmma.cu (bfloat16) or csrc/<name>_f32_wgmma.cu
-    # (float32 B1/B2), else the FMA design's csrc/<name>.cu
+    # (float32), else the FMA design's csrc/<name>.cu
     suffix = {dt: "" for dt in ("bfloat16", "float32")}
     for dt in suffix:
         if fused_conv.design(getattr(torch, dt), rank) == "wgmma":

@@ -3,8 +3,8 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_edge_conv_bwd_jit
-// for bfloat16 operands (fused_edge_conv_bwd.cu keeps the float32 instance)
-// and computes the same function.  With the forward's notation, g the
+// for bfloat16 operands (fused_edge_conv_bwd_f32_wgmma.cu is the float32
+// instance) and computes the same function.  With the forward's notation, g the
 // gradient of its output and W~ = [[w3], [b3]] seen as [K+1, c_in, c_out]:
 //
 //   dmsg[e, o]   = sum_r S[r, e] g[r, o]                  (0 on padding)

@@ -4,7 +4,7 @@
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_jit
 // and computes the same function.  Slots are grouped as for the full-rank
-// layer (fused_edge_conv.cu): block b holds the slots whose receivers lie in
+// layer (fused_edge_conv_wgmma.cu): block b holds the slots whose receivers lie in
 // rows [64 b, 64 b + 64).  Per slot e the edge MLP's head gives
 // uv = h_e w3 + b3 of width r (c_in + c_out), read in the model's own column
 // layout (no permutation):
@@ -27,7 +27,7 @@
 // t, then a V chunk (output channels o0..) gives those channels' msg from the
 // finished t.  Each chunk is the GEMM [h, 1] @ [[w3 chunk], [b3 chunk]]
 // (64 slots x 128 columns x K+1, 4 x 8 outputs per thread, w3 chunk staged
-// in shared memory).  The scatter-mean is fused_edge_conv.cu's: one thread
+// in shared memory).  The scatter-mean is the full-rank layer's: one thread
 // block per 64-row receiver block, accumulating its rows in registers through
 // the S tile in a fixed order, no atomics; in CompactS mode a tile of padding
 // only is skipped.
@@ -37,10 +37,10 @@
 // (K + c_in) sizeof(T) + 8 bytes: at width 48, rank 16 that is ~150 kFLOP
 // against ~200 B, far above the H100's ridge, so the kernel is bounded by
 // operations.  This design runs them as float32 FMAs on the CUDA cores
-// (bf16 inputs are widened on load).  It serves float32, and bfloat16 at
-// ranks that are not a multiple of 8; bfloat16 at the other ranks runs on
-// the tensor cores (fused_edge_conv_lowrank_wgmma.cu; ops/fused_conv.py:
-// design).
+// (bf16 inputs are widened on load).  It serves both types at ranks that
+// are not a multiple of 8; the other ranks run on the tensor cores
+// (fused_edge_conv_lowrank_wgmma.cu, fused_edge_conv_lowrank_f32_wgmma.cu;
+// ops/fused_conv.py:design).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_edge_conv_lowrank.so

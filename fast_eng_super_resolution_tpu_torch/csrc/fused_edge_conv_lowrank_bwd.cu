@@ -22,7 +22,7 @@
 // else is float32, as in the plain version (ops/fused_conv.py:
 // fused_edge_conv_lowrank_bwd_plain), which rounds at the same points.
 //
-// Design: fused_edge_conv_bwd.cu's two launches.
+// Design: the full-rank backward's two launches.
 //
 //  (a) rows kernel: one thread block per 64-row receiver block, walking its
 //      slots in tiles of 64.  Per tile it forms dmsg (row_weight folded into
@@ -47,9 +47,10 @@
 // against (K + c_in) (sizeof(T) + 4) + c_out 4 bytes of inputs and outputs:
 // ~450 kFLOP against ~500 B at width 48, rank 16, far above the card's
 // ridge, so it is bounded by operations.  This design runs them as float32
-// FMAs on the CUDA cores.  It serves float32, and bfloat16 at ranks that are
-// not a multiple of 8; bfloat16 at the other ranks runs on the tensor cores
-// (fused_edge_conv_lowrank_bwd_wgmma.cu; ops/fused_conv.py:design).
+// FMAs on the CUDA cores.  It serves both types at ranks that are not a
+// multiple of 8; the other ranks run on the tensor cores
+// (fused_edge_conv_lowrank_bwd_wgmma.cu,
+// fused_edge_conv_lowrank_bwd_f32_wgmma.cu; ops/fused_conv.py:design).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_edge_conv_lowrank_bwd.so

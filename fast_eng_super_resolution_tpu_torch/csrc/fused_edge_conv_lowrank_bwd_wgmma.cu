@@ -5,8 +5,9 @@
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_bwd_jit
 // for bfloat16 operands at ranks that are a multiple of 8
-// (fused_edge_conv_lowrank_bwd.cu keeps the float32 instance and the other
-// ranks) and computes the same function, w3's and b3's gradients in the
+// (fused_edge_conv_lowrank_bwd_f32_wgmma.cu is the float32 instance,
+// fused_edge_conv_lowrank_bwd.cu keeps the other ranks) and computes the
+// same function, w3's and b3's gradients in the
 // model's column layout.  With the forward's notation and g the gradient of
 // its output, per slot e:
 //

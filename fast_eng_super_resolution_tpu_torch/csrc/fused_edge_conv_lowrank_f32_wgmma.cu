@@ -1,0 +1,374 @@
+// Fused edge-conditioned conv layer with rank-r factorized edge kernels,
+// forward, in float32 on Hopper's tensor cores (wgmma, sm_90a), exact to
+// float32 through split bf16 operands.
+//
+// Replaces the TPU Pallas kernel
+//   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_jit
+// for float32 operands (the JAX function at gemm_dtype="float32", on the
+// TPU's matrix unit at Precision.HIGHEST) at ranks that are a multiple of 8
+// (fused_edge_conv_lowrank_wgmma.cu is the bfloat16 instance,
+// fused_edge_conv_lowrank.cu keeps the other ranks; ops/fused_conv.py:design
+// says which runs) and computes the same function.  Slots are grouped as for
+// the full-rank layer: block b holds the slots whose receivers lie in rows
+// [64 b, 64 b + 64).  Per slot e:
+//
+//   uv_e      = h_e w3 + b3                     [r (c_in + c_out)]
+//   t_e[q]    = sum_i U_e[i, q] x[senders_perm[e], i]
+//   msg_e[o]  = sum_q V_e[o, q] t_e[q]
+//   out[r, o] = sum_{e in block(r)} S[r, e] msg_e[o]
+//
+// with U[i, q] = uv[i r + q], V[o, q] = uv[r c_in + o r + q] (the model's
+// column layout) and S dense or given by its CompactS generators.
+//
+// Numbers.  Every operand and every sum is float32, as in the plain version
+// (ops/fused_conv.py:fused_edge_conv_lowrank_plain).  The tensor cores see
+// only h and w3, both inputs, each split exactly into three bf16 parts; per
+// chunk of uv one float32 accumulator sums the six products of order >=
+// 2^-16, smallest first (f32_wgmma.cuh), so uv is float32-exact.  b3 is
+// added to the accumulator in float32; t, msg and the scatter run on the
+// CUDA cores in float32.  (B1's factored form, P = X W3U then Q = t W3V,
+// does about the same tensor-core work but twice the CUDA cores' work per
+// slot and would have to split t, a float32 product.)
+//
+// Design.
+//  - A block is one consumer warpgroup and one producer warp and owns one
+//    part of one receiver block's slot walk: grid (num_blocks, parts), the
+//    parts from the wrapper's planner (ops/fused_conv.py:conv_parts).
+//  - Per 64-slot tile the consumers split h's rows into register-A
+//    fragments once (lowrank_f32_wgmma.cuh), then walk uv in chunks of N =
+//    64 columns of whole channels (48 at r = 24): the U chunks, then the V
+//    chunks.  w3's chunks come from a stage image laid out once per call by
+//    a first launch; the producer streams them by bulk copy onto the
+//    mbarrier ring of f32_wgmma.cuh (4 stages), the warpgroup walks them
+//    with two chunks' products in flight (runs of 4, all waited for by each
+//    run's end: ptxas serializes every wgmma of a loop that carries one in
+//    flight across its back edge).  Chunks of N = 64, not 128: two
+//    accumulators of 32 values fit the registers of two blocks per SM
+//    beside the 36 of split h, and the ring four stages in under half the
+//    SM's shared memory.
+//  - While chunk c + 1's products run, chunk c's epilogue: a U chunk adds
+//    its channels' terms to t in registers (each thread holds the same q of
+//    every channel, lowrank_wgmma.cuh); a V chunk gives its channels' msg as
+//    per-thread partials and one quad shuffle.  b3 is read through L1.
+//  - Each warp gathers its own 16 rows of x (cp.async), the next tile's
+//    while this tile's messages scatter.  The scatter is B1's: a segmented
+//    sum over receiver-sorted slots in CompactS form (tiles of padding only
+//    skipped, by the producer too), the 64 x 64 S product in dense form.
+//    Each part writes its own [64, c_out] partial; the wrapper sums the
+//    partials in a fixed order.  No atomics: two launches give the same
+//    bits.
+//
+// Bound.  Per real slot 2 K r (c_in + c_out) operations for uv plus 4 r c
+// for t and msg, against (K + c_in) 4 + 8 bytes: bounded by operations, on
+// the tensor cores six bf16 passes at 989 TFLOP/s (against float32 FMAs at
+// 67).  What stands in the way: the ring's per-stage barriers and the
+// epilogues on the CUDA cores, which the second accumulator hides only in
+// part; the split of h before each tile's walk; the scatter.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -o libfused_edge_conv_lowrank_f32_wgmma.so
+//        fused_edge_conv_lowrank_f32_wgmma.cu
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "lowrank_f32_wgmma.cuh"
+
+namespace {
+
+using namespace lowrank_f32;
+
+constexpr int kRows = 64;  // receiver rows per block (rows_blk)
+constexpr int kThreads = kWarpgroup + 32;  // consumers + the producer warp
+
+// Byte offsets of the shared memory: the 2 kRing mbarriers, the ring of
+// stages ([3][N][dp] bf16 each), the x tile [64][xs] and the message tile
+// [64][ms] f32 (odd strides: the 8 rows a warp reads at one column fall in 8
+// banks), the part's row sums [64][c_out] and the tile's slot_rows.  At
+// width 48, K 48, rank 16: 111 KB (two blocks per SM).
+struct Layout {
+  int n, dp, xs, ms;
+  long stage, ring, x, m, acc, srow, total;
+  __host__ __device__ Layout(int K, int c_in, int c_out, int r) {
+    n = chunk_cols(r);
+    dp = round_up(K, 16);
+    xs = c_in | 1;
+    ms = c_out | 1;
+    stage = 3 * 2L * n * dp;
+    ring = 128;
+    x = ring + kRing * stage;
+    m = x + 4L * kTile * xs;
+    acc = m + 4L * kTile * ms;
+    srow = acc + 4L * kRows * c_out;
+    total = srow + 4L * kTile;
+  }
+};
+
+// R8 = r / 8, S = K rounded up to 16, over 16 (h's k16 steps).
+template <int R8, int S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<S>)
+lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
+                      const int* __restrict__ senders_perm,
+                      const bf16* __restrict__ image,
+                      const float* __restrict__ b3,
+                      const int* __restrict__ slot_rows,
+                      const float* __restrict__ row_weight,
+                      const float* __restrict__ s_dense,
+                      float* __restrict__ out, int blk, int K, int c_in,
+                      int c_out, int n_nodes) {
+  constexpr int R = 8 * R8, N = kN<R8>, G = N / R;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L(K, c_in, c_out, R);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kRing;
+  unsigned char* ring = smem + L.ring;
+  const int b = blockIdx.x, part = blockIdx.y, parts = gridDim.y;
+  const int tiles = blk / kTile;
+  const int t_lo = part * tiles / parts, t_hi = (part + 1) * tiles / parts;
+  const long row_base = static_cast<long>(b) * kRows;
+  const long blk0 = static_cast<long>(b) * blk;
+  const bool compact = s_dense == nullptr;
+  const int lane = threadIdx.x % 32;
+  const int n_u = cdiv(c_in, G), n_c = n_u + cdiv(c_out, G);
+
+  // the first tile from t on (t_hi if none) that holds a real slot (every
+  // tile in the dense form): each warp finds it by itself, so that the
+  // producer and the consumers walk the same tiles
+  auto next_real = [&](int t) {
+    if (!compact) return t;
+    for (; t < t_hi; ++t) {
+      const int* sr = slot_rows + blk0 + static_cast<long>(t) * kTile;
+      if (__any_sync(0xffffffffu, sr[lane] >= 0 || sr[lane + 32] >= 0)) break;
+    }
+    return t;
+  };
+
+  if (threadIdx.x == 0) ring_init(full, empty);
+  __syncthreads();
+
+  // ---- producer: the n_c stages of every real tile of the part ----
+  if (threadIdx.x >= kWarpgroup) {
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(image);
+    uint32_t j = 0;
+    for (int t = next_real(t_lo); t < t_hi; t = next_real(t + 1)) {
+      if (lane == 0)
+        produce(full, empty, ring, src, static_cast<uint32_t>(L.stage),
+                n_c - 1, j);
+      __syncwarp();
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int r0 = acc_row(0);  // this thread's rows: r0 and r0 + 8
+  const int xs = L.xs, ms = L.ms;
+  float* x_sm = reinterpret_cast<float*>(smem + L.x);
+  float* m_sm = reinterpret_cast<float*>(smem + L.m);
+  float* acc_sm = reinterpret_cast<float*>(smem + L.acc);
+  int* srow = reinterpret_cast<int*>(smem + L.srow);
+  for (int e = tid; e < kRows * c_out; e += kWarpgroup) acc_sm[e] = 0.f;
+  const uint64_t d0 = desc(ring, L.dp);
+  const uint32_t dstage = static_cast<uint32_t>(L.stage >> 4);
+  const uint32_t dpart = dstage / 3;
+  const int ru = R * c_in;
+  uint32_t j = 0;  // the ring's step, counted as the producer counts it
+
+  // this warp's 16 rows of the x tile x[senders_perm] by cp.async (zeros
+  // for a sender outside the graph); nothing waits for them here
+  auto fetch_x = [&](int t) {
+    const long tile = blk0 + static_cast<long>(t) * kTile + 16 * warp;
+    int src = lane < 16 ? senders_perm[tile + lane] : -1;
+    if (src < 0 || src >= n_nodes) src = -1;
+    for (int e0 = 0; e0 < 16 * c_in; e0 += 32) {
+      const int e = e0 + lane, s = e / c_in, i = e - s * c_in;
+      const int sr = __shfl_sync(0xffffffffu, src, s < 16 ? s : 0);
+      if (e < 16 * c_in)
+        cp_async4(x_sm + (16 * warp + s) * xs + i,
+                  sr >= 0 ? x + static_cast<long>(sr) * c_in + i : x,
+                  sr >= 0 ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+
+  int t = next_real(t_lo);
+  if (t < t_hi) fetch_x(t);
+  while (t < t_hi) {
+    const long tile = blk0 + static_cast<long>(t) * kTile;
+    // h's parts at this thread's fragment rows and columns
+    uint32_t ha[3][S][4];
+    split_rows<S>(ha, h + tile * K, K, K);
+    cp_async_wait_all();
+    warpgroup_sync(0);  // the tile's x rows have landed, and every thread is
+                        // done with the last tile's scatter
+    if (compact && tid < kTile) srow[tid] = slot_rows[tile + tid];
+    const int next = next_real(t + 1);
+
+    // ---- uv chunk by chunk: t from the U chunks, msg from the V chunks ----
+    float tq[2][R8][2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int m = 0; m < R8; ++m) tq[hf][m][0] = tq[hf][m][1] = 0.f;
+    auto fin = [&](const float (&acc)[N / 2], int c) {
+      if (c < n_u) {  // t[s, q] += x[s, i] U[s, i, q]
+        const int i0 = c * G, gc = lesser(G, c_in - i0);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (g >= gc) continue;
+          const float xa = x_sm[r0 * xs + i0 + g];
+          const float xb = x_sm[(r0 + 8) * xs + i0 + g];
+          const float* bias = b3 + (i0 + g) * R;
+#pragma unroll
+          for (int u = 0; u < 4 * R8; ++u) {
+            const int jj = 4 * R8 * g + u;
+            const float uv = acc[jj] + __ldg(bias + q_of<R8>(jj));
+            float& tv = tq[(u >> 1) & 1][u >> 2][u & 1];
+            tv = fmaf((u >> 1) & 1 ? xb : xa, uv, tv);
+          }
+        }
+      } else {  // msg[s, o] = sum_q V[s, o, q] t[s, q]
+        const int o0 = (c - n_u) * G, gc = lesser(G, c_out - o0);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (g >= gc) continue;
+          const float* bias = b3 + ru + (o0 + g) * R;
+          float pa = 0.f, pb = 0.f;
+#pragma unroll
+          for (int u = 0; u < 4 * R8; ++u) {
+            const int jj = 4 * R8 * g + u;
+            const float v = acc[jj] + __ldg(bias + q_of<R8>(jj));
+            if ((u >> 1) & 1)
+              pb = fmaf(v, tq[1][u >> 2][u & 1], pb);
+            else
+              pa = fmaf(v, tq[0][u >> 2][u & 1], pa);
+          }
+          pa = quad_sum(pa);
+          pb = quad_sum(pb);
+          if (tid % 4 == 0) {
+            m_sm[r0 * ms + o0 + g] = pa;
+            m_sm[(r0 + 8) * ms + o0 + g] = pb;
+          }
+        }
+      }
+    };
+    const Walk<N, S, decltype(fin)> walk{ha, full, empty, d0, dstage, dpart,
+                                         lane, fin};
+    walk.all(n_c - 1, j);
+    // this warp is done with its x rows: the next tile's land meanwhile
+    if (next < t_hi) fetch_x(next);
+
+    // ---- scatter the tile's messages into the part's row sums ----
+    warpgroup_sync(0);
+    if (compact) {
+      for (int o = tid; o < c_out; o += kWarpgroup) {
+        int cur = -1;
+        float run = 0.f;
+        for (int s = 0; s < kTile; ++s) {
+          const int r = srow[s];
+          if (r != cur) {
+            if (cur >= 0) acc_sm[cur * c_out + o] += run;
+            cur = r;
+            run = 0.f;
+          }
+          if (r >= 0) run += m_sm[s * ms + o];
+        }
+        if (cur >= 0) acc_sm[cur * c_out + o] += run;
+      }
+    } else {
+      const float* s_tile = s_dense + row_base * blk + static_cast<long>(t) * kTile;
+      for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
+        const int r = e / c_out, o = e - r * c_out;
+        float v = 0.f;
+        for (int s = 0; s < kTile; ++s)
+          v = fmaf(s_tile[static_cast<long>(r) * blk + s], m_sm[s * ms + o], v);
+        acc_sm[e] += v;
+      }
+    }
+    t = next;
+  }
+  warpgroup_sync(0);
+
+  // ---- the part's partial (the output itself when parts == 1) ----
+  float* dst = out + (static_cast<long>(part) * gridDim.x * kRows + row_base) * c_out;
+  for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
+    const float v = acc_sm[e];
+    dst[e] = compact ? row_weight[row_base + e / c_out] * v : v;
+  }
+}
+
+template <int R8, int S>
+cudaError_t launch(const float* h, const float* x, const int* senders_perm,
+                   const float* w3, const float* b3, const int* slot_rows,
+                   const float* row_weight, const float* s_dense, bf16* image,
+                   float* out, int num_blocks, int blk, int K, int c_in,
+                   int c_out, int n_nodes, int parts, cudaStream_t stream) {
+  constexpr int R = 8 * R8;
+  const Layout L(K, c_in, c_out, R);
+  const size_t smem = static_cast<size_t>(L.total);
+  auto kernel = lowrank_fwd_f32_wgmma<R8, S>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  err = launch_lowrank_image(w3, image, fwd_chunks(L.n / R, c_in, c_out), L.n,
+                             L.dp, R, K, c_in, c_out, false, stream);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(num_blocks, parts), kThreads, smem, stream>>>(
+      h, x, senders_perm, image, b3, slot_rows, row_weight, s_dense, out, blk,
+      K, c_in, c_out, n_nodes);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of dynamic shared memory one block needs.
+long fused_edge_conv_lowrank_f32_wgmma_smem_bytes(int K, int c_in, int c_out,
+                                                  int r) {
+  return Layout(K, c_in, c_out, r).total;
+}
+
+// Blocks one SM holds at once at these widths (-1 if they are not taken).
+int fused_edge_conv_lowrank_f32_wgmma_blocks_per_sm(int K, int c_in,
+                                                    int c_out, int r) {
+  const Layout L(K, c_in, c_out, r);
+  return with_rank_depth(r, K, [&](auto r8, auto s) {
+    return blocks_on_sm(
+        lowrank_fwd_f32_wgmma<decltype(r8)::value, decltype(s)::value>,
+        kThreads, static_cast<size_t>(L.total));
+  }, -1);
+}
+
+// Launches the float32 forward on `stream`: the stage image of w3, then the
+// layer.  Pointers are device pointers; h, x, w3, b3, row_weight, s_dense and
+// out float32; senders_perm and slot_rows int32; image bfloat16 scratch of
+// ops/fused_conv.py:lowrank_image_numel elements, 16-byte aligned.
+// Exactly one of s_dense and (slot_rows, row_weight) is non-null.  w3 is
+// [K, r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <=
+// 64 and r one of 8, 16, 24, 32.  out is [num_blocks*64, c_out] when parts
+// == 1, else the partials [parts, num_blocks*64, c_out].  Returns the
+// cudaError_t of the launches (0 on success).
+int fused_edge_conv_lowrank_f32_wgmma_forward(
+    const void* h, const void* x, const void* senders_perm, const void* w3,
+    const void* b3, const void* slot_rows, const void* row_weight,
+    const void* s_dense, void* image, void* out, int num_blocks, int blk,
+    int K, int c_in, int c_out, int r, int n_nodes, int parts, void* stream) {
+  if (K < 1 || K > kMaxDim || c_in < 1 || c_in > kMaxDim || c_out < 1 ||
+      c_out > kMaxDim || blk % kTile != 0 || blk < kTile || num_blocks < 1 ||
+      parts < 1 || parts > blk / kTile ||
+      reinterpret_cast<uintptr_t>(image) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_rank_depth(r, K, [&](auto r8, auto s) {
+    return launch<decltype(r8)::value, decltype(s)::value>(
+        static_cast<const float*>(h), static_cast<const float*>(x),
+        static_cast<const int*>(senders_perm), static_cast<const float*>(w3),
+        static_cast<const float*>(b3), static_cast<const int*>(slot_rows),
+        static_cast<const float*>(row_weight),
+        static_cast<const float*>(s_dense), static_cast<bf16*>(image),
+        static_cast<float*>(out), num_blocks, blk, K, c_in, c_out, n_nodes,
+        parts, st);
+  }, cudaErrorInvalidValue));
+}
+
+}  // extern "C"

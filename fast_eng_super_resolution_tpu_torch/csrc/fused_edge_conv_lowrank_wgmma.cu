@@ -4,9 +4,9 @@
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_jit
 // for bfloat16 operands at ranks that are a multiple of 8
-// (fused_edge_conv_lowrank.cu keeps the float32 instance and the other
-// ranks; ops/fused_conv.py:design says which runs) and computes the same
-// function.  Slots are grouped as for the full-rank layer: block b holds the
+// (fused_edge_conv_lowrank_f32_wgmma.cu is the float32 instance,
+// fused_edge_conv_lowrank.cu keeps the other ranks; ops/fused_conv.py:design
+// says which runs) and computes the same function.  Slots are grouped as for the full-rank layer: block b holds the
 // slots whose receivers lie in rows [64 b, 64 b + 64).  Per slot e:
 //
 //   uv_e      = h_e w3 + b3                     [r (c_in + c_out)]

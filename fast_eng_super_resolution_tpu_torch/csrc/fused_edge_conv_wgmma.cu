@@ -3,8 +3,8 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_edge_conv_jit
-// for bfloat16 operands (fused_edge_conv.cu keeps the float32 instance) and
-// computes the same function.  Slots are the receiver-sorted edges, grouped
+// for bfloat16 operands (fused_edge_conv_f32_wgmma.cu is the float32
+// instance) and computes the same function.  Slots are the receiver-sorted edges, grouped
 // host-side into num_blocks blocks of `blk` slots, block b holding the edges
 // whose receivers lie in rows [64 b, 64 b + 64):
 //

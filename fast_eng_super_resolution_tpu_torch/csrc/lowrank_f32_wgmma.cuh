@@ -1,0 +1,185 @@
+// Float32-exact rank-r products on Hopper's bf16 tensor cores, shared by the
+// float32 instances of B3 (fused_edge_conv_lowrank_f32_wgmma.cu) and of B4's
+// rows kernel (fused_edge_conv_lowrank_bwd_f32_wgmma.cu).  The split, the
+// register-A product, the bulk-copy ring and its walk are f32_wgmma.cuh's
+// (float32 B1/B2); the accumulator -> (channel, q) map is lowrank_wgmma.cuh's
+// (bfloat16 B3/B4).  This header adds the chunk walks and their stage image.
+//
+// Chunks.  Every product is 64 slots x N columns of the (k, q) or uv space,
+// N = 64 (48 at r = 24, so that a chunk holds whole channels): G = N / r
+// channels of r columns.  A chunk reads the edge MLP's head w3 [K, r (c_in +
+// c_out)] (model column layout: U[i, q] = uv[i r + q], V[o, q] = uv[r c_in +
+// o r + q]) in one of three ways, lowrank_wgmma.cuh's:
+//
+//   kUv: uv columns lo .. lo + N - 1 over depth k < K      (uv = h w3)
+//   kP:  (k, q) columns over depth i < c_in, w3[k, i r + q] (P = x_src W3U)
+//   kQ:  (k, q) columns over depth o < c_out, w3[k, r c_in + o r + q]
+//                                                           (Q = dmsg W3V)
+//
+// The forward walks the U chunks then the V chunks of uv (fwd_chunk); B4's
+// rows kernel the V chunks, the U chunks, then the P chunks and the Q chunks
+// over k (bwd_chunk).  The sequence is the same for every tile, so the stage
+// image (lowrank_image) lays it out once per call: stage c is the three bf16
+// parts of chunk c as K-major B operands [N][dmax] (wgmma_tile.cuh kmajor),
+// dmax the largest depth rounded up to 16, zeros past a chunk's columns and
+// depth.  A producer warp streams the stages through f32_wgmma.cuh's ring
+// (produce), the consumer warpgroup walks them (Walk) with A (h, x_src or
+// dmsg) split once per tile into register fragments.  Every operand of a
+// product is an input or a float32 value split in three; the six products
+// of order >= 2^-16 run smallest first into one float32 accumulator.
+
+#pragma once
+
+#include "f32_wgmma.cuh"
+#include "lowrank_wgmma.cuh"
+
+namespace lowrank_f32 {
+
+using namespace f32_wgmma;
+using lowrank_wgmma::q_of;
+using lowrank_wgmma::quad_sum;
+using lowrank_wgmma::with_rank;
+
+constexpr int kTile = 64;    // slots per tile
+constexpr int kMaxDim = 64;  // K, c_in, c_out <= 64
+
+enum Reading { kUv = 0, kP = 1, kQ = 2 };
+
+// Columns of a chunk at rank r = 8 R8.
+template <int R8>
+constexpr int kN = R8 == 3 ? 48 : 64;
+__host__ __device__ constexpr int chunk_cols(int r) { return r == 24 ? 48 : 64; }
+
+// Blocks per SM the launch bounds of B3 and of B4's rows kernel hold the
+// registers to (168 a thread for two): two up to a depth of 48, where the
+// ring and tiles also fit two blocks' shared memory at width 48; one at
+// depth 64, whose shared memory holds one block anyway and whose
+// registers would spill under two's bound.
+template <int S>
+constexpr int kMinBlocks = S < 4 ? 2 : 1;
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int lesser(int a, int b) { return a < b ? a : b; }
+
+struct Chunk {
+  int kind;  // Reading
+  int lo;    // first column (kUv: of uv; kP, kQ: of the (k, q) columns)
+  int cw;    // real columns, whole channels
+};
+
+// Chunk c of the forward walk: the U chunks, then the V chunks, G channels
+// each.
+__host__ __device__ inline Chunk fwd_chunk(int c, int g, int r, int c_in,
+                                           int c_out) {
+  const int n_u = cdiv(c_in, g);
+  if (c < n_u) return {kUv, c * g * r, lesser(g, c_in - c * g) * r};
+  c -= n_u;
+  return {kUv, r * c_in + c * g * r, lesser(g, c_out - c * g) * r};
+}
+
+// Chunk c of B4's rows walk: the V chunks, the U chunks, the P chunks, then
+// the Q chunks.
+__host__ __device__ inline Chunk bwd_chunk(int c, int g, int r, int K,
+                                           int c_in, int c_out) {
+  const int n_v = cdiv(c_out, g), n_u = cdiv(c_in, g), n_k = cdiv(K, g);
+  if (c < n_v) return {kUv, r * c_in + c * g * r, lesser(g, c_out - c * g) * r};
+  c -= n_v;
+  if (c < n_u) return {kUv, c * g * r, lesser(g, c_in - c * g) * r};
+  c -= n_u;
+  const int kind = c < n_k ? kP : kQ;
+  if (c >= n_k) c -= n_k;
+  return {kind, c * g * r, lesser(g, K - c * g) * r};
+}
+
+// Stages of the forward's (B4 rows kernel's) walk.
+__host__ __device__ inline int fwd_chunks(int g, int c_in, int c_out) {
+  return cdiv(c_in, g) + cdiv(c_out, g);
+}
+__host__ __device__ inline int bwd_chunks(int g, int K, int c_in, int c_out) {
+  return cdiv(c_in, g) + cdiv(c_out, g) + 2 * cdiv(K, g);
+}
+
+// The stage image: stage c holds chunk c's three bf16 parts, each a K-major
+// [n][dmax] operand (n = N, the chunk's columns as rows).  Consecutive
+// threads take consecutive columns, so that w3's kUv rows coalesce.
+__global__ void lowrank_image(const float* __restrict__ w3,
+                              bf16* __restrict__ image, int stages, int n,
+                              int dmax, int r, int K, int c_in, int c_out,
+                              int backward) {
+  const int per = n * dmax, g = n / r, ncol = r * (c_in + c_out);
+  const long total = static_cast<long>(stages) * per;
+  for (long q = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
+       q < total; q += static_cast<long>(gridDim.x) * blockDim.x) {
+    const int c = static_cast<int>(q / per), e = static_cast<int>(q % per);
+    const int row = e % n, d = e / n;
+    const Chunk ch = backward ? bwd_chunk(c, g, r, K, c_in, c_out)
+                              : fwd_chunk(c, g, r, c_in, c_out);
+    const int depth = ch.kind == kUv ? K : ch.kind == kP ? c_in : c_out;
+    float v = 0.f;
+    if (row < ch.cw && d < depth) {
+      const int col = ch.lo + row;
+      if (ch.kind == kUv) {
+        v = w3[static_cast<long>(d) * ncol + col];
+      } else {
+        const int k = col / r, qq = col - k * r;
+        v = w3[static_cast<long>(k) * ncol + (ch.kind == kQ ? r * c_in : 0) +
+               d * r + qq];
+      }
+    }
+    const bf16 v1 = __float2bfloat16_rn(v);
+    const float r1 = v - __bfloat162float(v1);
+    const bf16 v2 = __float2bfloat16_rn(r1);
+    const bf16 v3 = __float2bfloat16_rn(r1 - __bfloat162float(v2));
+    bf16* st = image + static_cast<long>(c) * 3 * per + kmajor(row, d, dmax);
+    st[0] = v1;
+    st[per] = v2;
+    st[2 * per] = v3;
+  }
+}
+
+inline cudaError_t launch_lowrank_image(const float* w3, bf16* image,
+                                        int stages, int n, int dmax, int r,
+                                        int K, int c_in, int c_out,
+                                        bool backward, cudaStream_t stream) {
+  const long cells = static_cast<long>(stages) * n * dmax;
+  lowrank_image<<<static_cast<unsigned>((cells + 255) / 256), 256, 0,
+                  stream>>>(w3, image, stages, n, dmax, r, K, c_in, c_out,
+                            backward ? 1 : 0);
+  return cudaGetLastError();
+}
+
+// f(R8, S) for a rank r = 8 R8 (8, 16, 24, 32) and S = depth rounded up to
+// 16, over 16, for a depth of 1..64 (the k16 steps of a kernel's A
+// operands); `otherwise` outside them.
+template <typename F, typename Ret>
+Ret with_rank_depth(int r, int depth, F&& f, Ret otherwise) {
+  if (depth < 1 || depth > kMaxDim) return otherwise;
+  return with_rank(r, [&](auto r8) {
+    switch (cdiv(depth, 16)) {
+      case 1: return f(r8, std::integral_constant<int, 1>());
+      case 2: return f(r8, std::integral_constant<int, 2>());
+      case 3: return f(r8, std::integral_constant<int, 3>());
+      default: return f(r8, std::integral_constant<int, 4>());
+    }
+  }, otherwise);
+}
+
+// The three parts of 64 rows [width] (row s at src + s * stride, columns
+// past width zero) as this thread's register-A fragments over S k16 steps.
+template <int S>
+__device__ __forceinline__ void split_rows(uint32_t (&a)[3][S][4],
+                                           const float* src, long stride,
+                                           int width) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float* row = src + a_row(2 * u) * stride;
+      const int col = 16 * s + a_col(2 * u);
+      const float va = col < width ? row[col] : 0.f;
+      const float vb = col + 1 < width ? row[col + 1] : 0.f;
+      split3(va, vb, a[0][s][u], a[1][s][u], a[2][s][u]);
+    }
+}
+
+}  // namespace lowrank_f32

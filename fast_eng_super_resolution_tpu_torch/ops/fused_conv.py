@@ -24,11 +24,16 @@ Nothing falls back from one to the other.  Training goes through
 ``FusedEdgeConv``, whose backward is ``csrc/fused_edge_conv_bwd_wgmma.cu``
 or ``csrc/fused_edge_conv_bwd_f32_wgmma.cu`` (or its plain version,
 ``fused_edge_conv_bwd_plain``, on the CPU).  Models with rank-r factorized
-edge kernels (``kernel_rank``) run ``fused_edge_conv_lowrank``
-(``csrc/fused_edge_conv_lowrank.cu``, float32 FMAs, and a bfloat16
-instance on the tensor cores) and train through ``FusedEdgeConvLowrank``,
-whose backward is ``csrc/fused_edge_conv_lowrank_bwd.cu`` (and its
-bfloat16 tensor-core instance).  ``design`` says which one a launch runs.
+edge kernels (``kernel_rank``) run ``fused_edge_conv_lowrank`` (at a rank
+that is a multiple of 8 on the tensor cores,
+``csrc/fused_edge_conv_lowrank_wgmma.cu`` for bfloat16 and
+``csrc/fused_edge_conv_lowrank_f32_wgmma.cu`` for float32; at other ranks
+``csrc/fused_edge_conv_lowrank.cu``, float32 FMAs) and train through
+``FusedEdgeConvLowrank``, whose backward is
+``csrc/fused_edge_conv_lowrank_bwd_wgmma.cu``,
+``csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu`` or
+``csrc/fused_edge_conv_lowrank_bwd.cu`` the same way.  ``design`` says
+which one a launch runs.
 """
 
 from __future__ import annotations
@@ -222,19 +227,23 @@ _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # library -> its source: B1 (forward) and B2 (backward) as a bfloat16
 # and a float32 tensor-core (wgmma) instance, the float32 one exact through
-# split bf16 operands; their rank-r counterparts B3 and B4 as a float32 FMA
-# instance and a bfloat16 tensor-core instance; and B5, the per-edge
-# messages of ops/pallas_mp.py (float32, on the tensor cores through split
-# bf16 operands)
+# split bf16 operands; their rank-r counterparts B3 and B4 the same way at
+# ranks that are a multiple of 8, and as an FMA instance (both types) at the
+# other ranks; and B5, the per-edge messages of ops/pallas_mp.py (float32,
+# on the tensor cores through split bf16 operands)
 _SOURCES = {"fused_edge_conv_f32_wgmma": "fused_edge_conv_f32_wgmma.cu",
             "fused_edge_conv_wgmma": "fused_edge_conv_wgmma.cu",
             "fused_edge_conv_bwd_f32_wgmma": "fused_edge_conv_bwd_f32_wgmma.cu",
             "fused_edge_conv_bwd_wgmma": "fused_edge_conv_bwd_wgmma.cu",
             "fused_edge_conv_lowrank": "fused_edge_conv_lowrank.cu",
             "fused_edge_conv_lowrank_wgmma": "fused_edge_conv_lowrank_wgmma.cu",
+            "fused_edge_conv_lowrank_f32_wgmma":
+                "fused_edge_conv_lowrank_f32_wgmma.cu",
             "fused_edge_conv_lowrank_bwd": "fused_edge_conv_lowrank_bwd.cu",
             "fused_edge_conv_lowrank_bwd_wgmma":
                 "fused_edge_conv_lowrank_bwd_wgmma.cu",
+            "fused_edge_conv_lowrank_bwd_f32_wgmma":
+                "fused_edge_conv_lowrank_bwd_f32_wgmma.cu",
             "fused_edge_messages_wgmma": "fused_edge_messages_wgmma.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -322,10 +331,14 @@ _BINDINGS = {
     "fused_edge_conv_lowrank": (("fused_edge_conv_lowrank_forward", 9, 8), 4),
     "fused_edge_conv_lowrank_wgmma": (("fused_edge_conv_lowrank_wgmma_forward",
                                        9, 8), 4),
+    "fused_edge_conv_lowrank_f32_wgmma": ((
+        "fused_edge_conv_lowrank_f32_wgmma_forward", 10, 8), 4),
     "fused_edge_conv_lowrank_bwd": (("fused_edge_conv_lowrank_backward", 14, 8),
                                     4),
     "fused_edge_conv_lowrank_bwd_wgmma": ((
         "fused_edge_conv_lowrank_bwd_wgmma_backward", 14, 7), 4),
+    "fused_edge_conv_lowrank_bwd_f32_wgmma": ((
+        "fused_edge_conv_lowrank_bwd_f32_wgmma_backward", 15, 7), 4),
     "fused_edge_messages_wgmma": (("fused_edge_messages_wgmma_forward", 6, 4),
                                   3),
 }
@@ -443,20 +456,31 @@ def _s_pointers(s, slots: int, nb: int, rows_blk: int, blk: int) -> tuple:
 def design(dt: torch.dtype, rank: int | None = None) -> str:
     """The design a kernel launches for GEMM type ``dt``: 'wgmma' (on the
     tensor cores, csrc/*_wgmma.cu) or 'fma' (float32 FMAs on the CUDA
-    cores).  B1 and B2 (``rank`` None) take 'wgmma' for both types: bfloat16
-    products, or float32 ones exact through three-part bf16 splits
-    (csrc/f32_wgmma.cuh).  B3 and B4 (rank r) take it for bfloat16 at a rank
-    that is a multiple of 8 (8, 16, 24, 32), whose 128-column chunks of uv
-    hold whole channels of 8-column groups (csrc/lowrank_wgmma.cuh); other
-    ranks, and float32, run 'fma'."""
+    cores).  Both types run on the tensor cores as bfloat16 products, or
+    float32 ones exact through three-part bf16 splits (csrc/f32_wgmma.cuh).
+    B1 and B2 (``rank`` None) take 'wgmma' in both types.  B3 and B4 (rank
+    r) take it in both types at a rank that is a multiple of 8 (8, 16, 24,
+    32), whose chunks of uv hold whole channels of 8-column groups
+    (csrc/lowrank_wgmma.cuh, csrc/lowrank_f32_wgmma.cuh); other ranks run
+    'fma'."""
     if rank is None:
         return "wgmma"
-    return "wgmma" if dt == torch.bfloat16 and rank % 8 == 0 else "fma"
+    return "wgmma" if rank % 8 == 0 else "fma"
 
 
 def _conv_library(dt: torch.dtype, backward: bool = False) -> str:
     """The library of B1 (B2 if ``backward``) for GEMM type ``dt``."""
     name = "fused_edge_conv_bwd" if backward else "fused_edge_conv"
+    return name + ("_f32" if dt == torch.float32 else "") + "_wgmma"
+
+
+def _lowrank_library(dt: torch.dtype, rank: int,
+                     backward: bool = False) -> str:
+    """The library of B3 (B4 if ``backward``) for GEMM type ``dt`` at rank
+    ``rank``, as ``design`` picks it."""
+    name = "fused_edge_conv_lowrank" + ("_bwd" if backward else "")
+    if design(dt, rank) == "fma":
+        return name
     return name + ("_f32" if dt == torch.float32 else "") + "_wgmma"
 
 
@@ -468,6 +492,30 @@ def image_numel(k: int, rows: int, depth: int) -> int:
     return (k + 1) * 3 * _round_up(rows, 8) * _round_up(depth, 16)
 
 
+def lowrank_chunk_cols(rank: int) -> int:
+    """Columns of one product of the float32 B3/B4 at rank ``rank`` (a
+    multiple of 8): 64, or 48 at rank 24, so that a chunk holds whole
+    channels (csrc/lowrank_f32_wgmma.cuh)."""
+    return 48 if rank == 24 else 64
+
+
+def lowrank_image_numel(k: int, c_in: int, c_out: int, rank: int,
+                        backward: bool = False) -> int:
+    """bf16 elements of the float32 B3's (B4's) stage image of w3: one stage
+    per chunk of its walk (B3: the U and V chunks of uv; B4: those and the P
+    and Q chunks over k), each three [N, depth] operands, N
+    ``lowrank_chunk_cols`` and depth K (B4: the largest of K, c_in and
+    c_out) rounded up to 16 (csrc/lowrank_f32_wgmma.cuh)."""
+    n = lowrank_chunk_cols(rank)
+    g = n // rank
+    stages = -(-c_in // g) + -(-c_out // g)
+    depth = k
+    if backward:
+        stages += 2 * -(-k // g)
+        depth = max(k, c_in, c_out)
+    return stages * 3 * n * _round_up(depth, 16)
+
+
 # The bfloat16 B1's (and B3's) tensor-core blocks resident per SM (shared
 # memory allows 3-4 at width 48) and the waves of them a launch should fill
 _FWD_BLOCKS_PER_SM = 3
@@ -476,7 +524,7 @@ _FWD_WAVES = 2
 
 def conv_parts(num_blocks: int, tiles_per_block: int, sms: int) -> int:
     """Parts each receiver block's slot walk is split into for B1 and the
-    bfloat16 B3: enough blocks for ``_FWD_WAVES`` waves of ``_FWD_BLOCKS_PER_SM``
+    tensor-core B3: enough blocks for ``_FWD_WAVES`` waves of ``_FWD_BLOCKS_PER_SM``
     per SM, at most one part per 64-slot tile, at least one part."""
     target = sms * _FWD_BLOCKS_PER_SM * _FWD_WAVES
     return max(1, min(tiles_per_block, -(-target // num_blocks)))
@@ -496,7 +544,7 @@ def weight_tiles(k: int, c_in: int, c_out: int) -> tuple:
 
 
 def lowrank_weight_tiles(rank: int, c_in: int, c_out: int) -> int:
-    """Column tiles of the bfloat16 B4 weights kernel's output [K+1,
+    """Column tiles of the tensor-core B4 weights kernel's output [K+1,
     r*(c_in+c_out)]: 128 columns each; K+1 <= 65 rows are one tile (dw3 on
     the tensor cores, db3 summed by the thread that forms its column)."""
     return -(-rank * (c_in + c_out) // 128)
@@ -510,27 +558,25 @@ def occupancy(k: int, c_in: int, c_out: int,
               rank: int | None = None) -> dict:
     """Thread blocks of each tensor-core kernel that one SM of the current
     card holds at once at these widths (the CUDA runtime's occupancy query,
-    with each kernel's shared memory): B1's and B2's in bfloat16 and (keys
-    ending ``_f32``) in float32, or at a ``rank`` the bfloat16 B3's and
-    B4's."""
-    if rank is None:
-        out = {}
-        for dt, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+    with each kernel's shared memory): B1's and B2's, or at a ``rank`` B3's
+    and B4's tensor-core kernels, in bfloat16 and (keys ending ``_f32``) in
+    float32."""
+    out = {}
+    for dt, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        if rank is None:
             fwd, bwd = _conv_library(dt), _conv_library(dt, backward=True)
-            query = getattr(_load_kernel(bwd), f"{bwd}_blocks_per_sm")
-            out.update({
-                "fwd" + suffix: getattr(_load_kernel(fwd),
-                                        f"{fwd}_blocks_per_sm")(k, c_in, c_out),
-                "bwd_rows" + suffix: query(k, c_in, c_out, 0),
-                "bwd_weights" + suffix: query(k, c_in, c_out, 1)})
-        return out
-    fwd = _load_kernel("fused_edge_conv_lowrank_wgmma")
-    bwd = _load_kernel("fused_edge_conv_lowrank_bwd_wgmma")
-    query = bwd.fused_edge_conv_lowrank_bwd_wgmma_blocks_per_sm
-    return {"fwd": fwd.fused_edge_conv_lowrank_wgmma_blocks_per_sm(
-                k, c_in, c_out, rank),
-            "bwd_rows": query(k, c_in, c_out, rank, 0),
-            "bwd_weights": query(k, c_in, c_out, rank, 1)}
+            dims = (k, c_in, c_out)
+        else:  # the tensor-core libraries (-1 at other ranks)
+            fwd, bwd = (f"fused_edge_conv_lowrank{b}{suffix}_wgmma"
+                        for b in ("", "_bwd"))
+            dims = (k, c_in, c_out, rank)
+        query = getattr(_load_kernel(bwd), f"{bwd}_blocks_per_sm")
+        out.update({
+            "fwd" + suffix: getattr(_load_kernel(fwd),
+                                    f"{fwd}_blocks_per_sm")(*dims),
+            "bwd_rows" + suffix: query(*dims, 0),
+            "bwd_weights" + suffix: query(*dims, 1)})
+    return out
 
 
 def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
@@ -831,14 +877,16 @@ def fused_edge_conv_lowrank_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
                                  c_in: int, c_out: int, rank: int,
                                  rows_blk: int, blk: int) -> torch.Tensor:
     """Launches the rank-r forward kernel on the current stream: the
-    tensor-core design (csrc/fused_edge_conv_lowrank_wgmma.cu) or the FMA
-    design (csrc/fused_edge_conv_lowrank.cu), as ``design(dtype, rank)``
-    says.  h_blocked, x and w3 share one dtype (float32 or bfloat16, the
-    GEMM input type); b3 and S are float32, index arrays int32.  Checks
-    every operand and raises on what the kernel does not take; raises if
-    the launch fails.  The tensor-core kernel splits each receiver block's
-    slot walk into ``conv_parts`` parts whose partial sums are added here in
-    a fixed order."""
+    tensor-core design (csrc/fused_edge_conv_lowrank_wgmma.cu for bfloat16,
+    csrc/fused_edge_conv_lowrank_f32_wgmma.cu for float32, after its first
+    launch, the stage image of w3, into scratch) or the FMA design
+    (csrc/fused_edge_conv_lowrank.cu), as ``design(dtype, rank)`` says.
+    h_blocked, x and w3 share one dtype (float32 or bfloat16, the GEMM input
+    type); b3 and S are float32, index arrays int32.  Checks every operand
+    and raises on what the kernel does not take; raises if the launch
+    fails.  The tensor-core kernels split each receiver block's slot walk
+    into ``conv_parts`` parts whose partial sums are added here in a fixed
+    order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
     _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out,
@@ -857,19 +905,22 @@ def fused_edge_conv_lowrank_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
     wgmma = design(dt, rank) == "wgmma"
-    name = "fused_edge_conv_lowrank" + ("_wgmma" if wgmma else "")
+    name = _lowrank_library(dt, rank)
     lib = _load_kernel(name)
     parts = conv_parts(nb, blk // 64, _sms(dev)) if wgmma else 1
     out = torch.empty((parts, nb * rows_blk, c_out), dtype=torch.float32,
                       device=dev)
+    if wgmma and dt == torch.float32:  # scratch: the stage image of w3
+        image = torch.empty(lowrank_image_numel(k, c_in, c_out, rank),
+                            dtype=torch.bfloat16, device=dev)
+        ptrs = (*ptrs, image.data_ptr())
     args = (h_blocked.data_ptr(), x.data_ptr(), senders_perm.data_ptr(),
             w3.data_ptr(), b3.data_ptr(), *ptrs, out.data_ptr(), nb, blk, k,
             c_in, c_out, rank, n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if wgmma:
-            err = lib.fused_edge_conv_lowrank_wgmma_forward(*args, parts,
-                                                            stream)
+            err = getattr(lib, _BINDINGS[name][0][0])(*args, parts, stream)
         else:
             err = lib.fused_edge_conv_lowrank_forward(
                 *args, int(dt == torch.bfloat16), stream)
@@ -886,12 +937,13 @@ def fused_edge_conv_lowrank_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
 def fused_edge_conv_lowrank(h_blocked, x, senders_perm, w3, b3, s, *,
                             c_in: int, c_out: int, rank: int, rows_blk: int,
                             blk: int,
-                            gemm_dtype: str = "float32") -> torch.Tensor:
+                            gemm_dtype: str = "bfloat16") -> torch.Tensor:
     """One rank-r conv layer's message+aggregate, the counterpart of the JAX
     package's ``fused_edge_conv_lowrank``: returns [num_blocks*rows_blk,
     c_out] float32.  Operands as ``fused_edge_conv``'s, with w3 [K,
     r*(c_in+c_out)] and b3 [r*(c_in+c_out)] the edge MLP's head in the
-    model's column layout.
+    model's column layout; ``gemm_dtype`` defaults to bfloat16, as the JAX
+    function's does.
 
     CUDA operands launch the kernel (``fused_edge_conv_lowrank.launches``
     counts the launches); CPU operands run ``fused_edge_conv_lowrank_plain``.
@@ -938,12 +990,14 @@ def fused_edge_conv_lowrank_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *,
                                      c_in: int, c_out: int, rank: int,
                                      rows_blk: int, blk: int):
     """Launches the rank-r backward kernels on the current stream: the
-    tensor-core design (csrc/fused_edge_conv_lowrank_bwd_wgmma.cu) or the
-    FMA design (csrc/fused_edge_conv_lowrank_bwd.cu), as ``design(dtype,
-    rank)`` says.  h_blocked, x_src and w3 share one dtype (float32 or
-    bfloat16, the GEMM input type); g, b3 and S are float32, slot_rows
-    int32.  Checks every operand and raises on what the kernel does not
-    take; raises if the launch fails.  Returns (dh, dx_src, dw3, db3),
+    tensor-core design (csrc/fused_edge_conv_lowrank_bwd_wgmma.cu for
+    bfloat16, csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu for float32,
+    after the stage image of w3, into scratch) or the FMA design
+    (csrc/fused_edge_conv_lowrank_bwd.cu), as ``design(dtype, rank)`` says.
+    h_blocked, x_src and w3 share one dtype (float32 or bfloat16, the GEMM
+    input type); g, b3 and S are float32, slot_rows int32.  Checks every
+    operand and raises on what the kernel does not take; raises if the
+    launch fails.  Returns (dh, dx_src, dw3, db3),
     float32; dw3/db3 are the kernel's per-split partials summed in a fixed
     order."""
     dt = h_blocked.dtype
@@ -962,13 +1016,14 @@ def fused_edge_conv_lowrank_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *,
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
     wgmma = design(dt, rank) == "wgmma"
-    name = "fused_edge_conv_lowrank_bwd" + ("_wgmma" if wgmma else "")
+    name = _lowrank_library(dt, rank, backward=True)
     lib = _load_kernel(name)
     f32 = dict(dtype=torch.float32, device=dev)
     dh = torch.empty((slots, k), **f32)
     dx_src = torch.empty((slots, c_in), **f32)
-    # scratch between the launches: per-slot dmsg (bfloat16 values, stored
-    # so by the tensor-core design), t and dt
+    # scratch between the launches: per-slot dmsg (already rounded to the
+    # GEMM type by the tensor-core designs, float32 by the FMA design), t
+    # and dt
     dmsg = torch.empty((slots, c_out), dtype=dt if wgmma else torch.float32,
                        device=dev)
     t_vec = torch.empty((slots, rank), **f32)
@@ -979,6 +1034,10 @@ def fused_edge_conv_lowrank_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *,
     else:  # 8-channel column tiles of the U and the V half
         splits = _weight_splits(slots, -(-c_in // 8) + -(-c_out // 8), dev)
     partial = torch.empty((splits, k + 1, ncol), **f32)
+    if wgmma and dt == torch.float32:  # scratch: the stage image of w3
+        image = torch.empty(lowrank_image_numel(k, c_in, c_out, rank, True),
+                            dtype=torch.bfloat16, device=dev)
+        ptrs = (*ptrs, image.data_ptr())
     args = (g.data_ptr(), h_blocked.data_ptr(), x_src.data_ptr(),
             w3.data_ptr(), b3.data_ptr(), *ptrs, dh.data_ptr(),
             dx_src.data_ptr(), dmsg.data_ptr(), t_vec.data_ptr(),
@@ -987,7 +1046,7 @@ def fused_edge_conv_lowrank_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if wgmma:
-            err = lib.fused_edge_conv_lowrank_bwd_wgmma_backward(*args, stream)
+            err = getattr(lib, _BINDINGS[name][0][0])(*args, stream)
         else:
             err = lib.fused_edge_conv_lowrank_backward(
                 *args, int(dt == torch.bfloat16), stream)

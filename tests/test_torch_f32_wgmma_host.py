@@ -115,11 +115,14 @@ def test_stage_image_launch_writes_both_layouts(k, c_in, c_out):
 
 def test_design_and_libraries():
     """B1 and B2 run on the tensor cores in both types, each type from its
-    own library; B3 and B4 keep the FMA design in float32 and at ranks that
-    are not a multiple of 8."""
+    own library; B3 and B4 too at ranks that are a multiple of 8 (float32
+    since the float32 rank-r kernels,
+    tests/test_torch_lowrank_f32_wgmma_host.py), and keep the FMA design at
+    the other ranks."""
     assert tfc.design(torch.float32) == "wgmma"
     assert tfc.design(torch.bfloat16) == "wgmma"
-    assert tfc.design(torch.float32, 16) == "fma"
+    assert tfc.design(torch.float32, 16) == "wgmma"
+    assert tfc.design(torch.float32, 12) == "fma"
     assert tfc.design(torch.bfloat16, 12) == "fma"
     libs = {tfc._conv_library(dt, backward=bwd)
             for dt in (torch.float32, torch.bfloat16) for bwd in (False, True)}

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (B1 forward and B2 backward, on the tensor cores
-in bfloat16 and in float32; their rank-r counterparts B3 and B4, each in its
-float32 FMA and its bfloat16 tensor-core design; and B5, the per-edge
-messages) against their plain PyTorch versions, on the card.
+in bfloat16 and in float32; their rank-r counterparts B3 and B4, on the
+tensor cores in both types at ranks that are a multiple of 8 and in their
+FMA design at the other ranks; and B5, the per-edge messages) against their
+plain PyTorch versions, on the card.
 
 Every test here is marked ``gpu`` and skips on a machine without CUDA.  The
 file imports neither jax nor the test conftest's JAX setup, so it runs where
@@ -744,8 +745,8 @@ def test_fused_edge_conv_lowrank_grads_on_card_match_cpu(cuda, compact):
 
 
 # The bfloat16 B3 and B4 at ranks that are a multiple of 8 run on the tensor
-# cores (csrc/fused_edge_conv_lowrank*_wgmma.cu); other ranks and float32
-# keep the FMA design.  Widths, K and ranks around the chunks' granularity
+# cores (csrc/fused_edge_conv_lowrank*_wgmma.cu; the float32 instances below
+# too); other ranks keep the FMA design.  Widths, K and ranks around the chunks' granularity
 # (whole channels of 128 // r, 8-column groups, depth 16): TOL / BWD_TOL of
 # each output's max, as for the FMA design.
 LOWRANK_WGMMA = [(48, 48, 16), (48, 17, 8), (16, 64, 32), (5, 1, 16),
@@ -857,10 +858,99 @@ def test_fused_edge_conv_lowrank_bf16_grads_on_card_match_cpu(cuda):
 
 
 def test_lowrank_occupancy_query(cuda):
-    """The tensor-core B3/B4 kernels fit an SM at the model's widths."""
+    """The tensor-core B3/B4 kernels fit an SM at the model's widths, in
+    bfloat16 and (keys ending ``_f32``) in float32."""
     occ = tfc.occupancy(48, 48, 48, rank=16)
-    assert set(occ) == {"fwd", "bwd_rows", "bwd_weights"}
+    assert set(occ) == {"fwd", "bwd_rows", "bwd_weights", "fwd_f32",
+                        "bwd_rows_f32", "bwd_weights_f32"}
     assert all(v >= 1 for v in occ.values()), occ
+
+
+# The float32 B3 and B4 on the tensor cores
+# (csrc/fused_edge_conv_lowrank*_f32_wgmma.cu, exact to float32 through
+# three-part bf16 splits) against their plain versions on the CPU (float32
+# on both sides, TF32 off, sums in other orders): 5e-5 of each output's max,
+# KERNEL_TOL's float32 bound in chip_smoke.py.
+F32_LOWRANK_TOL = 5e-5
+
+
+def _hold_lowrank_f32(blocks, h, x, w3, b3, g, c, rank, compact):
+    """Runs float32 B3 and B4 on the card (one launch each, as ``design``
+    says) and holds them against the CPU's plain versions; returns the
+    card's outputs."""
+    assert tfc.design(torch.float32, rank) == "wgmma"
+    args = (blocks, g, h, x[blocks.senders_perm], w3, b3, c, rank, "float32",
+            compact)
+    fwd = tfc.fused_edge_conv_lowrank.launches
+    bwd = tfc.fused_edge_conv_lowrank_bwd.launches
+    got = (_lowrank(blocks, h, x, w3, b3, c, rank, "float32", compact, "cuda"),
+           *_lowrank_bwd(*args, "cuda"))
+    torch.cuda.synchronize()
+    assert tfc.fused_edge_conv_lowrank.launches == fwd + 1
+    assert tfc.fused_edge_conv_lowrank_bwd.launches == bwd + 1
+    ref = (_lowrank(blocks, h, x, w3, b3, c, rank, "float32", compact, "cpu"),
+           *_lowrank_bwd(*args, "cpu"))
+    for name, a, b in zip(("out", "dh", "dx_src", "dw3", "db3"), got, ref):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        err = (a.cpu() - b).abs().max().item() / b.abs().max().item()
+        assert err < F32_LOWRANK_TOL, (name, err)
+    return got
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("c,k,rank", LOWRANK_WGMMA)
+def test_lowrank_f32_wgmma_kernels_match_plain(cuda, c, k, rank, compact):
+    blocks, h, x, w3, b3 = _lowrank_operands(c, rank, seed=c + k + rank + 1,
+                                             k=k)
+    _hold_lowrank_f32(blocks, h, x, w3, b3, _g(blocks, c, k + 3), c, rank,
+                      compact)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("n", [300, 50])
+def test_lowrank_f32_wgmma_padding_tiles_and_one_block(cuda, n, compact):
+    """Tiles of padding only (n = 300: B3's producer and consumers skip the
+    same tiles, B4's rows kernel writes zeros for them) and a graph of one
+    receiver block (n = 50: every part of B3's walk is one tile)."""
+    c, k, rank = 24, 20, 16
+    if n == 50:
+        blocks, h, x, _, _ = _operands(c, k=k, seed=41, n=50, e=700)
+        assert blocks.num_blocks == 1
+    else:
+        blocks, h, x, _, _ = _skewed_operands(c, k, seed=42, n=n)
+        pad_tiles = (blocks.compact_s.slot_rows.reshape(-1, 64) < 0).all(1)
+        assert pad_tiles.sum() >= blocks.blk // 64
+    w3, b3 = _lowrank_head(k, c, rank, 43)
+    _hold_lowrank_f32(blocks, h, x, w3, b3, _g(blocks, c, 44), c, rank,
+                      compact)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_lowrank_f32_wgmma_kernels_bit_identical(cuda, compact):
+    """No atomics: two float32 launches on the same inputs give the same
+    bits."""
+    c, k, rank = 48, 48, 16
+    blocks, h, x, w3, b3 = _lowrank_operands(c, rank, seed=45, k=k)
+    args = (blocks, _g(blocks, c, 46), h, x[blocks.senders_perm], w3, b3, c,
+            rank, "float32", compact)
+    runs = [(_lowrank(blocks, h, x, w3, b3, c, rank, "float32", compact,
+                      "cuda"), *_lowrank_bwd(*args, "cuda")) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("scale", [1e-20, 1e15])
+def test_lowrank_f32_wgmma_exact_at_extreme_scales(cuda, scale):
+    """The three-part split is exact from about 1e-30 to 1e30: x scaled by
+    1e-20 and by 1e15 (g by the inverse) meets the same limits."""
+    c, k, rank = 16, 24, 16
+    blocks, h, x, w3, b3 = _lowrank_operands(c, rank, seed=47, k=k)
+    g = _g(blocks, c, 48)
+    _hold_lowrank_f32(blocks, h, (x * np.float32(scale)).astype(np.float32),
+                      w3, b3, (g / np.float32(scale)).astype(np.float32), c,
+                      rank, True)
 
 
 def _routed_scheduler(tmp_path, device, gemm_dtype):

@@ -1,0 +1,526 @@
+"""Host-side pieces of the float32 B3 and B4 on the tensor cores
+(csrc/fused_edge_conv_lowrank_f32_wgmma.cu,
+csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu and csrc/lowrank_f32_wgmma.cuh),
+on the CPU: the design and libraries the wrappers pick, the index map of the
+stage-image launch in its three readings (kUv, kP, kQ), numpy emulations of
+the kernels' walks (B3: h split once per tile, the six products of each
+chunk in the kernel's order, + b3, t and msg in float32, the segmented
+scatter into per-part sums; B4's rows kernel over the V, U, P and Q chunks
+and its weights kernel) against the plain versions, a float64 reference and
+the JAX package's Pallas kernels in interpret mode, why dmsg and duv need
+all three parts, tiles of padding only, and the float32 rank-r wrappers
+refusing what the kernels do not take."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from fast_eng_super_resolution_tpu.ops import fused_conv as jfc
+from fast_eng_super_resolution_tpu_torch.ops import fused_conv as tfc
+from test_torch_f32_wgmma_host import (SMS, _dmsg, _fma, _graph, _rel, _six,
+                                       _split, _tiles, kmajor)
+
+RANKS = [8, 16, 24, 32]
+
+
+def _round_up(v, m):
+    return -(-v // m) * m
+
+
+def _chunks(k, c_in, c_out, rank, backward):
+    """(reading, first column, columns) of each stage, as
+    lowrank_f32_wgmma.cuh's fwd_chunk / bwd_chunk lay them out: G = N //
+    rank whole channels (or k) per chunk; the forward's U then V chunks of
+    uv, the rows kernel's V, U, P and Q chunks."""
+    g = tfc.lowrank_chunk_cols(rank) // rank
+
+    def groups(reading, n, base):
+        return [(reading, base + c0 * rank, min(g, n - c0) * rank)
+                for c0 in range(0, n, g)]
+
+    u = groups("uv", c_in, 0)
+    v = groups("uv", c_out, rank * c_in)
+    if not backward:
+        return u + v
+    return v + u + groups("p", k, 0) + groups("q", k, 0)
+
+
+def _image(w3, k, c_in, c_out, rank, backward):
+    """What the stage-image launch writes (lowrank_f32_wgmma.cuh
+    lowrank_image): its index map run in numpy over every thread index q.
+    [stages, 3, N * dmax] bf16 values as float64."""
+    n = tfc.lowrank_chunk_cols(rank)
+    dmax = _round_up(max(k, c_in, c_out) if backward else k, 16)
+    chunks = _chunks(k, c_in, c_out, rank, backward)
+    per = n * dmax
+    q = np.arange(len(chunks) * per)
+    c, e = q // per, q % per
+    row, d = e % n, e // n
+    reading = np.array([ch[0] for ch in chunks])[c]
+    lo = np.array([ch[1] for ch in chunks])[c]
+    cw = np.array([ch[2] for ch in chunks])[c]
+    depth = np.select([reading == "uv", reading == "p"], [k, c_in], c_out)
+    ok = (row < cw) & (d < depth)
+    col = lo + row
+    kk, qq = col // rank, col % rank
+    ncol = w3.shape[1]
+    flat = w3.reshape(-1)
+    at = np.where(reading == "uv", d * ncol + col,
+                  kk * ncol + np.where(reading == "q", rank * c_in, 0)
+                  + d * rank + qq)
+    v = np.where(ok, flat[np.where(ok, at, 0)], 0).astype(np.float32)
+    image = np.zeros((len(chunks), 3, per))
+    for p, part in enumerate(_split(v)):
+        image[c, p, kmajor(row, d, dmax)] = part
+    return image
+
+
+def _stages(image, n, dmax):
+    """The image read back through kmajor, as the descriptor reads it:
+    [stages, 3, N, dmax]."""
+    r, d = np.meshgrid(np.arange(n), np.arange(dmax), indexing="ij")
+    return image[:, :, kmajor(r, d, dmax)]
+
+
+@pytest.mark.parametrize("rank", RANKS)
+@pytest.mark.parametrize("k,c_in,c_out", [(48, 48, 48), (5, 7, 3),
+                                          (64, 64, 64), (17, 33, 20)])
+def test_stage_image_in_all_three_readings(k, c_in, c_out, rank):
+    """Read back through kmajor, the parts of each stage sum exactly to its
+    chunk of w3 in its reading, zeros elsewhere: the kUv stages of the
+    forward (and of B4's rows kernel, V first) concatenate to w3^T, the kP
+    stages to W3U^T and the kQ stages to W3V^T, with W3U[i, k r + q] =
+    w3[k, i r + q] and W3V[o, k r + q] = w3[k, r c_in + o r + q]; and
+    lowrank_image_numel sizes the scratch."""
+    rng = np.random.default_rng(k + c_in + rank)
+    ncol, ru = rank * (c_in + c_out), rank * c_in
+    w3 = rng.normal(size=(k, ncol)).astype(np.float32)
+    w3u = w3[:, :ru].reshape(k, c_in, rank).transpose(1, 0, 2).reshape(c_in, -1)
+    w3v = w3[:, ru:].reshape(k, c_out, rank).transpose(1, 0, 2).reshape(c_out, -1)
+    n = tfc.lowrank_chunk_cols(rank)
+    assert n % rank == 0 and n % 8 == 0 and n <= 64
+    for backward in (False, True):
+        image = _image(w3, k, c_in, c_out, rank, backward)
+        assert image.size == tfc.lowrank_image_numel(k, c_in, c_out, rank,
+                                                     backward)
+        dmax = _round_up(max(k, c_in, c_out) if backward else k, 16)
+        stages = _stages(image, n, dmax)
+        whole = stages.sum(1)
+        got = {"uv": [], "p": [], "q": []}
+        for c, (reading, lo, cw) in enumerate(
+                _chunks(k, c_in, c_out, rank, backward)):
+            depth = {"uv": k, "p": c_in, "q": c_out}[reading]
+            got[reading].append((lo, whole[c, :cw, :depth]))
+            assert not whole[c, cw:].any() and not whole[c, :, depth:].any()
+            # each part is a bf16 value
+            part = stages[c].astype(np.float32)
+            assert np.array_equal(torch.as_tensor(part).bfloat16().float().numpy(),
+                                  part)
+        uv = np.concatenate([b for _, b in sorted(got["uv"], key=lambda x: x[0])])
+        assert np.array_equal(uv, w3.T.astype(np.float64))
+        if backward:
+            assert np.array_equal(np.concatenate([b for _, b in got["p"]]),
+                                  w3u.T.astype(np.float64))
+            assert np.array_equal(np.concatenate([b for _, b in got["q"]]),
+                                  w3v.T.astype(np.float64))
+
+
+@pytest.mark.parametrize("rank", RANKS)
+def test_design_and_libraries_by_rank(rank):
+    """Float32 B3/B4 at a rank that is a multiple of 8 take the tensor
+    cores from their own libraries; other ranks keep the FMA design."""
+    for dt in (torch.float32, torch.bfloat16):
+        assert tfc.design(dt, rank) == "wgmma"
+        assert tfc.design(dt, rank + 1) == "fma"
+        assert tfc._lowrank_library(dt, rank + 1) == "fused_edge_conv_lowrank"
+    libs = (tfc._lowrank_library(torch.float32, rank),
+            tfc._lowrank_library(torch.float32, rank, backward=True))
+    assert libs == ("fused_edge_conv_lowrank_f32_wgmma",
+                    "fused_edge_conv_lowrank_bwd_f32_wgmma")
+    for lib in libs:
+        assert tfc._SOURCES[lib] == lib + ".cu" and lib in tfc._BINDINGS
+
+
+# ---------------------------------------------------------------------------
+# the kernels' walks in numpy
+
+
+def _operands(blocks, c_in, c_out, k, rank, seed):
+    rng = np.random.default_rng(seed)
+    slots, ncol = len(blocks.senders_perm), rank * (c_in + c_out)
+    o = dict(h=np.maximum(rng.normal(size=(slots, k)), 0),
+             x=rng.normal(size=(blocks.n_nodes, c_in)),
+             w3=rng.normal(size=(k, ncol)) * 0.2,
+             b3=rng.normal(size=(ncol,)) * 0.1,
+             g=rng.normal(size=(blocks.n_pad, c_out)))
+    o = {key: v.astype(np.float32) for key, v in o.items()}
+    o["x_src"] = o["x"][blocks.senders_perm]
+    return o
+
+
+def _pad(a, depth):
+    return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, depth - a.shape[-1])])
+
+
+def _scatter(blocks, msg, compact, real, idx):
+    """B1's part walk and scatter of per-tile messages [tiles, 64, c_out]
+    into the output, the partials summed in order."""
+    c_out = msg.shape[-1]
+    tiles = blocks.blk // 64
+    parts = tfc.conv_parts(blocks.num_blocks, tiles, SMS)
+    out = np.zeros((parts, blocks.n_pad, c_out), np.float32)
+    srow = blocks.compact_s.slot_rows
+    for b in range(blocks.num_blocks):
+        for p, (lo, hi) in enumerate(tfc.part_bounds(tiles, parts)):
+            acc = np.zeros((64, c_out), np.float32)
+            for t in range(b * tiles + lo, b * tiles + hi):
+                if compact:
+                    if not real[t]:
+                        continue
+                    cur, run = -1, np.zeros(c_out, np.float32)
+                    for s, r in enumerate(srow[idx[t]]):
+                        if r != cur:
+                            if cur >= 0:
+                                acc[cur] += run
+                            cur, run = r, np.zeros(c_out, np.float32)
+                        if r >= 0:
+                            run += msg[t, s]
+                    if cur >= 0:
+                        acc[cur] += run
+                else:
+                    s_tile = blocks.s_matrix[b * 64:(b + 1) * 64,
+                                             (t - b * tiles) * 64:
+                                             (t - b * tiles + 1) * 64]
+                    acc += (s_tile.astype(np.float64) @ msg[t]).astype(np.float32)
+            rows = slice(b * 64, (b + 1) * 64)
+            out[p, rows] = (blocks.compact_s.row_weight[rows, None] * acc
+                            if compact else acc)
+    total = out[0]
+    for p in range(1, parts):
+        total = total + out[p]
+    return total
+
+
+def _uv(acc, b3, lo, cw, rank):
+    """A kUv chunk's accumulator plus b3: [tiles, 64, channels, rank]."""
+    uv = (acc[..., :cw] + b3[lo:lo + cw]).astype(np.float32)
+    return uv.reshape(*uv.shape[:-1], cw // rank, rank)
+
+
+def _emulate_fwd(blocks, o, c_in, c_out, rank, compact):
+    """B3 float32 as csrc/fused_edge_conv_lowrank_f32_wgmma.cu runs it."""
+    k = o["h"].shape[1]
+    n, dp, ru = tfc.lowrank_chunk_cols(rank), _round_up(k, 16), rank * c_in
+    st = _stages(_image(o["w3"], k, c_in, c_out, rank, False), n, dp)
+    idx, real = _tiles(blocks)
+    hp = _split(_pad(o["h"][idx], dp))
+    x = o["x"][blocks.senders_perm[idx]]
+    t = np.zeros((*idx.shape, rank), np.float32)
+    msg = np.zeros((*idx.shape, c_out), np.float32)
+    for c, (_, lo, cw) in enumerate(_chunks(k, c_in, c_out, rank, False)):
+        uv = _uv(_six(hp, [st[c, p].T for p in range(3)]), o["b3"], lo, cw,
+                 rank)
+        if lo < ru:  # t[s, q] += x[s, i] U[s, i, q]
+            for gi in range(cw // rank):
+                i = lo // rank + gi
+                t = _fma(x[..., i:i + 1], uv[..., gi, :], t)
+        else:  # msg[s, o] = sum_q V[s, o, q] t[s, q]
+            o0 = (lo - ru) // rank
+            msg[..., o0:o0 + cw // rank] = (uv * t[..., None, :]).sum(-1)
+    return _scatter(blocks, msg, compact, real, idx)
+
+
+def _plain_fwd(blocks, o, c_in, c_out, rank, compact):
+    t = {key: torch.as_tensor(v) for key, v in o.items()}
+    s = blocks.compact_s.to("cpu") if compact else torch.as_tensor(blocks.s_matrix)
+    return tfc.fused_edge_conv_lowrank(
+        t["h"], t["x"], torch.as_tensor(blocks.senders_perm), t["w3"], t["b3"],
+        s, c_in=c_in, c_out=c_out, rank=rank, rows_blk=64, blk=blocks.blk,
+        gemm_dtype="float32").numpy()
+
+
+def _f64_parts(o, c_in, c_out, rank):
+    f = {key: v.astype(np.float64) for key, v in o.items()}
+    uv = f["h"] @ f["w3"] + f["b3"]
+    ru = rank * c_in
+    return (f, uv[:, :ru].reshape(-1, c_in, rank),
+            uv[:, ru:].reshape(-1, c_out, rank))
+
+
+def _f64_fwd(blocks, o, c_in, c_out, rank):
+    f, u, v = _f64_parts(o, c_in, c_out, rank)
+    t = np.einsum("ei,eiq->eq", f["x_src"], u)
+    msg = np.einsum("eq,eoq->eo", t, v)
+    nb, blk = blocks.num_blocks, blocks.blk
+    s = blocks.s_matrix.astype(np.float64).reshape(nb, 64, blk)
+    return np.einsum("brs,bso->bro", s, msg.reshape(nb, blk, c_out)).reshape(-1, c_out)
+
+
+def _kw(blocks, c_in, c_out, rank):
+    return dict(c_in=c_in, c_out=c_out, rank=rank, rows_blk=64, blk=blocks.blk,
+                gemm_dtype="float32", interpret=True)
+
+
+def _jax_fwd(blocks, o, c_in, c_out, rank):
+    return np.asarray(jfc.fused_edge_conv_lowrank(
+        jnp.asarray(o["h"]), jnp.asarray(o["x"]), jnp.asarray(blocks.senders_perm),
+        jnp.asarray(o["w3"]), jnp.asarray(o["b3"]), jnp.asarray(blocks.s_matrix),
+        **_kw(blocks, c_in, c_out, rank)))
+
+
+SHAPES = [(16, 16, 16, 16), (12, 20, 33, 8), (9, 7, 5, 24), (8, 8, 17, 32)]
+
+
+@pytest.mark.parametrize("c_in,c_out,k,rank", SHAPES)
+def test_fwd_walk_matches_plain_float64_and_pallas(c_in, c_out, k, rank):
+    """B3's emulated walk, in both S forms, against
+    ``fused_edge_conv_lowrank_plain`` (float32) and a float64 reference
+    within 1e-6 of the max, and against the JAX package's Pallas kernel in
+    interpret mode (float32 at Precision.HIGHEST) within 1e-5."""
+    blocks = _graph("random", seed=c_in + k)
+    o = _operands(blocks, c_in, c_out, k, rank, seed=c_out + 3 * k)
+    ref = _f64_fwd(blocks, o, c_in, c_out, rank)
+    jax_ = _jax_fwd(blocks, o, c_in, c_out, rank)
+    for compact in (True, False):
+        got = _emulate_fwd(blocks, o, c_in, c_out, rank, compact)
+        assert got.shape == ref.shape == (blocks.n_pad, c_out)
+        assert _rel(got, ref) <= 1e-6
+        assert _rel(got, _plain_fwd(blocks, o, c_in, c_out, rank, compact)) <= 1e-6
+        assert _rel(got, jax_) <= 1e-5
+
+
+def _emulate_bwd(blocks, o, c_in, c_out, rank, compact, sms=SMS):
+    """B4 float32 as csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu runs it:
+    (dh, dx_src, dw3, db3)."""
+    k = o["h"].shape[1]
+    slots, ru, ncol = len(blocks.senders_perm), rank * c_in, rank * (c_in + c_out)
+    n, dp = tfc.lowrank_chunk_cols(rank), _round_up(max(k, c_in, c_out), 16)
+    st = _stages(_image(o["w3"], k, c_in, c_out, rank, True), n, dp)
+    idx, real = _tiles(blocks)
+    dmsg = _dmsg(blocks, o["g"], compact)
+    # (a) rows: A = split h over the V and U chunks, split x_src over the P
+    # chunks, split dmsg over the Q chunks
+    d, xs = dmsg[idx], o["x_src"][idx]
+    a = {"uv": _split(_pad(o["h"][idx], dp)), "p": _split(_pad(xs, dp)),
+         "q": _split(_pad(d, dp))}
+    t, dt = (np.zeros((*idx.shape, rank), np.float32) for _ in range(2))
+    dx = np.zeros((*idx.shape, c_in), np.float32)
+    dh_p, dh = (np.zeros((*idx.shape, k), np.float32) for _ in range(2))
+    for c, (reading, lo, cw) in enumerate(_chunks(k, c_in, c_out, rank, True)):
+        acc = _six(a[reading], [st[c, p].T for p in range(3)])
+        if reading == "uv":
+            uv = _uv(acc, o["b3"], lo, cw, rank)
+            for gi in range(cw // rank):
+                ch = (lo - ru if lo >= ru else lo) // rank + gi
+                if lo >= ru:  # dt[s, q] += dmsg[s, o] V[s, o, q]
+                    dt = _fma(d[..., ch:ch + 1], uv[..., gi, :], dt)
+                else:  # t += x U; dx_src[s, i] = sum_q U[s, i, q] dt[s, q]
+                    t = _fma(xs[..., ch:ch + 1], uv[..., gi, :], t)
+                    dx[..., ch] = (uv[..., gi, :] * dt).sum(-1)
+        else:  # dh[s, k] = sum_q dt P[s, k, q] + sum_q t Q[s, k, q]
+            pq = acc[..., :cw].reshape(*idx.shape, cw // rank, rank)
+            ks = slice(lo // rank, lo // rank + cw // rank)
+            if reading == "p":
+                dh_p[..., ks] = (pq * dt[..., None, :]).sum(-1)
+            else:
+                dh[..., ks] = dh_p[..., ks] + (pq * t[..., None, :]).sum(-1)
+    if compact:  # padding-only tiles write zeros
+        for a_ in (dh, dx, t, dt):
+            a_[~real] = 0
+    dh, dx = dh.reshape(slots, k), dx.reshape(slots, c_in)
+    t, dt = t.reshape(slots, rank), dt.reshape(slots, rank)
+    # (b) weights: per split, chunk by chunk, six passes of h^T duv into a
+    # fresh accumulator added into the float32 sum; db3 in slot order
+    splits = tfc.weight_splits(slots, tfc.lowrank_weight_tiles(rank, c_in, c_out),
+                               sms)
+    chunks = slots // 64
+    per = -(-chunks // splits)
+    partial = np.zeros((splits, k + 1, ncol), np.float32)
+    for sp in range(splits):
+        total = np.zeros((k, ncol), np.float32)
+        dbias = np.zeros(ncol, np.float32)
+        for ch in range(sp * per, min((sp + 1) * per, chunks)):
+            if compact and not real[ch]:
+                continue
+            rows = slice(64 * ch, 64 * ch + 64)
+            duv = np.concatenate(
+                [(o["x_src"][rows, :, None] * dt[rows, None, :]).reshape(64, -1),
+                 (dmsg[rows, :, None] * t[rows, None, :]).reshape(64, -1)], 1)
+            total = total + _six([p.T for p in _split(o["h"][rows])], _split(duv))
+            for s in range(64):
+                dbias = dbias + duv[s]
+        partial[sp, :k], partial[sp, k] = total, dbias
+    out = partial[0]
+    for sp in range(1, splits):
+        out = out + partial[sp]
+    return dh, dx, out[:k], out[k]
+
+
+def _plain_bwd(blocks, o, c_in, c_out, rank, compact):
+    t = {key: torch.as_tensor(v) for key, v in o.items()}
+    s = blocks.compact_s.to("cpu") if compact else torch.as_tensor(blocks.s_matrix)
+    return [a.numpy() for a in tfc.fused_edge_conv_lowrank_bwd(
+        t["g"], t["h"], t["x_src"], t["w3"], t["b3"], s, c_in=c_in,
+        c_out=c_out, rank=rank, rows_blk=64, blk=blocks.blk,
+        gemm_dtype="float32")]
+
+
+def _f64_bwd(blocks, o, c_in, c_out, rank):
+    f, u, v = _f64_parts(o, c_in, c_out, rank)
+    nb, blk = blocks.num_blocks, blocks.blk
+    s = blocks.s_matrix.astype(np.float64).reshape(nb, 64, blk)
+    dmsg = np.einsum("brs,bro->bso", s, f["g"].reshape(nb, 64, -1)).reshape(
+        nb * blk, -1)
+    t = np.einsum("ei,eiq->eq", f["x_src"], u)
+    dt = np.einsum("eo,eoq->eq", dmsg, v)
+    slots = len(dmsg)
+    duv = np.concatenate([(f["x_src"][:, :, None] * dt[:, None, :]).reshape(slots, -1),
+                          (dmsg[:, :, None] * t[:, None, :]).reshape(slots, -1)], 1)
+    return (duv @ f["w3"].T, np.einsum("eiq,eq->ei", u, dt), f["h"].T @ duv,
+            duv.sum(0))
+
+
+def _jax_bwd(blocks, o, c_in, c_out, rank):
+    return [np.asarray(a) for a in jfc._fused_lowrank_bwd_jit(
+        jnp.asarray(o["g"]), jnp.asarray(o["h"]), jnp.asarray(o["x_src"]),
+        jnp.asarray(o["w3"]), jnp.asarray(o["b3"]), jnp.asarray(blocks.s_matrix),
+        sub=None, **_kw(blocks, c_in, c_out, rank))]
+
+
+NAMES = ("dh", "dx_src", "dw3", "db3")
+
+
+@pytest.mark.parametrize("c_in,c_out,k,rank", SHAPES)
+def test_bwd_rows_and_weights_match_plain_float64_and_pallas(c_in, c_out, k,
+                                                            rank):
+    """B4's emulated rows and weights kernels, in both S forms, against
+    ``fused_edge_conv_lowrank_bwd_plain`` and a float64 reference within
+    1e-6 of each output's max, and against the JAX package's Pallas
+    backward in interpret mode within 1e-5; dw3 and db3 in the model's
+    column layout (the JAX function unpermutes its own)."""
+    blocks = _graph("random", seed=c_in + k + 1)
+    o = _operands(blocks, c_in, c_out, k, rank, seed=c_out + 3 * k + 1)
+    ref = _f64_bwd(blocks, o, c_in, c_out, rank)
+    jax_ = _jax_bwd(blocks, o, c_in, c_out, rank)
+    for compact in (True, False):
+        got = _emulate_bwd(blocks, o, c_in, c_out, rank, compact)
+        plain = _plain_bwd(blocks, o, c_in, c_out, rank, compact)
+        for name, a, r, p, j in zip(NAMES, got, ref, plain, jax_):
+            assert a.shape == r.shape == p.shape == j.shape, name
+            assert _rel(a, r) <= 1e-6, (name, compact, _rel(a, r))
+            assert _rel(a, p) <= 1e-6, (name, compact, _rel(a, p))
+            assert _rel(a, j) <= 1e-5, (name, compact, _rel(a, j))
+
+
+@pytest.mark.parametrize("sms", [SMS, 2])
+def test_padding_tiles_and_few_splits(sms):
+    """Tiles of padding only (skipped by B3's producer and consumers, zeros
+    from B4's rows kernel, skipped chunks in its weights kernel) and one
+    receiver block without any edge, at the card's split count and at a
+    few long splits."""
+    blocks = _graph("skewed", seed=44)
+    _, real = _tiles(blocks)
+    assert (~real).sum() >= blocks.blk // 64
+    o = _operands(blocks, 16, 16, 8, 16, seed=45)
+    got = _emulate_fwd(blocks, o, 16, 16, 16, True)
+    assert _rel(got, _f64_fwd(blocks, o, 16, 16, 16)) <= 1e-6
+    got = _emulate_bwd(blocks, o, 16, 16, 16, True, sms=sms)
+    for name, a, ref in zip(NAMES, got, _f64_bwd(blocks, o, 16, 16, 16)):
+        assert _rel(a, ref) <= 1e-6, (name, _rel(a, ref))
+
+
+def _truncated(parts, keep):
+    return [p if i < keep else np.zeros_like(p) for i, p in enumerate(parts)]
+
+
+@pytest.mark.parametrize("operand", ["dmsg", "duv"])
+def test_dmsg_and_duv_need_all_three_parts(operand):
+    """dmsg = row_weight g[slot_rows] (Q = dmsg @ W3V in the rows kernel)
+    and duv = x_src (x) dt (h^T duv in the weights kernel) are float32
+    products with full 24-bit significands: from one part (a bf16 rounding)
+    or two parts the six products err well past float32's own error, from
+    all three they stay at its level (against float64)."""
+    rng = np.random.default_rng(8)
+    rank, c = 16, 16
+    if operand == "dmsg":
+        deg = rng.integers(1, 9, size=(256, 1))
+        a = ((1.0 / deg).astype(np.float32)
+             * rng.normal(size=(256, c)).astype(np.float32))
+        b = (rng.normal(size=(c, 48 * rank)) * 0.2).astype(np.float32)
+        lhs, rhs = a, b
+        a_parts, b_parts = _split(lhs), _split(rhs)
+    else:
+        h = np.maximum(rng.normal(size=(256, 48)), 0).astype(np.float32)
+        xs = rng.normal(size=(256, c)).astype(np.float32)
+        dt = rng.normal(size=(256, rank)).astype(np.float32)
+        duv = (xs[:, :, None] * dt[:, None, :]).reshape(256, -1)
+        lhs, rhs = h.T, duv
+        a_parts, b_parts = [p.T for p in _split(h)], _split(duv)
+    ref = lhs.astype(np.float64) @ rhs.astype(np.float64)
+    top = np.abs(ref).max()
+    f32 = np.abs((lhs @ rhs).astype(np.float64) - ref).max() / top
+    split = b_parts if operand == "duv" else a_parts
+
+    def err(keep):
+        parts = _truncated(split, keep)
+        got = _six(a_parts, parts) if operand == "duv" else _six(parts, b_parts)
+        return np.abs(got - ref).max() / top
+
+    assert err(3) <= 2 * f32 + 1e-7
+    assert err(2) > 5 * f32 and err(1) > 5 * f32
+    assert (split[2] != 0).mean() > 0.5
+
+
+# ---------------------------------------------------------------------------
+# the float32 rank-r wrappers refuse what the kernels do not take, before
+# any launch
+
+
+def _small(k=6, c=8, rank=16):
+    blocks = _graph("random", seed=3)
+    o = _operands(blocks, c, c, k, rank, seed=4)
+    t = {key: torch.as_tensor(v) for key, v in o.items()}
+    fwd = (t["h"], t["x"], torch.as_tensor(blocks.senders_perm), t["w3"],
+           t["b3"], blocks.compact_s.to("cpu"))
+    bwd = (t["g"], t["h"], t["x_src"], t["w3"], t["b3"],
+           blocks.compact_s.to("cpu"))
+    return fwd, bwd, dict(c_in=c, c_out=c, rank=rank, rows_blk=64,
+                          blk=blocks.blk)
+
+
+def _fn(which, fwd, bwd):
+    return ((tfc.fused_edge_conv_lowrank_cuda, fwd) if which == "fwd"
+            else (tfc.fused_edge_conv_lowrank_bwd_cuda, bwd))
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+@pytest.mark.parametrize("bad,match", [
+    ({"rank": 40}, "rank=40"), ({"c_out": 65}, "c_out=65"),
+    ({"c_in": 0}, "c_in=0"), ({"rows_blk": 16}, "rows_blk=16"),
+    ({"blk": 32}, "blk=32")])
+def test_f32_lowrank_wrappers_refuse_geometry_before_launch(which, bad, match):
+    fwd, bwd, kw = _small()
+    assert fwd[0].dtype == torch.float32
+    assert tfc.design(torch.float32, kw["rank"]) == "wgmma"
+    fn, args = _fn(which, fwd, bwd)
+    with pytest.raises(ValueError, match=match):
+        fn(*args, **{**kw, **bad})
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_f32_lowrank_wrappers_refuse_k_past_64_cpu_tensors_and_float64(which):
+    fwd, bwd, kw = _small(k=65)
+    fn, args = _fn(which, fwd, bwd)
+    with pytest.raises(ValueError, match="K=65"):
+        fn(*args, **kw)
+    fwd, bwd, kw = _small()
+    fn, args = _fn(which, fwd, bwd)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fn(*args, **kw)
+    args = list(args)
+    at = 0 if which == "fwd" else 1  # h_blocked
+    args[at] = args[at].double()
+    with pytest.raises(TypeError, match="float64"):
+        fn(*args, **kw)

@@ -66,12 +66,12 @@ def lowrank_chunks(k, c_in, c_out, rank, backward=False):
     (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 16, "wgmma"),
     (torch.bfloat16, 24, "wgmma"), (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 3, "fma"), (torch.bfloat16, 12, "fma"),
-    (torch.bfloat16, 1, "fma"), (torch.float32, 16, "fma"),
-    (torch.float32, 3, "fma")])
+    (torch.bfloat16, 1, "fma"), (torch.float32, 16, "wgmma"),
+    (torch.float32, 8, "wgmma"), (torch.float32, 24, "wgmma"),
+    (torch.float32, 32, "wgmma"), (torch.float32, 3, "fma")])
 def test_design_by_type_and_rank(dt, rank, want):
-    """B1/B2 in both types and bfloat16 B3/B4 at ranks that are a multiple
-    of 8 take the tensor cores; float32 B3/B4 and the other ranks the FMA
-    design."""
+    """B1/B2 in both types and B3/B4 in both types at ranks that are a
+    multiple of 8 take the tensor cores; the other ranks the FMA design."""
     assert tfc.design(dt, rank) == want
 
 
