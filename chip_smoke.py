@@ -4,7 +4,7 @@ Phases, each printing its own lines; any failure raises and the script exits
 non-zero without the final result line:
 
 1. device  — needs CUDA; prints the card's name and power limit.
-2. build   — compiles the five kernels' eleven libraries (the forward B1
+2. build   — compiles the five kernels' nine libraries (the forward B1
              as csrc/fused_edge_conv_wgmma.cu, bfloat16 on the tensor cores,
              and csrc/fused_edge_conv_f32_wgmma.cu, float32 on the tensor
              cores through exact three-part bf16 splits; the backward B2 as
@@ -14,10 +14,8 @@ non-zero without the final result line:
              and csrc/fused_edge_conv_lowrank_f32_wgmma.cu, and B4 as
              csrc/fused_edge_conv_lowrank_bwd_wgmma.cu and
              csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu, the same way at
-             ranks that are a multiple of 8, and as
-             csrc/fused_edge_conv_lowrank.cu and
-             csrc/fused_edge_conv_lowrank_bwd.cu, float32 FMAs, at the other
-             ranks; and B5, the per-edge messages of conv mode 'pallas',
+             every rank, a rank that is not a multiple of 8 padded to the
+             next one; and B5, the per-edge messages of conv mode 'pallas',
              float32 on the tensor cores through exact bf16 splits as
              csrc/fused_edge_messages_wgmma.cu) from the checkout, one nvcc
              each, started together; prints ptxas's registers and spills of the
@@ -25,10 +23,9 @@ non-zero without the final result line:
 3. kernel  — B1 against its plain PyTorch version on the card, at the
              full-size serving chunk shape, on operands from the real dataset
              chunk: float32 (TF32 off) and bfloat16, compact and dense S,
-             each line naming the design that ran (``design=wgmma`` for B1/B2
-             and for B3/B4 at rank 16, in both types, as
-             ``fused_conv.design`` says); a tensor-core launch is repeated
-             and must give the same bits.
+             each line naming the design that ran (``design=wgmma`` for every
+             kernel in both types, as ``fused_conv.design`` says); every
+             launch is repeated and must give the same bits.
 4. bwd     — B2 against its plain version at the same shape and operands with
              a seeded output gradient, both types and both S forms (repeated
              as B1); then the differentiable layer's gradients on the card
@@ -75,6 +72,20 @@ width of configs/exp_config/teecnet_ansys.yaml (width 48, 5 layers, edge MLP
 K = 128) on the same meshes (``[teecnet_*]`` lines): B1 and B2 at K = 128,
 10 B1 launches per full-size request, configs/train_config/teecnet.yaml cut
 to 3 epochs (its loss is recorded, not held to fall).
+
+   rank 12 — the rank-16 path's config with ``kernel_rank: 12`` (depth 2, a
+             rank B3/B4 run padded to 16): one full-size request (4 B3
+             launches, the prediction against the CPU's float32 plain one),
+             ``train_graph_ALDD`` cut to 3 epochs in bfloat16 and in float32
+             (B3 and B4 launch counts held), phase 7's float32 parity card
+             vs CPU; B3 and B4 against their plain versions at the full-size
+             chunk at ranks 1, 4, 12, 20, 28 and 31 (rank 12 also at the
+             train and val batches), both types, both S forms, repeated
+             launches bit-identical (``[rank<r>_kernel]``,
+             ``[rank<r>_bwd]``); their times and bounds at ranks 4, 12, 20
+             and 28 (``[rank<r>_times]``; a padded instance reaches at most
+             r / rp of its bound), the warm request and train steps at rank
+             12 (``[rank12_*]`` lines).
 
 9. pallas  — KernelNN and TEECNet built with ``mode='pallas'`` serve one
              full-size mesh each with FESR_FUSED_PREDICT=0 (the general lane's
@@ -322,6 +333,14 @@ SEED = 0
 CHUNKS = {"full": 2, "small": 1}  # per request; launches = chunks x depth
 RANK = 16  # the rank-r path's kernel_rank (the JAX package's lowrank16 rows)
 RANK_DEPTH = 2  # its depth, cut from the config's 4 to keep the run short
+# the rank-12 path (B3/B4 at a rank that is not a multiple of 8, run padded
+# to 16): its kernel_rank, its training's epoch cut, the ranks at which B3
+# and B4 are held against their plain versions and those at which they are
+# timed, at the full-size chunk
+RANK12 = 12
+RANK12_EPOCHS = 3
+RANK12_CHECKED = (1, 4, 12, 20, 28, 31)
+RANK12_TIMED = (4, 12, 20, 28)
 KERNELS = (fused_conv.fused_edge_conv, fused_conv.fused_edge_conv_bwd,
            fused_conv.fused_edge_conv_lowrank,
            fused_conv.fused_edge_conv_lowrank_bwd,
@@ -485,10 +504,14 @@ def check_only(label: str, want: dict) -> None:
 
 def prefix(model) -> str:
     """The log prefix of the path ``model`` runs: '' (KernelNN at full
-    rank), 'lowrank_' (KernelNN at rank r) or 'teecnet_'."""
+    rank), 'lowrank_' (KernelNN at rank ``RANK``), 'rank<r>_' (at another
+    rank r) or 'teecnet_'."""
     if isinstance(model, TEECNet):
         return "teecnet_"
-    return "" if model.kernel_rank is None else "lowrank_"
+    if model.kernel_rank is None:
+        return ""
+    r = model.kernel_rank
+    return "lowrank_" if r == RANK else f"rank{r}_"
 
 
 def rank_of(model):
@@ -632,9 +655,9 @@ def layer(op, gemm_dtype, plain=False, dense=False):
 
 
 def design_of(op, gemm_dtype: str) -> str:
-    """The design the kernel of ``op`` runs in ``gemm_dtype``: on the tensor
-    cores ('wgmma': B1/B2, and B3/B4 at a rank that is a multiple of 8, in
-    both types), else ('fma') float32 FMAs on the CUDA cores."""
+    """The design the kernel of ``op`` runs in ``gemm_dtype``, as
+    ``fused_conv.design`` names it ('wgmma': every kernel, both types, on
+    the tensor cores)."""
     return fused_conv.design(getattr(torch, gemm_dtype), op["rank"])
 
 
@@ -744,9 +767,8 @@ def phase_kernel(op, at: str = "chunk", errs: dict | None = None) -> dict:
                     raise AssertionError(f"{label} at {at} {dt} dense={dense}: "
                                          f"{rel:.3e} > {KERNEL_TOL[dt]}")
                 errs[dt] = max(errs.get(dt, 0.0), abs_err)
-                if design_of(op, dt) == "wgmma":
-                    check_repeat(label, at, dt, dense, (got,),
-                                 (layer(op, dt, dense=dense),))
+                check_repeat(label, at, dt, dense, (got,),
+                             (layer(op, dt, dense=dense),))
             del ref, got
     torch.cuda.empty_cache()
     return errs
@@ -1061,9 +1083,8 @@ def check_bwd(bop, at: str = "chunk", errs: dict | None = None) -> dict:
                             f"{label} kernel at {at} {dt} dense={dense} {name}: "
                             f"{rel:.3e} > {BWD_TOL[dt]}")
                     errs[dt] = max(errs.get(dt, 0.0), abs_err)
-                if design_of(bop, dt) == "wgmma":
-                    check_repeat(label, at, dt, dense, got,
-                                 bwd(bop, dt, dense=dense))
+                check_repeat(label, at, dt, dense, got,
+                             bwd(bop, dt, dense=dense))
             del ref, got
     torch.cuda.empty_cache()
     return errs
@@ -1347,6 +1368,114 @@ def run_path(root, name, smi, datasets, models, cfgs, tag: str = "") -> dict:
         wall_s=f"{time.time() - t0:.1f}")
     return dict(errs=errs, errs_bwd=errs_bwd, launches=launches, train=train,
                 t=t, tb=tb, msg=msg)
+
+
+def rank12_train(root: str, ds, cfg: dict) -> dict:
+    """``train_graph_ALDD`` of the rank-12 config on the full-size meshes,
+    cut to ``RANK12_EPOCHS`` epochs, in bfloat16 then in float32 from the
+    same seed: finite losses, B3 launched depth x (steps + validations) and
+    B4 depth x steps times in each, no other kernel.  Returns each type's
+    (B3, B4) launches."""
+    log_dir = os.path.join(root, "logs")
+    fwd, bwd_k = FWD[True][0], BWD[True][0]
+    train_cfg = load_yaml(cfg["train_config"])
+    train_cfg.update(epochs=RANK12_EPOCHS, val_interval=1)
+    depth = cfg["num_layers"]
+    tr_idx, va_idx = train_val_split(len(ds), 0.2, 0)
+    n_batches = [-(-len(ix) // min(train_cfg["batch_size"], len(tr_idx)))
+                 for ix in (tr_idx, va_idx)]
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        exp = f"train_full_r{RANK12}_{dt}"
+        reset_launches()
+        t0 = time.time()
+        train_graph_ALDD(exp, make_model(cfg), ds, 1, dict(train_cfg),
+                         log_dir=log_dir, gemm_dtype=dt)
+        torch.cuda.synchronize()
+        with open(os.path.join(log_dir, "metrics",
+                               f"{exp}_partition_0.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        losses = [r["train_loss"] for r in records if "train_loss" in r]
+        vals = [r["val_loss"] for r in records if "val_loss" in r]
+        steps, evals = RANK12_EPOCHS * n_batches[0], len(vals) * n_batches[1]
+        out[dt] = (fwd.launches, bwd_k.launches)
+        log(f"rank{RANK12}_train", dtype=dt, epochs=len(losses), steps=steps,
+            val_evals=evals, design=fused_conv.design(getattr(torch, dt),
+                                                      RANK12),
+            fwd_launches=out[dt][0], bwd_launches=out[dt][1],
+            wall_s=f"{time.time() - t0:.1f}",
+            losses=",".join(f"{v:.5g}" for v in losses),
+            val_losses=",".join(f"{v:.5g}" for v in vals))
+        if (len(losses) != RANK12_EPOCHS
+                or not np.all(np.isfinite(losses + vals))):
+            raise AssertionError(f"rank-{RANK12} {dt} losses {losses}, {vals}")
+        check_only(f"rank{RANK12}_train {dt}",
+                   {fwd: depth * (steps + evals), bwd_k: depth * steps})
+    return out
+
+
+def run_rank12(root, smi, datasets, models, cfgs) -> dict:
+    """The rank-12 path: B3 and B4 at a rank that is not a multiple of 8.
+    One full-size request (the card's bfloat16 prediction against the CPU's
+    float32 plain one), the path's training in both types, phase 7's float32
+    parity; B3 and B4 against their plain versions at the full-size chunk at
+    each of ``RANK12_CHECKED`` (a seeded model of that rank) and their times
+    at ``RANK12_TIMED``, and at rank 12 also at the train and val batches;
+    the warm request and train steps at rank 12.
+    Returns what the kernels' JSON entries need, with each timed rank's
+    numbers under ``by_rank``."""
+    t0 = time.time()
+    log_dir = os.path.join(root, "logs")
+    cfg, ds = cfgs["full"], datasets["full"]
+    label = f"rank{RANK12}_serve"
+    fwd = FWD[True][0]
+    reset_launches()
+    lanes, (card,) = serve(ds, models["full"], [0], log_dir, f"full_r{RANK12}",
+                           None)
+    torch.cuda.synchronize()
+    served = fwd.launches
+    log(label, mesh="full", lane=lanes[0][1], launches=served,
+        design=fused_conv.design(torch.bfloat16, RANK12),
+        nodes=len(card["pressure"]))
+    check_only(label, {fwd: CHUNKS["full"] * cfg["num_layers"]})
+    _, (ref,) = serve(ds, models["full"], [0], log_dir,
+                      f"full_r{RANK12}_cpu", "cpu", gemm_dtype="float32")
+    for key in ("velocity", "pressure"):
+        rel = np.abs(card[key] - ref[key]).max() / np.abs(ref[key]).max()
+        log(label, field=key, vs_cpu_f32=f"{rel:.3e}", tol=SERVE_TOL)
+        if not rel <= SERVE_TOL:
+            raise AssertionError(f"{label} {key}: {rel:.3e} > {SERVE_TOL}")
+    trained = rank12_train(root, ds, cfg)
+    phase_parity(merged_subdomains(datasets["small"]), cfgs["small"])
+    errs, errs_bwd, by_rank = {}, {}, {}
+    for rank in RANK12_CHECKED:
+        op = chunk_operands(ds, make_model(dict(cfg, kernel_rank=rank)),
+                            "cuda")
+        e_f, e_b = phase_kernel(op), check_bwd(bwd_operands(op))
+        if rank == RANK12:
+            errs, errs_bwd = e_f, e_b
+        if rank in RANK12_TIMED:
+            rp = fused_conv.padded_rank(rank)
+            by_rank[rank] = {"padded_rank": rp, "ceiling": rank / rp,
+                             "max_abs_err": e_f, "max_abs_err_bwd": e_b,
+                             "fwd": fwd_times(op, smi),
+                             "bwd": phase_bwd_times(bwd_operands(op), smi)}
+        del op
+        torch.cuda.empty_cache()
+    t = dict(by_rank[RANK12]["fwd"])
+    t.update(request_times(datasets, models, root, smi, f"_r{RANK12}"))
+    batches = train_batches(ds, cfg)
+    phase_train_kernels(batches, errs, errs_bwd)
+    t.update(phase_train_times(batches, cfg, smi))
+    del batches
+    torch.cuda.empty_cache()
+    log(f"rank{RANK12}_path", depth=cfg["num_layers"],
+        wall_s=f"{time.time() - t0:.1f}")
+    fwd_n = sum(n for n, _ in trained.values())
+    bwd_n = sum(n for _, n in trained.values())
+    return dict(errs=errs, errs_bwd=errs_bwd, launches=served,
+                train=dict(fwd=fwd_n, bwd=bwd_n, served=0), t=t,
+                tb=by_rank[RANK12]["bwd"], by_rank=by_rank, trained=trained)
 
 
 def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
@@ -3647,13 +3776,11 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
     """The forward's and the backward's entries of the kernels JSON line,
     tagged with the ``path`` that ran them."""
     pkg = "fast_eng_super_resolution_tpu_torch/csrc/"
-    # each type's numbers are its design's, in its own source: on the tensor
-    # cores csrc/<name>_wgmma.cu (bfloat16) or csrc/<name>_f32_wgmma.cu
-    # (float32), else the FMA design's csrc/<name>.cu
-    suffix = {dt: "" for dt in ("bfloat16", "float32")}
-    for dt in suffix:
-        if fused_conv.design(getattr(torch, dt), rank) == "wgmma":
-            suffix[dt] = ("_f32" if dt == "float32" else "") + "_wgmma"
+    # each type's numbers are its own source's: csrc/<name>_wgmma.cu
+    # (bfloat16) or csrc/<name>_f32_wgmma.cu (float32)
+    suffix = {"bfloat16": "_wgmma", "float32": "_f32_wgmma"}
+    design = {dt: fused_conv.design(getattr(torch, dt), rank)
+              for dt in suffix}
     if rank is None:
         names, lines = ("fused_edge_conv", "fused_edge_conv_bwd"), (322, 442)
     else:
@@ -3674,7 +3801,7 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
             "path": path,
             "route": "cuda",
             "source": pkg + name + suffix["bfloat16"] + ".cu",
-            "design": "wgmma" if suffix["bfloat16"] else "fma",
+            "design": design["bfloat16"],
             "replaces": f"fast_eng_super_resolution_tpu/ops/fused_conv.py:{line}",
             "launches": launches,
             "launches_by_path": by_path,
@@ -3685,7 +3812,7 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
             "bound_by": times["bound_by_bfloat16"],
             "library_ms": None,
             "float32": {"source": pkg + name + suffix["float32"] + ".cu",
-                        "design": "wgmma" if suffix["float32"] else "fma",
+                        "design": design["float32"],
                         "max_abs_err": errs["float32"],
                         **{key: times[f"{key}_float32"] for key in (
                             "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3694,6 +3821,32 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
             **extra,
             "card": smi,
         })
+    return entries
+
+
+def rank12_entries(r: dict, smi: str) -> list:
+    """B3's and B4's entries for the rank-12 path: its launches by phase
+    and, under ``by_rank``, each timed rank's numbers in both types (time,
+    plain time, bound and its basis, the padded rank and the ceiling r / rp
+    of the bound's share a padded instance can reach)."""
+    entries = kernel_entries(r, smi, RANK12, f"kernelnn_rank{RANK12}")
+    trained = r["trained"]
+    entries[0]["launches_by_path"] = {
+        "serve": r["launches"],
+        **{f"train_{dt}": n for dt, (n, _) in trained.items()}}
+    entries[1]["launches_by_path"] = {
+        f"train_{dt}": n for dt, (_, n) in trained.items()}
+    for entry, key, errs in ((entries[0], "fwd", "max_abs_err"),
+                             (entries[1], "bwd", "max_abs_err_bwd")):
+        entry["by_rank"] = {
+            str(rank): {"padded_rank": v["padded_rank"],
+                        "ceiling": v["ceiling"],
+                        **{f"{k}_{dt}": v[key][f"{k}_{dt}"]
+                           for dt in ("bfloat16", "float32")
+                           for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")},
+                        "max_abs_err": v[errs]}
+            for rank, v in r["by_rank"].items()}
     return entries
 
 
@@ -3771,13 +3924,17 @@ def main() -> int:
         # smaller depth
         cfgs_lr = {k: dict(v, kernel_rank=RANK, num_layers=RANK_DEPTH)
                    for k, v in cfgs.items()}
+        # the rank-12 path: the rank-16 path's config at kernel_rank 12
+        cfgs_r12 = {k: dict(v, kernel_rank=RANK12)
+                    for k, v in cfgs_lr.items()}
         # TEECNet: teecnet_ansys.yaml with the same synthetic meshes, hence
         # the same datasets
         cfgs_tc = {k: make_config(os.path.join(root, k), sizes,
                                   TEECNET_CONFIG, "teecnet", TEECNET_TRAIN,
                                   TEECNET_EPOCHS)
                    for k, sizes in (("full", FULL), ("small", SMALL))}
-        datasets, models, models_lr, models_tc = {}, {}, {}, {}
+        datasets, models, models_lr, models_r12, models_tc = (
+            {} for _ in range(5))
         for key, cfg in cfgs.items():
             t1 = time.time()
             datasets[key] = init_dataset("synthetic", **cfg)
@@ -3785,6 +3942,8 @@ def main() -> int:
             logs = os.path.join(root, "logs")
             for exp, c, into in ((key, cfg, models),
                                  (key + "_r16", cfgs_lr[key], models_lr),
+                                 (f"{key}_r{RANK12}", cfgs_r12[key],
+                                  models_r12),
                                  (key + "_teecnet", cfgs_tc[key], models_tc)):
                 into[key] = write_checkpoint(logs, exp, c)
                 write_checkpoint(logs, exp + "_cpu", c)
@@ -3798,6 +3957,7 @@ def main() -> int:
         full = run_path(root, name, smi, datasets, models, cfgs)
         lowrank = run_path(root, name, smi, datasets, models_lr, cfgs_lr,
                            "_r16")
+        rank12 = run_rank12(root, smi, datasets, models_r12, cfgs_r12)
         teecnet = run_path(root, name, smi, datasets, models_tc, cfgs_tc,
                            "_teecnet")
         t1 = time.time()
@@ -3837,6 +3997,7 @@ def main() -> int:
 
     kernels = (kernel_entries(full, smi, None, "kernelnn")
                + kernel_entries(lowrank, smi, RANK, "kernelnn_rank16")
+               + rank12_entries(rank12, smi)
                + kernel_entries(teecnet, smi, None, "teecnet")
                + [messages_entry(msg_t, pallas_launches, pallas_requests,
                                  smi)]

@@ -5,10 +5,10 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_bwd_jit
-// for float32 operands at ranks that are a multiple of 8
-// (fused_edge_conv_lowrank_bwd_wgmma.cu is the bfloat16 instance,
-// fused_edge_conv_lowrank_bwd.cu keeps the other ranks) and computes the same
-// function, w3's and b3's gradients in the model's column layout.  With the
+// for float32 operands at every rank 1 .. 32
+// (fused_edge_conv_lowrank_bwd_wgmma.cu is the bfloat16 instance) and
+// computes the same function, w3's and b3's gradients in the model's column
+// layout.  With the
 // forward's notation and g the gradient of its output, per slot e:
 //
 //   dmsg[o]   = sum_r S[r, e] g[r, o]                 (0 on padding)
@@ -42,7 +42,10 @@
 //      summed from duv itself in float32 by the thread that forms its
 //      column.
 //
-// Design.
+// Design.  Both kernels run at the padded rank rp = 8 ceil(r / 8)
+// (lowrank_f32_wgmma.cuh): the stage image holds w3's chunks and b3 padded
+// with zeros at q >= r, t and dt are scratch [slots, rp] (zero at q >= r),
+// and the weights kernel writes only the model's columns of dw3 and db3.
 //  (a) one block per 64-slot tile: one consumer warpgroup and one producer
 //      warp.  The producer streams the stage image (V, U, P, Q chunks, laid
 //      out once per call by a first launch) into f32_wgmma.cuh's 4-stage
@@ -56,7 +59,7 @@
 //      dmsg over the Q chunks (dh = P half + Q half).  t and dt are written
 //      as float32 scratch for (b).  Tiles of padding only write zeros in
 //      CompactS form.
-//  (b) grid (128-column tiles of r (c_in + c_out), slot splits).  Per
+//  (b) grid (128-column tiles of rp (c_in + c_out), slot splits).  Per
 //      64-slot chunk a block splits its h rows into three MN-major A parts
 //      (h^T, K <= 64 is one row tile), forms duv for its columns (each
 //      thread one column, in slot order) from the chunk's x_src or dmsg
@@ -73,10 +76,11 @@
 // recompute, 2 K r (c_in + c_out) for dh and 2 (K+1) r (c_in + c_out) for
 // dw3 and db3, against (K + c_in) 4 + c_out 4 bytes of inputs and the
 // outputs: bounded by operations, on the tensor cores six bf16 passes at 989
-// TFLOP/s (against float32 FMAs at 67).  What stands in the way: the ring's
-// per-stage barriers, the epilogues on the CUDA cores, each tile's start
-// (one tile per block in (a)), and in (b) the splits of h and duv on the
-// CUDA cores before each chunk's products.
+// TFLOP/s (against float32 FMAs at 67).  The padded instance does rp / r
+// of that work, so it reaches at most r / rp of the bound.  What stands in
+// the way: the ring's per-stage barriers, the epilogues on the CUDA cores,
+// each tile's start (one tile per block in (a)), and in (b) the splits of h
+// and duv on the CUDA cores before each chunk's products.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_edge_conv_lowrank_bwd_f32_wgmma.so
@@ -121,8 +125,9 @@ struct RowsLayout {
 };
 
 // ---------------------------------------------------------------------------
-// (a) dmsg, t, dt, dx_src and dh for one 64-slot tile.  R8 = r / 8, S = dp /
-// 16 (the k16 steps of every A operand: h, x_src and dmsg, zero padded).
+// (a) dmsg, t, dt, dx_src and dh for one 64-slot tile.  R8 = rp / 8 (rp the
+// padded rank), S = dp / 16 (the k16 steps of every A operand: h, x_src and
+// dmsg, zero padded).
 template <int R8, int S>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<S>)
 lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
@@ -341,11 +346,12 @@ lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
 
 // ---------------------------------------------------------------------------
 // (b) partial[split, k, c] = sum over the split's slots e of h[e, k] duv[e, c]
-// for the block's 128 columns c of r (c_in + c_out), and row K: db3.  Shared
+// for the block's 128 padded columns c of rp (c_in + c_out), and row K:
+// db3, at the model's columns.  Shared
 // memory: h^T's and duv's parts, then the raw rows of a chunk: h [64][64]
 // (zeros past K), the block's channels of x_src (U columns) and dmsg (V
-// columns) [64][kF], t and dt [64][r].  102 KB at rank 16 (two blocks per
-// SM), 110 KB at 32.
+// columns) [64][kF], t and dt [64][rp].  102 KB at rank 16 (two blocks
+// per SM), 110 KB at 32.
 struct WeightsLayout {
   long a, z, hraw, f, t, dt, total;
   __host__ __device__ WeightsLayout(int r) {
@@ -369,7 +375,7 @@ lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
                               const int* __restrict__ slot_rows,
                               float* __restrict__ partial, long num_chunks,
                               long chunks_per_split, int K, int c_in,
-                              int c_out) {
+                              int c_out, int rank) {
   constexpr int R = 8 * R8;
   extern __shared__ __align__(128) unsigned char smem[];
   const WeightsLayout L(R);
@@ -523,13 +529,17 @@ lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
 #pragma unroll
     for (int v = 0; v < kCols / 2; ++v) sum[v] += acc[v];
   }
-  float* dst = partial + split * (K + 1) * static_cast<long>(ncol);
+  // the model's columns only (none at q >= r)
+  const int ncol_r = rank * (c_in + c_out);
+  float* dst = partial + split * (K + 1) * static_cast<long>(ncol_r);
 #pragma unroll
   for (int v = 0; v < kCols / 2; ++v) {
     const int k = acc_row(v), cc = n0 + acc_col(v);
-    if (k < K && cc < ncol) dst[static_cast<long>(k) * ncol + cc] = sum[v];
+    const int rc = cc < ncol ? real_col(cc, R, rank) : -1;
+    if (k < K && rc >= 0) dst[static_cast<long>(k) * ncol_r + rc] = sum[v];
   }
-  if (has_col) dst[static_cast<long>(K) * ncol + col] = dbias;
+  const int rc = has_col ? real_col(col, R, rank) : -1;
+  if (rc >= 0) dst[static_cast<long>(K) * ncol_r + rc] = dbias;
 }
 
 template <int R8, int S>
@@ -538,7 +548,7 @@ cudaError_t launch(const float* g, const float* h, const float* x_src,
                    const float* row_weight, const float* s_dense, bf16* image,
                    float* dh, float* dx_src, float* dmsg, float* t_vec,
                    float* dt_vec, float* partial, int num_blocks, int blk,
-                   int K, int c_in, int c_out, int num_splits,
+                   int K, int c_in, int c_out, int r, int num_splits,
                    cudaStream_t stream) {
   constexpr int R = 8 * R8;
   const long num_tiles = static_cast<long>(num_blocks) * blk / kTile;
@@ -546,12 +556,14 @@ cudaError_t launch(const float* g, const float* h, const float* x_src,
   auto rows = lowrank_bwd_rows_f32_wgmma<R8, S>;
   cudaError_t err = allow_smem(rows, static_cast<size_t>(L.total));
   if (err != cudaSuccess) return err;
-  err = launch_lowrank_image(w3, image, bwd_chunks(L.n / R, K, c_in, c_out),
-                             L.n, L.dp, R, K, c_in, c_out, true, stream);
+  const float* b3p;
+  err = launch_lowrank_image(w3, b3, image,
+                             bwd_chunks(L.n / R, K, c_in, c_out), L.n, L.dp,
+                             R, r, K, c_in, c_out, true, &b3p, stream);
   if (err != cudaSuccess) return err;
   rows<<<static_cast<unsigned>(num_tiles), kThreads,
          static_cast<size_t>(L.total), stream>>>(
-      g, h, x_src, image, b3, slot_rows, row_weight, s_dense, dh, dx_src,
+      g, h, x_src, image, b3p, slot_rows, row_weight, s_dense, dh, dx_src,
       dmsg, t_vec, dt_vec, blk, K, c_in, c_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -564,7 +576,7 @@ cudaError_t launch(const float* g, const float* h, const float* x_src,
   if (err != cudaSuccess) return err;
   weights<<<dim3(tiles, num_splits), kWarpgroup, wsmem, stream>>>(
       h, x_src, dmsg, t_vec, dt_vec, slot_rows, partial, num_tiles, per_split,
-      K, c_in, c_out);
+      K, c_in, c_out, r);
   return cudaGetLastError();
 }
 
@@ -575,7 +587,7 @@ extern "C" {
 // Bytes of dynamic shared memory one block of the rows kernel needs.
 long fused_edge_conv_lowrank_bwd_f32_wgmma_smem_bytes(int K, int c_in,
                                                       int c_out, int r) {
-  return RowsLayout(K, c_in, c_out, r).total;
+  return RowsLayout(K, c_in, c_out, padded_rank(r)).total;
 }
 
 // Blocks one SM holds at once at these widths: the rows kernel's
@@ -586,12 +598,12 @@ int fused_edge_conv_lowrank_bwd_f32_wgmma_blocks_per_sm(int K, int c_in,
   if (K < 1 || K > kMaxDim || c_in < 1 || c_in > kMaxDim || c_out < 1 ||
       c_out > kMaxDim)
     return -1;
-  const RowsLayout L(K, c_in, c_out, r);
+  const RowsLayout L(K, c_in, c_out, padded_rank(r));
   return with_rank_depth(r, L.dp, [&](auto r8, auto s) {
     constexpr int R8 = decltype(r8)::value;
     if (weights)
       return blocks_on_sm(lowrank_bwd_weights_f32_wgmma<R8>, kWarpgroup,
-                          static_cast<size_t>(WeightsLayout(r).total));
+                          static_cast<size_t>(WeightsLayout(8 * R8).total));
     return blocks_on_sm(lowrank_bwd_rows_f32_wgmma<R8, decltype(s)::value>,
                         kThreads, static_cast<size_t>(L.total));
   }, -1);
@@ -601,12 +613,13 @@ int fused_edge_conv_lowrank_bwd_f32_wgmma_blocks_per_sm(int K, int c_in,
 // rows kernel, then the weights kernel.  Pointers are device pointers to
 // float32 arrays but slot_rows (int32) and image (bfloat16 scratch of
 // ops/fused_conv.py:lowrank_image_numel elements, 16-byte aligned); dmsg
-// [slots, c_out], t_vec and dt_vec [slots, r] are written by the rows
-// kernel and read by the weights kernel.  Exactly one of s_dense
-// and (slot_rows, row_weight) is non-null.  w3 is [K, r*(c_in+c_out)] in the
-// model's column layout; 1 <= K, c_in, c_out <= 64 and r one of 8, 16, 24,
-// 32.  partial is [num_splits, K+1, r*(c_in+c_out)] (dw3 rows then the db3
-// row, summed over splits by the caller).  Returns the cudaError_t of the
+// [slots, c_out], t_vec and dt_vec [slots, rp] (rp = 8*ceil(r/8)) are
+// written by the rows kernel and read by the weights kernel.  Exactly one
+// of s_dense and (slot_rows, row_weight) is non-null.  w3 is [K,
+// r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <= 64
+// and 1 <= r <= 32.  partial is [num_splits, K+1, r*(c_in+c_out)] (dw3
+// rows then the db3 row, the model's columns, summed over splits by the
+// caller).  Returns the cudaError_t of the
 // launches (0 on success).
 int fused_edge_conv_lowrank_bwd_f32_wgmma_backward(
     const void* g, const void* h, const void* x_src, const void* w3,
@@ -619,7 +632,7 @@ int fused_edge_conv_lowrank_bwd_f32_wgmma_backward(
       num_splits < 1 || reinterpret_cast<uintptr_t>(image) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const RowsLayout L(K, c_in, c_out, r);
+  const RowsLayout L(K, c_in, c_out, padded_rank(r));
   return static_cast<int>(with_rank_depth(r, L.dp, [&](auto r8, auto s) {
     return launch<decltype(r8)::value, decltype(s)::value>(
         static_cast<const float*>(g), static_cast<const float*>(h),
@@ -630,7 +643,7 @@ int fused_edge_conv_lowrank_bwd_f32_wgmma_backward(
         static_cast<float*>(dh), static_cast<float*>(dx_src),
         static_cast<float*>(dmsg), static_cast<float*>(t_vec),
         static_cast<float*>(dt_vec), static_cast<float*>(partial), num_blocks,
-        blk, K, c_in, c_out, num_splits, st);
+        blk, K, c_in, c_out, r, num_splits, st);
   }, cudaErrorInvalidValue));
 }
 

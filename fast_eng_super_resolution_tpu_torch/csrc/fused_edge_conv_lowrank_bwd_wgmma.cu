@@ -4,11 +4,10 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_bwd_jit
-// for bfloat16 operands at ranks that are a multiple of 8
-// (fused_edge_conv_lowrank_bwd_f32_wgmma.cu is the float32 instance,
-// fused_edge_conv_lowrank_bwd.cu keeps the other ranks) and computes the
-// same function, w3's and b3's gradients in the
-// model's column layout.  With the forward's notation and g the gradient of
+// for bfloat16 operands at every rank 1 .. 32
+// (fused_edge_conv_lowrank_bwd_f32_wgmma.cu is the float32 instance) and
+// computes the same function, w3's and b3's gradients in the model's
+// column layout.  With the forward's notation and g the gradient of
 // its output, per slot e:
 //
 //   dmsg[o]   = sum_r S[r, e] g[r, o]                 (0 on padding)
@@ -42,7 +41,11 @@
 //      summed from duv itself in float32 by the thread that forms its
 //      column.
 //
-// Design.
+// Design.  Both kernels run at the padded rank rp = 8 ceil(r / 8)
+// (lowrank_wgmma.cuh): at a rank that is not a multiple of 8 a first
+// launch lays out the zero-padded copy of w3, b3 is staged padded from its
+// real columns, t and dt are scratch [slots, rp] (zero at q >= r), and the
+// weights kernel writes only the model's columns of dw3 and db3.
 //  (a) one warpgroup per 64-slot tile (grid: every tile of the graph, 4864
 //      at the serving chunk); the tile's receiver block is tile / (blk /
 //      64).  It forms dmsg = row_weight g[slot_rows[e]] (CompactS; the dense
@@ -57,7 +60,7 @@
 //      chunk's per-thread partials wait in shared memory).  It writes
 //      t and dt as float32 scratch for (b).  Tiles of padding only write
 //      zeros in CompactS form.
-//  (b) grid (128-column tiles of r (c_in + c_out), slot splits).  Per
+//  (b) grid (128-column tiles of rp (c_in + c_out), slot splits).  Per
 //      64-slot chunk a block copies h rows in 16-byte pieces as A (h^T,
 //      MN-major, K <= 64 is one row tile) and the chunk's x_src and dt (U
 //      columns) or dmsg and t (V columns), with cp.async into one of two
@@ -74,9 +77,11 @@
 // uv recompute, 2 K r (c_in + c_out) for dh and 2 (K+1) r (c_in + c_out) for
 // dw3 and db3 (the rest is O(r (c_in + c_out))), against (K + c_in) (2 + 4)
 // + c_out 4 bytes of inputs and outputs: bounded by operations on the
-// tensor cores.  What stands in the way here: w3 is read from L2 twice per
-// tile in (a), the float32 epilogues run on the CUDA cores, and (b) runs its
-// products three times over and forms duv on the CUDA cores.
+// tensor cores.  The padded instance does rp / r of that work, so it
+// reaches at most r / rp of the bound.  What stands in the way here: w3 is
+// read from L2 twice per tile in (a), the float32 epilogues run on the CUDA
+// cores, and (b) runs its products three times over and forms duv on the
+// CUDA cores.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_edge_conv_lowrank_bwd_wgmma.so
@@ -141,8 +146,8 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
                        float* __restrict__ dh, float* __restrict__ dx_src,
                        bf16* __restrict__ dmsg_out, float* __restrict__ t_out,
                        float* __restrict__ dt_out, int blk, int K, int c_in,
-                       int c_out) {
-  constexpr int R = 8 * R8, G = kCols / R;  // rank, channels per chunk
+                       int c_out, int rank) {
+  constexpr int R = 8 * R8, G = kCols / R;  // padded rank, channels per chunk
   extern __shared__ __align__(128) unsigned char smem[];
   const RowsLayout L(K, c_in, c_out, R);
   const int kp = L.kp, dpi = L.dpi, dpo = L.dpo;
@@ -223,7 +228,7 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
   }
   stage_rows(ah_sm, h + slot0 * K, K, kp);
   stage_rows(ax_sm, x_src + slot0 * c_in, c_in, dpi);
-  for (int e = tid; e < ncol; e += kWarpgroup) b3_sm[e] = b3[e];
+  stage_bias(b3_sm, b3, ncol, R, rank);
   // chunk c is read from buffer c % 2 while the registers fill the other
   // with chunk c + 1 and load chunk c + 2
   const int bsize = kCols * L.dmax;
@@ -340,15 +345,17 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
 }
 
 // Adds the weights kernel's tensor-core sums into its partial (stores them
-// the first time) and restarts them from zero.
+// the first time) and restarts them from zero: padded column c of ncolp at
+// the model's column of ncol (none at q >= r).
 __device__ __forceinline__ void promote(float (&acc)[kCols / 2], float* dst,
-                                        bool& first, int n0, int K,
-                                        int ncol) {
+                                        bool& first, int n0, int K, int ncolp,
+                                        int rp, int r, int ncol) {
 #pragma unroll
   for (int j = 0; j < kCols / 2; ++j) {
     const int k = acc_row(j), c = n0 + acc_col(j);
-    if (k < K && c < ncol) {
-      float* p = dst + static_cast<long>(k) * ncol + c;
+    const int rc = c < ncolp ? real_col(c, rp, r) : -1;
+    if (k < K && rc >= 0) {
+      float* p = dst + static_cast<long>(k) * ncol + rc;
       *p = first ? acc[j] : *p + acc[j];
     }
     acc[j] = 0.f;
@@ -403,7 +410,8 @@ __device__ __forceinline__ void copy_bytes(void* dst, const void* src, int n,
 
 // ---------------------------------------------------------------------------
 // (b) partial[split, k, c] = sum over the split's slots e of h[e, k] duv[e, c]
-// for the block's 128 columns c of r (c_in + c_out), and row K: db3.
+// for the block's 128 padded columns c of rp (c_in + c_out), and row K:
+// db3, at the model's columns.
 template <int R8>
 __global__ void __launch_bounds__(kWarpgroup)
 lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
@@ -413,7 +421,8 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
                           const float* __restrict__ dt_vec,
                           const int* __restrict__ slot_rows,
                           float* __restrict__ partial, long num_chunks,
-                          long chunks_per_split, int K, int c_in, int c_out) {
+                          long chunks_per_split, int K, int c_in, int c_out,
+                          int rank) {
   constexpr int R = 8 * R8;
   extern __shared__ __align__(128) unsigned char smem[];
   const WeightsLayout L(c_in, c_out, R);
@@ -453,7 +462,8 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
   // The tensor cores' float32 sum is moved into the split's partial in
   // device memory every kPromote chunks and restarted from zero (as B2's
   // weights kernel); each thread adds to its own entries, in chunk order.
-  float* dst = partial + split * (K + 1) * static_cast<long>(ncol);
+  const int ncol_r = rank * (c_in + c_out);  // the model's columns
+  float* dst = partial + split * (K + 1) * static_cast<long>(ncol_r);
   int pending = 0;
   bool first = true;
 
@@ -582,37 +592,47 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
     wait_all();
     fence_operand(acc);
     if (++pending == kPromote) {
-      promote(acc, dst, first, n0, K, ncol);
+      promote(acc, dst, first, n0, K, ncol, R, rank, ncol_r);
       pending = 0;
     }
   }
   cp_async_wait<0>();
-  if (pending > 0 || first) promote(acc, dst, first, n0, K, ncol);
-  if (has_col) dst[static_cast<long>(K) * ncol + col] = dbias;
+  if (pending > 0 || first)
+    promote(acc, dst, first, n0, K, ncol, R, rank, ncol_r);
+  const int rc = has_col ? real_col(col, R, rank) : -1;
+  if (rc >= 0) dst[static_cast<long>(K) * ncol_r + rc] = dbias;
 }
 
 template <int R8>
 cudaError_t launch(const void* g, const void* h, const void* x_src,
                    const void* w3, const void* b3, const void* slot_rows,
-                   const void* row_weight, const void* s_dense, void* dh,
-                   void* dx_src, void* dmsg, void* t_vec, void* dt_vec,
-                   void* partial, int num_blocks, int blk, int K, int c_in,
-                   int c_out, int num_splits, cudaStream_t stream) {
+                   const void* row_weight, const void* s_dense, void* pad,
+                   void* dh, void* dx_src, void* dmsg, void* t_vec,
+                   void* dt_vec, void* partial, int num_blocks, int blk, int K,
+                   int c_in, int c_out, int r, int num_splits,
+                   cudaStream_t stream) {
   constexpr int R = 8 * R8;
   const long num_tiles = static_cast<long>(num_blocks) * blk / kTile;
   const size_t smem = static_cast<size_t>(RowsLayout(K, c_in, c_out, R).total);
   auto rows = lowrank_bwd_rows_wgmma<R8>;
   cudaError_t err = allow_smem(rows, smem);
   if (err != cudaSuccess) return err;
+  const bf16* w = static_cast<const bf16*>(w3);
+  if (r != R) {  // the zero-padded copy of w3 at rank R
+    err = launch_pad_head(w, static_cast<bf16*>(pad), K, c_in + c_out, r,
+                          stream);
+    if (err != cudaSuccess) return err;
+    w = static_cast<const bf16*>(pad);
+  }
   rows<<<static_cast<unsigned>(num_tiles), kWarpgroup, smem, stream>>>(
       static_cast<const float*>(g), static_cast<const bf16*>(h),
-      static_cast<const bf16*>(x_src), static_cast<const bf16*>(w3),
+      static_cast<const bf16*>(x_src), w,
       static_cast<const float*>(b3), static_cast<const int*>(slot_rows),
       static_cast<const float*>(row_weight),
       static_cast<const float*>(s_dense), static_cast<float*>(dh),
       static_cast<float*>(dx_src), static_cast<bf16*>(dmsg),
       static_cast<float*>(t_vec), static_cast<float*>(dt_vec), blk, K, c_in,
-      c_out);
+      c_out, r);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // column tiles (as ops/fused_conv.py:lowrank_weight_tiles) x slot splits
@@ -626,7 +646,7 @@ cudaError_t launch(const void* g, const void* h, const void* x_src,
       static_cast<const bf16*>(h), static_cast<const bf16*>(x_src),
       static_cast<const bf16*>(dmsg), static_cast<const float*>(t_vec),
       static_cast<const float*>(dt_vec), static_cast<const int*>(slot_rows),
-      static_cast<float*>(partial), num_tiles, per_split, K, c_in, c_out);
+      static_cast<float*>(partial), num_tiles, per_split, K, c_in, c_out, r);
   return cudaGetLastError();
 }
 
@@ -637,7 +657,7 @@ extern "C" {
 // Bytes of dynamic shared memory one block of the rows kernel needs.
 long fused_edge_conv_lowrank_bwd_wgmma_smem_bytes(int K, int c_in, int c_out,
                                                   int r) {
-  return RowsLayout(K, c_in, c_out, r).total;
+  return RowsLayout(K, c_in, c_out, padded_rank(r)).total;
 }
 
 // Blocks one SM holds at once at these widths: the rows kernel's
@@ -647,11 +667,12 @@ int fused_edge_conv_lowrank_bwd_wgmma_blocks_per_sm(int K, int c_in,
                                                     int weights) {
   return with_rank(r, [&](auto r8) {
     constexpr int R8 = decltype(r8)::value;
+    constexpr int R = 8 * R8;
     if (weights)
       return blocks_per_sm(lowrank_bwd_weights_wgmma<R8>,
-                           static_cast<size_t>(WeightsLayout(c_in, c_out, r).total));
+                           static_cast<size_t>(WeightsLayout(c_in, c_out, R).total));
     return blocks_per_sm(lowrank_bwd_rows_wgmma<R8>,
-                         static_cast<size_t>(RowsLayout(K, c_in, c_out, r).total));
+                         static_cast<size_t>(RowsLayout(K, c_in, c_out, R).total));
   }, -1);
 }
 
@@ -659,28 +680,34 @@ int fused_edge_conv_lowrank_bwd_wgmma_blocks_per_sm(int K, int c_in,
 // weights kernel.  Pointers are device pointers; h, x_src and w3 bfloat16;
 // g, b3, row_weight, s_dense, dh, dx_src, t_vec, dt_vec and partial
 // float32; dmsg bfloat16 (written by the first launch, read by the second,
-// as t_vec and dt_vec); slot_rows int32.  Exactly one of s_dense and
-// (slot_rows, row_weight) is non-null.  w3 is [K, r*(c_in+c_out)] in the
-// model's column layout; 1 <= K, c_in, c_out <= 64 and r one of 8, 16, 24,
-// 32.  partial is [num_splits, K+1, r*(c_in+c_out)] (dw3 rows then the db3
-// row, summed over splits by the caller).  Returns the cudaError_t of the
-// launches (0 on success).
+// as t_vec and dt_vec [slots, rp], rp = 8*ceil(r/8)); slot_rows int32.
+// Exactly one of s_dense and (slot_rows, row_weight) is non-null.  w3 is
+// [K, r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <=
+// 64 and 1 <= r <= 32.  At a rank that is not a multiple of 8, pad is
+// bfloat16 scratch of K*rp*(c_in+c_out) elements, 16-byte aligned
+// (ops/fused_conv.py:lowrank_pad_numel; unused otherwise).  partial is
+// [num_splits, K+1, r*(c_in+c_out)] (dw3 rows then the db3 row, the
+// model's columns, summed over splits by the caller).  Returns the
+// cudaError_t of the launches (0 on success).
 int fused_edge_conv_lowrank_bwd_wgmma_backward(
     const void* g, const void* h, const void* x_src, const void* w3,
     const void* b3, const void* slot_rows, const void* row_weight,
-    const void* s_dense, void* dh, void* dx_src, void* dmsg, void* t_vec,
-    void* dt_vec, void* partial, int num_blocks, int blk, int K, int c_in,
-    int c_out, int r, int num_splits, void* stream) {
+    const void* s_dense, void* pad, void* dh, void* dx_src, void* dmsg,
+    void* t_vec, void* dt_vec, void* partial, int num_blocks, int blk, int K,
+    int c_in, int c_out, int r, int num_splits, void* stream) {
   if (K < 1 || K > kMaxDim || c_in < 1 || c_in > kMaxDim || c_out < 1 ||
       c_out > kMaxDim || blk % kTile != 0 || blk < kTile || num_blocks < 1 ||
-      num_splits < 1)
+      num_splits < 1 ||
+      (r % 8 != 0 &&
+       (pad == nullptr || reinterpret_cast<uintptr_t>(pad) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_rank(r, [&](auto r8) {
     return launch<decltype(r8)::value>(g, h, x_src, w3, b3, slot_rows,
-                                       row_weight, s_dense, dh, dx_src, dmsg,
-                                       t_vec, dt_vec, partial, num_blocks, blk,
-                                       K, c_in, c_out, num_splits, s);
+                                       row_weight, s_dense, pad, dh, dx_src,
+                                       dmsg, t_vec, dt_vec, partial,
+                                       num_blocks, blk, K, c_in, c_out, r,
+                                       num_splits, s);
   }, cudaErrorInvalidValue));
 }
 

@@ -5,12 +5,11 @@
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_jit
 // for float32 operands (the JAX function at gemm_dtype="float32", on the
-// TPU's matrix unit at Precision.HIGHEST) at ranks that are a multiple of 8
-// (fused_edge_conv_lowrank_wgmma.cu is the bfloat16 instance,
-// fused_edge_conv_lowrank.cu keeps the other ranks; ops/fused_conv.py:design
-// says which runs) and computes the same function.  Slots are grouped as for
-// the full-rank layer: block b holds the slots whose receivers lie in rows
-// [64 b, 64 b + 64).  Per slot e:
+// TPU's matrix unit at Precision.HIGHEST) at every rank 1 .. 32
+// (fused_edge_conv_lowrank_wgmma.cu is the bfloat16 instance) and computes
+// the same function.  Slots are grouped as for the full-rank layer: block b
+// holds the slots whose receivers lie in rows [64 b, 64 b + 64).  Per slot
+// e:
 //
 //   uv_e      = h_e w3 + b3                     [r (c_in + c_out)]
 //   t_e[q]    = sum_i U_e[i, q] x[senders_perm[e], i]
@@ -34,9 +33,12 @@
 //  - A block is one consumer warpgroup and one producer warp and owns one
 //    part of one receiver block's slot walk: grid (num_blocks, parts), the
 //    parts from the wrapper's planner (ops/fused_conv.py:conv_parts).
+//  - Every rank runs at the padded rank rp = 8 ceil(r / 8): the stage
+//    image below holds w3's chunks and b3 padded with zeros at q >= r
+//    (lowrank_f32_wgmma.cuh), so t's padded entries stay zero.
 //  - Per 64-slot tile the consumers split h's rows into register-A
 //    fragments once (lowrank_f32_wgmma.cuh), then walk uv in chunks of N =
-//    64 columns of whole channels (48 at r = 24): the U chunks, then the V
+//    64 columns of whole channels (48 at rp = 24): the U chunks, then the V
 //    chunks.  w3's chunks come from a stage image laid out once per call by
 //    a first launch; the producer streams them by bulk copy onto the
 //    mbarrier ring of f32_wgmma.cuh (4 stages), the warpgroup walks them
@@ -49,7 +51,8 @@
 //  - While chunk c + 1's products run, chunk c's epilogue: a U chunk adds
 //    its channels' terms to t in registers (each thread holds the same q of
 //    every channel, lowrank_wgmma.cuh); a V chunk gives its channels' msg as
-//    per-thread partials and one quad shuffle.  b3 is read through L1.
+//    per-thread partials and one quad shuffle.  b3 (the image's padded
+//    copy) is read through L1.
 //  - Each warp gathers its own 16 rows of x (cp.async), the next tile's
 //    while this tile's messages scatter.  The scatter is B1's: a segmented
 //    sum over receiver-sorted slots in CompactS form (tiles of padding only
@@ -61,9 +64,11 @@
 // Bound.  Per real slot 2 K r (c_in + c_out) operations for uv plus 4 r c
 // for t and msg, against (K + c_in) 4 + 8 bytes: bounded by operations, on
 // the tensor cores six bf16 passes at 989 TFLOP/s (against float32 FMAs at
-// 67).  What stands in the way: the ring's per-stage barriers and the
-// epilogues on the CUDA cores, which the second accumulator hides only in
-// part; the split of h before each tile's walk; the scatter.
+// 67).  The padded instance does rp / r of that work, so it reaches at
+// most r / rp of the bound.  What stands in the way: the ring's per-stage
+// barriers and the epilogues on the CUDA cores, which the second
+// accumulator hides only in part; the split of h before each tile's walk;
+// the scatter.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_edge_conv_lowrank_f32_wgmma.so
@@ -104,7 +109,8 @@ struct Layout {
   }
 };
 
-// R8 = r / 8, S = K rounded up to 16, over 16 (h's k16 steps).
+// R8 = rp / 8 (rp the padded rank), S = K rounded up to 16, over 16 (h's k16
+// steps).
 template <int R8, int S>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<S>)
 lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
@@ -302,19 +308,22 @@ cudaError_t launch(const float* h, const float* x, const int* senders_perm,
                    const float* w3, const float* b3, const int* slot_rows,
                    const float* row_weight, const float* s_dense, bf16* image,
                    float* out, int num_blocks, int blk, int K, int c_in,
-                   int c_out, int n_nodes, int parts, cudaStream_t stream) {
+                   int c_out, int r, int n_nodes, int parts,
+                   cudaStream_t stream) {
   constexpr int R = 8 * R8;
   const Layout L(K, c_in, c_out, R);
   const size_t smem = static_cast<size_t>(L.total);
   auto kernel = lowrank_fwd_f32_wgmma<R8, S>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  err = launch_lowrank_image(w3, image, fwd_chunks(L.n / R, c_in, c_out), L.n,
-                             L.dp, R, K, c_in, c_out, false, stream);
+  const float* b3p;
+  err = launch_lowrank_image(w3, b3, image, fwd_chunks(L.n / R, c_in, c_out),
+                             L.n, L.dp, R, r, K, c_in, c_out, false, &b3p,
+                             stream);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(num_blocks, parts), kThreads, smem, stream>>>(
-      h, x, senders_perm, image, b3, slot_rows, row_weight, s_dense, out, blk,
-      K, c_in, c_out, n_nodes);
+      h, x, senders_perm, image, b3p, slot_rows, row_weight, s_dense, out,
+      blk, K, c_in, c_out, n_nodes);
   return cudaGetLastError();
 }
 
@@ -325,13 +334,13 @@ extern "C" {
 // Bytes of dynamic shared memory one block needs.
 long fused_edge_conv_lowrank_f32_wgmma_smem_bytes(int K, int c_in, int c_out,
                                                   int r) {
-  return Layout(K, c_in, c_out, r).total;
+  return Layout(K, c_in, c_out, padded_rank(r)).total;
 }
 
 // Blocks one SM holds at once at these widths (-1 if they are not taken).
 int fused_edge_conv_lowrank_f32_wgmma_blocks_per_sm(int K, int c_in,
                                                     int c_out, int r) {
-  const Layout L(K, c_in, c_out, r);
+  const Layout L(K, c_in, c_out, padded_rank(r));
   return with_rank_depth(r, K, [&](auto r8, auto s) {
     return blocks_on_sm(
         lowrank_fwd_f32_wgmma<decltype(r8)::value, decltype(s)::value>,
@@ -345,7 +354,7 @@ int fused_edge_conv_lowrank_f32_wgmma_blocks_per_sm(int K, int c_in,
 // ops/fused_conv.py:lowrank_image_numel elements, 16-byte aligned.
 // Exactly one of s_dense and (slot_rows, row_weight) is non-null.  w3 is
 // [K, r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <=
-// 64 and r one of 8, 16, 24, 32.  out is [num_blocks*64, c_out] when parts
+// 64 and 1 <= r <= 32.  out is [num_blocks*64, c_out] when parts
 // == 1, else the partials [parts, num_blocks*64, c_out].  Returns the
 // cudaError_t of the launches (0 on success).
 int fused_edge_conv_lowrank_f32_wgmma_forward(
@@ -366,8 +375,8 @@ int fused_edge_conv_lowrank_f32_wgmma_forward(
         static_cast<const float*>(b3), static_cast<const int*>(slot_rows),
         static_cast<const float*>(row_weight),
         static_cast<const float*>(s_dense), static_cast<bf16*>(image),
-        static_cast<float*>(out), num_blocks, blk, K, c_in, c_out, n_nodes,
-        parts, st);
+        static_cast<float*>(out), num_blocks, blk, K, c_in, c_out, r,
+        n_nodes, parts, st);
   }, cudaErrorInvalidValue));
 }
 

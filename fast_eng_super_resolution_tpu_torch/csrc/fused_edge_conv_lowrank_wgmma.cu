@@ -3,11 +3,11 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_jit
-// for bfloat16 operands at ranks that are a multiple of 8
-// (fused_edge_conv_lowrank_f32_wgmma.cu is the float32 instance,
-// fused_edge_conv_lowrank.cu keeps the other ranks; ops/fused_conv.py:design
-// says which runs) and computes the same function.  Slots are grouped as for the full-rank layer: block b holds the
-// slots whose receivers lie in rows [64 b, 64 b + 64).  Per slot e:
+// for bfloat16 operands at every rank 1 .. 32
+// (fused_edge_conv_lowrank_f32_wgmma.cu is the float32 instance) and
+// computes the same function.  Slots are grouped as for the full-rank
+// layer: block b holds the slots whose receivers lie in rows [64 b, 64 b +
+// 64).  Per slot e:
 //
 //   uv_e      = h_e w3 + b3                     [r (c_in + c_out)]
 //   t_e[q]    = sum_i U_e[i, q] x[senders_perm[e], i]
@@ -24,18 +24,22 @@
 // msg and the scatter (about 1/49 of the work at width 48, K 48) run on the
 // CUDA cores in float32.
 //
-// Design.  A block is one warpgroup and owns one part of one receiver
-// block's slot walk (grid (num_blocks, parts), parts from the wrapper's
-// ops/fused_conv.py:conv_parts, as B1).  Per 64-slot tile it stages h (the
-// A operand, K-major, K padded to 16 with zeros) and the gathered x rows
-// (float32), then walks uv in 128-column chunks of whole channels
-// (lowrank_wgmma.cuh): each chunk is one m64n128 product over K; the next
-// chunk's w3 columns are double-buffered, copied in 16-byte pieces into the
-// MN-major B operand while the product runs (across the part's tiles).  A
-// U chunk adds its channels' terms to t in registers (each thread holds the
-// same q of every channel); once t is whole, a V chunk gives its channels'
-// msg as per-thread partials and one quad shuffle.  The scatter is B1's:
-// a segmented sum over receiver-sorted slots in CompactS form (tiles of
+// Design.  At a rank that is not a multiple of 8 a first launch lays out
+// the zero-padded copy of w3 at rp = 8 ceil(r / 8) (lowrank_wgmma.cuh
+// pad_head), so that the chunks below keep their 16-byte loads; the layer
+// then runs at rp, b3 staged padded from its real columns.  A block is one
+// warpgroup and owns one part of one receiver block's slot walk (grid
+// (num_blocks, parts), parts from the wrapper's ops/fused_conv.py:
+// conv_parts, as B1).  Per 64-slot tile it stages h (the A operand,
+// K-major, K padded to 16 with zeros) and the gathered x rows (float32),
+// then walks uv in 128-column chunks of whole channels (lowrank_wgmma.cuh):
+// each chunk is one m64n128 product over K; the next chunk's w3 columns are
+// double-buffered, copied in 16-byte pieces into the MN-major B operand
+// while the product runs (across the part's tiles).  A U chunk adds its
+// channels' terms to t in registers (each thread holds the same q of every
+// channel); once t is whole, a V chunk gives its channels' msg as
+// per-thread partials and one quad shuffle.  The scatter is B1's: a
+// segmented sum over receiver-sorted slots in CompactS form (tiles of
 // padding only skipped), the 64 x 64 S product in dense form.  Each part
 // writes its own [64, c_out] partial; the wrapper sums the partials in a
 // fixed order.  No atomics: two launches on the same inputs give the same
@@ -44,9 +48,11 @@
 // Bound.  Per real slot 2 (K+1) r (c_in + c_out) operations for uv plus
 // 4 r c for t and msg, against (K + c_in) 2 + 8 bytes: at width 48, rank 16
 // ~150 kFLOP against ~200 B, far above the card's ridge, so it is bounded by
-// operations on the tensor cores.  What stands in the way here: each tile
-// re-reads w3 from L2 (K r (c_in + c_out) 2 bytes), one product at a time
-// is waited on, and the t / msg epilogues run on the CUDA cores.
+// operations on the tensor cores.  The padded instance does rp / r of that
+// work, so it reaches at most r / rp of the bound.  What stands in the way
+// here: each tile re-reads w3 from L2 (K rp (c_in + c_out) 2 bytes), one
+// product at a time is waited on, and the t / msg epilogues run on the CUDA
+// cores.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_edge_conv_lowrank_wgmma.so
@@ -91,8 +97,9 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
                   const int* __restrict__ slot_rows,
                   const float* __restrict__ row_weight,
                   const float* __restrict__ s_dense, float* __restrict__ out,
-                  int blk, int K, int c_in, int c_out, int n_nodes) {
-  constexpr int R = 8 * R8, G = kCols / R;  // rank, channels per chunk
+                  int blk, int K, int c_in, int c_out, int rank,
+                  int n_nodes) {
+  constexpr int R = 8 * R8, G = kCols / R;  // padded rank, channels per chunk
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(K, c_in, c_out, R);
   const int kp = L.kp, xs = L.xs, ms = L.ms;
@@ -116,7 +123,7 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
   const int n_u = (c_in + G - 1) / G, n_c = n_u + (c_out + G - 1) / G;
   const bool x_vec = c_in % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 
-  for (int e = tid; e < ncol; e += kWarpgroup) b3_sm[e] = b3[e];
+  stage_bias(b3_sm, b3, ncol, R, rank);
   for (int e = tid; e < kRows * c_out; e += kWarpgroup) acc_sm[e] = 0.f;
 
   // chunk c: the U chunks (input channels G c ..), then the V chunks
@@ -263,20 +270,28 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
 template <int R8>
 cudaError_t launch(const void* h, const void* x, const void* senders_perm,
                    const void* w3, const void* b3, const void* slot_rows,
-                   const void* row_weight, const void* s_dense, void* out,
-                   int num_blocks, int blk, int K, int c_in, int c_out,
-                   int n_nodes, int parts, cudaStream_t stream) {
+                   const void* row_weight, const void* s_dense, void* pad,
+                   void* out, int num_blocks, int blk, int K, int c_in,
+                   int c_out, int r, int n_nodes, int parts,
+                   cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(Layout(K, c_in, c_out, 8 * R8).total);
   auto kernel = lowrank_fwd_wgmma<R8>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
+  const bf16* w = static_cast<const bf16*>(w3);
+  if (r != 8 * R8) {  // the zero-padded copy of w3 at rank 8 R8
+    err = launch_pad_head(w, static_cast<bf16*>(pad), K, c_in + c_out, r,
+                          stream);
+    if (err != cudaSuccess) return err;
+    w = static_cast<const bf16*>(pad);
+  }
   kernel<<<dim3(num_blocks, parts), kWarpgroup, smem, stream>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(x),
-      static_cast<const int*>(senders_perm), static_cast<const bf16*>(w3),
+      static_cast<const int*>(senders_perm), w,
       static_cast<const float*>(b3), static_cast<const int*>(slot_rows),
       static_cast<const float*>(row_weight),
       static_cast<const float*>(s_dense), static_cast<float*>(out), blk, K,
-      c_in, c_out, n_nodes);
+      c_in, c_out, r, n_nodes);
   return cudaGetLastError();
 }
 
@@ -287,15 +302,16 @@ extern "C" {
 // Bytes of dynamic shared memory one block needs.
 long fused_edge_conv_lowrank_wgmma_smem_bytes(int K, int c_in, int c_out,
                                               int r) {
-  return Layout(K, c_in, c_out, r).total;
+  return Layout(K, c_in, c_out, padded_rank(r)).total;
 }
 
 // Blocks one SM holds at once at these widths (-1 if they are not taken).
 int fused_edge_conv_lowrank_wgmma_blocks_per_sm(int K, int c_in, int c_out,
                                                 int r) {
   return with_rank(r, [&](auto r8) {
-    return blocks_per_sm(lowrank_fwd_wgmma<decltype(r8)::value>,
-                         static_cast<size_t>(Layout(K, c_in, c_out, r).total));
+    return blocks_per_sm(
+        lowrank_fwd_wgmma<decltype(r8)::value>,
+        static_cast<size_t>(Layout(K, c_in, c_out, padded_rank(r)).total));
   }, -1);
 }
 
@@ -303,24 +319,30 @@ int fused_edge_conv_lowrank_wgmma_blocks_per_sm(int K, int c_in, int c_out,
 // h, x and w3 bfloat16; b3, row_weight, s_dense and out float32;
 // senders_perm and slot_rows int32.  Exactly one of s_dense and (slot_rows,
 // row_weight) is non-null.  w3 is [K, r*(c_in+c_out)] in the model's column
-// layout; 1 <= K, c_in, c_out <= 64 and r one of 8, 16, 24, 32.  out is
+// layout; 1 <= K, c_in, c_out <= 64 and 1 <= r <= 32.  At a rank that is
+// not a multiple of 8, pad is bfloat16 scratch of K*rp*(c_in+c_out)
+// elements, 16-byte aligned, rp = 8*ceil(r/8) (ops/fused_conv.py:
+// lowrank_pad_numel; unused otherwise).  out is
 // [num_blocks*64, c_out] when parts == 1, else the partials [parts,
 // num_blocks*64, c_out].  Returns the cudaError_t of the launch (0 on
 // success).
 int fused_edge_conv_lowrank_wgmma_forward(
     const void* h, const void* x, const void* senders_perm, const void* w3,
     const void* b3, const void* slot_rows, const void* row_weight,
-    const void* s_dense, void* out, int num_blocks, int blk, int K, int c_in,
-    int c_out, int r, int n_nodes, int parts, void* stream) {
+    const void* s_dense, void* pad, void* out, int num_blocks, int blk, int K,
+    int c_in, int c_out, int r, int n_nodes, int parts, void* stream) {
   if (K < 1 || K > kMaxDim || c_in < 1 || c_in > kMaxDim || c_out < 1 ||
       c_out > kMaxDim || blk % kTile != 0 || blk < kTile || num_blocks < 1 ||
-      parts < 1 || parts > blk / kTile)
+      parts < 1 || parts > blk / kTile ||
+      (r % 8 != 0 &&
+       (pad == nullptr || reinterpret_cast<uintptr_t>(pad) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_rank(r, [&](auto r8) {
     return launch<decltype(r8)::value>(h, x, senders_perm, w3, b3, slot_rows,
-                                       row_weight, s_dense, out, num_blocks,
-                                       blk, K, c_in, c_out, n_nodes, parts, s);
+                                       row_weight, s_dense, pad, out,
+                                       num_blocks, blk, K, c_in, c_out, r,
+                                       n_nodes, parts, s);
   }, cudaErrorInvalidValue));
 }
 

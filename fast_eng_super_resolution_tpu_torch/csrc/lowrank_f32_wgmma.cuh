@@ -5,11 +5,14 @@
 // (float32 B1/B2); the accumulator -> (channel, q) map is lowrank_wgmma.cuh's
 // (bfloat16 B3/B4).  This header adds the chunk walks and their stage image.
 //
-// Chunks.  Every product is 64 slots x N columns of the (k, q) or uv space,
-// N = 64 (48 at r = 24, so that a chunk holds whole channels): G = N / r
-// channels of r columns.  A chunk reads the edge MLP's head w3 [K, r (c_in +
-// c_out)] (model column layout: U[i, q] = uv[i r + q], V[o, q] = uv[r c_in +
-// o r + q]) in one of three ways, lowrank_wgmma.cuh's:
+// Chunks.  Every kernel runs at the padded rank rp = 8 ceil(r / 8) of
+// lowrank_wgmma.cuh (columns i rp + q of the head are the model's i r + q
+// for q < r, zeros for q >= r).  Every product is 64 slots x N columns of
+// the (k, q) or uv space, N = 64 (48 at rp = 24, so that a chunk holds whole
+// channels): G = N / rp channels of rp columns.  A chunk reads the edge
+// MLP's head w3 [K, r (c_in + c_out)] (model column layout: U[i, q] = uv[i
+// r + q], V[o, q] = uv[r c_in + o r + q]) padded, in one of three ways,
+// lowrank_wgmma.cuh's:
 //
 //   kUv: uv columns lo .. lo + N - 1 over depth k < K      (uv = h w3)
 //   kP:  (k, q) columns over depth i < c_in, w3[k, i r + q] (P = x_src W3U)
@@ -22,9 +25,11 @@
 // image (lowrank_image) lays it out once per call: stage c is the three bf16
 // parts of chunk c as K-major B operands [N][dmax] (wgmma_tile.cuh kmajor),
 // dmax the largest depth rounded up to 16, zeros past a chunk's columns and
-// depth.  A producer warp streams the stages through f32_wgmma.cuh's ring
-// (produce), the consumer warpgroup walks them (Walk) with A (h, x_src or
-// dmsg) split once per tile into register fragments.  Every operand of a
+// depth and at q >= r; after the stages, b3 padded the same way (float32),
+// which the kernels' epilogues read.  A producer warp streams the stages
+// through f32_wgmma.cuh's ring (produce), the consumer warpgroup walks them
+// (Walk) with A (h, x_src or dmsg) split once per tile into register
+// fragments.  Every operand of a
 // product is an input or a float32 value split in three; the six products
 // of order >= 2^-16 run smallest first into one float32 accumulator.
 
@@ -36,8 +41,10 @@
 namespace lowrank_f32 {
 
 using namespace f32_wgmma;
+using lowrank_wgmma::padded_rank;
 using lowrank_wgmma::q_of;
 using lowrank_wgmma::quad_sum;
+using lowrank_wgmma::real_col;
 using lowrank_wgmma::with_rank;
 
 constexpr int kTile = 64;    // slots per tile
@@ -45,10 +52,12 @@ constexpr int kMaxDim = 64;  // K, c_in, c_out <= 64
 
 enum Reading { kUv = 0, kP = 1, kQ = 2 };
 
-// Columns of a chunk at rank r = 8 R8.
+// Columns of a chunk at the padded rank rp = 8 R8.
 template <int R8>
 constexpr int kN = R8 == 3 ? 48 : 64;
-__host__ __device__ constexpr int chunk_cols(int r) { return r == 24 ? 48 : 64; }
+__host__ __device__ constexpr int chunk_cols(int rp) {
+  return rp == 24 ? 48 : 64;
+}
 
 // Blocks per SM the launch bounds of B3 and of B4's rows kernel hold the
 // registers to (168 a thread for two): two up to a depth of 48, where the
@@ -100,30 +109,40 @@ __host__ __device__ inline int bwd_chunks(int g, int K, int c_in, int c_out) {
 }
 
 // The stage image: stage c holds chunk c's three bf16 parts, each a K-major
-// [n][dmax] operand (n = N, the chunk's columns as rows).  Consecutive
+// [n][dmax] operand (n = N, the chunk's columns as rows), over the head
+// padded to rp; then b3 padded [rp (c_in + c_out)] float32.  Consecutive
 // threads take consecutive columns, so that w3's kUv rows coalesce.
 __global__ void lowrank_image(const float* __restrict__ w3,
+                              const float* __restrict__ b3,
                               bf16* __restrict__ image, int stages, int n,
-                              int dmax, int r, int K, int c_in, int c_out,
-                              int backward) {
-  const int per = n * dmax, g = n / r, ncol = r * (c_in + c_out);
-  const long total = static_cast<long>(stages) * per;
+                              int dmax, int rp, int r, int K, int c_in,
+                              int c_out, int backward) {
+  const int per = n * dmax, g = n / rp, ncol = r * (c_in + c_out);
+  const long cells = static_cast<long>(stages) * per;
+  const long total = cells + rp * (c_in + c_out);
   for (long q = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
        q < total; q += static_cast<long>(gridDim.x) * blockDim.x) {
+    if (q >= cells) {  // b3, padded
+      const int e = static_cast<int>(q - cells), rc = real_col(e, rp, r);
+      reinterpret_cast<float*>(image + 3 * cells)[e] = rc >= 0 ? b3[rc] : 0.f;
+      continue;
+    }
     const int c = static_cast<int>(q / per), e = static_cast<int>(q % per);
     const int row = e % n, d = e / n;
-    const Chunk ch = backward ? bwd_chunk(c, g, r, K, c_in, c_out)
-                              : fwd_chunk(c, g, r, c_in, c_out);
+    const Chunk ch = backward ? bwd_chunk(c, g, rp, K, c_in, c_out)
+                              : fwd_chunk(c, g, rp, c_in, c_out);
     const int depth = ch.kind == kUv ? K : ch.kind == kP ? c_in : c_out;
     float v = 0.f;
     if (row < ch.cw && d < depth) {
       const int col = ch.lo + row;
       if (ch.kind == kUv) {
-        v = w3[static_cast<long>(d) * ncol + col];
+        const int rc = real_col(col, rp, r);
+        if (rc >= 0) v = w3[static_cast<long>(d) * ncol + rc];
       } else {
-        const int k = col / r, qq = col - k * r;
-        v = w3[static_cast<long>(k) * ncol + (ch.kind == kQ ? r * c_in : 0) +
-               d * r + qq];
+        const int k = col / rp, qq = col - k * rp;
+        if (qq < r)
+          v = w3[static_cast<long>(k) * ncol + (ch.kind == kQ ? r * c_in : 0) +
+                 d * r + qq];
       }
     }
     const bf16 v1 = __float2bfloat16_rn(v);
@@ -137,19 +156,25 @@ __global__ void lowrank_image(const float* __restrict__ w3,
   }
 }
 
-inline cudaError_t launch_lowrank_image(const float* w3, bf16* image,
-                                        int stages, int n, int dmax, int r,
-                                        int K, int c_in, int c_out,
-                                        bool backward, cudaStream_t stream) {
+// Lays out the stage image of `stages` chunks and returns the padded b3
+// after them (through `b3p`).
+inline cudaError_t launch_lowrank_image(const float* w3, const float* b3,
+                                        bf16* image, int stages, int n,
+                                        int dmax, int rp, int r, int K,
+                                        int c_in, int c_out, bool backward,
+                                        const float** b3p,
+                                        cudaStream_t stream) {
   const long cells = static_cast<long>(stages) * n * dmax;
-  lowrank_image<<<static_cast<unsigned>((cells + 255) / 256), 256, 0,
-                  stream>>>(w3, image, stages, n, dmax, r, K, c_in, c_out,
-                            backward ? 1 : 0);
+  const long total = cells + rp * (c_in + c_out);
+  lowrank_image<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
+                  stream>>>(w3, b3, image, stages, n, dmax, rp, r, K, c_in,
+                            c_out, backward ? 1 : 0);
+  *b3p = reinterpret_cast<const float*>(image + 3 * cells);
   return cudaGetLastError();
 }
 
-// f(R8, S) for a rank r = 8 R8 (8, 16, 24, 32) and S = depth rounded up to
-// 16, over 16, for a depth of 1..64 (the k16 steps of a kernel's A
+// f(R8, S) for a rank r of 1 .. 32, R8 = ceil(r / 8), and S = depth rounded
+// up to 16, over 16, for a depth of 1..64 (the k16 steps of a kernel's A
 // operands); `otherwise` outside them.
 template <typename F, typename Ret>
 Ret with_rank_depth(int r, int depth, F&& f, Ret otherwise) {

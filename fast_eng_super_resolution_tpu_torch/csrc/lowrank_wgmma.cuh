@@ -1,30 +1,42 @@
 // Tensor-core (wgmma) pieces shared by the bfloat16 rank-r kernels: B3's
 // forward (fused_edge_conv_lowrank_wgmma.cu) and B4's rows kernel
-// (fused_edge_conv_lowrank_bwd_wgmma.cu).
+// (fused_edge_conv_lowrank_bwd_wgmma.cu); the rank dispatch and the padded
+// column map also serve the float32 pair (lowrank_f32_wgmma.cuh).
+//
+// Padded rank.  Every kernel runs at rp = 8 R8, R8 = ceil(r / 8), the real
+// rank r beside it at run time: channel i's columns are i rp .. i rp + rp -
+// 1 of a padded head whose column i rp + q is the model's column i r + q
+// for q < r, and zero for q >= r (w3 and b3 alike; real_col below).  With
+// the padded columns zero, uv, t, dt and duv are zero there, so the rank-r
+// result is the rank-rp instance's on the zero-padded head; dw3 and db3 go
+// back to the model's columns only.  The bfloat16 kernels read a padded
+// copy of w3 that pad_head lays out once per call (at a rank that is not a
+// multiple of 8), so that every chunk still loads in 16-byte pieces; b3 is
+// staged padded from its real columns.
 //
 // Chunks.  Both kernels run m64n128k16 products whose B operand is a
-// 128-column chunk of the edge MLP's head w3 [K, r (c_in + c_out)] (model
-// column layout: U[i, q] = uv[i r + q], V[o, q] = uv[r c_in + o r + q]),
-// read in one of three ways:
+// 128-column chunk of the (padded) edge MLP's head w3 [K, rp (c_in +
+// c_out)] (column layout: U[i, q] = uv[i rp + q], V[o, q] = uv[rp c_in + o
+// rp + q]), read in one of three ways:
 //
 //   kUv: uv columns lo .. lo + 127 over depth k < K          (uv = h w3)
 //   kP:  (k, q) columns lo .. over depth i < c_in, the entry
-//        w3[k, i r + q]: W3U, so that P = x_src @ W3U
-//   kQ:  the same over depth o < c_out, w3[k, r c_in + o r + q]: W3V
+//        w3[k, i rp + q]: W3U, so that P = x_src @ W3U
+//   kQ:  the same over depth o < c_out, w3[k, rp c_in + o rp + q]: W3V
 //
-// A chunk holds whole channels (or whole k for kP/kQ): G = 128 / r of them,
-// cw = (channels) r columns; columns past cw and depth rows past the real
-// depth are staged as zeros.  With r a multiple of 8, 8 consecutive columns
-// of one depth row are 16 contiguous bytes of w3 in all three readings, so
-// a chunk copies in 16-byte pieces into the MN-major layout of
+// A chunk holds whole channels (or whole k for kP/kQ): G = 128 / rp of
+// them, cw = (channels) rp columns; columns past cw and depth rows past the
+// real depth are staged as zeros.  With rp a multiple of 8, 8 consecutive
+// columns of one depth row are 16 contiguous bytes of w3 in all three
+// readings, so a chunk copies in 16-byte pieces into the MN-major layout of
 // wgmma_tile.cuh (columns contiguous).
 //
 // Accumulator -> (channel, q).  Value j of a thread's m64n128 accumulator
 // sits at column 8 (j / 4) + 2 (lane % 4) + j % 2 (wgmma_tile.cuh).  With
-// r = 8 R8, column group cg = j / 4 is channel g = cg / R8 of the chunk at
+// rp = 8 R8, column group cg = j / 4 is channel g = cg / R8 of the chunk at
 // q = 8 (cg % R8) + 2 (lane % 4) + j % 2.  So every thread holds the same
 // 2 R8 values of q for every channel of a chunk, for its two rows: a sum
-// over channels into a per-slot vector of r (t, dt) accumulates in its
+// over channels into a per-slot vector of rp (t, dt) accumulates in its
 // registers, and a sum over q (msg, dx_src, dh) is a per-thread partial plus
 // a quad shuffle.  q_of / channel_of below spell it out;
 // tests/test_torch_lowrank_wgmma_host.py checks the mapping against plain
@@ -166,17 +178,61 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v;
 }
 
-// f(std::integral_constant<int, R8>()) for a rank r = 8 R8 (R8 = 1 .. 4);
-// `otherwise` for any other rank.
+// The padded rank of r: 8 ceil(r / 8).
+__host__ __device__ constexpr int padded_rank(int r) { return (r + 7) / 8 * 8; }
+
+// The model's column of padded column c of a head at rank r padded to rp
+// (channel c / rp, q = c % rp), or -1 for a padded column (q >= r).
+__host__ __device__ __forceinline__ int real_col(int c, int rp, int r) {
+  const int ch = c / rp, q = c - ch * rp;
+  return q < r ? ch * r + q : -1;
+}
+
+// Writes the padded copy of w3 [K, r nch] (nch = c_in + c_out channels) as
+// [K, rp nch], zeros at q >= r; consecutive threads take consecutive
+// padded columns of one row.
+template <typename T>
+__global__ void pad_head(const T* __restrict__ w3, T* __restrict__ w3p,
+                         int K, int nch, int r, int rp) {
+  const int ncol = r * nch, ncolp = rp * nch;
+  const long total = static_cast<long>(K) * ncolp;
+  for (long e = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<long>(gridDim.x) * blockDim.x) {
+    const int k = static_cast<int>(e / ncolp), c = static_cast<int>(e % ncolp);
+    const int rc = real_col(c, rp, r);
+    w3p[e] = rc >= 0 ? w3[static_cast<long>(k) * ncol + rc] : T(0.f);
+  }
+}
+
+template <typename T>
+inline cudaError_t launch_pad_head(const T* w3, T* w3p, int K, int nch,
+                                   int r, cudaStream_t stream) {
+  const long cells = static_cast<long>(K) * padded_rank(r) * nch;
+  pad_head<T><<<static_cast<unsigned>((cells + 255) / 256), 256, 0, stream>>>(
+      w3, w3p, K, nch, r, padded_rank(r));
+  return cudaGetLastError();
+}
+
+// b3 [r nch] staged padded into shared memory [rp nch], zeros at q >= r.
+__device__ __forceinline__ void stage_bias(float* dst, const float* b3,
+                                           int ncolp, int rp, int r) {
+  for (int e = threadIdx.x; e < ncolp; e += kWarpgroup) {
+    const int rc = real_col(e, rp, r);
+    dst[e] = rc >= 0 ? b3[rc] : 0.f;
+  }
+}
+
+// f(std::integral_constant<int, R8>()) for a rank r of 1 .. 32, R8 =
+// ceil(r / 8) (the padded rank over 8); `otherwise` for any other rank.
 template <typename F, typename R>
 R with_rank(int r, F&& f, R otherwise) {
-  switch (r) {
+  switch (padded_rank(r)) {
     case 8: return f(std::integral_constant<int, 1>());
     case 16: return f(std::integral_constant<int, 2>());
     case 24: return f(std::integral_constant<int, 3>());
     case 32: return f(std::integral_constant<int, 4>());
-    default: return otherwise;
   }
+  return otherwise;
 }
 
 }  // namespace lowrank_wgmma

@@ -24,16 +24,14 @@ Nothing falls back from one to the other.  Training goes through
 ``FusedEdgeConv``, whose backward is ``csrc/fused_edge_conv_bwd_wgmma.cu``
 or ``csrc/fused_edge_conv_bwd_f32_wgmma.cu`` (or its plain version,
 ``fused_edge_conv_bwd_plain``, on the CPU).  Models with rank-r factorized
-edge kernels (``kernel_rank``) run ``fused_edge_conv_lowrank`` (at a rank
-that is a multiple of 8 on the tensor cores,
-``csrc/fused_edge_conv_lowrank_wgmma.cu`` for bfloat16 and
-``csrc/fused_edge_conv_lowrank_f32_wgmma.cu`` for float32; at other ranks
-``csrc/fused_edge_conv_lowrank.cu``, float32 FMAs) and train through
-``FusedEdgeConvLowrank``, whose backward is
-``csrc/fused_edge_conv_lowrank_bwd_wgmma.cu``,
-``csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu`` or
-``csrc/fused_edge_conv_lowrank_bwd.cu`` the same way.  ``design`` says
-which one a launch runs.
+edge kernels (``kernel_rank``) run ``fused_edge_conv_lowrank``, on the
+tensor cores at every rank 1-32 (``csrc/fused_edge_conv_lowrank_wgmma.cu``
+for bfloat16, ``csrc/fused_edge_conv_lowrank_f32_wgmma.cu`` for float32;
+a rank that is not a multiple of 8 runs at ``padded_rank``, its head padded
+with zeros), and train through ``FusedEdgeConvLowrank``, whose backward is
+``csrc/fused_edge_conv_lowrank_bwd_wgmma.cu`` or
+``csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu`` the same way.
+``design`` names the design every launch runs.
 """
 
 from __future__ import annotations
@@ -228,18 +226,15 @@ _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # library -> its source: B1 (forward) and B2 (backward) as a bfloat16
 # and a float32 tensor-core (wgmma) instance, the float32 one exact through
 # split bf16 operands; their rank-r counterparts B3 and B4 the same way at
-# ranks that are a multiple of 8, and as an FMA instance (both types) at the
-# other ranks; and B5, the per-edge messages of ops/pallas_mp.py (float32,
+# every rank; and B5, the per-edge messages of ops/pallas_mp.py (float32,
 # on the tensor cores through split bf16 operands)
 _SOURCES = {"fused_edge_conv_f32_wgmma": "fused_edge_conv_f32_wgmma.cu",
             "fused_edge_conv_wgmma": "fused_edge_conv_wgmma.cu",
             "fused_edge_conv_bwd_f32_wgmma": "fused_edge_conv_bwd_f32_wgmma.cu",
             "fused_edge_conv_bwd_wgmma": "fused_edge_conv_bwd_wgmma.cu",
-            "fused_edge_conv_lowrank": "fused_edge_conv_lowrank.cu",
             "fused_edge_conv_lowrank_wgmma": "fused_edge_conv_lowrank_wgmma.cu",
             "fused_edge_conv_lowrank_f32_wgmma":
                 "fused_edge_conv_lowrank_f32_wgmma.cu",
-            "fused_edge_conv_lowrank_bwd": "fused_edge_conv_lowrank_bwd.cu",
             "fused_edge_conv_lowrank_bwd_wgmma":
                 "fused_edge_conv_lowrank_bwd_wgmma.cu",
             "fused_edge_conv_lowrank_bwd_f32_wgmma":
@@ -328,15 +323,12 @@ _BINDINGS = {
         "fused_edge_conv_bwd_f32_wgmma_backward", 13, 6), 3),
     "fused_edge_conv_bwd_wgmma": (("fused_edge_conv_bwd_wgmma_backward", 12,
                                    6), 3),
-    "fused_edge_conv_lowrank": (("fused_edge_conv_lowrank_forward", 9, 8), 4),
     "fused_edge_conv_lowrank_wgmma": (("fused_edge_conv_lowrank_wgmma_forward",
-                                       9, 8), 4),
+                                       10, 8), 4),
     "fused_edge_conv_lowrank_f32_wgmma": ((
         "fused_edge_conv_lowrank_f32_wgmma_forward", 10, 8), 4),
-    "fused_edge_conv_lowrank_bwd": (("fused_edge_conv_lowrank_backward", 14, 8),
-                                    4),
     "fused_edge_conv_lowrank_bwd_wgmma": ((
-        "fused_edge_conv_lowrank_bwd_wgmma_backward", 14, 7), 4),
+        "fused_edge_conv_lowrank_bwd_wgmma_backward", 15, 7), 4),
     "fused_edge_conv_lowrank_bwd_f32_wgmma": ((
         "fused_edge_conv_lowrank_bwd_f32_wgmma_backward", 15, 7), 4),
     "fused_edge_messages_wgmma": (("fused_edge_messages_wgmma_forward", 6, 4),
@@ -454,18 +446,20 @@ def _s_pointers(s, slots: int, nb: int, rows_blk: int, blk: int) -> tuple:
 
 
 def design(dt: torch.dtype, rank: int | None = None) -> str:
-    """The design a kernel launches for GEMM type ``dt``: 'wgmma' (on the
-    tensor cores, csrc/*_wgmma.cu) or 'fma' (float32 FMAs on the CUDA
-    cores).  Both types run on the tensor cores as bfloat16 products, or
-    float32 ones exact through three-part bf16 splits (csrc/f32_wgmma.cuh).
-    B1 and B2 (``rank`` None) take 'wgmma' in both types.  B3 and B4 (rank
-    r) take it in both types at a rank that is a multiple of 8 (8, 16, 24,
-    32), whose chunks of uv hold whole channels of 8-column groups
-    (csrc/lowrank_wgmma.cuh, csrc/lowrank_f32_wgmma.cuh); other ranks run
-    'fma'."""
-    if rank is None:
-        return "wgmma"
-    return "wgmma" if rank % 8 == 0 else "fma"
+    """The design a kernel launches for GEMM type ``dt``: 'wgmma', on the
+    tensor cores (csrc/*_wgmma.cu), for every kernel in both types, as
+    bfloat16 products or float32 ones exact through three-part bf16 splits
+    (csrc/f32_wgmma.cuh).  B1 and B2 take ``rank`` None; B3 and B4 any rank
+    1-32, run at ``padded_rank`` (csrc/lowrank_wgmma.cuh)."""
+    return "wgmma"
+
+
+def padded_rank(rank: int) -> int:
+    """The rank B3 and B4 run at: ``rank`` rounded up to a multiple of 8.
+    The head's channels are padded to it with zero columns (w3 and b3 alike),
+    so t, dt and duv are zero there and the result is the rank-``rank``
+    one; dw3 and db3 come back in the model's columns only."""
+    return _round_up(rank, 8)
 
 
 def _conv_library(dt: torch.dtype, backward: bool = False) -> str:
@@ -474,13 +468,9 @@ def _conv_library(dt: torch.dtype, backward: bool = False) -> str:
     return name + ("_f32" if dt == torch.float32 else "") + "_wgmma"
 
 
-def _lowrank_library(dt: torch.dtype, rank: int,
-                     backward: bool = False) -> str:
-    """The library of B3 (B4 if ``backward``) for GEMM type ``dt`` at rank
-    ``rank``, as ``design`` picks it."""
+def _lowrank_library(dt: torch.dtype, backward: bool = False) -> str:
+    """The library of B3 (B4 if ``backward``) for GEMM type ``dt``."""
     name = "fused_edge_conv_lowrank" + ("_bwd" if backward else "")
-    if design(dt, rank) == "fma":
-        return name
     return name + ("_f32" if dt == torch.float32 else "") + "_wgmma"
 
 
@@ -493,27 +483,38 @@ def image_numel(k: int, rows: int, depth: int) -> int:
 
 
 def lowrank_chunk_cols(rank: int) -> int:
-    """Columns of one product of the float32 B3/B4 at rank ``rank`` (a
-    multiple of 8): 64, or 48 at rank 24, so that a chunk holds whole
-    channels (csrc/lowrank_f32_wgmma.cuh)."""
-    return 48 if rank == 24 else 64
+    """Columns of one product of the float32 B3/B4 at rank ``rank``: 64, or
+    48 at a padded rank of 24, so that a chunk holds whole padded channels
+    (csrc/lowrank_f32_wgmma.cuh)."""
+    return 48 if padded_rank(rank) == 24 else 64
 
 
 def lowrank_image_numel(k: int, c_in: int, c_out: int, rank: int,
                         backward: bool = False) -> int:
-    """bf16 elements of the float32 B3's (B4's) stage image of w3: one stage
-    per chunk of its walk (B3: the U and V chunks of uv; B4: those and the P
-    and Q chunks over k), each three [N, depth] operands, N
-    ``lowrank_chunk_cols`` and depth K (B4: the largest of K, c_in and
-    c_out) rounded up to 16 (csrc/lowrank_f32_wgmma.cuh)."""
+    """bf16 elements of the float32 B3's (B4's) stage image of w3 and b3:
+    one stage per chunk of its walk over the head padded to ``padded_rank``
+    (B3: the U and V chunks of uv; B4: those and the P and Q chunks over k),
+    each three [N, depth] operands, N ``lowrank_chunk_cols`` and depth K (B4:
+    the largest of K, c_in and c_out) rounded up to 16; then b3 padded,
+    float32 (csrc/lowrank_f32_wgmma.cuh)."""
+    rp = padded_rank(rank)
     n = lowrank_chunk_cols(rank)
-    g = n // rank
+    g = n // rp
     stages = -(-c_in // g) + -(-c_out // g)
     depth = k
     if backward:
         stages += 2 * -(-k // g)
         depth = max(k, c_in, c_out)
-    return stages * 3 * n * _round_up(depth, 16)
+    return stages * 3 * n * _round_up(depth, 16) + 2 * rp * (c_in + c_out)
+
+
+def lowrank_pad_numel(k: int, c_in: int, c_out: int, rank: int) -> int:
+    """bf16 elements of the bfloat16 B3's (B4's) scratch for w3 padded to
+    ``padded_rank`` [K, rp*(c_in+c_out)], laid out by the library's first
+    launch at a rank that is not a multiple of 8; 0 at the others
+    (csrc/lowrank_wgmma.cuh pad_head)."""
+    rp = padded_rank(rank)
+    return 0 if rp == rank else k * rp * (c_in + c_out)
 
 
 # The bfloat16 B1's (and B3's) tensor-core blocks resident per SM (shared
@@ -544,10 +545,12 @@ def weight_tiles(k: int, c_in: int, c_out: int) -> tuple:
 
 
 def lowrank_weight_tiles(rank: int, c_in: int, c_out: int) -> int:
-    """Column tiles of the tensor-core B4 weights kernel's output [K+1,
-    r*(c_in+c_out)]: 128 columns each; K+1 <= 65 rows are one tile (dw3 on
-    the tensor cores, db3 summed by the thread that forms its column)."""
-    return -(-rank * (c_in + c_out) // 128)
+    """Column tiles of the B4 weights kernel (both types) over the padded
+    duv [K+1, rp*(c_in+c_out)], rp ``padded_rank``: 128 columns each; K+1
+    <= 65 rows are one tile (dw3 on the tensor cores, db3 summed by the
+    thread that forms its column).  Each tile writes its columns with q < r
+    into the [K+1, r*(c_in+c_out)] result."""
+    return -(-padded_rank(rank) * (c_in + c_out) // 128)
 
 
 def _sms(device) -> int:
@@ -566,9 +569,8 @@ def occupancy(k: int, c_in: int, c_out: int,
         if rank is None:
             fwd, bwd = _conv_library(dt), _conv_library(dt, backward=True)
             dims = (k, c_in, c_out)
-        else:  # the tensor-core libraries (-1 at other ranks)
-            fwd, bwd = (f"fused_edge_conv_lowrank{b}{suffix}_wgmma"
-                        for b in ("", "_bwd"))
+        else:
+            fwd, bwd = _lowrank_library(dt), _lowrank_library(dt, True)
             dims = (k, c_in, c_out, rank)
         query = getattr(_load_kernel(bwd), f"{bwd}_blocks_per_sm")
         out.update({
@@ -873,18 +875,30 @@ def fused_edge_conv_lowrank_plain(h_blocked, x, senders_perm, w3, b3, s, *,
     return _scatter_mean_plain(msg, s, rows_blk=rows_blk, blk=blk)
 
 
+def _lowrank_scratch(dt: torch.dtype, k: int, c_in: int, c_out: int,
+                     rank: int, backward: bool, device) -> torch.Tensor:
+    """A B3 (B4 if ``backward``) launch's bf16 scratch: the float32
+    instance's stage image of w3 and b3 (``lowrank_image_numel``), or the
+    bfloat16 instance's w3 padded to ``padded_rank`` (``lowrank_pad_numel``;
+    empty, a null pointer, at a rank that is a multiple of 8)."""
+    numel = (lowrank_image_numel(k, c_in, c_out, rank, backward)
+             if dt == torch.float32 else lowrank_pad_numel(k, c_in, c_out, rank))
+    return torch.empty(numel, dtype=torch.bfloat16, device=device)
+
+
 def fused_edge_conv_lowrank_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
                                  c_in: int, c_out: int, rank: int,
                                  rows_blk: int, blk: int) -> torch.Tensor:
-    """Launches the rank-r forward kernel on the current stream: the
-    tensor-core design (csrc/fused_edge_conv_lowrank_wgmma.cu for bfloat16,
-    csrc/fused_edge_conv_lowrank_f32_wgmma.cu for float32, after its first
-    launch, the stage image of w3, into scratch) or the FMA design
-    (csrc/fused_edge_conv_lowrank.cu), as ``design(dtype, rank)`` says.
-    h_blocked, x and w3 share one dtype (float32 or bfloat16, the GEMM input
-    type); b3 and S are float32, index arrays int32.  Checks every operand
-    and raises on what the kernel does not take; raises if the launch
-    fails.  The tensor-core kernels split each receiver block's slot walk
+    """Launches the rank-r forward kernel on the current stream, on the
+    tensor cores for both types at every rank (``design``):
+    csrc/fused_edge_conv_lowrank_wgmma.cu for bfloat16 (at a rank that is
+    not a multiple of 8, after its first launch, w3 padded to
+    ``padded_rank``, into scratch), csrc/fused_edge_conv_lowrank_f32_wgmma.cu
+    for float32 (after its first launch, the stage image of w3 and b3, into
+    scratch).  h_blocked, x and w3 share one dtype (float32 or bfloat16, the
+    GEMM input type); b3 and S are float32, index arrays int32.  Checks
+    every operand and raises on what the kernel does not take; raises if
+    the launch fails.  The kernel splits each receiver block's slot walk
     into ``conv_parts`` parts whose partial sums are added here in a fixed
     order."""
     dt = h_blocked.dtype
@@ -904,26 +918,18 @@ def fused_edge_conv_lowrank_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
                     ("b3", b3)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
-    wgmma = design(dt, rank) == "wgmma"
-    name = _lowrank_library(dt, rank)
+    name = _lowrank_library(dt)
     lib = _load_kernel(name)
-    parts = conv_parts(nb, blk // 64, _sms(dev)) if wgmma else 1
+    parts = conv_parts(nb, blk // 64, _sms(dev))
     out = torch.empty((parts, nb * rows_blk, c_out), dtype=torch.float32,
                       device=dev)
-    if wgmma and dt == torch.float32:  # scratch: the stage image of w3
-        image = torch.empty(lowrank_image_numel(k, c_in, c_out, rank),
-                            dtype=torch.bfloat16, device=dev)
-        ptrs = (*ptrs, image.data_ptr())
-    args = (h_blocked.data_ptr(), x.data_ptr(), senders_perm.data_ptr(),
-            w3.data_ptr(), b3.data_ptr(), *ptrs, out.data_ptr(), nb, blk, k,
-            c_in, c_out, rank, n)
+    scratch = _lowrank_scratch(dt, k, c_in, c_out, rank, False, dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if wgmma:
-            err = getattr(lib, _BINDINGS[name][0][0])(*args, parts, stream)
-        else:
-            err = lib.fused_edge_conv_lowrank_forward(
-                *args, int(dt == torch.bfloat16), stream)
+        err = getattr(lib, _BINDINGS[name][0][0])(
+            h_blocked.data_ptr(), x.data_ptr(), senders_perm.data_ptr(),
+            w3.data_ptr(), b3.data_ptr(), *ptrs, scratch.data_ptr(),
+            out.data_ptr(), nb, blk, k, c_in, c_out, rank, n, parts,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         smem = getattr(lib, f"{name}_smem_bytes")(k, c_in, c_out, rank)
         raise RuntimeError(
@@ -989,17 +995,17 @@ def fused_edge_conv_lowrank_bwd_plain(g, h_blocked, x_src, w3, b3, s, *,
 def fused_edge_conv_lowrank_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *,
                                      c_in: int, c_out: int, rank: int,
                                      rows_blk: int, blk: int):
-    """Launches the rank-r backward kernels on the current stream: the
-    tensor-core design (csrc/fused_edge_conv_lowrank_bwd_wgmma.cu for
-    bfloat16, csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu for float32,
-    after the stage image of w3, into scratch) or the FMA design
-    (csrc/fused_edge_conv_lowrank_bwd.cu), as ``design(dtype, rank)`` says.
-    h_blocked, x_src and w3 share one dtype (float32 or bfloat16, the GEMM
-    input type); g, b3 and S are float32, slot_rows int32.  Checks every
-    operand and raises on what the kernel does not take; raises if the
-    launch fails.  Returns (dh, dx_src, dw3, db3),
-    float32; dw3/db3 are the kernel's per-split partials summed in a fixed
-    order."""
+    """Launches the rank-r backward kernels on the current stream, on the
+    tensor cores for both types at every rank (``design``):
+    csrc/fused_edge_conv_lowrank_bwd_wgmma.cu for bfloat16 (at a rank that
+    is not a multiple of 8, after w3 padded to ``padded_rank``, into
+    scratch), csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu for float32
+    (after the stage image of w3 and b3, into scratch).  h_blocked, x_src
+    and w3 share one dtype (float32 or bfloat16, the GEMM input type); g, b3
+    and S are float32, slot_rows int32.  Checks every operand and raises on
+    what the kernel does not take; raises if the launch fails.  Returns (dh,
+    dx_src, dw3, db3), float32, dw3/db3 in the model's columns: the kernel's
+    per-split partials summed in a fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
     _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out,
@@ -1015,41 +1021,28 @@ def fused_edge_conv_lowrank_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *,
     for name, t in (("g", g), ("x_src", x_src), ("w3", w3), ("b3", b3)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
-    wgmma = design(dt, rank) == "wgmma"
-    name = _lowrank_library(dt, rank, backward=True)
+    name = _lowrank_library(dt, backward=True)
     lib = _load_kernel(name)
     f32 = dict(dtype=torch.float32, device=dev)
     dh = torch.empty((slots, k), **f32)
     dx_src = torch.empty((slots, c_in), **f32)
     # scratch between the launches: per-slot dmsg (already rounded to the
-    # GEMM type by the tensor-core designs, float32 by the FMA design), t
-    # and dt
-    dmsg = torch.empty((slots, c_out), dtype=dt if wgmma else torch.float32,
-                       device=dev)
-    t_vec = torch.empty((slots, rank), **f32)
-    dt_vec = torch.empty((slots, rank), **f32)
-    if wgmma:  # 128-column tiles
-        splits = _weight_splits(slots, lowrank_weight_tiles(rank, c_in, c_out),
-                                dev)
-    else:  # 8-channel column tiles of the U and the V half
-        splits = _weight_splits(slots, -(-c_in // 8) + -(-c_out // 8), dev)
+    # GEMM type), t and dt at the padded rank
+    dmsg = torch.empty((slots, c_out), dtype=dt, device=dev)
+    t_vec = torch.empty((slots, padded_rank(rank)), **f32)
+    dt_vec = torch.empty((slots, padded_rank(rank)), **f32)
+    splits = _weight_splits(slots, lowrank_weight_tiles(rank, c_in, c_out),
+                            dev)
     partial = torch.empty((splits, k + 1, ncol), **f32)
-    if wgmma and dt == torch.float32:  # scratch: the stage image of w3
-        image = torch.empty(lowrank_image_numel(k, c_in, c_out, rank, True),
-                            dtype=torch.bfloat16, device=dev)
-        ptrs = (*ptrs, image.data_ptr())
-    args = (g.data_ptr(), h_blocked.data_ptr(), x_src.data_ptr(),
-            w3.data_ptr(), b3.data_ptr(), *ptrs, dh.data_ptr(),
-            dx_src.data_ptr(), dmsg.data_ptr(), t_vec.data_ptr(),
-            dt_vec.data_ptr(), partial.data_ptr(), nb, blk, k, c_in, c_out,
-            rank, splits)
+    scratch = _lowrank_scratch(dt, k, c_in, c_out, rank, True, dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if wgmma:
-            err = getattr(lib, _BINDINGS[name][0][0])(*args, stream)
-        else:
-            err = lib.fused_edge_conv_lowrank_backward(
-                *args, int(dt == torch.bfloat16), stream)
+        err = getattr(lib, _BINDINGS[name][0][0])(
+            g.data_ptr(), h_blocked.data_ptr(), x_src.data_ptr(),
+            w3.data_ptr(), b3.data_ptr(), *ptrs, scratch.data_ptr(),
+            dh.data_ptr(), dx_src.data_ptr(), dmsg.data_ptr(),
+            t_vec.data_ptr(), dt_vec.data_ptr(), partial.data_ptr(), nb, blk,
+            k, c_in, c_out, rank, splits,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         smem = getattr(lib, f"{name}_smem_bytes")(k, c_in, c_out, rank)
         raise RuntimeError(

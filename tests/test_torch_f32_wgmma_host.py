@@ -115,15 +115,13 @@ def test_stage_image_launch_writes_both_layouts(k, c_in, c_out):
 
 def test_design_and_libraries():
     """B1 and B2 run on the tensor cores in both types, each type from its
-    own library; B3 and B4 too at ranks that are a multiple of 8 (float32
-    since the float32 rank-r kernels,
-    tests/test_torch_lowrank_f32_wgmma_host.py), and keep the FMA design at
-    the other ranks."""
+    own library; B3 and B4 too at every rank, a rank that is not a multiple
+    of 8 at its padded rank (tests/test_torch_lowrank_f32_wgmma_host.py)."""
     assert tfc.design(torch.float32) == "wgmma"
     assert tfc.design(torch.bfloat16) == "wgmma"
     assert tfc.design(torch.float32, 16) == "wgmma"
-    assert tfc.design(torch.float32, 12) == "fma"
-    assert tfc.design(torch.bfloat16, 12) == "fma"
+    assert tfc.design(torch.float32, 12) == "wgmma"
+    assert tfc.design(torch.bfloat16, 12) == "wgmma"
     libs = {tfc._conv_library(dt, backward=bwd)
             for dt in (torch.float32, torch.bfloat16) for bwd in (False, True)}
     assert libs == {"fused_edge_conv_f32_wgmma", "fused_edge_conv_wgmma",

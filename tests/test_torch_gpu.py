@@ -1,8 +1,8 @@
 """The port's CUDA kernels (B1 forward and B2 backward, on the tensor cores
 in bfloat16 and in float32; their rank-r counterparts B3 and B4, on the
-tensor cores in both types at ranks that are a multiple of 8 and in their
-FMA design at the other ranks; and B5, the per-edge messages) against their
-plain PyTorch versions, on the card.
+tensor cores in both types at every rank, padded to a multiple of 8; and
+B5, the per-edge messages) against their plain PyTorch versions, on the
+card.
 
 Every test here is marked ``gpu`` and skips on a machine without CUDA.  The
 file imports neither jax nor the test conftest's JAX setup, so it runs where
@@ -644,9 +644,13 @@ def _lowrank_bwd(blocks, g, h, x_src, w3, b3, c, rank, gemm_dtype, compact,
 # B3 and B4 against their plain versions: both round h, x (x_src), w3 and
 # (B4) dmsg to the GEMM type identically, then sum float32 products in
 # different orders (TF32 off): 1e-5 of each output's max, as for B1 and B2.
+# Ranks 1-32 run on the tensor cores at the padded rank 8 ceil(r / 8):
+# ranks at, just past and just short of a multiple of 8.
+LOWRANK_RANKS = [1, 3, 12, 16, 20, 31]
+
 @pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("compact", [True, False])
-@pytest.mark.parametrize("rank", [16, 3])
+@pytest.mark.parametrize("rank", LOWRANK_RANKS)
 @pytest.mark.parametrize("c", [48, 5])
 def test_lowrank_kernel_matches_plain(cuda, c, rank, compact, gemm_dtype):
     blocks, h, x, w3, b3 = _lowrank_operands(c, rank, seed=c + rank)
@@ -662,7 +666,7 @@ def test_lowrank_kernel_matches_plain(cuda, c, rank, compact, gemm_dtype):
 
 @pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("compact", [True, False])
-@pytest.mark.parametrize("rank", [16, 3])
+@pytest.mark.parametrize("rank", LOWRANK_RANKS)
 @pytest.mark.parametrize("c", [48, 5])
 def test_lowrank_bwd_kernel_matches_plain(cuda, c, rank, compact, gemm_dtype):
     blocks, h, x, w3, b3 = _lowrank_operands(c, rank, seed=c + rank)
@@ -677,6 +681,44 @@ def test_lowrank_bwd_kernel_matches_plain(cuda, c, rank, compact, gemm_dtype):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
         err = (a.cpu() - b).abs().max().item() / b.abs().max().item()
         assert err < BWD_TOL, (name, err)
+
+
+def _zero_padded(w3, b3, c, rank, rp):
+    """The rank-``rank`` head (w3, b3) of width c as a rank-``rp`` head in
+    the same column layout, with zero columns at q >= rank."""
+    k = w3.shape[0]
+    w = np.zeros((k, 2 * c, rp), np.float32)
+    w[:, :, :rank] = w3.reshape(k, 2 * c, rank)
+    b = np.zeros((2 * c, rp), np.float32)
+    b[:, :rank] = b3.reshape(2 * c, rank)
+    return w.reshape(k, -1), b.reshape(-1)
+
+
+@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("compact", [True, False])
+def test_lowrank_rank12_equals_rank16_on_zero_padded_head(cuda, compact,
+                                                          gemm_dtype):
+    """B3 and B4 at rank 12 run the rank-16 instance on the head padded with
+    zeros: the same bits as rank 16 on the zero-padded w3 and b3 (out, dh,
+    dx_src), dw3 and db3 the real columns of the padded result, whose padded
+    columns are zero."""
+    c, rank, rp = 48, 12, 16
+    blocks, h, x, w3, b3 = _lowrank_operands(c, rank, seed=23)
+    w3p, b3p = _zero_padded(w3, b3, c, rank, rp)
+    g, xs = _g(blocks, c, 24), x[blocks.senders_perm]
+    out = [_lowrank(blocks, h, x, w, b, c, r, gemm_dtype, compact, "cuda")
+           for w, b, r in ((w3, b3, rank), (w3p, b3p, rp))]
+    bwd = [_lowrank_bwd(blocks, g, h, xs, w, b, c, r, gemm_dtype, compact,
+                        "cuda") for w, b, r in ((w3, b3, rank), (w3p, b3p, rp))]
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], out[1])
+    (dh, dx, dw3, db3), (dh_p, dx_p, dw3_p, db3_p) = bwd
+    assert torch.equal(dh, dh_p) and torch.equal(dx, dx_p)
+    k = h.shape[1]
+    dw3_p, db3_p = dw3_p.reshape(k, 2 * c, rp), db3_p.reshape(2 * c, rp)
+    assert torch.equal(dw3.reshape(k, 2 * c, rank), dw3_p[..., :rank])
+    assert torch.equal(db3.reshape(2 * c, rank), db3_p[..., :rank])
+    assert not dw3_p[..., rank:].any() and not db3_p[..., rank:].any()
 
 
 def test_lowrank_wrappers_check_operands(cuda):
@@ -744,13 +786,14 @@ def test_fused_edge_conv_lowrank_grads_on_card_match_cpu(cuda, compact):
         assert err < BWD_TOL, (name, err)
 
 
-# The bfloat16 B3 and B4 at ranks that are a multiple of 8 run on the tensor
-# cores (csrc/fused_edge_conv_lowrank*_wgmma.cu; the float32 instances below
-# too); other ranks keep the FMA design.  Widths, K and ranks around the chunks' granularity
-# (whole channels of 128 // r, 8-column groups, depth 16): TOL / BWD_TOL of
-# each output's max, as for the FMA design.
+# The bfloat16 B3 and B4 run on the tensor cores at every rank
+# (csrc/fused_edge_conv_lowrank*_wgmma.cu; the float32 instances below
+# too).  Widths, K and ranks around the chunks' granularity (whole channels
+# of 128 // rp, 8-column groups, depth 16, padded ranks): TOL / BWD_TOL of
+# each output's max.
 LOWRANK_WGMMA = [(48, 48, 16), (48, 17, 8), (16, 64, 32), (5, 1, 16),
-                 (64, 48, 24), (24, 20, 16), (12, 33, 8)]
+                 (64, 48, 24), (24, 20, 16), (12, 33, 8), (48, 17, 5),
+                 (64, 48, 20), (12, 33, 31)]
 
 
 @pytest.mark.parametrize("compact", [True, False])

@@ -2,7 +2,9 @@
 (csrc/fused_edge_conv_lowrank_f32_wgmma.cu,
 csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu and csrc/lowrank_f32_wgmma.cuh),
 on the CPU: the design and libraries the wrappers pick, the index map of the
-stage-image launch in its three readings (kUv, kP, kQ), numpy emulations of
+stage-image launch in its three readings (kUv, kP, kQ) over the head padded
+to 8 ceil(r / 8) (zeros at q >= r, b3 padded after the stages), the sizes
+the wrappers derive from it at every rank 1-32, numpy emulations of
 the kernels' walks (B3: h split once per tile, the six products of each
 chunk in the kernel's order, + b3, t and msg in float32, the segmented
 scatter into per-part sums; B4's rows kernel over the V, U, P and Q chunks
@@ -23,34 +25,46 @@ from test_torch_f32_wgmma_host import (SMS, _dmsg, _fma, _graph, _rel, _six,
                                        _split, _tiles, kmajor)
 
 RANKS = [8, 16, 24, 32]
+PADDED_RANKS = [1, 3, 5, 12, 20, 27, 31]  # run at 8 ceil(r / 8)
 
 
 def _round_up(v, m):
     return -(-v // m) * m
 
 
+def _real_col(c, rp, r):
+    """lowrank_wgmma.cuh real_col: the model's column of padded column c
+    (channel c // rp, q = c % rp), -1 at q >= r."""
+    ch, q = c // rp, c % rp
+    return np.where(q < r, ch * r + q, -1)
+
+
 def _chunks(k, c_in, c_out, rank, backward):
     """(reading, first column, columns) of each stage, as
-    lowrank_f32_wgmma.cuh's fwd_chunk / bwd_chunk lay them out: G = N //
-    rank whole channels (or k) per chunk; the forward's U then V chunks of
-    uv, the rows kernel's V, U, P and Q chunks."""
-    g = tfc.lowrank_chunk_cols(rank) // rank
+    lowrank_f32_wgmma.cuh's fwd_chunk / bwd_chunk lay them out over the
+    head padded to rp = 8 ceil(rank / 8): G = N // rp whole channels (or k)
+    per chunk; the forward's U then V chunks of uv, the rows kernel's V, U,
+    P and Q chunks."""
+    rp = tfc.padded_rank(rank)
+    g = tfc.lowrank_chunk_cols(rank) // rp
 
     def groups(reading, n, base):
-        return [(reading, base + c0 * rank, min(g, n - c0) * rank)
+        return [(reading, base + c0 * rp, min(g, n - c0) * rp)
                 for c0 in range(0, n, g)]
 
     u = groups("uv", c_in, 0)
-    v = groups("uv", c_out, rank * c_in)
+    v = groups("uv", c_out, rp * c_in)
     if not backward:
         return u + v
     return v + u + groups("p", k, 0) + groups("q", k, 0)
 
 
-def _image(w3, k, c_in, c_out, rank, backward):
+def _image(w3, b3, k, c_in, c_out, rank, backward):
     """What the stage-image launch writes (lowrank_f32_wgmma.cuh
-    lowrank_image): its index map run in numpy over every thread index q.
-    [stages, 3, N * dmax] bf16 values as float64."""
+    lowrank_image): its index map run in numpy over every thread index q,
+    the padded columns (q >= rank) read as zeros.  ([stages, 3, N * dmax]
+    bf16 values as float64, the padded b3 written after them)."""
+    rp = tfc.padded_rank(rank)
     n = tfc.lowrank_chunk_cols(rank)
     dmax = _round_up(max(k, c_in, c_out) if backward else k, 16)
     chunks = _chunks(k, c_in, c_out, rank, backward)
@@ -62,19 +76,33 @@ def _image(w3, k, c_in, c_out, rank, backward):
     lo = np.array([ch[1] for ch in chunks])[c]
     cw = np.array([ch[2] for ch in chunks])[c]
     depth = np.select([reading == "uv", reading == "p"], [k, c_in], c_out)
-    ok = (row < cw) & (d < depth)
     col = lo + row
-    kk, qq = col // rank, col % rank
+    kk, qq = col // rp, col % rp
+    rc = _real_col(col, rp, rank)
+    ok = (row < cw) & (d < depth) & (qq < rank)
     ncol = w3.shape[1]
     flat = w3.reshape(-1)
-    at = np.where(reading == "uv", d * ncol + col,
+    at = np.where(reading == "uv", d * ncol + rc,
                   kk * ncol + np.where(reading == "q", rank * c_in, 0)
                   + d * rank + qq)
     v = np.where(ok, flat[np.where(ok, at, 0)], 0).astype(np.float32)
     image = np.zeros((len(chunks), 3, per))
     for p, part in enumerate(_split(v)):
         image[c, p, kmajor(row, d, dmax)] = part
-    return image
+    rcb = _real_col(np.arange(rp * (c_in + c_out)), rp, rank)
+    b3p = np.where(rcb >= 0, b3[np.maximum(rcb, 0)], 0).astype(np.float32)
+    return image, b3p
+
+
+def _zero_padded(w3, rank):
+    """w3 [K, rank * nch] as the head of rank 8 ceil(rank / 8) with zero
+    columns at q >= rank, built by reshaping (independent of the index
+    maps above)."""
+    k, ncol = w3.shape
+    rp, nch = tfc.padded_rank(rank), ncol // rank
+    w = np.zeros((k, nch, rp), w3.dtype)
+    w[:, :, :rank] = w3.reshape(k, nch, rank)
+    return w.reshape(k, nch * rp)
 
 
 def _stages(image, n, dmax):
@@ -84,27 +112,31 @@ def _stages(image, n, dmax):
     return image[:, :, kmajor(r, d, dmax)]
 
 
-@pytest.mark.parametrize("rank", RANKS)
+@pytest.mark.parametrize("rank", RANKS + PADDED_RANKS)
 @pytest.mark.parametrize("k,c_in,c_out", [(48, 48, 48), (5, 7, 3),
                                           (64, 64, 64), (17, 33, 20)])
 def test_stage_image_in_all_three_readings(k, c_in, c_out, rank):
     """Read back through kmajor, the parts of each stage sum exactly to its
-    chunk of w3 in its reading, zeros elsewhere: the kUv stages of the
-    forward (and of B4's rows kernel, V first) concatenate to w3^T, the kP
-    stages to W3U^T and the kQ stages to W3V^T, with W3U[i, k r + q] =
-    w3[k, i r + q] and W3V[o, k r + q] = w3[k, r c_in + o r + q]; and
-    lowrank_image_numel sizes the scratch."""
+    chunk of the head padded to rp = 8 ceil(r / 8) (w3p, zero columns at q
+    >= r) in its reading, zeros elsewhere: the kUv stages of the forward
+    (and of B4's rows kernel, V first) concatenate to w3p^T, the kP stages
+    to W3U^T and the kQ stages to W3V^T, with W3U[i, k rp + q] = w3p[k, i
+    rp + q] and W3V[o, k rp + q] = w3p[k, rp c_in + o rp + q]; b3 follows
+    padded the same way; and lowrank_image_numel sizes the scratch."""
     rng = np.random.default_rng(k + c_in + rank)
-    ncol, ru = rank * (c_in + c_out), rank * c_in
-    w3 = rng.normal(size=(k, ncol)).astype(np.float32)
-    w3u = w3[:, :ru].reshape(k, c_in, rank).transpose(1, 0, 2).reshape(c_in, -1)
-    w3v = w3[:, ru:].reshape(k, c_out, rank).transpose(1, 0, 2).reshape(c_out, -1)
+    rp = tfc.padded_rank(rank)
+    w3 = rng.normal(size=(k, rank * (c_in + c_out))).astype(np.float32)
+    b3 = rng.normal(size=rank * (c_in + c_out)).astype(np.float32)
+    w3p, ru = _zero_padded(w3, rank), rp * c_in
+    w3u = w3p[:, :ru].reshape(k, c_in, rp).transpose(1, 0, 2).reshape(c_in, -1)
+    w3v = w3p[:, ru:].reshape(k, c_out, rp).transpose(1, 0, 2).reshape(c_out, -1)
     n = tfc.lowrank_chunk_cols(rank)
-    assert n % rank == 0 and n % 8 == 0 and n <= 64
+    assert n % rp == 0 and n % 8 == 0 and n <= 64
     for backward in (False, True):
-        image = _image(w3, k, c_in, c_out, rank, backward)
-        assert image.size == tfc.lowrank_image_numel(k, c_in, c_out, rank,
-                                                     backward)
+        image, b3p = _image(w3, b3, k, c_in, c_out, rank, backward)
+        assert image.size + 2 * b3p.size == tfc.lowrank_image_numel(
+            k, c_in, c_out, rank, backward)
+        assert np.array_equal(b3p, _zero_padded(b3[None], rank)[0])
         dmax = _round_up(max(k, c_in, c_out) if backward else k, 16)
         stages = _stages(image, n, dmax)
         whole = stages.sum(1)
@@ -119,7 +151,7 @@ def test_stage_image_in_all_three_readings(k, c_in, c_out, rank):
             assert np.array_equal(torch.as_tensor(part).bfloat16().float().numpy(),
                                   part)
         uv = np.concatenate([b for _, b in sorted(got["uv"], key=lambda x: x[0])])
-        assert np.array_equal(uv, w3.T.astype(np.float64))
+        assert np.array_equal(uv, w3p.T.astype(np.float64))
         if backward:
             assert np.array_equal(np.concatenate([b for _, b in got["p"]]),
                                   w3u.T.astype(np.float64))
@@ -127,20 +159,52 @@ def test_stage_image_in_all_three_readings(k, c_in, c_out, rank):
                                   w3v.T.astype(np.float64))
 
 
+@pytest.mark.parametrize("c_in,c_out,k", [(48, 48, 48), (5, 7, 3),
+                                          (64, 64, 64), (1, 64, 17)])
+def test_padded_map_and_sizes_at_every_rank(c_in, c_out, k):
+    """At every rank 1-32 (the map alone, no data): rp = 8 ceil(r / 8);
+    the padded columns' map gives every model column once, in order, and
+    -1 exactly at q >= r; a chunk holds whole padded channels; the stage
+    image, the bfloat16 scratch of the padded w3 and B4's weight tiles are
+    sized from rp."""
+    nch = c_in + c_out
+    for rank in range(1, 33):
+        rp = tfc.padded_rank(rank)
+        assert rp % 8 == 0 and rank <= rp < rank + 8
+        cols = np.arange(rp * nch)
+        rc = _real_col(cols, rp, rank)
+        assert list(rc[rc >= 0]) == list(range(rank * nch))
+        assert np.array_equal(rc < 0, cols % rp >= rank)
+        n = tfc.lowrank_chunk_cols(rank)
+        assert n == (48 if rp == 24 else 64) and n % rp == 0
+        for backward in (False, True):
+            stages = len(_chunks(k, c_in, c_out, rank, backward))
+            dmax = _round_up(max(k, c_in, c_out) if backward else k, 16)
+            assert tfc.lowrank_image_numel(k, c_in, c_out, rank, backward) == \
+                stages * 3 * n * dmax + 2 * rp * nch
+        tiles = tfc.lowrank_weight_tiles(rank, c_in, c_out)
+        assert (tiles - 1) * 128 < rp * nch <= tiles * 128
+        assert tfc.lowrank_pad_numel(k, c_in, c_out, rank) == (
+            0 if rp == rank else k * rp * nch)
+
+
 @pytest.mark.parametrize("rank", RANKS)
 def test_design_and_libraries_by_rank(rank):
-    """Float32 B3/B4 at a rank that is a multiple of 8 take the tensor
-    cores from their own libraries; other ranks keep the FMA design."""
+    """Float32 B3/B4 take the tensor cores from their own libraries at a
+    rank that is a multiple of 8 and at the ranks just past it (padded to
+    the next multiple of 8); no FMA library is left."""
     for dt in (torch.float32, torch.bfloat16):
         assert tfc.design(dt, rank) == "wgmma"
-        assert tfc.design(dt, rank + 1) == "fma"
-        assert tfc._lowrank_library(dt, rank + 1) == "fused_edge_conv_lowrank"
-    libs = (tfc._lowrank_library(torch.float32, rank),
-            tfc._lowrank_library(torch.float32, rank, backward=True))
+        assert tfc.design(dt, rank - 7) == "wgmma"
+        assert tfc.padded_rank(rank - 7) == tfc.padded_rank(rank) == rank
+    libs = (tfc._lowrank_library(torch.float32),
+            tfc._lowrank_library(torch.float32, backward=True))
     assert libs == ("fused_edge_conv_lowrank_f32_wgmma",
                     "fused_edge_conv_lowrank_bwd_f32_wgmma")
     for lib in libs:
         assert tfc._SOURCES[lib] == lib + ".cu" and lib in tfc._BINDINGS
+    assert "fused_edge_conv_lowrank" not in tfc._SOURCES
+    assert "fused_edge_conv_lowrank_bwd" not in tfc._SOURCES
 
 
 # ---------------------------------------------------------------------------
@@ -210,25 +274,28 @@ def _uv(acc, b3, lo, cw, rank):
 
 
 def _emulate_fwd(blocks, o, c_in, c_out, rank, compact):
-    """B3 float32 as csrc/fused_edge_conv_lowrank_f32_wgmma.cu runs it."""
+    """B3 float32 as csrc/fused_edge_conv_lowrank_f32_wgmma.cu runs it, at
+    the padded rank rp (t [..., rp], zero at q >= rank)."""
     k = o["h"].shape[1]
-    n, dp, ru = tfc.lowrank_chunk_cols(rank), _round_up(k, 16), rank * c_in
-    st = _stages(_image(o["w3"], k, c_in, c_out, rank, False), n, dp)
+    rp = tfc.padded_rank(rank)
+    n, dp, ru = tfc.lowrank_chunk_cols(rank), _round_up(k, 16), rp * c_in
+    image, b3p = _image(o["w3"], o["b3"], k, c_in, c_out, rank, False)
+    st = _stages(image, n, dp)
     idx, real = _tiles(blocks)
     hp = _split(_pad(o["h"][idx], dp))
     x = o["x"][blocks.senders_perm[idx]]
-    t = np.zeros((*idx.shape, rank), np.float32)
+    t = np.zeros((*idx.shape, rp), np.float32)
     msg = np.zeros((*idx.shape, c_out), np.float32)
     for c, (_, lo, cw) in enumerate(_chunks(k, c_in, c_out, rank, False)):
-        uv = _uv(_six(hp, [st[c, p].T for p in range(3)]), o["b3"], lo, cw,
-                 rank)
+        uv = _uv(_six(hp, [st[c, p].T for p in range(3)]), b3p, lo, cw, rp)
         if lo < ru:  # t[s, q] += x[s, i] U[s, i, q]
-            for gi in range(cw // rank):
-                i = lo // rank + gi
+            for gi in range(cw // rp):
+                i = lo // rp + gi
                 t = _fma(x[..., i:i + 1], uv[..., gi, :], t)
         else:  # msg[s, o] = sum_q V[s, o, q] t[s, q]
-            o0 = (lo - ru) // rank
-            msg[..., o0:o0 + cw // rank] = (uv * t[..., None, :]).sum(-1)
+            o0 = (lo - ru) // rp
+            msg[..., o0:o0 + cw // rp] = (uv * t[..., None, :]).sum(-1)
+    assert not t[..., rank:].any()
     return _scatter(blocks, msg, compact, real, idx)
 
 
@@ -270,7 +337,9 @@ def _jax_fwd(blocks, o, c_in, c_out, rank):
         **_kw(blocks, c_in, c_out, rank)))
 
 
-SHAPES = [(16, 16, 16, 16), (12, 20, 33, 8), (9, 7, 5, 24), (8, 8, 17, 32)]
+SHAPES = [(16, 16, 16, 16), (12, 20, 33, 8), (9, 7, 5, 24), (8, 8, 17, 32),
+          (16, 16, 16, 12), (12, 20, 33, 1), (9, 7, 5, 20), (8, 8, 17, 31),
+          (7, 9, 12, 3)]
 
 
 @pytest.mark.parametrize("c_in,c_out,k,rank", SHAPES)
@@ -292,12 +361,15 @@ def test_fwd_walk_matches_plain_float64_and_pallas(c_in, c_out, k, rank):
 
 
 def _emulate_bwd(blocks, o, c_in, c_out, rank, compact, sms=SMS):
-    """B4 float32 as csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu runs it:
+    """B4 float32 as csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu runs it
+    at the padded rank rp, dw3 and db3 written back to the model's columns:
     (dh, dx_src, dw3, db3)."""
     k = o["h"].shape[1]
-    slots, ru, ncol = len(blocks.senders_perm), rank * c_in, rank * (c_in + c_out)
+    slots, rp = len(blocks.senders_perm), tfc.padded_rank(rank)
+    ru, ncol = rp * c_in, rp * (c_in + c_out)
     n, dp = tfc.lowrank_chunk_cols(rank), _round_up(max(k, c_in, c_out), 16)
-    st = _stages(_image(o["w3"], k, c_in, c_out, rank, True), n, dp)
+    image, b3p = _image(o["w3"], o["b3"], k, c_in, c_out, rank, True)
+    st = _stages(image, n, dp)
     idx, real = _tiles(blocks)
     dmsg = _dmsg(blocks, o["g"], compact)
     # (a) rows: A = split h over the V and U chunks, split x_src over the P
@@ -305,23 +377,23 @@ def _emulate_bwd(blocks, o, c_in, c_out, rank, compact, sms=SMS):
     d, xs = dmsg[idx], o["x_src"][idx]
     a = {"uv": _split(_pad(o["h"][idx], dp)), "p": _split(_pad(xs, dp)),
          "q": _split(_pad(d, dp))}
-    t, dt = (np.zeros((*idx.shape, rank), np.float32) for _ in range(2))
+    t, dt = (np.zeros((*idx.shape, rp), np.float32) for _ in range(2))
     dx = np.zeros((*idx.shape, c_in), np.float32)
     dh_p, dh = (np.zeros((*idx.shape, k), np.float32) for _ in range(2))
     for c, (reading, lo, cw) in enumerate(_chunks(k, c_in, c_out, rank, True)):
         acc = _six(a[reading], [st[c, p].T for p in range(3)])
         if reading == "uv":
-            uv = _uv(acc, o["b3"], lo, cw, rank)
-            for gi in range(cw // rank):
-                ch = (lo - ru if lo >= ru else lo) // rank + gi
+            uv = _uv(acc, b3p, lo, cw, rp)
+            for gi in range(cw // rp):
+                ch = (lo - ru if lo >= ru else lo) // rp + gi
                 if lo >= ru:  # dt[s, q] += dmsg[s, o] V[s, o, q]
                     dt = _fma(d[..., ch:ch + 1], uv[..., gi, :], dt)
                 else:  # t += x U; dx_src[s, i] = sum_q U[s, i, q] dt[s, q]
                     t = _fma(xs[..., ch:ch + 1], uv[..., gi, :], t)
                     dx[..., ch] = (uv[..., gi, :] * dt).sum(-1)
         else:  # dh[s, k] = sum_q dt P[s, k, q] + sum_q t Q[s, k, q]
-            pq = acc[..., :cw].reshape(*idx.shape, cw // rank, rank)
-            ks = slice(lo // rank, lo // rank + cw // rank)
+            pq = acc[..., :cw].reshape(*idx.shape, cw // rp, rp)
+            ks = slice(lo // rp, lo // rp + cw // rp)
             if reading == "p":
                 dh_p[..., ks] = (pq * dt[..., None, :]).sum(-1)
             else:
@@ -330,7 +402,8 @@ def _emulate_bwd(blocks, o, c_in, c_out, rank, compact, sms=SMS):
         for a_ in (dh, dx, t, dt):
             a_[~real] = 0
     dh, dx = dh.reshape(slots, k), dx.reshape(slots, c_in)
-    t, dt = t.reshape(slots, rank), dt.reshape(slots, rank)
+    t, dt = t.reshape(slots, rp), dt.reshape(slots, rp)
+    assert not t[:, rank:].any() and not dt[:, rank:].any()
     # (b) weights: per split, chunk by chunk, six passes of h^T duv into a
     # fresh accumulator added into the float32 sum; db3 in slot order
     splits = tfc.weight_splits(slots, tfc.lowrank_weight_tiles(rank, c_in, c_out),
@@ -352,9 +425,15 @@ def _emulate_bwd(blocks, o, c_in, c_out, rank, compact, sms=SMS):
             for s in range(64):
                 dbias = dbias + duv[s]
         partial[sp, :k], partial[sp, k] = total, dbias
-    out = partial[0]
+    # each split writes its padded columns' sums at the model's columns
+    rc = _real_col(np.arange(ncol), rp, rank)
+    assert sorted(rc[rc >= 0]) == list(range(rank * (c_in + c_out)))
+    assert not partial[..., rc < 0].any()
+    real_partial = np.zeros((splits, k + 1, rank * (c_in + c_out)), np.float32)
+    real_partial[..., rc[rc >= 0]] = partial[..., rc >= 0]
+    out = real_partial[0]
     for sp in range(1, splits):
-        out = out + partial[sp]
+        out = out + real_partial[sp]
     return dh, dx, out[:k], out[k]
 
 

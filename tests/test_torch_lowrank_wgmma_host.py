@@ -3,7 +3,9 @@
 and csrc/lowrank_wgmma.cuh), on the CPU: the design rule by type and rank,
 the exact three-part bf16 split of float32 values that the weights kernel
 relies on, the wgmma accumulator's column -> (channel, q) mapping, the chunk
-schedules and column tiles, a numpy emulation of both kernels' tile loops
+schedules and column tiles, the padded head of a rank that is not a
+multiple of 8 (pad_head's copy of w3, b3 staged padded, dw3/db3 written back
+to the model's columns), a numpy emulation of both kernels' tile loops
 (the w3 pieces they stage, the accumulator values each thread holds, the
 per-thread sums and quad shuffles) against the plain versions' indexing, and
 the wrappers refusing geometry they do not take."""
@@ -65,13 +67,13 @@ def lowrank_chunks(k, c_in, c_out, rank, backward=False):
     (torch.bfloat16, None, "wgmma"), (torch.float32, None, "wgmma"),
     (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 16, "wgmma"),
     (torch.bfloat16, 24, "wgmma"), (torch.bfloat16, 32, "wgmma"),
-    (torch.bfloat16, 3, "fma"), (torch.bfloat16, 12, "fma"),
-    (torch.bfloat16, 1, "fma"), (torch.float32, 16, "wgmma"),
+    (torch.bfloat16, 3, "wgmma"), (torch.bfloat16, 12, "wgmma"),
+    (torch.bfloat16, 1, "wgmma"), (torch.float32, 16, "wgmma"),
     (torch.float32, 8, "wgmma"), (torch.float32, 24, "wgmma"),
-    (torch.float32, 32, "wgmma"), (torch.float32, 3, "fma")])
+    (torch.float32, 32, "wgmma"), (torch.float32, 3, "wgmma")])
 def test_design_by_type_and_rank(dt, rank, want):
-    """B1/B2 in both types and B3/B4 in both types at ranks that are a
-    multiple of 8 take the tensor cores; the other ranks the FMA design."""
+    """B1/B2 and B3/B4 take the tensor cores in both types at every rank,
+    a rank that is not a multiple of 8 at its padded rank."""
     assert tfc.design(dt, rank) == want
 
 
@@ -188,10 +190,14 @@ def test_lowrank_chunks_cover_every_column_once_in_order(k, c_in, c_out,
 
 
 @pytest.mark.parametrize("rank,c_in,c_out", [(16, 48, 48), (8, 5, 5),
-                                             (32, 64, 64), (24, 13, 30)])
+                                             (32, 64, 64), (24, 13, 30),
+                                             (12, 48, 48), (3, 5, 5),
+                                             (31, 64, 64), (20, 13, 30)])
 def test_lowrank_weight_tiles_cover_the_output_once(rank, c_in, c_out):
+    """The 128-column tiles cover the padded duv [K+1, rp (c_in + c_out)]
+    once (each tile writes its columns with q < r to the model's)."""
     tiles = tfc.lowrank_weight_tiles(rank, c_in, c_out)
-    ncol = rank * (c_in + c_out)
+    ncol = tfc.padded_rank(rank) * (c_in + c_out)
     cover = np.zeros(tiles * 128, np.int32)
     for n in range(tiles):
         cover[n * 128:(n + 1) * 128] += 1
@@ -357,6 +363,109 @@ def test_backward_tile_loop_matches_plain_indexing(rank, c_in, c_out, k):
     for name in ("t", "dt", "dx", "dh"):
         np.testing.assert_allclose(got[name], want[name], rtol=1e-12,
                                    atol=1e-9, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# ranks that are not a multiple of 8: the padded head
+
+
+PADDED = [(1, 7, 5, 9), (3, 12, 12, 5), (5, 9, 9, 33), (12, 48, 48, 48),
+          (20, 13, 30, 17), (27, 9, 9, 64), (31, 5, 5, 1)]
+
+
+def real_col(c, rp, r):
+    """lowrank_wgmma.cuh real_col: the model's column of padded column c
+    (channel c // rp, q = c % rp), -1 at q >= r."""
+    ch, q = c // rp, c % rp
+    return np.where(q < r, ch * r + q, -1)
+
+
+def _pad_head(w3, b3, rank):
+    """pad_head's copy of w3 (thread e writes padded element e of [K,
+    rp nch]) and stage_bias's padded b3, from their index maps."""
+    k, ncol = w3.shape
+    rp = tfc.padded_rank(rank)
+    ncolp = rp * ncol // rank
+    e = np.arange(k * ncolp)
+    kk, rc = e // ncolp, real_col(e % ncolp, rp, rank)
+    w3p = np.where(rc >= 0, w3.reshape(-1)[kk * ncol + np.maximum(rc, 0)], 0)
+    rcb = real_col(np.arange(ncolp), rp, rank)
+    return (w3p.reshape(k, ncolp),
+            np.where(rcb >= 0, b3[np.maximum(rcb, 0)], 0.0))
+
+
+@pytest.mark.parametrize("rank,c_in,c_out,k", PADDED)
+def test_padded_head_holds_each_column_once(rank, c_in, c_out, k):
+    """pad_head and stage_bias put w3's and b3's column i r + q at i rp + q
+    (U and V channels alike) and zeros at q >= r, for every row of w3;
+    lowrank_pad_numel sizes the copy."""
+    o = _tile(rank, c_in, c_out, k, seed=rank)
+    rp = tfc.padded_rank(rank)
+    w3p, b3p = _pad_head(o["w3"], o["b3"], rank)
+    assert w3p.size == tfc.lowrank_pad_numel(k, c_in, c_out, rank)
+    nch = c_in + c_out
+    w = w3p.reshape(k, nch, rp)
+    assert np.array_equal(w[:, :, :rank], o["w3"].reshape(k, nch, rank))
+    assert not w[:, :, rank:].any()
+    b = b3p.reshape(nch, rp)
+    assert np.array_equal(b[:, :rank], o["b3"].reshape(nch, rank))
+    assert not b[:, rank:].any()
+
+
+@pytest.mark.parametrize("rank,c_in,c_out,k", PADDED)
+def test_padded_forward_tile_loop_matches_plain_indexing(rank, c_in, c_out,
+                                                         k):
+    """B3's tile loop at the padded rank on the padded head gives the plain
+    version's t (zeros at q >= r) and msg at rank r."""
+    o = _tile(rank, c_in, c_out, k, seed=rank + k)
+    w3p, b3p = _pad_head(o["w3"], o["b3"], rank)
+    rp = tfc.padded_rank(rank)
+    got = _emulate(dict(o, w3=w3p, b3=b3p), rp, c_in, c_out, k,
+                   backward=False)
+    want = _plain(o, rank, c_in)
+    np.testing.assert_allclose(got["t"][:, :rank], want["t"], rtol=1e-12,
+                               atol=1e-10)
+    assert not got["t"][:, rank:].any()
+    np.testing.assert_allclose(got["msg"], want["msg"], rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.parametrize("rank,c_in,c_out,k", PADDED)
+def test_padded_backward_matches_plain_indexing(rank, c_in, c_out, k):
+    """B4 at the padded rank: the rows kernel gives the plain version's dt,
+    t (zeros at q >= r), dx_src and dh at rank r; the weights kernel's duv
+    over the padded columns, formed from that t and dt, is zero at q >= r,
+    and its h^T duv and column sums written back to the model's columns
+    (promote, db3) are the plain dw3 and db3, each column once."""
+    o = _tile(rank, c_in, c_out, k, seed=rank + k + 1)
+    w3p, b3p = _pad_head(o["w3"], o["b3"], rank)
+    rp = tfc.padded_rank(rank)
+    got = _emulate(dict(o, w3=w3p, b3=b3p), rp, c_in, c_out, k, backward=True)
+    want = _plain(o, rank, c_in)
+    for name in ("t", "dt"):
+        np.testing.assert_allclose(got[name][:, :rank], want[name],
+                                   rtol=1e-12, atol=1e-9, err_msg=name)
+        assert not got[name][:, rank:].any(), name
+    for name in ("dx", "dh"):
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-12,
+                                   atol=1e-9, err_msg=name)
+    # the weights kernel: U column (i, q) = x_src[:, i] dt[:, q], V column
+    # (o, q) = dmsg[:, o] t[:, q] over the padded columns, tile by tile
+    duvp = np.concatenate(
+        [(o["x"][:, :, None] * got["dt"][:, None, :]).reshape(64, -1),
+         (o["d"][:, :, None] * got["t"][:, None, :]).reshape(64, -1)], 1)
+    ncolp, ncol = duvp.shape[1], rank * (c_in + c_out)
+    sums = np.vstack([o["h"].T @ duvp, duvp.sum(0)])  # [K+1, ncolp]
+    out = np.full((k + 1, ncol), np.nan)
+    for n0 in range(0, tfc.lowrank_weight_tiles(rank, c_in, c_out) * 128, 128):
+        cols = np.arange(n0, min(n0 + 128, ncolp))
+        rc = real_col(cols, rp, rank)
+        assert not duvp[:, cols[rc < 0]].any()
+        assert np.isnan(out[:, rc[rc >= 0]]).all()  # each column once
+        out[:, rc[rc >= 0]] = sums[:, cols[rc >= 0]]
+    np.testing.assert_allclose(out[:k], o["h"].T @ want["duv"], rtol=1e-12,
+                               atol=1e-9)
+    np.testing.assert_allclose(out[k], want["duv"].sum(0), rtol=1e-12,
+                               atol=1e-9)
 
 
 @pytest.mark.parametrize("k", [48, 17, 64])
