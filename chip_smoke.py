@@ -87,6 +87,24 @@ to 3 epochs (its loss is recorded, not held to fall).
              r / rp of its bound), the warm request and train steps at rank
              12 (``[rank12_*]`` lines).
 
+   width 128 — configs/exp_config/neuralop_synthetic_w64.yaml with
+             ``width: 128`` set in memory (K = 128) and its depth cut to 2:
+             both full-size meshes served (2 chunks x 2 layers = 4 B1
+             launches each, every .vtu finite) and the small mesh against
+             the CPU's float32 plain prediction; ``train_graph_ALDD`` cut to
+             3 epochs in bfloat16 and in float32 (B1 and B2 launch counts
+             held); phase 7's float32 parity card vs CPU; B1 and B2 against
+             their plain versions at (c_in, c_out, K) = (128, 128, 128),
+             (96, 96, 96), (127, 127, 128) and (72, 128, 48) on the leading
+             16 receiver blocks of the full-size chunk (the plain versions'
+             [slots, c_in c_out] arrays would take 16 GB on all of it), both
+             types, both S forms, repeated launches bit-identical; B1's and
+             B2's times and bounds on the full-size chunk (the plain
+             versions' on the slice), the warm request and a fused train
+             step in both types; TEECNet from teecnet_ansys.yaml at width
+             128 (K 128) serving one full-size request (10 B1 launches) and
+             trained one epoch (``[w128_*]``, ``[teecnet_w128_*]`` lines).
+
 9. pallas  — KernelNN and TEECNet built with ``mode='pallas'`` serve one
              full-size mesh each with FESR_FUSED_PREDICT=0 (the general lane's
              ``apply``): B5 launched depth x chunks times (8, 10), no other
@@ -341,6 +359,22 @@ RANK12 = 12
 RANK12_EPOCHS = 3
 RANK12_CHECKED = (1, 4, 12, 20, 28, 31)
 RANK12_TIMED = (4, 12, 20, 28)
+# the width-128 path (B1 and B2 past width 64):
+# configs/exp_config/neuralop_synthetic_w64.yaml with its width set to 128
+# in memory (K = width: 'neuralop' builds ker_width = width), depth cut to
+# 2; its training's epoch cut; the (c_in, c_out, K) at which B1 and B2 are
+# held against their plain versions, on the leading WIDE_SLICE_BLOCKS
+# receiver blocks of the full-size chunk (the plain versions build [slots,
+# c_in c_out] float32 arrays: 16 GB at 128 on the whole chunk); TEECNet at
+# width 128 (K 128) served once and trained one epoch
+W64_CONFIG = os.path.join(REPO, "configs", "exp_config",
+                          "neuralop_synthetic_w64.yaml")
+WIDE = 128
+WIDE_DEPTH = 2
+WIDE_EPOCHS = 3
+WIDE_CHECKED = ((128, 128, 128), (96, 96, 96), (127, 127, 128), (72, 128, 48))
+WIDE_SLICE_BLOCKS = 16
+WIDE_TEECNET_EPOCHS = 1
 KERNELS = (fused_conv.fused_edge_conv, fused_conv.fused_edge_conv_bwd,
            fused_conv.fused_edge_conv_lowrank,
            fused_conv.fused_edge_conv_lowrank_bwd,
@@ -505,11 +539,12 @@ def check_only(label: str, want: dict) -> None:
 def prefix(model) -> str:
     """The log prefix of the path ``model`` runs: '' (KernelNN at full
     rank), 'lowrank_' (KernelNN at rank ``RANK``), 'rank<r>_' (at another
-    rank r) or 'teecnet_'."""
+    rank r) or 'teecnet_'; at width ``WIDE`` 'w128_' and 'teecnet_w128_'."""
+    wide = f"w{WIDE}_" if getattr(model, "width", None) == WIDE else ""
     if isinstance(model, TEECNet):
-        return "teecnet_"
+        return "teecnet_" + wide
     if model.kernel_rank is None:
-        return ""
+        return wide
     r = model.kernel_rank
     return "lowrank_" if r == RANK else f"rank{r}_"
 
@@ -634,9 +669,11 @@ def chunk_operands(dataset, model, device, idx=None):
 
 
 def layer_kw(op) -> dict:
-    """The layer's keyword arguments for the operands ``op``."""
+    """The layer's keyword arguments for the operands ``op`` (c_out: the
+    width of x unless ``op`` names another)."""
     c = op["x"].shape[1]
-    kw = dict(c_in=c, c_out=c, rows_blk=op["rows_blk"], blk=op["blk"])
+    kw = dict(c_in=c, c_out=op.get("c_out", c), rows_blk=op["rows_blk"],
+              blk=op["blk"])
     if op["rank"] is not None:
         kw["rank"] = op["rank"]
     return kw
@@ -677,8 +714,8 @@ def log_ptxas() -> None:
     """Registers and spills of the tensor-core kernels, as ptxas reported
     them when the libraries were built (and any wgmma serialization it
     warned of), and their blocks per SM at width 48 and K 48 and 128
-    (B1/B2 in both types, B5) and at K 48, rank 16 (B3/B4 in both
-    types)."""
+    (B1/B2 in both types, B5), at width and K 96 and 128 (B1/B2) and at K
+    48, rank 16 (B3/B4 in both types)."""
     import re
     for lib in ("fused_edge_conv_wgmma", "fused_edge_conv_bwd_wgmma",
                 "fused_edge_conv_f32_wgmma", "fused_edge_conv_bwd_f32_wgmma",
@@ -721,11 +758,12 @@ def log_ptxas() -> None:
                 log("ptxas", lib=lib, kernel=name, registers=m.group(1),
                     spill_stores=spills[0], spill_loads=spills[1])
                 name = None
-    for k in (48, 128):
-        log("ptxas", k=k, c=48, blocks_per_sm=fused_conv.occupancy(k, 48, 48))
-        for lib in ("fused_edge_conv_f32_wgmma", "fused_edge_conv_bwd_f32_wgmma"):
-            log("ptxas", lib=lib, k=k, c=48, smem_bytes=getattr(
-                fused_conv._load_kernel(lib), f"{lib}_smem_bytes")(k, 48, 48))
+    for k, c in ((48, 48), (128, 48), (96, 96), (128, 128)):
+        log("ptxas", k=k, c=c, blocks_per_sm=fused_conv.occupancy(k, c, c))
+        for lib in ("fused_edge_conv_wgmma", "fused_edge_conv_bwd_wgmma",
+                    "fused_edge_conv_f32_wgmma", "fused_edge_conv_bwd_f32_wgmma"):
+            log("ptxas", lib=lib, k=k, c=c, smem_bytes=getattr(
+                fused_conv._load_kernel(lib), f"{lib}_smem_bytes")(k, c, c))
     log("ptxas", k=48, c=48, rank=RANK,
         blocks_per_sm=fused_conv.occupancy(48, 48, 48, rank=RANK))
     for lib in ("fused_edge_conv_lowrank_f32_wgmma",
@@ -837,26 +875,40 @@ def phase_serve(root: str, datasets: dict, models: dict, cfgs: dict,
     return launches
 
 
-def fwd_times(op, smi) -> dict:
+def fwd_times(op, smi, plain_op=None) -> dict:
     """B1's (B3's on the rank-r path) and its plain version's CUDA-event
-    medians at the operands ``op``, and its bound."""
+    medians at the operands ``op``, and its bound.  With ``plain_op`` (a
+    leading slice of ``op``'s blocks, where the plain version's [slots,
+    c_in c_out] arrays would not fit at ``op``) the plain version and the
+    kernel are also timed there (``plain_slots``, ``ms_at_plain_slots``)."""
     t = {}
     rank = op["rank"]
     _, plain, launcher = FWD[rank is not None]
-    kw = layer_kw(op)
     log(op["tag"] + "times", kernel="fwd", k=op["h"].shape[1],
         c=op["x"].shape[1])
+
+    def typed_operands(o, tdt):
+        # operands already in the GEMM type, as apply_fused hands them
+        # over (it casts h and w3 once per forward, x once per layer)
+        return [o[key].to(tdt).contiguous() for key in ("h", "x", "w3")]
+
     with torch.no_grad():
         for dt in ("bfloat16", "float32"):
-            # operands already in the GEMM type, as apply_fused hands them
-            # over (it casts h and w3 once per forward, x once per layer)
             tdt = getattr(torch, dt)
-            h, x, w3 = (op[key].to(tdt).contiguous() for key in ("h", "x", "w3"))
+            h, x, w3 = typed_operands(op, tdt)
             t[f"ms_{dt}"] = cuda_ms(lambda: launcher(
-                h, x, op["sp"], w3, op["b3"], op["s"], **kw))
+                h, x, op["sp"], w3, op["b3"], op["s"], **layer_kw(op)))
+            if plain_op is not None:
+                h, x, w3 = typed_operands(plain_op, tdt)
+                t[f"ms_at_plain_slots_{dt}"] = cuda_ms(lambda: launcher(
+                    h, x, plain_op["sp"], w3, plain_op["b3"], plain_op["s"],
+                    **layer_kw(plain_op)))
+            po = op if plain_op is None else plain_op
             t[f"plain_ms_{dt}"] = cuda_ms(
-                lambda: plain(h, x, op["sp"], w3, op["b3"], op["s"],
-                              gemm_dtype=dt, **kw), reps=5)
+                lambda: plain(h, x, po["sp"], w3, po["b3"], po["s"],
+                              gemm_dtype=dt, **layer_kw(po)), reps=5)
+    if plain_op is not None:
+        t["plain_slots"] = plain_op["h"].shape[0]
     # bound: real slots' operations at the input type's peak vs every input
     # byte read once and the output written once.  Per slot: the kernel GEMM
     # over K+1 rows (b3 the last) -- [h (x) x, x] W~ at full rank, uv = h~ W~
@@ -1001,7 +1053,7 @@ def bwd_operands(op) -> dict:
     """B2's operands at the chunk shape: B1's, the gathered x_src, and a
     seeded gradient of the layer's output."""
     nb = op["h"].shape[0] // op["blk"]
-    g = torch.randn(nb * op["rows_blk"], op["x"].shape[1],
+    g = torch.randn(nb * op["rows_blk"], layer_kw(op)["c_out"],
                     generator=torch.Generator().manual_seed(SEED))
     return dict(op, g=g.to(op["x"].device),
                 x_src=op["x"][op["sp"].long()].contiguous())
@@ -1268,23 +1320,33 @@ def phase_parity(small_merged, cfg: dict) -> None:
             raise AssertionError(f"train step {step}: card {a} vs cpu {b}")
 
 
-def phase_bwd_times(bop, smi) -> dict:
+def phase_bwd_times(bop, smi, plain_bop=None) -> dict:
     """B2's (B4's) and its plain version's CUDA-event medians at the chunk
-    shape, and its bound."""
+    shape, and its bound; ``plain_bop`` as ``fwd_times``' ``plain_op``."""
     t = {}
     rank = bop["rank"]
     _, plain, launcher = BWD[rank is not None]
-    kw = layer_kw(bop)
+
+    def typed_operands(o, tdt):
+        return [o[key].to(tdt).contiguous() for key in ("h", "x_src", "w3")]
+
     with torch.no_grad():
         for dt in ("bfloat16", "float32"):
             tdt = getattr(torch, dt)
-            h, xs, w3 = (bop[key].to(tdt).contiguous()
-                         for key in ("h", "x_src", "w3"))
+            h, xs, w3 = typed_operands(bop, tdt)
             t[f"ms_{dt}"] = cuda_ms(lambda: launcher(
-                bop["g"], h, xs, w3, bop["b3"], bop["s"], **kw))
+                bop["g"], h, xs, w3, bop["b3"], bop["s"], **layer_kw(bop)))
+            if plain_bop is not None:
+                h, xs, w3 = typed_operands(plain_bop, tdt)
+                t[f"ms_at_plain_slots_{dt}"] = cuda_ms(lambda: launcher(
+                    plain_bop["g"], h, xs, w3, plain_bop["b3"],
+                    plain_bop["s"], **layer_kw(plain_bop)))
+            po = bop if plain_bop is None else plain_bop
             t[f"plain_ms_{dt}"] = cuda_ms(
-                lambda: plain(bop["g"], h, xs, w3, bop["b3"], bop["s"],
-                              gemm_dtype=dt, **kw), reps=5)
+                lambda: plain(po["g"], h, xs, w3, po["b3"], po["s"],
+                              gemm_dtype=dt, **layer_kw(po)), reps=5)
+    if plain_bop is not None:
+        t["plain_slots"] = plain_bop["h"].shape[0]
     # bound: the real slots' operations at the input type's peak vs every
     # input byte read once and every output written once.  Full rank: dmsg,
     # the two outer products and the three GEMMs (dh, dx_src, dw3 with db3).
@@ -1309,10 +1371,12 @@ def phase_bwd_times(bop, smi) -> dict:
     return t
 
 
-def phase_train_times(batches, cfg: dict, smi, tag: str | None = None) -> dict:
+def phase_train_times(batches, cfg: dict, smi, tag: str | None = None,
+                      float32: bool | None = None) -> dict:
     """Warm wall time of one fused bf16 train step on the training batch
     (the 12 train subdomains merged at batch size 16), and one profiled
-    step; on the rank-r path also of one float32 step."""
+    step; with ``float32`` (by default on the rank-r path) also of one
+    float32 step."""
     model, (fb, _), rows_blk, blk = batches
     s = fb["fused"]["s"]
     label = (prefix(model) if tag is None else tag) + "times"
@@ -1329,9 +1393,11 @@ def phase_train_times(batches, cfg: dict, smi, tag: str | None = None) -> dict:
     t = {"train_step_ms": warm_ms(step)}
     t.update({f"train_{k}": v for k, v in
               profile_call(step, label + "_train_step").items()})
-    if rank_of(model) is not None:
-        # the float32 step of the rank-r path (float32 B3/B4), as its
-        # float32 training runs it
+    if float32 is None:
+        float32 = rank_of(model) is not None
+    if float32:
+        # the float32 step (float32 B3/B4 on the rank-r path), as the
+        # path's float32 training runs it
         trainer32 = Trainer(model, lr=load_yaml(cfg["train_config"])["lr"],
                             layout="fused", fused_rows_blk=rows_blk,
                             fused_blk=blk, fused_dtype="float32")
@@ -1370,23 +1436,26 @@ def run_path(root, name, smi, datasets, models, cfgs, tag: str = "") -> dict:
                 t=t, tb=tb, msg=msg)
 
 
-def rank12_train(root: str, ds, cfg: dict) -> dict:
-    """``train_graph_ALDD`` of the rank-12 config on the full-size meshes,
-    cut to ``RANK12_EPOCHS`` epochs, in bfloat16 then in float32 from the
-    same seed: finite losses, B3 launched depth x (steps + validations) and
-    B4 depth x steps times in each, no other kernel.  Returns each type's
-    (B3, B4) launches."""
+def train_types(root: str, ds, cfg: dict, epochs: int,
+                dtypes=("bfloat16", "float32")) -> dict:
+    """``train_graph_ALDD`` of ``cfg`` on the full-size meshes, cut to
+    ``epochs`` epochs, in each of ``dtypes`` from the same seed: finite
+    losses, the forward kernel (B1, or B3 at a rank) launched depth x
+    (steps + validations) and the backward one depth x steps times in each,
+    no other kernel.  Returns each type's (forward, backward) launches."""
     log_dir = os.path.join(root, "logs")
-    fwd, bwd_k = FWD[True][0], BWD[True][0]
+    rank = cfg.get("kernel_rank")
+    fwd, bwd_k = FWD[rank is not None][0], BWD[rank is not None][0]
+    label = prefix(make_model(cfg)) + "train"
     train_cfg = load_yaml(cfg["train_config"])
-    train_cfg.update(epochs=RANK12_EPOCHS, val_interval=1)
+    train_cfg.update(epochs=epochs, val_interval=1)
     depth = cfg["num_layers"]
     tr_idx, va_idx = train_val_split(len(ds), 0.2, 0)
     n_batches = [-(-len(ix) // min(train_cfg["batch_size"], len(tr_idx)))
                  for ix in (tr_idx, va_idx)]
     out = {}
-    for dt in ("bfloat16", "float32"):
-        exp = f"train_full_r{RANK12}_{dt}"
+    for dt in dtypes:
+        exp = f"{label}_full_{dt}"
         reset_launches()
         t0 = time.time()
         train_graph_ALDD(exp, make_model(cfg), ds, 1, dict(train_cfg),
@@ -1397,19 +1466,18 @@ def rank12_train(root: str, ds, cfg: dict) -> dict:
             records = [json.loads(line) for line in f]
         losses = [r["train_loss"] for r in records if "train_loss" in r]
         vals = [r["val_loss"] for r in records if "val_loss" in r]
-        steps, evals = RANK12_EPOCHS * n_batches[0], len(vals) * n_batches[1]
+        steps, evals = epochs * n_batches[0], len(vals) * n_batches[1]
         out[dt] = (fwd.launches, bwd_k.launches)
-        log(f"rank{RANK12}_train", dtype=dt, epochs=len(losses), steps=steps,
+        log(label, dtype=dt, epochs=len(losses), steps=steps,
             val_evals=evals, design=fused_conv.design(getattr(torch, dt),
-                                                      RANK12),
+                                                      rank),
             fwd_launches=out[dt][0], bwd_launches=out[dt][1],
             wall_s=f"{time.time() - t0:.1f}",
             losses=",".join(f"{v:.5g}" for v in losses),
             val_losses=",".join(f"{v:.5g}" for v in vals))
-        if (len(losses) != RANK12_EPOCHS
-                or not np.all(np.isfinite(losses + vals))):
-            raise AssertionError(f"rank-{RANK12} {dt} losses {losses}, {vals}")
-        check_only(f"rank{RANK12}_train {dt}",
+        if len(losses) != epochs or not np.all(np.isfinite(losses + vals)):
+            raise AssertionError(f"{label} {dt} losses {losses}, {vals}")
+        check_only(f"{label} {dt}",
                    {fwd: depth * (steps + evals), bwd_k: depth * steps})
     return out
 
@@ -1445,7 +1513,7 @@ def run_rank12(root, smi, datasets, models, cfgs) -> dict:
         log(label, field=key, vs_cpu_f32=f"{rel:.3e}", tol=SERVE_TOL)
         if not rel <= SERVE_TOL:
             raise AssertionError(f"{label} {key}: {rel:.3e} > {SERVE_TOL}")
-    trained = rank12_train(root, ds, cfg)
+    trained = train_types(root, ds, cfg, RANK12_EPOCHS)
     phase_parity(merged_subdomains(datasets["small"]), cfgs["small"])
     errs, errs_bwd, by_rank = {}, {}, {}
     for rank in RANK12_CHECKED:
@@ -1476,6 +1544,115 @@ def run_rank12(root, smi, datasets, models, cfgs) -> dict:
     return dict(errs=errs, errs_bwd=errs_bwd, launches=served,
                 train=dict(fwd=fwd_n, bwd=bwd_n, served=0), t=t,
                 tb=by_rank[RANK12]["bwd"], by_rank=by_rank, trained=trained)
+
+
+def wide_slice(op, c_in: int, c_out: int, k: int) -> dict:
+    """B1's operands on the leading ``WIDE_SLICE_BLOCKS`` receiver blocks of
+    the chunk ``op``: its senders and S there, and at (c_in, c_out, K) =
+    ``op``'s widths its own h, x, w3 and b3, else seeded ones of those
+    widths (w3 and b3 scaled so that a message stays of order one)."""
+    slots = WIDE_SLICE_BLOCKS * op["blk"]
+    s = fused_conv.CompactS(op["s"].slot_rows[:slots],
+                            op["s"].row_weight[:WIDE_SLICE_BLOCKS * op["rows_blk"]])
+    dev = op["x"].device
+    if (c_in, c_out, k) == (op["x"].shape[1], layer_kw(op)["c_out"],
+                            op["h"].shape[1]):
+        h, x, w3, b3 = op["h"][:slots], op["x"], op["w3"], op["b3"]
+    else:
+        gen = torch.Generator().manual_seed(SEED + c_in + 3 * c_out + k)
+        h = torch.relu(torch.randn(slots, k, generator=gen))
+        x = torch.randn(op["x"].shape[0], c_in, generator=gen)
+        scale = (k * c_in) ** -0.5
+        w3 = torch.randn(k, c_in * c_out, generator=gen) * scale
+        b3 = torch.randn(c_in * c_out, generator=gen) * scale
+        h, x, w3, b3 = (t.to(dev) for t in (h, x, w3, b3))
+    return dict(op, h=h.contiguous(), x=x.contiguous(), sp=op["sp"][:slots],
+                w3=w3.contiguous(), b3=b3.contiguous(), s=s, c_out=c_out,
+                b=f"{WIDE_SLICE_BLOCKS} blocks", msg=None)
+
+
+def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc) -> dict:
+    """The width-128 path: B1 and B2 past width 64.  Both full-size meshes
+    served (chunks x depth B1 launches each, every .vtu finite) and the
+    small mesh against the CPU's float32 plain prediction; the path's
+    training in both types (B1 and B2 launch counts held); phase 7's float32
+    parity; B1 and B2 against their plain versions at ``WIDE_CHECKED`` on a
+    leading slice of the full-size chunk, both types, both S forms,
+    repeated launches bit-identical; their times at the full-size chunk
+    (the plain versions' on the slice), the warm request and a fused train
+    step in each type; TEECNet at width 128 served once and trained one
+    epoch, its launches counted.  Returns what the kernels' JSON entries
+    need."""
+    t0 = time.time()
+    log_dir = os.path.join(root, "logs")
+    cfg, ds = cfgs["full"], datasets["full"]
+    depth = cfg["num_layers"]
+    fwd = FWD[False][0]
+    label = prefix(models["full"]) + "serve"
+    served = 0
+    for name in ("full", "small"):
+        for idx in cfgs[name]["idxs"][:2 if name == "full" else 1]:
+            reset_launches()
+            lanes, (fields,) = serve(datasets[name], models[name], [idx],
+                                     log_dir, f"{name}_w{WIDE}", None)
+            torch.cuda.synchronize()
+            served += fwd.launches
+            log(label, mesh=name, idx=idx, lane=lanes[0][1],
+                launches=fwd.launches, width=WIDE, depth=depth,
+                design=fused_conv.design(torch.bfloat16),
+                nodes=len(fields["pressure"]), finite=True)
+            check_only(f"{label} {name} {idx}",
+                       {fwd: CHUNKS[name] * cfgs[name]["num_layers"]})
+    _, (ref,) = serve(datasets["small"], models["small"], [0], log_dir,
+                      f"small_w{WIDE}_cpu", "cpu", gemm_dtype="float32")
+    for key in ("velocity", "pressure"):
+        rel = np.abs(fields[key] - ref[key]).max() / np.abs(ref[key]).max()
+        log(label, mesh="small", field=key, vs_cpu_f32=f"{rel:.3e}",
+            tol=SERVE_TOL)
+        if not rel <= SERVE_TOL:
+            raise AssertionError(f"{label} small {key}: {rel:.3e} > {SERVE_TOL}")
+    trained = train_types(root, ds, cfg, WIDE_EPOCHS)
+    phase_parity(merged_subdomains(datasets["small"]), cfgs["small"])
+    op = chunk_operands(ds, models["full"], "cuda")
+    errs, errs_bwd = {}, {}
+    for c_in, c_out, k in WIDE_CHECKED:
+        sop = wide_slice(op, c_in, c_out, k)
+        at = f"slice_{c_in}x{c_out}_k{k}"
+        phase_kernel(sop, at, errs)
+        check_bwd(bwd_operands(sop), at, errs_bwd)
+        del sop
+        torch.cuda.empty_cache()
+    sop = wide_slice(op, WIDE, WIDE, WIDE)
+    t = fwd_times(op, smi, plain_op=sop)
+    tb = phase_bwd_times(bwd_operands(op), smi, plain_bop=bwd_operands(sop))
+    del op, sop
+    torch.cuda.empty_cache()
+    t.update(request_times(datasets, models, root, smi, f"_w{WIDE}"))
+    batches = train_batches(ds, cfg)
+    t.update(phase_train_times(batches, cfg, smi, float32=True))
+    del batches
+    torch.cuda.empty_cache()
+    # TEECNet at width 128: one full-size request, one epoch of training
+    tc_label = prefix(models_tc["full"]) + "serve"
+    reset_launches()
+    lanes, (fields,) = serve(ds, models_tc["full"], [0], log_dir,
+                             f"full_w{WIDE}_teecnet", None)
+    torch.cuda.synchronize()
+    tc_served = fwd.launches
+    log(tc_label, mesh="full", lane=lanes[0][1], launches=tc_served,
+        width=WIDE, depth=cfgs_tc["full"]["num_layers"],
+        nodes=len(fields["pressure"]), finite=True)
+    check_only(tc_label,
+               {fwd: CHUNKS["full"] * cfgs_tc["full"]["num_layers"]})
+    tc_trained = train_types(root, ds, cfgs_tc["full"], WIDE_TEECNET_EPOCHS,
+                             ("bfloat16",))
+    log(prefix(models["full"]) + "path", depth=depth,
+        wall_s=f"{time.time() - t0:.1f}")
+    return dict(errs=errs, errs_bwd=errs_bwd, launches=served,
+                train=dict(fwd=sum(n for n, _ in trained.values()),
+                           bwd=sum(n for _, n in trained.values()), served=0),
+                t=t, tb=tb, trained=trained, tc_served=tc_served,
+                tc_trained=tc_trained["bfloat16"])
 
 
 def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
@@ -3850,6 +4027,34 @@ def rank12_entries(r: dict, smi: str) -> list:
     return entries
 
 
+def wide_entries(r: dict, smi: str) -> list:
+    """B1's and B2's entries for the width-128 path: launches by phase
+    (KernelNN's serving and training in each type, TEECNet's request and
+    epoch), the shapes held against the plain versions, and the plain
+    versions' times on the chunk's leading slice beside the kernels'."""
+    entries = kernel_entries(r, smi, None, f"kernelnn_w{WIDE}")
+    trained = r["trained"]
+    entries[0]["launches"] += r["tc_served"] + r["tc_trained"][0]
+    entries[0]["launches_by_path"] = {
+        "serve": r["launches"],
+        **{f"train_{dt}": n for dt, (n, _) in trained.items()},
+        "teecnet_serve": r["tc_served"],
+        "teecnet_train_bfloat16": r["tc_trained"][0]}
+    entries[1]["launches"] += r["tc_trained"][1]
+    entries[1]["launches_by_path"] = {
+        **{f"train_{dt}": n for dt, (_, n) in trained.items()},
+        "teecnet_train_bfloat16": r["tc_trained"][1]}
+    for entry, times in ((entries[0], r["t"]), (entries[1], r["tb"])):
+        entry.update(width=WIDE, k=WIDE,
+                     checked=[list(shape) for shape in WIDE_CHECKED],
+                     plain_slots=times["plain_slots"],
+                     ms_at_plain_slots=times["ms_at_plain_slots_bfloat16"])
+        entry["float32"]["ms_at_plain_slots"] = times[
+            "ms_at_plain_slots_float32"]
+    entries[1]["train_step_ms_float32"] = r["t"]["train_step_ms_float32"]
+    return entries
+
+
 def routed_entries(r: dict, smi: str) -> list:
     """B1's and B2's entries for the routed path: B1's launches by phase
     (full-size routed predicts, the small mesh's routed lane, training)
@@ -3933,8 +4138,16 @@ def main() -> int:
                                   TEECNET_CONFIG, "teecnet", TEECNET_TRAIN,
                                   TEECNET_EPOCHS)
                    for k, sizes in (("full", FULL), ("small", SMALL))}
+        # the width-128 path: neuralop_synthetic_w64.yaml at width 128 and
+        # depth 2, and TEECNet's config at width 128, on the same meshes
+        cfgs_w = {k: dict(make_config(os.path.join(root, k), sizes,
+                                      W64_CONFIG),
+                          width=WIDE, num_layers=WIDE_DEPTH)
+                  for k, sizes in (("full", FULL), ("small", SMALL))}
+        cfgs_wtc = {k: dict(v, width=WIDE) for k, v in cfgs_tc.items()}
         datasets, models, models_lr, models_r12, models_tc = (
             {} for _ in range(5))
+        models_w, models_wtc = {}, {}
         for key, cfg in cfgs.items():
             t1 = time.time()
             datasets[key] = init_dataset("synthetic", **cfg)
@@ -3944,13 +4157,17 @@ def main() -> int:
                                  (key + "_r16", cfgs_lr[key], models_lr),
                                  (f"{key}_r{RANK12}", cfgs_r12[key],
                                   models_r12),
-                                 (key + "_teecnet", cfgs_tc[key], models_tc)):
+                                 (key + "_teecnet", cfgs_tc[key], models_tc),
+                                 (f"{key}_w{WIDE}", cfgs_w[key], models_w),
+                                 (f"{key}_w{WIDE}_teecnet", cfgs_wtc[key],
+                                  models_wtc)):
                 into[key] = write_checkpoint(logs, exp, c)
                 write_checkpoint(logs, exp + "_cpu", c)
             for k in ("root", "partition", "sub_size", "n_high", "n_low",
                       "num_cases"):
-                if cfgs_tc[key].get(k) != cfg.get(k):
-                    raise AssertionError(f"teecnet config {k} differs")
+                for other in (cfgs_tc, cfgs_w):
+                    if other[key].get(k) != cfg.get(k):
+                        raise AssertionError(f"path config {k} differs")
             log("data", mesh=key, subdomains=len(datasets[key]),
                 etl_s=f"{time.time() - t1:.1f}")
 
@@ -3958,6 +4175,8 @@ def main() -> int:
         lowrank = run_path(root, name, smi, datasets, models_lr, cfgs_lr,
                            "_r16")
         rank12 = run_rank12(root, smi, datasets, models_r12, cfgs_r12)
+        wide = run_wide(root, smi, datasets, models_w, cfgs_w, models_wtc,
+                        cfgs_wtc)
         teecnet = run_path(root, name, smi, datasets, models_tc, cfgs_tc,
                            "_teecnet")
         t1 = time.time()
@@ -3998,6 +4217,7 @@ def main() -> int:
     kernels = (kernel_entries(full, smi, None, "kernelnn")
                + kernel_entries(lowrank, smi, RANK, "kernelnn_rank16")
                + rank12_entries(rank12, smi)
+               + wide_entries(wide, smi)
                + kernel_entries(teecnet, smi, None, "teecnet")
                + [messages_entry(msg_t, pallas_launches, pallas_requests,
                                  smi)]

@@ -14,13 +14,17 @@
 // falls below bf16's normal range (|v| < 2^-110 or so).
 //
 // The stage image.  W~ = [w3; b3] as [K+1, c_in, c_out] is laid out once
-// per call (stage_image) as K+1 stages, each the three bf16 parts of W~_k
-// as K-major B operands (wgmma_tile.cuh, kmajor) of `rows` x `depth`, zero
-// padded: rows o and depth i for B1's P_k = X @ W~_k, rows i and depth o for
-// B2's R_k = D @ W~_k^T.  One producer thread streams the stages by bulk
-// copy into a ring of kRing shared-memory stages (ring_init, produce); the
-// consumer warpgroup walks them (Walk), six products per stage, two stages
-// in flight.
+// per call (stage_image) as stages, each the three bf16 parts of one column
+// chunk of W~_k as K-major B operands (wgmma_tile.cuh, kmajor) of N rows x
+// `depth`, zero padded: rows o and depth i for B1's P_k = X @ W~_k, rows i
+// and depth o for B2's R_k = D @ W~_k^T.  The rows (c_out for B1, c_in for
+// B2, up to 128) are cut into Chunks: one chunk of all of them at most 64
+// wide, else chunks of at most 64 (32 past a depth of 64), so that a stage
+// stays within 24 KB and the registers hold the depth's A fragments beside
+// two accumulators.  Stage c (K+1) + k is chunk c of W~_k.  One producer
+// thread streams the stages by bulk copy into a ring of kRing shared-memory
+// stages (ring_init, produce); the consumer warpgroup walks them (Walk), a
+// pass over k per chunk, six products per stage, two stages in flight.
 
 #pragma once
 
@@ -98,26 +102,45 @@ __device__ __forceinline__ constexpr int b_part(int q) {
   return q == 2 ? 2 : (q == 1 || q == 4) ? 1 : 0;
 }
 
-// Stage k of W~ (k = K: b3) as three K-major B operands of `rows` x `depth`
-// bf16 (rows a multiple of 8, depth of 16), zero padded; by_out: row o,
-// depth i (B1), else row i, depth o (B2).  Consecutive threads take
-// consecutive o, so that w3's rows coalesce.
+// The column chunks of a product of `rows` (1..128) over `depth` (1..128):
+// `chunks` of n rows each (n a multiple of 8, chunks * n >= rows), n at most
+// 64 where the depth takes at most 4 k16 steps, else at most 32.
+struct Chunks {
+  int steps, n, chunks;
+  __host__ __device__ Chunks(int rows, int depth) {
+    steps = round_up(depth, 16) / 16;
+    const int r8 = round_up(rows, 8), most = steps <= 4 ? 64 : 32;
+    chunks = (r8 + most - 1) / most;
+    n = round_up((r8 + chunks - 1) / chunks, 8);
+  }
+};
+
+// Stage q / per of W~ (chunk c of W~_k, k = K: b3) as three K-major B
+// operands of `rows` (a chunk's n) x `depth` bf16 (depth a multiple of 16),
+// zero padded; by_out: row o, depth i (B1), else row i, depth o (B2).
+// Consecutive threads take consecutive o, so that w3's rows coalesce.
 __global__ void stage_image(const float* __restrict__ w3,
                             const float* __restrict__ b3,
                             bf16* __restrict__ image, int K, int c_in,
-                            int c_out, int rows, int depth, int by_out) {
+                            int c_out, int rows, int depth, int chunks,
+                            int by_out) {
   const int per = rows * depth;
-  const long total = static_cast<long>(K + 1) * per;
+  const long total = static_cast<long>(chunks) * (K + 1) * per;
   for (long q = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
        q < total; q += static_cast<long>(gridDim.x) * blockDim.x) {
-    const int k = static_cast<int>(q / per), r = static_cast<int>(q % per);
-    int i, o;
+    const int st = static_cast<int>(q / per), r = static_cast<int>(q % per);
+    const int c = st / (K + 1), k = st - c * (K + 1);
+    int i, o, at;
     if (by_out) {
       i = r / rows;
-      o = r - i * rows;
+      const int ol = r - i * rows;
+      o = c * rows + ol;
+      at = kmajor(ol, i, depth);
     } else {
-      i = r / depth;
-      o = r - i * depth;
+      const int il = r / depth;
+      o = r - il * depth;
+      i = c * rows + il;
+      at = kmajor(il, o, depth);
     }
     float v = 0.f;
     if (o < c_out && i < c_in)
@@ -127,20 +150,20 @@ __global__ void stage_image(const float* __restrict__ w3,
     const float r1 = v - __bfloat162float(v1);
     const bf16 v2 = __float2bfloat16_rn(r1);
     const bf16 v3 = __float2bfloat16_rn(r1 - __bfloat162float(v2));
-    bf16* st = image + static_cast<long>(k) * 3 * per +
-               (by_out ? kmajor(o, i, depth) : kmajor(i, o, depth));
-    st[0] = v1;
-    st[per] = v2;
-    st[2 * per] = v3;
+    bf16* dst = image + static_cast<long>(st) * 3 * per + at;
+    dst[0] = v1;
+    dst[per] = v2;
+    dst[2 * per] = v3;
   }
 }
 
 inline cudaError_t launch_image(const float* w3, const float* b3, bf16* image,
-                                int K, int c_in, int c_out, int rows,
-                                int depth, bool by_out, cudaStream_t stream) {
-  const long cells = static_cast<long>(K + 1) * rows * depth;
+                                int K, int c_in, int c_out, const Chunks& ch,
+                                bool by_out, cudaStream_t stream) {
+  const int depth = 16 * ch.steps;
+  const long cells = static_cast<long>(ch.chunks) * (K + 1) * ch.n * depth;
   stage_image<<<static_cast<unsigned>((cells + 255) / 256), 256, 0, stream>>>(
-      w3, b3, image, K, c_in, c_out, rows, depth, by_out ? 1 : 0);
+      w3, b3, image, K, c_in, c_out, ch.n, depth, ch.chunks, by_out ? 1 : 0);
   return cudaGetLastError();
 }
 
@@ -260,20 +283,34 @@ struct Walk {
   }
 };
 
-// f(integral_constant N, integral_constant S) for N = n rounded up to 8 in
-// 8..64 and S = depth rounded up to 16, over 16, in 1..4; `otherwise`
-// outside 1..64.
+// f(integral_constant N, integral_constant S) for the chunk width N of
+// Chunks(rows, depth) and S = depth rounded up to 16, over 16 (1..8);
+// `otherwise` outside 1..128.
 template <typename F, typename R>
-R with_shape(int n, int depth, F&& f, R otherwise) {
-  if (depth < 1 || depth > 64 || n < 1 || n > 64) return otherwise;
-  return with_width(round_up(n, 8), [&](auto nn) {
-    switch (round_up(depth, 16) / 16) {
-      case 1: return f(nn, std::integral_constant<int, 1>());
-      case 2: return f(nn, std::integral_constant<int, 2>());
-      case 3: return f(nn, std::integral_constant<int, 3>());
-      default: return f(nn, std::integral_constant<int, 4>());
+R with_shape(int rows, int depth, F&& f, R otherwise) {
+  if (depth < 1 || depth > 128 || rows < 1 || rows > 128) return otherwise;
+  const Chunks ch(rows, depth);
+  auto deep = [&](auto s) {  // N <= 32
+    switch (ch.n) {
+      case 8: return f(std::integral_constant<int, 8>(), s);
+      case 16: return f(std::integral_constant<int, 16>(), s);
+      case 24: return f(std::integral_constant<int, 24>(), s);
+      default: return f(std::integral_constant<int, 32>(), s);
     }
-  }, otherwise);
+  };
+  auto shallow = [&](auto s) {
+    return with_width(ch.n, [&](auto nn) { return f(nn, s); }, otherwise);
+  };
+  switch (ch.steps) {
+    case 1: return shallow(std::integral_constant<int, 1>());
+    case 2: return shallow(std::integral_constant<int, 2>());
+    case 3: return shallow(std::integral_constant<int, 3>());
+    case 4: return shallow(std::integral_constant<int, 4>());
+    case 5: return deep(std::integral_constant<int, 5>());
+    case 6: return deep(std::integral_constant<int, 6>());
+    case 7: return deep(std::integral_constant<int, 7>());
+    default: return deep(std::integral_constant<int, 8>());
+  }
 }
 
 // Blocks of `threads` threads and `smem` bytes of dynamic shared memory one

@@ -43,7 +43,8 @@
 //      the dense form sums S^T g), write it once (for the weights kernel),
 //      split it into D's register-A fragments, and walk the K+1 stages with
 //      two products in flight (runs of 4, all waited for by each run's end:
-//      ptxas serializes every wgmma of a loop that carries one in flight).
+//      ptxas serializes every wgmma of a loop that carries one in flight),
+//      two blocks per SM where the registers allow (kRowsMinBlocks).
 //      Tiles of padding only write zeros in CompactS form.
 //  (b) output tiles of 64 rows of K x 128 columns of c_in c_out, times slot
 //      splits: grid (column tiles, row tiles, splits).  Per 64-slot chunk a
@@ -57,6 +58,15 @@
 //      db3) once; the wrapper sums the partials in a fixed order.  No
 //      atomics anywhere: two launches on the same inputs give the same
 //      bits.
+//
+// Widths.  c_in and c_out 1..128, K 1..128, one design: the rows kernel cuts
+// its N, the c_in columns of R_k, into column chunks as the forward cuts
+// c_out (f32_wgmma.cuh Chunks; 32 wide where c_out is past 64), walks the
+// K+1 stages once per chunk with D's parts kept in registers, writes each
+// chunk's dx_src columns and adds each chunk's share of dh[:, k] to the
+// earlier chunks' (the same thread, in chunk order).  The weights kernel's
+// tiles cover any c_in c_out (152 KB of shared memory at 128, one block per
+// SM).
 //
 // Bound.  About 3 x 2 (K+1) c_in c_out operations per real slot (three
 // products of the forward's size) against (K + c_in) 4 + c_out 4 + (K +
@@ -80,23 +90,24 @@ using namespace f32_wgmma;
 
 constexpr int kRows = 64;   // receiver rows per block (rows_blk)
 constexpr int kTile = 64;   // slots per tile
-constexpr int kMaxDim = 64;
+constexpr int kMaxDim = 128;
 constexpr int kMaxK = 128;
 constexpr int kThreads = kWarpgroup + 32;  // rows kernel: + the producer warp
 constexpr int kCols = 128;  // weights kernel: output columns per block
 
 // Byte offsets of the rows kernel's shared memory: the 2 kRing mbarriers,
-// the ring of stages ([3][np][dq] bf16 each, np = c_in rounded up to 8, dq =
-// c_out rounded up to 16), the h tile [64][hstride] f32 (column K all ones)
-// and the dmsg tile [64][c_out] f32.
+// the ring of stages ([3][n][dq] bf16 each, n a chunk's columns of c_in, dq
+// = c_out rounded up to 16), the h tile [64][hstride] f32 (column K all
+// ones) and the dmsg tile [64][c_out] f32: 78 KB at K 48 and width 48, 98
+// KB at K 128 (two blocks per SM), 160 KB at K 128, c_in = c_out = 128.
 struct RowsLayout {
-  int np, dq, hstride;
+  Chunks ch;
+  int dq, hstride;
   long stage, ring, hs, d, total;
-  __host__ __device__ RowsLayout(int K, int c_in, int c_out) {
-    np = round_up(c_in, 8);
+  __host__ __device__ RowsLayout(int K, int c_in, int c_out) : ch(c_in, c_out) {
     dq = round_up(c_out, 16);
     hstride = (K + 1) | 1;
-    stage = 3 * 2L * np * dq;
+    stage = 3 * 2L * ch.n * dq;
     ring = 128;
     hs = ring + kRing * stage;
     d = hs + 4L * kTile * hstride;
@@ -104,11 +115,21 @@ struct RowsLayout {
   }
 };
 
-// ---------------------------------------------------------------------------
-// (a) dmsg, dh and dx_src for one 64-slot tile.  N = c_in rounded up to 8
-// (the N of R_k), S = c_out rounded up to 16, over 16 (its k16 steps).
+// Blocks per SM the rows kernel's launch bounds hold the registers to: two
+// (at most 168 registers a thread, so that two blocks' ten warps fit the
+// register files of the SM's four sub-partitions) for the instances that
+// fit them with at most a few bytes of spills (N * S below 128, or up to
+// 160 with N at most 48: width 48 among them), else one.
 template <int N, int S>
-__global__ void __launch_bounds__(kThreads, 1)
+constexpr int kRowsMinBlocks =
+    S <= 4 && (N * S < 128 || (N * S <= 160 && N <= 48)) ? 2 : 1;
+
+// ---------------------------------------------------------------------------
+// (a) dmsg, dh and dx_src for one 64-slot tile.  N = a chunk's columns of
+// c_in (the N of R_k, f32_wgmma.cuh Chunks), S = c_out rounded up to 16,
+// over 16 (its k16 steps).
+template <int N, int S>
+__global__ void __launch_bounds__(kThreads, kRowsMinBlocks<N, S>)
 bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
                    const float* __restrict__ x_src,
                    const bf16* __restrict__ image,
@@ -135,11 +156,12 @@ bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
   if (threadIdx.x == 0) ring_init(full, empty);
   __syncthreads();
 
+  const int chunks = L.ch.chunks;
   if (threadIdx.x >= kWarpgroup) {  // ---- producer ----
     if (real && lane == 0) {
       uint32_t j = 0;
       produce(full, empty, ring, reinterpret_cast<const unsigned char*>(image),
-              static_cast<uint32_t>(L.stage), K, j);
+              static_cast<uint32_t>(L.stage), chunks * (K + 1) - 1, j);
     }
     return;
   }
@@ -175,14 +197,7 @@ bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
     dmsg_out[slot0 * c_out + e] = d;
     d_sm[e] = d;
   }
-  // this thread's rows r0, r0 + 8 and x_src at its accumulator columns
-  const int r0 = acc_row(0);
-  float xs[N / 2];
-#pragma unroll
-  for (int v = 0; v < N / 2; ++v) {
-    const int i = acc_col(v);
-    xs[v] = i < c_in ? x_src[(slot0 + acc_row(v)) * c_in + i] : 0.f;
-  }
+  const int r0 = acc_row(0);  // this thread's rows: r0 and r0 + 8
   cp_async_wait_all();
   warpgroup_sync(0);  // h and the dmsg tile have landed
 
@@ -198,11 +213,11 @@ bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
       split3(va, vb, da[0][s][u], da[1][s][u], da[2][s][u]);
     }
 
-  // ---- dx = sum_k h~[:, k] R_k, dh[:, k] = sum_i x_src[:, i] R_k[:, i] ----
-  float dx[N / 2];
-#pragma unroll
-  for (int v = 0; v < N / 2; ++v) dx[v] = 0.f;
+  // ---- per chunk c of c_in: dx = sum_k h~[:, k] R_k and dh[:, k] +=
+  // sum_i x_src[:, i] R_k[:, i] at the chunk's columns i ----
+  float dx[N / 2], xs[N / 2];  // xs: x_src at the chunk's columns
   const bool writer = tid % 4 == 0;
+  int c = 0;
   auto fin = [&](const float (&rk)[N / 2], int k) {
     const float ha = hs[r0 * hstride + k];
     const float hb = hs[(r0 + 8) * hstride + k];
@@ -223,8 +238,10 @@ bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
       sb += __shfl_xor_sync(0xffffffffu, sb, 1);
       sb += __shfl_xor_sync(0xffffffffu, sb, 2);
       if (writer) {
-        dh[(slot0 + r0) * K + k] = sa;
-        dh[(slot0 + r0 + 8) * K + k] = sb;
+        float* pa = dh + (slot0 + r0) * K + k;
+        float* pb = dh + (slot0 + r0 + 8) * K + k;
+        *pa = c ? *pa + sa : sa;
+        *pb = c ? *pb + sb : sb;
       }
     }
   };
@@ -232,11 +249,19 @@ bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
   const Walk<N, S, decltype(fin)> walk{da, full, empty, desc(ring, L.dq),
                                        dstage, dstage / 3, lane, fin};
   uint32_t j = 0;
-  walk.all(K, j);
+  for (; c < chunks; ++c) {
 #pragma unroll
-  for (int v = 0; v < N / 2; ++v) {
-    const int i = acc_col(v);
-    if (i < c_in) dx_src[(slot0 + acc_row(v)) * c_in + i] = dx[v];
+    for (int v = 0; v < N / 2; ++v) {
+      const int i = c * N + acc_col(v);
+      xs[v] = i < c_in ? x_src[(slot0 + acc_row(v)) * c_in + i] : 0.f;
+      dx[v] = 0.f;
+    }
+    walk.all(K, j);
+#pragma unroll
+    for (int v = 0; v < N / 2; ++v) {
+      const int i = c * N + acc_col(v);
+      if (i < c_in) dx_src[(slot0 + acc_row(v)) * c_in + i] = dx[v];
+    }
   }
 }
 
@@ -245,7 +270,7 @@ bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
 // for the block's 64 rows of K and kCols columns of c2, z[e, i*c_out + o] =
 // x_src[e, i] dmsg[e, o]; the row-tile-0 blocks also write row K, db3.
 // The weights kernel's shared memory: 112 KB at width 48 (two blocks per
-// SM), 120 KB at 64.
+// SM), 120 KB at 64, 152 KB at 128.
 struct WeightsLayout {
   long a, z, x, d, hraw, total;
   __host__ __device__ WeightsLayout(int c_in, int c_out) {
@@ -416,7 +441,7 @@ cudaError_t launch_rows(const float* g, const float* h, const float* x_src,
   auto kernel = bwd_rows_f32_wgmma<N, S>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  err = launch_image(w3, b3, image, K, c_in, c_out, L.np, L.dq, false, stream);
+  err = launch_image(w3, b3, image, K, c_in, c_out, L.ch, false, stream);
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(num_tiles), kThreads, smem, stream>>>(
       g, h, x_src, image, slot_rows, row_weight, s_dense, dh, dx_src, dmsg,
@@ -451,12 +476,12 @@ int fused_edge_conv_bwd_f32_wgmma_blocks_per_sm(int K, int c_in, int c_out,
 // Launches the float32 backward on `stream`: the stage image of w3 and b3,
 // the rows kernel, then the weights kernel.  Pointers are device pointers to
 // float32 arrays but slot_rows (int32) and image (bfloat16 scratch
-// [K+1][3][np][dq], np = c_in rounded up to 8, dq = c_out rounded up to 16,
-// 16-byte aligned); dmsg [slots, c_out] is written by the rows kernel and
-// read by the weights kernel.  Exactly one of s_dense and (slot_rows,
-// row_weight) is non-null.  partial is [num_splits, K+1, c_in*c_out] (dw3
-// rows then the db3 row, summed over splits by the caller).  Returns the
-// cudaError_t of the launches (0 on success).
+// [chunks][K+1][3][n][dq], f32_wgmma.cuh Chunks(c_in, c_out), dq = c_out
+// rounded up to 16, 16-byte aligned); dmsg [slots, c_out] is written by the
+// rows kernel and read by the weights kernel.  Exactly one of s_dense and
+// (slot_rows, row_weight) is non-null.  partial is [num_splits, K+1,
+// c_in*c_out] (dw3 rows then the db3 row, summed over splits by the
+// caller).  Returns the cudaError_t of the launches (0 on success).
 int fused_edge_conv_bwd_f32_wgmma_backward(
     const void* g, const void* h, const void* x_src, const void* w3,
     const void* b3, const void* slot_rows, const void* row_weight,

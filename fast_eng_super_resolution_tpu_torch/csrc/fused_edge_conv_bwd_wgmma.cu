@@ -41,9 +41,13 @@
 //      straight from g in CompactS form (the dense form sums S^T g), rounds
 //      it to bf16, writes it once (bf16, for the weights kernel) and stages
 //      it as the wgmma's A operand; W3_k, K-major in w3's own layout, is
-//      copied per k in 16-byte pieces (double-buffered, the next row's loads
-//      overlapping the running product).  Tiles of
-//      padding only write zeros in CompactS form.
+//      copied per k in 16-byte pieces by cp.async into a ring of three
+//      buffers, two rows ahead of the running product (wgmma_tile.cuh
+//      W3Row).  x_src at the thread's accumulator rows and columns waits in
+//      shared memory for the row sums of dh, in the thread's own fragment
+//      order (four bf16 values per 8-byte read, consecutive threads on
+//      consecutive pieces): registers hold the accumulators at width 128.
+//      Tiles of padding only write zeros in CompactS form.
 //  (b) output tiles of 64 rows of K x 128 columns of c_in c_out, times slot
 //      splits: grid (column tiles, row tiles, splits).  Per 64-slot chunk a
 //      block copies h rows in 16-byte pieces as A (h^T, MN-major), forms
@@ -52,6 +56,12 @@
 //      its split's partial [K+1, c2] (row K: db3) every 32 chunks; the
 //      wrapper sums the partials in a fixed order.  No atomics anywhere: two launches on the
 //      same inputs give the same bits.
+//
+// Widths.  c_in and c_out 1..128 and K 1..128, one design: N = c_in rounded
+// up to 8 is the rows kernel's product width (m64nNk16, N up to 128) and a
+// template argument (with_wide_width); the weights kernel's tiles cover any
+// c_in c_out.  At c_in = c_out = K = 128 a rows block takes 209 KB (one per
+// SM), a weights block 74 KB.
 //
 // Bound.  About 3 x 2 (K+1) c_in c_out operations per real slot (three
 // products of the forward's size) against (K + c_in) 2 + c_out 4 +
@@ -75,14 +85,14 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;   // receiver rows per block (rows_blk)
 constexpr int kTile = 64;   // slots per tile
-constexpr int kMaxDim = 64;
+constexpr int kMaxDim = 128;
 constexpr int kMaxK = 128;
 constexpr int kCols = 128;  // weights kernel: output columns per block
 constexpr int kPromote = 32;  // weights kernel: chunks per tensor-core sum
 
 __host__ __device__ inline int h_stride(int K) { return K + (6 - K % 4) % 4; }
 
-// A bf16 pair as one 32-bit word, .x first (the lower address).
+// A bf16 pair as one 32-bit word, .x first (the lower address), and back.
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   union {
     __nv_bfloat162 b;
@@ -91,18 +101,27 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   cv.b = v;
   return cv.u;
 }
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
+  union {
+    uint32_t u;
+    __nv_bfloat162 b;
+  } cv;
+  cv.u = u;
+  return cv.b;
+}
 
 // Byte offsets of the rows kernel's shared memory, np = c_in padded to 8.
 struct RowsLayout {
   int dq, hs;
-  long b, h, b3, srow, total;
+  long b, h, b3, xs, srow, total;
   __host__ __device__ RowsLayout(int K, int c_in, int c_out, int np) {
     dq = round_up(c_out, 16);
     hs = h_stride(K);
     b = 2L * kTile * dq;                     // a: dmsg [64][dq]
-    h = b + 2L * 2 * np * dq;                // b: W3_k [2][np][dq]
+    h = b + 2L * kRowBufs * np * dq;         // b: W3_k [kRowBufs][np][dq]
     b3 = h + 2L * kTile * hs;                // h [64][hs]
-    srow = b3 + 4L * c_out * np;             // b3^T [c_out][np] f32
+    xs = b3 + 4L * c_out * np;               // b3^T [c_out][np] f32
+    srow = xs + 2L * kTile * np;             // x_src [np / 8][128][4] bf16
     total = srow + 4L * kTile;
   }
 };
@@ -127,6 +146,7 @@ bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
   bf16* b_sm = reinterpret_cast<bf16*>(smem + L.b);
   bf16* h_sm = reinterpret_cast<bf16*>(smem + L.h);
   float* b3_sm = reinterpret_cast<float*>(smem + L.b3);
+  uint2* x_sm = reinterpret_cast<uint2*>(smem + L.xs);
   int* srow = reinterpret_cast<int*>(smem + L.srow);
 
   const int tid = threadIdx.x;
@@ -152,28 +172,42 @@ bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
     }
   }
 
-  // ---- stage dmsg (rounded to bf16; channel o = tid % 64 of slots
-  // tid / 64 + 2 m), h, b3^T and W3_0 ----
-  W3Row<false> wr(w3, c_in, c_out, dq);
-  wr.load(0);
-  for (int e = tid; e < 2 * NP * dq; e += kWarpgroup) b_sm[e] = zero;
+  // ---- stage dmsg (rounded to bf16; channels tid % 64 + 64 m of slots
+  // tid / 64 + 2 m'), x_src, h, b3^T and W3_0 ----
+  const W3Row<false> wr(w3, c_in, c_out, dq);
+  for (int e = tid; e < kRowBufs * NP * dq; e += kWarpgroup) b_sm[e] = zero;
 #pragma unroll 4
-  for (int s = tid >> 6, o = tid & 63; s < kTile && o < dq; s += 2) {
-    bf16 v = zero;
-    if (o < c_out) {
-      float d = 0.f;
-      if (compact) {
-        const int r = srow[s];
-        if (r >= 0) d = row_weight[row_base + r] * g[(row_base + r) * c_out + o];
-      } else {
-        const float* s_col = s_dense + row_base * blk + (slot0 - b * blk) + s;
-        for (int r = 0; r < kRows; ++r)
-          d += s_col[static_cast<long>(r) * blk] * g[(row_base + r) * c_out + o];
+  for (int s = tid >> 6; s < kTile; s += 2)
+    for (int o = tid & 63; o < dq; o += 64) {
+      bf16 v = zero;
+      if (o < c_out) {
+        float d = 0.f;
+        if (compact) {
+          const int r = srow[s];
+          if (r >= 0) d = row_weight[row_base + r] * g[(row_base + r) * c_out + o];
+        } else {
+          const float* s_col = s_dense + row_base * blk + (slot0 - b * blk) + s;
+          for (int r = 0; r < kRows; ++r)
+            d += s_col[static_cast<long>(r) * blk] * g[(row_base + r) * c_out + o];
+        }
+        v = __float2bfloat16(d);
+        dmsg_out[(slot0 + s) * c_out + o] = v;
       }
-      v = __float2bfloat16(d);
-      dmsg_out[(slot0 + s) * c_out + o] = v;
+      a_sm[kmajor(s, o, dq)] = v;
     }
-    a_sm[kmajor(s, o, dq)] = v;
+  // x_src at this thread's accumulator entries j = 4 m .. 4 m + 3 (rows r0,
+  // r0, r0 + 8, r0 + 8; columns c, c + 1, c, c + 1) as piece m
+#pragma unroll
+  for (int m = 0; m < NP / 8; ++m) {
+    bf16 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = acc_col(4 * m + u);
+      v[u] = i < c_in ? x_src[(slot0 + acc_row(4 * m + u)) * c_in + i] : zero;
+    }
+    x_sm[m * kWarpgroup + tid] =
+        make_uint2(as_u32(__halves2bfloat162(v[0], v[1])),
+                   as_u32(__halves2bfloat162(v[2], v[3])));
   }
 #pragma unroll 4
   for (int s = tid >> 6; s < kTile; s += 2)
@@ -183,25 +217,19 @@ bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
     const int o = e / NP, i = e - o * NP;
     b3_sm[e] = i < c_in ? b3[i * c_out + o] : 0.f;
   }
-  // W3_k ([c_in, c_out]) streams through the two buffers: step k reads
-  // buffer k % 2 while the registers fill the other with row k + 1 and load
-  // row k + 2
+  // W3_k ([c_in, c_out]) streams through the three buffers: step k reads
+  // buffer k % 3 while rows k + 1 and k + 2 land in the other two (a step
+  // with no row left to start closes an empty group)
   const int bsize = NP * dq;
   __syncthreads();  // the zeros land before the first row
-  wr.store(b_sm, 0);
-  if (K > 1) wr.load(1);
+  wr.start(b_sm, 0);
+  if (K > 1) wr.start(b_sm + bsize, 1);
+  else pieces_commit();
+
+  const int r0 = acc_row(0);  // this thread's rows: r0 and r0 + 8
+  pieces_wait<1>();  // row 0 has landed
   fence_async_smem();
   __syncthreads();
-
-  // this thread's rows r0, r0 + 8 and x_src at its columns
-  const int r0 = acc_row(0);
-  float xs[NP / 2];
-#pragma unroll
-  for (int j = 0; j < NP / 2; ++j) {
-    const int i = acc_col(j);
-    xs[j] = i < c_in ? __bfloat162float(x_src[(slot0 + acc_row(j)) * c_in + i])
-                     : 0.f;
-  }
 
   // ---- dx = D @ b3^T (CUDA cores), then += h[:, k] R_k over k ----
   float dx[NP / 2];
@@ -217,25 +245,29 @@ bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
   const bool writer = tid % 4 == 0;
   for (int k = 0; k < K; ++k) {
     float rk[NP / 2];
-    product<NP>(rk, a_sm, b_sm + (k & 1) * bsize, dq);
-    if (k + 1 < K) {
-      wr.store(b_sm + ((k + 1) & 1) * bsize, k + 1);
-      if (k + 2 < K) wr.load(k + 2);
-    }
+    product<NP>(rk, a_sm, b_sm + (k % kRowBufs) * bsize, dq);
+    // row k + 2 into the buffer that step k - 1's finished product read
+    if (k + 2 < K) wr.start(b_sm + ((k + 2) % kRowBufs) * bsize, k + 2);
+    else pieces_commit();
     wait_all();
     fence_operand(rk);
     const float ha = __bfloat162float(h_sm[r0 * hs + k]);
     const float hb = __bfloat162float(h_sm[(r0 + 8) * hs + k]);
     float da = 0.f, db = 0.f;
 #pragma unroll
-    for (int j = 0; j < NP / 2; ++j) {
-      if ((j >> 1) & 1) {
-        dx[j] += hb * rk[j];
-        db += xs[j] * rk[j];
-      } else {
-        dx[j] += ha * rk[j];
-        da += xs[j] * rk[j];
-      }
+    for (int m = 0; m < NP / 8; ++m) {
+      const uint2 xv = x_sm[m * kWarpgroup + tid];
+      const float2 xa = __bfloat1622float2(as_bf162(xv.x));
+      const float2 xb = __bfloat1622float2(as_bf162(xv.y));
+      const int j = 4 * m;
+      dx[j] += ha * rk[j];
+      da += xa.x * rk[j];
+      dx[j + 1] += ha * rk[j + 1];
+      da += xa.y * rk[j + 1];
+      dx[j + 2] += hb * rk[j + 2];
+      db += xb.x * rk[j + 2];
+      dx[j + 3] += hb * rk[j + 3];
+      db += xb.y * rk[j + 3];
     }
     da += __shfl_xor_sync(0xffffffffu, da, 1);
     da += __shfl_xor_sync(0xffffffffu, da, 2);
@@ -245,6 +277,7 @@ bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
       dh[(slot0 + r0) * K + k] = da;
       dh[(slot0 + r0 + 8) * K + k] = db;
     }
+    pieces_wait<1>();  // row k + 1 has landed
     fence_async_smem();
     __syncthreads();
   }
@@ -458,7 +491,7 @@ int fused_edge_conv_bwd_wgmma_blocks_per_sm(int K, int c_in, int c_out,
                                             int weights) {
   if (weights) return blocks_per_sm(bwd_weights_wgmma, weights_smem_bytes(c_in, c_out));
   const int np = round_up(c_in, 8);
-  return with_width(np, [&](auto n) {
+  return with_wide_width(np, [&](auto n) {
     return blocks_per_sm(
         bwd_rows_wgmma<decltype(n)::value>,
         static_cast<size_t>(RowsLayout(K, c_in, c_out, np).total));
@@ -485,7 +518,7 @@ int fused_edge_conv_bwd_wgmma_backward(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long num_tiles = static_cast<long>(num_blocks) * blk / kTile;
-  cudaError_t err = with_width(round_up(c_in, 8), [&](auto n) {
+  cudaError_t err = with_wide_width(round_up(c_in, 8), [&](auto n) {
     return launch_rows<decltype(n)::value>(g, h, x_src, w3, b3, slot_rows,
                                            row_weight, s_dense, dh, dx_src,
                                            dmsg, num_tiles, blk, K, c_in,

@@ -29,12 +29,24 @@
 //
 // Float32-exact products (f32_wgmma.cuh).  X and every W~_k are split
 // exactly into three bf16 parts; per k one float32 accumulator sums the six
-// products of order >= 2^-16, smallest first, each over depth c_in <= 64.
+// products of order >= 2^-16, smallest first, each over depth c_in <= 128.
+//
+// Widths.  c_in and c_out 1..128, K 1..128, one design: the c_out columns
+// (rounded up to 8) are cut into column chunks (f32_wgmma.cuh Chunks: one
+// chunk up to 64 columns; past that chunks of at most 64, or 32 where c_in
+// is past 64), and the tile walks the K+1 stages once per chunk with X's
+// parts kept in registers across the passes.  X's parts take 12 registers
+// per 16 of c_in (96 at 128), each accumulator N / 2: at c_in = c_out = 128
+// four passes of N = 32 keep a thread under 255 registers where one pass of
+// N = 128 (two accumulators of 64 and a sum of 64 beside X's 96) would not,
+// and keep a stage at 24 KB.
 //
 // Design.
 //  - A block is one consumer warpgroup and one producer warp, and owns one
 //    part of one receiver block's slot walk: grid (num_blocks, parts), the
 //    parts from the wrapper's planner (ops/fused_conv.py:conv_parts).
+//    Each chunk's pass sums its columns of the tile's messages in registers
+//    and leaves them in shared memory for the scatter.
 //  - X's three parts are the same for the K + 1 products of a tile: they
 //    live in the warpgroup's registers as wgmma's A fragments (register-A,
 //    messages_wgmma.cuh), gathered once per tile through senders_perm and
@@ -53,10 +65,11 @@
 //    its back edge.
 //  - h is staged per tile in shared memory (column K all ones), the next
 //    tile's copied by cp.async while the current tile's messages scatter
-//    and the next tile's X is gathered.  One h tile, not two: at K 128 that keeps a
-//    block under half the SM's shared memory, and two blocks per SM (the
-//    launch bounds hold the registers to what two need, kMinBlocks) hide
-//    each other's per-stage latencies better than a second h tile would.
+//    and the next tile's X is gathered.  One h tile, not two: at K 128 and
+//    width 48 that keeps a block under half the SM's shared memory, and two
+//    blocks per SM (the launch bounds hold the registers to what two need,
+//    kMinBlocks) hide each other's per-stage latencies better than a second
+//    h tile would.
 //  - The scatter is a segmented sum in CompactS form: each slot feeds one
 //    row and the slots are receiver-sorted, so a thread owning an output
 //    column adds each run of one row's messages into the row, in slot
@@ -89,24 +102,26 @@ using namespace f32_wgmma;
 
 constexpr int kRows = 64;   // receiver rows per block (rows_blk)
 constexpr int kTile = 64;   // slots per tile
-constexpr int kMaxDim = 64;
+constexpr int kMaxDim = 128;
 constexpr int kMaxK = 128;
 constexpr int kThreads = kWarpgroup + 32;  // consumers + the producer warp
 
 // Byte offsets of the shared memory: the 2 kRing mbarriers, the ring of
-// stages ([3][np][dp] bf16 each), the h tile [64][hstride] f32 (column K
-// all ones; an odd stride, so that the 8 rows a warp reads at once fall in
-// 8 banks), the tile's messages [64][np+1], the part's row sums [64][c_out]
-// and the tile's slot_rows.  At width 48: 93 KB at K 48, 114 KB at K 128
-// (two blocks per SM); at most 165 KB (K 128, c_in = c_out = 64).
+// stages ([3][n][dp] bf16 each, n a chunk's columns), the h tile
+// [64][hstride] f32 (column K all ones; an odd stride, so that the 8 rows a
+// warp reads at once fall in 8 banks), the tile's messages [64][np+1] (np =
+// chunks x n), the part's row sums [64][c_out] and the tile's slot_rows.
+// At width 48: 93 KB at K 48, 114 KB at K 128 (two blocks per SM); 165 KB
+// at K 128, c_in = c_out = 64; 193 KB at K 128, c_in = c_out = 128.
 struct Layout {
+  Chunks ch;
   int np, dp, hstride;
   long stage, ring, hs, m, acc, srow, total;
-  __host__ __device__ Layout(int K, int c_in, int c_out) {
-    np = round_up(c_out, 8);
+  __host__ __device__ Layout(int K, int c_in, int c_out) : ch(c_out, c_in) {
+    np = ch.chunks * ch.n;
     dp = round_up(c_in, 16);
     hstride = (K + 1) | 1;
-    stage = 3 * 2L * np * dp;
+    stage = 3 * 2L * ch.n * dp;
     ring = 128;
     hs = ring + kRing * stage;
     m = hs + 4L * kTile * hstride;
@@ -120,11 +135,13 @@ struct Layout {
 // registers a thread, so that two blocks' ten warps fit the register files
 // of the SM's four sub-partitions) where ptxas fits the instance into them
 // with no more than a few bytes of spills, else one (N * S >= 192: c_out
-// past 56 with c_in past 32, or c_out past 40 with c_in past 48).
+// past 56 with c_in past 32, or c_out past 40 with c_in past 48; or c_in
+// past 64).
 template <int N, int S>
-constexpr int kMinBlocks = N * S < 192 ? 2 : 1;
+constexpr int kMinBlocks = N * S < 192 && S <= 4 ? 2 : 1;
 
-// N = c_out rounded up to 8, S = c_in rounded up to 16, over 16.
+// N = a chunk's columns of c_out (f32_wgmma.cuh Chunks), S = c_in rounded
+// up to 16, over 16.
 template <int N, int S>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<N, S>)
 conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
@@ -162,12 +179,16 @@ conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
   if (threadIdx.x == 0) ring_init(full, empty);
   __syncthreads();
 
-  // ---- producer: the K + 1 stages of every real tile of the part ----
+  // ---- producer: the chunks x (K + 1) stages of every real tile of the
+  // part ----
+  const int chunks = L.ch.chunks;
   if (threadIdx.x >= kWarpgroup) {
     const unsigned char* src = reinterpret_cast<const unsigned char*>(image);
     uint32_t j = 0;
     for (int t = next_real(t_lo); t < t_hi; t = next_real(t + 1)) {
-      if (lane == 0) produce(full, empty, ring, src, static_cast<uint32_t>(L.stage), K, j);
+      if (lane == 0)
+        produce(full, empty, ring, src, static_cast<uint32_t>(L.stage),
+                chunks * (K + 1) - 1, j);
       __syncwarp();
     }
     return;
@@ -176,7 +197,7 @@ conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
   // ---- consumers ----
   const int tid = threadIdx.x;
   const int r0 = a_row(0);  // this thread's rows: r0 and r0 + 8
-  const int hstride = L.hstride;
+  const int hstride = L.hstride, mstride = L.np + 1;
   float* hs = reinterpret_cast<float*>(smem + L.hs);
   float* m_sm = reinterpret_cast<float*>(smem + L.m);
   float* acc_sm = reinterpret_cast<float*>(smem + L.acc);
@@ -221,10 +242,9 @@ conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
     if (compact && tid < kTile) srow[tid] = slot_rows[tile + tid];
     const int next = next_real(t + 1);
 
-    // ---- msg = sum_k h~[:, k] P_k, P_k = X @ W~_k ----
+    // ---- per chunk c: msg = sum_k h~[:, k] P_k, P_k = X @ W~_k at the
+    // chunk's columns, into the messages' columns c N .. ----
     float msg[N / 2];
-#pragma unroll
-    for (int v = 0; v < N / 2; ++v) msg[v] = 0.f;
     auto weight = [&](const float (&p)[N / 2], int k) {
       const float ha = hs[r0 * hstride + k];
       const float hb = hs[(r0 + 8) * hstride + k];
@@ -233,12 +253,17 @@ conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
     };
     const Walk<N, S, decltype(weight)> walk{xa, full, empty, d0, dstage, dpart,
                                             lane, weight};
-    walk.all(K, j);
+    for (int c = 0; c < chunks; ++c) {
+#pragma unroll
+      for (int v = 0; v < N / 2; ++v) msg[v] = 0.f;
+      walk.all(K, j);
+#pragma unroll
+      for (int v = 0; v < N / 2; ++v)
+        m_sm[acc_row(v) * mstride + c * N + acc_col(v)] = msg[v];
+    }
 
     // ---- scatter the tile's messages into the part's row sums, while the
     // next tile's h lands (every thread is done with this one's) ----
-#pragma unroll
-    for (int v = 0; v < N / 2; ++v) m_sm[acc_row(v) * (N + 1) + acc_col(v)] = msg[v];
     warpgroup_sync(0);
     if (next < t_hi)
       prefetch_h(hs, h, blk0 + static_cast<long>(next) * kTile, K, hstride);
@@ -253,7 +278,7 @@ conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
             cur = r;
             run = 0.f;
           }
-          if (r >= 0) run += m_sm[s * (N + 1) + o];
+          if (r >= 0) run += m_sm[s * mstride + o];
         }
         if (cur >= 0) acc_sm[cur * c_out + o] += run;
       }
@@ -263,7 +288,7 @@ conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
         const int r = e / c_out, o = e - r * c_out;
         float v = 0.f;
         for (int s = 0; s < kTile; ++s)
-          v = fmaf(s_tile[static_cast<long>(r) * blk + s], m_sm[s * (N + 1) + o], v);
+          v = fmaf(s_tile[static_cast<long>(r) * blk + s], m_sm[s * mstride + o], v);
         acc_sm[e] += v;
       }
     }
@@ -290,7 +315,7 @@ cudaError_t launch(const float* h, const float* x, const int* senders_perm,
   auto kernel = conv_fwd_f32_wgmma<N, S>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  err = launch_image(w3, b3, image, K, c_in, c_out, L.np, L.dp, true, stream);
+  err = launch_image(w3, b3, image, K, c_in, c_out, L.ch, true, stream);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(num_blocks, parts), kThreads, smem, stream>>>(
       h, x, senders_perm, image, slot_rows, row_weight, s_dense, out, blk, K,
@@ -320,11 +345,11 @@ int fused_edge_conv_f32_wgmma_blocks_per_sm(int K, int c_in, int c_out) {
 // Launches the float32 forward on `stream`: the stage image of w3 and b3,
 // then the layer.  Pointers are device pointers; h, x, w3, b3, row_weight,
 // s_dense and out float32; senders_perm and slot_rows int32; image bfloat16
-// scratch [K+1][3][np][dp] (np = c_out rounded up to 8, dp = c_in rounded up
-// to 16), 16-byte aligned.  Exactly one of s_dense and (slot_rows,
-// row_weight) is non-null.  out is [num_blocks*64, c_out] when parts == 1,
-// else the partials [parts, num_blocks*64, c_out].  Returns the cudaError_t
-// of the launches (0 on success).
+// scratch [chunks][K+1][3][n][dp] (f32_wgmma.cuh Chunks(c_out, c_in), dp =
+// c_in rounded up to 16), 16-byte aligned.  Exactly one of s_dense and
+// (slot_rows, row_weight) is non-null.  out is [num_blocks*64, c_out] when
+// parts == 1, else the partials [parts, num_blocks*64, c_out].  Returns the
+// cudaError_t of the launches (0 on success).
 int fused_edge_conv_f32_wgmma_forward(
     const void* h, const void* x, const void* senders_perm, const void* w3,
     const void* b3, const void* slot_rows, const void* row_weight,

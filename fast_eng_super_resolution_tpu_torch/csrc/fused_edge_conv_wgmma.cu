@@ -31,9 +31,12 @@
 // ops/fused_conv.py:conv_parts, picks the parts from the SM count).  Per
 // 64-slot tile it gathers X into shared memory in wgmma's K-major layout
 // (wgmma_tile.cuh), stages h, and walks k: W3_k is the product's MN-major B
-// operand, so w3's rows copy in 16-byte pieces; it is double-buffered, and
-// the next row's loads overlap the running product (across the part's tiles:
-// the last k of a tile stages the next tile's first row).  The scatter is a segmented sum in
+// operand, so w3's rows copy in 16-byte pieces by cp.async into a ring of
+// three buffers (W3Row), two rows ahead of the running product (across the
+// part's tiles: the last steps of a tile start the next tile's first rows).
+// The tile's messages share their shared memory with X and h, which are
+// dead by then.  At c_in = c_out = K = 128 a block takes 225 KB, one block
+// per SM; at width 48 and K 48 47 KB.  The scatter is a segmented sum in
 // CompactS form: each slot feeds one row, so a thread owning an output
 // column adds the tile's 64 messages into its rows in slot order (64 c_out
 // adds per tile); the dense form keeps the 64 x 64 S product.  Tiles of
@@ -41,6 +44,10 @@
 // [64, c_out] partial (straight into the output when there is one part);
 // the wrapper sums the partials in a fixed order.  No atomics: two launches
 // on the same inputs give the same bits.
+//
+// Widths.  c_in and c_out 1..128 and K 1..128, one design: N = c_out
+// rounded up to 8 is the product's width (m64nNk16, N up to 128) and a
+// template argument (with_wide_width).
 //
 // Bound.  Per real slot the layer needs 2 (K+1) c_in c_out operations and
 // moves (K + c_in) 2 + 8 bytes: at width 48 about 225 kFLOP against 200 B,
@@ -64,25 +71,28 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;   // receiver rows per block (rows_blk)
 constexpr int kTile = 64;   // slots per tile
-constexpr int kMaxDim = 64;
+constexpr int kMaxDim = 128;
 constexpr int kMaxK = 128;
 
 // Row stride of the staged h tile in bf16 elements: at least K and 2 mod 4,
 // so that the 8 rows a warp reads at one k fall in 8 different banks.
 __host__ __device__ inline int h_stride(int K) { return K + (6 - K % 4) % 4; }
 
-// Byte offsets of the shared-memory regions, np = c_out padded to 8.
+// Byte offsets of the shared-memory regions, np = c_out padded to 8.  X
+// and h, read by a tile's walk over k, and the tile's messages, written
+// after it, share the first region.
 struct Layout {
   int dp, hs;
-  long b, h, b3, m, acc, srow, total;
+  long h, b, b3, acc, srow, total;
   __host__ __device__ Layout(int K, int c_in, int c_out, int np) {
     dp = round_up(c_in, 16);
     hs = h_stride(K);
-    b = 2L * kTile * dp;                     // a: X [64][dp]
-    h = b + 2L * 2 * np * dp;                // b: W3_k^T [2][np][dp]
-    b3 = h + 2L * kTile * hs;                // h [64][hs]
-    m = b3 + 4L * c_in * np;                 // b3 [c_in][np] f32
-    acc = m + 4L * kTile * (np + 1);         // messages [64][np+1] f32
+    h = 2L * kTile * dp;                     // X [64][dp] at 0
+    const long xh = h + 2L * kTile * hs;     // h [64][hs]
+    const long m = 4L * kTile * (np + 1);    // or messages [64][np+1] f32
+    b = xh > m ? xh : m;                     // W3_k^T [kRowBufs][np][dp]
+    b3 = b + 2L * kRowBufs * np * dp;
+    acc = b3 + 4L * c_in * np;               // b3 [c_in][np] f32
     srow = acc + 4L * kRows * c_out;         // part sums [64][c_out] f32
     total = srow + 4L * kTile;               // slot_rows of the tile
   }
@@ -104,7 +114,7 @@ conv_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
   bf16* b_sm = reinterpret_cast<bf16*>(smem + L.b);
   bf16* h_sm = reinterpret_cast<bf16*>(smem + L.h);
   float* b3_sm = reinterpret_cast<float*>(smem + L.b3);
-  float* m_sm = reinterpret_cast<float*>(smem + L.m);
+  float* m_sm = reinterpret_cast<float*>(smem);  // after the walk over k
   float* acc_sm = reinterpret_cast<float*>(smem + L.acc);
   int* srow = reinterpret_cast<int*>(smem + L.srow);
 
@@ -116,8 +126,8 @@ conv_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
   const bool compact = s_dense == nullptr;
   const bf16 zero = __float2bfloat16(0.f);
 
-  // padding of both W3 buffers stays zero: staging writes real entries only
-  for (int e = tid; e < 2 * NP * dp; e += kWarpgroup) b_sm[e] = zero;
+  // padding of the W3 buffers stays zero: staging writes real entries only
+  for (int e = tid; e < kRowBufs * NP * dp; e += kWarpgroup) b_sm[e] = zero;
   for (int e = tid; e < c_in * NP; e += kWarpgroup) {
     const int i = e / NP, o = e - i * NP;
     b3_sm[e] = o < c_out ? b3[i * c_out + o] : 0.f;
@@ -126,15 +136,14 @@ conv_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
   __syncthreads();  // the zeros land before the first row
 
   // W3_k^T ([c_out, c_in], MN-major: w3's rows copy in 16-byte pieces)
-  // streams through the two buffers in one sequence of steps over the
-  // part's tiles, k = 0 .. K-1 per tile: step n reads buffer n % 2 while
-  // buffer (n + 1) % 2 takes the next step's row and the registers load the
-  // one after.
+  // streams through the three buffers in one sequence of steps over the
+  // part's tiles, k = 0 .. K-1 per tile: step n reads buffer n % 3 while
+  // rows n + 1 and n + 2 (mod K) land in the other two.
   const int bsize = NP * dp;
-  W3Row<true> wr(w3, c_in, c_out, dp);
-  wr.load(0);
-  wr.store(b_sm, 0);
-  wr.load(1 % K);
+  const W3Row<true> wr(w3, c_in, c_out, dp);
+  wr.start(b_sm, 0);
+  wr.start(b_sm + bsize, 1 % K);
+  pieces_wait<1>();  // row 0 has landed
   int step = 0;
 
   const int r0 = acc_row(0);
@@ -149,16 +158,17 @@ conv_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
       if (!__syncthreads_or(real)) continue;  // padding only
     }
 
-    // ---- stage X (gathered, channel i = tid % 64 of slots tid / 64 + 2 m)
-    // and h; W3_0 is in buffer step % 2 already ----
+    // ---- stage X (gathered, channels tid % 64 + 64 m of slots tid / 64 +
+    // 2 m') and h; W3_0 has landed in buffer step % 3 ----
+    if ((tid & 63) < dp) {
 #pragma unroll 4
-    for (int s = tid >> 6, i = tid & 63; s < kTile && i < dp; s += 2) {
-      bf16 v = zero;
-      if (i < c_in) {
+      for (int s = tid >> 6; s < kTile; s += 2) {
         const int src = senders_perm[tile + s];
-        if (src >= 0 && src < n_nodes) v = x[static_cast<long>(src) * c_in + i];
+        const bool real = src >= 0 && src < n_nodes;
+        for (int i = tid & 63; i < dp; i += 64)
+          a_sm[kmajor(s, i, dp)] =
+              real && i < c_in ? x[static_cast<long>(src) * c_in + i] : zero;
       }
-      a_sm[kmajor(s, i, dp)] = v;
     }
 #pragma unroll 4
     for (int s = tid >> 6; s < kTile; s += 2)
@@ -180,21 +190,23 @@ conv_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
     }
     for (int k = 0; k < K; ++k, ++step) {
       float p[NP / 2];
-      product<NP, 1>(p, a_sm, b_sm + (step & 1) * bsize, dp);
-      // the next step's row (k + 1, or the next tile's 0), then the one after
-      wr.store(b_sm + ((step + 1) & 1) * bsize, (k + 1) % K);
-      wr.load((k + 2) % K);
+      product<NP, 1>(p, a_sm, b_sm + (step % kRowBufs) * bsize, dp);
+      // the row two steps on (k + 2, or the next tile's), into the buffer
+      // that step - 1's finished product read
+      wr.start(b_sm + ((step + 2) % kRowBufs) * bsize, (k + 2) % K);
       wait_all();
       fence_operand(p);
       const float ha = __bfloat162float(h_sm[r0 * hs + k]);
       const float hb = __bfloat162float(h_sm[(r0 + 8) * hs + k]);
 #pragma unroll
       for (int j = 0; j < NP / 2; ++j) msg[j] += ((j >> 1) & 1 ? hb : ha) * p[j];
+      pieces_wait<1>();  // the next step's row has landed
       fence_async_smem();
       __syncthreads();
     }
 
-    // ---- scatter the tile's messages into the part's row sums ----
+    // ---- scatter the tile's messages into the part's row sums (X and h
+    // are dead: every thread passed the last step's barrier) ----
 #pragma unroll
     for (int j = 0; j < NP / 2; ++j)
       m_sm[acc_row(j) * (NP + 1) + acc_col(j)] = msg[j];
@@ -258,7 +270,7 @@ long fused_edge_conv_wgmma_smem_bytes(int K, int c_in, int c_out) {
 // Blocks one SM holds at once at these widths (-1 if they are not taken).
 int fused_edge_conv_wgmma_blocks_per_sm(int K, int c_in, int c_out) {
   const int np = round_up(c_out, 8);
-  return with_width(np, [&](auto n) {
+  return with_wide_width(np, [&](auto n) {
     return blocks_per_sm(conv_fwd_wgmma<decltype(n)::value>,
                          static_cast<size_t>(Layout(K, c_in, c_out, np).total));
   }, -1);
@@ -282,7 +294,7 @@ int fused_edge_conv_wgmma_forward(const void* h, const void* x,
       parts < 1 || parts > blk / kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_width(round_up(c_out, 8), [&](auto n) {
+  return static_cast<int>(with_wide_width(round_up(c_out, 8), [&](auto n) {
     return launch<decltype(n)::value>(h, x, senders_perm, w3, b3, slot_rows,
                                       row_weight, s_dense, out, num_blocks, blk,
                                       K, c_in, c_out, n_nodes, parts, s);

@@ -107,7 +107,7 @@ __device__ __forceinline__ int acc_col(int j) {
 }
 
 // D[64, N] (+)= A[64, 16] B[16, N] for one k16 step, A and B given by their
-// descriptors; scale_d = 0 overwrites D.  N = 8 .. 64 in steps of 8, and 128.
+// descriptors; scale_d = 0 overwrites D.  N = 8 .. 128 in steps of 8.
 // TA / TB = 1: A / B is MN-major (M or N contiguous, mnmajor) instead of
 // K-major (kmajor).
 template <int N, int TA = 0, int TB = 0>
@@ -266,6 +266,218 @@ struct Mma<64, TA, TB> {
 };
 
 template <int TA, int TB>
+struct Mma<72, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[36], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35"
+        "}, %36, %37, p, 1, 1, %39, %40;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<80, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[40], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, %40, %41, p, 1, 1, %43, %44;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<88, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[44], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %46, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43"
+        "}, %44, %45, p, 1, 1, %47, %48;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<96, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[48], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<104, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[52], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51"
+        "}, %52, %53, p, 1, 1, %55, %56;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<112, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[56], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55"
+        "}, %56, %57, p, 1, 1, %59, %60;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<120, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[60], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %62, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59"
+        "}, %60, %61, p, 1, 1, %63, %64;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
 struct Mma<128, TA, TB> {
   __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
                                              uint64_t b, int scale_d) {
@@ -319,63 +531,84 @@ __device__ __forceinline__ void product(float (&d)[N / 2], const void* a,
   commit();
 }
 
+// Copies of 16-byte pieces from global to shared memory that run while the
+// thread goes on (cp.async, both addresses 16-byte aligned; through L1, so
+// that the blocks on one SM share the rows they all read), gathered into
+// groups: piece_async issues one, pieces_commit closes the thread's group,
+// pieces_wait<n>() waits until at most n of its groups are still in flight.
+__device__ __forceinline__ void piece_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void pieces_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int n>
+__device__ __forceinline__ void pieces_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
+}
+
+// Buffers of the w3 row stream (W3Row): step n of a walk reads buffer n % 3
+// while rows n + 1 and n + 2 are on their way into the other two.
+constexpr int kRowBufs = 3;
+
 // One row k of w3, a [c_in, c_out] matrix in the model's layout (c_in,
-// c_out <= 64), on its way into an operand of depth `depth` in shared
+// c_out <= 128), on its way into an operand of depth `depth` in shared
 // memory: MN-major as [c_out rows, c_in deep] (kMn, B1's W3_k^T) or K-major
 // as [c_in rows, c_out deep] (B2's W3_k).  Either way a piece of 8
 // consecutive o of one i is 16 contiguous bytes at both ends.  When c_out
-// is a multiple of 8 and w3 16-byte aligned, thread t owns the pieces
-// t + 128 m (at most 4) and carries them in registers from load(k) to
-// store(k), so that their loads overlap a running product.  Otherwise
-// store(k) copies the row element by element and load does nothing.
+// is a multiple of 8 and w3 16-byte aligned, start(buf, k) issues the row's
+// pieces by cp.async (thread t the pieces t + 128 m), so that they land
+// while the products of the steps before run and cost no registers;
+// otherwise it copies the row element by element before it returns.  Either
+// way it closes one group of this thread's copies (pieces_wait counts them).
 // Padding is left as it is (zero).
 template <bool kMn>
 struct W3Row {
   const __nv_bfloat16* w3;
   int c_in, c_out, depth;
   bool vec;
-  int at[4];  // element offset of each owned piece, -1 for none
-  uint4 v[4];
+  // the vector path's walk over this thread's pieces q = t + 128 m of a row
+  // (piece q: channel i = q / per, columns 8 p, p = q % per, per = c_out /
+  // 8): the first piece's (i, p) and the step to the next, so that start()
+  // divides nothing
+  int i0, p0, di, dp;
 
   __device__ __forceinline__ W3Row(const __nv_bfloat16* w3_, int c_in_,
                                    int c_out_, int depth_)
       : w3(w3_), c_in(c_in_), c_out(c_out_), depth(depth_) {
     vec = c_out % 8 == 0 && reinterpret_cast<uintptr_t>(w3) % 16 == 0;
-    const int per = c_out / 8;
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int q = threadIdx.x + kWarpgroup * m;
-      at[m] = -1;
-      if (vec && q < c_in * per) {
-        const int i = q / per, o = 8 * (q - i * per);
-        at[m] = kMn ? mnmajor(o, i, depth) : kmajor(i, o, depth);
+    const int per = vec ? c_out / 8 : 1;
+    i0 = threadIdx.x / per;
+    p0 = threadIdx.x - i0 * per;
+    di = kWarpgroup / per;
+    dp = kWarpgroup - di * per;
+  }
+
+  __device__ __forceinline__ void start(__nv_bfloat16* buf, int k) const {
+    const __nv_bfloat16* src = w3 + static_cast<long>(k) * c_in * c_out;
+    if (vec) {
+      const int per = c_out / 8;
+      for (int q = threadIdx.x, i = i0, p = p0; i < c_in; q += kWarpgroup) {
+        piece_async(buf + (kMn ? mnmajor(8 * p, i, depth)
+                               : kmajor(i, 8 * p, depth)),
+                    src + 8 * q);
+        i += di;
+        p += dp;
+        if (p >= per) {
+          p -= per;
+          ++i;
+        }
+      }
+    } else {
+      for (int j = threadIdx.x; j < c_in * c_out; j += kWarpgroup) {
+        const int i = j / c_out, o = j - i * c_out;
+        buf[kMn ? mnmajor(o, i, depth) : kmajor(i, o, depth)] = src[j];
       }
     }
-  }
-
-  __device__ __forceinline__ void load(int k) {
-    if (!vec) return;
-    const uint4* src = reinterpret_cast<const uint4*>(
-        w3 + static_cast<long>(k) * c_in * c_out);
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      if (at[m] >= 0) v[m] = src[threadIdx.x + kWarpgroup * m];
-  }
-
-  // Row k into `buf`; on the vector path the registers hold row k (load(k)
-  // came last).
-  __device__ __forceinline__ void store(__nv_bfloat16* buf, int k) const {
-    if (vec) {
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        if (at[m] >= 0) *reinterpret_cast<uint4*>(buf + at[m]) = v[m];
-      return;
-    }
-    const __nv_bfloat16* src = w3 + static_cast<long>(k) * c_in * c_out;
-    for (int j = threadIdx.x; j < c_in * c_out; j += kWarpgroup) {
-      const int i = j / c_out, o = j - i * c_out;
-      buf[kMn ? mnmajor(o, i, depth) : kmajor(i, o, depth)] = src[j];
-    }
+    pieces_commit();
   }
 };
 
@@ -393,6 +626,22 @@ R with_width(int n, F&& f, R otherwise) {
     case 56: return f(std::integral_constant<int, 56>());
     case 64: return f(std::integral_constant<int, 64>());
     default: return otherwise;
+  }
+}
+
+// The same for n of 8, 16, .., 128: the bfloat16 B1's and B2 rows kernel's N.
+template <typename F, typename R>
+R with_wide_width(int n, F&& f, R otherwise) {
+  switch (n) {
+    case 72: return f(std::integral_constant<int, 72>());
+    case 80: return f(std::integral_constant<int, 80>());
+    case 88: return f(std::integral_constant<int, 88>());
+    case 96: return f(std::integral_constant<int, 96>());
+    case 104: return f(std::integral_constant<int, 104>());
+    case 112: return f(std::integral_constant<int, 112>());
+    case 120: return f(std::integral_constant<int, 120>());
+    case 128: return f(std::integral_constant<int, 128>());
+    default: return with_width(n, f, otherwise);
   }
 }
 

@@ -414,11 +414,12 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
 
 
 def _check_geometry(dt, slots: int, rows_blk: int, blk: int, *,
-                    k_max: int = 64, **dims) -> None:
+                    k_max: int = 64, w_max: int = 64, **dims) -> None:
     """Raises on what the kernels do not take: a GEMM type other than
     float32 or bfloat16, blocks of other than 64 rows, a blk that is not a
     positive multiple of 64 dividing the slots, or a width ``dims`` (name=
-    value) outside 1..64 (``K``: 1..k_max; ``rank``: 1..32)."""
+    value) outside 1..w_max (``K``: 1..k_max; ``rank``: 1..32).  B1 and B2
+    take widths and K up to 128, B3 and B4 up to 64."""
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"h_blocked dtype {dt} (expected float32 | bfloat16)")
     if rows_blk != 64:
@@ -426,7 +427,7 @@ def _check_geometry(dt, slots: int, rows_blk: int, blk: int, *,
     if blk % 64 or blk <= 0:
         raise ValueError(f"blk={blk} must be a positive multiple of 64")
     for name, v in dims.items():
-        top = {"rank": 32, "K": k_max}.get(name, 64)
+        top = {"rank": 32, "K": k_max}.get(name, w_max)
         if not 1 <= v <= top:
             raise ValueError(f"{name}={v} outside the kernel's 1..{top}")
     if slots % blk:
@@ -474,12 +475,26 @@ def _lowrank_library(dt: torch.dtype, backward: bool = False) -> str:
     return name + ("_f32" if dt == torch.float32 else "") + "_wgmma"
 
 
+def f32_chunks(rows: int, depth: int) -> tuple:
+    """(chunks, n): the column chunks the float32 B1 (B2's rows kernel) cuts
+    its product's ``rows`` into, c_out (c_in) over a depth of c_in (c_out),
+    as csrc/f32_wgmma.cuh's Chunks does: the rows rounded up to 8 as one
+    chunk up to 64, else as chunks of at most 64, or 32 where the depth is
+    past 64, each n (a multiple of 8) wide.  Each chunk is one pass over the
+    K+1 stages."""
+    r8 = _round_up(rows, 8)
+    most = 64 if _round_up(depth, 16) <= 64 else 32
+    chunks = -(-r8 // most)
+    return chunks, _round_up(-(-r8 // chunks), 8)
+
+
 def image_numel(k: int, rows: int, depth: int) -> int:
     """bf16 elements of the float32 B1's (B2's) stage image of [w3; b3]:
-    K+1 stages of three [rows rounded up to 8, depth rounded up to 16]
-    operands (csrc/f32_wgmma.cuh); B1's rows are c_out and its depth c_in,
-    B2's the other way round."""
-    return (k + 1) * 3 * _round_up(rows, 8) * _round_up(depth, 16)
+    chunks x (K+1) stages of three [n, depth rounded up to 16] operands
+    (``f32_chunks``; csrc/f32_wgmma.cuh); B1's rows are c_out and its depth
+    c_in, B2's the other way round."""
+    chunks, n = f32_chunks(rows, depth)
+    return chunks * (k + 1) * 3 * n * _round_up(depth, 16)
 
 
 def lowrank_chunk_cols(rank: int) -> int:
@@ -595,8 +610,8 @@ def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
     are added here in a fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, k_max=128, K=k, c_in=c_in,
-                    c_out=c_out)
+    _check_geometry(dt, slots, rows_blk, blk, k_max=128, w_max=128, K=k,
+                    c_in=c_in, c_out=c_out)
     nb = slots // blk
     n = x.shape[0]
     _check("h_blocked", h_blocked, dt, (slots, k))
@@ -720,8 +735,8 @@ def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
     fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, k_max=128, K=k, c_in=c_in,
-                    c_out=c_out)
+    _check_geometry(dt, slots, rows_blk, blk, k_max=128, w_max=128, K=k,
+                    c_in=c_in, c_out=c_out)
     nb, c2 = slots // blk, c_in * c_out
     _check("g", g, torch.float32, (nb * rows_blk, c_out))
     _check("h_blocked", h_blocked, dt, (slots, k))

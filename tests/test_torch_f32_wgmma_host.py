@@ -1,13 +1,15 @@
 """Host-side pieces of the float32 B1 and B2 on the tensor cores
 (csrc/fused_edge_conv_f32_wgmma.cu, csrc/fused_edge_conv_bwd_f32_wgmma.cu
 and csrc/f32_wgmma.cuh), on the CPU: the design and libraries the wrappers
-pick, the index map of the stage-image launch, numpy emulations of the
-kernels' loops (B1's tile loop: the gather, the three-part splits, the six
-products in the kernel's order, the float32 h-weighting and the segmented
-scatter into per-part sums; B2's rows kernel and its weights kernel) against
-the plain versions, a float64 reference and the JAX package's Pallas
-kernels in interpret mode, why z = x_src (x) dmsg needs six products, and
-the float32 wrappers refusing what the kernels do not take."""
+pick, the column chunks and the index map of the stage-image launch, numpy
+emulations of the kernels' loops (B1's tile loop: the gather, the
+three-part splits, a pass over k per column chunk with the six products in
+the kernel's order, the float32 h-weighting and the segmented scatter into
+per-part sums; B2's rows kernel, chunk by chunk of c_in, and its weights
+kernel) against the plain versions, a float64 reference and the JAX
+package's Pallas kernels in interpret mode, at widths up to 128, why z =
+x_src (x) dmsg needs six products, and the float32 wrappers refusing what
+the kernels do not take."""
 
 import numpy as np
 import pytest
@@ -56,60 +58,99 @@ def _fma(a, b, c):
     return (np.float64(1) * a * b + c).astype(np.float32)
 
 
+def _chunks(c_in, c_out, by_out):
+    """(chunks, n, depth) of the stage image: the product's rows (c_out by
+    output, c_in by input) in column chunks (f32_wgmma.cuh Chunks, the
+    wrapper's ``f32_chunks``) over its depth rounded up to 16."""
+    rows, depth = (c_out, c_in) if by_out else (c_in, c_out)
+    return (*tfc.f32_chunks(rows, depth), _round_up(depth, 16))
+
+
 def _image(w3, b3, c_in, c_out, by_out):
     """What the stage-image launch writes (f32_wgmma.cuh stage_image): its
-    index map run in numpy, thread index q by thread index q.  [K+1, 3,
-    rows * depth] bf16 values as float64."""
+    index map run in numpy, thread index q by thread index q.  [chunks
+    (K+1), 3, n * depth] bf16 values as float64, stage c (K+1) + k chunk c
+    of W~_k."""
     k = w3.shape[0]
-    rows, depth = ((_round_up(c_out, 8), _round_up(c_in, 16)) if by_out
-                   else (_round_up(c_in, 8), _round_up(c_out, 16)))
+    chunks, rows, depth = _chunks(c_in, c_out, by_out)
     per = rows * depth
-    q = np.arange((k + 1) * per)
-    kk, r = q // per, q % per
+    q = np.arange(chunks * (k + 1) * per)
+    st, r = q // per, q % per
+    c, kk = st // (k + 1), st % (k + 1)
     if by_out:
-        i, o = r // rows, r % rows
-        at = kmajor(o, i, depth)
+        i, ol = r // rows, r % rows
+        o = c * rows + ol
+        at = kmajor(ol, i, depth)
     else:
-        i, o = r // depth, r % depth
-        at = kmajor(i, o, depth)
+        il, o = r // depth, r % depth
+        i = c * rows + il
+        at = kmajor(il, o, depth)
     ok = (o < c_out) & (i < c_in)
     w = np.concatenate([w3, b3[None]]).reshape(k + 1, c_in, c_out)
     v = np.where(ok, w[kk, np.minimum(i, c_in - 1), np.minimum(o, c_out - 1)],
                  0).astype(np.float32)
-    image = np.zeros((k + 1, 3, per))
+    image = np.zeros((chunks * (k + 1), 3, per))
     for p, part in enumerate(_split(v)):
-        image[kk, p, at] = part
+        image[st, p, at] = part
     return image
 
 
-def _operand_parts(image, rows, depth):
-    """The image read back through kmajor, as the descriptor reads it:
-    [K+1, 3, rows, depth]."""
+def _operand_parts(image, rows, depth, chunks=1):
+    """The image read back through kmajor, as the descriptor reads it, its
+    column chunks side by side: [K+1, 3, chunks * rows, depth]."""
     r, d = np.meshgrid(np.arange(rows), np.arange(depth), indexing="ij")
-    return image[:, :, kmajor(r, d, depth)]
+    parts = image[:, :, kmajor(r, d, depth)]       # [chunks (K+1), 3, n, d]
+    st = parts.shape[0] // chunks
+    return np.concatenate([parts[c * st:(c + 1) * st] for c in range(chunks)],
+                          axis=2)
+
+
+@pytest.mark.parametrize("c_in,c_out,want", [
+    (48, 48, (1, 48)), (64, 64, (1, 64)), (48, 128, (2, 64)),
+    (40, 72, (2, 40)), (72, 128, (4, 32)), (128, 128, (4, 32)),
+    (72, 100, (4, 32)), (128, 64, (2, 32)), (100, 72, (3, 24)),
+    (128, 1, (1, 8))])
+def test_chunks_keep_a_stage_within_24_kb(c_in, c_out, want):
+    """B1's column chunks of c_out over c_in (B2's rows kernel: of c_in over
+    c_out, the same rule): one chunk up to 64 columns, else chunks of at
+    most 64, or of 32 past a depth of 64, so that a stage's three parts stay
+    within 24 KB and cover every column once."""
+    chunks, n = tfc.f32_chunks(c_out, c_in)
+    assert (chunks, n) == want
+    assert n % 8 == 0 and chunks * n >= c_out and (chunks - 1) * n < c_out
+    assert 3 * 2 * n * _round_up(c_in, 16) <= 24 * 1024
 
 
 @pytest.mark.parametrize("k", [1, 8, 33, 128])
 @pytest.mark.parametrize("c_in,c_out", [(1, 1), (5, 7), (48, 48), (64, 64),
-                                        (24, 5), (6, 20)])
+                                        (24, 5), (6, 20), (128, 128),
+                                        (72, 100), (40, 72)])
 def test_stage_image_launch_writes_both_layouts(k, c_in, c_out):
     """By output (B1): bit for bit B5's stage image (ops/pallas_mp.py:
-    stage_image), rows o and depth i.  By input (B2): the same of W~_k^T,
-    rows i and depth o.  Read back through kmajor, the parts sum to w3 and
-    b3 exactly, and image_numel sizes the scratch."""
+    stage_image), rows o and depth i, where one chunk holds c_out.  By
+    input (B2): the same of W~_k^T, rows i and depth o.  Read back through
+    kmajor, chunk by chunk, the parts sum to w3 and b3 exactly in both
+    layouts, and image_numel sizes the scratch."""
     rng = np.random.default_rng(k + c_in + c_out)
     w3 = rng.normal(size=(k, c_in * c_out)).astype(np.float32)
     b3 = rng.normal(size=(c_in * c_out,)).astype(np.float32)
+    want = np.concatenate([w3, b3[None]]).reshape(k + 1, c_in, c_out)
     fwd = _image(w3, b3, c_in, c_out, by_out=True)
-    ref = pallas_mp.stage_image(torch.as_tensor(w3), torch.as_tensor(b3), c_in)
-    assert np.array_equal(fwd.reshape(-1), ref.double().numpy().reshape(-1))
     assert fwd.size == tfc.image_numel(k, c_out, c_in)
+    chunks, n, dp = _chunks(c_in, c_out, True)
+    if chunks == 1:
+        ref = pallas_mp.stage_image(torch.as_tensor(w3), torch.as_tensor(b3),
+                                    c_in)
+        assert np.array_equal(fwd.reshape(-1), ref.double().numpy().reshape(-1))
+    parts = _operand_parts(fwd, n, dp, chunks)         # [K+1, 3, o, i]
+    assert not parts[:, :, c_out:].any() and not parts[:, :, :, c_in:].any()
+    assert np.array_equal(parts.sum(1)[:, :c_out, :c_in],
+                          want.transpose(0, 2, 1).astype(np.float64))
     bwd = _image(w3, b3, c_in, c_out, by_out=False)
     assert bwd.size == tfc.image_numel(k, c_in, c_out)
-    np_, dq = _round_up(c_in, 8), _round_up(c_out, 16)
-    parts = _operand_parts(bwd, np_, dq)               # [K+1, 3, i, o]
+    chunks, n, dq = _chunks(c_in, c_out, False)
+    parts = _operand_parts(bwd, n, dq, chunks)         # [K+1, 3, i, o]
     assert not parts[:, :, c_in:].any() and not parts[:, :, :, c_out:].any()
-    want = np.concatenate([w3, b3[None]]).reshape(k + 1, c_in, c_out)
     assert np.array_equal(parts.sum(1)[:, :c_in, :c_out], want.astype(np.float64))
 
 
@@ -137,6 +178,9 @@ def test_design_and_libraries():
 
 
 def _graph(kind, seed, n=150, e=900):
+    """A random (or skewed) receiver-sorted graph's scatter blocks; a smaller
+    one for the wide shapes, whose plain versions build [slots, c_in c_out]
+    arrays."""
     rng = np.random.default_rng(seed)
     if kind == "skewed":  # a crowded first block: blocks with padding tiles
         recv = np.concatenate([rng.integers(0, 64, 500),
@@ -170,20 +214,25 @@ def _tiles(blocks):
 
 
 def _emulate_fwd(blocks, o, c_in, c_out, compact):
-    """B1 float32 as csrc/fused_edge_conv_f32_wgmma.cu runs it."""
+    """B1 float32 as csrc/fused_edge_conv_f32_wgmma.cu runs it: per tile a
+    pass over the K+1 stages for each column chunk of c_out, X's parts
+    reused."""
     k = o["h"].shape[1]
-    np_, dp = _round_up(c_out, 8), _round_up(c_in, 16)
-    w = _operand_parts(_image(o["w3"], o["b3"], c_in, c_out, True), np_, dp)
+    chunks, n, dp = _chunks(c_in, c_out, True)
+    w = _operand_parts(_image(o["w3"], o["b3"], c_in, c_out, True), n, dp,
+                       chunks)
     idx, real = _tiles(blocks)
     # the gather: X = x[senders_perm] per tile, padded to dp columns
     x = np.zeros((*idx.shape, dp), np.float32)
     x[..., :c_in] = o["x"][blocks.senders_perm[idx]]
     xp = _split(x)
     hs = np.concatenate([o["h"][idx], np.ones((*idx.shape, 1), np.float32)], 2)
-    msg = np.zeros((*idx.shape, np_), np.float32)
-    for kk in range(k + 1):
-        p = _six(xp, [w[kk, q].T for q in range(3)])
-        msg = _fma(hs[..., kk:kk + 1], p, msg)
+    msg = np.zeros((*idx.shape, chunks * n), np.float32)
+    for c in range(chunks):
+        cols = slice(c * n, (c + 1) * n)
+        for kk in range(k + 1):
+            p = _six(xp, [w[kk, q, cols].T for q in range(3)])
+            msg[..., cols] = _fma(hs[..., kk:kk + 1], p, msg[..., cols])
     msg = msg[..., :c_out]
     # the part walk and the scatter
     tiles = blocks.blk // 64
@@ -251,7 +300,15 @@ def _rel(a, ref):
     return np.abs(np.asarray(a, np.float64) - ref).max() / np.abs(ref).max()
 
 
-SHAPES = [(8, 8, 8), (16, 16, 33), (48, 48, 33), (6, 20, 8)]
+# (c_in, c_out, K): widths up to 64 in one chunk; past 64, chunks of 32
+# over a depth past 64 (128 x 128, 72 x 100) and of 40 over one within it
+SHAPES = [(8, 8, 8), (16, 16, 33), (48, 48, 33), (6, 20, 8), (128, 128, 8),
+          (72, 100, 4), (40, 72, 4)]
+
+
+def _graph_for(c_in, c_out, seed):
+    wide = c_in * c_out > 64 * 64
+    return _graph("random", seed, *((70, 300) if wide else ()))
 
 
 @pytest.mark.parametrize("compact", [True, False])
@@ -261,7 +318,7 @@ def test_fwd_tile_loop_matches_plain_float64_and_pallas(c_in, c_out, k, compact)
     float64 reference, within 1e-6 of the max (float32's own error), and
     against the JAX package's Pallas kernel in interpret mode (float32 at
     Precision.HIGHEST), within 1e-5 of the max."""
-    blocks = _graph("random", seed=c_in + k)
+    blocks = _graph_for(c_in, c_out, seed=c_in + k)
     o = _operands(blocks, c_in, c_out, k, seed=c_out + 3 * k)
     got = _emulate_fwd(blocks, o, c_in, c_out, compact)
     ref = _f64_fwd(blocks, o, c_in, c_out)
@@ -305,11 +362,14 @@ def _dmsg(blocks, g, compact):
 
 def _emulate_bwd(blocks, o, c_in, c_out, compact, sms=SMS):
     """B2 float32 as csrc/fused_edge_conv_bwd_f32_wgmma.cu runs it: (dh,
-    dx_src, dw3, db3)."""
+    dx_src, dw3, db3).  The rows kernel walks the K+1 stages once per column
+    chunk of c_in; each chunk's share of dh[:, k] is added to the earlier
+    chunks' in float32."""
     k = o["h"].shape[1]
     slots, c2 = len(blocks.senders_perm), c_in * c_out
-    np_, dq = _round_up(c_in, 8), _round_up(c_out, 16)
-    wt = _operand_parts(_image(o["w3"], o["b3"], c_in, c_out, False), np_, dq)
+    chunks, n, dq = _chunks(c_in, c_out, False)
+    wt = _operand_parts(_image(o["w3"], o["b3"], c_in, c_out, False), n, dq,
+                        chunks)
     idx, real = _tiles(blocks)
     dmsg = _dmsg(blocks, o["g"], compact)
     # (a) rows: R_k = D @ W~_k^T, dx += h~ R_k, dh[:, k] = sum_i x_src R_k
@@ -317,18 +377,21 @@ def _emulate_bwd(blocks, o, c_in, c_out, compact, sms=SMS):
     d[..., :c_out] = dmsg[idx]
     dp = _split(d)
     hs = np.concatenate([o["h"][idx], np.ones((*idx.shape, 1), np.float32)], 2)
-    xs = np.zeros((*idx.shape, np_), np.float32)
+    xs = np.zeros((*idx.shape, chunks * n), np.float32)
     xs[..., :c_in] = o["x_src"][idx]
-    dx = np.zeros((*idx.shape, np_), np.float32)
+    dx = np.zeros((*idx.shape, chunks * n), np.float32)
     dh = np.zeros((*idx.shape, k), np.float32)
-    for kk in range(k + 1):
-        r = _six(dp, [wt[kk, q].T for q in range(3)])
-        dx = _fma(hs[..., kk:kk + 1], r, dx)
-        if kk < k:
-            dh[..., kk] = (xs.astype(np.float64) * r).sum(-1)
+    for c in range(chunks):
+        cols = slice(c * n, (c + 1) * n)
+        for kk in range(k + 1):
+            r = _six(dp, [wt[kk, q, cols].T for q in range(3)])
+            dx[..., cols] = _fma(hs[..., kk:kk + 1], r, dx[..., cols])
+            if kk < k:
+                share = (xs[..., cols].astype(np.float64) * r).sum(-1)
+                dh[..., kk] = (dh[..., kk] + share).astype(np.float32)
     if compact:  # padding-only tiles write zeros
         dx[~real], dh[~real] = 0, 0
-    dh, dx = dh.reshape(slots, k), dx.reshape(slots, np_)[:, :c_in]
+    dh, dx = dh.reshape(slots, k), dx.reshape(slots, -1)[:, :c_in]
     # (b) weights: per split, chunk by chunk, six passes of h^T z into a
     # fresh accumulator added into the float32 sum; db3 in slot order
     cols, row_tiles = tfc.weight_tiles(k, c_in, c_out)
@@ -393,7 +456,7 @@ def test_bwd_rows_and_weights_match_plain_float64_and_pallas(c_in, c_out, k,
     ``fused_edge_conv_bwd_plain`` and a float64 reference, within 1e-6 of
     each output's max, and against the JAX package's Pallas backward in
     interpret mode, within 1e-5."""
-    blocks = _graph("random", seed=c_in + k + 1)
+    blocks = _graph_for(c_in, c_out, seed=c_in + k + 1)
     o = _operands(blocks, c_in, c_out, k, seed=c_out + 3 * k + 1)
     got = _emulate_bwd(blocks, o, c_in, c_out, compact)
     plain = _plain_bwd(blocks, o, c_in, c_out, compact)
@@ -461,7 +524,7 @@ def _small(k=6, c=8):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 @pytest.mark.parametrize("bad,match", [
-    ({"c_out": 65}, "c_out=65"), ({"c_in": 0}, "c_in=0"),
+    ({"c_out": 129}, "c_out=129"), ({"c_in": 0}, "c_in=0"),
     ({"rows_blk": 16}, "rows_blk=16"), ({"blk": 32}, "blk=32")])
 def test_f32_wrappers_refuse_geometry_before_launch(which, bad, match):
     fwd, bwd, kw = _small()

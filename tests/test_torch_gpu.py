@@ -150,8 +150,8 @@ def test_bwd_wrapper_checks_operands(cuda):
                                      *args[3:], **kw)
     with pytest.raises(ValueError):  # 16-row blocks
         tfc.fused_edge_conv_bwd_cuda(*args, **{**kw, "rows_blk": 16})
-    with pytest.raises(ValueError):  # wider than the kernel's 64
-        tfc.fused_edge_conv_bwd_cuda(*args, **{**kw, "c_out": 65})
+    with pytest.raises(ValueError):  # wider than the kernel's 128
+        tfc.fused_edge_conv_bwd_cuda(*args, **{**kw, "c_out": 129})
     with pytest.raises(ValueError):  # a CPU operand among CUDA ones
         tfc.fused_edge_conv_bwd_cuda(*args[:4], args[4].cpu(), args[5], **kw)
 
@@ -224,6 +224,87 @@ def test_k_limits_of_b1_and_b2(cuda):
         tfc.fused_edge_conv_bwd_cuda(
             t(_g(blocks, 8, 17)), t(h), t(x[blocks.senders_perm]), t(w3),
             t(b3), blocks.compact_s.to("cuda"), **kw)
+
+
+def _wide_operands(c_in, c_out, k, seed, n=100, e=700):
+    """Two receiver blocks of a graph at c_in != c_out possibly: the plain
+    versions build [slots, c_in c_out] arrays."""
+    rng = np.random.default_rng(seed)
+    recv = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    send = rng.integers(0, n, e).astype(np.int32)
+    mask = rng.random(e) > 0.2
+    blocks = tfc.build_scatter_blocks(recv, send, n, mask, quantum=64)
+    slots = len(blocks.senders_perm)
+    return blocks, dict(
+        h=np.maximum(rng.normal(size=(slots, k)), 0).astype(np.float32),
+        x=rng.normal(size=(n, c_in)).astype(np.float32),
+        w3=(rng.normal(size=(k, c_in * c_out)) * 0.1).astype(np.float32),
+        b3=(rng.normal(size=(c_in * c_out,)) * 0.1).astype(np.float32),
+        g=rng.normal(size=(blocks.n_pad, c_out)).astype(np.float32))
+
+
+# B1 and B2 past width 64 (one design per type: the bfloat16 products at N
+# up to 128, the float32 ones in column chunks): widths 72, 96, 127 (not a
+# multiple of 8: w3's rows copy element by element), 128 and the pair
+# c_in 72, c_out 128, at K 48 and 128
+WIDE = [(72, 72), (96, 96), (127, 127), (128, 128), (72, 128)]
+
+
+@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("k", [48, 128])
+@pytest.mark.parametrize("c_in,c_out", WIDE)
+def test_wide_kernels_match_plain(cuda, c_in, c_out, k, compact, gemm_dtype):
+    """B1 and B2 at widths 65-128 against their plain versions (1e-5 of the
+    max, as at the narrow widths), each launched twice with the same bits."""
+    blocks, o = _wide_operands(c_in, c_out, k, seed=c_in + 3 * c_out + k)
+    kw = dict(c_in=c_in, c_out=c_out, rows_blk=64, blk=blocks.blk,
+              gemm_dtype=gemm_dtype)
+
+    def run(device):
+        t = {key: torch.as_tensor(v, device=device) for key, v in o.items()}
+        s = (blocks.compact_s.to(device) if compact
+             else torch.as_tensor(blocks.s_matrix, device=device))
+        sp = torch.as_tensor(blocks.senders_perm, device=device)
+        out = tfc.fused_edge_conv(t["h"], t["x"], sp, t["w3"], t["b3"], s,
+                                  **kw)
+        grads = tfc.fused_edge_conv_bwd(t["g"], t["h"], t["x"][sp.long()],
+                                        t["w3"], t["b3"], s, **kw)
+        return [a.cpu() for a in (out, *grads)]
+
+    fwd, bwd = tfc.fused_edge_conv.launches, tfc.fused_edge_conv_bwd.launches
+    got, again = run("cuda"), run("cuda")
+    torch.cuda.synchronize()
+    assert tfc.fused_edge_conv.launches == fwd + 2
+    assert tfc.fused_edge_conv_bwd.launches == bwd + 2
+    for name, a, b, r in zip(("out", "dh", "dx_src", "dw3", "db3"), got,
+                             again, run("cpu")):
+        assert a.shape == r.shape, name
+        assert torch.equal(a, b), name
+        err = (a - r).abs().max().item() / r.abs().max().item()
+        assert err < BWD_TOL, (name, err)
+
+
+def test_width_limits_of_b1_and_b2(cuda):
+    """129 is past B1's and B2's widths: the wrappers raise before any
+    launch, in both types."""
+    blocks, o = _wide_operands(8, 8, 6, seed=18)
+    t = {key: torch.as_tensor(v, device="cuda") for key, v in o.items()}
+    sp = torch.as_tensor(blocks.senders_perm, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        fwd, bwd = tfc.fused_edge_conv.launches, tfc.fused_edge_conv_bwd.launches
+        for bad in ({"c_in": 129}, {"c_out": 129}):
+            kw = {**dict(c_in=8, c_out=8, rows_blk=64, blk=blocks.blk), **bad}
+            with pytest.raises(ValueError, match="129"):
+                tfc.fused_edge_conv_cuda(
+                    t["h"].to(dt), t["x"].to(dt), sp, t["w3"].to(dt), t["b3"],
+                    blocks.compact_s.to("cuda"), **kw)
+            with pytest.raises(ValueError, match="129"):
+                tfc.fused_edge_conv_bwd_cuda(
+                    t["g"], t["h"].to(dt), t["x"][sp.long()].to(dt),
+                    t["w3"].to(dt), t["b3"], blocks.compact_s.to("cuda"), **kw)
+        assert tfc.fused_edge_conv.launches == fwd
+        assert tfc.fused_edge_conv_bwd.launches == bwd
 
 
 # The bfloat16 B1 and B2 run on the tensor cores (csrc/*_wgmma.cu), and so

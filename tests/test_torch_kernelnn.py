@@ -15,6 +15,7 @@ from conftest import make_random_graph
 from fast_eng_super_resolution_tpu.core.graph import pad_graph
 from fast_eng_super_resolution_tpu.models.kernelnn import KernelNN as JKernelNN
 from fast_eng_super_resolution_tpu_torch.core.checkpoint import flatten_params
+from fast_eng_super_resolution_tpu_torch.models.common import load_jax_tree
 from fast_eng_super_resolution_tpu_torch.models.kernelnn import KernelNN
 from fast_eng_super_resolution_tpu_torch.models.registry import init_model
 from fast_eng_super_resolution_tpu_torch.models.teecnet import TEECNet
@@ -107,6 +108,36 @@ def test_apply_fused_matches_jax(compact, rank):
                            edge_mask=torch.as_tensor(g.edge_mask))
     assert _rel(got.numpy(), ref) < TOL
     assert _rel(got.numpy(), plain.numpy()) < TOL
+
+
+def test_apply_fused_width_128_matches_jax():
+    """Width 128 (K 128, depth 1, about 200 nodes), where the card's B1
+    takes c_in = c_out = 128: the port's fused form (plain version on the
+    CPU), its weights carried over from the JAX parameter tree by
+    ``load_jax_tree``, against JAX's ``apply_fused`` with the Pallas kernel
+    in interpret mode, float32, within 1e-5 of the max."""
+    cfg = dict(width=128, ker_width=128, depth=1, in_width=4, out_width=4)
+    model = JKernelNN(mode="edge3d", **cfg)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    model.init(jax.random.PRNGKey(5)))
+    g = make_random_graph(np.random.default_rng(5), n=200, e=900)
+    g = pad_graph(g["x"], g["y"], g["pos"], g["senders"], g["receivers"],
+                  g["edge_attr"], 256, 1024)
+    ea_b, sp, s, rows_blk, blk = model.prepare_fused(
+        g.senders, g.receivers, g.edge_attr, 256, g.edge_mask)
+    ref = model.apply_fused(params, jnp.asarray(g.x), jnp.asarray(ea_b),
+                            jnp.asarray(sp), jnp.asarray(s), rows_blk=rows_blk,
+                            blk=blk, gemm_dtype="float32", interpret=True)
+    port = KernelNN(**cfg)
+    load_jax_tree(port, params)
+    ea_t, sp_t, s_t, rb, bk = port.prepare_fused(
+        g.senders, g.receivers, g.edge_attr, 256, g.edge_mask, compact=True)
+    with torch.no_grad():
+        got = port.apply_fused(torch.as_tensor(g.x), torch.as_tensor(ea_t),
+                               torch.as_tensor(sp_t), s_t.to("cpu"),
+                               rows_blk=rb, blk=bk, gemm_dtype="float32")
+    assert got.shape == (256, 4)
+    assert _rel(got.numpy(), ref) < TOL
 
 
 @pytest.mark.parametrize("rank", RANKS)

@@ -1,13 +1,21 @@
 """Host-side pieces of the bfloat16 tensor-core B1 and B2 (csrc/*_wgmma.cu;
 the float32 ones are tests/test_torch_f32_wgmma_host.py's),
 on the CPU: the forward's split planner, the weights kernel's tiling and
-slot splits, the operand checks of the wrappers, and the exact hi/lo split
-of bf16 products that the weights kernel relies on."""
+slot splits, the operand checks of the wrappers, the exact hi/lo split
+of bf16 products that the weights kernel relies on, and numpy emulations of
+the kernels' loops at widths up to 128 (B1's tile loop: the gather, X @ B3
+on the CUDA cores, a product per row of w3 weighted by h, the scatter into
+per-part sums; B2's rows kernel and its weights kernel) against the plain
+versions, a float64 reference and the JAX package's Pallas kernels in
+interpret mode."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from fast_eng_super_resolution_tpu.ops import fused_conv as jfc
 from fast_eng_super_resolution_tpu_torch.ops import fused_conv as tfc
 
 
@@ -93,11 +101,11 @@ def _small(dt=torch.bfloat16, c=8, k=6):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 @pytest.mark.parametrize("bad,match", [
-    ({"c_out": 65}, "c_out=65"), ({"c_in": 0}, "c_in=0"),
+    ({"c_out": 129}, "c_out=129"), ({"c_in": 0}, "c_in=0"),
     ({"rows_blk": 16}, "rows_blk=16"), ({"blk": 32}, "blk=32")])
 def test_wrappers_refuse_geometry_before_launch(which, bad, match):
     """The bfloat16 wrappers refuse what the tensor-core kernels do not take
-    (widths past 64, blocks of other than 64 rows, blk not a multiple of
+    (widths past 128, blocks of other than 64 rows, blk not a multiple of
     64) before they look for a card."""
     _, fwd, bwd, kw = _small()
     fn, args = ((tfc.fused_edge_conv_cuda, fwd) if which == "fwd"
@@ -137,3 +145,280 @@ def test_bf16_product_split_is_exact():
     assert torch.equal(hi.double() + lo.double(), p.double())
     # the split is not trivial: lo carries bits for most products
     assert (lo != 0).float().mean() > 0.9
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 kernels' loops in numpy (csrc/fused_edge_conv_wgmma.cu,
+# csrc/fused_edge_conv_bwd_wgmma.cu): every product of the tensor cores is a
+# product of bf16 values, exact, summed in float32; the CUDA cores' sums run
+# in float32 in the kernels' order
+
+SMS = 132  # the H100's SMs: conv_parts and weight_splits as on the card
+PROMOTE = 32  # the weights kernel's chunks per tensor-core sum (kPromote)
+
+
+def _bf(a):
+    """``a`` rounded to bfloat16, as float32 values."""
+    return (torch.as_tensor(np.asarray(a, np.float32)).to(torch.bfloat16)
+            .float().numpy())
+
+
+def _fma(a, b, c):
+    """float32 fmaf(a, b, c), elementwise."""
+    return (np.float64(1) * a * b + c).astype(np.float32)
+
+
+def _mm(a, b):
+    """A tensor-core product of bf16 values: exact products, read out of
+    the float32 accumulator."""
+    return (np.asarray(a, np.float64) @ np.asarray(b, np.float64)).astype(
+        np.float32)
+
+
+def _graph(seed, n, e):
+    rng = np.random.default_rng(seed)
+    recv = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    send = rng.integers(0, n, e).astype(np.int32)
+    mask = rng.random(e) > 0.2
+    return tfc.build_scatter_blocks(recv, send, n, mask, quantum=64)
+
+
+def _operands(blocks, c_in, c_out, k, seed):
+    """h, x and w3 bf16 values (the GEMM type's), b3 and g float32."""
+    rng = np.random.default_rng(seed)
+    slots = len(blocks.senders_perm)
+    o = dict(h=_bf(np.maximum(rng.normal(size=(slots, k)), 0)),
+             x=_bf(rng.normal(size=(blocks.n_nodes, c_in))),
+             w3=_bf(rng.normal(size=(k, c_in * c_out)) * 0.2),
+             b3=(rng.normal(size=(c_in * c_out,)) * 0.1).astype(np.float32),
+             g=rng.normal(size=(blocks.n_pad, c_out)).astype(np.float32))
+    o["x_src"] = o["x"][blocks.senders_perm]
+    return o
+
+
+def _tiles(blocks):
+    """[tiles, 64] slot indices and whether each tile holds a real slot."""
+    idx = np.arange(len(blocks.senders_perm)).reshape(-1, 64)
+    return idx, (blocks.compact_s.slot_rows[idx] >= 0).any(1)
+
+
+def _emulate_fwd(blocks, o, c_in, c_out, compact):
+    """B1 bfloat16 as csrc/fused_edge_conv_wgmma.cu runs it: per tile msg =
+    X @ B3 channel by channel, then per k msg += h[:, k] (X @ W3_k); the
+    scatter adds each slot's message into its row in slot order (or sums
+    S's column products in the dense form); the parts are summed in
+    order."""
+    k = o["h"].shape[1]
+    idx, real = _tiles(blocks)
+    x = o["x"][blocks.senders_perm[idx]]                 # [T, 64, c_in]
+    b3 = o["b3"].reshape(c_in, c_out)
+    msg = np.zeros((*idx.shape, c_out), np.float32)
+    for i in range(c_in):
+        msg = _fma(x[..., i:i + 1], b3[i], msg)
+    h = o["h"][idx]
+    for kk in range(k):
+        msg = _fma(h[..., kk:kk + 1], _mm(x, o["w3"][kk].reshape(c_in, c_out)),
+                   msg)
+    tiles = blocks.blk // 64
+    parts = tfc.conv_parts(blocks.num_blocks, tiles, SMS)
+    out = np.zeros((parts, blocks.n_pad, c_out), np.float32)
+    srow = blocks.compact_s.slot_rows
+    for b in range(blocks.num_blocks):
+        for p, (lo, hi) in enumerate(tfc.part_bounds(tiles, parts)):
+            acc = np.zeros((64, c_out), np.float32)
+            for t in range(b * tiles + lo, b * tiles + hi):
+                if compact:
+                    if not real[t]:
+                        continue
+                    for s, r in enumerate(srow[idx[t]]):
+                        if r >= 0:
+                            acc[r] += msg[t, s]
+                else:
+                    s_tile = blocks.s_matrix[b * 64:(b + 1) * 64,
+                                             (t - b * tiles) * 64:
+                                             (t - b * tiles + 1) * 64]
+                    acc += _mm(s_tile, msg[t])
+            rows = slice(b * 64, (b + 1) * 64)
+            out[p, rows] = (blocks.compact_s.row_weight[rows, None] * acc
+                            if compact else acc)
+    total = out[0]
+    for p in range(1, parts):
+        total = total + out[p]
+    return total
+
+
+def _dmsg(blocks, g, compact):
+    """The rows kernel's dmsg rows, rounded to bf16: row_weight g[slot_rows]
+    in CompactS form, S^T g summed in float32 in the dense form."""
+    nb, blk = blocks.num_blocks, blocks.blk
+    if compact:
+        srow = blocks.compact_s.slot_rows
+        rows = np.repeat(np.arange(nb), blk) * 64 + np.maximum(srow, 0)
+        d = blocks.compact_s.row_weight[rows, None] * g[rows]
+        return _bf(np.where(srow[:, None] >= 0, d, 0))
+    s = blocks.s_matrix.reshape(nb, 64, blk)
+    d = np.zeros((nb, blk, g.shape[1]), np.float32)
+    gb = g.reshape(nb, 64, -1)
+    for r in range(64):
+        d = _fma(s[:, r, :, None], gb[:, r, None, :], d)
+    return _bf(d.reshape(nb * blk, -1))
+
+
+def _emulate_bwd(blocks, o, c_in, c_out, compact):
+    """B2 bfloat16 as csrc/fused_edge_conv_bwd_wgmma.cu runs it: (dh,
+    dx_src, dw3, db3).  Rows kernel: dx = D @ b3^T channel by channel, then
+    per k R_k = D @ W3_k^T, dx += h[:, k] R_k, dh[:, k] = sum_i x_src R_k.
+    Weights kernel: per split, chunk by chunk, h^T (z_hi + z_lo) into the
+    tensor cores' sum, added into the split's partial every 32 chunks; db3
+    in slot order."""
+    k = o["h"].shape[1]
+    slots, c2 = len(blocks.senders_perm), c_in * c_out
+    idx, real = _tiles(blocks)
+    dmsg = _dmsg(blocks, o["g"], compact)
+    d, h, xs = dmsg[idx], o["h"][idx], o["x_src"][idx]
+    b3t = o["b3"].reshape(c_in, c_out).T
+    dx = np.zeros((*idx.shape, c_in), np.float32)
+    for oo in range(c_out):
+        dx = _fma(d[..., oo:oo + 1], b3t[oo], dx)
+    dh = np.zeros((*idx.shape, k), np.float32)
+    for kk in range(k):
+        r = _mm(d, o["w3"][kk].reshape(c_in, c_out).T)
+        dx = _fma(h[..., kk:kk + 1], r, dx)
+        dh[..., kk] = (xs.astype(np.float64) * r).sum(-1)
+    if compact:  # padding-only tiles write zeros
+        dx[~real], dh[~real] = 0, 0
+    cols, row_tiles = tfc.weight_tiles(k, c_in, c_out)
+    splits = tfc.weight_splits(slots, cols * row_tiles, SMS)
+    chunks = slots // 64
+    per = -(-chunks // splits)
+    partial = np.zeros((splits, k + 1, c2), np.float32)
+    for sp in range(splits):
+        total = np.zeros((k, c2), np.float32)
+        acc = np.zeros((k, c2), np.float32)
+        pending = 0
+        dbias = np.zeros(c2, np.float32)
+        for ch in range(sp * per, min((sp + 1) * per, chunks)):
+            if compact and not real[ch]:
+                continue
+            rows = slice(64 * ch, 64 * ch + 64)
+            z = (o["x_src"][rows, :, None] * dmsg[rows, None, :]).reshape(64, c2)
+            z_hi = _bf(z)
+            z_lo = _bf(z - z_hi)
+            assert np.array_equal(z_hi.astype(np.float64) + z_lo, z)
+            acc = (acc + (o["h"][rows].T.astype(np.float64) @ z_hi
+                          + o["h"][rows].T.astype(np.float64) @ z_lo)
+                   ).astype(np.float32)
+            pending += 1
+            if pending == PROMOTE:
+                total, acc, pending = total + acc, np.zeros_like(acc), 0
+            for s in range(64):
+                dbias = dbias + z[s]
+        partial[sp, :k], partial[sp, k] = total + acc, dbias
+    out = partial[0]
+    for sp in range(1, splits):
+        out = out + partial[sp]
+    return (dh.reshape(slots, k), dx.reshape(slots, c_in), out[:k], out[k])
+
+
+def _f64_fwd(blocks, o, c_in, c_out):
+    h, xs = o["h"].astype(np.float64), o["x_src"].astype(np.float64)
+    w = (h @ o["w3"].astype(np.float64) + o["b3"]).reshape(-1, c_in, c_out)
+    msg = np.einsum("ei,eio->eo", xs, w)
+    nb, blk = blocks.num_blocks, blocks.blk
+    s = blocks.s_matrix.astype(np.float64).reshape(nb, 64, blk)
+    return np.einsum("brs,bso->bro", s, msg.reshape(nb, blk, c_out)).reshape(
+        -1, c_out)
+
+
+def _f64_bwd(o, dmsg, c_in, c_out):
+    """The gradients in float64 from the kernels' rounded operands (h,
+    x_src, w3 and dmsg bf16 values)."""
+    f = {key: v.astype(np.float64) for key, v in o.items()}
+    dmsg = dmsg.astype(np.float64)
+    z = (f["x_src"][:, :, None] * dmsg[:, None, :]).reshape(len(dmsg), -1)
+    w = (f["h"] @ f["w3"] + f["b3"]).reshape(-1, c_in, c_out)
+    return (z @ f["w3"].T, np.einsum("eio,eo->ei", w, dmsg), f["h"].T @ z,
+            z.sum(0))
+
+
+def _cpu_s(blocks, compact):
+    return (blocks.compact_s.to("cpu") if compact
+            else torch.as_tensor(blocks.s_matrix))
+
+
+def _rel(a, ref):
+    ref = np.asarray(ref, np.float64)
+    return np.abs(np.asarray(a, np.float64) - ref).max() / np.abs(ref).max()
+
+
+# (c_in, c_out, K): widths 8 and 48, and past 64 (N = 128 and 104; B2's rows
+# kernel N = 128 and 72)
+BF16_SHAPES = [(8, 8, 8), (48, 48, 33), (128, 128, 8), (72, 100, 4)]
+
+
+def _setup(c_in, c_out, k, seed):
+    wide = c_in * c_out > 64 * 64
+    blocks = _graph(seed, *((70, 300) if wide else (150, 900)))
+    return blocks, _operands(blocks, c_in, c_out, k, seed + 1)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("c_in,c_out,k", BF16_SHAPES)
+def test_bf16_fwd_tile_loop_matches_plain_float64_and_pallas(c_in, c_out, k,
+                                                            compact):
+    """B1 bfloat16's emulated loop against ``fused_edge_conv_plain`` in
+    bfloat16 and a float64 reference of the same bf16 operands, within 1e-6
+    of the max, and against the JAX package's Pallas kernel in interpret
+    mode within 2e-2 (its 'repeat' layout rounds each x W product to bf16:
+    tests/test_torch_fused_conv.py's bfloat16 tolerance)."""
+    blocks, o = _setup(c_in, c_out, k, seed=c_in + c_out + k)
+    got = _emulate_fwd(blocks, o, c_in, c_out, compact)
+    t = {key: torch.as_tensor(v) for key, v in o.items()}
+    plain = tfc.fused_edge_conv(
+        t["h"], t["x"], torch.as_tensor(blocks.senders_perm), t["w3"], t["b3"],
+        _cpu_s(blocks, compact), c_in=c_in, c_out=c_out, rows_blk=64,
+        blk=blocks.blk, gemm_dtype="bfloat16").numpy()
+    ref = _f64_fwd(blocks, o, c_in, c_out)
+    pallas = np.asarray(jfc.fused_edge_conv(
+        jnp.asarray(o["h"]), jnp.asarray(o["x"]),
+        jnp.asarray(blocks.senders_perm), jnp.asarray(o["w3"]),
+        jnp.asarray(o["b3"]), jnp.asarray(blocks.s_matrix), c_in=c_in,
+        c_out=c_out, rows_blk=64, blk=blocks.blk, gemm_dtype="bfloat16",
+        interpret=True))
+    assert got.shape == ref.shape == plain.shape == (blocks.n_pad, c_out)
+    assert _rel(got, ref) <= 1e-6
+    assert _rel(got, plain) <= 1e-6
+    assert _rel(got, pallas) <= 2e-2
+
+
+NAMES = ("dh", "dx_src", "dw3", "db3")
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("c_in,c_out,k", BF16_SHAPES)
+def test_bf16_bwd_rows_and_weights_match_plain_float64_and_pallas(
+        c_in, c_out, k, compact):
+    """B2 bfloat16's emulated rows and weights kernels against
+    ``fused_edge_conv_bwd_plain`` in bfloat16 and a float64 reference of
+    the same rounded operands, within 1e-6 of each output's max, and
+    against the JAX package's Pallas backward in interpret mode within 2e-2
+    (JAX's bfloat16 backward also rounds W, its products and g to bf16:
+    tests/test_torch_fused_bwd.py's bfloat16 tolerance)."""
+    blocks, o = _setup(c_in, c_out, k, seed=c_in + c_out + k + 7)
+    got = _emulate_bwd(blocks, o, c_in, c_out, compact)
+    t = {key: torch.as_tensor(v) for key, v in o.items()}
+    plain = [a.numpy() for a in tfc.fused_edge_conv_bwd(
+        t["g"], t["h"], t["x_src"], t["w3"], t["b3"], _cpu_s(blocks, compact),
+        c_in=c_in, c_out=c_out, rows_blk=64, blk=blocks.blk,
+        gemm_dtype="bfloat16")]
+    ref = _f64_bwd(o, _dmsg(blocks, o["g"], compact), c_in, c_out)
+    pallas = [np.asarray(a) for a in jfc.fused_edge_conv_bwd(
+        jnp.asarray(o["g"]), jnp.asarray(o["h"]), jnp.asarray(o["x_src"]),
+        jnp.asarray(o["w3"]), jnp.asarray(o["b3"]),
+        jnp.asarray(blocks.s_matrix), c_in=c_in, c_out=c_out, rows_blk=64,
+        blk=blocks.blk, gemm_dtype="bfloat16", interpret=True)]
+    for name, a, r, p, j in zip(NAMES, got, ref, plain, pallas):
+        assert a.shape == r.shape == p.shape == j.shape, name
+        assert _rel(a, r) <= 1e-6, (name, _rel(a, r))
+        assert _rel(a, p) <= 1e-6, (name, _rel(a, p))
+        assert _rel(a, j) <= 2e-2, (name, _rel(a, j))
