@@ -76,7 +76,7 @@ to 3 epochs (its loss is recorded, not held to fall).
    rank 12 — the rank-16 path's config with ``kernel_rank: 12`` (depth 2, a
              rank B3/B4 run padded to 16): one full-size request (4 B3
              launches, the prediction against the CPU's float32 plain one),
-             ``train_graph_ALDD`` cut to 3 epochs in bfloat16 and in float32
+             ``train_graph_ALDD`` cut to 2 epochs in bfloat16 and in float32
              (B3 and B4 launch counts held), phase 7's float32 parity card
              vs CPU; B3 and B4 against their plain versions at the full-size
              chunk at ranks 1, 4, 12, 20, 28 and 31 (rank 12 also at the
@@ -104,6 +104,24 @@ to 3 epochs (its loss is recorded, not held to fall).
              step in both types; TEECNet from teecnet_ansys.yaml at width
              128 (K 128) serving one full-size request (10 B1 launches) and
              trained one epoch (``[w128_*]``, ``[teecnet_w128_*]`` lines).
+
+   width 128, rank r — the width-128 path's config with ``kernel_rank: 32``
+             (head 2 x 32 x 128 = 8 192 columns; B3 and B4 past width 64,
+             K 64 and rank 32): both full-size meshes served (4 B3 launches
+             each, none of B1 or B2, every .vtu finite) and the small mesh
+             against the CPU's float32 plain prediction;
+             ``train_graph_ALDD`` cut to 2 epochs in bfloat16 and in float32
+             (B3 and B4 launch counts held); phase 7's float32 parity card
+             vs CPU; at ``kernel_rank: 64`` one full-size request and the
+             parity again; B3 and B4 against their plain versions at
+             (c_in, c_out, K, rank) = (128, 128, 128, 64), (128, 128, 128,
+             32), (128, 128, 128, 40), (96, 96, 96, 48), (127, 127, 128, 57),
+             (72, 128, 48, 20) and (48, 48, 48, 36) on the leading 16
+             receiver blocks of the full-size chunk, both types, both S
+             forms, repeated launches bit-identical; their times and bounds
+             on the full-size chunk at ranks 16, 32 and 64 (the plain
+             versions' on the slice), the warm request and a fused train
+             step in both types (``[w128r_*]``, ``[w128r<r>_*]`` lines).
 
 9. pallas  — KernelNN and TEECNet built with ``mode='pallas'`` serve one
              full-size mesh each with FESR_FUSED_PREDICT=0 (the general lane's
@@ -356,7 +374,7 @@ RANK_DEPTH = 2  # its depth, cut from the config's 4 to keep the run short
 # and B4 are held against their plain versions and those at which they are
 # timed, at the full-size chunk
 RANK12 = 12
-RANK12_EPOCHS = 3
+RANK12_EPOCHS = 2  # 2, not 3: room for the width-128 rank-r path
 RANK12_CHECKED = (1, 4, 12, 20, 28, 31)
 RANK12_TIMED = (4, 12, 20, 28)
 # the width-128 path (B1 and B2 past width 64):
@@ -375,6 +393,20 @@ WIDE_EPOCHS = 3
 WIDE_CHECKED = ((128, 128, 128), (96, 96, 96), (127, 127, 128), (72, 128, 48))
 WIDE_SLICE_BLOCKS = 16
 WIDE_TEECNET_EPOCHS = 1
+# the width-128 rank-r path (B3 and B4 past width 64, K 64 and rank 32):
+# the width-128 path's config at kernel_rank WIDE_RANK, its training's epoch
+# cut, the top rank (one request and the parity), the (c_in, c_out, K,
+# rank) at which B3 and B4 are held against their plain versions on the
+# leading WIDE_SLICE_BLOCKS receiver blocks of the full-size chunk (the
+# plain rank-64 uv alone takes 16 GB on all of it), and the ranks at which
+# they are timed on the full-size chunk
+WIDE_RANK = 32
+WIDE_RANK_EPOCHS = 2
+WIDE_RANK_TOP = 64
+WIDE_RANK_CHECKED = ((128, 128, 128, 64), (128, 128, 128, 32),
+                     (128, 128, 128, 40), (96, 96, 96, 48),
+                     (127, 127, 128, 57), (72, 128, 48, 20), (48, 48, 48, 36))
+WIDE_RANK_TIMED = (16, 32, 64)
 KERNELS = (fused_conv.fused_edge_conv, fused_conv.fused_edge_conv_bwd,
            fused_conv.fused_edge_conv_lowrank,
            fused_conv.fused_edge_conv_lowrank_bwd,
@@ -539,13 +571,16 @@ def check_only(label: str, want: dict) -> None:
 def prefix(model) -> str:
     """The log prefix of the path ``model`` runs: '' (KernelNN at full
     rank), 'lowrank_' (KernelNN at rank ``RANK``), 'rank<r>_' (at another
-    rank r) or 'teecnet_'; at width ``WIDE`` 'w128_' and 'teecnet_w128_'."""
+    rank r) or 'teecnet_'; at width ``WIDE`` 'w128_' and 'teecnet_w128_',
+    and at a rank 'w128r_' (rank ``WIDE_RANK``) or 'w128r<r>_'."""
     wide = f"w{WIDE}_" if getattr(model, "width", None) == WIDE else ""
     if isinstance(model, TEECNet):
         return "teecnet_" + wide
     if model.kernel_rank is None:
         return wide
     r = model.kernel_rank
+    if wide:
+        return f"w{WIDE}r_" if r == WIDE_RANK else f"w{WIDE}r{r}_"
     return "lowrank_" if r == RANK else f"rank{r}_"
 
 
@@ -764,12 +799,18 @@ def log_ptxas() -> None:
                     "fused_edge_conv_f32_wgmma", "fused_edge_conv_bwd_f32_wgmma"):
             log("ptxas", lib=lib, k=k, c=c, smem_bytes=getattr(
                 fused_conv._load_kernel(lib), f"{lib}_smem_bytes")(k, c, c))
-    log("ptxas", k=48, c=48, rank=RANK,
-        blocks_per_sm=fused_conv.occupancy(48, 48, 48, rank=RANK))
-    for lib in ("fused_edge_conv_lowrank_f32_wgmma",
-                "fused_edge_conv_lowrank_bwd_f32_wgmma"):
-        log("ptxas", lib=lib, k=48, c=48, rank=RANK, smem_bytes=getattr(
-            fused_conv._load_kernel(lib), f"{lib}_smem_bytes")(48, 48, 48, RANK))
+    # B3/B4 at width 48, rank 16, and the width-128 rank-r path's instances
+    for k, c, rank in ((48, 48, RANK), (48, 48, 36), (96, 96, 48),
+                       *((WIDE, WIDE, r) for r in (16, 32, 40, 57, 64))):
+        log("ptxas", k=k, c=c, rank=rank,
+            blocks_per_sm=fused_conv.occupancy(k, c, c, rank=rank))
+        for lib in ("fused_edge_conv_lowrank_wgmma",
+                    "fused_edge_conv_lowrank_bwd_wgmma",
+                    "fused_edge_conv_lowrank_f32_wgmma",
+                    "fused_edge_conv_lowrank_bwd_f32_wgmma"):
+            log("ptxas", lib=lib, k=k, c=c, rank=rank, smem_bytes=getattr(
+                fused_conv._load_kernel(lib), f"{lib}_smem_bytes")(k, c, c,
+                                                                    rank))
     b5 = fused_conv._load_kernel("fused_edge_messages_wgmma")
     for k in (48, 128):
         log("ptxas", kernel="messages_wgmma", k=k, c=48,
@@ -1546,29 +1587,33 @@ def run_rank12(root, smi, datasets, models, cfgs) -> dict:
                 tb=by_rank[RANK12]["bwd"], by_rank=by_rank, trained=trained)
 
 
-def wide_slice(op, c_in: int, c_out: int, k: int) -> dict:
-    """B1's operands on the leading ``WIDE_SLICE_BLOCKS`` receiver blocks of
-    the chunk ``op``: its senders and S there, and at (c_in, c_out, K) =
-    ``op``'s widths its own h, x, w3 and b3, else seeded ones of those
-    widths (w3 and b3 scaled so that a message stays of order one)."""
+def wide_slice(op, c_in: int, c_out: int, k: int, rank=None) -> dict:
+    """B1's (at a ``rank``, B3's) operands on the leading
+    ``WIDE_SLICE_BLOCKS`` receiver blocks of the chunk ``op``: its senders
+    and S there, and at (c_in, c_out, K, rank) = ``op``'s its own h, x, w3
+    and b3, else seeded ones of those widths (w3 [K, c_in c_out], or the
+    head [K, rank (c_in + c_out)], and b3 scaled so that a message stays of
+    order one)."""
     slots = WIDE_SLICE_BLOCKS * op["blk"]
     s = fused_conv.CompactS(op["s"].slot_rows[:slots],
                             op["s"].row_weight[:WIDE_SLICE_BLOCKS * op["rows_blk"]])
     dev = op["x"].device
-    if (c_in, c_out, k) == (op["x"].shape[1], layer_kw(op)["c_out"],
-                            op["h"].shape[1]):
+    if (c_in, c_out, k, rank) == (op["x"].shape[1], layer_kw(op)["c_out"],
+                                  op["h"].shape[1], op["rank"]):
         h, x, w3, b3 = op["h"][:slots], op["x"], op["w3"], op["b3"]
     else:
-        gen = torch.Generator().manual_seed(SEED + c_in + 3 * c_out + k)
+        gen = torch.Generator().manual_seed(SEED + c_in + 3 * c_out + k
+                                            + (rank or 0))
         h = torch.relu(torch.randn(slots, k, generator=gen))
         x = torch.randn(op["x"].shape[0], c_in, generator=gen)
         scale = (k * c_in) ** -0.5
-        w3 = torch.randn(k, c_in * c_out, generator=gen) * scale
-        b3 = torch.randn(c_in * c_out, generator=gen) * scale
+        ncol = c_in * c_out if rank is None else rank * (c_in + c_out)
+        w3 = torch.randn(k, ncol, generator=gen) * scale
+        b3 = torch.randn(ncol, generator=gen) * scale
         h, x, w3, b3 = (t.to(dev) for t in (h, x, w3, b3))
     return dict(op, h=h.contiguous(), x=x.contiguous(), sp=op["sp"][:slots],
                 w3=w3.contiguous(), b3=b3.contiguous(), s=s, c_out=c_out,
-                b=f"{WIDE_SLICE_BLOCKS} blocks", msg=None)
+                rank=rank, b=f"{WIDE_SLICE_BLOCKS} blocks", msg=None)
 
 
 def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc) -> dict:
@@ -1653,6 +1698,107 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc) -> dict:
                            bwd=sum(n for _, n in trained.values()), served=0),
                 t=t, tb=tb, trained=trained, tc_served=tc_served,
                 tc_trained=tc_trained["bfloat16"])
+
+
+def run_wide_rank(root, smi, datasets, models, cfgs, models_top) -> dict:
+    """The width-128 rank-r path: B3 and B4 past width 64, K 64 and rank 32.
+    Both full-size meshes served (chunks x depth B3 launches each, no other
+    kernel, every .vtu finite) and the small mesh against the CPU's float32
+    plain prediction; the path's training in both types (B3 and B4 launch
+    counts held); phase 7's float32 parity; at rank ``WIDE_RANK_TOP`` one
+    full-size request and the parity again; B3 and B4 against their plain
+    versions at ``WIDE_RANK_CHECKED`` on a leading slice of the full-size
+    chunk, both types, both S forms, repeated launches bit-identical; their
+    times at the full-size chunk at ``WIDE_RANK_TIMED`` (the plain versions'
+    on the slice), the warm request and a fused train step in each type.
+    Returns what the kernels' JSON entries need, each timed rank's numbers
+    under ``by_rank``."""
+    t0 = time.time()
+    log_dir = os.path.join(root, "logs")
+    cfg, ds = cfgs["full"], datasets["full"]
+    fwd = FWD[True][0]
+    label = prefix(models["full"]) + "serve"
+    served = 0
+    for name in ("full", "small"):
+        for idx in cfgs[name]["idxs"][:2 if name == "full" else 1]:
+            reset_launches()
+            lanes, (fields,) = serve(datasets[name], models[name], [idx],
+                                     log_dir, f"{name}_w{WIDE}r{WIDE_RANK}",
+                                     None)
+            torch.cuda.synchronize()
+            served += fwd.launches
+            log(label, mesh=name, idx=idx, lane=lanes[0][1],
+                launches=fwd.launches, width=WIDE, rank=WIDE_RANK,
+                depth=cfgs[name]["num_layers"],
+                design=fused_conv.design(torch.bfloat16, WIDE_RANK),
+                nodes=len(fields["pressure"]), finite=True)
+            check_only(f"{label} {name} {idx}",
+                       {fwd: CHUNKS[name] * cfgs[name]["num_layers"]})
+    _, (ref,) = serve(datasets["small"], models["small"], [0], log_dir,
+                      f"small_w{WIDE}r{WIDE_RANK}_cpu", "cpu",
+                      gemm_dtype="float32")
+    for key in ("velocity", "pressure"):
+        rel = np.abs(fields[key] - ref[key]).max() / np.abs(ref[key]).max()
+        log(label, mesh="small", field=key, vs_cpu_f32=f"{rel:.3e}",
+            tol=SERVE_TOL)
+        if not rel <= SERVE_TOL:
+            raise AssertionError(f"{label} small {key}: {rel:.3e} > {SERVE_TOL}")
+    trained = train_types(root, ds, cfg, WIDE_RANK_EPOCHS)
+    small_merged = merged_subdomains(datasets["small"])
+    phase_parity(small_merged, cfgs["small"])
+    # the top rank: one full-size request, the parity
+    top_label = prefix(models_top) + "serve"
+    reset_launches()
+    lanes, (fields,) = serve(ds, models_top, [0], log_dir,
+                             f"full_w{WIDE}r{WIDE_RANK_TOP}", None)
+    torch.cuda.synchronize()
+    top_served = fwd.launches
+    log(top_label, mesh="full", lane=lanes[0][1], launches=top_served,
+        width=WIDE, rank=WIDE_RANK_TOP, nodes=len(fields["pressure"]),
+        finite=True)
+    check_only(top_label, {fwd: CHUNKS["full"] * cfg["num_layers"]})
+    phase_parity(small_merged, dict(cfgs["small"], kernel_rank=WIDE_RANK_TOP))
+    errs, errs_bwd, by_rank = {}, {}, {}
+    slice_errs = {}
+    op = chunk_operands(ds, models["full"], "cuda")
+    for c_in, c_out, k, rank in WIDE_RANK_CHECKED:
+        sop = wide_slice(op, c_in, c_out, k, rank)
+        at = f"slice_{c_in}x{c_out}_k{k}_r{rank}"
+        e_f, e_b = phase_kernel(sop, at), check_bwd(bwd_operands(sop), at)
+        slice_errs[at] = {"fwd": e_f, "bwd": e_b}
+        for into, e in ((errs, e_f), (errs_bwd, e_b)):
+            for dt, v in e.items():
+                into[dt] = max(into.get(dt, 0.0), v)
+        del sop
+        torch.cuda.empty_cache()
+    del op
+    torch.cuda.empty_cache()
+    for rank in WIDE_RANK_TIMED:
+        op = chunk_operands(ds, make_model(dict(cfg, kernel_rank=rank)),
+                            "cuda")
+        sop = wide_slice(op, WIDE, WIDE, WIDE, rank)
+        rp = fused_conv.padded_rank(rank)
+        by_rank[rank] = {"padded_rank": rp, "ceiling": rank / rp,
+                         "fwd": fwd_times(op, smi, plain_op=sop),
+                         "bwd": phase_bwd_times(bwd_operands(op), smi,
+                                                plain_bop=bwd_operands(sop))}
+        del op, sop
+        torch.cuda.empty_cache()
+    t = dict(by_rank[WIDE_RANK]["fwd"])
+    t.update(request_times(datasets, models, root, smi,
+                           f"_w{WIDE}r{WIDE_RANK}"))
+    batches = train_batches(ds, cfg)
+    t.update(phase_train_times(batches, cfg, smi))
+    del batches
+    torch.cuda.empty_cache()
+    log(prefix(models["full"]) + "path", depth=cfg["num_layers"],
+        wall_s=f"{time.time() - t0:.1f}")
+    return dict(errs=errs, errs_bwd=errs_bwd, launches=served,
+                train=dict(fwd=sum(n for n, _ in trained.values()),
+                           bwd=sum(n for _, n in trained.values()), served=0),
+                t=t, tb=by_rank[WIDE_RANK]["bwd"], by_rank=by_rank,
+                trained=trained, top_served=top_served,
+                slice_errs=slice_errs)
 
 
 def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
@@ -4055,6 +4201,42 @@ def wide_entries(r: dict, smi: str) -> list:
     return entries
 
 
+def wide_rank_entries(r: dict, smi: str) -> list:
+    """B3's and B4's entries for the width-128 rank-r path: launches by
+    phase (serving and training in each type at rank ``WIDE_RANK``, the
+    top rank's request), the shapes held against the plain versions with
+    their errors, and under ``by_rank`` each timed rank's numbers in both
+    types (the plain versions' on the chunk's leading slice)."""
+    entries = kernel_entries(r, smi, WIDE_RANK,
+                             f"kernelnn_w{WIDE}_rank{WIDE_RANK}")
+    trained = r["trained"]
+    entries[0]["launches"] += r["top_served"]
+    entries[0]["launches_by_path"] = {
+        "serve": r["launches"],
+        **{f"train_{dt}": n for dt, (n, _) in trained.items()},
+        f"serve_rank{WIDE_RANK_TOP}": r["top_served"]}
+    entries[1]["launches_by_path"] = {
+        f"train_{dt}": n for dt, (_, n) in trained.items()}
+    for entry, key, times in ((entries[0], "fwd", r["t"]),
+                              (entries[1], "bwd", r["tb"])):
+        entry.update(width=WIDE, k=WIDE, rank=WIDE_RANK,
+                     checked={at: e[key] for at, e in r["slice_errs"].items()},
+                     plain_slots=times["plain_slots"],
+                     ms_at_plain_slots=times["ms_at_plain_slots_bfloat16"])
+        entry["float32"]["ms_at_plain_slots"] = times[
+            "ms_at_plain_slots_float32"]
+        entry["by_rank"] = {
+            str(rank): {"padded_rank": v["padded_rank"],
+                        "ceiling": v["ceiling"],
+                        **{f"{k}_{dt}": v[key][f"{k}_{dt}"]
+                           for dt in ("bfloat16", "float32")
+                           for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "ms_at_plain_slots")}}
+            for rank, v in r["by_rank"].items()}
+    entries[1]["train_step_ms_float32"] = r["t"]["train_step_ms_float32"]
+    return entries
+
+
 def routed_entries(r: dict, smi: str) -> list:
     """B1's and B2's entries for the routed path: B1's launches by phase
     (full-size routed predicts, the small mesh's routed lane, training)
@@ -4145,9 +4327,14 @@ def main() -> int:
                           width=WIDE, num_layers=WIDE_DEPTH)
                   for k, sizes in (("full", FULL), ("small", SMALL))}
         cfgs_wtc = {k: dict(v, width=WIDE) for k, v in cfgs_tc.items()}
+        # the width-128 rank-r path: the width-128 path's config at
+        # kernel_rank WIDE_RANK (and, for one request, WIDE_RANK_TOP)
+        cfgs_wr = {k: dict(v, kernel_rank=WIDE_RANK) for k, v in cfgs_w.items()}
+        cfgs_wtop = {k: dict(v, kernel_rank=WIDE_RANK_TOP)
+                     for k, v in cfgs_w.items()}
         datasets, models, models_lr, models_r12, models_tc = (
             {} for _ in range(5))
-        models_w, models_wtc = {}, {}
+        models_w, models_wtc, models_wr, models_wtop = {}, {}, {}, {}
         for key, cfg in cfgs.items():
             t1 = time.time()
             datasets[key] = init_dataset("synthetic", **cfg)
@@ -4160,7 +4347,11 @@ def main() -> int:
                                  (key + "_teecnet", cfgs_tc[key], models_tc),
                                  (f"{key}_w{WIDE}", cfgs_w[key], models_w),
                                  (f"{key}_w{WIDE}_teecnet", cfgs_wtc[key],
-                                  models_wtc)):
+                                  models_wtc),
+                                 (f"{key}_w{WIDE}r{WIDE_RANK}", cfgs_wr[key],
+                                  models_wr),
+                                 (f"{key}_w{WIDE}r{WIDE_RANK_TOP}",
+                                  cfgs_wtop[key], models_wtop)):
                 into[key] = write_checkpoint(logs, exp, c)
                 write_checkpoint(logs, exp + "_cpu", c)
             for k in ("root", "partition", "sub_size", "n_high", "n_low",
@@ -4177,6 +4368,8 @@ def main() -> int:
         rank12 = run_rank12(root, smi, datasets, models_r12, cfgs_r12)
         wide = run_wide(root, smi, datasets, models_w, cfgs_w, models_wtc,
                         cfgs_wtc)
+        wide_rank = run_wide_rank(root, smi, datasets, models_wr, cfgs_wr,
+                                  models_wtop["full"])
         teecnet = run_path(root, name, smi, datasets, models_tc, cfgs_tc,
                            "_teecnet")
         t1 = time.time()
@@ -4218,6 +4411,7 @@ def main() -> int:
                + kernel_entries(lowrank, smi, RANK, "kernelnn_rank16")
                + rank12_entries(rank12, smi)
                + wide_entries(wide, smi)
+               + wide_rank_entries(wide_rank, smi)
                + kernel_entries(teecnet, smi, None, "teecnet")
                + [messages_entry(msg_t, pallas_launches, pallas_requests,
                                  smi)]

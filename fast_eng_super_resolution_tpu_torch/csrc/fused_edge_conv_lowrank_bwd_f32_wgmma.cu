@@ -5,7 +5,7 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_bwd_jit
-// for float32 operands at every rank 1 .. 32
+// for float32 operands at every rank 1 .. 64 and K, c_in, c_out 1 .. 128
 // (fused_edge_conv_lowrank_bwd_wgmma.cu is the bfloat16 instance) and
 // computes the same function, w3's and b3's gradients in the model's column
 // layout.  With the
@@ -56,19 +56,23 @@
 //      flight: A = split h over the V and U chunks (dt in registers; t in
 //      registers and dx_src as quad sums), A = split x_src over the P chunks
 //      (dh's P half, a quad sum per k, waits in shared memory), A = split
-//      dmsg over the Q chunks (dh = P half + Q half).  t and dt are written
-//      as float32 scratch for (b).  Tiles of padding only write zeros in
-//      CompactS form.
-//  (b) grid (128-column tiles of rp (c_in + c_out), slot splits).  Per
-//      64-slot chunk a block splits its h rows into three MN-major A parts
-//      (h^T, K <= 64 is one row tile), forms duv for its columns (each
+//      dmsg over the Q chunks (dh = P half + Q half).  Past a depth of 64
+//      each A is split into shared memory and each chunk is dp / 32 stages
+//      (lowrank_f32_wgmma.cuh DeepWalk), one chunk's products at a time.
+//      t and dt are written as float32 scratch for (b).  Tiles of padding
+//      only write zeros in CompactS form.
+//  (b) grid (128-column tiles of rp (c_in + c_out), slot splits, 64-row
+//      tiles of K).  Per 64-slot chunk a block splits its 64 columns of the
+//      h rows into three MN-major A parts (h^T), forms duv for its columns
+//      (each
 //      thread one column, in slot order) from the chunk's x_src or dmsg
 //      channels and t or dt rows, splits it into three K-major B parts, then
 //      runs 6 x 4 m64n128k16 products into a fresh accumulator, which it adds
 //      into its float32 sum.  The next chunk's rows (h, the block's channels
 //      of x_src and dmsg, t, dt) are copied into shared memory by cp.async
 //      while the products run.  Each split writes its partial [K+1, r (c_in +
-//      c_out)] (row K: db3) once; the wrapper sums the partials in a fixed
+//      c_out)] (row K: db3, from the first row tile) once; the wrapper sums
+//      the partials in a fixed
 //      order.  No atomics anywhere: two launches on the same inputs give the
 //      same bits.
 //
@@ -101,23 +105,27 @@ constexpr int kCols = 128;  // weights kernel: output columns per block
 constexpr int kF = 18;      // weights kernel: channel factors per slot
 
 // Byte offsets of the rows kernel's shared memory: the 2 kRing mbarriers,
-// the ring of stages ([3][N][dp] bf16 each, dp the largest of K, c_in and
-// c_out rounded up to 16), the x_src, dmsg and dh tiles [64][odd stride]
-// f32.  At width 48, K 48, rank 16: 111 KB (two blocks per SM).
+// the ring of stages ([3][N][sd] bf16 each, dp the largest of K, c_in and
+// c_out, image_depth, sd stage_depth), past a depth of 64 the A operand's
+// split parts [3][64][dp] bf16, the x_src, dmsg and dh tiles [64][odd
+// stride] f32.  At width 48, K 48, rank 16: 111 KB (two blocks per SM); at
+// 128, rank 64: 198 KB.
 struct RowsLayout {
-  int n, dp, xs, ds, hs;
-  long stage, ring, x, d, dh, total;
+  int n, dp, sd, xs, ds, hs;
+  long stage, ring, a, x, d, dh, total;
   __host__ __device__ RowsLayout(int K, int c_in, int c_out, int r) {
     n = chunk_cols(r);
     const int widest = K > c_in ? (K > c_out ? K : c_out)
                                 : (c_in > c_out ? c_in : c_out);
-    dp = round_up(widest, 16);
+    dp = image_depth(widest);
+    sd = stage_depth(dp);
     xs = c_in | 1;
     ds = c_out | 1;
     hs = K | 1;
-    stage = 3 * 2L * n * dp;
+    stage = 3 * 2L * n * sd;
     ring = 128;
-    x = ring + kRing * stage;
+    a = ring + kRing * stage;
+    x = a + (dp > 64 ? 3 * 2L * kTile * dp : 0);
     d = x + 4L * kTile * xs;
     dh = d + 4L * kTile * ds;
     total = dh + 4L * kTile * hs;
@@ -127,9 +135,10 @@ struct RowsLayout {
 // ---------------------------------------------------------------------------
 // (a) dmsg, t, dt, dx_src and dh for one 64-slot tile.  R8 = rp / 8 (rp the
 // padded rank), S = dp / 16 (the k16 steps of every A operand: h, x_src and
-// dmsg, zero padded).
+// dmsg, zero padded) up to 4, kDeep past it (the A operands in shared
+// memory).
 template <int R8, int S>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<S>)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<R8, S>)
 lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
                            const float* __restrict__ h,
                            const float* __restrict__ x_src,
@@ -167,7 +176,8 @@ lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
     if (real && lane == 0) {
       uint32_t j = 0;
       produce(full, empty, ring, reinterpret_cast<const unsigned char*>(image),
-              static_cast<uint32_t>(L.stage), n_v + n_u + 2 * n_k - 1, j);
+              static_cast<uint32_t>(L.stage),
+              (n_v + n_u + 2 * n_k) * (L.dp / L.sd) - 1, j);
     }
     return;
   }
@@ -217,10 +227,24 @@ lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
   const int r0 = acc_row(0);  // this thread's rows: r0 and r0 + 8
   const bool writer = tid % 4 == 0;
   const int ru = R * c_in;
-  const uint64_t d0 = desc(ring, L.dp);
+  const uint64_t d0 = desc(ring, L.sd);
   const uint32_t dstage = static_cast<uint32_t>(L.stage >> 4);
   const uint32_t dpart = dstage / 3;
   uint32_t j = 0;  // the ring's step, counted as the producer counts it
+  bf16* a_sm = reinterpret_cast<bf16*>(smem + L.a);
+  // past a depth of 64: the walk over chunks 0 .. n - 1 with A = the three
+  // parts of the 64 rows of `src` [width] split into shared memory, once
+  // every warp is done with the last walk's
+  auto deep = [&](const float* src, long stride, int width, int n, auto& fin) {
+    warpgroup_sync(0);
+    split_smem(a_sm, src, stride, width, L.dp);
+    fence_async_smem();
+    warpgroup_sync(0);
+    const DeepWalk<N, std::remove_reference_t<decltype(fin)>> walk{
+        desc(a_sm, L.dp), static_cast<uint32_t>(2 * kTile * L.dp >> 4),
+        L.dp / L.sd, full, empty, d0, dstage, dpart, lane, fin};
+    walk.all(n, j);
+  };
   // t and dt of this thread's rows r0, r0 + 8 at its 2 R8 values of q
   float tq[2][R8][2], dq[2][R8][2];
 #pragma unroll
@@ -230,8 +254,6 @@ lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
       tq[hf][m][0] = tq[hf][m][1] = dq[hf][m][0] = dq[hf][m][1] = 0.f;
 
   {  // ---- uv: dt from the V chunks, t and dx_src from the U chunks ----
-    uint32_t ha[3][S][4];
-    split_rows<S>(ha, h + slot0 * K, K, K);
     auto fin = [&](const float (&acc)[N / 2], int c) {
       if (c < n_v) {  // dt[s, q] += dmsg[s, o] V[s, o, q]
         const int o0 = c * G, gc = lesser(G, c_out - o0);
@@ -278,9 +300,15 @@ lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
         }
       }
     };
-    const Walk<N, S, decltype(fin)> walk{ha, full, empty, d0, dstage, dpart,
-                                         lane, fin};
-    walk.all(n_v + n_u - 1, j);
+    if constexpr (S > 4) {
+      deep(h + slot0 * K, K, K, n_v + n_u, fin);
+    } else {
+      uint32_t ha[3][S][4];
+      split_rows<S>(ha, h + slot0 * K, K, K);
+      const Walk<N, S, decltype(fin)> walk{ha, full, empty, d0, dstage,
+                                           dpart, lane, fin};
+      walk.all(n_v + n_u - 1, j);
+    }
   }
 
   // dh[s, k] over the P (Q) chunks: the sums over q of this thread's
@@ -315,20 +343,28 @@ lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
     }
   };
   {  // ---- dh's P half: P = x_src @ W3U weighted by dt ----
-    uint32_t xa[3][S][4];
-    split_rows<S>(xa, x_sm, xs, c_in);
     auto fin = [&](const float (&acc)[N / 2], int c) { dh_half(acc, c, dq, false); };
-    const Walk<N, S, decltype(fin)> walk{xa, full, empty, d0, dstage, dpart,
-                                         lane, fin};
-    walk.all(n_k - 1, j);
+    if constexpr (S > 4) {
+      deep(x_sm, xs, c_in, n_k, fin);
+    } else {
+      uint32_t xa[3][S][4];
+      split_rows<S>(xa, x_sm, xs, c_in);
+      const Walk<N, S, decltype(fin)> walk{xa, full, empty, d0, dstage,
+                                           dpart, lane, fin};
+      walk.all(n_k - 1, j);
+    }
   }
   {  // ---- dh = P half + Q half: Q = dmsg @ W3V weighted by t ----
-    uint32_t da[3][S][4];
-    split_rows<S>(da, d_sm, ds, c_out);
     auto fin = [&](const float (&acc)[N / 2], int c) { dh_half(acc, c, tq, true); };
-    const Walk<N, S, decltype(fin)> walk{da, full, empty, d0, dstage, dpart,
-                                         lane, fin};
-    walk.all(n_k - 1, j);
+    if constexpr (S > 4) {
+      deep(d_sm, ds, c_out, n_k, fin);
+    } else {
+      uint32_t da[3][S][4];
+      split_rows<S>(da, d_sm, ds, c_out);
+      const Walk<N, S, decltype(fin)> walk{da, full, empty, d0, dstage,
+                                           dpart, lane, fin};
+      walk.all(n_k - 1, j);
+    }
   }
 
   // ---- t and dt, scratch for the weights kernel ----
@@ -346,12 +382,12 @@ lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
 
 // ---------------------------------------------------------------------------
 // (b) partial[split, k, c] = sum over the split's slots e of h[e, k] duv[e, c]
-// for the block's 128 padded columns c of rp (c_in + c_out), and row K:
-// db3, at the model's columns.  Shared
+// for the block's 128 padded columns c of rp (c_in + c_out) and 64 rows k
+// (k0 ..), and (first row tile) row K: db3, at the model's columns.  Shared
 // memory: h^T's and duv's parts, then the raw rows of a chunk: h [64][64]
-// (zeros past K), the block's channels of x_src (U columns) and dmsg (V
-// columns) [64][kF], t and dt [64][rp].  102 KB at rank 16 (two blocks
-// per SM), 110 KB at 32.
+// (its columns k0 .., zeros past K), the block's channels of x_src (U
+// columns) and dmsg (V columns) [64][kF], t and dt [64][rp].  102 KB at
+// rank 16 (two blocks per SM), 110 KB at 32, 127 KB at 64.
 struct WeightsLayout {
   long a, z, hraw, f, t, dt, total;
   __host__ __device__ WeightsLayout(int r) {
@@ -387,7 +423,7 @@ lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
   float* dt_sm = reinterpret_cast<float*>(smem + L.dt);
   const int tid = threadIdx.x;
   const int ru = R * c_in, ncol = R * (c_in + c_out);
-  const int n0 = blockIdx.x * kCols;
+  const int n0 = blockIdx.x * kCols, k0 = blockIdx.z * kTile;
   const long split = blockIdx.y;
   const long c_lo = split * chunks_per_split;
   const long c_hi = c_lo + chunks_per_split < num_chunks
@@ -432,9 +468,9 @@ lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
         break;
     return c;
   };
-  // chunk c's rows into shared memory by cp.async: h (columns 0 .. 63,
-  // zeros past K), the block's channels of x_src and dmsg, t and dt (16-byte
-  // pieces where the rows allow them); nothing waits for them here
+  // chunk c's rows into shared memory by cp.async: h (columns k0 .. k0 +
+  // 63, zeros past K), the block's channels of x_src and dmsg, t and dt
+  // (16-byte pieces where the rows allow them); nothing waits for them here
   const bool vec_h = K % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
   const bool vec_r = (reinterpret_cast<uintptr_t>(t_vec) |
                       reinterpret_cast<uintptr_t>(dt_vec)) % 16 == 0;
@@ -442,13 +478,13 @@ lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
     const long s0 = c * kTile;
     if (vec_h) {
       for (int p = tid; p < kTile * kTile / 4; p += kWarpgroup) {
-        const int s = p >> 4, k = 4 * (p & 15);
+        const int s = p >> 4, k = k0 + 4 * (p & 15);
         const int bytes = k < K ? 4 * lesser(4, K - k) : 0;
         cp_async16(h_sm + 4 * p, bytes ? h + (s0 + s) * K + k : h, bytes);
       }
     } else {
       for (int p = tid; p < kTile * kTile; p += kWarpgroup) {
-        const int s = p >> 6, k = p & 63;
+        const int s = p >> 6, k = k0 + (p & 63);
         cp_async4(h_sm + p, k < K ? h + (s0 + s) * K + k : h, k < K ? 4 : 0);
       }
     }
@@ -534,11 +570,11 @@ lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
   float* dst = partial + split * (K + 1) * static_cast<long>(ncol_r);
 #pragma unroll
   for (int v = 0; v < kCols / 2; ++v) {
-    const int k = acc_row(v), cc = n0 + acc_col(v);
+    const int k = k0 + acc_row(v), cc = n0 + acc_col(v);
     const int rc = cc < ncol ? real_col(cc, R, rank) : -1;
     if (k < K && rc >= 0) dst[static_cast<long>(k) * ncol_r + rc] = sum[v];
   }
-  const int rc = has_col ? real_col(col, R, rank) : -1;
+  const int rc = has_col && k0 == 0 ? real_col(col, R, rank) : -1;
   if (rc >= 0) dst[static_cast<long>(K) * ncol_r + rc] = dbias;
 }
 
@@ -567,14 +603,16 @@ cudaError_t launch(const float* g, const float* h, const float* x_src,
       dmsg, t_vec, dt_vec, blk, K, c_in, c_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // column tiles (as ops/fused_conv.py:lowrank_weight_tiles) x slot splits
+  // column tiles x slot splits x row tiles (as ops/fused_conv.py:
+  // lowrank_weight_tiles)
   const int tiles = (R * (c_in + c_out) + kCols - 1) / kCols;
+  const int row_tiles = (K + kTile - 1) / kTile;
   const long per_split = (num_tiles + num_splits - 1) / num_splits;
   const size_t wsmem = static_cast<size_t>(WeightsLayout(R).total);
   auto weights = lowrank_bwd_weights_f32_wgmma<R8>;
   err = allow_smem(weights, wsmem);
   if (err != cudaSuccess) return err;
-  weights<<<dim3(tiles, num_splits), kWarpgroup, wsmem, stream>>>(
+  weights<<<dim3(tiles, num_splits, row_tiles), kWarpgroup, wsmem, stream>>>(
       h, x_src, dmsg, t_vec, dt_vec, slot_rows, partial, num_tiles, per_split,
       K, c_in, c_out, r);
   return cudaGetLastError();
@@ -616,8 +654,8 @@ int fused_edge_conv_lowrank_bwd_f32_wgmma_blocks_per_sm(int K, int c_in,
 // [slots, c_out], t_vec and dt_vec [slots, rp] (rp = 8*ceil(r/8)) are
 // written by the rows kernel and read by the weights kernel.  Exactly one
 // of s_dense and (slot_rows, row_weight) is non-null.  w3 is [K,
-// r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <= 64
-// and 1 <= r <= 32.  partial is [num_splits, K+1, r*(c_in+c_out)] (dw3
+// r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <= 128
+// and 1 <= r <= 64.  partial is [num_splits, K+1, r*(c_in+c_out)] (dw3
 // rows then the db3 row, the model's columns, summed over splits by the
 // caller).  Returns the cudaError_t of the
 // launches (0 on success).

@@ -4,7 +4,7 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_bwd_jit
-// for bfloat16 operands at every rank 1 .. 32
+// for bfloat16 operands at every rank 1 .. 64 and K, c_in, c_out 1 .. 128
 // (fused_edge_conv_lowrank_bwd_f32_wgmma.cu is the float32 instance) and
 // computes the same function, w3's and b3's gradients in the model's
 // column layout.  With the forward's notation and g the gradient of
@@ -43,8 +43,9 @@
 //
 // Design.  Both kernels run at the padded rank rp = 8 ceil(r / 8)
 // (lowrank_wgmma.cuh): at a rank that is not a multiple of 8 a first
-// launch lays out the zero-padded copy of w3, b3 is staged padded from its
-// real columns, t and dt are scratch [slots, rp] (zero at q >= r), and the
+// launch lays out the zero-padded copy of w3, b3's columns are copied
+// padded from its real ones, t and dt are scratch [slots, rp] (zero at q >=
+// r), and the
 // weights kernel writes only the model's columns of dw3 and db3.
 //  (a) one warpgroup per 64-slot tile (grid: every tile of the graph, 4864
 //      at the serving chunk); the tile's receiver block is tile / (blk /
@@ -52,24 +53,27 @@
 //      form sums S^T g), rounds it to bf16 and writes it once as scratch for
 //      (b); stages h, x_src and dmsg as A operands, then runs m64n128
 //      products in 128-column chunks of whole channels (lowrank_wgmma.cuh),
-//      each chunk's w3 columns double-buffered and copied in 16-byte pieces
-//      while the previous product runs: the V chunks of uv give dt (in
+//      each chunk's w3 columns (and a uv chunk's b3) copied in 16-byte
+//      pieces by cp.async into a ring of three buffers, two chunks ahead of
+//      the running product (ChunkCopy): the V chunks of uv give dt (in
 //      registers: every thread holds the same q of every channel), the U
 //      chunks t and dx_src (a quad shuffle), then for each group of k the
 //      P chunk and the Q chunk give dh (one quad shuffle per k; the P
 //      chunk's per-thread partials wait in shared memory).  It writes
 //      t and dt as float32 scratch for (b).  Tiles of padding only write
 //      zeros in CompactS form.
-//  (b) grid (128-column tiles of rp (c_in + c_out), slot splits).  Per
-//      64-slot chunk a block copies h rows in 16-byte pieces as A (h^T,
-//      MN-major, K <= 64 is one row tile) and the chunk's x_src and dt (U
+//  (b) grid (128-column tiles of rp (c_in + c_out), slot splits, 64-row
+//      tiles of K).  Per 64-slot chunk a block copies its 64 columns of the
+//      h rows in 16-byte pieces as A (h^T, MN-major) and the chunk's x_src
+//      and dt (U
 //      columns) or dmsg and t (V columns), with cp.async into one of two
 //      sets while the chunk before runs; each thread forms its column's duv
 //      for 16 slots at a time
 //      and its three parts (B, K-major), and the three products of those 16
 //      slots are issued before the next 16 are formed, so that forming
 //      overlaps the tensor cores.  The sums move into the split's partial
-//      [K+1, r (c_in + c_out)] (row K: db3) every 32 chunks; the wrapper
+//      [K+1, r (c_in + c_out)] (row K: db3, from the blocks of the first row
+//      tile only) every 32 chunks; the wrapper
 //      sums the partials in a fixed order.  No atomics anywhere: two
 //      launches on the same inputs give the same bits.
 //
@@ -110,12 +114,16 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return cv.u;
 }
 
-// Byte offsets of the rows kernel's shared memory.  The P half of dh waits
-// for its Q chunk in shared memory, as each thread's 2 G unreduced partials
-// in a column of its own ([2 G][128]: no bank conflicts, no barrier).
+// Byte offsets of the rows kernel's shared memory: the A operands h,
+// x_src and dmsg, the ring of kBufs buffers (a w3 chunk [128][dmax] bf16,
+// then a uv chunk's b3 [128] f32), the P half of dh, slot_rows.  The P half
+// waits for its Q chunk in shared memory, as each thread's 2 G unreduced
+// partials in a column of its own ([2 G][128]: no bank conflicts, no
+// barrier).  65 KB at width 48, K 48, rank 16 (three blocks per SM), 151 KB
+// at 128, rank 64.
 struct RowsLayout {
   int kp, dpi, dpo, dmax;
-  long ax, ad, b, b3, dhp, srow, total;
+  long ax, ad, ring, buf, dhp, srow, total;
   __host__ __device__ RowsLayout(int K, int c_in, int c_out, int r) {
     kp = round_up(K, 16);
     dpi = round_up(c_in, 16);
@@ -124,9 +132,9 @@ struct RowsLayout {
     dmax = dmax > dpo ? dmax : dpo;
     ax = 2L * kTile * kp;                    // a: h [64][kp]
     ad = ax + 2L * kTile * dpi;              // x_src [64][dpi]
-    b = ad + 2L * kTile * dpo;               // dmsg [64][dpo]
-    b3 = b + 2L * 2 * kCols * dmax;          // w3 chunk [2][128][dmax]
-    dhp = b3 + 4L * r * (c_in + c_out);      // b3 [ncol] f32
+    ring = ad + 2L * kTile * dpo;            // dmsg [64][dpo]
+    buf = 2L * kCols * dmax + 4L * kCols;
+    dhp = ring + kBufs * buf;
     srow = dhp + 4L * 2 * (kCols / r) * kWarpgroup;  // P half [2 G][128] f32
     total = srow + 4L * kTile;
   }
@@ -154,8 +162,7 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
   bf16* ah_sm = reinterpret_cast<bf16*>(smem);
   bf16* ax_sm = reinterpret_cast<bf16*>(smem + L.ax);
   bf16* ad_sm = reinterpret_cast<bf16*>(smem + L.ad);
-  bf16* b_sm = reinterpret_cast<bf16*>(smem + L.b);
-  float* b3_sm = reinterpret_cast<float*>(smem + L.b3);
+  unsigned char* ring = smem + L.ring;
   float* dhp_sm = reinterpret_cast<float*>(smem + L.dhp) + threadIdx.x;
   int* srow = reinterpret_cast<int*>(smem + L.srow);
 
@@ -166,7 +173,7 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
   const long row_base = b * kRows;
   const bool compact = s_dense == nullptr;
   const bf16 zero = __float2bfloat16(0.f);
-  const int ru = R * c_in, ncol = R * (c_in + c_out);
+  const int ru = R * c_in;
 
   if (compact) {
     int real = 0;
@@ -203,39 +210,43 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
     return e % 2 == 0 ? Chunk{kP, k0 * R, gk * R, dpi, c_in}
                       : Chunk{kQ, k0 * R, gk * R, dpo, c_out};
   };
-  ChunkStage<R8> st(w3, c_in, c_out);
-  st.load(chunk(0));
+  // chunk c is read from buffer c % 3 while chunks c + 1 and c + 2 land
+  // in the other two
+  auto buf = [&](int n) {
+    return reinterpret_cast<bf16*>(ring + (n % kBufs) * L.buf);
+  };
+  auto bias = [&](int n) {
+    return reinterpret_cast<float*>(ring + (n % kBufs) * L.buf +
+                                    2L * kCols * L.dmax);
+  };
+  const ChunkCopy<R8> cc(w3, b3, c_in, c_out, rank);
+  cc.start(buf(0), bias(0), chunk(0));
+  cc.start(buf(1), bias(1), chunk(1));
 
-  // ---- stage dmsg (rounded to bf16; channel o = tid % 64 of slots
-  // tid / 64 + 2 m), h, x_src and b3 ----
+  // ---- stage dmsg (rounded to bf16; channels tid % 64 + 64 m' of slots
+  // tid / 64 + 2 m), h and x_src; the first step's barrier publishes
+  // them ----
 #pragma unroll 4
-  for (int s = tid >> 6, o = tid & 63; s < kTile && o < dpo; s += 2) {
-    bf16 v = zero;
-    if (o < c_out) {
-      float d = 0.f;
-      if (compact) {
-        const int r = srow[s];
-        if (r >= 0) d = row_weight[row_base + r] * g[(row_base + r) * c_out + o];
-      } else {
-        const float* s_col = s_dense + row_base * blk + (slot0 - b * blk) + s;
-        for (int r = 0; r < kRows; ++r)
-          d += s_col[static_cast<long>(r) * blk] * g[(row_base + r) * c_out + o];
+  for (int s = tid >> 6; s < kTile; s += 2)
+    for (int o = tid & 63; o < dpo; o += 64) {
+      bf16 v = zero;
+      if (o < c_out) {
+        float d = 0.f;
+        if (compact) {
+          const int r = srow[s];
+          if (r >= 0) d = row_weight[row_base + r] * g[(row_base + r) * c_out + o];
+        } else {
+          const float* s_col = s_dense + row_base * blk + (slot0 - b * blk) + s;
+          for (int r = 0; r < kRows; ++r)
+            d += s_col[static_cast<long>(r) * blk] * g[(row_base + r) * c_out + o];
+        }
+        v = __float2bfloat16(d);
+        dmsg_out[(slot0 + s) * c_out + o] = v;
       }
-      v = __float2bfloat16(d);
-      dmsg_out[(slot0 + s) * c_out + o] = v;
+      ad_sm[kmajor(s, o, dpo)] = v;
     }
-    ad_sm[kmajor(s, o, dpo)] = v;
-  }
   stage_rows(ah_sm, h + slot0 * K, K, kp);
   stage_rows(ax_sm, x_src + slot0 * c_in, c_in, dpi);
-  stage_bias(b3_sm, b3, ncol, R, rank);
-  // chunk c is read from buffer c % 2 while the registers fill the other
-  // with chunk c + 1 and load chunk c + 2
-  const int bsize = kCols * L.dmax;
-  st.store(b_sm);
-  st.load(chunk(1));
-  fence_async_smem();
-  __syncthreads();
 
   // this thread's rows r0, r0 + 8 at its 2 R8 values of q
   const int r0 = acc_row(0);
@@ -247,16 +258,22 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
       tq[hf][m][0] = tq[hf][m][1] = dq[hf][m][0] = dq[hf][m][1] = 0.f;
 
   for (int c = 0; c < n_c; ++c) {
+    pieces_wait<1>();  // chunk c has landed
+    fence_async_smem();
+    __syncthreads();
     const Chunk ch = chunk(c);
     const bf16* a = ch.kind == kP ? ax_sm : ch.kind == kQ ? ad_sm : ah_sm;
     float acc[kCols / 2];
-    product<kCols, 1>(acc, a, b_sm + (c & 1) * bsize, ch.depth);
-    if (c + 1 < n_c) {
-      st.store(b_sm + ((c + 1) & 1) * bsize);
-      if (c + 2 < n_c) st.load(chunk(c + 2));
-    }
+    product<kCols, 1>(acc, a, buf(c), ch.depth);
+    // chunk c + 2 into the buffer that chunk c - 1's finished product read
+    // (an empty group past the last, so that each step waits for its own)
+    if (c + 2 < n_c)
+      cc.start(buf(c + 2), bias(c + 2), chunk(c + 2));
+    else
+      pieces_commit();
     wait_all();
     fence_operand(acc);
+    const float* bs = bias(c);
     if (c < n_v) {  // dt[s, q] += dmsg[s, o] V[s, o, q]
       const int o0 = c * G, gc = min(G, c_out - o0);
 #pragma unroll
@@ -264,11 +281,10 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
         if (gg >= gc) continue;
         const float da = __bfloat162float(ad_sm[kmajor(r0, o0 + gg, dpo)]);
         const float db = __bfloat162float(ad_sm[kmajor(r0 + 8, o0 + gg, dpo)]);
-        const float* bias = b3_sm + ru + (o0 + gg) * R;
 #pragma unroll
         for (int u = 0; u < 4 * R8; ++u) {
           const int j = 4 * R8 * gg + u;
-          const float uv = acc[j] + bias[q_of<R8>(j)];
+          const float uv = acc[j] + bs[gg * R + q_of<R8>(j)];
           dq[(u >> 1) & 1][u >> 2][u & 1] += ((u >> 1) & 1 ? db : da) * uv;
         }
       }
@@ -279,12 +295,11 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
         if (gg >= gc) continue;
         const float xa = __bfloat162float(ax_sm[kmajor(r0, i0 + gg, dpi)]);
         const float xb = __bfloat162float(ax_sm[kmajor(r0 + 8, i0 + gg, dpi)]);
-        const float* bias = b3_sm + (i0 + gg) * R;
         float pa = 0.f, pb = 0.f;
 #pragma unroll
         for (int u = 0; u < 4 * R8; ++u) {
           const int j = 4 * R8 * gg + u;
-          const float uv = acc[j] + bias[q_of<R8>(j)];
+          const float uv = acc[j] + bs[gg * R + q_of<R8>(j)];
           if ((u >> 1) & 1) {
             tq[1][u >> 2][u & 1] += xb * uv;
             pb += uv * dq[1][u >> 2][u & 1];
@@ -327,8 +342,6 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
         }
       }
     }
-    fence_async_smem();
-    __syncthreads();
   }
 
   // ---- t and dt, scratch for the weights kernel ----
@@ -345,14 +358,14 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
 }
 
 // Adds the weights kernel's tensor-core sums into its partial (stores them
-// the first time) and restarts them from zero: padded column c of ncolp at
-// the model's column of ncol (none at q >= r).
+// the first time) and restarts them from zero: row k0 + i of its row tile,
+// padded column c of ncolp at the model's column of ncol (none at q >= r).
 __device__ __forceinline__ void promote(float (&acc)[kCols / 2], float* dst,
-                                        bool& first, int n0, int K, int ncolp,
-                                        int rp, int r, int ncol) {
+                                        bool& first, int k0, int n0, int K,
+                                        int ncolp, int rp, int r, int ncol) {
 #pragma unroll
   for (int j = 0; j < kCols / 2; ++j) {
-    const int k = acc_row(j), c = n0 + acc_col(j);
+    const int k = k0 + acc_row(j), c = n0 + acc_col(j);
     const int rc = c < ncolp ? real_col(c, rp, r) : -1;
     if (k < K && rc >= 0) {
       float* p = dst + static_cast<long>(k) * ncol + rc;
@@ -410,8 +423,8 @@ __device__ __forceinline__ void copy_bytes(void* dst, const void* src, int n,
 
 // ---------------------------------------------------------------------------
 // (b) partial[split, k, c] = sum over the split's slots e of h[e, k] duv[e, c]
-// for the block's 128 padded columns c of rp (c_in + c_out), and row K:
-// db3, at the model's columns.
+// for the block's 128 padded columns c of rp (c_in + c_out) and 64 rows k,
+// and (first row tile) row K: db3, at the model's columns.
 template <int R8>
 __global__ void __launch_bounds__(kWarpgroup)
 lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
@@ -430,7 +443,7 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
   unsigned char* sets = smem + L.sets;
   const int tid = threadIdx.x;
   const int ru = R * c_in, ncol = R * (c_in + c_out);
-  const int n0 = blockIdx.x * kCols;
+  const int n0 = blockIdx.x * kCols, k0 = blockIdx.z * kTile;
   const long split = blockIdx.y;
   const long c_lo = split * chunks_per_split;
   const long c_hi = c_lo + chunks_per_split < num_chunks
@@ -450,7 +463,7 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
   const int f_stride = u_col ? c_in : c_out;
   const long v_off = (u_col ? L.dt : L.t) + 4L * q;  // the rank factor
 
-  // columns past ncol, and h^T's rows past K, stay zero
+  // columns past ncol, and h^T's rows past K - k0, stay zero
   for (int e = tid; e < 3 * kCols * kTile; e += kWarpgroup) d_sm[e] = zero;
   for (int e = tid; e < 2 * kTile * kTile; e += kWarpgroup)
     reinterpret_cast<bf16*>(sets + (e >= kTile * kTile ? L.set : 0))
@@ -477,21 +490,23 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
        reinterpret_cast<uintptr_t>(dmsg) | reinterpret_cast<uintptr_t>(t_vec) |
        reinterpret_cast<uintptr_t>(dt_vec)) % 16 == 0;
   auto stage = [&](unsigned char* set, long s0) {
-    // A = h^T, MN-major: 8 consecutive k of one slot are a 16-byte piece
-    // of an h row (zeros past K, written above); 8 consecutive threads take
-    // 8 slots' pieces of one k, 128 contiguous bytes of A
+    // A = h^T over the row tile's k0 .. k0 + 63, MN-major: 8 consecutive
+    // k of one slot are a 16-byte piece of an h row (zeros past K, written
+    // above); 8 consecutive threads take 8 slots' pieces of one k, 128
+    // contiguous bytes of A
     bf16* a = reinterpret_cast<bf16*>(set);
     if (async) {
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
         const int p = tid + kWarpgroup * m;
         const int s = p % 8 + 8 * (p / 64), k = 8 * ((p / 8) % 8);
-        if (k < K) cp_async16(a + mnmajor(k, s, kTile), h + (s0 + s) * K + k);
+        if (k0 + k < K)
+          cp_async16(a + mnmajor(k, s, kTile), h + (s0 + s) * K + k0 + k);
       }
     } else {
       for (int e = tid; e < kTile * kTile; e += kWarpgroup) {
         const int s = e >> 6, k = e & 63;
-        if (k < K) a[mnmajor(k, s, kTile)] = h[(s0 + s) * K + k];
+        if (k0 + k < K) a[mnmajor(k, s, kTile)] = h[(s0 + s) * K + k0 + k];
       }
     }
     if (need_u) {
@@ -592,14 +607,14 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
     wait_all();
     fence_operand(acc);
     if (++pending == kPromote) {
-      promote(acc, dst, first, n0, K, ncol, R, rank, ncol_r);
+      promote(acc, dst, first, k0, n0, K, ncol, R, rank, ncol_r);
       pending = 0;
     }
   }
   cp_async_wait<0>();
   if (pending > 0 || first)
-    promote(acc, dst, first, n0, K, ncol, R, rank, ncol_r);
-  const int rc = has_col ? real_col(col, R, rank) : -1;
+    promote(acc, dst, first, k0, n0, K, ncol, R, rank, ncol_r);
+  const int rc = has_col && k0 == 0 ? real_col(col, R, rank) : -1;
   if (rc >= 0) dst[static_cast<long>(K) * ncol_r + rc] = dbias;
 }
 
@@ -635,14 +650,16 @@ cudaError_t launch(const void* g, const void* h, const void* x_src,
       c_out, r);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // column tiles (as ops/fused_conv.py:lowrank_weight_tiles) x slot splits
+  // column tiles x slot splits x row tiles (as ops/fused_conv.py:
+  // lowrank_weight_tiles)
   const int tiles = (R * (c_in + c_out) + kCols - 1) / kCols;
+  const int row_tiles = (K + kTile - 1) / kTile;
   const long per_split = (num_tiles + num_splits - 1) / num_splits;
   const size_t wsmem = static_cast<size_t>(WeightsLayout(c_in, c_out, R).total);
   auto weights = lowrank_bwd_weights_wgmma<R8>;
   err = allow_smem(weights, wsmem);
   if (err != cudaSuccess) return err;
-  weights<<<dim3(tiles, num_splits), kWarpgroup, wsmem, stream>>>(
+  weights<<<dim3(tiles, num_splits, row_tiles), kWarpgroup, wsmem, stream>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(x_src),
       static_cast<const bf16*>(dmsg), static_cast<const float*>(t_vec),
       static_cast<const float*>(dt_vec), static_cast<const int*>(slot_rows),
@@ -683,7 +700,7 @@ int fused_edge_conv_lowrank_bwd_wgmma_blocks_per_sm(int K, int c_in,
 // as t_vec and dt_vec [slots, rp], rp = 8*ceil(r/8)); slot_rows int32.
 // Exactly one of s_dense and (slot_rows, row_weight) is non-null.  w3 is
 // [K, r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <=
-// 64 and 1 <= r <= 32.  At a rank that is not a multiple of 8, pad is
+// 128 and 1 <= r <= 64.  At a rank that is not a multiple of 8, pad is
 // bfloat16 scratch of K*rp*(c_in+c_out) elements, 16-byte aligned
 // (ops/fused_conv.py:lowrank_pad_numel; unused otherwise).  partial is
 // [num_splits, K+1, r*(c_in+c_out)] (dw3 rows then the db3 row, the

@@ -5,8 +5,9 @@
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_jit
 // for float32 operands (the JAX function at gemm_dtype="float32", on the
-// TPU's matrix unit at Precision.HIGHEST) at every rank 1 .. 32
-// (fused_edge_conv_lowrank_wgmma.cu is the bfloat16 instance) and computes
+// TPU's matrix unit at Precision.HIGHEST) at every rank 1 .. 64 and K,
+// c_in, c_out 1 .. 128 (fused_edge_conv_lowrank_wgmma.cu is the bfloat16
+// instance) and computes
 // the same function.  Slots are grouped as for the full-rank layer: block b
 // holds the slots whose receivers lie in rows [64 b, 64 b + 64).  Per slot
 // e:
@@ -37,14 +38,15 @@
 //    image below holds w3's chunks and b3 padded with zeros at q >= r
 //    (lowrank_f32_wgmma.cuh), so t's padded entries stay zero.
 //  - Per 64-slot tile the consumers split h's rows into register-A
-//    fragments once (lowrank_f32_wgmma.cuh), then walk uv in chunks of N =
-//    64 columns of whole channels (48 at rp = 24): the U chunks, then the V
-//    chunks.  w3's chunks come from a stage image laid out once per call by
-//    a first launch; the producer streams them by bulk copy onto the
-//    mbarrier ring of f32_wgmma.cuh (4 stages), the warpgroup walks them
-//    with two chunks' products in flight (runs of 4, all waited for by each
-//    run's end: ptxas serializes every wgmma of a loop that carries one in
-//    flight across its back edge).  Chunks of N = 64, not 128: two
+//    fragments once (K up to 64; past it into shared memory, each chunk
+//    then in K / 32 stages: lowrank_f32_wgmma.cuh DeepWalk), then walk uv in
+//    chunks of N = G rp columns of whole channels (64 at most): the U
+//    chunks, then the V chunks.  w3's chunks come from a stage image laid
+//    out once per call by a first launch; the producer streams them by
+//    bulk copy onto the mbarrier ring of f32_wgmma.cuh (4 stages), the
+//    warpgroup walks them with two chunks' products in flight (up to K 64;
+//    runs of 4, all waited for by each run's end: ptxas serializes every
+//    wgmma of a loop that carries one in flight across its back edge).  Chunks of N = 64, not 128: two
 //    accumulators of 32 values fit the registers of two blocks per SM
 //    beside the 36 of split h, and the ring four stages in under half the
 //    SM's shared memory.
@@ -87,21 +89,24 @@ constexpr int kRows = 64;  // receiver rows per block (rows_blk)
 constexpr int kThreads = kWarpgroup + 32;  // consumers + the producer warp
 
 // Byte offsets of the shared memory: the 2 kRing mbarriers, the ring of
-// stages ([3][N][dp] bf16 each), the x tile [64][xs] and the message tile
-// [64][ms] f32 (odd strides: the 8 rows a warp reads at one column fall in 8
-// banks), the part's row sums [64][c_out] and the tile's slot_rows.  At
-// width 48, K 48, rank 16: 111 KB (two blocks per SM).
+// stages ([3][N][sd] bf16 each), past a depth of 64 split h's parts
+// [3][64][dp] bf16, the x tile [64][xs] and the message tile [64][ms] f32
+// (odd strides: the 8 rows a warp reads at one column fall in 8 banks), the
+// part's row sums [64][c_out] and the tile's slot_rows.  At width 48, K 48,
+// rank 16: 111 KB (two blocks per SM); at 128, rank 64: 198 KB.
 struct Layout {
-  int n, dp, xs, ms;
-  long stage, ring, x, m, acc, srow, total;
+  int n, dp, sd, xs, ms;
+  long stage, ring, a, x, m, acc, srow, total;
   __host__ __device__ Layout(int K, int c_in, int c_out, int r) {
     n = chunk_cols(r);
-    dp = round_up(K, 16);
+    dp = image_depth(K);
+    sd = stage_depth(dp);
     xs = c_in | 1;
     ms = c_out | 1;
-    stage = 3 * 2L * n * dp;
+    stage = 3 * 2L * n * sd;
     ring = 128;
-    x = ring + kRing * stage;
+    a = ring + kRing * stage;
+    x = a + (dp > 64 ? 3 * 2L * kTile * dp : 0);
     m = x + 4L * kTile * xs;
     acc = m + 4L * kTile * ms;
     srow = acc + 4L * kRows * c_out;
@@ -110,9 +115,9 @@ struct Layout {
 };
 
 // R8 = rp / 8 (rp the padded rank), S = K rounded up to 16, over 16 (h's k16
-// steps).
+// steps) up to 4, kDeep past it (h's parts in shared memory).
 template <int R8, int S>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<S>)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<R8, S>)
 lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
                       const int* __restrict__ senders_perm,
                       const bf16* __restrict__ image,
@@ -152,14 +157,14 @@ lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
   if (threadIdx.x == 0) ring_init(full, empty);
   __syncthreads();
 
-  // ---- producer: the n_c stages of every real tile of the part ----
+  // ---- producer: the n_c D stages of every real tile of the part ----
   if (threadIdx.x >= kWarpgroup) {
     const unsigned char* src = reinterpret_cast<const unsigned char*>(image);
     uint32_t j = 0;
     for (int t = next_real(t_lo); t < t_hi; t = next_real(t + 1)) {
       if (lane == 0)
         produce(full, empty, ring, src, static_cast<uint32_t>(L.stage),
-                n_c - 1, j);
+                n_c * (L.dp / L.sd) - 1, j);
       __syncwarp();
     }
     return;
@@ -174,7 +179,8 @@ lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
   float* acc_sm = reinterpret_cast<float*>(smem + L.acc);
   int* srow = reinterpret_cast<int*>(smem + L.srow);
   for (int e = tid; e < kRows * c_out; e += kWarpgroup) acc_sm[e] = 0.f;
-  const uint64_t d0 = desc(ring, L.dp);
+  bf16* a_sm = reinterpret_cast<bf16*>(smem + L.a);
+  const uint64_t d0 = desc(ring, L.sd);
   const uint32_t dstage = static_cast<uint32_t>(L.stage >> 4);
   const uint32_t dpart = dstage / 3;
   const int ru = R * c_in;
@@ -201,9 +207,15 @@ lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
   if (t < t_hi) fetch_x(t);
   while (t < t_hi) {
     const long tile = blk0 + static_cast<long>(t) * kTile;
-    // h's parts at this thread's fragment rows and columns
-    uint32_t ha[3][S][4];
-    split_rows<S>(ha, h + tile * K, K, K);
+    // h's parts at this thread's fragment rows and columns (past a depth of
+    // 64: in shared memory)
+    uint32_t ha[3][S > 4 ? 1 : S][4];
+    if constexpr (S > 4) {
+      split_smem(a_sm, h + tile * K, K, K, L.dp);
+      fence_async_smem();
+    } else {
+      split_rows<S>(ha, h + tile * K, K, K);
+    }
     cp_async_wait_all();
     warpgroup_sync(0);  // the tile's x rows have landed, and every thread is
                         // done with the last tile's scatter
@@ -258,9 +270,16 @@ lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
         }
       }
     };
-    const Walk<N, S, decltype(fin)> walk{ha, full, empty, d0, dstage, dpart,
-                                         lane, fin};
-    walk.all(n_c - 1, j);
+    if constexpr (S > 4) {
+      const DeepWalk<N, decltype(fin)> walk{
+          desc(a_sm, L.dp), static_cast<uint32_t>(2 * kTile * L.dp >> 4),
+          L.dp / L.sd, full, empty, d0, dstage, dpart, lane, fin};
+      walk.all(n_c, j);
+    } else {
+      const Walk<N, S, decltype(fin)> walk{ha, full, empty, d0, dstage,
+                                           dpart, lane, fin};
+      walk.all(n_c - 1, j);
+    }
     // this warp is done with its x rows: the next tile's land meanwhile
     if (next < t_hi) fetch_x(next);
 
@@ -354,7 +373,7 @@ int fused_edge_conv_lowrank_f32_wgmma_blocks_per_sm(int K, int c_in,
 // ops/fused_conv.py:lowrank_image_numel elements, 16-byte aligned.
 // Exactly one of s_dense and (slot_rows, row_weight) is non-null.  w3 is
 // [K, r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <=
-// 64 and 1 <= r <= 32.  out is [num_blocks*64, c_out] when parts
+// 128 and 1 <= r <= 64.  out is [num_blocks*64, c_out] when parts
 // == 1, else the partials [parts, num_blocks*64, c_out].  Returns the
 // cudaError_t of the launches (0 on success).
 int fused_edge_conv_lowrank_f32_wgmma_forward(

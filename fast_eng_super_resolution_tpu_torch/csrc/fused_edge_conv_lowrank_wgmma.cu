@@ -3,7 +3,7 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_jit
-// for bfloat16 operands at every rank 1 .. 32
+// for bfloat16 operands at every rank 1 .. 64 and K, c_in, c_out 1 .. 128
 // (fused_edge_conv_lowrank_f32_wgmma.cu is the float32 instance) and
 // computes the same function.  Slots are grouped as for the full-rank
 // layer: block b holds the slots whose receivers lie in rows [64 b, 64 b +
@@ -27,23 +27,25 @@
 // Design.  At a rank that is not a multiple of 8 a first launch lays out
 // the zero-padded copy of w3 at rp = 8 ceil(r / 8) (lowrank_wgmma.cuh
 // pad_head), so that the chunks below keep their 16-byte loads; the layer
-// then runs at rp, b3 staged padded from its real columns.  A block is one
-// warpgroup and owns one part of one receiver block's slot walk (grid
-// (num_blocks, parts), parts from the wrapper's ops/fused_conv.py:
+// then runs at rp, b3's columns copied padded from its real ones.  A block
+// is one warpgroup and owns one part of one receiver block's slot walk
+// (grid (num_blocks, parts), parts from the wrapper's ops/fused_conv.py:
 // conv_parts, as B1).  Per 64-slot tile it stages h (the A operand,
 // K-major, K padded to 16 with zeros) and the gathered x rows (float32),
 // then walks uv in 128-column chunks of whole channels (lowrank_wgmma.cuh):
-// each chunk is one m64n128 product over K; the next chunk's w3 columns are
-// double-buffered, copied in 16-byte pieces into the MN-major B operand
-// while the product runs (across the part's tiles).  A U chunk adds its
-// channels' terms to t in registers (each thread holds the same q of every
-// channel); once t is whole, a V chunk gives its channels' msg as
-// per-thread partials and one quad shuffle.  The scatter is B1's: a
-// segmented sum over receiver-sorted slots in CompactS form (tiles of
-// padding only skipped), the 64 x 64 S product in dense form.  Each part
-// writes its own [64, c_out] partial; the wrapper sums the partials in a
-// fixed order.  No atomics: two launches on the same inputs give the same
-// bits.
+// each chunk is one m64n128 product over K.  w3's columns (and a chunk's
+// b3) stream by cp.async through a ring of three buffers, two chunks ahead
+// of the running product, across the part's tiles (ChunkCopy).  A U chunk
+// adds its channels' terms to t in registers (each thread holds the same q
+// of every channel); once t is whole, a V chunk gives its channels' msg as
+// per-thread partials and one quad shuffle, into a message tile that
+// shares its memory with the x tile (x is read by the U chunks only, which
+// come first).  The scatter is B1's: a segmented sum over receiver-sorted
+// slots in CompactS form (tiles of padding only skipped), the 64 x 64 S
+// product in dense form.  Each part writes its own [64, c_out] partial;
+// the wrapper sums the partials in a fixed order.  No atomics: two
+// launches on the same inputs give the same bits.  Shared memory (any
+// rank): 70 KB at width 48, K 48 (three blocks per SM), 183 KB at 128.
 //
 // Bound.  Per real slot 2 (K+1) r (c_in + c_out) operations for uv plus
 // 4 r c for t and msg, against (K + c_in) 2 + 8 bytes: at width 48, rank 16
@@ -69,21 +71,23 @@ using namespace lowrank_wgmma;
 
 constexpr int kRows = 64;  // receiver rows per block (rows_blk)
 
-// Byte offsets of the shared-memory regions.  The float32 x and message
-// tiles have an odd row stride, so that the 8 rows a warp reads at one
-// column fall in 8 different banks.
+// Byte offsets of the shared-memory regions: h, the ring of kBufs
+// buffers (a w3 chunk [128][kp] bf16, then its b3 [128] f32), the x tile
+// [64][xs] f32 (later the message tile [64][ms]), the part's row sums and
+// the tile's slot_rows and senders.  The float32 x and message tiles have
+// an odd row stride, so that the 8 rows a warp reads at one column fall in
+// 8 different banks.
 struct Layout {
   int kp, xs, ms;
-  long b, b3, x, m, acc, srow, total;
-  __host__ __device__ Layout(int K, int c_in, int c_out, int r) {
+  long buf, ring, xm, acc, srow, total;
+  __host__ __device__ Layout(int K, int c_in, int c_out) {
     kp = round_up(K, 16);
     xs = c_in | 1;
     ms = c_out | 1;
-    b = 2L * kTile * kp;                     // a: h [64][kp]
-    b3 = b + 2L * 2 * kCols * kp;            // b: w3 chunk [2][128][kp]
-    x = b3 + 4L * r * (c_in + c_out);        // b3 [ncol] f32
-    m = x + 4L * kTile * xs;                 // x [64][xs] f32
-    acc = m + 4L * kTile * ms;               // messages [64][ms] f32
+    buf = 2L * kCols * kp + 4L * kCols;
+    ring = 2L * kTile * kp;                  // a: h [64][kp]
+    xm = ring + kBufs * buf;
+    acc = xm + 4L * kTile * (xs > ms ? xs : ms);
     srow = acc + 4L * kRows * c_out;         // part sums [64][c_out] f32
     total = srow + 4L * 2 * kTile;           // slot_rows, senders of the tile
   }
@@ -101,13 +105,12 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
                   int n_nodes) {
   constexpr int R = 8 * R8, G = kCols / R;  // padded rank, channels per chunk
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(K, c_in, c_out, R);
+  const Layout L(K, c_in, c_out);
   const int kp = L.kp, xs = L.xs, ms = L.ms;
   bf16* a_sm = reinterpret_cast<bf16*>(smem);
-  bf16* b_sm = reinterpret_cast<bf16*>(smem + L.b);
-  float* b3_sm = reinterpret_cast<float*>(smem + L.b3);
-  float* x_sm = reinterpret_cast<float*>(smem + L.x);
-  float* m_sm = reinterpret_cast<float*>(smem + L.m);
+  unsigned char* ring = smem + L.ring;
+  float* x_sm = reinterpret_cast<float*>(smem + L.xm);
+  float* m_sm = x_sm;
   float* acc_sm = reinterpret_cast<float*>(smem + L.acc);
   int* srow = reinterpret_cast<int*>(smem + L.srow);
   int* ssrc = srow + kTile;
@@ -119,11 +122,10 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
   const int t_lo = part * tiles / parts, t_hi = (part + 1) * tiles / parts;
   const long row_base = static_cast<long>(b) * kRows;
   const bool compact = s_dense == nullptr;
-  const int ru = R * c_in, ncol = R * (c_in + c_out);
+  const int ru = R * c_in;
   const int n_u = (c_in + G - 1) / G, n_c = n_u + (c_out + G - 1) / G;
   const bool x_vec = c_in % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 
-  stage_bias(b3_sm, b3, ncol, R, rank);
   for (int e = tid; e < kRows * c_out; e += kWarpgroup) acc_sm[e] = 0.f;
 
   // chunk c: the U chunks (input channels G c ..), then the V chunks
@@ -133,15 +135,18 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
     const int gc = min(G, (u ? c_in : c_out) - ch0);
     return Chunk{kUv, (u ? 0 : ru) + ch0 * R, gc * R, kp, K};
   };
-  // w3's chunks stream through the two B buffers in one sequence of steps
-  // over the part's tiles: step n reads buffer n % 2 while buffer
-  // (n + 1) % 2 takes the next step's chunk and the registers load the one
-  // after
-  const int bsize = kCols * kp;
-  ChunkStage<R8> st(w3, c_in, c_out);
-  st.load(chunk(0));
-  st.store(b_sm);
-  st.load(chunk(1));
+  // w3's chunks stream through the ring in one sequence of steps over the
+  // part's tiles: step n reads buffer n % 3 while the chunks of steps n + 1
+  // and n + 2 land in the other two
+  auto buf = [&](int n) {
+    return reinterpret_cast<bf16*>(ring + (n % kBufs) * L.buf);
+  };
+  auto bias = [&](int n) {
+    return reinterpret_cast<float*>(ring + (n % kBufs) * L.buf + 2L * kCols * kp);
+  };
+  const ChunkCopy<R8> cc(w3, b3, c_in, c_out, rank);
+  cc.start(buf(0), bias(0), chunk(0));
+  cc.start(buf(1), bias(1), chunk(1));
   int step = 0;
 
   const int r0 = acc_row(0);
@@ -159,7 +164,8 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
     if (!__syncthreads_or(real)) continue;  // padding only (CompactS)
 
     // ---- stage h (A) and the gathered x rows (float32; 16-byte pieces of
-    // the rows where they are aligned, every load of a thread in flight) ----
+    // the rows where they are aligned, every load of a thread in flight);
+    // the first step's barrier publishes them ----
     stage_rows(a_sm, h + tile * K, K, kp);
     if (x_vec) {
       const int per = c_in / 8;
@@ -181,8 +187,6 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
             src >= 0 ? __bfloat162float(x[static_cast<long>(src) * c_in + i]) : 0.f;
       }
     }
-    fence_async_smem();
-    __syncthreads();
 
     // t of this thread's rows r0, r0 + 8 at its 2 R8 values of q
     float tq[2][R8][2];
@@ -192,12 +196,17 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
       for (int m = 0; m < R8; ++m) tq[hf][m][0] = tq[hf][m][1] = 0.f;
 
     for (int c = 0; c < n_c; ++c, ++step) {
+      pieces_wait<1>();  // this step's chunk has landed
+      fence_async_smem();
+      __syncthreads();
       float acc[kCols / 2];
-      product<kCols, 1>(acc, a_sm, b_sm + (step & 1) * bsize, kp);
-      st.store(b_sm + ((step + 1) & 1) * bsize);
-      st.load(chunk((c + 2) % n_c));
+      product<kCols, 1>(acc, a_sm, buf(step), kp);
+      // the chunk two steps on (this tile's, or the next one's), into the
+      // buffer that step - 1's finished product read
+      cc.start(buf(step + 2), bias(step + 2), chunk((c + 2) % n_c));
       wait_all();
       fence_operand(acc);
+      const float* bs = bias(step);
       if (c < n_u) {  // t[s, q] += x[s, i] U[s, i, q]
         const int i0 = c * G, gc = min(G, c_in - i0);
 #pragma unroll
@@ -205,11 +214,10 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
           if (g >= gc) continue;
           const float xa = x_sm[r0 * xs + i0 + g];
           const float xb = x_sm[(r0 + 8) * xs + i0 + g];
-          const float* bias = b3_sm + (i0 + g) * R;
 #pragma unroll
           for (int u = 0; u < 4 * R8; ++u) {
             const int j = 4 * R8 * g + u;
-            const float uv = acc[j] + bias[q_of<R8>(j)];
+            const float uv = acc[j] + bs[g * R + q_of<R8>(j)];
             tq[(u >> 1) & 1][u >> 2][u & 1] += ((u >> 1) & 1 ? xb : xa) * uv;
           }
         }
@@ -218,12 +226,11 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           if (g >= gc) continue;
-          const float* bias = b3_sm + ru + (o0 + g) * R;
           float pa = 0.f, pb = 0.f;
 #pragma unroll
           for (int u = 0; u < 4 * R8; ++u) {
             const int j = 4 * R8 * g + u;
-            const float v = (acc[j] + bias[q_of<R8>(j)]) *
+            const float v = (acc[j] + bs[g * R + q_of<R8>(j)]) *
                             tq[(u >> 1) & 1][u >> 2][u & 1];
             if ((u >> 1) & 1) pb += v; else pa += v;
           }
@@ -235,9 +242,8 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
           }
         }
       }
-      fence_async_smem();
-      __syncthreads();
     }
+    __syncthreads();  // the tile's messages are whole
 
     // ---- scatter the tile's messages into the part's row sums ----
     if (compact) {
@@ -258,6 +264,7 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
     }
     __syncthreads();  // the next tile overwrites srow and the operands
   }
+  pieces_wait<0>();  // the copies ahead of the last step
 
   // ---- the part's partial (the output itself when parts == 1) ----
   float* dst = out + (static_cast<long>(part) * gridDim.x * kRows + row_base) * c_out;
@@ -274,7 +281,7 @@ cudaError_t launch(const void* h, const void* x, const void* senders_perm,
                    void* out, int num_blocks, int blk, int K, int c_in,
                    int c_out, int r, int n_nodes, int parts,
                    cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(Layout(K, c_in, c_out, 8 * R8).total);
+  const size_t smem = static_cast<size_t>(Layout(K, c_in, c_out).total);
   auto kernel = lowrank_fwd_wgmma<R8>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -302,7 +309,7 @@ extern "C" {
 // Bytes of dynamic shared memory one block needs.
 long fused_edge_conv_lowrank_wgmma_smem_bytes(int K, int c_in, int c_out,
                                               int r) {
-  return Layout(K, c_in, c_out, padded_rank(r)).total;
+  return Layout(K, c_in, c_out).total;
 }
 
 // Blocks one SM holds at once at these widths (-1 if they are not taken).
@@ -311,7 +318,7 @@ int fused_edge_conv_lowrank_wgmma_blocks_per_sm(int K, int c_in, int c_out,
   return with_rank(r, [&](auto r8) {
     return blocks_per_sm(
         lowrank_fwd_wgmma<decltype(r8)::value>,
-        static_cast<size_t>(Layout(K, c_in, c_out, padded_rank(r)).total));
+        static_cast<size_t>(Layout(K, c_in, c_out).total));
   }, -1);
 }
 
@@ -319,7 +326,7 @@ int fused_edge_conv_lowrank_wgmma_blocks_per_sm(int K, int c_in, int c_out,
 // h, x and w3 bfloat16; b3, row_weight, s_dense and out float32;
 // senders_perm and slot_rows int32.  Exactly one of s_dense and (slot_rows,
 // row_weight) is non-null.  w3 is [K, r*(c_in+c_out)] in the model's column
-// layout; 1 <= K, c_in, c_out <= 64 and 1 <= r <= 32.  At a rank that is
+// layout; 1 <= K, c_in, c_out <= 128 and 1 <= r <= 64.  At a rank that is
 // not a multiple of 8, pad is bfloat16 scratch of K*rp*(c_in+c_out)
 // elements, 16-byte aligned, rp = 8*ceil(r/8) (ops/fused_conv.py:
 // lowrank_pad_numel; unused otherwise).  out is

@@ -6,10 +6,11 @@
 // (bfloat16 B3/B4).  This header adds the chunk walks and their stage image.
 //
 // Chunks.  Every kernel runs at the padded rank rp = 8 ceil(r / 8) of
-// lowrank_wgmma.cuh (columns i rp + q of the head are the model's i r + q
-// for q < r, zeros for q >= r).  Every product is 64 slots x N columns of
-// the (k, q) or uv space, N = 64 (48 at rp = 24, so that a chunk holds whole
-// channels): G = N / rp channels of rp columns.  A chunk reads the edge
+// lowrank_wgmma.cuh (r 1 .. 64; columns i rp + q of the head are the
+// model's i r + q for q < r, zeros for q >= r).  Every product is 64 slots
+// x N columns of the (k, q) or uv space, N = G rp with G = floor(64 / rp)
+// whole channels of rp columns: 64 at rp 8, 16, 32 and 64, 48 at 24, and
+// one channel of 40, 48 or 56 past 32.  A chunk reads the edge
 // MLP's head w3 [K, r (c_in + c_out)] (model column layout: U[i, q] = uv[i
 // r + q], V[o, q] = uv[r c_in + o r + q]) padded, in one of three ways,
 // lowrank_wgmma.cuh's:
@@ -22,16 +23,26 @@
 // The forward walks the U chunks then the V chunks of uv (fwd_chunk); B4's
 // rows kernel the V chunks, the U chunks, then the P chunks and the Q chunks
 // over k (bwd_chunk).  The sequence is the same for every tile, so the stage
-// image (lowrank_image) lays it out once per call: stage c is the three bf16
-// parts of chunk c as K-major B operands [N][dmax] (wgmma_tile.cuh kmajor),
-// dmax the largest depth rounded up to 16, zeros past a chunk's columns and
-// depth and at q >= r; after the stages, b3 padded the same way (float32),
-// which the kernels' epilogues read.  A producer warp streams the stages
-// through f32_wgmma.cuh's ring (produce), the consumer warpgroup walks them
-// (Walk) with A (h, x_src or dmsg) split once per tile into register
-// fragments.  Every operand of a
-// product is an input or a float32 value split in three; the six products
-// of order >= 2^-16 run smallest first into one float32 accumulator.
+// image (lowrank_image) lays it out once per call: chunk c is the three bf16
+// parts of the chunk as K-major B operands [N][dp] (wgmma_tile.cuh kmajor),
+// dp the largest depth rounded up to 16 (past 64: to 32, image_depth),
+// zeros past a chunk's columns and depth and at q >= r; after the stages,
+// b3 padded the same way (float32), which the kernels' epilogues read.  A
+// producer warp streams the stages through f32_wgmma.cuh's ring (produce).
+//
+// Depth.  Up to a depth of 64 a chunk is one stage and the consumer
+// warpgroup walks the stages (f32_wgmma.cuh Walk) with A (h, x_src or dmsg)
+// split once per tile into register fragments (12 registers per 16 of
+// depth), two chunks' products in flight.  Past 64 the fragments would take
+// 72 or 96 registers beside the accumulators, and a chunk's stage 36 or 48
+// KB, so A's three parts are split once per tile into shared memory
+// instead (split_smem) and a chunk is dp / 32 stages of 32 deep (12 KB at N
+// 64, the ring four of them): DeepWalk issues each stage's products into
+// the chunk's one accumulator as it lands and releases it once they
+// completed; one instance (S = kDeep) serves every depth of 80 .. 128.
+// Every operand of a product is an input or a float32 value split in
+// three; per stage, the six products of order >= 2^-16 run smallest first
+// into one float32 accumulator.
 
 #pragma once
 
@@ -48,24 +59,38 @@ using lowrank_wgmma::real_col;
 using lowrank_wgmma::with_rank;
 
 constexpr int kTile = 64;    // slots per tile
-constexpr int kMaxDim = 64;  // K, c_in, c_out <= 64
+constexpr int kMaxDim = 128;  // K, c_in, c_out <= 128
 
 enum Reading { kUv = 0, kP = 1, kQ = 2 };
 
-// Columns of a chunk at the padded rank rp = 8 R8.
+// Columns of a chunk at the padded rank rp = 8 R8: whole channels, at most
+// 64.
+__host__ __device__ constexpr int chunk_cols(int rp) { return 64 / rp * rp; }
 template <int R8>
-constexpr int kN = R8 == 3 ? 48 : 64;
-__host__ __device__ constexpr int chunk_cols(int rp) {
-  return rp == 24 ? 48 : 64;
+constexpr int kN = chunk_cols(8 * R8);
+
+// The padded depth of the A operands and of the image's chunks: depth
+// rounded up to 16, past 64 to 32; and the depth of one stage: all of it
+// up to 64, else 32.
+__host__ __device__ constexpr int image_depth(int depth) {
+  return round_up(depth, 16) <= 64 ? round_up(depth, 16) : round_up(depth, 32);
+}
+__host__ __device__ constexpr int stage_depth(int dp) {
+  return dp <= 64 ? dp : 32;
 }
 
 // Blocks per SM the launch bounds of B3 and of B4's rows kernel hold the
-// registers to (168 a thread for two): two up to a depth of 48, where the
-// ring and tiles also fit two blocks' shared memory at width 48; one at
-// depth 64, whose shared memory holds one block anyway and whose
-// registers would spill under two's bound.
-template <int S>
-constexpr int kMinBlocks = S < 4 ? 2 : 1;
+// registers to (168 a thread for two): two up to a depth of 48 and a
+// padded rank of 32, where the ring and tiles also fit two blocks' shared
+// memory at width 48; one past either, whose registers (t and dt take 4 R8
+// each) would spill under two's bound.
+template <int R8, int S>
+constexpr int kMinBlocks = S < 4 && R8 <= 4 ? 2 : 1;
+
+// The template depth of every A operand past 64: S = kDeep stands for the
+// deep walk (DeepWalk) at any padded depth dp of 80 .. 128, dp / 32 stages
+// per chunk.
+constexpr int kDeep = 8;
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int lesser(int a, int b) { return a < b ? a : b; }
@@ -108,16 +133,19 @@ __host__ __device__ inline int bwd_chunks(int g, int K, int c_in, int c_out) {
   return cdiv(c_in, g) + cdiv(c_out, g) + 2 * cdiv(K, g);
 }
 
-// The stage image: stage c holds chunk c's three bf16 parts, each a K-major
-// [n][dmax] operand (n = N, the chunk's columns as rows), over the head
-// padded to rp; then b3 padded [rp (c_in + c_out)] float32.  Consecutive
-// threads take consecutive columns, so that w3's kUv rows coalesce.
+// The stage image: stage c D + l (D = dp / sd stages per chunk, sd
+// stage_depth) holds depth rows l sd .. l sd + sd - 1 of chunk c's three
+// bf16 parts, each a K-major [n][sd] operand (n = N, the chunk's columns as
+// rows), over the head padded to rp; then b3 padded [rp (c_in + c_out)]
+// float32.  Consecutive threads take consecutive columns, so that w3's kUv
+// rows coalesce.
 __global__ void lowrank_image(const float* __restrict__ w3,
                               const float* __restrict__ b3,
                               bf16* __restrict__ image, int stages, int n,
-                              int dmax, int rp, int r, int K, int c_in,
+                              int dp, int rp, int r, int K, int c_in,
                               int c_out, int backward) {
-  const int per = n * dmax, g = n / rp, ncol = r * (c_in + c_out);
+  const int sd = stage_depth(dp), slices = dp / sd;
+  const int per = n * sd, g = n / rp, ncol = r * (c_in + c_out);
   const long cells = static_cast<long>(stages) * per;
   const long total = cells + rp * (c_in + c_out);
   for (long q = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
@@ -127,8 +155,9 @@ __global__ void lowrank_image(const float* __restrict__ w3,
       reinterpret_cast<float*>(image + 3 * cells)[e] = rc >= 0 ? b3[rc] : 0.f;
       continue;
     }
-    const int c = static_cast<int>(q / per), e = static_cast<int>(q % per);
-    const int row = e % n, d = e / n;
+    const int st = static_cast<int>(q / per), e = static_cast<int>(q % per);
+    const int c = st / slices, row = e % n, dl = e / n;
+    const int d = (st - c * slices) * sd + dl;
     const Chunk ch = backward ? bwd_chunk(c, g, rp, K, c_in, c_out)
                               : fwd_chunk(c, g, rp, c_in, c_out);
     const int depth = ch.kind == kUv ? K : ch.kind == kP ? c_in : c_out;
@@ -149,33 +178,34 @@ __global__ void lowrank_image(const float* __restrict__ w3,
     const float r1 = v - __bfloat162float(v1);
     const bf16 v2 = __float2bfloat16_rn(r1);
     const bf16 v3 = __float2bfloat16_rn(r1 - __bfloat162float(v2));
-    bf16* st = image + static_cast<long>(c) * 3 * per + kmajor(row, d, dmax);
-    st[0] = v1;
-    st[per] = v2;
-    st[2 * per] = v3;
+    bf16* at = image + static_cast<long>(st) * 3 * per + kmajor(row, dl, sd);
+    at[0] = v1;
+    at[per] = v2;
+    at[2 * per] = v3;
   }
 }
 
-// Lays out the stage image of `stages` chunks and returns the padded b3
-// after them (through `b3p`).
+// Lays out the stage image of `chunks` chunks of depth dp (image_depth)
+// and returns the padded b3 after them (through `b3p`).
 inline cudaError_t launch_lowrank_image(const float* w3, const float* b3,
-                                        bf16* image, int stages, int n,
-                                        int dmax, int rp, int r, int K,
+                                        bf16* image, int chunks, int n,
+                                        int dp, int rp, int r, int K,
                                         int c_in, int c_out, bool backward,
                                         const float** b3p,
                                         cudaStream_t stream) {
-  const long cells = static_cast<long>(stages) * n * dmax;
+  const int stages = chunks * (dp / stage_depth(dp));
+  const long cells = static_cast<long>(stages) * n * stage_depth(dp);
   const long total = cells + rp * (c_in + c_out);
   lowrank_image<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
-                  stream>>>(w3, b3, image, stages, n, dmax, rp, r, K, c_in,
+                  stream>>>(w3, b3, image, stages, n, dp, rp, r, K, c_in,
                             c_out, backward ? 1 : 0);
   *b3p = reinterpret_cast<const float*>(image + 3 * cells);
   return cudaGetLastError();
 }
 
-// f(R8, S) for a rank r of 1 .. 32, R8 = ceil(r / 8), and S = depth rounded
-// up to 16, over 16, for a depth of 1..64 (the k16 steps of a kernel's A
-// operands); `otherwise` outside them.
+// f(R8, S) for a rank r of 1 .. 64, R8 = ceil(r / 8), and S the k16 steps
+// of a kernel's A operands up to a depth of 64 (1 .. 4), kDeep past it, for
+// a depth of 1 .. 128; `otherwise` outside them.
 template <typename F, typename Ret>
 Ret with_rank_depth(int r, int depth, F&& f, Ret otherwise) {
   if (depth < 1 || depth > kMaxDim) return otherwise;
@@ -184,7 +214,8 @@ Ret with_rank_depth(int r, int depth, F&& f, Ret otherwise) {
       case 1: return f(r8, std::integral_constant<int, 1>());
       case 2: return f(r8, std::integral_constant<int, 2>());
       case 3: return f(r8, std::integral_constant<int, 3>());
-      default: return f(r8, std::integral_constant<int, 4>());
+      case 4: return f(r8, std::integral_constant<int, 4>());
+      default: return f(r8, std::integral_constant<int, kDeep>());
     }
   }, otherwise);
 }
@@ -206,5 +237,78 @@ __device__ __forceinline__ void split_rows(uint32_t (&a)[3][S][4],
       split3(va, vb, a[0][s][u], a[1][s][u], a[2][s][u]);
     }
 }
+
+// The three parts of 64 rows [width] (row s at src + s * stride, columns
+// past width zero) as K-major operands [64][dp] in shared memory, part p at
+// dst + p 64 dp; 8 consecutive columns of a row are a 16-byte piece of each
+// part.  The threads of one warpgroup; the caller fences and synchronises
+// before a product reads them.
+__device__ __forceinline__ void split_smem(bf16* dst, const float* src,
+                                           long stride, int width, int dp) {
+  const int per = dp / 8;
+  for (int p = threadIdx.x % kWarpgroup; p < kTile * per; p += kWarpgroup) {
+    const int s = p / per, d = 8 * (p - s * per);
+    const float* row = src + s * stride;
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = d + u < width ? row[d + u] : 0.f;
+    uint4 pt[3];
+    split3_8(v, pt);
+    const int at = kmajor(s, d, dp);
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      *reinterpret_cast<uint4*>(dst + r * kTile * dp + at) = pt[r];
+  }
+}
+
+// The consumer warpgroup's walk for one tile past a depth of 64: A's parts
+// in shared memory (descriptor da, part p at + p dapart, a k16 step at +
+// 16), each chunk `slices` = dp / 32 stages of the ring (descriptors as
+// Walk's).  A chunk's stages go into one accumulator, each stage's twelve
+// products (six pairs of parts, two k16 steps) as one group issued as soon
+// as the stage has landed and waited for before the stage is released (the
+// producer keeps the next stages landing meanwhile), then fin(acc, c).  No
+// product is in flight across a loop's back edge.
+template <int N, typename Fin>
+struct DeepWalk {
+  uint64_t da;
+  uint32_t dapart;
+  int slices;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t d0;
+  uint32_t dstage, dpart;
+  int lane;
+  Fin& fin;
+
+  // Chunks 0 .. n - 1 from ring step j on.
+  __device__ __forceinline__ void all(int n, uint32_t& j) const {
+    for (int c = 0; c < n; ++c) {
+      float acc[N / 2];
+#pragma unroll
+      for (int v = 0; v < N / 2; ++v) acc[v] = 0.f;
+      for (int l = 0; l < slices; ++l, ++j) {
+        mbar_wait(full + slot(j), parity(j));
+        fence_operand(acc);
+        fence();
+        const uint64_t db = d0 + slot(j) * dstage;
+        const uint64_t dl = da + static_cast<uint64_t>(32 * l);
+#pragma unroll
+        for (int q = 0; q < 6; ++q)
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+            Mma<N>::run(acc,
+                        dl + static_cast<uint64_t>(a_part(q) * dapart + 16 * s),
+                        db + static_cast<uint64_t>(b_part(q) * dpart + 16 * s),
+                        1);
+        commit();
+        wait_all();
+        fence_operand(acc);
+        if (lane == 0) mbar_arrive(empty + slot(j));
+      }
+      fin(acc, c);
+    }
+  }
+};
 
 }  // namespace lowrank_f32

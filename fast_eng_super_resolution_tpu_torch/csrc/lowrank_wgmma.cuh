@@ -3,7 +3,8 @@
 // (fused_edge_conv_lowrank_bwd_wgmma.cu); the rank dispatch and the padded
 // column map also serve the float32 pair (lowrank_f32_wgmma.cuh).
 //
-// Padded rank.  Every kernel runs at rp = 8 R8, R8 = ceil(r / 8), the real
+// Padded rank.  Every kernel runs at rp = 8 R8 (r 1 .. 64, R8 = 1 .. 8,
+// with_rank), R8 = ceil(r / 8), the real
 // rank r beside it at run time: channel i's columns are i rp .. i rp + rp -
 // 1 of a padded head whose column i rp + q is the model's column i r + q
 // for q < r, and zero for q >= r (w3 and b3 alike; real_col below).  With
@@ -11,8 +12,8 @@
 // result is the rank-rp instance's on the zero-padded head; dw3 and db3 go
 // back to the model's columns only.  The bfloat16 kernels read a padded
 // copy of w3 that pad_head lays out once per call (at a rank that is not a
-// multiple of 8), so that every chunk still loads in 16-byte pieces; b3 is
-// staged padded from its real columns.
+// multiple of 8), so that every chunk still loads in 16-byte pieces; b3's
+// columns are copied padded from its real ones, chunk by chunk.
 //
 // Chunks.  Both kernels run m64n128k16 products whose B operand is a
 // 128-column chunk of the (padded) edge MLP's head w3 [K, rp (c_in +
@@ -24,12 +25,17 @@
 //        w3[k, i rp + q]: W3U, so that P = x_src @ W3U
 //   kQ:  the same over depth o < c_out, w3[k, rp c_in + o rp + q]: W3V
 //
-// A chunk holds whole channels (or whole k for kP/kQ): G = 128 / rp of
-// them, cw = (channels) rp columns; columns past cw and depth rows past the
+// A chunk holds whole channels (or whole k for kP/kQ): G = floor(128 / rp)
+// of them, cw = (channels) rp columns (128 at rp 8, 16, 32 and 64; 120 at
+// 24 and 40, 96 at 48, 112 at 56); columns past cw and depth rows past the
 // real depth are staged as zeros.  With rp a multiple of 8, 8 consecutive
 // columns of one depth row are 16 contiguous bytes of w3 in all three
 // readings, so a chunk copies in 16-byte pieces into the MN-major layout of
-// wgmma_tile.cuh (columns contiguous).
+// wgmma_tile.cuh (columns contiguous).  ChunkCopy issues them by cp.async
+// into a ring of three buffers, two steps ahead of the running product, so
+// that they land while it runs and cost no registers (at K, c_in or c_out
+// 128 a chunk is 16 pieces a thread); a kUv chunk's buffer also takes its
+// 128 columns of b3, padded, which the epilogue adds.
 //
 // Accumulator -> (channel, q).  Value j of a thread's m64n128 accumulator
 // sits at column 8 (j / 4) + 2 (lane % 4) + j % 2 (wgmma_tile.cuh).  With
@@ -53,10 +59,20 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;    // slots per tile
 constexpr int kCols = 128;   // columns per chunk
-constexpr int kMaxDim = 64;  // K, c_in, c_out <= 64
-constexpr int kPieces = kMaxDim * (kCols / 8) / kWarpgroup;  // per thread
+constexpr int kMaxDim = 128;  // K, c_in, c_out <= 128
+constexpr int kBufs = 3;      // chunks in the ring of B buffers
 
 enum ChunkKind { kUv = 0, kP = 1, kQ = 2 };
+
+// The padded rank of r: 8 ceil(r / 8).
+__host__ __device__ constexpr int padded_rank(int r) { return (r + 7) / 8 * 8; }
+
+// The model's column of padded column c of a head at rank r padded to rp
+// (channel c / rp, q = c % rp), or -1 for a padded column (q >= r).
+__host__ __device__ __forceinline__ int real_col(int c, int rp, int r) {
+  const int ch = c / rp, q = c - ch * rp;
+  return q < r ? ch * r + q : -1;
+}
 
 // Channel (or k) of the chunk and q that accumulator value j of this thread
 // holds, for r = 8 R8.
@@ -83,61 +99,79 @@ struct Chunk {
   int real;   // real depth: K, c_in or c_out
 };
 
-// A chunk on its way from w3 into a B operand: thread t owns the pieces of
-// columns 8 (t / 8) .. at depth rows 8 m + t % 8 and carries them in
-// registers from load() to store(), so that their loads overlap a running
-// product.  8 consecutive threads hold 8 consecutive depth rows of one
-// column group: 128 contiguous bytes of the MN-major operand (no bank
-// conflict), and each 32-byte sector of w3 is read by two threads of a
-// warp.  Pieces outside the chunk's real columns or depth are zeros;
-// pieces past its padded depth are not stored.
+// Copies of 16 bytes (`bytes` 16) or of 4 (`bytes` 4) from global to
+// shared memory that run while the thread goes on (cp.async through L1, so
+// that the blocks on one SM share the w3 chunks they all read); with `fill`
+// false they read nothing and write zeros.
+template <int bytes>
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           bool fill) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src), "n"(bytes), "r"(fill ? bytes : 0)
+               : "memory");
+}
+
+// A chunk on its way from w3 into a B operand of the ring: start(buf,
+// bias, c) issues chunk c's pieces (and a kUv chunk's 128 padded b3 values
+// into `bias`) and closes one group of this thread's copies
+// (pieces_wait counts them); nothing waits for them here.  Thread t takes
+// the pieces of columns 8 (t / 8) .. at depth rows 8 m + t % 8: 8
+// consecutive threads write 128 contiguous bytes of the MN-major operand
+// (no bank conflict), and each 32-byte sector of w3 is read by two threads
+// of a warp.  Pieces outside the chunk's real columns or depth are zeros;
+// pieces past its padded depth are not written.  When w3 is not 16-byte
+// aligned, the pieces are copied element by element before start returns.
 template <int R8>
-struct ChunkStage {
+struct ChunkCopy {
   static constexpr int kR = 8 * R8;
   const bf16* w3;
-  int ncol, ru;
-  bool vec;  // w3 16-byte aligned: one 16-byte load per piece
-  int depth;  // the loaded chunk's padded depth
-  uint4 v[kPieces];
+  const float* b3;
+  int ncol, ru, rank;
+  bool vec;  // w3 16-byte aligned: one cp.async per piece
 
-  __device__ __forceinline__ ChunkStage(const bf16* w3_, int c_in, int c_out)
-      : w3(w3_), ncol(kR * (c_in + c_out)), ru(kR * c_in) {
+  __device__ __forceinline__ ChunkCopy(const bf16* w3_, const float* b3_,
+                                       int c_in, int c_out, int rank_)
+      : w3(w3_), b3(b3_), ncol(kR * (c_in + c_out)), ru(kR * c_in),
+        rank(rank_) {
     vec = reinterpret_cast<uintptr_t>(w3) % 16 == 0;
   }
 
-  __device__ __forceinline__ void load(const Chunk& c) {
-    depth = c.depth;
+  __device__ __forceinline__ void start(bf16* buf, float* bias,
+                                        const Chunk& c) const {
+    const int n = 8 * (threadIdx.x / 8);
+    // w3's offset of the piece at depth row d: base + d * stride
+    long base;
+    int stride;
+    if (c.kind == kUv) {
+      base = c.lo + n;
+      stride = ncol;
+    } else {
+      const int col = c.lo + n, k = col / kR;
+      base = static_cast<long>(k) * ncol + (c.kind == kQ ? ru : 0) + col -
+             k * kR;
+      stride = kR;
+    }
+    const bool col_ok = n < c.cw;
+    for (int d = threadIdx.x % 8; d < c.depth; d += 8) {
+      bf16* dst = buf + mnmajor(n, d, c.depth);
+      const bool ok = col_ok && d < c.real;
+      const bf16* src = w3 + (ok ? base + static_cast<long>(d) * stride : 0);
+      if (vec) {
+        copy_async<16>(dst, src, ok);
+      } else {
+        Pack8 e;
 #pragma unroll
-    for (int m = 0; m < kPieces; ++m) {
-      const int d = 8 * m + threadIdx.x % 8, n = 8 * (threadIdx.x / 8);
-      v[m] = make_uint4(0u, 0u, 0u, 0u);
-      if (d < c.real && n < c.cw) {
-        long off;
-        if (c.kind == kUv) {
-          off = static_cast<long>(d) * ncol + c.lo + n;
-        } else {
-          const int col = c.lo + n, k = col / kR, q = col - k * kR;
-          off = static_cast<long>(k) * ncol + (c.kind == kQ ? ru : 0) +
-                d * kR + q;
-        }
-        if (vec) {
-          v[m] = *reinterpret_cast<const uint4*>(w3 + off);
-        } else {
-          Pack8 e;
-#pragma unroll
-          for (int u = 0; u < 8; ++u) e.e[u] = w3[off + u];
-          v[m] = e.u;
-        }
+        for (int u = 0; u < 8; ++u) e.e[u] = ok ? src[u] : __float2bfloat16(0.f);
+        *reinterpret_cast<uint4*>(dst) = e.u;
       }
     }
-  }
-
-  __device__ __forceinline__ void store(bf16* buf) const {
-#pragma unroll
-    for (int m = 0; m < kPieces; ++m) {
-      const int d = 8 * m + threadIdx.x % 8, n = 8 * (threadIdx.x / 8);
-      if (d < depth) *reinterpret_cast<uint4*>(buf + mnmajor(n, d, depth)) = v[m];
+    if (c.kind == kUv) {
+      const int t = threadIdx.x;
+      const int rc = t < c.cw ? real_col(c.lo + t, kR, rank) : -1;
+      copy_async<4>(bias + t, b3 + (rc >= 0 ? rc : 0), rc >= 0);
     }
+    pieces_commit();
   }
 };
 
@@ -178,16 +212,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v;
 }
 
-// The padded rank of r: 8 ceil(r / 8).
-__host__ __device__ constexpr int padded_rank(int r) { return (r + 7) / 8 * 8; }
-
-// The model's column of padded column c of a head at rank r padded to rp
-// (channel c / rp, q = c % rp), or -1 for a padded column (q >= r).
-__host__ __device__ __forceinline__ int real_col(int c, int rp, int r) {
-  const int ch = c / rp, q = c - ch * rp;
-  return q < r ? ch * r + q : -1;
-}
-
 // Writes the padded copy of w3 [K, r nch] (nch = c_in + c_out channels) as
 // [K, rp nch], zeros at q >= r; consecutive threads take consecutive
 // padded columns of one row.
@@ -213,16 +237,7 @@ inline cudaError_t launch_pad_head(const T* w3, T* w3p, int K, int nch,
   return cudaGetLastError();
 }
 
-// b3 [r nch] staged padded into shared memory [rp nch], zeros at q >= r.
-__device__ __forceinline__ void stage_bias(float* dst, const float* b3,
-                                           int ncolp, int rp, int r) {
-  for (int e = threadIdx.x; e < ncolp; e += kWarpgroup) {
-    const int rc = real_col(e, rp, r);
-    dst[e] = rc >= 0 ? b3[rc] : 0.f;
-  }
-}
-
-// f(std::integral_constant<int, R8>()) for a rank r of 1 .. 32, R8 =
+// f(std::integral_constant<int, R8>()) for a rank r of 1 .. 64, R8 =
 // ceil(r / 8) (the padded rank over 8); `otherwise` for any other rank.
 template <typename F, typename R>
 R with_rank(int r, F&& f, R otherwise) {
@@ -231,6 +246,10 @@ R with_rank(int r, F&& f, R otherwise) {
     case 16: return f(std::integral_constant<int, 2>());
     case 24: return f(std::integral_constant<int, 3>());
     case 32: return f(std::integral_constant<int, 4>());
+    case 40: return f(std::integral_constant<int, 5>());
+    case 48: return f(std::integral_constant<int, 6>());
+    case 56: return f(std::integral_constant<int, 7>());
+    case 64: return f(std::integral_constant<int, 8>());
   }
   return otherwise;
 }

@@ -25,13 +25,14 @@ Nothing falls back from one to the other.  Training goes through
 or ``csrc/fused_edge_conv_bwd_f32_wgmma.cu`` (or its plain version,
 ``fused_edge_conv_bwd_plain``, on the CPU).  Models with rank-r factorized
 edge kernels (``kernel_rank``) run ``fused_edge_conv_lowrank``, on the
-tensor cores at every rank 1-32 (``csrc/fused_edge_conv_lowrank_wgmma.cu``
+tensor cores at every rank 1-64 (``csrc/fused_edge_conv_lowrank_wgmma.cu``
 for bfloat16, ``csrc/fused_edge_conv_lowrank_f32_wgmma.cu`` for float32;
 a rank that is not a multiple of 8 runs at ``padded_rank``, its head padded
 with zeros), and train through ``FusedEdgeConvLowrank``, whose backward is
 ``csrc/fused_edge_conv_lowrank_bwd_wgmma.cu`` or
 ``csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu`` the same way.
-``design`` names the design every launch runs.
+``design`` names the design every launch runs.  Every kernel takes K,
+c_in and c_out up to 128 (B5, ``ops/pallas_mp.py``, widths up to 64).
 """
 
 from __future__ import annotations
@@ -413,13 +414,13 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_geometry(dt, slots: int, rows_blk: int, blk: int, *,
-                    k_max: int = 64, w_max: int = 64, **dims) -> None:
+def _check_geometry(dt, slots: int, rows_blk: int, blk: int,
+                    **dims) -> None:
     """Raises on what the kernels do not take: a GEMM type other than
     float32 or bfloat16, blocks of other than 64 rows, a blk that is not a
     positive multiple of 64 dividing the slots, or a width ``dims`` (name=
-    value) outside 1..w_max (``K``: 1..k_max; ``rank``: 1..32).  B1 and B2
-    take widths and K up to 128, B3 and B4 up to 64."""
+    value) outside 1..128 (``rank``: 1..64).  B1-B4 take widths and K up to
+    128, B3 and B4 ranks up to 64."""
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"h_blocked dtype {dt} (expected float32 | bfloat16)")
     if rows_blk != 64:
@@ -427,7 +428,7 @@ def _check_geometry(dt, slots: int, rows_blk: int, blk: int, *,
     if blk % 64 or blk <= 0:
         raise ValueError(f"blk={blk} must be a positive multiple of 64")
     for name, v in dims.items():
-        top = {"rank": 32, "K": k_max}.get(name, w_max)
+        top = 64 if name == "rank" else 128
         if not 1 <= v <= top:
             raise ValueError(f"{name}={v} outside the kernel's 1..{top}")
     if slots % blk:
@@ -451,7 +452,7 @@ def design(dt: torch.dtype, rank: int | None = None) -> str:
     tensor cores (csrc/*_wgmma.cu), for every kernel in both types, as
     bfloat16 products or float32 ones exact through three-part bf16 splits
     (csrc/f32_wgmma.cuh).  B1 and B2 take ``rank`` None; B3 and B4 any rank
-    1-32, run at ``padded_rank`` (csrc/lowrank_wgmma.cuh)."""
+    1-64, run at ``padded_rank`` (csrc/lowrank_wgmma.cuh)."""
     return "wgmma"
 
 
@@ -498,29 +499,40 @@ def image_numel(k: int, rows: int, depth: int) -> int:
 
 
 def lowrank_chunk_cols(rank: int) -> int:
-    """Columns of one product of the float32 B3/B4 at rank ``rank``: 64, or
-    48 at a padded rank of 24, so that a chunk holds whole padded channels
-    (csrc/lowrank_f32_wgmma.cuh)."""
-    return 48 if padded_rank(rank) == 24 else 64
+    """Columns of one product of the float32 B3/B4 at rank ``rank``: the
+    whole padded channels that fit in 64 (64 at a padded rank of 8, 16, 32
+    or 64, 48 at 24, one channel of 40, 48 or 56 past 32;
+    csrc/lowrank_f32_wgmma.cuh)."""
+    rp = padded_rank(rank)
+    return 64 // rp * rp
+
+
+def lowrank_image_depth(depth: int) -> int:
+    """The float32 B3's (B4's) padded depth of its A operands and of its
+    stage image's chunks: ``depth`` rounded up to 16, past 64 to 32 (each
+    chunk then in stages of 32; csrc/lowrank_f32_wgmma.cuh image_depth)."""
+    d16 = _round_up(depth, 16)
+    return d16 if d16 <= 64 else _round_up(depth, 32)
 
 
 def lowrank_image_numel(k: int, c_in: int, c_out: int, rank: int,
                         backward: bool = False) -> int:
     """bf16 elements of the float32 B3's (B4's) stage image of w3 and b3:
-    one stage per chunk of its walk over the head padded to ``padded_rank``
-    (B3: the U and V chunks of uv; B4: those and the P and Q chunks over k),
-    each three [N, depth] operands, N ``lowrank_chunk_cols`` and depth K (B4:
-    the largest of K, c_in and c_out) rounded up to 16; then b3 padded,
-    float32 (csrc/lowrank_f32_wgmma.cuh)."""
+    each chunk of its walk over the head padded to ``padded_rank`` (B3: the
+    U and V chunks of uv; B4: those and the P and Q chunks over k) as three
+    [N, depth] operands, N ``lowrank_chunk_cols`` and depth K (B4: the
+    largest of K, c_in and c_out) padded as ``lowrank_image_depth`` (past 64
+    in stages of 32); then b3 padded, float32 (csrc/lowrank_f32_wgmma.cuh)."""
     rp = padded_rank(rank)
     n = lowrank_chunk_cols(rank)
     g = n // rp
-    stages = -(-c_in // g) + -(-c_out // g)
+    chunks = -(-c_in // g) + -(-c_out // g)
     depth = k
     if backward:
-        stages += 2 * -(-k // g)
+        chunks += 2 * -(-k // g)
         depth = max(k, c_in, c_out)
-    return stages * 3 * n * _round_up(depth, 16) + 2 * rp * (c_in + c_out)
+    return (chunks * 3 * n * lowrank_image_depth(depth)
+            + 2 * rp * (c_in + c_out))
 
 
 def lowrank_pad_numel(k: int, c_in: int, c_out: int, rank: int) -> int:
@@ -559,13 +571,14 @@ def weight_tiles(k: int, c_in: int, c_out: int) -> tuple:
     return -(-c_in * c_out // 128), -(-k // 64)
 
 
-def lowrank_weight_tiles(rank: int, c_in: int, c_out: int) -> int:
-    """Column tiles of the B4 weights kernel (both types) over the padded
-    duv [K+1, rp*(c_in+c_out)], rp ``padded_rank``: 128 columns each; K+1
-    <= 65 rows are one tile (dw3 on the tensor cores, db3 summed by the
-    thread that forms its column).  Each tile writes its columns with q < r
-    into the [K+1, r*(c_in+c_out)] result."""
-    return -(-padded_rank(rank) * (c_in + c_out) // 128)
+def lowrank_weight_tiles(k: int, c_in: int, c_out: int, rank: int) -> tuple:
+    """(column tiles, row tiles) of the B4 weights kernel (both types) over
+    the padded duv [K+1, rp*(c_in+c_out)], rp ``padded_rank``: 128 columns
+    by 64 rows of K each (dw3 on the tensor cores; db3, row K, summed by the
+    thread that forms its column, in the first row tile's blocks only).
+    Each tile writes its columns with q < r into the [K+1, r*(c_in+c_out)]
+    result."""
+    return -(-padded_rank(rank) * (c_in + c_out) // 128), -(-k // 64)
 
 
 def _sms(device) -> int:
@@ -610,8 +623,7 @@ def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
     are added here in a fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, k_max=128, w_max=128, K=k,
-                    c_in=c_in, c_out=c_out)
+    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out)
     nb = slots // blk
     n = x.shape[0]
     _check("h_blocked", h_blocked, dt, (slots, k))
@@ -735,8 +747,7 @@ def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
     fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, k_max=128, w_max=128, K=k,
-                    c_in=c_in, c_out=c_out)
+    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out)
     nb, c2 = slots // blk, c_in * c_out
     _check("g", g, torch.float32, (nb * rows_blk, c_out))
     _check("h_blocked", h_blocked, dt, (slots, k))
@@ -1046,8 +1057,8 @@ def fused_edge_conv_lowrank_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *,
     dmsg = torch.empty((slots, c_out), dtype=dt, device=dev)
     t_vec = torch.empty((slots, padded_rank(rank)), **f32)
     dt_vec = torch.empty((slots, padded_rank(rank)), **f32)
-    splits = _weight_splits(slots, lowrank_weight_tiles(rank, c_in, c_out),
-                            dev)
+    col_tiles, row_tiles = lowrank_weight_tiles(k, c_in, c_out, rank)
+    splits = _weight_splits(slots, col_tiles * row_tiles, dev)
     partial = torch.empty((splits, k + 1, ncol), **f32)
     scratch = _lowrank_scratch(dt, k, c_in, c_out, rank, True, dev)
     with torch.cuda.device(dev):

@@ -128,10 +128,10 @@ def test_cuda_wrappers_reject_cpu_operands():
         tfc.fused_edge_conv_lowrank_bwd_cuda(
             t(o["g"]), t(o["h"]), t(o["x_src"]), t(o["w3"]), t(o["b3"]),
             _s(blocks, True), **kw)
-    with pytest.raises(ValueError, match="rank=33"):  # checked before devices
+    with pytest.raises(ValueError, match="rank=65"):  # checked before devices
         tfc.fused_edge_conv_lowrank_cuda(
             t(o["h"]), t(o["x"]), t(blocks.senders_perm), t(o["w3"]),
-            t(o["b3"]), _s(blocks, True), **{**kw, "rank": 33})
+            t(o["b3"]), _s(blocks, True), **{**kw, "rank": 65})
 
 
 def _layer_grads(fn, o, s):
@@ -189,3 +189,63 @@ def test_padding_slots_never_reach_node_0(monkeypatch):
 
     monkeypatch.setattr(tfc, "fused_edge_conv_lowrank_bwd", noisy_bwd)
     torch.testing.assert_close(x_grad(), want, rtol=0, atol=0)
+
+
+# Widths, K and ranks past those of the rank-r layer above, as the card's
+# B3 and B4 take them (K, c_in, c_out up to 128, rank up to 64): the top
+# corner, one padded channel of 40 per 64 columns at width 96, and c_in !=
+# c_out at an odd rank.  At most two receiver blocks, so that the plain
+# versions' [slots, r (c_in + c_out)] arrays stay small.
+WIDE = [(128, 128, 128, 64), (96, 96, 96, 40), (72, 128, 48, 57)]
+
+
+def _wide_operands(c_in, c_out, k, rank, seed):
+    rng = np.random.default_rng(seed)
+    n, e = 100, 500
+    recv = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    send = rng.integers(0, n, e).astype(np.int32)
+    blocks = tfc.build_scatter_blocks(recv, send, n, rng.random(e) > 0.2,
+                                      quantum=64)
+    assert blocks.num_blocks <= 2
+    slots, ncol = len(blocks.senders_perm), rank * (c_in + c_out)
+    scale = (k * c_in) ** -0.5  # messages of order one
+    o = dict(h=(np.maximum(rng.normal(size=(slots, k)), 0)).astype(np.float32),
+             x=rng.normal(size=(n, c_in)).astype(np.float32),
+             w3=(rng.normal(size=(k, ncol)) * scale).astype(np.float32),
+             b3=(rng.normal(size=(ncol,)) * scale).astype(np.float32),
+             g=rng.normal(size=(blocks.n_pad, c_out)).astype(np.float32))
+    o["x_src"] = o["x"][blocks.senders_perm]
+    return blocks, o
+
+
+@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c_in,c_out,k,rank", WIDE)
+def test_plain_lowrank_wide_matches_pallas(c_in, c_out, k, rank, gemm_dtype):
+    """The plain B3 and B4 against the JAX package's Pallas kernels in
+    interpret mode at widths and K up to 128 and ranks up to 64, both S
+    forms, with TOL's bounds (each output relative to its own max; w3's and
+    b3's gradients in the model's column layout)."""
+    blocks, o = _wide_operands(c_in, c_out, k, rank, seed=c_in + k + rank)
+    kw = dict(c_in=c_in, c_out=c_out, rank=rank, rows_blk=blocks.rows_blk,
+              blk=blocks.blk, gemm_dtype=gemm_dtype)
+    j = {key: jnp.asarray(v) for key, v in o.items()}
+    ref = np.asarray(jfc.fused_edge_conv_lowrank(
+        j["h"], j["x"], jnp.asarray(blocks.senders_perm), j["w3"], j["b3"],
+        jnp.asarray(blocks.s_matrix), interpret=True, **kw))
+    ref_bwd = jfc._fused_lowrank_bwd_jit(
+        j["g"], j["h"], j["x_src"], j["w3"], j["b3"],
+        jnp.asarray(blocks.s_matrix), sub=None, interpret=True, **kw)
+    t = {key: torch.as_tensor(v) for key, v in o.items()}
+    for compact in (False, True):
+        got = tfc.fused_edge_conv_lowrank(
+            t["h"], t["x"], torch.as_tensor(blocks.senders_perm), t["w3"],
+            t["b3"], _s(blocks, compact), **kw)
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert _rel(got.numpy(), ref) < TOL[gemm_dtype]
+        grads = tfc.fused_edge_conv_lowrank_bwd(
+            t["g"], t["h"], t["x_src"], t["w3"], t["b3"], _s(blocks, compact),
+            **kw)
+        for name, a, b in zip(("dh", "dx_src", "dw3", "db3"), grads, ref_bwd):
+            assert a.dtype == torch.float32 and tuple(a.shape) == b.shape, name
+            err = _rel(a.numpy(), b)
+            assert err < TOL[gemm_dtype], (name, compact, err)

@@ -725,9 +725,9 @@ def _lowrank_bwd(blocks, g, h, x_src, w3, b3, c, rank, gemm_dtype, compact,
 # B3 and B4 against their plain versions: both round h, x (x_src), w3 and
 # (B4) dmsg to the GEMM type identically, then sum float32 products in
 # different orders (TF32 off): 1e-5 of each output's max, as for B1 and B2.
-# Ranks 1-32 run on the tensor cores at the padded rank 8 ceil(r / 8):
-# ranks at, just past and just short of a multiple of 8.
-LOWRANK_RANKS = [1, 3, 12, 16, 20, 31]
+# Ranks 1-64 run on the tensor cores at the padded rank 8 ceil(r / 8):
+# ranks at, just past and just short of a multiple of 8, and past 32.
+LOWRANK_RANKS = [1, 3, 12, 16, 20, 31, 36, 64]
 
 @pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("compact", [True, False])
@@ -815,7 +815,7 @@ def test_lowrank_wrappers_check_operands(cuda):
                      (tfc.fused_edge_conv_lowrank_bwd_cuda, bwd)):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             fn(*args[:4], args[4].cpu(), args[5], **kw)
-        for bad in (0, 33):
+        for bad in (0, 65):
             with pytest.raises(ValueError, match="rank"):
                 fn(*args, **{**kw, "rank": bad})
         with pytest.raises(ValueError):  # a head of another rank's width
@@ -874,7 +874,8 @@ def test_fused_edge_conv_lowrank_grads_on_card_match_cpu(cuda, compact):
 # each output's max.
 LOWRANK_WGMMA = [(48, 48, 16), (48, 17, 8), (16, 64, 32), (5, 1, 16),
                  (64, 48, 24), (24, 20, 16), (12, 33, 8), (48, 17, 5),
-                 (64, 48, 20), (12, 33, 31)]
+                 (64, 48, 20), (12, 33, 31), (128, 128, 64), (96, 100, 40),
+                 (80, 128, 56), (48, 48, 48), (20, 70, 33)]
 
 
 @pytest.mark.parametrize("compact", [True, False])
@@ -1075,6 +1076,112 @@ def test_lowrank_f32_wgmma_exact_at_extreme_scales(cuda, scale):
     _hold_lowrank_f32(blocks, h, (x * np.float32(scale)).astype(np.float32),
                       w3, b3, (g / np.float32(scale)).astype(np.float32), c,
                       rank, True)
+
+
+# B3 and B4 past width 64, K 64 and rank 32 (one design per type: the
+# bfloat16 chunks by cp.async into a ring of three buffers, the float32 A
+# operands split into shared memory past a depth of 64, each chunk then in
+# stages of 32): (c_in, c_out, K, rank) at the top corner, at G = 3 (rank
+# 40) and one channel per chunk (ranks 33-64), widths that are not a
+# multiple of 8, c_in != c_out, K past 64 at a narrow width, and a new rank
+# at an old width.
+LOWRANK_WIDE = [(128, 128, 128, 64), (128, 128, 128, 32), (128, 128, 128, 40),
+                (96, 96, 96, 48), (127, 127, 128, 57), (72, 128, 48, 20),
+                (48, 48, 48, 36), (16, 24, 100, 8), (128, 72, 80, 64)]
+
+
+def _lowrank_wide_operands(c_in, c_out, k, rank, seed):
+    """``_wide_operands`` with the rank-r head [K, r (c_in + c_out)]."""
+    blocks, o = _wide_operands(c_in, c_out, k, seed)
+    rng = np.random.default_rng(seed + 200)
+    ncol = rank * (c_in + c_out)
+    o["w3"] = (rng.normal(size=(k, ncol)) * 0.1).astype(np.float32)
+    o["b3"] = (rng.normal(size=(ncol,)) * 0.1).astype(np.float32)
+    return blocks, o
+
+
+@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("c_in,c_out,k,rank", LOWRANK_WIDE)
+def test_lowrank_wide_kernels_match_plain(cuda, c_in, c_out, k, rank,
+                                          compact, gemm_dtype):
+    """B3 and B4 at widths and K up to 128 and ranks up to 64 against their
+    plain versions (BWD_TOL in bfloat16, F32_LOWRANK_TOL in float32, of
+    each output's max, as at the narrow widths), each launched twice with
+    the same bits."""
+    blocks, o = _lowrank_wide_operands(c_in, c_out, k, rank,
+                                       seed=c_in + 3 * c_out + k + rank)
+    kw = dict(c_in=c_in, c_out=c_out, rank=rank, rows_blk=64, blk=blocks.blk,
+              gemm_dtype=gemm_dtype)
+    tol = F32_LOWRANK_TOL if gemm_dtype == "float32" else BWD_TOL
+
+    def run(device):
+        t = {key: torch.as_tensor(v, device=device) for key, v in o.items()}
+        s = (blocks.compact_s.to(device) if compact
+             else torch.as_tensor(blocks.s_matrix, device=device))
+        sp = torch.as_tensor(blocks.senders_perm, device=device)
+        out = tfc.fused_edge_conv_lowrank(t["h"], t["x"], sp, t["w3"],
+                                          t["b3"], s, **kw)
+        grads = tfc.fused_edge_conv_lowrank_bwd(
+            t["g"], t["h"], t["x"][sp.long()], t["w3"], t["b3"], s, **kw)
+        return [a.cpu() for a in (out, *grads)]
+
+    fwd = tfc.fused_edge_conv_lowrank.launches
+    bwd = tfc.fused_edge_conv_lowrank_bwd.launches
+    got, again = run("cuda"), run("cuda")
+    torch.cuda.synchronize()
+    assert tfc.fused_edge_conv_lowrank.launches == fwd + 2
+    assert tfc.fused_edge_conv_lowrank_bwd.launches == bwd + 2
+    for name, a, b, r in zip(("out", "dh", "dx_src", "dw3", "db3"), got,
+                             again, run("cpu")):
+        assert a.shape == r.shape and torch.isfinite(a).all(), name
+        assert torch.equal(a, b), name
+        err = (a - r).abs().max().item() / r.abs().max().item()
+        assert err < tol, (name, err)
+
+
+def test_lowrank_limits(cuda):
+    """K 129, width 129 and rank 65 are past B3's and B4's range: the
+    wrappers raise before any launch, in both types."""
+    blocks, o = _lowrank_wide_operands(8, 8, 6, 4, seed=19)
+    t = {key: torch.as_tensor(v, device="cuda") for key, v in o.items()}
+    sp = torch.as_tensor(blocks.senders_perm, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        fwd = tfc.fused_edge_conv_lowrank.launches
+        bwd = tfc.fused_edge_conv_lowrank_bwd.launches
+        for bad, match in (({"c_in": 129}, "c_in=129"),
+                           ({"c_out": 129}, "c_out=129"),
+                           ({"rank": 65}, "rank=65")):
+            kw = {**dict(c_in=8, c_out=8, rank=4, rows_blk=64, blk=blocks.blk),
+                  **bad}
+            with pytest.raises(ValueError, match=match):
+                tfc.fused_edge_conv_lowrank_cuda(
+                    t["h"].to(dt), t["x"].to(dt), sp, t["w3"].to(dt), t["b3"],
+                    blocks.compact_s.to("cuda"), **kw)
+            with pytest.raises(ValueError, match=match):
+                tfc.fused_edge_conv_lowrank_bwd_cuda(
+                    t["g"], t["h"].to(dt), t["x"][sp.long()].to(dt),
+                    t["w3"].to(dt), t["b3"], blocks.compact_s.to("cuda"), **kw)
+        h129 = torch.zeros((len(blocks.senders_perm), 129), dtype=dt,
+                           device="cuda")
+        kw = dict(c_in=8, c_out=8, rank=4, rows_blk=64, blk=blocks.blk)
+        with pytest.raises(ValueError, match="K=129"):
+            tfc.fused_edge_conv_lowrank_cuda(
+                h129, t["x"].to(dt), sp, torch.zeros((129, 64), dtype=dt,
+                                                     device="cuda"),
+                t["b3"], blocks.compact_s.to("cuda"), **kw)
+        assert tfc.fused_edge_conv_lowrank.launches == fwd
+        assert tfc.fused_edge_conv_lowrank_bwd.launches == bwd
+
+
+@pytest.mark.parametrize("k,c_in,c_out,rank", [
+    (128, 128, 128, 64), (128, 128, 128, 8), (128, 128, 128, 40),
+    (48, 48, 48, 64), (128, 72, 128, 20)])
+def test_lowrank_wide_occupancy_query(cuda, k, c_in, c_out, rank):
+    """Every tensor-core B3/B4 kernel, both types, fits an SM at widths and
+    K up to 128 and ranks up to 64."""
+    occ = tfc.occupancy(k, c_in, c_out, rank=rank)
+    assert len(occ) == 6 and all(v >= 1 for v in occ.values()), occ
 
 
 def _routed_scheduler(tmp_path, device, gemm_dtype):

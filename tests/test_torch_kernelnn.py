@@ -140,6 +140,67 @@ def test_apply_fused_width_128_matches_jax():
     assert _rel(got.numpy(), ref) < TOL
 
 
+@pytest.mark.parametrize("rank", [32, 57])
+def test_rank_r_width_128_fused_and_grads_match_jax(rank):
+    """A rank-r KernelNN at width 128 (K 128, depth 2, about 200 nodes),
+    where the card's B3 and B4 take c_in = c_out = K = 128 and rank 32 (57:
+    padded to 64): the port's fused forward and its fused training form's
+    gradients (plain versions on the CPU), weights carried over from the
+    JAX parameter tree, against JAX's ``apply_fused`` with the Pallas kernel
+    in interpret mode (1e-5 of the max) and ``jax.grad`` of its plain
+    ``apply`` (loss within 1e-5 relative, each gradient within 1e-4 of its
+    norm), float32."""
+    cfg = dict(width=128, ker_width=128, depth=2, in_width=4, out_width=4,
+               kernel_rank=rank)
+    model = JKernelNN(mode="edge3d", **cfg)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    model.init(jax.random.PRNGKey(rank)))
+    g = make_random_graph(np.random.default_rng(rank), n=200, e=900)
+    g = pad_graph(g["x"], g["y"], g["pos"], g["senders"], g["receivers"],
+                  g["edge_attr"], 256, 1024)
+    ea_b, sp, s, rows_blk, blk = model.prepare_fused(
+        g.senders, g.receivers, g.edge_attr, 256, g.edge_mask)
+    ref = model.apply_fused(params, jnp.asarray(g.x), jnp.asarray(ea_b),
+                            jnp.asarray(sp), jnp.asarray(s), rows_blk=rows_blk,
+                            blk=blk, gemm_dtype="float32", interpret=True)
+    port = KernelNN(**cfg)
+    load_jax_tree(port, params)
+    ea_t, sp_t, s_t, rb, bk = port.prepare_fused(
+        g.senders, g.receivers, g.edge_attr, 256, g.edge_mask, compact=True)
+    with torch.no_grad():
+        got = port.apply_fused(torch.as_tensor(g.x), torch.as_tensor(ea_t),
+                               torch.as_tensor(sp_t), s_t.to("cpu"),
+                               rows_blk=rb, blk=bk, gemm_dtype="float32")
+    assert got.shape == (256, 4)
+    assert _rel(got.numpy(), ref) < TOL
+
+    y = np.random.default_rng(rank + 1).normal(size=g.x.shape).astype(np.float32)
+
+    def loss_jax(p):
+        out = model.apply(p, jnp.asarray(g.x), jnp.asarray(g.senders),
+                          jnp.asarray(g.receivers), jnp.asarray(g.edge_attr),
+                          edge_mask=jnp.asarray(g.edge_mask))
+        return jnp.sum((out - y) ** 2)
+
+    ref_loss, ref_grads = jax.value_and_grad(loss_jax)(params)
+    ea, aux, s_tr, rb, bk = port.prepare_fused_train(
+        g.senders, g.receivers, g.edge_attr, g.x.shape[0], g.edge_mask,
+        compact=True)
+    out = port.apply_fused_ad(
+        torch.as_tensor(g.x), torch.as_tensor(ea),
+        {k: torch.as_tensor(v) for k, v in aux.items()}, s_tr.to("cpu"),
+        rows_blk=rb, blk=bk, gemm_dtype="float32")
+    loss = ((out - torch.as_tensor(y)) ** 2).sum()
+    loss.backward()
+    assert abs(float(loss.detach()) - float(ref_loss)) <= 1e-5 * abs(float(ref_loss))
+    want = flatten_params(jax.tree_util.tree_map(np.asarray, ref_grads))
+    for name, p in port.named_parameters():
+        key, transposed = port.jax_key(name)
+        grad = p.grad.numpy().T if transposed else p.grad.numpy()
+        err = np.linalg.norm(grad - want[key]) / np.linalg.norm(want[key])
+        assert err < 1e-4, (key, err)
+
+
 @pytest.mark.parametrize("rank", RANKS)
 def test_export_pth_matches_jax_and_checks_shapes(rank):
     model, params = _jax_model_and_params(2, rank)

@@ -3,8 +3,9 @@
 csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu and csrc/lowrank_f32_wgmma.cuh),
 on the CPU: the design and libraries the wrappers pick, the index map of the
 stage-image launch in its three readings (kUv, kP, kQ) over the head padded
-to 8 ceil(r / 8) (zeros at q >= r, b3 padded after the stages), the sizes
-the wrappers derive from it at every rank 1-32, numpy emulations of
+to 8 ceil(r / 8) (zeros at q >= r, b3 padded after the stages; past a
+depth of 64 each chunk in stages of 32), the sizes
+the wrappers derive from it at every rank 1-64, numpy emulations of
 the kernels' walks (B3: h split once per tile, the six products of each
 chunk in the kernel's order, + b3, t and msg in float32, the segmented
 scatter into per-part sums; B4's rows kernel over the V, U, P and Q chunks
@@ -26,6 +27,13 @@ from test_torch_f32_wgmma_host import (SMS, _dmsg, _fma, _graph, _rel, _six,
 
 RANKS = [8, 16, 24, 32]
 PADDED_RANKS = [1, 3, 5, 12, 20, 27, 31]  # run at 8 ceil(r / 8)
+WIDE_RANKS = [33, 40, 48, 57, 64]  # one padded channel per chunk
+
+
+def _stage_depth(dp):
+    """lowrank_f32_wgmma.cuh stage_depth: a chunk's stage holds all of its
+    depth up to 64, else 32 of it."""
+    return dp if dp <= 64 else 32
 
 
 def _round_up(v, m):
@@ -62,16 +70,20 @@ def _chunks(k, c_in, c_out, rank, backward):
 def _image(w3, b3, k, c_in, c_out, rank, backward):
     """What the stage-image launch writes (lowrank_f32_wgmma.cuh
     lowrank_image): its index map run in numpy over every thread index q,
-    the padded columns (q >= rank) read as zeros.  ([stages, 3, N * dmax]
-    bf16 values as float64, the padded b3 written after them)."""
+    the padded columns (q >= rank) read as zeros; chunk c's depth rows l sd
+    .. in stage c D + l (sd = _stage_depth(dp), D = dp / sd).  ([stages, 3,
+    N * sd] bf16 values as float64, the padded b3 written after them)."""
     rp = tfc.padded_rank(rank)
     n = tfc.lowrank_chunk_cols(rank)
-    dmax = _round_up(max(k, c_in, c_out) if backward else k, 16)
+    dp = tfc.lowrank_image_depth(max(k, c_in, c_out) if backward else k)
+    sd = _stage_depth(dp)
+    slices = dp // sd
     chunks = _chunks(k, c_in, c_out, rank, backward)
-    per = n * dmax
-    q = np.arange(len(chunks) * per)
-    c, e = q // per, q % per
-    row, d = e % n, e // n
+    per = n * sd
+    q = np.arange(len(chunks) * slices * per)
+    st, e = q // per, q % per
+    c, row, dl = st // slices, e % n, e // n
+    d = (st % slices) * sd + dl
     reading = np.array([ch[0] for ch in chunks])[c]
     lo = np.array([ch[1] for ch in chunks])[c]
     cw = np.array([ch[2] for ch in chunks])[c]
@@ -86,9 +98,9 @@ def _image(w3, b3, k, c_in, c_out, rank, backward):
                   kk * ncol + np.where(reading == "q", rank * c_in, 0)
                   + d * rank + qq)
     v = np.where(ok, flat[np.where(ok, at, 0)], 0).astype(np.float32)
-    image = np.zeros((len(chunks), 3, per))
+    image = np.zeros((len(chunks) * slices, 3, per))
     for p, part in enumerate(_split(v)):
-        image[c, p, kmajor(row, d, dmax)] = part
+        image[st, p, kmajor(row, dl, sd)] = part
     rcb = _real_col(np.arange(rp * (c_in + c_out)), rp, rank)
     b3p = np.where(rcb >= 0, b3[np.maximum(rcb, 0)], 0).astype(np.float32)
     return image, b3p
@@ -105,16 +117,22 @@ def _zero_padded(w3, rank):
     return w.reshape(k, nch * rp)
 
 
-def _stages(image, n, dmax):
-    """The image read back through kmajor, as the descriptor reads it:
-    [stages, 3, N, dmax]."""
-    r, d = np.meshgrid(np.arange(n), np.arange(dmax), indexing="ij")
-    return image[:, :, kmajor(r, d, dmax)]
+def _stages(image, n, dp):
+    """The image read back through kmajor, as the descriptor reads each
+    stage, a chunk's stages side by side in depth: [chunks, 3, N, dp]."""
+    sd = _stage_depth(dp)
+    r, d = np.meshgrid(np.arange(n), np.arange(sd), indexing="ij")
+    st = image[:, :, kmajor(r, d, sd)]  # [stages, 3, N, sd]
+    st = st.reshape(-1, dp // sd, 3, n, sd).transpose(0, 2, 3, 1, 4)
+    return st.reshape(-1, 3, n, dp)
 
 
-@pytest.mark.parametrize("rank", RANKS + PADDED_RANKS)
-@pytest.mark.parametrize("k,c_in,c_out", [(48, 48, 48), (5, 7, 3),
-                                          (64, 64, 64), (17, 33, 20)])
+@pytest.mark.parametrize("k,c_in,c_out,rank", [
+    (*shape, r) for r in RANKS + PADDED_RANKS
+    for shape in [(48, 48, 48), (5, 7, 3), (64, 64, 64), (17, 33, 20)]] + [
+    (*shape, r) for r in WIDE_RANKS + [8, 27]
+    for shape in [(128, 128, 128), (100, 72, 33), (48, 48, 48), (20, 5, 80)]
+    if shape != (48, 48, 48) or r in WIDE_RANKS])
 def test_stage_image_in_all_three_readings(k, c_in, c_out, rank):
     """Read back through kmajor, the parts of each stage sum exactly to its
     chunk of the head padded to rp = 8 ceil(r / 8) (w3p, zero columns at q
@@ -137,8 +155,10 @@ def test_stage_image_in_all_three_readings(k, c_in, c_out, rank):
         assert image.size + 2 * b3p.size == tfc.lowrank_image_numel(
             k, c_in, c_out, rank, backward)
         assert np.array_equal(b3p, _zero_padded(b3[None], rank)[0])
-        dmax = _round_up(max(k, c_in, c_out) if backward else k, 16)
-        stages = _stages(image, n, dmax)
+        dp = tfc.lowrank_image_depth(max(k, c_in, c_out) if backward else k)
+        # a stage stays within 24 KB: the ring's four in under half an SM
+        assert 3 * 2 * n * _stage_depth(dp) <= 24 * 1024
+        stages = _stages(image, n, dp)
         whole = stages.sum(1)
         got = {"uv": [], "p": [], "q": []}
         for c, (reading, lo, cw) in enumerate(
@@ -160,15 +180,16 @@ def test_stage_image_in_all_three_readings(k, c_in, c_out, rank):
 
 
 @pytest.mark.parametrize("c_in,c_out,k", [(48, 48, 48), (5, 7, 3),
-                                          (64, 64, 64), (1, 64, 17)])
+                                          (64, 64, 64), (1, 64, 17),
+                                          (128, 128, 128), (72, 128, 100)])
 def test_padded_map_and_sizes_at_every_rank(c_in, c_out, k):
-    """At every rank 1-32 (the map alone, no data): rp = 8 ceil(r / 8);
+    """At every rank 1-64 (the map alone, no data): rp = 8 ceil(r / 8);
     the padded columns' map gives every model column once, in order, and
-    -1 exactly at q >= r; a chunk holds whole padded channels; the stage
-    image, the bfloat16 scratch of the padded w3 and B4's weight tiles are
-    sized from rp."""
+    -1 exactly at q >= r; a chunk holds whole padded channels, as many as
+    fit in 64 columns; the stage image, the bfloat16 scratch of the padded
+    w3 and B4's weight tiles are sized from rp."""
     nch = c_in + c_out
-    for rank in range(1, 33):
+    for rank in range(1, 65):
         rp = tfc.padded_rank(rank)
         assert rp % 8 == 0 and rank <= rp < rank + 8
         cols = np.arange(rp * nch)
@@ -176,14 +197,19 @@ def test_padded_map_and_sizes_at_every_rank(c_in, c_out, k):
         assert list(rc[rc >= 0]) == list(range(rank * nch))
         assert np.array_equal(rc < 0, cols % rp >= rank)
         n = tfc.lowrank_chunk_cols(rank)
-        assert n == (48 if rp == 24 else 64) and n % rp == 0
+        assert n % rp == 0 and n <= 64 < n + rp
+        assert n == {24: 48, 40: 40, 48: 48, 56: 56}.get(rp, 64)
         for backward in (False, True):
             stages = len(_chunks(k, c_in, c_out, rank, backward))
-            dmax = _round_up(max(k, c_in, c_out) if backward else k, 16)
+            depth = max(k, c_in, c_out) if backward else k
+            dp = tfc.lowrank_image_depth(depth)
+            assert dp == (_round_up(depth, 16) if depth <= 64
+                          else _round_up(depth, 32))
             assert tfc.lowrank_image_numel(k, c_in, c_out, rank, backward) == \
-                stages * 3 * n * dmax + 2 * rp * nch
-        tiles = tfc.lowrank_weight_tiles(rank, c_in, c_out)
+                stages * 3 * n * dp + 2 * rp * nch
+        tiles, row_tiles = tfc.lowrank_weight_tiles(k, c_in, c_out, rank)
         assert (tiles - 1) * 128 < rp * nch <= tiles * 128
+        assert (row_tiles - 1) * 64 < k <= row_tiles * 64
         assert tfc.lowrank_pad_numel(k, c_in, c_out, rank) == (
             0 if rp == rank else k * rp * nch)
 
@@ -278,7 +304,7 @@ def _emulate_fwd(blocks, o, c_in, c_out, rank, compact):
     the padded rank rp (t [..., rp], zero at q >= rank)."""
     k = o["h"].shape[1]
     rp = tfc.padded_rank(rank)
-    n, dp, ru = tfc.lowrank_chunk_cols(rank), _round_up(k, 16), rp * c_in
+    n, dp, ru = tfc.lowrank_chunk_cols(rank), tfc.lowrank_image_depth(k), rp * c_in
     image, b3p = _image(o["w3"], o["b3"], k, c_in, c_out, rank, False)
     st = _stages(image, n, dp)
     idx, real = _tiles(blocks)
@@ -337,9 +363,13 @@ def _jax_fwd(blocks, o, c_in, c_out, rank):
         **_kw(blocks, c_in, c_out, rank)))
 
 
+# (c_in, c_out, K, rank): past rank 32 one padded channel per chunk, past
+# a depth of 64 the A operands in shared memory and each chunk in stages
+# of 32 (the deep walk)
 SHAPES = [(16, 16, 16, 16), (12, 20, 33, 8), (9, 7, 5, 24), (8, 8, 17, 32),
           (16, 16, 16, 12), (12, 20, 33, 1), (9, 7, 5, 20), (8, 8, 17, 31),
-          (7, 9, 12, 3)]
+          (7, 9, 12, 3), (7, 9, 100, 40), (10, 6, 70, 57), (6, 80, 9, 64),
+          (9, 7, 128, 16)]
 
 
 @pytest.mark.parametrize("c_in,c_out,k,rank", SHAPES)
@@ -367,7 +397,8 @@ def _emulate_bwd(blocks, o, c_in, c_out, rank, compact, sms=SMS):
     k = o["h"].shape[1]
     slots, rp = len(blocks.senders_perm), tfc.padded_rank(rank)
     ru, ncol = rp * c_in, rp * (c_in + c_out)
-    n, dp = tfc.lowrank_chunk_cols(rank), _round_up(max(k, c_in, c_out), 16)
+    n, dp = (tfc.lowrank_chunk_cols(rank),
+             tfc.lowrank_image_depth(max(k, c_in, c_out)))
     image, b3p = _image(o["w3"], o["b3"], k, c_in, c_out, rank, True)
     st = _stages(image, n, dp)
     idx, real = _tiles(blocks)
@@ -406,8 +437,8 @@ def _emulate_bwd(blocks, o, c_in, c_out, rank, compact, sms=SMS):
     assert not t[:, rank:].any() and not dt[:, rank:].any()
     # (b) weights: per split, chunk by chunk, six passes of h^T duv into a
     # fresh accumulator added into the float32 sum; db3 in slot order
-    splits = tfc.weight_splits(slots, tfc.lowrank_weight_tiles(rank, c_in, c_out),
-                               sms)
+    tiles, row_tiles = tfc.lowrank_weight_tiles(k, c_in, c_out, rank)
+    splits = tfc.weight_splits(slots, tiles * row_tiles, sms)
     chunks = slots // 64
     per = -(-chunks // splits)
     partial = np.zeros((splits, k + 1, ncol), np.float32)
@@ -576,7 +607,7 @@ def _fn(which, fwd, bwd):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 @pytest.mark.parametrize("bad,match", [
-    ({"rank": 40}, "rank=40"), ({"c_out": 65}, "c_out=65"),
+    ({"rank": 65}, "rank=65"), ({"c_out": 129}, "c_out=129"),
     ({"c_in": 0}, "c_in=0"), ({"rows_blk": 16}, "rows_blk=16"),
     ({"blk": 32}, "blk=32")])
 def test_f32_lowrank_wrappers_refuse_geometry_before_launch(which, bad, match):
@@ -590,9 +621,11 @@ def test_f32_lowrank_wrappers_refuse_geometry_before_launch(which, bad, match):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 def test_f32_lowrank_wrappers_refuse_k_past_64_cpu_tensors_and_float64(which):
-    fwd, bwd, kw = _small(k=65)
+    """K past the kernels' 128 (the name is from when they stopped at 64),
+    CPU tensors and float64 are refused before any launch."""
+    fwd, bwd, kw = _small(k=129)
     fn, args = _fn(which, fwd, bwd)
-    with pytest.raises(ValueError, match="K=65"):
+    with pytest.raises(ValueError, match="K=129"):
         fn(*args, **kw)
     fwd, bwd, kw = _small()
     fn, args = _fn(which, fwd, bwd)

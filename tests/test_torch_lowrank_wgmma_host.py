@@ -3,7 +3,8 @@
 and csrc/lowrank_wgmma.cuh), on the CPU: the design rule by type and rank,
 the exact three-part bf16 split of float32 values that the weights kernel
 relies on, the wgmma accumulator's column -> (channel, q) mapping, the chunk
-schedules and column tiles, the padded head of a rank that is not a
+schedules and column and row tiles (ranks up to 64, widths and K up to
+128), the padded head of a rank that is not a
 multiple of 8 (pad_head's copy of w3, b3 staged padded, dw3/db3 written back
 to the model's columns), a numpy emulation of both kernels' tile loops
 (the w3 pieces they stage, the accumulator values each thread holds, the
@@ -44,7 +45,8 @@ def lowrank_chunks(k, c_in, c_out, rank, backward=False):
     """The 128-column chunks B3 (``backward`` False) or B4's rows kernel
     walks per 64-slot tile, in order, as (kind, first column, columns), as
     the kernels build them: 'u' and 'v' chunks of uv's U and V columns in
-    whole channels of G = 128 // rank; in B4 the V chunks first, then the U
+    whole channels of G = 128 // rank (rank the padded one, 8 .. 64: G 16
+    .. 2); in B4 the V chunks first, then the U
     chunks, then for each group of G rows k of w3 a 'p' chunk (P = x_src @
     W3U) and a 'q' chunk (Q = dmsg @ W3V) over the (k, q) columns
     k*rank + q."""
@@ -129,7 +131,7 @@ def test_two_part_split_is_not_exact():
     assert (d1.double() + d2.double() != v.double()).float().mean() > 0.5
 
 
-@pytest.mark.parametrize("rank", [8, 16, 24, 32])
+@pytest.mark.parametrize("rank", [8, 16, 24, 32, 40, 48, 56, 64])
 def test_accumulator_maps_to_channel_and_q(rank):
     """The column of accumulator value j of thread t is channel
     channel_of(j) * rank + q_of(t, j) of its chunk; every thread holds the
@@ -140,7 +142,8 @@ def test_accumulator_maps_to_channel_and_q(rank):
     col = acc_col(THREADS, VALUES)
     ch = channel_of(VALUES, r8) + 0 * THREADS
     q = q_of(THREADS, VALUES, r8)
-    real = ch < g  # r = 24: the last 8 of 128 columns hold no whole channel
+    real = ch < g  # r = 24, 40: the last 8 of 128 columns hold no whole
+    # channel, r = 48 (56) the last 32 (16)
     assert np.array_equal((ch * rank + q)[real], col[real])
     assert (q[real] < rank).all()
     for t in range(128):
@@ -158,7 +161,9 @@ def test_accumulator_maps_to_channel_and_q(rank):
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("k,c_in,c_out,rank", [
     (48, 48, 48, 16), (48, 48, 48, 8), (64, 64, 64, 32), (17, 5, 7, 16),
-    (1, 1, 1, 8), (20, 30, 13, 24), (64, 64, 64, 24)])
+    (1, 1, 1, 8), (20, 30, 13, 24), (64, 64, 64, 24), (128, 128, 128, 64),
+    (96, 96, 96, 40), (128, 72, 128, 48), (100, 127, 127, 56),
+    (48, 48, 48, 40), (128, 128, 128, 8)])
 def test_lowrank_chunks_cover_every_column_once_in_order(k, c_in, c_out,
                                                          rank, backward):
     """The forward walks uv's U then V columns; the rows kernel its V then U
@@ -192,20 +197,32 @@ def test_lowrank_chunks_cover_every_column_once_in_order(k, c_in, c_out,
 @pytest.mark.parametrize("rank,c_in,c_out", [(16, 48, 48), (8, 5, 5),
                                              (32, 64, 64), (24, 13, 30),
                                              (12, 48, 48), (3, 5, 5),
-                                             (31, 64, 64), (20, 13, 30)])
+                                             (31, 64, 64), (20, 13, 30),
+                                             (64, 128, 128), (40, 96, 96),
+                                             (57, 127, 127), (20, 72, 128),
+                                             (8, 128, 128)])
 def test_lowrank_weight_tiles_cover_the_output_once(rank, c_in, c_out):
-    """The 128-column tiles cover the padded duv [K+1, rp (c_in + c_out)]
-    once (each tile writes its columns with q < r to the model's)."""
-    tiles = tfc.lowrank_weight_tiles(rank, c_in, c_out)
+    """At K 1-128, the 128-column by 64-row tiles cover the padded dw3 [K,
+    rp (c_in + c_out)] once, and row K (db3) once, from the first row
+    tile's blocks (each tile writes its columns with q < r to the
+    model's)."""
     ncol = tfc.padded_rank(rank) * (c_in + c_out)
-    cover = np.zeros(tiles * 128, np.int32)
-    for n in range(tiles):
-        cover[n * 128:(n + 1) * 128] += 1
-    assert (cover[:ncol] == 1).all() and (tiles - 1) * 128 < ncol
+    for k in (1, 48, 64, 65, 100, 128):
+        tiles, row_tiles = tfc.lowrank_weight_tiles(k, c_in, c_out, rank)
+        cover = np.zeros((k + 1, tiles * 128), np.int32)
+        for n in range(tiles):
+            for kt in range(row_tiles):
+                k0 = 64 * kt
+                cover[k0:min(k0 + 64, k), n * 128:(n + 1) * 128] += 1
+                if k0 == 0:  # db3: the thread that forms its column
+                    cover[k, n * 128:(n + 1) * 128] += 1
+        assert (cover[:, :ncol] == 1).all() and (tiles - 1) * 128 < ncol
+        assert (row_tiles - 1) * 64 < k <= row_tiles * 64
+    tiles, row_tiles = tfc.lowrank_weight_tiles(128, c_in, c_out, rank)
     # with the slot splits the wrapper picks, every 64-slot chunk once, in
     # order (a split past the last chunk writes a zero partial)
     chunks = 247_808 // 64
-    splits = tfc.weight_splits(247_808, tiles, 132)
+    splits = tfc.weight_splits(247_808, tiles * row_tiles, 132)
     per = -(-chunks // splits)  # as the kernel cuts them
     got = [c for sp in range(splits)
            for c in range(sp * per, min((sp + 1) * per, chunks))]
@@ -217,7 +234,7 @@ def test_lowrank_weight_tiles_cover_the_output_once(rank, c_in, c_out):
 
 
 def _stage(w3, kind, lo, cw, depth, real, rank, c_in):
-    """The B operand [128 columns, depth] as ChunkStage stages it: piece p
+    """The B operand [128 columns, depth] as ChunkCopy copies it: piece p
     of 8 columns at depth row d read as 8 consecutive entries of w3 from the
     piece's offset (lowrank_wgmma.cuh), zeros outside the chunk."""
     ncol = w3.shape[1]
@@ -293,7 +310,10 @@ def _emulate(o, rank, c_in, c_out, k, backward):
             acc = _products(_pad(o["h"], kp),
                             _stage(o["w3"], "uv", lo, cw, kp, k, rank, c_in))
             base = lo // rank - (c_in if kind == "v" else 0)  # first channel
-            uv = acc + o["b3"][np.minimum(lo + ch * rank + q, len(o["b3"]) - 1)]
+            # the chunk's b3 as ChunkCopy copies it beside its w3 columns
+            bias = np.zeros(128)
+            bias[:cw] = o["b3"][lo:lo + cw]
+            uv = acc + bias[np.minimum(ch * rank + q, 127)]
             chan = base + ch
         else:
             a, depth, real_d = ((o["x"], dpi, c_in) if kind == "p"
@@ -335,9 +355,12 @@ def _emulate(o, rank, c_in, c_out, k, backward):
     return out
 
 
-@pytest.mark.parametrize("rank,c_in,c_out,k", [
-    (16, 48, 48, 48), (8, 12, 12, 5), (24, 7, 11, 33), (32, 9, 9, 64),
-    (16, 5, 5, 1)])
+WALKS = [(16, 48, 48, 48), (8, 12, 12, 5), (24, 7, 11, 33), (32, 9, 9, 64),
+         (16, 5, 5, 1), (40, 7, 11, 100), (48, 9, 5, 70), (56, 5, 12, 33),
+         (64, 128, 128, 128), (8, 128, 72, 128)]
+
+
+@pytest.mark.parametrize("rank,c_in,c_out,k", WALKS)
 def test_forward_tile_loop_matches_plain_indexing(rank, c_in, c_out, k):
     """B3's tile loop as the kernel runs it (chunks of whole channels, the
     accumulator's (channel, q) per thread, t in registers, msg as quad
@@ -349,9 +372,7 @@ def test_forward_tile_loop_matches_plain_indexing(rank, c_in, c_out, k):
     np.testing.assert_allclose(got["msg"], want["msg"], rtol=1e-12, atol=1e-9)
 
 
-@pytest.mark.parametrize("rank,c_in,c_out,k", [
-    (16, 48, 48, 48), (8, 12, 12, 5), (24, 7, 11, 33), (32, 9, 9, 64),
-    (16, 5, 5, 1)])
+@pytest.mark.parametrize("rank,c_in,c_out,k", WALKS)
 def test_backward_tile_loop_matches_plain_indexing(rank, c_in, c_out, k):
     """B4's rows kernel as it runs (dt from the V chunks, t and dx_src from
     the U chunks, dh from the factored P = x_src W3U and Q = dmsg W3V
@@ -370,7 +391,8 @@ def test_backward_tile_loop_matches_plain_indexing(rank, c_in, c_out, k):
 
 
 PADDED = [(1, 7, 5, 9), (3, 12, 12, 5), (5, 9, 9, 33), (12, 48, 48, 48),
-          (20, 13, 30, 17), (27, 9, 9, 64), (31, 5, 5, 1)]
+          (20, 13, 30, 17), (27, 9, 9, 64), (31, 5, 5, 1), (33, 7, 9, 100),
+          (36, 48, 48, 48), (57, 127, 127, 128), (63, 5, 3, 65)]
 
 
 def real_col(c, rp, r):
@@ -456,7 +478,8 @@ def test_padded_backward_matches_plain_indexing(rank, c_in, c_out, k):
     ncolp, ncol = duvp.shape[1], rank * (c_in + c_out)
     sums = np.vstack([o["h"].T @ duvp, duvp.sum(0)])  # [K+1, ncolp]
     out = np.full((k + 1, ncol), np.nan)
-    for n0 in range(0, tfc.lowrank_weight_tiles(rank, c_in, c_out) * 128, 128):
+    tiles, _ = tfc.lowrank_weight_tiles(k, c_in, c_out, rank)
+    for n0 in range(0, tiles * 128, 128):
         cols = np.arange(n0, min(n0 + 128, ncolp))
         rc = real_col(cols, rp, rank)
         assert not duvp[:, cols[rc < 0]].any()
@@ -508,8 +531,8 @@ def _small(rank=16, c=8, k=6):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 @pytest.mark.parametrize("bad,match", [
-    ({"rank": 33}, "rank=33"), ({"rank": 0}, "rank=0"),
-    ({"c_out": 65}, "c_out=65"), ({"c_in": 0}, "c_in=0"),
+    ({"rank": 65}, "rank=65"), ({"rank": 0}, "rank=0"),
+    ({"c_out": 129}, "c_out=129"), ({"c_in": 0}, "c_in=0"),
     ({"rows_blk": 16}, "rows_blk=16"), ({"blk": 32}, "blk=32")])
 def test_lowrank_wrappers_refuse_geometry_before_launch(which, bad, match):
     fwd, bwd, kw = _small()
@@ -521,10 +544,12 @@ def test_lowrank_wrappers_refuse_geometry_before_launch(which, bad, match):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 def test_lowrank_wrappers_refuse_k_past_64_and_cpu_tensors(which):
-    fwd, bwd, kw = _small(k=65)
+    """K past the kernels' 128 (the name is from when they stopped at 64) and
+    CPU tensors are refused before any launch."""
+    fwd, bwd, kw = _small(k=129)
     fn, args = ((tfc.fused_edge_conv_lowrank_cuda, fwd) if which == "fwd"
                 else (tfc.fused_edge_conv_lowrank_bwd_cuda, bwd))
-    with pytest.raises(ValueError, match="K=65"):
+    with pytest.raises(ValueError, match="K=129"):
         fn(*args, **kw)
     fwd, bwd, kw = _small()
     with pytest.raises(ValueError, match="needs CUDA tensors"):
