@@ -17,7 +17,8 @@ non-zero without the final result line:
              every rank, a rank that is not a multiple of 8 padded to the
              next one; and B5, the per-edge messages of conv mode 'pallas',
              float32 on the tensor cores through exact bf16 splits as
-             csrc/fused_edge_messages_wgmma.cu) from the checkout, one nvcc
+             csrc/fused_edge_messages_wgmma.cu on the float32 B1's column
+             chunks, widths and K up to 128) from the checkout, one nvcc
              each, started together; prints ptxas's registers and spills of the
              tensor-core kernels and their blocks per SM (``[ptxas]``).
 3. kernel  — B1 against its plain PyTorch version on the card, at the
@@ -128,11 +129,17 @@ to 3 epochs (its loss is recorded, not held to fall).
              ``apply``): B5 launched depth x chunks times (8, 10), no other
              kernel; the prediction against the same checkpoint's 'edge3d'
              prediction on the card; each model's warm request time in
-             both modes.  B5 against its plain version at both chunk shapes
-             (K 48, K 128), repeated launches bit-identical, its first
-             launch (the stage image of w3 and b3) bit-equal to its plain
-             version, and the times of B5, its plain version and one
-             einsum computing the same function (``library_ms``); its
+             both modes.  The same for the width-128 path's KernelNN (K
+             128, depth 2: 4 launches) and TEECNet (K 128: 10 launches),
+             from their checkpoints (``model=kernelnn_w128``,
+             ``model=teecnet_w128``).  B5 against its plain version at the
+             four chunk shapes (K 48, K 128 at width 48; K = c_in = c_out =
+             128 twice), repeated launches bit-identical, its first launch
+             (the stage image of w3 and b3) bit-equal to its plain version,
+             and the times of B5, its plain version and one einsum
+             computing the same function (``library_ms``; at width 128 the
+             plain version and the einsum on the chunk's first
+             ``MSG_SLICE`` edges, the kernel's time there beside them); its
              bound is the lesser of float32 FMAs and six bf16 tensor-core
              passes (``bound_basis``; ``bound_fma_ms`` the former).
 
@@ -447,6 +454,10 @@ SERVE_TOL = 3e-2
 # relative to the max.
 MSG_TOL = 5e-5
 PALLAS_TOL = 1e-4
+# The edges of a width-128 chunk on which B5's plain version and the einsum
+# are timed (both build [E, c_in c_out] float32 arrays: 16.9 GB on all
+# 258 048 edges of it), and the slices its plain reference is computed in
+MSG_SLICE = 16384
 # A coalesced request vs the same request alone: the same kernel launches
 # (bit-identical) and the same segment sums, whose index_add_ atomics may
 # add in another order: 1e-6 of the max.
@@ -749,8 +760,8 @@ def log_ptxas() -> None:
     """Registers and spills of the tensor-core kernels, as ptxas reported
     them when the libraries were built (and any wgmma serialization it
     warned of), and their blocks per SM at width 48 and K 48 and 128
-    (B1/B2 in both types, B5), at width and K 96 and 128 (B1/B2) and at K
-    48, rank 16 (B3/B4 in both types)."""
+    (B1/B2 in both types, B5), at width and K 96 and 128 (B1/B2; B5 at
+    128) and at K 48, rank 16 (B3/B4 in both types)."""
     import re
     for lib in ("fused_edge_conv_wgmma", "fused_edge_conv_bwd_wgmma",
                 "fused_edge_conv_f32_wgmma", "fused_edge_conv_bwd_f32_wgmma",
@@ -812,10 +823,10 @@ def log_ptxas() -> None:
                 fused_conv._load_kernel(lib), f"{lib}_smem_bytes")(k, c, c,
                                                                     rank))
     b5 = fused_conv._load_kernel("fused_edge_messages_wgmma")
-    for k in (48, 128):
-        log("ptxas", kernel="messages_wgmma", k=k, c=48,
-            blocks_per_sm=b5.fused_edge_messages_wgmma_blocks_per_sm(k, 48, 48),
-            smem_bytes=b5.fused_edge_messages_wgmma_smem_bytes(k, 48, 48))
+    for k, c in ((48, 48), (128, 48), (WIDE, WIDE)):
+        log("ptxas", kernel="messages_wgmma", k=k, c=c,
+            blocks_per_sm=b5.fused_edge_messages_wgmma_blocks_per_sm(k, c, c),
+            smem_bytes=b5.fused_edge_messages_wgmma_smem_bytes(k, c, c))
 
 
 def phase_kernel(op, at: str = "chunk", errs: dict | None = None) -> dict:
@@ -1627,7 +1638,8 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc) -> dict:
     (the plain versions' on the slice), the warm request and a fused train
     step in each type; TEECNet at width 128 served once and trained one
     epoch, its launches counted.  Returns what the kernels' JSON entries
-    need."""
+    need, and B5's operands at the full-size chunk of both models at width
+    128 (``msg``, ``tc_msg``) for phase 9."""
     t0 = time.time()
     log_dir = os.path.join(root, "logs")
     cfg, ds = cfgs["full"], datasets["full"]
@@ -1670,6 +1682,7 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc) -> dict:
     sop = wide_slice(op, WIDE, WIDE, WIDE)
     t = fwd_times(op, smi, plain_op=sop)
     tb = phase_bwd_times(bwd_operands(op), smi, plain_bop=bwd_operands(sop))
+    msg = op["msg"]  # B5's operands at width 128, for phase_messages
     del op, sop
     torch.cuda.empty_cache()
     t.update(request_times(datasets, models, root, smi, f"_w{WIDE}"))
@@ -1691,13 +1704,14 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc) -> dict:
                {fwd: CHUNKS["full"] * cfgs_tc["full"]["num_layers"]})
     tc_trained = train_types(root, ds, cfgs_tc["full"], WIDE_TEECNET_EPOCHS,
                              ("bfloat16",))
+    tc_msg = chunk_operands(ds, models_tc["full"], "cuda")["msg"]
     log(prefix(models["full"]) + "path", depth=depth,
         wall_s=f"{time.time() - t0:.1f}")
     return dict(errs=errs, errs_bwd=errs_bwd, launches=served,
                 train=dict(fwd=sum(n for n, _ in trained.values()),
                            bwd=sum(n for _, n in trained.values()), served=0),
                 t=t, tb=tb, trained=trained, tc_served=tc_served,
-                tc_trained=tc_trained["bfloat16"])
+                tc_trained=tc_trained["bfloat16"], msg=msg, tc_msg=tc_msg)
 
 
 def run_wide_rank(root, smi, datasets, models, cfgs, models_top) -> dict:
@@ -1850,20 +1864,27 @@ def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
     return launches, requests
 
 
-def phase_messages(ops: dict, smi) -> dict:
+def phase_messages(ops: dict, smi, sliced: tuple = ()) -> dict:
     """B5 against its plain version on the card at each chunk shape of
     ``ops`` (label -> (h, x_src, w3, b3): every edge of the full-size
     chunk, padding included), then the CUDA-event medians of B5, of its
     plain version and of one PyTorch call computing the same function, and
-    B5's bound."""
+    B5's bound.  For the labels in ``sliced`` (width 128) the plain
+    reference is computed ``MSG_SLICE`` edges at a time, and the plain
+    version and the PyTorch call are timed on the chunk's first
+    ``MSG_SLICE`` edges, the kernel's time there beside them
+    (``plain_edges``, ``ms_at_plain_edges``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    plain = pallas_mp.fused_edge_messages_plain
     out = {}
     for label, (h, x_src, w3, b3) in ops.items():
         e, k = h.shape
         c_in = x_src.shape[1]
         c_out = w3.shape[1] // c_in
+        step = MSG_SLICE if label in sliced else e
         with torch.no_grad():
-            ref = pallas_mp.fused_edge_messages_plain(h, x_src, w3, b3)
+            ref = torch.cat([plain(h[i:i + step], x_src[i:i + step], w3, b3)
+                             for i in range(0, e, step)])
             got = pallas_mp.fused_edge_messages_cuda(h, x_src, w3, b3)
             again = pallas_mp.fused_edge_messages_cuda(h, x_src, w3, b3)
             # the kernel's first launch, the stage image, against its plain
@@ -1879,22 +1900,28 @@ def phase_messages(ops: dict, smi) -> dict:
             del ref, got, again, image
             log("messages", model=label, edges=e, k=k, c_in=c_in,
                 c_out=c_out, design=pallas_mp.design(),
+                chunks=fused_conv.f32_chunks(c_out, c_in)[0],
                 max_abs_err=f"{abs_err:.3e}", rel_to_max=f"{rel:.3e}",
                 tol=MSG_TOL, bit_identical=same, stage_image_exact=image_ok)
             if not (rel <= MSG_TOL and same and image_ok):
                 raise AssertionError(f"B5 at {label}: {rel:.3e} (tol "
                                      f"{MSG_TOL}), repeat identical {same}, "
                                      f"stage image exact {image_ok}")
-            # the library yardstick: one einsum over [h, 1] and [w3; b3],
-            # prepared outside the timed window (float32, TF32 off)
-            h1 = torch.cat([h, torch.ones_like(h[:, :1])], 1)
-            w3_aug = torch.cat([w3, b3[None]]).reshape(k + 1, c_in, c_out)
             t = {"ms": cuda_ms(lambda: pallas_mp.fused_edge_messages_cuda(
-                     h, x_src, w3, b3)),
-                 "plain_ms": cuda_ms(lambda: pallas_mp.fused_edge_messages_plain(
-                     h, x_src, w3, b3), reps=5),
-                 "library_ms": cuda_ms(lambda: torch.einsum(
-                     "ek,ei,kio->eo", h1, x_src, w3_aug), reps=5)}
+                h, x_src, w3, b3))}
+            # the plain version and the library yardstick, one einsum over
+            # [h, 1] and [w3; b3] prepared outside the timed window (float32,
+            # TF32 off), on the first `step` edges
+            hp, xp = h[:step], x_src[:step]
+            h1 = torch.cat([hp, torch.ones_like(hp[:, :1])], 1)
+            w3_aug = torch.cat([w3, b3[None]]).reshape(k + 1, c_in, c_out)
+            t.update(plain_ms=cuda_ms(lambda: plain(hp, xp, w3, b3), reps=5),
+                     library_ms=cuda_ms(lambda: torch.einsum(
+                         "ek,ei,kio->eo", h1, xp, w3_aug), reps=5))
+            if step < e:
+                t.update(plain_edges=step, ms_at_plain_edges=cuda_ms(
+                    lambda: pallas_mp.fused_edge_messages_cuda(hp, xp, w3,
+                                                               b3)))
             del h1, w3_aug
         torch.cuda.empty_cache()
         # bound: every edge's (K+1) c_in c_out multiply-adds, float32-exact:
@@ -1904,8 +1931,8 @@ def phase_messages(ops: dict, smi) -> dict:
         flops = 2 * e * (k + 1) * c_in * c_out
         nbytes = 4 * (e * k + e * c_in + w3.numel() + b3.numel() + e * c_out)
         t.update(bound(flops, nbytes, "float32", split=True),
-                 max_abs_err=abs_err, k=k)
-        log_times("messages", f"b5_k{k}", t, smi)
+                 max_abs_err=abs_err, k=k, c_in=c_in, c_out=c_out)
+        log_times("messages", f"b5_{label}_k{k}", t, smi)
         out[label] = t
     return out
 
@@ -4255,28 +4282,42 @@ def routed_entries(r: dict, smi: str) -> list:
     return entries
 
 
-def messages_entry(t: dict, launches: dict, requests: dict,
-                   smi: str) -> dict:
-    """B5's entry: the numbers at KernelNN's chunk (K 48) at the top, those
-    at TEECNet's (K 128) under ``teecnet_k128``, and each model's warm
-    request time in modes 'pallas' and 'edge3d'."""
+def messages_entries(t: dict, launches: dict, requests: dict,
+                     smi: str) -> list:
+    """B5's entries: the first with the numbers at KernelNN's chunk (K 48)
+    at the top, those at TEECNet's (K 128) under ``teecnet_k128``, and each
+    model's warm request time in modes 'pallas' and 'edge3d'; then one for
+    each width-128 path (``kernelnn_w128``, ``teecnet_w128``: K = c_in =
+    c_out = 128) with its own launches, numbers and request times, the
+    plain version's and the einsum's times on the chunk's first
+    ``plain_edges`` edges (the kernel's there: ``ms_at_plain_edges``)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "bound_basis", "bound_fma_ms", "k")
-    return {
+    base = {
         "name": "fused_edge_messages",
-        "path": "kernelnn_pallas",
         "route": "cuda",
         "source": "fast_eng_super_resolution_tpu_torch/csrc/"
                   "fused_edge_messages_wgmma.cu",
         "design": pallas_mp.design(),
         "replaces": "fast_eng_super_resolution_tpu/ops/pallas_mp.py:41",
-        "launches": sum(launches.values()),
-        "launches_by_path": {f"{k}_pallas": v for k, v in launches.items()},
-        **{key: t["kernelnn"][key] for key in keys},
-        "teecnet_k128": {key: t["teecnet"][key] for key in keys},
-        "request_ms": requests,
         "card": smi,
     }
+    entries = [dict(
+        base, path="kernelnn_pallas",
+        launches=launches["kernelnn"] + launches["teecnet"],
+        launches_by_path={f"{k}_pallas": launches[k]
+                          for k in ("kernelnn", "teecnet")},
+        **{key: t["kernelnn"][key] for key in keys},
+        teecnet_k128={key: t["teecnet"][key] for key in keys},
+        request_ms={k: requests[k] for k in ("kernelnn", "teecnet")})]
+    for label in (f"kernelnn_w{WIDE}", f"teecnet_w{WIDE}"):
+        entries.append(dict(
+            base, path=label, launches=launches[label],
+            launches_by_path={f"{label}_pallas": launches[label]},
+            **{key: t[label][key] for key in keys + (
+                "c_in", "c_out", "plain_edges", "ms_at_plain_edges")},
+            request_ms=requests[label]))
+    return entries
 
 
 def main() -> int:
@@ -4373,11 +4414,18 @@ def main() -> int:
         teecnet = run_path(root, name, smi, datasets, models_tc, cfgs_tc,
                            "_teecnet")
         t1 = time.time()
+        wide_labels = (f"kernelnn_w{WIDE}", f"teecnet_w{WIDE}")
         pallas_launches, pallas_requests = phase_pallas(
             root, datasets, {"kernelnn": (cfgs["full"], ""),
-                             "teecnet": (cfgs_tc["full"], "_teecnet")}, smi)
+                             "teecnet": (cfgs_tc["full"], "_teecnet"),
+                             wide_labels[0]: (cfgs_w["full"], f"_w{WIDE}"),
+                             wide_labels[1]: (cfgs_wtc["full"],
+                                              f"_w{WIDE}_teecnet")}, smi)
         msg_t = phase_messages({"kernelnn": full["msg"],
-                                "teecnet": teecnet["msg"]}, smi)
+                                "teecnet": teecnet["msg"],
+                                wide_labels[0]: wide.pop("msg"),
+                                wide_labels[1]: wide.pop("tc_msg")}, smi,
+                               sliced=wide_labels)
         log("pallas", wall_s=f"{time.time() - t1:.1f}")
         routed_cfg = load_yaml(ROUTED_CONFIG)
         cfgs_rt = {k: dict(v, n_clusters=routed_cfg["n_clusters"],
@@ -4413,8 +4461,8 @@ def main() -> int:
                + wide_entries(wide, smi)
                + wide_rank_entries(wide_rank, smi)
                + kernel_entries(teecnet, smi, None, "teecnet")
-               + [messages_entry(msg_t, pallas_launches, pallas_requests,
-                                 smi)]
+               + messages_entries(msg_t, pallas_launches, pallas_requests,
+                                  smi)
                + routed_entries(routed, smi))
     # the coalesced lane serves the KernelNN path's small-mesh checkpoint
     kernels[0]["launches"] += coalesced["launches"]

@@ -1,8 +1,10 @@
 // Float32-exact products on Hopper's bf16 tensor cores, shared by the
 // float32 instances of B1 (fused_edge_conv_f32_wgmma.cu) and B2
-// (fused_edge_conv_bwd_f32_wgmma.cu).  The register-A product, the mbarrier
-// and bulk-copy primitives and the fragment maps are messages_wgmma.cuh's
-// (B5's); this header adds what the two kernels share beyond B5.
+// (fused_edge_conv_bwd_f32_wgmma.cu) and by B5
+// (fused_edge_messages_wgmma.cu), B1's forward without the gather and the
+// scatter.  The register-A product, the mbarrier and bulk-copy primitives
+// and the fragment maps are messages_wgmma.cuh's; this header adds the
+// split, the stage image and its column chunks, the ring and the walk.
 //
 // The split.  A float32 value v is three bf16 values v1 + v2 + v3 == v
 // exactly: v1 = bf16(v), v2 = bf16(v - v1), v3 = bf16(v - v1 - v2), each
@@ -16,15 +18,16 @@
 // The stage image.  W~ = [w3; b3] as [K+1, c_in, c_out] is laid out once
 // per call (stage_image) as stages, each the three bf16 parts of one column
 // chunk of W~_k as K-major B operands (wgmma_tile.cuh, kmajor) of N rows x
-// `depth`, zero padded: rows o and depth i for B1's P_k = X @ W~_k, rows i
-// and depth o for B2's R_k = D @ W~_k^T.  The rows (c_out for B1, c_in for
-// B2, up to 128) are cut into Chunks: one chunk of all of them at most 64
-// wide, else chunks of at most 64 (32 past a depth of 64), so that a stage
-// stays within 24 KB and the registers hold the depth's A fragments beside
-// two accumulators.  Stage c (K+1) + k is chunk c of W~_k.  One producer
-// thread streams the stages by bulk copy into a ring of kRing shared-memory
-// stages (ring_init, produce); the consumer warpgroup walks them (Walk), a
-// pass over k per chunk, six products per stage, two stages in flight.
+// `depth`, zero padded: rows o and depth i for B1's and B5's P_k = X @ W~_k,
+// rows i and depth o for B2's R_k = D @ W~_k^T.  The rows (c_out for B1 and
+// B5, c_in for B2, up to 128) are cut into Chunks: one chunk of all of them
+// at most 64 wide, else chunks of at most 64 (32 past a depth of 64), so
+// that a stage stays within 24 KB and the registers hold the depth's A
+// fragments beside two accumulators.  Stage c (K+1) + k is chunk c of W~_k.
+// One producer thread streams the stages by bulk copy into a ring of kRing
+// shared-memory stages (ring_init, produce); each consumer warpgroup walks
+// them (Walk), a pass over k per chunk, six products per stage, two stages
+// in flight.
 
 #pragma once
 
@@ -75,15 +78,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
 }
 
-// Starts the copy of the 64 h rows [K] from row e0 into the h tile hs
-// ([64][hstride] float32, columns 0..K-1) by cp.async, from the threads of
-// one warpgroup: nothing waits for it here.
+// Starts the copy of the n (64 unless given) h rows [K] from row e0 into
+// the h tile hs ([64][hstride] float32, columns 0..K-1) by cp.async, from
+// the threads of one warpgroup: nothing waits for it here.  A ragged last
+// tile (n < 64) leaves its other rows as they were: their A rows are zero
+// and their sums are never stored.
 __device__ __forceinline__ void prefetch_h(float* hs, const float* h, long e0,
-                                           int K, int hstride) {
+                                           int K, int hstride, int n = 64) {
   const float* src = h + e0 * K;
   const int t = threadIdx.x % kWarpgroup;
   int s = t / K, k = t - s * K;
-  for (int q = t; q < 64 * K; q += kWarpgroup) {
+  for (int q = t; q < n * K; q += kWarpgroup) {
     cp_async4(hs + s * hstride + k, src + q, 4);
     k += kWarpgroup;
     while (k >= K) {
@@ -175,13 +180,14 @@ __device__ __forceinline__ uint32_t parity(uint32_t j) {
 }
 
 // The ring's barriers: "full" completes when a stage has landed (the
-// producer's arrival and the copy's bytes), "empty" when the consumer
-// warpgroup's four warps are done with it.  One thread initialises, then a
-// block barrier.
-__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty) {
+// producer's arrival and the copy's bytes), "empty" when the consumers'
+// `warps` warps (one warpgroup's four unless given) are done with it.  One
+// thread initialises, then a block barrier.
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty,
+                                          int warps = 4) {
   for (int r = 0; r < kRing; ++r) {
     mbar_init(full + r, 1);
-    mbar_init(empty + r, 4);
+    mbar_init(empty + r, warps);
   }
   fence_mbar_init();
 }
@@ -222,7 +228,7 @@ __device__ __forceinline__ void issue(float (&acc)[N / 2],
   fence_operand(acc);
 }
 
-// The consumer warpgroup's walk over the ring for one tile: the tile's A
+// A consumer warpgroup's walk over the ring for one tile: the tile's A
 // parts, the ring's barriers and descriptors; fin(acc, k) is the CUDA
 // cores' share of stage k once its product is complete.
 template <int N, int S, typename Fin>

@@ -1,8 +1,10 @@
-// Tensor-core (wgmma) pieces of B5's float32-exact design
-// (fused_edge_messages_wgmma.cu): the register-A ("RS") product, whose A
-// operand sits in the warpgroup's registers and whose B operand is read from
-// shared memory, and the mbarrier and bulk-copy (1-D TMA) primitives of a
-// ring of shared-memory stages fed by one producer thread.
+// Tensor-core (wgmma) primitives that every float32 kernel shares (B1, B2,
+// B3, B4 in float32 and B5, through f32_wgmma.cuh): the register-A ("RS")
+// product, whose A operand sits in the warpgroup's registers and whose B
+// operand is read from shared memory, its fragment maps, and the mbarrier
+// and bulk-copy (1-D TMA) primitives of a ring of shared-memory stages fed
+// by one producer thread.  What the float32 designs build from them (the
+// split, the stage image, the ring and the walk) is f32_wgmma.cuh's.
 //
 // Register A.  An m64nNk16 product's A fragment (64 rows x 16 depth, bf16)
 // is four 32-bit registers per thread of the warpgroup, each a pair of bf16

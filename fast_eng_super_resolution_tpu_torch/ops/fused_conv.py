@@ -32,7 +32,7 @@ with zeros), and train through ``FusedEdgeConvLowrank``, whose backward is
 ``csrc/fused_edge_conv_lowrank_bwd_wgmma.cu`` or
 ``csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu`` the same way.
 ``design`` names the design every launch runs.  Every kernel takes K,
-c_in and c_out up to 128 (B5, ``ops/pallas_mp.py``, widths up to 64).
+c_in and c_out up to 128 (B5, ``ops/pallas_mp.py``, too).
 """
 
 from __future__ import annotations
@@ -477,12 +477,12 @@ def _lowrank_library(dt: torch.dtype, backward: bool = False) -> str:
 
 
 def f32_chunks(rows: int, depth: int) -> tuple:
-    """(chunks, n): the column chunks the float32 B1 (B2's rows kernel) cuts
-    its product's ``rows`` into, c_out (c_in) over a depth of c_in (c_out),
-    as csrc/f32_wgmma.cuh's Chunks does: the rows rounded up to 8 as one
-    chunk up to 64, else as chunks of at most 64, or 32 where the depth is
-    past 64, each n (a multiple of 8) wide.  Each chunk is one pass over the
-    K+1 stages."""
+    """(chunks, n): the column chunks the float32 B1 and B5 (B2's rows
+    kernel) cut their product's ``rows`` into, c_out (c_in) over a depth of
+    c_in (c_out), as csrc/f32_wgmma.cuh's Chunks does: the rows rounded up
+    to 8 as one chunk up to 64, else as chunks of at most 64, or 32 where
+    the depth is past 64, each n (a multiple of 8) wide.  Each chunk is one
+    pass over the K+1 stages."""
     r8 = _round_up(rows, 8)
     most = 64 if _round_up(depth, 16) <= 64 else 32
     chunks = -(-r8 // most)
@@ -490,10 +490,10 @@ def f32_chunks(rows: int, depth: int) -> tuple:
 
 
 def image_numel(k: int, rows: int, depth: int) -> int:
-    """bf16 elements of the float32 B1's (B2's) stage image of [w3; b3]:
-    chunks x (K+1) stages of three [n, depth rounded up to 16] operands
-    (``f32_chunks``; csrc/f32_wgmma.cuh); B1's rows are c_out and its depth
-    c_in, B2's the other way round."""
+    """bf16 elements of the float32 B1's and B5's (B2's) stage image of
+    [w3; b3]: chunks x (K+1) stages of three [n, depth rounded up to 16]
+    operands (``f32_chunks``; csrc/f32_wgmma.cuh); B1's and B5's rows are
+    c_out and their depth c_in, B2's the other way round."""
     chunks, n = f32_chunks(rows, depth)
     return chunks * (k + 1) * 3 * n * _round_up(depth, 16)
 

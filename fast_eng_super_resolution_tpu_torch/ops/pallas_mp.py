@@ -13,7 +13,8 @@ never reach device memory.  It is reached through ``mode='pallas'`` in
 use): float32 in and out on the tensor cores, each float32 operand split
 exactly into three bf16 parts (``split3``), w3 and b3 laid out once per call
 as the kernel's shared-memory stages by its first launch (``stage_image`` is
-that launch's plain version).  On a CPU tensor
+that launch's plain version), in the float32 B1's column chunks of c_out
+(``fused_conv.f32_chunks``).  K, c_in and c_out run 1..128.  On a CPU tensor
 it runs ``fused_edge_messages_plain``, the same function and the reference
 the kernel is checked against.  Float32 only, and forward only: the JAX
 kernel has no VJP, so the wrapper refuses inputs that need a gradient.
@@ -26,10 +27,10 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .fused_conv import _check, _load_kernel, _round_up
+from .fused_conv import _check, _load_kernel, _round_up, f32_chunks
 
 _MAX_K = 128
-_MAX_C = 64
+_MAX_C = 128
 
 
 def design() -> str:
@@ -51,26 +52,33 @@ def split3(v: torch.Tensor) -> tuple:
 
 
 def image_shape(k: int, c_in: int, c_out: int) -> tuple:
-    """Shape of the stage image at K = ``k``: [K+1, 3, np // 8, dp // 8, 8,
-    8] bf16, np = c_out rounded up to 8, dp = c_in rounded up to 16."""
-    return (k + 1, 3, _round_up(c_out, 8) // 8, _round_up(c_in, 16) // 8, 8, 8)
+    """Shape of the stage image at K = ``k``: [chunks (K+1), 3, n // 8, dp //
+    8, 8, 8] bf16, (chunks, n) = ``f32_chunks(c_out, c_in)`` and dp = c_in
+    rounded up to 16 (``fused_conv.image_numel(k, c_out, c_in)`` elements)."""
+    chunks, n = f32_chunks(c_out, c_in)
+    return (chunks * (k + 1), 3, n // 8, _round_up(c_in, 16) // 8, 8, 8)
 
 
 def stage_image(w3: torch.Tensor, b3: torch.Tensor, c_in: int) -> torch.Tensor:
-    """The kernel's K+1 shared-memory stages of W~ = [w3; b3] as [K+1, c_in,
-    c_out]: stage k holds W~_k's three bf16 parts (``split3``), each the
-    K-major B operand of a wgmma, [np rows (o), dp deep (i)] with np = c_out
-    rounded up to 8 and dp = c_in rounded up to 16, zero padded, in 8 x 8
-    core matrices: element (o, i) at (o // 8) * 8 dp + (i // 8) * 64 +
-    (o % 8) * 8 + i % 8 (csrc/wgmma_tile.cuh, kmajor).  Returns the bf16
-    tensor of ``image_shape`` (contiguous).  The plain version of the
-    kernel's first launch, which writes the same bits."""
+    """The kernel's shared-memory stages of W~ = [w3; b3] as [K+1, c_in,
+    c_out]: stage c (K+1) + k holds column chunk c of W~_k (``f32_chunks``:
+    n columns of c_out from c n on; one chunk of all of them up to 64) as
+    three bf16 parts (``split3``), each the K-major B operand of a wgmma,
+    [n rows (o), dp deep (i)] with dp = c_in rounded up to 16, zero padded,
+    in 8 x 8 core matrices: element (o, i) at (o // 8) * 8 dp + (i // 8) *
+    64 + (o % 8) * 8 + i % 8 (csrc/wgmma_tile.cuh, kmajor).  The float32
+    B1's image of the same w3 and b3 (csrc/f32_wgmma.cuh stage_image, by
+    output).  Returns the bf16 tensor of ``image_shape`` (contiguous).  The
+    plain version of the kernel's first launch, which writes the same
+    bits."""
     k1 = w3.shape[0] + 1
     c_out = w3.shape[1] // c_in
+    chunks, n = f32_chunks(c_out, c_in)
     shape = image_shape(k1 - 1, c_in, c_out)
     w = torch.cat([w3, b3[None]]).reshape(k1, c_in, c_out)
     parts = torch.stack(split3(w), 1).transpose(2, 3)  # [K+1, 3, o, i]
-    parts = F.pad(parts, (0, 8 * shape[3] - c_in, 0, 8 * shape[2] - c_out))
+    parts = F.pad(parts, (0, 8 * shape[3] - c_in, 0, chunks * n - c_out))
+    parts = parts.reshape(k1, 3, chunks, n, 8 * shape[3]).permute(2, 0, 1, 3, 4)
     return parts.reshape(shape[:3] + (8, shape[3], 8)).permute(
         0, 1, 2, 4, 3, 5).contiguous()
 
@@ -113,7 +121,7 @@ def fused_edge_messages_cuda(h: torch.Tensor, x_src: torch.Tensor,
                              w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
     """Launches the CUDA kernels on the current stream (the stage image of
     w3 and b3 into scratch, then the messages): every operand float32,
-    contiguous and on one device; K in 1..128, c_in and c_out in 1..64.
+    contiguous and on one device; K, c_in and c_out in 1..128.
     Checks every operand and raises on what the kernel does not take; raises
     if the launch fails."""
     if h.dim() != 2 or x_src.dim() != 2 or w3.dim() != 2:

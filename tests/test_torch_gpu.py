@@ -573,8 +573,8 @@ def test_messages_wrapper_checks_operands(cuda):
         fn(torch.zeros(100, 129, device="cuda"), x,
            torch.zeros(129, 64, device="cuda"), b3)
     with pytest.raises(ValueError, match="c_out"):
-        fn(h, x[:, :1].contiguous(), torch.zeros(6, 65, device="cuda"),
-           torch.zeros(65, device="cuda"))
+        fn(h, x[:, :1].contiguous(), torch.zeros(6, 129, device="cuda"),
+           torch.zeros(129, device="cuda"))
     with pytest.raises(RuntimeError, match="no backward"):
         pallas_mp.fused_edge_messages(h, x, w3.requires_grad_(), b3)
 
@@ -608,29 +608,54 @@ def _rect_messages_operands(e, k, c_in, c_out, seed):
             (rng.normal(size=(c_in * c_out,)) * 0.1).astype(np.float32))
 
 
+# widths past 64 (f32_chunks): (128, 128), (127, 127) and (72, 128) in four
+# column chunks of 32 (c_in past 64), (96, 72) in three of 24, (65, 8) in
+# one of 8 at a depth of 80, (48, 128) in two of 64
 @pytest.mark.parametrize("c_in,c_out", [(1, 1), (5, 7), (24, 24), (48, 48),
-                                        (64, 64)])
+                                        (64, 64), (128, 128), (96, 72),
+                                        (127, 127), (72, 128), (65, 8),
+                                        (48, 128)])
 @pytest.mark.parametrize("k", [1, 48, 128])
 @pytest.mark.parametrize("e", [1, 63, 64, 65, 4097])
 def test_messages_wgmma_matches_plain(cuda, e, k, c_in, c_out):
     """One edge, a tile short of one, one, one and a bit, and many tiles
-    (an odd number: one consumer warpgroup passes its last stages on)."""
+    (an odd number: one consumer warpgroup passes its last stages on), at
+    widths up to 128 in column chunks."""
     assert pallas_mp.design() == "wgmma"
     ops = _rect_messages_operands(e, k, c_in, c_out, seed=e + k + c_in)
     assert _messages_rel(*ops) < MSG_TOL
 
 
 @pytest.mark.parametrize("c_in,c_out,k", [(48, 48, 48), (48, 48, 128),
-                                          (5, 7, 1), (64, 64, 17)])
+                                          (5, 7, 1), (64, 64, 17),
+                                          (128, 128, 128), (96, 72, 48),
+                                          (127, 127, 1), (72, 128, 128),
+                                          (65, 8, 48)])
 def test_messages_stage_image_kernel_matches_plain(cuda, c_in, c_out, k):
     """The kernel's first launch lays w3 and b3 out as the stage image:
-    the same bits as ``stage_image``, its plain version."""
+    the same bits as ``stage_image``, its plain version, in column chunks
+    past a width of 64."""
     _, _, w3, b3 = (torch.as_tensor(a, device="cuda")
                     for a in _rect_messages_operands(1, k, c_in, c_out, seed=k))
     image = pallas_mp.stage_image_cuda(w3, b3, c_in)
     torch.cuda.synchronize()
     want = pallas_mp.stage_image(w3.cpu(), b3.cpu(), c_in)
     assert torch.equal(image.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("k,c_in,c_out", [(129, 8, 8), (8, 129, 8),
+                                          (8, 8, 129)])
+def test_messages_limits(cuda, k, c_in, c_out):
+    """Past 128 (K, c_in or c_out) the wrapper raises before any launch,
+    naming the limit; at 128 it launches."""
+    ops = [torch.as_tensor(a, device="cuda")
+           for a in _rect_messages_operands(70, k, c_in, c_out, seed=13)]
+    before = pallas_mp.fused_edge_messages.launches
+    with torch.no_grad(), pytest.raises(ValueError, match="1..128"):
+        pallas_mp.fused_edge_messages(*ops)
+    assert pallas_mp.fused_edge_messages.launches == before
+    top = [min(v, 128) for v in (k, c_in, c_out)]
+    assert _messages_rel(*_rect_messages_operands(70, *top, seed=14)) < MSG_TOL
 
 
 @pytest.mark.parametrize("scale", [1e-20, 1e15])
@@ -641,11 +666,12 @@ def test_messages_wgmma_tiny_and_huge_x(cuda, scale):
     assert _messages_rel(h, x * np.float32(scale), w3, b3) < MSG_TOL
 
 
-def test_messages_wgmma_bit_identical(cuda):
+@pytest.mark.parametrize("c", [48, 128])
+def test_messages_wgmma_bit_identical(cuda, c):
     """Each output is written once by one thread: two launches give the
-    same bits."""
+    same bits (at width 128 each chunk's columns by its own pass)."""
     ops = [torch.as_tensor(a, device="cuda")
-           for a in _rect_messages_operands(5000, 128, 48, 48, seed=12)]
+           for a in _rect_messages_operands(5000, 128, c, c, seed=12)]
     with torch.no_grad():
         a = pallas_mp.fused_edge_messages_cuda(*ops)
         b = pallas_mp.fused_edge_messages_cuda(*ops)

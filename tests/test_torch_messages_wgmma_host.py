@@ -1,18 +1,20 @@
 """Host-side pieces of B5's float32-exact tensor-core design
-(csrc/fused_edge_messages_wgmma.cu and csrc/messages_wgmma.cuh), on the CPU:
-the design it reports, the exact three-part bf16 split of float32 values
-(``split3``), the stage image the wrapper builds of w3 and b3
-(``stage_image``) and its inverse, a numpy emulation of one tile's loop (the
-register-A fragment map, the six products of the split parts per k, the
-per-k float32 weighting by h, the accumulator map of the stores) against
-``fused_edge_messages_plain`` and a float64 reference, and the wrapper
-refusing what the kernel does not take."""
+(csrc/fused_edge_messages_wgmma.cu on csrc/f32_wgmma.cuh and
+csrc/messages_wgmma.cuh), on the CPU: the design it reports, the exact
+three-part bf16 split of float32 values (``split3``), the stage image the
+wrapper builds of w3 and b3 (``stage_image``, in the float32 B1's column
+chunks of c_out) and its inverse, a numpy emulation of one tile's loop (the
+register-A fragment map, a pass over k per column chunk, the six products
+of the split parts per k, the per-k float32 weighting by h, the
+accumulator map of the stores) against ``fused_edge_messages_plain`` and a
+float64 reference, at widths and K up to 128, and the wrapper refusing
+what the kernel does not take."""
 
 import numpy as np
 import pytest
 import torch
 
-from fast_eng_super_resolution_tpu_torch.ops import pallas_mp
+from fast_eng_super_resolution_tpu_torch.ops import fused_conv, pallas_mp
 
 THREADS = np.arange(128)[:, None]   # a warpgroup's threads
 
@@ -101,30 +103,43 @@ def _weights(k, c_in, c_out, seed):
 
 
 def _image_parts(image, c_in, c_out):
-    """The inverse of stage_image's layout: [K+1, 3, np, dp] float64, read
-    element by element at the K-major offsets the kernel's descriptor reads."""
-    k1 = image.shape[0]
-    np_, dp = _round_up(c_out, 8), _round_up(c_in, 16)
-    flat = image.reshape(k1, 3, np_ * dp).double().numpy()
-    o, i = np.meshgrid(np.arange(np_), np.arange(dp), indexing="ij")
-    return flat[:, :, kmajor(o, i, dp)]
+    """The inverse of stage_image's layout: [K+1, 3, chunks n, dp] float64,
+    read element by element at the K-major offsets the kernel's descriptor
+    reads, stage c (K+1) + k holding columns c n .. c n + n - 1 of W~_k."""
+    chunks, n = fused_conv.f32_chunks(c_out, c_in)
+    k1 = image.shape[0] // chunks
+    dp = _round_up(c_in, 16)
+    flat = image.reshape(chunks, k1, 3, n * dp).double().numpy()
+    o, i = np.meshgrid(np.arange(n), np.arange(dp), indexing="ij")
+    return np.concatenate([flat[c][:, :, kmajor(o, i, dp)]
+                           for c in range(chunks)], axis=2)
 
 
+# the widths past 64 take several column chunks (f32_chunks: 4 of 32 at
+# c_in 65-128 and c_out past 96, 1 of 8 at c_out 8) or a depth past 64
 @pytest.mark.parametrize("k", [1, 48, 128])
 @pytest.mark.parametrize("c_in,c_out", [(1, 1), (5, 7), (24, 24), (48, 48),
-                                        (64, 64), (24, 5)])
+                                        (64, 64), (24, 5), (128, 128),
+                                        (65, 127), (100, 8), (48, 128)])
 def test_stage_image_inverse_recovers_w3_and_b3(k, c_in, c_out):
-    """Stage k of the image is W~_k = w3[k] (b3 for k = K) as c_in x c_out,
-    its three parts laid out as K-major B operands [np, dp]: reading the
-    image back through kmajor and summing the parts gives w3 and b3 bit for
-    bit, and the padding (o >= c_out, i >= c_in) is zero."""
+    """Stage c (K+1) + k of the image is column chunk c of W~_k = w3[k] (b3
+    for k = K) as c_in x c_out, its three parts laid out as K-major B
+    operands [n, dp]: reading the image back through kmajor and summing the
+    parts gives w3 and b3 bit for bit, and the padding (o >= c_out, i >=
+    c_in) is zero.  One chunk (c_out <= 64 at c_in <= 64) is the image of
+    [np, dp] operands, np = c_out rounded up to 8."""
     w3, b3 = _weights(k, c_in, c_out, seed=k + c_in)
     image = pallas_mp.stage_image(w3, b3, c_in)
-    np_, dp = _round_up(c_out, 8), _round_up(c_in, 16)
+    chunks, n = fused_conv.f32_chunks(c_out, c_in)
+    dp = _round_up(c_in, 16)
+    if c_in <= 64 and c_out <= 64:
+        assert (chunks, n) == (1, _round_up(c_out, 8))
     assert image.dtype == torch.bfloat16 and image.is_contiguous()
-    assert image.shape == (k + 1, 3, np_ // 8, dp // 8, 8, 8)
-    # one stage is 3 np dp bf16 values: a multiple of 16 bytes (bulk copy)
-    assert (3 * np_ * dp * 2) % 16 == 0
+    assert image.shape == (chunks * (k + 1), 3, n // 8, dp // 8, 8, 8)
+    assert image.numel() == fused_conv.image_numel(k, c_out, c_in)
+    # one stage is 3 n dp bf16 values: a multiple of 16 bytes (bulk copy),
+    # within 24 KB
+    assert (3 * n * dp * 2) % 16 == 0 and 3 * n * dp * 2 <= 24 * 1024
     parts = _image_parts(image, c_in, c_out)          # [K+1, 3, o, i]
     assert not parts[:, :, c_out:, :].any() and not parts[:, :, :, c_in:].any()
     got = parts.sum(1)[:, :c_out, :c_in].transpose(0, 2, 1)  # [K+1, i, o]
@@ -155,13 +170,15 @@ def _split3_np(a):
 def _emulate_tile(h, x, image, e0, n, k, c_in, c_out):
     """One consumer warpgroup's tile as the kernel runs it, thread by
     thread: X's parts loaded into register fragments (rows past n and
-    columns past c_in zero), per k the six products of the parts (the
-    smallest first, each exact: float64 sums of bf16 products), weighted by
-    h~[row, k] in float32 into each thread's accumulator values, then
-    stored through the accumulator map.  Returns the tile's [n, c_out]."""
-    np_, dp = _round_up(c_out, 8), _round_up(c_in, 16)
+    columns past c_in zero) once, then per column chunk a pass over k: the
+    six products of the parts (the smallest first, each exact: float64
+    sums of bf16 products), weighted by h~[row, k] in float32 into each
+    thread's accumulator values, then stored through the accumulator map
+    at the chunk's columns.  Returns the tile's [n, c_out]."""
+    chunks, nc = fused_conv.f32_chunks(c_out, c_in)
+    dp = _round_up(c_in, 16)
     steps = dp // 16
-    half = np_ // 2
+    half = nc // 2
     v = np.arange(8)[None, :]
     # registers: the kernel loads x[e0 + a_row, 16 s + a_col] per step s
     xa = np.zeros((3, steps, 128, 8))
@@ -175,25 +192,30 @@ def _emulate_tile(h, x, image, e0, n, k, c_in, c_out):
     # the A operand each fragment set stands for, [64, 16] per (part, step)
     a_full = np.zeros((3, steps, 64, 16))
     a_full[:, :, a_row(THREADS, v) + 0 * v, a_col(THREADS, v) + 0 * THREADS] = xa
-    hs = np.zeros((64, k + 1), np.float32)
+    # a ragged tile's h rows past n keep what the tile before left there
+    # (NaN here): their X rows are zero and their sums are never stored
+    hs = np.full((64, k + 1), np.nan, np.float32)
     hs[:n, :k] = h[e0:e0 + n]
     hs[:, k] = 1.0
-    parts = _image_parts(image, c_in, c_out)        # [K+1, 3, np, dp]
+    parts = _image_parts(image, c_in, c_out)   # [K+1, 3, chunks nc, dp]
     j = np.arange(half)[None, :]
     rows_j, cols_j = acc_row(THREADS, j), acc_col(THREADS, j) + 0 * THREADS
-    m = np.zeros((128, half), np.float32)
     order = [(2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)]  # (X, W) parts
-    for kk in range(k + 1):
-        p = np.zeros((64, np_))
-        for xp, wp in order:
-            for s in range(steps):
-                p += a_full[xp, s] @ parts[kk, wp, :, 16 * s:16 * s + 16].T
-        acc = p[rows_j, cols_j].astype(np.float32)
-        m = (m + hs[rows_j, kk] * acc).astype(np.float32)
     out = np.full((64, c_out), np.nan, np.float32)
-    ok = cols_j < c_out
-    out[rows_j[ok], cols_j[ok]] = m[ok]
-    assert not np.isnan(out).any()
+    for c in range(chunks):
+        w = parts[:, :, c * nc:(c + 1) * nc]      # the chunk's stages
+        m = np.zeros((128, half), np.float32)
+        for kk in range(k + 1):
+            p = np.zeros((64, nc))
+            for xp, wp in order:
+                for s in range(steps):
+                    p += a_full[xp, s] @ w[kk, wp, :, 16 * s:16 * s + 16].T
+            acc = p[rows_j, cols_j].astype(np.float32)
+            m = (m + hs[rows_j, kk] * acc).astype(np.float32)
+        col = c * nc + cols_j
+        ok = col < c_out
+        out[rows_j[ok], col[ok]] = m[ok]
+    assert not np.isnan(out[:n]).any()
     return out[:n]
 
 
@@ -229,10 +251,12 @@ def test_tile_loop_matches_plain_and_float64(e, k):
 
 
 @pytest.mark.parametrize("c_in,c_out,k", [(5, 7, 3), (64, 64, 17), (1, 1, 1),
-                                          (24, 40, 48)])
+                                          (24, 40, 48), (128, 128, 128),
+                                          (65, 127, 128), (100, 8, 48)])
 def test_tile_loop_at_other_widths(c_in, c_out, k):
     """Widths that are not multiples of 8 or 16 (padded rows and depth of
-    the operands) and the widest: the same agreement."""
+    the operands), past 64 (four column chunks of 32 at c_in 65-128; one
+    chunk of 8 at a depth of 112) and the widest: the same agreement."""
     e = 70
     h, x, w3, b3 = _operands(e, k, c_in, c_out, seed=c_in + c_out + k)
     image = pallas_mp.stage_image(w3, b3, c_in)
@@ -275,9 +299,12 @@ def _cpu(e=40, k=6, c_in=8, c_out=8):
 
 
 @pytest.mark.parametrize("shape,match", [
-    (dict(k=129), "K=129"), (dict(c_in=65, c_out=2), "c_in=65"),
-    (dict(c_in=2, c_out=65), "c_out=65")])
+    (dict(k=129), "K=129 outside the kernel's 1..128"),
+    (dict(c_in=129, c_out=2), "c_in=129 outside 1..128"),
+    (dict(c_in=2, c_out=129), "c_out=129 outside the kernel's 1..128")])
 def test_wrapper_refuses_geometry(shape, match):
+    """Past 128 (K, c_in or c_out) the wrapper raises before any launch,
+    naming the limit."""
     with pytest.raises(ValueError, match=match):
         pallas_mp.fused_edge_messages_cuda(*_cpu(**shape))
 

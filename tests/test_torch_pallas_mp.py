@@ -30,23 +30,29 @@ from fast_eng_super_resolution_tpu_torch.core.graph import Graph
 PORTED = ("edge3d", "factored", "pallas", "lut", "edge")
 
 
-def _operands(e, k, w, seed=0):
+def _operands(e, k, w, seed=0, c_out=None):
     rng = np.random.default_rng(seed)
+    c_out = w if c_out is None else c_out
     return (rng.normal(size=(e, k)).astype(np.float32),
             rng.normal(size=(e, w)).astype(np.float32),
-            (rng.normal(size=(k, w * w)) * 0.1).astype(np.float32),
-            (rng.normal(size=(w * w,)) * 0.1).astype(np.float32))
+            (rng.normal(size=(k, w * c_out)) * 0.1).astype(np.float32),
+            (rng.normal(size=(w * c_out,)) * 0.1).astype(np.float32))
 
 
-@pytest.mark.parametrize("k", [24, 128])
-def test_plain_matches_jax_kernel(k):
-    """E = 700 is not a multiple of the JAX kernel's block; float32 on both
+# (E, K, c_in, c_out): width 16, and past 64 (the CUDA kernel's column
+# chunks) at the widest and at a rectangular shape, with a few hundred edges
+@pytest.mark.parametrize("e,k,c_in,c_out", [
+    pytest.param(700, 24, 16, 16, id="24"),
+    pytest.param(700, 128, 16, 16, id="128"),
+    (300, 128, 128, 128), (300, 48, 72, 100)])
+def test_plain_matches_jax_kernel(e, k, c_in, c_out):
+    """E is not a multiple of the JAX kernel's block; float32 on both
     sides, sums in other orders: rtol/atol 1e-4 (tests/test_pallas.py's)."""
-    ops = _operands(700, k, 16, seed=k)
+    ops = _operands(e, k, c_in, seed=k + c_in, c_out=c_out)
     with pltpu.force_tpu_interpret_mode():
         ref = np.asarray(jfem(*(jnp.asarray(a) for a in ops)))
     got = fused_edge_messages_plain(*(torch.as_tensor(a) for a in ops))
-    assert got.shape == (700, 16) and got.dtype == torch.float32
+    assert got.shape == (e, c_out) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
     wrapped = fused_edge_messages(*(torch.as_tensor(a) for a in ops),
                                   block_e=128)
@@ -145,6 +151,34 @@ def test_kernelnn_mode_matches_jax(mode):
     with torch.no_grad():
         got = port.apply(*(torch.as_tensor(a) for a in args),
                          edge_mask=torch.as_tensor(g.edge_mask))
+    assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_kernelnn_width128_pallas_matches_jax():
+    """Width 128 and K 128 (the width-128 checkpoints' shape, past the CUDA
+    kernel's old limit of 64): the JAX KernelNN in mode 'pallas' (its
+    Pallas kernel in interpret mode) exported through ``export_pth`` and
+    imported by the port's KernelNN in mode 'pallas', on the same small
+    graph: float32, sums in other orders, 1e-5 of the max (depth 2)."""
+    cfg = dict(width=128, ker_width=128, depth=2, in_width=4, out_width=4)
+    jmodel = JKernelNN(mode="pallas", **cfg)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jmodel.init(jax.random.PRNGKey(1)))
+    g = pad_graph(*(make_random_graph(np.random.default_rng(4), n=40, e=150)[f]
+                    for f in ("x", "y", "pos", "senders", "receivers",
+                              "edge_attr")), 48, 256)
+    args = (g.x, g.senders, g.receivers, g.edge_attr)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jmodel.apply(params, *(jnp.asarray(a) for a in args),
+                                      edge_mask=jnp.asarray(g.edge_mask)))
+    port = KernelNN(mode="pallas", **cfg).import_pth(
+        {k: torch.tensor(np.asarray(v))
+         for k, v in jmodel.export_pth(params).items()})
+    assert port.mode == "pallas"
+    with torch.no_grad():
+        got = port.apply(*(torch.as_tensor(a) for a in args),
+                         edge_mask=torch.as_tensor(g.edge_mask))
+    assert got.shape == ref.shape and torch.isfinite(got).all()
     assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
