@@ -18,9 +18,11 @@ non-zero without the final result line:
              next one; and B5, the per-edge messages of conv mode 'pallas',
              float32 on the tensor cores through exact bf16 splits as
              csrc/fused_edge_messages_wgmma.cu on the float32 B1's column
-             chunks, widths and K up to 128) from the checkout, one nvcc
-             each, started together; prints ptxas's registers and spills of the
-             tensor-core kernels and their blocks per SM (``[ptxas]``).
+             chunks, widths and K up to 128; B1 and B2 take them up to 256)
+             from the checkout, one nvcc each, started together; prints
+             ptxas's registers and spills of the tensor-core kernels, their
+             blocks per SM, chunks and shared memory (each held to the
+             wrapper's mirror of the kernel's layout) (``[ptxas]``).
 3. kernel  — B1 against its plain PyTorch version on the card, at the
              full-size serving chunk shape, on operands from the real dataset
              chunk: float32 (TF32 off) and bfloat16, compact and dense S,
@@ -123,6 +125,27 @@ to 3 epochs (its loss is recorded, not held to fall).
              on the full-size chunk at ranks 16, 32 and 64 (the plain
              versions' on the slice), the warm request and a fused train
              step in both types (``[w128r_*]``, ``[w128r<r>_*]`` lines).
+
+   width 256 — the width-128 path's config at width 256 (K = 256, depth
+             2; B1 and B2 past width 128: the bfloat16 B1 in column chunks
+             of c_out and B2's rows kernel in chunks of c_in, the float32
+             ones with the A operand's parts in shared memory past a depth
+             of 128): both full-size meshes served (4 B1 launches each, every
+             .vtu finite), the small mesh against the CPU's float32 plain
+             prediction and, in 'edge3d' on the card (the general lane, no
+             kernel), against it too; ``train_graph_ALDD`` for one epoch in
+             bfloat16 and in float32 (B1 and B2 launch counts held); phase
+             7's float32 parity card vs CPU; B1 and B2 against their plain
+             versions at (c_in, c_out, K) = (256, 256, 256), (256, 256,
+             128), (129, 129, 129), (136, 250, 200), (48, 256, 256) and
+             (256, 40, 72) on the leading 16 receiver blocks of the
+             full-size chunk, both types, both S forms, repeated launches
+             bit-identical; their times at (256, 256, 256) on the full-size
+             chunk (the plain versions' on the slice), the warm request and
+             a fused train step in each type; TEECNet at width 256 (K 128)
+             serving one full-size request and trained one epoch, its B1 and
+             B2 checked and timed at its own chunk (``[w256_*]``,
+             ``[teecnet_w256_*]`` lines).
 
 9. pallas  — KernelNN and TEECNet built with ``mode='pallas'`` serve one
              full-size mesh each with FESR_FUSED_PREDICT=0 (the general lane's
@@ -400,6 +423,20 @@ WIDE_EPOCHS = 3
 WIDE_CHECKED = ((128, 128, 128), (96, 96, 96), (127, 127, 128), (72, 128, 48))
 WIDE_SLICE_BLOCKS = 16
 WIDE_TEECNET_EPOCHS = 1
+# the width-256 path (B1 and B2 past width 128): the same config at width
+# 256 (K 256), depth 2, one epoch a type; B1 and B2 held against their
+# plain versions at WIDER_CHECKED on the same leading slice (the plain B1
+# builds [16 384, 65 536] float32 there, 4.3 GB; 'edge3d' would take 67.6
+# GB per chunk and layer of a full-size mesh, so it serves the small one);
+# TEECNet at width 256 (K 128) served once and trained one epoch
+WIDER = 256
+WIDER_EPOCHS = 1
+# its kernels take 35-420 ms a launch and a train step 2-3 s: each timed
+# over fewer launches and steps than the narrower paths' (20, 5)
+WIDER_REPS = 5
+WIDER_STEP_REPS = 2
+WIDER_CHECKED = ((256, 256, 256), (256, 256, 128), (129, 129, 129),
+                 (136, 250, 200), (48, 256, 256), (256, 40, 72))
 # the width-128 rank-r path (B3 and B4 past width 64, K 64 and rank 32):
 # the width-128 path's config at kernel_rank WIDE_RANK, its training's epoch
 # cut, the top rank (one request and the parity), the (c_in, c_out, K,
@@ -582,16 +619,18 @@ def check_only(label: str, want: dict) -> None:
 def prefix(model) -> str:
     """The log prefix of the path ``model`` runs: '' (KernelNN at full
     rank), 'lowrank_' (KernelNN at rank ``RANK``), 'rank<r>_' (at another
-    rank r) or 'teecnet_'; at width ``WIDE`` 'w128_' and 'teecnet_w128_',
-    and at a rank 'w128r_' (rank ``WIDE_RANK``) or 'w128r<r>_'."""
-    wide = f"w{WIDE}_" if getattr(model, "width", None) == WIDE else ""
+    rank r) or 'teecnet_'; at width ``WIDE`` (``WIDER``) 'w128_' ('w256_')
+    and 'teecnet_w128_' ('teecnet_w256_'), and at a rank 'w128r_' (rank
+    ``WIDE_RANK``) or 'w128r<r>_'."""
+    width = getattr(model, "width", None)
+    wide = f"w{width}_" if width in (WIDE, WIDER) else ""
     if isinstance(model, TEECNet):
         return "teecnet_" + wide
     if model.kernel_rank is None:
         return wide
     r = model.kernel_rank
     if wide:
-        return f"w{WIDE}r_" if r == WIDE_RANK else f"w{WIDE}r{r}_"
+        return f"w{width}r_" if r == WIDE_RANK else f"w{width}r{r}_"
     return "lowrank_" if r == RANK else f"rank{r}_"
 
 
@@ -761,7 +800,10 @@ def log_ptxas() -> None:
     them when the libraries were built (and any wgmma serialization it
     warned of), and their blocks per SM at width 48 and K 48 and 128
     (B1/B2 in both types, B5), at width and K 96 and 128 (B1/B2; B5 at
-    128) and at K 48, rank 16 (B3/B4 in both types)."""
+    128), at width 256 and K 256 and 128 and the width-256 path's checked
+    shapes (B1/B2, with their chunks; their shared memory must equal the
+    wrapper's mirror, ``fused_conv.conv_smem_bytes``) and at K 48, rank 16
+    (B3/B4 in both types)."""
     import re
     for lib in ("fused_edge_conv_wgmma", "fused_edge_conv_bwd_wgmma",
                 "fused_edge_conv_f32_wgmma", "fused_edge_conv_bwd_f32_wgmma",
@@ -804,12 +846,33 @@ def log_ptxas() -> None:
                 log("ptxas", lib=lib, kernel=name, registers=m.group(1),
                     spill_stores=spills[0], spill_loads=spills[1])
                 name = None
-    for k, c in ((48, 48), (128, 48), (96, 96), (128, 128)):
-        log("ptxas", k=k, c=c, blocks_per_sm=fused_conv.occupancy(k, c, c))
-        for lib in ("fused_edge_conv_wgmma", "fused_edge_conv_bwd_wgmma",
-                    "fused_edge_conv_f32_wgmma", "fused_edge_conv_bwd_f32_wgmma"):
-            log("ptxas", lib=lib, k=k, c=c, smem_bytes=getattr(
-                fused_conv._load_kernel(lib), f"{lib}_smem_bytes")(k, c, c))
+    # B1/B2 at widths 48 and 128, and past 128 at width 256's K 256 and
+    # TEECNet's K 128 and the checked shapes: blocks per SM, shared memory
+    # (held to the wrapper's mirror of each layout) and the chunks
+    shapes = [(k, c, c) for k, c in ((48, 48), (128, 48), (96, 96), (128, 128),
+                                     (WIDER, WIDER), (128, WIDER))]
+    shapes += [(k, c_in, c_out) for c_in, c_out, k in WIDER_CHECKED
+               if (k, c_in, c_out) not in shapes]
+    for k, c_in, c_out in shapes:
+        c = dict(c=c_in) if c_in == c_out else dict(c_in=c_in, c_out=c_out)
+        log("ptxas", k=k, **c,
+            blocks_per_sm=fused_conv.occupancy(k, c_in, c_out),
+            bf16_fwd_chunks=fused_conv.wgmma_fwd_chunks(k, c_in, c_out),
+            bf16_rows_chunks=fused_conv.wgmma_rows_chunks(k, c_in, c_out),
+            f32_fwd_chunks=fused_conv.f32_chunks(c_out, c_in),
+            f32_rows_chunks=fused_conv.f32_chunks(c_in, c_out))
+        for lib, dt, backward in (
+                ("fused_edge_conv_wgmma", torch.bfloat16, False),
+                ("fused_edge_conv_bwd_wgmma", torch.bfloat16, True),
+                ("fused_edge_conv_f32_wgmma", torch.float32, False),
+                ("fused_edge_conv_bwd_f32_wgmma", torch.float32, True)):
+            smem = getattr(fused_conv._load_kernel(lib),
+                           f"{lib}_smem_bytes")(k, c_in, c_out)
+            log("ptxas", lib=lib, k=k, **c, smem_bytes=smem)
+            mirror = fused_conv.conv_smem_bytes(dt, k, c_in, c_out, backward)
+            if smem != mirror:
+                raise AssertionError(f"{lib} at K={k}, {c}: {smem} B of shared "
+                                     f"memory, the wrapper's mirror {mirror}")
     # B3/B4 at width 48, rank 16, and the width-128 rank-r path's instances
     for k, c, rank in ((48, 48, RANK), (48, 48, 36), (96, 96, 48),
                        *((WIDE, WIDE, r) for r in (16, 32, 40, 57, 64))):
@@ -927,12 +990,14 @@ def phase_serve(root: str, datasets: dict, models: dict, cfgs: dict,
     return launches
 
 
-def fwd_times(op, smi, plain_op=None) -> dict:
+def fwd_times(op, smi, plain_op=None, reps: int = 20) -> dict:
     """B1's (B3's on the rank-r path) and its plain version's CUDA-event
     medians at the operands ``op``, and its bound.  With ``plain_op`` (a
     leading slice of ``op``'s blocks, where the plain version's [slots,
     c_in c_out] arrays would not fit at ``op``) the plain version and the
-    kernel are also timed there (``plain_slots``, ``ms_at_plain_slots``)."""
+    kernel are also timed there (``plain_slots``, ``ms_at_plain_slots``).
+    ``reps``: timed launches of the kernel (fewer where one takes tens of
+    milliseconds)."""
     t = {}
     rank = op["rank"]
     _, plain, launcher = FWD[rank is not None]
@@ -949,12 +1014,13 @@ def fwd_times(op, smi, plain_op=None) -> dict:
             tdt = getattr(torch, dt)
             h, x, w3 = typed_operands(op, tdt)
             t[f"ms_{dt}"] = cuda_ms(lambda: launcher(
-                h, x, op["sp"], w3, op["b3"], op["s"], **layer_kw(op)))
+                h, x, op["sp"], w3, op["b3"], op["s"], **layer_kw(op)),
+                reps=reps)
             if plain_op is not None:
                 h, x, w3 = typed_operands(plain_op, tdt)
                 t[f"ms_at_plain_slots_{dt}"] = cuda_ms(lambda: launcher(
                     h, x, plain_op["sp"], w3, plain_op["b3"], plain_op["s"],
-                    **layer_kw(plain_op)))
+                    **layer_kw(plain_op)), reps=reps)
             po = op if plain_op is None else plain_op
             t[f"plain_ms_{dt}"] = cuda_ms(
                 lambda: plain(h, x, po["sp"], w3, po["b3"], po["s"],
@@ -1372,9 +1438,9 @@ def phase_parity(small_merged, cfg: dict) -> None:
             raise AssertionError(f"train step {step}: card {a} vs cpu {b}")
 
 
-def phase_bwd_times(bop, smi, plain_bop=None) -> dict:
+def phase_bwd_times(bop, smi, plain_bop=None, reps: int = 20) -> dict:
     """B2's (B4's) and its plain version's CUDA-event medians at the chunk
-    shape, and its bound; ``plain_bop`` as ``fwd_times``' ``plain_op``."""
+    shape, and its bound; ``plain_bop`` and ``reps`` as ``fwd_times``'."""
     t = {}
     rank = bop["rank"]
     _, plain, launcher = BWD[rank is not None]
@@ -1387,12 +1453,13 @@ def phase_bwd_times(bop, smi, plain_bop=None) -> dict:
             tdt = getattr(torch, dt)
             h, xs, w3 = typed_operands(bop, tdt)
             t[f"ms_{dt}"] = cuda_ms(lambda: launcher(
-                bop["g"], h, xs, w3, bop["b3"], bop["s"], **layer_kw(bop)))
+                bop["g"], h, xs, w3, bop["b3"], bop["s"], **layer_kw(bop)),
+                reps=reps)
             if plain_bop is not None:
                 h, xs, w3 = typed_operands(plain_bop, tdt)
                 t[f"ms_at_plain_slots_{dt}"] = cuda_ms(lambda: launcher(
                     plain_bop["g"], h, xs, w3, plain_bop["b3"],
-                    plain_bop["s"], **layer_kw(plain_bop)))
+                    plain_bop["s"], **layer_kw(plain_bop)), reps=reps)
             po = bop if plain_bop is None else plain_bop
             t[f"plain_ms_{dt}"] = cuda_ms(
                 lambda: plain(po["g"], h, xs, w3, po["b3"], po["s"],
@@ -1424,11 +1491,11 @@ def phase_bwd_times(bop, smi, plain_bop=None) -> dict:
 
 
 def phase_train_times(batches, cfg: dict, smi, tag: str | None = None,
-                      float32: bool | None = None) -> dict:
+                      float32: bool | None = None, reps: int = 5) -> dict:
     """Warm wall time of one fused bf16 train step on the training batch
-    (the 12 train subdomains merged at batch size 16), and one profiled
-    step; with ``float32`` (by default on the rank-r path) also of one
-    float32 step."""
+    (the 12 train subdomains merged at batch size 16), the median of
+    ``reps``, and one profiled step; with ``float32`` (by default on the
+    rank-r path) also of one float32 step."""
     model, (fb, _), rows_blk, blk = batches
     s = fb["fused"]["s"]
     label = (prefix(model) if tag is None else tag) + "times"
@@ -1442,7 +1509,7 @@ def phase_train_times(batches, cfg: dict, smi, tag: str | None = None,
     def step():
         return trainer.step(opt, fb)
 
-    t = {"train_step_ms": warm_ms(step)}
+    t = {"train_step_ms": warm_ms(step, reps)}
     t.update({f"train_{k}": v for k, v in
               profile_call(step, label + "_train_step").items()})
     if float32 is None:
@@ -1454,7 +1521,8 @@ def phase_train_times(batches, cfg: dict, smi, tag: str | None = None,
                             layout="fused", fused_rows_blk=rows_blk,
                             fused_blk=blk, fused_dtype="float32")
         opt32 = trainer32.init(SEED)
-        t["train_step_ms_float32"] = warm_ms(lambda: trainer32.step(opt32, fb))
+        t["train_step_ms_float32"] = warm_ms(
+            lambda: trainer32.step(opt32, fb), reps)
     log_times(label, "train_step", t, smi)
     return t
 
@@ -1627,91 +1695,152 @@ def wide_slice(op, c_in: int, c_out: int, k: int, rank=None) -> dict:
                 rank=rank, b=f"{WIDE_SLICE_BLOCKS} blocks", msg=None)
 
 
-def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc) -> dict:
-    """The width-128 path: B1 and B2 past width 64.  Both full-size meshes
-    served (chunks x depth B1 launches each, every .vtu finite) and the
-    small mesh against the CPU's float32 plain prediction; the path's
-    training in both types (B1 and B2 launch counts held); phase 7's float32
-    parity; B1 and B2 against their plain versions at ``WIDE_CHECKED`` on a
-    leading slice of the full-size chunk, both types, both S forms,
-    repeated launches bit-identical; their times at the full-size chunk
-    (the plain versions' on the slice), the warm request and a fused train
-    step in each type; TEECNet at width 128 served once and trained one
-    epoch, its launches counted.  Returns what the kernels' JSON entries
-    need, and B5's operands at the full-size chunk of both models at width
-    128 (``msg``, ``tc_msg``) for phase 9."""
+def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
+             width: int = WIDE, checked=WIDE_CHECKED,
+             epochs: int = WIDE_EPOCHS) -> dict:
+    """A wide path (width 128: B1 and B2 past width 64; 256: past 128).
+    Both full-size meshes served (chunks x depth B1 launches each, every
+    .vtu finite) and the small mesh against the CPU's float32 plain
+    prediction; the path's training in both types (B1 and B2 launch counts
+    held); phase 7's float32 parity; B1 and B2 against their plain versions
+    at ``checked`` on a leading slice of the full-size chunk, both types,
+    both S forms, repeated launches bit-identical; their times at the
+    full-size chunk (the plain versions' on the slice), the warm request and
+    a fused train step in each type; TEECNet at the same width served once
+    and trained one epoch, its launches counted.  Returns what the kernels'
+    JSON entries need, and at width 128 B5's operands at the full-size chunk
+    of both models (``msg``, ``tc_msg``) for phase 9.  Past 128 B5 takes no
+    such width: instead the small mesh is served in 'edge3d' (the general
+    lane, no kernel) against the CPU's plain prediction, and TEECNet's B1
+    and B2 are checked and timed at its own chunk (K 128)."""
     t0 = time.time()
     log_dir = os.path.join(root, "logs")
     cfg, ds = cfgs["full"], datasets["full"]
     depth = cfg["num_layers"]
     fwd = FWD[False][0]
     label = prefix(models["full"]) + "serve"
+    reps = (20, 5) if width <= WIDE else (WIDER_REPS, WIDER_STEP_REPS)
+    marks = [("start", t0)]
+
+    def lap(part):  # the seconds since the last part, on a *_path line
+        marks.append((part, time.time()))
+        log(prefix(models["full"]) + "path", part=part,
+            wall_s=f"{marks[-1][1] - marks[-2][1]:.1f}")
+
     served = 0
     for name in ("full", "small"):
         for idx in cfgs[name]["idxs"][:2 if name == "full" else 1]:
             reset_launches()
             lanes, (fields,) = serve(datasets[name], models[name], [idx],
-                                     log_dir, f"{name}_w{WIDE}", None)
+                                     log_dir, f"{name}_w{width}", None)
             torch.cuda.synchronize()
             served += fwd.launches
             log(label, mesh=name, idx=idx, lane=lanes[0][1],
-                launches=fwd.launches, width=WIDE, depth=depth,
+                launches=fwd.launches, width=width, depth=depth,
                 design=fused_conv.design(torch.bfloat16),
                 nodes=len(fields["pressure"]), finite=True)
             check_only(f"{label} {name} {idx}",
                        {fwd: CHUNKS[name] * cfgs[name]["num_layers"]})
+    lap("serve")
     _, (ref,) = serve(datasets["small"], models["small"], [0], log_dir,
-                      f"small_w{WIDE}_cpu", "cpu", gemm_dtype="float32")
+                      f"small_w{width}_cpu", "cpu", gemm_dtype="float32")
     for key in ("velocity", "pressure"):
         rel = np.abs(fields[key] - ref[key]).max() / np.abs(ref[key]).max()
         log(label, mesh="small", field=key, vs_cpu_f32=f"{rel:.3e}",
             tol=SERVE_TOL)
         if not rel <= SERVE_TOL:
             raise AssertionError(f"{label} small {key}: {rel:.3e} > {SERVE_TOL}")
-    trained = train_types(root, ds, cfg, WIDE_EPOCHS)
+    lap("serve_cpu")
+    if width > WIDE:
+        # 'edge3d' on the card (FESR_FUSED_PREDICT=0: the general lane, no
+        # kernel), float32 end to end, against the same CPU prediction
+        with env_set("FESR_FUSED_PREDICT", "0"):
+            reset_launches()
+            t1 = time.time()
+            lanes, (edge3d,) = serve(datasets["small"], models["small"], [0],
+                                     log_dir, f"small_w{width}", None)
+            torch.cuda.synchronize()
+            check_only(f"{label} small edge3d", {})
+        for key in ("velocity", "pressure"):
+            rel = np.abs(edge3d[key] - ref[key]).max() / np.abs(ref[key]).max()
+            log(label, mesh="small", mode="edge3d", lane=lanes[0][1],
+                field=key, vs_cpu_f32=f"{rel:.3e}", tol=PALLAS_TOL,
+                cold_s=f"{time.time() - t1:.3f}")
+            if not rel <= PALLAS_TOL:
+                raise AssertionError(f"{label} small edge3d {key}: {rel:.3e}")
+        lap("edge3d")
+    trained = train_types(root, ds, cfg, epochs)
+    lap("train")
     phase_parity(merged_subdomains(datasets["small"]), cfgs["small"])
+    lap("parity")
     op = chunk_operands(ds, models["full"], "cuda")
     errs, errs_bwd = {}, {}
-    for c_in, c_out, k in WIDE_CHECKED:
+    for c_in, c_out, k in checked:
         sop = wide_slice(op, c_in, c_out, k)
         at = f"slice_{c_in}x{c_out}_k{k}"
         phase_kernel(sop, at, errs)
         check_bwd(bwd_operands(sop), at, errs_bwd)
         del sop
         torch.cuda.empty_cache()
-    sop = wide_slice(op, WIDE, WIDE, WIDE)
-    t = fwd_times(op, smi, plain_op=sop)
-    tb = phase_bwd_times(bwd_operands(op), smi, plain_bop=bwd_operands(sop))
+    lap("checked")
+    sop = wide_slice(op, width, width, width)
+    t = fwd_times(op, smi, plain_op=sop, reps=reps[0])
+    tb = phase_bwd_times(bwd_operands(op), smi, plain_bop=bwd_operands(sop),
+                         reps=reps[0])
     msg = op["msg"]  # B5's operands at width 128, for phase_messages
     del op, sop
     torch.cuda.empty_cache()
-    t.update(request_times(datasets, models, root, smi, f"_w{WIDE}"))
+    t.update(request_times(datasets, models, root, smi, f"_w{width}"))
     batches = train_batches(ds, cfg)
-    t.update(phase_train_times(batches, cfg, smi, float32=True))
+    t.update(phase_train_times(batches, cfg, smi, float32=True,
+                               reps=reps[1]))
     del batches
     torch.cuda.empty_cache()
-    # TEECNet at width 128: one full-size request, one epoch of training
+    lap("times")
+    # TEECNet at this width: one full-size request, one epoch of training
     tc_label = prefix(models_tc["full"]) + "serve"
     reset_launches()
     lanes, (fields,) = serve(ds, models_tc["full"], [0], log_dir,
-                             f"full_w{WIDE}_teecnet", None)
+                             f"full_w{width}_teecnet", None)
     torch.cuda.synchronize()
     tc_served = fwd.launches
     log(tc_label, mesh="full", lane=lanes[0][1], launches=tc_served,
-        width=WIDE, depth=cfgs_tc["full"]["num_layers"],
+        width=width, depth=cfgs_tc["full"]["num_layers"],
         nodes=len(fields["pressure"]), finite=True)
     check_only(tc_label,
                {fwd: CHUNKS["full"] * cfgs_tc["full"]["num_layers"]})
     tc_trained = train_types(root, ds, cfgs_tc["full"], WIDE_TEECNET_EPOCHS,
                              ("bfloat16",))
-    tc_msg = chunk_operands(ds, models_tc["full"], "cuda")["msg"]
+    lap("teecnet")
+    tc_op = chunk_operands(ds, models_tc["full"], "cuda")
+    out = dict(width=width, checked=checked, errs=errs, errs_bwd=errs_bwd,
+               launches=served,
+               train=dict(fwd=sum(n for n, _ in trained.values()),
+                          bwd=sum(n for _, n in trained.values()), served=0),
+               t=t, tb=tb, trained=trained, tc_served=tc_served,
+               tc_trained=tc_trained["bfloat16"])
+    if width <= WIDE:
+        out.update(msg=msg, tc_msg=tc_op["msg"])
+    else:
+        # TEECNet's B1 and B2 at its own chunk (c_in = c_out = width, K 128):
+        # against their plain versions on its leading slice, and timed
+        tc_k = tc_op["h"].shape[1]
+        tc_sop = wide_slice(tc_op, width, width, tc_k)
+        at = f"slice_{width}x{width}_k{tc_k}"
+        tc_errs = phase_kernel(tc_sop, at)
+        tc_errs_bwd = check_bwd(bwd_operands(tc_sop), at)
+        tc_t = fwd_times(tc_op, smi, plain_op=tc_sop, reps=reps[0])
+        tc_tb = phase_bwd_times(bwd_operands(tc_op), smi,
+                                plain_bop=bwd_operands(tc_sop), reps=reps[0])
+        lap("teecnet_kernels")
+        out.update(tc=dict(errs=tc_errs, errs_bwd=tc_errs_bwd, t=tc_t,
+                           tb=tc_tb, k=tc_k))
+        del tc_sop
+    del tc_op
+    torch.cuda.empty_cache()
     log(prefix(models["full"]) + "path", depth=depth,
         wall_s=f"{time.time() - t0:.1f}")
-    return dict(errs=errs, errs_bwd=errs_bwd, launches=served,
-                train=dict(fwd=sum(n for n, _ in trained.values()),
-                           bwd=sum(n for _, n in trained.values()), served=0),
-                t=t, tb=tb, trained=trained, tc_served=tc_served,
-                tc_trained=tc_trained["bfloat16"], msg=msg, tc_msg=tc_msg)
+    return out
 
 
 def run_wide_rank(root, smi, datasets, models, cfgs, models_top) -> dict:
@@ -4143,9 +4272,10 @@ def kernel_entries(r: dict, smi: str, rank, path: str) -> list:
              r["launches"] + train["fwd"] + train["served"],
              {"serve": r["launches"], "train": train["fwd"],
               "serve_trained": train["served"]},
-             {"request_ms": t["request_ms"]}),
+             {key: t[key] for key in ("request_ms",) if key in t}),
             (names[1], lines[1], r["errs_bwd"], tb, train["bwd"],
-             {"train": train["bwd"]}, {"train_step_ms": t["train_step_ms"]})):
+             {"train": train["bwd"]},
+             {key: t[key] for key in ("train_step_ms",) if key in t})):
         entries.append({
             "name": name,
             "path": path,
@@ -4201,31 +4331,53 @@ def rank12_entries(r: dict, smi: str) -> list:
 
 
 def wide_entries(r: dict, smi: str) -> list:
-    """B1's and B2's entries for the width-128 path: launches by phase
-    (KernelNN's serving and training in each type, TEECNet's request and
-    epoch), the shapes held against the plain versions, and the plain
-    versions' times on the chunk's leading slice beside the kernels'."""
-    entries = kernel_entries(r, smi, None, f"kernelnn_w{WIDE}")
+    """B1's and B2's entries for a wide path (``kernelnn_w128``,
+    ``kernelnn_w256``): launches by phase (KernelNN's serving and training
+    in each type; at width 128 also TEECNet's request and epoch), the
+    shapes held against the plain versions, and the plain versions' times
+    on the chunk's leading slice beside the kernels'.  Past width 128
+    TEECNet has entries of its own (``teecnet_w256``), with its B1's and
+    B2's errors and times at its chunk (K 128)."""
+    width = r["width"]
+    entries = kernel_entries(r, smi, None, f"kernelnn_w{width}")
     trained = r["trained"]
-    entries[0]["launches"] += r["tc_served"] + r["tc_trained"][0]
     entries[0]["launches_by_path"] = {
         "serve": r["launches"],
-        **{f"train_{dt}": n for dt, (n, _) in trained.items()},
-        "teecnet_serve": r["tc_served"],
-        "teecnet_train_bfloat16": r["tc_trained"][0]}
-    entries[1]["launches"] += r["tc_trained"][1]
+        **{f"train_{dt}": n for dt, (n, _) in trained.items()}}
     entries[1]["launches_by_path"] = {
-        **{f"train_{dt}": n for dt, (_, n) in trained.items()},
-        "teecnet_train_bfloat16": r["tc_trained"][1]}
+        f"train_{dt}": n for dt, (_, n) in trained.items()}
+    tc_by = ({"teecnet_serve": r["tc_served"],
+              "teecnet_train_bfloat16": r["tc_trained"][0]},
+             {"teecnet_train_bfloat16": r["tc_trained"][1]})
+    if "tc" in r:
+        tc = r["tc"]
+        tc_entries = kernel_entries(
+            dict(errs=tc["errs"], errs_bwd=tc["errs_bwd"],
+                 launches=r["tc_served"], t=tc["t"], tb=tc["tb"],
+                 train=dict(fwd=r["tc_trained"][0], bwd=r["tc_trained"][1],
+                            served=0)), smi, None, f"teecnet_w{width}")
+        for entry, by, times in zip(tc_entries, tc_by, (tc["t"], tc["tb"])):
+            entry.update(launches_by_path=by, width=width, k=tc["k"],
+                         plain_slots=times["plain_slots"],
+                         ms_at_plain_slots=times["ms_at_plain_slots_bfloat16"])
+            entry["float32"]["ms_at_plain_slots"] = times[
+                "ms_at_plain_slots_float32"]
+    else:
+        tc_entries = []
+        for entry, by, n in zip(entries, tc_by, (r["tc_served"]
+                                                 + r["tc_trained"][0],
+                                                 r["tc_trained"][1])):
+            entry["launches"] += n
+            entry["launches_by_path"].update(by)
     for entry, times in ((entries[0], r["t"]), (entries[1], r["tb"])):
-        entry.update(width=WIDE, k=WIDE,
-                     checked=[list(shape) for shape in WIDE_CHECKED],
+        entry.update(width=width, k=width,
+                     checked=[list(shape) for shape in r["checked"]],
                      plain_slots=times["plain_slots"],
                      ms_at_plain_slots=times["ms_at_plain_slots_bfloat16"])
         entry["float32"]["ms_at_plain_slots"] = times[
             "ms_at_plain_slots_float32"]
     entries[1]["train_step_ms_float32"] = r["t"]["train_step_ms_float32"]
-    return entries
+    return entries + tc_entries
 
 
 def wide_rank_entries(r: dict, smi: str) -> list:
@@ -4373,9 +4525,13 @@ def main() -> int:
         cfgs_wr = {k: dict(v, kernel_rank=WIDE_RANK) for k, v in cfgs_w.items()}
         cfgs_wtop = {k: dict(v, kernel_rank=WIDE_RANK_TOP)
                      for k, v in cfgs_w.items()}
+        # the width-256 path: the width-128 path's configs at width 256
+        cfgs_w2 = {k: dict(v, width=WIDER) for k, v in cfgs_w.items()}
+        cfgs_w2tc = {k: dict(v, width=WIDER) for k, v in cfgs_tc.items()}
         datasets, models, models_lr, models_r12, models_tc = (
             {} for _ in range(5))
         models_w, models_wtc, models_wr, models_wtop = {}, {}, {}, {}
+        models_w2, models_w2tc = {}, {}
         for key, cfg in cfgs.items():
             t1 = time.time()
             datasets[key] = init_dataset("synthetic", **cfg)
@@ -4392,7 +4548,10 @@ def main() -> int:
                                  (f"{key}_w{WIDE}r{WIDE_RANK}", cfgs_wr[key],
                                   models_wr),
                                  (f"{key}_w{WIDE}r{WIDE_RANK_TOP}",
-                                  cfgs_wtop[key], models_wtop)):
+                                  cfgs_wtop[key], models_wtop),
+                                 (f"{key}_w{WIDER}", cfgs_w2[key], models_w2),
+                                 (f"{key}_w{WIDER}_teecnet", cfgs_w2tc[key],
+                                  models_w2tc)):
                 into[key] = write_checkpoint(logs, exp, c)
                 write_checkpoint(logs, exp + "_cpu", c)
             for k in ("root", "partition", "sub_size", "n_high", "n_low",
@@ -4411,6 +4570,8 @@ def main() -> int:
                         cfgs_wtc)
         wide_rank = run_wide_rank(root, smi, datasets, models_wr, cfgs_wr,
                                   models_wtop["full"])
+        wider = run_wide(root, smi, datasets, models_w2, cfgs_w2, models_w2tc,
+                         cfgs_w2tc, WIDER, WIDER_CHECKED, WIDER_EPOCHS)
         teecnet = run_path(root, name, smi, datasets, models_tc, cfgs_tc,
                            "_teecnet")
         t1 = time.time()
@@ -4460,6 +4621,7 @@ def main() -> int:
                + rank12_entries(rank12, smi)
                + wide_entries(wide, smi)
                + wide_rank_entries(wide_rank, smi)
+               + wide_entries(wider, smi)
                + kernel_entries(teecnet, smi, None, "teecnet")
                + messages_entries(msg_t, pallas_launches, pallas_requests,
                                   smi)

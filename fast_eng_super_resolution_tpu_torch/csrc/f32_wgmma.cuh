@@ -18,16 +18,24 @@
 // The stage image.  W~ = [w3; b3] as [K+1, c_in, c_out] is laid out once
 // per call (stage_image) as stages, each the three bf16 parts of one column
 // chunk of W~_k as K-major B operands (wgmma_tile.cuh, kmajor) of N rows x
-// `depth`, zero padded: rows o and depth i for B1's and B5's P_k = X @ W~_k,
-// rows i and depth o for B2's R_k = D @ W~_k^T.  The rows (c_out for B1 and
-// B5, c_in for B2, up to 128) are cut into Chunks: one chunk of all of them
-// at most 64 wide, else chunks of at most 64 (32 past a depth of 64), so
-// that a stage stays within 24 KB and the registers hold the depth's A
-// fragments beside two accumulators.  Stage c (K+1) + k is chunk c of W~_k.
-// One producer thread streams the stages by bulk copy into a ring of kRing
-// shared-memory stages (ring_init, produce); each consumer warpgroup walks
-// them (Walk), a pass over k per chunk, six products per stage, two stages
-// in flight.
+// a stage's depth, zero padded: rows o and depth i for B1's and B5's P_k =
+// X @ W~_k, rows i and depth o for B2's R_k = D @ W~_k^T.  The rows (c_out
+// for B1 and B5, c_in for B2, up to 256) are cut into Chunks: one chunk of
+// all of them at most 64 wide, else chunks of at most 64 (32 at a depth of
+// 65..128), so that a stage stays within 24 KB and the registers hold the
+// depth's A fragments beside two accumulators.  Up to a depth of 128 a
+// stage holds all of it: stage c (K+1) + k is chunk c of W~_k.  One producer
+// thread streams the stages by bulk copy into a ring of kRing shared-memory
+// stages (ring_init, produce); each consumer warpgroup walks them (Walk), a
+// pass over k per chunk, six products per stage, two stages in flight.
+//
+// Past a depth of 128 X's parts would take 12 registers per 16 of depth,
+// 192 at 256: A's three parts go to shared memory instead, split there once
+// per tile (put_split8), and W~_k's chunk is depth / 32 stages of 32 deep,
+// stage (c (K+1) + k) slices + l (12 KB at N 64).  DeepWalk issues each
+// stage's twelve products into the one accumulator of W~_k as it lands and
+// releases it once they completed; B3/B4 (lowrank_f32_wgmma.cuh) walk their
+// chunks past a depth of 64 the same way.
 
 #pragma once
 
@@ -107,45 +115,63 @@ __device__ __forceinline__ constexpr int b_part(int q) {
   return q == 2 ? 2 : (q == 1 || q == 4) ? 1 : 0;
 }
 
-// The column chunks of a product of `rows` (1..128) over `depth` (1..128):
+// Past a depth of kWalkDepth, A's parts sit in shared memory and a stage
+// is kSliceDepth deep (DeepWalk).
+constexpr int kWalkDepth = 128;
+constexpr int kSliceDepth = 32;
+// The kernels' widest rows and depth (c_in, c_out; K up to 256 as well).
+constexpr int kMaxWide = 256;
+
+// The column chunks of a product of `rows` (1..256) over `depth` (1..256):
 // `chunks` of n rows each (n a multiple of 8, chunks * n >= rows), n at most
-// 64 where the depth takes at most 4 k16 steps, else at most 32.
+// 64 where the depth takes at most 4 k16 steps or A sits in shared memory
+// (`deep`, past a depth of 128), else at most 32; the padded depth dp
+// (rounded up to 16, deep: to 32) in `slices` stages of sd each.
 struct Chunks {
-  int steps, n, chunks;
+  int steps, n, chunks, dp, sd, slices;
+  bool deep;
   __host__ __device__ Chunks(int rows, int depth) {
     steps = round_up(depth, 16) / 16;
-    const int r8 = round_up(rows, 8), most = steps <= 4 ? 64 : 32;
+    deep = depth > kWalkDepth;
+    const int r8 = round_up(rows, 8), most = steps <= 4 || deep ? 64 : 32;
     chunks = (r8 + most - 1) / most;
     n = round_up((r8 + chunks - 1) / chunks, 8);
+    dp = deep ? round_up(depth, kSliceDepth) : 16 * steps;
+    sd = deep ? kSliceDepth : dp;
+    slices = dp / sd;
   }
 };
 
-// Stage q / per of W~ (chunk c of W~_k, k = K: b3) as three K-major B
-// operands of `rows` (a chunk's n) x `depth` bf16 (depth a multiple of 16),
-// zero padded; by_out: row o, depth i (B1), else row i, depth o (B2).
-// Consecutive threads take consecutive o, so that w3's rows coalesce.
+// Stage q / per of W~ (slice l of chunk c of W~_k, k = K: b3) as three
+// K-major B operands of `rows` (a chunk's n) x `depth` (a stage's, a
+// multiple of 16) bf16, zero padded; by_out: row o, depth i (B1), else row
+// i, depth o (B2).  Consecutive threads take consecutive o, so that w3's
+// rows coalesce.
 __global__ void stage_image(const float* __restrict__ w3,
                             const float* __restrict__ b3,
                             bf16* __restrict__ image, int K, int c_in,
-                            int c_out, int rows, int depth, int chunks,
-                            int by_out) {
+                            int c_out, int rows, int depth, int slices,
+                            int chunks, int by_out) {
   const int per = rows * depth;
-  const long total = static_cast<long>(chunks) * (K + 1) * per;
+  const long total = static_cast<long>(chunks) * (K + 1) * slices * per;
   for (long q = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
        q < total; q += static_cast<long>(gridDim.x) * blockDim.x) {
     const int st = static_cast<int>(q / per), r = static_cast<int>(q % per);
-    const int c = st / (K + 1), k = st - c * (K + 1);
+    const int ck = st / slices, l = st - ck * slices;
+    const int c = ck / (K + 1), k = ck - c * (K + 1);
     int i, o, at;
     if (by_out) {
-      i = r / rows;
-      const int ol = r - i * rows;
+      const int il = r / rows;
+      const int ol = r - il * rows;
+      i = l * depth + il;
       o = c * rows + ol;
-      at = kmajor(ol, i, depth);
+      at = kmajor(ol, il, depth);
     } else {
       const int il = r / depth;
-      o = r - il * depth;
+      const int ol = r - il * depth;
+      o = l * depth + ol;
       i = c * rows + il;
-      at = kmajor(il, o, depth);
+      at = kmajor(il, ol, depth);
     }
     float v = 0.f;
     if (o < c_out && i < c_in)
@@ -165,10 +191,11 @@ __global__ void stage_image(const float* __restrict__ w3,
 inline cudaError_t launch_image(const float* w3, const float* b3, bf16* image,
                                 int K, int c_in, int c_out, const Chunks& ch,
                                 bool by_out, cudaStream_t stream) {
-  const int depth = 16 * ch.steps;
-  const long cells = static_cast<long>(ch.chunks) * (K + 1) * ch.n * depth;
+  const long cells =
+      static_cast<long>(ch.chunks) * (K + 1) * ch.n * ch.dp;
   stage_image<<<static_cast<unsigned>((cells + 255) / 256), 256, 0, stream>>>(
-      w3, b3, image, K, c_in, c_out, ch.n, depth, ch.chunks, by_out ? 1 : 0);
+      w3, b3, image, K, c_in, c_out, ch.n, ch.sd, ch.slices, ch.chunks,
+      by_out ? 1 : 0);
   return cudaGetLastError();
 }
 
@@ -289,14 +316,82 @@ struct Walk {
   }
 };
 
-// f(integral_constant N, integral_constant S) for the chunk width N of
-// Chunks(rows, depth) and S = depth rounded up to 16, over 16 (1..8);
-// `otherwise` outside 1..128.
-template <typename F, typename R>
-R with_shape(int rows, int depth, F&& f, R otherwise) {
-  if (depth < 1 || depth > 128 || rows < 1 || rows > 128) return otherwise;
-  const Chunks ch(rows, depth);
-  auto deep = [&](auto s) {  // N <= 32
+// Eight consecutive values v of row s, columns d .. d + 7 (d a multiple of
+// 8), split into three K-major operands [64][dp] at dst (part p at dst + p
+// 64 dp): a 16-byte piece of each part.  The caller fences and synchronises
+// before a product reads them.
+__device__ __forceinline__ void put_split8(bf16* dst, int dp, int s, int d,
+                                           const float (&v)[8]) {
+  uint4 pt[3];
+  split3_8(v, pt);
+  const int at = kmajor(s, d, dp);
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    *reinterpret_cast<uint4*>(dst + r * 64 * dp + at) = pt[r];
+}
+
+// A consumer warpgroup's walk for one tile with A's parts in shared memory
+// (descriptor da, part p at + p dapart, a k16 step at + 16): each chunk (B1,
+// B2: W~_k; B3/B4: a chunk of their walk) `slices` stages of kSliceDepth of
+// the ring (descriptors as Walk's).  A chunk's stages go into one
+// accumulator, each stage's twelve products (six pairs of parts, two k16
+// steps) as one group issued as soon as the stage has landed and waited for
+// before the stage is released (the producer keeps the next stages landing
+// meanwhile), then fin(acc, c).  No product is in flight across a loop's
+// back edge.
+template <int N, typename Fin>
+struct DeepWalk {
+  uint64_t da;
+  uint32_t dapart;
+  int slices;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t d0;
+  uint32_t dstage, dpart;
+  int lane;
+  Fin& fin;
+
+  // Chunks 0 .. n - 1 from ring step j on.
+  __device__ __forceinline__ void all(int n, uint32_t& j) const {
+    for (int c = 0; c < n; ++c) {
+      float acc[N / 2];
+#pragma unroll
+      for (int v = 0; v < N / 2; ++v) acc[v] = 0.f;
+      for (int l = 0; l < slices; ++l, ++j) {
+        mbar_wait(full + slot(j), parity(j));
+        fence_operand(acc);
+        fence();
+        const uint64_t db = d0 + slot(j) * dstage;
+        const uint64_t dl = da + static_cast<uint64_t>(32 * l);
+#pragma unroll
+        for (int q = 0; q < 6; ++q)
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+            Mma<N>::run(acc,
+                        dl + static_cast<uint64_t>(a_part(q) * dapart + 16 * s),
+                        db + static_cast<uint64_t>(b_part(q) * dpart + 16 * s),
+                        1);
+        commit();
+        wait_all();
+        fence_operand(acc);
+        if (lane == 0) mbar_arrive(empty + slot(j));
+      }
+      fin(acc, c);
+    }
+  }
+};
+
+// The template depth of B1's and B2's A operand past a depth of 128: S =
+// kDeepA stands for A's parts in shared memory (DeepWalk) at any padded
+// depth of 160 .. 256.
+constexpr int kDeepA = 16;
+
+// f(integral_constant N, integral_constant S) for the chunk width N of ch
+// and S = its depth's k16 steps (1..8), or (kDeepToo) kDeepA past a depth
+// of 128; `otherwise` for a width no instance takes.
+template <bool kDeepToo, typename F, typename R>
+R shape_switch(const Chunks& ch, F&& f, R otherwise) {
+  auto upto32 = [&](auto s) {
     switch (ch.n) {
       case 8: return f(std::integral_constant<int, 8>(), s);
       case 16: return f(std::integral_constant<int, 16>(), s);
@@ -304,19 +399,40 @@ R with_shape(int rows, int depth, F&& f, R otherwise) {
       default: return f(std::integral_constant<int, 32>(), s);
     }
   };
-  auto shallow = [&](auto s) {
+  auto upto64 = [&](auto s) {
     return with_width(ch.n, [&](auto nn) { return f(nn, s); }, otherwise);
   };
-  switch (ch.steps) {
-    case 1: return shallow(std::integral_constant<int, 1>());
-    case 2: return shallow(std::integral_constant<int, 2>());
-    case 3: return shallow(std::integral_constant<int, 3>());
-    case 4: return shallow(std::integral_constant<int, 4>());
-    case 5: return deep(std::integral_constant<int, 5>());
-    case 6: return deep(std::integral_constant<int, 6>());
-    case 7: return deep(std::integral_constant<int, 7>());
-    default: return deep(std::integral_constant<int, 8>());
+  if constexpr (kDeepToo) {
+    if (ch.deep) return upto64(std::integral_constant<int, kDeepA>());
   }
+  switch (ch.steps) {
+    case 1: return upto64(std::integral_constant<int, 1>());
+    case 2: return upto64(std::integral_constant<int, 2>());
+    case 3: return upto64(std::integral_constant<int, 3>());
+    case 4: return upto64(std::integral_constant<int, 4>());
+    case 5: return upto32(std::integral_constant<int, 5>());
+    case 6: return upto32(std::integral_constant<int, 6>());
+    case 7: return upto32(std::integral_constant<int, 7>());
+    default: return upto32(std::integral_constant<int, 8>());
+  }
+}
+
+// f(integral_constant N, integral_constant S) for the chunk width N of
+// Chunks(rows, depth) and S = depth rounded up to 16, over 16 (1..8);
+// `otherwise` outside 1..128 (B5's instances).
+template <typename F, typename R>
+R with_shape(int rows, int depth, F&& f, R otherwise) {
+  if (depth < 1 || depth > 128 || rows < 1 || rows > 128) return otherwise;
+  return shape_switch<false>(Chunks(rows, depth), f, otherwise);
+}
+
+// The same for rows and depth of 1..256 (B1's and B2's instances): past a
+// depth of 128, S = kDeepA with N of 8..64.
+template <typename F, typename R>
+R with_wide_shape(int rows, int depth, F&& f, R otherwise) {
+  if (depth < 1 || depth > kMaxWide || rows < 1 || rows > kMaxWide)
+    return otherwise;
+  return shape_switch<true>(Chunks(rows, depth), f, otherwise);
 }
 
 // Blocks of `threads` threads and `smem` bytes of dynamic shared memory one

@@ -59,15 +59,21 @@
 //      atomics anywhere: two launches on the same inputs give the same
 //      bits.
 //
-// Widths.  c_in and c_out 1..128, K 1..128, one design: the rows kernel cuts
-// its N, the c_in columns of R_k, into column chunks as the forward cuts
-// c_out (f32_wgmma.cuh Chunks; 32 wide where c_out is past 64), walks the
-// K+1 stages once per chunk with D's parts kept in registers, writes each
-// chunk's dx_src columns and adds each chunk's share of dh[:, k] to the
-// earlier chunks' (the same thread, in chunk order).  The weights kernel's
-// tiles cover any c_in c_out (152 KB of shared memory at 128, one block per
-// SM).
-//
+// Widths.  c_in and c_out 1..256, K 1..256: the rows kernel cuts its N,
+// the c_in columns of R_k, into column chunks as the forward cuts c_out
+// (f32_wgmma.cuh Chunks; 32 wide where c_out is 65..128), walks the K+1
+// stages once per chunk, writes each chunk's dx_src columns and adds each
+// chunk's share of dh[:, k] to the earlier chunks' (the same thread, in
+// chunk order).  Up to a c_out of 128 D's parts stay in registers across
+// the passes.  Past it they would take 192 registers at 256: D is formed
+// 8 columns at a time, written out and split into shared memory (96 KB at
+// 256), and each W~_k of a chunk walks in c_out / 32 stages of 32 deep
+// (f32_wgmma.cuh DeepWalk); h is then read from device memory, one k ahead
+// of the epilogue, and the float32 dmsg tile is not kept (144 KB at K =
+// c_in = c_out = 256).  The weights kernel's tiles cover any c_in c_out
+// (152 KB of shared memory at 128, one block per SM; 216 KB at 256, just
+// under the 227 KB a block may take, one block per SM).
+
 // Bound.  About 3 x 2 (K+1) c_in c_out operations per real slot (three
 // products of the forward's size) against (K + c_in) 4 + c_out 4 + (K +
 // c_in) 4 bytes: bounded by operations, on the tensor cores six bf16 passes
@@ -90,28 +96,35 @@ using namespace f32_wgmma;
 
 constexpr int kRows = 64;   // receiver rows per block (rows_blk)
 constexpr int kTile = 64;   // slots per tile
-constexpr int kMaxDim = 128;
-constexpr int kMaxK = 128;
+constexpr int kMaxDim = 256;
+constexpr int kMaxK = 256;
 constexpr int kThreads = kWarpgroup + 32;  // rows kernel: + the producer warp
 constexpr int kCols = 128;  // weights kernel: output columns per block
 
 // Byte offsets of the rows kernel's shared memory: the 2 kRing mbarriers,
-// the ring of stages ([3][n][dq] bf16 each, n a chunk's columns of c_in, dq
-// = c_out rounded up to 16), the h tile [64][hstride] f32 (column K all
-// ones) and the dmsg tile [64][c_out] f32: 78 KB at K 48 and width 48, 98
-// KB at K 128 (two blocks per SM), 160 KB at K 128, c_in = c_out = 128.
+// the ring of stages ([3][n][sd] bf16 each, n a chunk's columns of c_in, sd
+// the stage's depth of c_out), and up to a c_out of 128 the h tile
+// [64][hstride] f32 (column K all ones) and the dmsg tile [64][c_out] f32,
+// past it D's parts [3][64][dq] bf16: 78 KB at K 48 and width 48, 98 KB at
+// K 128 (two blocks per SM), 160 KB at K 128, c_in = c_out = 128, 144 KB
+// at K = c_in = c_out = 256.
 struct RowsLayout {
   Chunks ch;
   int dq, hstride;
   long stage, ring, hs, d, total;
   __host__ __device__ RowsLayout(int K, int c_in, int c_out) : ch(c_in, c_out) {
-    dq = round_up(c_out, 16);
+    dq = ch.dp;
     hstride = (K + 1) | 1;
-    stage = 3 * 2L * ch.n * dq;
+    stage = 3 * 2L * ch.n * ch.sd;
     ring = 128;
     hs = ring + kRing * stage;
-    d = hs + 4L * kTile * hstride;
-    total = d + 4L * kTile * c_out;
+    if (ch.deep) {  // D's parts at hs
+      d = hs;
+      total = hs + 3 * 2L * kTile * dq;
+    } else {
+      d = hs + 4L * kTile * hstride;
+      total = d + 4L * kTile * c_out;
+    }
   }
 };
 
@@ -127,7 +140,8 @@ constexpr int kRowsMinBlocks =
 // ---------------------------------------------------------------------------
 // (a) dmsg, dh and dx_src for one 64-slot tile.  N = a chunk's columns of
 // c_in (the N of R_k, f32_wgmma.cuh Chunks), S = c_out rounded up to 16,
-// over 16 (its k16 steps).
+// over 16 (its k16 steps), or kDeepA past a c_out of 128 (D's parts in
+// shared memory).
 template <int N, int S>
 __global__ void __launch_bounds__(kThreads, kRowsMinBlocks<N, S>)
 bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
@@ -138,6 +152,7 @@ bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
                    const float* __restrict__ s_dense, float* __restrict__ dh,
                    float* __restrict__ dx_src, float* __restrict__ dmsg_out,
                    int blk, int K, int c_in, int c_out) {
+  constexpr bool kDeep = S == kDeepA;
   extern __shared__ __align__(128) unsigned char smem[];
   const RowsLayout L(K, c_in, c_out);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -161,7 +176,8 @@ bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
     if (real && lane == 0) {
       uint32_t j = 0;
       produce(full, empty, ring, reinterpret_cast<const unsigned char*>(image),
-              static_cast<uint32_t>(L.stage), chunks * (K + 1) - 1, j);
+              static_cast<uint32_t>(L.stage),
+              chunks * (K + 1) * L.ch.slices - 1, j);
     }
     return;
   }
@@ -179,12 +195,10 @@ bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
   const int hstride = L.hstride;
   float* hs = reinterpret_cast<float*>(smem + L.hs);
   float* d_sm = reinterpret_cast<float*>(smem + L.d);
-
-  // h rows by cp.async (column K all ones), while dmsg forms
-  prefetch_h(hs, h, slot0, K, hstride);
-  for (int s = tid; s < kTile; s += kWarpgroup) hs[s * hstride + K] = 1.f;
-  for (int e = tid; e < kTile * c_out; e += kWarpgroup) {
-    const int s = e / c_out, o = e - s * c_out;
+  bf16* a_sm = reinterpret_cast<bf16*>(smem + L.d);
+  // dmsg[slot0 + s, o], float32: row_weight g[slot_rows] in CompactS form,
+  // S^T g in the dense form
+  auto dmsg_at = [&](int s, int o) {
     float d = 0.f;
     if (compact) {
       const int r = slot_rows[slot0 + s];
@@ -194,33 +208,74 @@ bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
       for (int r = 0; r < kRows; ++r)
         d = fmaf(s_col[static_cast<long>(r) * blk], g[(row_base + r) * c_out + o], d);
     }
-    dmsg_out[slot0 * c_out + e] = d;
-    d_sm[e] = d;
-  }
-  const int r0 = acc_row(0);  // this thread's rows: r0 and r0 + 8
-  cp_async_wait_all();
-  warpgroup_sync(0);  // h and the dmsg tile have landed
+    return d;
+  };
 
-  // D's parts at this thread's fragment rows and columns
-  uint32_t da[3][S][4];
+  const int r0 = acc_row(0);  // this thread's rows: r0 and r0 + 8
+  uint32_t da[3][kDeep ? 1 : S][4];
+  if constexpr (kDeep) {
+    // D formed 8 columns at a time, written out and split into A's parts
+    const int per = L.dq / 8;
+    for (int p = tid; p < kTile * per; p += kWarpgroup) {
+      const int s = p / per, o0 = 8 * (p - s * per);
+      float v[8];
 #pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int row = a_row(2 * u), col = 16 * s + a_col(2 * u);
-      const float va = col < c_out ? d_sm[row * c_out + col] : 0.f;
-      const float vb = col + 1 < c_out ? d_sm[row * c_out + col + 1] : 0.f;
-      split3(va, vb, da[0][s][u], da[1][s][u], da[2][s][u]);
+      for (int u = 0; u < 8; ++u) {
+        const int o = o0 + u;
+        v[u] = o < c_out ? dmsg_at(s, o) : 0.f;
+        if (o < c_out) dmsg_out[(slot0 + s) * c_out + o] = v[u];
+      }
+      put_split8(a_sm, L.dq, s, o0, v);
     }
+    fence_async_smem();
+    warpgroup_sync(0);  // D's parts are in place
+  } else {
+    // h rows by cp.async (column K all ones), while dmsg forms
+    prefetch_h(hs, h, slot0, K, hstride);
+    for (int s = tid; s < kTile; s += kWarpgroup) hs[s * hstride + K] = 1.f;
+    for (int e = tid; e < kTile * c_out; e += kWarpgroup) {
+      const int s = e / c_out, o = e - s * c_out;
+      const float d = dmsg_at(s, o);
+      dmsg_out[slot0 * c_out + e] = d;
+      d_sm[e] = d;
+    }
+    cp_async_wait_all();
+    warpgroup_sync(0);  // h and the dmsg tile have landed
+
+    // D's parts at this thread's fragment rows and columns
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int row = a_row(2 * u), col = 16 * s + a_col(2 * u);
+        const float va = col < c_out ? d_sm[row * c_out + col] : 0.f;
+        const float vb = col + 1 < c_out ? d_sm[row * c_out + col + 1] : 0.f;
+        split3(va, vb, da[0][s][u], da[1][s][u], da[2][s][u]);
+      }
+  }
 
   // ---- per chunk c of c_in: dx = sum_k h~[:, k] R_k and dh[:, k] +=
   // sum_i x_src[:, i] R_k[:, i] at the chunk's columns i ----
   float dx[N / 2], xs[N / 2];  // xs: x_src at the chunk's columns
   const bool writer = tid % 4 == 0;
   int c = 0;
+  // past a c_out of 128: h~[:, k] from device memory, the next k's loaded
+  // while this one's products run (h~[:, K] = 1)
+  const float* ha_row = h + (slot0 + r0) * K;
+  const float* hb_row = ha_row + 8L * K;
+  float hna = 0.f, hnb = 0.f;
   auto fin = [&](const float (&rk)[N / 2], int k) {
-    const float ha = hs[r0 * hstride + k];
-    const float hb = hs[(r0 + 8) * hstride + k];
+    float ha, hb;
+    if constexpr (kDeep) {
+      ha = hna;
+      hb = hnb;
+      const bool more = k + 1 < K;
+      hna = more ? __ldg(ha_row + k + 1) : 1.f;
+      hnb = more ? __ldg(hb_row + k + 1) : 1.f;
+    } else {
+      ha = hs[r0 * hstride + k];
+      hb = hs[(r0 + 8) * hstride + k];
+    }
     float sa = 0.f, sb = 0.f;
 #pragma unroll
     for (int v = 0; v < N / 2; ++v) {
@@ -246,8 +301,6 @@ bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
     }
   };
   const uint32_t dstage = static_cast<uint32_t>(L.stage >> 4);
-  const Walk<N, S, decltype(fin)> walk{da, full, empty, desc(ring, L.dq),
-                                       dstage, dstage / 3, lane, fin};
   uint32_t j = 0;
   for (; c < chunks; ++c) {
 #pragma unroll
@@ -256,7 +309,19 @@ bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
       xs[v] = i < c_in ? x_src[(slot0 + acc_row(v)) * c_in + i] : 0.f;
       dx[v] = 0.f;
     }
-    walk.all(K, j);
+    if constexpr (kDeep) {
+      hna = __ldg(ha_row);
+      hnb = __ldg(hb_row);
+      const DeepWalk<N, decltype(fin)> walk{
+          desc(a_sm, L.dq), static_cast<uint32_t>(2 * kTile * L.dq >> 4),
+          L.ch.slices, full, empty, desc(ring, L.ch.sd), dstage, dstage / 3,
+          lane, fin};
+      walk.all(K + 1, j);
+    } else {
+      const Walk<N, S, decltype(fin)> walk{da, full, empty, desc(ring, L.dq),
+                                           dstage, dstage / 3, lane, fin};
+      walk.all(K, j);
+    }
 #pragma unroll
     for (int v = 0; v < N / 2; ++v) {
       const int i = c * N + acc_col(v);
@@ -270,7 +335,8 @@ bwd_rows_f32_wgmma(const float* __restrict__ g, const float* __restrict__ h,
 // for the block's 64 rows of K and kCols columns of c2, z[e, i*c_out + o] =
 // x_src[e, i] dmsg[e, o]; the row-tile-0 blocks also write row K, db3.
 // The weights kernel's shared memory: 112 KB at width 48 (two blocks per
-// SM), 120 KB at 64, 152 KB at 128.
+// SM), 120 KB at 64, 152 KB at 128, and at 256 216 KB, just under the 227
+// KB a block may take (one block per SM).
 struct WeightsLayout {
   long a, z, x, d, hraw, total;
   __host__ __device__ WeightsLayout(int c_in, int c_out) {
@@ -467,7 +533,7 @@ int fused_edge_conv_bwd_f32_wgmma_blocks_per_sm(int K, int c_in, int c_out,
     return blocks_on_sm(bwd_weights_f32_wgmma, kWarpgroup,
                         static_cast<size_t>(WeightsLayout(c_in, c_out).total));
   const RowsLayout L(K, c_in, c_out);
-  return with_shape(c_in, c_out, [&](auto n, auto s) {
+  return with_wide_shape(c_in, c_out, [&](auto n, auto s) {
     return blocks_on_sm(bwd_rows_f32_wgmma<decltype(n)::value, decltype(s)::value>,
                         kThreads, static_cast<size_t>(L.total));
   }, -1);
@@ -476,8 +542,9 @@ int fused_edge_conv_bwd_f32_wgmma_blocks_per_sm(int K, int c_in, int c_out,
 // Launches the float32 backward on `stream`: the stage image of w3 and b3,
 // the rows kernel, then the weights kernel.  Pointers are device pointers to
 // float32 arrays but slot_rows (int32) and image (bfloat16 scratch
-// [chunks][K+1][3][n][dq], f32_wgmma.cuh Chunks(c_in, c_out), dq = c_out
-// rounded up to 16, 16-byte aligned); dmsg [slots, c_out] is written by the
+// [chunks][K+1][slices][3][n][sd], f32_wgmma.cuh Chunks(c_in, c_out): c_out
+// padded to dq = slices x sd, to 16 up to 128, past it to 32 in stages of
+// 32; 16-byte aligned); dmsg [slots, c_out] is written by the
 // rows kernel and read by the weights kernel.  Exactly one of s_dense and
 // (slot_rows, row_weight) is non-null.  partial is [num_splits, K+1,
 // c_in*c_out] (dw3 rows then the db3 row, summed over splits by the
@@ -494,7 +561,7 @@ int fused_edge_conv_bwd_f32_wgmma_backward(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long num_tiles = static_cast<long>(num_blocks) * blk / kTile;
-  cudaError_t err = with_shape(c_in, c_out, [&](auto n, auto s) {
+  cudaError_t err = with_wide_shape(c_in, c_out, [&](auto n, auto s) {
     return launch_rows<decltype(n)::value, decltype(s)::value>(
         static_cast<const float*>(g), static_cast<const float*>(h),
         static_cast<const float*>(x_src), static_cast<const float*>(w3),

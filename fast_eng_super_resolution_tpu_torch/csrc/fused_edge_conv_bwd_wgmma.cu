@@ -57,12 +57,19 @@
 //      wrapper sums the partials in a fixed order.  No atomics anywhere: two launches on the
 //      same inputs give the same bits.
 //
-// Widths.  c_in and c_out 1..128 and K 1..128, one design: N = c_in rounded
-// up to 8 is the rows kernel's product width (m64nNk16, N up to 128) and a
-// template argument (with_wide_width); the weights kernel's tiles cover any
-// c_in c_out.  At c_in = c_out = K = 128 a rows block takes 209 KB (one per
-// SM), a weights block 74 KB.
-//
+// Widths.  c_in, c_out and K 1..256.  N, the rows kernel's product width
+// (m64nNk16, N up to 128) and a template argument (with_wide_width), is
+// c_in rounded up to 8 where the block's shared memory (RowsLayout) holds
+// it: every width up to 128 at K up to 128 (209 KB at c_in = c_out = K =
+// 128, one block per SM).  Else c_in is cut into chunks (RowsChunks) of the
+// widest N that fits, evened out, which the tile walks in turn: the W3_k
+// row stream runs on through the chunks (step c K + k reads rows i of chunk
+// c), b3^T and the x_src pieces are staged per chunk, each chunk writes its
+// dx_src columns and adds its share of dh[:, k] to the earlier chunks' (the
+// same thread, in chunk order).  At K = c_in = c_out = 256: five chunks of
+// 56 (212 KB).  The weights kernel's tiles cover any c_in c_out (74 KB at
+// 128, 104 KB at 256).
+
 // Bound.  About 3 x 2 (K+1) c_in c_out operations per real slot (three
 // products of the forward's size) against (K + c_in) 2 + c_out 4 +
 // (K + c_in) 4 bytes: bounded by operations on the tensor cores.  What
@@ -85,8 +92,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;   // receiver rows per block (rows_blk)
 constexpr int kTile = 64;   // slots per tile
-constexpr int kMaxDim = 128;
-constexpr int kMaxK = 128;
+constexpr int kMaxDim = 256;
+constexpr int kMaxK = 256;
 constexpr int kCols = 128;  // weights kernel: output columns per block
 constexpr int kPromote = 32;  // weights kernel: chunks per tensor-core sum
 
@@ -110,11 +117,12 @@ __device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
   return cv.b;
 }
 
-// Byte offsets of the rows kernel's shared memory, np = c_in padded to 8.
+// Byte offsets of the rows kernel's shared memory, np = a chunk's channels
+// of c_in padded to 8.
 struct RowsLayout {
   int dq, hs;
   long b, h, b3, xs, srow, total;
-  __host__ __device__ RowsLayout(int K, int c_in, int c_out, int np) {
+  __host__ __device__ RowsLayout(int K, int c_out, int np) {
     dq = round_up(c_out, 16);
     hs = h_stride(K);
     b = 2L * kTile * dq;                     // a: dmsg [64][dq]
@@ -126,9 +134,24 @@ struct RowsLayout {
   }
 };
 
+// The chunks of c_in the rows kernel walks: `chunks` of n channels (a
+// multiple of 8, at most 128), one of all of them where its RowsLayout fits
+// a block (every width up to 128 at K up to 128), else the widest n that
+// fits, evened out over the chunks (ops/fused_conv.py:wgmma_rows_chunks).
+struct RowsChunks {
+  int chunks, n;
+  __host__ __device__ RowsChunks(int K, int c_in, int c_out) {
+    const int r8 = round_up(c_in, 8);
+    int most = r8 < 128 ? r8 : 128;
+    while (most > 8 && RowsLayout(K, c_out, most).total > kSmemMax) most -= 8;
+    chunks = (r8 + most - 1) / most;
+    n = round_up((r8 + chunks - 1) / chunks, 8);
+  }
+};
+
 // ---------------------------------------------------------------------------
-// (a) dmsg, dh and dx_src for one 64-slot tile.  NP = c_in padded to 8 (the
-// N of R_k); its depth is c_out padded to 16.
+// (a) dmsg, dh and dx_src for one 64-slot tile.  NP = a chunk's channels of
+// c_in padded to 8 (the N of R_k); its depth is c_out padded to 16.
 template <int NP>
 __global__ void __launch_bounds__(kWarpgroup)
 bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
@@ -140,7 +163,7 @@ bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
                float* __restrict__ dx_src, bf16* __restrict__ dmsg_out,
                int blk, int K, int c_in, int c_out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const RowsLayout L(K, c_in, c_out, NP);
+  const RowsLayout L(K, c_out, NP);
   const int dq = L.dq, hs = L.hs;
   bf16* a_sm = reinterpret_cast<bf16*>(smem);
   bf16* b_sm = reinterpret_cast<bf16*>(smem + L.b);
@@ -155,6 +178,7 @@ bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
   const long row_base = b * kRows;
   const bool compact = s_dense == nullptr;
   const bf16 zero = __float2bfloat16(0.f);
+  const int chunks = (c_in + NP - 1) / NP;
 
   if (compact) {
     int real = 0;
@@ -173,8 +197,8 @@ bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
   }
 
   // ---- stage dmsg (rounded to bf16; channels tid % 64 + 64 m of slots
-  // tid / 64 + 2 m'), x_src, h, b3^T and W3_0 ----
-  const W3Row<false> wr(w3, c_in, c_out, dq);
+  // tid / 64 + 2 m'), h and W3_0 ----
+  const W3Row<false> wr(w3, c_in, c_out, c_out, dq);
   for (int e = tid; e < kRowBufs * NP * dq; e += kWarpgroup) b_sm[e] = zero;
 #pragma unroll 4
   for (int s = tid >> 6; s < kTile; s += 2)
@@ -195,96 +219,113 @@ bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
       }
       a_sm[kmajor(s, o, dq)] = v;
     }
-  // x_src at this thread's accumulator entries j = 4 m .. 4 m + 3 (rows r0,
-  // r0, r0 + 8, r0 + 8; columns c, c + 1, c, c + 1) as piece m
-#pragma unroll
-  for (int m = 0; m < NP / 8; ++m) {
-    bf16 v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = acc_col(4 * m + u);
-      v[u] = i < c_in ? x_src[(slot0 + acc_row(4 * m + u)) * c_in + i] : zero;
-    }
-    x_sm[m * kWarpgroup + tid] =
-        make_uint2(as_u32(__halves2bfloat162(v[0], v[1])),
-                   as_u32(__halves2bfloat162(v[2], v[3])));
-  }
 #pragma unroll 4
   for (int s = tid >> 6; s < kTile; s += 2)
     for (int k = tid & 63; k < K; k += 64)
       h_sm[s * hs + k] = h[(slot0 + s) * K + k];
-  for (int e = tid; e < c_out * NP; e += kWarpgroup) {
-    const int o = e / NP, i = e - o * NP;
-    b3_sm[e] = i < c_in ? b3[i * c_out + o] : 0.f;
-  }
-  // W3_k ([c_in, c_out]) streams through the three buffers: step k reads
-  // buffer k % 3 while rows k + 1 and k + 2 land in the other two (a step
-  // with no row left to start closes an empty group)
-  const int bsize = NP * dq;
+  // W3_k ([c_in, c_out]) streams through the three buffers, chunk by chunk
+  // of c_in: step n = c K + k reads buffer n % 3 while rows n + 1 and n + 2
+  // land in the other two (a step with no row left to start closes an
+  // empty group)
+  const int bsize = NP * dq, steps = chunks * K;
+  auto start = [&](int n) {
+    if (n < steps) {
+      const int c = n / K, i_lo = c * NP;
+      wr.start(b_sm + (n % kRowBufs) * bsize, n - c * K, i_lo,
+               c_in - i_lo < NP ? c_in - i_lo : NP);
+    } else {
+      pieces_commit();
+    }
+  };
   __syncthreads();  // the zeros land before the first row
-  wr.start(b_sm, 0);
-  if (K > 1) wr.start(b_sm + bsize, 1);
-  else pieces_commit();
+  start(0);
+  start(1);
 
   const int r0 = acc_row(0);  // this thread's rows: r0 and r0 + 8
-  pieces_wait<1>();  // row 0 has landed
-  fence_async_smem();
-  __syncthreads();
-
-  // ---- dx = D @ b3^T (CUDA cores), then += h[:, k] R_k over k ----
-  float dx[NP / 2];
-#pragma unroll
-  for (int j = 0; j < NP / 2; ++j) dx[j] = 0.f;
-  for (int o = 0; o < c_out; ++o) {
-    const float da = __bfloat162float(a_sm[kmajor(r0, o, dq)]);
-    const float db = __bfloat162float(a_sm[kmajor(r0 + 8, o, dq)]);
-#pragma unroll
-    for (int j = 0; j < NP / 2; ++j)
-      dx[j] += ((j >> 1) & 1 ? db : da) * b3_sm[o * NP + acc_col(j)];
-  }
   const bool writer = tid % 4 == 0;
-  for (int k = 0; k < K; ++k) {
-    float rk[NP / 2];
-    product<NP>(rk, a_sm, b_sm + (k % kRowBufs) * bsize, dq);
-    // row k + 2 into the buffer that step k - 1's finished product read
-    if (k + 2 < K) wr.start(b_sm + ((k + 2) % kRowBufs) * bsize, k + 2);
-    else pieces_commit();
-    wait_all();
-    fence_operand(rk);
-    const float ha = __bfloat162float(h_sm[r0 * hs + k]);
-    const float hb = __bfloat162float(h_sm[(r0 + 8) * hs + k]);
-    float da = 0.f, db = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    const int i_lo = c * NP;
+    // x_src at this thread's accumulator entries j = 4 m .. 4 m + 3 (rows
+    // r0, r0, r0 + 8, r0 + 8; columns c, c + 1, c, c + 1 of the chunk) as
+    // piece m, and the chunk's b3^T (every thread is done with the last
+    // chunk's: it passed the last step's barrier)
 #pragma unroll
     for (int m = 0; m < NP / 8; ++m) {
-      const uint2 xv = x_sm[m * kWarpgroup + tid];
-      const float2 xa = __bfloat1622float2(as_bf162(xv.x));
-      const float2 xb = __bfloat1622float2(as_bf162(xv.y));
-      const int j = 4 * m;
-      dx[j] += ha * rk[j];
-      da += xa.x * rk[j];
-      dx[j + 1] += ha * rk[j + 1];
-      da += xa.y * rk[j + 1];
-      dx[j + 2] += hb * rk[j + 2];
-      db += xb.x * rk[j + 2];
-      dx[j + 3] += hb * rk[j + 3];
-      db += xb.y * rk[j + 3];
-    }
-    da += __shfl_xor_sync(0xffffffffu, da, 1);
-    da += __shfl_xor_sync(0xffffffffu, da, 2);
-    db += __shfl_xor_sync(0xffffffffu, db, 1);
-    db += __shfl_xor_sync(0xffffffffu, db, 2);
-    if (writer) {
-      dh[(slot0 + r0) * K + k] = da;
-      dh[(slot0 + r0 + 8) * K + k] = db;
-    }
-    pieces_wait<1>();  // row k + 1 has landed
-    fence_async_smem();
-    __syncthreads();
-  }
+      bf16 v[4];
 #pragma unroll
-  for (int j = 0; j < NP / 2; ++j) {
-    const int i = acc_col(j);
-    if (i < c_in) dx_src[(slot0 + acc_row(j)) * c_in + i] = dx[j];
+      for (int u = 0; u < 4; ++u) {
+        const int i = i_lo + acc_col(4 * m + u);
+        v[u] = i < c_in ? x_src[(slot0 + acc_row(4 * m + u)) * c_in + i] : zero;
+      }
+      x_sm[m * kWarpgroup + tid] =
+          make_uint2(as_u32(__halves2bfloat162(v[0], v[1])),
+                     as_u32(__halves2bfloat162(v[2], v[3])));
+    }
+    for (int e = tid; e < c_out * NP; e += kWarpgroup) {
+      const int o = e / NP, i = i_lo + e - o * NP;
+      b3_sm[e] = i < c_in ? b3[i * c_out + o] : 0.f;
+    }
+    pieces_wait<1>();  // the chunk's first row has landed
+    fence_async_smem();
+    __syncthreads();  // and so have x_src's pieces and b3^T
+
+    // ---- dx = D @ b3^T (CUDA cores), then += h[:, k] R_k over k ----
+    float dx[NP / 2];
+#pragma unroll
+    for (int j = 0; j < NP / 2; ++j) dx[j] = 0.f;
+    for (int o = 0; o < c_out; ++o) {
+      const float da = __bfloat162float(a_sm[kmajor(r0, o, dq)]);
+      const float db = __bfloat162float(a_sm[kmajor(r0 + 8, o, dq)]);
+#pragma unroll
+      for (int j = 0; j < NP / 2; ++j)
+        dx[j] += ((j >> 1) & 1 ? db : da) * b3_sm[o * NP + acc_col(j)];
+    }
+    for (int k = 0; k < K; ++k) {
+      const int n = c * K + k;
+      float rk[NP / 2];
+      product<NP>(rk, a_sm, b_sm + (n % kRowBufs) * bsize, dq);
+      // step n + 2's row into the buffer that step n - 1's finished
+      // product read
+      start(n + 2);
+      wait_all();
+      fence_operand(rk);
+      const float ha = __bfloat162float(h_sm[r0 * hs + k]);
+      const float hb = __bfloat162float(h_sm[(r0 + 8) * hs + k]);
+      float da = 0.f, db = 0.f;
+#pragma unroll
+      for (int m = 0; m < NP / 8; ++m) {
+        const uint2 xv = x_sm[m * kWarpgroup + tid];
+        const float2 xa = __bfloat1622float2(as_bf162(xv.x));
+        const float2 xb = __bfloat1622float2(as_bf162(xv.y));
+        const int j = 4 * m;
+        dx[j] += ha * rk[j];
+        da += xa.x * rk[j];
+        dx[j + 1] += ha * rk[j + 1];
+        da += xa.y * rk[j + 1];
+        dx[j + 2] += hb * rk[j + 2];
+        db += xb.x * rk[j + 2];
+        dx[j + 3] += hb * rk[j + 3];
+        db += xb.y * rk[j + 3];
+      }
+      da += __shfl_xor_sync(0xffffffffu, da, 1);
+      da += __shfl_xor_sync(0xffffffffu, da, 2);
+      db += __shfl_xor_sync(0xffffffffu, db, 1);
+      db += __shfl_xor_sync(0xffffffffu, db, 2);
+      if (writer) {
+        float* pa = dh + (slot0 + r0) * K + k;
+        float* pb = dh + (slot0 + r0 + 8) * K + k;
+        *pa = c ? *pa + da : da;
+        *pb = c ? *pb + db : db;
+      }
+      pieces_wait<1>();  // step n + 1's row has landed
+      fence_async_smem();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < NP / 2; ++j) {
+      const int i = i_lo + acc_col(j);
+      if (i < c_in) dx_src[(slot0 + acc_row(j)) * c_in + i] = dx[j];
+    }
   }
 }
 
@@ -451,6 +492,7 @@ bwd_weights_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x_src,
   if (blockIdx.y == 0 && has_col) dst[static_cast<long>(K) * c2 + col] = dbias;
 }
 
+// 74 KB at c_in = c_out = 128, 104 KB at 256.
 size_t weights_smem_bytes(int c_in, int c_out) {
   return 2 * (kTile * kTile + 2 * kCols * kTile + kTile * (c_in + c_out));
 }
@@ -461,7 +503,7 @@ cudaError_t launch_rows(const void* g, const void* h, const void* x_src,
                         const void* row_weight, const void* s_dense, void* dh,
                         void* dx_src, void* dmsg, long num_tiles, int blk,
                         int K, int c_in, int c_out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(RowsLayout(K, c_in, c_out, NP).total);
+  const size_t smem = static_cast<size_t>(RowsLayout(K, c_out, NP).total);
   auto kernel = bwd_rows_wgmma<NP>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -482,7 +524,7 @@ extern "C" {
 
 // Bytes of dynamic shared memory one block of the rows kernel needs.
 long fused_edge_conv_bwd_wgmma_smem_bytes(int K, int c_in, int c_out) {
-  return RowsLayout(K, c_in, c_out, round_up(c_in, 8)).total;
+  return RowsLayout(K, c_out, RowsChunks(K, c_in, c_out).n).total;
 }
 
 // Blocks one SM holds at once at these widths: the rows kernel's
@@ -490,11 +532,10 @@ long fused_edge_conv_bwd_wgmma_smem_bytes(int K, int c_in, int c_out) {
 int fused_edge_conv_bwd_wgmma_blocks_per_sm(int K, int c_in, int c_out,
                                             int weights) {
   if (weights) return blocks_per_sm(bwd_weights_wgmma, weights_smem_bytes(c_in, c_out));
-  const int np = round_up(c_in, 8);
+  const int np = RowsChunks(K, c_in, c_out).n;
   return with_wide_width(np, [&](auto n) {
-    return blocks_per_sm(
-        bwd_rows_wgmma<decltype(n)::value>,
-        static_cast<size_t>(RowsLayout(K, c_in, c_out, np).total));
+    return blocks_per_sm(bwd_rows_wgmma<decltype(n)::value>,
+                         static_cast<size_t>(RowsLayout(K, c_out, np).total));
   }, -1);
 }
 
@@ -518,7 +559,7 @@ int fused_edge_conv_bwd_wgmma_backward(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long num_tiles = static_cast<long>(num_blocks) * blk / kTile;
-  cudaError_t err = with_wide_width(round_up(c_in, 8), [&](auto n) {
+  cudaError_t err = with_wide_width(RowsChunks(K, c_in, c_out).n, [&](auto n) {
     return launch_rows<decltype(n)::value>(g, h, x_src, w3, b3, slot_rows,
                                            row_weight, s_dense, dh, dx_src,
                                            dmsg, num_tiles, blk, K, c_in,

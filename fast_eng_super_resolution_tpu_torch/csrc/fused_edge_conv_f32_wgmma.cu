@@ -31,16 +31,28 @@
 // exactly into three bf16 parts; per k one float32 accumulator sums the six
 // products of order >= 2^-16, smallest first, each over depth c_in <= 128.
 //
-// Widths.  c_in and c_out 1..128, K 1..128, one design: the c_out columns
-// (rounded up to 8) are cut into column chunks (f32_wgmma.cuh Chunks: one
-// chunk up to 64 columns; past that chunks of at most 64, or 32 where c_in
-// is past 64), and the tile walks the K+1 stages once per chunk with X's
-// parts kept in registers across the passes.  X's parts take 12 registers
-// per 16 of c_in (96 at 128), each accumulator N / 2: at c_in = c_out = 128
-// four passes of N = 32 keep a thread under 255 registers where one pass of
-// N = 128 (two accumulators of 64 and a sum of 64 beside X's 96) would not,
-// and keep a stage at 24 KB.
-//
+// Widths.  c_in and c_out 1..256, K 1..256.  The c_out columns (rounded up
+// to 8) are cut into column chunks (f32_wgmma.cuh Chunks: one chunk up to
+// 64 columns; past that chunks of at most 64, or 32 where c_in is 65..128),
+// and the tile walks the K+1 stages once per chunk.
+//  - Up to c_in and c_out of 128 one block walks every chunk, X's parts
+//    kept in registers across the passes.  X's parts take 12 registers per
+//    16 of c_in (96 at 128), each accumulator N / 2: at c_in = c_out = 128
+//    four passes of N = 32 keep a thread under 255 registers where one
+//    pass of N = 128 (two accumulators of 64 and a sum of 64 beside X's 96)
+//    would not, and keep a stage at 24 KB.
+//  - Past 128 (c_in or c_out) each chunk is a block of its own (grid z),
+//    which writes its columns of the output: the tile's messages and the
+//    part's row sums then take one chunk's columns (16 KB each at
+//    N 64), not c_out's (64 KB each at 256).
+//  - Past a c_in of 128 X's parts would take 192 registers at 256: they are
+//    split once per tile into shared memory (96 KB at 256) and the walk is
+//    f32_wgmma.cuh's DeepWalk, each W~_k of a chunk in c_in / 32 stages of
+//    32 deep (12 KB at N 64).  h is then read from device memory (L1), one
+//    k ahead of the weighting, not staged: at K 256 its tile (64 KB) and
+//    X's parts would not fit beside the ring.  177 KB at K = c_in = c_out =
+//    256, one block per SM.
+
 // Design.
 //  - A block is one consumer warpgroup and one producer warp, and owns one
 //    part of one receiver block's slot walk: grid (num_blocks, parts), the
@@ -102,31 +114,37 @@ using namespace f32_wgmma;
 
 constexpr int kRows = 64;   // receiver rows per block (rows_blk)
 constexpr int kTile = 64;   // slots per tile
-constexpr int kMaxDim = 128;
-constexpr int kMaxK = 128;
+constexpr int kMaxDim = 256;
+constexpr int kMaxK = 256;
 constexpr int kThreads = kWarpgroup + 32;  // consumers + the producer warp
 
 // Byte offsets of the shared memory: the 2 kRing mbarriers, the ring of
-// stages ([3][n][dp] bf16 each, n a chunk's columns), the h tile
+// stages ([3][n][sd] bf16 each, n a chunk's columns, sd the stage's depth),
+// past a c_in of 128 X's parts [3][64][dp] bf16, else the h tile
 // [64][hstride] f32 (column K all ones; an odd stride, so that the 8 rows a
 // warp reads at once fall in 8 banks), the tile's messages [64][np+1] (np =
-// chunks x n), the part's row sums [64][c_out] and the tile's slot_rows.
-// At width 48: 93 KB at K 48, 114 KB at K 128 (two blocks per SM); 165 KB
-// at K 128, c_in = c_out = 64; 193 KB at K 128, c_in = c_out = 128.
+// the block's chunks x n), the part's row sums [64][cols] (the block's
+// columns) and the tile's slot_rows.  Up to widths of 128 one block takes
+// every chunk (`per_block`): at width 48 93 KB at K 48, 114 KB at K 128 (two
+// blocks per SM); 165 KB at K 128, c_in = c_out = 64; 193 KB at K 128, c_in
+// = c_out = 128 (225 KB at K 256).  Past 128 a block takes one chunk.
 struct Layout {
   Chunks ch;
-  int np, dp, hstride;
-  long stage, ring, hs, m, acc, srow, total;
+  int per_block, np, cols, dp, hstride;
+  long stage, ring, a, hs, m, acc, srow, total;
   __host__ __device__ Layout(int K, int c_in, int c_out) : ch(c_out, c_in) {
-    np = ch.chunks * ch.n;
-    dp = round_up(c_in, 16);
+    per_block = c_in > 128 || c_out > 128 ? 1 : ch.chunks;
+    np = per_block * ch.n;
+    cols = np < c_out ? np : c_out;
+    dp = ch.dp;
     hstride = (K + 1) | 1;
-    stage = 3 * 2L * ch.n * dp;
+    stage = 3 * 2L * ch.n * ch.sd;
     ring = 128;
-    hs = ring + kRing * stage;
-    m = hs + 4L * kTile * hstride;
+    a = ring + kRing * stage;
+    hs = a + (ch.deep ? 3 * 2L * kTile * dp : 0);
+    m = hs + (ch.deep ? 0 : 4L * kTile * hstride);
     acc = m + 4L * kTile * (np + 1);
-    srow = acc + 4L * kRows * c_out;
+    srow = acc + 4L * kRows * cols;
     total = srow + 4L * kTile;
   }
 };
@@ -141,7 +159,9 @@ template <int N, int S>
 constexpr int kMinBlocks = N * S < 192 && S <= 4 ? 2 : 1;
 
 // N = a chunk's columns of c_out (f32_wgmma.cuh Chunks), S = c_in rounded
-// up to 16, over 16.
+// up to 16, over 16, or kDeepA past a c_in of 128 (X's parts in shared
+// memory).  Block (b, part, z) walks part `part` of receiver block b's
+// tiles for chunks z per_block .. z per_block + per_block - 1.
 template <int N, int S>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<N, S>)
 conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
@@ -151,6 +171,7 @@ conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
                    const float* __restrict__ row_weight,
                    const float* __restrict__ s_dense, float* __restrict__ out,
                    int blk, int K, int c_in, int c_out, int n_nodes) {
+  constexpr bool kDeep = S == kDeepA;
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(K, c_in, c_out);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -163,6 +184,9 @@ conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
   const long blk0 = static_cast<long>(b) * blk;
   const bool compact = s_dense == nullptr;
   const int lane = threadIdx.x % 32;
+  // the block's chunks, its first output column and its columns
+  const int chunks = L.per_block, c0 = blockIdx.z * L.np;
+  const int cols = c_out - c0 < L.cols ? c_out - c0 : L.cols;
 
   // the first tile from t on (t_hi if none) that holds a real slot (every
   // tile in the dense form): each warp finds it by itself, so that the
@@ -179,16 +203,17 @@ conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
   if (threadIdx.x == 0) ring_init(full, empty);
   __syncthreads();
 
-  // ---- producer: the chunks x (K + 1) stages of every real tile of the
-  // part ----
-  const int chunks = L.ch.chunks;
+  // ---- producer: the block's chunks x (K + 1) x slices stages of every
+  // real tile of the part ----
+  const int stages = chunks * (K + 1) * L.ch.slices;
   if (threadIdx.x >= kWarpgroup) {
-    const unsigned char* src = reinterpret_cast<const unsigned char*>(image);
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(image) +
+                               static_cast<long>(blockIdx.z) * stages * L.stage;
     uint32_t j = 0;
     for (int t = next_real(t_lo); t < t_hi; t = next_real(t + 1)) {
       if (lane == 0)
         produce(full, empty, ring, src, static_cast<uint32_t>(L.stage),
-                chunks * (K + 1) - 1, j);
+                stages - 1, j);
       __syncwarp();
     }
     return;
@@ -199,23 +224,41 @@ conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
   const int r0 = a_row(0);  // this thread's rows: r0 and r0 + 8
   const int hstride = L.hstride, mstride = L.np + 1;
   float* hs = reinterpret_cast<float*>(smem + L.hs);
+  bf16* a_sm = reinterpret_cast<bf16*>(smem + L.a);
   float* m_sm = reinterpret_cast<float*>(smem + L.m);
   float* acc_sm = reinterpret_cast<float*>(smem + L.acc);
   int* srow = reinterpret_cast<int*>(smem + L.srow);
-  for (int s = tid; s < kTile; s += kWarpgroup) hs[s * hstride + K] = 1.f;
-  for (int e = tid; e < kRows * c_out; e += kWarpgroup) acc_sm[e] = 0.f;
-  const uint64_t d0 = desc(ring, L.dp);
+  if constexpr (!kDeep)
+    for (int s = tid; s < kTile; s += kWarpgroup) hs[s * hstride + K] = 1.f;
+  for (int e = tid; e < kRows * cols; e += kWarpgroup) acc_sm[e] = 0.f;
+  const uint64_t d0 = desc(ring, L.ch.sd);
   const uint32_t dstage = static_cast<uint32_t>(L.stage >> 4);
   const uint32_t dpart = dstage / 3;
   uint32_t j = 0;  // the ring's step, counted as the producer counts it
 
   int t = next_real(t_lo);
-  if (t < t_hi) prefetch_h(hs, h, blk0 + static_cast<long>(t) * kTile, K, hstride);
+  if constexpr (!kDeep)
+    if (t < t_hi)
+      prefetch_h(hs, h, blk0 + static_cast<long>(t) * kTile, K, hstride);
   while (t < t_hi) {
     const long tile = blk0 + static_cast<long>(t) * kTile;
     // X's parts: x[senders_perm] at this thread's fragment rows and columns
-    uint32_t xa[3][S][4];
-    {
+    // (past a c_in of 128: all of X's, split into shared memory)
+    uint32_t xa[3][kDeep ? 1 : S][4];
+    if constexpr (kDeep) {
+      const int per = L.dp / 8;
+      for (int p = tid; p < kTile * per; p += kWarpgroup) {
+        const int s = p / per, d = 8 * (p - s * per);
+        const int src = senders_perm[tile + s];
+        const float* xr = x + static_cast<long>(src) * c_in;
+        const bool real = src >= 0 && src < n_nodes;
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = real && d + u < c_in ? xr[d + u] : 0.f;
+        put_split8(a_sm, L.dp, s, d, v);
+      }
+      fence_async_smem();
+    } else {
       int src[2];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -237,26 +280,49 @@ conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
         }
     }
     cp_async_wait_all();
-    warpgroup_sync(0);  // the tile's h has landed, and every thread is done
-                        // with the last tile's scatter
+    warpgroup_sync(0);  // the tile's h (X's parts) has landed, and every
+                        // thread is done with the last tile's scatter
     if (compact && tid < kTile) srow[tid] = slot_rows[tile + tid];
     const int next = next_real(t + 1);
 
     // ---- per chunk c: msg = sum_k h~[:, k] P_k, P_k = X @ W~_k at the
     // chunk's columns, into the messages' columns c N .. ----
     float msg[N / 2];
+    // past a c_in of 128: h~[:, k] from device memory, the next k's loaded
+    // while this one's products run (h~[:, K] = 1)
+    const float* ha_row = h + (tile + r0) * K;
+    const float* hb_row = ha_row + 8L * K;
+    float hna = 0.f, hnb = 0.f;
     auto weight = [&](const float (&p)[N / 2], int k) {
-      const float ha = hs[r0 * hstride + k];
-      const float hb = hs[(r0 + 8) * hstride + k];
+      float ha, hb;
+      if constexpr (kDeep) {
+        ha = hna;
+        hb = hnb;
+        const bool more = k + 1 < K;
+        hna = more ? __ldg(ha_row + k + 1) : 1.f;
+        hnb = more ? __ldg(hb_row + k + 1) : 1.f;
+      } else {
+        ha = hs[r0 * hstride + k];
+        hb = hs[(r0 + 8) * hstride + k];
+      }
 #pragma unroll
       for (int v = 0; v < N / 2; ++v) msg[v] = fmaf((v & 2) ? hb : ha, p[v], msg[v]);
     };
-    const Walk<N, S, decltype(weight)> walk{xa, full, empty, d0, dstage, dpart,
-                                            lane, weight};
     for (int c = 0; c < chunks; ++c) {
 #pragma unroll
       for (int v = 0; v < N / 2; ++v) msg[v] = 0.f;
-      walk.all(K, j);
+      if constexpr (kDeep) {
+        hna = __ldg(ha_row);
+        hnb = __ldg(hb_row);
+        const DeepWalk<N, decltype(weight)> walk{
+            desc(a_sm, L.dp), static_cast<uint32_t>(2 * kTile * L.dp >> 4),
+            L.ch.slices, full, empty, d0, dstage, dpart, lane, weight};
+        walk.all(K + 1, j);
+      } else {
+        const Walk<N, S, decltype(weight)> walk{xa, full, empty, d0, dstage,
+                                                dpart, lane, weight};
+        walk.all(K, j);
+      }
 #pragma unroll
       for (int v = 0; v < N / 2; ++v)
         m_sm[acc_row(v) * mstride + c * N + acc_col(v)] = msg[v];
@@ -265,27 +331,28 @@ conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
     // ---- scatter the tile's messages into the part's row sums, while the
     // next tile's h lands (every thread is done with this one's) ----
     warpgroup_sync(0);
-    if (next < t_hi)
-      prefetch_h(hs, h, blk0 + static_cast<long>(next) * kTile, K, hstride);
+    if constexpr (!kDeep)
+      if (next < t_hi)
+        prefetch_h(hs, h, blk0 + static_cast<long>(next) * kTile, K, hstride);
     if (compact) {
-      for (int o = tid; o < c_out; o += kWarpgroup) {
+      for (int o = tid; o < cols; o += kWarpgroup) {
         int cur = -1;
         float run = 0.f;
         for (int s = 0; s < kTile; ++s) {
           const int r = srow[s];
           if (r != cur) {
-            if (cur >= 0) acc_sm[cur * c_out + o] += run;
+            if (cur >= 0) acc_sm[cur * cols + o] += run;
             cur = r;
             run = 0.f;
           }
           if (r >= 0) run += m_sm[s * mstride + o];
         }
-        if (cur >= 0) acc_sm[cur * c_out + o] += run;
+        if (cur >= 0) acc_sm[cur * cols + o] += run;
       }
     } else {
       const float* s_tile = s_dense + row_base * blk + static_cast<long>(t) * kTile;
-      for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
-        const int r = e / c_out, o = e - r * c_out;
+      for (int e = tid; e < kRows * cols; e += kWarpgroup) {
+        const int r = e / cols, o = e - r * cols;
         float v = 0.f;
         for (int s = 0; s < kTile; ++s)
           v = fmaf(s_tile[static_cast<long>(r) * blk + s], m_sm[s * mstride + o], v);
@@ -296,11 +363,13 @@ conv_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
   }
   warpgroup_sync(0);
 
-  // ---- the part's partial (the output itself when parts == 1) ----
-  float* dst = out + (static_cast<long>(part) * gridDim.x * kRows + row_base) * c_out;
-  for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
+  // ---- the block's columns of the part's partial (the output itself when
+  // parts == 1) ----
+  float* dst = out + (static_cast<long>(part) * gridDim.x * kRows + row_base) * c_out + c0;
+  for (int e = tid; e < kRows * cols; e += kWarpgroup) {
+    const int r = e / cols;
     const float v = acc_sm[e];
-    dst[e] = compact ? row_weight[row_base + e / c_out] * v : v;
+    dst[r * c_out + e - r * cols] = compact ? row_weight[row_base + r] * v : v;
   }
 }
 
@@ -317,9 +386,9 @@ cudaError_t launch(const float* h, const float* x, const int* senders_perm,
   if (err != cudaSuccess) return err;
   err = launch_image(w3, b3, image, K, c_in, c_out, L.ch, true, stream);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(num_blocks, parts), kThreads, smem, stream>>>(
-      h, x, senders_perm, image, slot_rows, row_weight, s_dense, out, blk, K,
-      c_in, c_out, n_nodes);
+  kernel<<<dim3(num_blocks, parts, L.ch.chunks / L.per_block), kThreads, smem,
+           stream>>>(h, x, senders_perm, image, slot_rows, row_weight, s_dense,
+                     out, blk, K, c_in, c_out, n_nodes);
   return cudaGetLastError();
 }
 
@@ -336,7 +405,7 @@ long fused_edge_conv_f32_wgmma_smem_bytes(int K, int c_in, int c_out) {
 int fused_edge_conv_f32_wgmma_blocks_per_sm(int K, int c_in, int c_out) {
   if (K < 1 || K > kMaxK) return -1;
   const Layout L(K, c_in, c_out);
-  return with_shape(c_out, c_in, [&](auto n, auto s) {
+  return with_wide_shape(c_out, c_in, [&](auto n, auto s) {
     return blocks_on_sm(conv_fwd_f32_wgmma<decltype(n)::value, decltype(s)::value>,
                         kThreads, static_cast<size_t>(L.total));
   }, -1);
@@ -345,8 +414,9 @@ int fused_edge_conv_f32_wgmma_blocks_per_sm(int K, int c_in, int c_out) {
 // Launches the float32 forward on `stream`: the stage image of w3 and b3,
 // then the layer.  Pointers are device pointers; h, x, w3, b3, row_weight,
 // s_dense and out float32; senders_perm and slot_rows int32; image bfloat16
-// scratch [chunks][K+1][3][n][dp] (f32_wgmma.cuh Chunks(c_out, c_in), dp =
-// c_in rounded up to 16), 16-byte aligned.  Exactly one of s_dense and
+// scratch [chunks][K+1][slices][3][n][sd] (f32_wgmma.cuh Chunks(c_out,
+// c_in): c_in padded to dp = slices x sd, to 16 up to 128, past it to 32 in
+// stages of 32), 16-byte aligned.  Exactly one of s_dense and
 // (slot_rows, row_weight) is non-null.  out is [num_blocks*64, c_out] when
 // parts == 1, else the partials [parts, num_blocks*64, c_out].  Returns the
 // cudaError_t of the launches (0 on success).
@@ -361,7 +431,7 @@ int fused_edge_conv_f32_wgmma_forward(
       reinterpret_cast<uintptr_t>(image) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_shape(c_out, c_in, [&](auto n, auto s) {
+  return static_cast<int>(with_wide_shape(c_out, c_in, [&](auto n, auto s) {
     return launch<decltype(n)::value, decltype(s)::value>(
         static_cast<const float*>(h), static_cast<const float*>(x),
         static_cast<const int*>(senders_perm), static_cast<const float*>(w3),

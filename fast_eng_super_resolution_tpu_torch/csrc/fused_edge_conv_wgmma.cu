@@ -45,9 +45,16 @@
 // the wrapper sums the partials in a fixed order.  No atomics: two launches
 // on the same inputs give the same bits.
 //
-// Widths.  c_in and c_out 1..128 and K 1..128, one design: N = c_out
-// rounded up to 8 is the product's width (m64nNk16, N up to 128) and a
-// template argument (with_wide_width).
+// Widths.  c_in, c_out and K 1..256.  N, the product's width (m64nNk16, N
+// up to 128) and a template argument (with_wide_width), is c_out rounded up
+// to 8 where the block's shared memory (Layout) holds it: every width up to
+// 128 at K up to 128.  Else c_out is cut into column chunks (FwdChunks) of
+// the widest N whose Layout fits, evened out, each chunk a block of its own
+// (grid z) that copies w3's rows at its columns only and writes its columns
+// of the output: at K = c_in = c_out = 256 five chunks of 56 columns (219
+// KB a block), at c_in = c_out = 128 and K 256 two of 64.  The ring of
+// W3_k^T and b3 grow with N times c_in, and the X and h tiles with c_in and
+// K: what is left for N sets the chunks.
 //
 // Bound.  Per real slot the layer needs 2 (K+1) c_in c_out operations and
 // moves (K + c_in) 2 + 8 bytes: at width 48 about 225 kFLOP against 200 B,
@@ -71,20 +78,21 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;   // receiver rows per block (rows_blk)
 constexpr int kTile = 64;   // slots per tile
-constexpr int kMaxDim = 128;
-constexpr int kMaxK = 128;
+constexpr int kMaxDim = 256;
+constexpr int kMaxK = 256;
 
 // Row stride of the staged h tile in bf16 elements: at least K and 2 mod 4,
 // so that the 8 rows a warp reads at one k fall in 8 different banks.
 __host__ __device__ inline int h_stride(int K) { return K + (6 - K % 4) % 4; }
 
-// Byte offsets of the shared-memory regions, np = c_out padded to 8.  X
-// and h, read by a tile's walk over k, and the tile's messages, written
+// Byte offsets of the shared-memory regions, np = the chunk's columns
+// padded to 8 and cols the columns a block writes (c_out, or a chunk's).
+// X and h, read by a tile's walk over k, and the tile's messages, written
 // after it, share the first region.
 struct Layout {
   int dp, hs;
   long h, b, b3, acc, srow, total;
-  __host__ __device__ Layout(int K, int c_in, int c_out, int np) {
+  __host__ __device__ Layout(int K, int c_in, int cols, int np) {
     dp = round_up(c_in, 16);
     hs = h_stride(K);
     h = 2L * kTile * dp;                     // X [64][dp] at 0
@@ -93,11 +101,32 @@ struct Layout {
     b = xh > m ? xh : m;                     // W3_k^T [kRowBufs][np][dp]
     b3 = b + 2L * kRowBufs * np * dp;
     acc = b3 + 4L * c_in * np;               // b3 [c_in][np] f32
-    srow = acc + 4L * kRows * c_out;         // part sums [64][c_out] f32
+    srow = acc + 4L * kRows * cols;          // part sums [64][cols] f32
     total = srow + 4L * kTile;               // slot_rows of the tile
   }
 };
 
+// The column chunks of c_out: `chunks` of n columns (a multiple of 8, at
+// most 128), one chunk of all of them where its Layout fits a block (every
+// width up to 128 at K up to 128), else the widest n that fits, evened out
+// over the chunks (ops/fused_conv.py:wgmma_fwd_chunks).
+struct FwdChunks {
+  int chunks, n;
+  __host__ __device__ FwdChunks(int K, int c_in, int c_out) {
+    const int r8 = round_up(c_out, 8);
+    int most = r8 < 128 ? r8 : 128;
+    while (most > 8 &&
+           Layout(K, c_in, most < c_out ? most : c_out, most).total > kSmemMax)
+      most -= 8;
+    chunks = (r8 + most - 1) / most;
+    n = round_up((r8 + chunks - 1) / chunks, 8);
+  }
+  // the columns a block writes at most
+  __host__ __device__ int cols(int c_out) const { return n < c_out ? n : c_out; }
+};
+
+// NP = the chunk's columns padded to 8.  Block (b, part, z) walks part
+// `part` of receiver block b's tiles for the columns z NP .. of c_out.
 template <int NP>
 __global__ void __launch_bounds__(kWarpgroup)
 conv_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
@@ -108,7 +137,9 @@ conv_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
                const float* __restrict__ s_dense, float* __restrict__ out,
                int blk, int K, int c_in, int c_out, int n_nodes) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(K, c_in, c_out, NP);
+  const int c0 = blockIdx.z * NP;  // the block's first column and columns
+  const int cols = c_out - c0 < NP ? c_out - c0 : NP;
+  const Layout L(K, c_in, c_out < NP ? c_out : NP, NP);
   const int dp = L.dp, hs = L.hs;
   bf16* a_sm = reinterpret_cast<bf16*>(smem);
   bf16* b_sm = reinterpret_cast<bf16*>(smem + L.b);
@@ -130,17 +161,17 @@ conv_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
   for (int e = tid; e < kRowBufs * NP * dp; e += kWarpgroup) b_sm[e] = zero;
   for (int e = tid; e < c_in * NP; e += kWarpgroup) {
     const int i = e / NP, o = e - i * NP;
-    b3_sm[e] = o < c_out ? b3[i * c_out + o] : 0.f;
+    b3_sm[e] = o < cols ? b3[i * c_out + c0 + o] : 0.f;
   }
-  for (int e = tid; e < kRows * c_out; e += kWarpgroup) acc_sm[e] = 0.f;
+  for (int e = tid; e < kRows * cols; e += kWarpgroup) acc_sm[e] = 0.f;
   __syncthreads();  // the zeros land before the first row
 
-  // W3_k^T ([c_out, c_in], MN-major: w3's rows copy in 16-byte pieces)
+  // W3_k^T ([cols, c_in], MN-major: w3's rows copy in 16-byte pieces)
   // streams through the three buffers in one sequence of steps over the
   // part's tiles, k = 0 .. K-1 per tile: step n reads buffer n % 3 while
   // rows n + 1 and n + 2 (mod K) land in the other two.
   const int bsize = NP * dp;
-  const W3Row<true> wr(w3, c_in, c_out, dp);
+  const W3Row<true> wr(w3 + c0, c_in, cols, c_out, dp);
   wr.start(b_sm, 0);
   wr.start(b_sm + bsize, 1 % K);
   pieces_wait<1>();  // row 0 has landed
@@ -212,15 +243,15 @@ conv_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
       m_sm[acc_row(j) * (NP + 1) + acc_col(j)] = msg[j];
     __syncthreads();
     if (compact) {
-      for (int o = tid; o < c_out; o += kWarpgroup)
+      for (int o = tid; o < cols; o += kWarpgroup)
         for (int s = 0; s < kTile; ++s) {
           const int r = srow[s];
-          if (r >= 0) acc_sm[r * c_out + o] += m_sm[s * (NP + 1) + o];
+          if (r >= 0) acc_sm[r * cols + o] += m_sm[s * (NP + 1) + o];
         }
     } else {
       const float* s_tile = s_dense + row_base * blk + static_cast<long>(t) * kTile;
-      for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
-        const int r = e / c_out, o = e - r * c_out;
+      for (int e = tid; e < kRows * cols; e += kWarpgroup) {
+        const int r = e / cols, o = e - r * cols;
         float v = 0.f;
         for (int s = 0; s < kTile; ++s)
           v += s_tile[static_cast<long>(r) * blk + s] * m_sm[s * (NP + 1) + o];
@@ -230,11 +261,13 @@ conv_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
     __syncthreads();  // the next tile overwrites srow and the operands
   }
 
-  // ---- the part's partial (the output itself when parts == 1) ----
-  float* dst = out + (static_cast<long>(part) * gridDim.x * kRows + row_base) * c_out;
-  for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
+  // ---- the block's columns of the part's partial (the output itself
+  // when parts == 1) ----
+  float* dst = out + (static_cast<long>(part) * gridDim.x * kRows + row_base) * c_out + c0;
+  for (int e = tid; e < kRows * cols; e += kWarpgroup) {
+    const int r = e / cols;
     const float v = acc_sm[e];
-    dst[e] = compact ? row_weight[row_base + e / c_out] * v : v;
+    dst[r * c_out + e - r * cols] = compact ? row_weight[row_base + r] * v : v;
   }
 }
 
@@ -243,12 +276,13 @@ cudaError_t launch(const void* h, const void* x, const void* senders_perm,
                    const void* w3, const void* b3, const void* slot_rows,
                    const void* row_weight, const void* s_dense, void* out,
                    int num_blocks, int blk, int K, int c_in, int c_out,
-                   int n_nodes, int parts, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(Layout(K, c_in, c_out, NP).total);
+                   int n_nodes, int parts, int chunks, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(
+      Layout(K, c_in, c_out < NP ? c_out : NP, NP).total);
   auto kernel = conv_fwd_wgmma<NP>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(num_blocks, parts), kWarpgroup, smem, stream>>>(
+  kernel<<<dim3(num_blocks, parts, chunks), kWarpgroup, smem, stream>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(x),
       static_cast<const int*>(senders_perm), static_cast<const bf16*>(w3),
       static_cast<const float*>(b3), static_cast<const int*>(slot_rows),
@@ -264,15 +298,17 @@ extern "C" {
 
 // Bytes of dynamic shared memory one block needs.
 long fused_edge_conv_wgmma_smem_bytes(int K, int c_in, int c_out) {
-  return Layout(K, c_in, c_out, round_up(c_out, 8)).total;
+  const FwdChunks ch(K, c_in, c_out);
+  return Layout(K, c_in, ch.cols(c_out), ch.n).total;
 }
 
 // Blocks one SM holds at once at these widths (-1 if they are not taken).
 int fused_edge_conv_wgmma_blocks_per_sm(int K, int c_in, int c_out) {
-  const int np = round_up(c_out, 8);
-  return with_wide_width(np, [&](auto n) {
-    return blocks_per_sm(conv_fwd_wgmma<decltype(n)::value>,
-                         static_cast<size_t>(Layout(K, c_in, c_out, np).total));
+  const FwdChunks ch(K, c_in, c_out);
+  return with_wide_width(ch.n, [&](auto n) {
+    return blocks_per_sm(
+        conv_fwd_wgmma<decltype(n)::value>,
+        static_cast<size_t>(Layout(K, c_in, ch.cols(c_out), ch.n).total));
   }, -1);
 }
 
@@ -294,10 +330,12 @@ int fused_edge_conv_wgmma_forward(const void* h, const void* x,
       parts < 1 || parts > blk / kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_wide_width(round_up(c_out, 8), [&](auto n) {
+  const FwdChunks ch(K, c_in, c_out);
+  return static_cast<int>(with_wide_width(ch.n, [&](auto n) {
     return launch<decltype(n)::value>(h, x, senders_perm, w3, b3, slot_rows,
                                       row_weight, s_dense, out, num_blocks, blk,
-                                      K, c_in, c_out, n_nodes, parts, s);
+                                      K, c_in, c_out, n_nodes, parts,
+                                      ch.chunks, s);
   }, cudaErrorInvalidValue));
 }
 

@@ -37,9 +37,10 @@
 // 72 or 96 registers beside the accumulators, and a chunk's stage 36 or 48
 // KB, so A's three parts are split once per tile into shared memory
 // instead (split_smem) and a chunk is dp / 32 stages of 32 deep (12 KB at N
-// 64, the ring four of them): DeepWalk issues each stage's products into
-// the chunk's one accumulator as it lands and releases it once they
-// completed; one instance (S = kDeep) serves every depth of 80 .. 128.
+// 64, the ring four of them): f32_wgmma.cuh's DeepWalk, which B1 and B2 walk
+// past a depth of 128, issues each stage's products into the chunk's one
+// accumulator as it lands and releases it once they completed; one
+// instance (S = kDeep) serves every depth of 80 .. 128.
 // Every operand of a product is an input or a float32 value split in
 // three; per stage, the six products of order >= 2^-16 run smallest first
 // into one float32 accumulator.
@@ -252,63 +253,8 @@ __device__ __forceinline__ void split_smem(bf16* dst, const float* src,
     float v[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) v[u] = d + u < width ? row[d + u] : 0.f;
-    uint4 pt[3];
-    split3_8(v, pt);
-    const int at = kmajor(s, d, dp);
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-      *reinterpret_cast<uint4*>(dst + r * kTile * dp + at) = pt[r];
+    put_split8(dst, dp, s, d, v);
   }
 }
-
-// The consumer warpgroup's walk for one tile past a depth of 64: A's parts
-// in shared memory (descriptor da, part p at + p dapart, a k16 step at +
-// 16), each chunk `slices` = dp / 32 stages of the ring (descriptors as
-// Walk's).  A chunk's stages go into one accumulator, each stage's twelve
-// products (six pairs of parts, two k16 steps) as one group issued as soon
-// as the stage has landed and waited for before the stage is released (the
-// producer keeps the next stages landing meanwhile), then fin(acc, c).  No
-// product is in flight across a loop's back edge.
-template <int N, typename Fin>
-struct DeepWalk {
-  uint64_t da;
-  uint32_t dapart;
-  int slices;
-  uint64_t* full;
-  uint64_t* empty;
-  uint64_t d0;
-  uint32_t dstage, dpart;
-  int lane;
-  Fin& fin;
-
-  // Chunks 0 .. n - 1 from ring step j on.
-  __device__ __forceinline__ void all(int n, uint32_t& j) const {
-    for (int c = 0; c < n; ++c) {
-      float acc[N / 2];
-#pragma unroll
-      for (int v = 0; v < N / 2; ++v) acc[v] = 0.f;
-      for (int l = 0; l < slices; ++l, ++j) {
-        mbar_wait(full + slot(j), parity(j));
-        fence_operand(acc);
-        fence();
-        const uint64_t db = d0 + slot(j) * dstage;
-        const uint64_t dl = da + static_cast<uint64_t>(32 * l);
-#pragma unroll
-        for (int q = 0; q < 6; ++q)
-#pragma unroll
-          for (int s = 0; s < 2; ++s)
-            Mma<N>::run(acc,
-                        dl + static_cast<uint64_t>(a_part(q) * dapart + 16 * s),
-                        db + static_cast<uint64_t>(b_part(q) * dpart + 16 * s),
-                        1);
-        commit();
-        wait_all();
-        fence_operand(acc);
-        if (lane == 0) mbar_arrive(empty + slot(j));
-      }
-      fin(acc, c);
-    }
-  }
-};
 
 }  // namespace lowrank_f32

@@ -554,47 +554,56 @@ __device__ __forceinline__ void pieces_wait() {
 // while rows n + 1 and n + 2 are on their way into the other two.
 constexpr int kRowBufs = 3;
 
-// One row k of w3, a [c_in, c_out] matrix in the model's layout (c_in,
-// c_out <= 128), on its way into an operand of depth `depth` in shared
-// memory: MN-major as [c_out rows, c_in deep] (kMn, B1's W3_k^T) or K-major
-// as [c_in rows, c_out deep] (B2's W3_k).  Either way a piece of 8
-// consecutive o of one i is 16 contiguous bytes at both ends.  When c_out
-// is a multiple of 8 and w3 16-byte aligned, start(buf, k) issues the row's
-// pieces by cp.async (thread t the pieces t + 128 m), so that they land
-// while the products of the steps before run and cost no registers;
-// otherwise it copies the row element by element before it returns.  Either
-// way it closes one group of this thread's copies (pieces_wait counts them).
-// Padding is left as it is (zero).
+// One row k of w3, a [c_in, c_out] matrix in the model's layout, or a
+// block of it (`cols` columns o from w3's first, `rows` channels i from
+// i_lo), on its way into an operand of depth `depth` in shared memory:
+// MN-major as [cols rows, c_in deep] (kMn, B1's W3_k^T) or K-major as [rows,
+// c_out deep] (B2's W3_k).  `stride` is w3's row length c_out, so that
+// w3's first column may be that of B1's column chunk.  Either way a piece
+// of 8 consecutive o of one i is 16 contiguous bytes at both ends.  When
+// cols and stride are multiples of 8 and w3 16-byte aligned, start(buf, k)
+// issues the row's pieces by cp.async (thread t the pieces t + 128 m), so
+// that they land while the products of the steps before run and cost no
+// registers; otherwise it copies the row element by element before it
+// returns.  Either way it closes one group of this thread's copies
+// (pieces_wait counts them).  Padding is left as it is (zero, or a
+// block's earlier rows, whose products are never read).
 template <bool kMn>
 struct W3Row {
   const __nv_bfloat16* w3;
-  int c_in, c_out, depth;
+  int c_in, cols, stride, depth;
   bool vec;
   // the vector path's walk over this thread's pieces q = t + 128 m of a row
-  // (piece q: channel i = q / per, columns 8 p, p = q % per, per = c_out /
+  // (piece q: channel i = q / per, columns 8 p, p = q % per, per = cols /
   // 8): the first piece's (i, p) and the step to the next, so that start()
   // divides nothing
   int i0, p0, di, dp;
 
   __device__ __forceinline__ W3Row(const __nv_bfloat16* w3_, int c_in_,
-                                   int c_out_, int depth_)
-      : w3(w3_), c_in(c_in_), c_out(c_out_), depth(depth_) {
-    vec = c_out % 8 == 0 && reinterpret_cast<uintptr_t>(w3) % 16 == 0;
-    const int per = vec ? c_out / 8 : 1;
+                                   int cols_, int stride_, int depth_)
+      : w3(w3_), c_in(c_in_), cols(cols_), stride(stride_), depth(depth_) {
+    vec = cols % 8 == 0 && stride % 8 == 0 &&
+          reinterpret_cast<uintptr_t>(w3) % 16 == 0;
+    const int per = vec ? cols / 8 : 1;
     i0 = threadIdx.x / per;
     p0 = threadIdx.x - i0 * per;
     di = kWarpgroup / per;
     dp = kWarpgroup - di * per;
   }
 
-  __device__ __forceinline__ void start(__nv_bfloat16* buf, int k) const {
-    const __nv_bfloat16* src = w3 + static_cast<long>(k) * c_in * c_out;
+  // Row k's channels i_lo .. i_lo + rows - 1 (all c_in unless given) into
+  // buf's rows (kMn: depth) 0 .. rows - 1.
+  __device__ __forceinline__ void start(__nv_bfloat16* buf, int k, int i_lo = 0,
+                                        int rows = -1) const {
+    if (rows < 0) rows = c_in;
+    const __nv_bfloat16* src =
+        w3 + (static_cast<long>(k) * c_in + i_lo) * stride;
     if (vec) {
-      const int per = c_out / 8;
-      for (int q = threadIdx.x, i = i0, p = p0; i < c_in; q += kWarpgroup) {
+      const int per = cols / 8;
+      for (int i = i0, p = p0; i < rows;) {
         piece_async(buf + (kMn ? mnmajor(8 * p, i, depth)
                                : kmajor(i, 8 * p, depth)),
-                    src + 8 * q);
+                    src + static_cast<long>(i) * stride + 8 * p);
         i += di;
         p += dp;
         if (p >= per) {
@@ -603,9 +612,10 @@ struct W3Row {
         }
       }
     } else {
-      for (int j = threadIdx.x; j < c_in * c_out; j += kWarpgroup) {
-        const int i = j / c_out, o = j - i * c_out;
-        buf[kMn ? mnmajor(o, i, depth) : kmajor(i, o, depth)] = src[j];
+      for (int j = threadIdx.x; j < rows * cols; j += kWarpgroup) {
+        const int i = j / cols, o = j - i * cols;
+        buf[kMn ? mnmajor(o, i, depth) : kmajor(i, o, depth)] =
+            src[static_cast<long>(i) * stride + o];
       }
     }
     pieces_commit();
@@ -644,6 +654,9 @@ R with_wide_width(int n, F&& f, R otherwise) {
     default: return with_width(n, f, otherwise);
   }
 }
+
+// The dynamic shared memory one block may take on sm_90 (227 KB).
+constexpr long kSmemMax = 232448;
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory and asks for the
 // largest shared-memory carveout, so that as many blocks share an SM as its

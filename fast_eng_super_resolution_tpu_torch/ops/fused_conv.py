@@ -31,8 +31,9 @@ a rank that is not a multiple of 8 runs at ``padded_rank``, its head padded
 with zeros), and train through ``FusedEdgeConvLowrank``, whose backward is
 ``csrc/fused_edge_conv_lowrank_bwd_wgmma.cu`` or
 ``csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu`` the same way.
-``design`` names the design every launch runs.  Every kernel takes K,
-c_in and c_out up to 128 (B5, ``ops/pallas_mp.py``, too).
+``design`` names the design every launch runs.  B1 and B2 take K, c_in
+and c_out up to 256; B3 and B4 up to 128 (ranks up to 64), and so does B5
+(``ops/pallas_mp.py``).
 """
 
 from __future__ import annotations
@@ -414,13 +415,21 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+# The largest K, c_in and c_out B1 and B2 take; B3's and B4's, and their
+# largest rank
+_MAX_CONV_WIDTH = 256
+_MAX_WIDTH = 128
+_MAX_RANK = 64
+
+
 def _check_geometry(dt, slots: int, rows_blk: int, blk: int,
-                    **dims) -> None:
+                    top: int = _MAX_WIDTH, **dims) -> None:
     """Raises on what the kernels do not take: a GEMM type other than
     float32 or bfloat16, blocks of other than 64 rows, a blk that is not a
     positive multiple of 64 dividing the slots, or a width ``dims`` (name=
-    value) outside 1..128 (``rank``: 1..64).  B1-B4 take widths and K up to
-    128, B3 and B4 ranks up to 64."""
+    value) outside 1..``top`` (``rank``: 1..64).  B1 and B2 take widths and
+    K up to 256 (``top=_MAX_CONV_WIDTH``), B3 and B4 up to 128 and ranks up
+    to 64."""
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"h_blocked dtype {dt} (expected float32 | bfloat16)")
     if rows_blk != 64:
@@ -428,9 +437,9 @@ def _check_geometry(dt, slots: int, rows_blk: int, blk: int,
     if blk % 64 or blk <= 0:
         raise ValueError(f"blk={blk} must be a positive multiple of 64")
     for name, v in dims.items():
-        top = 64 if name == "rank" else 128
-        if not 1 <= v <= top:
-            raise ValueError(f"{name}={v} outside the kernel's 1..{top}")
+        most = _MAX_RANK if name == "rank" else top
+        if not 1 <= v <= most:
+            raise ValueError(f"{name}={v} outside the kernel's 1..{most}")
     if slots % blk:
         raise ValueError(f"{slots} slots is not a multiple of blk={blk}")
 
@@ -481,21 +490,129 @@ def f32_chunks(rows: int, depth: int) -> tuple:
     kernel) cut their product's ``rows`` into, c_out (c_in) over a depth of
     c_in (c_out), as csrc/f32_wgmma.cuh's Chunks does: the rows rounded up
     to 8 as one chunk up to 64, else as chunks of at most 64, or 32 where
-    the depth is past 64, each n (a multiple of 8) wide.  Each chunk is one
-    pass over the K+1 stages."""
+    the depth is 65..128, each n (a multiple of 8) wide; past a depth of
+    128 (A in shared memory, ``f32_depth``) chunks of at most 64.  Each
+    chunk is one pass over the K+1 stages."""
     r8 = _round_up(rows, 8)
-    most = 64 if _round_up(depth, 16) <= 64 else 32
+    d16 = _round_up(depth, 16)
+    most = 64 if d16 <= 64 or depth > 128 else 32
     chunks = -(-r8 // most)
     return chunks, _round_up(-(-r8 // chunks), 8)
 
 
+def f32_depth(depth: int) -> tuple:
+    """(dp, sd): the float32 B1's and B2's padded depth of A and of the
+    stage image, and one stage's depth (csrc/f32_wgmma.cuh Chunks): up to
+    128 ``depth`` rounded up to 16, one stage; past it rounded up to 32, in
+    dp / 32 stages of 32 (DeepWalk)."""
+    if depth > 128:
+        return _round_up(depth, 32), 32
+    d16 = _round_up(depth, 16)
+    return d16, d16
+
+
 def image_numel(k: int, rows: int, depth: int) -> int:
     """bf16 elements of the float32 B1's and B5's (B2's) stage image of
-    [w3; b3]: chunks x (K+1) stages of three [n, depth rounded up to 16]
-    operands (``f32_chunks``; csrc/f32_wgmma.cuh); B1's and B5's rows are
-    c_out and their depth c_in, B2's the other way round."""
+    [w3; b3]: chunks x (K+1) stages of three [n, dp] operands
+    (``f32_chunks``, ``f32_depth``; past a depth of 128 each in dp / 32
+    stages of 32; csrc/f32_wgmma.cuh); B1's and B5's rows are c_out and
+    their depth c_in, B2's the other way round."""
     chunks, n = f32_chunks(rows, depth)
-    return chunks * (k + 1) * 3 * n * _round_up(depth, 16)
+    return chunks * (k + 1) * 3 * n * f32_depth(depth)[0]
+
+
+# Bytes of dynamic shared memory one block may take on sm_90 (227 KB):
+# csrc/wgmma_tile.cuh kSmemMax
+SMEM_MAX = 232_448
+
+
+def _h_stride(k: int) -> int:
+    return k + (6 - k % 4) % 4
+
+
+def wgmma_fwd_smem(k: int, c_in: int, cols: int, n: int) -> int:
+    """Bytes of shared memory the bfloat16 B1 takes for a chunk of n
+    columns (``cols`` real at most): csrc/fused_edge_conv_wgmma.cu
+    Layout."""
+    dp = _round_up(c_in, 16)
+    xh = 2 * 64 * dp + 2 * 64 * _h_stride(k)
+    first = max(xh, 4 * 64 * (n + 1))
+    return first + 2 * 3 * n * dp + 4 * c_in * n + 4 * 64 * cols + 4 * 64
+
+
+def wgmma_rows_smem(k: int, c_out: int, n: int) -> int:
+    """Bytes of shared memory the bfloat16 B2 rows kernel takes for chunks
+    of n channels of c_in: csrc/fused_edge_conv_bwd_wgmma.cu RowsLayout."""
+    dq = _round_up(c_out, 16)
+    return (2 * 64 * dq + 2 * 3 * n * dq + 2 * 64 * _h_stride(k)
+            + 4 * c_out * n + 2 * 64 * n + 4 * 64)
+
+
+def _widest_chunks(width: int, fits) -> tuple:
+    """(chunks, n): ``width`` rounded up to 8 as one chunk where ``fits(n)``
+    holds for it and it is at most 128 wide, else chunks of the widest n
+    (a multiple of 8) that fits, evened out."""
+    r8 = _round_up(width, 8)
+    most = min(r8, 128)
+    while most > 8 and not fits(most):
+        most -= 8
+    chunks = -(-r8 // most)
+    return chunks, _round_up(-(-r8 // chunks), 8)
+
+
+def wgmma_fwd_chunks(k: int, c_in: int, c_out: int) -> tuple:
+    """(chunks, n): the bfloat16 B1's column chunks of c_out, each a block
+    of its own (csrc/fused_edge_conv_wgmma.cu FwdChunks): one chunk of all
+    of c_out rounded up to 8 where its shared memory fits a block (every
+    width up to 128 at K up to 128), else chunks of the widest n that fits,
+    evened out."""
+    return _widest_chunks(c_out, lambda n: wgmma_fwd_smem(
+        k, c_in, min(n, c_out), n) <= SMEM_MAX)
+
+
+def wgmma_rows_chunks(k: int, c_in: int, c_out: int) -> tuple:
+    """(chunks, n): the chunks of c_in the bfloat16 B2 rows kernel walks in
+    turn (csrc/fused_edge_conv_bwd_wgmma.cu RowsChunks), the same rule."""
+    return _widest_chunks(c_in, lambda n: wgmma_rows_smem(
+        k, c_out, n) <= SMEM_MAX)
+
+
+def f32_fwd_smem(k: int, c_in: int, c_out: int) -> int:
+    """Bytes of shared memory the float32 B1 takes
+    (csrc/fused_edge_conv_f32_wgmma.cu Layout): up to widths of 128 one
+    block walks every column chunk, past them a block takes one; past a
+    c_in of 128 X's parts sit in shared memory in place of the h tile."""
+    chunks, n = f32_chunks(c_out, c_in)
+    dp, sd = f32_depth(c_in)
+    np_ = n if c_in > 128 or c_out > 128 else chunks * n
+    a = 3 * 2 * 64 * dp if c_in > 128 else 4 * 64 * ((k + 1) | 1)
+    return (128 + 4 * 3 * 2 * n * sd + a + 4 * 64 * (np_ + 1)
+            + 4 * 64 * min(np_, c_out) + 4 * 64)
+
+
+def f32_rows_smem(k: int, c_in: int, c_out: int) -> int:
+    """Bytes of shared memory the float32 B2 rows kernel takes
+    (csrc/fused_edge_conv_bwd_f32_wgmma.cu RowsLayout): the ring, then the
+    h and dmsg tiles, or past a c_out of 128 D's parts."""
+    _, n = f32_chunks(c_in, c_out)
+    dq, sd = f32_depth(c_out)
+    ring = 128 + 4 * 3 * 2 * n * sd
+    if c_out > 128:
+        return ring + 3 * 2 * 64 * dq
+    return ring + 4 * 64 * ((k + 1) | 1) + 4 * 64 * c_out
+
+
+def conv_smem_bytes(dt: torch.dtype, k: int, c_in: int, c_out: int,
+                    backward: bool = False) -> int:
+    """Bytes of dynamic shared memory one block of B1 (B2's rows kernel if
+    ``backward``) takes in GEMM type ``dt``, as the library's
+    ``*_smem_bytes`` query says."""
+    if dt == torch.float32:
+        return (f32_rows_smem if backward else f32_fwd_smem)(k, c_in, c_out)
+    if backward:
+        return wgmma_rows_smem(k, c_out, wgmma_rows_chunks(k, c_in, c_out)[1])
+    n = wgmma_fwd_chunks(k, c_in, c_out)[1]
+    return wgmma_fwd_smem(k, c_in, min(n, c_out), n)
 
 
 def lowrank_chunk_cols(rank: int) -> int:
@@ -623,7 +740,8 @@ def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
     are added here in a fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out)
+    _check_geometry(dt, slots, rows_blk, blk, _MAX_CONV_WIDTH, K=k, c_in=c_in,
+                    c_out=c_out)
     nb = slots // blk
     n = x.shape[0]
     _check("h_blocked", h_blocked, dt, (slots, k))
@@ -747,7 +865,8 @@ def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
     fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out)
+    _check_geometry(dt, slots, rows_blk, blk, _MAX_CONV_WIDTH, K=k, c_in=c_in,
+                    c_out=c_out)
     nb, c2 = slots // blk, c_in * c_out
     _check("g", g, torch.float32, (nb * rows_blk, c_out))
     _check("h_blocked", h_blocked, dt, (slots, k))

@@ -7,9 +7,10 @@ three-part splits, a pass over k per column chunk with the six products in
 the kernel's order, the float32 h-weighting and the segmented scatter into
 per-part sums; B2's rows kernel, chunk by chunk of c_in, and its weights
 kernel) against the plain versions, a float64 reference and the JAX
-package's Pallas kernels in interpret mode, at widths up to 128, why z =
-x_src (x) dmsg needs six products, and the float32 wrappers refusing what
-the kernels do not take."""
+package's Pallas kernels in interpret mode, at widths up to 256 (past a
+depth of 128 A's parts in shared memory and each W~_k in stages of 32
+deep), why z = x_src (x) dmsg needs six products, and the float32 wrappers
+refusing what the kernels do not take."""
 
 import numpy as np
 import pytest
@@ -59,66 +60,146 @@ def _fma(a, b, c):
 
 
 def _chunks(c_in, c_out, by_out):
-    """(chunks, n, depth) of the stage image: the product's rows (c_out by
-    output, c_in by input) in column chunks (f32_wgmma.cuh Chunks, the
-    wrapper's ``f32_chunks``) over its depth rounded up to 16."""
+    """(chunks, n, depth, stage depth) of the stage image: the product's
+    rows (c_out by output, c_in by input) in column chunks (f32_wgmma.cuh
+    Chunks, the wrapper's ``f32_chunks``) over its depth padded as
+    ``f32_depth`` (to 16; past 128 to 32, in stages of 32)."""
     rows, depth = (c_out, c_in) if by_out else (c_in, c_out)
-    return (*tfc.f32_chunks(rows, depth), _round_up(depth, 16))
+    return (*tfc.f32_chunks(rows, depth), *tfc.f32_depth(depth))
 
 
-def _image(w3, b3, c_in, c_out, by_out):
+def _image(w3, b3, c_in, c_out, by_out, stages=None, w=None):
     """What the stage-image launch writes (f32_wgmma.cuh stage_image): its
-    index map run in numpy, thread index q by thread index q.  [chunks
-    (K+1), 3, n * depth] bf16 values as float64, stage c (K+1) + k chunk c
-    of W~_k."""
+    index map run in numpy, thread index q by thread index q, for the
+    stages ``stages`` (all by default).  [stages, 3, n * sd] bf16 values as
+    float32, stage (c (K+1) + k) slices + l slice l of chunk c of W~_k.
+    ``w``: W~ = [w3; b3] as [K+1, c_in, c_out], if the caller has it."""
     k = w3.shape[0]
-    chunks, rows, depth = _chunks(c_in, c_out, by_out)
-    per = rows * depth
-    q = np.arange(chunks * (k + 1) * per)
+    chunks, rows, depth, sd = _chunks(c_in, c_out, by_out)
+    slices = depth // sd
+    if stages is None:
+        stages = np.arange(chunks * (k + 1) * slices)
+    per = rows * sd
+    q = (np.asarray(stages)[:, None] * per + np.arange(per)).reshape(-1)
     st, r = q // per, q % per
-    c, kk = st // (k + 1), st % (k + 1)
+    ck, sl = st // slices, st % slices
+    c, kk = ck // (k + 1), ck % (k + 1)
     if by_out:
-        i, ol = r // rows, r % rows
-        o = c * rows + ol
-        at = kmajor(ol, i, depth)
+        il, ol = r // rows, r % rows
+        i, o = sl * sd + il, c * rows + ol
+        at = kmajor(ol, il, sd)
     else:
-        il, o = r // depth, r % depth
-        i = c * rows + il
-        at = kmajor(il, o, depth)
+        il, ol = r // sd, r % sd
+        i, o = c * rows + il, sl * sd + ol
+        at = kmajor(il, ol, sd)
     ok = (o < c_out) & (i < c_in)
-    w = np.concatenate([w3, b3[None]]).reshape(k + 1, c_in, c_out)
+    if w is None:
+        w = np.concatenate([w3, b3[None]]).reshape(k + 1, c_in, c_out)
     v = np.where(ok, w[kk, np.minimum(i, c_in - 1), np.minimum(o, c_out - 1)],
                  0).astype(np.float32)
-    image = np.zeros((chunks * (k + 1), 3, per))
+    image = np.zeros((len(stages), 3, per), np.float32)
+    row = np.repeat(np.arange(len(stages)), per)
     for p, part in enumerate(_split(v)):
-        image[st, p, at] = part
+        image[row, p, at] = part
     return image
 
 
-def _operand_parts(image, rows, depth, chunks=1):
-    """The image read back through kmajor, as the descriptor reads it, its
-    column chunks side by side: [K+1, 3, chunks * rows, depth]."""
-    r, d = np.meshgrid(np.arange(rows), np.arange(depth), indexing="ij")
-    parts = image[:, :, kmajor(r, d, depth)]       # [chunks (K+1), 3, n, d]
-    st = parts.shape[0] // chunks
-    return np.concatenate([parts[c * st:(c + 1) * st] for c in range(chunks)],
-                          axis=2)
+def _operand_parts(image, rows, sd, slices=1):
+    """Stages read back through kmajor, as the descriptor reads them: the
+    slices of each W~_k side by side in depth, [K+1 (per chunk), 3, rows,
+    slices * sd]."""
+    r, d = np.meshgrid(np.arange(rows), np.arange(sd), indexing="ij")
+    parts = image[:, :, kmajor(r, d, sd)]          # [stages, 3, n, sd]
+    parts = parts.reshape(-1, slices, 3, rows, sd)
+    return np.concatenate(list(parts.transpose(1, 0, 2, 3, 4)), axis=3)
+
+
+def _chunk_parts(w3, b3, c_in, c_out, by_out, c, k, w=None):
+    """Chunk c of W~_k (k = K: b3) as the kernel's walk reads it, [3, n,
+    dp]: its stages of the image, read back through kmajor."""
+    chunks, n, dp, sd = _chunks(c_in, c_out, by_out)
+    slices = dp // sd
+    first = (c * (w3.shape[0] + 1) + k) * slices
+    image = _image(w3, b3, c_in, c_out, by_out,
+                   np.arange(first, first + slices), w)
+    return _operand_parts(image, n, sd, slices)[0]
+
+
+def _chunk_products(a_parts, o, c_in, c_out, by_out, c):
+    """The six products of A's parts [..., 64, dp] with chunk c of every
+    W~_k, [K+1, ..., 64, n] float32 (``_six`` for each k at once)."""
+    k = o["w3"].shape[0]
+    w = np.concatenate([o["w3"], o["b3"][None]]).reshape(k + 1, c_in, c_out)
+    wt = np.stack([_chunk_parts(o["w3"], o["b3"], c_in, c_out, by_out, c, kk,
+                                w) for kk in range(k + 1)])
+    wt = wt.transpose(0, 1, 3, 2)                     # [K+1, 3, dp, n]
+    lead = (slice(None),) + (None,) * (a_parts[0].ndim - 2)
+    p = 0.0
+    for ai, bi in ORDER:
+        p = p + a_parts[ai][None] @ wt[:, bi].astype(np.float64)[lead]
+    return np.asarray(p, np.float32)
 
 
 @pytest.mark.parametrize("c_in,c_out,want", [
     (48, 48, (1, 48)), (64, 64, (1, 64)), (48, 128, (2, 64)),
     (40, 72, (2, 40)), (72, 128, (4, 32)), (128, 128, (4, 32)),
     (72, 100, (4, 32)), (128, 64, (2, 32)), (100, 72, (3, 24)),
-    (128, 1, (1, 8))])
+    (128, 1, (1, 8)), (48, 256, (4, 64)), (72, 200, (7, 32)),
+    (256, 256, (4, 64)), (136, 250, (4, 64)), (129, 129, (3, 48)),
+    (256, 40, (1, 40)), (200, 72, (2, 40))])
 def test_chunks_keep_a_stage_within_24_kb(c_in, c_out, want):
     """B1's column chunks of c_out over c_in (B2's rows kernel: of c_in over
     c_out, the same rule): one chunk up to 64 columns, else chunks of at
-    most 64, or of 32 past a depth of 64, so that a stage's three parts stay
-    within 24 KB and cover every column once."""
+    most 64, or of 32 at a depth of 65..128; past a depth of 128 chunks of
+    at most 64 in stages of 32 deep.  A stage's three parts stay within 24
+    KB, and the chunks cover every column once."""
     chunks, n = tfc.f32_chunks(c_out, c_in)
     assert (chunks, n) == want
     assert n % 8 == 0 and chunks * n >= c_out and (chunks - 1) * n < c_out
-    assert 3 * 2 * n * _round_up(c_in, 16) <= 24 * 1024
+    dp, sd = tfc.f32_depth(c_in)
+    assert dp >= c_in and dp % sd == 0
+    assert 3 * 2 * n * sd <= 24 * 1024
+
+
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("c_in,c_out", [(136, 24), (24, 136), (160, 72),
+                                        (200, 9)])
+def test_stage_image_in_slices_past_a_depth_of_128(k, c_in, c_out):
+    """Past a depth of 128 (c_in for B1, c_out for B2) each chunk of W~_k is
+    dp / 32 stages of 32 deep.  Read back slice by slice through kmajor,
+    the parts sum to w3 and b3 exactly in both layouts, zeros past the
+    widths, and image_numel sizes the scratch."""
+    rng = np.random.default_rng(k + c_in + c_out)
+    w3 = rng.normal(size=(k, c_in * c_out)).astype(np.float32)
+    b3 = rng.normal(size=(c_in * c_out,)).astype(np.float32)
+    want = np.concatenate([w3, b3[None]]).reshape(k + 1, c_in, c_out)
+    for by_out, rows, depth, ref in ((True, c_out, c_in,
+                                      want.transpose(0, 2, 1)),
+                                     (False, c_in, c_out, want)):
+        if depth <= 128:
+            continue
+        image = _image(w3, b3, c_in, c_out, by_out)
+        assert image.size == tfc.image_numel(k, rows, depth)
+        chunks, n, dp, sd = _chunks(c_in, c_out, by_out)
+        assert sd == 32 and dp == _round_up(depth, 32)
+        parts = _operand_parts(image, n, sd, dp // sd)  # [chunks (K+1), ...]
+        parts = np.concatenate([parts[c * (k + 1):(c + 1) * (k + 1)]
+                                for c in range(chunks)], axis=2)
+        assert not parts[:, :, rows:].any() and not parts[:, :, :, depth:].any()
+        assert np.array_equal(parts.sum(1)[:, :rows, :depth],
+                              ref.astype(np.float64))
+        # one chunk's stages alone, as the walk reads them
+        c = chunks - 1
+        one = _chunk_parts(w3, b3, c_in, c_out, by_out, c, k)
+        assert np.array_equal(one, parts[k, :, c * n:(c + 1) * n])
+
+
+def _side_by_side(parts, chunks):
+    """[chunks (K+1), 3, n, d] stages as [K+1, 3, chunks n, d]: the column
+    chunks of each W~_k side by side."""
+    st = parts.shape[0] // chunks
+    return np.concatenate([parts[c * st:(c + 1) * st] for c in range(chunks)],
+                          axis=2)
 
 
 @pytest.mark.parametrize("k", [1, 8, 33, 128])
@@ -137,19 +218,19 @@ def test_stage_image_launch_writes_both_layouts(k, c_in, c_out):
     want = np.concatenate([w3, b3[None]]).reshape(k + 1, c_in, c_out)
     fwd = _image(w3, b3, c_in, c_out, by_out=True)
     assert fwd.size == tfc.image_numel(k, c_out, c_in)
-    chunks, n, dp = _chunks(c_in, c_out, True)
+    chunks, n, dp, _ = _chunks(c_in, c_out, True)
     if chunks == 1:
         ref = pallas_mp.stage_image(torch.as_tensor(w3), torch.as_tensor(b3),
                                     c_in)
         assert np.array_equal(fwd.reshape(-1), ref.double().numpy().reshape(-1))
-    parts = _operand_parts(fwd, n, dp, chunks)         # [K+1, 3, o, i]
+    parts = _side_by_side(_operand_parts(fwd, n, dp), chunks)  # [K+1, 3, o, i]
     assert not parts[:, :, c_out:].any() and not parts[:, :, :, c_in:].any()
     assert np.array_equal(parts.sum(1)[:, :c_out, :c_in],
                           want.transpose(0, 2, 1).astype(np.float64))
     bwd = _image(w3, b3, c_in, c_out, by_out=False)
     assert bwd.size == tfc.image_numel(k, c_in, c_out)
-    chunks, n, dq = _chunks(c_in, c_out, False)
-    parts = _operand_parts(bwd, n, dq, chunks)         # [K+1, 3, i, o]
+    chunks, n, dq, _ = _chunks(c_in, c_out, False)
+    parts = _side_by_side(_operand_parts(bwd, n, dq), chunks)  # [K+1, 3, i, o]
     assert not parts[:, :, c_in:].any() and not parts[:, :, :, c_out:].any()
     assert np.array_equal(parts.sum(1)[:, :c_in, :c_out], want.astype(np.float64))
 
@@ -215,12 +296,12 @@ def _tiles(blocks):
 
 def _emulate_fwd(blocks, o, c_in, c_out, compact):
     """B1 float32 as csrc/fused_edge_conv_f32_wgmma.cu runs it: per tile a
-    pass over the K+1 stages for each column chunk of c_out, X's parts
-    reused."""
+    pass over the K+1 stages for each column chunk of c_out (past 128, each
+    chunk a block of its own: the same sums), X's parts reused; each W~_k
+    read from its stages of the image (past a c_in of 128, its slices of 32
+    deep side by side)."""
     k = o["h"].shape[1]
-    chunks, n, dp = _chunks(c_in, c_out, True)
-    w = _operand_parts(_image(o["w3"], o["b3"], c_in, c_out, True), n, dp,
-                       chunks)
+    chunks, n, dp, _ = _chunks(c_in, c_out, True)
     idx, real = _tiles(blocks)
     # the gather: X = x[senders_perm] per tile, padded to dp columns
     x = np.zeros((*idx.shape, dp), np.float32)
@@ -230,9 +311,9 @@ def _emulate_fwd(blocks, o, c_in, c_out, compact):
     msg = np.zeros((*idx.shape, chunks * n), np.float32)
     for c in range(chunks):
         cols = slice(c * n, (c + 1) * n)
+        p = _chunk_products(xp, o, c_in, c_out, True, c)
         for kk in range(k + 1):
-            p = _six(xp, [w[kk, q, cols].T for q in range(3)])
-            msg[..., cols] = _fma(hs[..., kk:kk + 1], p, msg[..., cols])
+            msg[..., cols] = _fma(hs[..., kk:kk + 1], p[kk], msg[..., cols])
     msg = msg[..., :c_out]
     # the part walk and the scatter
     tiles = blocks.blk // 64
@@ -301,12 +382,21 @@ def _rel(a, ref):
 
 
 # (c_in, c_out, K): widths up to 64 in one chunk; past 64, chunks of 32
-# over a depth past 64 (128 x 128, 72 x 100) and of 40 over one within it
+# over a depth past 64 (128 x 128, 72 x 100) and of 40 over one within it;
+# past 128, a block per chunk of 64, over depths past 128 in stages of 32
+# (136 x 250: B2's rows kernel over a depth of 250; 256 x 256 at K 256)
 SHAPES = [(8, 8, 8), (16, 16, 33), (48, 48, 33), (6, 20, 8), (128, 128, 8),
-          (72, 100, 4), (40, 72, 4)]
+          (72, 100, 4), (40, 72, 4), (136, 250, 200), (256, 256, 256)]
 
 
 def _graph_for(c_in, c_out, seed):
+    """The graph for a shape: past width 128 two 64-slot tiles (the plain
+    versions build [slots, c_in c_out] and the emulation walks K+1 stages
+    per chunk), past 64 a small one."""
+    if max(c_in, c_out) > 128:
+        blocks = _graph("random", seed, 100, 90)
+        assert len(blocks.senders_perm) <= 2 * 64
+        return blocks
     wide = c_in * c_out > 64 * 64
     return _graph("random", seed, *((70, 300) if wide else ()))
 
@@ -363,13 +453,12 @@ def _dmsg(blocks, g, compact):
 def _emulate_bwd(blocks, o, c_in, c_out, compact, sms=SMS):
     """B2 float32 as csrc/fused_edge_conv_bwd_f32_wgmma.cu runs it: (dh,
     dx_src, dw3, db3).  The rows kernel walks the K+1 stages once per column
-    chunk of c_in; each chunk's share of dh[:, k] is added to the earlier
-    chunks' in float32."""
+    chunk of c_in (each W~_k from its stages of the image: past a c_out of
+    128 its slices of 32 deep side by side); each chunk's share of dh[:, k]
+    is added to the earlier chunks' in float32."""
     k = o["h"].shape[1]
     slots, c2 = len(blocks.senders_perm), c_in * c_out
-    chunks, n, dq = _chunks(c_in, c_out, False)
-    wt = _operand_parts(_image(o["w3"], o["b3"], c_in, c_out, False), n, dq,
-                        chunks)
+    chunks, n, dq, _ = _chunks(c_in, c_out, False)
     idx, real = _tiles(blocks)
     dmsg = _dmsg(blocks, o["g"], compact)
     # (a) rows: R_k = D @ W~_k^T, dx += h~ R_k, dh[:, k] = sum_i x_src R_k
@@ -383,8 +472,9 @@ def _emulate_bwd(blocks, o, c_in, c_out, compact, sms=SMS):
     dh = np.zeros((*idx.shape, k), np.float32)
     for c in range(chunks):
         cols = slice(c * n, (c + 1) * n)
+        rs = _chunk_products(dp, o, c_in, c_out, False, c)
         for kk in range(k + 1):
-            r = _six(dp, [wt[kk, q, cols].T for q in range(3)])
+            r = rs[kk]
             dx[..., cols] = _fma(hs[..., kk:kk + 1], r, dx[..., cols])
             if kk < k:
                 share = (xs[..., cols].astype(np.float64) * r).sum(-1)
@@ -524,7 +614,7 @@ def _small(k=6, c=8):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 @pytest.mark.parametrize("bad,match", [
-    ({"c_out": 129}, "c_out=129"), ({"c_in": 0}, "c_in=0"),
+    ({"c_out": 257}, "c_out=257"), ({"c_in": 0}, "c_in=0"),
     ({"rows_blk": 16}, "rows_blk=16"), ({"blk": 32}, "blk=32")])
 def test_f32_wrappers_refuse_geometry_before_launch(which, bad, match):
     fwd, bwd, kw = _small()
@@ -536,11 +626,11 @@ def test_f32_wrappers_refuse_geometry_before_launch(which, bad, match):
 
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
-def test_f32_wrappers_refuse_k_past_128_cpu_tensors_and_float64(which):
+def test_f32_wrappers_refuse_k_past_256_cpu_tensors_and_float64(which):
     fn = tfc.fused_edge_conv_cuda if which == "fwd" else tfc.fused_edge_conv_bwd_cuda
     pick = (lambda f, b: f) if which == "fwd" else (lambda f, b: b)
-    fwd, bwd, kw = _small(k=129)
-    with pytest.raises(ValueError, match="K=129"):
+    fwd, bwd, kw = _small(k=257)
+    with pytest.raises(ValueError, match="K=257"):
         fn(*pick(fwd, bwd), **kw)
     fwd, bwd, kw = _small()
     with pytest.raises(ValueError, match="needs CUDA tensors"):

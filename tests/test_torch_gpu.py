@@ -150,8 +150,8 @@ def test_bwd_wrapper_checks_operands(cuda):
                                      *args[3:], **kw)
     with pytest.raises(ValueError):  # 16-row blocks
         tfc.fused_edge_conv_bwd_cuda(*args, **{**kw, "rows_blk": 16})
-    with pytest.raises(ValueError):  # wider than the kernel's 128
-        tfc.fused_edge_conv_bwd_cuda(*args, **{**kw, "c_out": 129})
+    with pytest.raises(ValueError):  # wider than the kernel's 256
+        tfc.fused_edge_conv_bwd_cuda(*args, **{**kw, "c_out": 257})
     with pytest.raises(ValueError):  # a CPU operand among CUDA ones
         tfc.fused_edge_conv_bwd_cuda(*args[:4], args[4].cpu(), args[5], **kw)
 
@@ -214,13 +214,13 @@ def test_kernels_past_k64_match_plain(cuda, c, k, compact, gemm_dtype):
 
 
 def test_k_limits_of_b1_and_b2(cuda):
-    blocks, h, x, w3, b3 = _operands(8, k=129, seed=16)
+    blocks, h, x, w3, b3 = _operands(8, k=257, seed=16)
     t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
     kw = dict(c_in=8, c_out=8, rows_blk=64, blk=blocks.blk)
-    with pytest.raises(ValueError, match="K=129"):
+    with pytest.raises(ValueError, match="K=257"):
         tfc.fused_edge_conv_cuda(t(h), t(x), t(blocks.senders_perm), t(w3),
                                  t(b3), blocks.compact_s.to("cuda"), **kw)
-    with pytest.raises(ValueError, match="K=129"):
+    with pytest.raises(ValueError, match="K=257"):
         tfc.fused_edge_conv_bwd_cuda(
             t(_g(blocks, 8, 17)), t(h), t(x[blocks.senders_perm]), t(w3),
             t(b3), blocks.compact_s.to("cuda"), **kw)
@@ -246,18 +246,27 @@ def _wide_operands(c_in, c_out, k, seed, n=100, e=700):
 # B1 and B2 past width 64 (one design per type: the bfloat16 products at N
 # up to 128, the float32 ones in column chunks): widths 72, 96, 127 (not a
 # multiple of 8: w3's rows copy element by element), 128 and the pair
-# c_in 72, c_out 128, at K 48 and 128
-WIDE = [(72, 72), (96, 96), (127, 127), (128, 128), (72, 128)]
+# c_in 72, c_out 128, at K 48 and 128.  Past 128 (the bfloat16 B1 in column
+# chunks and B2's rows kernel in chunks of c_in; the float32 ones with A's
+# parts in shared memory past a depth of 128): 256 at K 256 and 128, 129
+# (no multiple of 8), 136 x 250 at K 200, 48 x 256 and 256 x 40.
+WIDE = [(c_in, c_out, k) for c_in, c_out in
+        ((72, 72), (96, 96), (127, 127), (128, 128), (72, 128))
+        for k in (48, 128)] + [
+    (256, 256, 256), (256, 256, 128), (129, 129, 129), (136, 250, 200),
+    (48, 256, 256), (256, 40, 72)]
 
 
 @pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("compact", [True, False])
-@pytest.mark.parametrize("k", [48, 128])
-@pytest.mark.parametrize("c_in,c_out", WIDE)
+@pytest.mark.parametrize("c_in,c_out,k", WIDE)
 def test_wide_kernels_match_plain(cuda, c_in, c_out, k, compact, gemm_dtype):
-    """B1 and B2 at widths 65-128 against their plain versions (1e-5 of the
+    """B1 and B2 at widths 65-256 against their plain versions (1e-5 of the
     max, as at the narrow widths), each launched twice with the same bits."""
-    blocks, o = _wide_operands(c_in, c_out, k, seed=c_in + 3 * c_out + k)
+    # past 128 two small receiver blocks: the plain versions on the CPU
+    # build [slots, c_in c_out]
+    e = 250 if max(c_in, c_out) > 128 else 700
+    blocks, o = _wide_operands(c_in, c_out, k, seed=c_in + 3 * c_out + k, e=e)
     kw = dict(c_in=c_in, c_out=c_out, rows_blk=64, blk=blocks.blk,
               gemm_dtype=gemm_dtype)
 
@@ -286,20 +295,20 @@ def test_wide_kernels_match_plain(cuda, c_in, c_out, k, compact, gemm_dtype):
 
 
 def test_width_limits_of_b1_and_b2(cuda):
-    """129 is past B1's and B2's widths: the wrappers raise before any
+    """257 is past B1's and B2's widths: the wrappers raise before any
     launch, in both types."""
     blocks, o = _wide_operands(8, 8, 6, seed=18)
     t = {key: torch.as_tensor(v, device="cuda") for key, v in o.items()}
     sp = torch.as_tensor(blocks.senders_perm, device="cuda")
     for dt in (torch.float32, torch.bfloat16):
         fwd, bwd = tfc.fused_edge_conv.launches, tfc.fused_edge_conv_bwd.launches
-        for bad in ({"c_in": 129}, {"c_out": 129}):
+        for bad in ({"c_in": 257}, {"c_out": 257}):
             kw = {**dict(c_in=8, c_out=8, rows_blk=64, blk=blocks.blk), **bad}
-            with pytest.raises(ValueError, match="129"):
+            with pytest.raises(ValueError, match="257"):
                 tfc.fused_edge_conv_cuda(
                     t["h"].to(dt), t["x"].to(dt), sp, t["w3"].to(dt), t["b3"],
                     blocks.compact_s.to("cuda"), **kw)
-            with pytest.raises(ValueError, match="129"):
+            with pytest.raises(ValueError, match="257"):
                 tfc.fused_edge_conv_bwd_cuda(
                     t["g"], t["h"].to(dt), t["x"][sp.long()].to(dt),
                     t["w3"].to(dt), t["b3"], blocks.compact_s.to("cuda"), **kw)

@@ -140,6 +140,37 @@ def test_apply_fused_width_128_matches_jax():
     assert _rel(got.numpy(), ref) < TOL
 
 
+def test_apply_fused_width_256_matches_jax():
+    """Width 256 (K 256, depth 1, about 100 nodes), where the card's B1
+    takes c_in = c_out = K = 256 (the bfloat16 one in column chunks, the
+    float32 one with X's parts in shared memory): the port's fused form
+    (plain version on the CPU), its weights carried over from the JAX
+    parameter tree by ``load_jax_tree``, against JAX's ``apply_fused`` with
+    the Pallas kernel in interpret mode, float32, within 1e-5 of the max."""
+    cfg = dict(width=256, ker_width=256, depth=1, in_width=4, out_width=4)
+    model = JKernelNN(mode="edge3d", **cfg)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    model.init(jax.random.PRNGKey(6)))
+    g = make_random_graph(np.random.default_rng(6), n=100, e=400)
+    g = pad_graph(g["x"], g["y"], g["pos"], g["senders"], g["receivers"],
+                  g["edge_attr"], 128, 512)
+    ea_b, sp, s, rows_blk, blk = model.prepare_fused(
+        g.senders, g.receivers, g.edge_attr, 128, g.edge_mask)
+    ref = model.apply_fused(params, jnp.asarray(g.x), jnp.asarray(ea_b),
+                            jnp.asarray(sp), jnp.asarray(s), rows_blk=rows_blk,
+                            blk=blk, gemm_dtype="float32", interpret=True)
+    port = KernelNN(**cfg)
+    load_jax_tree(port, params)
+    ea_t, sp_t, s_t, rb, bk = port.prepare_fused(
+        g.senders, g.receivers, g.edge_attr, 128, g.edge_mask, compact=True)
+    with torch.no_grad():
+        got = port.apply_fused(torch.as_tensor(g.x), torch.as_tensor(ea_t),
+                               torch.as_tensor(sp_t), s_t.to("cpu"),
+                               rows_blk=rb, blk=bk, gemm_dtype="float32")
+    assert got.shape == (128, 4)
+    assert _rel(got.numpy(), ref) < TOL
+
+
 @pytest.mark.parametrize("rank", [32, 57])
 def test_rank_r_width_128_fused_and_grads_match_jax(rank):
     """A rank-r KernelNN at width 128 (K 128, depth 2, about 200 nodes),

@@ -70,6 +70,81 @@ def test_weight_tiles_cover_the_output_once(k, c_in, c_out):
     assert (rows - 1) * 64 < k and (cols - 1) * 128 < c_in * c_out
 
 
+# (K, c_in, c_out): every width up to 128 at K up to 128 in one chunk;
+# past them, chunks of the widest N that fits a block's shared memory
+CHUNKED = [(8, 8, 8), (128, 128, 128), (128, 72, 100), (256, 128, 128),
+           (256, 256, 256), (128, 256, 256), (129, 129, 129), (200, 136, 250),
+           (256, 48, 256), (72, 256, 40), (1, 256, 1)]
+
+
+@pytest.mark.parametrize("k,c_in,c_out", CHUNKED)
+def test_chunks_fit_a_block_and_cover_every_column(k, c_in, c_out):
+    """B1's column chunks of c_out (each a block of its own) and B2's rows
+    kernel's chunks of c_in (walked in turn): N a multiple of 8 up to 128
+    whose layout fits the 227 KB a block may take, every column covered
+    once; one chunk of all the columns wherever it fits, as at every width
+    up to 128 at K up to 128 (the instances there are unchanged)."""
+    for width, (chunks, n), smem in (
+            (c_out, tfc.wgmma_fwd_chunks(k, c_in, c_out),
+             lambda n: tfc.wgmma_fwd_smem(k, c_in, min(n, c_out), n)),
+            (c_in, tfc.wgmma_rows_chunks(k, c_in, c_out),
+             lambda n: tfc.wgmma_rows_smem(k, c_out, n))):
+        assert n % 8 == 0 and 8 <= n <= 128
+        assert chunks * n >= width and (chunks - 1) * n < width
+        assert smem(n) <= tfc.SMEM_MAX
+        if chunks > 1:  # the widest fitting N, evened out
+            assert smem(-(-_round_up(width, 8) // (chunks - 1))) > tfc.SMEM_MAX \
+                or -(-_round_up(width, 8) // (chunks - 1)) > 128
+        if max(k, c_in, c_out) <= 128:
+            assert (chunks, n) == (1, _round_up(width, 8))
+    assert tfc.wgmma_fwd_chunks(256, 256, 256) == (5, 56)
+    assert tfc.wgmma_rows_chunks(256, 256, 256) == (5, 56)
+    assert tfc.wgmma_fwd_chunks(256, 128, 128) == (2, 64)
+    assert tfc.conv_smem_bytes(torch.bfloat16, 128, 128, 128) == 229_888
+
+
+def _round_up(v, m):
+    return -(-v // m) * m
+
+
+# (K, c_in, c_out) -> bytes of shared memory per block of the bfloat16 B1,
+# B2's rows kernel, the float32 B1 and B2's rows kernel, as the libraries'
+# *_smem_bytes queries answered on the card (chip_smoke.py's [ptxas] lines)
+CARD_SMEM = {
+    (48, 48, 48): (48128, 41984, 93056, 80256),
+    (128, 48, 48): (58368, 52224, 113536, 100736),
+    (128, 128, 128): (229888, 213504, 197504, 164224),
+    (256, 256, 256): (223744, 216576, 180864, 147584),
+    (128, 256, 256): (229888, 221696, 180864, 147584),
+    (129, 129, 129): (153120, 143904, 123520, 98432),
+    (200, 136, 250): (190976, 186752, 144000, 135296),
+    (256, 48, 256): (133632, 195072, 172928, 135296),
+    (72, 256, 40): (155136, 89600, 150144, 102784)}
+KINDS = ((torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, False),
+         (torch.float32, True))
+
+
+@pytest.mark.parametrize("shape", sorted(CARD_SMEM))
+def test_shared_memory_mirrors_match_the_card(shape):
+    """The wrapper's mirror of each B1/B2 layout (``conv_smem_bytes``) gives
+    the bytes the kernels' own layouts ask for on the card."""
+    got = tuple(tfc.conv_smem_bytes(dt, *shape, backward=bw)
+                for dt, bw in KINDS)
+    assert got == CARD_SMEM[shape]
+
+
+@pytest.mark.parametrize("dt,backward", KINDS)
+def test_every_width_up_to_256_fits_a_block(dt, backward):
+    """Every K, c_in and c_out of 1..256 (a coarse sweep with the corners)
+    leaves each B1/B2 block within the 227 KB of shared memory a block may
+    take."""
+    widths = sorted({1, 8, 64, 127, 128, 129, 200, 255, 256,
+                     *range(3, 257, 23)})
+    worst = max(tfc.conv_smem_bytes(dt, k, c_in, c_out, backward)
+                for k in widths for c_in in widths for c_out in widths)
+    assert worst <= tfc.SMEM_MAX
+
+
 @pytest.mark.parametrize("slots,tiles,sms", [(247_808, 18, 132),
                                              (64, 36, 132), (640, 1, 132),
                                              (155_648, 36, 8)])
@@ -101,11 +176,11 @@ def _small(dt=torch.bfloat16, c=8, k=6):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 @pytest.mark.parametrize("bad,match", [
-    ({"c_out": 129}, "c_out=129"), ({"c_in": 0}, "c_in=0"),
+    ({"c_out": 257}, "c_out=257"), ({"c_in": 0}, "c_in=0"),
     ({"rows_blk": 16}, "rows_blk=16"), ({"blk": 32}, "blk=32")])
 def test_wrappers_refuse_geometry_before_launch(which, bad, match):
     """The bfloat16 wrappers refuse what the tensor-core kernels do not take
-    (widths past 128, blocks of other than 64 rows, blk not a multiple of
+    (widths past 256, blocks of other than 64 rows, blk not a multiple of
     64) before they look for a card."""
     _, fwd, bwd, kw = _small()
     fn, args = ((tfc.fused_edge_conv_cuda, fwd) if which == "fwd"
@@ -115,16 +190,34 @@ def test_wrappers_refuse_geometry_before_launch(which, bad, match):
 
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
-def test_wrappers_refuse_k_past_128_and_cpu_tensors(which):
-    _, fwd, bwd, kw = _small(k=129)
+def test_wrappers_refuse_k_past_256_and_cpu_tensors(which):
+    _, fwd, bwd, kw = _small(k=257)
     fn, args = ((tfc.fused_edge_conv_cuda, fwd) if which == "fwd"
                 else (tfc.fused_edge_conv_bwd_cuda, bwd))
-    with pytest.raises(ValueError, match="K=129"):
+    with pytest.raises(ValueError, match="K=257"):
         fn(*args, **kw)
     _, fwd, bwd, kw = _small()
     args = fwd if which == "fwd" else bwd
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         fn(*args, **kw)
+
+
+def test_geometry_limits_are_each_kernels_own():
+    """B1 and B2 take K, c_in and c_out up to 256; B3 and B4 still refuse
+    129 (and rank 65) before any launch."""
+    conv = dict(K=256, c_in=256, c_out=256)
+    tfc._check_geometry(torch.float32, 128, 64, 64, tfc._MAX_CONV_WIDTH, **conv)
+    with pytest.raises(ValueError, match="K=257 outside the kernel's 1..256"):
+        tfc._check_geometry(torch.float32, 128, 64, 64, tfc._MAX_CONV_WIDTH,
+                            **dict(conv, K=257))
+    with pytest.raises(ValueError, match="c_in=129 outside the kernel's 1..128"):
+        tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=48, c_in=129,
+                            c_out=48, rank=16)
+    with pytest.raises(ValueError, match="rank=65 outside the kernel's 1..64"):
+        tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=48, c_in=48,
+                            c_out=48, rank=65)
+    tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=128, c_in=128,
+                        c_out=128, rank=64)
 
 
 def test_bf16_product_split_is_exact():
@@ -266,8 +359,10 @@ def _dmsg(blocks, g, compact):
 
 def _emulate_bwd(blocks, o, c_in, c_out, compact):
     """B2 bfloat16 as csrc/fused_edge_conv_bwd_wgmma.cu runs it: (dh,
-    dx_src, dw3, db3).  Rows kernel: dx = D @ b3^T channel by channel, then
-    per k R_k = D @ W3_k^T, dx += h[:, k] R_k, dh[:, k] = sum_i x_src R_k.
+    dx_src, dw3, db3).  Rows kernel, per chunk of c_in
+    (``wgmma_rows_chunks``): dx = D @ b3^T channel by channel, then per k
+    R_k = D @ W3_k^T at the chunk's channels, dx += h[:, k] R_k, dh[:, k]
+    += sum_i x_src R_k.
     Weights kernel: per split, chunk by chunk, h^T (z_hi + z_lo) into the
     tensor cores' sum, added into the split's partial every 32 chunks; db3
     in slot order."""
@@ -278,13 +373,22 @@ def _emulate_bwd(blocks, o, c_in, c_out, compact):
     d, h, xs = dmsg[idx], o["h"][idx], o["x_src"][idx]
     b3t = o["b3"].reshape(c_in, c_out).T
     dx = np.zeros((*idx.shape, c_in), np.float32)
-    for oo in range(c_out):
-        dx = _fma(d[..., oo:oo + 1], b3t[oo], dx)
     dh = np.zeros((*idx.shape, k), np.float32)
-    for kk in range(k):
-        r = _mm(d, o["w3"][kk].reshape(c_in, c_out).T)
-        dx = _fma(h[..., kk:kk + 1], r, dx)
-        dh[..., kk] = (xs.astype(np.float64) * r).sum(-1)
+    # the rows kernel's chunks of c_in, in turn: each adds its share of
+    # dh[:, k] to the earlier chunks' in float32
+    chunks, n = tfc.wgmma_rows_chunks(k, c_in, c_out)
+    for c in range(chunks):
+        ch = slice(c * n, min((c + 1) * n, c_in))
+        dxc = dx[..., ch]
+        for oo in range(c_out):
+            dxc = _fma(d[..., oo:oo + 1], b3t[oo, ch], dxc)
+        for kk in range(k):
+            r = _mm(d, o["w3"][kk].reshape(c_in, c_out)[ch].T)
+            dxc = _fma(h[..., kk:kk + 1], r, dxc)
+            share = (xs[..., ch].astype(np.float64) * r).sum(-1)
+            dh[..., kk] = (share if c == 0 else dh[..., kk] + share).astype(
+                np.float32)
+        dx[..., ch] = dxc
     if compact:  # padding-only tiles write zeros
         dx[~real], dh[~real] = 0, 0
     cols, row_tiles = tfc.weight_tiles(k, c_in, c_out)
@@ -352,13 +456,22 @@ def _rel(a, ref):
 
 
 # (c_in, c_out, K): widths 8 and 48, and past 64 (N = 128 and 104; B2's rows
-# kernel N = 128 and 72)
-BF16_SHAPES = [(8, 8, 8), (48, 48, 33), (128, 128, 8), (72, 100, 4)]
+# kernel N = 128 and 72); past 128, B1 in column chunks of 88 and 56 and
+# B2's rows kernel in chunks of c_in of 48 and 56 (``wgmma_fwd_chunks``,
+# ``wgmma_rows_chunks``)
+BF16_SHAPES = [(8, 8, 8), (48, 48, 33), (128, 128, 8), (72, 100, 4),
+               (136, 250, 200), (256, 256, 256)]
 
 
 def _setup(c_in, c_out, k, seed):
-    wide = c_in * c_out > 64 * 64
-    blocks = _graph(seed, *((70, 300) if wide else (150, 900)))
+    """The graph and operands for a shape: past width 128 two 64-slot tiles
+    (the plain versions build [slots, c_in c_out]), past 64 a small one."""
+    if max(c_in, c_out) > 128:
+        blocks = _graph(seed, 100, 90)
+        assert len(blocks.senders_perm) <= 2 * 64
+    else:
+        wide = c_in * c_out > 64 * 64
+        blocks = _graph(seed, *((70, 300) if wide else (150, 900)))
     return blocks, _operands(blocks, c_in, c_out, k, seed + 1)
 
 
