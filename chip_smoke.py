@@ -18,7 +18,7 @@ non-zero without the final result line:
              next one; and B5, the per-edge messages of conv mode 'pallas',
              float32 on the tensor cores through exact bf16 splits as
              csrc/fused_edge_messages_wgmma.cu on the float32 B1's column
-             chunks, widths and K up to 128; B1 and B2 take them up to 256)
+             chunks; B1, B2 and B5 take widths and K up to 256)
              from the checkout, one nvcc each, started together; prints
              ptxas's registers and spills of the tensor-core kernels, their
              blocks per SM, chunks and shared memory (each held to the
@@ -74,7 +74,7 @@ bounds on the six-pass basis).  They run a third time for TEECNet at the full
 width of configs/exp_config/teecnet_ansys.yaml (width 48, 5 layers, edge MLP
 K = 128) on the same meshes (``[teecnet_*]`` lines): B1 and B2 at K = 128,
 10 B1 launches per full-size request, configs/train_config/teecnet.yaml cut
-to 3 epochs (its loss is recorded, not held to fall).
+to 2 epochs (its loss is recorded, not held to fall).
 
    rank 12 — the rank-16 path's config with ``kernel_rank: 12`` (depth 2, a
              rank B3/B4 run padded to 16): one full-size request (4 B3
@@ -85,17 +85,17 @@ to 3 epochs (its loss is recorded, not held to fall).
              chunk at ranks 1, 4, 12, 20, 28 and 31 (rank 12 also at the
              train and val batches), both types, both S forms, repeated
              launches bit-identical (``[rank<r>_kernel]``,
-             ``[rank<r>_bwd]``); their times and bounds at ranks 4, 12, 20
-             and 28 (``[rank<r>_times]``; a padded instance reaches at most
-             r / rp of its bound), the warm request and train steps at rank
-             12 (``[rank12_*]`` lines).
+             ``[rank<r>_bwd]``); their times and bounds at ranks 4 and 12
+             (``[rank<r>_times]``; a padded instance reaches at most r / rp
+             of its bound), the warm request and train steps at rank 12
+             (``[rank12_*]`` lines).
 
    width 128 — configs/exp_config/neuralop_synthetic_w64.yaml with
              ``width: 128`` set in memory (K = 128) and its depth cut to 2:
              both full-size meshes served (2 chunks x 2 layers = 4 B1
              launches each, every .vtu finite) and the small mesh against
              the CPU's float32 plain prediction; ``train_graph_ALDD`` cut to
-             3 epochs in bfloat16 and in float32 (B1 and B2 launch counts
+             2 epochs in bfloat16 and in float32 (B1 and B2 launch counts
              held); phase 7's float32 parity card vs CPU; B1 and B2 against
              their plain versions at (c_in, c_out, K) = (128, 128, 128),
              (96, 96, 96), (127, 127, 128) and (72, 128, 48) on the leading
@@ -122,7 +122,7 @@ to 3 epochs (its loss is recorded, not held to fall).
              (72, 128, 48, 20) and (48, 48, 48, 36) on the leading 16
              receiver blocks of the full-size chunk, both types, both S
              forms, repeated launches bit-identical; their times and bounds
-             on the full-size chunk at ranks 16, 32 and 64 (the plain
+             on the full-size chunk at ranks 32 and 64 (the plain
              versions' on the slice), the warm request and a fused train
              step in both types (``[w128r_*]``, ``[w128r<r>_*]`` lines).
 
@@ -133,7 +133,8 @@ to 3 epochs (its loss is recorded, not held to fall).
              of 128): both full-size meshes served (4 B1 launches each, every
              .vtu finite), the small mesh against the CPU's float32 plain
              prediction and, in 'edge3d' on the card (the general lane, no
-             kernel), against it too; ``train_graph_ALDD`` for one epoch in
+             kernel), against it too, and in 'pallas' (B5, 2 launches)
+             against both; ``train_graph_ALDD`` for one epoch in
              bfloat16 and in float32 (B1 and B2 launch counts held); phase
              7's float32 parity card vs CPU; B1 and B2 against their plain
              versions at (c_in, c_out, K) = (256, 256, 256), (256, 256,
@@ -155,16 +156,25 @@ to 3 epochs (its loss is recorded, not held to fall).
              both modes.  The same for the width-128 path's KernelNN (K
              128, depth 2: 4 launches) and TEECNet (K 128: 10 launches),
              from their checkpoints (``model=kernelnn_w128``,
-             ``model=teecnet_w128``).  B5 against its plain version at the
-             four chunk shapes (K 48, K 128 at width 48; K = c_in = c_out =
-             128 twice), repeated launches bit-identical, its first launch
-             (the stage image of w3 and b3) bit-equal to its plain version,
-             and the times of B5, its plain version and one einsum
-             computing the same function (``library_ms``; at width 128 the
-             plain version and the einsum on the chunk's first
-             ``MSG_SLICE`` edges, the kernel's time there beside them); its
-             bound is the lesser of float32 FMAs and six bf16 tensor-core
-             passes (``bound_basis``; ``bound_fma_ms`` the former).
+             ``model=teecnet_w128``), and for the width-256 path's
+             (``model=kernelnn_w256``: K 256, 4 launches;
+             ``model=teecnet_w256``: K 128, 10 launches) in 'pallas' alone
+             ('edge3d' would build [E, c_in c_out] arrays of 67 GB; their
+             small mesh is held to 'edge3d' in the width-256 path).  B5
+             against its plain version at the six chunk shapes (K 48, K 128
+             at width 48; K = c_in = c_out = 128 twice; K = c_in = c_out =
+             256, and K 128 at c_in = c_out = 256), repeated launches
+             bit-identical, its first launch (the stage image of w3 and b3)
+             bit-equal to its plain version, and the times of B5, its plain
+             version and one einsum computing the same function
+             (``library_ms``; at widths 128 and 256 the plain version and
+             the einsum on the chunk's first ``MSG_SLICE`` edges, the
+             kernel's time there beside them); its bound is the lesser of
+             float32 FMAs and six bf16 tensor-core passes (``bound_basis``;
+             ``bound_fma_ms`` the former).  B5 alone, checked the same way,
+             at (K, c_in, c_out) = (256, 256, 256), (128, 256, 256), (256,
+             48, 200), (96, 200, 72), (129, 129, 129) and (200, 136, 250) on
+             the leading ``MSG_SLICE`` edges of the width-256 chunk.
 
 10. routed — the paper's routed pipeline at the full width of
              configs/exp_config/neuralop_synthetic_full.yaml with
@@ -387,7 +397,7 @@ TRAIN_EPOCHS = 10  # the one cut of synthetic_full.yaml (300 epochs)
 TEECNET_CONFIG = os.path.join(REPO, "configs", "exp_config",
                               "teecnet_ansys.yaml")
 TEECNET_TRAIN = os.path.join(REPO, "configs", "train_config", "teecnet.yaml")
-TEECNET_EPOCHS = 3  # the one cut of teecnet.yaml (151 epochs)
+TEECNET_EPOCHS = 2  # the one cut of teecnet.yaml (151 epochs)
 # the routed path: the full config with this config's n_clusters and
 # n_components added in memory, trained TRAIN_EPOCHS epochs
 ROUTED_CONFIG = os.path.join(REPO, "configs", "exp_config",
@@ -406,7 +416,7 @@ RANK_DEPTH = 2  # its depth, cut from the config's 4 to keep the run short
 RANK12 = 12
 RANK12_EPOCHS = 2  # 2, not 3: room for the width-128 rank-r path
 RANK12_CHECKED = (1, 4, 12, 20, 28, 31)
-RANK12_TIMED = (4, 12, 20, 28)
+RANK12_TIMED = (4, 12)
 # the width-128 path (B1 and B2 past width 64):
 # configs/exp_config/neuralop_synthetic_w64.yaml with its width set to 128
 # in memory (K = width: 'neuralop' builds ker_width = width), depth cut to
@@ -419,10 +429,15 @@ W64_CONFIG = os.path.join(REPO, "configs", "exp_config",
                           "neuralop_synthetic_w64.yaml")
 WIDE = 128
 WIDE_DEPTH = 2
-WIDE_EPOCHS = 3
+WIDE_EPOCHS = 2
 WIDE_CHECKED = ((128, 128, 128), (96, 96, 96), (127, 127, 128), (72, 128, 48))
 WIDE_SLICE_BLOCKS = 16
 WIDE_TEECNET_EPOCHS = 1
+# its kernels take 10-60 ms a launch and a train step 0.2-0.4 s: timed over
+# WIDE_REPS launches and WIDE_STEP_REPS steps (those of the width-128 rank-r
+# path too), fewer than the narrower paths' (20, 5)
+WIDE_REPS = 10
+WIDE_STEP_REPS = 3
 # the width-256 path (B1 and B2 past width 128): the same config at width
 # 256 (K 256), depth 2, one epoch a type; B1 and B2 held against their
 # plain versions at WIDER_CHECKED on the same leading slice (the plain B1
@@ -432,9 +447,10 @@ WIDE_TEECNET_EPOCHS = 1
 WIDER = 256
 WIDER_EPOCHS = 1
 # its kernels take 35-420 ms a launch and a train step 2-3 s: each timed
-# over fewer launches and steps than the narrower paths' (20, 5)
-WIDER_REPS = 5
-WIDER_STEP_REPS = 2
+# over fewer launches and steps than the narrower paths' (20, 5); B5 at its
+# chunks (50-95 ms) over WIDER_REPS too
+WIDER_REPS = 3
+WIDER_STEP_REPS = 1
 WIDER_CHECKED = ((256, 256, 256), (256, 256, 128), (129, 129, 129),
                  (136, 250, 200), (48, 256, 256), (256, 40, 72))
 # the width-128 rank-r path (B3 and B4 past width 64, K 64 and rank 32):
@@ -450,7 +466,7 @@ WIDE_RANK_TOP = 64
 WIDE_RANK_CHECKED = ((128, 128, 128, 64), (128, 128, 128, 32),
                      (128, 128, 128, 40), (96, 96, 96, 48),
                      (127, 127, 128, 57), (72, 128, 48, 20), (48, 48, 48, 36))
-WIDE_RANK_TIMED = (16, 32, 64)
+WIDE_RANK_TIMED = (32, 64)
 KERNELS = (fused_conv.fused_edge_conv, fused_conv.fused_edge_conv_bwd,
            fused_conv.fused_edge_conv_lowrank,
            fused_conv.fused_edge_conv_lowrank_bwd,
@@ -495,6 +511,12 @@ PALLAS_TOL = 1e-4
 # are timed (both build [E, c_in c_out] float32 arrays: 16.9 GB on all
 # 258 048 edges of it), and the slices its plain reference is computed in
 MSG_SLICE = 16384
+# B5 alone past 128 at (K, c_in, c_out), on the width-256 chunk's leading
+# MSG_SLICE edges: c_in alone (96, 200, 72: X's parts in shared memory), K
+# and c_out (256, 48, 200: one h tile, X in registers), c_in and c_out
+# (TEECNet's at width 256), all three (256, 129, and 200, 136, 250)
+MSG_CHECKED = ((256, 256, 256), (128, 256, 256), (256, 48, 200),
+               (96, 200, 72), (129, 129, 129), (200, 136, 250))
 # A coalesced request vs the same request alone: the same kernel launches
 # (bit-identical) and the same segment sums, whose index_add_ atomics may
 # add in another order: 1e-6 of the max.
@@ -542,7 +564,7 @@ ROLLOUT = {
                   data="advected3d_rollout", exp="fno3d_adv_rollout.yaml",
                   train="fno3d_advected.yaml"),
 }
-ROLLOUT_EPOCHS = 3
+ROLLOUT_EPOCHS = 2
 # The rolled-out frames card vs the CPU from one checkpoint: float32, the
 # card's 'matmul' spectral form against the CPU's 'fft' (6.8e-7 per conv,
 # PERF.md), compounded over T <= 16 steps of the same map: 1e-4 of the max.
@@ -802,8 +824,9 @@ def log_ptxas() -> None:
     (B1/B2 in both types, B5), at width and K 96 and 128 (B1/B2; B5 at
     128), at width 256 and K 256 and 128 and the width-256 path's checked
     shapes (B1/B2, with their chunks; their shared memory must equal the
-    wrapper's mirror, ``fused_conv.conv_smem_bytes``) and at K 48, rank 16
-    (B3/B4 in both types)."""
+    wrapper's mirror, ``fused_conv.conv_smem_bytes``), at K 48, rank 16
+    (B3/B4 in both types) and at ``MSG_CHECKED`` (B5; its shared memory
+    must equal ``pallas_mp.smem_bytes``)."""
     import re
     for lib in ("fused_edge_conv_wgmma", "fused_edge_conv_bwd_wgmma",
                 "fused_edge_conv_f32_wgmma", "fused_edge_conv_bwd_f32_wgmma",
@@ -885,11 +908,21 @@ def log_ptxas() -> None:
             log("ptxas", lib=lib, k=k, c=c, rank=rank, smem_bytes=getattr(
                 fused_conv._load_kernel(lib), f"{lib}_smem_bytes")(k, c, c,
                                                                     rank))
+    # B5 at its chunks' shapes and MSG_CHECKED: blocks per SM and shared
+    # memory, held to the wrapper's mirror of its layout
     b5 = fused_conv._load_kernel("fused_edge_messages_wgmma")
-    for k, c in ((48, 48), (128, 48), (WIDE, WIDE)):
-        log("ptxas", kernel="messages_wgmma", k=k, c=c,
-            blocks_per_sm=b5.fused_edge_messages_wgmma_blocks_per_sm(k, c, c),
-            smem_bytes=b5.fused_edge_messages_wgmma_smem_bytes(k, c, c))
+    shapes = [(48, 48, 48), (128, 48, 48), (WIDE, WIDE, WIDE)]
+    shapes += [s for s in MSG_CHECKED if s not in shapes]
+    for k, c_in, c_out in shapes:
+        c = dict(c=c_in) if c_in == c_out else dict(c_in=c_in, c_out=c_out)
+        smem = b5.fused_edge_messages_wgmma_smem_bytes(k, c_in, c_out)
+        log("ptxas", kernel="messages_wgmma", k=k, **c,
+            blocks_per_sm=b5.fused_edge_messages_wgmma_blocks_per_sm(
+                k, c_in, c_out), smem_bytes=smem)
+        mirror = pallas_mp.smem_bytes(k, c_in, c_out)
+        if smem != mirror:
+            raise AssertionError(f"B5 at K={k}, {c}: {smem} B of shared "
+                                 f"memory, the wrapper's mirror {mirror}")
 
 
 def phase_kernel(op, at: str = "chunk", errs: dict | None = None) -> dict:
@@ -1708,18 +1741,21 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
     full-size chunk (the plain versions' on the slice), the warm request and
     a fused train step in each type; TEECNet at the same width served once
     and trained one epoch, its launches counted.  Returns what the kernels'
-    JSON entries need, and at width 128 B5's operands at the full-size chunk
-    of both models (``msg``, ``tc_msg``) for phase 9.  Past 128 B5 takes no
-    such width: instead the small mesh is served in 'edge3d' (the general
-    lane, no kernel) against the CPU's plain prediction, and TEECNet's B1
-    and B2 are checked and timed at its own chunk (K 128)."""
+    JSON entries need, and B5's operands at the full-size chunk of both
+    models (``msg``, ``tc_msg``) for phase 9.  Past 128 the full-size
+    meshes cannot be served in 'edge3d' (its [E, c_in c_out] arrays): the
+    small mesh is served in 'edge3d' (the general lane, no kernel) against
+    the CPU's plain prediction, and in 'pallas' (B5, ``small_b5``
+    launches) against both; TEECNet's B1 and B2 are checked and timed at
+    its own chunk (K 128)."""
     t0 = time.time()
     log_dir = os.path.join(root, "logs")
     cfg, ds = cfgs["full"], datasets["full"]
     depth = cfg["num_layers"]
     fwd = FWD[False][0]
     label = prefix(models["full"]) + "serve"
-    reps = (20, 5) if width <= WIDE else (WIDER_REPS, WIDER_STEP_REPS)
+    reps = ((WIDE_REPS, WIDE_STEP_REPS) if width <= WIDE
+            else (WIDER_REPS, WIDER_STEP_REPS))
     marks = [("start", t0)]
 
     def lap(part):  # the seconds since the last part, on a *_path line
@@ -1768,6 +1804,29 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
                 cold_s=f"{time.time() - t1:.3f}")
             if not rel <= PALLAS_TOL:
                 raise AssertionError(f"{label} small edge3d {key}: {rel:.3e}")
+        # conv mode 'pallas' (B5 per layer, the general lane) on the same
+        # checkpoint, against 'edge3d' on the card and the CPU's prediction
+        b5 = pallas_mp.fused_edge_messages
+        with env_set("FESR_FUSED_PREDICT", "0"):
+            reset_launches()
+            t1 = time.time()
+            lanes, (pallas_f,) = serve(
+                datasets["small"], make_mode_model(cfgs["small"], "pallas"),
+                [0], log_dir, f"small_w{width}", None)
+            torch.cuda.synchronize()
+            small_b5 = b5.launches
+            check_only(f"{label} small pallas",
+                       {b5: CHUNKS["small"] * cfgs["small"]["num_layers"]})
+        for key in ("velocity", "pressure"):
+            for vs, r in (("edge3d", edge3d[key]), ("cpu_f32", ref[key])):
+                rel = np.abs(pallas_f[key] - r).max() / np.abs(r).max()
+                log(label, mesh="small", mode="pallas", lane=lanes[0][1],
+                    b5_launches=small_b5, field=key,
+                    **{f"vs_{vs}": f"{rel:.3e}"}, tol=PALLAS_TOL,
+                    cold_s=f"{time.time() - t1:.3f}")
+                if not rel <= PALLAS_TOL:
+                    raise AssertionError(f"{label} small pallas {key} vs "
+                                         f"{vs}: {rel:.3e}")
         lap("edge3d")
     trained = train_types(root, ds, cfg, epochs)
     lap("train")
@@ -1787,7 +1846,7 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
     t = fwd_times(op, smi, plain_op=sop, reps=reps[0])
     tb = phase_bwd_times(bwd_operands(op), smi, plain_bop=bwd_operands(sop),
                          reps=reps[0])
-    msg = op["msg"]  # B5's operands at width 128, for phase_messages
+    msg = op["msg"]  # B5's operands at the full-size chunk, for phase 9
     del op, sop
     torch.cuda.empty_cache()
     t.update(request_times(datasets, models, root, smi, f"_w{width}"))
@@ -1818,10 +1877,10 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
                train=dict(fwd=sum(n for n, _ in trained.values()),
                           bwd=sum(n for _, n in trained.values()), served=0),
                t=t, tb=tb, trained=trained, tc_served=tc_served,
-               tc_trained=tc_trained["bfloat16"])
-    if width <= WIDE:
-        out.update(msg=msg, tc_msg=tc_op["msg"])
-    else:
+               tc_trained=tc_trained["bfloat16"], msg=msg,
+               tc_msg=tc_op["msg"])
+    if width > WIDE:
+        out.update(small_b5=small_b5)
         # TEECNet's B1 and B2 at its own chunk (c_in = c_out = width, K 128):
         # against their plain versions on its leading slice, and timed
         tc_k = tc_op["h"].shape[1]
@@ -1922,16 +1981,18 @@ def run_wide_rank(root, smi, datasets, models, cfgs, models_top) -> dict:
         sop = wide_slice(op, WIDE, WIDE, WIDE, rank)
         rp = fused_conv.padded_rank(rank)
         by_rank[rank] = {"padded_rank": rp, "ceiling": rank / rp,
-                         "fwd": fwd_times(op, smi, plain_op=sop),
+                         "fwd": fwd_times(op, smi, plain_op=sop,
+                                          reps=WIDE_REPS),
                          "bwd": phase_bwd_times(bwd_operands(op), smi,
-                                                plain_bop=bwd_operands(sop))}
+                                                plain_bop=bwd_operands(sop),
+                                                reps=WIDE_REPS)}
         del op, sop
         torch.cuda.empty_cache()
     t = dict(by_rank[WIDE_RANK]["fwd"])
     t.update(request_times(datasets, models, root, smi,
                            f"_w{WIDE}r{WIDE_RANK}"))
     batches = train_batches(ds, cfg)
-    t.update(phase_train_times(batches, cfg, smi))
+    t.update(phase_train_times(batches, cfg, smi, reps=WIDE_STEP_REPS))
     del batches
     torch.cuda.empty_cache()
     log(prefix(models["full"]) + "path", depth=cfg["num_layers"],
@@ -1950,18 +2011,21 @@ def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
     from the checkpoint of exp ``full{tag}`` with FESR_FUSED_PREDICT=0 (the
     general lane's ``apply`` per chunk): B5 launched chunks x depth times
     and no other kernel.  The same checkpoint served by the model in its
-    default mode ('edge3d' on the card, no kernel) is the reference.
-    Then each model's warm request time in both modes (B5's share of the
-    path that uses it).  Returns B5's launches per path and the warm
-    request times."""
+    default mode ('edge3d' on the card, no kernel) is the reference up to
+    width 128 (past it 'edge3d' builds [E, c_in c_out] arrays of 67 GB:
+    the small mesh is held to 'edge3d' by ``run_wide``).  Then each model's
+    warm request time in each mode it served.  Returns B5's launches per
+    path and the warm request times."""
     log_dir = os.path.join(root, "logs")
     launches, requests = {}, {}
     with env_set("FESR_FUSED_PREDICT", "0"):
         for label, (cfg, tag) in paths.items():
             want = CHUNKS["full"] * cfg["num_layers"]
             fields = {}
-            for mode, model in (("pallas", make_mode_model(cfg, "pallas")),
-                                ("edge3d", make_model(cfg))):
+            modes = [("pallas", make_mode_model(cfg, "pallas"))]
+            if cfg["width"] <= WIDE:
+                modes.append(("edge3d", make_model(cfg)))
+            for mode, model in modes:
                 reset_launches()
                 t0 = time.time()
                 lanes, (f,) = serve(datasets["full"], model, [0], log_dir,
@@ -1983,6 +2047,8 @@ def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
                 log("pallas", model=label, mode=mode,
                     request_ms=f"{ms:.4f}", card=repr(smi))
             launches[label] = want
+            if "edge3d" not in fields:
+                continue
             for key in ("velocity", "pressure"):
                 r, g = fields["edge3d"][key], fields["pallas"][key]
                 rel = np.abs(g - r).max() / np.abs(r).max()
@@ -1993,16 +2059,77 @@ def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
     return launches, requests
 
 
+def check_messages(label: str, h, x_src, w3, b3, step: int) -> float:
+    """B5 against its plain version on the card (the plain reference
+    computed ``step`` edges at a time), two launches bit-identical, its
+    first launch (the stage image) bit-equal to ``stage_image``; one launch
+    counted per call.  Raises past ``MSG_TOL``; returns the largest
+    absolute error."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plain = pallas_mp.fused_edge_messages_plain
+    b5 = pallas_mp.fused_edge_messages
+    e, k = h.shape
+    c_in = x_src.shape[1]
+    c_out = w3.shape[1] // c_in
+    dp, sd = fused_conv.f32_depth(c_in)
+    with torch.no_grad():
+        ref = torch.cat([plain(h[i:i + step], x_src[i:i + step], w3, b3)
+                         for i in range(0, e, step)])
+        before = b5.launches
+        got = pallas_mp.fused_edge_messages_cuda(h, x_src, w3, b3)
+        counted = b5.launches - before
+        again = pallas_mp.fused_edge_messages_cuda(h, x_src, w3, b3)
+        image = pallas_mp.stage_image_cuda(w3, b3, c_in)
+        torch.cuda.synchronize()
+        abs_err = (got - ref).abs().max().item()
+        rel = abs_err / ref.abs().max().item()
+        same = torch.equal(got, again)
+        image_ok = torch.equal(
+            image.view(torch.int16),
+            pallas_mp.stage_image(w3, b3, c_in).view(torch.int16))
+        del ref, got, again, image
+    torch.cuda.empty_cache()
+    log("messages", model=label, edges=e, k=k, c_in=c_in, c_out=c_out,
+        design=pallas_mp.design(),
+        chunks=fused_conv.f32_chunks(c_out, c_in)[0],
+        slices=dp // sd,
+        max_abs_err=f"{abs_err:.3e}", rel_to_max=f"{rel:.3e}", tol=MSG_TOL,
+        bit_identical=same, stage_image_exact=image_ok, counted=counted)
+    if not (rel <= MSG_TOL and same and image_ok and counted == 1):
+        raise AssertionError(f"B5 at {label}: {rel:.3e} (tol {MSG_TOL}), "
+                             f"repeat identical {same}, stage image exact "
+                             f"{image_ok}, launches counted {counted}")
+    return abs_err
+
+
+def messages_slice(msg: tuple, k: int, c_in: int, c_out: int) -> tuple:
+    """B5's operands on the leading ``MSG_SLICE`` edges of the chunk
+    ``msg`` (h, x_src, w3, b3): its own at its widths, else seeded ones of
+    (K, c_in, c_out) (b3 scaled so that a message stays of order one)."""
+    h, x_src, w3, b3 = msg
+    if (k, c_in, c_out) == (h.shape[1], x_src.shape[1],
+                            w3.shape[1] // x_src.shape[1]):
+        return h[:MSG_SLICE], x_src[:MSG_SLICE], w3, b3
+    gen = torch.Generator().manual_seed(SEED + k + 3 * c_in + 7 * c_out)
+    scale = (k * c_in) ** -0.5
+    ops = (torch.relu(torch.randn(MSG_SLICE, k, generator=gen)),
+           torch.randn(MSG_SLICE, c_in, generator=gen),
+           torch.randn(k, c_in * c_out, generator=gen) * scale,
+           torch.randn(c_in * c_out, generator=gen) * scale)
+    return tuple(t.to(h.device).contiguous() for t in ops)
+
+
 def phase_messages(ops: dict, smi, sliced: tuple = ()) -> dict:
     """B5 against its plain version on the card at each chunk shape of
     ``ops`` (label -> (h, x_src, w3, b3): every edge of the full-size
-    chunk, padding included), then the CUDA-event medians of B5, of its
-    plain version and of one PyTorch call computing the same function, and
-    B5's bound.  For the labels in ``sliced`` (width 128) the plain
-    reference is computed ``MSG_SLICE`` edges at a time, and the plain
-    version and the PyTorch call are timed on the chunk's first
-    ``MSG_SLICE`` edges, the kernel's time there beside them
-    (``plain_edges``, ``ms_at_plain_edges``)."""
+    chunk, padding included; ``check_messages``), then the CUDA-event
+    medians of B5, of its plain version and of one PyTorch call computing
+    the same function, and B5's bound.  For the labels in ``sliced``
+    (widths 128 and 256) the plain reference is computed ``MSG_SLICE``
+    edges at a time, and the plain version and the PyTorch call are timed
+    on the chunk's first ``MSG_SLICE`` edges, the kernel's time there
+    beside them (``plain_edges``, ``ms_at_plain_edges``).  B5's time is
+    the median of 20 launches, past width 128 of ``WIDER_REPS``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     plain = pallas_mp.fused_edge_messages_plain
     out = {}
@@ -2011,33 +2138,10 @@ def phase_messages(ops: dict, smi, sliced: tuple = ()) -> dict:
         c_in = x_src.shape[1]
         c_out = w3.shape[1] // c_in
         step = MSG_SLICE if label in sliced else e
+        abs_err = check_messages(label, h, x_src, w3, b3, step)
         with torch.no_grad():
-            ref = torch.cat([plain(h[i:i + step], x_src[i:i + step], w3, b3)
-                             for i in range(0, e, step)])
-            got = pallas_mp.fused_edge_messages_cuda(h, x_src, w3, b3)
-            again = pallas_mp.fused_edge_messages_cuda(h, x_src, w3, b3)
-            # the kernel's first launch, the stage image, against its plain
-            # version: the same bits
-            image = pallas_mp.stage_image_cuda(w3, b3, c_in)
-            torch.cuda.synchronize()
-            abs_err = (got - ref).abs().max().item()
-            rel = abs_err / ref.abs().max().item()
-            same = torch.equal(got, again)
-            image_ok = torch.equal(
-                image.view(torch.int16),
-                pallas_mp.stage_image(w3, b3, c_in).view(torch.int16))
-            del ref, got, again, image
-            log("messages", model=label, edges=e, k=k, c_in=c_in,
-                c_out=c_out, design=pallas_mp.design(),
-                chunks=fused_conv.f32_chunks(c_out, c_in)[0],
-                max_abs_err=f"{abs_err:.3e}", rel_to_max=f"{rel:.3e}",
-                tol=MSG_TOL, bit_identical=same, stage_image_exact=image_ok)
-            if not (rel <= MSG_TOL and same and image_ok):
-                raise AssertionError(f"B5 at {label}: {rel:.3e} (tol "
-                                     f"{MSG_TOL}), repeat identical {same}, "
-                                     f"stage image exact {image_ok}")
             t = {"ms": cuda_ms(lambda: pallas_mp.fused_edge_messages_cuda(
-                h, x_src, w3, b3))}
+                h, x_src, w3, b3), reps=20 if c_in <= WIDE else WIDER_REPS)}
             # the plain version and the library yardstick, one einsum over
             # [h, 1] and [w3; b3] prepared outside the timed window (float32,
             # TF32 off), on the first `step` edges
@@ -2064,6 +2168,19 @@ def phase_messages(ops: dict, smi, sliced: tuple = ()) -> dict:
         log_times("messages", f"b5_{label}_k{k}", t, smi)
         out[label] = t
     return out
+
+
+def phase_messages_checked(msg: tuple) -> dict:
+    """B5 alone at each (K, c_in, c_out) of ``MSG_CHECKED`` on the leading
+    ``MSG_SLICE`` edges of the chunk ``msg`` (``messages_slice``,
+    ``check_messages``); returns each shape's largest absolute error."""
+    errs = {}
+    for k, c_in, c_out in MSG_CHECKED:
+        at = f"slice_k{k}_{c_in}x{c_out}"
+        errs[at] = check_messages(
+            at, *messages_slice(msg, k, c_in, c_out), MSG_SLICE)
+        torch.cuda.empty_cache()
+    return errs
 
 
 def routing(cfg: dict) -> dict:
@@ -4434,15 +4551,18 @@ def routed_entries(r: dict, smi: str) -> list:
     return entries
 
 
-def messages_entries(t: dict, launches: dict, requests: dict,
-                     smi: str) -> list:
+def messages_entries(t: dict, launches: dict, requests: dict, smi: str,
+                     small_b5: int) -> list:
     """B5's entries: the first with the numbers at KernelNN's chunk (K 48)
     at the top, those at TEECNet's (K 128) under ``teecnet_k128``, and each
     model's warm request time in modes 'pallas' and 'edge3d'; then one for
-    each width-128 path (``kernelnn_w128``, ``teecnet_w128``: K = c_in =
-    c_out = 128) with its own launches, numbers and request times, the
+    each width-128 and width-256 path (``kernelnn_w128``, ``teecnet_w128``,
+    ``kernelnn_w256``, ``teecnet_w256``: K = c_in = c_out = width, K 128
+    for TEECNet) with its own launches, numbers and request times, the
     plain version's and the einsum's times on the chunk's first
-    ``plain_edges`` edges (the kernel's there: ``ms_at_plain_edges``)."""
+    ``plain_edges`` edges (the kernel's there: ``ms_at_plain_edges``); the
+    width-256 KernelNN's also counts the small mesh's ``small_b5`` launches
+    and holds B5's errors at ``MSG_CHECKED`` (``checked``)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "bound_basis", "bound_fma_ms", "k")
     base = {
@@ -4462,13 +4582,18 @@ def messages_entries(t: dict, launches: dict, requests: dict,
         **{key: t["kernelnn"][key] for key in keys},
         teecnet_k128={key: t["teecnet"][key] for key in keys},
         request_ms={k: requests[k] for k in ("kernelnn", "teecnet")})]
-    for label in (f"kernelnn_w{WIDE}", f"teecnet_w{WIDE}"):
-        entries.append(dict(
-            base, path=label, launches=launches[label],
-            launches_by_path={f"{label}_pallas": launches[label]},
-            **{key: t[label][key] for key in keys + (
-                "c_in", "c_out", "plain_edges", "ms_at_plain_edges")},
-            request_ms=requests[label]))
+    for width in (WIDE, WIDER):
+        for label in (f"kernelnn_w{width}", f"teecnet_w{width}"):
+            entries.append(dict(
+                base, path=label, launches=launches[label],
+                launches_by_path={f"{label}_pallas": launches[label]},
+                **{key: t[label][key] for key in keys + (
+                    "c_in", "c_out", "plain_edges", "ms_at_plain_edges")},
+                request_ms=requests[label]))
+    wider = entries[-2]
+    wider["launches"] += small_b5
+    wider["launches_by_path"]["small_pallas"] = small_b5
+    wider["checked"] = {at: err for at, err in t["checked"].items()}
     return entries
 
 
@@ -4576,17 +4701,25 @@ def main() -> int:
                            "_teecnet")
         t1 = time.time()
         wide_labels = (f"kernelnn_w{WIDE}", f"teecnet_w{WIDE}")
+        wider_labels = (f"kernelnn_w{WIDER}", f"teecnet_w{WIDER}")
         pallas_launches, pallas_requests = phase_pallas(
             root, datasets, {"kernelnn": (cfgs["full"], ""),
                              "teecnet": (cfgs_tc["full"], "_teecnet"),
                              wide_labels[0]: (cfgs_w["full"], f"_w{WIDE}"),
                              wide_labels[1]: (cfgs_wtc["full"],
-                                              f"_w{WIDE}_teecnet")}, smi)
-        msg_t = phase_messages({"kernelnn": full["msg"],
-                                "teecnet": teecnet["msg"],
-                                wide_labels[0]: wide.pop("msg"),
-                                wide_labels[1]: wide.pop("tc_msg")}, smi,
-                               sliced=wide_labels)
+                                              f"_w{WIDE}_teecnet"),
+                             wider_labels[0]: (cfgs_w2["full"], f"_w{WIDER}"),
+                             wider_labels[1]: (cfgs_w2tc["full"],
+                                               f"_w{WIDER}_teecnet")}, smi)
+        msg_ops = {"kernelnn": full["msg"], "teecnet": teecnet["msg"],
+                   wide_labels[0]: wide.pop("msg"),
+                   wide_labels[1]: wide.pop("tc_msg"),
+                   wider_labels[0]: wider.pop("msg"),
+                   wider_labels[1]: wider.pop("tc_msg")}
+        msg_t = phase_messages(msg_ops, smi,
+                               sliced=wide_labels + wider_labels)
+        msg_t["checked"] = phase_messages_checked(msg_ops[wider_labels[0]])
+        del msg_ops
         log("pallas", wall_s=f"{time.time() - t1:.1f}")
         routed_cfg = load_yaml(ROUTED_CONFIG)
         cfgs_rt = {k: dict(v, n_clusters=routed_cfg["n_clusters"],
@@ -4624,7 +4757,7 @@ def main() -> int:
                + wide_entries(wider, smi)
                + kernel_entries(teecnet, smi, None, "teecnet")
                + messages_entries(msg_t, pallas_launches, pallas_requests,
-                                  smi)
+                                  smi, wider["small_b5"])
                + routed_entries(routed, smi))
     # the coalesced lane serves the KernelNN path's small-mesh checkpoint
     kernels[0]["launches"] += coalesced["launches"]

@@ -381,15 +381,15 @@ struct DeepWalk {
   }
 };
 
-// The template depth of B1's and B2's A operand past a depth of 128: S =
-// kDeepA stands for A's parts in shared memory (DeepWalk) at any padded
+// The template depth of B1's, B2's and B5's A operand past a depth of 128:
+// S = kDeepA stands for A's parts in shared memory (DeepWalk) at any padded
 // depth of 160 .. 256.
 constexpr int kDeepA = 16;
 
 // f(integral_constant N, integral_constant S) for the chunk width N of ch
-// and S = its depth's k16 steps (1..8), or (kDeepToo) kDeepA past a depth
-// of 128; `otherwise` for a width no instance takes.
-template <bool kDeepToo, typename F, typename R>
+// and S = its depth's k16 steps (1..8), or kDeepA past a depth of 128;
+// `otherwise` for a width no instance takes.
+template <typename F, typename R>
 R shape_switch(const Chunks& ch, F&& f, R otherwise) {
   auto upto32 = [&](auto s) {
     switch (ch.n) {
@@ -402,9 +402,7 @@ R shape_switch(const Chunks& ch, F&& f, R otherwise) {
   auto upto64 = [&](auto s) {
     return with_width(ch.n, [&](auto nn) { return f(nn, s); }, otherwise);
   };
-  if constexpr (kDeepToo) {
-    if (ch.deep) return upto64(std::integral_constant<int, kDeepA>());
-  }
+  if (ch.deep) return upto64(std::integral_constant<int, kDeepA>());
   switch (ch.steps) {
     case 1: return upto64(std::integral_constant<int, 1>());
     case 2: return upto64(std::integral_constant<int, 2>());
@@ -418,21 +416,14 @@ R shape_switch(const Chunks& ch, F&& f, R otherwise) {
 }
 
 // f(integral_constant N, integral_constant S) for the chunk width N of
-// Chunks(rows, depth) and S = depth rounded up to 16, over 16 (1..8);
-// `otherwise` outside 1..128 (B5's instances).
-template <typename F, typename R>
-R with_shape(int rows, int depth, F&& f, R otherwise) {
-  if (depth < 1 || depth > 128 || rows < 1 || rows > 128) return otherwise;
-  return shape_switch<false>(Chunks(rows, depth), f, otherwise);
-}
-
-// The same for rows and depth of 1..256 (B1's and B2's instances): past a
-// depth of 128, S = kDeepA with N of 8..64.
+// Chunks(rows, depth) and S = depth rounded up to 16, over 16 (1..8), or
+// past a depth of 128 S = kDeepA with N of 8..64; `otherwise` outside
+// 1..256 (the instances of B1, B2 and B5).
 template <typename F, typename R>
 R with_wide_shape(int rows, int depth, F&& f, R otherwise) {
   if (depth < 1 || depth > kMaxWide || rows < 1 || rows > kMaxWide)
     return otherwise;
-  return shape_switch<true>(Chunks(rows, depth), f, otherwise);
+  return shape_switch(Chunks(rows, depth), f, otherwise);
 }
 
 // Blocks of `threads` threads and `smem` bytes of dynamic shared memory one

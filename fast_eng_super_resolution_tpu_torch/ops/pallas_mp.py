@@ -14,7 +14,8 @@ use): float32 in and out on the tensor cores, each float32 operand split
 exactly into three bf16 parts (``split3``), w3 and b3 laid out once per call
 as the kernel's shared-memory stages by its first launch (``stage_image`` is
 that launch's plain version), in the float32 B1's column chunks of c_out
-(``fused_conv.f32_chunks``).  K, c_in and c_out run 1..128.  On a CPU tensor
+(``fused_conv.f32_chunks``), past a c_in of 128 in stages of 32 deep
+(``fused_conv.f32_depth``).  K, c_in and c_out run 1..256.  On a CPU tensor
 it runs ``fused_edge_messages_plain``, the same function and the reference
 the kernel is checked against.  Float32 only, and forward only: the JAX
 kernel has no VJP, so the wrapper refuses inputs that need a gradient.
@@ -27,10 +28,10 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .fused_conv import _check, _load_kernel, _round_up, f32_chunks
+from .fused_conv import _check, _load_kernel, f32_chunks, f32_depth
 
-_MAX_K = 128
-_MAX_C = 128
+_MAX_K = 256
+_MAX_C = 256
 
 
 def design() -> str:
@@ -52,35 +53,55 @@ def split3(v: torch.Tensor) -> tuple:
 
 
 def image_shape(k: int, c_in: int, c_out: int) -> tuple:
-    """Shape of the stage image at K = ``k``: [chunks (K+1), 3, n // 8, dp //
-    8, 8, 8] bf16, (chunks, n) = ``f32_chunks(c_out, c_in)`` and dp = c_in
-    rounded up to 16 (``fused_conv.image_numel(k, c_out, c_in)`` elements)."""
+    """Shape of the stage image at K = ``k``: [chunks (K+1) slices, 3, n //
+    8, sd // 8, 8, 8] bf16, (chunks, n) = ``f32_chunks(c_out, c_in)`` and
+    (dp, sd) = ``f32_depth(c_in)``, slices = dp / sd: one stage of dp = c_in
+    rounded up to 16 up to 128, past it dp / 32 stages of 32
+    (``fused_conv.image_numel(k, c_out, c_in)`` elements)."""
     chunks, n = f32_chunks(c_out, c_in)
-    return (chunks * (k + 1), 3, n // 8, _round_up(c_in, 16) // 8, 8, 8)
+    dp, sd = f32_depth(c_in)
+    return (chunks * (k + 1) * (dp // sd), 3, n // 8, sd // 8, 8, 8)
 
 
 def stage_image(w3: torch.Tensor, b3: torch.Tensor, c_in: int) -> torch.Tensor:
     """The kernel's shared-memory stages of W~ = [w3; b3] as [K+1, c_in,
-    c_out]: stage c (K+1) + k holds column chunk c of W~_k (``f32_chunks``:
-    n columns of c_out from c n on; one chunk of all of them up to 64) as
+    c_out]: stage (c (K+1) + k) slices + l holds column chunk c of W~_k
+    (``f32_chunks``: n columns of c_out from c n on; one chunk of all of
+    them up to 64) at depths l sd .. l sd + sd - 1 (``f32_depth``: c_in
+    padded to dp; one slice of sd = dp up to 128, past it slices of 32) as
     three bf16 parts (``split3``), each the K-major B operand of a wgmma,
-    [n rows (o), dp deep (i)] with dp = c_in rounded up to 16, zero padded,
-    in 8 x 8 core matrices: element (o, i) at (o // 8) * 8 dp + (i // 8) *
-    64 + (o % 8) * 8 + i % 8 (csrc/wgmma_tile.cuh, kmajor).  The float32
-    B1's image of the same w3 and b3 (csrc/f32_wgmma.cuh stage_image, by
-    output).  Returns the bf16 tensor of ``image_shape`` (contiguous).  The
-    plain version of the kernel's first launch, which writes the same
-    bits."""
+    [n rows (o), sd deep (i)], zero padded, in 8 x 8 core matrices: element
+    (o, i) at (o // 8) * 8 sd + (i // 8) * 64 + (o % 8) * 8 + i % 8
+    (csrc/wgmma_tile.cuh, kmajor).  The float32 B1's image of the same w3
+    and b3 (csrc/f32_wgmma.cuh stage_image, by output).  Returns the bf16
+    tensor of ``image_shape`` (contiguous).  The plain version of the
+    kernel's first launch, which writes the same bits."""
     k1 = w3.shape[0] + 1
     c_out = w3.shape[1] // c_in
     chunks, n = f32_chunks(c_out, c_in)
-    shape = image_shape(k1 - 1, c_in, c_out)
+    dp, sd = f32_depth(c_in)
     w = torch.cat([w3, b3[None]]).reshape(k1, c_in, c_out)
     parts = torch.stack(split3(w), 1).transpose(2, 3)  # [K+1, 3, o, i]
-    parts = F.pad(parts, (0, 8 * shape[3] - c_in, 0, chunks * n - c_out))
-    parts = parts.reshape(k1, 3, chunks, n, 8 * shape[3]).permute(2, 0, 1, 3, 4)
-    return parts.reshape(shape[:3] + (8, shape[3], 8)).permute(
-        0, 1, 2, 4, 3, 5).contiguous()
+    parts = F.pad(parts, (0, dp - c_in, 0, chunks * n - c_out))
+    parts = parts.reshape(k1, 3, chunks, n // 8, 8, dp // sd, sd // 8, 8)
+    # -> [chunk, k, slice, part, o // 8, i // 8, o % 8, i % 8]
+    return parts.permute(2, 0, 5, 1, 3, 6, 4, 7).reshape(
+        image_shape(k1 - 1, c_in, c_out)).contiguous()
+
+
+def smem_bytes(k: int, c_in: int, c_out: int) -> int:
+    """Bytes of shared memory one block of the kernel takes
+    (csrc/fused_edge_messages_wgmma.cu Layout): the ring of four stages of
+    three [n, sd] bf16 operands after 128 bytes of barriers, past a c_in of
+    128 X's parts [3, 64, dp] bf16, then the h tiles [64, (K+1) | 1]
+    float32: two consumer warpgroups up to a c_in of 128, else one; two
+    tiles each up to a K of 128, else one."""
+    _, n = f32_chunks(c_out, c_in)
+    dp, sd = f32_depth(c_in)
+    deep = c_in > 128
+    consumers, hbufs = (1 if deep else 2), (2 if k <= 128 else 1)
+    return (128 + 4 * 3 * 2 * n * sd + (3 * 2 * 64 * dp if deep else 0)
+            + 4 * hbufs * consumers * 64 * ((k + 1) | 1))
 
 
 def stage_image_cuda(w3: torch.Tensor, b3: torch.Tensor,
@@ -121,7 +142,7 @@ def fused_edge_messages_cuda(h: torch.Tensor, x_src: torch.Tensor,
                              w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
     """Launches the CUDA kernels on the current stream (the stage image of
     w3 and b3 into scratch, then the messages): every operand float32,
-    contiguous and on one device; K, c_in and c_out in 1..128.
+    contiguous and on one device; K, c_in and c_out in 1..256.
     Checks every operand and raises on what the kernel does not take; raises
     if the launch fails."""
     if h.dim() != 2 or x_src.dim() != 2 or w3.dim() != 2:

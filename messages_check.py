@@ -33,7 +33,8 @@ from fast_eng_super_resolution_tpu_torch.ops import fused_conv  # noqa: E402
 
 SOURCE = os.path.join("fast_eng_super_resolution_tpu_torch", "csrc",
                       "fused_edge_messages_wgmma.cu")
-SHAPES = ((48, 48, 48), (128, 48, 48), (128, 128, 128))
+SHAPES = ((48, 48, 48), (128, 48, 48), (128, 128, 128), (128, 256, 256),
+          (256, 256, 256))
 
 
 def build(repos: dict, out_dir: str) -> dict:

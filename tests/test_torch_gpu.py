@@ -578,12 +578,12 @@ def test_messages_wrapper_checks_operands(cuda):
         fn(h, x.t().contiguous().t(), w3, b3)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         fn(h, x, w3, b3.cpu())
-    with pytest.raises(ValueError, match="K=129"):
-        fn(torch.zeros(100, 129, device="cuda"), x,
-           torch.zeros(129, 64, device="cuda"), b3)
+    with pytest.raises(ValueError, match="K=257"):
+        fn(torch.zeros(100, 257, device="cuda"), x,
+           torch.zeros(257, 64, device="cuda"), b3)
     with pytest.raises(ValueError, match="c_out"):
-        fn(h, x[:, :1].contiguous(), torch.zeros(6, 129, device="cuda"),
-           torch.zeros(129, device="cuda"))
+        fn(h, x[:, :1].contiguous(), torch.zeros(6, 257, device="cuda"),
+           torch.zeros(257, device="cuda"))
     with pytest.raises(RuntimeError, match="no backward"):
         pallas_mp.fused_edge_messages(h, x, w3.requires_grad_(), b3)
 
@@ -652,19 +652,55 @@ def test_messages_stage_image_kernel_matches_plain(cuda, c_in, c_out, k):
     assert torch.equal(image.cpu().view(torch.int16), want.view(torch.int16))
 
 
-@pytest.mark.parametrize("k,c_in,c_out", [(129, 8, 8), (8, 129, 8),
-                                          (8, 8, 129)])
+@pytest.mark.parametrize("k,c_in,c_out", [(257, 8, 8), (8, 257, 8),
+                                          (8, 8, 257)])
 def test_messages_limits(cuda, k, c_in, c_out):
-    """Past 128 (K, c_in or c_out) the wrapper raises before any launch,
-    naming the limit; at 128 it launches."""
+    """Past 256 (K, c_in or c_out) the wrapper raises before any launch,
+    naming the limit; at 256 it launches."""
     ops = [torch.as_tensor(a, device="cuda")
            for a in _rect_messages_operands(70, k, c_in, c_out, seed=13)]
     before = pallas_mp.fused_edge_messages.launches
-    with torch.no_grad(), pytest.raises(ValueError, match="1..128"):
+    with torch.no_grad(), pytest.raises(ValueError, match="1..256"):
         pallas_mp.fused_edge_messages(*ops)
     assert pallas_mp.fused_edge_messages.launches == before
-    top = [min(v, 128) for v in (k, c_in, c_out)]
+    top = [min(v, 256) for v in (k, c_in, c_out)]
     assert _messages_rel(*_rect_messages_operands(70, *top, seed=14)) < MSG_TOL
+
+
+# (K, c_in, c_out) past 128: c_in alone (96, 200, 72: X's parts in shared
+# memory, two h tiles), K and c_out (256, 48, 200: one h tile, X in
+# registers), c_in and c_out (TEECNet's at width 256: 128, 256, 256), all
+# three (256, 256, 256; 129, 129, 129; 200, 136, 250); c_out alone is
+# test_messages_limits' (8, 8, 256)
+MESSAGES_WIDE = [(256, 256, 256), (128, 256, 256), (256, 48, 200),
+                 (96, 200, 72), (129, 129, 129), (200, 136, 250)]
+
+
+@pytest.mark.parametrize("k,c_in,c_out", MESSAGES_WIDE)
+def test_messages_past_128_match_plain(cuda, k, c_in, c_out):
+    """B5 past 128 against its plain version on the card (float32, TF32
+    off) on 1 500 edges (a ragged last tile): one launch counted, two
+    launches bit-identical, the stage image bit-equal to ``stage_image``."""
+    ops = [torch.as_tensor(a, device="cuda") for a in
+           _rect_messages_operands(1500, k, c_in, c_out, seed=k + c_in)]
+    before = pallas_mp.fused_edge_messages.launches
+    with torch.no_grad():
+        got = pallas_mp.fused_edge_messages(*ops)
+        assert pallas_mp.fused_edge_messages.launches == before + 1
+        again = pallas_mp.fused_edge_messages_cuda(*ops)
+        ref = pallas_mp.fused_edge_messages_plain(*ops)
+        image = pallas_mp.stage_image_cuda(ops[2], ops[3], c_in)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (1500, c_out)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    err = (got - ref).abs().max().item() / ref.abs().max().item()
+    assert err < MSG_TOL, err
+    want = pallas_mp.stage_image(ops[2].cpu(), ops[3].cpu(), c_in)
+    assert torch.equal(image.cpu().view(torch.int16), want.view(torch.int16))
+    lib = pallas_mp._load_kernel("fused_edge_messages_wgmma")
+    assert lib.fused_edge_messages_wgmma_blocks_per_sm(k, c_in, c_out) >= 1
+    assert lib.fused_edge_messages_wgmma_smem_bytes(k, c_in, c_out) == \
+        pallas_mp.smem_bytes(k, c_in, c_out)
 
 
 @pytest.mark.parametrize("scale", [1e-20, 1e15])

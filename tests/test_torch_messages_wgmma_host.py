@@ -3,12 +3,14 @@
 csrc/messages_wgmma.cuh), on the CPU: the design it reports, the exact
 three-part bf16 split of float32 values (``split3``), the stage image the
 wrapper builds of w3 and b3 (``stage_image``, in the float32 B1's column
-chunks of c_out) and its inverse, a numpy emulation of one tile's loop (the
-register-A fragment map, a pass over k per column chunk, the six products
-of the split parts per k, the per-k float32 weighting by h, the
-accumulator map of the stores) against ``fused_edge_messages_plain`` and a
-float64 reference, at widths and K up to 128, and the wrapper refusing
-what the kernel does not take."""
+chunks of c_out, past a c_in of 128 in stages of 32 deep) and its inverse,
+a numpy emulation of one tile's loop (X's parts as register-A fragments,
+or past a c_in of 128 split into shared memory and read a stage of 32 at a
+time; a pass over k per column chunk, the six products of the split parts
+per k, the per-k float32 weighting by the h tile, the accumulator map of
+the stores) against ``fused_edge_messages_plain`` and a float64 reference,
+at widths and K up to 256, the kernel's shared memory at every width, and
+the wrapper refusing what the kernel does not take."""
 
 import numpy as np
 import pytest
@@ -102,44 +104,63 @@ def _weights(k, c_in, c_out, seed):
     return w3, b3
 
 
-def _image_parts(image, c_in, c_out):
-    """The inverse of stage_image's layout: [K+1, 3, chunks n, dp] float64,
-    read element by element at the K-major offsets the kernel's descriptor
-    reads, stage c (K+1) + k holding columns c n .. c n + n - 1 of W~_k."""
+def _image_parts(image, c_in, c_out, chunk=None):
+    """The inverse of stage_image's layout: [K+1, 3, chunks n, dp] float64
+    (one chunk's [K+1, 3, n, dp] if ``chunk`` is given), read element by
+    element at the K-major offsets the kernel's descriptor reads, stage (c
+    (K+1) + k) slices + l holding columns c n .. c n + n - 1 of W~_k at
+    depths l sd .. l sd + sd - 1 (one slice up to a c_in of 128)."""
     chunks, n = fused_conv.f32_chunks(c_out, c_in)
-    k1 = image.shape[0] // chunks
-    dp = _round_up(c_in, 16)
-    flat = image.reshape(chunks, k1, 3, n * dp).double().numpy()
-    o, i = np.meshgrid(np.arange(n), np.arange(dp), indexing="ij")
-    return np.concatenate([flat[c][:, :, kmajor(o, i, dp)]
-                           for c in range(chunks)], axis=2)
+    dp, sd = fused_conv.f32_depth(c_in)
+    slices = dp // sd
+    k1 = image.shape[0] // (chunks * slices)
+    flat = image.reshape(chunks, k1, slices, 3, n * sd)
+    o, i = np.meshgrid(np.arange(n), np.arange(sd), indexing="ij")
+    at = kmajor(o, i, sd)
+
+    def one(c):
+        return np.concatenate([flat[c, :, l].double().numpy()[:, :, at]
+                               for l in range(slices)], axis=3)
+    if chunk is not None:
+        return one(chunk)
+    return np.concatenate([one(c) for c in range(chunks)], axis=2)
 
 
 # the widths past 64 take several column chunks (f32_chunks: 4 of 32 at
-# c_in 65-128 and c_out past 96, 1 of 8 at c_out 8) or a depth past 64
+# c_in 65-128 and c_out past 96, 1 of 8 at c_out 8) or a depth past 64;
+# past 128: c_out in chunks of up to 64 (5 of 56 at 250), c_in past 128 in
+# stages of 32 deep (dp 160 at 129 and 136, 224 at 200, 256)
 @pytest.mark.parametrize("k", [1, 48, 128])
 @pytest.mark.parametrize("c_in,c_out", [(1, 1), (5, 7), (24, 24), (48, 48),
                                         (64, 64), (24, 5), (128, 128),
-                                        (65, 127), (100, 8), (48, 128)])
+                                        (65, 127), (100, 8), (48, 128),
+                                        (256, 256), (129, 129), (200, 72),
+                                        (136, 250), (48, 250)])
 def test_stage_image_inverse_recovers_w3_and_b3(k, c_in, c_out):
-    """Stage c (K+1) + k of the image is column chunk c of W~_k = w3[k] (b3
-    for k = K) as c_in x c_out, its three parts laid out as K-major B
-    operands [n, dp]: reading the image back through kmajor and summing the
-    parts gives w3 and b3 bit for bit, and the padding (o >= c_out, i >=
-    c_in) is zero.  One chunk (c_out <= 64 at c_in <= 64) is the image of
-    [np, dp] operands, np = c_out rounded up to 8."""
+    """Stage (c (K+1) + k) slices + l of the image is column chunk c of
+    W~_k = w3[k] (b3 for k = K) as c_in x c_out at depths l sd .., its
+    three parts laid out as K-major B operands [n, sd]: reading the image
+    back through kmajor and summing the parts gives w3 and b3 bit for bit,
+    and the padding (o >= c_out, i >= c_in) is zero.  One chunk (c_out <=
+    64 at c_in <= 64) is the image of [np, dp] operands, np = c_out
+    rounded up to 8; up to a c_in of 128 one slice, sd = dp."""
     w3, b3 = _weights(k, c_in, c_out, seed=k + c_in)
     image = pallas_mp.stage_image(w3, b3, c_in)
     chunks, n = fused_conv.f32_chunks(c_out, c_in)
-    dp = _round_up(c_in, 16)
+    dp, sd = fused_conv.f32_depth(c_in)
     if c_in <= 64 and c_out <= 64:
         assert (chunks, n) == (1, _round_up(c_out, 8))
+    if c_in <= 128:
+        assert sd == dp == _round_up(c_in, 16)
+    else:
+        assert sd == 32 and dp == _round_up(c_in, 32) and n <= 64
     assert image.dtype == torch.bfloat16 and image.is_contiguous()
-    assert image.shape == (chunks * (k + 1), 3, n // 8, dp // 8, 8, 8)
+    assert image.shape == (chunks * (k + 1) * (dp // sd), 3, n // 8, sd // 8,
+                           8, 8)
     assert image.numel() == fused_conv.image_numel(k, c_out, c_in)
-    # one stage is 3 n dp bf16 values: a multiple of 16 bytes (bulk copy),
+    # one stage is 3 n sd bf16 values: a multiple of 16 bytes (bulk copy),
     # within 24 KB
-    assert (3 * n * dp * 2) % 16 == 0 and 3 * n * dp * 2 <= 24 * 1024
+    assert (3 * n * sd * 2) % 16 == 0 and 3 * n * sd * 2 <= 24 * 1024
     parts = _image_parts(image, c_in, c_out)          # [K+1, 3, o, i]
     assert not parts[:, :, c_out:, :].any() and not parts[:, :, :, c_in:].any()
     got = parts.sum(1)[:, :c_out, :c_in].transpose(0, 2, 1)  # [K+1, i, o]
@@ -148,6 +169,35 @@ def test_stage_image_inverse_recovers_w3_and_b3(k, c_in, c_out):
     for p, ref in zip(range(3), pallas_mp.split3(torch.cat([w3, b3[None]]))):
         ref = ref.double().reshape(k + 1, c_in, c_out).numpy().transpose(0, 2, 1)
         assert np.array_equal(parts[:, p, :c_out, :c_in], ref)
+
+
+def test_layout_fits_shared_memory():
+    """The kernel's shared memory (``pallas_mp.smem_bytes``, the mirror of
+    csrc/fused_edge_messages_wgmma.cu's Layout, held to the library on the
+    card by chip_smoke.py) stays within the 227 KB a block may take
+    (``fused_conv.SMEM_MAX``) at every c_in and c_out 1..256 at K 128 and
+    256, the largest K of the layouts with two h tiles per consumer and
+    with one (the bytes grow with K).  Up to widths and K of 128 it is
+    the layout of two consumers with two h tiles each and one stage of c_in
+    rounded up to 16; the totals are those the source's header gives."""
+    for k in (128, 256):
+        for c_in in range(1, 257):
+            for c_out in range(1, 257):
+                b = pallas_mp.smem_bytes(k, c_in, c_out)
+                assert b <= fused_conv.SMEM_MAX, (k, c_in, c_out, b)
+    for k, c_in, c_out in ((1, 1, 1), (48, 48, 48), (128, 128, 128),
+                           (128, 100, 8), (17, 65, 127), (128, 48, 128)):
+        _, n = fused_conv.f32_chunks(c_out, c_in)
+        dp = _round_up(c_in, 16)
+        assert pallas_mp.smem_bytes(k, c_in, c_out) == (
+            128 + 4 * 3 * 2 * n * dp + 4 * 2 * 2 * 64 * ((k + 1) | 1))
+    # K 256 at c_in 48: 192 KB; at c_in 65..128: 225 KB; K 128 and 256 at
+    # c_in = c_out = 256: 209 and 208 KB
+    assert pallas_mp.smem_bytes(256, 48, 200) == 196_224
+    assert max(pallas_mp.smem_bytes(256, c, 256) for c in range(65, 129)) \
+        == 230_016
+    assert pallas_mp.smem_bytes(128, 256, 256) == 213_632
+    assert pallas_mp.smem_bytes(256, 256, 256) == 213_376
 
 
 def test_a_fragment_map_covers_each_element_once():
@@ -169,48 +219,61 @@ def _split3_np(a):
 
 def _emulate_tile(h, x, image, e0, n, k, c_in, c_out):
     """One consumer warpgroup's tile as the kernel runs it, thread by
-    thread: X's parts loaded into register fragments (rows past n and
-    columns past c_in zero) once, then per column chunk a pass over k: the
-    six products of the parts (the smallest first, each exact: float64
-    sums of bf16 products), weighted by h~[row, k] in float32 into each
-    thread's accumulator values, then stored through the accumulator map
-    at the chunk's columns.  Returns the tile's [n, c_out]."""
+    thread.  X's parts (rows past n and columns past c_in zero) once per
+    tile: up to a c_in of 128 loaded into register fragments, past it split
+    eight values at a time into shared memory at the K-major offsets of
+    [64, dp] operands (put_split8) and read by a product a stage of 32 deep
+    at a time (DeepWalk: the descriptor 32 columns on per slice).  Then per
+    column chunk a pass over k: the six products of the parts (the
+    smallest first, each exact: float64 sums of bf16 products), weighted
+    by h~[row, k] from the h tile in float32 into each thread's accumulator
+    values, then stored through the accumulator map at the chunk's
+    columns.  Returns the tile's [n, c_out]."""
     chunks, nc = fused_conv.f32_chunks(c_out, c_in)
-    dp = _round_up(c_in, 16)
-    steps = dp // 16
+    dp, sd = fused_conv.f32_depth(c_in)
     half = nc // 2
     v = np.arange(8)[None, :]
-    # registers: the kernel loads x[e0 + a_row, 16 s + a_col] per step s
-    xa = np.zeros((3, steps, 128, 8))
-    for s in range(steps):
-        rows, cols = a_row(THREADS, v) + 0 * v, 16 * s + a_col(THREADS, v)
-        ok = (rows < n) & (cols < c_in)
-        vals = np.where(ok, x[np.minimum(e0 + rows, len(x) - 1),
-                              np.minimum(cols, c_in - 1)], 0.0)
-        for p, part in enumerate(_split3_np(vals)):
-            xa[p, s] = part
-    # the A operand each fragment set stands for, [64, 16] per (part, step)
-    a_full = np.zeros((3, steps, 64, 16))
-    a_full[:, :, a_row(THREADS, v) + 0 * v, a_col(THREADS, v) + 0 * THREADS] = xa
+    xt = np.zeros((64, dp), np.float32)
+    xt[:n, :c_in] = x[e0:e0 + n]
+    # the A operand each part stands for, [64, dp]
+    a_full = np.zeros((3, 64, dp))
+    if c_in <= 128:
+        # registers: the kernel loads x[e0 + a_row, 16 s + a_col] per step s
+        for s in range(dp // 16):
+            rows, cols = a_row(THREADS, v) + 0 * v, 16 * s + a_col(THREADS, v)
+            for p, part in enumerate(_split3_np(xt[rows, cols])):
+                a_full[p, rows, cols] = part
+    else:
+        # shared memory: thread q of the warpgroup splits row q // (dp / 8),
+        # columns 8 (q % (dp / 8)) .. + 7, into the three parts at kmajor
+        a_sm = np.zeros((3, 64 * dp))
+        for q in range(64 * dp // 8):
+            row, d = divmod(q, dp // 8)
+            cols = 8 * d + np.arange(8)
+            for p, part in enumerate(_split3_np(xt[row, cols])):
+                a_sm[p, kmajor(row, cols, dp)] = part
+        # slice l's product reads columns 32 l .. 32 l + 31 through the
+        # descriptor at 32 l
+        r, c = np.meshgrid(np.arange(64), np.arange(dp), indexing="ij")
+        a_full = a_sm[:, kmajor(r, c, dp)]
     # a ragged tile's h rows past n keep what the tile before left there
-    # (NaN here): their X rows are zero and their sums are never stored
+    # (NaN here; past K 128 the one h tile, refilled after each tile's
+    # walk): their X rows are zero and their sums are never stored
     hs = np.full((64, k + 1), np.nan, np.float32)
     hs[:n, :k] = h[e0:e0 + n]
     hs[:, k] = 1.0
-    parts = _image_parts(image, c_in, c_out)   # [K+1, 3, chunks nc, dp]
     j = np.arange(half)[None, :]
     rows_j, cols_j = acc_row(THREADS, j), acc_col(THREADS, j) + 0 * THREADS
     order = [(2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)]  # (X, W) parts
     out = np.full((64, c_out), np.nan, np.float32)
     for c in range(chunks):
-        w = parts[:, :, c * nc:(c + 1) * nc]      # the chunk's stages
+        w = _image_parts(image, c_in, c_out, c)     # [K+1, 3, nc, dp]
+        # P_k for every k: the six products over the depth, float64
+        p = sum((w[:, wp].reshape(-1, dp) @ a_full[xp].T).reshape(k + 1, nc, 64)
+                for xp, wp in order).transpose(0, 2, 1)
         m = np.zeros((128, half), np.float32)
         for kk in range(k + 1):
-            p = np.zeros((64, nc))
-            for xp, wp in order:
-                for s in range(steps):
-                    p += a_full[xp, s] @ w[kk, wp, :, 16 * s:16 * s + 16].T
-            acc = p[rows_j, cols_j].astype(np.float32)
+            acc = p[kk][rows_j, cols_j].astype(np.float32)
             m = (m + hs[rows_j, kk] * acc).astype(np.float32)
         col = c * nc + cols_j
         ok = col < c_out
@@ -250,23 +313,35 @@ def test_tile_loop_matches_plain_and_float64(e, k):
     assert np.abs(got - plain).max() <= 1e-6 * top
 
 
+# past 128: X's parts in shared memory with two h tiles (200, 72 at K
+# 128), with one h tile (256 at K 256), and in registers with one h tile
+# (48, 136 at K 256: three column chunks of 48)
 @pytest.mark.parametrize("c_in,c_out,k", [(5, 7, 3), (64, 64, 17), (1, 1, 1),
                                           (24, 40, 48), (128, 128, 128),
-                                          (65, 127, 128), (100, 8, 48)])
+                                          (65, 127, 128), (100, 8, 48),
+                                          (256, 256, 256), (200, 72, 128),
+                                          (48, 136, 256)])
 def test_tile_loop_at_other_widths(c_in, c_out, k):
     """Widths that are not multiples of 8 or 16 (padded rows and depth of
     the operands), past 64 (four column chunks of 32 at c_in 65-128; one
-    chunk of 8 at a depth of 112) and the widest: the same agreement."""
+    chunk of 8 at a depth of 112), past 128 (the layouts of the deep walk
+    and of one h tile) and the widest: against the plain version and
+    float64, within 1e-6 of the max."""
     e = 70
     h, x, w3, b3 = _operands(e, k, c_in, c_out, seed=c_in + c_out + k)
     image = pallas_mp.stage_image(w3, b3, c_in)
     got = np.concatenate([
         _emulate_tile(h, x, image, e0, min(64, e - e0), k, c_in, c_out)
         for e0 in range(0, e, 64)])
+    plain = pallas_mp.fused_edge_messages_plain(
+        torch.as_tensor(h), torch.as_tensor(x), w3, b3).numpy()
     w = (h.astype(np.float64) @ w3.double().numpy()
          + b3.double().numpy()).reshape(e, c_in, c_out)
     ref = np.einsum("ei,eio->eo", x.astype(np.float64), w)
-    assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+    top = np.abs(ref).max()
+    assert got.shape == plain.shape == (e, c_out)
+    assert np.abs(got - ref).max() <= 1e-6 * top
+    assert np.abs(got - plain).max() <= 1e-6 * top
 
 
 def test_three_products_would_not_be_float32_exact():
@@ -299,11 +374,11 @@ def _cpu(e=40, k=6, c_in=8, c_out=8):
 
 
 @pytest.mark.parametrize("shape,match", [
-    (dict(k=129), "K=129 outside the kernel's 1..128"),
-    (dict(c_in=129, c_out=2), "c_in=129 outside 1..128"),
-    (dict(c_in=2, c_out=129), "c_out=129 outside the kernel's 1..128")])
+    (dict(k=257), "K=257 outside the kernel's 1..256"),
+    (dict(c_in=257, c_out=2), "c_in=257 outside 1..256"),
+    (dict(c_in=2, c_out=257), "c_out=257 outside the kernel's 1..256")])
 def test_wrapper_refuses_geometry(shape, match):
-    """Past 128 (K, c_in or c_out) the wrapper raises before any launch,
+    """Past 256 (K, c_in or c_out) the wrapper raises before any launch,
     naming the limit."""
     with pytest.raises(ValueError, match=match):
         pallas_mp.fused_edge_messages_cuda(*_cpu(**shape))

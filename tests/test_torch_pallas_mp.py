@@ -40,11 +40,14 @@ def _operands(e, k, w, seed=0, c_out=None):
 
 
 # (E, K, c_in, c_out): width 16, and past 64 (the CUDA kernel's column
-# chunks) at the widest and at a rectangular shape, with a few hundred edges
+# chunks) at 128 and at a rectangular shape, and past 128 (c_in in stages
+# of 32, K past 128 with one h tile) at the widest and at two rectangular
+# shapes, with a few hundred edges
 @pytest.mark.parametrize("e,k,c_in,c_out", [
     pytest.param(700, 24, 16, 16, id="24"),
     pytest.param(700, 128, 16, 16, id="128"),
-    (300, 128, 128, 128), (300, 48, 72, 100)])
+    (300, 128, 128, 128), (300, 48, 72, 100), (300, 256, 256, 256),
+    (300, 200, 136, 250), (300, 256, 48, 200)])
 def test_plain_matches_jax_kernel(e, k, c_in, c_out):
     """E is not a multiple of the JAX kernel's block; float32 on both
     sides, sums in other orders: rtol/atol 1e-4 (tests/test_pallas.py's)."""
@@ -154,13 +157,16 @@ def test_kernelnn_mode_matches_jax(mode):
     assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
-def test_kernelnn_width128_pallas_matches_jax():
-    """Width 128 and K 128 (the width-128 checkpoints' shape, past the CUDA
-    kernel's old limit of 64): the JAX KernelNN in mode 'pallas' (its
-    Pallas kernel in interpret mode) exported through ``export_pth`` and
-    imported by the port's KernelNN in mode 'pallas', on the same small
-    graph: float32, sums in other orders, 1e-5 of the max (depth 2)."""
-    cfg = dict(width=128, ker_width=128, depth=2, in_width=4, out_width=4)
+@pytest.mark.parametrize("width", [128, 256])
+def test_kernelnn_wide_pallas_matches_jax(width):
+    """Width and K 128 and 256 (the width-128 and width-256 checkpoints'
+    shapes, past the CUDA kernel's earlier limits of 64 and 128): the JAX
+    KernelNN in mode 'pallas' (its Pallas kernel in interpret mode)
+    exported through ``export_pth`` and imported by the port's KernelNN in
+    mode 'pallas', on the same small graph: float32, sums in other orders,
+    1e-5 of the max (depth 2)."""
+    cfg = dict(width=width, ker_width=width, depth=2, in_width=4,
+               out_width=4)
     jmodel = JKernelNN(mode="pallas", **cfg)
     params = jax.tree_util.tree_map(np.asarray,
                                     jmodel.init(jax.random.PRNGKey(1)))
