@@ -113,7 +113,7 @@ to 2 epochs (its loss is recorded, not held to fall).
              K 64 and rank 32): both full-size meshes served (4 B3 launches
              each, none of B1 or B2, every .vtu finite) and the small mesh
              against the CPU's float32 plain prediction;
-             ``train_graph_ALDD`` cut to 2 epochs in bfloat16 and in float32
+             ``train_graph_ALDD`` cut to 1 epoch in bfloat16 and in float32
              (B3 and B4 launch counts held); phase 7's float32 parity card
              vs CPU; at ``kernel_rank: 64`` one full-size request and the
              parity again; B3 and B4 against their plain versions at
@@ -122,9 +122,10 @@ to 2 epochs (its loss is recorded, not held to fall).
              (72, 128, 48, 20) and (48, 48, 48, 36) on the leading 16
              receiver blocks of the full-size chunk, both types, both S
              forms, repeated launches bit-identical; their times and bounds
-             on the full-size chunk at ranks 32 and 64 (the plain
-             versions' on the slice), the warm request and a fused train
-             step in both types (``[w128r_*]``, ``[w128r<r>_*]`` lines).
+             on the full-size chunk at rank 32 (the plain versions' on the
+             slice; rank 64 at this width: lowrank_step_check.py --width
+             128), the warm request and a fused train step in both types
+             (``[w128r_*]``, ``[w128r<r>_*]`` lines).
 
    width 256 — the width-128 path's config at width 256 (K = 256, depth
              2; B1 and B2 past width 128: the bfloat16 B1 in column chunks
@@ -147,6 +148,33 @@ to 2 epochs (its loss is recorded, not held to fall).
              serving one full-size request and trained one epoch, its B1 and
              B2 checked and timed at its own chunk (``[w256_*]``,
              ``[teecnet_w256_*]`` lines).
+
+   width 256, rank r — the width-256 path's config with ``kernel_rank:
+             32`` (head 2 x 32 x 256 = 16 384 columns; B3 and B4 past width
+             and K 128: the bfloat16 chunks in stages of 64 deep past a
+             depth of 128, the float32 kernels in their wide layouts): both
+             full-size meshes served (4 B3 launches each, none of B1 or B2,
+             every .vtu finite) and the small mesh against the CPU's
+             float32 plain prediction; ``train_graph_ALDD`` for one epoch in
+             bfloat16 and in float32 (B3 and B4 launch counts held); phase
+             7's float32 parity card vs CPU; at ``kernel_rank: 64`` one
+             full-size request and the parity again; B3 and B4 against their
+             plain versions at (c_in, c_out, K, rank) = (256, 256, 256, 64),
+             (256, 256, 256, 32), (129, 129, 129, 57), (136, 250, 200, 33),
+             (48, 48, 256, 16), (256, 48, 64, 24) and (40, 256, 72, 40) on
+             the leading 16 receiver blocks of the full-size chunk, both
+             types, both S forms, repeated launches bit-identical; their
+             times and bounds on the full-size chunk at ranks 32 and 64
+             (the plain versions' on the slice), the warm request and a
+             fused train step in each type (``[w256r_*]``, ``[w256r<r>_*]``
+             lines).
+
+             Phase 7's CPU side of the four wide paths (widths 128 and 256,
+             full rank and ranks 32 and 64) runs in one worker process,
+             started once the meshes exist, while the card's phases go on
+             (the plain steps at width 256 take 90-110 s); each path's
+             ``*_parity`` line with ``cpu=worker`` gives the worker's
+             seconds and how long the path waited for them.
 
 9. pallas  — KernelNN and TEECNet built with ``mode='pallas'`` serve one
              full-size mesh each with FESR_FUSED_PREDICT=0 (the general lane's
@@ -347,6 +375,7 @@ import contextlib
 import io
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -461,12 +490,32 @@ WIDER_CHECKED = ((256, 256, 256), (256, 256, 128), (129, 129, 129),
 # plain rank-64 uv alone takes 16 GB on all of it), and the ranks at which
 # they are timed on the full-size chunk
 WIDE_RANK = 32
-WIDE_RANK_EPOCHS = 2
+WIDE_RANK_EPOCHS = 1  # 1, not 2: room for the width-256 rank-r path
 WIDE_RANK_TOP = 64
 WIDE_RANK_CHECKED = ((128, 128, 128, 64), (128, 128, 128, 32),
                      (128, 128, 128, 40), (96, 96, 96, 48),
                      (127, 127, 128, 57), (72, 128, 48, 20), (48, 48, 48, 36))
-WIDE_RANK_TIMED = (32, 64)
+# rank 32 alone (was 32 and 64): rank 64 is timed at width 256, and at 128
+# by lowrank_step_check.py --width 128
+WIDE_RANK_TIMED = (32,)
+# the width-256 rank-r path (B3 and B4 past width 128): the width-256
+# path's config at kernel_rank WIDE_RANK, WIDE_RANK_EPOCHS, the top rank's
+# request and parity; B3 and B4 held against their plain versions at
+# WIDER_RANK_CHECKED (c_in, c_out, K, rank) on the leading slice (each
+# wall alone and together: 256 at ranks 64 and 32, 129, 136 x 250 at K
+# 200, K alone, c_in alone, c_out alone) and timed at WIDER_RANK_TIMED on
+# the full-size chunk over WIDER_REPS launches
+WIDER_RANK_CHECKED = ((256, 256, 256, 64), (256, 256, 256, 32),
+                      (129, 129, 129, 57), (136, 250, 200, 33),
+                      (48, 48, 256, 16), (256, 48, 64, 24), (40, 256, 72, 40))
+WIDER_RANK_TIMED = (32, 64)
+# phase 7's CPU side of every path (plain versions on the small mesh:
+# 90-110 s at width 256) runs in one worker process while the card's
+# phases go on (torch's default threads, as in this process: the same
+# bits), stopped while a phase is timed (``quiet``: its pid, from
+# ``start_parity``, and the seconds it was stopped); the card's side and
+# the check stay in their paths
+PARITY_WORKER = {"pid": None, "stopped_s": 0.0}
 KERNELS = (fused_conv.fused_edge_conv, fused_conv.fused_edge_conv_bwd,
            fused_conv.fused_edge_conv_lowrank,
            fused_conv.fused_edge_conv_lowrank_bwd,
@@ -498,6 +547,16 @@ KERNEL_TOL = {"float32": 5e-5, "bfloat16": 1e-4}
 BWD_TOL = {"float32": 5e-5, "bfloat16": 1e-4}
 GRAD_TOL = 1e-4
 PARITY_TOL = 1e-4
+# On the width-256 rank-r path alone (``phase_parity``'s ``exploded_ok``),
+# a parity step past the tolerance whose previous step's CPU loss had
+# grown past PARITY_EXPLODED times the first (the config's lr blowing the
+# model up: Adam's first step is lr sign(g), so a gradient entry within
+# float32 rounding of zero moves the card's and the CPU's weights 2 lr
+# apart) is reported with every step's error (``held=False``, and in the
+# kernels' JSON line under ``parity``) and the run goes on.  Steps 0 and 1
+# are always held, and on every other path each step fails the run past
+# the tolerance.  Tolerance, lr and steps are the same for every path.
+PARITY_EXPLODED = 100.0
 # Served bf16 prediction vs the CPU float32 plain prediction: bf16 rounding of
 # the GEMM inputs (2^-8 relative) through 4-5 layers -> 3e-2 of the max.
 SERVE_TOL = 3e-2
@@ -587,20 +646,39 @@ def log(phase: str, **fields) -> None:
           flush=True)
 
 
+@contextlib.contextmanager
+def quiet():
+    """Stops ``start_parity``'s worker process, if one runs, while the
+    block runs (a timed phase), so that no time is taken beside it."""
+    pid = PARITY_WORKER["pid"]
+    if pid is None:
+        yield
+        return
+    pid = pid.result()
+    t0 = time.time()
+    os.kill(pid, signal.SIGSTOP)
+    try:
+        yield
+    finally:
+        os.kill(pid, signal.SIGCONT)
+        PARITY_WORKER["stopped_s"] += time.time() - t0
+
+
 def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     """Median device time of ``fn`` in ms (CUDA events around each call)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
+    with quiet():
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
     return statistics.median(times)
 
 
@@ -642,8 +720,8 @@ def prefix(model) -> str:
     """The log prefix of the path ``model`` runs: '' (KernelNN at full
     rank), 'lowrank_' (KernelNN at rank ``RANK``), 'rank<r>_' (at another
     rank r) or 'teecnet_'; at width ``WIDE`` (``WIDER``) 'w128_' ('w256_')
-    and 'teecnet_w128_' ('teecnet_w256_'), and at a rank 'w128r_' (rank
-    ``WIDE_RANK``) or 'w128r<r>_'."""
+    and 'teecnet_w128_' ('teecnet_w256_'), and at a rank 'w128r_'
+    ('w256r_'; rank ``WIDE_RANK``) or 'w128r<r>_' ('w256r<r>_')."""
     width = getattr(model, "width", None)
     wide = f"w{width}_" if width in (WIDE, WIDER) else ""
     if isinstance(model, TEECNet):
@@ -824,9 +902,11 @@ def log_ptxas() -> None:
     (B1/B2 in both types, B5), at width and K 96 and 128 (B1/B2; B5 at
     128), at width 256 and K 256 and 128 and the width-256 path's checked
     shapes (B1/B2, with their chunks; their shared memory must equal the
-    wrapper's mirror, ``fused_conv.conv_smem_bytes``), at K 48, rank 16
-    (B3/B4 in both types) and at ``MSG_CHECKED`` (B5; its shared memory
-    must equal ``pallas_mp.smem_bytes``)."""
+    wrapper's mirror, ``fused_conv.conv_smem_bytes``), at K 48, rank 16,
+    at width 128 and at ``WIDER_RANK_CHECKED`` (B3/B4 in both types; their
+    shared memory must equal ``fused_conv.lowrank_smem_bytes``) and at
+    ``MSG_CHECKED`` (B5; its shared memory must equal
+    ``pallas_mp.smem_bytes``)."""
     import re
     for lib in ("fused_edge_conv_wgmma", "fused_edge_conv_bwd_wgmma",
                 "fused_edge_conv_f32_wgmma", "fused_edge_conv_bwd_f32_wgmma",
@@ -896,18 +976,36 @@ def log_ptxas() -> None:
             if smem != mirror:
                 raise AssertionError(f"{lib} at K={k}, {c}: {smem} B of shared "
                                      f"memory, the wrapper's mirror {mirror}")
-    # B3/B4 at width 48, rank 16, and the width-128 rank-r path's instances
-    for k, c, rank in ((48, 48, RANK), (48, 48, 36), (96, 96, 48),
-                       *((WIDE, WIDE, r) for r in (16, 32, 40, 57, 64))):
-        log("ptxas", k=k, c=c, rank=rank,
-            blocks_per_sm=fused_conv.occupancy(k, c, c, rank=rank))
-        for lib in ("fused_edge_conv_lowrank_wgmma",
-                    "fused_edge_conv_lowrank_bwd_wgmma",
-                    "fused_edge_conv_lowrank_f32_wgmma",
-                    "fused_edge_conv_lowrank_bwd_f32_wgmma"):
-            log("ptxas", lib=lib, k=k, c=c, rank=rank, smem_bytes=getattr(
-                fused_conv._load_kernel(lib), f"{lib}_smem_bytes")(k, c, c,
-                                                                    rank))
+    # B3/B4 at width 48, rank 16, the width-128 rank-r path's instances and
+    # the width-256 rank-r path's checked shapes: blocks per SM of each
+    # kernel and the fwd / rows kernels' shared memory, held to the
+    # wrapper's mirror of each layout (the weights kernels' mirror logged)
+    shapes = [(48, 48, 48, RANK), (48, 48, 48, 36), (96, 96, 96, 48),
+              *((WIDE, WIDE, WIDE, r) for r in (16, 32, 40, 57, 64))]
+    shapes += [(k, c_in, c_out, r) for c_in, c_out, k, r in WIDER_RANK_CHECKED]
+    for k, c_in, c_out, rank in shapes:
+        c = dict(c=c_in) if c_in == c_out else dict(c_in=c_in, c_out=c_out)
+        log("ptxas", k=k, **c, rank=rank,
+            blocks_per_sm=fused_conv.occupancy(k, c_in, c_out, rank=rank))
+        for lib, dt, kernel in (
+                ("fused_edge_conv_lowrank_wgmma", torch.bfloat16, "fwd"),
+                ("fused_edge_conv_lowrank_bwd_wgmma", torch.bfloat16, "rows"),
+                ("fused_edge_conv_lowrank_f32_wgmma", torch.float32, "fwd"),
+                ("fused_edge_conv_lowrank_bwd_f32_wgmma", torch.float32,
+                 "rows")):
+            smem = getattr(fused_conv._load_kernel(lib),
+                           f"{lib}_smem_bytes")(k, c_in, c_out, rank)
+            weights = (fused_conv.lowrank_smem_bytes(dt, k, c_in, c_out, rank,
+                                                     "weights")
+                       if kernel == "rows" else None)
+            log("ptxas", lib=lib, k=k, **c, rank=rank, smem_bytes=smem,
+                **({} if weights is None else {"weights_smem_bytes": weights}))
+            mirror = fused_conv.lowrank_smem_bytes(dt, k, c_in, c_out, rank,
+                                                   kernel)
+            if smem != mirror:
+                raise AssertionError(f"{lib} at K={k}, {c}, rank {rank}: "
+                                     f"{smem} B of shared memory, the "
+                                     f"wrapper's mirror {mirror}")
     # B5 at its chunks' shapes and MSG_CHECKED: blocks per SM and shared
     # memory, held to the wrapper's mirror of its layout
     b5 = fused_conv._load_kernel("fused_edge_messages_wgmma")
@@ -1134,14 +1232,15 @@ def request_times(datasets, models, root, smi, tag: str = "") -> dict:
 def warm_ms(fn, reps: int = 5) -> float:
     """Median wall ms of ``reps`` calls of ``fn`` after one warm-up, each
     ending in a device sync."""
-    fn()
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
+    with quiet():
         fn()
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
     return statistics.median(walls) * 1e3
 
 
@@ -1172,8 +1271,8 @@ def profile_call(fn, label: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with quiet(), profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1439,36 +1538,85 @@ def phase_train(root: str, datasets: dict, cfgs: dict, tag: str = "") -> dict:
                 evals=evals, losses=losses)
 
 
-def phase_parity(small_merged, cfg: dict) -> None:
-    """Three float32 fused train steps on the card (kernels, depth launches
-    of the forward and of the backward kernel per step) and on the CPU
-    (plain versions), from the same seeded weights."""
+def parity_losses(small_merged, cfg: dict, dev: str) -> list:
+    """Three float32 fused train steps of ``cfg``'s seeded model on ``dev``
+    (on the card the kernels, depth launches of the forward and of the
+    backward kernel per step, counted and checked; on the CPU the plain
+    versions); returns (the losses, the path's parity label)."""
     lr = load_yaml(cfg["train_config"])["lr"]
     rank = cfg.get("kernel_rank")
     kernels = (FWD[rank is not None][0], BWD[rank is not None][0])
-    losses = {}
-    for dev in ("cuda", "cpu"):
-        model = make_model(cfg)
-        fb, rows_blk, blk = make_fused_batch(small_merged, model, device=dev)
-        trainer = Trainer(model.to(dev), lr=lr, layout="fused",
-                          fused_rows_blk=rows_blk, fused_blk=blk,
-                          fused_dtype="float32")
-        opt = trainer.init()
-        reset_launches()
-        losses[dev] = [float(trainer.step(opt, fb)) for _ in range(3)]
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            want = {k: 3 * cfg["num_layers"] for k in kernels}
-            check_only(prefix(model) + "parity", want)
-            log(prefix(model) + "parity", dtype="float32",
-                design=fused_conv.design(torch.float32, rank),
-                **launches_of(*kernels))
-    for step, (a, b) in enumerate(zip(losses["cuda"], losses["cpu"])):
+    model = make_model(cfg)
+    fb, rows_blk, blk = make_fused_batch(small_merged, model, device=dev)
+    trainer = Trainer(model.to(dev), lr=lr, layout="fused",
+                      fused_rows_blk=rows_blk, fused_blk=blk,
+                      fused_dtype="float32")
+    opt = trainer.init()
+    reset_launches()
+    losses = [float(trainer.step(opt, fb)) for _ in range(3)]
+    label = prefix(model) + "parity"
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        want = {k: 3 * cfg["num_layers"] for k in kernels}
+        check_only(label, want)
+        log(label, dtype="float32",
+            design=fused_conv.design(torch.float32, rank),
+            **launches_of(*kernels))
+    return losses, label
+
+
+def cpu_parity(small_merged, cfg: dict) -> tuple:
+    """``parity_losses`` on the CPU in a worker process (``start_parity``):
+    (losses, seconds)."""
+    t0 = time.time()
+    return parity_losses(small_merged, cfg, "cpu")[0], time.time() - t0
+
+
+def start_parity(small_merged, cfgs: dict):
+    """Starts phase 7's CPU side of each config of ``cfgs`` (key -> config)
+    in one worker process, in order, so that the plain steps overlap the
+    card's phases, and gives ``quiet`` its pid; returns (pool, key ->
+    future of ``cpu_parity``)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    pool = cf.ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    PARITY_WORKER["pid"] = pool.submit(os.getpid)
+    return pool, {key: pool.submit(cpu_parity, small_merged, cfg)
+                  for key, cfg in cfgs.items()}
+
+
+def phase_parity(small_merged, cfg: dict, cpu,
+                 exploded_ok: bool = False) -> dict:
+    """Three float32 fused train steps on the card (kernels, depth launches
+    of the forward and of the backward kernel per step) and on the CPU
+    (plain versions), from the same seeded weights; ``cpu``: the CPU's
+    losses, a future of ``start_parity``'s worker.  Returns each step's
+    relative error and whether every step held.  A step past
+    ``PARITY_TOL`` raises, except with ``exploded_ok`` a step after one
+    whose CPU loss grew past ``PARITY_EXPLODED`` times the first: that one
+    is reported."""
+    card, label = parity_losses(small_merged, cfg, "cuda")
+    t1 = time.time()
+    cpu, cpu_s = cpu.result()
+    log(label, cpu="worker", cpu_s=f"{cpu_s:.1f}",
+        wait_s=f"{time.time() - t1:.1f}")
+    rels = []
+    for step, (a, b) in enumerate(zip(card, cpu)):
         rel = abs(a - b) / abs(b)
-        log(prefix(model) + "parity", step=step,
+        rels.append(rel)
+        log(label, step=step,
             card=f"{a:.8g}", cpu=f"{b:.8g}", rel=f"{rel:.3e}", tol=PARITY_TOL)
         if not rel <= PARITY_TOL:
-            raise AssertionError(f"train step {step}: card {a} vs cpu {b}")
+            growth = abs(cpu[step - 1]) / abs(cpu[0]) if step else 1.0
+            if not (exploded_ok and growth > PARITY_EXPLODED):
+                raise AssertionError(f"train step {step}: card {a} vs cpu {b}")
+            log(label, step=step, held=False, exploded=True,
+                loss_growth=f"{growth:.3g}",
+                rels=",".join(f"{r:.3e}" for r in rels))
+    held = all(r <= PARITY_TOL for r in rels)
+    return {"rel": rels, "held": held, "tol": PARITY_TOL,
+            "losses_cpu": cpu}
 
 
 def phase_bwd_times(bop, smi, plain_bop=None, reps: int = 20) -> dict:
@@ -1560,11 +1708,13 @@ def phase_train_times(batches, cfg: dict, smi, tag: str | None = None,
     return t
 
 
-def run_path(root, name, smi, datasets, models, cfgs, tag: str = "") -> dict:
+def run_path(root, name, smi, datasets, models, cfgs, parity,
+             tag: str = "") -> dict:
     """Phases 3-8 for one model configuration (full rank, or rank r with
     ``tag``): kernels against their plain versions at the chunk and the
-    training batches, serving, training, parity, times.  Returns what the
-    kernels' JSON entries need."""
+    training batches, serving, training, parity (``parity``: the CPU's
+    losses, a future of ``start_parity``'s worker), times.  Returns what
+    the kernels' JSON entries need."""
     t0 = time.time()
     op = chunk_operands(datasets["full"], models["full"], "cuda")
     errs = phase_kernel(op)
@@ -1575,7 +1725,7 @@ def run_path(root, name, smi, datasets, models, cfgs, tag: str = "") -> dict:
     phase_train_kernels(batches, errs, errs_bwd)
     launches = phase_serve(root, datasets, models, cfgs, tag)
     train = phase_train(root, datasets, cfgs, tag)
-    phase_parity(small_merged, cfgs["small"])
+    phase_parity(small_merged, cfgs["small"], parity)
     t = fwd_times(op, smi)
     t.update(request_times(datasets, models, root, smi, tag))
     tb = phase_bwd_times(bop, smi)
@@ -1635,11 +1785,11 @@ def train_types(root: str, ds, cfg: dict, epochs: int,
     return out
 
 
-def run_rank12(root, smi, datasets, models, cfgs) -> dict:
+def run_rank12(root, smi, datasets, models, cfgs, parity) -> dict:
     """The rank-12 path: B3 and B4 at a rank that is not a multiple of 8.
     One full-size request (the card's bfloat16 prediction against the CPU's
     float32 plain one), the path's training in both types, phase 7's float32
-    parity; B3 and B4 against their plain versions at the full-size chunk at
+    parity (``parity``: the CPU's losses from ``start_parity``'s worker); B3 and B4 against their plain versions at the full-size chunk at
     each of ``RANK12_CHECKED`` (a seeded model of that rank) and their times
     at ``RANK12_TIMED``, and at rank 12 also at the train and val batches;
     the warm request and train steps at rank 12.
@@ -1667,7 +1817,7 @@ def run_rank12(root, smi, datasets, models, cfgs) -> dict:
         if not rel <= SERVE_TOL:
             raise AssertionError(f"{label} {key}: {rel:.3e} > {SERVE_TOL}")
     trained = train_types(root, ds, cfg, RANK12_EPOCHS)
-    phase_parity(merged_subdomains(datasets["small"]), cfgs["small"])
+    phase_parity(merged_subdomains(datasets["small"]), cfgs["small"], parity)
     errs, errs_bwd, by_rank = {}, {}, {}
     for rank in RANK12_CHECKED:
         op = chunk_operands(ds, make_model(dict(cfg, kernel_rank=rank)),
@@ -1730,7 +1880,7 @@ def wide_slice(op, c_in: int, c_out: int, k: int, rank=None) -> dict:
 
 def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
              width: int = WIDE, checked=WIDE_CHECKED,
-             epochs: int = WIDE_EPOCHS) -> dict:
+             epochs: int = WIDE_EPOCHS, *, parity) -> dict:
     """A wide path (width 128: B1 and B2 past width 64; 256: past 128).
     Both full-size meshes served (chunks x depth B1 launches each, every
     .vtu finite) and the small mesh against the CPU's float32 plain
@@ -1747,7 +1897,8 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
     small mesh is served in 'edge3d' (the general lane, no kernel) against
     the CPU's plain prediction, and in 'pallas' (B5, ``small_b5``
     launches) against both; TEECNet's B1 and B2 are checked and timed at
-    its own chunk (K 128)."""
+    its own chunk (K 128).  ``parity``: phase 7's CPU losses on their way
+    from ``start_parity``'s worker."""
     t0 = time.time()
     log_dir = os.path.join(root, "logs")
     cfg, ds = cfgs["full"], datasets["full"]
@@ -1830,7 +1981,8 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
         lap("edge3d")
     trained = train_types(root, ds, cfg, epochs)
     lap("train")
-    phase_parity(merged_subdomains(datasets["small"]), cfgs["small"])
+    held = phase_parity(merged_subdomains(datasets["small"]), cfgs["small"],
+                        parity)
     lap("parity")
     op = chunk_operands(ds, models["full"], "cuda")
     errs, errs_bwd = {}, {}
@@ -1873,7 +2025,7 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
     lap("teecnet")
     tc_op = chunk_operands(ds, models_tc["full"], "cuda")
     out = dict(width=width, checked=checked, errs=errs, errs_bwd=errs_bwd,
-               launches=served,
+               launches=served, parity=held,
                train=dict(fwd=sum(n for n, _ in trained.values()),
                           bwd=sum(n for _, n in trained.values()), served=0),
                t=t, tb=tb, trained=trained, tc_served=tc_served,
@@ -1902,42 +2054,57 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
     return out
 
 
-def run_wide_rank(root, smi, datasets, models, cfgs, models_top) -> dict:
-    """The width-128 rank-r path: B3 and B4 past width 64, K 64 and rank 32.
-    Both full-size meshes served (chunks x depth B3 launches each, no other
-    kernel, every .vtu finite) and the small mesh against the CPU's float32
-    plain prediction; the path's training in both types (B3 and B4 launch
-    counts held); phase 7's float32 parity; at rank ``WIDE_RANK_TOP`` one
-    full-size request and the parity again; B3 and B4 against their plain
-    versions at ``WIDE_RANK_CHECKED`` on a leading slice of the full-size
-    chunk, both types, both S forms, repeated launches bit-identical; their
-    times at the full-size chunk at ``WIDE_RANK_TIMED`` (the plain versions'
-    on the slice), the warm request and a fused train step in each type.
-    Returns what the kernels' JSON entries need, each timed rank's numbers
-    under ``by_rank``."""
+def run_wide_rank(root, smi, datasets, models, cfgs, models_top,
+                  width: int = WIDE, checked=WIDE_RANK_CHECKED,
+                  timed=WIDE_RANK_TIMED, *, parity) -> dict:
+    """A wide rank-r path (width 128: B3 and B4 past width 64, K 64 and
+    rank 32; 256: past 128), at rank ``WIDE_RANK``.  Both full-size meshes
+    served (chunks x depth B3 launches each, no other kernel, every .vtu
+    finite) and the small mesh against the CPU's float32 plain prediction;
+    the path's training in both types (B3 and B4 launch counts held);
+    phase 7's float32 parity; at rank ``WIDE_RANK_TOP`` one full-size
+    request and the parity again; B3 and B4 against their plain versions at ``checked``
+    (c_in, c_out, K, rank) on a leading slice of the full-size chunk, both
+    types, both S forms, repeated launches bit-identical; their times at
+    the full-size chunk at ``timed`` (the plain versions' on the slice),
+    the warm request and a fused train step in each type.  ``parity``: the
+    CPU's losses at ranks ``WIDE_RANK`` and ``WIDE_RANK_TOP`` (rank ->
+    future of ``start_parity``'s worker); past width ``WIDE`` a parity step
+    after the loss exploded is reported (``phase_parity``'s
+    ``exploded_ok``).  Returns what the kernels' JSON entries
+    need, each timed rank's numbers under ``by_rank``."""
     t0 = time.time()
     log_dir = os.path.join(root, "logs")
     cfg, ds = cfgs["full"], datasets["full"]
+    reps = ((WIDE_REPS, WIDE_STEP_REPS) if width <= WIDE
+            else (WIDER_REPS, WIDER_STEP_REPS))
     fwd = FWD[True][0]
     label = prefix(models["full"]) + "serve"
+    marks = [time.time()]
+
+    def lap(part):  # the seconds since the last part, on a *_path line
+        marks.append(time.time())
+        log(prefix(models["full"]) + "path", part=part,
+            wall_s=f"{marks[-1] - marks[-2]:.1f}")
+
     served = 0
     for name in ("full", "small"):
         for idx in cfgs[name]["idxs"][:2 if name == "full" else 1]:
             reset_launches()
             lanes, (fields,) = serve(datasets[name], models[name], [idx],
-                                     log_dir, f"{name}_w{WIDE}r{WIDE_RANK}",
+                                     log_dir, f"{name}_w{width}r{WIDE_RANK}",
                                      None)
             torch.cuda.synchronize()
             served += fwd.launches
             log(label, mesh=name, idx=idx, lane=lanes[0][1],
-                launches=fwd.launches, width=WIDE, rank=WIDE_RANK,
+                launches=fwd.launches, width=width, rank=WIDE_RANK,
                 depth=cfgs[name]["num_layers"],
                 design=fused_conv.design(torch.bfloat16, WIDE_RANK),
                 nodes=len(fields["pressure"]), finite=True)
             check_only(f"{label} {name} {idx}",
                        {fwd: CHUNKS[name] * cfgs[name]["num_layers"]})
     _, (ref,) = serve(datasets["small"], models["small"], [0], log_dir,
-                      f"small_w{WIDE}r{WIDE_RANK}_cpu", "cpu",
+                      f"small_w{width}r{WIDE_RANK}_cpu", "cpu",
                       gemm_dtype="float32")
     for key in ("velocity", "pressure"):
         rel = np.abs(fields[key] - ref[key]).max() / np.abs(ref[key]).max()
@@ -1945,25 +2112,32 @@ def run_wide_rank(root, smi, datasets, models, cfgs, models_top) -> dict:
             tol=SERVE_TOL)
         if not rel <= SERVE_TOL:
             raise AssertionError(f"{label} small {key}: {rel:.3e} > {SERVE_TOL}")
+    lap("serve")
     trained = train_types(root, ds, cfg, WIDE_RANK_EPOCHS)
+    lap("train")
     small_merged = merged_subdomains(datasets["small"])
-    phase_parity(small_merged, cfgs["small"])
+    held = {f"rank{WIDE_RANK}": phase_parity(
+        small_merged, cfgs["small"], parity[WIDE_RANK],
+        exploded_ok=width > WIDE)}
     # the top rank: one full-size request, the parity
     top_label = prefix(models_top) + "serve"
     reset_launches()
     lanes, (fields,) = serve(ds, models_top, [0], log_dir,
-                             f"full_w{WIDE}r{WIDE_RANK_TOP}", None)
+                             f"full_w{width}r{WIDE_RANK_TOP}", None)
     torch.cuda.synchronize()
     top_served = fwd.launches
     log(top_label, mesh="full", lane=lanes[0][1], launches=top_served,
-        width=WIDE, rank=WIDE_RANK_TOP, nodes=len(fields["pressure"]),
+        width=width, rank=WIDE_RANK_TOP, nodes=len(fields["pressure"]),
         finite=True)
     check_only(top_label, {fwd: CHUNKS["full"] * cfg["num_layers"]})
-    phase_parity(small_merged, dict(cfgs["small"], kernel_rank=WIDE_RANK_TOP))
+    held[f"rank{WIDE_RANK_TOP}"] = phase_parity(
+        small_merged, dict(cfgs["small"], kernel_rank=WIDE_RANK_TOP),
+        parity[WIDE_RANK_TOP], exploded_ok=width > WIDE)
+    lap("parity")
     errs, errs_bwd, by_rank = {}, {}, {}
     slice_errs = {}
     op = chunk_operands(ds, models["full"], "cuda")
-    for c_in, c_out, k, rank in WIDE_RANK_CHECKED:
+    for c_in, c_out, k, rank in checked:
         sop = wide_slice(op, c_in, c_out, k, rank)
         at = f"slice_{c_in}x{c_out}_k{k}_r{rank}"
         e_f, e_b = phase_kernel(sop, at), check_bwd(bwd_operands(sop), at)
@@ -1975,34 +2149,37 @@ def run_wide_rank(root, smi, datasets, models, cfgs, models_top) -> dict:
         torch.cuda.empty_cache()
     del op
     torch.cuda.empty_cache()
-    for rank in WIDE_RANK_TIMED:
+    lap("checked")
+    for rank in timed:
         op = chunk_operands(ds, make_model(dict(cfg, kernel_rank=rank)),
                             "cuda")
-        sop = wide_slice(op, WIDE, WIDE, WIDE, rank)
+        sop = wide_slice(op, width, width, width, rank)
         rp = fused_conv.padded_rank(rank)
         by_rank[rank] = {"padded_rank": rp, "ceiling": rank / rp,
                          "fwd": fwd_times(op, smi, plain_op=sop,
-                                          reps=WIDE_REPS),
+                                          reps=reps[0]),
                          "bwd": phase_bwd_times(bwd_operands(op), smi,
                                                 plain_bop=bwd_operands(sop),
-                                                reps=WIDE_REPS)}
+                                                reps=reps[0])}
         del op, sop
         torch.cuda.empty_cache()
     t = dict(by_rank[WIDE_RANK]["fwd"])
     t.update(request_times(datasets, models, root, smi,
-                           f"_w{WIDE}r{WIDE_RANK}"))
+                           f"_w{width}r{WIDE_RANK}"))
     batches = train_batches(ds, cfg)
-    t.update(phase_train_times(batches, cfg, smi, reps=WIDE_STEP_REPS))
+    t.update(phase_train_times(batches, cfg, smi, reps=reps[1]))
     del batches
     torch.cuda.empty_cache()
+    lap("times")
     log(prefix(models["full"]) + "path", depth=cfg["num_layers"],
         wall_s=f"{time.time() - t0:.1f}")
-    return dict(errs=errs, errs_bwd=errs_bwd, launches=served,
+    return dict(width=width, errs=errs, errs_bwd=errs_bwd,
+                launches=served,
                 train=dict(fwd=sum(n for n, _ in trained.values()),
                            bwd=sum(n for _, n in trained.values()), served=0),
                 t=t, tb=by_rank[WIDE_RANK]["bwd"], by_rank=by_rank,
                 trained=trained, top_served=top_served,
-                slice_errs=slice_errs)
+                slice_errs=slice_errs, parity=held)
 
 
 def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
@@ -4494,17 +4671,20 @@ def wide_entries(r: dict, smi: str) -> list:
         entry["float32"]["ms_at_plain_slots"] = times[
             "ms_at_plain_slots_float32"]
     entries[1]["train_step_ms_float32"] = r["t"]["train_step_ms_float32"]
+    entries[1]["parity"] = r["parity"]
     return entries + tc_entries
 
 
 def wide_rank_entries(r: dict, smi: str) -> list:
-    """B3's and B4's entries for the width-128 rank-r path: launches by
-    phase (serving and training in each type at rank ``WIDE_RANK``, the
-    top rank's request), the shapes held against the plain versions with
-    their errors, and under ``by_rank`` each timed rank's numbers in both
-    types (the plain versions' on the chunk's leading slice)."""
+    """B3's and B4's entries for a wide rank-r path
+    (``kernelnn_w128_rank32``, ``kernelnn_w256_rank32``): launches by phase
+    (serving and training in each type at rank ``WIDE_RANK``, the top
+    rank's request), the shapes held against the plain versions with their
+    errors, and under ``by_rank`` each timed rank's numbers in both types
+    (the plain versions' on the chunk's leading slice)."""
+    width = r["width"]
     entries = kernel_entries(r, smi, WIDE_RANK,
-                             f"kernelnn_w{WIDE}_rank{WIDE_RANK}")
+                             f"kernelnn_w{width}_rank{WIDE_RANK}")
     trained = r["trained"]
     entries[0]["launches"] += r["top_served"]
     entries[0]["launches_by_path"] = {
@@ -4515,7 +4695,7 @@ def wide_rank_entries(r: dict, smi: str) -> list:
         f"train_{dt}": n for dt, (_, n) in trained.items()}
     for entry, key, times in ((entries[0], "fwd", r["t"]),
                               (entries[1], "bwd", r["tb"])):
-        entry.update(width=WIDE, k=WIDE, rank=WIDE_RANK,
+        entry.update(width=width, k=width, rank=WIDE_RANK,
                      checked={at: e[key] for at, e in r["slice_errs"].items()},
                      plain_slots=times["plain_slots"],
                      ms_at_plain_slots=times["ms_at_plain_slots_bfloat16"])
@@ -4530,6 +4710,7 @@ def wide_rank_entries(r: dict, smi: str) -> list:
                                      "ms_at_plain_slots")}}
             for rank, v in r["by_rank"].items()}
     entries[1]["train_step_ms_float32"] = r["t"]["train_step_ms_float32"]
+    entries[1]["parity"] = r["parity"]
     return entries
 
 
@@ -4653,10 +4834,16 @@ def main() -> int:
         # the width-256 path: the width-128 path's configs at width 256
         cfgs_w2 = {k: dict(v, width=WIDER) for k, v in cfgs_w.items()}
         cfgs_w2tc = {k: dict(v, width=WIDER) for k, v in cfgs_tc.items()}
+        # the width-256 rank-r path: the width-256 path's config at
+        # kernel_rank WIDE_RANK (and, for one request, WIDE_RANK_TOP)
+        cfgs_w2r = {k: dict(v, kernel_rank=WIDE_RANK)
+                    for k, v in cfgs_w2.items()}
+        cfgs_w2top = {k: dict(v, kernel_rank=WIDE_RANK_TOP)
+                      for k, v in cfgs_w2.items()}
         datasets, models, models_lr, models_r12, models_tc = (
             {} for _ in range(5))
         models_w, models_wtc, models_wr, models_wtop = {}, {}, {}, {}
-        models_w2, models_w2tc = {}, {}
+        models_w2, models_w2tc, models_w2r, models_w2top = {}, {}, {}, {}
         for key, cfg in cfgs.items():
             t1 = time.time()
             datasets[key] = init_dataset("synthetic", **cfg)
@@ -4676,7 +4863,11 @@ def main() -> int:
                                   cfgs_wtop[key], models_wtop),
                                  (f"{key}_w{WIDER}", cfgs_w2[key], models_w2),
                                  (f"{key}_w{WIDER}_teecnet", cfgs_w2tc[key],
-                                  models_w2tc)):
+                                  models_w2tc),
+                                 (f"{key}_w{WIDER}r{WIDE_RANK}",
+                                  cfgs_w2r[key], models_w2r),
+                                 (f"{key}_w{WIDER}r{WIDE_RANK_TOP}",
+                                  cfgs_w2top[key], models_w2top)):
                 into[key] = write_checkpoint(logs, exp, c)
                 write_checkpoint(logs, exp + "_cpu", c)
             for k in ("root", "partition", "sub_size", "n_high", "n_low",
@@ -4687,18 +4878,42 @@ def main() -> int:
             log("data", mesh=key, subdomains=len(datasets[key]),
                 etl_s=f"{time.time() - t1:.1f}")
 
-        full = run_path(root, name, smi, datasets, models, cfgs)
+        # phase 7's CPU side of every path, in the order they need it
+        small = {"kernelnn": cfgs["small"], f"rank{RANK}": cfgs_lr["small"],
+                 f"rank{RANK12}": cfgs_r12["small"]}
+        for w, c in ((WIDE, cfgs_w), (WIDER, cfgs_w2)):
+            small[f"w{w}"] = c["small"]
+            for r in (WIDE_RANK, WIDE_RANK_TOP):
+                small[f"w{w}r{r}"] = dict(c["small"], kernel_rank=r)
+        small["teecnet"] = cfgs_tc["small"]
+        parity_pool, parity = start_parity(
+            merged_subdomains(datasets["small"]), small)
+        workers.callback(parity_pool.shutdown, wait=True,
+                         cancel_futures=True)
+        workers.callback(PARITY_WORKER.update, pid=None)  # runs first
+        full = run_path(root, name, smi, datasets, models, cfgs,
+                        parity["kernelnn"])
         lowrank = run_path(root, name, smi, datasets, models_lr, cfgs_lr,
-                           "_r16")
-        rank12 = run_rank12(root, smi, datasets, models_r12, cfgs_r12)
+                           parity[f"rank{RANK}"], "_r16")
+        rank12 = run_rank12(root, smi, datasets, models_r12, cfgs_r12,
+                            parity[f"rank{RANK12}"])
         wide = run_wide(root, smi, datasets, models_w, cfgs_w, models_wtc,
-                        cfgs_wtc)
-        wide_rank = run_wide_rank(root, smi, datasets, models_wr, cfgs_wr,
-                                  models_wtop["full"])
+                        cfgs_wtc, parity=parity[f"w{WIDE}"])
+        wide_rank = run_wide_rank(
+            root, smi, datasets, models_wr, cfgs_wr, models_wtop["full"],
+            parity={r: parity[f"w{WIDE}r{r}"]
+                    for r in (WIDE_RANK, WIDE_RANK_TOP)})
         wider = run_wide(root, smi, datasets, models_w2, cfgs_w2, models_w2tc,
-                         cfgs_w2tc, WIDER, WIDER_CHECKED, WIDER_EPOCHS)
+                         cfgs_w2tc, WIDER, WIDER_CHECKED, WIDER_EPOCHS,
+                         parity=parity[f"w{WIDER}"])
+        wider_rank = run_wide_rank(
+            root, smi, datasets, models_w2r, cfgs_w2r, models_w2top["full"],
+            WIDER, WIDER_RANK_CHECKED, WIDER_RANK_TIMED,
+            parity={r: parity[f"w{WIDER}r{r}"]
+                    for r in (WIDE_RANK, WIDE_RANK_TOP)})
         teecnet = run_path(root, name, smi, datasets, models_tc, cfgs_tc,
-                           "_teecnet")
+                           parity["teecnet"], "_teecnet")
+        log("parity_worker", stopped_s=f"{PARITY_WORKER['stopped_s']:.1f}")
         t1 = time.time()
         wide_labels = (f"kernelnn_w{WIDE}", f"teecnet_w{WIDE}")
         wider_labels = (f"kernelnn_w{WIDER}", f"teecnet_w{WIDER}")
@@ -4755,6 +4970,7 @@ def main() -> int:
                + wide_entries(wide, smi)
                + wide_rank_entries(wide_rank, smi)
                + wide_entries(wider, smi)
+               + wide_rank_entries(wider_rank, smi)
                + kernel_entries(teecnet, smi, None, "teecnet")
                + messages_entries(msg_t, pallas_launches, pallas_requests,
                                   smi, wider["small_b5"])

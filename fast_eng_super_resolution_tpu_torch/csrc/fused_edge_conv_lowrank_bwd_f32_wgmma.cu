@@ -5,7 +5,7 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_bwd_jit
-// for float32 operands at every rank 1 .. 64 and K, c_in, c_out 1 .. 128
+// for float32 operands at every rank 1 .. 64 and K, c_in, c_out 1 .. 256
 // (fused_edge_conv_lowrank_bwd_wgmma.cu is the bfloat16 instance) and
 // computes the same function, w3's and b3's gradients in the model's column
 // layout.  With the
@@ -110,15 +110,28 @@ constexpr int kF = 18;      // weights kernel: channel factors per slot
 // split parts [3][64][dp] bf16, the x_src, dmsg and dh tiles [64][odd
 // stride] f32.  At width 48, K 48, rank 16: 111 KB (two blocks per SM); at
 // 128, rank 64: 198 KB.
+//
+// Wide (the widest of K, c_in and c_out past 128; lowrank_f32_wgmma.cuh
+// wide_dims; then dp > 128 and S = kDeep): no x_src tile (the U chunks'
+// epilogues and the split of A for the P chunks read the tile's rows of
+// x_src, contiguous, from device memory) and no dh tile (the P half is
+// written to dh, and the Q half's writer adds to it): the ring, A's parts
+// and the dmsg tile, 213 KB at K = c_in = c_out = 256 (ranks 8, 16, 32,
+// 64; 195 KB at 40), 160 KB at K 256 with widths 48, 213 KB at K 48 with
+// widths 256 (rank 16).
 struct RowsLayout {
   int n, dp, sd, xs, ds, hs;
+  bool wide;
   long stage, ring, a, x, d, dh, total;
-  __host__ __device__ RowsLayout(int K, int c_in, int c_out, int r) {
+  // wide: wide_dims(K, c_in, c_out), the instance's
+  __host__ __device__ RowsLayout(int K, int c_in, int c_out, int r,
+                                 bool wide_) {
     n = chunk_cols(r);
     const int widest = K > c_in ? (K > c_out ? K : c_out)
                                 : (c_in > c_out ? c_in : c_out);
     dp = image_depth(widest);
     sd = stage_depth(dp);
+    wide = wide_;
     xs = c_in | 1;
     ds = c_out | 1;
     hs = K | 1;
@@ -126,9 +139,9 @@ struct RowsLayout {
     ring = 128;
     a = ring + kRing * stage;
     x = a + (dp > 64 ? 3 * 2L * kTile * dp : 0);
-    d = x + 4L * kTile * xs;
+    d = wide ? x : x + 4L * kTile * xs;     // wide: no x_src tile
     dh = d + 4L * kTile * ds;
-    total = dh + 4L * kTile * hs;
+    total = wide ? dh : dh + 4L * kTile * hs;  // wide: no dh tile
   }
 };
 
@@ -136,8 +149,8 @@ struct RowsLayout {
 // (a) dmsg, t, dt, dx_src and dh for one 64-slot tile.  R8 = rp / 8 (rp the
 // padded rank), S = dp / 16 (the k16 steps of every A operand: h, x_src and
 // dmsg, zero padded) up to 4, kDeep past it (the A operands in shared
-// memory).
-template <int R8, int S>
+// memory); kWide (with kDeep only): the wide layout, a separate instance.
+template <int R8, int S, bool kWide>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<R8, S>)
 lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
                            const float* __restrict__ h,
@@ -154,7 +167,7 @@ lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
                            int c_in, int c_out) {
   constexpr int R = 8 * R8, N = kN<R8>, G = N / R;
   extern __shared__ __align__(128) unsigned char smem[];
-  const RowsLayout L(K, c_in, c_out, R);
+  const RowsLayout L(K, c_in, c_out, R, kWide);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kRing;
   unsigned char* ring = smem + L.ring;
@@ -218,11 +231,15 @@ lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
     dmsg_out[(slot0 + s) * c_out + o] = d;
     d_sm[s * ds + o] = d;
   }
-  for (int e = lane; e < 16 * c_in; e += 32) {
-    const int s = s_lo + e / c_in, i = e % c_in;
-    x_sm[s * xs + i] = x_src[(slot0 + s) * c_in + i];
-  }
+  if (!kWide)
+    for (int e = lane; e < 16 * c_in; e += 32) {
+      const int s = s_lo + e / c_in, i = e % c_in;
+      x_sm[s * xs + i] = x_src[(slot0 + s) * c_in + i];
+    }
   __syncwarp();
+  // the tile's rows of x_src: the x_src tile, or (wide) device memory
+  const float* x_rows = kWide ? x_src + slot0 * c_in : x_sm;
+  const int x_stride = kWide ? c_in : xs;
 
   const int r0 = acc_row(0);  // this thread's rows: r0 and r0 + 8
   const bool writer = tid % 4 == 0;
@@ -276,8 +293,8 @@ lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
 #pragma unroll
         for (int gg = 0; gg < G; ++gg) {
           if (gg >= gc) continue;
-          const float xa = x_sm[r0 * xs + i0 + gg];
-          const float xb = x_sm[(r0 + 8) * xs + i0 + gg];
+          const float xa = x_rows[r0 * x_stride + i0 + gg];
+          const float xb = x_rows[(r0 + 8) * x_stride + i0 + gg];
           const float* bias = b3 + (i0 + gg) * R;
           float pa = 0.f, pb = 0.f;
 #pragma unroll
@@ -331,8 +348,13 @@ lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
       pa = quad_sum(pa);
       pb = quad_sum(pb);
       if (!writer) continue;
+      // where the P half waits: the dh tile, or (wide) dh itself
       float* ha_ = dh_sm + r0 * hs + k0 + gg;
       float* hb_ = dh_sm + (r0 + 8) * hs + k0 + gg;
+      if constexpr (kWide) {
+        ha_ = dh + (slot0 + r0) * K + k0 + gg;
+        hb_ = dh + (slot0 + r0 + 8) * K + k0 + gg;
+      }
       if (q_half) {
         dh[(slot0 + r0) * K + k0 + gg] = *ha_ + pa;
         dh[(slot0 + r0 + 8) * K + k0 + gg] = *hb_ + pb;
@@ -345,7 +367,7 @@ lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
   {  // ---- dh's P half: P = x_src @ W3U weighted by dt ----
     auto fin = [&](const float (&acc)[N / 2], int c) { dh_half(acc, c, dq, false); };
     if constexpr (S > 4) {
-      deep(x_sm, xs, c_in, n_k, fin);
+      deep(x_rows, x_stride, c_in, n_k, fin);
     } else {
       uint32_t xa[3][S][4];
       split_rows<S>(xa, x_sm, xs, c_in);
@@ -578,7 +600,7 @@ lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
   if (rc >= 0) dst[static_cast<long>(K) * ncol_r + rc] = dbias;
 }
 
-template <int R8, int S>
+template <int R8, int S, bool kWide>
 cudaError_t launch(const float* g, const float* h, const float* x_src,
                    const float* w3, const float* b3, const int* slot_rows,
                    const float* row_weight, const float* s_dense, bf16* image,
@@ -588,8 +610,8 @@ cudaError_t launch(const float* g, const float* h, const float* x_src,
                    cudaStream_t stream) {
   constexpr int R = 8 * R8;
   const long num_tiles = static_cast<long>(num_blocks) * blk / kTile;
-  const RowsLayout L(K, c_in, c_out, R);
-  auto rows = lowrank_bwd_rows_f32_wgmma<R8, S>;
+  const RowsLayout L(K, c_in, c_out, R, kWide);
+  auto rows = lowrank_bwd_rows_f32_wgmma<R8, S, kWide>;
   cudaError_t err = allow_smem(rows, static_cast<size_t>(L.total));
   if (err != cudaSuccess) return err;
   const float* b3p;
@@ -625,7 +647,8 @@ extern "C" {
 // Bytes of dynamic shared memory one block of the rows kernel needs.
 long fused_edge_conv_lowrank_bwd_f32_wgmma_smem_bytes(int K, int c_in,
                                                       int c_out, int r) {
-  return RowsLayout(K, c_in, c_out, padded_rank(r)).total;
+  return RowsLayout(K, c_in, c_out, padded_rank(r),
+                    wide_dims(K, c_in, c_out)).total;
 }
 
 // Blocks one SM holds at once at these widths: the rows kernel's
@@ -636,14 +659,22 @@ int fused_edge_conv_lowrank_bwd_f32_wgmma_blocks_per_sm(int K, int c_in,
   if (K < 1 || K > kMaxDim || c_in < 1 || c_in > kMaxDim || c_out < 1 ||
       c_out > kMaxDim)
     return -1;
-  const RowsLayout L(K, c_in, c_out, padded_rank(r));
+  const RowsLayout L(K, c_in, c_out, padded_rank(r),
+                     wide_dims(K, c_in, c_out));
   return with_rank_depth(r, L.dp, [&](auto r8, auto s) {
     constexpr int R8 = decltype(r8)::value;
     if (weights)
       return blocks_on_sm(lowrank_bwd_weights_f32_wgmma<R8>, kWarpgroup,
                           static_cast<size_t>(WeightsLayout(8 * R8).total));
-    return blocks_on_sm(lowrank_bwd_rows_f32_wgmma<R8, decltype(s)::value>,
-                        kThreads, static_cast<size_t>(L.total));
+    constexpr int S = decltype(s)::value;
+    const size_t smem = static_cast<size_t>(L.total);
+    if constexpr (S > 4) {  // a wide layout is deep
+      if (L.wide)
+        return blocks_on_sm(lowrank_bwd_rows_f32_wgmma<R8, S, true>, kThreads,
+                            smem);
+    }
+    return blocks_on_sm(lowrank_bwd_rows_f32_wgmma<R8, S, false>, kThreads,
+                        smem);
   }, -1);
 }
 
@@ -654,7 +685,7 @@ int fused_edge_conv_lowrank_bwd_f32_wgmma_blocks_per_sm(int K, int c_in,
 // [slots, c_out], t_vec and dt_vec [slots, rp] (rp = 8*ceil(r/8)) are
 // written by the rows kernel and read by the weights kernel.  Exactly one
 // of s_dense and (slot_rows, row_weight) is non-null.  w3 is [K,
-// r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <= 128
+// r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <= 256
 // and 1 <= r <= 64.  partial is [num_splits, K+1, r*(c_in+c_out)] (dw3
 // rows then the db3 row, the model's columns, summed over splits by the
 // caller).  Returns the cudaError_t of the
@@ -670,18 +701,26 @@ int fused_edge_conv_lowrank_bwd_f32_wgmma_backward(
       num_splits < 1 || reinterpret_cast<uintptr_t>(image) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const RowsLayout L(K, c_in, c_out, padded_rank(r));
+  const RowsLayout L(K, c_in, c_out, padded_rank(r),
+                     wide_dims(K, c_in, c_out));
   return static_cast<int>(with_rank_depth(r, L.dp, [&](auto r8, auto s) {
-    return launch<decltype(r8)::value, decltype(s)::value>(
-        static_cast<const float*>(g), static_cast<const float*>(h),
-        static_cast<const float*>(x_src), static_cast<const float*>(w3),
-        static_cast<const float*>(b3), static_cast<const int*>(slot_rows),
-        static_cast<const float*>(row_weight),
-        static_cast<const float*>(s_dense), static_cast<bf16*>(image),
-        static_cast<float*>(dh), static_cast<float*>(dx_src),
-        static_cast<float*>(dmsg), static_cast<float*>(t_vec),
-        static_cast<float*>(dt_vec), static_cast<float*>(partial), num_blocks,
-        blk, K, c_in, c_out, r, num_splits, st);
+    constexpr int R8 = decltype(r8)::value, S = decltype(s)::value;
+    auto go = [&](auto kernel_launch) {
+      return kernel_launch(
+          static_cast<const float*>(g), static_cast<const float*>(h),
+          static_cast<const float*>(x_src), static_cast<const float*>(w3),
+          static_cast<const float*>(b3), static_cast<const int*>(slot_rows),
+          static_cast<const float*>(row_weight),
+          static_cast<const float*>(s_dense), static_cast<bf16*>(image),
+          static_cast<float*>(dh), static_cast<float*>(dx_src),
+          static_cast<float*>(dmsg), static_cast<float*>(t_vec),
+          static_cast<float*>(dt_vec), static_cast<float*>(partial),
+          num_blocks, blk, K, c_in, c_out, r, num_splits, st);
+    };
+    if constexpr (S > 4) {  // a wide layout is deep
+      if (L.wide) return go(launch<R8, S, true>);
+    }
+    return go(launch<R8, S, false>);
   }, cudaErrorInvalidValue));
 }
 

@@ -4,7 +4,7 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_bwd_jit
-// for bfloat16 operands at every rank 1 .. 64 and K, c_in, c_out 1 .. 128
+// for bfloat16 operands at every rank 1 .. 64 and K, c_in, c_out 1 .. 256
 // (fused_edge_conv_lowrank_bwd_f32_wgmma.cu is the float32 instance) and
 // computes the same function, w3's and b3's gradients in the model's
 // column layout.  With the forward's notation and g the gradient of
@@ -120,29 +120,45 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
 // waits for its Q chunk in shared memory, as each thread's 2 G unreduced
 // partials in a column of its own ([2 G][128]: no bank conflicts, no
 // barrier).  65 KB at width 48, K 48, rank 16 (three blocks per SM), 151 KB
-// at 128, rank 64.
+// at 128, rank 64.  Past a depth (K, c_in or c_out) of 128 each buffer
+// holds a stage of 64 deep and a chunk runs as ceil(depth / 64) stages
+// into one accumulator (lowrank_wgmma.cuh staged, product_stage):
+// 151 KB at K = c_in = c_out = 256, rank 64 (166 KB at rank 8), 131 KB at
+// K 48 with widths 256, rank 16, 104 KB at K 256 with widths 48.
 struct RowsLayout {
-  int kp, dpi, dpo, dmax;
+  int kp, dpi, dpo, dmax, bd;
   long ax, ad, ring, buf, dhp, srow, total;
-  __host__ __device__ RowsLayout(int K, int c_in, int c_out, int r) {
+  // deep: the chunks in stages (rows_deep)
+  __host__ __device__ RowsLayout(int K, int c_in, int c_out, int r,
+                                 bool deep) {
     kp = round_up(K, 16);
     dpi = round_up(c_in, 16);
     dpo = round_up(c_out, 16);
     dmax = kp > dpi ? kp : dpi;
     dmax = dmax > dpo ? dmax : dpo;
+    bd = deep ? kStage : dmax;  // a buffer's depth
     ax = 2L * kTile * kp;                    // a: h [64][kp]
     ad = ax + 2L * kTile * dpi;              // x_src [64][dpi]
     ring = ad + 2L * kTile * dpo;            // dmsg [64][dpo]
-    buf = 2L * kCols * dmax + 4L * kCols;
+    buf = 2L * kCols * bd + 4L * kCols;
     dhp = ring + kBufs * buf;
     srow = dhp + 4L * 2 * (kCols / r) * kWarpgroup;  // P half [2 G][128] f32
     total = srow + 4L * kTile;
   }
 };
 
+// Whether the rows kernel walks each chunk in stages of 64 (a K, c_in or
+// c_out past 128).
+__host__ __device__ constexpr bool rows_deep(int K, int c_in, int c_out) {
+  return staged(round_up(K, 16)) || staged(round_up(c_in, 16)) ||
+         staged(round_up(c_out, 16));
+}
+
 // ---------------------------------------------------------------------------
-// (a) dmsg, t, dt, dx_src and dh for one 64-slot tile.
-template <int R8>
+// (a) dmsg, t, dt, dx_src and dh for one 64-slot tile.  kDeep: a depth
+// past 128, each chunk in stages of 64 (a separate instance, so that the
+// one up to 128 stays the whole-chunk walk).
+template <int R8, bool kDeep>
 __global__ void __launch_bounds__(kWarpgroup)
 lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
                        const bf16* __restrict__ x_src,
@@ -157,8 +173,8 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
                        int c_out, int rank) {
   constexpr int R = 8 * R8, G = kCols / R;  // padded rank, channels per chunk
   extern __shared__ __align__(128) unsigned char smem[];
-  const RowsLayout L(K, c_in, c_out, R);
-  const int kp = L.kp, dpi = L.dpi, dpo = L.dpo;
+  const RowsLayout L(K, c_in, c_out, R, kDeep);
+  const int kp = L.kp, dpi = L.dpi, dpo = L.dpo, bd = L.bd;
   bf16* ah_sm = reinterpret_cast<bf16*>(smem);
   bf16* ax_sm = reinterpret_cast<bf16*>(smem + L.ax);
   bf16* ad_sm = reinterpret_cast<bf16*>(smem + L.ad);
@@ -210,18 +226,38 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
     return e % 2 == 0 ? Chunk{kP, k0 * R, gk * R, dpi, c_in}
                       : Chunk{kQ, k0 * R, gk * R, dpo, c_out};
   };
-  // chunk c is read from buffer c % 3 while chunks c + 1 and c + 2 land
-  // in the other two
+  // kDeep: each chunk runs as ceil(depth / bd) stages, one step of the
+  // ring each, else as one step: step n is read from buffer n % 3 while
+  // steps n + 1 and n + 2 land in the other two.  (ic, is) is the next
+  // piece to copy: stage is of chunk ic.
   auto buf = [&](int n) {
     return reinterpret_cast<bf16*>(ring + (n % kBufs) * L.buf);
   };
   auto bias = [&](int n) {
     return reinterpret_cast<float*>(ring + (n % kBufs) * L.buf +
-                                    2L * kCols * L.dmax);
+                                    2L * kCols * bd);
   };
   const ChunkCopy<R8> cc(w3, b3, c_in, c_out, rank);
-  cc.start(buf(0), bias(0), chunk(0));
-  cc.start(buf(1), bias(1), chunk(1));
+  int ic = 0, is = 0;
+  auto start_next = [&](int n) {
+    if (ic < n_c) {
+      const Chunk ch = chunk(ic);
+      cc.start(buf(n), bias(n), stage_of(ch, is, bd));
+      if (++is * bd >= ch.depth) {
+        is = 0;
+        ++ic;
+      }
+    } else {
+      pieces_commit();  // an empty group, so that each step waits for its own
+    }
+  };
+  if constexpr (kDeep) {
+    start_next(0);
+    start_next(1);
+  } else {
+    cc.start(buf(0), bias(0), chunk(0));
+    cc.start(buf(1), bias(1), chunk(1));
+  }
 
   // ---- stage dmsg (rounded to bf16; channels tid % 64 + 64 m' of slots
   // tid / 64 + 2 m), h and x_src; the first step's barrier publishes
@@ -257,23 +293,43 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
     for (int m = 0; m < R8; ++m)
       tq[hf][m][0] = tq[hf][m][1] = dq[hf][m][0] = dq[hf][m][1] = 0.f;
 
+  int step = 0;
   for (int c = 0; c < n_c; ++c) {
-    pieces_wait<1>();  // chunk c has landed
-    fence_async_smem();
-    __syncthreads();
+    if constexpr (!kDeep) {
+      pieces_wait<1>();  // chunk c has landed
+      fence_async_smem();
+      __syncthreads();
+    }
     const Chunk ch = chunk(c);
     const bf16* a = ch.kind == kP ? ax_sm : ch.kind == kQ ? ad_sm : ah_sm;
     float acc[kCols / 2];
-    product<kCols, 1>(acc, a, buf(c), ch.depth);
-    // chunk c + 2 into the buffer that chunk c - 1's finished product read
-    // (an empty group past the last, so that each step waits for its own)
-    if (c + 2 < n_c)
-      cc.start(buf(c + 2), bias(c + 2), chunk(c + 2));
-    else
-      pieces_commit();
-    wait_all();
-    fence_operand(acc);
-    const float* bs = bias(c);
+    if constexpr (kDeep) {
+      for (int d0 = 0; d0 < ch.depth; d0 += bd, ++step) {
+        pieces_wait<1>();  // this step's piece has landed
+        fence_async_smem();
+        __syncthreads();
+        product_stage(acc, a, ch.depth, d0, buf(step),
+                      min(bd, ch.depth - d0), d0 > 0);
+        // the piece two steps on into the buffer that step - 1's finished
+        // product read
+        start_next(step + 2);
+        wait_all();
+        fence_operand(acc);
+      }
+    } else {
+      product<kCols, 1>(acc, a, buf(c), ch.depth);
+      // chunk c + 2 into the buffer that chunk c - 1's finished product
+      // read (an empty group past the last, so that each step waits for
+      // its own)
+      if (c + 2 < n_c)
+        cc.start(buf(c + 2), bias(c + 2), chunk(c + 2));
+      else
+        pieces_commit();
+      wait_all();
+      fence_operand(acc);
+      step = c + 1;
+    }
+    const float* bs = bias(step - 1);
     if (c < n_v) {  // dt[s, q] += dmsg[s, o] V[s, o, q]
       const int o0 = c * G, gc = min(G, c_out - o0);
 #pragma unroll
@@ -377,20 +433,32 @@ __device__ __forceinline__ void promote(float (&acc)[kCols / 2], float* dst,
 }
 
 // Byte offsets of the weights kernel's shared memory: duv's three parts,
-// then two sets of staged operands (chunk n of a split in set n % 2); within
-// a set, the offsets of its arrays.
+// then two sets of staged operands (chunk n of a split in set n % 2), or
+// one where two do not fit (past a width of 128: at c_in = c_out = 256 two
+// sets take 229 KB at rank 32 and 262 KB at 64, one 156 KB); within a
+// set, the offsets of its arrays.  With one set each chunk is copied after
+// the last one's products completed.
 struct WeightsLayout {
   long sets, x, m, t, dt, set, total;
-  __host__ __device__ WeightsLayout(int c_in, int c_out, int r) {
+  int nsets;
+  // one_set: one set of staged operands (weights_one_set)
+  __host__ __device__ WeightsLayout(int c_in, int c_out, int r,
+                                    bool one_set) {
     sets = 2L * 3 * kCols * kTile;           // d1, d2, d3 [3][128][64 e]
     x = 2L * kTile * kTile;                  // a: h^T [64 k][64 e]
     m = x + 2L * kTile * c_in;               // x_src [64][c_in] bf16
     t = m + 2L * kTile * c_out;              // dmsg [64][c_out] bf16
     dt = t + 4L * kTile * r;                 // t [64][r] f32
     set = dt + 4L * kTile * r;               // dt [64][r] f32
-    total = sets + 2 * set;
+    nsets = one_set ? 1 : 2;
+    total = sets + nsets * set;
   }
 };
+
+// Whether two sets of the weights kernel's staged operands do not fit.
+__host__ __device__ inline bool weights_one_set(int c_in, int c_out, int r) {
+  return WeightsLayout(c_in, c_out, r, false).total > kSmemMax;
+}
 
 // Asynchronous 16-byte copy from device to shared memory (cp.async), its
 // group commit and the wait for all but the newest group.
@@ -424,8 +492,9 @@ __device__ __forceinline__ void copy_bytes(void* dst, const void* src, int n,
 // ---------------------------------------------------------------------------
 // (b) partial[split, k, c] = sum over the split's slots e of h[e, k] duv[e, c]
 // for the block's 128 padded columns c of rp (c_in + c_out) and 64 rows k,
-// and (first row tile) row K: db3, at the model's columns.
-template <int R8>
+// and (first row tile) row K: db3, at the model's columns.  kOneSet: one
+// set of staged operands (WeightsLayout), a separate instance.
+template <int R8, bool kOneSet>
 __global__ void __launch_bounds__(kWarpgroup)
 lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
                           const bf16* __restrict__ x_src,
@@ -438,7 +507,7 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
                           int rank) {
   constexpr int R = 8 * R8;
   extern __shared__ __align__(128) unsigned char smem[];
-  const WeightsLayout L(c_in, c_out, R);
+  const WeightsLayout L(c_in, c_out, R, kOneSet);
   bf16* d_sm = reinterpret_cast<bf16*>(smem);
   unsigned char* sets = smem + L.sets;
   const int tid = threadIdx.x;
@@ -465,7 +534,7 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
 
   // columns past ncol, and h^T's rows past K - k0, stay zero
   for (int e = tid; e < 3 * kCols * kTile; e += kWarpgroup) d_sm[e] = zero;
-  for (int e = tid; e < 2 * kTile * kTile; e += kWarpgroup)
+  for (int e = tid; e < (kOneSet ? 1 : 2) * kTile * kTile; e += kWarpgroup)
     reinterpret_cast<bf16*>(sets + (e >= kTile * kTile ? L.set : 0))
         [e % (kTile * kTile)] = zero;
   float acc[kCols / 2];
@@ -480,15 +549,16 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
   int pending = 0;
   bool first = true;
 
-  // With every operand 16-byte aligned and K a multiple of 8 the next
-  // chunk's operands are copied (cp.async) into the other set while this
-  // chunk's run; otherwise each chunk is staged after the last one, with
-  // plain loads.
+  // With every operand 16-byte aligned and K a multiple of 8 the operands
+  // are copied by cp.async (else with plain loads), with two sets the next
+  // chunk's into the other set while this chunk's run (pipelined);
+  // otherwise each chunk is staged after the last one.
   const bool async =
       K % 8 == 0 &&
       (reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(x_src) |
        reinterpret_cast<uintptr_t>(dmsg) | reinterpret_cast<uintptr_t>(t_vec) |
        reinterpret_cast<uintptr_t>(dt_vec)) % 16 == 0;
+  const bool pipelined = async && !kOneSet;
   auto stage = [&](unsigned char* set, long s0) {
     // A = h^T over the row tile's k0 .. k0 + 63, MN-major: 8 consecutive
     // k of one slot are a 16-byte piece of an h row (zeros past K, written
@@ -531,14 +601,14 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
 #pragma unroll
   for (int p = 0; p < 3; ++p) dd[p] = desc(d_sm + p * kCols * kTile, kTile);
   __syncthreads();  // the zeros land before the first copies
-  if (async && c_lo < c_hi) stage(sets, c_lo * kTile);
+  if (pipelined && c_lo < c_hi) stage(sets, c_lo * kTile);
   cp_async_commit();
 
   for (long chk = c_lo; chk < c_hi; ++chk) {
     const long s0 = chk * kTile;
-    const int cur = static_cast<int>(chk - c_lo) & 1;
+    const int cur = static_cast<int>(chk - c_lo) & (kOneSet ? 0 : 1);
     unsigned char* set = sets + cur * L.set;
-    if (async) {  // the next chunk into the other set (last read by the
+    if (pipelined) {  // the next chunk into the other set (last read by the
                   // chunk before this one, whose products have completed)
       if (chk + 1 < c_hi) stage(sets + (cur ^ 1) * L.set, s0 + kTile);
       cp_async_commit();
@@ -553,8 +623,14 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
     } else {
       __syncthreads();
     }
-    if (!async) {
+    if (!pipelined) {  // after the barrier: the last chunk's products are
+                       // done with the set
       stage(set, s0);
+      if (kOneSet && async) {
+        cp_async_commit();
+        cp_async_wait<0>();
+        fence_async_smem();
+      }
       __syncthreads();
     }
     const bf16* f_sm = reinterpret_cast<const bf16*>(set + f_off);
@@ -628,8 +704,11 @@ cudaError_t launch(const void* g, const void* h, const void* x_src,
                    cudaStream_t stream) {
   constexpr int R = 8 * R8;
   const long num_tiles = static_cast<long>(num_blocks) * blk / kTile;
-  const size_t smem = static_cast<size_t>(RowsLayout(K, c_in, c_out, R).total);
-  auto rows = lowrank_bwd_rows_wgmma<R8>;
+  const bool deep = rows_deep(K, c_in, c_out);
+  const size_t smem = static_cast<size_t>(RowsLayout(K, c_in, c_out, R,
+                                                     deep).total);
+  auto rows = deep ? lowrank_bwd_rows_wgmma<R8, true>
+                   : lowrank_bwd_rows_wgmma<R8, false>;
   cudaError_t err = allow_smem(rows, smem);
   if (err != cudaSuccess) return err;
   const bf16* w = static_cast<const bf16*>(w3);
@@ -655,8 +734,11 @@ cudaError_t launch(const void* g, const void* h, const void* x_src,
   const int tiles = (R * (c_in + c_out) + kCols - 1) / kCols;
   const int row_tiles = (K + kTile - 1) / kTile;
   const long per_split = (num_tiles + num_splits - 1) / num_splits;
-  const size_t wsmem = static_cast<size_t>(WeightsLayout(c_in, c_out, R).total);
-  auto weights = lowrank_bwd_weights_wgmma<R8>;
+  const bool one_set = weights_one_set(c_in, c_out, R);
+  const size_t wsmem = static_cast<size_t>(WeightsLayout(c_in, c_out, R,
+                                                         one_set).total);
+  auto weights = one_set ? lowrank_bwd_weights_wgmma<R8, true>
+                         : lowrank_bwd_weights_wgmma<R8, false>;
   err = allow_smem(weights, wsmem);
   if (err != cudaSuccess) return err;
   weights<<<dim3(tiles, num_splits, row_tiles), kWarpgroup, wsmem, stream>>>(
@@ -674,7 +756,8 @@ extern "C" {
 // Bytes of dynamic shared memory one block of the rows kernel needs.
 long fused_edge_conv_lowrank_bwd_wgmma_smem_bytes(int K, int c_in, int c_out,
                                                   int r) {
-  return RowsLayout(K, c_in, c_out, padded_rank(r)).total;
+  return RowsLayout(K, c_in, c_out, padded_rank(r),
+                    rows_deep(K, c_in, c_out)).total;
 }
 
 // Blocks one SM holds at once at these widths: the rows kernel's
@@ -685,11 +768,19 @@ int fused_edge_conv_lowrank_bwd_wgmma_blocks_per_sm(int K, int c_in,
   return with_rank(r, [&](auto r8) {
     constexpr int R8 = decltype(r8)::value;
     constexpr int R = 8 * R8;
-    if (weights)
-      return blocks_per_sm(lowrank_bwd_weights_wgmma<R8>,
-                           static_cast<size_t>(WeightsLayout(c_in, c_out, R).total));
-    return blocks_per_sm(lowrank_bwd_rows_wgmma<R8>,
-                         static_cast<size_t>(RowsLayout(K, c_in, c_out, R).total));
+    if (weights) {
+      const bool one_set = weights_one_set(c_in, c_out, R);
+      const size_t smem = static_cast<size_t>(
+          WeightsLayout(c_in, c_out, R, one_set).total);
+      return one_set
+                 ? blocks_per_sm(lowrank_bwd_weights_wgmma<R8, true>, smem)
+                 : blocks_per_sm(lowrank_bwd_weights_wgmma<R8, false>, smem);
+    }
+    const bool deep = rows_deep(K, c_in, c_out);
+    const size_t smem = static_cast<size_t>(
+        RowsLayout(K, c_in, c_out, R, deep).total);
+    return deep ? blocks_per_sm(lowrank_bwd_rows_wgmma<R8, true>, smem)
+                : blocks_per_sm(lowrank_bwd_rows_wgmma<R8, false>, smem);
   }, -1);
 }
 
@@ -700,7 +791,7 @@ int fused_edge_conv_lowrank_bwd_wgmma_blocks_per_sm(int K, int c_in,
 // as t_vec and dt_vec [slots, rp], rp = 8*ceil(r/8)); slot_rows int32.
 // Exactly one of s_dense and (slot_rows, row_weight) is non-null.  w3 is
 // [K, r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <=
-// 128 and 1 <= r <= 64.  At a rank that is not a multiple of 8, pad is
+// 256 and 1 <= r <= 64.  At a rank that is not a multiple of 8, pad is
 // bfloat16 scratch of K*rp*(c_in+c_out) elements, 16-byte aligned
 // (ops/fused_conv.py:lowrank_pad_numel; unused otherwise).  partial is
 // [num_splits, K+1, r*(c_in+c_out)] (dw3 rows then the db3 row, the

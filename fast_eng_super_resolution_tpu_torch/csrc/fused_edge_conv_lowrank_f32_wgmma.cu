@@ -6,7 +6,7 @@
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_jit
 // for float32 operands (the JAX function at gemm_dtype="float32", on the
 // TPU's matrix unit at Precision.HIGHEST) at every rank 1 .. 64 and K,
-// c_in, c_out 1 .. 128 (fused_edge_conv_lowrank_wgmma.cu is the bfloat16
+// c_in, c_out 1 .. 256 (fused_edge_conv_lowrank_wgmma.cu is the bfloat16
 // instance) and computes
 // the same function.  Slots are grouped as for the full-rank layer: block b
 // holds the slots whose receivers lie in rows [64 b, 64 b + 64).  Per slot
@@ -94,29 +94,46 @@ constexpr int kThreads = kWarpgroup + 32;  // consumers + the producer warp
 // (odd strides: the 8 rows a warp reads at one column fall in 8 banks), the
 // part's row sums [64][c_out] and the tile's slot_rows.  At width 48, K 48,
 // rank 16: 111 KB (two blocks per SM); at 128, rank 64: 198 KB.
+//
+// Wide (a K, c_in or c_out past 128; lowrank_f32_wgmma.cuh wide_dims): the
+// x and message tiles share one [64][max(c_in, c_out) | 1] tile (a row of
+// messages is written only by the quad that read that row of x, after its
+// last U chunk; the next tile's x rows land after the scatter), and the
+// part sums are added into the part's partial in device memory, each entry
+// by one thread in tile order.  The ring (4 stages of 32 deep past a K of
+// 64), h's parts past 64 and the shared tile: 214 KB at K = c_in = c_out =
+// 256 (ranks 8, 16, 32, 64; 195 KB at 40), 160 KB at K 256 with widths 48,
+// 140 KB at K 48 with widths 256 (rank 16), against the 232 KB a block may
+// take.
 struct Layout {
   int n, dp, sd, xs, ms;
+  bool wide;
   long stage, ring, a, x, m, acc, srow, total;
-  __host__ __device__ Layout(int K, int c_in, int c_out, int r) {
+  // wide: wide_dims(K, c_in, c_out), the instance's
+  __host__ __device__ Layout(int K, int c_in, int c_out, int r, bool wide_) {
     n = chunk_cols(r);
     dp = image_depth(K);
     sd = stage_depth(dp);
+    wide = wide_;
     xs = c_in | 1;
     ms = c_out | 1;
+    if (wide) xs = ms = (c_in > c_out ? c_in : c_out) | 1;
     stage = 3 * 2L * n * sd;
     ring = 128;
     a = ring + kRing * stage;
     x = a + (dp > 64 ? 3 * 2L * kTile * dp : 0);
-    m = x + 4L * kTile * xs;
+    m = wide ? x : x + 4L * kTile * xs;
     acc = m + 4L * kTile * ms;
-    srow = acc + 4L * kRows * c_out;
+    srow = wide ? acc : acc + 4L * kRows * c_out;  // wide: no part sums
     total = srow + 4L * kTile;
   }
 };
 
 // R8 = rp / 8 (rp the padded rank), S = K rounded up to 16, over 16 (h's k16
-// steps) up to 4, kDeep past it (h's parts in shared memory).
-template <int R8, int S>
+// steps) up to 4, kDeep past it (h's parts in shared memory); kWide: the
+// wide layout (a separate instance, so that the one up to 128 stays as it
+// was).
+template <int R8, int S, bool kWide>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<R8, S>)
 lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
                       const int* __restrict__ senders_perm,
@@ -129,7 +146,7 @@ lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
                       int c_out, int n_nodes) {
   constexpr int R = 8 * R8, N = kN<R8>, G = N / R;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(K, c_in, c_out, R);
+  const Layout L(K, c_in, c_out, R, kWide);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kRing;
   unsigned char* ring = smem + L.ring;
@@ -178,7 +195,14 @@ lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
   float* m_sm = reinterpret_cast<float*>(smem + L.m);
   float* acc_sm = reinterpret_cast<float*>(smem + L.acc);
   int* srow = reinterpret_cast<int*>(smem + L.srow);
-  for (int e = tid; e < kRows * c_out; e += kWarpgroup) acc_sm[e] = 0.f;
+  // the part's partial (the output itself when parts == 1); wide: the part
+  // sums themselves (formed where it is used, so that no register holds it
+  // across the walk)
+  auto partial = [&]() {
+    return out + (static_cast<long>(part) * gridDim.x * kRows + row_base) * c_out;
+  };
+  for (int e = tid; e < kRows * c_out; e += kWarpgroup)
+    (kWide ? partial() : acc_sm)[e] = 0.f;
   bf16* a_sm = reinterpret_cast<bf16*>(smem + L.a);
   const uint64_t d0 = desc(ring, L.sd);
   const uint32_t dstage = static_cast<uint32_t>(L.stage >> 4);
@@ -281,48 +305,60 @@ lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
       walk.all(n_c - 1, j);
     }
     // this warp is done with its x rows: the next tile's land meanwhile
-    if (next < t_hi) fetch_x(next);
+    // (wide: once the scatter has read the messages that share their tile)
+    if (!kWide && next < t_hi) fetch_x(next);
 
     // ---- scatter the tile's messages into the part's row sums ----
     warpgroup_sync(0);
-    if (compact) {
-      for (int o = tid; o < c_out; o += kWarpgroup) {
-        int cur = -1;
-        float run = 0.f;
-        for (int s = 0; s < kTile; ++s) {
-          const int r = srow[s];
-          if (r != cur) {
-            if (cur >= 0) acc_sm[cur * c_out + o] += run;
-            cur = r;
-            run = 0.f;
+    auto scatter = [&](float* sums) {
+      if (compact) {
+        for (int o = tid; o < c_out; o += kWarpgroup) {
+          int cur = -1;
+          float run = 0.f;
+          for (int s = 0; s < kTile; ++s) {
+            const int r = srow[s];
+            if (r != cur) {
+              if (cur >= 0) sums[cur * c_out + o] += run;
+              cur = r;
+              run = 0.f;
+            }
+            if (r >= 0) run += m_sm[s * ms + o];
           }
-          if (r >= 0) run += m_sm[s * ms + o];
+          if (cur >= 0) sums[cur * c_out + o] += run;
         }
-        if (cur >= 0) acc_sm[cur * c_out + o] += run;
+      } else {
+        const float* s_tile = s_dense + row_base * blk + static_cast<long>(t) * kTile;
+        for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
+          const int r = e / c_out, o = e - r * c_out;
+          float v = 0.f;
+          for (int s = 0; s < kTile; ++s)
+            v = fmaf(s_tile[static_cast<long>(r) * blk + s], m_sm[s * ms + o], v);
+          sums[e] += v;
+        }
       }
+    };
+    if constexpr (kWide) {
+      scatter(partial());
+      warpgroup_sync(0);
+      if (next < t_hi) fetch_x(next);
     } else {
-      const float* s_tile = s_dense + row_base * blk + static_cast<long>(t) * kTile;
-      for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
-        const int r = e / c_out, o = e - r * c_out;
-        float v = 0.f;
-        for (int s = 0; s < kTile; ++s)
-          v = fmaf(s_tile[static_cast<long>(r) * blk + s], m_sm[s * ms + o], v);
-        acc_sm[e] += v;
-      }
+      scatter(acc_sm);
     }
     t = next;
   }
   warpgroup_sync(0);
 
-  // ---- the part's partial (the output itself when parts == 1) ----
-  float* dst = out + (static_cast<long>(part) * gridDim.x * kRows + row_base) * c_out;
-  for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
-    const float v = acc_sm[e];
-    dst[e] = compact ? row_weight[row_base + e / c_out] * v : v;
-  }
+  // ---- the part's partial: its sums scaled by row_weight in CompactS
+  // form ----
+  float* dst = partial();
+  if (!kWide || compact)
+    for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
+      const float v = kWide ? dst[e] : acc_sm[e];
+      dst[e] = compact ? row_weight[row_base + e / c_out] * v : v;
+    }
 }
 
-template <int R8, int S>
+template <int R8, int S, bool kWide>
 cudaError_t launch(const float* h, const float* x, const int* senders_perm,
                    const float* w3, const float* b3, const int* slot_rows,
                    const float* row_weight, const float* s_dense, bf16* image,
@@ -330,9 +366,9 @@ cudaError_t launch(const float* h, const float* x, const int* senders_perm,
                    int c_out, int r, int n_nodes, int parts,
                    cudaStream_t stream) {
   constexpr int R = 8 * R8;
-  const Layout L(K, c_in, c_out, R);
+  const Layout L(K, c_in, c_out, R, kWide);
   const size_t smem = static_cast<size_t>(L.total);
-  auto kernel = lowrank_fwd_f32_wgmma<R8, S>;
+  auto kernel = lowrank_fwd_f32_wgmma<R8, S, kWide>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const float* b3p;
@@ -353,17 +389,20 @@ extern "C" {
 // Bytes of dynamic shared memory one block needs.
 long fused_edge_conv_lowrank_f32_wgmma_smem_bytes(int K, int c_in, int c_out,
                                                   int r) {
-  return Layout(K, c_in, c_out, padded_rank(r)).total;
+  return Layout(K, c_in, c_out, padded_rank(r),
+                wide_dims(K, c_in, c_out)).total;
 }
 
 // Blocks one SM holds at once at these widths (-1 if they are not taken).
 int fused_edge_conv_lowrank_f32_wgmma_blocks_per_sm(int K, int c_in,
                                                     int c_out, int r) {
-  const Layout L(K, c_in, c_out, padded_rank(r));
+  const Layout L(K, c_in, c_out, padded_rank(r), wide_dims(K, c_in, c_out));
   return with_rank_depth(r, K, [&](auto r8, auto s) {
-    return blocks_on_sm(
-        lowrank_fwd_f32_wgmma<decltype(r8)::value, decltype(s)::value>,
-        kThreads, static_cast<size_t>(L.total));
+    constexpr int R8 = decltype(r8)::value, S = decltype(s)::value;
+    const size_t smem = static_cast<size_t>(L.total);
+    return L.wide
+               ? blocks_on_sm(lowrank_fwd_f32_wgmma<R8, S, true>, kThreads, smem)
+               : blocks_on_sm(lowrank_fwd_f32_wgmma<R8, S, false>, kThreads, smem);
   }, -1);
 }
 
@@ -373,7 +412,7 @@ int fused_edge_conv_lowrank_f32_wgmma_blocks_per_sm(int K, int c_in,
 // ops/fused_conv.py:lowrank_image_numel elements, 16-byte aligned.
 // Exactly one of s_dense and (slot_rows, row_weight) is non-null.  w3 is
 // [K, r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <=
-// 128 and 1 <= r <= 64.  out is [num_blocks*64, c_out] when parts
+// 256 and 1 <= r <= 64.  out is [num_blocks*64, c_out] when parts
 // == 1, else the partials [parts, num_blocks*64, c_out].  Returns the
 // cudaError_t of the launches (0 on success).
 int fused_edge_conv_lowrank_f32_wgmma_forward(
@@ -387,8 +426,10 @@ int fused_edge_conv_lowrank_f32_wgmma_forward(
       reinterpret_cast<uintptr_t>(image) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool wide = wide_dims(K, c_in, c_out);
   return static_cast<int>(with_rank_depth(r, K, [&](auto r8, auto s) {
-    return launch<decltype(r8)::value, decltype(s)::value>(
+    constexpr int R8 = decltype(r8)::value, S = decltype(s)::value;
+    return (wide ? launch<R8, S, true> : launch<R8, S, false>)(
         static_cast<const float*>(h), static_cast<const float*>(x),
         static_cast<const int*>(senders_perm), static_cast<const float*>(w3),
         static_cast<const float*>(b3), static_cast<const int*>(slot_rows),

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_jit
-// for bfloat16 operands at every rank 1 .. 64 and K, c_in, c_out 1 .. 128
+// for bfloat16 operands at every rank 1 .. 64 and K, c_in, c_out 1 .. 256
 // (fused_edge_conv_lowrank_f32_wgmma.cu is the float32 instance) and
 // computes the same function.  Slots are grouped as for the full-rank
 // layer: block b holds the slots whose receivers lie in rows [64 b, 64 b +
@@ -44,8 +44,18 @@
 // slots in CompactS form (tiles of padding only skipped), the 64 x 64 S
 // product in dense form.  Each part writes its own [64, c_out] partial;
 // the wrapper sums the partials in a fixed order.  No atomics: two
-// launches on the same inputs give the same bits.  Shared memory (any
-// rank): 70 KB at width 48, K 48 (three blocks per SM), 183 KB at 128.
+// launches on the same inputs give the same bits.
+//
+// Shared memory (any rank; Layout, ops/fused_conv.py:lowrank_smem_bytes):
+// h [64][K], the ring, the x / message tile [64][max(c_in, c_out) | 1]
+// f32 and the part sums [64][c_out] f32.  Up to a K of 128 a ring buffer
+// holds a whole chunk [128][K] bf16 (70 KB at width 48, K 48, three blocks
+// per SM; 183 KB at 128, one).  Past a K of 128 the three whole chunks
+// would take 194 KB at 256, so each buffer holds 64 deep and a chunk runs
+// as K / 64 stages into one accumulator (lowrank_wgmma.cuh staged,
+// product_stage), 51 KB of ring: 215 KB at K = c_in = c_out = 256, 109 KB
+// at K 256 with widths 48, 176 KB at K 48 with widths 256 (whole chunks)
+// against the 232 KB a block may take (kSmemMax).
 //
 // Bound.  Per real slot 2 (K+1) r (c_in + c_out) operations for uv plus
 // 4 r c for t and msg, against (K + c_in) 2 + 8 bytes: at width 48, rank 16
@@ -78,13 +88,15 @@ constexpr int kRows = 64;  // receiver rows per block (rows_blk)
 // an odd row stride, so that the 8 rows a warp reads at one column fall in
 // 8 different banks.
 struct Layout {
-  int kp, xs, ms;
+  int kp, bd, xs, ms;
   long buf, ring, xm, acc, srow, total;
-  __host__ __device__ Layout(int K, int c_in, int c_out) {
+  // deep: the chunks in stages (fwd_deep)
+  __host__ __device__ Layout(int K, int c_in, int c_out, bool deep) {
     kp = round_up(K, 16);
+    bd = deep ? kStage : kp;  // a buffer's depth
     xs = c_in | 1;
     ms = c_out | 1;
-    buf = 2L * kCols * kp + 4L * kCols;
+    buf = 2L * kCols * bd + 4L * kCols;
     ring = 2L * kTile * kp;                  // a: h [64][kp]
     xm = ring + kBufs * buf;
     acc = xm + 4L * kTile * (xs > ms ? xs : ms);
@@ -93,7 +105,14 @@ struct Layout {
   }
 };
 
-template <int R8>
+// Whether B3 walks each chunk in stages of 64 (K past 128).
+__host__ __device__ constexpr bool fwd_deep(int K) {
+  return staged(round_up(K, 16));
+}
+
+// kDeep: K past 128, each chunk in stages of 64 (a separate instance, so
+// that the one up to 128 stays the whole-chunk walk).
+template <int R8, bool kDeep>
 __global__ void __launch_bounds__(kWarpgroup)
 lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
                   const int* __restrict__ senders_perm,
@@ -105,8 +124,8 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
                   int n_nodes) {
   constexpr int R = 8 * R8, G = kCols / R;  // padded rank, channels per chunk
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(K, c_in, c_out);
-  const int kp = L.kp, xs = L.xs, ms = L.ms;
+  const Layout L(K, c_in, c_out, kDeep);
+  const int kp = L.kp, bd = L.bd, xs = L.xs, ms = L.ms;
   bf16* a_sm = reinterpret_cast<bf16*>(smem);
   unsigned char* ring = smem + L.ring;
   float* x_sm = reinterpret_cast<float*>(smem + L.xm);
@@ -124,6 +143,7 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
   const bool compact = s_dense == nullptr;
   const int ru = R * c_in;
   const int n_u = (c_in + G - 1) / G, n_c = n_u + (c_out + G - 1) / G;
+  const int ns = kDeep ? (kp + bd - 1) / bd : 1;  // stages per chunk
   const bool x_vec = c_in % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 
   for (int e = tid; e < kRows * c_out; e += kWarpgroup) acc_sm[e] = 0.f;
@@ -135,18 +155,25 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
     const int gc = min(G, (u ? c_in : c_out) - ch0);
     return Chunk{kUv, (u ? 0 : ru) + ch0 * R, gc * R, kp, K};
   };
-  // w3's chunks stream through the ring in one sequence of steps over the
-  // part's tiles: step n reads buffer n % 3 while the chunks of steps n + 1
-  // and n + 2 land in the other two
+  // piece n of a tile's walk: stage n % ns of chunk n / ns (kDeep), else
+  // chunk n
+  auto piece = [&](int n) {
+    if constexpr (kDeep) return stage_of(chunk(n / ns), n % ns, bd);
+    return chunk(n);
+  };
+  const int n_p = n_c * ns;
+  // w3's chunks stream through the ring in one sequence of steps (one
+  // piece each) over the part's tiles: step n reads buffer n % 3 while the
+  // pieces of steps n + 1 and n + 2 land in the other two
   auto buf = [&](int n) {
     return reinterpret_cast<bf16*>(ring + (n % kBufs) * L.buf);
   };
   auto bias = [&](int n) {
-    return reinterpret_cast<float*>(ring + (n % kBufs) * L.buf + 2L * kCols * kp);
+    return reinterpret_cast<float*>(ring + (n % kBufs) * L.buf + 2L * kCols * bd);
   };
   const ChunkCopy<R8> cc(w3, b3, c_in, c_out, rank);
-  cc.start(buf(0), bias(0), chunk(0));
-  cc.start(buf(1), bias(1), chunk(1));
+  cc.start(buf(0), bias(0), piece(0));
+  cc.start(buf(1), bias(1), piece(1));
   int step = 0;
 
   const int r0 = acc_row(0);
@@ -195,18 +222,35 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
 #pragma unroll
       for (int m = 0; m < R8; ++m) tq[hf][m][0] = tq[hf][m][1] = 0.f;
 
-    for (int c = 0; c < n_c; ++c, ++step) {
-      pieces_wait<1>();  // this step's chunk has landed
-      fence_async_smem();
-      __syncthreads();
+    for (int c = 0; c < n_c; ++c) {
       float acc[kCols / 2];
-      product<kCols, 1>(acc, a_sm, buf(step), kp);
-      // the chunk two steps on (this tile's, or the next one's), into the
-      // buffer that step - 1's finished product read
-      cc.start(buf(step + 2), bias(step + 2), chunk((c + 2) % n_c));
-      wait_all();
-      fence_operand(acc);
-      const float* bs = bias(step);
+      if constexpr (kDeep) {
+        for (int st = 0; st < ns; ++st, ++step) {
+          pieces_wait<1>();  // this step's piece has landed
+          fence_async_smem();
+          __syncthreads();
+          product_stage(acc, a_sm, kp, st * bd, buf(step),
+                        min(bd, kp - st * bd), st > 0);
+          // the piece two steps on (this tile's, or the next one's), into
+          // the buffer that step - 1's finished product read
+          cc.start(buf(step + 2), bias(step + 2),
+                   piece((c * ns + st + 2) % n_p));
+          wait_all();
+          fence_operand(acc);
+        }
+      } else {
+        pieces_wait<1>();  // this step's chunk has landed
+        fence_async_smem();
+        __syncthreads();
+        product<kCols, 1>(acc, a_sm, buf(step), kp);
+        // the chunk two steps on (this tile's, or the next one's), into the
+        // buffer that step - 1's finished product read
+        cc.start(buf(step + 2), bias(step + 2), chunk((c + 2) % n_c));
+        wait_all();
+        fence_operand(acc);
+        ++step;
+      }
+      const float* bs = bias(step - 1);
       if (c < n_u) {  // t[s, q] += x[s, i] U[s, i, q]
         const int i0 = c * G, gc = min(G, c_in - i0);
 #pragma unroll
@@ -274,15 +318,15 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
   }
 }
 
-template <int R8>
+template <int R8, bool kDeep>
 cudaError_t launch(const void* h, const void* x, const void* senders_perm,
                    const void* w3, const void* b3, const void* slot_rows,
                    const void* row_weight, const void* s_dense, void* pad,
                    void* out, int num_blocks, int blk, int K, int c_in,
                    int c_out, int r, int n_nodes, int parts,
                    cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(Layout(K, c_in, c_out).total);
-  auto kernel = lowrank_fwd_wgmma<R8>;
+  const size_t smem = static_cast<size_t>(Layout(K, c_in, c_out, kDeep).total);
+  auto kernel = lowrank_fwd_wgmma<R8, kDeep>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const bf16* w = static_cast<const bf16*>(w3);
@@ -309,16 +353,18 @@ extern "C" {
 // Bytes of dynamic shared memory one block needs.
 long fused_edge_conv_lowrank_wgmma_smem_bytes(int K, int c_in, int c_out,
                                               int r) {
-  return Layout(K, c_in, c_out).total;
+  return Layout(K, c_in, c_out, fwd_deep(K)).total;
 }
 
 // Blocks one SM holds at once at these widths (-1 if they are not taken).
 int fused_edge_conv_lowrank_wgmma_blocks_per_sm(int K, int c_in, int c_out,
                                                 int r) {
+  const bool deep = fwd_deep(K);
+  const size_t smem = static_cast<size_t>(Layout(K, c_in, c_out, deep).total);
   return with_rank(r, [&](auto r8) {
-    return blocks_per_sm(
-        lowrank_fwd_wgmma<decltype(r8)::value>,
-        static_cast<size_t>(Layout(K, c_in, c_out).total));
+    constexpr int R8 = decltype(r8)::value;
+    return deep ? blocks_per_sm(lowrank_fwd_wgmma<R8, true>, smem)
+                : blocks_per_sm(lowrank_fwd_wgmma<R8, false>, smem);
   }, -1);
 }
 
@@ -326,7 +372,7 @@ int fused_edge_conv_lowrank_wgmma_blocks_per_sm(int K, int c_in, int c_out,
 // h, x and w3 bfloat16; b3, row_weight, s_dense and out float32;
 // senders_perm and slot_rows int32.  Exactly one of s_dense and (slot_rows,
 // row_weight) is non-null.  w3 is [K, r*(c_in+c_out)] in the model's column
-// layout; 1 <= K, c_in, c_out <= 128 and 1 <= r <= 64.  At a rank that is
+// layout; 1 <= K, c_in, c_out <= 256 and 1 <= r <= 64.  At a rank that is
 // not a multiple of 8, pad is bfloat16 scratch of K*rp*(c_in+c_out)
 // elements, 16-byte aligned, rp = 8*ceil(r/8) (ops/fused_conv.py:
 // lowrank_pad_numel; unused otherwise).  out is
@@ -345,11 +391,12 @@ int fused_edge_conv_lowrank_wgmma_forward(
        (pad == nullptr || reinterpret_cast<uintptr_t>(pad) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool deep = fwd_deep(K);
   return static_cast<int>(with_rank(r, [&](auto r8) {
-    return launch<decltype(r8)::value>(h, x, senders_perm, w3, b3, slot_rows,
-                                       row_weight, s_dense, pad, out,
-                                       num_blocks, blk, K, c_in, c_out, r,
-                                       n_nodes, parts, s);
+    constexpr int R8 = decltype(r8)::value;
+    return (deep ? launch<R8, true> : launch<R8, false>)(
+        h, x, senders_perm, w3, b3, slot_rows, row_weight, s_dense, pad, out,
+        num_blocks, blk, K, c_in, c_out, r, n_nodes, parts, s);
   }, cudaErrorInvalidValue));
 }
 

@@ -40,7 +40,14 @@
 // 64, the ring four of them): f32_wgmma.cuh's DeepWalk, which B1 and B2 walk
 // past a depth of 128, issues each stage's products into the chunk's one
 // accumulator as it lands and releases it once they completed; one
-// instance (S = kDeep) serves every depth of 80 .. 128.
+// instance (S = kDeep) serves every depth of 80 .. 256.
+//
+// Wide.  Past a K, c_in or c_out of 128 (wide) A's parts take 96 KB at a
+// depth of 256 and each float32 tile [64][256] 64 KB, so the kernels keep
+// only the tiles whose lives overlap: B3 shares one tile between x and the
+// messages and adds its part sums into its partial in device memory; B4's
+// rows kernel reads x_src from device memory and keeps dh's P half in dh
+// until the Q half completes it (each kernel's Layout says how much).
 // Every operand of a product is an input or a float32 value split in
 // three; per stage, the six products of order >= 2^-16 run smallest first
 // into one float32 accumulator.
@@ -60,7 +67,12 @@ using lowrank_wgmma::real_col;
 using lowrank_wgmma::with_rank;
 
 constexpr int kTile = 64;    // slots per tile
-constexpr int kMaxDim = 128;  // K, c_in, c_out <= 128
+constexpr int kMaxDim = 256;  // K, c_in, c_out <= 256
+
+// Whether the kernels take the wide layout (a K, c_in or c_out past 128).
+__host__ __device__ constexpr bool wide_dims(int K, int c_in, int c_out) {
+  return K > 128 || c_in > 128 || c_out > 128;
+}
 
 enum Reading { kUv = 0, kP = 1, kQ = 2 };
 
@@ -89,7 +101,7 @@ template <int R8, int S>
 constexpr int kMinBlocks = S < 4 && R8 <= 4 ? 2 : 1;
 
 // The template depth of every A operand past 64: S = kDeep stands for the
-// deep walk (DeepWalk) at any padded depth dp of 80 .. 128, dp / 32 stages
+// deep walk (DeepWalk) at any padded depth dp of 80 .. 256, dp / 32 stages
 // per chunk.
 constexpr int kDeep = 8;
 
@@ -206,7 +218,7 @@ inline cudaError_t launch_lowrank_image(const float* w3, const float* b3,
 
 // f(R8, S) for a rank r of 1 .. 64, R8 = ceil(r / 8), and S the k16 steps
 // of a kernel's A operands up to a depth of 64 (1 .. 4), kDeep past it, for
-// a depth of 1 .. 128; `otherwise` outside them.
+// a depth of 1 .. 256; `otherwise` outside them.
 template <typename F, typename Ret>
 Ret with_rank_depth(int r, int depth, F&& f, Ret otherwise) {
   if (depth < 1 || depth > kMaxDim) return otherwise;

@@ -37,6 +37,17 @@
 // 128 a chunk is 16 pieces a thread); a kUv chunk's buffer also takes its
 // 128 columns of b3, padded, which the epilogue adds.
 //
+// Stages.  Up to a depth of 128 a buffer holds a whole chunk [128][depth]
+// and each chunk is one product.  Past it three such buffers alone would
+// take 194 KB at a depth of 256, so a buffer holds [128][kStage] and a
+// chunk of depth d runs as ceil(d / 64) stages, each a product of its 64
+// depth rows into the chunk's one accumulator (product_stage), waited for
+// before the next stage's, so that no product is in flight across a loop's
+// back edge (staged; such kernels are instances of their own).  A stage is
+// one step of the ring: the buffer of each step of a kUv chunk takes the
+// chunk's b3 again.  ptxas still serializes these instances' wgmma
+// (C7520), the ones up to 128 not.
+//
 // Accumulator -> (channel, q).  Value j of a thread's m64n128 accumulator
 // sits at column 8 (j / 4) + 2 (lane % 4) + j % 2 (wgmma_tile.cuh).  With
 // rp = 8 R8, column group cg = j / 4 is channel g = cg / R8 of the chunk at
@@ -59,8 +70,13 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;    // slots per tile
 constexpr int kCols = 128;   // columns per chunk
-constexpr int kMaxDim = 128;  // K, c_in, c_out <= 128
-constexpr int kBufs = 3;      // chunks in the ring of B buffers
+constexpr int kMaxDim = 256;  // K, c_in, c_out <= 256
+constexpr int kBufs = 3;      // chunks (stages) in the ring of B buffers
+constexpr int kStage = 64;    // a stage's depth past a depth of 128
+
+// Whether chunks of depth up to dmax (a multiple of 16) run in stages of
+// kStage (past 128) rather than whole.
+__host__ __device__ constexpr bool staged(int dmax) { return dmax > 128; }
 
 enum ChunkKind { kUv = 0, kP = 1, kQ = 2 };
 
@@ -92,12 +108,21 @@ union Pack8 {
 };
 
 struct Chunk {
-  int kind;   // ChunkKind
-  int lo;     // first column (kUv: of uv; kP, kQ: of the (k, q) columns)
-  int cw;     // real columns, a multiple of 8
-  int depth;  // padded depth, a multiple of 16
-  int real;   // real depth: K, c_in or c_out
+  int kind;    // ChunkKind
+  int lo;      // first column (kUv: of uv; kP, kQ: of the (k, q) columns)
+  int cw;      // real columns, a multiple of 8
+  int depth;   // padded depth (of the stage), a multiple of 16
+  int real;    // real depth: K, c_in or c_out
+  int d0 = 0;  // the stage's first depth row
 };
+
+// Stage st of chunk c in buffers of depth bd (kStage): its depth rows
+// st bd .. , at most bd of them.
+__device__ __forceinline__ Chunk stage_of(Chunk c, int st, int bd) {
+  c.d0 = st * bd;
+  c.depth = min(bd, c.depth - c.d0);
+  return c;
+}
 
 // Copies of 16 bytes (`bytes` 16) or of 4 (`bytes` 4) from global to
 // shared memory that run while the thread goes on (cp.async through L1, so
@@ -155,8 +180,9 @@ struct ChunkCopy {
     const bool col_ok = n < c.cw;
     for (int d = threadIdx.x % 8; d < c.depth; d += 8) {
       bf16* dst = buf + mnmajor(n, d, c.depth);
-      const bool ok = col_ok && d < c.real;
-      const bf16* src = w3 + (ok ? base + static_cast<long>(d) * stride : 0);
+      const bool ok = col_ok && c.d0 + d < c.real;
+      const bf16* src =
+          w3 + (ok ? base + static_cast<long>(c.d0 + d) * stride : 0);
       if (vec) {
         copy_async<16>(dst, src, ok);
       } else {
@@ -202,6 +228,24 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
     }
     *reinterpret_cast<uint4*>(dst + kmajor(s, d, depth)) = v;
   }
+}
+
+// D (+)= A[:, d0 .. d0 + depth) B as one committed group: A K-major of
+// depth a_depth at a, B MN-major [128][depth] at b (one stage of a chunk,
+// d0 and depth multiples of 16); the first k16 step overwrites D unless
+// `more` (the wgmma's scale-d predicate).  The caller may work on, then
+// wait_all() and fence_operand(d).
+__device__ __forceinline__ void product_stage(float (&d)[kCols / 2],
+                                              const void* a, int a_depth,
+                                              int d0, const void* b,
+                                              int depth, bool more) {
+  const uint64_t da = desc(a, a_depth) + static_cast<uint64_t>(d0);
+  const uint64_t db = desc_mn(b, depth);
+  fence_operand(d);
+  fence();
+  for (int s = 0; s < depth / 16; ++s)
+    Mma<kCols, 0, 1>::run(d, da + 16 * s, db + 16 * s, s > 0 || more);
+  commit();
 }
 
 // Sums v over the 4 lanes of a quad (the 4 threads that hold one row's

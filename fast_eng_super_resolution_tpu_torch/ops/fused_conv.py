@@ -31,8 +31,8 @@ a rank that is not a multiple of 8 runs at ``padded_rank``, its head padded
 with zeros), and train through ``FusedEdgeConvLowrank``, whose backward is
 ``csrc/fused_edge_conv_lowrank_bwd_wgmma.cu`` or
 ``csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu`` the same way.
-``design`` names the design every launch runs.  B1 and B2 take K, c_in
-and c_out up to 256; B3 and B4 up to 128 (ranks up to 64), and so does B5
+``design`` names the design every launch runs.  B1-B4 take K, c_in and
+c_out up to 256 (B3 and B4 ranks up to 64), and so does B5
 (``ops/pallas_mp.py``).
 """
 
@@ -415,21 +415,18 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-# The largest K, c_in and c_out B1 and B2 take; B3's and B4's, and their
-# largest rank
-_MAX_CONV_WIDTH = 256
-_MAX_WIDTH = 128
+# The largest K, c_in and c_out B1-B4 take, and B3's and B4's largest rank
+_MAX_WIDTH = 256
 _MAX_RANK = 64
 
 
 def _check_geometry(dt, slots: int, rows_blk: int, blk: int,
-                    top: int = _MAX_WIDTH, **dims) -> None:
+                    **dims) -> None:
     """Raises on what the kernels do not take: a GEMM type other than
     float32 or bfloat16, blocks of other than 64 rows, a blk that is not a
     positive multiple of 64 dividing the slots, or a width ``dims`` (name=
-    value) outside 1..``top`` (``rank``: 1..64).  B1 and B2 take widths and
-    K up to 256 (``top=_MAX_CONV_WIDTH``), B3 and B4 up to 128 and ranks up
-    to 64."""
+    value) outside 1..256 (``rank``: 1..64).  B1-B4 take widths and K up to
+    256 in both types, B3 and B4 ranks up to 64."""
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"h_blocked dtype {dt} (expected float32 | bfloat16)")
     if rows_blk != 64:
@@ -437,7 +434,7 @@ def _check_geometry(dt, slots: int, rows_blk: int, blk: int,
     if blk % 64 or blk <= 0:
         raise ValueError(f"blk={blk} must be a positive multiple of 64")
     for name, v in dims.items():
-        most = _MAX_RANK if name == "rank" else top
+        most = _MAX_RANK if name == "rank" else _MAX_WIDTH
         if not 1 <= v <= most:
             raise ValueError(f"{name}={v} outside the kernel's 1..{most}")
     if slots % blk:
@@ -460,8 +457,11 @@ def design(dt: torch.dtype, rank: int | None = None) -> str:
     """The design a kernel launches for GEMM type ``dt``: 'wgmma', on the
     tensor cores (csrc/*_wgmma.cu), for every kernel in both types, as
     bfloat16 products or float32 ones exact through three-part bf16 splits
-    (csrc/f32_wgmma.cuh).  B1 and B2 take ``rank`` None; B3 and B4 any rank
-    1-64, run at ``padded_rank`` (csrc/lowrank_wgmma.cuh)."""
+    (csrc/f32_wgmma.cuh), at K, c_in and c_out up to 256.  B1 and B2 take
+    ``rank`` None; B3 and B4 any rank 1-64, run at ``padded_rank``
+    (csrc/lowrank_wgmma.cuh), past a depth of 128 the bfloat16 ones with
+    each chunk in stages of 64, the float32 ones in their wide layout
+    (``lowrank_smem_bytes``)."""
     return "wgmma"
 
 
@@ -652,6 +652,49 @@ def lowrank_image_numel(k: int, c_in: int, c_out: int, rank: int,
             + 2 * rp * (c_in + c_out))
 
 
+def lowrank_smem_bytes(dt: torch.dtype, k: int, c_in: int, c_out: int,
+                       rank: int, kernel: str = "fwd") -> int:
+    """Bytes of dynamic shared memory one block of B3 (``kernel`` 'fwd'),
+    of B4's rows kernel ('rows') or of B4's weights kernel ('weights')
+    takes in GEMM type ``dt``: each kernel's Layout (the libraries'
+    ``*_smem_bytes`` queries say 'fwd' and 'rows').  bfloat16: up to a
+    depth of 128 a ring of three whole chunks [128][depth], past it three
+    stages [128][64] (csrc/lowrank_wgmma.cuh staged); the weights
+    kernel with one set of staged operands where two do not fit.  float32:
+    past a K, c_in or c_out of 128 the wide layout (B3's x and message
+    tiles shared, its part sums in device memory; B4 rows without the x_src
+    and dh tiles; csrc/lowrank_f32_wgmma.cuh wide_dims)."""
+    rp = padded_rank(rank)
+    if dt == torch.bfloat16:
+        if kernel == "weights":
+            sets = 2 * 3 * 128 * 64
+            one = 2 * 64 * 64 + 2 * 64 * (c_in + c_out) + 2 * 4 * 64 * rp
+            return sets + (2 if sets + 2 * one <= SMEM_MAX else 1) * one
+        kp, dpi, dpo = (_round_up(v, 16) for v in (k, c_in, c_out))
+        dmax = kp if kernel == "fwd" else max(kp, dpi, dpo)
+        ring = 3 * (2 * 128 * (dmax if dmax <= 128 else 64) + 4 * 128)
+        if kernel == "fwd":
+            return (2 * 64 * kp + ring + 4 * 64 * max(c_in | 1, c_out | 1)
+                    + 4 * 64 * c_out + 4 * 2 * 64)
+        return (2 * 64 * (kp + dpi + dpo) + ring + 4 * 2 * (128 // rp) * 128
+                + 4 * 64)
+    if kernel == "weights":
+        return 3 * 2 * 64 * 64 + 3 * 2 * 128 * 64 + 4 * 64 * 64 + 4 * 64 * 18 \
+            + 2 * 4 * 64 * rp
+    n = lowrank_chunk_cols(rank)
+    wide = max(k, c_in, c_out) > 128
+    dp = lowrank_image_depth(k if kernel == "fwd" else max(k, c_in, c_out))
+    sd = dp if dp <= 64 else 32
+    a = 128 + 4 * 3 * 2 * n * sd + (3 * 2 * 64 * dp if dp > 64 else 0)
+    if kernel == "fwd":
+        if wide:
+            return a + 4 * 64 * (max(c_in, c_out) | 1) + 4 * 64
+        return (a + 4 * 64 * ((c_in | 1) + (c_out | 1)) + 4 * 64 * c_out
+                + 4 * 64)
+    return a + 4 * 64 * (c_out | 1) + (0 if wide else 4 * 64 * (
+        (c_in | 1) + (k | 1)))
+
+
 def lowrank_pad_numel(k: int, c_in: int, c_out: int, rank: int) -> int:
     """bf16 elements of the bfloat16 B3's (B4's) scratch for w3 padded to
     ``padded_rank`` [K, rp*(c_in+c_out)], laid out by the library's first
@@ -740,7 +783,7 @@ def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
     are added here in a fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, _MAX_CONV_WIDTH, K=k, c_in=c_in,
+    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in,
                     c_out=c_out)
     nb = slots // blk
     n = x.shape[0]
@@ -865,7 +908,7 @@ def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
     fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, _MAX_CONV_WIDTH, K=k, c_in=c_in,
+    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in,
                     c_out=c_out)
     nb, c2 = slots // blk, c_in * c_out
     _check("g", g, torch.float32, (nb * rows_blk, c_out))

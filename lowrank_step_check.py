@@ -1,11 +1,13 @@
 """Warm wall time of a rank-r path's fused train step on the card, in
 bfloat16 and in float32, and optionally B3's and B4's times at other ranks.
 
-    python3 lowrank_step_check.py [--repo DIR] [--rank R]
+    python3 lowrank_step_check.py [--repo DIR] [--rank R] [--width W]
                                   [--kernel-ranks R1,R2,...]
 
 Builds ``chip_smoke.py``'s rank-r path (neuralop_synthetic_full.yaml at
-width 48 with ``kernel_rank: R``, default 16, depth cut to 2) on its
+width 48 with ``kernel_rank: R``, default 16, depth cut to 2; with
+``--width`` 128 or 256, its width-128 rank-r path's config,
+neuralop_synthetic_w64.yaml at that width and K, depth 2) on its
 full-size synthetic duct, the first train batch the scheduler builds (12
 subdomains merged, the fused layout), and times fused Adam steps on it with
 ``chip_smoke.warm_ms`` (median of 5 after a warm-up, each ending in a
@@ -13,7 +15,9 @@ sync): bfloat16 (B3/B4 bfloat16) and float32 (B3/B4 float32).  With
 ``--kernel-ranks``, also B3 and B4 (and their plain versions) at each of
 those ranks on the full-size serving chunk, with a seeded model of that
 rank, in both types (``chip_smoke.fwd_times`` and ``phase_bwd_times``:
-CUDA-event medians, and the bound of the real rank's work), each with the
+CUDA-event medians, and the bound of the real rank's work; past width 48
+the plain versions on the chunk's leading ``chip_smoke.WIDE_SLICE_BLOCKS``
+receiver blocks, over ``chip_smoke.WIDE_REPS`` launches), each with the
 design ``fused_conv.design`` names.  Prints the card, the package's
 directory and the times as one JSON line, last.  ``--repo`` names the
 checkout whose ``fast_eng_super_resolution_tpu_torch`` is imported
@@ -40,6 +44,8 @@ def main() -> int:
                     help="checkout whose package is imported")
     ap.add_argument("--rank", type=int, default=16,
                     help="the path's kernel_rank")
+    ap.add_argument("--width", type=int, default=48, choices=(48, 128, 256),
+                    help="the path's width (and K)")
     ap.add_argument("--kernel-ranks", default="",
                     help="comma-separated ranks at which B3 and B4 are timed")
     args = ap.parse_args()
@@ -64,13 +70,17 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     with tempfile.TemporaryDirectory(prefix="lowrank_step_") as root:
-        cfg = dict(cs.make_config(root, cs.FULL), kernel_rank=args.rank,
-                   num_layers=cs.RANK_DEPTH)
+        wide = args.width != 48
+        base = dict(cs.make_config(root, cs.FULL, cs.W64_CONFIG),
+                    width=args.width) if wide else cs.make_config(root,
+                                                                  cs.FULL)
+        cfg = dict(base, kernel_rank=args.rank, num_layers=cs.RANK_DEPTH)
         ds = cs.init_dataset("synthetic", **cfg)
         model, (fb, _), rows_blk, blk = cs.train_batches(ds, cfg)
         lr = cs.load_yaml(cfg["train_config"])["lr"]
         out = {"card": smi, "package": os.path.dirname(pkg.__file__),
-               "rank": args.rank, "depth": cs.RANK_DEPTH,
+               "rank": args.rank, "width": args.width,
+               "depth": cs.RANK_DEPTH,
                "train_batch": fb["subdomains"],
                "real_slots": int((fb["fused"]["s"].slot_rows >= 0).sum())}
         for dt in ("bfloat16", "float32"):
@@ -86,8 +96,17 @@ def main() -> int:
             op = cs.chunk_operands(ds, cs.make_model(dict(cfg,
                                                           kernel_rank=rank)),
                                    "cuda")
-            t, tb = cs.fwd_times(op, smi), cs.phase_bwd_times(
-                cs.bwd_operands(op), smi)
+            if wide:  # the plain versions on the chunk's leading slice
+                w = args.width
+                sop = cs.wide_slice(op, w, w, w, rank)
+                t = cs.fwd_times(op, smi, plain_op=sop, reps=cs.WIDE_REPS)
+                tb = cs.phase_bwd_times(cs.bwd_operands(op), smi,
+                                        plain_bop=cs.bwd_operands(sop),
+                                        reps=cs.WIDE_REPS)
+                del sop
+            else:
+                t, tb = cs.fwd_times(op, smi), cs.phase_bwd_times(
+                    cs.bwd_operands(op), smi)
             kernels[str(rank)] = {
                 "design": {dt: cs.design_of(op, dt)
                            for dt in ("bfloat16", "float32")},

@@ -192,11 +192,13 @@ def test_padding_slots_never_reach_node_0(monkeypatch):
 
 
 # Widths, K and ranks past those of the rank-r layer above, as the card's
-# B3 and B4 take them (K, c_in, c_out up to 128, rank up to 64): the top
-# corner, one padded channel of 40 per 64 columns at width 96, and c_in !=
-# c_out at an odd rank.  At most two receiver blocks, so that the plain
-# versions' [slots, r (c_in + c_out)] arrays stay small.
-WIDE = [(128, 128, 128, 64), (96, 96, 96, 40), (72, 128, 48, 57)]
+# B3 and B4 take them (K, c_in, c_out up to 256, rank up to 64): the top
+# corners at 128 and 256, one padded channel of 40 per 64 columns at width
+# 96, c_in != c_out at odd ranks (past 128 too), and K past 128 alone.  At
+# most two receiver blocks, so that the plain versions' [slots, r (c_in +
+# c_out)] arrays stay small.
+WIDE = [(128, 128, 128, 64), (96, 96, 96, 40), (72, 128, 48, 57),
+        (256, 256, 256, 64), (136, 250, 200, 33), (48, 48, 256, 16)]
 
 
 def _wide_operands(c_in, c_out, k, rank, seed):
@@ -222,7 +224,7 @@ def _wide_operands(c_in, c_out, k, rank, seed):
 @pytest.mark.parametrize("c_in,c_out,k,rank", WIDE)
 def test_plain_lowrank_wide_matches_pallas(c_in, c_out, k, rank, gemm_dtype):
     """The plain B3 and B4 against the JAX package's Pallas kernels in
-    interpret mode at widths and K up to 128 and ranks up to 64, both S
+    interpret mode at widths and K up to 256 and ranks up to 64, both S
     forms, with TOL's bounds (each output relative to its own max; w3's and
     b3's gradients in the model's column layout)."""
     blocks, o = _wide_operands(c_in, c_out, k, rank, seed=c_in + k + rank)

@@ -1155,10 +1155,16 @@ def test_lowrank_f32_wgmma_exact_at_extreme_scales(cuda, scale):
 # stages of 32): (c_in, c_out, K, rank) at the top corner, at G = 3 (rank
 # 40) and one channel per chunk (ranks 33-64), widths that are not a
 # multiple of 8, c_in != c_out, K past 64 at a narrow width, and a new rank
-# at an old width.
+# at an old width.  Past 128 (the bfloat16 chunks in stages of 64 past a
+# depth of 128, the float32 wide layouts): chip_smoke.py's width-256 rank-r
+# path's shapes, each wall alone and together: 256 at ranks 64 and 32, 129
+# (no multiple of 8), 136 x 250 at K 200, K alone, c_in alone, c_out alone.
 LOWRANK_WIDE = [(128, 128, 128, 64), (128, 128, 128, 32), (128, 128, 128, 40),
                 (96, 96, 96, 48), (127, 127, 128, 57), (72, 128, 48, 20),
-                (48, 48, 48, 36), (16, 24, 100, 8), (128, 72, 80, 64)]
+                (48, 48, 48, 36), (16, 24, 100, 8), (128, 72, 80, 64),
+                (256, 256, 256, 64), (256, 256, 256, 32), (129, 129, 129, 57),
+                (136, 250, 200, 33), (48, 48, 256, 16), (256, 48, 64, 24),
+                (40, 256, 72, 40)]
 
 
 def _lowrank_wide_operands(c_in, c_out, k, rank, seed):
@@ -1176,10 +1182,10 @@ def _lowrank_wide_operands(c_in, c_out, k, rank, seed):
 @pytest.mark.parametrize("c_in,c_out,k,rank", LOWRANK_WIDE)
 def test_lowrank_wide_kernels_match_plain(cuda, c_in, c_out, k, rank,
                                           compact, gemm_dtype):
-    """B3 and B4 at widths and K up to 128 and ranks up to 64 against their
+    """B3 and B4 at widths and K up to 256 and ranks up to 64 against their
     plain versions (BWD_TOL in bfloat16, F32_LOWRANK_TOL in float32, of
     each output's max, as at the narrow widths), each launched twice with
-    the same bits."""
+    the same bits, one launch counted per call."""
     blocks, o = _lowrank_wide_operands(c_in, c_out, k, rank,
                                        seed=c_in + 3 * c_out + k + rank)
     kw = dict(c_in=c_in, c_out=c_out, rank=rank, rows_blk=64, blk=blocks.blk,
@@ -1212,7 +1218,7 @@ def test_lowrank_wide_kernels_match_plain(cuda, c_in, c_out, k, rank,
 
 
 def test_lowrank_limits(cuda):
-    """K 129, width 129 and rank 65 are past B3's and B4's range: the
+    """K 257, width 257 and rank 65 are past B3's and B4's range: the
     wrappers raise before any launch, in both types."""
     blocks, o = _lowrank_wide_operands(8, 8, 6, 4, seed=19)
     t = {key: torch.as_tensor(v, device="cuda") for key, v in o.items()}
@@ -1220,9 +1226,9 @@ def test_lowrank_limits(cuda):
     for dt in (torch.float32, torch.bfloat16):
         fwd = tfc.fused_edge_conv_lowrank.launches
         bwd = tfc.fused_edge_conv_lowrank_bwd.launches
-        for bad, match in (({"c_in": 129}, "c_in=129"),
-                           ({"c_out": 129}, "c_out=129"),
-                           ({"rank": 65}, "rank=65")):
+        for bad, match in (({"c_in": 257}, "c_in=257 outside the kernel's 1..256"),
+                           ({"c_out": 257}, "c_out=257 outside the kernel's 1..256"),
+                           ({"rank": 65}, "rank=65 outside the kernel's 1..64")):
             kw = {**dict(c_in=8, c_out=8, rank=4, rows_blk=64, blk=blocks.blk),
                   **bad}
             with pytest.raises(ValueError, match=match):
@@ -1233,12 +1239,12 @@ def test_lowrank_limits(cuda):
                 tfc.fused_edge_conv_lowrank_bwd_cuda(
                     t["g"], t["h"].to(dt), t["x"][sp.long()].to(dt),
                     t["w3"].to(dt), t["b3"], blocks.compact_s.to("cuda"), **kw)
-        h129 = torch.zeros((len(blocks.senders_perm), 129), dtype=dt,
+        h257 = torch.zeros((len(blocks.senders_perm), 257), dtype=dt,
                            device="cuda")
         kw = dict(c_in=8, c_out=8, rank=4, rows_blk=64, blk=blocks.blk)
-        with pytest.raises(ValueError, match="K=129"):
+        with pytest.raises(ValueError, match="K=257 outside the kernel's 1..256"):
             tfc.fused_edge_conv_lowrank_cuda(
-                h129, t["x"].to(dt), sp, torch.zeros((129, 64), dtype=dt,
+                h257, t["x"].to(dt), sp, torch.zeros((257, 64), dtype=dt,
                                                      device="cuda"),
                 t["b3"], blocks.compact_s.to("cuda"), **kw)
         assert tfc.fused_edge_conv_lowrank.launches == fwd
@@ -1247,12 +1253,21 @@ def test_lowrank_limits(cuda):
 
 @pytest.mark.parametrize("k,c_in,c_out,rank", [
     (128, 128, 128, 64), (128, 128, 128, 8), (128, 128, 128, 40),
-    (48, 48, 48, 64), (128, 72, 128, 20)])
+    (48, 48, 48, 64), (128, 72, 128, 20), (256, 256, 256, 64),
+    (256, 256, 256, 8), (256, 48, 48, 16), (48, 256, 256, 16),
+    (200, 136, 250, 33)])
 def test_lowrank_wide_occupancy_query(cuda, k, c_in, c_out, rank):
     """Every tensor-core B3/B4 kernel, both types, fits an SM at widths and
-    K up to 128 and ranks up to 64."""
+    K up to 256 and ranks up to 64, and the libraries' shared memory is
+    ops/fused_conv.py:lowrank_smem_bytes's."""
     occ = tfc.occupancy(k, c_in, c_out, rank=rank)
     assert len(occ) == 6 and all(v >= 1 for v in occ.values()), occ
+    for dt in (torch.bfloat16, torch.float32):
+        for backward, kernel in ((False, "fwd"), (True, "rows")):
+            name = tfc._lowrank_library(dt, backward)
+            query = getattr(tfc._load_kernel(name), f"{name}_smem_bytes")
+            assert query(k, c_in, c_out, rank) == tfc.lowrank_smem_bytes(
+                dt, k, c_in, c_out, rank, kernel), (name, k, c_in, c_out)
 
 
 def _routed_scheduler(tmp_path, device, gemm_dtype):

@@ -171,18 +171,20 @@ def test_apply_fused_width_256_matches_jax():
     assert _rel(got.numpy(), ref) < TOL
 
 
-@pytest.mark.parametrize("rank", [32, 57])
-def test_rank_r_width_128_fused_and_grads_match_jax(rank):
-    """A rank-r KernelNN at width 128 (K 128, depth 2, about 200 nodes),
-    where the card's B3 and B4 take c_in = c_out = K = 128 and rank 32 (57:
-    padded to 64): the port's fused forward and its fused training form's
-    gradients (plain versions on the CPU), weights carried over from the
-    JAX parameter tree, against JAX's ``apply_fused`` with the Pallas kernel
-    in interpret mode (1e-5 of the max) and ``jax.grad`` of its plain
-    ``apply`` (loss within 1e-5 relative, each gradient within 1e-4 of its
-    norm), float32."""
-    cfg = dict(width=128, ker_width=128, depth=2, in_width=4, out_width=4,
-               kernel_rank=rank)
+@pytest.mark.parametrize("width,rank", [(128, 32), (128, 57), (256, 32)],
+                         ids=["32", "57", "w256-32"])
+def test_rank_r_width_128_fused_and_grads_match_jax(width, rank):
+    """A rank-r KernelNN at width 128 or 256 (K = width, depth 2, about 200
+    nodes), where the card's B3 and B4 take c_in = c_out = K = width and
+    rank 32 (57: padded to 64): the port's fused forward and its fused
+    training form's gradients (plain versions on the CPU), weights carried
+    over from the JAX parameter tree, against JAX's ``apply_fused`` with the
+    Pallas kernel in interpret mode (1e-5 of the max) and ``jax.grad`` of
+    its plain ``apply`` (loss within 1e-5 relative, each gradient within
+    1e-4 of its norm), float32.  (The name is from when it took width 128
+    alone.)"""
+    cfg = dict(width=width, ker_width=width, depth=2, in_width=4,
+               out_width=4, kernel_rank=rank)
     model = JKernelNN(mode="edge3d", **cfg)
     params = jax.tree_util.tree_map(np.asarray,
                                     model.init(jax.random.PRNGKey(rank)))

@@ -67,43 +67,56 @@ def _chunks(k, c_in, c_out, rank, backward):
     return v + u + groups("p", k, 0) + groups("q", k, 0)
 
 
-def _image(w3, b3, k, c_in, c_out, rank, backward):
-    """What the stage-image launch writes (lowrank_f32_wgmma.cuh
-    lowrank_image): its index map run in numpy over every thread index q,
-    the padded columns (q >= rank) read as zeros; chunk c's depth rows l sd
-    .. in stage c D + l (sd = _stage_depth(dp), D = dp / sd).  ([stages, 3,
-    N * sd] bf16 values as float64, the padded b3 written after them)."""
+def _chunk_stages(w3, k, c_in, c_out, rank, backward):
+    """What the stage-image launch writes for each chunk, in walk order
+    (lowrank_f32_wgmma.cuh lowrank_image): its index map run in numpy over
+    the chunk's thread indices, the padded columns (q >= rank) read as
+    zeros; the chunk's depth rows l sd .. in its stage l (sd =
+    _stage_depth(dp)).  Yields [dp / sd, 3, N * sd] bf16 values as float32
+    per chunk, so that a wide head's image is never whole in memory."""
     rp = tfc.padded_rank(rank)
     n = tfc.lowrank_chunk_cols(rank)
     dp = tfc.lowrank_image_depth(max(k, c_in, c_out) if backward else k)
     sd = _stage_depth(dp)
     slices = dp // sd
-    chunks = _chunks(k, c_in, c_out, rank, backward)
     per = n * sd
-    q = np.arange(len(chunks) * slices * per)
-    st, e = q // per, q % per
-    c, row, dl = st // slices, e % n, e // n
-    d = (st % slices) * sd + dl
-    reading = np.array([ch[0] for ch in chunks])[c]
-    lo = np.array([ch[1] for ch in chunks])[c]
-    cw = np.array([ch[2] for ch in chunks])[c]
-    depth = np.select([reading == "uv", reading == "p"], [k, c_in], c_out)
-    col = lo + row
-    kk, qq = col // rp, col % rp
-    rc = _real_col(col, rp, rank)
-    ok = (row < cw) & (d < depth) & (qq < rank)
+    e = np.arange(slices * per)
+    sl, row, dl = e // per, e % per % n, e % per // n
+    d = sl * sd + dl
+    at_k = kmajor(row, dl, sd)
     ncol = w3.shape[1]
     flat = w3.reshape(-1)
-    at = np.where(reading == "uv", d * ncol + rc,
-                  kk * ncol + np.where(reading == "q", rank * c_in, 0)
+    for reading, lo, cw in _chunks(k, c_in, c_out, rank, backward):
+        depth = {"uv": k, "p": c_in, "q": c_out}[reading]
+        col = lo + row
+        kk, qq = col // rp, col % rp
+        ok = (row < cw) & (d < depth) & (qq < rank)
+        if reading == "uv":
+            at = d * ncol + _real_col(col, rp, rank)
+        else:
+            at = (kk * ncol + (rank * c_in if reading == "q" else 0)
                   + d * rank + qq)
-    v = np.where(ok, flat[np.where(ok, at, 0)], 0).astype(np.float32)
-    image = np.zeros((len(chunks) * slices, 3, per))
-    for p, part in enumerate(_split(v)):
-        image[st, p, kmajor(row, dl, sd)] = part
+        v = np.where(ok, flat[np.where(ok, at, 0)], 0).astype(np.float32)
+        block = np.zeros((slices, 3, per), np.float32)
+        for p, part in enumerate(_split(v)):
+            block[sl, p, at_k] = part
+        yield block
+
+
+def _b3_padded(b3, c_in, c_out, rank):
+    """b3 as the image holds it after the stages: padded to rp, zeros at
+    q >= rank."""
+    rp = tfc.padded_rank(rank)
     rcb = _real_col(np.arange(rp * (c_in + c_out)), rp, rank)
-    b3p = np.where(rcb >= 0, b3[np.maximum(rcb, 0)], 0).astype(np.float32)
-    return image, b3p
+    return np.where(rcb >= 0, b3[np.maximum(rcb, 0)], 0).astype(np.float32)
+
+
+def _image(w3, b3, k, c_in, c_out, rank, backward):
+    """The whole stage image: each chunk's stages (``_chunk_stages``) in
+    turn, [stages, 3, N * sd], and the padded b3 written after them."""
+    image = np.concatenate(list(_chunk_stages(w3, k, c_in, c_out, rank,
+                                              backward)))
+    return image, _b3_padded(b3, c_in, c_out, rank)
 
 
 def _zero_padded(w3, rank):
@@ -132,7 +145,9 @@ def _stages(image, n, dp):
     for shape in [(48, 48, 48), (5, 7, 3), (64, 64, 64), (17, 33, 20)]] + [
     (*shape, r) for r in WIDE_RANKS + [8, 27]
     for shape in [(128, 128, 128), (100, 72, 33), (48, 48, 48), (20, 5, 80)]
-    if shape != (48, 48, 48) or r in WIDE_RANKS])
+    if shape != (48, 48, 48) or r in WIDE_RANKS] + [
+    (256, 48, 48, 16), (48, 256, 256, 16), (64, 256, 48, 24),
+    (200, 136, 250, 33), (72, 40, 256, 40)])
 def test_stage_image_in_all_three_readings(k, c_in, c_out, rank):
     """Read back through kmajor, the parts of each stage sum exactly to its
     chunk of the head padded to rp = 8 ceil(r / 8) (w3p, zero columns at q
@@ -181,7 +196,9 @@ def test_stage_image_in_all_three_readings(k, c_in, c_out, rank):
 
 @pytest.mark.parametrize("c_in,c_out,k", [(48, 48, 48), (5, 7, 3),
                                           (64, 64, 64), (1, 64, 17),
-                                          (128, 128, 128), (72, 128, 100)])
+                                          (128, 128, 128), (72, 128, 100),
+                                          (256, 256, 256), (136, 250, 200),
+                                          (48, 48, 256), (256, 40, 72)])
 def test_padded_map_and_sizes_at_every_rank(c_in, c_out, k):
     """At every rank 1-64 (the map alone, no data): rp = 8 ceil(r / 8);
     the padded columns' map gives every model column once, in order, and
@@ -305,15 +322,16 @@ def _emulate_fwd(blocks, o, c_in, c_out, rank, compact):
     k = o["h"].shape[1]
     rp = tfc.padded_rank(rank)
     n, dp, ru = tfc.lowrank_chunk_cols(rank), tfc.lowrank_image_depth(k), rp * c_in
-    image, b3p = _image(o["w3"], o["b3"], k, c_in, c_out, rank, False)
-    st = _stages(image, n, dp)
+    b3p = _b3_padded(o["b3"], c_in, c_out, rank)
+    stages = _chunk_stages(o["w3"], k, c_in, c_out, rank, False)
     idx, real = _tiles(blocks)
     hp = _split(_pad(o["h"][idx], dp))
     x = o["x"][blocks.senders_perm[idx]]
     t = np.zeros((*idx.shape, rp), np.float32)
     msg = np.zeros((*idx.shape, c_out), np.float32)
-    for c, (_, lo, cw) in enumerate(_chunks(k, c_in, c_out, rank, False)):
-        uv = _uv(_six(hp, [st[c, p].T for p in range(3)]), b3p, lo, cw, rp)
+    for (_, lo, cw), block in zip(_chunks(k, c_in, c_out, rank, False), stages):
+        st = _stages(block, n, dp)[0]
+        uv = _uv(_six(hp, [st[p].T for p in range(3)]), b3p, lo, cw, rp)
         if lo < ru:  # t[s, q] += x[s, i] U[s, i, q]
             for gi in range(cw // rp):
                 i = lo // rp + gi
@@ -365,11 +383,22 @@ def _jax_fwd(blocks, o, c_in, c_out, rank):
 
 # (c_in, c_out, K, rank): past rank 32 one padded channel per chunk, past
 # a depth of 64 the A operands in shared memory and each chunk in stages
-# of 32 (the deep walk)
+# of 32 (the deep walk); past a K, c_in or c_out of 128 the wide layouts
+# (the same sums: B3's part sums in device memory, B4's P half of dh in
+# dh), at 256 and each wall alone, on a smaller graph
 SHAPES = [(16, 16, 16, 16), (12, 20, 33, 8), (9, 7, 5, 24), (8, 8, 17, 32),
           (16, 16, 16, 12), (12, 20, 33, 1), (9, 7, 5, 20), (8, 8, 17, 31),
           (7, 9, 12, 3), (7, 9, 100, 40), (10, 6, 70, 57), (6, 80, 9, 64),
-          (9, 7, 128, 16)]
+          (9, 7, 128, 16), (256, 256, 256, 64), (48, 48, 256, 16),
+          (256, 48, 64, 24)]
+
+
+def _walk_graph(c_in, c_out, k, seed):
+    """The walks' graph; past a width or K of 128 a smaller one (a few
+    tiles), whose plain versions and float64 references stay small."""
+    if max(c_in, c_out, k) > 128:
+        return _graph("random", seed=seed, n=60, e=200)
+    return _graph("random", seed=seed)
 
 
 @pytest.mark.parametrize("c_in,c_out,k,rank", SHAPES)
@@ -378,7 +407,7 @@ def test_fwd_walk_matches_plain_float64_and_pallas(c_in, c_out, k, rank):
     ``fused_edge_conv_lowrank_plain`` (float32) and a float64 reference
     within 1e-6 of the max, and against the JAX package's Pallas kernel in
     interpret mode (float32 at Precision.HIGHEST) within 1e-5."""
-    blocks = _graph("random", seed=c_in + k)
+    blocks = _walk_graph(c_in, c_out, k, seed=c_in + k)
     o = _operands(blocks, c_in, c_out, k, rank, seed=c_out + 3 * k)
     ref = _f64_fwd(blocks, o, c_in, c_out, rank)
     jax_ = _jax_fwd(blocks, o, c_in, c_out, rank)
@@ -399,8 +428,8 @@ def _emulate_bwd(blocks, o, c_in, c_out, rank, compact, sms=SMS):
     ru, ncol = rp * c_in, rp * (c_in + c_out)
     n, dp = (tfc.lowrank_chunk_cols(rank),
              tfc.lowrank_image_depth(max(k, c_in, c_out)))
-    image, b3p = _image(o["w3"], o["b3"], k, c_in, c_out, rank, True)
-    st = _stages(image, n, dp)
+    b3p = _b3_padded(o["b3"], c_in, c_out, rank)
+    stages = _chunk_stages(o["w3"], k, c_in, c_out, rank, True)
     idx, real = _tiles(blocks)
     dmsg = _dmsg(blocks, o["g"], compact)
     # (a) rows: A = split h over the V and U chunks, split x_src over the P
@@ -411,8 +440,10 @@ def _emulate_bwd(blocks, o, c_in, c_out, rank, compact, sms=SMS):
     t, dt = (np.zeros((*idx.shape, rp), np.float32) for _ in range(2))
     dx = np.zeros((*idx.shape, c_in), np.float32)
     dh_p, dh = (np.zeros((*idx.shape, k), np.float32) for _ in range(2))
-    for c, (reading, lo, cw) in enumerate(_chunks(k, c_in, c_out, rank, True)):
-        acc = _six(a[reading], [st[c, p].T for p in range(3)])
+    for (reading, lo, cw), block in zip(_chunks(k, c_in, c_out, rank, True),
+                                        stages):
+        st = _stages(block, n, dp)[0]
+        acc = _six(a[reading], [st[p].T for p in range(3)])
         if reading == "uv":
             uv = _uv(acc, b3p, lo, cw, rp)
             for gi in range(cw // rp):
@@ -510,7 +541,7 @@ def test_bwd_rows_and_weights_match_plain_float64_and_pallas(c_in, c_out, k,
     1e-6 of each output's max, and against the JAX package's Pallas
     backward in interpret mode within 1e-5; dw3 and db3 in the model's
     column layout (the JAX function unpermutes its own)."""
-    blocks = _graph("random", seed=c_in + k + 1)
+    blocks = _walk_graph(c_in, c_out, k, seed=c_in + k + 1)
     o = _operands(blocks, c_in, c_out, k, rank, seed=c_out + 3 * k + 1)
     ref = _f64_bwd(blocks, o, c_in, c_out, rank)
     jax_ = _jax_bwd(blocks, o, c_in, c_out, rank)
@@ -607,7 +638,8 @@ def _fn(which, fwd, bwd):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 @pytest.mark.parametrize("bad,match", [
-    ({"rank": 65}, "rank=65"), ({"c_out": 129}, "c_out=129"),
+    ({"rank": 65}, "rank=65"),
+    ({"c_out": 257}, "c_out=257 outside the kernel's 1..256"),
     ({"c_in": 0}, "c_in=0"), ({"rows_blk": 16}, "rows_blk=16"),
     ({"blk": 32}, "blk=32")])
 def test_f32_lowrank_wrappers_refuse_geometry_before_launch(which, bad, match):
@@ -621,11 +653,11 @@ def test_f32_lowrank_wrappers_refuse_geometry_before_launch(which, bad, match):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 def test_f32_lowrank_wrappers_refuse_k_past_64_cpu_tensors_and_float64(which):
-    """K past the kernels' 128 (the name is from when they stopped at 64),
+    """K past the kernels' 256 (the name is from when they stopped at 64),
     CPU tensors and float64 are refused before any launch."""
-    fwd, bwd, kw = _small(k=129)
+    fwd, bwd, kw = _small(k=257)
     fn, args = _fn(which, fwd, bwd)
-    with pytest.raises(ValueError, match="K=129"):
+    with pytest.raises(ValueError, match="K=257 outside the kernel's 1..256"):
         fn(*args, **kw)
     fwd, bwd, kw = _small()
     fn, args = _fn(which, fwd, bwd)

@@ -163,14 +163,25 @@ def test_accumulator_maps_to_channel_and_q(rank):
     (48, 48, 48, 16), (48, 48, 48, 8), (64, 64, 64, 32), (17, 5, 7, 16),
     (1, 1, 1, 8), (20, 30, 13, 24), (64, 64, 64, 24), (128, 128, 128, 64),
     (96, 96, 96, 40), (128, 72, 128, 48), (100, 127, 127, 56),
-    (48, 48, 48, 40), (128, 128, 128, 8)])
+    (48, 48, 48, 40), (128, 128, 128, 8), (256, 256, 256, 64),
+    (256, 48, 48, 16), (64, 256, 48, 24), (200, 136, 250, 40),
+    (256, 256, 256, 8)])
 def test_lowrank_chunks_cover_every_column_once_in_order(k, c_in, c_out,
                                                          rank, backward):
     """The forward walks uv's U then V columns; the rows kernel its V then U
     columns, then P and Q chunks over the (k, q) columns in pairs: each
     column once, in order, in chunks of whole channels of at most 128
-    columns."""
+    columns; past a depth of 128 each chunk's stages of 64 cover its depth
+    once, in order."""
     chunks = lowrank_chunks(k, c_in, c_out, rank, backward)
+    kp, dpi, dpo = (-(-n // 16) * 16 for n in (k, c_in, c_out))
+    bd = _ring_depth(max(kp, dpi, dpo) if backward else kp)
+    for kind, _, _ in chunks:
+        depth = {"u": kp, "v": kp, "p": dpi, "q": dpo}[kind]
+        pieces = [(d0, min(bd, depth - d0)) for d0 in range(0, depth, bd)]
+        assert all(dd % 16 == 0 and 0 < dd <= 128 for _, dd in pieces)
+        assert sum(dd for _, dd in pieces) == depth
+        assert len(pieces) == 1 or bd == 64
     ru, ncol = rank * c_in, rank * (c_in + c_out)
     for kind, lo, cw in chunks:
         assert 0 < cw <= 128 and cw % rank == 0 and lo % rank == 0
@@ -200,14 +211,15 @@ def test_lowrank_chunks_cover_every_column_once_in_order(k, c_in, c_out,
                                              (31, 64, 64), (20, 13, 30),
                                              (64, 128, 128), (40, 96, 96),
                                              (57, 127, 127), (20, 72, 128),
-                                             (8, 128, 128)])
+                                             (8, 128, 128), (64, 256, 256),
+                                             (33, 136, 250), (24, 256, 48)])
 def test_lowrank_weight_tiles_cover_the_output_once(rank, c_in, c_out):
-    """At K 1-128, the 128-column by 64-row tiles cover the padded dw3 [K,
+    """At K 1-256, the 128-column by 64-row tiles cover the padded dw3 [K,
     rp (c_in + c_out)] once, and row K (db3) once, from the first row
     tile's blocks (each tile writes its columns with q < r to the
     model's)."""
     ncol = tfc.padded_rank(rank) * (c_in + c_out)
-    for k in (1, 48, 64, 65, 100, 128):
+    for k in (1, 48, 64, 65, 100, 128, 200, 256):
         tiles, row_tiles = tfc.lowrank_weight_tiles(k, c_in, c_out, rank)
         cover = np.zeros((k + 1, tiles * 128), np.int32)
         for n in range(tiles):
@@ -233,25 +245,43 @@ def test_lowrank_weight_tiles_cover_the_output_once(rank, c_in, c_out):
 # numpy emulation of the kernels' tile loops (float64, one 64-slot tile)
 
 
-def _stage(w3, kind, lo, cw, depth, real, rank, c_in):
-    """The B operand [128 columns, depth] as ChunkCopy copies it: piece p
-    of 8 columns at depth row d read as 8 consecutive entries of w3 from the
-    piece's offset (lowrank_wgmma.cuh), zeros outside the chunk."""
+def _stage(w3, kind, lo, cw, depth, real, rank, c_in, d0=0):
+    """The B operand [128 columns, depth] as ChunkCopy copies it for the
+    stage of a chunk from depth row d0 on: piece p of 8 columns at depth
+    row d0 + d read as 8 consecutive entries of w3 from the piece's offset
+    (lowrank_wgmma.cuh), zeros outside the chunk."""
     ncol = w3.shape[1]
     flat = w3.reshape(-1)
-    b = np.zeros((128, depth))
-    for d in range(depth):
-        for n in range(0, 128, 8):
-            if d >= real or n >= cw:
-                continue
-            if kind == "uv":
-                off = d * ncol + lo + n
-            else:
-                col = lo + n
-                kk, q = col // rank, col % rank
-                off = kk * ncol + (rank * c_in if kind == "q" else 0) + d * rank + q
-            b[n:n + 8, d] = flat[off:off + 8]
-    return b
+    d = d0 + np.arange(depth)[None, :]
+    n = np.arange(0, 128, 8)[:, None]
+    ok = (d < real) & (n < cw)
+    if kind == "uv":
+        off = d * ncol + lo + n
+    else:
+        kk, q = (lo + n) // rank, (lo + n) % rank
+        off = kk * ncol + (rank * c_in if kind == "q" else 0) + d * rank + q
+    vals = flat[np.where(ok, off, 0)[..., None] + np.arange(8)]
+    vals = np.where(ok[..., None], vals, 0.0)  # [piece, depth, 8]
+    return vals.transpose(0, 2, 1).reshape(128, depth)
+
+
+def _ring_depth(dmax):
+    """A ring buffer's depth: a whole chunk up to a depth of 128, else a
+    stage of 64 (lowrank_wgmma.cuh staged, kStage)."""
+    return dmax if dmax <= 128 else 64
+
+
+def _staged(a, w3, kind, lo, cw, depth, real, rank, c_in, bd):
+    """A chunk's product as the kernels run it: stage by stage of bd deep
+    (product_stage), each stage's B copied by ChunkCopy, into one
+    accumulator."""
+    acc = 0.0
+    for d0 in range(0, depth, bd):
+        dd = min(bd, depth - d0)
+        acc = acc + _products(a[:, d0:d0 + dd],
+                              _stage(w3, kind, lo, cw, dd, real, rank, c_in,
+                                     d0))
+    return acc
 
 
 def _products(a, b):
@@ -301,14 +331,15 @@ def _emulate(o, rank, c_in, c_out, k, backward):
     dq = np.zeros((128, 2, r8, 2))
     out = {"msg": np.zeros((64, c_out)), "dx": np.zeros((64, c_in)),
            "dh": np.zeros((64, k))}
+    bd = _ring_depth(max(kp, dpi, dpo) if backward else kp)
     t_idx = (THREADS + 0 * VALUES, hf + 0 * THREADS, m + 0 * THREADS,
              b + 0 * THREADS)
     dh_p = None
     for kind, lo, cw in lowrank_chunks(k, c_in, c_out, rank, backward):
         real = ch < cw // rank
         if kind in "uv":
-            acc = _products(_pad(o["h"], kp),
-                            _stage(o["w3"], "uv", lo, cw, kp, k, rank, c_in))
+            acc = _staged(_pad(o["h"], kp), o["w3"], "uv", lo, cw, kp, k,
+                          rank, c_in, bd)
             base = lo // rank - (c_in if kind == "v" else 0)  # first channel
             # the chunk's b3 as ChunkCopy copies it beside its w3 columns
             bias = np.zeros(128)
@@ -318,9 +349,8 @@ def _emulate(o, rank, c_in, c_out, k, backward):
         else:
             a, depth, real_d = ((o["x"], dpi, c_in) if kind == "p"
                                 else (o["d"], dpo, c_out))
-            acc = _products(_pad(a, depth),
-                            _stage(o["w3"], kind, lo, cw, depth, real_d, rank,
-                                   c_in))
+            acc = _staged(_pad(a, depth), o["w3"], kind, lo, cw, depth,
+                          real_d, rank, c_in, bd)
             chan = lo // rank + ch
         if kind == "u":
             xv = o["x"][rows, np.minimum(chan, c_in - 1)]
@@ -355,9 +385,12 @@ def _emulate(o, rank, c_in, c_out, k, backward):
     return out
 
 
+# (rank, c_in, c_out, K); past a depth of 128 each chunk in stages of 64:
+# 256 everywhere, K alone, c_in alone
 WALKS = [(16, 48, 48, 48), (8, 12, 12, 5), (24, 7, 11, 33), (32, 9, 9, 64),
          (16, 5, 5, 1), (40, 7, 11, 100), (48, 9, 5, 70), (56, 5, 12, 33),
-         (64, 128, 128, 128), (8, 128, 72, 128)]
+         (64, 128, 128, 128), (8, 128, 72, 128), (64, 256, 256, 256),
+         (16, 48, 48, 256), (24, 256, 48, 64)]
 
 
 @pytest.mark.parametrize("rank,c_in,c_out,k", WALKS)
@@ -507,6 +540,56 @@ def test_weights_kernel_split_products_give_dw3(k):
 
 
 # ---------------------------------------------------------------------------
+# shared memory of every layout
+
+
+# (K, c_in, c_out): the top corner up to 128, 256 everywhere, each wall
+# alone (K; both widths; c_in; c_out), 129 and widths apart past 128
+CORNERS = [(128, 128, 128), (256, 256, 256), (256, 48, 48), (48, 256, 256),
+           (64, 256, 48), (72, 40, 256), (129, 129, 129), (200, 136, 250),
+           (256, 1, 256), (1, 256, 1)]
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,c_in,c_out", CORNERS)
+def test_lowrank_layouts_fit_shared_memory(dt, k, c_in, c_out):
+    """Every B3/B4 kernel's layout (``lowrank_smem_bytes``: B3, B4's rows
+    and weights kernels) fits the 227 KB a block may take at every rank
+    1-64, in both types; the bfloat16 weights kernel keeps its two sets of
+    staged operands wherever they fit."""
+    for rank in range(1, 65):
+        for kernel in ("fwd", "rows", "weights"):
+            got = tfc.lowrank_smem_bytes(dt, k, c_in, c_out, rank, kernel)
+            assert 0 < got <= tfc.SMEM_MAX, (kernel, rank, got)
+        if dt == torch.bfloat16:
+            sets = 2 * 3 * 128 * 64
+            one = (2 * 64 * 64 + 2 * 64 * (c_in + c_out)
+                   + 2 * 4 * 64 * tfc.padded_rank(rank))
+            two = sets + 2 * one <= tfc.SMEM_MAX
+            assert tfc.lowrank_smem_bytes(dt, k, c_in, c_out, rank,
+                                          "weights") == sets + (2 if two else 1) * one
+
+
+def test_lowrank_layouts_up_to_128_are_unchanged():
+    """Up to widths and K of 128 the layouts are those the kernels had
+    there before the width-256 ones (csrc headers: bfloat16 B3 70 KB at
+    width 48, K 48 and 183 KB at 128; B4 rows 65 KB at width 48, rank 16
+    and 151 KB at 128, rank 64; the float32 B3 and B4 rows 111 KB and 198
+    KB; the float32 weights kernel 102 / 110 / 127 KB at ranks 16 / 32 /
+    64; the bfloat16 one with two sets)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    want = {(bf, 48, 16, "fwd"): 69_888, (bf, 128, 64, "fwd"): 182_528,
+            (bf, 48, 16, "rows"): 65_280, (bf, 128, 64, "rows"): 151_296,
+            (bf, 128, 64, "weights"): 196_608, (bf, 48, 16, "weights"): 106_496,
+            (f32, 48, 16, "fwd"): 111_488, (f32, 128, 64, "fwd"): 197_504,
+            (f32, 48, 16, "rows"): 111_488, (f32, 128, 64, "rows"): 197_504,
+            (f32, 48, 16, "weights"): 102_912, (f32, 48, 32, "weights"): 111_104,
+            (f32, 48, 64, "weights"): 127_488}
+    for (dt, c, rank, kernel), b in want.items():
+        assert tfc.lowrank_smem_bytes(dt, c, c, c, rank, kernel) == b
+
+
+# ---------------------------------------------------------------------------
 # the wrappers refuse what the kernels do not take, before any launch
 
 
@@ -532,7 +615,8 @@ def _small(rank=16, c=8, k=6):
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 @pytest.mark.parametrize("bad,match", [
     ({"rank": 65}, "rank=65"), ({"rank": 0}, "rank=0"),
-    ({"c_out": 129}, "c_out=129"), ({"c_in": 0}, "c_in=0"),
+    ({"c_out": 257}, "c_out=257 outside the kernel's 1..256"),
+    ({"c_in": 0}, "c_in=0"),
     ({"rows_blk": 16}, "rows_blk=16"), ({"blk": 32}, "blk=32")])
 def test_lowrank_wrappers_refuse_geometry_before_launch(which, bad, match):
     fwd, bwd, kw = _small()
@@ -544,12 +628,12 @@ def test_lowrank_wrappers_refuse_geometry_before_launch(which, bad, match):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 def test_lowrank_wrappers_refuse_k_past_64_and_cpu_tensors(which):
-    """K past the kernels' 128 (the name is from when they stopped at 64) and
+    """K past the kernels' 256 (the name is from when they stopped at 64) and
     CPU tensors are refused before any launch."""
-    fwd, bwd, kw = _small(k=129)
+    fwd, bwd, kw = _small(k=257)
     fn, args = ((tfc.fused_edge_conv_lowrank_cuda, fwd) if which == "fwd"
                 else (tfc.fused_edge_conv_lowrank_bwd_cuda, bwd))
-    with pytest.raises(ValueError, match="K=129"):
+    with pytest.raises(ValueError, match="K=257 outside the kernel's 1..256"):
         fn(*args, **kw)
     fwd, bwd, kw = _small()
     with pytest.raises(ValueError, match="needs CUDA tensors"):

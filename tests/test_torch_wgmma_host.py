@@ -203,21 +203,20 @@ def test_wrappers_refuse_k_past_256_and_cpu_tensors(which):
 
 
 def test_geometry_limits_are_each_kernels_own():
-    """B1 and B2 take K, c_in and c_out up to 256; B3 and B4 still refuse
-    129 (and rank 65) before any launch."""
+    """B1 and B2 take K, c_in and c_out up to 256, B3 and B4 the same at
+    ranks up to 64: 257 and rank 65 are refused before any launch."""
     conv = dict(K=256, c_in=256, c_out=256)
-    tfc._check_geometry(torch.float32, 128, 64, 64, tfc._MAX_CONV_WIDTH, **conv)
+    tfc._check_geometry(torch.float32, 128, 64, 64, **conv)
     with pytest.raises(ValueError, match="K=257 outside the kernel's 1..256"):
-        tfc._check_geometry(torch.float32, 128, 64, 64, tfc._MAX_CONV_WIDTH,
-                            **dict(conv, K=257))
-    with pytest.raises(ValueError, match="c_in=129 outside the kernel's 1..128"):
-        tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=48, c_in=129,
+        tfc._check_geometry(torch.float32, 128, 64, 64, **dict(conv, K=257))
+    with pytest.raises(ValueError, match="c_in=257 outside the kernel's 1..256"):
+        tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=48, c_in=257,
                             c_out=48, rank=16)
     with pytest.raises(ValueError, match="rank=65 outside the kernel's 1..64"):
         tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=48, c_in=48,
                             c_out=48, rank=65)
-    tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=128, c_in=128,
-                        c_out=128, rank=64)
+    tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=256, c_in=256,
+                        c_out=256, rank=64)
 
 
 def test_bf16_product_split_is_exact():
