@@ -51,8 +51,16 @@ non-zero without the final result line:
              written, then served to a finite .vtu.
 7. parity  — three float32 fused train steps on the small mesh on the card
              (kernels, each launched depth times a step and no other, their
-             design and counts logged) and on the CPU (plain versions), same
-             weights: the losses agree.
+             design and counts logged) and on the CPU (plain versions), each
+             card step started from the CPU's state at that step (parameters
+             and Adam's moments; step 0 the same seeded weights) on the
+             CPU's activation branches (a pre-activation within rounding of
+             zero may flip; ``own_branch_flips`` counts them): each step's
+             loss and every parameter's gradient (relative to its largest
+             entry) agree within 1e-4, on every path, or the run fails.
+             The CPU's steps run in a worker process from the start; the
+             card's side of every path runs after the other phases, when
+             they are ready (``[parity] wall_s``).
 8. times   — CUDA-event medians of both kernels and their plain versions, the
              warm wall time of one full-size request and of one fused train
              step, and profiles of both.  A float32 kernel on the tensor
@@ -115,8 +123,7 @@ to 2 epochs (its loss is recorded, not held to fall).
              against the CPU's float32 plain prediction;
              ``train_graph_ALDD`` cut to 1 epoch in bfloat16 and in float32
              (B3 and B4 launch counts held); phase 7's float32 parity card
-             vs CPU; at ``kernel_rank: 64`` one full-size request and the
-             parity again; B3 and B4 against their plain versions at
+             vs CPU; B3 and B4 against their plain versions at
              (c_in, c_out, K, rank) = (128, 128, 128, 64), (128, 128, 128,
              32), (128, 128, 128, 40), (96, 96, 96, 48), (127, 127, 128, 57),
              (72, 128, 48, 20) and (48, 48, 48, 36) on the leading 16
@@ -157,24 +164,29 @@ to 2 epochs (its loss is recorded, not held to fall).
              every .vtu finite) and the small mesh against the CPU's
              float32 plain prediction; ``train_graph_ALDD`` for one epoch in
              bfloat16 and in float32 (B3 and B4 launch counts held); phase
-             7's float32 parity card vs CPU; at ``kernel_rank: 64`` one
-             full-size request and the parity again; B3 and B4 against their
+             7's float32 parity card vs CPU; at ``kernel_rank: 100`` (two
+             slabs of 64) one full-size request (4 B3 launches) and the
+             parity again; B3 and B4 against their
              plain versions at (c_in, c_out, K, rank) = (256, 256, 256, 64),
              (256, 256, 256, 32), (129, 129, 129, 57), (136, 250, 200, 33),
              (48, 48, 256, 16), (256, 48, 64, 24) and (40, 256, 72, 40) on
-             the leading 16 receiver blocks of the full-size chunk, both
+             the leading 16 receiver blocks of the full-size chunk, and past
+             rank 64 (slabs of 64 in turn inside each kernel) at (256, 256,
+             256, 256), (256, 256, 256, 100), (128, 128, 128, 128), (129,
+             129, 129, 65), (136, 250, 200, 97) and (40, 48, 72, 200), both
              types, both S forms, repeated launches bit-identical; their
-             times and bounds on the full-size chunk at ranks 32 and 64
-             (the plain versions' on the slice), the warm request and a
+             times and bounds on the full-size chunk at ranks 32, 100 and
+             256 (the plain versions' on the slice), the warm request and a
              fused train step in each type (``[w256r_*]``, ``[w256r<r>_*]``
              lines).
 
-             Phase 7's CPU side of the four wide paths (widths 128 and 256,
-             full rank and ranks 32 and 64) runs in one worker process,
+             Phase 7's CPU side of the wide paths (widths 128 and 256, full
+             rank and rank 32, and rank 100 at 256) runs in one worker process,
              started once the meshes exist, while the card's phases go on
-             (the plain steps at width 256 take 90-110 s); each path's
-             ``*_parity`` line with ``cpu=worker`` gives the worker's
-             seconds and how long the path waited for them.
+             (the plain steps at width 256 take 90-110 s), and saves each
+             step's starting state, loss and gradients for the card's
+             side; each path's ``*_parity`` line with ``cpu=worker`` gives
+             the worker's seconds and how long the path waited for them.
 
 9. pallas  — KernelNN and TEECNet built with ``mode='pallas'`` serve one
              full-size mesh each with FESR_FUSED_PREDICT=0 (the general lane's
@@ -372,6 +384,7 @@ The second-to-last line is a JSON object with the kernels' numbers, the last
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -484,14 +497,14 @@ WIDER_CHECKED = ((256, 256, 256), (256, 256, 128), (129, 129, 129),
                  (136, 250, 200), (48, 256, 256), (256, 40, 72))
 # the width-128 rank-r path (B3 and B4 past width 64, K 64 and rank 32):
 # the width-128 path's config at kernel_rank WIDE_RANK, its training's epoch
-# cut, the top rank (one request and the parity), the (c_in, c_out, K,
-# rank) at which B3 and B4 are held against their plain versions on the
-# leading WIDE_SLICE_BLOCKS receiver blocks of the full-size chunk (the
-# plain rank-64 uv alone takes 16 GB on all of it), and the ranks at which
-# they are timed on the full-size chunk
+# cut, the (c_in, c_out, K, rank) at which B3 and B4 are held against their
+# plain versions on the leading WIDE_SLICE_BLOCKS receiver blocks of the
+# full-size chunk (the plain rank-64 uv alone takes 16 GB on all of it),
+# and the ranks at which they are timed on the full-size chunk.  No top
+# rank here (its rank-64 request and parity went for the width-256 path's
+# rank 100; rank 64 stays held in WIDE_RANK_CHECKED)
 WIDE_RANK = 32
 WIDE_RANK_EPOCHS = 1  # 1, not 2: room for the width-256 rank-r path
-WIDE_RANK_TOP = 64
 WIDE_RANK_CHECKED = ((128, 128, 128, 64), (128, 128, 128, 32),
                      (128, 128, 128, 40), (96, 96, 96, 48),
                      (127, 127, 128, 57), (72, 128, 48, 20), (48, 48, 48, 36))
@@ -499,16 +512,24 @@ WIDE_RANK_CHECKED = ((128, 128, 128, 64), (128, 128, 128, 32),
 # by lowrank_step_check.py --width 128
 WIDE_RANK_TIMED = (32,)
 # the width-256 rank-r path (B3 and B4 past width 128): the width-256
-# path's config at kernel_rank WIDE_RANK, WIDE_RANK_EPOCHS, the top rank's
-# request and parity; B3 and B4 held against their plain versions at
+# path's config at kernel_rank WIDE_RANK, WIDE_RANK_EPOCHS, the top rank
+# WIDER_RANK_TOP's request and parity (past 64: two slabs of 64, the second
+# 36 real); B3 and B4 held against their plain versions at
 # WIDER_RANK_CHECKED (c_in, c_out, K, rank) on the leading slice (each
 # wall alone and together: 256 at ranks 64 and 32, 129, 136 x 250 at K
-# 200, K alone, c_in alone, c_out alone) and timed at WIDER_RANK_TIMED on
-# the full-size chunk over WIDER_REPS launches
+# 200, K alone, c_in alone, c_out alone; past rank 64: 256 at 256 and 100,
+# 128 at 128, 129 at 65, 136 x 250 at 97, and 200 past both widths of 40 x
+# 48: the plain rank-256 uv there is [16 384, 131 072] float32, 8.6 GB) and
+# timed at WIDER_RANK_TIMED on the full-size chunk over WIDER_REPS
+# launches (rank 64 by lowrank_step_check.py --width 256)
+WIDER_RANK_TOP = 100
 WIDER_RANK_CHECKED = ((256, 256, 256, 64), (256, 256, 256, 32),
                       (129, 129, 129, 57), (136, 250, 200, 33),
-                      (48, 48, 256, 16), (256, 48, 64, 24), (40, 256, 72, 40))
-WIDER_RANK_TIMED = (32, 64)
+                      (48, 48, 256, 16), (256, 48, 64, 24), (40, 256, 72, 40),
+                      (256, 256, 256, 256), (256, 256, 256, 100),
+                      (128, 128, 128, 128), (129, 129, 129, 65),
+                      (136, 250, 200, 97), (40, 48, 72, 200))
+WIDER_RANK_TIMED = (32, 100, 256)
 # phase 7's CPU side of every path (plain versions on the small mesh:
 # 90-110 s at width 256) runs in one worker process while the card's
 # phases go on (torch's default threads, as in this process: the same
@@ -516,6 +537,10 @@ WIDER_RANK_TIMED = (32, 64)
 # ``start_parity``, and the seconds it was stopped); the card's side and
 # the check stay in their paths
 PARITY_WORKER = {"pid": None, "stopped_s": 0.0}
+# phase 7's card side of every path, run once the other phases are done
+# (``defer_parity``, ``run_parities``), when the worker's steps are ready:
+# (small mesh, config, the worker's future, the path's result dict)
+PARITY_PENDING = []
 KERNELS = (fused_conv.fused_edge_conv, fused_conv.fused_edge_conv_bwd,
            fused_conv.fused_edge_conv_lowrank,
            fused_conv.fused_edge_conv_lowrank_bwd,
@@ -547,16 +572,8 @@ KERNEL_TOL = {"float32": 5e-5, "bfloat16": 1e-4}
 BWD_TOL = {"float32": 5e-5, "bfloat16": 1e-4}
 GRAD_TOL = 1e-4
 PARITY_TOL = 1e-4
-# On the width-256 rank-r path alone (``phase_parity``'s ``exploded_ok``),
-# a parity step past the tolerance whose previous step's CPU loss had
-# grown past PARITY_EXPLODED times the first (the config's lr blowing the
-# model up: Adam's first step is lr sign(g), so a gradient entry within
-# float32 rounding of zero moves the card's and the CPU's weights 2 lr
-# apart) is reported with every step's error (``held=False``, and in the
-# kernels' JSON line under ``parity``) and the run goes on.  Steps 0 and 1
-# are always held, and on every other path each step fails the run past
-# the tolerance.  Tolerance, lr and steps are the same for every path.
-PARITY_EXPLODED = 100.0
+# (``phase_parity``: each step's loss and every gradient, each card step
+# started from the CPU's state at that step; the same for every path)
 # Served bf16 prediction vs the CPU float32 plain prediction: bf16 rounding of
 # the GEMM inputs (2^-8 relative) through 4-5 layers -> 3e-2 of the max.
 SERVE_TOL = 3e-2
@@ -1538,11 +1555,56 @@ def phase_train(root: str, datasets: dict, cfgs: dict, tag: str = "") -> dict:
                 evals=evals, losses=losses)
 
 
-def parity_losses(small_merged, cfg: dict, dev: str) -> list:
+@contextlib.contextmanager
+def same_branches(masks: list, replay: bool):
+    """The models' activations (``torch.relu``; TEECNet's leaky ReLU) on
+    recorded branches: recording (``replay`` False) appends each call's
+    mask (pre-activation > 0, on the CPU) to ``masks`` in call order;
+    replaying takes each call's branch from the next recorded mask, and
+    appends the number of entries whose own sign disagrees and the largest
+    of their magnitudes, as (flips, largest) tuples after the masks.  A
+    pre-activation within rounding of zero would otherwise take either
+    branch on either side, and one such flip moves every gradient upstream
+    of it by that node's whole gradient."""
+    from fast_eng_super_resolution_tpu_torch.models import teecnet
+
+    relu, leaky = torch.relu, teecnet._leaky_relu
+    at = iter(list(masks)) if replay else None
+    flips = []
+
+    def branch(t, slope):
+        if not replay:
+            masks.append((t > 0).cpu())
+            return leaky(t) if slope else relu(t)
+        mask = next(at).to(t.device)
+        if mask.shape != t.shape:
+            raise AssertionError(f"activation {tuple(t.shape)} against the "
+                                 f"recorded {tuple(mask.shape)}")
+        off = (t > 0) != mask
+        flips.append((int(off.sum()), float(t[off].abs().max()) if off.any()
+                      else 0.0))
+        return torch.where(mask, t, slope * t)
+
+    torch.relu = lambda t: branch(t, 0.0)
+    teecnet._leaky_relu = lambda t: branch(t, 0.01)
+    try:
+        yield flips
+        if replay and next(at, None) is not None:
+            raise AssertionError("fewer activations than recorded")
+    finally:
+        torch.relu, teecnet._leaky_relu = relu, leaky
+
+
+def parity_steps(small_merged, cfg: dict, dev: str, start=None) -> tuple:
     """Three float32 fused train steps of ``cfg``'s seeded model on ``dev``
     (on the card the kernels, depth launches of the forward and of the
     backward kernel per step, counted and checked; on the CPU the plain
-    versions); returns (the losses, the path's parity label)."""
+    versions).  Without ``start`` (the CPU) each step records the state it
+    starts from (the parameters and Adam's moments) and its activations'
+    branches (``same_branches``); with ``start`` (the CPU's steps) each step
+    first loads that state and takes those branches.  Returns (per step its
+    loss, each parameter's gradient, and the state and branches (the CPU)
+    or the flipped branches (the card); the path's parity label)."""
     lr = load_yaml(cfg["train_config"])["lr"]
     rank = cfg.get("kernel_rank")
     kernels = (FWD[rank is not None][0], BWD[rank is not None][0])
@@ -1553,7 +1615,23 @@ def parity_losses(small_merged, cfg: dict, dev: str) -> list:
                       fused_dtype="float32")
     opt = trainer.init()
     reset_launches()
-    losses = [float(trainer.step(opt, fb)) for _ in range(3)]
+    steps = []
+    for i in range(3):
+        state, masks = None, []
+        if start is not None:
+            model.load_state_dict(start[i]["state"]["model"])
+            opt.load_state_dict(start[i]["state"]["opt"])
+            masks = start[i]["masks"]
+        else:
+            state = {"model": {k: v.detach().clone()
+                               for k, v in model.state_dict().items()},
+                     "opt": copy.deepcopy(opt.state_dict())}
+        with same_branches(masks, replay=start is not None) as flips:
+            loss = float(trainer.step(opt, fb))
+        steps.append({"loss": loss, "state": state, "masks": masks,
+                      "flips": flips,
+                      "grads": {n: p.grad.detach().cpu()
+                                for n, p in model.named_parameters()}})
     label = prefix(model) + "parity"
     if dev == "cuda":
         torch.cuda.synchronize()
@@ -1562,61 +1640,99 @@ def parity_losses(small_merged, cfg: dict, dev: str) -> list:
         log(label, dtype="float32",
             design=fused_conv.design(torch.float32, rank),
             **launches_of(*kernels))
-    return losses, label
+    return steps, label
 
 
-def cpu_parity(small_merged, cfg: dict) -> tuple:
-    """``parity_losses`` on the CPU in a worker process (``start_parity``):
-    (losses, seconds)."""
+def cpu_parity(small_merged, cfg: dict, path: str) -> tuple:
+    """``parity_steps`` on the CPU in a worker process (``start_parity``),
+    its steps saved to ``path``: (losses, seconds, path)."""
     t0 = time.time()
-    return parity_losses(small_merged, cfg, "cpu")[0], time.time() - t0
+    steps = parity_steps(small_merged, cfg, "cpu")[0]
+    torch.save(steps, path)
+    return [st["loss"] for st in steps], time.time() - t0, path
 
 
-def start_parity(small_merged, cfgs: dict):
+def start_parity(small_merged, cfgs: dict, root: str):
     """Starts phase 7's CPU side of each config of ``cfgs`` (key -> config)
     in one worker process, in order, so that the plain steps overlap the
-    card's phases, and gives ``quiet`` its pid; returns (pool, key ->
-    future of ``cpu_parity``)."""
+    card's phases, each saving its steps under ``root``, and gives
+    ``quiet`` its pid; returns (pool, key -> future of ``cpu_parity``)."""
     import concurrent.futures as cf
     import multiprocessing as mp
 
     pool = cf.ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
     PARITY_WORKER["pid"] = pool.submit(os.getpid)
-    return pool, {key: pool.submit(cpu_parity, small_merged, cfg)
+    return pool, {key: pool.submit(cpu_parity, small_merged, cfg,
+                                   os.path.join(root, f"parity_{key}.pt"))
                   for key, cfg in cfgs.items()}
 
 
-def phase_parity(small_merged, cfg: dict, cpu,
-                 exploded_ok: bool = False) -> dict:
+def phase_parity(small_merged, cfg: dict, cpu) -> dict:
     """Three float32 fused train steps on the card (kernels, depth launches
-    of the forward and of the backward kernel per step) and on the CPU
-    (plain versions), from the same seeded weights; ``cpu``: the CPU's
-    losses, a future of ``start_parity``'s worker.  Returns each step's
-    relative error and whether every step held.  A step past
-    ``PARITY_TOL`` raises, except with ``exploded_ok`` a step after one
-    whose CPU loss grew past ``PARITY_EXPLODED`` times the first: that one
-    is reported."""
-    card, label = parity_losses(small_merged, cfg, "cuda")
+    of the forward and of the backward kernel per step) held to the CPU's
+    (plain versions; ``cpu``: a future of ``start_parity``'s worker), each
+    started from the state the CPU's step started from (step 0: the seeded
+    weights, the same on both) on the CPU's activation branches
+    (``same_branches``), so that each step compares one function on the
+    same inputs: its loss, relative to the CPU's, and each parameter's
+    gradient, relative to the largest entry of the CPU's, within
+    ``PARITY_TOL``, or the run fails.  (Free-running steps are ill-posed
+    where the config's lr lets the loss grow: Adam's first update is about
+    lr sign(g), so gradient entries within float32 rounding of zero move
+    the two sides' weights 2 lr apart, parity_plain_check.py; and a
+    pre-activation within rounding of zero may take the other branch.)
+    Returns each step's errors and how many activations took another
+    branch of their own (logged with the largest such |pre-activation|)."""
     t1 = time.time()
-    cpu, cpu_s = cpu.result()
-    log(label, cpu="worker", cpu_s=f"{cpu_s:.1f}",
-        wait_s=f"{time.time() - t1:.1f}")
-    rels = []
-    for step, (a, b) in enumerate(zip(card, cpu)):
-        rel = abs(a - b) / abs(b)
+    cpu_losses, cpu_s, path = cpu.result()
+    wait_s = time.time() - t1
+    start = torch.load(path, weights_only=False)
+    os.remove(path)
+    card, label = parity_steps(small_merged, cfg, "cuda", start)
+    log(label, cpu="worker", cpu_s=f"{cpu_s:.1f}", wait_s=f"{wait_s:.1f}")
+    rels, grad_rels = [], []
+    for step, (a, b) in enumerate(zip(card, start)):
+        rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        worst, name = 0.0, None
+        for n, g in b["grads"].items():
+            top = g.abs().max().item()
+            err = (a["grads"][n] - g).abs().max().item()
+            err = err / top if top > 0 else err
+            if not err <= worst:  # a NaN too
+                worst, name = float("inf") if err != err else err, n
         rels.append(rel)
-        log(label, step=step,
-            card=f"{a:.8g}", cpu=f"{b:.8g}", rel=f"{rel:.3e}", tol=PARITY_TOL)
-        if not rel <= PARITY_TOL:
-            growth = abs(cpu[step - 1]) / abs(cpu[0]) if step else 1.0
-            if not (exploded_ok and growth > PARITY_EXPLODED):
-                raise AssertionError(f"train step {step}: card {a} vs cpu {b}")
-            log(label, step=step, held=False, exploded=True,
-                loss_growth=f"{growth:.3g}",
-                rels=",".join(f"{r:.3e}" for r in rels))
-    held = all(r <= PARITY_TOL for r in rels)
-    return {"rel": rels, "held": held, "tol": PARITY_TOL,
-            "losses_cpu": cpu}
+        grad_rels.append(worst)
+        flips = sum(n for n, _ in a["flips"])
+        log(label, step=step, card=f"{a['loss']:.8g}", cpu=f"{b['loss']:.8g}",
+            rel=f"{rel:.3e}", grad_rel=f"{worst:.3e}", grad_worst=name,
+            tol=PARITY_TOL, activations=len(a["flips"]), own_branch_flips=flips,
+            flip_max_abs=f"{max((m for _, m in a['flips']), default=0.0):.3e}")
+        if not (rel <= PARITY_TOL and worst <= PARITY_TOL):
+            raise AssertionError(
+                f"{label} step {step}: loss card {a['loss']} vs cpu "
+                f"{b['loss']} ({rel:.3e}), gradient {name} {worst:.3e}")
+    return {"rel": rels, "grad_rel": grad_rels, "tol": PARITY_TOL,
+            "losses_cpu": cpu_losses,
+            "own_branch_flips": [sum(n for n, _ in a["flips"]) for a in card]}
+
+
+def defer_parity(small_merged, cfg: dict, cpu) -> dict:
+    """Queues ``phase_parity`` for ``run_parities``; returns the dict its
+    errors go into then (the path's JSON entries hold it)."""
+    result = {}
+    PARITY_PENDING.append((small_merged, cfg, cpu, result))
+    return result
+
+
+def run_parities() -> None:
+    """Phase 7's card side of every path, in the paths' order: each fails
+    the run past ``PARITY_TOL``."""
+    t0 = time.time()
+    while PARITY_PENDING:
+        small_merged, cfg, cpu, result = PARITY_PENDING.pop(0)
+        result.update(phase_parity(small_merged, cfg, cpu))
+        torch.cuda.empty_cache()
+    log("parity", wall_s=f"{time.time() - t0:.1f}")
 
 
 def phase_bwd_times(bop, smi, plain_bop=None, reps: int = 20) -> dict:
@@ -1725,7 +1841,7 @@ def run_path(root, name, smi, datasets, models, cfgs, parity,
     phase_train_kernels(batches, errs, errs_bwd)
     launches = phase_serve(root, datasets, models, cfgs, tag)
     train = phase_train(root, datasets, cfgs, tag)
-    phase_parity(small_merged, cfgs["small"], parity)
+    defer_parity(small_merged, cfgs["small"], parity)
     t = fwd_times(op, smi)
     t.update(request_times(datasets, models, root, smi, tag))
     tb = phase_bwd_times(bop, smi)
@@ -1817,7 +1933,7 @@ def run_rank12(root, smi, datasets, models, cfgs, parity) -> dict:
         if not rel <= SERVE_TOL:
             raise AssertionError(f"{label} {key}: {rel:.3e} > {SERVE_TOL}")
     trained = train_types(root, ds, cfg, RANK12_EPOCHS)
-    phase_parity(merged_subdomains(datasets["small"]), cfgs["small"], parity)
+    defer_parity(merged_subdomains(datasets["small"]), cfgs["small"], parity)
     errs, errs_bwd, by_rank = {}, {}, {}
     for rank in RANK12_CHECKED:
         op = chunk_operands(ds, make_model(dict(cfg, kernel_rank=rank)),
@@ -1981,9 +2097,8 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
         lap("edge3d")
     trained = train_types(root, ds, cfg, epochs)
     lap("train")
-    held = phase_parity(merged_subdomains(datasets["small"]), cfgs["small"],
+    held = defer_parity(merged_subdomains(datasets["small"]), cfgs["small"],
                         parity)
-    lap("parity")
     op = chunk_operands(ds, models["full"], "cuda")
     errs, errs_bwd = {}, {}
     for c_in, c_out, k in checked:
@@ -2054,25 +2169,24 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
     return out
 
 
-def run_wide_rank(root, smi, datasets, models, cfgs, models_top,
-                  width: int = WIDE, checked=WIDE_RANK_CHECKED,
-                  timed=WIDE_RANK_TIMED, *, parity) -> dict:
+def run_wide_rank(root, smi, datasets, models, cfgs, width: int = WIDE,
+                  checked=WIDE_RANK_CHECKED, timed=WIDE_RANK_TIMED,
+                  top=None, models_top=None, *, parity) -> dict:
     """A wide rank-r path (width 128: B3 and B4 past width 64, K 64 and
     rank 32; 256: past 128), at rank ``WIDE_RANK``.  Both full-size meshes
     served (chunks x depth B3 launches each, no other kernel, every .vtu
     finite) and the small mesh against the CPU's float32 plain prediction;
     the path's training in both types (B3 and B4 launch counts held);
-    phase 7's float32 parity; at rank ``WIDE_RANK_TOP`` one full-size
-    request and the parity again; B3 and B4 against their plain versions at ``checked``
-    (c_in, c_out, K, rank) on a leading slice of the full-size chunk, both
-    types, both S forms, repeated launches bit-identical; their times at
-    the full-size chunk at ``timed`` (the plain versions' on the slice),
-    the warm request and a fused train step in each type.  ``parity``: the
-    CPU's losses at ranks ``WIDE_RANK`` and ``WIDE_RANK_TOP`` (rank ->
-    future of ``start_parity``'s worker); past width ``WIDE`` a parity step
-    after the loss exploded is reported (``phase_parity``'s
-    ``exploded_ok``).  Returns what the kernels' JSON entries
-    need, each timed rank's numbers under ``by_rank``."""
+    phase 7's float32 parity; at rank ``top`` (if any; ``models_top`` its
+    full-size checkpoint) one full-size request and the parity again; B3
+    and B4 against their plain versions at ``checked`` (c_in, c_out, K,
+    rank) on a leading slice of the full-size chunk, both types, both S
+    forms, repeated launches bit-identical; their times at the full-size
+    chunk at ``timed`` (the plain versions' on the slice), the warm request
+    and a fused train step in each type.  ``parity``: the CPU's steps at
+    rank ``WIDE_RANK`` and at ``top`` (rank -> future of ``start_parity``'s
+    worker).  Returns what the kernels' JSON entries need, each timed
+    rank's numbers under ``by_rank``."""
     t0 = time.time()
     log_dir = os.path.join(root, "logs")
     cfg, ds = cfgs["full"], datasets["full"]
@@ -2116,24 +2230,24 @@ def run_wide_rank(root, smi, datasets, models, cfgs, models_top,
     trained = train_types(root, ds, cfg, WIDE_RANK_EPOCHS)
     lap("train")
     small_merged = merged_subdomains(datasets["small"])
-    held = {f"rank{WIDE_RANK}": phase_parity(
-        small_merged, cfgs["small"], parity[WIDE_RANK],
-        exploded_ok=width > WIDE)}
-    # the top rank: one full-size request, the parity
-    top_label = prefix(models_top) + "serve"
-    reset_launches()
-    lanes, (fields,) = serve(ds, models_top, [0], log_dir,
-                             f"full_w{width}r{WIDE_RANK_TOP}", None)
-    torch.cuda.synchronize()
-    top_served = fwd.launches
-    log(top_label, mesh="full", lane=lanes[0][1], launches=top_served,
-        width=width, rank=WIDE_RANK_TOP, nodes=len(fields["pressure"]),
-        finite=True)
-    check_only(top_label, {fwd: CHUNKS["full"] * cfg["num_layers"]})
-    held[f"rank{WIDE_RANK_TOP}"] = phase_parity(
-        small_merged, dict(cfgs["small"], kernel_rank=WIDE_RANK_TOP),
-        parity[WIDE_RANK_TOP], exploded_ok=width > WIDE)
-    lap("parity")
+    held = {f"rank{WIDE_RANK}": defer_parity(
+        small_merged, cfgs["small"], parity[WIDE_RANK])}
+    top_served = 0
+    if top is not None:  # the top rank: one full-size request, the parity
+        top_label = prefix(models_top) + "serve"
+        reset_launches()
+        lanes, (fields,) = serve(ds, models_top, [0], log_dir,
+                                 f"full_w{width}r{top}", None)
+        torch.cuda.synchronize()
+        top_served = fwd.launches
+        log(top_label, mesh="full", lane=lanes[0][1], launches=top_served,
+            width=width, rank=top, padded_rank=fused_conv.padded_rank(top),
+            slabs=fused_conv.lowrank_slabs(top), nodes=len(fields["pressure"]),
+            finite=True)
+        check_only(top_label, {fwd: CHUNKS["full"] * cfg["num_layers"]})
+        held[f"rank{top}"] = defer_parity(
+            small_merged, dict(cfgs["small"], kernel_rank=top), parity[top])
+        lap("top")
     errs, errs_bwd, by_rank = {}, {}, {}
     slice_errs = {}
     op = chunk_operands(ds, models["full"], "cuda")
@@ -2156,6 +2270,7 @@ def run_wide_rank(root, smi, datasets, models, cfgs, models_top,
         sop = wide_slice(op, width, width, width, rank)
         rp = fused_conv.padded_rank(rank)
         by_rank[rank] = {"padded_rank": rp, "ceiling": rank / rp,
+                         "slabs": fused_conv.lowrank_slabs(rank),
                          "fwd": fwd_times(op, smi, plain_op=sop,
                                           reps=reps[0]),
                          "bwd": phase_bwd_times(bwd_operands(op), smi,
@@ -2178,7 +2293,7 @@ def run_wide_rank(root, smi, datasets, models, cfgs, models_top,
                 train=dict(fwd=sum(n for n, _ in trained.values()),
                            bwd=sum(n for _, n in trained.values()), served=0),
                 t=t, tb=by_rank[WIDE_RANK]["bwd"], by_rank=by_rank,
-                trained=trained, top_served=top_served,
+                trained=trained, top=top, top_served=top_served,
                 slice_errs=slice_errs, parity=held)
 
 
@@ -4679,7 +4794,7 @@ def wide_rank_entries(r: dict, smi: str) -> list:
     """B3's and B4's entries for a wide rank-r path
     (``kernelnn_w128_rank32``, ``kernelnn_w256_rank32``): launches by phase
     (serving and training in each type at rank ``WIDE_RANK``, the top
-    rank's request), the shapes held against the plain versions with their
+    rank's request, if any), the shapes held against the plain versions with their
     errors, and under ``by_rank`` each timed rank's numbers in both types
     (the plain versions' on the chunk's leading slice)."""
     width = r["width"]
@@ -4689,8 +4804,9 @@ def wide_rank_entries(r: dict, smi: str) -> list:
     entries[0]["launches"] += r["top_served"]
     entries[0]["launches_by_path"] = {
         "serve": r["launches"],
-        **{f"train_{dt}": n for dt, (n, _) in trained.items()},
-        f"serve_rank{WIDE_RANK_TOP}": r["top_served"]}
+        **{f"train_{dt}": n for dt, (n, _) in trained.items()}}
+    if r["top"] is not None:
+        entries[0]["launches_by_path"][f"serve_rank{r['top']}"] = r["top_served"]
     entries[1]["launches_by_path"] = {
         f"train_{dt}": n for dt, (_, n) in trained.items()}
     for entry, key, times in ((entries[0], "fwd", r["t"]),
@@ -4703,7 +4819,7 @@ def wide_rank_entries(r: dict, smi: str) -> list:
             "ms_at_plain_slots_float32"]
         entry["by_rank"] = {
             str(rank): {"padded_rank": v["padded_rank"],
-                        "ceiling": v["ceiling"],
+                        "ceiling": v["ceiling"], "slabs": v["slabs"],
                         **{f"{k}_{dt}": v[key][f"{k}_{dt}"]
                            for dt in ("bfloat16", "float32")
                            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -4827,22 +4943,20 @@ def main() -> int:
                   for k, sizes in (("full", FULL), ("small", SMALL))}
         cfgs_wtc = {k: dict(v, width=WIDE) for k, v in cfgs_tc.items()}
         # the width-128 rank-r path: the width-128 path's config at
-        # kernel_rank WIDE_RANK (and, for one request, WIDE_RANK_TOP)
+        # kernel_rank WIDE_RANK
         cfgs_wr = {k: dict(v, kernel_rank=WIDE_RANK) for k, v in cfgs_w.items()}
-        cfgs_wtop = {k: dict(v, kernel_rank=WIDE_RANK_TOP)
-                     for k, v in cfgs_w.items()}
         # the width-256 path: the width-128 path's configs at width 256
         cfgs_w2 = {k: dict(v, width=WIDER) for k, v in cfgs_w.items()}
         cfgs_w2tc = {k: dict(v, width=WIDER) for k, v in cfgs_tc.items()}
         # the width-256 rank-r path: the width-256 path's config at
-        # kernel_rank WIDE_RANK (and, for one request, WIDE_RANK_TOP)
+        # kernel_rank WIDE_RANK (and, for one request, WIDER_RANK_TOP)
         cfgs_w2r = {k: dict(v, kernel_rank=WIDE_RANK)
                     for k, v in cfgs_w2.items()}
-        cfgs_w2top = {k: dict(v, kernel_rank=WIDE_RANK_TOP)
+        cfgs_w2top = {k: dict(v, kernel_rank=WIDER_RANK_TOP)
                       for k, v in cfgs_w2.items()}
         datasets, models, models_lr, models_r12, models_tc = (
             {} for _ in range(5))
-        models_w, models_wtc, models_wr, models_wtop = {}, {}, {}, {}
+        models_w, models_wtc, models_wr = {}, {}, {}
         models_w2, models_w2tc, models_w2r, models_w2top = {}, {}, {}, {}
         for key, cfg in cfgs.items():
             t1 = time.time()
@@ -4859,14 +4973,12 @@ def main() -> int:
                                   models_wtc),
                                  (f"{key}_w{WIDE}r{WIDE_RANK}", cfgs_wr[key],
                                   models_wr),
-                                 (f"{key}_w{WIDE}r{WIDE_RANK_TOP}",
-                                  cfgs_wtop[key], models_wtop),
                                  (f"{key}_w{WIDER}", cfgs_w2[key], models_w2),
                                  (f"{key}_w{WIDER}_teecnet", cfgs_w2tc[key],
                                   models_w2tc),
                                  (f"{key}_w{WIDER}r{WIDE_RANK}",
                                   cfgs_w2r[key], models_w2r),
-                                 (f"{key}_w{WIDER}r{WIDE_RANK_TOP}",
+                                 (f"{key}_w{WIDER}r{WIDER_RANK_TOP}",
                                   cfgs_w2top[key], models_w2top)):
                 into[key] = write_checkpoint(logs, exp, c)
                 write_checkpoint(logs, exp + "_cpu", c)
@@ -4881,13 +4993,14 @@ def main() -> int:
         # phase 7's CPU side of every path, in the order they need it
         small = {"kernelnn": cfgs["small"], f"rank{RANK}": cfgs_lr["small"],
                  f"rank{RANK12}": cfgs_r12["small"]}
-        for w, c in ((WIDE, cfgs_w), (WIDER, cfgs_w2)):
+        for w, c, ranks in ((WIDE, cfgs_w, (WIDE_RANK,)),
+                            (WIDER, cfgs_w2, (WIDE_RANK, WIDER_RANK_TOP))):
             small[f"w{w}"] = c["small"]
-            for r in (WIDE_RANK, WIDE_RANK_TOP):
+            for r in ranks:
                 small[f"w{w}r{r}"] = dict(c["small"], kernel_rank=r)
         small["teecnet"] = cfgs_tc["small"]
         parity_pool, parity = start_parity(
-            merged_subdomains(datasets["small"]), small)
+            merged_subdomains(datasets["small"]), small, root)
         workers.callback(parity_pool.shutdown, wait=True,
                          cancel_futures=True)
         workers.callback(PARITY_WORKER.update, pid=None)  # runs first
@@ -4900,20 +5013,19 @@ def main() -> int:
         wide = run_wide(root, smi, datasets, models_w, cfgs_w, models_wtc,
                         cfgs_wtc, parity=parity[f"w{WIDE}"])
         wide_rank = run_wide_rank(
-            root, smi, datasets, models_wr, cfgs_wr, models_wtop["full"],
-            parity={r: parity[f"w{WIDE}r{r}"]
-                    for r in (WIDE_RANK, WIDE_RANK_TOP)})
+            root, smi, datasets, models_wr, cfgs_wr,
+            parity={WIDE_RANK: parity[f"w{WIDE}r{WIDE_RANK}"]})
         wider = run_wide(root, smi, datasets, models_w2, cfgs_w2, models_w2tc,
                          cfgs_w2tc, WIDER, WIDER_CHECKED, WIDER_EPOCHS,
                          parity=parity[f"w{WIDER}"])
         wider_rank = run_wide_rank(
-            root, smi, datasets, models_w2r, cfgs_w2r, models_w2top["full"],
-            WIDER, WIDER_RANK_CHECKED, WIDER_RANK_TIMED,
+            root, smi, datasets, models_w2r, cfgs_w2r, WIDER,
+            WIDER_RANK_CHECKED, WIDER_RANK_TIMED, WIDER_RANK_TOP,
+            models_w2top["full"],
             parity={r: parity[f"w{WIDER}r{r}"]
-                    for r in (WIDE_RANK, WIDE_RANK_TOP)})
+                    for r in (WIDE_RANK, WIDER_RANK_TOP)})
         teecnet = run_path(root, name, smi, datasets, models_tc, cfgs_tc,
                            parity["teecnet"], "_teecnet")
-        log("parity_worker", stopped_s=f"{PARITY_WORKER['stopped_s']:.1f}")
         t1 = time.time()
         wide_labels = (f"kernelnn_w{WIDE}", f"teecnet_w{WIDE}")
         wider_labels = (f"kernelnn_w{WIDER}", f"teecnet_w{WIDER}")
@@ -4963,6 +5075,9 @@ def main() -> int:
         new_paths.update(phase_host(root, datasets, models, cfgs, smi))
         multi = phase_multi(root, datasets, cfgs, cfgs_rt, smi)
         closing = phase_closing(root, datasets, cfgs, cfgs_tc, smi)
+        # phase 7's card side of every path, the worker's steps ready by now
+        run_parities()
+        log("parity_worker", stopped_s=f"{PARITY_WORKER['stopped_s']:.1f}")
 
     kernels = (kernel_entries(full, smi, None, "kernelnn")
                + kernel_entries(lowrank, smi, RANK, "kernelnn_rank16")

@@ -5,7 +5,7 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_bwd_jit
-// for float32 operands at every rank 1 .. 64 and K, c_in, c_out 1 .. 256
+// for float32 operands at every rank 1 .. 256 and K, c_in, c_out 1 .. 256
 // (fused_edge_conv_lowrank_bwd_wgmma.cu is the bfloat16 instance) and
 // computes the same function, w3's and b3's gradients in the model's column
 // layout.  With the
@@ -42,10 +42,18 @@
 //      summed from duv itself in float32 by the thread that forms its
 //      column.
 //
-// Design.  Both kernels run at the padded rank rp = 8 ceil(r / 8)
-// (lowrank_f32_wgmma.cuh): the stage image holds w3's chunks and b3 padded
-// with zeros at q >= r, t and dt are scratch [slots, rp] (zero at q >= r),
-// and the weights kernel writes only the model's columns of dw3 and db3.
+// Design.  Both kernels run at the padded rank rp (lowrank_f32_wgmma.cuh: 8
+// ceil(r / 8) up to 64, 64 ceil(r / 64) past it): the stage image holds
+// w3's chunks and b3 padded with zeros at q >= r, t and dt are scratch
+// [slots, rp] (zero at q >= r), and the weights kernel writes only the
+// model's columns of dw3 and db3.  Past rank 64 both run slabs of 64
+// (kSlab): (a) forms dmsg and the tiles once, then walks the slabs in turn
+// (the three walks of each over its slab's chunks, t and dt in registers
+// for one slab at a time and written at the slab's end, dx_src and dh
+// added slab after slab by the thread that writes them); in (b) each
+// 64-column half of a block's 128 columns is one slab of one channel, so a
+// block stages only those two slabs' t or dt ([64][64] each) and its
+// shared memory stays the rank-64 one.
 //  (a) one block per 64-slot tile: one consumer warpgroup and one producer
 //      warp.  The producer streams the stage image (V, U, P, Q chunks, laid
 //      out once per call by a first launch) into f32_wgmma.cuh's 4-stage
@@ -402,14 +410,298 @@ lowrank_bwd_rows_f32_wgmma(const float* __restrict__ g,
       }
 }
 
+// (a) past rank 64: lowrank_bwd_rows_f32_wgmma's tile at R8 = 8 walked
+// slab by slab (the stage image holds each slab's V, U, P and Q chunks in
+// turn, and b3 slab by slab): dmsg and the x_src tile formed once, then
+// per slab the three walks from t and dt zero in registers, written to
+// t_out / dt_out at the slab's columns at its end, and this slab's terms
+// of dx_src and dh added to the earlier slabs' by the thread that writes
+// them.  A kernel of its own, so that the instances up to rank 64 keep
+// their code.
+template <int S, bool kWide>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<8, S>)
+lowrank_bwd_rows_slab_f32_wgmma(const float* __restrict__ g,
+                                const float* __restrict__ h,
+                                const float* __restrict__ x_src,
+                                const bf16* __restrict__ image,
+                                const float* __restrict__ b3,
+                                const int* __restrict__ slot_rows,
+                                const float* __restrict__ row_weight,
+                                const float* __restrict__ s_dense,
+                                float* __restrict__ dh,
+                                float* __restrict__ dx_src,
+                                float* __restrict__ dmsg_out,
+                                float* __restrict__ t_out,
+                                float* __restrict__ dt_out, int blk, int K,
+                                int c_in, int c_out, int slabs) {
+  constexpr int R8 = 8, R = 8 * R8, N = kN<R8>, G = N / R;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const RowsLayout L(K, c_in, c_out, R, kWide);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kRing;
+  unsigned char* ring = smem + L.ring;
+  const long slot0 = static_cast<long>(blockIdx.x) * kTile;
+  const long b = slot0 / blk;
+  const long row_base = b * kRows;
+  const bool compact = s_dense == nullptr;
+  const int lane = threadIdx.x % 32;
+  const int n_v = cdiv(c_out, G), n_u = cdiv(c_in, G), n_k = cdiv(K, G);
+  const int rp = slabs * R;  // t's and dt's columns
+  // every warp decides by itself whether the tile holds a real slot
+  const bool real = !compact ||
+                    __any_sync(0xffffffffu, slot_rows[slot0 + lane] >= 0 ||
+                                                slot_rows[slot0 + lane + 32] >= 0);
+
+  if (threadIdx.x == 0) ring_init(full, empty);
+  __syncthreads();
+
+  if (threadIdx.x >= kWarpgroup) {  // ---- producer ----
+    if (real && lane == 0) {
+      uint32_t j = 0;
+      produce(full, empty, ring, reinterpret_cast<const unsigned char*>(image),
+              static_cast<uint32_t>(L.stage),
+              slabs * (n_v + n_u + 2 * n_k) * (L.dp / L.sd) - 1, j);
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  const int tid = threadIdx.x, warp = tid / 32;
+  if (!real) {  // padding only: every gradient is 0
+    for (int e = tid; e < kTile * K; e += kWarpgroup) dh[slot0 * K + e] = 0.f;
+    for (int e = tid; e < kTile * c_in; e += kWarpgroup)
+      dx_src[slot0 * c_in + e] = 0.f;
+    for (int e = tid; e < kTile * c_out; e += kWarpgroup)
+      dmsg_out[slot0 * c_out + e] = 0.f;
+    for (int e = tid; e < kTile * rp; e += kWarpgroup) {
+      t_out[slot0 * rp + e] = 0.f;
+      dt_out[slot0 * rp + e] = 0.f;
+    }
+    return;
+  }
+  const int xs = L.xs, ds = L.ds, hs = L.hs;
+  float* x_sm = reinterpret_cast<float*>(smem + L.x);
+  float* d_sm = reinterpret_cast<float*>(smem + L.d);
+  float* dh_sm = reinterpret_cast<float*>(smem + L.dh);
+
+  // this warp's 16 rows of dmsg (float32, written once for the weights
+  // kernel) and of x_src; every later read of them is by this warp
+  const int s_lo = 16 * warp;
+  for (int e = lane; e < 16 * c_out; e += 32) {
+    const int s = s_lo + e / c_out, o = e % c_out;
+    float d = 0.f;
+    if (compact) {
+      const int r = slot_rows[slot0 + s];
+      if (r >= 0) d = row_weight[row_base + r] * g[(row_base + r) * c_out + o];
+    } else {
+      const float* s_col = s_dense + row_base * blk + (slot0 - b * blk) + s;
+      for (int r = 0; r < kRows; ++r)
+        d = fmaf(s_col[static_cast<long>(r) * blk], g[(row_base + r) * c_out + o], d);
+    }
+    dmsg_out[(slot0 + s) * c_out + o] = d;
+    d_sm[s * ds + o] = d;
+  }
+  if (!kWide)
+    for (int e = lane; e < 16 * c_in; e += 32) {
+      const int s = s_lo + e / c_in, i = e % c_in;
+      x_sm[s * xs + i] = x_src[(slot0 + s) * c_in + i];
+    }
+  __syncwarp();
+  // the tile's rows of x_src: the x_src tile, or (wide) device memory
+  const float* x_rows = kWide ? x_src + slot0 * c_in : x_sm;
+  const int x_stride = kWide ? c_in : xs;
+
+  const int r0 = acc_row(0);  // this thread's rows: r0 and r0 + 8
+  const bool writer = tid % 4 == 0;
+  const int ru = R * c_in;
+  const uint64_t d0 = desc(ring, L.sd);
+  const uint32_t dstage = static_cast<uint32_t>(L.stage >> 4);
+  const uint32_t dpart = dstage / 3;
+  uint32_t j = 0;  // the ring's step, counted as the producer counts it
+  bf16* a_sm = reinterpret_cast<bf16*>(smem + L.a);
+  // past a depth of 64: the walk over chunks 0 .. n - 1 with A = the three
+  // parts of the 64 rows of `src` [width] split into shared memory, once
+  // every warp is done with the last walk's
+  auto deep = [&](const float* src, long stride, int width, int n, auto& fin) {
+    warpgroup_sync(0);
+    split_smem(a_sm, src, stride, width, L.dp);
+    fence_async_smem();
+    warpgroup_sync(0);
+    const DeepWalk<N, std::remove_reference_t<decltype(fin)>> walk{
+        desc(a_sm, L.dp), static_cast<uint32_t>(2 * kTile * L.dp >> 4),
+        L.dp / L.sd, full, empty, d0, dstage, dpart, lane, fin};
+    walk.all(n, j);
+  };
+  for (int sl = 0; sl < slabs; ++sl) {
+    const float* b3s = b3 + sl * R * (c_in + c_out);  // slab sl's b3
+    // dx_src's and dh's entries: this slab's terms added to the earlier
+    // slabs' (by the thread that wrote them)
+    auto add = [&](float* at, float v) {
+      if (sl > 0) v += *at;
+      *at = v;
+    };
+    // t and dt of this thread's rows r0, r0 + 8 at its 2 R8 values of q
+    float tq[2][R8][2], dq[2][R8][2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int m = 0; m < R8; ++m)
+        tq[hf][m][0] = tq[hf][m][1] = dq[hf][m][0] = dq[hf][m][1] = 0.f;
+
+    {  // ---- uv: dt from the V chunks, t and dx_src from the U chunks ----
+      auto fin = [&](const float (&acc)[N / 2], int c) {
+        if (c < n_v) {  // dt[s, q] += dmsg[s, o] V[s, o, q]
+          const int o0 = c * G, gc = lesser(G, c_out - o0);
+#pragma unroll
+          for (int gg = 0; gg < G; ++gg) {
+            if (gg >= gc) continue;
+            const float da = d_sm[r0 * ds + o0 + gg];
+            const float db = d_sm[(r0 + 8) * ds + o0 + gg];
+            const float* bias = b3s + ru + (o0 + gg) * R;
+#pragma unroll
+            for (int u = 0; u < 4 * R8; ++u) {
+              const int jj = 4 * R8 * gg + u;
+              const float v = acc[jj] + __ldg(bias + q_of<R8>(jj));
+              float& dv = dq[(u >> 1) & 1][u >> 2][u & 1];
+              dv = fmaf((u >> 1) & 1 ? db : da, v, dv);
+            }
+          }
+        } else {  // t += x U; dx_src[s, i] = sum_q U[s, i, q] dt[s, q]
+          const int i0 = (c - n_v) * G, gc = lesser(G, c_in - i0);
+#pragma unroll
+          for (int gg = 0; gg < G; ++gg) {
+            if (gg >= gc) continue;
+            const float xa = x_rows[r0 * x_stride + i0 + gg];
+            const float xb = x_rows[(r0 + 8) * x_stride + i0 + gg];
+            const float* bias = b3s + (i0 + gg) * R;
+            float pa = 0.f, pb = 0.f;
+#pragma unroll
+            for (int u = 0; u < 4 * R8; ++u) {
+              const int jj = 4 * R8 * gg + u;
+              const float uv = acc[jj] + __ldg(bias + q_of<R8>(jj));
+              const int hf = (u >> 1) & 1, m = u >> 2, bb = u & 1;
+              tq[hf][m][bb] = fmaf(hf ? xb : xa, uv, tq[hf][m][bb]);
+              if (hf)
+                pb = fmaf(uv, dq[1][m][bb], pb);
+              else
+                pa = fmaf(uv, dq[0][m][bb], pa);
+            }
+            pa = quad_sum(pa);
+            pb = quad_sum(pb);
+            if (writer) {
+              add(dx_src + (slot0 + r0) * c_in + i0 + gg, pa);
+              add(dx_src + (slot0 + r0 + 8) * c_in + i0 + gg, pb);
+            }
+          }
+        }
+      };
+      if constexpr (S > 4) {
+        deep(h + slot0 * K, K, K, n_v + n_u, fin);
+      } else {
+        uint32_t ha[3][S][4];
+        split_rows<S>(ha, h + slot0 * K, K, K);
+        const Walk<N, S, decltype(fin)> walk{ha, full, empty, d0, dstage,
+                                             dpart, lane, fin};
+        walk.all(n_v + n_u - 1, j);
+      }
+    }
+
+    // dh[s, k] over the P (Q) chunks: the sums over q of this thread's
+    // accumulator values weighted by w (dt, then t), one quad sum per k
+    auto dh_half = [&](const float (&acc)[N / 2], int c,
+                       const float (&w)[2][R8][2], bool q_half) {
+      const int k0 = c * G, gk = lesser(G, K - k0);
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) {
+        if (gg >= gk) continue;
+        float pa = 0.f, pb = 0.f;
+#pragma unroll
+        for (int u = 0; u < 4 * R8; ++u) {
+          const int jj = 4 * R8 * gg + u;
+          if ((u >> 1) & 1)
+            pb = fmaf(acc[jj], w[1][u >> 2][u & 1], pb);
+          else
+            pa = fmaf(acc[jj], w[0][u >> 2][u & 1], pa);
+        }
+        pa = quad_sum(pa);
+        pb = quad_sum(pb);
+        if (!writer) continue;
+        float* da_ = dh + (slot0 + r0) * K + k0 + gg;
+        float* db_ = dh + (slot0 + r0 + 8) * K + k0 + gg;
+        // where the P half waits: the dh tile, or (wide) dh itself
+        float* ha_ = dh_sm + r0 * hs + k0 + gg;
+        float* hb_ = dh_sm + (r0 + 8) * hs + k0 + gg;
+        if constexpr (kWide) {
+          ha_ = da_;
+          hb_ = db_;
+        }
+        if (!q_half) {  // the P half waits (wide: added into dh)
+          if constexpr (kWide) {
+            add(ha_, pa);
+            add(hb_, pb);
+          } else {
+            *ha_ = pa;
+            *hb_ = pb;
+          }
+        } else if constexpr (kWide) {  // dh holds the earlier slabs' + P
+          *da_ = *ha_ + pa;
+          *db_ = *hb_ + pb;
+        } else {
+          add(da_, *ha_ + pa);
+          add(db_, *hb_ + pb);
+        }
+      }
+    };
+    {  // ---- dh's P half: P = x_src @ W3U weighted by dt ----
+      auto fin = [&](const float (&acc)[N / 2], int c) { dh_half(acc, c, dq, false); };
+      if constexpr (S > 4) {
+        deep(x_rows, x_stride, c_in, n_k, fin);
+      } else {
+        uint32_t xa[3][S][4];
+        split_rows<S>(xa, x_sm, xs, c_in);
+        const Walk<N, S, decltype(fin)> walk{xa, full, empty, d0, dstage,
+                                             dpart, lane, fin};
+        walk.all(n_k - 1, j);
+      }
+    }
+    {  // ---- dh = P half + Q half: Q = dmsg @ W3V weighted by t ----
+      auto fin = [&](const float (&acc)[N / 2], int c) { dh_half(acc, c, tq, true); };
+      if constexpr (S > 4) {
+        deep(d_sm, ds, c_out, n_k, fin);
+      } else {
+        uint32_t da[3][S][4];
+        split_rows<S>(da, d_sm, ds, c_out);
+        const Walk<N, S, decltype(fin)> walk{da, full, empty, d0, dstage,
+                                             dpart, lane, fin};
+        walk.all(n_k - 1, j);
+      }
+    }
+
+    // ---- the slab's t and dt, scratch for the weights kernel ----
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int m = 0; m < R8; ++m)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const long at =
+              (slot0 + r0 + 8 * hf) * rp + sl * R + q_of<R8>(4 * m + u);
+          t_out[at] = tq[hf][m][u];
+          dt_out[at] = dq[hf][m][u];
+        }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // (b) partial[split, k, c] = sum over the split's slots e of h[e, k] duv[e, c]
 // for the block's 128 padded columns c of rp (c_in + c_out) and 64 rows k
 // (k0 ..), and (first row tile) row K: db3, at the model's columns.  Shared
 // memory: h^T's and duv's parts, then the raw rows of a chunk: h [64][64]
 // (its columns k0 .., zeros past K), the block's channels of x_src (U
-// columns) and dmsg (V columns) [64][kF], t and dt [64][rp].  102 KB at
-// rank 16 (two blocks per SM), 110 KB at 32, 127 KB at 64.
+// columns) and dmsg (V columns) [64][kF], t and dt [64][R] (R the padded
+// rank; past 64, kSlab, 64: the slab of dt (U) or t (V) of the block's
+// first and of its second 64 columns).  102 KB at rank 16 (two blocks per
+// SM), 110 KB at 32, 127 KB at 64 and past it.
 struct WeightsLayout {
   long a, z, hraw, f, t, dt, total;
   __host__ __device__ WeightsLayout(int r) {
@@ -423,7 +715,7 @@ struct WeightsLayout {
   }
 };
 
-template <int R8>
+template <int R8, bool kSlab>
 __global__ void __launch_bounds__(kWarpgroup)
 lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
                               const float* __restrict__ x_src,
@@ -444,7 +736,8 @@ lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
   float* t_sm = reinterpret_cast<float*>(smem + L.t);
   float* dt_sm = reinterpret_cast<float*>(smem + L.dt);
   const int tid = threadIdx.x;
-  const int ru = R * c_in, ncol = R * (c_in + c_out);
+  const int rp = kSlab ? padded_rank(rank) : R;  // t's and dt's columns
+  const int ru = rp * c_in, ncol = rp * (c_in + c_out);
   const int n0 = blockIdx.x * kCols, k0 = blockIdx.z * kTile;
   const long split = blockIdx.y;
   const long c_lo = split * chunks_per_split;
@@ -453,12 +746,12 @@ lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
                         : num_chunks;
   // the channels the block's columns use: x_src's iu0 .. iu0 + nu - 1 (U
   // columns n0 .. u_hi - 1), dmsg's ov0 .. ov0 + nv - 1 (V columns v_lo ..
-  // v_hi - 1); nu + nv <= 128 / r + 2 <= kF
+  // v_hi - 1); nu + nv <= 128 / R + 2 <= kF
   const int u_hi = lesser(n0 + kCols, ru);
   const int v_lo = n0 > ru ? n0 : ru, v_hi = lesser(n0 + kCols, ncol);
-  const int iu0 = n0 / R, nu = n0 < u_hi ? (u_hi - 1) / R - iu0 + 1 : 0;
-  const int ov0 = (v_lo - ru) / R;
-  const int nv = v_lo < v_hi ? (v_hi - 1 - ru) / R - ov0 + 1 : 0;
+  const int iu0 = n0 / rp, nu = n0 < u_hi ? (u_hi - 1) / rp - iu0 + 1 : 0;
+  const int ov0 = (v_lo - ru) / rp;
+  const int nv = v_lo < v_hi ? (v_hi - 1 - ru) / rp - ov0 + 1 : 0;
   const int nf = nu + nv;
   // this thread's column of duv: col = n0 + tid (none past ncol): U column
   // (channel i, q) = x_src[:, i] dt[:, q], or V column (o, q) = dmsg[:, o]
@@ -466,10 +759,13 @@ lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
   const int col = n0 + tid;
   const bool has_col = col < ncol;
   const bool u_col = col < ru;
-  const int ch = has_col ? (u_col ? col : col - ru) / R : 0;
-  const int q = has_col ? col % R : 0;
+  const int ch = has_col ? (u_col ? col : col - ru) / rp : 0;
+  const int q = has_col ? col % rp : 0;
   const int fi = u_col ? ch - iu0 : nu + ch - ov0;
-  const float* v_sm = u_col ? dt_sm : t_sm;
+  // the rank factor [64][R]: kSlab, the slab of the thread's half at q % R
+  const float* v_sm = kSlab ? (tid < kTile ? t_sm : dt_sm)
+                            : (u_col ? dt_sm : t_sm);
+  const int vq = kSlab ? q % R : q;
   const int zpart = kCols * kTile, apart = kTile * kTile;  // elements
 
   // rows of duv past ncol stay zero
@@ -517,15 +813,28 @@ lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
                        : dmsg + (s0 + s) * c_out + ov0 + e - nu, 4);
     }
     for (int half = 0; half < 2; ++half) {
-      if (half == 0 ? nu == 0 : nv == 0) continue;
-      float* dst = half == 0 ? dt_sm : t_sm;
-      const float* src = (half == 0 ? dt_vec : t_vec) + s0 * R;
+      float* dst;
+      const float* src;
+      if constexpr (kSlab) {  // the 64 columns' slab of dt (U) or t (V)
+        const int c0 = n0 + kTile * half;
+        if (c0 >= ncol) continue;
+        dst = half == 0 ? t_sm : dt_sm;
+        src = (c0 < ru ? dt_vec : t_vec) + s0 * rp + c0 % rp;
+      } else {
+        if (half == 0 ? nu == 0 : nv == 0) continue;
+        dst = half == 0 ? dt_sm : t_sm;
+        src = (half == 0 ? dt_vec : t_vec) + s0 * R;
+      }
+      // [64][R] (kSlab: from rows of rp)
       if (vec_r) {
         for (int p = tid; p < kTile * R / 4; p += kWarpgroup)
-          cp_async16(dst + 4 * p, src + 4 * p, 16);
+          cp_async16(dst + 4 * p,
+                     kSlab ? src + p / (R / 4) * rp + 4 * (p % (R / 4))
+                           : src + 4 * p,
+                     16);
       } else {
         for (int p = tid; p < kTile * R; p += kWarpgroup)
-          cp_async4(dst + p, src + p, 4);
+          cp_async4(dst + p, kSlab ? src + p / R * rp + p % R : src + p, 4);
       }
     }
     cp_async_commit();
@@ -558,7 +867,7 @@ lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
         float z[8];
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
-          z[u] = f_sm[(s + u) * kF + fi] * v_sm[(s + u) * R + q];
+          z[u] = f_sm[(s + u) * kF + fi] * v_sm[(s + u) * R + vq];
           dbias += z[u];
         }
         uint4 pt[3];
@@ -593,14 +902,14 @@ lowrank_bwd_weights_f32_wgmma(const float* __restrict__ h,
 #pragma unroll
   for (int v = 0; v < kCols / 2; ++v) {
     const int k = k0 + acc_row(v), cc = n0 + acc_col(v);
-    const int rc = cc < ncol ? real_col(cc, R, rank) : -1;
+    const int rc = cc < ncol ? real_col(cc, rp, rank) : -1;
     if (k < K && rc >= 0) dst[static_cast<long>(k) * ncol_r + rc] = sum[v];
   }
-  const int rc = has_col && k0 == 0 ? real_col(col, R, rank) : -1;
+  const int rc = has_col && k0 == 0 ? real_col(col, rp, rank) : -1;
   if (rc >= 0) dst[static_cast<long>(K) * ncol_r + rc] = dbias;
 }
 
-template <int R8, int S, bool kWide>
+template <int R8, int S, bool kWide, bool kSlab>
 cudaError_t launch(const float* g, const float* h, const float* x_src,
                    const float* w3, const float* b3, const int* slot_rows,
                    const float* row_weight, const float* s_dense, bf16* image,
@@ -611,27 +920,36 @@ cudaError_t launch(const float* g, const float* h, const float* x_src,
   constexpr int R = 8 * R8;
   const long num_tiles = static_cast<long>(num_blocks) * blk / kTile;
   const RowsLayout L(K, c_in, c_out, R, kWide);
-  auto rows = lowrank_bwd_rows_f32_wgmma<R8, S, kWide>;
-  cudaError_t err = allow_smem(rows, static_cast<size_t>(L.total));
+  const int rp = padded_rank(r), slabs = rp / R;
+  const size_t smem = static_cast<size_t>(L.total);
+  cudaError_t err = kSlab
+      ? allow_smem(lowrank_bwd_rows_slab_f32_wgmma<S, kWide>, smem)
+      : allow_smem(lowrank_bwd_rows_f32_wgmma<R8, S, kWide>, smem);
   if (err != cudaSuccess) return err;
   const float* b3p;
   err = launch_lowrank_image(w3, b3, image,
-                             bwd_chunks(L.n / R, K, c_in, c_out), L.n, L.dp,
-                             R, r, K, c_in, c_out, true, &b3p, stream);
+                             slabs * bwd_chunks(L.n / R, K, c_in, c_out),
+                             L.n, L.dp, rp, r, K, c_in, c_out, true, &b3p,
+                             stream);
   if (err != cudaSuccess) return err;
-  rows<<<static_cast<unsigned>(num_tiles), kThreads,
-         static_cast<size_t>(L.total), stream>>>(
-      g, h, x_src, image, b3p, slot_rows, row_weight, s_dense, dh, dx_src,
-      dmsg, t_vec, dt_vec, blk, K, c_in, c_out);
+  const unsigned grid = static_cast<unsigned>(num_tiles);
+  if constexpr (kSlab)
+    lowrank_bwd_rows_slab_f32_wgmma<S, kWide><<<grid, kThreads, smem, stream>>>(
+        g, h, x_src, image, b3p, slot_rows, row_weight, s_dense, dh, dx_src,
+        dmsg, t_vec, dt_vec, blk, K, c_in, c_out, slabs);
+  else
+    lowrank_bwd_rows_f32_wgmma<R8, S, kWide><<<grid, kThreads, smem, stream>>>(
+        g, h, x_src, image, b3p, slot_rows, row_weight, s_dense, dh, dx_src,
+        dmsg, t_vec, dt_vec, blk, K, c_in, c_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // column tiles x slot splits x row tiles (as ops/fused_conv.py:
   // lowrank_weight_tiles)
-  const int tiles = (R * (c_in + c_out) + kCols - 1) / kCols;
+  const int tiles = (rp * (c_in + c_out) + kCols - 1) / kCols;
   const int row_tiles = (K + kTile - 1) / kTile;
   const long per_split = (num_tiles + num_splits - 1) / num_splits;
   const size_t wsmem = static_cast<size_t>(WeightsLayout(R).total);
-  auto weights = lowrank_bwd_weights_f32_wgmma<R8>;
+  auto weights = lowrank_bwd_weights_f32_wgmma<R8, kSlab>;
   err = allow_smem(weights, wsmem);
   if (err != cudaSuccess) return err;
   weights<<<dim3(tiles, num_splits, row_tiles), kWarpgroup, wsmem, stream>>>(
@@ -647,7 +965,7 @@ extern "C" {
 // Bytes of dynamic shared memory one block of the rows kernel needs.
 long fused_edge_conv_lowrank_bwd_f32_wgmma_smem_bytes(int K, int c_in,
                                                       int c_out, int r) {
-  return RowsLayout(K, c_in, c_out, padded_rank(r),
+  return RowsLayout(K, c_in, c_out, slab_rank(r),
                     wide_dims(K, c_in, c_out)).total;
 }
 
@@ -659,22 +977,27 @@ int fused_edge_conv_lowrank_bwd_f32_wgmma_blocks_per_sm(int K, int c_in,
   if (K < 1 || K > kMaxDim || c_in < 1 || c_in > kMaxDim || c_out < 1 ||
       c_out > kMaxDim)
     return -1;
-  const RowsLayout L(K, c_in, c_out, padded_rank(r),
+  const RowsLayout L(K, c_in, c_out, slab_rank(r),
                      wide_dims(K, c_in, c_out));
   return with_rank_depth(r, L.dp, [&](auto r8, auto s) {
     constexpr int R8 = decltype(r8)::value;
+    constexpr bool kSlab = decltype(r8)::slab;
     if (weights)
-      return blocks_on_sm(lowrank_bwd_weights_f32_wgmma<R8>, kWarpgroup,
+      return blocks_on_sm(lowrank_bwd_weights_f32_wgmma<R8, kSlab>, kWarpgroup,
                           static_cast<size_t>(WeightsLayout(8 * R8).total));
     constexpr int S = decltype(s)::value;
     const size_t smem = static_cast<size_t>(L.total);
     if constexpr (S > 4) {  // a wide layout is deep
       if (L.wide)
-        return blocks_on_sm(lowrank_bwd_rows_f32_wgmma<R8, S, true>, kThreads,
-                            smem);
+        return kSlab ? blocks_on_sm(lowrank_bwd_rows_slab_f32_wgmma<S, true>,
+                                    kThreads, smem)
+                     : blocks_on_sm(lowrank_bwd_rows_f32_wgmma<R8, S, true>,
+                                    kThreads, smem);
     }
-    return blocks_on_sm(lowrank_bwd_rows_f32_wgmma<R8, S, false>, kThreads,
-                        smem);
+    return kSlab ? blocks_on_sm(lowrank_bwd_rows_slab_f32_wgmma<S, false>,
+                                kThreads, smem)
+                 : blocks_on_sm(lowrank_bwd_rows_f32_wgmma<R8, S, false>,
+                                kThreads, smem);
   }, -1);
 }
 
@@ -682,11 +1005,12 @@ int fused_edge_conv_lowrank_bwd_f32_wgmma_blocks_per_sm(int K, int c_in,
 // rows kernel, then the weights kernel.  Pointers are device pointers to
 // float32 arrays but slot_rows (int32) and image (bfloat16 scratch of
 // ops/fused_conv.py:lowrank_image_numel elements, 16-byte aligned); dmsg
-// [slots, c_out], t_vec and dt_vec [slots, rp] (rp = 8*ceil(r/8)) are
+// [slots, c_out], t_vec and dt_vec [slots, rp] (rp the padded rank:
+// 8*ceil(r/8) up to 64, 64*ceil(r/64) past it) are
 // written by the rows kernel and read by the weights kernel.  Exactly one
 // of s_dense and (slot_rows, row_weight) is non-null.  w3 is [K,
 // r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <= 256
-// and 1 <= r <= 64.  partial is [num_splits, K+1, r*(c_in+c_out)] (dw3
+// and 1 <= r <= 256.  partial is [num_splits, K+1, r*(c_in+c_out)] (dw3
 // rows then the db3 row, the model's columns, summed over splits by the
 // caller).  Returns the cudaError_t of the
 // launches (0 on success).
@@ -701,10 +1025,11 @@ int fused_edge_conv_lowrank_bwd_f32_wgmma_backward(
       num_splits < 1 || reinterpret_cast<uintptr_t>(image) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const RowsLayout L(K, c_in, c_out, padded_rank(r),
+  const RowsLayout L(K, c_in, c_out, slab_rank(r),
                      wide_dims(K, c_in, c_out));
   return static_cast<int>(with_rank_depth(r, L.dp, [&](auto r8, auto s) {
     constexpr int R8 = decltype(r8)::value, S = decltype(s)::value;
+    constexpr bool kSlab = decltype(r8)::slab;
     auto go = [&](auto kernel_launch) {
       return kernel_launch(
           static_cast<const float*>(g), static_cast<const float*>(h),
@@ -718,9 +1043,9 @@ int fused_edge_conv_lowrank_bwd_f32_wgmma_backward(
           num_blocks, blk, K, c_in, c_out, r, num_splits, st);
     };
     if constexpr (S > 4) {  // a wide layout is deep
-      if (L.wide) return go(launch<R8, S, true>);
+      if (L.wide) return go(launch<R8, S, true, kSlab>);
     }
-    return go(launch<R8, S, false>);
+    return go(launch<R8, S, false, kSlab>);
   }, cudaErrorInvalidValue));
 }
 

@@ -4,7 +4,7 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_bwd_jit
-// for bfloat16 operands at every rank 1 .. 64 and K, c_in, c_out 1 .. 256
+// for bfloat16 operands at every rank 1 .. 256 and K, c_in, c_out 1 .. 256
 // (fused_edge_conv_lowrank_bwd_f32_wgmma.cu is the float32 instance) and
 // computes the same function, w3's and b3's gradients in the model's
 // column layout.  With the forward's notation and g the gradient of
@@ -41,12 +41,18 @@
 //      summed from duv itself in float32 by the thread that forms its
 //      column.
 //
-// Design.  Both kernels run at the padded rank rp = 8 ceil(r / 8)
-// (lowrank_wgmma.cuh): at a rank that is not a multiple of 8 a first
-// launch lays out the zero-padded copy of w3, b3's columns are copied
-// padded from its real ones, t and dt are scratch [slots, rp] (zero at q >=
-// r), and the
-// weights kernel writes only the model's columns of dw3 and db3.
+// Design.  Both kernels run at the padded rank rp (lowrank_wgmma.cuh: 8
+// ceil(r / 8) up to 64, 64 ceil(r / 64) past it): at a rank other than rp
+// a first launch lays out the zero-padded copy of w3, b3's columns are
+// copied padded from its real ones, t and dt are scratch [slots, rp] (zero
+// at q >= r), and the weights kernel writes only the model's columns of
+// dw3 and db3.  Past rank 64 both run slabs of 64 (kSlab): (a) walks the
+// slabs in turn per tile, each the rank-64 chunk walk on its slab's
+// columns (t and dt in registers for one slab at a time, written out at
+// the slab's end), dx_src and dh added slab after slab by the thread that
+// writes them; in (b) each 64-column half of a block's 128 columns is one
+// slab of one channel, so a block stages only those two slabs' t or dt
+// ([64][64] each) and its shared memory stays the rank-64 one.
 //  (a) one warpgroup per 64-slot tile (grid: every tile of the graph, 4864
 //      at the serving chunk); the tile's receiver block is tile / (blk /
 //      64).  It forms dmsg = row_weight g[slot_rows[e]] (CompactS; the dense
@@ -413,6 +419,289 @@ lowrank_bwd_rows_wgmma(const float* __restrict__ g, const bf16* __restrict__ h,
       }
 }
 
+// (a) past rank 64: lowrank_bwd_rows_wgmma's tile at R8 = 8 walked slab by
+// slab (the head padded to rp = 64 ceil(r / 64), slab s its columns i rp +
+// 64 s ..; ChunkCopy's kSlab reading): per slab t and dt from zero in
+// registers, written to t_out / dt_out at the slab's columns at its end,
+// and this slab's terms of dx_src and dh added to the earlier slabs' by the
+// thread that writes them.  A kernel of its own, so that the instances up
+// to rank 64 keep their code (their registers sit at the 255 limit).
+template <bool kDeep>
+__global__ void __launch_bounds__(kWarpgroup)
+lowrank_bwd_rows_slab_wgmma(const float* __restrict__ g,
+                            const bf16* __restrict__ h,
+                            const bf16* __restrict__ x_src,
+                            const bf16* __restrict__ w3,
+                            const float* __restrict__ b3,
+                            const int* __restrict__ slot_rows,
+                            const float* __restrict__ row_weight,
+                            const float* __restrict__ s_dense,
+                            float* __restrict__ dh, float* __restrict__ dx_src,
+                            bf16* __restrict__ dmsg_out,
+                            float* __restrict__ t_out,
+                            float* __restrict__ dt_out, int blk, int K,
+                            int c_in, int c_out, int rank) {
+  constexpr int R8 = 8, R = 8 * R8, G = kCols / R;  // a slab's rank, channels
+  extern __shared__ __align__(128) unsigned char smem[];
+  const RowsLayout L(K, c_in, c_out, R, kDeep);
+  const int kp = L.kp, dpi = L.dpi, dpo = L.dpo, bd = L.bd;
+  bf16* ah_sm = reinterpret_cast<bf16*>(smem);
+  bf16* ax_sm = reinterpret_cast<bf16*>(smem + L.ax);
+  bf16* ad_sm = reinterpret_cast<bf16*>(smem + L.ad);
+  unsigned char* ring = smem + L.ring;
+  float* dhp_sm = reinterpret_cast<float*>(smem + L.dhp) + threadIdx.x;
+  int* srow = reinterpret_cast<int*>(smem + L.srow);
+
+  const int tid = threadIdx.x;
+  const bool writer = tid % 4 == 0;
+  const long slot0 = static_cast<long>(blockIdx.x) * kTile;
+  const long b = slot0 / blk;
+  const long row_base = b * kRows;
+  const bool compact = s_dense == nullptr;
+  const bf16 zero = __float2bfloat16(0.f);
+  const int ru = R * c_in;
+  const int rp = padded_rank(rank), slabs = rp / R;  // t's and dt's columns
+
+  if (compact) {
+    int real = 0;
+    if (tid < kTile) {
+      srow[tid] = slot_rows[slot0 + tid];
+      real = srow[tid] >= 0;
+    }
+    if (!__syncthreads_or(real)) {  // padding only: every gradient is 0
+      for (int e = tid; e < kTile * K; e += kWarpgroup) dh[slot0 * K + e] = 0.f;
+      for (int e = tid; e < kTile * c_in; e += kWarpgroup)
+        dx_src[slot0 * c_in + e] = 0.f;
+      for (int e = tid; e < kTile * c_out; e += kWarpgroup)
+        dmsg_out[slot0 * c_out + e] = zero;
+      for (int e = tid; e < kTile * rp; e += kWarpgroup) {
+        t_out[slot0 * rp + e] = 0.f;
+        dt_out[slot0 * rp + e] = 0.f;
+      }
+      return;
+    }
+  }
+
+  // chunks: the V chunks of uv (output channels G c ..), the U chunks, then
+  // for each group of G k the P chunk and the Q chunk; chunk c of the
+  // tile's walk is chunk c % n_c of slab c / n_c
+  const int n_v = (c_out + G - 1) / G, n_u = (c_in + G - 1) / G;
+  const int n_c = n_v + n_u + 2 * ((K + G - 1) / G);
+  const int n_t = n_c * slabs;
+  auto chunk = [&](int c) {
+    const int sl = c / n_c;
+    c -= sl * n_c;
+    Chunk ch;
+    if (c < n_v + n_u) {
+      const bool v = c < n_v;
+      const int ch0 = (v ? c : c - n_v) * G;
+      const int gc = min(G, (v ? c_out : c_in) - ch0);
+      ch = Chunk{kUv, (v ? ru : 0) + ch0 * R, gc * R, kp, K};
+    } else {
+      const int e = c - n_v - n_u, k0 = (e / 2) * G, gk = min(G, K - k0);
+      ch = e % 2 == 0 ? Chunk{kP, k0 * R, gk * R, dpi, c_in}
+                      : Chunk{kQ, k0 * R, gk * R, dpo, c_out};
+    }
+    ch.s0 = sl * R;
+    return ch;
+  };
+  // kDeep: each chunk runs as ceil(depth / bd) stages, one step of the
+  // ring each, else as one step: step n is read from buffer n % 3 while
+  // steps n + 1 and n + 2 land in the other two.  (ic, is) is the next
+  // piece to copy: stage is of chunk ic.
+  auto buf = [&](int n) {
+    return reinterpret_cast<bf16*>(ring + (n % kBufs) * L.buf);
+  };
+  auto bias = [&](int n) {
+    return reinterpret_cast<float*>(ring + (n % kBufs) * L.buf +
+                                    2L * kCols * bd);
+  };
+  const ChunkCopy<R8, true> cc(w3, b3, c_in, c_out, rank);
+  int ic = 0, is = 0;
+  auto start_next = [&](int n) {
+    if (ic < n_t) {
+      const Chunk ch = chunk(ic);
+      cc.start(buf(n), bias(n), stage_of(ch, is, bd));
+      if (++is * bd >= ch.depth) {
+        is = 0;
+        ++ic;
+      }
+    } else {
+      pieces_commit();  // an empty group, so that each step waits for its own
+    }
+  };
+  if constexpr (kDeep) {
+    start_next(0);
+    start_next(1);
+  } else {
+    cc.start(buf(0), bias(0), chunk(0));
+    cc.start(buf(1), bias(1), chunk(1));
+  }
+
+  // ---- stage dmsg (rounded to bf16; channels tid % 64 + 64 m' of slots
+  // tid / 64 + 2 m), h and x_src; the first step's barrier publishes
+  // them ----
+#pragma unroll 4
+  for (int s = tid >> 6; s < kTile; s += 2)
+    for (int o = tid & 63; o < dpo; o += 64) {
+      bf16 v = zero;
+      if (o < c_out) {
+        float d = 0.f;
+        if (compact) {
+          const int r = srow[s];
+          if (r >= 0) d = row_weight[row_base + r] * g[(row_base + r) * c_out + o];
+        } else {
+          const float* s_col = s_dense + row_base * blk + (slot0 - b * blk) + s;
+          for (int r = 0; r < kRows; ++r)
+            d += s_col[static_cast<long>(r) * blk] * g[(row_base + r) * c_out + o];
+        }
+        v = __float2bfloat16(d);
+        dmsg_out[(slot0 + s) * c_out + o] = v;
+      }
+      ad_sm[kmajor(s, o, dpo)] = v;
+    }
+  stage_rows(ah_sm, h + slot0 * K, K, kp);
+  stage_rows(ax_sm, x_src + slot0 * c_in, c_in, dpi);
+
+  // this thread's rows r0, r0 + 8 at its 2 R8 values of q (of one slab)
+  const int r0 = acc_row(0);
+  int step = 0;
+  for (int sl = 0; sl < slabs; ++sl) {
+    // dx_src's and dh's entries: this slab's terms added to the earlier
+    // slabs' (by the thread that wrote them)
+    auto add = [&](float* at, float v) {
+      if (sl > 0) v += *at;
+      *at = v;
+    };
+    float tq[2][R8][2], dq[2][R8][2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int m = 0; m < R8; ++m)
+        tq[hf][m][0] = tq[hf][m][1] = dq[hf][m][0] = dq[hf][m][1] = 0.f;
+
+    for (int c = 0; c < n_c; ++c) {
+      const int cg = sl * n_c + c;  // the chunk's place in the tile's walk
+      if constexpr (!kDeep) {
+        pieces_wait<1>();  // chunk cg has landed
+        fence_async_smem();
+        __syncthreads();
+      }
+      const Chunk ch = chunk(cg);
+      const bf16* a = ch.kind == kP ? ax_sm : ch.kind == kQ ? ad_sm : ah_sm;
+      float acc[kCols / 2];
+      if constexpr (kDeep) {
+        for (int d0 = 0; d0 < ch.depth; d0 += bd, ++step) {
+          pieces_wait<1>();  // this step's piece has landed
+          fence_async_smem();
+          __syncthreads();
+          product_stage(acc, a, ch.depth, d0, buf(step),
+                        min(bd, ch.depth - d0), d0 > 0);
+          // the piece two steps on into the buffer that step - 1's finished
+          // product read
+          start_next(step + 2);
+          wait_all();
+          fence_operand(acc);
+        }
+      } else {
+        product<kCols, 1>(acc, a, buf(cg), ch.depth);
+        // chunk cg + 2 into the buffer that chunk cg - 1's finished product
+        // read (an empty group past the last, so that each step waits for
+        // its own)
+        if (cg + 2 < n_t)
+          cc.start(buf(cg + 2), bias(cg + 2), chunk(cg + 2));
+        else
+          pieces_commit();
+        wait_all();
+        fence_operand(acc);
+        step = cg + 1;
+      }
+      const float* bs = bias(step - 1);
+      if (c < n_v) {  // dt[s, q] += dmsg[s, o] V[s, o, q]
+        const int o0 = c * G, gc = min(G, c_out - o0);
+#pragma unroll
+        for (int gg = 0; gg < G; ++gg) {
+          if (gg >= gc) continue;
+          const float da = __bfloat162float(ad_sm[kmajor(r0, o0 + gg, dpo)]);
+          const float db = __bfloat162float(ad_sm[kmajor(r0 + 8, o0 + gg, dpo)]);
+#pragma unroll
+          for (int u = 0; u < 4 * R8; ++u) {
+            const int j = 4 * R8 * gg + u;
+            const float uv = acc[j] + bs[gg * R + q_of<R8>(j)];
+            dq[(u >> 1) & 1][u >> 2][u & 1] += ((u >> 1) & 1 ? db : da) * uv;
+          }
+        }
+      } else if (c < n_v + n_u) {  // t += x U; dx_src[s, i] = sum_q U dt
+        const int i0 = (c - n_v) * G, gc = min(G, c_in - i0);
+#pragma unroll
+        for (int gg = 0; gg < G; ++gg) {
+          if (gg >= gc) continue;
+          const float xa = __bfloat162float(ax_sm[kmajor(r0, i0 + gg, dpi)]);
+          const float xb = __bfloat162float(ax_sm[kmajor(r0 + 8, i0 + gg, dpi)]);
+          float pa = 0.f, pb = 0.f;
+#pragma unroll
+          for (int u = 0; u < 4 * R8; ++u) {
+            const int j = 4 * R8 * gg + u;
+            const float uv = acc[j] + bs[gg * R + q_of<R8>(j)];
+            if ((u >> 1) & 1) {
+              tq[1][u >> 2][u & 1] += xb * uv;
+              pb += uv * dq[1][u >> 2][u & 1];
+            } else {
+              tq[0][u >> 2][u & 1] += xa * uv;
+              pa += uv * dq[0][u >> 2][u & 1];
+            }
+          }
+          pa = quad_sum(pa);
+          pb = quad_sum(pb);
+          if (writer) {
+            add(dx_src + (slot0 + r0) * c_in + i0 + gg, pa);
+            add(dx_src + (slot0 + r0 + 8) * c_in + i0 + gg, pb);
+          }
+        }
+      } else {  // dh[s, k] = sum_q dt[s, q] P[s, k, q] + sum_q t[s, q] Q[s, k, q]
+        const bool p_half = ch.kind == kP;
+        const int k0 = ch.lo / R, gk = ch.cw / R;
+#pragma unroll
+        for (int gg = 0; gg < G; ++gg) {
+          if (gg >= gk) continue;
+          float pa = 0.f, pb = 0.f;
+#pragma unroll
+          for (int u = 0; u < 4 * R8; ++u) {
+            const int j = 4 * R8 * gg + u;
+            const int hf = (u >> 1) & 1;
+            const float w = p_half ? dq[hf][u >> 2][u & 1] : tq[hf][u >> 2][u & 1];
+            if (hf) pb += acc[j] * w; else pa += acc[j] * w;
+          }
+          if (p_half) {
+            dhp_sm[2 * gg * kWarpgroup] = pa;
+            dhp_sm[(2 * gg + 1) * kWarpgroup] = pb;
+            continue;
+          }
+          pa = quad_sum(dhp_sm[2 * gg * kWarpgroup] + pa);
+          pb = quad_sum(dhp_sm[(2 * gg + 1) * kWarpgroup] + pb);
+          if (writer) {
+            add(dh + (slot0 + r0) * K + k0 + gg, pa);
+            add(dh + (slot0 + r0 + 8) * K + k0 + gg, pb);
+          }
+        }
+      }
+    }
+
+    // ---- the slab's t and dt, scratch for the weights kernel ----
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int m = 0; m < R8; ++m)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const long at =
+              (slot0 + r0 + 8 * hf) * rp + sl * R + q_of<R8>(4 * m + u);
+          t_out[at] = tq[hf][m][u];
+          dt_out[at] = dq[hf][m][u];
+        }
+  }
+}
+
 // Adds the weights kernel's tensor-core sums into its partial (stores them
 // the first time) and restarts them from zero: row k0 + i of its row tile,
 // padded column c of ncolp at the model's column of ncol (none at q >= r).
@@ -489,12 +778,34 @@ __device__ __forceinline__ void copy_bytes(void* dst, const void* src, int n,
   }
 }
 
+// Copies `rows` rows of n bytes, row r from src + r * stride bytes, to dst
+// contiguous: 16-byte cp.async pieces (async: both ends and the stride
+// 16-byte aligned, n a multiple of 16), else 4-byte loads and stores.
+__device__ __forceinline__ void copy_rows(void* dst, const void* src,
+                                          int rows, int n, int stride,
+                                          bool async) {
+  const int per = async ? n / 16 : n / 4;
+  for (int e = threadIdx.x; e < rows * per; e += kWarpgroup) {
+    const int r = e / per, p = e - r * per;
+    const unsigned char* from =
+        static_cast<const unsigned char*>(src) + static_cast<long>(r) * stride;
+    if (async)
+      cp_async16(static_cast<uint4*>(dst) + e,
+                 reinterpret_cast<const uint4*>(from) + p);
+    else
+      static_cast<float*>(dst)[e] = reinterpret_cast<const float*>(from)[p];
+  }
+}
+
 // ---------------------------------------------------------------------------
 // (b) partial[split, k, c] = sum over the split's slots e of h[e, k] duv[e, c]
 // for the block's 128 padded columns c of rp (c_in + c_out) and 64 rows k,
 // and (first row tile) row K: db3, at the model's columns.  kOneSet: one
-// set of staged operands (WeightsLayout), a separate instance.
-template <int R8, bool kOneSet>
+// set of staged operands (WeightsLayout), a separate instance; kSlab: a
+// rank past 64 (R8 = 8), each 64-column half of the block's columns one
+// slab of one channel, whose t or dt ([64][64]) takes the place of t (the
+// first half) or of dt (the second) in a set.
+template <int R8, bool kOneSet, bool kSlab>
 __global__ void __launch_bounds__(kWarpgroup)
 lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
                           const bf16* __restrict__ x_src,
@@ -511,7 +822,8 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
   bf16* d_sm = reinterpret_cast<bf16*>(smem);
   unsigned char* sets = smem + L.sets;
   const int tid = threadIdx.x;
-  const int ru = R * c_in, ncol = R * (c_in + c_out);
+  const int rp = kSlab ? padded_rank(rank) : R;  // t's and dt's columns
+  const int ru = rp * c_in, ncol = rp * (c_in + c_out);
   const int n0 = blockIdx.x * kCols, k0 = blockIdx.z * kTile;
   const long split = blockIdx.y;
   const long c_lo = split * chunks_per_split;
@@ -526,11 +838,13 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
   const bool has_col = col < ncol;
   const bool u_col = col < ru;
   const bool need_u = n0 < ru, need_v = n0 + kCols > ru;
-  const int ch = has_col ? (u_col ? col : col - ru) / R : 0;
-  const int q = has_col ? col % R : 0;
+  const int ch = has_col ? (u_col ? col : col - ru) / rp : 0;
+  const int q = has_col ? col % rp : 0;
   const long f_off = (u_col ? L.x : L.m) + 2L * ch;  // the channel factor
   const int f_stride = u_col ? c_in : c_out;
-  const long v_off = (u_col ? L.dt : L.t) + 4L * q;  // the rank factor
+  // the rank factor (row stride R): kSlab, the half's slab
+  const long v_off = kSlab ? (tid < kTile ? L.t : L.dt) + 4L * (q % R)
+                           : (u_col ? L.dt : L.t) + 4L * q;
 
   // columns past ncol, and h^T's rows past K - k0, stay zero
   for (int e = tid; e < 3 * kCols * kTile; e += kWarpgroup) d_sm[e] = zero;
@@ -581,11 +895,20 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
     }
     if (need_u) {
       copy_bytes(set + L.x, x_src + s0 * c_in, 2 * kTile * c_in, async);
-      copy_bytes(set + L.dt, dt_vec + s0 * R, 4 * kTile * R, async);
+      if (!kSlab) copy_bytes(set + L.dt, dt_vec + s0 * R, 4 * kTile * R, async);
     }
     if (need_v) {
       copy_bytes(set + L.m, dmsg + s0 * c_out, 2 * kTile * c_out, async);
-      copy_bytes(set + L.t, t_vec + s0 * R, 4 * kTile * R, async);
+      if (!kSlab) copy_bytes(set + L.t, t_vec + s0 * R, 4 * kTile * R, async);
+    }
+    if constexpr (kSlab) {  // each half's slab of dt (U) or t (V)
+      for (int hh = 0; hh < 2; ++hh) {
+        const int c0 = n0 + kTile * hh;
+        if (c0 >= ncol) continue;
+        const float* src = (c0 < ru ? dt_vec : t_vec) + s0 * rp + c0 % rp;
+        copy_rows(set + (hh ? L.dt : L.t), src, kTile, 4 * kTile, 4 * rp,
+                  async);
+      }
     }
   };
 
@@ -683,18 +1006,18 @@ lowrank_bwd_weights_wgmma(const bf16* __restrict__ h,
     wait_all();
     fence_operand(acc);
     if (++pending == kPromote) {
-      promote(acc, dst, first, k0, n0, K, ncol, R, rank, ncol_r);
+      promote(acc, dst, first, k0, n0, K, ncol, rp, rank, ncol_r);
       pending = 0;
     }
   }
   cp_async_wait<0>();
   if (pending > 0 || first)
-    promote(acc, dst, first, k0, n0, K, ncol, R, rank, ncol_r);
-  const int rc = has_col && k0 == 0 ? real_col(col, R, rank) : -1;
+    promote(acc, dst, first, k0, n0, K, ncol, rp, rank, ncol_r);
+  const int rc = has_col && k0 == 0 ? real_col(col, rp, rank) : -1;
   if (rc >= 0) dst[static_cast<long>(K) * ncol_r + rc] = dbias;
 }
 
-template <int R8>
+template <int R8, bool kSlab>
 cudaError_t launch(const void* g, const void* h, const void* x_src,
                    const void* w3, const void* b3, const void* slot_rows,
                    const void* row_weight, const void* s_dense, void* pad,
@@ -707,12 +1030,15 @@ cudaError_t launch(const void* g, const void* h, const void* x_src,
   const bool deep = rows_deep(K, c_in, c_out);
   const size_t smem = static_cast<size_t>(RowsLayout(K, c_in, c_out, R,
                                                      deep).total);
-  auto rows = deep ? lowrank_bwd_rows_wgmma<R8, true>
-                   : lowrank_bwd_rows_wgmma<R8, false>;
+  auto rows = kSlab ? (deep ? lowrank_bwd_rows_slab_wgmma<true>
+                             : lowrank_bwd_rows_slab_wgmma<false>)
+                    : (deep ? lowrank_bwd_rows_wgmma<R8, true>
+                            : lowrank_bwd_rows_wgmma<R8, false>);
   cudaError_t err = allow_smem(rows, smem);
   if (err != cudaSuccess) return err;
   const bf16* w = static_cast<const bf16*>(w3);
-  if (r != R) {  // the zero-padded copy of w3 at rank R
+  const int rp = padded_rank(r);
+  if (r != rp) {  // the zero-padded copy of w3 at rank rp
     err = launch_pad_head(w, static_cast<bf16*>(pad), K, c_in + c_out, r,
                           stream);
     if (err != cudaSuccess) return err;
@@ -731,14 +1057,14 @@ cudaError_t launch(const void* g, const void* h, const void* x_src,
   if (err != cudaSuccess) return err;
   // column tiles x slot splits x row tiles (as ops/fused_conv.py:
   // lowrank_weight_tiles)
-  const int tiles = (R * (c_in + c_out) + kCols - 1) / kCols;
+  const int tiles = (rp * (c_in + c_out) + kCols - 1) / kCols;
   const int row_tiles = (K + kTile - 1) / kTile;
   const long per_split = (num_tiles + num_splits - 1) / num_splits;
   const bool one_set = weights_one_set(c_in, c_out, R);
   const size_t wsmem = static_cast<size_t>(WeightsLayout(c_in, c_out, R,
                                                          one_set).total);
-  auto weights = one_set ? lowrank_bwd_weights_wgmma<R8, true>
-                         : lowrank_bwd_weights_wgmma<R8, false>;
+  auto weights = one_set ? lowrank_bwd_weights_wgmma<R8, true, kSlab>
+                         : lowrank_bwd_weights_wgmma<R8, false, kSlab>;
   err = allow_smem(weights, wsmem);
   if (err != cudaSuccess) return err;
   weights<<<dim3(tiles, num_splits, row_tiles), kWarpgroup, wsmem, stream>>>(
@@ -756,7 +1082,7 @@ extern "C" {
 // Bytes of dynamic shared memory one block of the rows kernel needs.
 long fused_edge_conv_lowrank_bwd_wgmma_smem_bytes(int K, int c_in, int c_out,
                                                   int r) {
-  return RowsLayout(K, c_in, c_out, padded_rank(r),
+  return RowsLayout(K, c_in, c_out, slab_rank(r),
                     rows_deep(K, c_in, c_out)).total;
 }
 
@@ -767,18 +1093,22 @@ int fused_edge_conv_lowrank_bwd_wgmma_blocks_per_sm(int K, int c_in,
                                                     int weights) {
   return with_rank(r, [&](auto r8) {
     constexpr int R8 = decltype(r8)::value;
+    constexpr bool kSlab = decltype(r8)::slab;
     constexpr int R = 8 * R8;
     if (weights) {
       const bool one_set = weights_one_set(c_in, c_out, R);
       const size_t smem = static_cast<size_t>(
           WeightsLayout(c_in, c_out, R, one_set).total);
       return one_set
-                 ? blocks_per_sm(lowrank_bwd_weights_wgmma<R8, true>, smem)
-                 : blocks_per_sm(lowrank_bwd_weights_wgmma<R8, false>, smem);
+          ? blocks_per_sm(lowrank_bwd_weights_wgmma<R8, true, kSlab>, smem)
+          : blocks_per_sm(lowrank_bwd_weights_wgmma<R8, false, kSlab>, smem);
     }
     const bool deep = rows_deep(K, c_in, c_out);
     const size_t smem = static_cast<size_t>(
         RowsLayout(K, c_in, c_out, R, deep).total);
+    if constexpr (kSlab)
+      return deep ? blocks_per_sm(lowrank_bwd_rows_slab_wgmma<true>, smem)
+                  : blocks_per_sm(lowrank_bwd_rows_slab_wgmma<false>, smem);
     return deep ? blocks_per_sm(lowrank_bwd_rows_wgmma<R8, true>, smem)
                 : blocks_per_sm(lowrank_bwd_rows_wgmma<R8, false>, smem);
   }, -1);
@@ -788,12 +1118,13 @@ int fused_edge_conv_lowrank_bwd_wgmma_blocks_per_sm(int K, int c_in,
 // weights kernel.  Pointers are device pointers; h, x_src and w3 bfloat16;
 // g, b3, row_weight, s_dense, dh, dx_src, t_vec, dt_vec and partial
 // float32; dmsg bfloat16 (written by the first launch, read by the second,
-// as t_vec and dt_vec [slots, rp], rp = 8*ceil(r/8)); slot_rows int32.
-// Exactly one of s_dense and (slot_rows, row_weight) is non-null.  w3 is
-// [K, r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <=
-// 256 and 1 <= r <= 64.  At a rank that is not a multiple of 8, pad is
-// bfloat16 scratch of K*rp*(c_in+c_out) elements, 16-byte aligned
-// (ops/fused_conv.py:lowrank_pad_numel; unused otherwise).  partial is
+// as t_vec and dt_vec [slots, rp], rp the padded rank: 8*ceil(r/8) up to
+// 64, 64*ceil(r/64) past it); slot_rows int32.  Exactly one of s_dense and
+// (slot_rows, row_weight) is non-null.  w3 is [K, r*(c_in+c_out)] in the
+// model's column layout; 1 <= K, c_in, c_out <= 256 and 1 <= r <= 256.  At
+// a rank other than rp, pad is bfloat16 scratch of K*rp*(c_in+c_out)
+// elements, 16-byte aligned (ops/fused_conv.py:lowrank_pad_numel; unused
+// otherwise).  partial is
 // [num_splits, K+1, r*(c_in+c_out)] (dw3 rows then the db3 row, the
 // model's columns, summed over splits by the caller).  Returns the
 // cudaError_t of the launches (0 on success).
@@ -806,12 +1137,12 @@ int fused_edge_conv_lowrank_bwd_wgmma_backward(
   if (K < 1 || K > kMaxDim || c_in < 1 || c_in > kMaxDim || c_out < 1 ||
       c_out > kMaxDim || blk % kTile != 0 || blk < kTile || num_blocks < 1 ||
       num_splits < 1 ||
-      (r % 8 != 0 &&
+      (r != padded_rank(r) &&
        (pad == nullptr || reinterpret_cast<uintptr_t>(pad) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_rank(r, [&](auto r8) {
-    return launch<decltype(r8)::value>(g, h, x_src, w3, b3, slot_rows,
+    return launch<decltype(r8)::value, decltype(r8)::slab>(g, h, x_src, w3, b3, slot_rows,
                                        row_weight, s_dense, pad, dh, dx_src,
                                        dmsg, t_vec, dt_vec, partial,
                                        num_blocks, blk, K, c_in, c_out, r,

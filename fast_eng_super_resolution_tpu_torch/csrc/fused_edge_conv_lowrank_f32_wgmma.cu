@@ -5,7 +5,7 @@
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_jit
 // for float32 operands (the JAX function at gemm_dtype="float32", on the
-// TPU's matrix unit at Precision.HIGHEST) at every rank 1 .. 64 and K,
+// TPU's matrix unit at Precision.HIGHEST) at every rank 1 .. 256 and K,
 // c_in, c_out 1 .. 256 (fused_edge_conv_lowrank_wgmma.cu is the bfloat16
 // instance) and computes
 // the same function.  Slots are grouped as for the full-rank layer: block b
@@ -34,9 +34,17 @@
 //  - A block is one consumer warpgroup and one producer warp and owns one
 //    part of one receiver block's slot walk: grid (num_blocks, parts), the
 //    parts from the wrapper's planner (ops/fused_conv.py:conv_parts).
-//  - Every rank runs at the padded rank rp = 8 ceil(r / 8): the stage
-//    image below holds w3's chunks and b3 padded with zeros at q >= r
-//    (lowrank_f32_wgmma.cuh), so t's padded entries stay zero.
+//  - Every rank runs at the padded rank rp (8 ceil(r / 8) up to 64, 64
+//    ceil(r / 64) past it): the stage image below holds w3's chunks and
+//    b3 padded with zeros at q >= r (lowrank_f32_wgmma.cuh), so t's padded
+//    entries stay zero.
+//  - Past rank 64 (kSlab) each tile walks the rp / 64 slabs in turn, each
+//    the rank-64 walk on its slab's columns (the image holds the slabs'
+//    chunks one after the other), h split once per tile: t in registers
+//    for one slab at a time, the slab's messages scattered into the part's
+//    sums at the slab's end, slab after slab.  In the wide layout, where
+//    the x and message tiles share one, the x rows are fetched again for
+//    each slab after the first.
 //  - Per 64-slot tile the consumers split h's rows into register-A
 //    fragments once (K up to 64; past it into shared memory, each chunk
 //    then in K / 32 stages: lowrank_f32_wgmma.cuh DeepWalk), then walk uv in
@@ -129,11 +137,12 @@ struct Layout {
   }
 };
 
-// R8 = rp / 8 (rp the padded rank), S = K rounded up to 16, over 16 (h's k16
-// steps) up to 4, kDeep past it (h's parts in shared memory); kWide: the
-// wide layout (a separate instance, so that the one up to 128 stays as it
-// was).
-template <int R8, int S, bool kWide>
+// R8 = R / 8 (R the padded rank, or past 64 the slab's 64), S = K rounded
+// up to 16, over 16 (h's k16 steps) up to 4, kDeep past it (h's parts in
+// shared memory); kWide: the wide layout (a separate instance, so that the
+// one up to 128 stays as it was); kSlab: a rank past 64 in `slabs` slabs
+// (R8 = 8).
+template <int R8, int S, bool kWide, bool kSlab>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<R8, S>)
 lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
                       const int* __restrict__ senders_perm,
@@ -143,7 +152,7 @@ lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
                       const float* __restrict__ row_weight,
                       const float* __restrict__ s_dense,
                       float* __restrict__ out, int blk, int K, int c_in,
-                      int c_out, int n_nodes) {
+                      int c_out, int n_nodes, int slabs) {
   constexpr int R = 8 * R8, N = kN<R8>, G = N / R;
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(K, c_in, c_out, R, kWide);
@@ -158,6 +167,7 @@ lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
   const bool compact = s_dense == nullptr;
   const int lane = threadIdx.x % 32;
   const int n_u = cdiv(c_in, G), n_c = n_u + cdiv(c_out, G);
+  const int ns = kSlab ? slabs : 1;
 
   // the first tile from t on (t_hi if none) that holds a real slot (every
   // tile in the dense form): each warp finds it by itself, so that the
@@ -174,14 +184,14 @@ lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
   if (threadIdx.x == 0) ring_init(full, empty);
   __syncthreads();
 
-  // ---- producer: the n_c D stages of every real tile of the part ----
+  // ---- producer: the ns n_c D stages of every real tile of the part ----
   if (threadIdx.x >= kWarpgroup) {
     const unsigned char* src = reinterpret_cast<const unsigned char*>(image);
     uint32_t j = 0;
     for (int t = next_real(t_lo); t < t_hi; t = next_real(t + 1)) {
       if (lane == 0)
         produce(full, empty, ring, src, static_cast<uint32_t>(L.stage),
-                n_c * (L.dp / L.sd) - 1, j);
+                ns * n_c * (L.dp / L.sd) - 1, j);
       __syncwarp();
     }
     return;
@@ -246,70 +256,7 @@ lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
     if (compact && tid < kTile) srow[tid] = slot_rows[tile + tid];
     const int next = next_real(t + 1);
 
-    // ---- uv chunk by chunk: t from the U chunks, msg from the V chunks ----
-    float tq[2][R8][2];
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int m = 0; m < R8; ++m) tq[hf][m][0] = tq[hf][m][1] = 0.f;
-    auto fin = [&](const float (&acc)[N / 2], int c) {
-      if (c < n_u) {  // t[s, q] += x[s, i] U[s, i, q]
-        const int i0 = c * G, gc = lesser(G, c_in - i0);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          if (g >= gc) continue;
-          const float xa = x_sm[r0 * xs + i0 + g];
-          const float xb = x_sm[(r0 + 8) * xs + i0 + g];
-          const float* bias = b3 + (i0 + g) * R;
-#pragma unroll
-          for (int u = 0; u < 4 * R8; ++u) {
-            const int jj = 4 * R8 * g + u;
-            const float uv = acc[jj] + __ldg(bias + q_of<R8>(jj));
-            float& tv = tq[(u >> 1) & 1][u >> 2][u & 1];
-            tv = fmaf((u >> 1) & 1 ? xb : xa, uv, tv);
-          }
-        }
-      } else {  // msg[s, o] = sum_q V[s, o, q] t[s, q]
-        const int o0 = (c - n_u) * G, gc = lesser(G, c_out - o0);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          if (g >= gc) continue;
-          const float* bias = b3 + ru + (o0 + g) * R;
-          float pa = 0.f, pb = 0.f;
-#pragma unroll
-          for (int u = 0; u < 4 * R8; ++u) {
-            const int jj = 4 * R8 * g + u;
-            const float v = acc[jj] + __ldg(bias + q_of<R8>(jj));
-            if ((u >> 1) & 1)
-              pb = fmaf(v, tq[1][u >> 2][u & 1], pb);
-            else
-              pa = fmaf(v, tq[0][u >> 2][u & 1], pa);
-          }
-          pa = quad_sum(pa);
-          pb = quad_sum(pb);
-          if (tid % 4 == 0) {
-            m_sm[r0 * ms + o0 + g] = pa;
-            m_sm[(r0 + 8) * ms + o0 + g] = pb;
-          }
-        }
-      }
-    };
-    if constexpr (S > 4) {
-      const DeepWalk<N, decltype(fin)> walk{
-          desc(a_sm, L.dp), static_cast<uint32_t>(2 * kTile * L.dp >> 4),
-          L.dp / L.sd, full, empty, d0, dstage, dpart, lane, fin};
-      walk.all(n_c, j);
-    } else {
-      const Walk<N, S, decltype(fin)> walk{ha, full, empty, d0, dstage,
-                                           dpart, lane, fin};
-      walk.all(n_c - 1, j);
-    }
-    // this warp is done with its x rows: the next tile's land meanwhile
-    // (wide: once the scatter has read the messages that share their tile)
-    if (!kWide && next < t_hi) fetch_x(next);
-
-    // ---- scatter the tile's messages into the part's row sums ----
-    warpgroup_sync(0);
+    // scatter the tile's (slab's) messages into the part's row sums
     auto scatter = [&](float* sums) {
       if (compact) {
         for (int o = tid; o < c_out; o += kWarpgroup) {
@@ -337,12 +284,88 @@ lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
         }
       }
     };
-    if constexpr (kWide) {
-      scatter(partial());
+    for (int sl = 0; sl < ns; ++sl) {
+      // ---- uv chunk by chunk: t from the U chunks, msg from the V chunks
+      // (of slab sl: its b3 at b3s) ----
+      const float* b3s = b3 + sl * R * (c_in + c_out);
+      float tq[2][R8][2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int m = 0; m < R8; ++m) tq[hf][m][0] = tq[hf][m][1] = 0.f;
+      auto fin = [&](const float (&acc)[N / 2], int c) {
+        if (c < n_u) {  // t[s, q] += x[s, i] U[s, i, q]
+          const int i0 = c * G, gc = lesser(G, c_in - i0);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            if (g >= gc) continue;
+            const float xa = x_sm[r0 * xs + i0 + g];
+            const float xb = x_sm[(r0 + 8) * xs + i0 + g];
+            const float* bias = b3s + (i0 + g) * R;
+#pragma unroll
+            for (int u = 0; u < 4 * R8; ++u) {
+              const int jj = 4 * R8 * g + u;
+              const float uv = acc[jj] + __ldg(bias + q_of<R8>(jj));
+              float& tv = tq[(u >> 1) & 1][u >> 2][u & 1];
+              tv = fmaf((u >> 1) & 1 ? xb : xa, uv, tv);
+            }
+          }
+        } else {  // msg[s, o] = sum_q V[s, o, q] t[s, q]
+          const int o0 = (c - n_u) * G, gc = lesser(G, c_out - o0);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            if (g >= gc) continue;
+            const float* bias = b3s + ru + (o0 + g) * R;
+            float pa = 0.f, pb = 0.f;
+#pragma unroll
+            for (int u = 0; u < 4 * R8; ++u) {
+              const int jj = 4 * R8 * g + u;
+              const float v = acc[jj] + __ldg(bias + q_of<R8>(jj));
+              if ((u >> 1) & 1)
+                pb = fmaf(v, tq[1][u >> 2][u & 1], pb);
+              else
+                pa = fmaf(v, tq[0][u >> 2][u & 1], pa);
+            }
+            pa = quad_sum(pa);
+            pb = quad_sum(pb);
+            if (tid % 4 == 0) {
+              m_sm[r0 * ms + o0 + g] = pa;
+              m_sm[(r0 + 8) * ms + o0 + g] = pb;
+            }
+          }
+        }
+      };
+      if constexpr (S > 4) {
+        const DeepWalk<N, decltype(fin)> walk{
+            desc(a_sm, L.dp), static_cast<uint32_t>(2 * kTile * L.dp >> 4),
+            L.dp / L.sd, full, empty, d0, dstage, dpart, lane, fin};
+        walk.all(n_c, j);
+      } else {
+        const Walk<N, S, decltype(fin)> walk{ha, full, empty, d0, dstage,
+                                             dpart, lane, fin};
+        walk.all(n_c - 1, j);
+      }
+      const bool last = sl + 1 == ns;
+      // this warp is done with its x rows: the next tile's land meanwhile
+      // (wide: once the scatter has read the messages that share their tile)
+      if (!kWide && last && next < t_hi) fetch_x(next);
+
+      // ---- scatter the slab's messages into the part's row sums ----
       warpgroup_sync(0);
-      if (next < t_hi) fetch_x(next);
-    } else {
-      scatter(acc_sm);
+      if constexpr (kWide) {
+        scatter(partial());
+        warpgroup_sync(0);
+        // the next slab's x rows are this tile's again
+        const int nx = last ? next : t;
+        if (nx < t_hi) fetch_x(nx);
+        if (!last) {
+          cp_async_wait_all();
+          warpgroup_sync(0);
+        }
+      } else {
+        scatter(acc_sm);
+        if (!last) warpgroup_sync(0);  // before the next slab's messages
+      }
     }
     t = next;
   }
@@ -358,7 +381,7 @@ lowrank_fwd_f32_wgmma(const float* __restrict__ h, const float* __restrict__ x,
     }
 }
 
-template <int R8, int S, bool kWide>
+template <int R8, int S, bool kWide, bool kSlab>
 cudaError_t launch(const float* h, const float* x, const int* senders_perm,
                    const float* w3, const float* b3, const int* slot_rows,
                    const float* row_weight, const float* s_dense, bf16* image,
@@ -368,17 +391,19 @@ cudaError_t launch(const float* h, const float* x, const int* senders_perm,
   constexpr int R = 8 * R8;
   const Layout L(K, c_in, c_out, R, kWide);
   const size_t smem = static_cast<size_t>(L.total);
-  auto kernel = lowrank_fwd_f32_wgmma<R8, S, kWide>;
+  const int rp = padded_rank(r), slabs = rp / R;
+  auto kernel = lowrank_fwd_f32_wgmma<R8, S, kWide, kSlab>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const float* b3p;
-  err = launch_lowrank_image(w3, b3, image, fwd_chunks(L.n / R, c_in, c_out),
-                             L.n, L.dp, R, r, K, c_in, c_out, false, &b3p,
+  err = launch_lowrank_image(w3, b3, image,
+                             slabs * fwd_chunks(L.n / R, c_in, c_out), L.n,
+                             L.dp, rp, r, K, c_in, c_out, false, &b3p,
                              stream);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(num_blocks, parts), kThreads, smem, stream>>>(
       h, x, senders_perm, image, b3p, slot_rows, row_weight, s_dense, out,
-      blk, K, c_in, c_out, n_nodes);
+      blk, K, c_in, c_out, n_nodes, slabs);
   return cudaGetLastError();
 }
 
@@ -389,20 +414,22 @@ extern "C" {
 // Bytes of dynamic shared memory one block needs.
 long fused_edge_conv_lowrank_f32_wgmma_smem_bytes(int K, int c_in, int c_out,
                                                   int r) {
-  return Layout(K, c_in, c_out, padded_rank(r),
+  return Layout(K, c_in, c_out, slab_rank(r),
                 wide_dims(K, c_in, c_out)).total;
 }
 
 // Blocks one SM holds at once at these widths (-1 if they are not taken).
 int fused_edge_conv_lowrank_f32_wgmma_blocks_per_sm(int K, int c_in,
                                                     int c_out, int r) {
-  const Layout L(K, c_in, c_out, padded_rank(r), wide_dims(K, c_in, c_out));
+  const Layout L(K, c_in, c_out, slab_rank(r), wide_dims(K, c_in, c_out));
   return with_rank_depth(r, K, [&](auto r8, auto s) {
     constexpr int R8 = decltype(r8)::value, S = decltype(s)::value;
+    constexpr bool kSlab = decltype(r8)::slab;
     const size_t smem = static_cast<size_t>(L.total);
-    return L.wide
-               ? blocks_on_sm(lowrank_fwd_f32_wgmma<R8, S, true>, kThreads, smem)
-               : blocks_on_sm(lowrank_fwd_f32_wgmma<R8, S, false>, kThreads, smem);
+    return L.wide ? blocks_on_sm(lowrank_fwd_f32_wgmma<R8, S, true, kSlab>,
+                                 kThreads, smem)
+                  : blocks_on_sm(lowrank_fwd_f32_wgmma<R8, S, false, kSlab>,
+                                 kThreads, smem);
   }, -1);
 }
 
@@ -412,7 +439,7 @@ int fused_edge_conv_lowrank_f32_wgmma_blocks_per_sm(int K, int c_in,
 // ops/fused_conv.py:lowrank_image_numel elements, 16-byte aligned.
 // Exactly one of s_dense and (slot_rows, row_weight) is non-null.  w3 is
 // [K, r*(c_in+c_out)] in the model's column layout; 1 <= K, c_in, c_out <=
-// 256 and 1 <= r <= 64.  out is [num_blocks*64, c_out] when parts
+// 256 and 1 <= r <= 256.  out is [num_blocks*64, c_out] when parts
 // == 1, else the partials [parts, num_blocks*64, c_out].  Returns the
 // cudaError_t of the launches (0 on success).
 int fused_edge_conv_lowrank_f32_wgmma_forward(
@@ -429,7 +456,8 @@ int fused_edge_conv_lowrank_f32_wgmma_forward(
   const bool wide = wide_dims(K, c_in, c_out);
   return static_cast<int>(with_rank_depth(r, K, [&](auto r8, auto s) {
     constexpr int R8 = decltype(r8)::value, S = decltype(s)::value;
-    return (wide ? launch<R8, S, true> : launch<R8, S, false>)(
+    constexpr bool kSlab = decltype(r8)::slab;
+    return (wide ? launch<R8, S, true, kSlab> : launch<R8, S, false, kSlab>)(
         static_cast<const float*>(h), static_cast<const float*>(x),
         static_cast<const int*>(senders_perm), static_cast<const float*>(w3),
         static_cast<const float*>(b3), static_cast<const int*>(slot_rows),

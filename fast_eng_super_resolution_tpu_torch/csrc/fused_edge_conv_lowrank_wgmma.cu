@@ -3,7 +3,7 @@
 //
 // Replaces the TPU Pallas kernel
 //   fast_eng_super_resolution_tpu/ops/fused_conv.py:_fused_lowrank_jit
-// for bfloat16 operands at every rank 1 .. 64 and K, c_in, c_out 1 .. 256
+// for bfloat16 operands at every rank 1 .. 256 and K, c_in, c_out 1 .. 256
 // (fused_edge_conv_lowrank_f32_wgmma.cu is the float32 instance) and
 // computes the same function.  Slots are grouped as for the full-rank
 // layer: block b holds the slots whose receivers lie in rows [64 b, 64 b +
@@ -24,10 +24,11 @@
 // msg and the scatter (about 1/49 of the work at width 48, K 48) run on the
 // CUDA cores in float32.
 //
-// Design.  At a rank that is not a multiple of 8 a first launch lays out
-// the zero-padded copy of w3 at rp = 8 ceil(r / 8) (lowrank_wgmma.cuh
-// pad_head), so that the chunks below keep their 16-byte loads; the layer
-// then runs at rp, b3's columns copied padded from its real ones.  A block
+// Design.  At a rank other than its padded rank rp (8 ceil(r / 8) up to
+// 64, 64 ceil(r / 64) past it) a first launch lays out the zero-padded copy
+// of w3 at rp (lowrank_wgmma.cuh pad_head), so that the chunks below keep
+// their 16-byte loads; the layer then runs at rp, b3's columns copied
+// padded from its real ones.  A block
 // is one warpgroup and owns one part of one receiver block's slot walk
 // (grid (num_blocks, parts), parts from the wrapper's ops/fused_conv.py:
 // conv_parts, as B1).  Per 64-slot tile it stages h (the A operand,
@@ -45,6 +46,16 @@
 // product in dense form.  Each part writes its own [64, c_out] partial;
 // the wrapper sums the partials in a fixed order.  No atomics: two
 // launches on the same inputs give the same bits.
+//
+// Slabs (ranks past 64; lowrank_wgmma.cuh).  Per tile, h is staged once and
+// the slabs run in turn, each the rank-64 walk on its slab's columns (the
+// ring's sequence runs on from slab to slab and from tile to tile): x
+// gathered (again past the first slab: the message tile holds the last
+// slab's messages), t in registers, the messages, and their scatter into
+// the part's row sums, slab after slab in order.  The shared memory stays
+// the rank-64 instance's; the x rows are read again per slab, from L2
+// (64 c_in bf16 per tile and slab, against the slab's K 64 (c_in + c_out)
+// of w3).
 //
 // Shared memory (any rank; Layout, ops/fused_conv.py:lowrank_smem_bytes):
 // h [64][K], the ring, the x / message tile [64][max(c_in, c_out) | 1]
@@ -111,8 +122,9 @@ __host__ __device__ constexpr bool fwd_deep(int K) {
 }
 
 // kDeep: K past 128, each chunk in stages of 64 (a separate instance, so
-// that the one up to 128 stays the whole-chunk walk).
-template <int R8, bool kDeep>
+// that the one up to 128 stays the whole-chunk walk); kSlab: a rank past
+// 64 in slabs (R8 = 8).
+template <int R8, bool kDeep, bool kSlab>
 __global__ void __launch_bounds__(kWarpgroup)
 lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
                   const int* __restrict__ senders_perm,
@@ -144,6 +156,7 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
   const int ru = R * c_in;
   const int n_u = (c_in + G - 1) / G, n_c = n_u + (c_out + G - 1) / G;
   const int ns = kDeep ? (kp + bd - 1) / bd : 1;  // stages per chunk
+  const int slabs = kSlab ? padded_rank(rank) / R : 1;
   const bool x_vec = c_in % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 
   for (int e = tid; e < kRows * c_out; e += kWarpgroup) acc_sm[e] = 0.f;
@@ -155,13 +168,21 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
     const int gc = min(G, (u ? c_in : c_out) - ch0);
     return Chunk{kUv, (u ? 0 : ru) + ch0 * R, gc * R, kp, K};
   };
+  const int n_p = n_c * ns;  // pieces per slab
+  const int n_t = n_p * slabs;  // per tile
   // piece n of a tile's walk: stage n % ns of chunk n / ns (kDeep), else
-  // chunk n
+  // chunk n; kSlab: of slab n / n_p
   auto piece = [&](int n) {
-    if constexpr (kDeep) return stage_of(chunk(n / ns), n % ns, bd);
-    return chunk(n);
+    int sl = 0;
+    if constexpr (kSlab) {
+      sl = n / n_p;
+      n -= sl * n_p;
+    }
+    Chunk c = chunk(kDeep ? n / ns : n);
+    if constexpr (kDeep) c = stage_of(c, n % ns, bd);
+    if constexpr (kSlab) c.s0 = sl * R;
+    return c;
   };
-  const int n_p = n_c * ns;
   // w3's chunks stream through the ring in one sequence of steps (one
   // piece each) over the part's tiles: step n reads buffer n % 3 while the
   // pieces of steps n + 1 and n + 2 land in the other two
@@ -171,7 +192,7 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
   auto bias = [&](int n) {
     return reinterpret_cast<float*>(ring + (n % kBufs) * L.buf + 2L * kCols * bd);
   };
-  const ChunkCopy<R8> cc(w3, b3, c_in, c_out, rank);
+  const ChunkCopy<R8, kSlab> cc(w3, b3, c_in, c_out, rank);
   cc.start(buf(0), bias(0), piece(0));
   cc.start(buf(1), bias(1), piece(1));
   int step = 0;
@@ -190,123 +211,126 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
     }
     if (!__syncthreads_or(real)) continue;  // padding only (CompactS)
 
-    // ---- stage h (A) and the gathered x rows (float32; 16-byte pieces of
-    // the rows where they are aligned, every load of a thread in flight);
-    // the first step's barrier publishes them ----
+    // ---- stage h (A); per slab, the gathered x rows (float32; 16-byte
+    // pieces of the rows where they are aligned, every load of a thread in
+    // flight); the first step's barrier publishes them ----
     stage_rows(a_sm, h + tile * K, K, kp);
-    if (x_vec) {
-      const int per = c_in / 8;
+    for (int sl = 0; sl < slabs; ++sl) {
+      if (x_vec) {
+        const int per = c_in / 8;
 #pragma unroll 4
-      for (int p = tid; p < kTile * per; p += kWarpgroup) {
-        const int s = p / per, i = 8 * (p - s * per), src = ssrc[s];
-        Pack8 v;
-        v.u = src >= 0 ? *reinterpret_cast<const uint4*>(
-                             x + static_cast<long>(src) * c_in + i)
-                       : make_uint4(0u, 0u, 0u, 0u);
+        for (int p = tid; p < kTile * per; p += kWarpgroup) {
+          const int s = p / per, i = 8 * (p - s * per), src = ssrc[s];
+          Pack8 v;
+          v.u = src >= 0 ? *reinterpret_cast<const uint4*>(
+                               x + static_cast<long>(src) * c_in + i)
+                         : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-        for (int u = 0; u < 8; ++u) x_sm[s * xs + i + u] = __bfloat162float(v.e[u]);
-      }
-    } else {
-#pragma unroll 4
-      for (int e = tid; e < kTile * c_in; e += kWarpgroup) {
-        const int s = e / c_in, i = e - s * c_in, src = ssrc[s];
-        x_sm[s * xs + i] =
-            src >= 0 ? __bfloat162float(x[static_cast<long>(src) * c_in + i]) : 0.f;
-      }
-    }
-
-    // t of this thread's rows r0, r0 + 8 at its 2 R8 values of q
-    float tq[2][R8][2];
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int m = 0; m < R8; ++m) tq[hf][m][0] = tq[hf][m][1] = 0.f;
-
-    for (int c = 0; c < n_c; ++c) {
-      float acc[kCols / 2];
-      if constexpr (kDeep) {
-        for (int st = 0; st < ns; ++st, ++step) {
-          pieces_wait<1>();  // this step's piece has landed
-          fence_async_smem();
-          __syncthreads();
-          product_stage(acc, a_sm, kp, st * bd, buf(step),
-                        min(bd, kp - st * bd), st > 0);
-          // the piece two steps on (this tile's, or the next one's), into
-          // the buffer that step - 1's finished product read
-          cc.start(buf(step + 2), bias(step + 2),
-                   piece((c * ns + st + 2) % n_p));
-          wait_all();
-          fence_operand(acc);
+          for (int u = 0; u < 8; ++u) x_sm[s * xs + i + u] = __bfloat162float(v.e[u]);
         }
       } else {
-        pieces_wait<1>();  // this step's chunk has landed
-        fence_async_smem();
-        __syncthreads();
-        product<kCols, 1>(acc, a_sm, buf(step), kp);
-        // the chunk two steps on (this tile's, or the next one's), into the
-        // buffer that step - 1's finished product read
-        cc.start(buf(step + 2), bias(step + 2), chunk((c + 2) % n_c));
-        wait_all();
-        fence_operand(acc);
-        ++step;
-      }
-      const float* bs = bias(step - 1);
-      if (c < n_u) {  // t[s, q] += x[s, i] U[s, i, q]
-        const int i0 = c * G, gc = min(G, c_in - i0);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          if (g >= gc) continue;
-          const float xa = x_sm[r0 * xs + i0 + g];
-          const float xb = x_sm[(r0 + 8) * xs + i0 + g];
-#pragma unroll
-          for (int u = 0; u < 4 * R8; ++u) {
-            const int j = 4 * R8 * g + u;
-            const float uv = acc[j] + bs[g * R + q_of<R8>(j)];
-            tq[(u >> 1) & 1][u >> 2][u & 1] += ((u >> 1) & 1 ? xb : xa) * uv;
-          }
-        }
-      } else {  // msg[s, o] = sum_q V[s, o, q] t[s, q]
-        const int o0 = (c - n_u) * G, gc = min(G, c_out - o0);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          if (g >= gc) continue;
-          float pa = 0.f, pb = 0.f;
-#pragma unroll
-          for (int u = 0; u < 4 * R8; ++u) {
-            const int j = 4 * R8 * g + u;
-            const float v = (acc[j] + bs[g * R + q_of<R8>(j)]) *
-                            tq[(u >> 1) & 1][u >> 2][u & 1];
-            if ((u >> 1) & 1) pb += v; else pa += v;
-          }
-          pa = quad_sum(pa);
-          pb = quad_sum(pb);
-          if (writer) {
-            m_sm[r0 * ms + o0 + g] = pa;
-            m_sm[(r0 + 8) * ms + o0 + g] = pb;
-          }
+#pragma unroll 4
+        for (int e = tid; e < kTile * c_in; e += kWarpgroup) {
+          const int s = e / c_in, i = e - s * c_in, src = ssrc[s];
+          x_sm[s * xs + i] =
+              src >= 0 ? __bfloat162float(x[static_cast<long>(src) * c_in + i]) : 0.f;
         }
       }
-    }
-    __syncthreads();  // the tile's messages are whole
 
-    // ---- scatter the tile's messages into the part's row sums ----
-    if (compact) {
-      for (int o = tid; o < c_out; o += kWarpgroup)
-        for (int s = 0; s < kTile; ++s) {
-          const int r = srow[s];
-          if (r >= 0) acc_sm[r * c_out + o] += m_sm[s * ms + o];
+      // t of this thread's rows r0, r0 + 8 at its 2 R8 values of q
+      float tq[2][R8][2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int m = 0; m < R8; ++m) tq[hf][m][0] = tq[hf][m][1] = 0.f;
+
+      for (int c = 0; c < n_c; ++c) {
+        float acc[kCols / 2];
+        if constexpr (kDeep) {
+          for (int st = 0; st < ns; ++st, ++step) {
+            pieces_wait<1>();  // this step's piece has landed
+            fence_async_smem();
+            __syncthreads();
+            product_stage(acc, a_sm, kp, st * bd, buf(step),
+                          min(bd, kp - st * bd), st > 0);
+            // the piece two steps on (this tile's, or the next one's), into
+            // the buffer that step - 1's finished product read
+            cc.start(buf(step + 2), bias(step + 2),
+                     piece((sl * n_p + c * ns + st + 2) % n_t));
+            wait_all();
+            fence_operand(acc);
+          }
+        } else {
+          pieces_wait<1>();  // this step's chunk has landed
+          fence_async_smem();
+          __syncthreads();
+          product<kCols, 1>(acc, a_sm, buf(step), kp);
+          // the chunk two steps on (this tile's, or the next one's), into the
+          // buffer that step - 1's finished product read
+          cc.start(buf(step + 2), bias(step + 2),
+                   piece((sl * n_p + c + 2) % n_t));
+          wait_all();
+          fence_operand(acc);
+          ++step;
         }
-    } else {
-      const float* s_tile = s_dense + row_base * blk + static_cast<long>(t) * kTile;
-      for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
-        const int r = e / c_out, o = e - r * c_out;
-        float v = 0.f;
-        for (int s = 0; s < kTile; ++s)
-          v += s_tile[static_cast<long>(r) * blk + s] * m_sm[s * ms + o];
-        acc_sm[e] += v;
+        const float* bs = bias(step - 1);
+        if (c < n_u) {  // t[s, q] += x[s, i] U[s, i, q]
+          const int i0 = c * G, gc = min(G, c_in - i0);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            if (g >= gc) continue;
+            const float xa = x_sm[r0 * xs + i0 + g];
+            const float xb = x_sm[(r0 + 8) * xs + i0 + g];
+#pragma unroll
+            for (int u = 0; u < 4 * R8; ++u) {
+              const int j = 4 * R8 * g + u;
+              const float uv = acc[j] + bs[g * R + q_of<R8>(j)];
+              tq[(u >> 1) & 1][u >> 2][u & 1] += ((u >> 1) & 1 ? xb : xa) * uv;
+            }
+          }
+        } else {  // msg[s, o] = sum_q V[s, o, q] t[s, q]
+          const int o0 = (c - n_u) * G, gc = min(G, c_out - o0);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            if (g >= gc) continue;
+            float pa = 0.f, pb = 0.f;
+#pragma unroll
+            for (int u = 0; u < 4 * R8; ++u) {
+              const int j = 4 * R8 * g + u;
+              const float v = (acc[j] + bs[g * R + q_of<R8>(j)]) *
+                              tq[(u >> 1) & 1][u >> 2][u & 1];
+              if ((u >> 1) & 1) pb += v; else pa += v;
+            }
+            pa = quad_sum(pa);
+            pb = quad_sum(pb);
+            if (writer) {
+              m_sm[r0 * ms + o0 + g] = pa;
+              m_sm[(r0 + 8) * ms + o0 + g] = pb;
+            }
+          }
+        }
       }
+      __syncthreads();  // the tile's (slab's) messages are whole
+
+      // ---- scatter the tile's (slab's) messages into the part's row sums ----
+      if (compact) {
+        for (int o = tid; o < c_out; o += kWarpgroup)
+          for (int s = 0; s < kTile; ++s) {
+            const int r = srow[s];
+            if (r >= 0) acc_sm[r * c_out + o] += m_sm[s * ms + o];
+          }
+      } else {
+        const float* s_tile = s_dense + row_base * blk + static_cast<long>(t) * kTile;
+        for (int e = tid; e < kRows * c_out; e += kWarpgroup) {
+          const int r = e / c_out, o = e - r * c_out;
+          float v = 0.f;
+          for (int s = 0; s < kTile; ++s)
+            v += s_tile[static_cast<long>(r) * blk + s] * m_sm[s * ms + o];
+          acc_sm[e] += v;
+        }
+      }
+      __syncthreads();  // the next tile (slab) overwrites srow and the operands
     }
-    __syncthreads();  // the next tile overwrites srow and the operands
   }
   pieces_wait<0>();  // the copies ahead of the last step
 
@@ -318,7 +342,7 @@ lowrank_fwd_wgmma(const bf16* __restrict__ h, const bf16* __restrict__ x,
   }
 }
 
-template <int R8, bool kDeep>
+template <int R8, bool kDeep, bool kSlab>
 cudaError_t launch(const void* h, const void* x, const void* senders_perm,
                    const void* w3, const void* b3, const void* slot_rows,
                    const void* row_weight, const void* s_dense, void* pad,
@@ -326,11 +350,11 @@ cudaError_t launch(const void* h, const void* x, const void* senders_perm,
                    int c_out, int r, int n_nodes, int parts,
                    cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(Layout(K, c_in, c_out, kDeep).total);
-  auto kernel = lowrank_fwd_wgmma<R8, kDeep>;
+  auto kernel = lowrank_fwd_wgmma<R8, kDeep, kSlab>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const bf16* w = static_cast<const bf16*>(w3);
-  if (r != 8 * R8) {  // the zero-padded copy of w3 at rank 8 R8
+  if (r != padded_rank(r)) {  // the zero-padded copy of w3 at rank rp
     err = launch_pad_head(w, static_cast<bf16*>(pad), K, c_in + c_out, r,
                           stream);
     if (err != cudaSuccess) return err;
@@ -363,8 +387,9 @@ int fused_edge_conv_lowrank_wgmma_blocks_per_sm(int K, int c_in, int c_out,
   const size_t smem = static_cast<size_t>(Layout(K, c_in, c_out, deep).total);
   return with_rank(r, [&](auto r8) {
     constexpr int R8 = decltype(r8)::value;
-    return deep ? blocks_per_sm(lowrank_fwd_wgmma<R8, true>, smem)
-                : blocks_per_sm(lowrank_fwd_wgmma<R8, false>, smem);
+    constexpr bool kSlab = decltype(r8)::slab;
+    return deep ? blocks_per_sm(lowrank_fwd_wgmma<R8, true, kSlab>, smem)
+                : blocks_per_sm(lowrank_fwd_wgmma<R8, false, kSlab>, smem);
   }, -1);
 }
 
@@ -372,10 +397,10 @@ int fused_edge_conv_lowrank_wgmma_blocks_per_sm(int K, int c_in, int c_out,
 // h, x and w3 bfloat16; b3, row_weight, s_dense and out float32;
 // senders_perm and slot_rows int32.  Exactly one of s_dense and (slot_rows,
 // row_weight) is non-null.  w3 is [K, r*(c_in+c_out)] in the model's column
-// layout; 1 <= K, c_in, c_out <= 256 and 1 <= r <= 64.  At a rank that is
-// not a multiple of 8, pad is bfloat16 scratch of K*rp*(c_in+c_out)
-// elements, 16-byte aligned, rp = 8*ceil(r/8) (ops/fused_conv.py:
-// lowrank_pad_numel; unused otherwise).  out is
+// layout; 1 <= K, c_in, c_out <= 256 and 1 <= r <= 256.  At a rank other
+// than its padded rank rp (8*ceil(r/8) up to 64, 64*ceil(r/64) past it),
+// pad is bfloat16 scratch of K*rp*(c_in+c_out) elements, 16-byte aligned
+// (ops/fused_conv.py:lowrank_pad_numel; unused otherwise).  out is
 // [num_blocks*64, c_out] when parts == 1, else the partials [parts,
 // num_blocks*64, c_out].  Returns the cudaError_t of the launch (0 on
 // success).
@@ -387,14 +412,15 @@ int fused_edge_conv_lowrank_wgmma_forward(
   if (K < 1 || K > kMaxDim || c_in < 1 || c_in > kMaxDim || c_out < 1 ||
       c_out > kMaxDim || blk % kTile != 0 || blk < kTile || num_blocks < 1 ||
       parts < 1 || parts > blk / kTile ||
-      (r % 8 != 0 &&
+      (r != padded_rank(r) &&
        (pad == nullptr || reinterpret_cast<uintptr_t>(pad) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool deep = fwd_deep(K);
   return static_cast<int>(with_rank(r, [&](auto r8) {
     constexpr int R8 = decltype(r8)::value;
-    return (deep ? launch<R8, true> : launch<R8, false>)(
+    constexpr bool kSlab = decltype(r8)::slab;
+    return (deep ? launch<R8, true, kSlab> : launch<R8, false, kSlab>)(
         h, x, senders_perm, w3, b3, slot_rows, row_weight, s_dense, pad, out,
         num_blocks, blk, K, c_in, c_out, r, n_nodes, parts, s);
   }, cudaErrorInvalidValue));

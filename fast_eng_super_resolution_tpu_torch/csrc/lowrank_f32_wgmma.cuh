@@ -5,12 +5,15 @@
 // (float32 B1/B2); the accumulator -> (channel, q) map is lowrank_wgmma.cuh's
 // (bfloat16 B3/B4).  This header adds the chunk walks and their stage image.
 //
-// Chunks.  Every kernel runs at the padded rank rp = 8 ceil(r / 8) of
-// lowrank_wgmma.cuh (r 1 .. 64; columns i rp + q of the head are the
-// model's i r + q for q < r, zeros for q >= r).  Every product is 64 slots
-// x N columns of the (k, q) or uv space, N = G rp with G = floor(64 / rp)
-// whole channels of rp columns: 64 at rp 8, 16, 32 and 64, 48 at 24, and
-// one channel of 40, 48 or 56 past 32.  A chunk reads the edge
+// Chunks.  Every kernel runs at the padded rank rp of lowrank_wgmma.cuh (8
+// ceil(r / 8) up to 64, 64 ceil(r / 64) past it, r 1 .. 256; columns i rp +
+// q of the head are the model's i r + q for q < r, zeros for q >= r), past
+// 64 as rp / 64 slabs of 64 (lowrank_wgmma.cuh slab_col), each the rank-64
+// walk on its slab's columns; R below is the rank of one slab's head (rp
+// up to 64, else 64).  Every product is 64 slots x N columns of the (k, q)
+// or uv space, N = G R with G = floor(64 / R) whole channels of R columns:
+// 64 at R 8, 16, 32 and 64, 48 at 24, and one channel of 40, 48 or 56 past
+// 32.  A chunk reads the edge
 // MLP's head w3 [K, r (c_in + c_out)] (model column layout: U[i, q] = uv[i
 // r + q], V[o, q] = uv[r c_in + o r + q]) padded, in one of three ways,
 // lowrank_wgmma.cuh's:
@@ -22,12 +25,15 @@
 //
 // The forward walks the U chunks then the V chunks of uv (fwd_chunk); B4's
 // rows kernel the V chunks, the U chunks, then the P chunks and the Q chunks
-// over k (bwd_chunk).  The sequence is the same for every tile, so the stage
-// image (lowrank_image) lays it out once per call: chunk c is the three bf16
-// parts of the chunk as K-major B operands [N][dp] (wgmma_tile.cuh kmajor),
-// dp the largest depth rounded up to 16 (past 64: to 32, image_depth),
-// zeros past a chunk's columns and depth and at q >= r; after the stages,
-// b3 padded the same way (float32), which the kernels' epilogues read.  A
+// over k (bwd_chunk); past rank 64 each slab's walk in turn.  The sequence
+// is the same for every tile, so the stage image (lowrank_image) lays it
+// out once per call: chunk c is the three bf16 parts of the chunk as
+// K-major B operands [N][dp] (wgmma_tile.cuh kmajor), dp the largest depth
+// rounded up to 16 (past 64: to 32, image_depth), zeros past a chunk's
+// columns and depth and at q >= r, the slabs' chunks one slab after the
+// other (the image grows with the slabs); after the stages, b3 padded the
+// same way (float32), each slab's [R (c_in + c_out)] in turn, which the
+// kernels' epilogues read.  A
 // producer warp streams the stages through f32_wgmma.cuh's ring (produce).
 //
 // Depth.  Up to a depth of 64 a chunk is one stage and the consumer
@@ -64,6 +70,8 @@ using lowrank_wgmma::padded_rank;
 using lowrank_wgmma::q_of;
 using lowrank_wgmma::quad_sum;
 using lowrank_wgmma::real_col;
+using lowrank_wgmma::slab_col;
+using lowrank_wgmma::slab_rank;
 using lowrank_wgmma::with_rank;
 
 constexpr int kTile = 64;    // slots per tile
@@ -76,9 +84,9 @@ __host__ __device__ constexpr bool wide_dims(int K, int c_in, int c_out) {
 
 enum Reading { kUv = 0, kP = 1, kQ = 2 };
 
-// Columns of a chunk at the padded rank rp = 8 R8: whole channels, at most
-// 64.
-__host__ __device__ constexpr int chunk_cols(int rp) { return 64 / rp * rp; }
+// Columns of a chunk at a slab's rank R = 8 R8 (lowrank_wgmma.cuh
+// slab_rank): whole channels, at most 64.
+__host__ __device__ constexpr int chunk_cols(int R) { return 64 / R * R; }
 template <int R8>
 constexpr int kN = chunk_cols(8 * R8);
 
@@ -149,39 +157,46 @@ __host__ __device__ inline int bwd_chunks(int g, int K, int c_in, int c_out) {
 // The stage image: stage c D + l (D = dp / sd stages per chunk, sd
 // stage_depth) holds depth rows l sd .. l sd + sd - 1 of chunk c's three
 // bf16 parts, each a K-major [n][sd] operand (n = N, the chunk's columns as
-// rows), over the head padded to rp; then b3 padded [rp (c_in + c_out)]
-// float32.  Consecutive threads take consecutive columns, so that w3's kUv
-// rows coalesce.
+// rows), chunk c being chunk c % cps of slab c / cps (cps the chunks of one
+// slab's walk), over the head padded to rp; then b3 padded [rp (c_in +
+// c_out)] float32, slab by slab ([R (c_in + c_out)] each, R the slab's
+// rank: rp up to 64).  Consecutive threads take consecutive columns, so
+// that w3's kUv rows coalesce.
 __global__ void lowrank_image(const float* __restrict__ w3,
                               const float* __restrict__ b3,
                               bf16* __restrict__ image, int stages, int n,
                               int dp, int rp, int r, int K, int c_in,
                               int c_out, int backward) {
   const int sd = stage_depth(dp), slices = dp / sd;
-  const int per = n * sd, g = n / rp, ncol = r * (c_in + c_out);
+  const int R = rp < 64 ? rp : 64, nch = c_in + c_out;
+  const int per = n * sd, g = n / R, ncol = r * nch;
+  const int cps = backward ? bwd_chunks(g, K, c_in, c_out)
+                           : fwd_chunks(g, c_in, c_out);
   const long cells = static_cast<long>(stages) * per;
-  const long total = cells + rp * (c_in + c_out);
+  const long total = cells + rp * nch;
   for (long q = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
        q < total; q += static_cast<long>(gridDim.x) * blockDim.x) {
-    if (q >= cells) {  // b3, padded
-      const int e = static_cast<int>(q - cells), rc = real_col(e, rp, r);
+    if (q >= cells) {  // b3, padded, slab by slab
+      const int e = static_cast<int>(q - cells), sl = e / (R * nch);
+      const int rc = real_col(slab_col(e - sl * R * nch, sl, R, rp), rp, r);
       reinterpret_cast<float*>(image + 3 * cells)[e] = rc >= 0 ? b3[rc] : 0.f;
       continue;
     }
     const int st = static_cast<int>(q / per), e = static_cast<int>(q % per);
     const int c = st / slices, row = e % n, dl = e / n;
     const int d = (st - c * slices) * sd + dl;
-    const Chunk ch = backward ? bwd_chunk(c, g, rp, K, c_in, c_out)
-                              : fwd_chunk(c, g, rp, c_in, c_out);
+    const int sl = c / cps;
+    const Chunk ch = backward ? bwd_chunk(c - sl * cps, g, R, K, c_in, c_out)
+                              : fwd_chunk(c - sl * cps, g, R, c_in, c_out);
     const int depth = ch.kind == kUv ? K : ch.kind == kP ? c_in : c_out;
     float v = 0.f;
     if (row < ch.cw && d < depth) {
       const int col = ch.lo + row;
       if (ch.kind == kUv) {
-        const int rc = real_col(col, rp, r);
+        const int rc = real_col(slab_col(col, sl, R, rp), rp, r);
         if (rc >= 0) v = w3[static_cast<long>(d) * ncol + rc];
       } else {
-        const int k = col / rp, qq = col - k * rp;
+        const int k = col / R, qq = col - k * R + sl * R;
         if (qq < r)
           v = w3[static_cast<long>(k) * ncol + (ch.kind == kQ ? r * c_in : 0) +
                  d * r + qq];
@@ -198,8 +213,8 @@ __global__ void lowrank_image(const float* __restrict__ w3,
   }
 }
 
-// Lays out the stage image of `chunks` chunks of depth dp (image_depth)
-// and returns the padded b3 after them (through `b3p`).
+// Lays out the stage image of `chunks` chunks (every slab's) of depth dp
+// (image_depth) and returns the padded b3 after them (through `b3p`).
 inline cudaError_t launch_lowrank_image(const float* w3, const float* b3,
                                         bf16* image, int chunks, int n,
                                         int dp, int rp, int r, int K,
@@ -216,9 +231,10 @@ inline cudaError_t launch_lowrank_image(const float* w3, const float* b3,
   return cudaGetLastError();
 }
 
-// f(R8, S) for a rank r of 1 .. 64, R8 = ceil(r / 8), and S the k16 steps
-// of a kernel's A operands up to a depth of 64 (1 .. 4), kDeep past it, for
-// a depth of 1 .. 256; `otherwise` outside them.
+// f(R8, S) for a rank r of 1 .. 256 (R8 lowrank_wgmma.cuh with_rank's
+// RankInstance: ceil(r / 8) up to 64, the slab instance past it), and S
+// the k16 steps of a kernel's A operands up to a depth of 64 (1 .. 4),
+// kDeep past it, for a depth of 1 .. 256; `otherwise` outside them.
 template <typename F, typename Ret>
 Ret with_rank_depth(int r, int depth, F&& f, Ret otherwise) {
   if (depth < 1 || depth > kMaxDim) return otherwise;

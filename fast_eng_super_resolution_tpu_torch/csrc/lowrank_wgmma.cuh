@@ -1,19 +1,32 @@
 // Tensor-core (wgmma) pieces shared by the bfloat16 rank-r kernels: B3's
 // forward (fused_edge_conv_lowrank_wgmma.cu) and B4's rows kernel
-// (fused_edge_conv_lowrank_bwd_wgmma.cu); the rank dispatch and the padded
-// column map also serve the float32 pair (lowrank_f32_wgmma.cuh).
+// (fused_edge_conv_lowrank_bwd_wgmma.cu); the rank dispatch, the padded
+// column map and the slab map also serve the float32 pair
+// (lowrank_f32_wgmma.cuh).
 //
-// Padded rank.  Every kernel runs at rp = 8 R8 (r 1 .. 64, R8 = 1 .. 8,
-// with_rank), R8 = ceil(r / 8), the real
-// rank r beside it at run time: channel i's columns are i rp .. i rp + rp -
-// 1 of a padded head whose column i rp + q is the model's column i r + q
-// for q < r, and zero for q >= r (w3 and b3 alike; real_col below).  With
-// the padded columns zero, uv, t, dt and duv are zero there, so the rank-r
+// Padded rank.  Every kernel runs at the padded rank rp of r (padded_rank):
+// 8 ceil(r / 8) up to 64 (an instance per R8 = rp / 8 = 1 .. 8,
+// with_rank), 64 ceil(r / 64) past it (ranks 65 .. 256), the real rank r
+// beside it at run time: channel i's columns are i rp .. i rp + rp - 1 of
+// a padded head whose column i rp + q is the model's column i r + q for q
+// < r, and zero for q >= r (w3 and b3 alike; real_col below).  With the
+// padded columns zero, uv, t, dt and duv are zero there, so the rank-r
 // result is the rank-rp instance's on the zero-padded head; dw3 and db3 go
 // back to the model's columns only.  The bfloat16 kernels read a padded
-// copy of w3 that pad_head lays out once per call (at a rank that is not a
-// multiple of 8), so that every chunk still loads in 16-byte pieces; b3's
-// columns are copied padded from its real ones, chunk by chunk.
+// copy of w3 that pad_head lays out once per call (at a rank other than
+// rp), so that every chunk still loads in 16-byte pieces; b3's columns are
+// copied padded from its real ones, chunk by chunk.
+//
+// Slabs.  Past a rank of 64 a kernel runs rp / 64 slabs, one after the
+// other inside each tile, on the R8 = 8 instance's walk with a template
+// flag of its own (kSlab, so that the instances up to 64 keep their code):
+// slab s is the rank-64 layer on the head's columns i rp + 64 s .. i rp +
+// 64 s + 63 of every channel i (slab_col).  Every term splits over slabs
+// exactly: t and dt of q in slab s depend on slab s's columns alone, msg,
+// dx_src and dh are sums over the slabs of each slab's terms (added in
+// slab order, so that repeats give the same bits), and duv, dw3 and db3
+// fall on disjoint columns.  t and dt of one slab at a time sit in
+// registers, as at rank 64.
 //
 // Chunks.  Both kernels run m64n128k16 products whose B operand is a
 // 128-column chunk of the (padded) edge MLP's head w3 [K, rp (c_in +
@@ -73,6 +86,8 @@ constexpr int kCols = 128;   // columns per chunk
 constexpr int kMaxDim = 256;  // K, c_in, c_out <= 256
 constexpr int kBufs = 3;      // chunks (stages) in the ring of B buffers
 constexpr int kStage = 64;    // a stage's depth past a depth of 128
+constexpr int kSlabRank = 64;  // a slab's rank (ranks past 64)
+constexpr int kMaxRank = 256;  // r <= 256
 
 // Whether chunks of depth up to dmax (a multiple of 16) run in stages of
 // kStage (past 128) rather than whole.
@@ -80,8 +95,24 @@ __host__ __device__ constexpr bool staged(int dmax) { return dmax > 128; }
 
 enum ChunkKind { kUv = 0, kP = 1, kQ = 2 };
 
-// The padded rank of r: 8 ceil(r / 8).
-__host__ __device__ constexpr int padded_rank(int r) { return (r + 7) / 8 * 8; }
+// The padded rank of r: 8 ceil(r / 8) up to 64, 64 ceil(r / 64) past it.
+__host__ __device__ constexpr int padded_rank(int r) {
+  return r <= kSlabRank ? (r + 7) / 8 * 8
+                        : (r + kSlabRank - 1) / kSlabRank * kSlabRank;
+}
+
+// The rank of the instance that runs r: rp up to 64, a slab's past it.
+__host__ __device__ constexpr int slab_rank(int r) {
+  return padded_rank(r) < kSlabRank ? padded_rank(r) : kSlabRank;
+}
+
+// The head's column (padded to rp) of column c of slab s's head at rank R
+// (the slab rank): channel c / R, q = R s + c % R.  Up to rank 64 (R = rp,
+// s = 0) the column itself.
+__host__ __device__ __forceinline__ int slab_col(int c, int s, int R, int rp) {
+  const int ch = c / R;
+  return ch * rp + s * R + (c - ch * R);
+}
 
 // The model's column of padded column c of a head at rank r padded to rp
 // (channel c / rp, q = c % rp), or -1 for a padded column (q >= r).
@@ -114,6 +145,7 @@ struct Chunk {
   int depth;   // padded depth (of the stage), a multiple of 16
   int real;    // real depth: K, c_in or c_out
   int d0 = 0;  // the stage's first depth row
+  int s0 = 0;  // the slab's first q (64 s; past rank 64 only)
 };
 
 // Stage st of chunk c in buffers of depth bd (kStage): its depth rows
@@ -147,18 +179,26 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src,
 // of a warp.  Pieces outside the chunk's real columns or depth are zeros;
 // pieces past its padded depth are not written.  When w3 is not 16-byte
 // aligned, the pieces are copied element by element before start returns.
-template <int R8>
+// kSlab (R8 = 8 past rank 64): the chunk's columns are those of its slab
+// (c.s0 = 64 s) in a head padded to rp = padded_rank(rank), slab_col.
+template <int R8, bool kSlab = false>
 struct ChunkCopy {
   static constexpr int kR = 8 * R8;
   const bf16* w3;
   const float* b3;
   int ncol, ru, rank;
+  int rp;    // kSlab: the head's padded rank
   bool vec;  // w3 16-byte aligned: one cp.async per piece
 
   __device__ __forceinline__ ChunkCopy(const bf16* w3_, const float* b3_,
                                        int c_in, int c_out, int rank_)
       : w3(w3_), b3(b3_), ncol(kR * (c_in + c_out)), ru(kR * c_in),
         rank(rank_) {
+    if constexpr (kSlab) {
+      rp = padded_rank(rank_);
+      ncol = rp * (c_in + c_out);
+      ru = rp * c_in;
+    }
     vec = reinterpret_cast<uintptr_t>(w3) % 16 == 0;
   }
 
@@ -170,12 +210,14 @@ struct ChunkCopy {
     int stride;
     if (c.kind == kUv) {
       base = c.lo + n;
+      if constexpr (kSlab) base = slab_col(c.lo + n, c.s0 / kR, kR, rp);
       stride = ncol;
     } else {
       const int col = c.lo + n, k = col / kR;
       base = static_cast<long>(k) * ncol + (c.kind == kQ ? ru : 0) + col -
              k * kR;
-      stride = kR;
+      if constexpr (kSlab) base += c.s0;
+      stride = kSlab ? rp : kR;
     }
     const bool col_ok = n < c.cw;
     for (int d = threadIdx.x % 8; d < c.depth; d += 8) {
@@ -194,7 +236,11 @@ struct ChunkCopy {
     }
     if (c.kind == kUv) {
       const int t = threadIdx.x;
-      const int rc = t < c.cw ? real_col(c.lo + t, kR, rank) : -1;
+      int rc = t < c.cw ? real_col(c.lo + t, kR, rank) : -1;
+      if constexpr (kSlab)
+        rc = t < c.cw ? real_col(slab_col(c.lo + t, c.s0 / kR, kR, rp), rp,
+                                 rank)
+                      : -1;
       copy_async<4>(bias + t, b3 + (rc >= 0 ? rc : 0), rc >= 0);
     }
     pieces_commit();
@@ -281,21 +327,31 @@ inline cudaError_t launch_pad_head(const T* w3, T* w3p, int K, int nch,
   return cudaGetLastError();
 }
 
-// f(std::integral_constant<int, R8>()) for a rank r of 1 .. 64, R8 =
-// ceil(r / 8) (the padded rank over 8); `otherwise` for any other rank.
+// The instance of a rank: R8 = slab_rank(r) / 8 and whether it walks
+// slabs (kSlab: r past 64, R8 = 8).
+template <int R8, bool kSlab>
+struct RankInstance {
+  static constexpr int value = R8;
+  static constexpr bool slab = kSlab;
+};
+
+// f(RankInstance<R8, kSlab>()) for a rank r of 1 .. 256: R8 = ceil(r / 8)
+// up to 64, the slab instance (R8 = 8) past it; `otherwise` for any other
+// rank.
 template <typename F, typename R>
 R with_rank(int r, F&& f, R otherwise) {
+  if (r < 1 || r > kMaxRank) return otherwise;
   switch (padded_rank(r)) {
-    case 8: return f(std::integral_constant<int, 1>());
-    case 16: return f(std::integral_constant<int, 2>());
-    case 24: return f(std::integral_constant<int, 3>());
-    case 32: return f(std::integral_constant<int, 4>());
-    case 40: return f(std::integral_constant<int, 5>());
-    case 48: return f(std::integral_constant<int, 6>());
-    case 56: return f(std::integral_constant<int, 7>());
-    case 64: return f(std::integral_constant<int, 8>());
+    case 8: return f(RankInstance<1, false>());
+    case 16: return f(RankInstance<2, false>());
+    case 24: return f(RankInstance<3, false>());
+    case 32: return f(RankInstance<4, false>());
+    case 40: return f(RankInstance<5, false>());
+    case 48: return f(RankInstance<6, false>());
+    case 56: return f(RankInstance<7, false>());
+    case 64: return f(RankInstance<8, false>());
   }
-  return otherwise;
+  return f(RankInstance<8, true>());
 }
 
 }  // namespace lowrank_wgmma

@@ -25,14 +25,14 @@ Nothing falls back from one to the other.  Training goes through
 or ``csrc/fused_edge_conv_bwd_f32_wgmma.cu`` (or its plain version,
 ``fused_edge_conv_bwd_plain``, on the CPU).  Models with rank-r factorized
 edge kernels (``kernel_rank``) run ``fused_edge_conv_lowrank``, on the
-tensor cores at every rank 1-64 (``csrc/fused_edge_conv_lowrank_wgmma.cu``
+tensor cores at every rank 1-256 (``csrc/fused_edge_conv_lowrank_wgmma.cu``
 for bfloat16, ``csrc/fused_edge_conv_lowrank_f32_wgmma.cu`` for float32;
-a rank that is not a multiple of 8 runs at ``padded_rank``, its head padded
-with zeros), and train through ``FusedEdgeConvLowrank``, whose backward is
+every rank runs at ``padded_rank``, its head padded with zeros, past 64 as
+slabs of 64), and train through ``FusedEdgeConvLowrank``, whose backward is
 ``csrc/fused_edge_conv_lowrank_bwd_wgmma.cu`` or
 ``csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu`` the same way.
 ``design`` names the design every launch runs.  B1-B4 take K, c_in and
-c_out up to 256 (B3 and B4 ranks up to 64), and so does B5
+c_out up to 256 (B3 and B4 ranks up to 256 too), and so does B5
 (``ops/pallas_mp.py``).
 """
 
@@ -417,7 +417,6 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
 
 # The largest K, c_in and c_out B1-B4 take, and B3's and B4's largest rank
 _MAX_WIDTH = 256
-_MAX_RANK = 64
 
 
 def _check_geometry(dt, slots: int, rows_blk: int, blk: int,
@@ -425,8 +424,8 @@ def _check_geometry(dt, slots: int, rows_blk: int, blk: int,
     """Raises on what the kernels do not take: a GEMM type other than
     float32 or bfloat16, blocks of other than 64 rows, a blk that is not a
     positive multiple of 64 dividing the slots, or a width ``dims`` (name=
-    value) outside 1..256 (``rank``: 1..64).  B1-B4 take widths and K up to
-    256 in both types, B3 and B4 ranks up to 64."""
+    value) outside 1..256 (``rank`` too).  B1-B4 take widths and K up to
+    256 in both types, B3 and B4 ranks up to 256."""
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"h_blocked dtype {dt} (expected float32 | bfloat16)")
     if rows_blk != 64:
@@ -434,9 +433,8 @@ def _check_geometry(dt, slots: int, rows_blk: int, blk: int,
     if blk % 64 or blk <= 0:
         raise ValueError(f"blk={blk} must be a positive multiple of 64")
     for name, v in dims.items():
-        most = _MAX_RANK if name == "rank" else _MAX_WIDTH
-        if not 1 <= v <= most:
-            raise ValueError(f"{name}={v} outside the kernel's 1..{most}")
+        if not 1 <= v <= _MAX_WIDTH:
+            raise ValueError(f"{name}={v} outside the kernel's 1..{_MAX_WIDTH}")
     if slots % blk:
         raise ValueError(f"{slots} slots is not a multiple of blk={blk}")
 
@@ -458,19 +456,41 @@ def design(dt: torch.dtype, rank: int | None = None) -> str:
     tensor cores (csrc/*_wgmma.cu), for every kernel in both types, as
     bfloat16 products or float32 ones exact through three-part bf16 splits
     (csrc/f32_wgmma.cuh), at K, c_in and c_out up to 256.  B1 and B2 take
-    ``rank`` None; B3 and B4 any rank 1-64, run at ``padded_rank``
-    (csrc/lowrank_wgmma.cuh), past a depth of 128 the bfloat16 ones with
+    ``rank`` None; B3 and B4 any rank 1-256, run at ``padded_rank``
+    (csrc/lowrank_wgmma.cuh), past rank 64 as ``lowrank_slabs`` slabs of 64
+    in turn inside each kernel (the rank-64 walk on each slab's columns,
+    csrc/lowrank_wgmma.cuh slab_col), past a depth of 128 the bfloat16 ones with
     each chunk in stages of 64, the float32 ones in their wide layout
     (``lowrank_smem_bytes``)."""
     return "wgmma"
 
 
+# A slab's rank: past it B3 and B4 run slabs of this rank in turn
+_SLAB_RANK = 64
+
+
 def padded_rank(rank: int) -> int:
-    """The rank B3 and B4 run at: ``rank`` rounded up to a multiple of 8.
+    """The rank B3 and B4 run at: ``rank`` rounded up to a multiple of 8 up
+    to 64, past it to a multiple of 64 (``lowrank_slabs`` slabs of 64).
     The head's channels are padded to it with zero columns (w3 and b3 alike),
     so t, dt and duv are zero there and the result is the rank-``rank``
     one; dw3 and db3 come back in the model's columns only."""
-    return _round_up(rank, 8)
+    if rank <= _SLAB_RANK:
+        return _round_up(rank, 8)
+    return _round_up(rank, _SLAB_RANK)
+
+
+def lowrank_slab_rank(rank: int) -> int:
+    """The rank of the kernel instance that runs ``rank``: ``padded_rank``
+    up to 64, a slab's 64 past it (csrc/lowrank_wgmma.cuh slab_rank)."""
+    return min(padded_rank(rank), _SLAB_RANK)
+
+
+def lowrank_slabs(rank: int) -> int:
+    """How many slabs of ``lowrank_slab_rank`` B3 and B4 walk in turn per
+    tile: 1 up to rank 64, ``padded_rank`` / 64 past it (2 at ranks 65-128,
+    4 at 193-256)."""
+    return padded_rank(rank) // lowrank_slab_rank(rank)
 
 
 def _conv_library(dt: torch.dtype, backward: bool = False) -> str:
@@ -617,11 +637,11 @@ def conv_smem_bytes(dt: torch.dtype, k: int, c_in: int, c_out: int,
 
 def lowrank_chunk_cols(rank: int) -> int:
     """Columns of one product of the float32 B3/B4 at rank ``rank``: the
-    whole padded channels that fit in 64 (64 at a padded rank of 8, 16, 32
-    or 64, 48 at 24, one channel of 40, 48 or 56 past 32;
-    csrc/lowrank_f32_wgmma.cuh)."""
-    rp = padded_rank(rank)
-    return 64 // rp * rp
+    whole channels of a slab's head that fit in 64 (64 at a slab rank of 8,
+    16, 32 or 64, and so past rank 64; 48 at 24, one channel of 40, 48 or
+    56 past 32; csrc/lowrank_f32_wgmma.cuh)."""
+    r = lowrank_slab_rank(rank)
+    return 64 // r * r
 
 
 def lowrank_image_depth(depth: int) -> int:
@@ -636,20 +656,21 @@ def lowrank_image_numel(k: int, c_in: int, c_out: int, rank: int,
                         backward: bool = False) -> int:
     """bf16 elements of the float32 B3's (B4's) stage image of w3 and b3:
     each chunk of its walk over the head padded to ``padded_rank`` (B3: the
-    U and V chunks of uv; B4: those and the P and Q chunks over k) as three
-    [N, depth] operands, N ``lowrank_chunk_cols`` and depth K (B4: the
-    largest of K, c_in and c_out) padded as ``lowrank_image_depth`` (past 64
-    in stages of 32); then b3 padded, float32 (csrc/lowrank_f32_wgmma.cuh)."""
-    rp = padded_rank(rank)
+    U and V chunks of uv; B4: those and the P and Q chunks over k), every
+    slab's walk in turn (``lowrank_slabs``: the image grows linearly with
+    them), as three [N, depth] operands, N ``lowrank_chunk_cols`` and depth
+    K (B4: the largest of K, c_in and c_out) padded as
+    ``lowrank_image_depth`` (past 64 in stages of 32); then b3 padded,
+    float32 (csrc/lowrank_f32_wgmma.cuh)."""
     n = lowrank_chunk_cols(rank)
-    g = n // rp
+    g = n // lowrank_slab_rank(rank)
     chunks = -(-c_in // g) + -(-c_out // g)
     depth = k
     if backward:
         chunks += 2 * -(-k // g)
         depth = max(k, c_in, c_out)
-    return (chunks * 3 * n * lowrank_image_depth(depth)
-            + 2 * rp * (c_in + c_out))
+    return (lowrank_slabs(rank) * chunks * 3 * n * lowrank_image_depth(depth)
+            + 2 * padded_rank(rank) * (c_in + c_out))
 
 
 def lowrank_smem_bytes(dt: torch.dtype, k: int, c_in: int, c_out: int,
@@ -663,8 +684,11 @@ def lowrank_smem_bytes(dt: torch.dtype, k: int, c_in: int, c_out: int,
     kernel with one set of staged operands where two do not fit.  float32:
     past a K, c_in or c_out of 128 the wide layout (B3's x and message
     tiles shared, its part sums in device memory; B4 rows without the x_src
-    and dh tiles; csrc/lowrank_f32_wgmma.cuh wide_dims)."""
-    rp = padded_rank(rank)
+    and dh tiles; csrc/lowrank_f32_wgmma.cuh wide_dims).  Past rank 64 every
+    layout is the rank-64 one (``lowrank_slab_rank``): the slabs run in
+    turn, and the weights kernels stage one slab of t or dt per 64
+    columns."""
+    rp = lowrank_slab_rank(rank)
     if dt == torch.bfloat16:
         if kernel == "weights":
             sets = 2 * 3 * 128 * 64
@@ -698,8 +722,8 @@ def lowrank_smem_bytes(dt: torch.dtype, k: int, c_in: int, c_out: int,
 def lowrank_pad_numel(k: int, c_in: int, c_out: int, rank: int) -> int:
     """bf16 elements of the bfloat16 B3's (B4's) scratch for w3 padded to
     ``padded_rank`` [K, rp*(c_in+c_out)], laid out by the library's first
-    launch at a rank that is not a multiple of 8; 0 at the others
-    (csrc/lowrank_wgmma.cuh pad_head)."""
+    launch at a rank other than rp (not a multiple of 8 up to 64, of 64
+    past it); 0 at the others (csrc/lowrank_wgmma.cuh pad_head)."""
     rp = padded_rank(rank)
     return 0 if rp == rank else k * rp * (c_in + c_out)
 
@@ -1068,7 +1092,7 @@ def _lowrank_scratch(dt: torch.dtype, k: int, c_in: int, c_out: int,
     """A B3 (B4 if ``backward``) launch's bf16 scratch: the float32
     instance's stage image of w3 and b3 (``lowrank_image_numel``), or the
     bfloat16 instance's w3 padded to ``padded_rank`` (``lowrank_pad_numel``;
-    empty, a null pointer, at a rank that is a multiple of 8)."""
+    empty, a null pointer, at a rank that is its own padded rank)."""
     numel = (lowrank_image_numel(k, c_in, c_out, rank, backward)
              if dt == torch.float32 else lowrank_pad_numel(k, c_in, c_out, rank))
     return torch.empty(numel, dtype=torch.bfloat16, device=device)
@@ -1079,9 +1103,9 @@ def fused_edge_conv_lowrank_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
                                  rows_blk: int, blk: int) -> torch.Tensor:
     """Launches the rank-r forward kernel on the current stream, on the
     tensor cores for both types at every rank (``design``):
-    csrc/fused_edge_conv_lowrank_wgmma.cu for bfloat16 (at a rank that is
-    not a multiple of 8, after its first launch, w3 padded to
-    ``padded_rank``, into scratch), csrc/fused_edge_conv_lowrank_f32_wgmma.cu
+    csrc/fused_edge_conv_lowrank_wgmma.cu for bfloat16 (at a rank other than
+    its ``padded_rank``, after its first launch, w3 padded to it, into
+    scratch), csrc/fused_edge_conv_lowrank_f32_wgmma.cu
     for float32 (after its first launch, the stage image of w3 and b3, into
     scratch).  h_blocked, x and w3 share one dtype (float32 or bfloat16, the
     GEMM input type); b3 and S are float32, index arrays int32.  Checks
@@ -1185,9 +1209,8 @@ def fused_edge_conv_lowrank_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *,
                                      rows_blk: int, blk: int):
     """Launches the rank-r backward kernels on the current stream, on the
     tensor cores for both types at every rank (``design``):
-    csrc/fused_edge_conv_lowrank_bwd_wgmma.cu for bfloat16 (at a rank that
-    is not a multiple of 8, after w3 padded to ``padded_rank``, into
-    scratch), csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu for float32
+    csrc/fused_edge_conv_lowrank_bwd_wgmma.cu for bfloat16 (at a rank other
+    than its ``padded_rank``, after w3 padded to it, into scratch), csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu for float32
     (after the stage image of w3 and b3, into scratch).  h_blocked, x_src
     and w3 share one dtype (float32 or bfloat16, the GEMM input type); g, b3
     and S are float32, slot_rows int32.  Checks every operand and raises on

@@ -7,8 +7,10 @@ and the CPU through the plain versions, from the same seeded weights.
 For each ``kernel_rank`` of ``--ranks`` (and, with ``--full-rank``, the
 full-rank model) builds chip_smoke.py's width-256 small-mesh config
 (neuralop_synthetic_w64.yaml at width 256, K 256, depth 2, on the small
-synthetic duct's merged subdomains) and runs three float32 fused Adam steps
-at the config's lr on each side, as ``chip_smoke.parity_losses`` does.  The
+synthetic duct's merged subdomains) and runs three free-running float32
+fused Adam steps at the config's lr on each side from the seeded weights
+(``chip_smoke.py``'s phase 7 starts each card step from the CPU's state at
+that step instead, for the reason this script measures).  The
 card's plain side runs the same model with the layer's wrappers pointed at
 their plain versions.  Prints each step's loss on each side and its
 relative difference from the CPU's, and, for the first step's gradients

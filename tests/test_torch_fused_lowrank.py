@@ -128,10 +128,10 @@ def test_cuda_wrappers_reject_cpu_operands():
         tfc.fused_edge_conv_lowrank_bwd_cuda(
             t(o["g"]), t(o["h"]), t(o["x_src"]), t(o["w3"]), t(o["b3"]),
             _s(blocks, True), **kw)
-    with pytest.raises(ValueError, match="rank=65"):  # checked before devices
+    with pytest.raises(ValueError, match="rank=257"):  # checked before devices
         tfc.fused_edge_conv_lowrank_cuda(
             t(o["h"]), t(o["x"]), t(blocks.senders_perm), t(o["w3"]),
-            t(o["b3"]), _s(blocks, True), **{**kw, "rank": 65})
+            t(o["b3"]), _s(blocks, True), **{**kw, "rank": 257})
 
 
 def _layer_grads(fn, o, s):
@@ -192,18 +192,21 @@ def test_padding_slots_never_reach_node_0(monkeypatch):
 
 
 # Widths, K and ranks past those of the rank-r layer above, as the card's
-# B3 and B4 take them (K, c_in, c_out up to 256, rank up to 64): the top
-# corners at 128 and 256, one padded channel of 40 per 64 columns at width
-# 96, c_in != c_out at odd ranks (past 128 too), and K past 128 alone.  At
-# most two receiver blocks, so that the plain versions' [slots, r (c_in +
-# c_out)] arrays stay small.
+# B3 and B4 take them (K, c_in, c_out and rank up to 256): the top corners
+# at 128 and 256, one padded channel of 40 per 64 columns at width 96,
+# c_in != c_out at odd ranks (past 128 too), K past 128 alone, and ranks
+# past 64 (the card's slabs of 64: 65 and 100 in two, 130 in three, past
+# both widths) at small widths.  At most two receiver blocks (past rank 64
+# a smaller graph), so that the plain versions' [slots, r (c_in + c_out)]
+# arrays and the Pallas runs stay small.
 WIDE = [(128, 128, 128, 64), (96, 96, 96, 40), (72, 128, 48, 57),
-        (256, 256, 256, 64), (136, 250, 200, 33), (48, 48, 256, 16)]
+        (256, 256, 256, 64), (136, 250, 200, 33), (48, 48, 256, 16),
+        (24, 40, 20, 65), (16, 16, 24, 100), (8, 12, 16, 130)]
 
 
 def _wide_operands(c_in, c_out, k, rank, seed):
     rng = np.random.default_rng(seed)
-    n, e = 100, 500
+    n, e = (100, 500) if rank <= 64 else (60, 150)
     recv = np.sort(rng.integers(0, n, e)).astype(np.int32)
     send = rng.integers(0, n, e).astype(np.int32)
     blocks = tfc.build_scatter_blocks(recv, send, n, rng.random(e) > 0.2,
@@ -224,8 +227,7 @@ def _wide_operands(c_in, c_out, k, rank, seed):
 @pytest.mark.parametrize("c_in,c_out,k,rank", WIDE)
 def test_plain_lowrank_wide_matches_pallas(c_in, c_out, k, rank, gemm_dtype):
     """The plain B3 and B4 against the JAX package's Pallas kernels in
-    interpret mode at widths and K up to 256 and ranks up to 64, both S
-    forms, with TOL's bounds (each output relative to its own max; w3's and
+    interpret mode at widths, K and ranks up to 256, both S forms, with TOL's bounds (each output relative to its own max; w3's and
     b3's gradients in the model's column layout)."""
     blocks, o = _wide_operands(c_in, c_out, k, rank, seed=c_in + k + rank)
     kw = dict(c_in=c_in, c_out=c_out, rank=rank, rows_blk=blocks.rows_blk,

@@ -886,7 +886,7 @@ def test_lowrank_wrappers_check_operands(cuda):
                      (tfc.fused_edge_conv_lowrank_bwd_cuda, bwd)):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             fn(*args[:4], args[4].cpu(), args[5], **kw)
-        for bad in (0, 65):
+        for bad in (0, 257):
             with pytest.raises(ValueError, match="rank"):
                 fn(*args, **{**kw, "rank": bad})
         with pytest.raises(ValueError):  # a head of another rank's width
@@ -1177,15 +1177,10 @@ def _lowrank_wide_operands(c_in, c_out, k, rank, seed):
     return blocks, o
 
 
-@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("compact", [True, False])
-@pytest.mark.parametrize("c_in,c_out,k,rank", LOWRANK_WIDE)
-def test_lowrank_wide_kernels_match_plain(cuda, c_in, c_out, k, rank,
-                                          compact, gemm_dtype):
-    """B3 and B4 at widths and K up to 256 and ranks up to 64 against their
-    plain versions (BWD_TOL in bfloat16, F32_LOWRANK_TOL in float32, of
-    each output's max, as at the narrow widths), each launched twice with
-    the same bits, one launch counted per call."""
+def _lowrank_vs_plain(c_in, c_out, k, rank, compact, gemm_dtype):
+    """B3 and B4 on the card against their plain versions on the CPU (BWD_TOL
+    in bfloat16, F32_LOWRANK_TOL in float32, of each output's max), each
+    launched twice with the same bits, one launch counted per call."""
     blocks, o = _lowrank_wide_operands(c_in, c_out, k, rank,
                                        seed=c_in + 3 * c_out + k + rank)
     kw = dict(c_in=c_in, c_out=c_out, rank=rank, rows_blk=64, blk=blocks.blk,
@@ -1217,8 +1212,38 @@ def test_lowrank_wide_kernels_match_plain(cuda, c_in, c_out, k, rank,
         assert err < tol, (name, err)
 
 
+@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("c_in,c_out,k,rank", LOWRANK_WIDE)
+def test_lowrank_wide_kernels_match_plain(cuda, c_in, c_out, k, rank,
+                                          compact, gemm_dtype):
+    """B3 and B4 at widths and K up to 256 and ranks up to 64 against their
+    plain versions (``_lowrank_vs_plain``), as at the narrow widths."""
+    _lowrank_vs_plain(c_in, c_out, k, rank, compact, gemm_dtype)
+
+
+# Ranks past 64 (slabs of 64 in turn inside each kernel): 65 (two slabs,
+# the second one real column of 64), 100 (the tail slab 36 real), 128 (two
+# whole), 256 (four) at small widths, and 100 and 256 at K = c_in = c_out =
+# 256 (the bfloat16 chunks in stages, the float32 wide layouts), 65 at
+# 129 and 200 past both widths of 40 x 48.
+LOWRANK_RANKS = [(16, 24, 20, 65), (40, 48, 72, 100), (24, 16, 48, 128),
+                 (8, 12, 16, 256), (256, 256, 256, 100), (256, 256, 256, 256),
+                 (129, 129, 129, 65), (40, 48, 72, 200)]
+
+
+@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("c_in,c_out,k,rank", LOWRANK_RANKS)
+def test_lowrank_ranks_past_64_match_plain(cuda, c_in, c_out, k, rank,
+                                           compact, gemm_dtype):
+    """B3 and B4 at ranks 65-256 against their plain versions
+    (``_lowrank_vs_plain``: the same tolerances, repeats bit-identical)."""
+    _lowrank_vs_plain(c_in, c_out, k, rank, compact, gemm_dtype)
+
+
 def test_lowrank_limits(cuda):
-    """K 257, width 257 and rank 65 are past B3's and B4's range: the
+    """K 257, width 257 and rank 257 are past B3's and B4's range: the
     wrappers raise before any launch, in both types."""
     blocks, o = _lowrank_wide_operands(8, 8, 6, 4, seed=19)
     t = {key: torch.as_tensor(v, device="cuda") for key, v in o.items()}
@@ -1228,7 +1253,7 @@ def test_lowrank_limits(cuda):
         bwd = tfc.fused_edge_conv_lowrank_bwd.launches
         for bad, match in (({"c_in": 257}, "c_in=257 outside the kernel's 1..256"),
                            ({"c_out": 257}, "c_out=257 outside the kernel's 1..256"),
-                           ({"rank": 65}, "rank=65 outside the kernel's 1..64")):
+                           ({"rank": 257}, "rank=257 outside the kernel's 1..256")):
             kw = {**dict(c_in=8, c_out=8, rank=4, rows_blk=64, blk=blocks.blk),
                   **bad}
             with pytest.raises(ValueError, match=match):
@@ -1255,11 +1280,12 @@ def test_lowrank_limits(cuda):
     (128, 128, 128, 64), (128, 128, 128, 8), (128, 128, 128, 40),
     (48, 48, 48, 64), (128, 72, 128, 20), (256, 256, 256, 64),
     (256, 256, 256, 8), (256, 48, 48, 16), (48, 256, 256, 16),
-    (200, 136, 250, 33)])
+    (200, 136, 250, 33), (256, 256, 256, 100), (256, 256, 256, 256),
+    (48, 48, 48, 65), (128, 128, 128, 192)])
 def test_lowrank_wide_occupancy_query(cuda, k, c_in, c_out, rank):
-    """Every tensor-core B3/B4 kernel, both types, fits an SM at widths and
-    K up to 256 and ranks up to 64, and the libraries' shared memory is
-    ops/fused_conv.py:lowrank_smem_bytes's."""
+    """Every tensor-core B3/B4 kernel, both types, fits an SM at widths,
+    K and ranks up to 256 (past rank 64 the rank-64 layouts), and the
+    libraries' shared memory is ops/fused_conv.py:lowrank_smem_bytes's."""
     occ = tfc.occupancy(k, c_in, c_out, rank=rank)
     assert len(occ) == 6 and all(v >= 1 for v in occ.values()), occ
     for dt in (torch.bfloat16, torch.float32):

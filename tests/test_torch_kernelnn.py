@@ -171,12 +171,14 @@ def test_apply_fused_width_256_matches_jax():
     assert _rel(got.numpy(), ref) < TOL
 
 
-@pytest.mark.parametrize("width,rank", [(128, 32), (128, 57), (256, 32)],
-                         ids=["32", "57", "w256-32"])
+@pytest.mark.parametrize("width,rank", [(128, 32), (128, 57), (256, 32),
+                                        (72, 72)],
+                         ids=["32", "57", "w256-32", "w72-72"])
 def test_rank_r_width_128_fused_and_grads_match_jax(width, rank):
-    """A rank-r KernelNN at width 128 or 256 (K = width, depth 2, about 200
-    nodes), where the card's B3 and B4 take c_in = c_out = K = width and
-    rank 32 (57: padded to 64): the port's fused forward and its fused
+    """A rank-r KernelNN at width 128, 256 or 72 (K = width, depth 2, about
+    200 nodes), where the card's B3 and B4 take c_in = c_out = K = width and
+    rank 32 (57: padded to 64; 72: past 64, two slabs of 64): the port's
+    fused forward and its fused
     training form's gradients (plain versions on the CPU), weights carried
     over from the JAX parameter tree, against JAX's ``apply_fused`` with the
     Pallas kernel in interpret mode (1e-5 of the max) and ``jax.grad`` of

@@ -4,8 +4,9 @@ csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu and csrc/lowrank_f32_wgmma.cuh),
 on the CPU: the design and libraries the wrappers pick, the index map of the
 stage-image launch in its three readings (kUv, kP, kQ) over the head padded
 to 8 ceil(r / 8) (zeros at q >= r, b3 padded after the stages; past a
-depth of 64 each chunk in stages of 32), the sizes
-the wrappers derive from it at every rank 1-64, numpy emulations of
+depth of 64 each chunk in stages of 32; past rank 64 slab by slab), the
+sizes and the slab map the wrappers derive from it at every rank 1-256,
+numpy emulations of
 the kernels' walks (B3: h split once per tile, the six products of each
 chunk in the kernel's order, + b3, t and msg in float32, the segmented
 scatter into per-part sums; B4's rows kernel over the V, U, P and Q chunks
@@ -47,24 +48,40 @@ def _real_col(c, rp, r):
     return np.where(q < r, ch * r + q, -1)
 
 
-def _chunks(k, c_in, c_out, rank, backward):
-    """(reading, first column, columns) of each stage, as
-    lowrank_f32_wgmma.cuh's fwd_chunk / bwd_chunk lay them out over the
-    head padded to rp = 8 ceil(rank / 8): G = N // rp whole channels (or k)
-    per chunk; the forward's U then V chunks of uv, the rows kernel's V, U,
-    P and Q chunks."""
-    rp = tfc.padded_rank(rank)
-    g = tfc.lowrank_chunk_cols(rank) // rp
+def _slab_col(c, s, r, rp):
+    """lowrank_wgmma.cuh slab_col: the padded head's column of column c of
+    slab s's head at rank r (channel c // r, q = r s + c % r)."""
+    return c // r * rp + s * r + c % r
 
-    def groups(reading, n, base):
-        return [(reading, base + c0 * rp, min(g, n - c0) * rp)
+
+def _slabs(rank):
+    """(rp, R, slabs): the padded rank, a slab's rank (rp up to 64) and the
+    slabs walked in turn."""
+    return (tfc.padded_rank(rank), tfc.lowrank_slab_rank(rank),
+            tfc.lowrank_slabs(rank))
+
+
+def _chunks(k, c_in, c_out, rank, backward):
+    """(reading, first column, columns, slab) of each stage, as
+    lowrank_f32_wgmma.cuh's fwd_chunk / bwd_chunk lay them out over each
+    slab's head of rank R (the head padded to rp = 8 ceil(rank / 8) up to
+    64, itself the one slab): G = N // R whole channels (or k) per chunk;
+    the forward's U then V chunks of uv, the rows kernel's V, U, P and Q
+    chunks, slab after slab."""
+    _, r, slabs = _slabs(rank)
+    g = tfc.lowrank_chunk_cols(rank) // r
+
+    def groups(reading, n, base, s):
+        return [(reading, base + c0 * r, min(g, n - c0) * r, s)
                 for c0 in range(0, n, g)]
 
-    u = groups("uv", c_in, 0)
-    v = groups("uv", c_out, rp * c_in)
-    if not backward:
-        return u + v
-    return v + u + groups("p", k, 0) + groups("q", k, 0)
+    out = []
+    for s in range(slabs):
+        u = groups("uv", c_in, 0, s)
+        v = groups("uv", c_out, r * c_in, s)
+        out += (u + v if not backward else
+                v + u + groups("p", k, 0, s) + groups("q", k, 0, s))
+    return out
 
 
 def _chunk_stages(w3, k, c_in, c_out, rank, backward):
@@ -74,7 +91,7 @@ def _chunk_stages(w3, k, c_in, c_out, rank, backward):
     zeros; the chunk's depth rows l sd .. in its stage l (sd =
     _stage_depth(dp)).  Yields [dp / sd, 3, N * sd] bf16 values as float32
     per chunk, so that a wide head's image is never whole in memory."""
-    rp = tfc.padded_rank(rank)
+    rp, r, _ = _slabs(rank)
     n = tfc.lowrank_chunk_cols(rank)
     dp = tfc.lowrank_image_depth(max(k, c_in, c_out) if backward else k)
     sd = _stage_depth(dp)
@@ -86,13 +103,13 @@ def _chunk_stages(w3, k, c_in, c_out, rank, backward):
     at_k = kmajor(row, dl, sd)
     ncol = w3.shape[1]
     flat = w3.reshape(-1)
-    for reading, lo, cw in _chunks(k, c_in, c_out, rank, backward):
+    for reading, lo, cw, slab in _chunks(k, c_in, c_out, rank, backward):
         depth = {"uv": k, "p": c_in, "q": c_out}[reading]
         col = lo + row
-        kk, qq = col // rp, col % rp
+        kk, qq = col // r, col % r + slab * r
         ok = (row < cw) & (d < depth) & (qq < rank)
         if reading == "uv":
-            at = d * ncol + _real_col(col, rp, rank)
+            at = d * ncol + _real_col(_slab_col(col, slab, r, rp), rp, rank)
         else:
             at = (kk * ncol + (rank * c_in if reading == "q" else 0)
                   + d * rank + qq)
@@ -105,9 +122,12 @@ def _chunk_stages(w3, k, c_in, c_out, rank, backward):
 
 def _b3_padded(b3, c_in, c_out, rank):
     """b3 as the image holds it after the stages: padded to rp, zeros at
-    q >= rank."""
-    rp = tfc.padded_rank(rank)
-    rcb = _real_col(np.arange(rp * (c_in + c_out)), rp, rank)
+    q >= rank, slab by slab ([R (c_in + c_out)] each)."""
+    rp, r, _ = _slabs(rank)
+    e = np.arange(rp * (c_in + c_out))
+    sl = e // (r * (c_in + c_out))
+    rcb = _real_col(_slab_col(e - sl * r * (c_in + c_out), sl, r, rp), rp,
+                    rank)
     return np.where(rcb >= 0, b3[np.maximum(rcb, 0)], 0).astype(np.float32)
 
 
@@ -176,7 +196,7 @@ def test_stage_image_in_all_three_readings(k, c_in, c_out, rank):
         stages = _stages(image, n, dp)
         whole = stages.sum(1)
         got = {"uv": [], "p": [], "q": []}
-        for c, (reading, lo, cw) in enumerate(
+        for c, (reading, lo, cw, _) in enumerate(
                 _chunks(k, c_in, c_out, rank, backward)):
             depth = {"uv": k, "p": c_in, "q": c_out}[reading]
             got[reading].append((lo, whole[c, :cw, :depth]))
@@ -200,24 +220,31 @@ def test_stage_image_in_all_three_readings(k, c_in, c_out, rank):
                                           (256, 256, 256), (136, 250, 200),
                                           (48, 48, 256), (256, 40, 72)])
 def test_padded_map_and_sizes_at_every_rank(c_in, c_out, k):
-    """At every rank 1-64 (the map alone, no data): rp = 8 ceil(r / 8);
-    the padded columns' map gives every model column once, in order, and
-    -1 exactly at q >= r; a chunk holds whole padded channels, as many as
-    fit in 64 columns; the stage image, the bfloat16 scratch of the padded
-    w3 and B4's weight tiles are sized from rp."""
+    """At every rank 1-256 (the map alone, no data): rp = 8 ceil(r / 8) up
+    to 64, 64 ceil(r / 64) past it, in slabs of R = 64; up to 64 the padded
+    columns' map gives every model column once, in order, and -1 exactly
+    at q >= r (past it test_slab_map_at_every_rank); a chunk holds whole
+    channels of a slab's head, as many as fit in 64 columns; the stage
+    image (every slab's chunks), the bfloat16 scratch of the padded w3 and
+    B4's weight tiles are sized from rp."""
     nch = c_in + c_out
-    for rank in range(1, 65):
-        rp = tfc.padded_rank(rank)
-        assert rp % 8 == 0 and rank <= rp < rank + 8
-        cols = np.arange(rp * nch)
-        rc = _real_col(cols, rp, rank)
-        assert list(rc[rc >= 0]) == list(range(rank * nch))
-        assert np.array_equal(rc < 0, cols % rp >= rank)
+    # past rank 64 each slab walks rank 64's chunks
+    per_slab = {bw: len(_chunks(k, c_in, c_out, 64, bw)) for bw in (False, True)}
+    for rank in range(1, 257):
+        rp, r, slabs = _slabs(rank)
+        assert rp % 8 == 0 and r * slabs == rp
+        assert rank <= rp < rank + (8 if rank <= 64 else 64)
+        if rank <= 64:
+            cols = np.arange(rp * nch)
+            rc = _real_col(cols, rp, rank)
+            assert np.array_equal(rc[rc >= 0], np.arange(rank * nch))
+            assert np.array_equal(rc < 0, cols % rp >= rank)
         n = tfc.lowrank_chunk_cols(rank)
-        assert n % rp == 0 and n <= 64 < n + rp
-        assert n == {24: 48, 40: 40, 48: 48, 56: 56}.get(rp, 64)
+        assert n % r == 0 and n <= 64 < n + r
+        assert n == {24: 48, 40: 40, 48: 48, 56: 56}.get(r, 64)
         for backward in (False, True):
-            stages = len(_chunks(k, c_in, c_out, rank, backward))
+            stages = (len(_chunks(k, c_in, c_out, rank, backward))
+                      if rank <= 64 else slabs * per_slab[backward])
             depth = max(k, c_in, c_out) if backward else k
             dp = tfc.lowrank_image_depth(depth)
             assert dp == (_round_up(depth, 16) if depth <= 64
@@ -229,6 +256,35 @@ def test_padded_map_and_sizes_at_every_rank(c_in, c_out, k):
         assert (row_tiles - 1) * 64 < k <= row_tiles * 64
         assert tfc.lowrank_pad_numel(k, c_in, c_out, rank) == (
             0 if rp == rank else k * rp * nch)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(3, 2), (1, 1)])
+def test_slab_map_at_every_rank(c_in, c_out):
+    """At every rank 1-256, the image's column map: each slab's column
+    (channel, q) is the padded head's (channel, R s + q), by plain indexing
+    of the head as [channels, rp], and the slabs cover it once; real_col
+    sends it to the model's column channel r + R s + q where R s + q < r,
+    every model column once, else -1; b3 follows padded, slab by slab."""
+    nch = c_in + c_out
+    for rank in range(1, 257):
+        rp, r, slabs = _slabs(rank)
+        grid = np.arange(rp * nch).reshape(nch, rp)
+        c = np.arange(r * nch)
+        by_slab = [_slab_col(c, s, r, rp) for s in range(slabs)]
+        for s, sc in enumerate(by_slab):
+            assert np.array_equal(sc, grid[c // r, r * s + c % r])
+            rc = _real_col(sc, rp, rank)
+            q = r * s + c % r
+            assert np.array_equal(rc, np.where(q < rank, c // r * rank + q, -1))
+        every = np.concatenate(by_slab)
+        assert np.array_equal(np.sort(every), np.arange(rp * nch))
+        rc = _real_col(every, rp, rank)
+        assert np.array_equal(np.sort(rc[rc >= 0]), np.arange(rank * nch))
+        b3 = np.arange(rank * nch, dtype=np.float32) + 1
+        b3p = _b3_padded(b3, c_in, c_out, rank).reshape(slabs, nch, r)
+        want = np.zeros((nch, rp), np.float32)
+        want[:, :rank] = b3.reshape(nch, rank)
+        assert np.array_equal(b3p, want.reshape(nch, slabs, r).transpose(1, 0, 2))
 
 
 @pytest.mark.parametrize("rank", RANKS)
@@ -273,8 +329,10 @@ def _pad(a, depth):
 
 def _scatter(blocks, msg, compact, real, idx):
     """B1's part walk and scatter of per-tile messages [tiles, 64, c_out]
-    into the output, the partials summed in order."""
+    into the output, the partials summed in order; with a leading slab axis
+    [slabs, tiles, 64, c_out] each tile's slabs in turn."""
     c_out = msg.shape[-1]
+    slabs = msg if msg.ndim == 4 else msg[None]
     tiles = blocks.blk // 64
     parts = tfc.conv_parts(blocks.num_blocks, tiles, SMS)
     out = np.zeros((parts, blocks.n_pad, c_out), np.float32)
@@ -282,7 +340,8 @@ def _scatter(blocks, msg, compact, real, idx):
     for b in range(blocks.num_blocks):
         for p, (lo, hi) in enumerate(tfc.part_bounds(tiles, parts)):
             acc = np.zeros((64, c_out), np.float32)
-            for t in range(b * tiles + lo, b * tiles + hi):
+            for t, m in ((t, m) for t in range(b * tiles + lo, b * tiles + hi)
+                         for m in slabs):
                 if compact:
                     if not real[t]:
                         continue
@@ -293,14 +352,14 @@ def _scatter(blocks, msg, compact, real, idx):
                                 acc[cur] += run
                             cur, run = r, np.zeros(c_out, np.float32)
                         if r >= 0:
-                            run += msg[t, s]
+                            run += m[t, s]
                     if cur >= 0:
                         acc[cur] += run
                 else:
                     s_tile = blocks.s_matrix[b * 64:(b + 1) * 64,
                                              (t - b * tiles) * 64:
                                              (t - b * tiles + 1) * 64]
-                    acc += (s_tile.astype(np.float64) @ msg[t]).astype(np.float32)
+                    acc += (s_tile.astype(np.float64) @ m[t]).astype(np.float32)
             rows = slice(b * 64, (b + 1) * 64)
             out[p, rows] = (blocks.compact_s.row_weight[rows, None] * acc
                             if compact else acc)
@@ -318,27 +377,32 @@ def _uv(acc, b3, lo, cw, rank):
 
 def _emulate_fwd(blocks, o, c_in, c_out, rank, compact):
     """B3 float32 as csrc/fused_edge_conv_lowrank_f32_wgmma.cu runs it, at
-    the padded rank rp (t [..., rp], zero at q >= rank)."""
+    the padded rank rp (t [..., rp], zero at q >= rank), past 64 slab by
+    slab (each slab's messages scattered in turn)."""
     k = o["h"].shape[1]
-    rp = tfc.padded_rank(rank)
-    n, dp, ru = tfc.lowrank_chunk_cols(rank), tfc.lowrank_image_depth(k), rp * c_in
+    rp, r, slabs = _slabs(rank)
+    n, dp, ru = tfc.lowrank_chunk_cols(rank), tfc.lowrank_image_depth(k), r * c_in
+    nb3 = r * (c_in + c_out)
     b3p = _b3_padded(o["b3"], c_in, c_out, rank)
     stages = _chunk_stages(o["w3"], k, c_in, c_out, rank, False)
     idx, real = _tiles(blocks)
     hp = _split(_pad(o["h"][idx], dp))
     x = o["x"][blocks.senders_perm[idx]]
     t = np.zeros((*idx.shape, rp), np.float32)
-    msg = np.zeros((*idx.shape, c_out), np.float32)
-    for (_, lo, cw), block in zip(_chunks(k, c_in, c_out, rank, False), stages):
+    msg = np.zeros((slabs, *idx.shape, c_out), np.float32)
+    for (_, lo, cw, sl), block in zip(_chunks(k, c_in, c_out, rank, False),
+                                      stages):
         st = _stages(block, n, dp)[0]
-        uv = _uv(_six(hp, [st[p].T for p in range(3)]), b3p, lo, cw, rp)
+        uv = _uv(_six(hp, [st[p].T for p in range(3)]),
+                 b3p[sl * nb3:(sl + 1) * nb3], lo, cw, r)
+        ts = slice(sl * r, (sl + 1) * r)
         if lo < ru:  # t[s, q] += x[s, i] U[s, i, q]
-            for gi in range(cw // rp):
-                i = lo // rp + gi
-                t = _fma(x[..., i:i + 1], uv[..., gi, :], t)
+            for gi in range(cw // r):
+                i = lo // r + gi
+                t[..., ts] = _fma(x[..., i:i + 1], uv[..., gi, :], t[..., ts])
         else:  # msg[s, o] = sum_q V[s, o, q] t[s, q]
-            o0 = (lo - ru) // rp
-            msg[..., o0:o0 + cw // rp] = (uv * t[..., None, :]).sum(-1)
+            o0 = (lo - ru) // r
+            msg[sl, ..., o0:o0 + cw // r] = (uv * t[..., None, ts]).sum(-1)
     assert not t[..., rank:].any()
     return _scatter(blocks, msg, compact, real, idx)
 
@@ -385,18 +449,20 @@ def _jax_fwd(blocks, o, c_in, c_out, rank):
 # a depth of 64 the A operands in shared memory and each chunk in stages
 # of 32 (the deep walk); past a K, c_in or c_out of 128 the wide layouts
 # (the same sums: B3's part sums in device memory, B4's P half of dh in
-# dh), at 256 and each wall alone, on a smaller graph
+# dh), at 256 and each wall alone, on a smaller graph; past rank 64 two
+# slabs of 64 (rank 100: the second 36 real)
 SHAPES = [(16, 16, 16, 16), (12, 20, 33, 8), (9, 7, 5, 24), (8, 8, 17, 32),
           (16, 16, 16, 12), (12, 20, 33, 1), (9, 7, 5, 20), (8, 8, 17, 31),
           (7, 9, 12, 3), (7, 9, 100, 40), (10, 6, 70, 57), (6, 80, 9, 64),
           (9, 7, 128, 16), (256, 256, 256, 64), (48, 48, 256, 16),
-          (256, 48, 64, 24)]
+          (256, 48, 64, 24), (5, 4, 20, 100)]
 
 
-def _walk_graph(c_in, c_out, k, seed):
-    """The walks' graph; past a width or K of 128 a smaller one (a few
-    tiles), whose plain versions and float64 references stay small."""
-    if max(c_in, c_out, k) > 128:
+def _walk_graph(c_in, c_out, k, seed, rank=1):
+    """The walks' graph; past a width or K of 128, or past rank 64, a
+    smaller one (a few tiles), whose plain versions, float64 references and
+    Pallas runs stay small."""
+    if max(c_in, c_out, k) > 128 or rank > 64:
         return _graph("random", seed=seed, n=60, e=200)
     return _graph("random", seed=seed)
 
@@ -407,7 +473,7 @@ def test_fwd_walk_matches_plain_float64_and_pallas(c_in, c_out, k, rank):
     ``fused_edge_conv_lowrank_plain`` (float32) and a float64 reference
     within 1e-6 of the max, and against the JAX package's Pallas kernel in
     interpret mode (float32 at Precision.HIGHEST) within 1e-5."""
-    blocks = _walk_graph(c_in, c_out, k, seed=c_in + k)
+    blocks = _walk_graph(c_in, c_out, k, seed=c_in + k, rank=rank)
     o = _operands(blocks, c_in, c_out, k, rank, seed=c_out + 3 * k)
     ref = _f64_fwd(blocks, o, c_in, c_out, rank)
     jax_ = _jax_fwd(blocks, o, c_in, c_out, rank)
@@ -424,8 +490,9 @@ def _emulate_bwd(blocks, o, c_in, c_out, rank, compact, sms=SMS):
     at the padded rank rp, dw3 and db3 written back to the model's columns:
     (dh, dx_src, dw3, db3)."""
     k = o["h"].shape[1]
-    slots, rp = len(blocks.senders_perm), tfc.padded_rank(rank)
-    ru, ncol = rp * c_in, rp * (c_in + c_out)
+    slots = len(blocks.senders_perm)
+    rp, r, _ = _slabs(rank)
+    ru, ncol, nb3 = r * c_in, rp * (c_in + c_out), r * (c_in + c_out)
     n, dp = (tfc.lowrank_chunk_cols(rank),
              tfc.lowrank_image_depth(max(k, c_in, c_out)))
     b3p = _b3_padded(o["b3"], c_in, c_out, rank)
@@ -440,26 +507,29 @@ def _emulate_bwd(blocks, o, c_in, c_out, rank, compact, sms=SMS):
     t, dt = (np.zeros((*idx.shape, rp), np.float32) for _ in range(2))
     dx = np.zeros((*idx.shape, c_in), np.float32)
     dh_p, dh = (np.zeros((*idx.shape, k), np.float32) for _ in range(2))
-    for (reading, lo, cw), block in zip(_chunks(k, c_in, c_out, rank, True),
-                                        stages):
+    for (reading, lo, cw, sl), block in zip(
+            _chunks(k, c_in, c_out, rank, True), stages):
         st = _stages(block, n, dp)[0]
         acc = _six(a[reading], [st[p].T for p in range(3)])
+        qs = slice(sl * r, (sl + 1) * r)  # the slab's t and dt
         if reading == "uv":
-            uv = _uv(acc, b3p, lo, cw, rp)
-            for gi in range(cw // rp):
-                ch = (lo - ru if lo >= ru else lo) // rp + gi
+            uv = _uv(acc, b3p[sl * nb3:(sl + 1) * nb3], lo, cw, r)
+            for gi in range(cw // r):
+                ch = (lo - ru if lo >= ru else lo) // r + gi
                 if lo >= ru:  # dt[s, q] += dmsg[s, o] V[s, o, q]
-                    dt = _fma(d[..., ch:ch + 1], uv[..., gi, :], dt)
-                else:  # t += x U; dx_src[s, i] = sum_q U[s, i, q] dt[s, q]
-                    t = _fma(xs[..., ch:ch + 1], uv[..., gi, :], t)
-                    dx[..., ch] = (uv[..., gi, :] * dt).sum(-1)
-        else:  # dh[s, k] = sum_q dt P[s, k, q] + sum_q t Q[s, k, q]
-            pq = acc[..., :cw].reshape(*idx.shape, cw // rp, rp)
-            ks = slice(lo // rp, lo // rp + cw // rp)
+                    dt[..., qs] = _fma(d[..., ch:ch + 1], uv[..., gi, :],
+                                       dt[..., qs])
+                else:  # t += x U; dx_src[s, i] += sum_q U[s, i, q] dt[s, q]
+                    t[..., qs] = _fma(xs[..., ch:ch + 1], uv[..., gi, :],
+                                      t[..., qs])
+                    dx[..., ch] += (uv[..., gi, :] * dt[..., qs]).sum(-1)
+        else:  # dh[s, k] += sum_q dt P[s, k, q] + sum_q t Q[s, k, q]
+            pq = acc[..., :cw].reshape(*idx.shape, cw // r, r)
+            ks = slice(lo // r, lo // r + cw // r)
             if reading == "p":
-                dh_p[..., ks] = (pq * dt[..., None, :]).sum(-1)
+                dh_p[..., ks] = (pq * dt[..., None, qs]).sum(-1)
             else:
-                dh[..., ks] = dh_p[..., ks] + (pq * t[..., None, :]).sum(-1)
+                dh[..., ks] += dh_p[..., ks] + (pq * t[..., None, qs]).sum(-1)
     if compact:  # padding-only tiles write zeros
         for a_ in (dh, dx, t, dt):
             a_[~real] = 0
@@ -541,7 +611,7 @@ def test_bwd_rows_and_weights_match_plain_float64_and_pallas(c_in, c_out, k,
     1e-6 of each output's max, and against the JAX package's Pallas
     backward in interpret mode within 1e-5; dw3 and db3 in the model's
     column layout (the JAX function unpermutes its own)."""
-    blocks = _walk_graph(c_in, c_out, k, seed=c_in + k + 1)
+    blocks = _walk_graph(c_in, c_out, k, seed=c_in + k + 1, rank=rank)
     o = _operands(blocks, c_in, c_out, k, rank, seed=c_out + 3 * k + 1)
     ref = _f64_bwd(blocks, o, c_in, c_out, rank)
     jax_ = _jax_bwd(blocks, o, c_in, c_out, rank)
@@ -638,7 +708,7 @@ def _fn(which, fwd, bwd):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 @pytest.mark.parametrize("bad,match", [
-    ({"rank": 65}, "rank=65"),
+    ({"rank": 257}, "rank=257"),
     ({"c_out": 257}, "c_out=257 outside the kernel's 1..256"),
     ({"c_in": 0}, "c_in=0"), ({"rows_blk": 16}, "rows_blk=16"),
     ({"blk": 32}, "blk=32")])

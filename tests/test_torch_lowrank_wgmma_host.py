@@ -6,10 +6,12 @@ relies on, the wgmma accumulator's column -> (channel, q) mapping, the chunk
 schedules and column and row tiles (ranks up to 64, widths and K up to
 128), the padded head of a rank that is not a
 multiple of 8 (pad_head's copy of w3, b3 staged padded, dw3/db3 written back
-to the model's columns), a numpy emulation of both kernels' tile loops
+to the model's columns), the slabs of 64 past rank 64 (the column map at
+every rank 1-256), a numpy emulation of both kernels' tile loops
 (the w3 pieces they stage, the accumulator values each thread holds, the
-per-thread sums and quad shuffles) against the plain versions' indexing, and
-the wrappers refusing geometry they do not take."""
+per-thread sums and quad shuffles; past rank 64 slab by slab) against the
+plain versions' indexing, and the wrappers refusing geometry they do not
+take."""
 
 import numpy as np
 import pytest
@@ -245,21 +247,30 @@ def test_lowrank_weight_tiles_cover_the_output_once(rank, c_in, c_out):
 # numpy emulation of the kernels' tile loops (float64, one 64-slot tile)
 
 
-def _stage(w3, kind, lo, cw, depth, real, rank, c_in, d0=0):
+def slab_col(c, s, r, rp):
+    """lowrank_wgmma.cuh slab_col: the padded head's column of column c of
+    slab s's head at rank r (channel c // r, q = r s + c % r)."""
+    return c // r * rp + s * r + c % r
+
+
+def _stage(w3, kind, lo, cw, depth, real, rank, c_in, d0=0, rp=None, s0=0):
     """The B operand [128 columns, depth] as ChunkCopy copies it for the
     stage of a chunk from depth row d0 on: piece p of 8 columns at depth
     row d0 + d read as 8 consecutive entries of w3 from the piece's offset
-    (lowrank_wgmma.cuh), zeros outside the chunk."""
+    (lowrank_wgmma.cuh), zeros outside the chunk.  Past rank 64 (kSlab) the
+    chunk's columns are those of the slab whose first q is s0 (its head at
+    ``rank`` 64) in w3 padded to ``rp``."""
+    rp = rank if rp is None else rp
     ncol = w3.shape[1]
     flat = w3.reshape(-1)
     d = d0 + np.arange(depth)[None, :]
     n = np.arange(0, 128, 8)[:, None]
     ok = (d < real) & (n < cw)
     if kind == "uv":
-        off = d * ncol + lo + n
+        off = d * ncol + slab_col(lo + n, s0 // rank, rank, rp)
     else:
         kk, q = (lo + n) // rank, (lo + n) % rank
-        off = kk * ncol + (rank * c_in if kind == "q" else 0) + d * rank + q
+        off = kk * ncol + (rp * c_in if kind == "q" else 0) + d * rp + s0 + q
     vals = flat[np.where(ok, off, 0)[..., None] + np.arange(8)]
     vals = np.where(ok[..., None], vals, 0.0)  # [piece, depth, 8]
     return vals.transpose(0, 2, 1).reshape(128, depth)
@@ -271,7 +282,8 @@ def _ring_depth(dmax):
     return dmax if dmax <= 128 else 64
 
 
-def _staged(a, w3, kind, lo, cw, depth, real, rank, c_in, bd):
+def _staged(a, w3, kind, lo, cw, depth, real, rank, c_in, bd, rp=None,
+            s0=0):
     """A chunk's product as the kernels run it: stage by stage of bd deep
     (product_stage), each stage's B copied by ChunkCopy, into one
     accumulator."""
@@ -280,7 +292,7 @@ def _staged(a, w3, kind, lo, cw, depth, real, rank, c_in, bd):
         dd = min(bd, depth - d0)
         acc = acc + _products(a[:, d0:d0 + dd],
                               _stage(w3, kind, lo, cw, dd, real, rank, c_in,
-                                     d0))
+                                     d0, rp, s0))
     return acc
 
 
@@ -317,10 +329,13 @@ def _plain(o, rank, c_in):
                 dh=duv @ o["w3"].T)
 
 
-def _emulate(o, rank, c_in, c_out, k, backward):
+def _emulate(o, rank, c_in, c_out, k, backward, rp=None, slab=0):
     """Both kernels' chunk loops over one tile, thread by thread: t and dt
     accumulated per thread at its q (tq, dq [thread, half, r/8, 2]), msg,
-    dx_src and dh as per-thread partials summed over each quad."""
+    dx_src and dh as per-thread partials summed over each quad.  With
+    ``rp`` (past rank 64): slab ``slab``'s walk at ``rank`` 64 on w3 and b3
+    padded to rp, its terms of msg, dx_src and dh and its t and dt."""
+    s0 = 64 * slab if rp is not None else 0
     r8, g = rank // 8, 128 // rank
     kp, dpi, dpo = (-(-n // 16) * 16 for n in (k, c_in, c_out))
     rows = acc_row(THREADS, VALUES)
@@ -339,18 +354,19 @@ def _emulate(o, rank, c_in, c_out, k, backward):
         real = ch < cw // rank
         if kind in "uv":
             acc = _staged(_pad(o["h"], kp), o["w3"], "uv", lo, cw, kp, k,
-                          rank, c_in, bd)
+                          rank, c_in, bd, rp, s0)
             base = lo // rank - (c_in if kind == "v" else 0)  # first channel
             # the chunk's b3 as ChunkCopy copies it beside its w3 columns
             bias = np.zeros(128)
-            bias[:cw] = o["b3"][lo:lo + cw]
+            bias[:cw] = o["b3"][slab_col(lo + np.arange(cw), slab, rank,
+                                         rp or rank)]
             uv = acc + bias[np.minimum(ch * rank + q, 127)]
             chan = base + ch
         else:
             a, depth, real_d = ((o["x"], dpi, c_in) if kind == "p"
                                 else (o["d"], dpo, c_out))
             acc = _staged(_pad(a, depth), o["w3"], kind, lo, cw, depth,
-                          real_d, rank, c_in, bd)
+                          real_d, rank, c_in, bd, rp, s0)
             chan = lo // rank + ch
         if kind == "u":
             xv = o["x"][rows, np.minimum(chan, c_in - 1)]
@@ -524,6 +540,122 @@ def test_padded_backward_matches_plain_indexing(rank, c_in, c_out, k):
                                atol=1e-9)
 
 
+# ---------------------------------------------------------------------------
+# ranks past 64: slabs of 64
+
+
+def test_slab_column_map_at_every_rank():
+    """At every rank 1-256 (the map alone): rp = padded_rank, 8 ceil(r / 8)
+    up to 64 and 64 ceil(r / 64) past it, runs as lowrank_slabs slabs of
+    lowrank_slab_rank; slab s's column c (channel c // R, q = c % R) is the
+    padded head's column slab_col(c, s), which is the plain index of
+    (channel, R s + q) in the head reshaped [channels, rp]; the slabs cover
+    the padded head once, and real_col sends their columns with q < r to
+    every model column once (channel i r + q), the rest to -1."""
+    c_in, c_out = 3, 2
+    nch = c_in + c_out
+    for rank in range(1, 257):
+        rp = tfc.padded_rank(rank)
+        r, slabs = tfc.lowrank_slab_rank(rank), tfc.lowrank_slabs(rank)
+        assert r * slabs == rp and rank <= rp
+        assert (rp == tfc._round_up(rank, 8) <= 64 if rank <= 64
+                else r == 64 and rp == -(-rank // 64) * 64)
+        grid = np.arange(rp * nch).reshape(nch, rp)
+        seen = []
+        for s in range(slabs):
+            c = np.arange(r * nch)
+            cols = slab_col(c, s, r, rp)
+            assert np.array_equal(cols, grid[c // r, r * s + c % r])
+            seen.append(cols)
+        seen = np.concatenate(seen)
+        assert np.array_equal(np.sort(seen), np.arange(rp * nch))
+        rc = real_col(seen, rp, rank)
+        ch, q = seen // rp, seen % rp
+        assert np.array_equal(rc >= 0, q < rank)
+        assert np.array_equal(rc[rc >= 0], (ch * rank + q)[rc >= 0])
+        assert np.array_equal(np.sort(rc[rc >= 0]), np.arange(rank * nch))
+
+
+def _slab_walks(o, rank, c_in, c_out, k, backward):
+    """Both kernels' tile loops past rank 64, slab by slab on the head
+    padded to rp (pad_head): msg, dx_src and dh summed over the slabs in
+    slab order, t and dt [64, rp] slab beside slab."""
+    rp = tfc.padded_rank(rank)
+    w3p, b3p = _pad_head(o["w3"], o["b3"], rank)
+    out, t, dt = {}, [], []
+    for s in range(tfc.lowrank_slabs(rank)):
+        got = _emulate(dict(o, w3=w3p, b3=b3p), 64, c_in, c_out, k, backward,
+                       rp=rp, slab=s)
+        for name in ("msg", "dx", "dh"):
+            out[name] = out.get(name, 0.0) + got[name]
+        t.append(got["t"])
+        dt.append(got["dt"])
+    return dict(out, t=np.concatenate(t, 1), dt=np.concatenate(dt, 1))
+
+
+# (rank, c_in, c_out, K): 100 (two slabs, the second 36 real), 130 past
+# both widths (three, the last 2 real), 256 past a depth of 128 (four, each
+# chunk in stages of 64)
+SLAB_WALKS = [(100, 9, 7, 33), (130, 5, 3, 20), (256, 3, 2, 140)]
+
+
+@pytest.mark.parametrize("rank,c_in,c_out,k", SLAB_WALKS)
+def test_slab_walks_match_plain_and_float64(rank, c_in, c_out, k):
+    """B3's and B4's rows kernel's loops past rank 64 as the kernels run
+    them (each slab the rank-64 walk on its columns, ChunkCopy reading them
+    through slab_col, the slabs' msg, dx_src and dh added in turn) give the
+    plain version's msg, t, dt, dx_src and dh at rank r (float64, the same
+    sums in another order: 1e-12), t and dt zero at q >= r; the weights
+    kernel's halves, each staging its slab of dt (U) or t (V) as [64][64],
+    give the plain dw3 and db3 in the model's columns, each once."""
+    o = _tile(rank, c_in, c_out, k, seed=rank + k)
+    want = _plain(o, rank, c_in)
+    rp = tfc.padded_rank(rank)
+    fwd = _slab_walks(o, rank, c_in, c_out, k, backward=False)
+    np.testing.assert_allclose(fwd["msg"], want["msg"], rtol=1e-12, atol=1e-9)
+    bwd = _slab_walks(o, rank, c_in, c_out, k, backward=True)
+    for name in ("t", "dt"):
+        for got in (fwd, bwd) if name == "t" else (bwd,):
+            np.testing.assert_allclose(got[name][:, :rank], want[name],
+                                       rtol=1e-12, atol=1e-9, err_msg=name)
+            assert not got[name][:, rank:].any(), name
+    for name in ("dx", "dh"):
+        np.testing.assert_allclose(bwd[name], want[name], rtol=1e-12,
+                                   atol=1e-9, err_msg=name)
+    # the weights kernel: thread t of a 128-column tile at n0 takes column
+    # n0 + t; its half (t // 64) stages the 64 columns' slab of dt or t,
+    # [64][64] from rows of rp, read at q % 64
+    ncolp, ru = rp * (c_in + c_out), rp * c_in
+    ncol = rank * (c_in + c_out)
+    tiles, _ = tfc.lowrank_weight_tiles(k, c_in, c_out, rank)
+    assert (tiles - 1) * 128 < ncolp <= tiles * 128
+    out = np.full((k + 1, ncol), np.nan)
+    for n0 in range(0, tiles * 128, 128):
+        staged = {}
+        for hh in range(2):
+            c0 = n0 + 64 * hh
+            if c0 < ncolp:
+                vec = bwd["dt"] if c0 < ru else bwd["t"]
+                staged[hh] = vec[:, c0 % rp:c0 % rp + 64]
+        for tid in range(128):
+            col = n0 + tid
+            if col >= ncolp:
+                continue
+            ch = (col if col < ru else col - ru) // rp
+            fac = o["x"][:, ch] if col < ru else o["d"][:, ch]
+            duv = fac * staged[tid // 64][:, col % rp % 64]
+            rc = real_col(col, rp, rank)
+            if rc < 0:
+                assert not duv.any()
+                continue
+            assert np.isnan(out[:, rc]).all()  # each column once
+            out[:k, rc], out[k, rc] = o["h"].T @ duv, duv.sum()
+    np.testing.assert_allclose(out[:k], o["h"].T @ want["duv"], rtol=1e-12,
+                               atol=1e-9)
+    np.testing.assert_allclose(out[k], want["duv"].sum(0), rtol=1e-12,
+                               atol=1e-9)
+
+
 @pytest.mark.parametrize("k", [48, 17, 64])
 def test_weights_kernel_split_products_give_dw3(k):
     """The weights kernel's three passes h^T d1 + h^T d2 + h^T d3 over duv's
@@ -555,16 +687,20 @@ CORNERS = [(128, 128, 128), (256, 256, 256), (256, 48, 48), (48, 256, 256),
 def test_lowrank_layouts_fit_shared_memory(dt, k, c_in, c_out):
     """Every B3/B4 kernel's layout (``lowrank_smem_bytes``: B3, B4's rows
     and weights kernels) fits the 227 KB a block may take at every rank
-    1-64, in both types; the bfloat16 weights kernel keeps its two sets of
-    staged operands wherever they fit."""
-    for rank in range(1, 65):
+    1-256 (past 64 the rank-64 layout: one slab at a time), in both types;
+    the bfloat16 weights kernel keeps its two sets of staged operands
+    wherever they fit."""
+    for rank in range(1, 257):
         for kernel in ("fwd", "rows", "weights"):
             got = tfc.lowrank_smem_bytes(dt, k, c_in, c_out, rank, kernel)
             assert 0 < got <= tfc.SMEM_MAX, (kernel, rank, got)
+            if rank > 64:
+                assert got == tfc.lowrank_smem_bytes(dt, k, c_in, c_out, 64,
+                                                     kernel)
         if dt == torch.bfloat16:
             sets = 2 * 3 * 128 * 64
             one = (2 * 64 * 64 + 2 * 64 * (c_in + c_out)
-                   + 2 * 4 * 64 * tfc.padded_rank(rank))
+                   + 2 * 4 * 64 * tfc.lowrank_slab_rank(rank))
             two = sets + 2 * one <= tfc.SMEM_MAX
             assert tfc.lowrank_smem_bytes(dt, k, c_in, c_out, rank,
                                           "weights") == sets + (2 if two else 1) * one
@@ -614,7 +750,7 @@ def _small(rank=16, c=8, k=6):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 @pytest.mark.parametrize("bad,match", [
-    ({"rank": 65}, "rank=65"), ({"rank": 0}, "rank=0"),
+    ({"rank": 257}, "rank=257"), ({"rank": 0}, "rank=0"),
     ({"c_out": 257}, "c_out=257 outside the kernel's 1..256"),
     ({"c_in": 0}, "c_in=0"),
     ({"rows_blk": 16}, "rows_blk=16"), ({"blk": 32}, "blk=32")])

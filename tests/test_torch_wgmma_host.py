@@ -204,7 +204,7 @@ def test_wrappers_refuse_k_past_256_and_cpu_tensors(which):
 
 def test_geometry_limits_are_each_kernels_own():
     """B1 and B2 take K, c_in and c_out up to 256, B3 and B4 the same at
-    ranks up to 64: 257 and rank 65 are refused before any launch."""
+    ranks up to 256: 257 and rank 257 are refused before any launch."""
     conv = dict(K=256, c_in=256, c_out=256)
     tfc._check_geometry(torch.float32, 128, 64, 64, **conv)
     with pytest.raises(ValueError, match="K=257 outside the kernel's 1..256"):
@@ -212,11 +212,11 @@ def test_geometry_limits_are_each_kernels_own():
     with pytest.raises(ValueError, match="c_in=257 outside the kernel's 1..256"):
         tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=48, c_in=257,
                             c_out=48, rank=16)
-    with pytest.raises(ValueError, match="rank=65 outside the kernel's 1..64"):
+    with pytest.raises(ValueError, match="rank=257 outside the kernel's 1..256"):
         tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=48, c_in=48,
-                            c_out=48, rank=65)
+                            c_out=48, rank=257)
     tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=256, c_in=256,
-                        c_out=256, rank=64)
+                        c_out=256, rank=256)
 
 
 def test_bf16_product_split_is_exact():
