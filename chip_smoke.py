@@ -18,7 +18,8 @@ non-zero without the final result line:
              next one; and B5, the per-edge messages of conv mode 'pallas',
              float32 on the tensor cores through exact bf16 splits as
              csrc/fused_edge_messages_wgmma.cu on the float32 B1's column
-             chunks; B1, B2 and B5 take widths and K up to 256)
+             chunks; one launch of B1, B2 or B5 takes widths and K up to
+             256, past it the wrappers run pieces of at most 256 of each)
              from the checkout, one nvcc each, started together; prints
              ptxas's registers and spills of the tensor-core kernels, their
              blocks per SM, chunks and shared memory (each held to the
@@ -180,13 +181,43 @@ to 2 epochs (its loss is recorded, not held to fall).
              fused train step in each type (``[w256r_*]``, ``[w256r<r>_*]``
              lines).
 
-             Phase 7's CPU side of the wide paths (widths 128 and 256, full
-             rank and rank 32, and rank 100 at 256) runs in one worker process,
-             started once the meshes exist, while the card's phases go on
-             (the plain steps at width 256 take 90-110 s), and saves each
-             step's starting state, loss and gradients for the card's
-             side; each path's ``*_parity`` line with ``cpu=worker`` gives
-             the worker's seconds and how long the path waited for them.
+   width 320 — the width-128 path's config at width 320 (K = 320, depth
+             2; B1, B2 and B5 past 256: the wrappers cut each of K, c_in
+             and c_out into pieces of at most 256, two of 160 here, and run
+             each piece on the existing instances, eight launches a layer,
+             their results added in a fixed order): both full-size meshes
+             served (4 x 8 B1 launches each, every .vtu finite), the small
+             mesh against the CPU's float32 plain prediction, in 'edge3d'
+             on the card and in 'pallas' (B5, 2 x 8 launches) against it;
+             ``train_graph_ALDD`` for one epoch in bfloat16 and in float32;
+             phase 7's float32 parity card vs CPU; B1 and B2 against their
+             plain versions at (c_in, c_out, K) = (320, 320, 320), (257,
+             257, 257), (300, 520, 264), (264, 136, 520), (600, 40, 17) and
+             (512, 512, 512) on the leading receiver blocks of the
+             full-size chunk (fewer than 16 where the plain versions'
+             [slots, c_in c_out] arrays would pass ``PLAIN_BYTES``), both
+             types, both S forms, repeated launches bit-identical; their
+             times at 320 on the full-size chunk, the warm request and a
+             fused train step in each type; TEECNet at width 320 (K 128,
+             four pieces a layer) serving one full-size request and trained
+             one epoch, its B1 and B2 checked and timed at its chunk
+             (``[w320_*]``, ``[teecnet_w320_*]`` lines).
+
+             Phase 7's CPU side of every path runs in one worker process at
+             niceness ``PARITY_NICE``, started right after the build, while
+             the card's phases go on (the plain steps take 90-190 s at
+             width 256, 310-340 s at 320), and saves each step's starting
+             state, loss and gradients for the card's side; each path's
+             ``*_parity`` line with ``cpu=worker`` gives the worker's
+             seconds, how long the path waited for them and when they
+             ended (``ended_at_s``, from the start of the run).  The CPU
+             references of the phases after the first path (the float32
+             plain predictions from the ``*_cpu`` checkpoints, and phase
+             25's CPU steps) run in a second worker at niceness
+             ``REF_NICE``, also from the build's end, in the order the
+             phases need them (``start_references``, ``cpu_prediction``);
+             both workers are stopped while a phase is timed (``quiet``).
+             The meshes and checkpoints are made while the build runs.
 
 9. pallas  — KernelNN and TEECNet built with ``mode='pallas'`` serve one
              full-size mesh each with FESR_FUSED_PREDICT=0 (the general lane's
@@ -200,7 +231,10 @@ to 2 epochs (its loss is recorded, not held to fall).
              (``model=kernelnn_w256``: K 256, 4 launches;
              ``model=teecnet_w256``: K 128, 10 launches) in 'pallas' alone
              ('edge3d' would build [E, c_in c_out] arrays of 67 GB; their
-             small mesh is held to 'edge3d' in the width-256 path).  B5
+             small mesh is held to 'edge3d' in the width-256 path), and
+             for the width-320 path's (``model=kernelnn_w320``: K 320, 4 x
+             8 launches; ``model=teecnet_w320``: K 128, 10 x 4 launches),
+             pieces of at most 256.  B5
              against its plain version at the six chunk shapes (K 48, K 128
              at width 48; K = c_in = c_out = 128 twice; K = c_in = c_out =
              256, and K 128 at c_in = c_out = 256), repeated launches
@@ -214,7 +248,11 @@ to 2 epochs (its loss is recorded, not held to fall).
              ``bound_fma_ms`` the former).  B5 alone, checked the same way,
              at (K, c_in, c_out) = (256, 256, 256), (128, 256, 256), (256,
              48, 200), (96, 200, 72), (129, 129, 129) and (200, 136, 250) on
-             the leading ``MSG_SLICE`` edges of the width-256 chunk.
+             the leading ``MSG_SLICE`` edges of the width-256 chunk, and as
+             pieces at the width-320 path's six shapes as (K, c_in, c_out)
+             on the width-320 chunk's leading edges (fewer where the plain
+             version's array would pass ``PLAIN_BYTES``), each piece's
+             stage image bit-equal to ``stage_image``'s.
 
 10. routed — the paper's routed pipeline at the full width of
              configs/exp_config/neuralop_synthetic_full.yaml with
@@ -383,6 +421,7 @@ The second-to-last line is a JSON object with the kernels' numbers, the last
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import io
@@ -408,7 +447,8 @@ from fast_eng_super_resolution_tpu_torch.data.tensorize import cells_to_edges  #
 from fast_eng_super_resolution_tpu_torch.data.vtu import read_vtu  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.models.kernelnn import KernelNN  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.models.registry import init_model  # noqa: E402
-from fast_eng_super_resolution_tpu_torch.models.teecnet import TEECNet, _leaky_relu  # noqa: E402
+from fast_eng_super_resolution_tpu_torch.models.teecnet import (  # noqa: E402
+    _EDGE_HIDDEN, TEECNet, _leaky_relu)
 from fast_eng_super_resolution_tpu_torch.ops import fused_conv, pallas_mp  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.ops.loss import gradient_weight_scalar  # noqa: E402
 from fast_eng_super_resolution_tpu_torch.ops.message_passing import apply_edge_mlp_hidden  # noqa: E402
@@ -440,6 +480,7 @@ TEECNET_CONFIG = os.path.join(REPO, "configs", "exp_config",
                               "teecnet_ansys.yaml")
 TEECNET_TRAIN = os.path.join(REPO, "configs", "train_config", "teecnet.yaml")
 TEECNET_EPOCHS = 2  # the one cut of teecnet.yaml (151 epochs)
+TEECNET_K = _EDGE_HIDDEN[-1]  # its operator kernel's K (128)
 # the routed path: the full config with this config's n_clusters and
 # n_components added in memory, trained TRAIN_EPOCHS epochs
 ROUTED_CONFIG = os.path.join(REPO, "configs", "exp_config",
@@ -489,12 +530,26 @@ WIDE_STEP_REPS = 3
 WIDER = 256
 WIDER_EPOCHS = 1
 # its kernels take 35-420 ms a launch and a train step 2-3 s: each timed
-# over fewer launches and steps than the narrower paths' (20, 5); B5 at its
-# chunks (50-95 ms) over WIDER_REPS too
+# over fewer launches and steps than the narrower paths' (20, 5), after
+# one warm-up, not 3, the plain versions over 3 calls, not 5
+# (``timing_reps``); B5 at its chunks (50-95 ms) over WIDER_REPS too
 WIDER_REPS = 3
 WIDER_STEP_REPS = 1
 WIDER_CHECKED = ((256, 256, 256), (256, 256, 128), (129, 129, 129),
                  (136, 250, 200), (48, 256, 256), (256, 40, 72))
+# the width-320 path (B1, B2 and B5 past 256: pieces of at most 256 of each
+# of K, c_in and c_out on the existing instances, ``fused_conv.width_pieces``;
+# two of 160 in each at 320, eight launches a layer): the width-256 path's
+# config at width 320 (K 320), depth 2, one epoch a type; B1 and B2 held
+# against their plain versions at WIDEST_CHECKED (c_in, c_out, K) on the
+# leading slice, with fewer receiver blocks where the plain versions'
+# [slots, c_in c_out] float32 arrays would pass PLAIN_BYTES (B5 likewise at
+# (K, c_in, c_out) on fewer edges); TEECNet at width 320 (K 128: four
+# pieces a layer) served in both lanes and trained one epoch
+WIDEST = 320
+WIDEST_CHECKED = ((320, 320, 320), (257, 257, 257), (300, 520, 264),
+                  (264, 136, 520), (600, 40, 17), (512, 512, 512))
+PLAIN_BYTES = 4 << 30
 # the width-128 rank-r path (B3 and B4 past width 64, K 64 and rank 32):
 # the width-128 path's config at kernel_rank WIDE_RANK, its training's epoch
 # cut, the (c_in, c_out, K, rank) at which B3 and B4 are held against their
@@ -521,7 +576,9 @@ WIDE_RANK_TIMED = (32,)
 # 128 at 128, 129 at 65, 136 x 250 at 97, and 200 past both widths of 40 x
 # 48: the plain rank-256 uv there is [16 384, 131 072] float32, 8.6 GB) and
 # timed at WIDER_RANK_TIMED on the full-size chunk over WIDER_REPS
-# launches (rank 64 by lowrank_step_check.py --width 256)
+# launches (rank 64 by lowrank_step_check.py --width 256; rank 100, the
+# top rank, is served and held but no longer timed: room for the
+# width-320 path)
 WIDER_RANK_TOP = 100
 WIDER_RANK_CHECKED = ((256, 256, 256, 64), (256, 256, 256, 32),
                       (129, 129, 129, 57), (136, 250, 200, 33),
@@ -529,14 +586,30 @@ WIDER_RANK_CHECKED = ((256, 256, 256, 64), (256, 256, 256, 32),
                       (256, 256, 256, 256), (256, 256, 256, 100),
                       (128, 128, 128, 128), (129, 129, 129, 65),
                       (136, 250, 200, 97), (40, 48, 72, 200))
-WIDER_RANK_TIMED = (32, 100, 256)
+WIDER_RANK_TIMED = (32, 256)
 # phase 7's CPU side of every path (plain versions on the small mesh:
 # 90-110 s at width 256) runs in one worker process while the card's
 # phases go on (torch's default threads, as in this process: the same
 # bits), stopped while a phase is timed (``quiet``: its pid, from
 # ``start_parity``, and the seconds it was stopped); the card's side and
 # the check stay in their paths
-PARITY_WORKER = {"pid": None, "stopped_s": 0.0}
+PARITY_WORKER = {"pid": None, "stopped_s": 0.0, "t0": None}
+# the worker processes ``quiet`` stops (futures of their pids): phase 7's
+# worker and the reference worker
+QUIET = []
+# the CPU references of the phases after the first path (the port's float32
+# plain predictions from the seeded ``*_cpu`` checkpoints, and the closing
+# phase's CPU steps), computed in one more worker process from the build's
+# end on, in the order the phases need them (``start_references``), so that
+# no phase waits for its own: key -> future of (result, seconds)
+CPU_REFS = {}
+_REF_DATA = {}  # the reference worker's datasets (mesh -> dataset)
+# its niceness: below this process's, which drives the card, above phase
+# 7's worker's, whose steps are needed last
+REF_NICE = 10
+# its niceness: it takes the cores the card's phases leave (started before
+# the build, even at 19 it slowed the build by 45-80 s on an H100 host)
+PARITY_NICE = 19
 # phase 7's card side of every path, run once the other phases are done
 # (``defer_parity``, ``run_parities``), when the worker's steps are ready:
 # (small mesh, config, the worker's future, the path's result dict)
@@ -665,19 +738,21 @@ def log(phase: str, **fields) -> None:
 
 @contextlib.contextmanager
 def quiet():
-    """Stops ``start_parity``'s worker process, if one runs, while the
-    block runs (a timed phase), so that no time is taken beside it."""
-    pid = PARITY_WORKER["pid"]
-    if pid is None:
+    """Stops the worker processes of ``QUIET`` (``start_parity``'s and
+    ``start_references``'), if any run, while the block runs (a timed
+    phase), so that no time is taken beside them."""
+    if not QUIET:
         yield
         return
-    pid = pid.result()
+    pids = [pid.result() for pid in QUIET]
     t0 = time.time()
-    os.kill(pid, signal.SIGSTOP)
+    for pid in pids:
+        os.kill(pid, signal.SIGSTOP)
     try:
         yield
     finally:
-        os.kill(pid, signal.SIGCONT)
+        for pid in pids:
+            os.kill(pid, signal.SIGCONT)
         PARITY_WORKER["stopped_s"] += time.time() - t0
 
 
@@ -697,6 +772,13 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
             b.synchronize()
             times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def timing_reps(reps: int) -> tuple:
+    """(warm-up calls, plain version's timed calls) beside ``reps`` timed
+    kernel launches: past width 128 (``WIDER_REPS``, launches of tens to
+    hundreds of ms) one warm-up and 3 plain calls, else 3 and 5."""
+    return (1, 3) if reps <= WIDER_REPS else (3, 5)
 
 
 @contextlib.contextmanager
@@ -736,11 +818,12 @@ def check_only(label: str, want: dict) -> None:
 def prefix(model) -> str:
     """The log prefix of the path ``model`` runs: '' (KernelNN at full
     rank), 'lowrank_' (KernelNN at rank ``RANK``), 'rank<r>_' (at another
-    rank r) or 'teecnet_'; at width ``WIDE`` (``WIDER``) 'w128_' ('w256_')
-    and 'teecnet_w128_' ('teecnet_w256_'), and at a rank 'w128r_'
-    ('w256r_'; rank ``WIDE_RANK``) or 'w128r<r>_' ('w256r<r>_')."""
+    rank r) or 'teecnet_'; at width ``WIDE`` (``WIDER``, ``WIDEST``)
+    'w128_' ('w256_', 'w320_') and 'teecnet_w128_' ('teecnet_w256_',
+    'teecnet_w320_'), and at a rank 'w128r_' ('w256r_'; rank
+    ``WIDE_RANK``) or 'w128r<r>_' ('w256r<r>_')."""
     width = getattr(model, "width", None)
-    wide = f"w{width}_" if width in (WIDE, WIDER) else ""
+    wide = f"w{width}_" if width in (WIDE, WIDER, WIDEST) else ""
     if isinstance(model, TEECNet):
         return "teecnet_" + wide
     if model.kernel_rank is None:
@@ -753,6 +836,16 @@ def prefix(model) -> str:
 
 def rank_of(model):
     return getattr(model, "kernel_rank", None)
+
+
+def pieces_per_call(cfg: dict) -> int:
+    """Launches of B1, B2 or B5 per conv layer of ``cfg``'s model: one up
+    to a K, c_in and c_out of 256, past it one per piece
+    (``fused_conv.width_pieces``); K is the width for KernelNN, the
+    operator kernel's last hidden width for TEECNet."""
+    w = cfg["width"]
+    k = w if cfg["model"] == "neuralop" else TEECNET_K
+    return fused_conv.piece_count(k, w, w)
 
 
 def make_model(cfg: dict):
@@ -912,6 +1005,16 @@ def check_repeat(label: str, at: str, dt: str, dense: bool, first,
         raise AssertionError(f"{label} at {at} {dt}: two launches differ")
 
 
+def locked_build() -> tuple:
+    """``fused_conv.build_kernel(force=True)`` under the lock that loading a
+    library takes, so that nothing loads one before the build is done;
+    (the library paths, seconds)."""
+    t0 = time.time()
+    with fused_conv._lib_lock:
+        libs = fused_conv.build_kernel(force=True)
+    return libs, time.time() - t0
+
+
 def log_ptxas() -> None:
     """Registers and spills of the tensor-core kernels, as ptxas reported
     them when the libraries were built (and any wgmma serialization it
@@ -919,7 +1022,8 @@ def log_ptxas() -> None:
     (B1/B2 in both types, B5), at width and K 96 and 128 (B1/B2; B5 at
     128), at width 256 and K 256 and 128 and the width-256 path's checked
     shapes (B1/B2, with their chunks; their shared memory must equal the
-    wrapper's mirror, ``fused_conv.conv_smem_bytes``), at K 48, rank 16,
+    wrapper's mirror, ``fused_conv.conv_smem_bytes``), at the widest piece
+    of each of the width-320 path's shapes (B1/B2), at K 48, rank 16,
     at width 128 and at ``WIDER_RANK_CHECKED`` (B3/B4 in both types; their
     shared memory must equal ``fused_conv.lowrank_smem_bytes``) and at
     ``MSG_CHECKED`` (B5; its shared memory must equal
@@ -973,6 +1077,11 @@ def log_ptxas() -> None:
                                      (WIDER, WIDER), (128, WIDER))]
     shapes += [(k, c_in, c_out) for c_in, c_out, k in WIDER_CHECKED
                if (k, c_in, c_out) not in shapes]
+    # past 256 the widest piece's instance (fused_conv.piece_width) of each
+    # of the width-320 path's shapes
+    shapes += [piece for c_in, c_out, k in WIDEST_CHECKED
+               if (piece := tuple(fused_conv.piece_width(v)
+                                  for v in (k, c_in, c_out))) not in shapes]
     for k, c_in, c_out in shapes:
         c = dict(c=c_in) if c_in == c_out else dict(c_in=c_in, c_out=c_out)
         log("ptxas", k=k, **c,
@@ -1125,14 +1234,13 @@ def phase_serve(root: str, datasets: dict, models: dict, cfgs: dict,
     # the card's bf16 serving against the port's float32 plain version on the
     # CPU, same checkpoint and mesh
     for name in ("full", "small"):
-        t0 = time.time()
-        _, (ref,) = serve(datasets[name], models[name], [0], log_dir,
-                          name + tag + "_cpu", "cpu", gemm_dtype="float32")
+        ref, cpu_s = cpu_prediction(datasets[name], models[name], log_dir,
+                                    name + tag + "_cpu")
         for key in ("velocity", "pressure"):
             r, g = ref[key], card[(name, 0)][key]
             rel = np.abs(g - r).max() / np.abs(r).max()
             log(label, mesh=name, field=key, vs_cpu_f32=f"{rel:.3e}",
-                tol=SERVE_TOL, cpu_s=f"{time.time() - t0:.1f}")
+                tol=SERVE_TOL, cpu_s=f"{cpu_s:.1f}")
             if not rel <= SERVE_TOL:
                 raise AssertionError(f"{name} {key}: {rel:.3e} > {SERVE_TOL}")
     return launches
@@ -1149,6 +1257,7 @@ def fwd_times(op, smi, plain_op=None, reps: int = 20) -> dict:
     t = {}
     rank = op["rank"]
     _, plain, launcher = FWD[rank is not None]
+    warm, plain_reps = timing_reps(reps)
     log(op["tag"] + "times", kernel="fwd", k=op["h"].shape[1],
         c=op["x"].shape[1])
 
@@ -1163,16 +1272,17 @@ def fwd_times(op, smi, plain_op=None, reps: int = 20) -> dict:
             h, x, w3 = typed_operands(op, tdt)
             t[f"ms_{dt}"] = cuda_ms(lambda: launcher(
                 h, x, op["sp"], w3, op["b3"], op["s"], **layer_kw(op)),
-                reps=reps)
+                reps=reps, warm=warm)
             if plain_op is not None:
                 h, x, w3 = typed_operands(plain_op, tdt)
                 t[f"ms_at_plain_slots_{dt}"] = cuda_ms(lambda: launcher(
                     h, x, plain_op["sp"], w3, plain_op["b3"], plain_op["s"],
-                    **layer_kw(plain_op)), reps=reps)
+                    **layer_kw(plain_op)), reps=reps, warm=warm)
             po = op if plain_op is None else plain_op
             t[f"plain_ms_{dt}"] = cuda_ms(
                 lambda: plain(h, x, po["sp"], w3, po["b3"], po["s"],
-                              gemm_dtype=dt, **layer_kw(po)), reps=5)
+                              gemm_dtype=dt, **layer_kw(po)),
+                reps=plain_reps, warm=warm)
     if plain_op is not None:
         t["plain_slots"] = plain_op["h"].shape[0]
     # bound: real slots' operations at the input type's peak vs every input
@@ -1262,9 +1372,10 @@ def warm_ms(fn, reps: int = 5) -> float:
 
 
 def warm_request(ds, model, log_dir: str, exp: str, n: int = 1,
-                 **routing) -> tuple:
-    """(median wall ms of 5 full-size requests of mesh 0 after one warm-up,
-    the request): predict + host overlap average, ending in a device sync,
+                 reps: int = 5, **routing) -> tuple:
+    """(median wall ms of ``reps`` full-size requests of mesh 0 after one
+    warm-up, the request): predict + host overlap average, ending in a
+    device sync,
     on a scheduler serving ``model`` from exp ``exp``'s checkpoints (``n``
     experts, routed by ``routing``'s encoder and classifier)."""
     from fast_eng_super_resolution_tpu_torch.data.reconstruct import overlap_average
@@ -1279,7 +1390,7 @@ def warm_request(ds, model, log_dir: str, exp: str, n: int = 1,
         pred_l, _, _, _ = sched.predict(x)
         return overlap_average(pred_l, gids, num_nodes)
 
-    return warm_ms(request), request
+    return warm_ms(request, reps), request
 
 
 def profile_call(fn, label: str) -> dict:
@@ -1428,6 +1539,14 @@ def phase_bwd(bop, small_merged, small_model) -> dict:
     return errs
 
 
+def train_indices(ds, cfg: dict, subset=None) -> tuple:
+    """The subdomains of ``train_batches``' train and val batch."""
+    subset = np.arange(len(ds)) if subset is None else np.asarray(subset)
+    tr_idx, va_idx = train_val_split(len(subset), 0.2, 0)
+    bs = min(load_yaml(cfg["train_config"])["batch_size"], len(tr_idx))
+    return subset[tr_idx[:bs]], subset[va_idx[:bs]]
+
+
 def train_batches(ds, cfg: dict, subset=None):
     """(model, [train batch, val batch], rows_blk, blk): the first train and
     the first val batch ``PartitionScheduler.train`` builds for ``ds`` (or
@@ -1435,10 +1554,7 @@ def train_batches(ds, cfg: dict, subset=None):
     config's batch size (the 12 train and the 4 val subdomains whole at a
     batch size of 16) — each merged into one graph, both blocked with one
     common blk — on the card, with a seeded full-width model."""
-    subset = np.arange(len(ds)) if subset is None else np.asarray(subset)
-    tr_idx, va_idx = train_val_split(len(subset), 0.2, 0)
-    bs = min(load_yaml(cfg["train_config"])["batch_size"], len(tr_idx))
-    tr_idx, va_idx = subset[tr_idx[:bs]], subset[va_idx[:bs]]
+    tr_idx, va_idx = train_indices(ds, cfg, subset)
     model = make_model(cfg).cuda()
     fbs, rows_blk, blk = make_fused_batches(
         [merged_subdomains(ds, ix) for ix in (tr_idx, va_idx)], model)
@@ -1598,13 +1714,14 @@ def same_branches(masks: list, replay: bool):
 def parity_steps(small_merged, cfg: dict, dev: str, start=None) -> tuple:
     """Three float32 fused train steps of ``cfg``'s seeded model on ``dev``
     (on the card the kernels, depth launches of the forward and of the
-    backward kernel per step, counted and checked; on the CPU the plain
-    versions).  Without ``start`` (the CPU) each step records the state it
-    starts from (the parameters and Adam's moments) and its activations'
-    branches (``same_branches``); with ``start`` (the CPU's steps) each step
-    first loads that state and takes those branches.  Returns (per step its
-    loss, each parameter's gradient, and the state and branches (the CPU)
-    or the flipped branches (the card); the path's parity label)."""
+    backward kernel per step (past 256 one per piece), counted and checked;
+    on the CPU the plain versions).  Without ``start`` (the CPU) each step
+    records the state it starts from (the parameters and Adam's moments)
+    and its activations' branches (``same_branches``); with ``start`` (the
+    CPU's steps) each step first loads that state and takes those
+    branches.  Returns (per step its loss, each parameter's gradient, and
+    the state and branches (the CPU) or the flipped branches (the card);
+    the path's parity label)."""
     lr = load_yaml(cfg["train_config"])["lr"]
     rank = cfg.get("kernel_rank")
     kernels = (FWD[rank is not None][0], BWD[rank is not None][0])
@@ -1635,7 +1752,8 @@ def parity_steps(small_merged, cfg: dict, dev: str, start=None) -> tuple:
     label = prefix(model) + "parity"
     if dev == "cuda":
         torch.cuda.synchronize()
-        want = {k: 3 * cfg["num_layers"] for k in kernels}
+        want = {k: 3 * cfg["num_layers"] * pieces_per_call(cfg)
+                for k in kernels}
         check_only(label, want)
         log(label, dtype="float32",
             design=fused_conv.design(torch.float32, rank),
@@ -1645,26 +1763,109 @@ def parity_steps(small_merged, cfg: dict, dev: str, start=None) -> tuple:
 
 def cpu_parity(small_merged, cfg: dict, path: str) -> tuple:
     """``parity_steps`` on the CPU in a worker process (``start_parity``),
-    its steps saved to ``path``: (losses, seconds, path)."""
+    its steps saved to ``path``: (losses, seconds, path, the time it
+    ended)."""
     t0 = time.time()
     steps = parity_steps(small_merged, cfg, "cpu")[0]
     torch.save(steps, path)
-    return [st["loss"] for st in steps], time.time() - t0, path
+    return [st["loss"] for st in steps], time.time() - t0, path, time.time()
 
 
 def start_parity(small_merged, cfgs: dict, root: str):
     """Starts phase 7's CPU side of each config of ``cfgs`` (key -> config)
-    in one worker process, in order, so that the plain steps overlap the
-    card's phases, each saving its steps under ``root``, and gives
-    ``quiet`` its pid; returns (pool, key -> future of ``cpu_parity``)."""
+    in one worker process at ``PARITY_NICE``, in order, so that the plain
+    steps overlap the card's phases, each saving its steps
+    under ``root``, and gives ``quiet`` its pid; returns (pool, key ->
+    future of ``cpu_parity``)."""
     import concurrent.futures as cf
     import multiprocessing as mp
 
-    pool = cf.ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    pool = cf.ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"),
+                                  initializer=os.nice,
+                                  initargs=(PARITY_NICE,))
     PARITY_WORKER["pid"] = pool.submit(os.getpid)
+    QUIET.append(PARITY_WORKER["pid"])
     return pool, {key: pool.submit(cpu_parity, small_merged, cfg,
                                    os.path.join(root, f"parity_{key}.pt"))
                   for key, cfg in cfgs.items()}
+
+
+def stop_on_error(pid):
+    """An exit callback that kills the worker process (``pid``: a future of
+    its pid) when the run fails, so that its pool's shutdown need not wait
+    for the plain steps it is running."""
+    def stop(exc_type, exc, tb) -> bool:
+        if exc_type is not None and pid.done():
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid.result(), signal.SIGCONT)
+                os.kill(pid.result(), signal.SIGKILL)
+        return False
+    return stop
+
+
+def _ref_init(datasets: dict) -> None:
+    os.nice(REF_NICE)
+    _REF_DATA.update(datasets)
+
+
+def _ref_prediction(mesh: str, cfg: dict, log_dir: str, exp: str) -> tuple:
+    """``cpu_prediction``'s work in the reference worker."""
+    t0 = time.time()
+    _, (ref,) = serve(_REF_DATA[mesh], make_model(cfg), [0], log_dir, exp,
+                      "cpu", gemm_dtype="float32")
+    return ref, time.time() - t0
+
+
+def closing_cpu_steps(graph, cfg: dict) -> tuple:
+    """``closing_fused_custom``'s CPU side: its steps in the merged layout
+    ('edge3d', plain torch) with ``FESR_LOSS_VJP=custom`` on ``graph`` (the
+    train cell's batch, on the CPU); (losses, seconds)."""
+    t0 = time.time()
+    with env_set("FESR_LOSS_VJP", "custom"):
+        tr = Trainer(make_mode_model(cfg, "edge3d"),
+                     lr=load_yaml(cfg["train_config"])["lr"])
+        opt = tr.init()
+        losses = np.array([float(tr.step(opt, graph))
+                           for _ in range(CLOSING_STEPS)])
+    return losses, time.time() - t0
+
+
+def _ref_closing(cfg: dict) -> tuple:
+    """``closing_cpu_steps`` in the reference worker, on the batch that
+    ``train_batches`` builds, built here on the CPU."""
+    ds = _REF_DATA["full"]
+    return closing_cpu_steps(
+        merged_subdomains(ds, train_indices(ds, cfg)[0]).to_torch("cpu"), cfg)
+
+
+def start_references(datasets: dict, jobs: dict):
+    """Starts the CPU references ``jobs`` (key -> (function, args)) in one
+    worker process at ``REF_NICE`` (torch's default threads, as in this
+    process: the same bits), in order, into ``CPU_REFS``, and gives
+    ``quiet`` its pid; returns the pool."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    pool = cf.ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"),
+                                  initializer=_ref_init, initargs=(datasets,))
+    QUIET.append(pool.submit(os.getpid))
+    CPU_REFS.update({key: pool.submit(fn, *args)
+                     for key, (fn, args) in jobs.items()})
+    return pool
+
+
+def cpu_prediction(ds, model, log_dir: str, exp: str) -> tuple:
+    """(the port's float32 plain prediction of mesh 0 on the CPU from exp
+    ``exp``'s checkpoint: the .vtu's point data, its seconds): the
+    reference worker's, where ``start_references`` queued it, else computed
+    here."""
+    ref = CPU_REFS.pop(exp, None)
+    if ref is not None:
+        return ref.result()
+    t0 = time.time()
+    _, (ref,) = serve(ds, model, [0], log_dir, exp, "cpu",
+                      gemm_dtype="float32")
+    return ref, time.time() - t0
 
 
 def phase_parity(small_merged, cfg: dict, cpu) -> dict:
@@ -1684,12 +1885,13 @@ def phase_parity(small_merged, cfg: dict, cpu) -> dict:
     Returns each step's errors and how many activations took another
     branch of their own (logged with the largest such |pre-activation|)."""
     t1 = time.time()
-    cpu_losses, cpu_s, path = cpu.result()
+    cpu_losses, cpu_s, path, ended = cpu.result()
     wait_s = time.time() - t1
     start = torch.load(path, weights_only=False)
     os.remove(path)
     card, label = parity_steps(small_merged, cfg, "cuda", start)
-    log(label, cpu="worker", cpu_s=f"{cpu_s:.1f}", wait_s=f"{wait_s:.1f}")
+    log(label, cpu="worker", cpu_s=f"{cpu_s:.1f}", wait_s=f"{wait_s:.1f}",
+        ended_at_s=f"{ended - PARITY_WORKER['t0']:.1f}")
     rels, grad_rels = [], []
     for step, (a, b) in enumerate(zip(card, start)):
         rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
@@ -1741,6 +1943,7 @@ def phase_bwd_times(bop, smi, plain_bop=None, reps: int = 20) -> dict:
     t = {}
     rank = bop["rank"]
     _, plain, launcher = BWD[rank is not None]
+    warm, plain_reps = timing_reps(reps)
 
     def typed_operands(o, tdt):
         return [o[key].to(tdt).contiguous() for key in ("h", "x_src", "w3")]
@@ -1751,16 +1954,18 @@ def phase_bwd_times(bop, smi, plain_bop=None, reps: int = 20) -> dict:
             h, xs, w3 = typed_operands(bop, tdt)
             t[f"ms_{dt}"] = cuda_ms(lambda: launcher(
                 bop["g"], h, xs, w3, bop["b3"], bop["s"], **layer_kw(bop)),
-                reps=reps)
+                reps=reps, warm=warm)
             if plain_bop is not None:
                 h, xs, w3 = typed_operands(plain_bop, tdt)
                 t[f"ms_at_plain_slots_{dt}"] = cuda_ms(lambda: launcher(
                     plain_bop["g"], h, xs, w3, plain_bop["b3"],
-                    plain_bop["s"], **layer_kw(plain_bop)), reps=reps)
+                    plain_bop["s"], **layer_kw(plain_bop)), reps=reps,
+                    warm=warm)
             po = bop if plain_bop is None else plain_bop
             t[f"plain_ms_{dt}"] = cuda_ms(
                 lambda: plain(po["g"], h, xs, w3, po["b3"], po["s"],
-                              gemm_dtype=dt, **layer_kw(po)), reps=5)
+                              gemm_dtype=dt, **layer_kw(po)),
+                reps=plain_reps, warm=warm)
     if plain_bop is not None:
         t["plain_slots"] = plain_bop["h"].shape[0]
     # bound: the real slots' operations at the input type's peak vs every
@@ -1896,8 +2101,9 @@ def train_types(root: str, ds, cfg: dict, epochs: int,
             val_losses=",".join(f"{v:.5g}" for v in vals))
         if len(losses) != epochs or not np.all(np.isfinite(losses + vals)):
             raise AssertionError(f"{label} {dt} losses {losses}, {vals}")
+        n = depth * pieces_per_call(cfg)
         check_only(f"{label} {dt}",
-                   {fwd: depth * (steps + evals), bwd_k: depth * steps})
+                   {fwd: n * (steps + evals), bwd_k: n * steps})
     return out
 
 
@@ -1925,8 +2131,7 @@ def run_rank12(root, smi, datasets, models, cfgs, parity) -> dict:
         design=fused_conv.design(torch.bfloat16, RANK12),
         nodes=len(card["pressure"]))
     check_only(label, {fwd: CHUNKS["full"] * cfg["num_layers"]})
-    _, (ref,) = serve(ds, models["full"], [0], log_dir,
-                      f"full_r{RANK12}_cpu", "cpu", gemm_dtype="float32")
+    ref, _ = cpu_prediction(ds, models["full"], log_dir, f"full_r{RANK12}_cpu")
     for key in ("velocity", "pressure"):
         rel = np.abs(card[key] - ref[key]).max() / np.abs(ref[key]).max()
         log(label, field=key, vs_cpu_f32=f"{rel:.3e}", tol=SERVE_TOL)
@@ -1967,14 +2172,19 @@ def run_rank12(root, smi, datasets, models, cfgs, parity) -> dict:
 
 def wide_slice(op, c_in: int, c_out: int, k: int, rank=None) -> dict:
     """B1's (at a ``rank``, B3's) operands on the leading
-    ``WIDE_SLICE_BLOCKS`` receiver blocks of the chunk ``op``: its senders
-    and S there, and at (c_in, c_out, K, rank) = ``op``'s its own h, x, w3
-    and b3, else seeded ones of those widths (w3 [K, c_in c_out], or the
-    head [K, rank (c_in + c_out)], and b3 scaled so that a message stays of
-    order one)."""
-    slots = WIDE_SLICE_BLOCKS * op["blk"]
+    ``WIDE_SLICE_BLOCKS`` receiver blocks of the chunk ``op`` (B1's on
+    fewer where the plain versions' [slots, c_in c_out] float32 arrays would
+    pass ``PLAIN_BYTES``): its senders and S there, and at (c_in, c_out, K,
+    rank) = ``op``'s its own h, x, w3 and b3, else seeded ones of those
+    widths (w3 [K, c_in c_out], or the head [K, rank (c_in + c_out)], and b3
+    scaled so that a message stays of order one)."""
+    blocks = WIDE_SLICE_BLOCKS
+    if rank is None:
+        blocks = max(1, min(blocks, PLAIN_BYTES // (4 * op["blk"] * c_in
+                                                    * c_out)))
+    slots = blocks * op["blk"]
     s = fused_conv.CompactS(op["s"].slot_rows[:slots],
-                            op["s"].row_weight[:WIDE_SLICE_BLOCKS * op["rows_blk"]])
+                            op["s"].row_weight[:blocks * op["rows_blk"]])
     dev = op["x"].device
     if (c_in, c_out, k, rank) == (op["x"].shape[1], layer_kw(op)["c_out"],
                                   op["h"].shape[1], op["rank"]):
@@ -1991,13 +2201,14 @@ def wide_slice(op, c_in: int, c_out: int, k: int, rank=None) -> dict:
         h, x, w3, b3 = (t.to(dev) for t in (h, x, w3, b3))
     return dict(op, h=h.contiguous(), x=x.contiguous(), sp=op["sp"][:slots],
                 w3=w3.contiguous(), b3=b3.contiguous(), s=s, c_out=c_out,
-                rank=rank, b=f"{WIDE_SLICE_BLOCKS} blocks", msg=None)
+                rank=rank, b=f"{blocks} blocks", msg=None)
 
 
 def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
              width: int = WIDE, checked=WIDE_CHECKED,
              epochs: int = WIDE_EPOCHS, *, parity) -> dict:
-    """A wide path (width 128: B1 and B2 past width 64; 256: past 128).
+    """A wide path (width 128: B1 and B2 past width 64; 256: past 128;
+    320: past 256, as pieces of at most 256, each launch counted).
     Both full-size meshes served (chunks x depth B1 launches each, every
     .vtu finite) and the small mesh against the CPU's float32 plain
     prediction; the path's training in both types (B1 and B2 launch counts
@@ -2043,10 +2254,11 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
                 design=fused_conv.design(torch.bfloat16),
                 nodes=len(fields["pressure"]), finite=True)
             check_only(f"{label} {name} {idx}",
-                       {fwd: CHUNKS[name] * cfgs[name]["num_layers"]})
+                       {fwd: CHUNKS[name] * cfgs[name]["num_layers"]
+                        * pieces_per_call(cfgs[name])})
     lap("serve")
-    _, (ref,) = serve(datasets["small"], models["small"], [0], log_dir,
-                      f"small_w{width}_cpu", "cpu", gemm_dtype="float32")
+    ref, _ = cpu_prediction(datasets["small"], models["small"], log_dir,
+                            f"small_w{width}_cpu")
     for key in ("velocity", "pressure"):
         rel = np.abs(fields[key] - ref[key]).max() / np.abs(ref[key]).max()
         log(label, mesh="small", field=key, vs_cpu_f32=f"{rel:.3e}",
@@ -2083,7 +2295,8 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
             torch.cuda.synchronize()
             small_b5 = b5.launches
             check_only(f"{label} small pallas",
-                       {b5: CHUNKS["small"] * cfgs["small"]["num_layers"]})
+                       {b5: CHUNKS["small"] * cfgs["small"]["num_layers"]
+                        * pieces_per_call(cfgs["small"])})
         for key in ("velocity", "pressure"):
             for vs, r in (("edge3d", edge3d[key]), ("cpu_f32", ref[key])):
                 rel = np.abs(pallas_f[key] - r).max() / np.abs(r).max()
@@ -2134,7 +2347,8 @@ def run_wide(root, smi, datasets, models, cfgs, models_tc, cfgs_tc,
         width=width, depth=cfgs_tc["full"]["num_layers"],
         nodes=len(fields["pressure"]), finite=True)
     check_only(tc_label,
-               {fwd: CHUNKS["full"] * cfgs_tc["full"]["num_layers"]})
+               {fwd: CHUNKS["full"] * cfgs_tc["full"]["num_layers"]
+                * pieces_per_call(cfgs_tc["full"])})
     tc_trained = train_types(root, ds, cfgs_tc["full"], WIDE_TEECNET_EPOCHS,
                              ("bfloat16",))
     lap("teecnet")
@@ -2216,10 +2430,10 @@ def run_wide_rank(root, smi, datasets, models, cfgs, width: int = WIDE,
                 design=fused_conv.design(torch.bfloat16, WIDE_RANK),
                 nodes=len(fields["pressure"]), finite=True)
             check_only(f"{label} {name} {idx}",
-                       {fwd: CHUNKS[name] * cfgs[name]["num_layers"]})
-    _, (ref,) = serve(datasets["small"], models["small"], [0], log_dir,
-                      f"small_w{width}r{WIDE_RANK}_cpu", "cpu",
-                      gemm_dtype="float32")
+                       {fwd: CHUNKS[name] * cfgs[name]["num_layers"]
+                        * pieces_per_call(cfgs[name])})
+    ref, _ = cpu_prediction(datasets["small"], models["small"], log_dir,
+                            f"small_w{width}r{WIDE_RANK}_cpu")
     for key in ("velocity", "pressure"):
         rel = np.abs(fields[key] - ref[key]).max() / np.abs(ref[key]).max()
         log(label, mesh="small", field=key, vs_cpu_f32=f"{rel:.3e}",
@@ -2312,7 +2526,7 @@ def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
     launches, requests = {}, {}
     with env_set("FESR_FUSED_PREDICT", "0"):
         for label, (cfg, tag) in paths.items():
-            want = CHUNKS["full"] * cfg["num_layers"]
+            want = CHUNKS["full"] * cfg["num_layers"] * pieces_per_call(cfg)
             fields = {}
             modes = [("pallas", make_mode_model(cfg, "pallas"))]
             if cfg["width"] <= WIDE:
@@ -2333,8 +2547,10 @@ def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
                            {pallas_mp.fused_edge_messages: want}
                            if mode == "pallas" else {})
                 fields[mode] = f
+                # past 256 a request takes about a second: fewer repeats
                 ms, _ = warm_request(datasets["full"], model, log_dir,
-                                     "full" + tag)
+                                     "full" + tag,
+                                     reps=5 if cfg["width"] <= WIDER else 2)
                 requests.setdefault(label, {})[mode] = ms
                 log("pallas", model=label, mode=mode,
                     request_ms=f"{ms:.4f}", card=repr(smi))
@@ -2354,16 +2570,18 @@ def phase_pallas(root: str, datasets: dict, paths: dict, smi) -> tuple:
 def check_messages(label: str, h, x_src, w3, b3, step: int) -> float:
     """B5 against its plain version on the card (the plain reference
     computed ``step`` edges at a time), two launches bit-identical, its
-    first launch (the stage image) bit-equal to ``stage_image``; one launch
-    counted per call.  Raises past ``MSG_TOL``; returns the largest
-    absolute error."""
+    first launch (the stage image; past 256 each piece's) bit-equal to
+    ``stage_image``; one launch counted per call (past 256 one per piece,
+    ``fused_conv.width_pieces``).  Raises past ``MSG_TOL``; returns the
+    largest absolute error."""
     torch.backends.cuda.matmul.allow_tf32 = False
     plain = pallas_mp.fused_edge_messages_plain
     b5 = pallas_mp.fused_edge_messages
     e, k = h.shape
     c_in = x_src.shape[1]
     c_out = w3.shape[1] // c_in
-    dp, sd = fused_conv.f32_depth(c_in)
+    dp, sd = fused_conv.f32_depth(fused_conv.piece_width(c_in))
+    pieces = fused_conv.piece_count(k, c_in, c_out)
     with torch.no_grad():
         ref = torch.cat([plain(h[i:i + step], x_src[i:i + step], w3, b3)
                          for i in range(0, e, step)])
@@ -2378,34 +2596,36 @@ def check_messages(label: str, h, x_src, w3, b3, step: int) -> float:
         same = torch.equal(got, again)
         image_ok = torch.equal(
             image.view(torch.int16),
-            pallas_mp.stage_image(w3, b3, c_in).view(torch.int16))
+            pallas_mp.piece_images(pallas_mp.stage_image, w3, b3,
+                                   c_in).view(torch.int16))
         del ref, got, again, image
     torch.cuda.empty_cache()
     log("messages", model=label, edges=e, k=k, c_in=c_in, c_out=c_out,
         design=pallas_mp.design(),
         chunks=fused_conv.f32_chunks(c_out, c_in)[0],
-        slices=dp // sd,
+        slices=dp // sd, pieces=pieces,
         max_abs_err=f"{abs_err:.3e}", rel_to_max=f"{rel:.3e}", tol=MSG_TOL,
         bit_identical=same, stage_image_exact=image_ok, counted=counted)
-    if not (rel <= MSG_TOL and same and image_ok and counted == 1):
+    if not (rel <= MSG_TOL and same and image_ok and counted == pieces):
         raise AssertionError(f"B5 at {label}: {rel:.3e} (tol {MSG_TOL}), "
                              f"repeat identical {same}, stage image exact "
                              f"{image_ok}, launches counted {counted}")
     return abs_err
 
 
-def messages_slice(msg: tuple, k: int, c_in: int, c_out: int) -> tuple:
-    """B5's operands on the leading ``MSG_SLICE`` edges of the chunk
-    ``msg`` (h, x_src, w3, b3): its own at its widths, else seeded ones of
-    (K, c_in, c_out) (b3 scaled so that a message stays of order one)."""
+def messages_slice(msg: tuple, k: int, c_in: int, c_out: int,
+                   edges: int = MSG_SLICE) -> tuple:
+    """B5's operands on the leading ``edges`` edges of the chunk ``msg``
+    (h, x_src, w3, b3): its own at its widths, else seeded ones of (K,
+    c_in, c_out) (b3 scaled so that a message stays of order one)."""
     h, x_src, w3, b3 = msg
     if (k, c_in, c_out) == (h.shape[1], x_src.shape[1],
                             w3.shape[1] // x_src.shape[1]):
-        return h[:MSG_SLICE], x_src[:MSG_SLICE], w3, b3
+        return h[:edges], x_src[:edges], w3, b3
     gen = torch.Generator().manual_seed(SEED + k + 3 * c_in + 7 * c_out)
     scale = (k * c_in) ** -0.5
-    ops = (torch.relu(torch.randn(MSG_SLICE, k, generator=gen)),
-           torch.randn(MSG_SLICE, c_in, generator=gen),
+    ops = (torch.relu(torch.randn(edges, k, generator=gen)),
+           torch.randn(edges, c_in, generator=gen),
            torch.randn(k, c_in * c_out, generator=gen) * scale,
            torch.randn(c_in * c_out, generator=gen) * scale)
     return tuple(t.to(h.device).contiguous() for t in ops)
@@ -2431,18 +2651,22 @@ def phase_messages(ops: dict, smi, sliced: tuple = ()) -> dict:
         c_out = w3.shape[1] // c_in
         step = MSG_SLICE if label in sliced else e
         abs_err = check_messages(label, h, x_src, w3, b3, step)
+        warm, plain_reps = timing_reps(20 if c_in <= WIDE else WIDER_REPS)
         with torch.no_grad():
             t = {"ms": cuda_ms(lambda: pallas_mp.fused_edge_messages_cuda(
-                h, x_src, w3, b3), reps=20 if c_in <= WIDE else WIDER_REPS)}
+                h, x_src, w3, b3), reps=20 if c_in <= WIDE else WIDER_REPS,
+                warm=warm)}
             # the plain version and the library yardstick, one einsum over
             # [h, 1] and [w3; b3] prepared outside the timed window (float32,
             # TF32 off), on the first `step` edges
             hp, xp = h[:step], x_src[:step]
             h1 = torch.cat([hp, torch.ones_like(hp[:, :1])], 1)
             w3_aug = torch.cat([w3, b3[None]]).reshape(k + 1, c_in, c_out)
-            t.update(plain_ms=cuda_ms(lambda: plain(hp, xp, w3, b3), reps=5),
+            t.update(plain_ms=cuda_ms(lambda: plain(hp, xp, w3, b3),
+                                      reps=plain_reps, warm=warm),
                      library_ms=cuda_ms(lambda: torch.einsum(
-                         "ek,ei,kio->eo", h1, xp, w3_aug), reps=5))
+                         "ek,ei,kio->eo", h1, xp, w3_aug), reps=plain_reps,
+                         warm=warm))
             if step < e:
                 t.update(plain_edges=step, ms_at_plain_edges=cuda_ms(
                     lambda: pallas_mp.fused_edge_messages_cuda(hp, xp, w3,
@@ -2462,15 +2686,18 @@ def phase_messages(ops: dict, smi, sliced: tuple = ()) -> dict:
     return out
 
 
-def phase_messages_checked(msg: tuple) -> dict:
-    """B5 alone at each (K, c_in, c_out) of ``MSG_CHECKED`` on the leading
-    ``MSG_SLICE`` edges of the chunk ``msg`` (``messages_slice``,
-    ``check_messages``); returns each shape's largest absolute error."""
+def phase_messages_checked(msg: tuple, shapes=MSG_CHECKED) -> dict:
+    """B5 alone at each (K, c_in, c_out) of ``shapes`` on the leading
+    ``MSG_SLICE`` edges of the chunk ``msg`` (fewer where the plain
+    version's [E, c_in c_out] float32 array would pass ``PLAIN_BYTES``;
+    ``messages_slice``, ``check_messages``); returns each shape's largest
+    absolute error."""
     errs = {}
-    for k, c_in, c_out in MSG_CHECKED:
+    for k, c_in, c_out in shapes:
         at = f"slice_k{k}_{c_in}x{c_out}"
+        edges = min(MSG_SLICE, PLAIN_BYTES // (4 * c_in * c_out))
         errs[at] = check_messages(
-            at, *messages_slice(msg, k, c_in, c_out), MSG_SLICE)
+            at, *messages_slice(msg, k, c_in, c_out, edges), edges)
         torch.cuda.empty_cache()
     return errs
 
@@ -4554,7 +4781,8 @@ def closing_fused_custom(ds, cfg: dict, smi: str) -> list:
     train cell's batch (the 12 training subdomains merged) with
     ``FESR_LOSS_VJP=custom`` against the same steps without it; B1 and B2
     launched depth times per step in each; then the same custom steps in the
-    merged layout on the CPU ('edge3d', plain torch) against the card's.
+    merged layout on the CPU ('edge3d', plain torch: ``closing_cpu_steps``,
+    from the reference worker where it ran them) against the card's.
     Returns B1's and B2's launches."""
     model0, (fb, _), rows_blk, blk = train_batches(ds, cfg)
     depth = cfg["num_layers"]
@@ -4601,17 +4829,14 @@ def closing_fused_custom(ds, cfg: dict, smi: str) -> list:
         raise AssertionError(f"fused custom steps: losses {got['losses']} vs "
                              f"{ref['losses']}, param max abs err "
                              f"{abs_err:.3e}")
-    graph = fb["graph"].map(lambda a: a.cpu())
+    ref = CPU_REFS.pop("closing", None)
+    cpu, cpu_s = (ref.result() if ref is not None else
+                  closing_cpu_steps(fb["graph"].map(lambda a: a.cpu()), cfg))
     del fb
     torch.cuda.empty_cache()
-    with env_set("FESR_LOSS_VJP", "custom"):
-        tr = Trainer(make_mode_model(cfg, "edge3d"), lr=lr)
-        opt = tr.init()
-        t0 = time.perf_counter()
-        cpu = np.array([float(tr.step(opt, graph))
-                        for _ in range(CLOSING_STEPS)])
     hold("closing", "fused_custom_card_vs_merged_custom_cpu", got["losses"],
-         cpu, PARITY_TOL, cpu_s=f"{time.perf_counter() - t0:.1f}")
+         cpu, PARITY_TOL, cpu_s=f"{cpu_s:.1f}",
+         cpu="worker" if ref is not None else "here")
     return launches
 
 
@@ -4741,12 +4966,13 @@ def rank12_entries(r: dict, smi: str) -> list:
 
 def wide_entries(r: dict, smi: str) -> list:
     """B1's and B2's entries for a wide path (``kernelnn_w128``,
-    ``kernelnn_w256``): launches by phase (KernelNN's serving and training
-    in each type; at width 128 also TEECNet's request and epoch), the
+    ``kernelnn_w256``, ``kernelnn_w320``): launches by phase (KernelNN's
+    serving and training in each type; at width 128 also TEECNet's request
+    and epoch), the
     shapes held against the plain versions, and the plain versions' times
     on the chunk's leading slice beside the kernels'.  Past width 128
     TEECNet has entries of its own (``teecnet_w256``), with its B1's and
-    B2's errors and times at its chunk (K 128)."""
+    B2's errors and times at its chunk (K 128; ``teecnet_w320`` too)."""
     width = r["width"]
     entries = kernel_entries(r, smi, None, f"kernelnn_w{width}")
     trained = r["trained"]
@@ -4849,7 +5075,7 @@ def routed_entries(r: dict, smi: str) -> list:
 
 
 def messages_entries(t: dict, launches: dict, requests: dict, smi: str,
-                     small_b5: int) -> list:
+                     small_b5: int, widest_small_b5: int) -> list:
     """B5's entries: the first with the numbers at KernelNN's chunk (K 48)
     at the top, those at TEECNet's (K 128) under ``teecnet_k128``, and each
     model's warm request time in modes 'pallas' and 'edge3d'; then one for
@@ -4859,7 +5085,10 @@ def messages_entries(t: dict, launches: dict, requests: dict, smi: str,
     plain version's and the einsum's times on the chunk's first
     ``plain_edges`` edges (the kernel's there: ``ms_at_plain_edges``); the
     width-256 KernelNN's also counts the small mesh's ``small_b5`` launches
-    and holds B5's errors at ``MSG_CHECKED`` (``checked``)."""
+    and holds B5's errors at ``MSG_CHECKED`` (``checked``); the same for
+    the width-320 paths (``kernelnn_w320``, ``teecnet_w320``: pieces of at
+    most 256, launches counted one per piece), whose KernelNN counts
+    ``widest_small_b5`` and holds B5's errors at ``WIDEST_CHECKED``."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "bound_basis", "bound_fma_ms", "k")
     base = {
@@ -4879,7 +5108,9 @@ def messages_entries(t: dict, launches: dict, requests: dict, smi: str,
         **{key: t["kernelnn"][key] for key in keys},
         teecnet_k128={key: t["teecnet"][key] for key in keys},
         request_ms={k: requests[k] for k in ("kernelnn", "teecnet")})]
-    for width in (WIDE, WIDER):
+    for width, small, checked in ((WIDE, None, None),
+                                  (WIDER, small_b5, "checked"),
+                                  (WIDEST, widest_small_b5, "checked_widest")):
         for label in (f"kernelnn_w{width}", f"teecnet_w{width}"):
             entries.append(dict(
                 base, path=label, launches=launches[label],
@@ -4887,10 +5118,11 @@ def messages_entries(t: dict, launches: dict, requests: dict, smi: str,
                 **{key: t[label][key] for key in keys + (
                     "c_in", "c_out", "plain_edges", "ms_at_plain_edges")},
                 request_ms=requests[label]))
-    wider = entries[-2]
-    wider["launches"] += small_b5
-    wider["launches_by_path"]["small_pallas"] = small_b5
-    wider["checked"] = {at: err for at, err in t["checked"].items()}
+        if small is not None:
+            kernelnn = entries[-2]
+            kernelnn["launches"] += small
+            kernelnn["launches_by_path"]["small_pallas"] = small
+            kernelnn["checked"] = dict(t[checked])
     return entries
 
 
@@ -4898,28 +5130,9 @@ def main() -> int:
     name, smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.time()
-    libs = fused_conv.build_kernel(force=True)
-    log("build", seconds=f"{time.time() - t0:.1f}",
-        libs=",".join(os.path.relpath(lib, REPO) for lib in libs))
-    log_ptxas()
-
+    t0 = PARITY_WORKER["t0"] = time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root, \
             contextlib.ExitStack() as workers:
-        # the grid datasets are host numpy: generated in worker processes
-        # while the kernel phases run (stopped before the directory goes)
-        grid_cfgs = grid_configs(root)
-        roll_cfgs = rollout_configs(root)
-        mat_cfgs = mat_configs(root)
-        jobs = {key: (_make_grid_data, (GRID[key]["dataset"], cfg))
-                for key, (cfg, _) in grid_cfgs.items()}
-        for key, (cfg, _) in roll_cfgs.items():
-            jobs[ROLLOUT[key]["data"]] = (_make_grid_data,
-                                          (ROLLOUT[key]["dataset"], cfg))
-        jobs["mat_operator"] = (_write_darcy_mat,
-                                (mat_path(mat_cfgs["operator"][0]),))
-        data_pool, data_futures = start_data(jobs)
-        workers.callback(data_pool.shutdown, wait=True, cancel_futures=True)
         cfgs = {"full": make_config(os.path.join(root, "full"), FULL),
                 "small": make_config(os.path.join(root, "small"), SMALL)}
         # the rank-16 path: the same config with kernel_rank added, at a
@@ -4952,45 +5165,68 @@ def main() -> int:
         # kernel_rank WIDE_RANK (and, for one request, WIDER_RANK_TOP)
         cfgs_w2r = {k: dict(v, kernel_rank=WIDE_RANK)
                     for k, v in cfgs_w2.items()}
-        cfgs_w2top = {k: dict(v, kernel_rank=WIDER_RANK_TOP)
-                      for k, v in cfgs_w2.items()}
-        datasets, models, models_lr, models_r12, models_tc = (
-            {} for _ in range(5))
-        models_w, models_wtc, models_wr = {}, {}, {}
-        models_w2, models_w2tc, models_w2r, models_w2top = {}, {}, {}, {}
-        for key, cfg in cfgs.items():
-            t1 = time.time()
-            datasets[key] = init_dataset("synthetic", **cfg)
-            # the same seeded weights for the card's and the CPU's run
-            logs = os.path.join(root, "logs")
-            for exp, c, into in ((key, cfg, models),
-                                 (key + "_r16", cfgs_lr[key], models_lr),
-                                 (f"{key}_r{RANK12}", cfgs_r12[key],
-                                  models_r12),
-                                 (key + "_teecnet", cfgs_tc[key], models_tc),
-                                 (f"{key}_w{WIDE}", cfgs_w[key], models_w),
-                                 (f"{key}_w{WIDE}_teecnet", cfgs_wtc[key],
-                                  models_wtc),
-                                 (f"{key}_w{WIDE}r{WIDE_RANK}", cfgs_wr[key],
-                                  models_wr),
-                                 (f"{key}_w{WIDER}", cfgs_w2[key], models_w2),
-                                 (f"{key}_w{WIDER}_teecnet", cfgs_w2tc[key],
-                                  models_w2tc),
-                                 (f"{key}_w{WIDER}r{WIDE_RANK}",
-                                  cfgs_w2r[key], models_w2r),
-                                 (f"{key}_w{WIDER}r{WIDER_RANK_TOP}",
-                                  cfgs_w2top[key], models_w2top)):
-                into[key] = write_checkpoint(logs, exp, c)
-                write_checkpoint(logs, exp + "_cpu", c)
-            for k in ("root", "partition", "sub_size", "n_high", "n_low",
-                      "num_cases"):
-                for other in (cfgs_tc, cfgs_w):
-                    if other[key].get(k) != cfg.get(k):
-                        raise AssertionError(f"path config {k} differs")
-            log("data", mesh=key, subdomains=len(datasets[key]),
-                etl_s=f"{time.time() - t1:.1f}")
+        # the width-320 path: the width-128 path's configs at width 320
+        cfgs_w3 = {k: dict(v, width=WIDEST) for k, v in cfgs_w.items()}
+        cfgs_w3tc = {k: dict(v, width=WIDEST) for k, v in cfgs_tc.items()}
 
-        # phase 7's CPU side of every path, in the order they need it
+        # the build (nvcc processes, from a thread) while this thread makes
+        # the meshes and the checkpoints, which need no kernel
+        with concurrent.futures.ThreadPoolExecutor(1) as build_pool:
+            build = build_pool.submit(locked_build)
+            t1 = time.time()
+            datasets = {"small": init_dataset("synthetic", **cfgs["small"])}
+            log("data", mesh="small", subdomains=len(datasets["small"]),
+                etl_s=f"{time.time() - t1:.1f}")
+            cfgs_w2top = {k: dict(v, kernel_rank=WIDER_RANK_TOP)
+                          for k, v in cfgs_w2.items()}
+            models, models_lr, models_r12, models_tc = ({} for _ in range(4))
+            models_w, models_wtc, models_wr = {}, {}, {}
+            models_w2, models_w2tc, models_w2r, models_w2top = {}, {}, {}, {}
+            models_w3, models_w3tc = {}, {}
+            for key, cfg in cfgs.items():
+                t1 = time.time()
+                if key not in datasets:
+                    datasets[key] = init_dataset("synthetic", **cfg)
+                # the same seeded weights for the card's and the CPU's run
+                logs = os.path.join(root, "logs")
+                for exp, c, into in ((key, cfg, models),
+                                     (key + "_r16", cfgs_lr[key], models_lr),
+                                     (f"{key}_r{RANK12}", cfgs_r12[key],
+                                      models_r12),
+                                     (key + "_teecnet", cfgs_tc[key], models_tc),
+                                     (f"{key}_w{WIDE}", cfgs_w[key], models_w),
+                                     (f"{key}_w{WIDE}_teecnet", cfgs_wtc[key],
+                                      models_wtc),
+                                     (f"{key}_w{WIDE}r{WIDE_RANK}", cfgs_wr[key],
+                                      models_wr),
+                                     (f"{key}_w{WIDER}", cfgs_w2[key], models_w2),
+                                     (f"{key}_w{WIDER}_teecnet", cfgs_w2tc[key],
+                                      models_w2tc),
+                                     (f"{key}_w{WIDER}r{WIDE_RANK}",
+                                      cfgs_w2r[key], models_w2r),
+                                     (f"{key}_w{WIDER}r{WIDER_RANK_TOP}",
+                                      cfgs_w2top[key], models_w2top),
+                                     (f"{key}_w{WIDEST}", cfgs_w3[key], models_w3),
+                                     (f"{key}_w{WIDEST}_teecnet", cfgs_w3tc[key],
+                                      models_w3tc)):
+                    into[key] = write_checkpoint(logs, exp, c)
+                    write_checkpoint(logs, exp + "_cpu", c)
+                for k in ("root", "partition", "sub_size", "n_high", "n_low",
+                          "num_cases"):
+                    for other in (cfgs_tc, cfgs_w):
+                        if other[key].get(k) != cfg.get(k):
+                            raise AssertionError(f"path config {k} differs")
+                log("data", mesh=key, subdomains=len(datasets[key]),
+                    checkpoints_s=f"{time.time() - t1:.1f}")
+            libs, build_s = build.result()
+        log("build", seconds=f"{build_s:.1f}",
+            libs=",".join(os.path.relpath(lib, REPO) for lib in libs),
+            cpus=os.cpu_count(), affinity=len(os.sched_getaffinity(0)),
+            torch_threads=torch.get_num_threads())
+        log_ptxas()
+        # phase 7's CPU side of every path, in the order they need it, on
+        # the small mesh: started right after the build, so that the plain
+        # steps (the longest host work of the run) overlap every phase
         small = {"kernelnn": cfgs["small"], f"rank{RANK}": cfgs_lr["small"],
                  f"rank{RANK12}": cfgs_r12["small"]}
         for w, c, ranks in ((WIDE, cfgs_w, (WIDE_RANK,)),
@@ -4998,12 +5234,52 @@ def main() -> int:
             small[f"w{w}"] = c["small"]
             for r in ranks:
                 small[f"w{w}r{r}"] = dict(c["small"], kernel_rank=r)
+        small[f"w{WIDEST}"] = cfgs_w3["small"]
         small["teecnet"] = cfgs_tc["small"]
         parity_pool, parity = start_parity(
             merged_subdomains(datasets["small"]), small, root)
         workers.callback(parity_pool.shutdown, wait=True,
                          cancel_futures=True)
-        workers.callback(PARITY_WORKER.update, pid=None)  # runs first
+        workers.push(stop_on_error(PARITY_WORKER["pid"]))
+
+        # the CPU references of the phases after the first path, in the
+        # order they need them (the first path's own are computed in it)
+        logs = os.path.join(root, "logs")
+        refs = {}
+        for mesh in ("full", "small"):
+            refs[f"{mesh}_r16_cpu"] = (_ref_prediction,
+                                       (mesh, cfgs_lr[mesh], logs,
+                                        f"{mesh}_r16_cpu"))
+        for mesh, cfg, exp in (
+                ("full", cfgs_r12["full"], f"full_r{RANK12}_cpu"),
+                ("small", cfgs_w["small"], f"small_w{WIDE}_cpu"),
+                ("small", cfgs_wr["small"], f"small_w{WIDE}r{WIDE_RANK}_cpu"),
+                ("small", cfgs_w2["small"], f"small_w{WIDER}_cpu"),
+                ("small", cfgs_w2r["small"],
+                 f"small_w{WIDER}r{WIDE_RANK}_cpu"),
+                ("small", cfgs_w3["small"], f"small_w{WIDEST}_cpu"),
+                ("full", cfgs_tc["full"], "full_teecnet_cpu"),
+                ("small", cfgs_tc["small"], "small_teecnet_cpu")):
+            refs[exp] = (_ref_prediction, (mesh, cfg, logs, exp))
+        refs["closing"] = (_ref_closing, (cfgs["full"],))
+        ref_pool = start_references(datasets, refs)
+        workers.callback(ref_pool.shutdown, wait=True, cancel_futures=True)
+
+        # the grid datasets are host numpy: generated in worker processes
+        # while the kernel phases run (stopped before the directory goes)
+        grid_cfgs = grid_configs(root)
+        roll_cfgs = rollout_configs(root)
+        mat_cfgs = mat_configs(root)
+        jobs = {key: (_make_grid_data, (GRID[key]["dataset"], cfg))
+                for key, (cfg, _) in grid_cfgs.items()}
+        for key, (cfg, _) in roll_cfgs.items():
+            jobs[ROLLOUT[key]["data"]] = (_make_grid_data,
+                                          (ROLLOUT[key]["dataset"], cfg))
+        jobs["mat_operator"] = (_write_darcy_mat,
+                                (mat_path(mat_cfgs["operator"][0]),))
+        data_pool, data_futures = start_data(jobs)
+        workers.callback(data_pool.shutdown, wait=True, cancel_futures=True)
+        workers.callback(QUIET.clear)  # runs first
         full = run_path(root, name, smi, datasets, models, cfgs,
                         parity["kernelnn"])
         lowrank = run_path(root, name, smi, datasets, models_lr, cfgs_lr,
@@ -5024,11 +5300,15 @@ def main() -> int:
             models_w2top["full"],
             parity={r: parity[f"w{WIDER}r{r}"]
                     for r in (WIDE_RANK, WIDER_RANK_TOP)})
+        widest = run_wide(root, smi, datasets, models_w3, cfgs_w3,
+                          models_w3tc, cfgs_w3tc, WIDEST, WIDEST_CHECKED,
+                          WIDER_EPOCHS, parity=parity[f"w{WIDEST}"])
         teecnet = run_path(root, name, smi, datasets, models_tc, cfgs_tc,
                            parity["teecnet"], "_teecnet")
         t1 = time.time()
         wide_labels = (f"kernelnn_w{WIDE}", f"teecnet_w{WIDE}")
         wider_labels = (f"kernelnn_w{WIDER}", f"teecnet_w{WIDER}")
+        widest_labels = (f"kernelnn_w{WIDEST}", f"teecnet_w{WIDEST}")
         pallas_launches, pallas_requests = phase_pallas(
             root, datasets, {"kernelnn": (cfgs["full"], ""),
                              "teecnet": (cfgs_tc["full"], "_teecnet"),
@@ -5037,15 +5317,26 @@ def main() -> int:
                                               f"_w{WIDE}_teecnet"),
                              wider_labels[0]: (cfgs_w2["full"], f"_w{WIDER}"),
                              wider_labels[1]: (cfgs_w2tc["full"],
-                                               f"_w{WIDER}_teecnet")}, smi)
+                                               f"_w{WIDER}_teecnet"),
+                             widest_labels[0]: (cfgs_w3["full"],
+                                                f"_w{WIDEST}"),
+                             widest_labels[1]: (cfgs_w3tc["full"],
+                                                f"_w{WIDEST}_teecnet")}, smi)
         msg_ops = {"kernelnn": full["msg"], "teecnet": teecnet["msg"],
                    wide_labels[0]: wide.pop("msg"),
                    wide_labels[1]: wide.pop("tc_msg"),
                    wider_labels[0]: wider.pop("msg"),
-                   wider_labels[1]: wider.pop("tc_msg")}
-        msg_t = phase_messages(msg_ops, smi,
-                               sliced=wide_labels + wider_labels)
+                   wider_labels[1]: wider.pop("tc_msg"),
+                   widest_labels[0]: widest.pop("msg"),
+                   widest_labels[1]: widest.pop("tc_msg")}
+        msg_t = phase_messages(
+            msg_ops, smi, sliced=wide_labels + wider_labels + widest_labels)
         msg_t["checked"] = phase_messages_checked(msg_ops[wider_labels[0]])
+        # B5 past 256 as pieces at the width-320 path's shapes, as (K,
+        # c_in, c_out)
+        msg_t["checked_widest"] = phase_messages_checked(
+            msg_ops[widest_labels[0]],
+            [(k, c_in, c_out) for c_in, c_out, k in WIDEST_CHECKED])
         del msg_ops
         log("pallas", wall_s=f"{time.time() - t1:.1f}")
         routed_cfg = load_yaml(ROUTED_CONFIG)
@@ -5077,7 +5368,8 @@ def main() -> int:
         closing = phase_closing(root, datasets, cfgs, cfgs_tc, smi)
         # phase 7's card side of every path, the worker's steps ready by now
         run_parities()
-        log("parity_worker", stopped_s=f"{PARITY_WORKER['stopped_s']:.1f}")
+        log("parity_worker", stopped_s=f"{PARITY_WORKER['stopped_s']:.1f}",
+            unused_references=",".join(sorted(CPU_REFS)) or None)
 
     kernels = (kernel_entries(full, smi, None, "kernelnn")
                + kernel_entries(lowrank, smi, RANK, "kernelnn_rank16")
@@ -5086,9 +5378,10 @@ def main() -> int:
                + wide_rank_entries(wide_rank, smi)
                + wide_entries(wider, smi)
                + wide_rank_entries(wider_rank, smi)
+               + wide_entries(widest, smi)
                + kernel_entries(teecnet, smi, None, "teecnet")
                + messages_entries(msg_t, pallas_launches, pallas_requests,
-                                  smi, wider["small_b5"])
+                                  smi, wider["small_b5"], widest["small_b5"])
                + routed_entries(routed, smi))
     # the coalesced lane serves the KernelNN path's small-mesh checkpoint
     kernels[0]["launches"] += coalesced["launches"]

@@ -31,9 +31,12 @@ every rank runs at ``padded_rank``, its head padded with zeros, past 64 as
 slabs of 64), and train through ``FusedEdgeConvLowrank``, whose backward is
 ``csrc/fused_edge_conv_lowrank_bwd_wgmma.cu`` or
 ``csrc/fused_edge_conv_lowrank_bwd_f32_wgmma.cu`` the same way.
-``design`` names the design every launch runs.  B1-B4 take K, c_in and
-c_out up to 256 (B3 and B4 ranks up to 256 too), and so does B5
-(``ops/pallas_mp.py``).
+``design`` names the design every launch runs.  One launch of B1-B5
+(``ops/pallas_mp.py``) takes K, c_in and c_out up to 256 (B3 and B4 ranks up
+to 256 too).  B1, B2 and B5 take any K, c_in and c_out: past 256 the
+wrappers run pieces of at most 256 of each on the same instances
+(``width_pieces``, ``weight_pieces``), their results added in a fixed order;
+B3 and B4 refuse 257.
 """
 
 from __future__ import annotations
@@ -415,17 +418,28 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-# The largest K, c_in and c_out B1-B4 take, and B3's and B4's largest rank
+# The largest K, c_in and c_out one launch of B1-B5 takes (csrc/ kMaxDim,
+# kMaxK, kMaxC, kMaxWide), and B3's and B4's largest rank.  Past it B1, B2
+# and B5 run pieces of at most this width on the same instances
+# (``width_pieces``); B3 and B4 refuse it
 _MAX_WIDTH = 256
 
 
+# Why B3 and B4 refuse what B1 and B2 run as pieces
+_LOWRANK_PAST = (" (B3/B4 past 256: ROADMAP.md queue B (c4); msg = V_e "
+                 "(U_e^T x) is bilinear in the head, so pieces of K would "
+                 "leave cross terms)")
+
+
 def _check_geometry(dt, slots: int, rows_blk: int, blk: int,
-                    **dims) -> None:
+                    most: int | None = None, why: str = "", **dims) -> None:
     """Raises on what the kernels do not take: a GEMM type other than
     float32 or bfloat16, blocks of other than 64 rows, a blk that is not a
     positive multiple of 64 dividing the slots, or a width ``dims`` (name=
-    value) outside 1..256 (``rank`` too).  B1-B4 take widths and K up to
-    256 in both types, B3 and B4 ranks up to 256."""
+    value) below 1 or, with ``most``, past it (``why`` ends the message).
+    B1 and B2 take any K, c_in and c_out (past 256 as pieces,
+    ``width_pieces``), one launch up to 256; B3 and B4 take K, c_in, c_out
+    and ranks up to 256 (``_LOWRANK_PAST``)."""
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"h_blocked dtype {dt} (expected float32 | bfloat16)")
     if rows_blk != 64:
@@ -433,10 +447,86 @@ def _check_geometry(dt, slots: int, rows_blk: int, blk: int,
     if blk % 64 or blk <= 0:
         raise ValueError(f"blk={blk} must be a positive multiple of 64")
     for name, v in dims.items():
-        if not 1 <= v <= _MAX_WIDTH:
-            raise ValueError(f"{name}={v} outside the kernel's 1..{_MAX_WIDTH}")
+        if v < 1:
+            raise ValueError(f"{name}={v} outside the kernel's 1.."
+                             f"{most or 'any'}")
+        if most is not None and v > most:
+            raise ValueError(f"{name}={v} outside the kernel's 1..{most}{why}")
     if slots % blk:
         raise ValueError(f"{slots} slots is not a multiple of blk={blk}")
+
+
+def width_pieces(d: int, most: int = _MAX_WIDTH) -> list:
+    """[(start, end)] of the pieces B1, B2 and B5 cut a K, c_in or c_out of
+    ``d`` into: [(0, d)] up to ``most``, past it ceil(d / most) pieces
+    evened out, each a multiple of 8 wide but the last (two of 160 at
+    320).  ``most`` is a multiple of 8."""
+    if most < 8 or most % 8:
+        raise ValueError(f"most={most} must be a positive multiple of 8")
+    if d <= most:
+        return [(0, d)]
+    n = -(-d // most)
+    size = _round_up(-(-d // n), 8)
+    return [(a, min(a + size, d)) for a in range(0, d, size)]
+
+
+def piece_width(d: int) -> int:
+    """The width of the widest piece (``width_pieces``) of a K, c_in or
+    c_out of ``d``: ``d`` up to 256, the instance a piece runs past it."""
+    return width_pieces(d)[0][1]
+
+
+def weight_pieces(w3: torch.Tensor, b3: torch.Tensor, c_in: int, c_out: int,
+                  most: int = _MAX_WIDTH):
+    """Yields each piece of the weights of a layer of K x c_in x c_out
+    (``width_pieces`` of each, K outermost, then c_in, then c_out): (its
+    (k0, k1), (i0, i1) and (o0, o1), w3's block [k0:k1, i0:i1, o0:o1] as
+    [k1 - k0, (i1 - i0) (o1 - o0)], b3's block [i0:i1, o0:o1] in the first
+    K piece and zeros in the others), each contiguous.  W_e = [h_e, 1]
+    [W3; b3] is linear in h, x and the weights, so the pieces' messages
+    summed over K and c_in give each c_out piece's columns exactly."""
+    k = w3.shape[0]
+    w, b = w3.reshape(k, c_in, c_out), b3.reshape(c_in, c_out)
+    for a, (k0, k1) in enumerate(width_pieces(k, most)):
+        for i0, i1 in width_pieces(c_in, most):
+            for o0, o1 in width_pieces(c_out, most):
+                wp = w[k0:k1, i0:i1, o0:o1].reshape(k1 - k0, -1)
+                bp = b[i0:i1, o0:o1].reshape(-1)
+                yield ((k0, k1), (i0, i1), (o0, o1), wp.contiguous(),
+                       (bp if a == 0 else torch.zeros_like(bp)).contiguous())
+
+
+def piece_count(k: int, c_in: int, c_out: int,
+                most: int = _MAX_WIDTH) -> int:
+    """How many pieces (launches of B1, B2 or B5) a layer of K x c_in x
+    c_out runs in: 1 up to ``most``."""
+    return (len(width_pieces(k, most)) * len(width_pieces(c_in, most))
+            * len(width_pieces(c_out, most)))
+
+
+def _add(acc, part):
+    """``acc`` + ``part`` (``part`` when ``acc`` is None), in place on a
+    partial sum the pieces already made."""
+    return part if acc is None else acc.add_(part)
+
+
+def forward_pieces(call, h, x, w3, b3, c_in: int, c_out: int,
+                   most: int = _MAX_WIDTH) -> torch.Tensor:
+    """The output columns of B1 or B5 from pieces of at most ``most`` of K,
+    c_in and c_out: ``call(h, x, w3, b3, c_in, c_out)`` on each piece (h's
+    and x's columns of it, ``weight_pieces``: b3 in the first K piece only),
+    K pieces outermost, each result added into its c_out piece's columns in
+    this fixed order, never with atomics, so repeats keep their bits.  The
+    messages (and the S-mean) are linear in h, x and [w3; b3], so the sums
+    are exact."""
+    xs = {p: x[:, p[0]:p[1]].contiguous() for p in width_pieces(c_in, most)}
+    cols, hp, at = {}, None, None
+    for kp, ip, op, wp, bp in weight_pieces(w3, b3, c_in, c_out, most):
+        if kp != at:
+            hp, at = h[:, kp[0]:kp[1]].contiguous(), kp
+        cols[op] = _add(cols.get(op), call(hp, xs[ip], wp, bp, ip[1] - ip[0],
+                                           op[1] - op[0]))
+    return torch.cat([cols[op] for op in width_pieces(c_out, most)], dim=1)
 
 
 def _s_pointers(s, slots: int, nb: int, rows_blk: int, blk: int) -> tuple:
@@ -455,12 +545,13 @@ def design(dt: torch.dtype, rank: int | None = None) -> str:
     """The design a kernel launches for GEMM type ``dt``: 'wgmma', on the
     tensor cores (csrc/*_wgmma.cu), for every kernel in both types, as
     bfloat16 products or float32 ones exact through three-part bf16 splits
-    (csrc/f32_wgmma.cuh), at K, c_in and c_out up to 256.  B1 and B2 take
-    ``rank`` None; B3 and B4 any rank 1-256, run at ``padded_rank``
-    (csrc/lowrank_wgmma.cuh), past rank 64 as ``lowrank_slabs`` slabs of 64
-    in turn inside each kernel (the rank-64 walk on each slab's columns,
-    csrc/lowrank_wgmma.cuh slab_col), past a depth of 128 the bfloat16 ones with
-    each chunk in stages of 64, the float32 ones in their wide layout
+    (csrc/f32_wgmma.cuh), at K, c_in and c_out up to 256 (B1 and B2 past
+    it as pieces, ``width_pieces``).  B1 and B2 take ``rank`` None; B3 and
+    B4 any rank 1-256, run at ``padded_rank`` (csrc/lowrank_wgmma.cuh),
+    past rank 64 as ``lowrank_slabs`` slabs of 64 in turn inside each
+    kernel (the rank-64 walk on each slab's columns, csrc/lowrank_wgmma.cuh
+    slab_col), past a depth of 128 the bfloat16 ones with each chunk in
+    stages of 64, the float32 ones in their wide layout
     (``lowrank_smem_bytes``)."""
     return "wgmma"
 
@@ -512,7 +603,9 @@ def f32_chunks(rows: int, depth: int) -> tuple:
     to 8 as one chunk up to 64, else as chunks of at most 64, or 32 where
     the depth is 65..128, each n (a multiple of 8) wide; past a depth of
     128 (A in shared memory, ``f32_depth``) chunks of at most 64.  Each
-    chunk is one pass over the K+1 stages."""
+    chunk is one pass over the K+1 stages.  Past 256 the chunks of the
+    widest piece (``piece_width``), the instance a piece runs."""
+    rows, depth = piece_width(rows), piece_width(depth)
     r8 = _round_up(rows, 8)
     d16 = _round_up(depth, 16)
     most = 64 if d16 <= 64 or depth > 128 else 32
@@ -585,7 +678,8 @@ def wgmma_fwd_chunks(k: int, c_in: int, c_out: int) -> tuple:
     of its own (csrc/fused_edge_conv_wgmma.cu FwdChunks): one chunk of all
     of c_out rounded up to 8 where its shared memory fits a block (every
     width up to 128 at K up to 128), else chunks of the widest n that fits,
-    evened out."""
+    evened out.  Past 256 the chunks of the widest piece (``piece_width``)."""
+    k, c_in, c_out = (piece_width(v) for v in (k, c_in, c_out))
     return _widest_chunks(c_out, lambda n: wgmma_fwd_smem(
         k, c_in, min(n, c_out), n) <= SMEM_MAX)
 
@@ -593,6 +687,7 @@ def wgmma_fwd_chunks(k: int, c_in: int, c_out: int) -> tuple:
 def wgmma_rows_chunks(k: int, c_in: int, c_out: int) -> tuple:
     """(chunks, n): the chunks of c_in the bfloat16 B2 rows kernel walks in
     turn (csrc/fused_edge_conv_bwd_wgmma.cu RowsChunks), the same rule."""
+    k, c_in, c_out = (piece_width(v) for v in (k, c_in, c_out))
     return _widest_chunks(c_in, lambda n: wgmma_rows_smem(
         k, c_out, n) <= SMEM_MAX)
 
@@ -626,7 +721,9 @@ def conv_smem_bytes(dt: torch.dtype, k: int, c_in: int, c_out: int,
                     backward: bool = False) -> int:
     """Bytes of dynamic shared memory one block of B1 (B2's rows kernel if
     ``backward``) takes in GEMM type ``dt``, as the library's
-    ``*_smem_bytes`` query says."""
+    ``*_smem_bytes`` query says; past 256 the widest piece's
+    (``piece_width``), the instance a piece runs."""
+    k, c_in, c_out = (piece_width(v) for v in (k, c_in, c_out))
     if dt == torch.float32:
         return (f32_rows_smem if backward else f32_fwd_smem)(k, c_in, c_out)
     if backward:
@@ -773,14 +870,14 @@ def occupancy(k: int, c_in: int, c_out: int,
               rank: int | None = None) -> dict:
     """Thread blocks of each tensor-core kernel that one SM of the current
     card holds at once at these widths (the CUDA runtime's occupancy query,
-    with each kernel's shared memory): B1's and B2's, or at a ``rank`` B3's
-    and B4's tensor-core kernels, in bfloat16 and (keys ending ``_f32``) in
-    float32."""
+    with each kernel's shared memory): B1's and B2's (past 256 the widest
+    piece's, ``piece_width``), or at a ``rank`` B3's and B4's tensor-core
+    kernels, in bfloat16 and (keys ending ``_f32``) in float32."""
     out = {}
     for dt, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
         if rank is None:
             fwd, bwd = _conv_library(dt), _conv_library(dt, backward=True)
-            dims = (k, c_in, c_out)
+            dims = tuple(piece_width(v) for v in (k, c_in, c_out))
         else:
             fwd, bwd = _lowrank_library(dt), _lowrank_library(dt, True)
             dims = (k, c_in, c_out, rank)
@@ -793,21 +890,14 @@ def occupancy(k: int, c_in: int, c_out: int,
     return out
 
 
-def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
-                         c_in: int, c_out: int, rows_blk: int,
-                         blk: int) -> torch.Tensor:
-    """Launches the CUDA kernel on the current stream, on the tensor cores
-    for both types (``design``): csrc/fused_edge_conv_wgmma.cu for
-    bfloat16, csrc/fused_edge_conv_f32_wgmma.cu for float32 (after its
-    first launch, the stage image of w3 and b3, into scratch).  h_blocked,
-    x and w3 share one dtype (the GEMM input type); b3 and S are float32,
-    index arrays int32.  Checks every operand and raises on what the kernel
-    does not take; raises if the launch fails.  The kernel splits each
-    receiver block's slot walk into ``conv_parts`` parts whose partial sums
-    are added here in a fixed order."""
+def _fwd_operands(h_blocked, x, senders_perm, w3, b3, s, *, c_in: int,
+                  c_out: int, rows_blk: int, blk: int, most=None) -> tuple:
+    """Checks B1's operands (widths up to ``most``, if given) and raises on
+    what the kernel does not take; returns (the S pointers, the blocks,
+    the nodes)."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in,
+    _check_geometry(dt, slots, rows_blk, blk, most, K=k, c_in=c_in,
                     c_out=c_out)
     nb = slots // blk
     n = x.shape[0]
@@ -822,6 +912,18 @@ def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
                     ("b3", b3)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
+    return ptrs, nb, n
+
+
+def _fused_edge_conv_launch(h_blocked, x, senders_perm, w3, b3, s, *,
+                            c_in: int, c_out: int, rows_blk: int,
+                            blk: int) -> torch.Tensor:
+    """One launch of B1 (K, c_in and c_out up to 256) on the current
+    stream; see ``fused_edge_conv_cuda``."""
+    ptrs, nb, n = _fwd_operands(h_blocked, x, senders_perm, w3, b3, s,
+                                c_in=c_in, c_out=c_out, rows_blk=rows_blk,
+                                blk=blk, most=_MAX_WIDTH)
+    dt, dev, k = h_blocked.dtype, h_blocked.device, h_blocked.shape[1]
     name = _conv_library(dt)
     lib = _load_kernel(name)
     parts = conv_parts(nb, blk // 64, _sms(dev))
@@ -844,6 +946,42 @@ def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
             "per block)")
     fused_edge_conv.launches += 1
     return out[0] if parts == 1 else out.sum(0)
+
+
+def fused_edge_conv_pieces(launch, h_blocked, x, senders_perm, w3, b3, s, *,
+                           c_in: int, c_out: int, most: int = _MAX_WIDTH,
+                           **kw) -> torch.Tensor:
+    """B1 as ``launch`` (one launch, or the plain version) on pieces of at
+    most ``most`` of K, c_in and c_out (``forward_pieces``); ``kw`` goes to
+    each call."""
+    return forward_pieces(
+        lambda h, xp, wp, bp, ci, co: launch(h, xp, senders_perm, wp, bp, s,
+                                             c_in=ci, c_out=co, **kw),
+        h_blocked, x, w3, b3, c_in, c_out, most)
+
+
+def fused_edge_conv_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
+                         c_in: int, c_out: int, rows_blk: int,
+                         blk: int) -> torch.Tensor:
+    """Launches the CUDA kernel on the current stream, on the tensor cores
+    for both types (``design``): csrc/fused_edge_conv_wgmma.cu for
+    bfloat16, csrc/fused_edge_conv_f32_wgmma.cu for float32 (after its
+    first launch, the stage image of w3 and b3, into scratch).  h_blocked,
+    x and w3 share one dtype (the GEMM input type); b3 and S are float32,
+    index arrays int32.  Checks every operand and raises on what the kernel
+    does not take; raises if a launch fails.  Any K, c_in and c_out: up to
+    256 one launch, past it one launch per piece (``fused_edge_conv_pieces``;
+    ``fused_edge_conv.launches`` counts each).  The kernel splits each
+    receiver block's slot walk into ``conv_parts`` parts whose partial sums
+    are added here in a fixed order."""
+    kw = dict(c_in=c_in, c_out=c_out, rows_blk=rows_blk, blk=blk)
+    if max(h_blocked.shape[-1], c_in, c_out) <= _MAX_WIDTH:
+        # one launch, its own checks only: no wrapper cost on the card
+        return _fused_edge_conv_launch(h_blocked, x, senders_perm, w3, b3,
+                                       s, **kw)
+    _fwd_operands(h_blocked, x, senders_perm, w3, b3, s, **kw)
+    return fused_edge_conv_pieces(_fused_edge_conv_launch, h_blocked, x,
+                                  senders_perm, w3, b3, s, **kw)
 
 
 def fused_edge_conv(h_blocked, x, senders_perm, w3, b3, s, *,
@@ -919,20 +1057,13 @@ def _weight_splits(slots: int, tiles: int, device) -> int:
     return weight_splits(slots, tiles, _sms(device))
 
 
-def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
-                             c_out: int, rows_blk: int, blk: int):
-    """Launches the backward kernels on the current stream, on the tensor
-    cores for both types (``design``): csrc/fused_edge_conv_bwd_wgmma.cu
-    for bfloat16, csrc/fused_edge_conv_bwd_f32_wgmma.cu for float32 (after
-    the stage image of w3 and b3, into scratch).  h_blocked, x_src and w3
-    share one dtype (the GEMM input type); g, b3 and S are float32,
-    slot_rows int32.  Checks every operand and raises on what the kernel
-    does not take; raises if the launch fails.  Returns (dh, dx_src, dw3,
-    db3), float32; dw3/db3 are the kernel's per-split partials summed in a
-    fixed order."""
+def _bwd_operands(g, h_blocked, x_src, w3, b3, s, *, c_in: int, c_out: int,
+                  rows_blk: int, blk: int, most=None) -> tuple:
+    """Checks B2's operands (widths up to ``most``, if given) and raises on
+    what the kernel does not take; returns (the S pointers, the blocks)."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in,
+    _check_geometry(dt, slots, rows_blk, blk, most, K=k, c_in=c_in,
                     c_out=c_out)
     nb, c2 = slots // blk, c_in * c_out
     _check("g", g, torch.float32, (nb * rows_blk, c_out))
@@ -945,6 +1076,20 @@ def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
     for name, t in (("g", g), ("x_src", x_src), ("w3", w3), ("b3", b3)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h_blocked on {dev}")
+    return ptrs, nb
+
+
+def _fused_edge_conv_bwd_launch(g, h_blocked, x_src, w3, b3, s, *,
+                                c_in: int, c_out: int, rows_blk: int,
+                                blk: int):
+    """One call of B2's kernels (K, c_in and c_out up to 256) on the
+    current stream; see ``fused_edge_conv_bwd_cuda``."""
+    ptrs, nb = _bwd_operands(g, h_blocked, x_src, w3, b3, s, c_in=c_in,
+                             c_out=c_out, rows_blk=rows_blk, blk=blk,
+                             most=_MAX_WIDTH)
+    dt, dev = h_blocked.dtype, h_blocked.device
+    slots, k = h_blocked.shape
+    c2 = c_in * c_out
     name = _conv_library(dt, backward=True)
     lib = _load_kernel(name)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -975,6 +1120,66 @@ def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
     fused_edge_conv_bwd.launches += 1
     total = partial.sum(0)
     return dh, dx_src, total[:k], total[k]
+
+
+def fused_edge_conv_bwd_pieces(launch, g, h_blocked, x_src, w3, b3, s, *,
+                               c_in: int, c_out: int, most: int = _MAX_WIDTH,
+                               **kw):
+    """B2 as ``launch`` (one call of its kernels, or the plain version) on
+    pieces of at most ``most`` of K, c_in and c_out, in
+    ``fused_edge_conv_pieces``' order: each piece takes g's columns of its
+    c_out piece.  dh's columns of a K piece are its pieces' sums over c_in and
+    c_out, dx_src's of a c_in piece those over K and c_out, added in this
+    fixed order; dw3 falls in disjoint blocks; db3 (z summed over the
+    slots, free of K) comes from the first K piece.  Each piece allocates
+    its own scratch (B2's [splits, K+1, c_in c_out] partials at the
+    piece's size)."""
+    k = h_blocked.shape[1]
+    f32 = dict(dtype=torch.float32, device=h_blocked.device)
+    dw3 = torch.empty((k, c_in, c_out), **f32)
+    db3 = torch.empty((c_in, c_out), **f32)
+    gs = {p: g[:, p[0]:p[1]].contiguous() for p in width_pieces(c_out, most)}
+    xs = {p: x_src[:, p[0]:p[1]].contiguous()
+          for p in width_pieces(c_in, most)}
+    dh, dx, h, at = {}, {}, None, None
+    for kp, ip, op, wp, bp in weight_pieces(w3, b3, c_in, c_out, most):
+        if kp != at:
+            h, at = h_blocked[:, kp[0]:kp[1]].contiguous(), kp
+        dh_p, dx_p, dw_p, db_p = launch(gs[op], h, xs[ip], wp, bp, s,
+                                        c_in=ip[1] - ip[0],
+                                        c_out=op[1] - op[0], **kw)
+        dh[kp] = _add(dh.get(kp), dh_p)
+        dx[ip] = _add(dx.get(ip), dx_p)
+        dw3[kp[0]:kp[1], ip[0]:ip[1], op[0]:op[1]] = dw_p.reshape(
+            kp[1] - kp[0], ip[1] - ip[0], op[1] - op[0])
+        if kp[0] == 0:
+            db3[ip[0]:ip[1], op[0]:op[1]] = db_p.reshape(ip[1] - ip[0],
+                                                         op[1] - op[0])
+    return (torch.cat([dh[p] for p in width_pieces(k, most)], dim=1),
+            torch.cat([dx[p] for p in width_pieces(c_in, most)], dim=1),
+            dw3.reshape(k, c_in * c_out), db3.reshape(c_in * c_out))
+
+
+def fused_edge_conv_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
+                             c_out: int, rows_blk: int, blk: int):
+    """Launches the backward kernels on the current stream, on the tensor
+    cores for both types (``design``): csrc/fused_edge_conv_bwd_wgmma.cu
+    for bfloat16, csrc/fused_edge_conv_bwd_f32_wgmma.cu for float32 (after
+    the stage image of w3 and b3, into scratch).  h_blocked, x_src and w3
+    share one dtype (the GEMM input type); g, b3 and S are float32,
+    slot_rows int32.  Checks every operand and raises on what the kernel
+    does not take; raises if a launch fails.  Any K, c_in and c_out: up to
+    256 one call, past it one per piece (``fused_edge_conv_bwd_pieces``;
+    ``fused_edge_conv_bwd.launches`` counts each).  Returns (dh, dx_src,
+    dw3, db3), float32; dw3/db3 are the kernel's per-split partials summed
+    in a fixed order."""
+    kw = dict(c_in=c_in, c_out=c_out, rows_blk=rows_blk, blk=blk)
+    if max(h_blocked.shape[-1], c_in, c_out) <= _MAX_WIDTH:
+        return _fused_edge_conv_bwd_launch(g, h_blocked, x_src, w3, b3, s,
+                                           **kw)
+    _bwd_operands(g, h_blocked, x_src, w3, b3, s, **kw)
+    return fused_edge_conv_bwd_pieces(_fused_edge_conv_bwd_launch, g,
+                                      h_blocked, x_src, w3, b3, s, **kw)
 
 
 def fused_edge_conv_bwd(g, h_blocked, x_src, w3, b3, s, *, c_in: int,
@@ -1115,8 +1320,8 @@ def fused_edge_conv_lowrank_cuda(h_blocked, x, senders_perm, w3, b3, s, *,
     order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out,
-                    rank=rank)
+    _check_geometry(dt, slots, rows_blk, blk, _MAX_WIDTH, _LOWRANK_PAST, K=k,
+                    c_in=c_in, c_out=c_out, rank=rank)
     nb, ncol = slots // blk, rank * (c_in + c_out)
     n = x.shape[0]
     _check("h_blocked", h_blocked, dt, (slots, k))
@@ -1219,8 +1424,8 @@ def fused_edge_conv_lowrank_bwd_cuda(g, h_blocked, x_src, w3, b3, s, *,
     per-split partials summed in a fixed order."""
     dt = h_blocked.dtype
     slots, k = h_blocked.shape
-    _check_geometry(dt, slots, rows_blk, blk, K=k, c_in=c_in, c_out=c_out,
-                    rank=rank)
+    _check_geometry(dt, slots, rows_blk, blk, _MAX_WIDTH, _LOWRANK_PAST, K=k,
+                    c_in=c_in, c_out=c_out, rank=rank)
     nb, ncol = slots // blk, rank * (c_in + c_out)
     _check("g", g, torch.float32, (nb * rows_blk, c_out))
     _check("h_blocked", h_blocked, dt, (slots, k))

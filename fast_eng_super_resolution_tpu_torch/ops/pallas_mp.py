@@ -15,9 +15,13 @@ exactly into three bf16 parts (``split3``), w3 and b3 laid out once per call
 as the kernel's shared-memory stages by its first launch (``stage_image`` is
 that launch's plain version), in the float32 B1's column chunks of c_out
 (``fused_conv.f32_chunks``), past a c_in of 128 in stages of 32 deep
-(``fused_conv.f32_depth``).  K, c_in and c_out run 1..256.  On a CPU tensor
-it runs ``fused_edge_messages_plain``, the same function and the reference
-the kernel is checked against.  Float32 only, and forward only: the JAX
+(``fused_conv.f32_depth``).  One launch takes K, c_in and c_out up to 256;
+past it the wrapper runs pieces of at most 256 of each on the same
+instances (``fused_conv.width_pieces``): the messages are linear in h, x and
+[w3; b3], so pieces of K (b3 in the first only) and of c_in add up and
+pieces of c_out are columns of their own.  On a CPU tensor it runs
+``fused_edge_messages_plain``, the same function and the reference the
+kernel is checked against.  Float32 only, and forward only: the JAX
 kernel has no VJP, so the wrapper refuses inputs that need a gradient.
 """
 
@@ -28,10 +32,9 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .fused_conv import _check, _load_kernel, f32_chunks, f32_depth
-
-_MAX_K = 256
-_MAX_C = 256
+from .fused_conv import (_MAX_WIDTH, _check, _load_kernel, f32_chunks,
+                         f32_depth, forward_pieces, piece_count, piece_width,
+                         weight_pieces)
 
 
 def design() -> str:
@@ -95,7 +98,9 @@ def smem_bytes(k: int, c_in: int, c_out: int) -> int:
     three [n, sd] bf16 operands after 128 bytes of barriers, past a c_in of
     128 X's parts [3, 64, dp] bf16, then the h tiles [64, (K+1) | 1]
     float32: two consumer warpgroups up to a c_in of 128, else one; two
-    tiles each up to a K of 128, else one."""
+    tiles each up to a K of 128, else one.  Past 256 the widest piece's
+    (``fused_conv.piece_width``), the instance a piece runs."""
+    k, c_in, c_out = (piece_width(v) for v in (k, c_in, c_out))
     _, n = f32_chunks(c_out, c_in)
     dp, sd = f32_depth(c_in)
     deep = c_in > 128
@@ -104,16 +109,28 @@ def smem_bytes(k: int, c_in: int, c_out: int) -> int:
             + 4 * hbufs * consumers * 64 * ((k + 1) | 1))
 
 
-def stage_image_cuda(w3: torch.Tensor, b3: torch.Tensor,
-                     c_in: int) -> torch.Tensor:
-    """The kernel's first launch alone, on float32 CUDA tensors w3 [K,
-    c_in*c_out] and b3: the stage image, the same bits as ``stage_image``."""
+def piece_images(image, w3: torch.Tensor, b3: torch.Tensor, c_in: int,
+                 most: int = _MAX_WIDTH) -> torch.Tensor:
+    """``image`` (``stage_image`` or ``stage_image_cuda``) of w3 and b3: up
+    to ``most`` its image; past it each piece's (``fused_conv.weight_pieces``
+    in the order the messages run them) flattened, one after the other."""
+    c_out = w3.shape[1] // c_in
+    if piece_count(w3.shape[0], c_in, c_out, most) == 1:
+        return image(w3, b3, c_in)
+    return torch.cat([image(wp, bp, ip[1] - ip[0]).reshape(-1)
+                      for _, ip, _, wp, bp in weight_pieces(w3, b3, c_in,
+                                                            c_out, most)])
+
+
+def _stage_image_launch(w3: torch.Tensor, b3: torch.Tensor,
+                        c_in: int) -> torch.Tensor:
+    """The kernel's first launch alone at K, c_in and c_out up to 256."""
     k, c2 = w3.shape
     c_out = c2 // c_in
-    if not (1 <= k <= _MAX_K and 1 <= c_in <= _MAX_C and 1 <= c_out <= _MAX_C
-            and c2 == c_in * c_out):
+    if not (1 <= k <= _MAX_WIDTH and 1 <= c_in <= _MAX_WIDTH
+            and 1 <= c_out <= _MAX_WIDTH and c2 == c_in * c_out):
         raise ValueError(f"w3 {tuple(w3.shape)} at c_in={c_in}: outside the "
-                         f"kernel's K 1..{_MAX_K}, widths 1..{_MAX_C}")
+                         f"kernel's K 1..{_MAX_WIDTH}, widths 1..{_MAX_WIDTH}")
     _check("w3", w3, torch.float32, (k, c2))
     _check("b3", b3, torch.float32, (c2,))
     image = torch.empty(image_shape(k, c_in, c_out), dtype=torch.bfloat16,
@@ -128,6 +145,19 @@ def stage_image_cuda(w3: torch.Tensor, b3: torch.Tensor,
     return image
 
 
+def stage_image_cuda(w3: torch.Tensor, b3: torch.Tensor,
+                     c_in: int) -> torch.Tensor:
+    """The kernel's first launch alone, on float32 CUDA tensors w3 [K,
+    c_in*c_out] and b3: the stage image, the same bits as ``stage_image``;
+    past 256 each piece's, as ``piece_images`` lays them out."""
+    if w3.dim() != 2 or c_in < 1 or w3.shape[1] % c_in or not w3.shape[1]:
+        raise ValueError(f"w3 {tuple(w3.shape)} at c_in={c_in}: not [K, "
+                         "c_in c_out]")
+    _check("w3", w3, torch.float32, tuple(w3.shape))
+    _check("b3", b3, torch.float32, (w3.shape[1],))
+    return piece_images(_stage_image_launch, w3, b3, c_in)
+
+
 def fused_edge_messages_plain(h: torch.Tensor, x_src: torch.Tensor,
                               w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of ``fused_edge_messages`` in float32:
@@ -138,37 +168,49 @@ def fused_edge_messages_plain(h: torch.Tensor, x_src: torch.Tensor,
     return torch.einsum("ei,eio->eo", x_src.float(), w)
 
 
-def fused_edge_messages_cuda(h: torch.Tensor, x_src: torch.Tensor,
-                             w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
-    """Launches the CUDA kernels on the current stream (the stage image of
-    w3 and b3 into scratch, then the messages): every operand float32,
-    contiguous and on one device; K, c_in and c_out in 1..256.
-    Checks every operand and raises on what the kernel does not take; raises
-    if the launch fails."""
+def _messages_operands(h: torch.Tensor, x_src: torch.Tensor,
+                       w3: torch.Tensor, b3: torch.Tensor,
+                       most: int | None = None) -> tuple:
+    """Checks B5's operands (K, c_in and c_out up to ``most``, if given)
+    and raises on what the kernel does not take; returns (E, K, c_in,
+    c_out)."""
     if h.dim() != 2 or x_src.dim() != 2 or w3.dim() != 2:
         raise ValueError("h, x_src and w3 must be 2-D")
     e, k = h.shape
     c_in = x_src.shape[1]
     c2 = w3.shape[1]
-    if not 1 <= k <= _MAX_K:
-        raise ValueError(f"K={k} outside the kernel's 1..{_MAX_K}")
-    if not 1 <= c_in <= _MAX_C or c2 % c_in:
-        raise ValueError(f"c_in={c_in} outside 1..{_MAX_C} or not dividing "
+    top = most or "any"
+
+    def out_of(v: int) -> bool:
+        return v < 1 or (most is not None and v > most)
+
+    if out_of(k):
+        raise ValueError(f"K={k} outside the kernel's 1..{top}")
+    if out_of(c_in) or c2 % c_in:
+        raise ValueError(f"c_in={c_in} outside 1..{top} or not dividing "
                          f"w3's {c2} columns")
     c_out = c2 // c_in
     if e >= 2**31:
         raise ValueError(f"E={e} edges: the kernel takes fewer than 2^31")
-    if not 1 <= c_out <= _MAX_C:
-        raise ValueError(f"c_out={c_out} outside the kernel's 1..{_MAX_C}")
+    if out_of(c_out):
+        raise ValueError(f"c_out={c_out} outside the kernel's 1..{top}")
     f32 = torch.float32
     _check("h", h, f32, (e, k))
     _check("x_src", x_src, f32, (e, c_in))
     _check("w3", w3, f32, (k, c2))
     _check("b3", b3, f32, (c2,))
-    dev = h.device
     for name, t in (("x_src", x_src), ("w3", w3), ("b3", b3)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, h on {dev}")
+        if t.device != h.device:
+            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
+    return e, k, c_in, c_out
+
+
+def _messages_launch(h: torch.Tensor, x_src: torch.Tensor, w3: torch.Tensor,
+                     b3: torch.Tensor) -> torch.Tensor:
+    """One call of the kernel (the stage image, then the messages) at K,
+    c_in and c_out up to 256; see ``fused_edge_messages_cuda``."""
+    e, k, c_in, c_out = _messages_operands(h, x_src, w3, b3, _MAX_WIDTH)
+    f32, dev = torch.float32, h.device
     out = torch.empty((e, c_out), dtype=f32, device=dev)
     if e == 0:
         return out
@@ -188,6 +230,35 @@ def fused_edge_messages_cuda(h: torch.Tensor, x_src: torch.Tensor,
             "memory per block)")
     fused_edge_messages.launches += 1
     return out
+
+
+def fused_edge_messages_pieces(launch, h: torch.Tensor, x_src: torch.Tensor,
+                               w3: torch.Tensor, b3: torch.Tensor,
+                               most: int = _MAX_WIDTH) -> torch.Tensor:
+    """B5 as ``launch`` (one call of the kernel, or the plain version) on
+    pieces of at most ``most`` of K, c_in and c_out
+    (``fused_conv.forward_pieces``)."""
+    c_in = x_src.shape[1]
+    return forward_pieces(
+        lambda hp, xp, wp, bp, ci, co: launch(hp, xp, wp, bp),
+        h, x_src, w3, b3, c_in, w3.shape[1] // c_in, most)
+
+
+def fused_edge_messages_cuda(h: torch.Tensor, x_src: torch.Tensor,
+                             w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+    """Launches the CUDA kernels on the current stream (the stage image of
+    w3 and b3 into scratch, then the messages): every operand float32,
+    contiguous and on one device; any K, c_in and c_out: up to 256 one
+    call, past it one per piece (``fused_edge_messages_pieces``, each with
+    its own stage image; ``fused_edge_messages.launches`` counts each).
+    Checks every operand and raises on what the kernel does not take;
+    raises if a launch fails."""
+    c_in = x_src.shape[-1]
+    if c_in < 1 or max(h.shape[-1], c_in, w3.shape[-1] // c_in) <= _MAX_WIDTH:
+        # one launch (or what its checks refuse), its own checks only
+        return _messages_launch(h, x_src, w3, b3)
+    _messages_operands(h, x_src, w3, b3)
+    return fused_edge_messages_pieces(_messages_launch, h, x_src, w3, b3)
 
 
 def fused_edge_messages(h: torch.Tensor, x_src: torch.Tensor,

@@ -612,25 +612,46 @@ def _small(k=6, c=8):
     return fwd, bwd, dict(c_in=c, c_out=c, rows_blk=64, blk=blocks.blk)
 
 
+# (bad operand, the wrapper's refusal, one launch's refusal): past 256 the
+# wrapper runs pieces, so c_out 257 gets as far as the device check, while
+# one launch still refuses it as the kernel does
+GEOMETRY_CASES = [
+    pytest.param({"c_out": 257}, "needs CUDA tensors", "c_out=257 outside",
+                 id="bad0-c_out=257"),
+    pytest.param({"c_in": 0}, "c_in=0", "c_in=0", id="bad1-c_in=0"),
+    pytest.param({"rows_blk": 16}, "rows_blk=16", "rows_blk=16",
+                 id="bad2-rows_blk=16"),
+    pytest.param({"blk": 32}, "blk=32", "blk=32", id="bad3-blk=32")]
+
+
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
-@pytest.mark.parametrize("bad,match", [
-    ({"c_out": 257}, "c_out=257"), ({"c_in": 0}, "c_in=0"),
-    ({"rows_blk": 16}, "rows_blk=16"), ({"blk": 32}, "blk=32")])
-def test_f32_wrappers_refuse_geometry_before_launch(which, bad, match):
+@pytest.mark.parametrize("bad,match,launch_match", GEOMETRY_CASES)
+def test_f32_wrappers_refuse_geometry_before_launch(which, bad, match,
+                                                    launch_match):
     fwd, bwd, kw = _small()
     assert fwd[0].dtype == torch.float32
-    fn, args = ((tfc.fused_edge_conv_cuda, fwd) if which == "fwd"
-                else (tfc.fused_edge_conv_bwd_cuda, bwd))
+    fn, launch, args = (
+        (tfc.fused_edge_conv_cuda, tfc._fused_edge_conv_launch, fwd)
+        if which == "fwd" else
+        (tfc.fused_edge_conv_bwd_cuda, tfc._fused_edge_conv_bwd_launch, bwd))
     with pytest.raises(ValueError, match=match):
         fn(*args, **{**kw, **bad})
+    with pytest.raises(ValueError, match=launch_match):
+        launch(*args, **{**kw, **bad})
 
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 def test_f32_wrappers_refuse_k_past_256_cpu_tensors_and_float64(which):
     fn = tfc.fused_edge_conv_cuda if which == "fwd" else tfc.fused_edge_conv_bwd_cuda
     pick = (lambda f, b: f) if which == "fwd" else (lambda f, b: b)
+    launch = (tfc._fused_edge_conv_launch if which == "fwd"
+              else tfc._fused_edge_conv_bwd_launch)
+    # one launch refuses K 257 as the kernel does; the wrapper runs it as
+    # two pieces: past the geometry, it stops at the CPU tensors
     fwd, bwd, kw = _small(k=257)
-    with pytest.raises(ValueError, match="K=257"):
+    with pytest.raises(ValueError, match="K=257 outside the kernel's 1..256"):
+        launch(*pick(fwd, bwd), **kw)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         fn(*pick(fwd, bwd), **kw)
     fwd, bwd, kw = _small()
     with pytest.raises(ValueError, match="needs CUDA tensors"):

@@ -150,8 +150,8 @@ def test_bwd_wrapper_checks_operands(cuda):
                                      *args[3:], **kw)
     with pytest.raises(ValueError):  # 16-row blocks
         tfc.fused_edge_conv_bwd_cuda(*args, **{**kw, "rows_blk": 16})
-    with pytest.raises(ValueError):  # wider than the kernel's 256
-        tfc.fused_edge_conv_bwd_cuda(*args, **{**kw, "c_out": 257})
+    with pytest.raises(ValueError):  # a width of 0 (257 runs as pieces)
+        tfc.fused_edge_conv_bwd_cuda(*args, **{**kw, "c_out": 0})
     with pytest.raises(ValueError):  # a CPU operand among CUDA ones
         tfc.fused_edge_conv_bwd_cuda(*args[:4], args[4].cpu(), args[5], **kw)
 
@@ -213,17 +213,12 @@ def test_kernels_past_k64_match_plain(cuda, c, k, compact, gemm_dtype):
         assert err < BWD_TOL, (name, err)
 
 
-def test_k_limits_of_b1_and_b2(cuda):
-    blocks, h, x, w3, b3 = _operands(8, k=257, seed=16)
-    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
-    kw = dict(c_in=8, c_out=8, rows_blk=64, blk=blocks.blk)
-    with pytest.raises(ValueError, match="K=257"):
-        tfc.fused_edge_conv_cuda(t(h), t(x), t(blocks.senders_perm), t(w3),
-                                 t(b3), blocks.compact_s.to("cuda"), **kw)
-    with pytest.raises(ValueError, match="K=257"):
-        tfc.fused_edge_conv_bwd_cuda(
-            t(_g(blocks, 8, 17)), t(h), t(x[blocks.senders_perm]), t(w3),
-            t(b3), blocks.compact_s.to("cuda"), **kw)
+@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
+def test_k_limits_of_b1_and_b2(cuda, gemm_dtype):
+    """K 257 runs as two pieces of K (136, 121) on the existing instances:
+    B1 and B2 against their plain versions, two launches a call, repeats
+    bit-identical.  (The name is from when K 257 was refused.)"""
+    _check_wide(8, 8, 257, True, gemm_dtype)
 
 
 def _wide_operands(c_in, c_out, k, seed, n=100, e=700):
@@ -257,12 +252,10 @@ WIDE = [(c_in, c_out, k) for c_in, c_out in
     (48, 256, 256), (256, 40, 72)]
 
 
-@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("compact", [True, False])
-@pytest.mark.parametrize("c_in,c_out,k", WIDE)
-def test_wide_kernels_match_plain(cuda, c_in, c_out, k, compact, gemm_dtype):
-    """B1 and B2 at widths 65-256 against their plain versions (1e-5 of the
-    max, as at the narrow widths), each launched twice with the same bits."""
+def _check_wide(c_in, c_out, k, compact, gemm_dtype):
+    """B1 and B2 at (c_in, c_out, K) against their plain versions on the
+    CPU (1e-5 of the max), each called twice with the same bits and
+    launched once per piece (``tfc.width_pieces``: one up to 256)."""
     # past 128 two small receiver blocks: the plain versions on the CPU
     # build [slots, c_in c_out]
     e = 250 if max(c_in, c_out) > 128 else 700
@@ -281,11 +274,12 @@ def test_wide_kernels_match_plain(cuda, c_in, c_out, k, compact, gemm_dtype):
                                         t["w3"], t["b3"], s, **kw)
         return [a.cpu() for a in (out, *grads)]
 
+    pieces = tfc.piece_count(k, c_in, c_out)
     fwd, bwd = tfc.fused_edge_conv.launches, tfc.fused_edge_conv_bwd.launches
     got, again = run("cuda"), run("cuda")
     torch.cuda.synchronize()
-    assert tfc.fused_edge_conv.launches == fwd + 2
-    assert tfc.fused_edge_conv_bwd.launches == bwd + 2
+    assert tfc.fused_edge_conv.launches == fwd + 2 * pieces
+    assert tfc.fused_edge_conv_bwd.launches == bwd + 2 * pieces
     for name, a, b, r in zip(("out", "dh", "dx_src", "dw3", "db3"), got,
                              again, run("cpu")):
         assert a.shape == r.shape, name
@@ -294,26 +288,38 @@ def test_wide_kernels_match_plain(cuda, c_in, c_out, k, compact, gemm_dtype):
         assert err < BWD_TOL, (name, err)
 
 
-def test_width_limits_of_b1_and_b2(cuda):
-    """257 is past B1's and B2's widths: the wrappers raise before any
-    launch, in both types."""
-    blocks, o = _wide_operands(8, 8, 6, seed=18)
-    t = {key: torch.as_tensor(v, device="cuda") for key, v in o.items()}
-    sp = torch.as_tensor(blocks.senders_perm, device="cuda")
-    for dt in (torch.float32, torch.bfloat16):
-        fwd, bwd = tfc.fused_edge_conv.launches, tfc.fused_edge_conv_bwd.launches
-        for bad in ({"c_in": 257}, {"c_out": 257}):
-            kw = {**dict(c_in=8, c_out=8, rows_blk=64, blk=blocks.blk), **bad}
-            with pytest.raises(ValueError, match="257"):
-                tfc.fused_edge_conv_cuda(
-                    t["h"].to(dt), t["x"].to(dt), sp, t["w3"].to(dt), t["b3"],
-                    blocks.compact_s.to("cuda"), **kw)
-            with pytest.raises(ValueError, match="257"):
-                tfc.fused_edge_conv_bwd_cuda(
-                    t["g"], t["h"].to(dt), t["x"][sp.long()].to(dt),
-                    t["w3"].to(dt), t["b3"], blocks.compact_s.to("cuda"), **kw)
-        assert tfc.fused_edge_conv.launches == fwd
-        assert tfc.fused_edge_conv_bwd.launches == bwd
+@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("c_in,c_out,k", WIDE)
+def test_wide_kernels_match_plain(cuda, c_in, c_out, k, compact, gemm_dtype):
+    """B1 and B2 at widths 65-256 against their plain versions (1e-5 of the
+    max, as at the narrow widths), each launched twice with the same bits."""
+    _check_wide(c_in, c_out, k, compact, gemm_dtype)
+
+
+@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
+def test_width_limits_of_b1_and_b2(cuda, gemm_dtype):
+    """c_in 257 and c_out 257 run as two pieces each (136, 121) on the
+    existing instances: B1 and B2 against their plain versions, two
+    launches a call, repeats bit-identical.  (The name is from when 257 was
+    refused.)"""
+    for c_in, c_out in ((257, 8), (8, 257)):
+        _check_wide(c_in, c_out, 6, True, gemm_dtype)
+
+
+# (c_in, c_out, K) past 256 in more than one dimension: 2 x 2 x 3 pieces
+# (264, 300, 520: c_out in three of 176, 176, 168), 2 x 1 x 3 (520, 264,
+# 136: K in three), 3 x 1 x 1 (c_in 600 at K 17, c_out 40)
+PIECES = [(300, 520, 264), (264, 136, 520), (600, 40, 17)]
+
+
+@pytest.mark.parametrize("gemm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c_in,c_out,k", PIECES)
+def test_pieces_past_256_match_plain(cuda, c_in, c_out, k, gemm_dtype):
+    """B1 and B2 past 256 in pieces of at most 256 of each of K, c_in and
+    c_out, against their plain versions: launches equal to the pieces,
+    repeats bit-identical."""
+    _check_wide(c_in, c_out, k, True, gemm_dtype)
 
 
 # The bfloat16 B1 and B2 run on the tensor cores (csrc/*_wgmma.cu), and so
@@ -578,11 +584,11 @@ def test_messages_wrapper_checks_operands(cuda):
         fn(h, x.t().contiguous().t(), w3, b3)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         fn(h, x, w3, b3.cpu())
-    with pytest.raises(ValueError, match="K=257"):
-        fn(torch.zeros(100, 257, device="cuda"), x,
-           torch.zeros(257, 64, device="cuda"), b3)
-    with pytest.raises(ValueError, match="c_out"):
-        fn(h, x[:, :1].contiguous(), torch.zeros(6, 257, device="cuda"),
+    with pytest.raises(ValueError, match="K=0"):  # 257 runs as pieces
+        fn(torch.zeros(100, 0, device="cuda"), x,
+           torch.zeros(0, 64, device="cuda"), b3)
+    with pytest.raises(ValueError, match="not dividing"):
+        fn(h, x[:, :5].contiguous(), torch.zeros(6, 257, device="cuda"),
            torch.zeros(257, device="cuda"))
     with pytest.raises(RuntimeError, match="no backward"):
         pallas_mp.fused_edge_messages(h, x, w3.requires_grad_(), b3)
@@ -652,19 +658,47 @@ def test_messages_stage_image_kernel_matches_plain(cuda, c_in, c_out, k):
     assert torch.equal(image.cpu().view(torch.int16), want.view(torch.int16))
 
 
+def _check_messages_pieces(e, k, c_in, c_out, seed):
+    """B5 at (K, c_in, c_out) on ``e`` edges against its plain version:
+    launched once per piece (``tfc.width_pieces``), repeats bit-identical,
+    each piece's stage image bit-equal to ``stage_image``'s."""
+    ops = [torch.as_tensor(a, device="cuda")
+           for a in _rect_messages_operands(e, k, c_in, c_out, seed=seed)]
+    pieces = tfc.piece_count(k, c_in, c_out)
+    before = pallas_mp.fused_edge_messages.launches
+    with torch.no_grad():
+        got = pallas_mp.fused_edge_messages(*ops)
+        assert pallas_mp.fused_edge_messages.launches == before + pieces
+        again = pallas_mp.fused_edge_messages_cuda(*ops)
+        ref = pallas_mp.fused_edge_messages_plain(*ops)
+        image = pallas_mp.stage_image_cuda(ops[2], ops[3], c_in)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (e, c_out)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    err = (got - ref).abs().max().item() / ref.abs().max().item()
+    assert err < MSG_TOL, err
+    want = pallas_mp.piece_images(pallas_mp.stage_image, ops[2].cpu(),
+                                  ops[3].cpu(), c_in)
+    assert torch.equal(image.cpu().view(torch.int16), want.view(torch.int16))
+
+
 @pytest.mark.parametrize("k,c_in,c_out", [(257, 8, 8), (8, 257, 8),
                                           (8, 8, 257)])
 def test_messages_limits(cuda, k, c_in, c_out):
-    """Past 256 (K, c_in or c_out) the wrapper raises before any launch,
-    naming the limit; at 256 it launches."""
-    ops = [torch.as_tensor(a, device="cuda")
-           for a in _rect_messages_operands(70, k, c_in, c_out, seed=13)]
-    before = pallas_mp.fused_edge_messages.launches
-    with torch.no_grad(), pytest.raises(ValueError, match="1..256"):
-        pallas_mp.fused_edge_messages(*ops)
-    assert pallas_mp.fused_edge_messages.launches == before
+    """Past 256 (K, c_in or c_out) the wrapper runs two pieces of it on
+    the existing instances, against the plain version; at 256 one launch.
+    (The name is from when 257 was refused.)"""
+    _check_messages_pieces(70, k, c_in, c_out, seed=13)
     top = [min(v, 256) for v in (k, c_in, c_out)]
     assert _messages_rel(*_rect_messages_operands(70, *top, seed=14)) < MSG_TOL
+
+
+@pytest.mark.parametrize("k,c_in,c_out", [(264, 300, 520), (520, 264, 136),
+                                          (17, 600, 40)])
+def test_messages_pieces_past_256_match_plain(cuda, k, c_in, c_out):
+    """B5 past 256 in more than one dimension (12, 6 and 3 pieces) on 700
+    edges."""
+    _check_messages_pieces(700, k, c_in, c_out, seed=k + c_in)
 
 
 # (K, c_in, c_out) past 128: c_in alone (96, 200, 72: X's parts in shared

@@ -373,14 +373,24 @@ def _cpu(e=40, k=6, c_in=8, c_out=8):
     return torch.as_tensor(h), torch.as_tensor(x), w3, b3
 
 
+# (shape, one launch's refusal, named as the kernel names it): past 256 the
+# wrapper runs pieces, so 257 in K, c_in or c_out gets as far as the
+# device check, while one launch still refuses it
 @pytest.mark.parametrize("shape,match", [
-    (dict(k=257), "K=257 outside the kernel's 1..256"),
-    (dict(c_in=257, c_out=2), "c_in=257 outside 1..256"),
-    (dict(c_in=2, c_out=257), "c_out=257 outside the kernel's 1..256")])
+    pytest.param(dict(k=257), "K=257 outside the kernel's 1..256",
+                 id="shape0-K=257 outside the kernel's 1..256"),
+    pytest.param(dict(c_in=257, c_out=2), "c_in=257 outside 1..256",
+                 id="shape1-c_in=257 outside 1..256"),
+    pytest.param(dict(c_in=2, c_out=257),
+                 "c_out=257 outside the kernel's 1..256",
+                 id="shape2-c_out=257 outside the kernel's 1..256")])
 def test_wrapper_refuses_geometry(shape, match):
-    """Past 256 (K, c_in or c_out) the wrapper raises before any launch,
-    naming the limit."""
+    """One launch refuses K, c_in or c_out past 256, naming the limit, before
+    it looks for a card; the wrapper runs such a width as pieces, so it
+    gets as far as the device check, before any launch."""
     with pytest.raises(ValueError, match=match):
+        pallas_mp._messages_launch(*_cpu(**shape))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         pallas_mp.fused_edge_messages_cuda(*_cpu(**shape))
 
 

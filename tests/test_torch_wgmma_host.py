@@ -174,27 +174,50 @@ def _small(dt=torch.bfloat16, c=8, k=6):
     return blocks, fwd, bwd, dict(c_in=c, c_out=c, rows_blk=64, blk=blocks.blk)
 
 
+# (bad operand, the wrapper's refusal, one launch's refusal): past 256 the
+# wrapper runs pieces, so c_out 257 gets as far as the device check, while
+# one launch still refuses it as the kernel does
+GEOMETRY_CASES = [
+    pytest.param({"c_out": 257}, "needs CUDA tensors", "c_out=257 outside",
+                 id="bad0-c_out=257"),
+    pytest.param({"c_in": 0}, "c_in=0", "c_in=0", id="bad1-c_in=0"),
+    pytest.param({"rows_blk": 16}, "rows_blk=16", "rows_blk=16",
+                 id="bad2-rows_blk=16"),
+    pytest.param({"blk": 32}, "blk=32", "blk=32", id="bad3-blk=32")]
+
+
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
-@pytest.mark.parametrize("bad,match", [
-    ({"c_out": 257}, "c_out=257"), ({"c_in": 0}, "c_in=0"),
-    ({"rows_blk": 16}, "rows_blk=16"), ({"blk": 32}, "blk=32")])
-def test_wrappers_refuse_geometry_before_launch(which, bad, match):
+@pytest.mark.parametrize("bad,match,launch_match", GEOMETRY_CASES)
+def test_wrappers_refuse_geometry_before_launch(which, bad, match,
+                                                launch_match):
     """The bfloat16 wrappers refuse what the tensor-core kernels do not take
-    (widths past 256, blocks of other than 64 rows, blk not a multiple of
-    64) before they look for a card."""
+    (a width of 0, blocks of other than 64 rows, blk not a multiple of 64)
+    before they look for a card; a width past 256 (pieces) gets as far as
+    the device check, and one launch refuses it."""
     _, fwd, bwd, kw = _small()
-    fn, args = ((tfc.fused_edge_conv_cuda, fwd) if which == "fwd"
-                else (tfc.fused_edge_conv_bwd_cuda, bwd))
+    fn, launch, args = (
+        (tfc.fused_edge_conv_cuda, tfc._fused_edge_conv_launch, fwd)
+        if which == "fwd" else
+        (tfc.fused_edge_conv_bwd_cuda, tfc._fused_edge_conv_bwd_launch, bwd))
     with pytest.raises(ValueError, match=match):
         fn(*args, **{**kw, **bad})
+    with pytest.raises(ValueError, match=launch_match):
+        launch(*args, **{**kw, **bad})
 
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 def test_wrappers_refuse_k_past_256_and_cpu_tensors(which):
+    """One launch refuses K 257 as the kernel does; the wrapper runs it as
+    two pieces, so it passes the geometry and, like K 6, stops at the CPU
+    tensors."""
     _, fwd, bwd, kw = _small(k=257)
-    fn, args = ((tfc.fused_edge_conv_cuda, fwd) if which == "fwd"
-                else (tfc.fused_edge_conv_bwd_cuda, bwd))
-    with pytest.raises(ValueError, match="K=257"):
+    fn, launch, args = (
+        (tfc.fused_edge_conv_cuda, tfc._fused_edge_conv_launch, fwd)
+        if which == "fwd" else
+        (tfc.fused_edge_conv_bwd_cuda, tfc._fused_edge_conv_bwd_launch, bwd))
+    with pytest.raises(ValueError, match="K=257 outside the kernel's 1..256"):
+        launch(*args, **kw)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         fn(*args, **kw)
     _, fwd, bwd, kw = _small()
     args = fwd if which == "fwd" else bwd
@@ -203,19 +226,24 @@ def test_wrappers_refuse_k_past_256_and_cpu_tensors(which):
 
 
 def test_geometry_limits_are_each_kernels_own():
-    """B1 and B2 take K, c_in and c_out up to 256, B3 and B4 the same at
-    ranks up to 256: 257 and rank 257 are refused before any launch."""
+    """B1 and B2 take any K, c_in and c_out (past 256 as pieces), one
+    launch up to 256; B3 and B4 take them and ranks up to 256: 257 and
+    rank 257 are refused before any launch, naming ROADMAP queue B (c4)."""
     conv = dict(K=256, c_in=256, c_out=256)
     tfc._check_geometry(torch.float32, 128, 64, 64, **conv)
+    tfc._check_geometry(torch.float32, 128, 64, 64, **dict(conv, K=257))
     with pytest.raises(ValueError, match="K=257 outside the kernel's 1..256"):
-        tfc._check_geometry(torch.float32, 128, 64, 64, **dict(conv, K=257))
-    with pytest.raises(ValueError, match="c_in=257 outside the kernel's 1..256"):
-        tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=48, c_in=257,
-                            c_out=48, rank=16)
+        tfc._check_geometry(torch.float32, 128, 64, 64, tfc._MAX_WIDTH,
+                            **dict(conv, K=257))
+    low = (tfc._MAX_WIDTH, tfc._LOWRANK_PAST)
+    with pytest.raises(ValueError, match=r"c_in=257 outside the kernel's "
+                       r"1..256 \(B3/B4 past 256: ROADMAP.md queue B \(c4\)"):
+        tfc._check_geometry(torch.bfloat16, 128, 64, 64, *low, K=48,
+                            c_in=257, c_out=48, rank=16)
     with pytest.raises(ValueError, match="rank=257 outside the kernel's 1..256"):
-        tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=48, c_in=48,
+        tfc._check_geometry(torch.bfloat16, 128, 64, 64, *low, K=48, c_in=48,
                             c_out=48, rank=257)
-    tfc._check_geometry(torch.bfloat16, 128, 64, 64, K=256, c_in=256,
+    tfc._check_geometry(torch.bfloat16, 128, 64, 64, *low, K=256, c_in=256,
                         c_out=256, rank=256)
 
 
